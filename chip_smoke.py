@@ -4,12 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
-with nvcc, holds each kernel against its plain PyTorch version on the card,
-then serves the engine benchmark's model (vocab 32768, d_model 1024, 4
-layers, 8/2 heads of 128, d_ff 4096, bf16; random weights from a seed)
-end to end: two batched admissions and 67 decode steps. It fails if a
-kernel does not build, launch or agree, if the engine did not go through
-both kernels, or if its output disagrees with the plain path.
+with nvcc and holds each kernel against its plain PyTorch version on the
+card (the flash forward, the flash backward's dq and dk/dv kernels, the
+paged decode). Then it runs the engine benchmark's model (vocab 32768,
+d_model 1024, 4 layers, 8/2 heads of 128, d_ff 4096, bf16; random weights
+from a seed) on its two main paths: serving, two batched admissions and 67
+decode steps; and training, AdamW steps at batch 4 x seq 2048 and 1 x 8192
+(benchmarks/train_bench.py's configs). It fails if a kernel does not build,
+launch or agree, if a path did not go through its kernels, if the engine's
+output disagrees with the plain path, or if the train step's loss is not
+finite, does not fall, or its gradients disagree with those through the
+plain attention.
 
 Stdout: one line per check, then the kernels' JSON line, then the card's
 name and power limit, then as the last line
@@ -47,6 +52,20 @@ DECODE_LSE_GATE = 1e-4
 # largest |logit|: earlier runs read 0.0391 of 4.688 (0.83 %) at prefill
 # and 0.0352 (0.76 %) at the first decode step.
 ENGINE_LOGIT_GATE = 1.5e-2
+# The backward kernels against their plain version, which repeats their
+# rounding points, relative to the largest |gradient|: earlier runs read at
+# most 3.45e-3 in bf16 (one bf16 ulp of a result is at most 2^-7 of it,
+# 7.8e-3) and 2.24e-6 in f32.
+BWD_PLAIN_GATE = {torch.bfloat16: 8e-3, torch.float32: 2e-5}
+# ... and against autograd through the f32 plain forward (the oracle of
+# tests/test_flash_tri.py:265), at the dtype gates: earlier runs read at
+# most 1.24e-2 in bf16 and 2.64e-6 in f32.
+BWD_ORACLE_GATE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# One train step's gradients through the kernels against those through
+# attn_impl="reference", per parameter, by relative Frobenius norm: earlier
+# runs read 1.89e-2 (bf16 activations round at other points in the two
+# attention paths).
+TRAIN_GRAD_GATE = 3e-2
 
 # (name, q shape, kv shape, dtype, causal)
 FLASH_CASES = [
@@ -78,20 +97,44 @@ def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_bound(q, k, causal: bool) -> tuple[float, str]:
-    """Least time for the forward: 4 * d flops per visible (row, column)
-    pair, q/k/v read once, out and the f32 LSE written once."""
-    b, hq, q_len, d = q.shape
+def _visible_pairs(q, k, causal: bool) -> float:
+    """(row, column) pairs the mask lets through, over all heads."""
+    b, hq, q_len, _ = q.shape
     kv_len = k.shape[2]
     if causal:
         rows = np.arange(q_len) + (kv_len - q_len) + 1
         pairs = float(np.clip(rows, 0, kv_len).sum())
     else:
         pairs = float(q_len) * kv_len
-    flops = 4.0 * b * hq * d * pairs
+    return b * hq * pairs
+
+
+def flash_bound(q, k, causal: bool) -> tuple[float, str]:
+    """Least time for the forward: 4 * d flops per visible (row, column)
+    pair, q/k/v read once, out and the f32 LSE written once."""
+    flops = 4.0 * q.shape[-1] * _visible_pairs(q, k, causal)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-        + b * hq * q_len * 4
+        + q[..., 0].numel() * 4
     return _bound(flops, nbytes, q.dtype)
+
+
+def bwd_bound(q, k, causal: bool, part: str) -> tuple[float, str]:
+    """Least time for the backward or one of its kernels: 2 * d flops per
+    visible pair for each product it computes (the backward as a whole needs
+    5: s, dp, dv, dk, dq; the dq kernel computes 3: s, dp, dq; the dk/dv
+    kernel 4: s, dp, dv, dk). The backward reads q, k, v, out, do and the
+    f32 LSE once, a kernel q, k, v, do, the LSE and the f32 delta; each
+    writes its gradients once."""
+    products = {"all": 5, "dq": 3, "dkv": 4}[part]
+    flops = 2.0 * products * q.shape[-1] * _visible_pairs(q, k, causal)
+    el, rows = q.element_size(), q[..., 0].numel()
+    if part == "all":                  # q, out, do, k, v, lse
+        reads = (3 * q.numel() + 2 * k.numel()) * el + rows * 4
+    else:                              # q, do, k, v, lse, delta
+        reads = (2 * q.numel() + 2 * k.numel()) * el + 2 * rows * 4
+    writes = {"all": q.numel() + 2 * k.numel(), "dq": q.numel(),
+              "dkv": 2 * k.numel()}[part] * el
+    return _bound(flops, reads + writes, q.dtype)
 
 
 def decode_bound(q, pages, lengths, table, page_size) -> tuple[float, str]:
@@ -233,15 +276,20 @@ def decode_inputs(gen, *, batch=8, hq=8, hkv=2, d=128, ps=128, P=32):
 def check_not_ported_raise() -> None:
     """What this slice leaves out raises on the card, never falls back."""
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_attention)
 
     q = torch.zeros((1, 2, 128, 128), device="cuda", dtype=torch.bfloat16)
     seg = torch.zeros((1, 128), device="cuda", dtype=torch.int32)
+    lse = torch.zeros((1, 2, 128), device="cuda")
     attempts = [
         lambda: flash_attention(q, q, q, causal=True, window=64),
         lambda: flash_attention(q, q, q, segment_ids=(seg, seg)),
         lambda: flash_attention(q, q.to(torch.int8), q.to(torch.int8)),
+        lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
+                                    q, lse, q, causal=True),
         lambda: fused_paged_decode_attention(
             q[:, :, 0], torch.zeros((2, 4, 2 * 16 + 8, 128), device="cuda",
                                     dtype=torch.int8),
@@ -257,7 +305,113 @@ def check_not_ported_raise() -> None:
     log("not-ported features raise NotImplementedError on the card: ok")
 
 
-# --- phase 4: the engine end to end -------------------------------------------
+# --- phase 4: flash backward, kernels vs plain and the oracle -----------------
+
+# (name, q shape, kv shape, dtype, causal); the first two are the train
+# step's per-layer shapes
+BWD_CASES = [
+    ("train step 4 x 2048 (tri regime)", (4, 8, 2048, 128), (4, 2, 2048, 128),
+     torch.bfloat16, True),
+    ("train step 1 x 8192 (tri with head splits, banded regime)",
+     (1, 8, 8192, 128), (1, 2, 8192, 128), torch.bfloat16, True),
+    ("causal 768 (fused work-list regime)", (2, 8, 768, 128),
+     (2, 2, 768, 128), torch.bfloat16, True),
+    ("non-causal 1024", (2, 8, 1024, 128), (2, 2, 1024, 128),
+     torch.bfloat16, False),
+    ("decode offset q128/kv2048", (2, 8, 128, 128), (2, 2, 2048, 128),
+     torch.bfloat16, True),
+    ("empty rows q2048/kv128", (2, 8, 2048, 128), (2, 2, 128, 128),
+     torch.bfloat16, True),
+    ("causal 1024 f32", (1, 8, 1024, 128), (1, 2, 1024, 128), torch.float32,
+     True),
+]
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
+    """The backward kernels vs their plain version and vs autograd through
+    the f32 plain forward on one shape; then the device times of the whole
+    backward call, of each kernel alone, of the plain version and of SDPA's
+    backward."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.ops import flash_bwd as FB
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    q = randn(q_shape, dtype, gen)
+    k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
+    do = randn(q_shape, dtype, gen)
+    sm_scale = 1.0 / q_shape[-1] ** 0.5
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    plain = FB.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, sm_scale=sm_scale)
+    err_plain = [_rel_err(g, w) for g, w in zip(got, plain)]
+    abs_err = max(max_err(g, w) for g, w in zip(got, plain))
+    del plain
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_plain(*leaves, causal=causal, sm_scale=sm_scale)
+    oracle = torch.autograd.grad(ref, leaves, do.float())
+    err_oracle = [_rel_err(g, w) for g, w in zip(got, oracle)]
+    del ref, oracle, leaves
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = (finite and max(err_plain) <= BWD_PLAIN_GATE[dtype]
+          and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
+
+    args = FB._bwd_inputs(q, k, v, out, lse, do)
+    dq, dk, dv = (torch.empty_like(g) for g in got)
+    t_call = cuda_time_ms(lambda: FB.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=causal), iters=iters)["median_ms"]
+    t_dq = cuda_time_ms(lambda: FB._launch(
+        *args, dq=dq, dk=None, dv=None, causal=causal, sm_scale=sm_scale),
+        iters=iters)["median_ms"]
+    t_dkv = cuda_time_ms(lambda: FB._launch(
+        *args, dq=None, dk=dk, dv=dv, causal=causal, sm_scale=sm_scale),
+        iters=iters)["median_ms"]
+    t_plain = cuda_time_ms(lambda: FB.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal=causal, sm_scale=sm_scale),
+        iters=2 if q_shape[2] >= 8192 else iters)["median_ms"]
+    mask = None
+    if causal and q_shape[2] != kv_shape[2]:
+        # SDPA's is_causal aligns the mask top-left; the port's is
+        # bottom-right (row i sits at i + kv_len - q_len)
+        mask = torch.ones(q_shape[2], kv_shape[2], dtype=torch.bool,
+                          device="cuda").tril(kv_shape[2] - q_shape[2])
+    sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
+    s_out = F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    t_sdpa = cuda_time_ms(lambda: torch.autograd.grad(
+        s_out, (sq, sk, sv), do, retain_graph=True),
+        iters=iters)["median_ms"]
+    del s_out
+    bounds = {part: bwd_bound(q, k, causal, part)
+              for part in ("all", "dq", "dkv")}
+    log(f"flash bwd {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
+        f"{str(dtype).split('.')[-1]} causal={causal} | dq/dk/dv err vs "
+        f"plain {err_plain[0]:.2e}/{err_plain[1]:.2e}/{err_plain[2]:.2e} "
+        f"(gate {BWD_PLAIN_GATE[dtype]:.0e}), vs f32 autograd "
+        f"{err_oracle[0]:.2e}/{err_oracle[1]:.2e}/{err_oracle[2]:.2e} "
+        f"(gate {BWD_ORACLE_GATE[dtype]:.0e}) of max |grad| | call "
+        f"{t_call:.4f} ms (dq {t_dq:.4f}, dkv {t_dkv:.4f}) plain "
+        f"{t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms bound "
+        f"{bounds['all'][0]:.4f} ms ({bounds['all'][1]}; dq "
+        f"{bounds['dq'][0]:.4f}, dkv {bounds['dkv'][0]:.4f}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash backward kernels disagree: {name}")
+    return {"max_abs_err": abs_err, "ms": {"dq": t_dq, "dkv": t_dkv},
+            "plain_ms": t_plain, "library_ms": t_sdpa,
+            "bound": {"dq": bounds["dq"], "dkv": bounds["dkv"]}}
+
+
+# --- phase 5: the engine end to end -------------------------------------------
 
 
 def engine_phase(gen_seed: int) -> dict:
@@ -406,6 +560,108 @@ def engine_phase(gen_seed: int) -> dict:
             "long_tokens": toks, "n_chunk": n_chunk}
 
 
+# --- phase 6: training at full width -------------------------------------------
+
+# (batch, seq, timed steps): benchmarks/train_bench.py's two configs
+TRAIN_CONFIGS = [(4, 2048, 8), (1, 8192, 3)]
+
+
+def train_grad_check(cfg, params, tokens) -> float:
+    """One step's gradients through the kernels against those through
+    attn_impl="reference" (plain attention), per parameter; returns the
+    largest relative Frobenius distance."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.parallel.train import param_leaves
+
+    def leaf(t):
+        return t.detach().requires_grad_()
+
+    def grads(run_cfg):
+        copy = {"embed": leaf(params["embed"]),
+                "layers": [{name: leaf(t) for name, t in layer.items()}
+                           for layer in params["layers"]],
+                "final_norm": leaf(params["final_norm"]),
+                "lm_head": leaf(params["lm_head"])}
+        return torch.autograd.grad(T.loss_fn(run_cfg, copy, tokens),
+                                   param_leaves(copy))
+
+    got = grads(cfg)
+    want = grads(dataclasses.replace(cfg, attn_impl="reference"))
+    return max(float((g.float() - w.float()).norm() / w.float().norm())
+               for g, w in zip(got, want))
+
+
+def train_phase(seed: int) -> dict:
+    """The train step of parallel/train.py at the train benchmark's widths:
+    one warm-up and the timed steps per config on one fixed token batch,
+    the launch counts zeroed just before the timed steps and read just
+    after."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+
+    cfg = T.ModelConfig(vocab_size=32768, d_model=1024, n_layers=4,
+                        n_q_heads=8, n_kv_heads=2, d_head=128, d_ff=4096,
+                        dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params0 = T.init_params(cfg, gen, device="cuda")
+    step, init_state = make_train_step(cfg, learning_rate=1e-3)
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    out = {"step": step, "states": {}}
+    for batch, seq, n_timed in TRAIN_CONFIGS:
+        params, opt = init_state(params0)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device="cuda")
+        params, opt, loss0 = step(params, opt, tokens)        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: counts zeroed just before, read just after ----
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(n_timed):
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {"flash_fwd": flash_attention.launches,
+               "flash_bwd": flash_attention_bwd.launches}
+        # ---------------------------------------------------------------------
+
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(x) for x in [loss0] + losses]
+        want = n_timed * cfg.n_layers
+        log(f"train {batch} x {seq}: {n_timed} steps in {dt * 1e3:.1f} ms, "
+            f"{dt / n_timed * 1e3:.2f} ms/step, "
+            f"{batch * seq * n_timed / dt:.0f} tokens/s, peak memory "
+            f"{peak:.2f} GiB; loss {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"launches {got} (expected {want} each: one forward and one "
+            f"backward call per layer per step, a backward call launching "
+            f"the dq and the dk/dv kernel once each)")
+        if got != {"flash_fwd": want, "flash_bwd": want}:
+            raise AssertionError(f"train launches {got} != {want} each")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss not finite or not falling: "
+                                 f"{losses}")
+        for key in launches:
+            launches[key] += got[key]
+        out["states"][(batch, seq)] = (params, opt, tokens)
+    out["launches"] = launches
+
+    # gradients of one step (the initial weights, the 4 x 2048 batch)
+    err = train_grad_check(cfg, params0, out["states"][(4, 2048)][2])
+    log(f"train step gradients through the kernels vs attn_impl='reference':"
+        f" max relative Frobenius distance over parameters {err:.3e} "
+        f"(gate {TRAIN_GRAD_GATE:.0e})")
+    if not err <= TRAIN_GRAD_GATE:
+        raise AssertionError("train gradients disagree with the plain path")
+    return out
+
+
 def time_sampled_decode(eng, n_chunk: int) -> None:
     """One greedy and one sampled chunk back to back, host clock: the
     sampled path draws its uniforms on the device and, like the greedy
@@ -439,8 +695,10 @@ def profile_window(label: str, fn, n: int) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # user annotations (the optimizer's step) span kernels counted anyway
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log(f"profile {label}: the profiler recorded no device time "
             "(not measured)")
@@ -491,6 +749,8 @@ def main() -> int:
     check_decode("random pages", q, pages, lengths, table, 128)
     check_decode("column slice (16 of 32 pages)", q, pages,
                  lengths.clamp(max=16 * 128), table[:, :16], 128)
+    bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
+                for case in BWD_CASES]
     check_not_ported_raise()
 
     run = engine_phase(SEED)
@@ -502,6 +762,11 @@ def main() -> int:
                                                    run["long_tokens"]), 1)
 
     time_sampled_decode(eng, run["n_chunk"])
+
+    train = train_phase(SEED)
+    for (batch, seq), state in train["states"].items():
+        profile_window(f"per train step of {batch} x {seq} tokens",
+                       lambda s=state: train["step"](*s), 1)
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -517,17 +782,41 @@ def main() -> int:
     qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
     decode_row = check_decode("main path: engine cache, layer 0", qd,
                               eng.cache.pages[0], lengths, page_table, 128)
+    # the backward's rows: each kernel at the train step's 4 x 2048 shape,
+    # the worst error over both train shapes; the plain and library times
+    # are those of the whole backward (one function computes dq, dk, dv)
+    main_bwd = bwd_rows[0]
+    bwd_replaces = ("tiny_flash_attention_tpu/ops/flash_tri_bwd.py:302; "
+                    "tiny_flash_attention_tpu/ops/flash_tri_bwd.py:583; "
+                    "tiny_flash_attention_tpu/ops/flash_bwd.py:436; "
+                    "tiny_flash_attention_tpu/ops/flash_bwd.py:560; "
+                    "tiny_flash_attention_tpu/ops/flash_bwd.py:609")
+    bwd_kernels = [
+        {"name": f"flash_bwd_{part}", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": bwd_replaces,
+         "launches": train["launches"]["flash_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows[:2]),
+         "ms": main_bwd["ms"][part], "plain_ms": main_bwd["plain_ms"],
+         "bound_ms": main_bwd["bound"][part][0],
+         "bound_by": main_bwd["bound"][part][1],
+         "library_ms": main_bwd["library_ms"]}
+        for part in ("dq", "dkv")]
+    # flash_fwd runs on both main paths: its launches are the engine's and
+    # the train step's
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:658",
-         "launches": run["launches"]["flash_fwd"], **flash_row},
+         "launches": run["launches"]["flash_fwd"]
+         + train["launches"]["flash_fwd"], **flash_row},
         {"name": "paged_decode", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"], **decode_row},
+        *bwd_kernels,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)

@@ -16,6 +16,8 @@ import torch
 
 from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
+from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+    flash_attention_bwd, flash_attention_bwd_plain)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_paged_decode_attention, fused_paged_decode_plain)
 from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
@@ -131,3 +133,69 @@ def test_not_ported_raises_on_the_card(gen):
         flash_attention(_randn((1, 2, 8, 96), torch.bfloat16, gen),
                         _randn((1, 2, 8, 96), torch.bfloat16, gen),
                         _randn((1, 2, 8, 96), torch.bfloat16, gen))
+    q96 = _randn((1, 2, 8, 96), torch.bfloat16, gen)
+    with pytest.raises(NotImplementedError):
+        flash_attention_bwd(q96, q96, q96, q96,
+                            torch.zeros((1, 2, 8), device="cuda"), q96,
+                            causal=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention_bwd(q, q.float(), q.float(), q,
+                            torch.zeros((1, 2, 64), device="cuda"), q,
+                            causal=True)
+
+
+# The backward kernels repeat their plain version's rounding points, so the
+# two differ by the order of their f32 sums and, where that moves a result
+# across a bf16 rounding boundary, by one bf16 ulp (at most 2^-7 of it). The
+# gate is relative to the largest |gradient|: bf16 1e-2, f32 2e-5.
+BWD_GATE = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,q_len,kv_len,d,causal,dtype", [
+    (1, 4, 4, 64, 64, 128, True, torch.bfloat16),      # group 1
+    (2, 8, 2, 300, 300, 128, True, torch.bfloat16),    # group 4, ragged
+    (1, 8, 1, 100, 260, 64, True, torch.bfloat16),     # group 8, offset
+    (1, 4, 2, 200, 70, 128, True, torch.bfloat16),     # empty leading rows
+    (1, 4, 2, 130, 97, 64, False, torch.bfloat16),
+    (1, 2, 2, 1, 333, 128, True, torch.bfloat16),      # one decode row
+    (1, 4, 4, 65, 65, 64, False, torch.float32),
+    (1, 8, 2, 130, 130, 128, True, torch.float32),
+    (1, 8, 1, 200, 70, 64, True, torch.float32),
+])
+def test_flash_bwd_kernels_match_plain(gen, b, hq, hkv, q_len, kv_len, d,
+                                       causal, dtype):
+    q = _randn((b, hq, q_len, d), dtype, gen)
+    k = _randn((b, hkv, kv_len, d), dtype, gen)
+    v = _randn((b, hkv, kv_len, d), dtype, gen)
+    do = _randn((b, hq, q_len, d), dtype, gen)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                     sm_scale=d ** -0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        err = _rel_err(g, w)
+        assert err <= BWD_GATE[dtype], f"{name}: {err:.3e}"
+    if causal and q_len > kv_len:        # rows that see nothing get dq = 0
+        assert bool((got[0][:, :, :q_len - kv_len] == 0).all())
+
+
+def test_autograd_runs_both_kernels(gen):
+    q = _randn((2, 8, 256, 128), torch.bfloat16, gen).requires_grad_()
+    k = _randn((2, 2, 256, 128), torch.bfloat16, gen).requires_grad_()
+    v = _randn((2, 2, 256, 128), torch.bfloat16, gen).requires_grad_()
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))

@@ -13,8 +13,10 @@ from tiny_flash_attention_tpu_torch.models import transformer as TT
 from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
 from tiny_flash_attention_tpu_torch.models.kv_cache import PagedKVCache
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+from tiny_flash_attention_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_paged_decode_attention)
+from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tiny_flash_attention_tpu_torch"
@@ -42,7 +44,7 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_are_found():
-    assert _build.sources() == ["flash_fwd", "paged_decode"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
 
 
 SMALL = TT.ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_q_heads=2,
@@ -65,10 +67,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                         max_seqs=2, pages_per_seq=2)
     InferenceEngine(SMALL, params, num_pages=4, page_size=16, max_seqs=2,
                     pages_per_seq=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(SMALL)
+    make_train_step(SMALL, device="cpu")
 
 
 def test_cpu_calls_launch_no_kernel():
     flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
     fused_paged_decode_attention.launches = 0
     params = TT.init_params(SMALL, torch.Generator().manual_seed(0),
                             device="cpu")
@@ -77,8 +83,11 @@ def test_cpu_calls_launch_no_kernel():
     out = eng.generate([list(range(5)), list(range(20))], max_new_tokens=5,
                        chunk=2)
     assert [len(o) for o in out] == [5, 5]
-    q = torch.zeros((1, 2, 8, 64))
-    flash_attention(q, q, q, causal=True)
+    q = torch.zeros((1, 2, 8, 64), requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    step, init = make_train_step(SMALL, device="cpu")
+    step(*init(params), torch.randint(0, 64, (2, 16)))
     assert flash_attention.launches == 0
+    assert flash_attention_bwd.launches == 0
     assert fused_paged_decode_attention.launches == 0
 

@@ -10,9 +10,12 @@ raises.
 Layer map (counterparts in the JAX package):
   ops.reference    -- mha_reference oracle (ops/reference.py)
   ops.flash        -- flash_attention forward -> csrc/flash_fwd.cu
+  ops.flash_bwd    -- flash_attention backward -> csrc/flash_bwd.cu
   ops.paged_fused  -- fused-page decode attention -> csrc/paged_decode.cu
   ops.configs      -- the kernels' tile sizes
-  models           -- GQA decoder, paged KV cache, inference paths, engine
+  models           -- GQA decoder and its loss, paged KV cache, inference
+                      paths, engine
+  parallel         -- the single-card train step and its checkpoints
   utils            -- tolerances, device choice, CUDA-event timing
 """
 

@@ -2,11 +2,11 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/kernels/lib<name>-<hash>.so` for sm_90a. All sources that need a build
-compile at once, one nvcc process each. The hash covers the source and the
-flags (tile sizes included), so an edited source or a new tile config builds
-anew and a stale library is never loaded. The wrappers in `ops/` pass
-pointers and the stream as `c_void_p` and raise when a C entry returns a
-nonzero `cudaError_t`. Nothing is built or loaded at import: the CPU tests
+compile at once, one nvcc process each. The hash covers the source, the
+shared headers `csrc/*.cuh` and the flags (tile sizes included), so an edited
+source or header or a new tile config builds anew and a stale library is
+never loaded. The wrappers in `ops/` pass pointers and the stream as
+`c_void_p` and raise when a C entry returns a nonzero `cudaError_t`. Nothing is built or loaded at import: the CPU tests
 import every module of the port.
 """
 
@@ -53,7 +53,8 @@ def sources() -> list[str]:
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC_DIR / f"{name}.cu"
-    key = src.read_bytes() + " ".join(_flags()).encode()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(_flags()).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

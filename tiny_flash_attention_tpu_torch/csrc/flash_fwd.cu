@@ -33,11 +33,7 @@
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 #if !defined(TFA_FWD_BF16_BLOCK_M) || !defined(TFA_FWD_BF16_BLOCK_N) || \
     !defined(TFA_FWD_BF16_THREADS) || !defined(TFA_FWD_F32_BLOCK_M) ||   \
@@ -46,9 +42,6 @@
 #endif
 
 namespace {
-
-constexpr float kMaskValue = -0.7f * FLT_MAX;
-constexpr float kLn2 = 0.69314718055994530942f;
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -59,67 +52,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 8;  // bf16 per smem row: rows land 16 bytes apart in banks
 static_assert(BM == WARPS * 16, "each warp owns 16 q rows");
 static_assert(BN % 16 == 0, "kv tile is a multiple of the mma depth");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Number of kv tiles a q tile visits: up to the causal clamp, and at least
-// one, so rows that precede every kv position still get the masked sentinel.
-__device__ __forceinline__ int kv_tiles(int q0, int rows, int q_len,
-                                        int kv_len, int causal, int bn) {
-  const int n_all = (kv_len + bn - 1) / bn;
-  if (!causal) return n_all;
-  const int last = min(q0 + rows, q_len) - 1 + (kv_len - q_len);
-  return last < 0 ? 1 : min(n_all, last / bn + 1);
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -317,23 +249,6 @@ __global__ void __launch_bounds__(THREADS)
       if (lane % 4 == 0) lg[row] = m_run[r] * kLn2 + logf(l_safe);
     }
   }
-}
-
-constexpr int kMaxDevices = 64;
-
-// Raises a kernel's dynamic shared memory limit once per device (the
-// attribute lives in the device's context) rather than on every launch.
-template <typename Kernel>
-cudaError_t raise_smem_limit(Kernel kernel, int smem,
-                             bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
 }
 
 template <int D>

@@ -6,7 +6,9 @@ Parameters are plain dicts of tensors, with the layers as a list of dicts
 loop walks the list). The bf16 rounding points follow the JAX functions:
 projections accumulate in f32 and round once to the activation dtype,
 rms_norm rounds before the gamma multiply, RoPE and SiLU compute in f32.
-Weight-only quantization and the sliding window are not ported yet.
+`loss_fn` is the training objective; every parameter is a leaf tensor, so
+the trainer (parallel/train.py) can ask for its gradient. Weight-only
+quantization and the sliding window are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.reference import mha_reference
@@ -193,3 +196,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = mlp_block(cfg, layer, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _proj(x, params["lm_head"]).float()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Next-token cross-entropy, the mean over every position but the last
+    (transformer.py:198-204): log-softmax of the f32 logits, as
+    `F.cross_entropy` computes it."""
+    logits = forward(cfg, params, tokens)
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1).long())

@@ -8,6 +8,11 @@ csrc/flash_fwd.cu, ports all three. A CPU tensor takes the plain version
 the kernel at every shape, or raises for what the kernel does not do yet
 (sliding window, segment ids, quantized K/V, head_dim other than 64 or 128).
 
+The entry is differentiable: `_FlashAttention` is the port of the JAX
+custom_vjp (`_flash` and its two rules, flash.py:555-609). Its backward is
+ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
+CUDA and their plain version on the CPU.
+
 The JAX entry routes q_len, kv_len <= 512 to XLA; that cutoff was a v5e
 measurement, so the port has none until H100 numbers set one.
 """
@@ -59,7 +64,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       return_lse: also return the natural-log LSE (batch, q_heads, q_len) f32
 
     Returns out (like q), and lse if asked. fp16 computes in f32, as in
-    the JAX package. The forward has no gradient in this port yet.
+    the JAX package, and its gradient flows through the casts. Gradients
+    flow through `_FlashAttention` (the backward kernels on CUDA, their
+    plain version on the CPU). return_lse=True is forward-only, as in JAX
+    (flash.py:704-707). On the CPU, window and segment ids take the plain
+    forward, which torch autograd differentiates; on CUDA they raise, in
+    the forward and so in the backward.
     """
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -88,18 +98,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window is not None or segment_ids is not None \
                 or segment_starts is not None:
             raise NotImplementedError(
-                "the CUDA forward kernel has no sliding window or segment "
-                "ids yet")
-        out, lse = _flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
-        return (out, lse) if return_lse else out
+                "the CUDA flash kernels (forward and backward) have no "
+                "sliding window or segment ids yet")
+        if return_lse:
+            return _flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
+    if window is None and segment_ids is None and not return_lse:
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
     return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                  segment_ids=segment_ids, window=window,
                                  return_lse=return_lse)
 
 
 flash_attention.launches = 0   # kernel launches, counted by _flash_fwd_cuda
+
+
+class _FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v), saving (q, k, v, out, lse) for a backward
+    that recomputes p tile by tile. The forward is the kernel on CUDA and
+    the plain version on the CPU; so is the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        if q.is_cuda:
+            out, lse = _flash_fwd_cuda(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+        else:
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             sm_scale=sm_scale,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        # imported here: ops/flash_bwd.py imports this module's helpers
+        from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+            flash_attention_bwd)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
