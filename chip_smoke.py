@@ -6,10 +6,14 @@
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
 card (the flash forward, the flash backward's dq and dk/dv kernels, the
-paged decode). Then it runs the engine benchmark's model (vocab 32768,
+paged decode over bf16 and int8 pages, the page append, the weight-only
+quantized matmul). Then it runs the engine benchmark's model (vocab 32768,
 d_model 1024, 4 layers, 8/2 heads of 128, d_ff 4096, bf16; random weights
-from a seed) on its two main paths: serving, two batched admissions and 67
-decode steps; and training, AdamW steps at batch 4 x seq 2048 and 1 x 8192
+from a seed) on its main paths: serving with bf16 pages, two batched
+admissions and 67 decode steps; quantized serving (int8 pages, with bf16
+and with int8 weights, 8 prompts of 512 and of 7936 tokens, the
+configurations of benchmarks/engine_bench.py:190-191,217-218), 64 decode
+steps each; and training, AdamW steps at batch 4 x seq 2048 and 1 x 8192
 (benchmarks/train_bench.py's configs). It fails if a kernel does not build,
 launch or agree, if a path did not go through its kernels, if the engine's
 output disagrees with the plain path, or if the train step's loss is not
@@ -25,6 +29,7 @@ numpy and the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -61,6 +66,13 @@ BWD_PLAIN_GATE = {torch.bfloat16: 8e-3, torch.float32: 2e-5}
 # tests/test_flash_tri.py:265), at the dtype gates: earlier runs read at
 # most 1.24e-2 in bf16 and 2.64e-6 in f32.
 BWD_ORACLE_GATE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# The weight-only quantized matmul kernel against its plain version (an f32
+# matmul of the same exact products): the f32 sums differ in order only, so
+# the bf16 outputs differ by at most one rounding, 2^-7 of the largest
+# |output|.
+QMM_GATE = 2.0 ** -7
+# The append kernel and its plain version run the same IEEE operations
+# (amax, amax / 127, x / scale, round half to even): bit for bit.
 # One train step's gradients through the kernels against those through
 # attn_impl="reference", per parameter, by relative Frobenius norm: earlier
 # runs read 1.89e-2 (bf16 activations round at other points in the two
@@ -139,14 +151,16 @@ def bwd_bound(q, k, causal: bool, part: str) -> tuple[float, str]:
 
 def decode_bound(q, pages, lengths, table, page_size) -> tuple[float, str]:
     """Least time for one decode call on this data: the K and V rows below
-    each (clamped) length read once, with q, the page ids used, the lengths,
-    out and the LSE; 4 * d flops per (q head, token)."""
+    each (clamped) length read once (int8 pages: with their two 4-byte
+    scales), with q, the page ids used, the lengths, out and the LSE;
+    4 * d flops per (q head, token)."""
     batch, hq, d = q.shape
     hkv = pages.shape[0]
     n = np.minimum(lengths.cpu().numpy().astype(np.int64),
                    table.shape[1] * page_size)
     tokens = float(n.sum())
-    nbytes = (tokens * 2 * hkv * d * pages.element_size()
+    scale_bytes = 8 if pages.dtype == torch.int8 else 0
+    nbytes = (tokens * hkv * (2 * d * pages.element_size() + scale_bytes)
               + 2 * q.numel() * q.element_size() + batch * hq * 4
               + batch * 4 + float(np.ceil(n / page_size).sum()) * 4)
     return _bound(4.0 * hq * d * tokens, nbytes, q.dtype)
@@ -273,6 +287,25 @@ def decode_inputs(gen, *, batch=8, hq=8, hkv=2, d=128, ps=128, P=32):
     return q, pages, lengths, table
 
 
+def decode_inputs_int8(gen, *, ps, P, batch=8, hq=8, hkv=2, d=128):
+    """int8 pages packed from random bf16 K/V, lengths up to the table."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        pack_paged_cache)
+
+    num_pages = batch * P + 8
+    q = randn((batch, hq, d), torch.bfloat16, gen)
+    pages = pack_paged_cache(
+        randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+        randn((hkv, num_pages, ps, d), torch.bfloat16, gen), "int8")
+    perm = torch.randperm(num_pages, generator=gen, device="cuda")
+    table = perm[:batch * P].reshape(batch, P).to(torch.int32)
+    rand = torch.randint(2, P * ps, (batch - 4,), generator=gen,
+                         device="cuda")
+    lengths = torch.cat([torch.tensor([1, ps - 1, ps, P * ps],
+                                      device="cuda"), rand]).to(torch.int32)
+    return q, pages, lengths, table
+
+
 def check_not_ported_raise() -> None:
     """What this slice leaves out raises on the card, never falls back."""
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
@@ -290,10 +323,11 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention(q, q.to(torch.int8), q.to(torch.int8)),
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
+        # the ring mode (sliding window) over int8 pages
         lambda: fused_paged_decode_attention(
             q[:, :, 0], torch.zeros((2, 4, 2 * 16 + 8, 128), device="cuda",
                                     dtype=torch.int8),
-            seg[:, :1], seg[:, :2], page_size=16),
+            seg[:, :1], seg[:, :2], page_size=16, window=8),
     ]
     for fn in attempts:
         try:
@@ -305,7 +339,190 @@ def check_not_ported_raise() -> None:
     log("not-ported features raise NotImplementedError on the card: ok")
 
 
-# --- phase 4: flash backward, kernels vs plain and the oracle -----------------
+# --- phase 3b: the quantized path's kernels, kernel vs plain -----------------
+
+# (name, K, N): every projection of the engine model, at the decode step's
+# 8 rows
+QMM_SHAPES = [("wq, wo", 1024, 1024), ("wk, wv", 1024, 256),
+              ("w_gate, w_up", 1024, 4096), ("w_down", 4096, 1024),
+              ("lm_head", 1024, 32768)]
+
+
+def qmm_bound(m: int, k: int, n: int, x_el: int) -> tuple[float, str]:
+    """Least time for one call: the one-byte weight, the f32 scales, x and
+    out moved once; 2 * M * K * N operations at the bf16 rate."""
+    nbytes = k * n + 4 * n + (m * k + m * n) * x_el
+    return _bound(2.0 * m * k * n, nbytes, torch.bfloat16)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time to enqueue one fn() (the wrapper's Python, the launch),
+    in microseconds; the device work is waited for afterwards."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def check_qmm(name, m, k, n, fmt, gen, *, iters=20):
+    """The kernel vs its plain version at one shape; device times of the
+    kernel, the plain version, torch.matmul on the bf16 weight (the
+    library yardstick) and the prefill route (cuBLAS on the converted
+    payload) at the same rows; the host time of one call (decode is
+    host-bound)."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        quantized_matmul_cuda, quantized_matmul_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    x = randn((m, k), torch.bfloat16, gen)
+    w = randn((k, n), torch.float32, gen) / k ** 0.5
+    qw = Q.quantize_weight(w, fmt)
+    got = quantized_matmul_cuda(x, qw)
+    torch.cuda.synchronize()
+    want = quantized_matmul_plain(x, qw)
+    err = max_err(got, want)
+    gate = QMM_GATE * float(want.float().abs().max())
+    ok = err <= gate and bool(torch.isfinite(got).all())
+    wb = w.to(torch.bfloat16)
+    t_kernel = cuda_time_ms(lambda: quantized_matmul_cuda(x, qw),
+                            iters=iters)["median_ms"]
+    t_plain = cuda_time_ms(lambda: quantized_matmul_plain(x, qw),
+                           iters=iters)["median_ms"]
+    t_lib = cuda_time_ms(lambda: torch.matmul(x, wb), iters=iters)[
+        "median_ms"]
+    t_route = cuda_time_ms(lambda: Q._large_product(x, qw, x.dtype),
+                           iters=iters)["median_ms"]
+    bound_ms, bound_by = qmm_bound(m, k, n, x.element_size())
+    h_kernel = host_us(lambda: Q.quantized_matmul(x, qw))
+    h_lib = host_us(lambda: torch.matmul(x, wb))
+    log(f"quant matmul {name}: x({m}, {k}) bf16 @ {fmt} ({k}, {n}) | err "
+        f"{err:.3e} (gate {gate:.3e}) | kernel {t_kernel:.4f} ms plain "
+        f"{t_plain:.4f} ms prefill route {t_route:.4f} ms torch.matmul bf16 "
+        f"weight {t_lib:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
+        f"{k * n / (t_kernel * 1e-3) / 1e9:.1f} GB/s of weight | host "
+        f"{h_kernel:.1f} us a quantized_matmul call, {h_lib:.1f} us a "
+        f"torch.matmul | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quantized matmul kernel disagrees: {name}")
+    return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
+            "route_ms": t_route}
+
+
+def qmm_row_sweep(gen) -> None:
+    """The kernel against the prefill route (cuBLAS on the converted
+    payload) by row count: where the route of ops/configs.py::
+    QUANT_MATMUL_MAX_ROWS should switch."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.configs import (
+        QUANT_MATMUL_MAX_ROWS)
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        quantized_matmul_cuda)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    for k, n in ((1024, 4096), (4096, 1024), (1024, 32768)):
+        qw = Q.quantize_weight(randn((k, n), torch.float32, gen))
+        cells = []
+        for m in (1, 2, 4, 8, 16):
+            x = randn((m, k), torch.bfloat16, gen)
+            t_k = cuda_time_ms(lambda: quantized_matmul_cuda(x, qw),
+                               iters=10)["median_ms"]
+            t_r = cuda_time_ms(lambda: Q._large_product(x, qw, x.dtype),
+                               iters=10)["median_ms"]
+            cells.append(f"M {m}: {t_k:.4f}/{t_r:.4f}")
+        log(f"quant matmul rows ({k} -> {n}), kernel/prefill route ms: "
+            + "; ".join(cells) + f" (route switch above "
+            f"{QUANT_MATMUL_MAX_ROWS} rows)")
+
+
+def qmm_split_sweep(gen) -> None:
+    """The kernel's time by K slices (the blocks of a cluster) at every
+    engine projection at 8 rows: what ops/configs.py::quant_matmul_splits
+    should choose."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.configs import (
+        quant_matmul_splits)
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        quantized_matmul_cuda)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    for name, k, n in QMM_SHAPES:
+        qw = Q.quantize_weight(randn((k, n), torch.float32, gen))
+        x = randn((8, k), torch.bfloat16, gen)
+        cells = [f"S {s}: " + "{:.4f}".format(cuda_time_ms(
+            lambda s=s: quantized_matmul_cuda(x, qw, splits=s),
+            iters=10)["median_ms"]) for s in (1, 2, 4, 8)]
+        log(f"quant matmul splits {name} ({k} -> {n}), kernel ms: "
+            + "; ".join(cells) + f" (chosen: S {quant_matmul_splits(n, k)})")
+
+
+def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32):
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import page_rows
+
+    num_pages = batch * P + 8
+    shape = (hkv, num_pages, page_rows(ps, d, fmt), d)
+    if fmt == "int8":
+        pages = torch.randint(-127, 128, shape, generator=gen,
+                              device="cuda").to(torch.int8)
+    else:
+        pages = randn(shape, torch.bfloat16, gen)
+    k_new = randn((batch, hkv, d), torch.bfloat16, gen)
+    v_new = randn((batch, hkv, d), torch.bfloat16, gen)
+    ids = torch.randperm(num_pages, generator=gen, device="cuda")[:batch]
+    rows = torch.randint(0, ps, (batch,), generator=gen, device="cuda")
+    return pages, k_new, v_new, ids.to(torch.int32), rows.to(torch.int32)
+
+
+def check_append(name, fmt, ps, gen, *, iters=20):
+    """The append kernel vs its plain version (the scatter decomposition),
+    bit for bit; device times of both. The bound: the new rows read once,
+    the page rows and scale bytes written once."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, page_append_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps)
+    want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
+                             page_size=ps)
+    got = fused_page_append(pages, k_new, v_new, ids, rows, page_size=ps)
+    torch.cuda.synchronize()
+    ok = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    err = max_err(got, want)
+    t_kernel = cuda_time_ms(lambda: fused_page_append(
+        pages, k_new, v_new, ids, rows, page_size=ps), iters=iters)[
+        "median_ms"]
+    t_plain = cuda_time_ms(lambda: page_append_plain(
+        pages, k_new, v_new, ids, rows, page_size=ps), iters=iters)[
+        "median_ms"]
+    h_kernel = host_us(lambda: fused_page_append(
+        pages, k_new, v_new, ids, rows, page_size=ps))
+    h_plain = host_us(lambda: page_append_plain(
+        pages, k_new, v_new, ids, rows, page_size=ps))
+    batch, hkv, d = k_new.shape
+    row_bytes = d * pages.element_size() + (4 if fmt == "int8" else 0)
+    nbytes = (2 * k_new.numel() * k_new.element_size() + 8 * batch
+              + 2 * batch * hkv * row_bytes)
+    bound_ms, bound_by = _bound(0.0, nbytes, torch.bfloat16)
+    log(f"page append {name}: {fmt} pages{tuple(pages.shape)} ps {ps}, "
+        f"{batch} tokens x {hkv} kv heads | bit-exact vs plain: {ok} | "
+        f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
+        f"{bound_ms:.6f} ms ({bound_by}) | host {h_kernel:.1f} us a call, "
+        f"plain {h_plain:.1f} us | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"append kernel disagrees with plain: {name}")
+    return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# --- phase 4: flash backward, kernels vs plain and the oracle ----------------
 
 # (name, q shape, kv shape, dtype, causal); the first two are the train
 # step's per-layer shapes
@@ -411,7 +628,16 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
             "bound": {"dq": bounds["dq"], "dkv": bounds["dkv"]}}
 
 
-# --- phase 5: the engine end to end -------------------------------------------
+# --- phase 5: the engine end to end ------------------------------------------
+
+
+def engine_config():
+    """The engine benchmark's model (benchmarks/engine_bench.py:34-36)."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+
+    return T.ModelConfig(vocab_size=32768, d_model=1024, n_layers=4,
+                         n_q_heads=8, n_kv_heads=2, d_head=128, d_ff=4096,
+                         dtype=torch.bfloat16)
 
 
 def engine_phase(gen_seed: int) -> dict:
@@ -422,11 +648,9 @@ def engine_phase(gen_seed: int) -> dict:
         decode_step, prefill_forward_batched)
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_paged_decode_attention)
+        fused_page_append, fused_paged_decode_attention)
 
-    cfg = T.ModelConfig(vocab_size=32768, d_model=1024, n_layers=4,
-                        n_q_heads=8, n_kv_heads=2, d_head=128, d_ff=4096,
-                        dtype=torch.bfloat16)
+    cfg = engine_config()
     max_seqs, pages_per_seq, ps = 8, 32, 128
     params = T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(gen_seed),
@@ -453,6 +677,7 @@ def engine_phase(gen_seed: int) -> dict:
     # ---- the main path: counts zeroed just before, read just after ----
     flash_attention.launches = 0
     fused_paged_decode_attention.launches = 0
+    fused_page_append.launches = 0
     torch.cuda.synchronize()
     prefill_ms = []
     for batch in (reqs[:4], reqs[4:]):
@@ -474,12 +699,14 @@ def engine_phase(gen_seed: int) -> dict:
         eng.step()
     single_s = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention.launches,
-                "paged_decode": fused_paged_decode_attention.launches}
+                "paged_decode": fused_paged_decode_attention.launches,
+                "page_append": fused_page_append.launches}
     # ---------------------------------------------------------------------
 
     n_steps = n_chunk * n_chunks + n_single
     want = {"flash_fwd": 2 * cfg.n_layers,
-            "paged_decode": n_steps * cfg.n_layers}
+            "paged_decode": n_steps * cfg.n_layers,
+            "page_append": n_steps * cfg.n_layers}
     log(f"engine: {n_params / 1e6:.1f} M params; prompts "
         f"{[len(p) for p in short + long]}; launches {launches} "
         f"(expected {want})")
@@ -560,7 +787,168 @@ def engine_phase(gen_seed: int) -> dict:
             "long_tokens": toks, "n_chunk": n_chunk}
 
 
-# --- phase 6: training at full width -------------------------------------------
+# --- phase 5b: quantized serving ---------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The decode step with each kernel of the quantized path swapped for
+    its plain version (the decode attention, the append and the quantized
+    matmul), for holding the engine's logits against them on the card."""
+    from tiny_flash_attention_tpu_torch.models import inference as I
+    from tiny_flash_attention_tpu_torch.ops import paged_fused as PF
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops import quant_matmul as QM
+
+    def decode_plain(q, pages, lengths, table, *, page_size):
+        return PF.fused_paged_decode_plain(q, pages, lengths, table,
+                                           page_size=page_size,
+                                           sm_scale=q.shape[-1] ** -0.5)
+
+    saved = (I.fused_paged_decode_attention, I.fused_page_append,
+             Q.quantized_matmul_cuda)
+    I.fused_paged_decode_attention = decode_plain
+    I.fused_page_append = PF.page_append_plain
+    Q.quantized_matmul_cuda = QM.quantized_matmul_plain
+    try:
+        yield
+    finally:
+        (I.fused_paged_decode_attention, I.fused_page_append,
+         Q.quantized_matmul_cuda) = saved
+
+
+# (label, int8 weights, prompt length, pages per slot): the int8-KV runs of
+# benchmarks/engine_bench.py:190-191 (prompt 512) and :217-218 (7936)
+QUANT_RUNS = [("int8 KV, bf16 weights, prompt 512", False, 512, 32),
+              ("int8 KV, int8 weights, prompt 512", True, 512, 32),
+              ("int8 KV, bf16 weights, prompt 7936", False, 7936, 64),
+              ("int8 KV, int8 weights, prompt 7936", True, 7936, 64)]
+
+
+def quant_engine_run(cfg, params, label, quantized, prompt_len,
+                     pages_per_seq, seed) -> dict:
+    """One int8-KV engine: 8 prompts admitted one by one (as
+    engine_bench.py does), two steps(32) chunks, the launch counts zeroed
+    just before the admissions and read just after the chunks; then the
+    first decode step against its plain versions and a profile."""
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request)
+    from tiny_flash_attention_tpu_torch.models.inference import decode_step
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        quantized_matmul_cuda)
+
+    max_seqs, ps, n_chunk, n_chunks = 8, 128, 32, 2
+    eng = InferenceEngine(cfg, params, num_pages=max_seqs * pages_per_seq + 8,
+                          page_size=ps, max_seqs=max_seqs,
+                          pages_per_seq=pages_per_seq, kv_format="int8",
+                          seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    max_new = 1 + n_chunk * n_chunks + PROFILE_STEPS + 8
+    reqs = [Request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
+                    max_new) for _ in range(max_seqs)]
+    counters = {"flash_fwd": flash_attention,
+                "paged_decode": fused_paged_decode_attention,
+                "page_append": fused_page_append,
+                "quant_matmul": quantized_matmul_cuda}
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    for fn in counters.values():
+        fn.launches = 0
+    fused_paged_decode_attention.int8_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    snap = dict(pages=[p.clone() for p in eng.cache.pages],
+                table=eng.cache.page_table.copy(),
+                lengths=eng.cache.lengths.copy(),
+                last=eng.last_token.copy())
+    chunk_s = []
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        eng.steps(n_chunk)            # ends in a device-to-host copy
+        chunk_s.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["paged_decode_int8"] = fused_paged_decode_attention.int8_launches
+    # ---------------------------------------------------------------------
+
+    steps, L = n_chunk * n_chunks, cfg.n_layers
+    want = {"flash_fwd": max_seqs * L, "paged_decode": 0,
+            "page_append": steps * L,
+            "quant_matmul": steps * (7 * L + 1) if quantized else 0,
+            "paged_decode_int8": steps * L}
+    log(f"quantized engine [{label}]: launches {launches} (expected {want}:"
+        f" per decode step {L} appends and int8 decodes"
+        + (f", {7 * L + 1} quantized matmuls" if quantized else "") + ")")
+    if launches != want:
+        raise AssertionError(f"quantized engine launches {launches} != "
+                             f"{want}")
+    for r in reqs:
+        assert len(r.generated) == 1 + steps, len(r.generated)
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+
+    # the first decode step: the kernels against their plain versions on
+    # the card, from the pages as admission left them
+    def first_step():
+        dec, _ = decode_step(
+            cfg, params, [p.clone() for p in snap["pages"]],
+            torch.as_tensor(snap["last"], device="cuda"),
+            torch.as_tensor(snap["lengths"], device="cuda"),
+            torch.as_tensor(snap["table"], device="cuda"), page_size=ps,
+            fmt="int8")
+        return dec
+
+    got = first_step()
+    with plain_kernels():
+        ref = first_step()
+    scale = float(ref.abs().max())
+    err = max_err(got, ref)
+    gate = ENGINE_LOGIT_GATE * scale
+    second = [r.generated[1] for r in reqs]
+    argmax = got.argmax(-1).tolist()
+    log(f"quantized engine [{label}]: first decode step vs plain versions: "
+        f"max err {err:.4f} (gate {gate:.4f} = {ENGINE_LOGIT_GATE:.1%} of "
+        f"max |logit| {scale:.3f}); second tokens {second} vs argmax "
+        f"{argmax}")
+    if err > gate or not torch.isfinite(got).all():
+        raise AssertionError(f"quantized decode logits disagree: {label}")
+    if second != argmax:
+        raise AssertionError(f"second tokens are not the argmax: {label}")
+    tok_s = max_seqs * n_chunk / chunk_s[-1]
+    log(f"quantized engine [{label}] timing: admission of {max_seqs} x "
+        f"{prompt_len} tokens {prefill_ms:.1f} ms; decode steps({n_chunk}) "
+        f"{[round(x * 1e3, 2) for x in chunk_s]} ms -> {tok_s:.0f} tokens/s"
+        f" (8 slots, last chunk)")
+    profile_window(f"per int8 decode step ({label}, steps({PROFILE_STEPS}))",
+                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS)
+    return {"launches": launches, "engine": eng}
+
+
+def quant_serving_phase(seed) -> dict:
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+
+    cfg = engine_config()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    qparams = T.quantize_params(params, "int8")
+    totals: dict = {}
+    engines = {}
+    for label, quantized, prompt_len, pps in QUANT_RUNS:
+        run = quant_engine_run(cfg, qparams if quantized else params, label,
+                               quantized, prompt_len, pps, seed)
+        for k, n in run["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        engines[(quantized, prompt_len)] = run["engine"]
+        del run
+    return {"launches": totals, "engines": engines, "cfg": cfg}
+
+
+# --- phase 6: training at full width -----------------------------------------
 
 # (batch, seq, timed steps): benchmarks/train_bench.py's two configs
 TRAIN_CONFIGS = [(4, 2048, 8), (1, 8192, 3)]
@@ -749,6 +1137,22 @@ def main() -> int:
     check_decode("random pages", q, pages, lengths, table, 128)
     check_decode("column slice (16 of 32 pages)", q, pages,
                  lengths.clamp(max=16 * 128), table[:, :16], 128)
+    # the quantized path's kernels: int8 decode at the three page geometries
+    # of JAX's tests, the append in both formats (the engine's shape: 8
+    # tokens, 2 kv heads of 128), the quantized matmul at every engine
+    # projection at the decode step's 8 rows
+    for ps, P in ((64, 64), (128, 32), (256, 16)):
+        check_decode(f"int8 pages ps {ps}", *decode_inputs_int8(gen, ps=ps,
+                                                                P=P), ps)
+    append_rows = {(fmt, ps): check_append(f"{fmt} ps {ps}", fmt, ps, gen)
+                   for fmt, ps in (("bf16", 128), ("int8", 64),
+                                   ("int8", 128), ("int8", 256))}
+    qmm_rows = {name: check_qmm(name, 8, k, n, "int8", gen)
+                for name, k, n in QMM_SHAPES}
+    check_qmm("lm_head, fp8 weight", 8, 1024, 32768, "fp8", gen)
+    check_qmm("w_down, 3 rows", 3, 4096, 1024, "int8", gen)
+    qmm_row_sweep(gen)
+    qmm_split_sweep(gen)
     bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
                 for case in BWD_CASES]
     check_not_ported_raise()
@@ -762,6 +1166,8 @@ def main() -> int:
                                                    run["long_tokens"]), 1)
 
     time_sampled_decode(eng, run["n_chunk"])
+
+    quant = quant_serving_phase(SEED)
 
     train = train_phase(SEED)
     for (batch, seq), state in train["states"].items():
@@ -782,6 +1188,12 @@ def main() -> int:
     qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
     decode_row = check_decode("main path: engine cache, layer 0", qd,
                               eng.cache.pages[0], lengths, page_table, 128)
+    eng8k = quant["engines"][(False, 7936)]
+    page_table, lengths = eng8k.cache.device_views()
+    int8_row = check_decode("main path: int8 engine cache at prompt 7936, "
+                            "layer 0", qd, eng8k.cache.pages[0], lengths,
+                            page_table, 128)
+    qlaunch = quant["launches"]
     # the backward's rows: each kernel at the train step's 4 x 2048 shape,
     # the worst error over both train shapes; the plain and library times
     # are those of the whole backward (one function computes dq, dk, dv)
@@ -810,13 +1222,28 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:658",
-         "launches": run["launches"]["flash_fwd"]
+         "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + train["launches"]["flash_fwd"], **flash_row},
         {"name": "paged_decode", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
-         "launches": run["launches"]["paged_decode"], **decode_row},
+         "launches": run["launches"]["paged_decode"]
+         + qlaunch["paged_decode"], **decode_row},
         *bwd_kernels,
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": qlaunch["paged_decode_int8"], **int8_row},
+        {"name": "page_append", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": run["launches"]["page_append"]
+         + qlaunch["page_append"], **append_rows[("int8", 128)]},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/quant_matmul.py:84",
+         "launches": qlaunch["quant_matmul"],
+         **{k: v for k, v in qmm_rows["lm_head"].items() if k != "route_ms"}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)

@@ -8,7 +8,9 @@ without JAX, run them with
 
 (the repository's conftest imports JAX to pin it to the CPU). The shapes
 here are the odd ones chip_smoke.py does not reach: ragged tiles, head_dim
-64, every supported GQA group, f32, length 0 and sliced page tables.
+64, every supported GQA group, f32, length 0 and sliced page tables, int8
+pages of each geometry, the append in both formats, and the quantized
+matmul at 1 to 16 rows, ragged N and K, fp8 weights.
 """
 
 import pytest
@@ -18,8 +20,12 @@ from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd, flash_attention_bwd_plain)
+from tiny_flash_attention_tpu_torch.ops import quant as Q
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    fused_paged_decode_attention, fused_paged_decode_plain)
+    fused_page_append, fused_paged_decode_attention, fused_paged_decode_plain,
+    pack_paged_cache, page_append_plain, page_rows)
+from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+    quantized_matmul_cuda, quantized_matmul_plain)
 from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
 pytestmark = pytest.mark.cuda
@@ -199,3 +205,114 @@ def test_autograd_runs_both_kernels(gen):
     assert flash_attention.launches == fwd + 1
     assert flash_attention_bwd.launches == bwd + 1
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("ps,d,group", [(64, 128, 4), (128, 128, 4),
+                                        (256, 128, 2), (32, 64, 8),
+                                        (128, 64, 1)])
+def test_int8_decode_kernel_matches_plain(gen, dtype, ps, d, group):
+    """int8 pages with scale rows (ps < d, ps == d, ps a multiple of d),
+    lengths 0, 1, a page edge, the full table and past it."""
+    B, hkv, P = 5, 2, 4
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), dtype, gen)
+    pages = pack_paged_cache(_randn((hkv, num_pages, ps, d), dtype, gen),
+                             _randn((hkv, num_pages, ps, d), dtype, gen),
+                             "int8")
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1, ps, P * ps, 10**6], dtype=torch.int32,
+                           device="cuda")
+    before = fused_paged_decode_attention.int8_launches
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps)
+    torch.cuda.synchronize()
+    assert fused_paged_decode_attention.int8_launches == before + 1
+    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                            page_size=ps, sm_scale=d ** -0.5)
+    assert _err(out, ref) <= tolerance_for(dtype)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype)
+    assert bool((out[0] == 0).all())          # length 0: zeros
+
+
+@pytest.mark.parametrize("src,fmt,ps,d", [
+    (torch.bfloat16, "bf16", 128, 128), (torch.float32, "bf16", 16, 64),
+    (torch.bfloat16, "int8", 64, 128), (torch.bfloat16, "int8", 128, 128),
+    (torch.float32, "int8", 256, 128), (torch.bfloat16, "int8", 128, 64)])
+def test_append_kernel_is_bit_exact(gen, src, fmt, ps, d):
+    """The append kernel and its plain version run the same IEEE ops, so
+    the pages agree bit for bit, an all-zero row (scale 1) included."""
+    B, hkv, num_pages = 6, 2, 9
+    pdtype = torch.int8 if fmt == "int8" else src
+    pages = torch.randint(-100, 100, (hkv, num_pages, page_rows(ps, d, fmt),
+                                      d), generator=gen, device="cuda"
+                          ).to(pdtype)
+    k_new = _randn((B, hkv, d), src, gen) * 3
+    v_new = _randn((B, hkv, d), src, gen)
+    k_new[2, 1] = 0.0
+    ids = torch.tensor([1, 4, 8, 0, 3, 5], dtype=torch.int32, device="cuda")
+    rows = torch.tensor([0, ps - 1, ps // 2, 1, 7 % ps, ps - 2],
+                        dtype=torch.int32, device="cuda")
+    want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
+                             page_size=ps)
+    before = fused_page_append.launches
+    got = fused_page_append(pages, k_new, v_new, ids, rows, page_size=ps)
+    torch.cuda.synchronize()
+    assert got is pages and fused_page_append.launches == before + 1
+    assert torch.equal(got.view(torch.uint8) if fmt == "int8" else got,
+                       want.view(torch.uint8) if fmt == "int8" else want)
+
+
+def _qmm_gate(want):
+    if want.dtype == torch.float32:
+        return tolerance_for(torch.float32)
+    return 2.0 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("wfmt", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 256), (3, 1000, 40),
+                                   (8, 4096, 1024), (16, 64, 8),
+                                   (5, 1536, 264)])
+def test_quant_matmul_kernel_matches_plain(gen, xdt, wfmt, m, k, n):
+    """The kernel sums f32 products in another order than the plain
+    version's f32 matmul: one rounding of x's dtype apart at most (bf16:
+    an ulp is at most 2^-7 of the largest output; f32: the 2e-5 gate)."""
+    x = _randn((m, k), xdt, gen) / k ** 0.5
+    qw = Q.quantize_weight(_randn((k, n), torch.float32, gen), wfmt)
+    before = quantized_matmul_cuda.launches
+    got = quantized_matmul_cuda(x, qw)
+    torch.cuda.synchronize()
+    assert quantized_matmul_cuda.launches == before + 1
+    want = quantized_matmul_plain(x, qw)
+    assert got.dtype == xdt and got.shape == (m, n)
+    assert _err(got, want) <= _qmm_gate(want)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_quant_matmul_k_splits_agree(gen, splits):
+    """K split over the blocks of a cluster (ragged last slice at 3)."""
+    x = _randn((8, 4000), torch.bfloat16, gen) / 4000 ** 0.5
+    qw = Q.quantize_weight(_randn((4000, 264), torch.float32, gen))
+    got = quantized_matmul_cuda(x, qw, splits=splits)
+    torch.cuda.synchronize()
+    want = quantized_matmul_plain(x, qw)
+    assert _err(got, want) <= _qmm_gate(want)
+
+
+def test_quantized_matmul_routes_by_rows(gen):
+    """Decode rows take the kernel, prefill rows the cuBLAS product; both
+    agree with the plain version."""
+    from tiny_flash_attention_tpu_torch.ops.configs import (
+        QUANT_MATMUL_MAX_ROWS)
+    qw = Q.quantize_weight(_randn((512, 256), torch.float32, gen))
+    for rows, launched in ((QUANT_MATMUL_MAX_ROWS, 1),
+                           (QUANT_MATMUL_MAX_ROWS + 1, 0), (300, 0)):
+        x = _randn((rows, 512), torch.bfloat16, gen) / 512 ** 0.5
+        before = quantized_matmul_cuda.launches
+        got = Q.quantized_matmul(x, qw)
+        torch.cuda.synchronize()
+        assert quantized_matmul_cuda.launches == before + launched
+        want = quantized_matmul_plain(x, qw)
+        assert _err(got, want) <= _qmm_gate(want)

@@ -15,7 +15,9 @@ from tiny_flash_attention_tpu_torch.models.kv_cache import PagedKVCache
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    fused_paged_decode_attention)
+    fused_page_append, fused_paged_decode_attention)
+from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+    quantized_matmul_cuda)
 from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -44,7 +46,8 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_are_found():
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "page_append",
+                                "paged_decode", "quant_matmul"]
 
 
 SMALL = TT.ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_q_heads=2,
@@ -57,10 +60,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.init_params(SMALL, gen)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        PagedKVCache.create(n_layers=1, n_kv_heads=1, num_pages=4,
-                            page_size=16, d_head=64, max_seqs=2,
-                            pages_per_seq=2)
+    for fmt in ("bf16", "int8"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedKVCache.create(n_layers=1, n_kv_heads=1, num_pages=4,
+                                page_size=16, d_head=64, max_seqs=2,
+                                pages_per_seq=2, fmt=fmt)
     params = TT.init_params(SMALL, gen, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(SMALL, params, num_pages=4, page_size=16,
@@ -68,26 +72,34 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     InferenceEngine(SMALL, params, num_pages=4, page_size=16, max_seqs=2,
                     pages_per_seq=2, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(SMALL, TT.quantize_params(params), num_pages=4,
+                        page_size=16, max_seqs=2, pages_per_seq=2,
+                        kv_format="int8")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(SMALL)
     make_train_step(SMALL, device="cpu")
 
 
 def test_cpu_calls_launch_no_kernel():
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
-    fused_paged_decode_attention.launches = 0
+    counters = [flash_attention, flash_attention_bwd,
+                fused_paged_decode_attention, fused_page_append,
+                quantized_matmul_cuda]
+    for fn in counters:
+        fn.launches = 0
+    fused_paged_decode_attention.int8_launches = 0
     params = TT.init_params(SMALL, torch.Generator().manual_seed(0),
                             device="cpu")
-    eng = InferenceEngine(SMALL, params, num_pages=8, page_size=16,
-                          max_seqs=2, pages_per_seq=4, device="cpu")
-    out = eng.generate([list(range(5)), list(range(20))], max_new_tokens=5,
-                       chunk=2)
-    assert [len(o) for o in out] == [5, 5]
+    for p, fmt in ((params, "bf16"), (TT.quantize_params(params), "int8")):
+        eng = InferenceEngine(SMALL, p, num_pages=8, page_size=16,
+                              max_seqs=2, pages_per_seq=4, kv_format=fmt,
+                              device="cpu")
+        out = eng.generate([list(range(5)), list(range(20))],
+                           max_new_tokens=5, chunk=2)
+        assert [len(o) for o in out] == [5, 5]
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     flash_attention(q, q, q, causal=True).sum().backward()
     step, init = make_train_step(SMALL, device="cpu")
     step(*init(params), torch.randint(0, 64, (2, 16)))
-    assert flash_attention.launches == 0
-    assert flash_attention_bwd.launches == 0
-    assert fused_paged_decode_attention.launches == 0
+    assert [fn.launches for fn in counters] == [0] * len(counters)
+    assert fused_paged_decode_attention.int8_launches == 0
 

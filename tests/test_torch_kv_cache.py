@@ -120,6 +120,13 @@ def test_save_load_roundtrip_across_packages(tmp_path):
     _assert_pages_equal(tc, jback)
 
 
-def test_formats_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        TCache.create(**GEOM, fmt="int8", device="cpu")
+def test_formats_not_ported_raise(tmp_path):
+    """int8 pages are ported; an unknown format is refused, and a cache
+    saved with data-parallel page groups (n_groups > 1) is not ported."""
+    with pytest.raises(ValueError):
+        TCache.create(**GEOM, fmt="fp8", device="cpu")
+    jc = JCache.create(**{**GEOM, "max_seqs": 4}, dtype=jnp.bfloat16,
+                       n_groups=2)
+    jc.save(str(tmp_path / "groups.npz"))
+    with pytest.raises(NotImplementedError, match="groups"):
+        TCache.load(str(tmp_path / "groups.npz"), device="cpu")

@@ -43,8 +43,8 @@ def test_pack_paged_cache_byte_identical():
     np.testing.assert_array_equal(_bits(got), _bits(want))
     for ps, d in [(16, 64), (64, 64), (256, 128)]:
         assert tpf.scale_rows_per_side(ps, d) == jpf.scale_rows_per_side(ps, d)
-    with pytest.raises(NotImplementedError):
-        tpf.pack_paged_cache(tk, tv, fmt="int8")
+    with pytest.raises(ValueError):
+        tpf.pack_paged_cache(tk, tv, fmt="fp8")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
@@ -106,9 +106,13 @@ def test_decode_column_slice_and_clamp():
 def test_decode_rejects_what_is_not_ported():
     q = torch.zeros((1, 2, 64))
     pages = torch.zeros((1, 4, 2 * 16 + 8, 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(NotImplementedError, match="window"):
         tpf.fused_paged_decode_attention(
             q, pages, torch.ones(1, dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32), page_size=16, window=8)
+    with pytest.raises(ValueError, match="int8 pages"):
+        tpf.fused_paged_decode_attention(
+            q, pages[:, :, :36], torch.ones(1, dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), page_size=16)
     with pytest.raises(NotImplementedError, match="window"):
         tpf.fused_paged_decode_attention(

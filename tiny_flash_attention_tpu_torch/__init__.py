@@ -11,7 +11,10 @@ Layer map (counterparts in the JAX package):
   ops.reference    -- mha_reference oracle (ops/reference.py)
   ops.flash        -- flash_attention forward -> csrc/flash_fwd.cu
   ops.flash_bwd    -- flash_attention backward -> csrc/flash_bwd.cu
-  ops.paged_fused  -- fused-page decode attention -> csrc/paged_decode.cu
+  ops.paged_fused  -- fused pages (bf16, int8): decode attention ->
+                      csrc/paged_decode.cu, token append -> csrc/page_append.cu
+  ops.quant        -- int8/fp8 quantizers, QuantizedTensor, quantized_matmul
+  ops.quant_matmul -- weight-only quantized matmul -> csrc/quant_matmul.cu
   ops.configs      -- the kernels' tile sizes
   models           -- GQA decoder and its loss, paged KV cache, inference
                       paths, engine

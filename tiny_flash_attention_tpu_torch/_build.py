@@ -12,6 +12,7 @@ import every module of the port.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 from tiny_flash_attention_tpu_torch.ops.configs import nvcc_defines
 
@@ -117,6 +120,16 @@ def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_target(name)[1]))
     with _lock:
         return _libs.setdefault(name, lib)
+
+
+def on_device(dev: torch.device):
+    """Makes `dev` the current CUDA device for a launch, or does nothing
+    when it already is: entering `torch.cuda.device` costs host time on
+    every call, and the decode step, which launches its kernels dozens of
+    times, is bound by the host."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(err: int, what: str) -> None:

@@ -2,16 +2,20 @@
 //
 // Replaces tiny_flash_attention_tpu/ops/paged_fused.py::
 // fused_paged_decode_attention (_fused_decode_kernel) for bf16 (and f32)
-// pages. A page holds K in rows [0, ps) and V in rows [ps, 2ps) of a
-// (hkv, num_pages, 2ps, D) array; page_indices (B, P) maps a sequence's
-// logical page to a physical one. Returns out (B, hq, D) in the input dtype
-// and a natural-log LSE (B, hq) in f32.
+// pages and for int8 pages with bit-packed f32 scale rows. A page holds K in
+// rows [0, ps) and V in rows [ps, 2ps) of a (hkv, num_pages, page_rows, D)
+// array; an int8 page adds sr = scale_rows_per_side(ps, D) rows of K scales
+// and then sr rows of V scales, byte j of token i's f32 scale at row
+// 2ps + 4 * (i / D) + j (V: + sr), lane i % D (paged_fused.py:86-103).
+// page_indices (B, P) maps a sequence's logical page to a physical one.
+// Returns out (B, hq, D) in q's dtype and a natural-log LSE (B, hq) in f32.
 //
 // What bounds it: the KV bytes. Each (sequence, kv head) reads
-// 2 * length * D elements once and does 4 * group * D FLOPs per token, two
-// orders of magnitude below the card's operations-per-byte ridge. The design:
-// one block per (kv head, sequence) serves the group's q rows, so every KV
-// byte is read once per kv head; the block's 8 warps split the sequence into
+// 2 * length * D page elements once (int8: one byte each, plus 8 scale
+// bytes per token) and does 4 * group * D FLOPs per token, two orders of
+// magnitude below the card's operations-per-byte ridge. The design: one
+// block per (kv head, sequence) serves the group's q rows, so every KV byte
+// is read once per kv head; the block's 8 warps split the sequence into
 // 32-token chunks (warp w takes chunks w, w + 8, ...) to keep many loads in
 // flight. In a chunk each lane scores its own token with 16-byte row loads
 // (q sits in shared memory, read as a broadcast), the warp updates its online
@@ -21,6 +25,11 @@
 // q in the input dtype, P is rounded to the input dtype before the PV
 // product, the mask value is -0.7 * FLT_MAX, m starts at -inf and an empty or
 // NaN l is guarded (paged_fused.py:346, :443), all as the TPU kernel does.
+// int8 pages keep the TPU kernel's rounding points (paged_fused.py:389-436):
+// the payload converts exactly, the f32 score is multiplied by the token's K
+// scale, l sums the unscaled p, and p times the token's V scale (in f32) is
+// what rounds to q's dtype before the PV product. A lane assembles its
+// token's two scales from their 4 bytes each while scoring.
 //
 // The attended length is min(lengths[b], P * ps): the kernel never reads a
 // page id past the table width. page_indices may be a column slice of a wider
@@ -47,6 +56,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -71,16 +81,30 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-template <typename T, int D, int G>
+// the f32 scale of token row r of a page, from its 4 bytes at rows
+// first_row + 4 * (r / D) + j, lane r % D
+template <int D>
+__device__ __forceinline__ float page_scale(const int8_t* page, int first_row,
+                                            int r) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(page) +
+                     (size_t)(first_row + 4 * (r / D)) * D + r % D;
+  const uint32_t bits = (uint32_t)p[0] | (uint32_t)p[D] << 8 |
+                        (uint32_t)p[2 * D] << 16 | (uint32_t)p[3 * D] << 24;
+  return __uint_as_float(bits);
+}
+
+// T: q and out dtype; P: page element type (T, or int8_t for int8 pages)
+template <typename T, typename P, int D, int G>
 __global__ void __launch_bounds__(WARPS * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pages,
+    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pages,
                         const int* __restrict__ lengths,
                         const int* __restrict__ page_indices, int pi_stride,
                         int pages_per_seq, T* __restrict__ out,
                         float* __restrict__ lse, int hkv, int num_pages,
-                        int page_size, float scale_log2) {
+                        int page_size, int page_rows, float scale_log2) {
+  constexpr bool QUANT = sizeof(P) == 1;
   constexpr int E = D / 32;            // output elements per lane
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int VEC = 16 / sizeof(P);  // page elements per 16-byte load
   static_assert(D % 32 == 0 && D % VEC == 0, "head_dim");
   __shared__ __align__(16) float qs[G][D];
   __shared__ float red_m[WARPS][G];
@@ -98,8 +122,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 
   const int n = max(0, min(lengths[b], pages_per_seq * page_size));
   const int* pt = page_indices + (size_t)b * pi_stride;
-  const size_t page_elems = (size_t)2 * page_size * D;
-  const T* head_pages = pages + (size_t)h * num_pages * page_elems;
+  const size_t page_elems = (size_t)page_rows * D;
+  const P* head_pages = pages + (size_t)h * num_pages * page_elems;
+  const int sr = (page_rows - 2 * page_size) / 2;  // scale rows per side
 
   float m_run[G], l_run[G], acc[G][E];
 #pragma unroll
@@ -114,21 +139,30 @@ __global__ void __launch_bounds__(WARPS * 32)
     // scores: lane `lane` takes token base + lane
     const int t = base + lane;
     float s[G];
+    float vscale = 1.f;
     if (t < n) {
-      const T* krow = head_pages + (size_t)pt[t / page_size] * page_elems +
-                      (size_t)(t % page_size) * D;
+      const P* page = head_pages + (size_t)pt[t / page_size] * page_elems;
+      const int r = t % page_size;
+      const P* krow = page + (size_t)r * D;
 #pragma unroll
       for (int g = 0; g < G; ++g) s[g] = 0.f;
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += VEC) {
         const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-        const T* kv = reinterpret_cast<const T*>(&raw);
+        const P* kv = reinterpret_cast<const P*>(&raw);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const float kf = to_f(kv[i]);
 #pragma unroll
           for (int g = 0; g < G; ++g) s[g] = fmaf(qs[g][d0 + i], kf, s[g]);
         }
+      }
+      if constexpr (QUANT) {
+        const int8_t* pb = reinterpret_cast<const int8_t*>(page);
+        const float kscale = page_scale<D>(pb, 2 * page_size, r);
+        vscale = page_scale<D>(pb, 2 * page_size + sr, r);
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] *= kscale;
       }
     } else {
 #pragma unroll
@@ -147,7 +181,7 @@ __global__ void __launch_bounds__(WARPS * 32)
       const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
       const float pf = exp2f(s[g] - mx) * keep;
       l_run[g] = alpha * l_run[g] + pf;
-      p[g] = round_to<T>(pf);
+      p[g] = round_to<T>(QUANT ? pf * vscale : pf);
       m_run[g] = mx;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
@@ -158,9 +192,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 #pragma unroll 4
     for (int tt = 0; tt < cnt; ++tt) {
       const int tok = base + tt;
-      const T* vrow = head_pages + (size_t)pt[tok / page_size] * page_elems +
+      const P* vrow = head_pages + (size_t)pt[tok / page_size] * page_elems +
                       (size_t)(page_size + tok % page_size) * D + lane * E;
-      const Lane<T, E> vl = *reinterpret_cast<const Lane<T, E>*>(vrow);
+      const Lane<P, E> vl = *reinterpret_cast<const Lane<P, E>*>(vrow);
       float vf[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) vf[e] = to_f(vl.v[e]);
@@ -208,21 +242,21 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch_group(int group, const void* q, const void* pages,
                          const void* lengths, const void* page_indices,
                          int pi_stride, int pages_per_seq, void* out,
                          void* lse, int batch, int hkv, int num_pages,
-                         int page_size, float scale_log2,
+                         int page_size, int page_rows, float scale_log2,
                          cudaStream_t stream) {
   const dim3 grid(hkv, batch);
 #define TFA_DECODE_LAUNCH(G)                                               \
-  paged_decode_kernel<T, D, G><<<grid, WARPS * 32, 0, stream>>>(           \
-      static_cast<const T*>(q), static_cast<const T*>(pages),              \
+  paged_decode_kernel<T, P, D, G><<<grid, WARPS * 32, 0, stream>>>(        \
+      static_cast<const T*>(q), static_cast<const P*>(pages),              \
       static_cast<const int*>(lengths),                                    \
       static_cast<const int*>(page_indices), pi_stride, pages_per_seq,     \
       static_cast<T*>(out), static_cast<float*>(lse), hkv, num_pages,      \
-      page_size, scale_log2)
+      page_size, page_rows, scale_log2)
   switch (group) {
     case 1: TFA_DECODE_LAUNCH(1); break;
     case 2: TFA_DECODE_LAUNCH(2); break;
@@ -236,31 +270,44 @@ cudaError_t launch_group(int group, const void* q, const void* pages,
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the kernel was launched. dtype: 0 bf16,
-// 1 f32. head_dim: 64 or 128; group (hq / hkv): 1, 2, 4 or 8. The caller has
+// Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
+// out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype with page_rows =
+// 2 * page_size, 1 int8 pages with page_rows = 2 * page_size + 2 * sr.
+// head_dim: 64 or 128; group (hq / hkv): 1, 2, 4 or 8. The caller has
 // checked shapes, contiguity and alignment.
 extern "C" int tfa_paged_decode(const void* q, const void* pages,
                                 const void* lengths, const void* page_indices,
                                 int pi_stride, int pages_per_seq, void* out,
                                 void* lse, int batch, int hq, int hkv,
-                                int num_pages, int page_size, int head_dim,
-                                float scale_log2, int dtype, void* stream) {
+                                int num_pages, int page_size, int page_rows,
+                                int head_dim, float scale_log2, int dtype,
+                                int quantized, void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || page_size <= 0 ||
-      pages_per_seq <= 0)
+      pages_per_seq <= 0 ||
+      (quantized ? page_rows <= 2 * page_size : page_rows != 2 * page_size))
     return (int)cudaErrorInvalidValue;
   const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFA_DECODE_ARGS                                                     \
   group, q, pages, lengths, page_indices, pi_stride, pages_per_seq, out,   \
-      lse, batch, hkv, num_pages, page_size, scale_log2, s
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_group<__nv_bfloat16, 128>(TFA_DECODE_ARGS);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_group<__nv_bfloat16, 64>(TFA_DECODE_ARGS);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_group<float, 128>(TFA_DECODE_ARGS);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_group<float, 64>(TFA_DECODE_ARGS);
+      lse, batch, hkv, num_pages, page_size, page_rows, scale_log2, s
+#define TFA_DECODE_DISPATCH(T, P)                                           \
+  if (head_dim == 128) return (int)launch_group<T, P, 128>(TFA_DECODE_ARGS); \
+  if (head_dim == 64) return (int)launch_group<T, P, 64>(TFA_DECODE_ARGS);   \
+  return (int)cudaErrorInvalidValue
+  if (dtype == 0 && !quantized) {
+    TFA_DECODE_DISPATCH(__nv_bfloat16, __nv_bfloat16);
+  }
+  if (dtype == 0 && quantized) {
+    TFA_DECODE_DISPATCH(__nv_bfloat16, int8_t);
+  }
+  if (dtype == 1 && !quantized) {
+    TFA_DECODE_DISPATCH(float, float);
+  }
+  if (dtype == 1 && quantized) {
+    TFA_DECODE_DISPATCH(float, int8_t);
+  }
+#undef TFA_DECODE_DISPATCH
 #undef TFA_DECODE_ARGS
   return (int)cudaErrorInvalidValue;
 }

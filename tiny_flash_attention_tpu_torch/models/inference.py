@@ -1,12 +1,14 @@
 """Inference paths: batched prefill and the paged decode step.
 
-Port of tiny_flash_attention_tpu/models/inference.py for float pages. The
-JAX functions are jitted and donate the pages buffer (`donate_argnums`);
-here every decode write updates the page tensors IN PLACE, and the pages
-list the caller passed is the one returned. `lax.scan` over stacked layers
-becomes a loop over the layer list, and `decode_loop`'s scan over steps a
-Python loop that keeps the sampled tokens on the device until the end.
-Packed and jagged admission and the int8 append are not ported yet.
+Port of tiny_flash_attention_tpu/models/inference.py for bf16 and int8
+pages. The JAX functions are jitted and donate the pages buffer
+(`donate_argnums`); here every decode write updates the page tensors IN
+PLACE, and the pages list the caller passed is the one returned. `lax.scan`
+over stacked layers becomes a loop over the layer list, and `decode_loop`'s
+scan over steps a Python loop that keeps the sampled tokens on the device
+until the end. The decode step's append is the hand-written append kernel
+on the card (`_append_rows`), where the JAX engine runs an XLA scatter.
+Packed and jagged admission are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from tiny_flash_attention_tpu_torch.models import transformer as T
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    fused_paged_decode_attention)
+    fused_page_append, fused_paged_decode_attention)
 
 
 def prefill_forward_batched(cfg: T.ModelConfig, params: dict,
@@ -72,8 +74,8 @@ def _decode_core(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
         q, k, v = T.qkv_proj(cfg, layer, x, positions[:, None])
         # q (B, hq, 1, d); k/v (B, hkv, 1, d). Append before attending:
         # the current token attends to itself.
-        _append_rows_scatter(pages[li], k[:, :, 0], v[:, :, 0], page_ids,
-                             rows, page_size=ps, fmt=fmt)
+        _append_rows(pages[li], k[:, :, 0], v[:, :, 0], page_ids, rows,
+                     page_size=ps, fmt=fmt)
         o, _ = fused_paged_decode_attention(q[:, :, 0], pages[li], lengths,
                                             page_table, page_size=ps)
         o = o.reshape(B, 1, cfg.n_q_heads * cfg.d_head).to(cfg.dtype)
@@ -126,19 +128,24 @@ def decode_loop(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
     return pages, torch.stack(sampled), generator
 
 
-def _append_rows_scatter(pages: torch.Tensor, k_new: torch.Tensor,
-                         v_new: torch.Tensor, page_ids: torch.Tensor,
-                         rows: torch.Tensor, *, page_size: int, fmt: str):
-    """In-place token append: pages (hkv, np, 2ps, d); k_new/v_new
-    (B, hkv, d); page_ids/rows (B,). K lands at row `row` of its page, V at
-    `page_size + row`."""
-    if fmt != "bf16":
-        raise NotImplementedError(f"KV format {fmt!r} is not ported yet")
-    page_ids, rows = page_ids.long(), rows.long()
-    pages[:, page_ids, rows] = k_new.transpose(0, 1).to(pages.dtype)
-    pages[:, page_ids, page_size + rows] = v_new.transpose(0, 1).to(
-        pages.dtype)
-    return pages
+def _check_format(pages: torch.Tensor, fmt: str) -> None:
+    if fmt not in ("bf16", "int8"):
+        raise ValueError(f"KV format {fmt!r}")
+    if (fmt == "int8") != (pages.dtype == torch.int8):
+        raise ValueError(f"KV format {fmt!r} over {pages.dtype} pages")
+
+
+def _append_rows(pages: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, page_ids: torch.Tensor,
+                 rows: torch.Tensor, *, page_size: int, fmt: str):
+    """In-place token append: pages (hkv, np, prows, d); k_new/v_new
+    (B, hkv, d); page_ids/rows (B,). `fused_page_append` for both formats:
+    one kernel launch per layer on the card, the scatter decomposition on
+    the CPU. (The JAX engine dispatches its scatter everywhere: its Pallas
+    append never compiled on the TPU.)"""
+    _check_format(pages, fmt)
+    return fused_page_append(pages, k_new, v_new, page_ids, rows,
+                             page_size=page_size)
 
 
 def _gumbel_argmax(scaled: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

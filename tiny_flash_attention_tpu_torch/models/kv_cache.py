@@ -1,13 +1,15 @@
 """Paged KV cache: host-side page allocator + in-place device writes.
 
-Port of tiny_flash_attention_tpu/models/kv_cache.py for float pages
-(fmt="bf16": the pages hold the model dtype) and one page pool
+Port of tiny_flash_attention_tpu/models/kv_cache.py for one page pool
 (n_groups=1). Pages are stored per layer in the fused format of
-ops/paged_fused.py, (hkv, num_pages, 2 * page_size, d), byte-identical to
-the JAX pages for the same inputs. The allocator (free list, slot table,
-lengths) lives on the host. Where the JAX helpers donate the pages buffer
-and return a new one, the writes here update the page tensors in place.
-int8 pages and data-parallel page groups are not ported yet.
+ops/paged_fused.py, (hkv, num_pages, rows, d), byte-identical to the JAX
+pages for the same inputs: fmt="bf16" pages hold the model dtype in 2ps
+rows; fmt="int8" pages hold the int8 payload and the bit-packed per-token
+f32 scales in 2ps + 2 * scale_rows_per_side(ps, d) rows, quantized on
+write. The allocator (free list, slot table, lengths) lives on the host.
+Where the JAX helpers donate the pages buffer and return a new one, the
+writes here update the page tensors in place. Data-parallel page groups
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from typing import List
 import numpy as np
 import torch
 
+from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+    fused_page_append, page_rows, quantize_kv_page_int8)
 from tiny_flash_attention_tpu_torch.utils.device import resolve_device
 
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
-                torch.float16: "float16"}
+                torch.float16: "float16", torch.int8: "int8"}
 _DTYPES = {name: dt for dt, name in _DTYPE_NAMES.items()}
 
 
@@ -32,7 +36,7 @@ class PagedKVCache:
     lengths: np.ndarray             # (max_seqs,) int32, host
     free_pages: list                # host free list of page ids
     page_size: int
-    fmt: str                        # "bf16"
+    fmt: str                        # "bf16" | "int8"
     alloc_counts: np.ndarray = None  # (max_seqs,) pages held per slot
 
     # --- construction ---------------------------------------------------
@@ -43,11 +47,11 @@ class PagedKVCache:
                pages_per_seq: int, fmt: str = "bf16",
                dtype: torch.dtype = torch.bfloat16,
                device=None) -> "PagedKVCache":
-        if fmt != "bf16":
-            raise NotImplementedError(f"KV format {fmt!r} is not ported yet")
+        rows = page_rows(page_size, d_head, fmt)
+        pdtype = torch.int8 if fmt == "int8" else dtype
         device = resolve_device(device)
-        pages = [torch.zeros((n_kv_heads, num_pages, 2 * page_size, d_head),
-                             dtype=dtype, device=device)
+        pages = [torch.zeros((n_kv_heads, num_pages, rows, d_head),
+                             dtype=pdtype, device=device)
                  for _ in range(n_layers)]
         return cls(
             pages=pages,
@@ -136,7 +140,11 @@ class PagedKVCache:
         for li, pages in enumerate(self.pages):
             kp = k_layers[li].reshape(hkv, n, self.page_size, d)
             vp = v_layers[li].reshape(hkv, n, self.page_size, d)
-            pages[:, page_ids] = torch.cat([kp, vp], dim=-2).to(pages.dtype)
+            if self.fmt == "int8":
+                fused = quantize_kv_page_int8(kp, vp)
+            else:
+                fused = torch.cat([kp, vp], dim=-2).to(pages.dtype)
+            pages[:, page_ids] = fused
 
     def append_tokens(self, slots: np.ndarray, k_new: torch.Tensor,
                       v_new: torch.Tensor) -> None:
@@ -144,19 +152,20 @@ class PagedKVCache:
 
         slots: (B,) host ints; k_new/v_new: (n_layers, hkv, B, d). Writes at
         the CURRENT lengths (a reserved slot's -1 counts as 0), then
-        advances them.
+        advances them. Each layer's write is one `fused_page_append` (the
+        kernel on the card, quantizing for int8 pages).
         """
         pos_host = np.maximum(self.lengths[slots], 0)
         page_ids = torch.as_tensor(
             self.page_table[slots, (pos_host // self.page_size)
-                            % self.pages_per_seq],
-            device=self.device).long()
-        rows = torch.as_tensor(pos_host % self.page_size,
-                               device=self.device).long()
+                            % self.pages_per_seq].astype(np.int32),
+            device=self.device)
+        rows = torch.as_tensor((pos_host % self.page_size).astype(np.int32),
+                               device=self.device)
         for li, pages in enumerate(self.pages):
-            pages[:, page_ids, rows] = k_new[li].to(pages.dtype)
-            pages[:, page_ids, self.page_size + rows] = v_new[li].to(
-                pages.dtype)
+            fused_page_append(pages, k_new[li].transpose(0, 1),
+                              v_new[li].transpose(0, 1), page_ids, rows,
+                              page_size=self.page_size)
         self.lengths[slots] = pos_host + 1
 
     def device_views(self):
@@ -196,9 +205,8 @@ class PagedKVCache:
                 raise NotImplementedError("data-parallel page groups are "
                                           "not ported yet")
             fmt = str(z["fmt"])
-            if fmt != "bf16":
-                raise NotImplementedError(f"KV format {fmt!r} is not "
-                                          "ported yet")
+            if fmt not in ("bf16", "int8"):
+                raise ValueError(f"KV format {fmt!r}")
             dtype = _DTYPES[str(z["pages_dtype"])]
             pages = [torch.from_numpy(np.ascontiguousarray(z[f"pages_{i}"]))
                      .view(dtype).to(device, copy=True)

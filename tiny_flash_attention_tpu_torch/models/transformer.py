@@ -7,8 +7,10 @@ loop walks the list). The bf16 rounding points follow the JAX functions:
 projections accumulate in f32 and round once to the activation dtype,
 rms_norm rounds before the gamma multiply, RoPE and SiLU compute in f32.
 `loss_fn` is the training objective; every parameter is a leaf tensor, so
-the trainer (parallel/train.py) can ask for its gradient. Weight-only
-quantization and the sliding window are not ported yet.
+the trainer (parallel/train.py) can ask for its gradient.
+`quantize_params` makes the weight-only int8/fp8 variant: every projection
+becomes a QuantizedTensor (per-output-channel scales) and `_proj` sends it
+through `quantized_matmul`. The sliding window is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tiny_flash_attention_tpu_torch.ops import quant as Q
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.reference import mha_reference
 from tiny_flash_attention_tpu_torch.utils.device import resolve_device
@@ -48,6 +51,7 @@ class ModelConfig:
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
                "w_up", "w_down")
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -93,34 +97,63 @@ def _from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         # ml_dtypes bfloat16: same bits, read through a 16-bit integer view
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)
 
 
+def _leaf_from_jax(a, device: torch.device, layer: Optional[int] = None):
+    """A JAX leaf (a numpy array, or anything with `.values` and `.scales`
+    such as JAX's QuantizedTensor) -> a tensor or a QuantizedTensor; with
+    `layer`, the slice of the stacked leading axis."""
+    def take(x):
+        return _from_numpy(x if layer is None else x[layer], device)
+    if hasattr(a, "values") and hasattr(a, "scales"):
+        return Q.QuantizedTensor(take(a.values), take(a.scales))
+    return take(a)
+
+
 def params_from_jax(tree: dict, device=None) -> dict:
     """JAX params (every leaf a numpy array, e.g. `jax.tree.map(np.asarray,
-    params)`) -> the port's params, bit for bit, with the stacked `layers`
-    axis split into a list of per-layer dicts."""
+    params)`, quantized ones included) -> the port's params, bit for bit,
+    with the stacked `layers` axis split into a list of per-layer dicts (a
+    quantized projection's (L, K, N) values and (L, 1, N) scales too)."""
     device = resolve_device(device)
     stacked = tree["layers"]
-    n_layers = stacked["wq"].shape[0]
+    n_layers = stacked["attn_norm"].shape[0]
     return {
-        "embed": _from_numpy(tree["embed"], device),
-        "layers": [{k: _from_numpy(stacked[k][i], device)
+        "embed": _leaf_from_jax(tree["embed"], device),
+        "layers": [{k: _leaf_from_jax(stacked[k], device, i)
                     for k in _LAYER_KEYS} for i in range(n_layers)],
-        "final_norm": _from_numpy(tree["final_norm"], device),
-        "lm_head": _from_numpy(tree["lm_head"], device),
+        "final_norm": _leaf_from_jax(tree["final_norm"], device),
+        "lm_head": _leaf_from_jax(tree["lm_head"], device),
     }
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w accumulated in f32 and rounded once to x's dtype.
+def quantize_params(params: dict, fmt: str = "int8") -> dict:
+    """Weight-only quantization of every projection and the lm_head, with
+    per-output-channel scales; the embedding and the norms stay."""
+    out = dict(params)
+    out["layers"] = [{name: (Q.quantize_weight(w, fmt)
+                             if name in _QUANT_KEYS else w)
+                      for name, w in layer.items()}
+                     for layer in params["layers"]]
+    out["lm_head"] = Q.quantize_weight(params["lm_head"], fmt)
+    return out
+
+
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w accumulated in f32 and rounded once to x's dtype; a
+    QuantizedTensor weight goes through `quantized_matmul`.
 
     On the card cuBLAS accumulates bf16 products in f32 and rounds once, as
     long as `torch.backends.cuda.matmul.allow_bf16_reduced_precision_
     reduction` is False (chip_smoke.py sets it): otherwise a split-K
     reduction may add partial sums in bf16."""
+    if isinstance(w, Q.QuantizedTensor):
+        return Q.quantized_matmul(x, w)
     if x.device.type == "cpu":
         return torch.matmul(x.float(), w.float()).to(x.dtype)
     return torch.matmul(x, w)

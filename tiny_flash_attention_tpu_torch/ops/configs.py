@@ -37,6 +37,40 @@ FLASH_BWD_BF16_DQ = TileConfig(block_m=64, block_n=64, threads=128)
 FLASH_BWD_BF16_DKV = TileConfig(block_m=32, block_n=64, threads=128)
 # f32 backward, both kernels: 16 x 16 threads over a 64 x 64 score tile.
 FLASH_BWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
+# weight-only quantized matmul: a block owns 32 output columns and a slice
+# of K; its 8 warps split the slice (4 column groups of 8 per warp row, 8 k
+# rows per warp step); x is staged in 512-column chunks of f32 in shared
+# memory. block_m is the most rows the kernel takes (x rows in shared
+# memory, 8 f32 accumulators per row per thread).
+QUANT_MATMUL = TileConfig(block_m=16, block_n=32, threads=256)
+QUANT_MATMUL_K_CHUNK = 512
+# K slices of one call (the blocks of a thread block cluster, at most 8),
+# set from chip_smoke.py's split sweep on the H100 (the times are in
+# PERF.md): only where N gives fewer than 66 column blocks (wq/wo, wk/wv,
+# w_down of the engine model), up to about 128 blocks in all, and never
+# below 512 k rows a block; w_gate/w_up and the lm_head are slower sliced.
+QUANT_MATMUL_MAX_SPLITS = 8
+QUANT_MATMUL_SPLIT_BELOW_BLOCKS = 66
+QUANT_MATMUL_TARGET_BLOCKS = 128
+QUANT_MATMUL_MIN_SPLIT_ROWS = 512
+
+
+def quant_matmul_splits(n: int, k: int) -> int:
+    """K slices for a quantized matmul of N columns and depth K."""
+    blocks = -(-n // QUANT_MATMUL.block_n)
+    if blocks >= QUANT_MATMUL_SPLIT_BELOW_BLOCKS:
+        return 1
+    return max(1, min(QUANT_MATMUL_MAX_SPLITS,
+                      k // QUANT_MATMUL_MIN_SPLIT_ROWS,
+                      -(-QUANT_MATMUL_TARGET_BLOCKS // blocks)))
+
+
+# quantized_matmul's route on the card: the kernel up to this many
+# activation rows (decode: B x 1), the cuBLAS product on the converted
+# payload above (prefill). Set from chip_smoke.py's row sweep on the H100
+# (the times are in PERF.md): up to 8 rows the kernel is the faster at
+# every engine projection, at 16 rows the route wins at w_down (K 4096).
+QUANT_MATMUL_MAX_ROWS = 8
 
 
 def _tile_defines(prefix: str, cfg: TileConfig) -> list[str]:
@@ -53,5 +87,7 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_BWD_BF16_DQ", FLASH_BWD_BF16_DQ),
         *_tile_defines("TFA_BWD_BF16_DKV", FLASH_BWD_BF16_DKV),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
+        *_tile_defines("TFA_QMM", QUANT_MATMUL),
+        f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
     ]

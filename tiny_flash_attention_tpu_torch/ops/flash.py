@@ -230,7 +230,7 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = _flash_fwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bs, hq, hkv, q_len, kv_len, d, int(causal),

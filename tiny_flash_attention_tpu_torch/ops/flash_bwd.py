@@ -131,7 +131,7 @@ def _launch(q, k, v, do, lse, delta, *, dq, dk, dv, causal: bool,
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     ptr = (lambda t: None if t is None else t.data_ptr())
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = _flash_bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv),

@@ -1,13 +1,22 @@
-"""Fused-page decode attention: page format helpers, plain version, kernel.
+"""Fused-page decode attention and token append: page format, plain
+versions, kernels.
 
-Counterpart of tiny_flash_attention_tpu/ops/paged_fused.py. A bf16 page
-packs one page of K and V in one block: rows [0, ps) hold K, rows [ps, 2ps)
-hold V, so the pages array is (kv_heads, num_pages, 2 * page_size, d) and
-byte-identical to the JAX format. `fused_paged_decode_attention` attends
-one new token per sequence through a page table: a CPU tensor takes the
-plain version, a CUDA tensor launches csrc/paged_decode.cu (ports
-`_fused_decode_kernel`) or raises. int8 pages (with their bit-packed scale
-rows) and the sliding-window ring mode are not ported yet.
+Counterpart of tiny_flash_attention_tpu/ops/paged_fused.py. A page packs one
+page of K and V in one block, byte-identical to the JAX format:
+
+    rows [0, ps)               K payload (ps tokens x d)
+    rows [ps, 2ps)             V payload
+    rows [2ps, 2ps + sr)       K per-token f32 scales, bit-packed  (int8 only)
+    rows [2ps + sr, 2ps + 2sr) V per-token f32 scales               (int8 only)
+
+with sr = scale_rows_per_side(ps, d) = 4 * ceil(ps / d) and byte j of
+token i's scale at [4 * (i // d) + j, i % d]. bf16 pages hold the model
+dtype (bf16 or f32). `fused_paged_decode_attention` attends one new token
+per sequence through a page table; `fused_page_append` writes one token per
+(kv head, sequence) in place (quantized for int8 pages). A CPU tensor takes
+the plain version, a CUDA tensor launches csrc/paged_decode.cu (ports
+`_fused_decode_kernel`) or csrc/page_append.cu (ports `_append_kernel`)
+or raises. The sliding-window ring mode of the decode is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,17 +26,20 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
+from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
 
 
-# --- page packing -------------------------------------------------------------
+# --- page packing ------------------------------------------------------------
 
 
 def pack_kv_page_bf16(k_page: torch.Tensor,
@@ -37,8 +49,8 @@ def pack_kv_page_bf16(k_page: torch.Tensor,
 
 
 def scale_rows_per_side(page_size: int, d: int) -> int:
-    """int8 rows holding one side's per-token f32 scales in the int8 page
-    format (4 * ceil(ps / d)); kept for the format's geometry."""
+    """int8 rows holding one side's per-token f32 scales (4 * ceil(ps / d));
+    ps > d must be a multiple of d (a scale group never straddles rows)."""
     if page_size <= d:
         return 4
     if page_size % d:
@@ -48,17 +60,189 @@ def scale_rows_per_side(page_size: int, d: int) -> int:
     return 4 * (page_size // d)
 
 
+def page_rows(page_size: int, d: int, fmt: str) -> int:
+    """Rows of one fused page: 2ps, plus 2 * sr scale rows for int8."""
+    if fmt == "bf16":
+        return 2 * page_size
+    if fmt == "int8":
+        return 2 * page_size + 2 * scale_rows_per_side(page_size, d)
+    raise ValueError(f"KV format {fmt!r}")
+
+
+def _quant_rows(x: torch.Tensor):
+    """(..., d) -> (int8 payload, f32 scale (...,)), per token row."""
+    qt = quantize_int8(x, axis=-1)
+    return qt.values, qt.scales[..., 0]
+
+
+def _pack_scale_rows(scales: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., ps) f32 -> (..., scale_rows_per_side(ps, d), d) int8: byte j of
+    token i at [4 * (i // d) + j, i % d] (the f32's little-endian bytes)."""
+    ps = scales.shape[-1]
+    lead = scales.shape[:-1]
+    b = scales.float().contiguous().view(torch.int8).reshape(*lead, ps, 4)
+    if ps <= d:
+        return F.pad(b.transpose(-1, -2), (0, d - ps))   # (..., 4, d)
+    groups = ps // d
+    b = b.reshape(*lead, groups, d, 4).transpose(-1, -2)  # (..., g, 4, d)
+    return b.reshape(*lead, 4 * groups, d)
+
+
+def _unpack_scale_rows(rows: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(..., sr, d) int8 scale rows -> (..., page_size) f32 scales."""
+    sr, d = rows.shape[-2:]
+    lead = rows.shape[:-2]
+    b = rows.reshape(*lead, sr // 4, 4, d).transpose(-1, -2).contiguous()
+    return b.view(torch.float32).reshape(*lead, (sr // 4) * d)[
+        ..., :page_size]
+
+
+def quantize_kv_page_int8(k_page: torch.Tensor,
+                          v_page: torch.Tensor) -> torch.Tensor:
+    """(..., ps, d) K and V float pages -> (..., 2ps + 2sr, d) int8 pages,
+    per-token scales packed into the scale rows."""
+    ps, d = k_page.shape[-2:]
+    scale_rows_per_side(ps, d)   # validates the geometry
+    kq, ks = _quant_rows(k_page)
+    vq, vs = _quant_rows(v_page)
+    return torch.cat([kq, vq, _pack_scale_rows(ks, d),
+                      _pack_scale_rows(vs, d)], dim=-2)
+
+
 def pack_paged_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
                      fmt: str = "bf16") -> torch.Tensor:
     """(hkv, np, ps, d) K and V page arrays -> fused pages array."""
     if fmt == "bf16":
         return pack_kv_page_bf16(k_pages, v_pages)
     if fmt == "int8":
-        raise NotImplementedError("int8 fused pages are not ported yet")
+        return quantize_kv_page_int8(k_pages, v_pages)
     raise ValueError(fmt)
 
 
-# --- decode attention ---------------------------------------------------------
+def unpack_int8_pages(pages: torch.Tensor, page_size: int):
+    """int8 fused pages (..., 2ps + 2sr, d) -> (k, v, k_scale, v_scale): the
+    int8 payloads (..., ps, d) and the f32 scales (..., ps)."""
+    ps = page_size
+    sr = (pages.shape[-2] - 2 * ps) // 2
+    return (pages[..., :ps, :], pages[..., ps:2 * ps, :],
+            _unpack_scale_rows(pages[..., 2 * ps:2 * ps + sr, :], ps),
+            _unpack_scale_rows(pages[..., 2 * ps + sr:, :], ps))
+
+
+# --- token append ------------------------------------------------------------
+
+
+def fused_page_append(fused_pages: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, page_ids: torch.Tensor,
+                      rows: torch.Tensor, *, page_size: int) -> torch.Tensor:
+    """Appends one token per sequence into the fused pages, IN PLACE.
+
+    fused_pages: (hkv, num_pages, prows, d), int8 pages quantize the rows.
+    k_new/v_new: (B, hkv, d) in bf16 or f32. page_ids/rows: (B,) int, the
+    target page and row in it. Returns fused_pages. A CPU tensor takes the
+    plain version (page_append_plain); a CUDA tensor launches
+    csrc/page_append.cu or raises.
+    """
+    hkv, num_pages, prows, d = fused_pages.shape
+    fmt = "int8" if fused_pages.dtype == torch.int8 else "bf16"
+    if prows != page_rows(page_size, d, fmt):
+        raise ValueError(f"pages {tuple(fused_pages.shape)} do not hold "
+                         f"{fmt} pages of page_size {page_size}")
+    batch = k_new.shape[0]
+    if k_new.shape != (batch, hkv, d) or v_new.shape != k_new.shape:
+        raise ValueError(f"k_new {tuple(k_new.shape)}, v_new "
+                         f"{tuple(v_new.shape)} for pages "
+                         f"{tuple(fused_pages.shape)}")
+    if fused_pages.is_cuda:
+        return _append_cuda(fused_pages, k_new, v_new, page_ids, rows,
+                            page_size=page_size)
+    if fused_pages.device.type != "cpu":
+        raise ValueError(f"unsupported device {fused_pages.device}")
+    return page_append_plain(fused_pages, k_new, v_new, page_ids, rows,
+                             page_size=page_size)
+
+
+fused_page_append.launches = 0   # counted by _append_cuda
+
+
+def page_append_plain(pages: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, page_ids: torch.Tensor,
+                      rows: torch.Tensor, *, page_size: int) -> torch.Tensor:
+    """The scatter decomposition of the append (the JAX engine's
+    `_append_rows_scatter`), in place: the payload rows, and for int8 pages
+    the quantized rows and the 4 bytes of each f32 scale per side. Runs on
+    any device."""
+    ps = page_size
+    page_ids, rows = page_ids.long(), rows.long()
+    kt, vt = k_new.transpose(0, 1), v_new.transpose(0, 1)   # (hkv, B, d)
+    if pages.dtype != torch.int8:
+        pages[:, page_ids, rows] = kt.to(pages.dtype)
+        pages[:, page_ids, ps + rows] = vt.to(pages.dtype)
+        return pages
+    d = pages.shape[-1]
+    sr = scale_rows_per_side(ps, d)
+    kq, ks = _quant_rows(kt)
+    vq, vs = _quant_rows(vt)
+    pages[:, page_ids, rows] = kq
+    pages[:, page_ids, ps + rows] = vq
+    srow = 2 * ps + 4 * (rows // d)
+    lane = rows % d
+    ksb = ks.contiguous().view(torch.int8).reshape(*ks.shape, 4)
+    vsb = vs.contiguous().view(torch.int8).reshape(*vs.shape, 4)
+    for j in range(4):
+        pages[:, page_ids, srow + j, lane] = ksb[..., j]
+        pages[:, page_ids, sr + srow + j, lane] = vsb[..., j]
+    return pages
+
+
+def _append_fn():
+    fn = _build.library("page_append").tfa_page_append
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
+    """Launches csrc/page_append.cu; returns pages (updated in place)."""
+    hkv, num_pages, prows, d = pages.shape
+    batch = k_new.shape[0]
+    if k_new.dtype not in _KERNEL_DTYPES or v_new.dtype != k_new.dtype \
+            or pages.dtype not in _PAGE_DTYPES:
+        raise NotImplementedError(
+            f"the CUDA append kernel takes bf16 or f32 rows into bf16, f32 "
+            f"or int8 pages, got {k_new.dtype}, {v_new.dtype} into "
+            f"{pages.dtype}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d}: the CUDA append kernel "
+                                  f"takes {_KERNEL_HEAD_DIMS}")
+    dev = pages.device
+    if not all(t.device == dev for t in (k_new, v_new, page_ids, rows)):
+        raise ValueError("pages, rows and targets must be on one CUDA "
+                         "device")
+    if page_ids.shape != (batch,) or rows.shape != (batch,):
+        raise ValueError(f"page_ids {tuple(page_ids.shape)}, rows "
+                         f"{tuple(rows.shape)} for batch {batch}")
+    if not pages.is_contiguous():
+        raise ValueError("fused pages must be contiguous (they are updated "
+                         "in place)")
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    page_ids = page_ids.to(torch.int32).contiguous()
+    rows = rows.to(torch.int32).contiguous()
+    with _build.on_device(dev):
+        err = _append_fn()(
+            k_new.data_ptr(), v_new.data_ptr(), page_ids.data_ptr(),
+            rows.data_ptr(), pages.data_ptr(), batch, hkv, num_pages, prows,
+            page_size, d, _KERNEL_DTYPES[k_new.dtype],
+            _PAGE_DTYPES[pages.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "page_append")
+    fused_page_append.launches += 1
+    return pages
+
+
+# --- decode attention --------------------------------------------------------
 
 
 def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
@@ -69,11 +253,12 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
                                  window: Optional[int] = None):
     """Decode attention over fused KV pages.
 
-    q: (batch, q_heads, d). fused_pages: (kv_heads, num_pages, 2*page_size,
-    d). lengths: (batch,) int32, the tokens each sequence attends (clamped
-    to the table width page_indices.shape[1] * page_size). page_indices:
-    (batch, pages_per_seq) int32; a column slice of a wider table is fine.
-    window (the JAX ring mode) is not ported yet and raises.
+    q: (batch, q_heads, d). fused_pages: (kv_heads, num_pages, rows, d),
+    rows = 2*page_size for pages of q's dtype, 2*page_size + 2*sr for int8
+    pages. lengths: (batch,) int32, the tokens each sequence attends
+    (clamped to the table width page_indices.shape[1] * page_size).
+    page_indices: (batch, pages_per_seq) int32; a column slice of a wider
+    table is fine. window (the JAX ring mode) is not ported yet and raises.
     Returns (out (batch, q_heads, d), lse (batch, q_heads) f32).
     """
     batch, hq, d = q.shape
@@ -81,11 +266,10 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
     if window is not None:
         raise NotImplementedError("the sliding-window ring mode of the "
                                   "decode is not ported yet")
-    if fused_pages.dtype == torch.int8:
-        raise NotImplementedError("int8 fused pages are not ported yet")
-    if rows != 2 * page_size or d2 != d:
+    fmt = "int8" if fused_pages.dtype == torch.int8 else "bf16"
+    if rows != page_rows(page_size, d, fmt) or d2 != d:
         raise ValueError(f"pages {tuple(fused_pages.shape)} do not hold "
-                         f"2 x page_size {page_size} rows of d {d}")
+                         f"{fmt} pages of page_size {page_size} and d {d}")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if sm_scale is None:
@@ -99,7 +283,10 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
                                     page_size=page_size, sm_scale=sm_scale)
 
 
-fused_paged_decode_attention.launches = 0   # counted by _decode_cuda
+# counted by _decode_cuda: launches over pages of q's dtype, int8_launches
+# over int8 pages
+fused_paged_decode_attention.launches = 0
+fused_paged_decode_attention.int8_launches = 0
 
 
 def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
@@ -107,7 +294,11 @@ def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
     """Plain PyTorch version with the kernel's arithmetic: q scaled by
     sm_scale*log2(e) in the input dtype, log2-domain softmax, the mask
     value and empty-row guard, p cast to the input dtype before the PV
-    product. Runs on any device; gathers every page of the table."""
+    product. Over int8 pages (paged_fused.py:389-436 of the JAX package):
+    the payload converted exactly, the f32 scores times the K scales, l
+    summed over the unscaled p, and p times the V scales in f32 cast to
+    the input dtype before the PV product. Runs on any device; gathers
+    every page of the table."""
     batch, hq, d = q.shape
     hkv = fused_pages.shape[0]
     group = hq // hkv
@@ -115,10 +306,19 @@ def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
     P = page_indices.shape[1]
     c = in_dtype(sm_scale * LOG2E, q.dtype)
     qs = (q.float() * c).to(q.dtype).float().reshape(batch, hkv, group, d)
-    g = fused_pages[:, page_indices.long()]               # (hkv, B, P, 2ps, d)
-    kk = g[:, :, :, :ps].reshape(hkv, batch, P * ps, d).transpose(0, 1)
-    vv = g[:, :, :, ps:].reshape(hkv, batch, P * ps, d).transpose(0, 1)
-    s = torch.matmul(qs, kk.float().transpose(-1, -2))    # (B, hkv, G, P*ps)
+    g = fused_pages[:, page_indices.long()]            # (hkv, B, P, rows, d)
+    quantized = fused_pages.dtype == torch.int8
+    if quantized:
+        kp, vp, ksc, vsc = unpack_int8_pages(g, ps)
+        ksc = ksc.reshape(hkv, batch, 1, P * ps).transpose(0, 1)
+        vsc = vsc.reshape(hkv, batch, 1, P * ps).transpose(0, 1)
+    else:
+        kp, vp = g[:, :, :, :ps], g[:, :, :, ps:]
+    kk = kp.reshape(hkv, batch, P * ps, d).transpose(0, 1)
+    vv = vp.reshape(hkv, batch, P * ps, d).transpose(0, 1)
+    s = torch.matmul(qs, kk.to(q.dtype).float().transpose(-1, -2))
+    if quantized:
+        s = s * ksc                                        # (B, hkv, G, P*ps)
     n = lengths.to(q.device).long().clamp(max=P * ps)
     cols = torch.arange(P * ps, device=q.device)
     s = torch.where(cols[None, None, None, :] < n[:, None, None, None], s,
@@ -127,7 +327,9 @@ def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
     p = torch.exp2(s - m) * (m > 0.5 * DEFAULT_MASK_VALUE)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where((l == 0.0) | torch.isnan(l), 1.0, l)
-    out = torch.matmul(p.to(q.dtype).float(), vv.float()) / l_safe
+    pv = p * vsc if quantized else p
+    out = torch.matmul(pv.to(q.dtype).float(),
+                       vv.to(q.dtype).float()) / l_safe
     lse = m[..., 0] * LN2 + torch.log(l_safe[..., 0])
     return (out.to(q.dtype).reshape(batch, hq, d),
             lse.reshape(batch, hq))
@@ -137,8 +339,9 @@ def _decode_fn():
     fn = _build.library("paged_decode").tfa_paged_decode
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -147,11 +350,13 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
                  sm_scale: float):
     """Launches csrc/paged_decode.cu; returns (out, lse)."""
     batch, hq, d = q.shape
-    hkv, num_pages = fused_pages.shape[:2]
-    if q.dtype not in _KERNEL_DTYPES or fused_pages.dtype != q.dtype:
+    hkv, num_pages, prows = fused_pages.shape[:3]
+    quantized = fused_pages.dtype == torch.int8
+    if q.dtype not in _KERNEL_DTYPES or not (
+            quantized or fused_pages.dtype == q.dtype):
         raise NotImplementedError(
-            f"the CUDA decode kernel takes bf16 or f32 q and pages of one "
-            f"dtype, got {q.dtype} and {fused_pages.dtype}")
+            f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
+            f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
     if d not in _KERNEL_HEAD_DIMS or hq // hkv not in _KERNEL_GROUPS:
         raise NotImplementedError(
             f"head_dim {d}, group {hq // hkv}: the CUDA decode kernel takes "
@@ -176,13 +381,17 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
     out = torch.empty_like(q)
     lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _decode_fn()(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0),
             page_indices.shape[1], out.data_ptr(), lse.data_ptr(), batch,
-            hq, hkv, num_pages, page_size, d, scale_log2,
-            _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            hq, hkv, num_pages, page_size, prows, d, scale_log2,
+            _KERNEL_DTYPES[q.dtype], int(quantized),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode")
-    fused_paged_decode_attention.launches += 1
+    if quantized:
+        fused_paged_decode_attention.int8_launches += 1
+    else:
+        fused_paged_decode_attention.launches += 1
     return out, lse
