@@ -5,18 +5,23 @@
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
-card (the flash forward, the flash backward's dq and dk/dv kernels, the
-paged decode over bf16 and int8 pages, the page append, the weight-only
-quantized matmul). Then it runs the engine benchmark's model (vocab 32768,
-d_model 1024, 4 layers, 8/2 heads of 128, d_ff 4096, bf16; random weights
-from a seed) on its main paths: serving with bf16 pages, two batched
-admissions and 67 decode steps; quantized serving (int8 pages, with bf16
-and with int8 weights, 8 prompts of 512 and of 7936 tokens, the
-configurations of benchmarks/engine_bench.py:190-191,217-218), 64 decode
-steps each; and training, AdamW steps at batch 4 x seq 2048 and 1 x 8192
-(benchmarks/train_bench.py's configs). It fails if a kernel does not build,
-launch or agree, if a path did not go through its kernels, if the engine's
-output disagrees with the plain path, or if the train step's loss is not
+card (the flash forward with and without segment ids and its jagged
+row-loop mode, the flash backward's dq and dk/dv kernels, the paged decode
+over bf16 and int8 pages, the page append, the weight-only quantized
+matmul). Then it runs the engine benchmark's model (vocab 32768, d_model
+1024, 4 layers, 8/2 heads of 128, d_ff 4096, bf16; random weights from a
+seed) on its main paths: serving with bf16 pages, two batched admissions
+and 67 decode steps; quantized serving (int8 pages, with bf16 and with int8
+weights, 8 prompts of 512 and of 7936 tokens, the configurations of
+benchmarks/engine_bench.py:190-191,217-218), 64 decode steps each; ragged
+admission, the jagged benchmark's 8 prompts (benchmarks/
+jagged_prefill_bench.py:41) admitted batched, packed (page and pow2
+buckets) and jagged, then 32 decode steps each; the encoder's embed_texts
+at 8 x 2048 and 32 x 512 (benchmarks/encoder_bench.py); and training,
+AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
+train_bench.py's configs). It fails if a kernel does not build, launch or
+agree, if a path did not go through its kernels, if a path's output
+disagrees with its plain version, or if the train step's loss is not
 finite, does not fall, or its gradients disagree with those through the
 plain attention.
 
@@ -119,6 +124,30 @@ def _visible_pairs(q, k, causal: bool) -> float:
     else:
         pairs = float(q_len) * kv_len
     return b * hq * pairs
+
+
+def ragged_bound(q, k, pairs: float, *, tokens=None,
+                 int_bytes: int = 0) -> tuple[float, str]:
+    """Least time for a forward whose mask lets `pairs` (row, column) pairs
+    of one q head through (summed over the batch): 4 * d flops per pair and
+    q head; the q, k and v rows of `tokens` tokens (default: all) read
+    once, out and the f32 LSE written once, the ids or lengths read once."""
+    b, hq, n, d = q.shape
+    el = q.element_size()
+    rows = b * n if tokens is None else tokens
+    nbytes = (rows * (hq + 2 * k.shape[1]) * d * el + q.numel() * el
+              + q[..., 0].numel() * 4 + int_bytes)
+    return _bound(4.0 * d * hq * pairs, nbytes, q.dtype)
+
+
+def id_pairs(ids: np.ndarray, causal: bool) -> float:
+    """(row, column) pairs with equal ids in (b, n) ids used for q and kv
+    alike: the m tokens of one id give m(m+1)/2 causal pairs or m^2."""
+    total = 0.0
+    for row in ids:
+        m = np.unique(row, return_counts=True)[1].astype(np.float64)
+        total += float((m * (m + 1) / 2).sum() if causal else (m * m).sum())
+    return total
 
 
 def flash_bound(q, k, causal: bool) -> tuple[float, str]:
@@ -311,15 +340,21 @@ def check_not_ported_raise() -> None:
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_attention)
 
     q = torch.zeros((1, 2, 128, 128), device="cuda", dtype=torch.bfloat16)
     seg = torch.zeros((1, 128), device="cuda", dtype=torch.int32)
     lse = torch.zeros((1, 2, 128), device="cuda")
+    qg = q.clone().requires_grad_()
     attempts = [
         lambda: flash_attention(q, q, q, causal=True, window=64),
-        lambda: flash_attention(q, q, q, segment_ids=(seg, seg)),
+        # the forward runs the kernel; its backward has no segment ids yet
+        lambda: flash_attention(qg, qg, qg, segment_ids=(seg, seg))
+        .float().sum().backward(),
+        lambda: flash_attention_rowloop(q, q, q, causal=True, window=64),
         lambda: flash_attention(q, q.to(torch.int8), q.to(torch.int8)),
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
@@ -792,10 +827,15 @@ def engine_phase(gen_seed: int) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The decode step with each kernel of the quantized path swapped for
-    its plain version (the decode attention, the append and the quantized
-    matmul), for holding the engine's logits against them on the card."""
+    """Every kernel of the serving and encoder paths swapped for its plain
+    version (the flash forward in the prefills and the encoder, the
+    row-loop forward, the decode attention, the append and the quantized
+    matmul), for holding the paths' outputs against them on the card."""
+    from tiny_flash_attention_tpu_torch.models import encoder as E
     from tiny_flash_attention_tpu_torch.models import inference as I
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops import flash as FL
+    from tiny_flash_attention_tpu_torch.ops import flash_rowloop as RL
     from tiny_flash_attention_tpu_torch.ops import paged_fused as PF
     from tiny_flash_attention_tpu_torch.ops import quant as Q
     from tiny_flash_attention_tpu_torch.ops import quant_matmul as QM
@@ -805,16 +845,32 @@ def plain_kernels():
                                            page_size=page_size,
                                            sm_scale=q.shape[-1] ** -0.5)
 
-    saved = (I.fused_paged_decode_attention, I.fused_page_append,
-             Q.quantized_matmul_cuda)
-    I.fused_paged_decode_attention = decode_plain
-    I.fused_page_append = PF.page_append_plain
-    Q.quantized_matmul_cuda = QM.quantized_matmul_plain
+    def flash_plain(q, k, v, *, causal=False, segment_ids=None,
+                    segment_starts=None):
+        return FL.flash_attention_plain(q, k, v, causal=causal,
+                                        sm_scale=q.shape[-1] ** -0.5,
+                                        segment_ids=segment_ids)
+
+    def rowloop_plain(q, k, v, *, causal=False, seq_lengths=None):
+        return RL.flash_attention_rowloop_plain(
+            q, k, v, causal=causal, sm_scale=q.shape[-1] ** -0.5,
+            seq_lengths=seq_lengths)
+
+    patches = [(I, "fused_paged_decode_attention", decode_plain),
+               (I, "fused_page_append", PF.page_append_plain),
+               (Q, "quantized_matmul_cuda", QM.quantized_matmul_plain),
+               (T, "flash_attention", flash_plain),
+               (I, "flash_attention", flash_plain),
+               (E, "flash_attention", flash_plain),
+               (I, "flash_attention_rowloop", rowloop_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (I.fused_paged_decode_attention, I.fused_page_append,
-         Q.quantized_matmul_cuda) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # (label, int8 weights, prompt length, pages per slot): the int8-KV runs of
@@ -946,6 +1002,477 @@ def quant_serving_phase(seed) -> dict:
         engines[(quantized, prompt_len)] = run["engine"]
         del run
     return {"launches": totals, "engines": engines, "cfg": cfg}
+
+
+# --- phase 5c: ragged admission and the encoder -------------------------------
+
+# the heterogeneous mix of benchmarks/jagged_prefill_bench.py:41
+JAGGED_MIX = [3968, 1024, 512, 384, 2048, 640, 256, 1152]
+# (name, q shape (q_len == kv_len), segment bounds, dtype, causal): odd
+# shapes, bounds off the 64-row tiles
+SEG_CASES = [
+    ("bf16 causal, 5 segments", (2, 8, 700, 128), (37, 300, 301, 650),
+     torch.bfloat16, True),
+    ("bf16 non-causal, 3 segments", (2, 8, 333, 128), (100, 200),
+     torch.bfloat16, False),
+    ("f32 causal, 3 segments", (1, 8, 257, 128), (64, 129), torch.float32,
+     True),
+    ("f32 non-causal, head_dim 64", (1, 4, 190, 64), (1,), torch.float32,
+     False),
+]
+
+
+def segment_ids(b: int, n: int, bounds) -> torch.Tensor:
+    ids = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+    for x in bounds:
+        ids[:, x:] += 1
+    return ids
+
+
+def check_segments(name, q_shape, bounds, dtype, causal, gen) -> float:
+    """B1 with segment ids against its plain version at an odd shape, a q
+    row whose id matches no kv column included; then with segment_starts,
+    which must not change a bit."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    b, hq, n, d = q_shape
+    q = randn(q_shape, dtype, gen)
+    k, v = (randn((b, 2, n, d), dtype, gen) for _ in range(2))
+    seg = segment_ids(b, n, bounds)
+    q_seg = seg.clone()
+    q_seg[-1, n // 2] = 99                   # matches no kv column
+    out, lse = flash_attention(q, k, v, causal=causal,
+                               segment_ids=(q_seg, seg), return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
+                                         sm_scale=d ** -0.5,
+                                         segment_ids=(q_seg, seg),
+                                         return_lse=True)
+    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    empty = bool((out[-1, :, n // 2] == 0).all())
+    pruned = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
+                             segment_starts=(0, *bounds), return_lse=True)
+    full = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
+                           return_lse=True)
+    same = all(torch.equal(x, y) for x, y in zip(pruned, full))
+    atol = tolerance_for(dtype)
+    ok = err <= atol and lse_err <= atol and empty and same
+    log(f"flash segments {name}: q{tuple(q_shape)} bounds {bounds} causal="
+        f"{causal} | out err {err:.3e} lse err {lse_err:.3e} (gate "
+        f"{atol:.0e}) | unmatched row empty: {empty} | segment_starts "
+        f"bit-equal to none: {same} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"segment kernel disagrees: {name}")
+    return max(err, lse_err)
+
+
+def check_rows(name, out, lse, ref, ref_lse, lens, atol) -> float:
+    """Rows below each length within the gate (out and LSE), rows at or
+    past it exactly 0 with the plain version's sentinel LSE."""
+    err = 0.0
+    for bi, L in enumerate(lens):
+        err = max(err, max_err(out[bi, :, :L], ref[bi, :, :L]),
+                  max_err(lse[bi, :, :L], ref_lse[bi, :, :L]))
+        past_ok = (bool((out[bi, :, L:] == 0).all())
+                   and torch.allclose(lse[bi, :, L:], ref_lse[bi, :, L:],
+                                      rtol=1e-6, atol=0.0))
+        if not past_ok:
+            raise AssertionError(f"{name}: row {bi} past its length {L} is "
+                                 "not an empty row")
+    if not err <= atol:
+        raise AssertionError(f"{name}: err {err:.3e} > {atol:.0e}")
+    return err
+
+
+def check_rowloop(gen) -> float:
+    """B11 against its plain version: jagged lengths around one tile and
+    the whole row, bf16 and f32; then without lengths, non-causal and with
+    a decode offset."""
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop, flash_attention_rowloop_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    n = 1024
+    lens = [1, 63, 64, 65, n]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn((5, 8, n, 128), dtype, gen)
+        k, v = (randn((5, 2, n, 128), dtype, gen) for _ in range(2))
+        atol = tolerance_for(dtype)
+        cases = [("jagged", q, True, lens), ("non-causal", q, False, None),
+                 ("decode offset q128", q[:, :, -128:], True, None)]
+        for label, qq, causal, ln in cases:
+            lt = None if ln is None else torch.tensor(ln, device="cuda")
+            out, lse = flash_attention_rowloop(qq, k, v, causal=causal,
+                                               seq_lengths=lt)
+            torch.cuda.synchronize()
+            ref, ref_lse = flash_attention_rowloop_plain(
+                qq, k, v, causal=causal, sm_scale=128 ** -0.5,
+                seq_lengths=lt)
+            err = check_rows(f"rowloop {label}", out, lse, ref, ref_lse,
+                             ln or [qq.shape[2]] * 5, atol)
+            worst = max(worst, err)
+            log(f"rowloop {label} {str(dtype).split('.')[-1]}: q"
+                f"{tuple(qq.shape)} kv{tuple(k.shape)} lengths {ln} | err "
+                f"{err:.3e} (gate {atol:.0e}) on rows below each length; "
+                f"rows past it 0 with the sentinel LSE | ok")
+    return worst
+
+
+def sdpa_kernel_name(fn) -> str:
+    """The device kernel that took most of one call's time: which backend
+    SDPA dispatched to."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "not measured"
+    return max(kernels, key=lambda e: e.self_device_time_total).key[:80]
+
+
+def time_masked(name, q, k, v, *, kernel, plain, sdpa_mask, sdpa_causal,
+                bound, valid_lens=None, iters=5) -> dict:
+    """One slice kernel at a main-path shape: against its plain version
+    (on rows below `valid_lens` where given), then the device times of the
+    kernel, the plain version and SDPA with a boolean mask (the library
+    yardstick, which the port never calls)."""
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    out, lse = kernel()
+    torch.cuda.synchronize()
+    ref, ref_lse = plain()
+    lens = valid_lens or [q.shape[2]] * q.shape[0]
+    err = check_rows(name, out, lse, ref, ref_lse, lens,
+                     tolerance_for(q.dtype))
+    del out, lse, ref, ref_lse
+    t_kernel = cuda_time_ms(kernel, iters=iters)["median_ms"]
+    t_plain = cuda_time_ms(plain, iters=2)["median_ms"]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=sdpa_mask, is_causal=sdpa_causal,
+            enable_gqa=True)
+    t_sdpa = cuda_time_ms(sdpa, iters=iters)["median_ms"]
+    backend = sdpa_kernel_name(sdpa)
+    bound_ms, bound_by = bound
+    log(f"{name}: q{tuple(q.shape)} kv{tuple(k.shape)} | err {err:.3e} | "
+        f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms sdpa "
+        f"{t_sdpa:.4f} ms ({backend}) bound {bound_ms:.4f} ms ({bound_by}) "
+        f"| {bound_ms / t_kernel:.1%} of the bound | ok")
+    return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_sdpa, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_ragged_kernels(gen, seed: int) -> dict:
+    """B1 and B11 at the slice's main-path shapes: the packed row of the
+    jagged mix with and without segment_starts, the encoder's 8 x 2048
+    batch with pad ids, the jagged batch of the mix and, for comparison,
+    B1 on the same batch padded."""
+    from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain, segment_tiles)
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop, flash_attention_rowloop_plain)
+
+    sc = 128 ** -0.5
+    rows = {}
+    # packed: one row of 9984 tokens, the page bucket's segments
+    _, segs, _, offs = pack_prompts([[0] * n for n in JAGGED_MIX], 128,
+                                    "page")
+    n = segs.shape[1]
+    q = randn((1, 8, n, 128), torch.bfloat16, gen)
+    k, v = (randn((1, 2, n, 128), torch.bfloat16, gen) for _ in range(2))
+    seg = torch.as_tensor(segs, device="cuda")
+    tiles = segment_tiles(offs, n, causal=True, dtype=torch.bfloat16,
+                          device="cuda")
+    same = seg[0][:, None] == seg[0][None, :]
+    mask = (same & torch.ones_like(same).tril())[None, None]
+    bound = ragged_bound(q, k, id_pairs(segs, True), int_bytes=2 * n * 4)
+    for label, starts in (("with", tiles), ("without", None)):
+        rows[f"packed {label}"] = time_masked(
+            f"B1 packed row of the mix, {label} segment_starts", q, k, v,
+            kernel=lambda st=starts: flash_attention(
+                q, k, v, causal=True, segment_ids=(seg, seg),
+                segment_starts=st, return_lse=True),
+            plain=lambda: flash_attention_plain(
+                q, k, v, causal=True, sm_scale=sc, segment_ids=(seg, seg),
+                return_lse=True),
+            sdpa_mask=mask, sdpa_causal=False, bound=bound)
+    pruned = flash_attention(q, k, v, causal=True, segment_ids=(seg, seg),
+                             segment_starts=tiles)
+    if not torch.equal(pruned, flash_attention(q, k, v, causal=True,
+                                               segment_ids=(seg, seg))):
+        raise AssertionError("segment_starts changed the packed output")
+    del q, k, v, mask, same, pruned
+
+    # encoder: 8 x 2048, pad ids (valid 1, pad 2), non-causal
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1024, 2049, 8)
+    ids = np.where(np.arange(2048)[None, :] < lens[:, None], 1, 2).astype(
+        np.int32)
+    q = randn((8, 8, 2048, 128), torch.bfloat16, gen)
+    k, v = (randn((8, 2, 2048, 128), torch.bfloat16, gen) for _ in range(2))
+    eseg = torch.as_tensor(ids, device="cuda")
+    rows["encoder"] = time_masked(
+        "B1 encoder batch 8 x 2048, pad ids", q, k, v,
+        kernel=lambda: flash_attention(q, k, v, segment_ids=(eseg, eseg),
+                                       return_lse=True),
+        plain=lambda: flash_attention_plain(
+            q, k, v, causal=False, sm_scale=sc, segment_ids=(eseg, eseg),
+            return_lse=True),
+        sdpa_mask=(eseg[:, :, None] == eseg[:, None, :])[:, None],
+        sdpa_causal=False,
+        bound=ragged_bound(q, k, id_pairs(ids, False),
+                           int_bytes=2 * ids.size * 4))
+    del q, k, v
+
+    # the jagged batch of the mix (L_pad 4096), and B1 on it padded
+    L_pad = 4096
+    q = randn((8, 8, L_pad, 128), torch.bfloat16, gen)
+    k, v = (randn((8, 2, L_pad, 128), torch.bfloat16, gen) for _ in range(2))
+    lt = torch.tensor(JAGGED_MIX, dtype=torch.int32, device="cuda")
+    pos = torch.arange(L_pad, device="cuda")
+    valid = pos[None, :] < lt[:, None]
+    jmask = ((pos[None, :, None] >= pos[None, None, :])
+             & valid[:, None, :])[:, None]
+    pairs = float(sum(L * (L + 1) / 2 for L in JAGGED_MIX))
+    rows["jagged"] = time_masked(
+        "B11 jagged batch of the mix", q, k, v,
+        kernel=lambda: flash_attention_rowloop(q, k, v, causal=True,
+                                               seq_lengths=lt),
+        plain=lambda: flash_attention_rowloop_plain(
+            q, k, v, causal=True, sm_scale=sc, seq_lengths=lt),
+        sdpa_mask=jmask, sdpa_causal=False, valid_lens=JAGGED_MIX,
+        bound=ragged_bound(q, k, pairs, tokens=sum(JAGGED_MIX),
+                           int_bytes=8 * 4))
+    del jmask
+    rows["padded"] = time_masked(
+        "B1 the mix padded to 8 x 4096", q, k, v,
+        kernel=lambda: flash_attention(q, k, v, causal=True,
+                                       return_lse=True),
+        plain=lambda: flash_attention_plain(q, k, v, causal=True,
+                                            sm_scale=sc, return_lse=True),
+        sdpa_mask=None, sdpa_causal=True, bound=flash_bound(q, k, True))
+    log(f"B11 at the mix {rows['jagged']['ms']:.4f} ms against B1 on the "
+        f"padded batch {rows['padded']['ms']:.4f} ms: "
+        f"{rows['padded']['ms'] / rows['jagged']['ms']:.2f}x (bounds "
+        f"{rows['jagged']['bound_ms']:.4f} and "
+        f"{rows['padded']['bound_ms']:.4f} ms)")
+    return rows
+
+
+# (label, admit(engine, requests), kernel counted per admission)
+ADMISSIONS = [
+    ("batched", lambda e, r: e.add_requests(r), "flash_fwd"),
+    ("packed page", lambda e, r: e.add_requests_packed(r, "page"),
+     "flash_fwd"),
+    ("packed pow2", lambda e, r: e.add_requests_packed(r, "pow2"),
+     "flash_fwd"),
+    ("jagged", lambda e, r: e.add_requests_jagged(r), "flash_rowloop"),
+]
+
+
+def admission_logits(label, cfg, params, prompts, ps):
+    """The prefill an admission mode runs, on the same inputs, at each
+    request's last prompt row: (B, V) f32."""
+    from tiny_flash_attention_tpu_torch.models import inference as I
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        pack_prompts, pad_prompts)
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    last = [len(p) - 1 for p in prompts]
+    rows = torch.arange(len(prompts), device="cuda")
+    if label.startswith("packed"):
+        toks, segs, pos, offs = pack_prompts(prompts, ps, label.split()[1])
+        logits = I.prefill_forward_packed(
+            cfg, params, dev(toks), dev(segs), dev(pos),
+            segment_starts=tuple(offs))[0]
+        return logits[0, dev([o + x for o, x in zip(offs, last)])]
+    toks = dev(pad_prompts(prompts, ps))
+    if label == "jagged":
+        logits = I.prefill_forward_jagged(
+            cfg, params, toks, dev(np.asarray([len(p) for p in prompts],
+                                              np.int32)))[0]
+    else:
+        logits = I.prefill_forward_batched(cfg, params, toks)[0]
+    return logits[rows, dev(last)]
+
+
+def ragged_admission_phase(seed: int) -> dict:
+    """The jagged mix admitted into four fresh engines (batched, packed
+    with page and pow2 buckets, jagged), then steps(32): launch counts per
+    admission and decode step, each mode's prefill logits against the same
+    prefill with every kernel swapped for its plain version, first tokens
+    against their argmax, the modes' greedy agreement, and the admission
+    time (median of 3 after a warm-up)."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request)
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+
+    cfg = engine_config()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in JAGGED_MIX]
+    ps, n_chunk = 128, 32
+    counters = {"flash_fwd": flash_attention,
+                "flash_rowloop": flash_attention_rowloop,
+                "paged_decode": fused_paged_decode_attention,
+                "page_append": fused_page_append}
+
+    def engine():
+        return InferenceEngine(cfg, params, num_pages=512, page_size=ps,
+                               max_seqs=8, pages_per_seq=32, seed=seed,
+                               device="cuda")
+
+    def requests():
+        return [Request(list(p), 64) for p in prompts]
+
+    totals = {k: 0 for k in counters}
+    tokens, admit_ms = {}, {}
+    for label, admit, kernel in ADMISSIONS:
+        eng, reqs = engine(), requests()
+        # ---- the main path: counts zeroed just before, read just after --
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        admit(eng, reqs)
+        eng.steps(n_chunk)            # ends in a device-to-host copy
+        launches = {k: fn.launches for k, fn in counters.items()}
+        # -----------------------------------------------------------------
+        want = {k: 0 for k in counters}
+        want[kernel] = cfg.n_layers
+        want["paged_decode"] = want["page_append"] = n_chunk * cfg.n_layers
+        log(f"ragged admission [{label}]: launches {launches} (expected "
+            f"{want})")
+        if launches != want:
+            raise AssertionError(f"{label} admission launches {launches} "
+                                 f"!= {want}")
+        for k in totals:
+            totals[k] += launches[k]
+        tokens[label] = [r.generated for r in reqs]
+        assert all(len(g) == 1 + n_chunk for g in tokens[label])
+        del eng
+
+        got = admission_logits(label, cfg, params, prompts, ps)
+        with plain_kernels():
+            ref = admission_logits(label, cfg, params, prompts, ps)
+        scale = float(ref.abs().max())
+        err = max_err(got, ref)
+        first = [g[0] for g in tokens[label]]
+        argmax = got.argmax(-1).tolist()
+        log(f"ragged admission [{label}]: last-row logits vs plain kernels "
+            f"max err {err:.4f} (gate {ENGINE_LOGIT_GATE * scale:.4f} = "
+            f"{ENGINE_LOGIT_GATE:.1%} of max |logit| {scale:.3f}); first "
+            f"tokens {first} vs argmax {argmax}")
+        if err > ENGINE_LOGIT_GATE * scale or not torch.isfinite(got).all():
+            raise AssertionError(f"{label} admission logits disagree")
+        if first != argmax:
+            raise AssertionError(f"{label} first tokens are not the argmax")
+        del got, ref
+        torch.cuda.empty_cache()
+        profile_window(f"prefill of the mix, {label} admission",
+                       lambda: admission_logits(label, cfg, params, prompts,
+                                                ps), 1)
+
+        times = []
+        for _ in range(4):            # a warm-up, then 3 timed
+            eng, reqs = engine(), requests()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admit(eng, reqs)          # ends in a device-to-host copy
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del eng
+        admit_ms[label] = float(np.median(times[1:]))
+
+    base = np.asarray(tokens["batched"])
+    agree = {label: float((np.asarray(t) == base).mean())
+             for label, t in tokens.items()}
+    log("ragged admission of the mix " + str(JAGGED_MIX) + ": prefill ms "
+        "(median of 3, host clock) " + "; ".join(
+            f"{k} {v:.2f}" for k, v in admit_ms.items())
+        + " | greedy tokens equal to batched's: " + "; ".join(
+            f"{k} {v:.1%}" for k, v in agree.items()))
+    return {"launches": totals, "admit_ms": admit_ms}
+
+
+def encoder_phase(seed: int) -> dict:
+    """embed_texts of the encoder benchmark's two shapes (benchmarks/
+    encoder_bench.py:20-29,53): launch counts, embeddings against the plain
+    path, pad invariance, tokens/s (median of 3 after a warm-up)."""
+    from tiny_flash_attention_tpu_torch.models import encoder as E
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+
+    cfg = engine_config()
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    rng = np.random.default_rng(seed)
+    launches = 0
+    for batch, seq in ((8, 2048), (32, 512)):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (batch, seq)), device="cuda")
+        lengths = torch.as_tensor(rng.integers(seq // 2, seq + 1, batch),
+                                  device="cuda")
+        # ---- the main path: counts zeroed just before, read just after --
+        flash_attention.launches = 0
+        emb = E.embed_texts(cfg, params, tokens, lengths)
+        torch.cuda.synchronize()
+        got = flash_attention.launches
+        # -----------------------------------------------------------------
+        if got != cfg.n_layers:
+            raise AssertionError(f"encoder launches {got} != "
+                                 f"{cfg.n_layers}")
+        launches += got
+        with plain_kernels():
+            ref = E.embed_texts(cfg, params, tokens, lengths)
+        gate = ENGINE_LOGIT_GATE * float(ref.abs().max())
+        err = max_err(emb, ref)
+        # pad invariance: row 0's text with 256 more pad tokens
+        L0 = int(lengths[0])
+        longer = torch.cat([tokens[:1], torch.full(
+            (1, 256), 7, device="cuda", dtype=tokens.dtype)], dim=1)
+        longer[0, L0:] = 13
+        pad_err = max_err(E.embed_texts(cfg, params, longer, lengths[:1]),
+                          emb[:1])
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            E.embed_texts(cfg, params, tokens, lengths)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        tok_s = batch * seq / float(np.median(times[1:]))
+        ok = (err <= gate and pad_err <= gate
+              and bool(torch.isfinite(emb).all()))
+        log(f"encoder embed_texts {batch} x {seq} (lengths "
+            f"{int(lengths.min())}-{int(lengths.max())}): launches {got} | "
+            f"vs plain kernels max err {err:.3e}, pad invariance (+256 pad) "
+            f"{pad_err:.3e} (gate {gate:.3e} = {ENGINE_LOGIT_GATE:.1%} of max "
+            f"|value|) | {tok_s:.0f} tokens/s (median of 3) | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("encoder embeddings disagree")
+    return {"launches": launches}
 
 
 # --- phase 6: training at full width -----------------------------------------
@@ -1133,6 +1660,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FLASH_CASES:
         check_flash(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
+    seg_err = max(check_segments(*case, gen) for case in SEG_CASES)
+    rowloop_err = check_rowloop(gen)
     q, pages, lengths, table = decode_inputs(gen)
     check_decode("random pages", q, pages, lengths, table, 128)
     check_decode("column slice (16 of 32 pages)", q, pages,
@@ -1168,6 +1697,8 @@ def main() -> int:
     time_sampled_decode(eng, run["n_chunk"])
 
     quant = quant_serving_phase(SEED)
+    ragged = ragged_admission_phase(SEED)
+    enc = encoder_phase(SEED)
 
     train = train_phase(SEED)
     for (batch, seq), state in train["states"].items():
@@ -1182,8 +1713,15 @@ def main() -> int:
     flash_row = check_flash("main path: 4 x L_pad 2048 prefill",
                             (4, 8, 2048, 128), (4, 2, 2048, 128),
                             torch.bfloat16, True, gen)
-    flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
-                                   first["max_abs_err"])
+    slice_rows = time_ragged_kernels(gen, SEED)
+    # B1's row: the batched admission's times, the worst error of every
+    # main-path shape (segments included)
+    flash_row["max_abs_err"] = max(
+        flash_row["max_abs_err"], first["max_abs_err"], seg_err,
+        *(slice_rows[k]["max_abs_err"]
+          for k in ("packed with", "packed without", "encoder", "padded")))
+    rowloop_row = dict(slice_rows["jagged"])
+    rowloop_row["max_abs_err"] = max(rowloop_row["max_abs_err"], rowloop_err)
     page_table, lengths = eng.cache.device_views()
     qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
     decode_row = check_decode("main path: engine cache, layer 0", qd,
@@ -1214,8 +1752,8 @@ def main() -> int:
          "bound_by": main_bwd["bound"][part][1],
          "library_ms": main_bwd["library_ms"]}
         for part in ("dq", "dkv")]
-    # flash_fwd runs on both main paths: its launches are the engine's and
-    # the train step's
+    # flash_fwd runs on every main path but the jagged admission: its
+    # launches are the engines', the encoder's and the train step's
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
@@ -1223,12 +1761,18 @@ def main() -> int:
                      "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:658",
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
+         + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"], **flash_row},
+        {"name": "flash_rowloop", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
+         "launches": ragged["launches"]["flash_rowloop"], **rowloop_row},
         {"name": "paged_decode", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"]
-         + qlaunch["paged_decode"], **decode_row},
+         + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"],
+         **decode_row},
         *bwd_kernels,
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
@@ -1238,7 +1782,8 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": run["launches"]["page_append"]
-         + qlaunch["page_append"], **append_rows[("int8", 128)]},
+         + qlaunch["page_append"] + ragged["launches"]["page_append"],
+         **append_rows[("int8", 128)]},
         {"name": "quant_matmul", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "tiny_flash_attention_tpu/ops/quant_matmul.py:84",

@@ -9,8 +9,9 @@ without JAX, run them with
 (the repository's conftest imports JAX to pin it to the CPU). The shapes
 here are the odd ones chip_smoke.py does not reach: ragged tiles, head_dim
 64, every supported GQA group, f32, length 0 and sliced page tables, int8
-pages of each geometry, the append in both formats, and the quantized
-matmul at 1 to 16 rows, ragged N and K, fp8 weights.
+pages of each geometry, the append in both formats, the quantized matmul at
+1 to 16 rows, ragged N and K, fp8 weights, segment ids with boundaries off
+the tile edges, and jagged lengths around a tile.
 """
 
 import pytest
@@ -20,6 +21,8 @@ from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd, flash_attention_bwd_plain)
+from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+    flash_attention_rowloop, flash_attention_rowloop_plain)
 from tiny_flash_attention_tpu_torch.ops import quant as Q
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention, fused_paged_decode_plain,
@@ -148,6 +151,91 @@ def test_not_ported_raises_on_the_card(gen):
         flash_attention_bwd(q, q.float(), q.float(), q,
                             torch.zeros((1, 2, 64), device="cuda"), q,
                             causal=True)
+
+
+def _segment_ids(b, n, bounds, gen):
+    """(b, n) int32 ids changing at `bounds` (off the 64-row tiles), a
+    different shuffle of the ids per batch row."""
+    ids = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+    for x in bounds:
+        ids[:, x:] += 1
+    return ids + torch.randint(0, 3, (b, 1), generator=gen, device="cuda",
+                               dtype=torch.int32) * 10
+
+
+@pytest.mark.parametrize("b,hq,hkv,n,d,causal,dtype,bounds", [
+    (2, 8, 2, 300, 128, True, torch.bfloat16, (37, 100, 101, 250)),
+    (1, 4, 2, 200, 64, False, torch.bfloat16, (65, 130)),
+    (2, 4, 4, 130, 128, True, torch.float32, (1, 64, 127)),
+    (1, 4, 2, 97, 64, False, torch.float32, (50,)),
+])
+def test_segment_kernel_matches_plain(gen, b, hq, hkv, n, d, causal, dtype,
+                                      bounds):
+    """Segment ids against the plain version; a q id that no kv column
+    has gives an empty row; segment_starts prune without changing a bit."""
+    q = _randn((b, hq, n, d), dtype, gen)
+    k = _randn((b, hkv, n, d), dtype, gen)
+    v = _randn((b, hkv, n, d), dtype, gen)
+    seg = _segment_ids(b, n, bounds, gen)
+    q_seg = seg.clone()
+    q_seg[0, 3] = -7                          # matches no kv column
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=causal,
+                               segment_ids=(q_seg, seg), return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_plain(
+        q, k, v, causal=causal, sm_scale=d ** -0.5,
+        segment_ids=(q_seg, seg), return_lse=True)
+    atol = tolerance_for(dtype)
+    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    assert bool((out[0, :, 3] == 0).all())
+    pruned = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
+                             segment_starts=(0, *bounds), return_lse=True)
+    full = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
+                           return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(pruned, full))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_rowloop_kernel_matches_plain(gen, dtype):
+    """Jagged lengths around one 64-row tile; rows past a length are 0
+    with the sentinel LSE. Without lengths: non-causal and a decode
+    offset."""
+    lens = torch.tensor([1, 63, 64, 65, 192], dtype=torch.int32,
+                        device="cuda")
+    q = _randn((5, 8, 192, 128), dtype, gen)
+    k = _randn((5, 2, 192, 128), dtype, gen)
+    v = _randn((5, 2, 192, 128), dtype, gen)
+    before = flash_attention_rowloop.launches
+    out, lse = flash_attention_rowloop(q, k, v, causal=True,
+                                       seq_lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_attention_rowloop.launches == before + 1
+    ref, ref_lse = flash_attention_rowloop_plain(
+        q, k, v, causal=True, sm_scale=128 ** -0.5, seq_lengths=lens)
+    atol = tolerance_for(dtype)
+    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    for bi, L in enumerate(lens.tolist()):
+        assert bool((out[bi, :, L:] == 0).all())
+        torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
+                                   rtol=1e-6, atol=0)   # the sentinel
+    for q_len, causal in ((192, False), (40, True)):
+        out, lse = flash_attention_rowloop(q[:, :, :q_len], k, v,
+                                           causal=causal)
+        ref, ref_lse = flash_attention_rowloop_plain(
+            q[:, :, :q_len], k, v, causal=causal, sm_scale=128 ** -0.5)
+        assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+
+
+def test_backward_through_segment_ids_raises(gen):
+    q = _randn((1, 2, 64, 64), torch.bfloat16, gen).requires_grad_()
+    seg = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    out = flash_attention(q, q, q, segment_ids=(seg, seg))
+    with pytest.raises(NotImplementedError, match="segment"):
+        out.float().sum().backward()
+    with pytest.raises(NotImplementedError, match="window"):
+        flash_attention_rowloop(q, q, q, causal=True, window=16)
 
 
 # The backward kernels repeat their plain version's rounding points, so the

@@ -9,11 +9,15 @@ import pytest
 import torch
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.models import encoder as TE
 from tiny_flash_attention_tpu_torch.models import transformer as TT
-from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
+from tiny_flash_attention_tpu_torch.models.engine import (
+    InferenceEngine, Request)
 from tiny_flash_attention_tpu_torch.models.kv_cache import PagedKVCache
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import flash_attention_bwd
+from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+    flash_attention_rowloop)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention)
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
@@ -82,8 +86,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_cpu_calls_launch_no_kernel():
     counters = [flash_attention, flash_attention_bwd,
-                fused_paged_decode_attention, fused_page_append,
-                quantized_matmul_cuda]
+                flash_attention_rowloop, fused_paged_decode_attention,
+                fused_page_append, quantized_matmul_cuda]
     for fn in counters:
         fn.launches = 0
     fused_paged_decode_attention.int8_launches = 0
@@ -96,6 +100,14 @@ def test_cpu_calls_launch_no_kernel():
         out = eng.generate([list(range(5)), list(range(20))],
                            max_new_tokens=5, chunk=2)
         assert [len(o) for o in out] == [5, 5]
+    for admit in ("add_requests_packed", "add_requests_jagged"):
+        eng = InferenceEngine(SMALL, params, num_pages=8, page_size=16,
+                              max_seqs=2, pages_per_seq=4, device="cpu")
+        getattr(eng, admit)([Request(list(range(5)), 3),
+                             Request(list(range(20)), 3)])
+        eng.steps(2)
+    TE.embed_texts(SMALL, params, torch.zeros((2, 24), dtype=torch.int32),
+                   torch.tensor([24, 9]))
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     flash_attention(q, q, q, causal=True).sum().backward()
     step, init = make_train_step(SMALL, device="cpu")

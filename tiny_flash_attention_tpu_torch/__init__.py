@@ -9,7 +9,10 @@ raises.
 
 Layer map (counterparts in the JAX package):
   ops.reference    -- mha_reference oracle (ops/reference.py)
-  ops.flash        -- flash_attention forward -> csrc/flash_fwd.cu
+  ops.flash        -- flash_attention forward (segment ids, segment_starts)
+                      -> csrc/flash_fwd.cu
+  ops.flash_rowloop -- row-loop forward with jagged lengths -> the jagged
+                      mode of csrc/flash_fwd.cu
   ops.flash_bwd    -- flash_attention backward -> csrc/flash_bwd.cu
   ops.paged_fused  -- fused pages (bf16, int8): decode attention ->
                       csrc/paged_decode.cu, token append -> csrc/page_append.cu
@@ -17,7 +20,8 @@ Layer map (counterparts in the JAX package):
   ops.quant_matmul -- weight-only quantized matmul -> csrc/quant_matmul.cu
   ops.configs      -- the kernels' tile sizes
   models           -- GQA decoder and its loss, paged KV cache, inference
-                      paths, engine
+                      paths (batched, packed, jagged prefill), engine, the
+                      bidirectional encoder
   parallel         -- the single-card train step and its checkpoints
   utils            -- tolerances, device choice, CUDA-event timing
 """

@@ -66,15 +66,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int PAD = 8;  // bf16 per smem row: rows land 16 bytes apart in banks
 
-// 4-byte async copy; valid == false zero-fills the destination.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
 // The LSE in the log2 domain, or +inf on rows that carry the empty-row
 // sentinel (and on padding rows), so that exp2(s - lse2) is 0 there.
 __device__ __forceinline__ float lse2_of(float lse) {

@@ -41,6 +41,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(n));
 }
 
+// 4-byte async copy (.ca: .cg takes 16 bytes only); src_bytes == 0
+// zero-fills the destination.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -7,11 +7,37 @@
 //   tiny_flash_attention_tpu/ops/flash_tri.py::tri_flash_fwd    (_tri_kernel)
 //   tiny_flash_attention_tpu/ops/flash_tri.py::tri_block_fwd    (_tri_block_kernel)
 //
+// and, in its jagged mode, the row-loop forward
+//   tiny_flash_attention_tpu/ops/flash_rowloop.py::flash_attention_rowloop
+//                                                               (_rowloop_kernel)
+//
 // Contract: q (B, hq, Sq, D), k/v (B, hkv, Skv, D), contiguous; q head h reads
 // kv head h / (hq / hkv). Causal rows sit at position row + Skv - Sq. Returns
 // out like q and a natural-log LSE (B, hq, Sq) in f32. The mask value is
 // -0.7 * FLT_MAX, never -inf; a row with no visible column gets output 0 and
-// LSE m * ln2 (the TPU kernels' empty-row guard and sentinel).
+// LSE m * ln2 (the TPU kernels' empty-row guard and sentinel). Optional
+// inputs (FwdMasks, each off when null):
+//   * segment ids q_seg (B, Sq), kv_seg (B, Skv): only equal ids attend. Ids
+//     are runtime values, so with them every tile pays the mask (JAX's
+//     any_masked = ... or with_segments); the KV ids of a tile ride the
+//     cp.async ring beside its K rows.
+//   * tile_lo (n q tiles): the first kv tile of each q tile, from the static
+//     segment_starts of a packed row (the segment start of the tile's first
+//     row, JAX's _build_worklist): the kv loop runs [lo, hi), so a packed
+//     prefill costs sum(L_i^2)/2, not (sum L_i)^2/2.
+//   * tile_order (n q tiles): the q tile each blockIdx.x takes. The host
+//     knows the pruned work of every tile (the starts are static), so it
+//     hands the grid out longest work first.
+//   * seq_lens (B): the jagged mode (q_len == kv_len, causal). Row b's
+//     columns and rows at or past L = seq_lens[b] are out: the kv walk clamps
+//     to min(last row, L - 1), columns >= L are masked, rows >= L are empty
+//     rows (out 0, the sentinel), and a q tile that starts at or past L
+//     writes them and exits. The row-loop TPU kernel's point, a KV walk
+//     inside one grid step with a dynamic trip count, is how every block
+//     here already works; its jagged lengths are one more bound on that
+//     walk, so B11 is this mode of the B1 kernel (as B2 and B3 are B1), not
+//     a second kernel. The grid keeps the reversed order below: the lengths
+//     are runtime values, and blocks past L cost a store and an exit.
 //
 // What bounds it: at prefill shapes the tensor-core FLOPs (4 * rows * cols * D
 // per head over the visible triangle), far above the card's
@@ -24,7 +50,8 @@
 // straddle the diagonal or the ragged kv edge pay for the mask. The softmax
 // state is online in f32 in the log2 domain: sm_scale * log2(e) is folded
 // into q in the input dtype, as every TPU kernel does (flash.py:241).
-// Blocks run longest causal rows first so the tail of the grid is short.
+// Blocks run longest causal rows first so the tail of the grid is short
+// (pruned packed rows: longest pruned work first, from tile_order).
 //
 // The f32 kernel computes in real f32 FMAs on the CUDA cores (never TF32;
 // the f32 gate is 2e-5): 256 threads, each owning a 4 x 4 piece of the
@@ -43,6 +70,28 @@
 
 namespace {
 
+// Optional inputs of one launch; a null pointer turns its feature off.
+struct FwdMasks {
+  const int* q_seg;       // (B, q_len) segment ids, with kv_seg
+  const int* kv_seg;      // (B, kv_len)
+  const int* tile_lo;     // (n q tiles) first kv tile of each q tile
+  const int* tile_order;  // (n q tiles) q tile of each blockIdx.x
+  const int* seq_lens;    // (B) jagged lengths, q_len == kv_len
+};
+
+// Rows [q0, q0 + rows) as empty rows: out 0, LSE the sentinel m * ln2 of a
+// row whose running max stayed at the mask value. Zero is all-zero bits in
+// bf16 and f32, and a row of D = 64 or 128 elements is whole 16-byte stores.
+template <typename T, int D>
+__device__ void write_empty_rows(T* og, float* lg, int q0, int rows) {
+  uint4* dst = reinterpret_cast<uint4*>(og + (size_t)q0 * D);
+  const int n = rows * D * (int)sizeof(T) / 16;
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    dst[c] = make_uint4(0u, 0u, 0u, 0u);
+  for (int r = threadIdx.x; r < rows; r += blockDim.x)
+    lg[q0 + r] = kMaskValue * kLn2;
+}
+
 // ---------------------------------------------------------------- bf16 path
 
 constexpr int BM = TFA_FWD_BF16_BLOCK_M;
@@ -59,24 +108,45 @@ __global__ void __launch_bounds__(THREADS)
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int hq, int hkv, int q_len,
-                          int kv_len, int causal, float scale_log2) {
+                          float* __restrict__ lse, FwdMasks mk, int hq,
+                          int hkv, int q_len, int kv_len, int causal,
+                          float scale_log2) {
   constexpr int LD = D + PAD;
   constexpr int CH = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + BM * LD;      // [2][BN][LD]
   __nv_bfloat16* vs = ks + 2 * BN * LD;  // [2][BN][LD]
+  int* kid = reinterpret_cast<int*>(vs + 2 * BN * LD);  // [2][BN] kv ids
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int qt = mk.tile_order ? mk.tile_order[blockIdx.x]
+                               : gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * BM;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
   const int offset = kv_len - q_len;
   const __nv_bfloat16* qg = q + (size_t)(b * hq + h) * q_len * D;
   const __nv_bfloat16* kg = k + (size_t)(b * hkv + kvh) * kv_len * D;
   const __nv_bfloat16* vg = v + (size_t)(b * hkv + kvh) * kv_len * D;
-  const int n_tiles = kv_tiles(q0, BM, q_len, kv_len, causal, BN);
+  __nv_bfloat16* og = o + (size_t)(b * hq + h) * q_len * D;
+  float* lg = lse + (size_t)(b * hq + h) * q_len;
+  const bool segs = mk.q_seg != nullptr;
+  // jagged: columns end at L (the kv length otherwise), rows at L (q_len)
+  const int col_end =
+      mk.seq_lens ? min(max(mk.seq_lens[b], 0), kv_len) : kv_len;
+  const int row_end = mk.seq_lens ? col_end : q_len;
+  if (q0 >= row_end) {  // a jagged tile wholly past its row's length
+    write_empty_rows<__nv_bfloat16, D>(og, lg, q0, min(BM, q_len - q0));
+    return;
+  }
+  const int hi = min(kv_tiles(q0, BM, q_len, kv_len, causal, BN),
+                     (col_end + BN - 1) / BN);
+  const int lo = mk.tile_lo ? max(0, min(mk.tile_lo[qt], hi - 1)) : 0;
+  // every tile pays the mask with ids, and in a jagged tile that holds rows
+  // past L
+  const bool mask_all = segs || (mk.seq_lens && q0 + BM > row_end);
+  const int* kv_ids = segs ? mk.kv_seg + (size_t)b * kv_len : nullptr;
 
   auto load_kv = [&](int tile, int buf) {
     const int kv0 = tile * BN;
@@ -89,9 +159,15 @@ __global__ void __launch_bounds__(THREADS)
       cp_async16(kd + r * LD + col, kg + src, valid);
       cp_async16(vd + r * LD + col, vg + src, valid);
     }
+    if (segs) {
+      for (int r = tid; r < BN; r += THREADS) {
+        const bool valid = kv0 + r < kv_len;
+        cp_async4(kid + buf * BN + r, kv_ids + (valid ? kv0 + r : 0), valid);
+      }
+    }
   };
 
-  load_kv(0, 0);
+  load_kv(lo, 0);
   cp_async_commit();
 
   // q tile, scaled by sm_scale*log2(e) rounded to bf16, product rounded to
@@ -128,10 +204,18 @@ __global__ void __launch_bounds__(THREADS)
   // this thread's rows: qrow (accumulator slots 0,1) and qrow + 8 (slots 2,3)
   const int qrow = q0 + warp * 16 + lane / 4;
   const int warp_first_pos = q0 + warp * 16 + offset;
+  int qid[2] = {0, 0};  // this thread's rows' segment ids
+  if (segs) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + r * 8;
+      if (row < q_len) qid[r] = mk.q_seg[(size_t)b * q_len + row];
+    }
+  }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) load_kv(j + 1, buf ^ 1);
+  for (int j = lo; j < hi; ++j) {
+    const int buf = (j - lo) & 1;
+    if (j + 1 < hi) load_kv(j + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -157,16 +241,22 @@ __global__ void __launch_bounds__(THREADS)
     }
 
     const int kv0 = j * BN;
-    const bool need_mask =
-        kv0 + BN > kv_len || (causal && kv0 + BN - 1 > warp_first_pos);
+    const bool need_mask = mask_all || kv0 + BN > col_end ||
+                           (causal && kv0 + BN - 1 > warp_first_pos);
     if (need_mask) {
+      const int* tile_ids = kid + buf * BN;
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
+        const int c0 = nt * 8 + (lane % 4) * 2;
+        const int2 kv_id = segs ? *reinterpret_cast<const int2*>(tile_ids + c0)
+                                : make_int2(0, 0);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int col = kv0 + nt * 8 + (lane % 4) * 2 + (i & 1);
+          const int col = kv0 + c0 + (i & 1);
           const int row = qrow + (i >> 1) * 8;
-          const bool ok = col < kv_len && (!causal || col <= row + offset);
+          const bool ok = col < col_end && row < row_end &&
+                          (!causal || col <= row + offset) &&
+                          (!segs || qid[i >> 1] == ((i & 1) ? kv_id.y : kv_id.x));
           if (!ok) s[nt][i] = kMaskValue;
         }
       }
@@ -229,8 +319,6 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the buffer is refilled two iterations from now
   }
 
-  __nv_bfloat16* og = o + (size_t)(b * hq + h) * q_len * D;
-  float* lg = lse + (size_t)(b * hq + h) * q_len;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -253,10 +341,11 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int batch, int hq, int hkv, int q_len,
-                        int kv_len, int causal, float scale_log2,
-                        cudaStream_t stream) {
-  const int smem = 5 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16);
+                        void* lse, const FwdMasks& mk, int batch, int hq,
+                        int hkv, int q_len, int kv_len, int causal,
+                        float scale_log2, cudaStream_t stream) {
+  const int smem = 5 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16) +
+                   2 * BN * (int)sizeof(int);
   static_assert(BM == BN, "smem size assumes equal q and kv tiles");
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(flash_fwd_bf16_kernel<D>, smem, smem_set);
@@ -266,7 +355,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), hq, hkv, q_len, kv_len, causal, scale_log2);
+      static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, causal,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -284,25 +374,50 @@ __global__ void __launch_bounds__(FTHREADS)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int hq, int hkv, int q_len,
-                         int kv_len, int causal, float scale_log2) {
+                         float* __restrict__ lse, FwdMasks mk, int hq,
+                         int hkv, int q_len, int kv_len, int causal,
+                         float scale_log2) {
   constexpr int PS = FN + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qt = reinterpret_cast<float*>(smem_raw);  // [D][FM], q^T, scaled
   float* kt = qt + D * FM;                         // [D][FN], k^T
   float* vs = kt + D * FN;                         // [FN][D]
   float* ps = vs + FN * D;                         // [FM][PS]
+  int* kid = reinterpret_cast<int*>(ps + FM * PS);  // [FN] kv ids
 
   const int tid = threadIdx.x;
   const int rg = tid / 16, cg = tid % 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FM;
+  const int q0 = (mk.tile_order ? mk.tile_order[blockIdx.x]
+                                : gridDim.x - 1 - blockIdx.x) * FM;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
   const int offset = kv_len - q_len;
   const float* qg = q + (size_t)(b * hq + h) * q_len * D;
   const float* kg = k + (size_t)(b * hkv + kvh) * kv_len * D;
   const float* vg = v + (size_t)(b * hkv + kvh) * kv_len * D;
-  const int n_tiles = kv_tiles(q0, FM, q_len, kv_len, causal, FN);
+  float* og = o + (size_t)(b * hq + h) * q_len * D;
+  float* lg = lse + (size_t)(b * hq + h) * q_len;
+  const bool segs = mk.q_seg != nullptr;
+  const int col_end =
+      mk.seq_lens ? min(max(mk.seq_lens[b], 0), kv_len) : kv_len;
+  const int row_end = mk.seq_lens ? col_end : q_len;
+  if (q0 >= row_end) {
+    write_empty_rows<float, D>(og, lg, q0, min(FM, q_len - q0));
+    return;
+  }
+  const int hi = min(kv_tiles(q0, FM, q_len, kv_len, causal, FN),
+                     (col_end + FN - 1) / FN);
+  const int lo = mk.tile_lo ? max(0, min(mk.tile_lo[q0 / FM], hi - 1)) : 0;
+  const bool mask_all = segs || (mk.seq_lens && q0 + FM > row_end);
+  const int* kv_ids = segs ? mk.kv_seg + (size_t)b * kv_len : nullptr;
+  int qid[4] = {0, 0, 0, 0};
+  if (segs) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + rg * 4 + i;
+      if (row < q_len) qid[i] = mk.q_seg[(size_t)b * q_len + row];
+    }
+  }
 
   for (int c = tid; c < FM * D / 4; c += FTHREADS) {
     const int r = c % FM, col = (c / FM) * 4;
@@ -327,7 +442,7 @@ __global__ void __launch_bounds__(FTHREADS)
     l_run[i] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = lo; t < hi; ++t) {
     const int kv0 = t * FN;
     __syncthreads();  // previous tile's kt / vs / ps are no longer read
     for (int c = tid; c < FN * D / 4; c += FTHREADS) {
@@ -342,6 +457,10 @@ __global__ void __launch_bounds__(FTHREADS)
       kt[(col + 2) * FN + r] = kx.z;
       kt[(col + 3) * FN + r] = kx.w;
       *reinterpret_cast<float4*>(vs + r * D + col) = vx;
+    }
+    if (segs) {
+      for (int r = tid; r < FN; r += FTHREADS)
+        kid[r] = kv0 + r < kv_len ? kv_ids[kv0 + r] : 0;
     }
     __syncthreads();
 
@@ -362,14 +481,17 @@ __global__ void __launch_bounds__(FTHREADS)
       }
     }
 
-    if (kv0 + FN > kv_len || (causal && kv0 + FN - 1 > q0 + offset)) {
+    if (mask_all || kv0 + FN > col_end ||
+        (causal && kv0 + FN - 1 > q0 + offset)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = kv0 + cg + 16 * j, row = q0 + rg * 4 + i;
-          if (!(col < kv_len && (!causal || col <= row + offset)))
-            s[i][j] = kMaskValue;
+          const bool ok = col < col_end && row < row_end &&
+                          (!causal || col <= row + offset) &&
+                          (!segs || qid[i] == kid[cg + 16 * j]);
+          if (!ok) s[i][j] = kMaskValue;
         }
     }
 
@@ -411,8 +533,6 @@ __global__ void __launch_bounds__(FTHREADS)
     }
   }
 
-  float* og = o + (size_t)(b * hq + h) * q_len * D;
-  float* lg = lse + (size_t)(b * hq + h) * q_len;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float l = l_run[i];
@@ -431,11 +551,12 @@ __global__ void __launch_bounds__(FTHREADS)
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int batch, int hq, int hkv, int q_len,
-                       int kv_len, int causal, float scale_log2,
-                       cudaStream_t stream) {
+                       void* lse, const FwdMasks& mk, int batch, int hq,
+                       int hkv, int q_len, int kv_len, int causal,
+                       float scale_log2, cudaStream_t stream) {
   const int smem =
-      (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float);
+      (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float) +
+      FN * (int)sizeof(int);
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(flash_fwd_f32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
@@ -443,34 +564,45 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), hq, hkv, q_len, kv_len, causal, scale_log2);
+      static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, causal,
+      scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype: 0 bf16,
-// 1 f32. head_dim: 64 or 128. The caller has checked shapes, contiguity and
-// 16-byte alignment.
+// 1 f32. head_dim: 64 or 128. q_seg, kv_seg, tile_lo, tile_order and
+// seq_lens may each be null (FwdMasks); tile_lo and tile_order hold one
+// int per q tile of this dtype's block_m. The caller has checked shapes,
+// contiguity and 16-byte alignment.
 extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int batch, int hq, int hkv,
-                             int q_len, int kv_len, int head_dim, int causal,
+                             void* o, void* lse, const void* q_seg,
+                             const void* kv_seg, const void* tile_lo,
+                             const void* tile_order, const void* seq_lens,
+                             int batch, int hq, int hkv, int q_len,
+                             int kv_len, int head_dim, int causal,
                              float scale_log2, int dtype, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
-      kv_len <= 0)
+      kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
+  const FwdMasks mk{static_cast<const int*>(q_seg),
+                    static_cast<const int*>(kv_seg),
+                    static_cast<const int*>(tile_lo),
+                    static_cast<const int*>(tile_order),
+                    static_cast<const int*>(seq_lens)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
-    return (int)launch_bf16<128>(q, k, v, o, lse, batch, hq, hkv, q_len,
+    return (int)launch_bf16<128>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
                                  kv_len, causal, scale_log2, s);
   if (dtype == 0 && head_dim == 64)
-    return (int)launch_bf16<64>(q, k, v, o, lse, batch, hq, hkv, q_len,
+    return (int)launch_bf16<64>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
                                 kv_len, causal, scale_log2, s);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch_f32<128>(q, k, v, o, lse, batch, hq, hkv, q_len,
+    return (int)launch_f32<128>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
                                 kv_len, causal, scale_log2, s);
   if (dtype == 1 && head_dim == 64)
-    return (int)launch_f32<64>(q, k, v, o, lse, batch, hq, hkv, q_len,
+    return (int)launch_f32<64>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
                                kv_len, causal, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }

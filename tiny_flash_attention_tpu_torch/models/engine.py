@@ -1,13 +1,16 @@
 """Continuous-batching inference engine.
 
-Port of tiny_flash_attention_tpu/models/engine.py (batched admission,
-per-token and chunked decode, slot and page lifecycle). Requests are
-admitted into free cache slots with one batched prefill; every decode step
-advances ALL slots in one fixed-shape pass (inactive slots decode at
-position 0 against the reserved scratch page 0 and are ignored), and
-finished sequences free their pages. The JAX engine's key splits become
-draws from one `torch.Generator`. Packed and jagged admission and the
-sliding-window ring cache are not ported yet.
+Port of tiny_flash_attention_tpu/models/engine.py (batched, packed and
+jagged admission, per-token and chunked decode, slot and page lifecycle).
+Requests are admitted into free cache slots with one prefill: a padded
+batch (`add_requests`), one packed row with segment ids (`add_requests_
+packed`) or a padded batch with runtime lengths (`add_requests_jagged`);
+the last two cost ~sum(L_i^2)/2 of attention where the first costs
+B * L_max^2 / 2. Every decode step advances ALL slots in one fixed-shape
+pass (inactive slots decode at position 0 against the reserved scratch page
+0 and are ignored), and finished sequences free their pages. The JAX
+engine's key splits become draws from one `torch.Generator`. The
+sliding-window ring cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,9 +23,47 @@ import torch
 
 from tiny_flash_attention_tpu_torch.models import transformer as T
 from tiny_flash_attention_tpu_torch.models.inference import (
-    decode_loop, decode_step, prefill_forward_batched, sample_tokens)
+    decode_loop, decode_step, prefill_forward_batched, prefill_forward_jagged,
+    prefill_forward_packed, sample_tokens)
 from tiny_flash_attention_tpu_torch.models.kv_cache import PagedKVCache
 from tiny_flash_attention_tpu_torch.utils.device import resolve_device
+
+
+def pad_prompts(prompts: List[List[int]], page_size: int) -> np.ndarray:
+    """(B, L_pad) int32: each prompt right-padded with 0 to the longest
+    one's page multiple."""
+    L_pad = -(-max(map(len, prompts)) // page_size) * page_size
+    toks = np.zeros((len(prompts), L_pad), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    return toks
+
+
+def pack_prompts(prompts: List[List[int]], page_size: int,
+                 bucket: str = "page"):
+    """Prompts packed into one row, each padded to its own page multiple
+    ("page") or to the next power-of-two number of pages ("pow2", which
+    bounds the distinct segment lengths). Returns (tokens (1, T), segment
+    ids (1, T) from 1, positions (T,) restarting at each prompt, offsets)."""
+    if bucket not in ("page", "pow2"):
+        raise ValueError(f"pack_bucket {bucket!r}")
+    lpads = []
+    for p in prompts:
+        lpad = -(-len(p) // page_size) * page_size
+        if bucket == "pow2":
+            lpad = page_size * (1 << max(0, (lpad // page_size - 1)
+                                         .bit_length()))
+        lpads.append(lpad)
+    offs = np.concatenate([[0], np.cumsum(lpads)[:-1]]).astype(int)
+    total = sum(lpads)
+    toks = np.zeros((1, total), np.int32)
+    segs = np.zeros((1, total), np.int32)
+    positions = np.zeros((total,), np.int32)
+    for i, (p, o, lpad) in enumerate(zip(prompts, offs, lpads)):
+        toks[0, o:o + len(p)] = p
+        segs[0, o:o + lpad] = i + 1
+        positions[o:o + lpad] = np.arange(lpad)
+    return toks, segs, positions, [int(o) for o in offs]
 
 
 @dataclasses.dataclass
@@ -78,34 +119,103 @@ class InferenceEngine:
         padding is harmless under the causal mask and cache writes slice
         by true length.
         """
+        slots = self._alloc(reqs)
+        toks = pad_prompts([r.prompt for r in reqs], self.page_size)
+        rows, last, temps = self._sample_rows(
+            np.arange(len(reqs)), [len(r.prompt) - 1 for r in reqs], reqs)
+        logits, ks, vs = prefill_forward_batched(self.cfg, self.params,
+                                                 self._tensor(toks))
+        first = sample_tokens(logits[rows, last], self.generator, temps)
+        self._admitted(slots, reqs, first.cpu().numpy(),
+                       [(ks[:, i], vs[:, i]) for i in range(len(reqs))])
+        return slots
+
+    def add_requests_packed(self, reqs: List[Request],
+                            pack_bucket: str = "page") -> List[int]:
+        """Admits several requests with ONE PACKED prefill.
+
+        Prompts pad to their own page multiple (`pack_bucket="page"`) or to
+        a power-of-two number of pages ("pow2") and concatenate into one
+        row; the flash kernel gets segment ids plus the static pack offsets,
+        which prune each q tile's kv range to its segment, so admission
+        costs sum(L_i^2)/2 of attention. The cache writes are page-exact
+        whatever the bucket: pow2's padding pages never reach a slot's page
+        list.
+        """
+        self._no_window("packed")
         ps = self.page_size
+        toks, segs, positions, offs = pack_prompts(
+            [r.prompt for r in reqs], ps, pack_bucket)
+        slots = self._alloc(reqs)
+        rows, last, temps = self._sample_rows(
+            np.zeros(len(reqs), np.int64),
+            [o + len(r.prompt) - 1 for o, r in zip(offs, reqs)], reqs)
+        logits, ks, vs = prefill_forward_packed(
+            self.cfg, self.params, self._tensor(toks), self._tensor(segs),
+            self._tensor(positions), segment_starts=tuple(offs))
+        first = sample_tokens(logits[rows, last], self.generator, temps)
+        kv = []
+        for o, req in zip(offs, reqs):
+            lp = -(-len(req.prompt) // ps) * ps
+            kv.append((ks[:, 0, :, o:o + lp], vs[:, 0, :, o:o + lp]))
+        self._admitted(slots, reqs, first.cpu().numpy(), kv)
+        return slots
+
+    def add_requests_jagged(self, reqs: List[Request]) -> List[int]:
+        """Admits a heterogeneous batch through the row-loop kernel.
+
+        Prompts pad to the longest one's page bucket, as in add_requests,
+        but attention clamps to each request's runtime length (~sum(L_i^2)/2,
+        as packed admission), with one shape per (B, L_pad) bucket.
+        """
+        self._no_window("jagged")
+        ps = self.page_size
+        toks = pad_prompts([r.prompt for r in reqs], ps)
+        slots = self._alloc(reqs)
+        rows, last, temps = self._sample_rows(
+            np.arange(len(reqs)), [len(r.prompt) - 1 for r in reqs], reqs)
+        lens = self._tensor(np.asarray([len(r.prompt) for r in reqs],
+                                       np.int32))
+        logits, ks, vs = prefill_forward_jagged(self.cfg, self.params,
+                                                self._tensor(toks), lens)
+        first = sample_tokens(logits[rows, last], self.generator, temps)
+        kv = []
+        for i, req in enumerate(reqs):
+            lp = -(-len(req.prompt) // ps) * ps
+            kv.append((ks[:, i, :, :lp], vs[:, i, :, :lp]))
+        self._admitted(slots, reqs, first.cpu().numpy(), kv)
+        return slots
+
+    def _no_window(self, mode: str) -> None:
+        if getattr(self.cfg, "attn_window", None) is not None:
+            raise ValueError(f"{mode} admission + windowed ring cache: use "
+                             "add_requests")
+
+    def _alloc(self, reqs: List[Request]) -> List[int]:
         slots = []
         for req in reqs:
             slot = self.cache.alloc_slot(len(req.prompt) + req.max_new_tokens)
             req.slot = slot
             self.requests[slot] = req
             slots.append(slot)
+        return slots
 
-        L_max = max(len(r.prompt) for r in reqs)
-        L_pad = -(-L_max // ps) * ps
-        toks = np.zeros((len(reqs), L_pad), np.int32)
-        for i, req in enumerate(reqs):
-            toks[i, :len(req.prompt)] = req.prompt
-        logits, ks, vs = prefill_forward_batched(self.cfg, self.params,
-                                                 self._tensor(toks))
-        temps = self._tensor(np.asarray([r.temperature for r in reqs],
-                                        np.float32))
-        last = self._tensor(np.asarray([len(r.prompt) - 1 for r in reqs]))
-        rows = torch.arange(len(reqs), device=self.device)
-        first_toks = sample_tokens(logits[rows, last], self.generator,
-                                   temps).cpu().numpy()
+    def _sample_rows(self, rows, last, reqs: List[Request]):
+        """The logits rows the first tokens are sampled from and the
+        requests' temperatures, on the device before the prefill runs."""
+        return (self._tensor(np.asarray(rows, np.int64)),
+                self._tensor(np.asarray(last, np.int64)),
+                self._tensor(np.asarray([r.temperature for r in reqs],
+                                        np.float32)))
 
-        for i, (slot, req) in enumerate(zip(slots, reqs)):
-            self.cache.write_prefill(slot, ks[:, i], vs[:, i])
+    def _admitted(self, slots, reqs, first_toks, kv) -> None:
+        """Writes each request's K/V (n_layers, hkv, L_pad, d) into its
+        slot and records its first token."""
+        for slot, req, tok, (k, v) in zip(slots, reqs, first_toks, kv):
+            self.cache.write_prefill(slot, k, v)
             self.cache.lengths[slot] = len(req.prompt)
             self.temps[slot] = req.temperature
-            self._record(slot, int(first_toks[i]))
-        return slots
+            self._record(slot, int(tok))
 
     # --- decode ------------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Inference paths: batched prefill and the paged decode step.
+"""Inference paths: batched, packed and jagged prefill; the paged decode step.
 
 Port of tiny_flash_attention_tpu/models/inference.py for bf16 and int8
 pages. The JAX functions are jitted and donate the pages buffer
@@ -8,18 +8,43 @@ over stacked layers becomes a loop over the layer list, and `decode_loop`'s
 scan over steps a Python loop that keeps the sampled tokens on the device
 until the end. The decode step's append is the hand-written append kernel
 on the card (`_append_rows`), where the JAX engine runs an XLA scatter.
-Packed and jagged admission are not ported yet.
+The packed and jagged prefills make their kernel operands (segment ids and
+the tile table, the lengths) on the device once, before the layer loop.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List
 
 import torch
 
 from tiny_flash_attention_tpu_torch.models import transformer as T
+from tiny_flash_attention_tpu_torch.ops.flash import (
+    flash_attention, segment_tiles)
+from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+    flash_attention_rowloop)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention)
+
+
+def _prefill(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor,
+             positions: torch.Tensor, attend: Callable):
+    """The layer loop of every prefill: `attend(q, k, v)` is its
+    attention. Returns (logits f32, k_layers, v_layers)."""
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    ks, vs = [], []
+    for layer in params["layers"]:
+        q, k, v = T.qkv_proj(cfg, layer, x, positions)
+        o = attend(q, k, v)
+        o = o.transpose(1, 2).reshape(b, s, cfg.n_q_heads * cfg.d_head)
+        x = x + T._proj(o, layer["wo"])
+        x = T.mlp_block(cfg, layer, x)
+        ks.append(k)
+        vs.append(v)
+    x = T.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = T._proj(x, params["lm_head"]).float()
+    return logits, torch.stack(ks), torch.stack(vs)
 
 
 def prefill_forward_batched(cfg: T.ModelConfig, params: dict,
@@ -31,21 +56,50 @@ def prefill_forward_batched(cfg: T.ModelConfig, params: dict,
     the padding is harmless: cache writes slice by true length and padded
     rows never mix into earlier positions under the causal mask.
     """
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    x = params["embed"][tokens.long()].to(cfg.dtype)
-    ks, vs = [], []
-    for layer in params["layers"]:
-        q, k, v = T.qkv_proj(cfg, layer, x, positions)
-        o = T._attention(cfg, q, k, v, causal=True)
-        o = o.transpose(1, 2).reshape(b, s, cfg.n_q_heads * cfg.d_head)
-        x = x + T._proj(o, layer["wo"])
-        x = T.mlp_block(cfg, layer, x)
-        ks.append(k)
-        vs.append(v)
-    x = T.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = T._proj(x, params["lm_head"]).float()
-    return logits, torch.stack(ks), torch.stack(vs)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    return _prefill(cfg, params, tokens, positions,
+                    lambda q, k, v: T._attention(cfg, q, k, v, causal=True))
+
+
+def prefill_forward_packed(cfg: T.ModelConfig, params: dict,
+                           tokens: torch.Tensor, seg_ids: torch.Tensor,
+                           positions: torch.Tensor, *, segment_starts):
+    """Ragged prompts PACKED into one row: tokens/seg_ids (1, L_total),
+    positions (L_total,) restarting at each prompt (RoPE), segment_starts
+    the static pack offsets.
+
+    Attention is the flash kernel with the segment mask and each q tile's
+    kv range pruned to its segment (`segment_tiles`), so the cost is
+    sum(L_i^2)/2, not B * L_max^2 / 2. Returns (logits (1, L, V), ks, vs)
+    shaped like prefill_forward_batched with B=1.
+    """
+    seg = seg_ids.to(device=tokens.device, dtype=torch.int32)
+    tiles = segment_tiles(segment_starts, tokens.shape[1], causal=True,
+                          dtype=cfg.dtype, device=tokens.device)
+    return _prefill(cfg, params, tokens, positions,
+                    lambda q, k, v: flash_attention(
+                        q, k, v, causal=True, segment_ids=(seg, seg),
+                        segment_starts=tiles))
+
+
+def prefill_forward_jagged(cfg: T.ModelConfig, params: dict,
+                           tokens: torch.Tensor, seq_lengths):
+    """A heterogeneous batch WITHOUT packing: tokens (B, L_pad) right-padded
+    per request, seq_lengths (B,) runtime lengths.
+
+    Attention is the row-loop kernel (ops/flash_rowloop.py), whose kv walk
+    clamps to each row's length: ~sum(L_i^2)/2 like packed admission, with
+    one shape per (B, L_pad) bucket. Returns (logits (B, L_pad, V), ks, vs);
+    rows past a request's length are not its tokens (their attention rows
+    are empty rows, so they stay finite) and are sliced off by the caller.
+    """
+    lens = torch.as_tensor(seq_lengths, device=tokens.device).to(torch.int32)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    return _prefill(cfg, params, tokens, positions,
+                    lambda q, k, v: flash_attention_rowloop(
+                        q, k, v, causal=True, seq_lengths=lens)[0])
 
 
 def prefill_forward(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor):

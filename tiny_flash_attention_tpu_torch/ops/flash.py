@@ -5,13 +5,17 @@ three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
 csrc/flash_fwd.cu, ports all three. A CPU tensor takes the plain version
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
-the kernel at every shape, or raises for what the kernel does not do yet
-(sliding window, segment ids, quantized K/V, head_dim other than 64 or 128).
+the kernel at every shape, segment ids and `segment_starts` included, or
+raises for what the kernel does not do yet (sliding window, quantized K/V,
+head_dim other than 64 or 128). `segment_starts` become the kernel's tile
+table (`segment_tiles`): the first kv tile of each q tile, as JAX's
+`_build_worklist` prunes its work list to the block diagonal.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609). Its backward is
 ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
-CUDA and their plain version on the CPU.
+CUDA and their plain version on the CPU; on CUDA it has no segment ids yet
+and raises when reached with them.
 
 The JAX entry routes q_len, kv_len <= 512 to XLA; that cutoff was a v5e
 measurement, so the port has none until H100 numbers set one.
@@ -20,13 +24,17 @@ measurement, so the port has none until H100 numbers set one.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.ops.configs import (
+    FLASH_FWD_BF16, FLASH_FWD_F32)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 LOG2E = math.log2(math.e)
@@ -44,6 +52,52 @@ def in_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class SegmentTiles:
+    """Static `segment_starts` as the forward kernel's tile table, on the
+    device: `tile_lo[i]` is the first kv tile q tile i visits (the segment
+    start of its first row), `order[i]` the q tile block i takes, longest
+    pruned work first. Built by `segment_tiles`."""
+    q_len: int
+    causal: bool
+    block_m: int
+    block_n: int
+    tile_lo: torch.Tensor
+    order: torch.Tensor
+
+
+def _fwd_tiles(dtype: torch.dtype):
+    return FLASH_FWD_BF16 if dtype == torch.bfloat16 else FLASH_FWD_F32
+
+
+def segment_tiles(segment_starts, q_len: int, *, causal: bool,
+                  dtype: torch.dtype, device) -> SegmentTiles:
+    """The kernel's tile table for a packed row of q_len (== kv_len) tokens
+    whose segments start at `segment_starts` (JAX's `_build_worklist`,
+    flash.py:100-128: a q tile's kv range starts at the tile of its first
+    row's segment start). One host-to-device copy: build it once and pass
+    it to every layer's `flash_attention(..., segment_starts=tiles)`."""
+    starts = tuple(sorted({0, *(int(x) for x in segment_starts)}))
+    if starts[0] < 0 or starts[-1] >= q_len:
+        raise ValueError(f"segment_starts {segment_starts} outside "
+                         f"[0, {q_len})")
+    cfg = _fwd_tiles(dtype)
+    bm, bn = cfg.block_m, cfg.block_n
+    n_kv = -(-q_len // bn)
+    first = np.arange(-(-q_len // bm)) * bm
+    if causal:
+        hi = np.minimum(n_kv, (np.minimum(first + bm, q_len) - 1) // bn + 1)
+    else:
+        hi = np.full(first.shape, n_kv)
+    table = np.asarray(starts)
+    seg_start = table[np.searchsorted(table, first, side="right") - 1]
+    lo = np.minimum(seg_start // bn, hi - 1)
+    order = np.argsort(lo - hi, kind="stable")
+    both = torch.as_tensor(np.stack([lo, order]).astype(np.int32),
+                           device=device)
+    return SegmentTiles(q_len, causal, bm, bn, both[0], both[1])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     segment_ids=None, window: Optional[int] = None,
@@ -59,8 +113,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         only tokens with equal ids attend each other
       window: optional sliding window (requires causal): row at position p
         sees columns [p - window + 1, p]
-      segment_starts: static segment offsets; in JAX they prune the work
-        list, here they change nothing on the CPU (the ids carry the mask)
+      segment_starts: static segment offsets (q_len == kv_len), or the
+        `SegmentTiles` built from them once for many calls; on CUDA they
+        prune each q tile's kv range to its segment (JAX prunes its work
+        list), on the CPU they change nothing (the ids carry the mask)
       return_lse: also return the natural-log LSE (batch, q_heads, q_len) f32
 
     Returns out (like q), and lse if asked. fp16 computes in f32, as in
@@ -68,8 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flow through `_FlashAttention` (the backward kernels on CUDA, their
     plain version on the CPU). return_lse=True is forward-only, as in JAX
     (flash.py:704-707). On the CPU, window and segment ids take the plain
-    forward, which torch autograd differentiates; on CUDA they raise, in
-    the forward and so in the backward.
+    forward, which torch autograd differentiates. On CUDA a window raises;
+    segment ids run the forward kernel, and a backward through them raises.
     """
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -81,9 +137,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         window = int(window)
-    if segment_starts is not None and segment_ids is None:
-        raise ValueError("segment_starts prunes scheduling; segment_ids "
-                         "carry the mask")
+    if segment_starts is not None:
+        if segment_ids is None:
+            raise ValueError("segment_starts prunes scheduling; "
+                             "segment_ids carry the mask")
+        if q_len != kv_len:
+            raise ValueError("segment_starts requires q_len == kv_len")
     if q.dtype == torch.float16:
         out = flash_attention(
             q.float(), k.float(), v.float(), causal=causal,
@@ -95,14 +154,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        if window is not None or segment_ids is not None \
-                or segment_starts is not None:
+        if window is not None:
             raise NotImplementedError(
                 "the CUDA flash kernels (forward and backward) have no "
-                "sliding window or segment ids yet")
+                "sliding window yet")
+        masks = {}
+        if segment_ids is not None:
+            masks = dict(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
+                         kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
+            if segment_starts is not None:
+                masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
         if return_lse:
-            return _flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
-        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+            return _flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   **masks)
+        return _FlashAttention.apply(q, k, v, causal, sm_scale, masks)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     if window is None and segment_ids is None and not return_lse:
@@ -121,11 +186,13 @@ class _FlashAttention(torch.autograd.Function):
     the plain version on the CPU; so is the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float,
+                masks: Optional[dict] = None):
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        ctx.segments = bool(masks)
         if q.is_cuda:
             out, lse = _flash_fwd_cuda(q, k, v, causal=causal,
-                                       sm_scale=sm_scale)
+                                       sm_scale=sm_scale, **(masks or {}))
         else:
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              sm_scale=sm_scale,
@@ -139,11 +206,14 @@ class _FlashAttention(torch.autograd.Function):
         # imported here: ops/flash_bwd.py imports this module's helpers
         from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
             flash_attention_bwd)
+        if ctx.segments:
+            raise NotImplementedError(
+                "the CUDA flash backward has no segment ids yet")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
                                          sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
@@ -197,17 +267,55 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def as_int32(x, shape, like: torch.Tensor) -> torch.Tensor:
+    """An int32 operand of the kernel (segment ids, lengths) on q's device,
+    contiguous; already there, it is not copied."""
+    t = torch.as_tensor(x, device=like.device).to(torch.int32).contiguous()
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _tiles_for(segment_starts, q_len: int, causal: bool,
+               q: torch.Tensor) -> SegmentTiles:
+    """`segment_starts` as a tile table that fits this launch, built here
+    when the caller passed the static offsets."""
+    if not isinstance(segment_starts, SegmentTiles):
+        return segment_tiles(segment_starts, q_len, causal=causal,
+                             dtype=q.dtype, device=q.device)
+    cfg = _fwd_tiles(q.dtype)
+    if (segment_starts.q_len, segment_starts.causal, segment_starts.block_m,
+            segment_starts.block_n, segment_starts.tile_lo.device) != (
+            q_len, causal, cfg.block_m, cfg.block_n, q.device):
+        raise ValueError("SegmentTiles were built for another q_len, mask, "
+                         "tile size or device")
+    return segment_starts
+
+
 def _flash_fwd_fn():
     fn = _build.library("flash_fwd").tfa_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
-    """Launches csrc/flash_fwd.cu; returns (out, lse)."""
+def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
+    """Launches csrc/flash_fwd.cu for `flash_attention`; returns (out,
+    lse)."""
+    out = launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale, **masks)
+    flash_attention.launches += 1
+    return out
+
+
+def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
+               kv_seg=None, tiles: Optional[SegmentTiles] = None,
+               seq_lengths=None):
+    """One launch of csrc/flash_fwd.cu, counted by the caller; returns (out,
+    lse). q_seg/kv_seg, tiles and seq_lengths (int32 on q's device) turn on
+    the kernel's segment mask, its pruned kv ranges and its jagged mode."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
@@ -230,12 +338,14 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
+    extras = (q_seg, kv_seg, None if tiles is None else tiles.tile_lo,
+              None if tiles is None else tiles.order, seq_lengths)
     with _build.on_device(q.device):
         err = _flash_fwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bs, hq, hkv, q_len, kv_len, d, int(causal),
-            scale_log2, _KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            lse.data_ptr(), *(None if t is None else t.data_ptr()
+                              for t in extras),
+            bs, hq, hkv, q_len, kv_len, d, int(causal), scale_log2,
+            _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_fwd")
-    flash_attention.launches += 1
     return out, lse
