@@ -5,10 +5,12 @@
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
-card (the flash forward with and without segment ids and its jagged
-row-loop mode, the flash backward's dq and dk/dv kernels, the paged decode
-over bf16 and int8 pages, the page append, the weight-only quantized
-matmul). Then it runs the engine benchmark's model (vocab 32768, d_model
+card (the flash forward with and without segment ids, with the sliding
+window, and its jagged row-loop mode, the flash backward's dq and dk/dv
+kernels, the paged decode over bf16 and int8 pages and its ring mode, the
+page append, the weight-only quantized matmul, the FA1 forward and the
+decode over separate K/V page arrays at the shapes of the repo's attention
+benchmark). Then it runs the engine benchmark's model (vocab 32768, d_model
 1024, 4 layers, 8/2 heads of 128, d_ff 4096, bf16; random weights from a
 seed) on its main paths: serving with bf16 pages, two batched admissions
 and 67 decode steps; quantized serving (int8 pages, with bf16 and with int8
@@ -17,7 +19,9 @@ benchmarks/engine_bench.py:190-191,217-218), 64 decode steps each; ragged
 admission, the jagged benchmark's 8 prompts (benchmarks/
 jagged_prefill_bench.py:41) admitted batched, packed (page and pow2
 buckets) and jagged, then 32 decode steps each; the encoder's embed_texts
-at 8 x 2048 and 32 x 512 (benchmarks/encoder_bench.py); and training,
+at 8 x 2048 and 32 x 512 (benchmarks/encoder_bench.py); the same model
+with a sliding window of 1024 served from a ring cache (8 prompts of
+1792-2048 tokens, 256 decode steps past the ring's capacity); and training,
 AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
 train_bench.py's configs). It fails if a kernel does not build, launch or
 agree, if a path did not go through its kernels, if a path's output
@@ -195,6 +199,29 @@ def decode_bound(q, pages, lengths, table, page_size) -> tuple[float, str]:
     return _bound(4.0 * hq * d * tokens, nbytes, q.dtype)
 
 
+def instance_registers(ptxas_log: str) -> list:
+    """'kernel<template args>: registers' for each kernel instance in a
+    ptxas -v log, read from the mangled names, where each name is preceded
+    by its length (flash_fwd_bf16_kernel<128,0>: head_dim 128, no
+    window)."""
+    out = []
+    for name, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
+            ptxas_log, re.S):
+        label = name[:60]
+        # every digit run and its suffixes: a hash may end in a digit
+        for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
+            start = m.start() + len(m.group(1))
+            ident = name[start:start + int(m.group(1))]
+            args = re.match(r"I((?:L[a-z]\d+E)+)E", name[start + len(ident):])
+            if ident.endswith("_kernel") and args:
+                nums = re.findall(r"(\d+)E", args.group(1))
+                label = f"{ident}<{','.join(nums)}>"
+                break
+        out.append(f"{label}: {regs}")
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -342,27 +369,23 @@ def check_not_ported_raise() -> None:
         flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
         flash_attention_rowloop)
-    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_paged_decode_attention)
 
     q = torch.zeros((1, 2, 128, 128), device="cuda", dtype=torch.bfloat16)
     seg = torch.zeros((1, 128), device="cuda", dtype=torch.int32)
     lse = torch.zeros((1, 2, 128), device="cuda")
     qg = q.clone().requires_grad_()
     attempts = [
-        lambda: flash_attention(q, q, q, causal=True, window=64),
-        # the forward runs the kernel; its backward has no segment ids yet
+        # the forward runs the kernel; its backward has no segment ids and
+        # no window yet
         lambda: flash_attention(qg, qg, qg, segment_ids=(seg, seg))
         .float().sum().backward(),
-        lambda: flash_attention_rowloop(q, q, q, causal=True, window=64),
+        lambda: flash_attention(qg, qg, qg, causal=True, window=64)
+        .float().sum().backward(),
         lambda: flash_attention(q, q.to(torch.int8), q.to(torch.int8)),
+        lambda: flash_attention_rowloop(q, q.to(torch.int8),
+                                        q.to(torch.int8), causal=True),
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
-        # the ring mode (sliding window) over int8 pages
-        lambda: fused_paged_decode_attention(
-            q[:, :, 0], torch.zeros((2, 4, 2 * 16 + 8, 128), device="cuda",
-                                    dtype=torch.int8),
-            seg[:, :1], seg[:, :2], page_size=16, window=8),
     ]
     for fn in attempts:
         try:
@@ -840,16 +863,18 @@ def plain_kernels():
     from tiny_flash_attention_tpu_torch.ops import quant as Q
     from tiny_flash_attention_tpu_torch.ops import quant_matmul as QM
 
-    def decode_plain(q, pages, lengths, table, *, page_size):
+    def decode_plain(q, pages, lengths, table, *, page_size, window=None):
         return PF.fused_paged_decode_plain(q, pages, lengths, table,
                                            page_size=page_size,
-                                           sm_scale=q.shape[-1] ** -0.5)
+                                           sm_scale=q.shape[-1] ** -0.5,
+                                           window=window)
 
     def flash_plain(q, k, v, *, causal=False, segment_ids=None,
-                    segment_starts=None):
+                    segment_starts=None, window=None):
         return FL.flash_attention_plain(q, k, v, causal=causal,
                                         sm_scale=q.shape[-1] ** -0.5,
-                                        segment_ids=segment_ids)
+                                        segment_ids=segment_ids,
+                                        window=window)
 
     def rowloop_plain(q, k, v, *, causal=False, seq_lengths=None):
         return RL.flash_attention_rowloop_plain(
@@ -1577,6 +1602,455 @@ def train_phase(seed: int) -> dict:
     return out
 
 
+# --- phase 7: the last two kernels (B12, B14) and the window -----------------
+
+# (name, q shape, kv shape, dtype, causal): FA1 at the headline shape made
+# MHA (B14 has no GQA), f32, and a q tile no kv tile reaches
+V1_CASES = [
+    ("MHA causal 2048", (2, 8, 2048, 128), (2, 8, 2048, 128), torch.bfloat16,
+     True),
+    ("MHA non-causal 2048", (2, 8, 2048, 128), (2, 8, 2048, 128),
+     torch.bfloat16, False),
+    ("MHA causal 1024 f32", (2, 8, 1024, 128), (2, 8, 1024, 128),
+     torch.float32, True),
+    ("q_len 1024 > kv_len 512", (2, 8, 1024, 128), (2, 8, 512, 128),
+     torch.bfloat16, True),
+]
+# (name, pages, lengths): the paged decode of the north-star's config 2
+# (benchmarks/attention_bench.py:146-157: 8 sequences of 8192 tokens, 8/2
+# heads of 128, page_size 128, 64 pages each, a random page permutation)
+B12_CASES = [("config 2, bf16 pages", "bf16", [8192] * 8),
+             ("config 2, int8 pages", "int8", [8192] * 8),
+             ("config 2, bf16 pages, mixed short lengths", "bf16",
+              [1, 127, 128, 129, 1000, 4096, 8000, 8192])]
+
+
+def b12_inputs(gen, fmt, lengths, *, batch=8, hq=8, hkv=2, d=128, ps=128,
+               P=64):
+    """q, K and V page arrays (int8 QuantizedTensors made from bf16 pages by
+    the port's quantizer), lengths and a random page table."""
+    from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
+
+    num_pages = batch * P + 7
+    q = randn((batch, hq, d), torch.bfloat16, gen)
+    k, v = (randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+            for _ in range(2))
+    if fmt == "int8":
+        k, v = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+    perm = torch.randperm(num_pages, generator=gen, device="cuda")
+    table = perm[:batch * P].reshape(batch, P).to(torch.int32)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32,
+                                 device="cuda"), table
+
+
+def surface_phase(gen) -> dict:
+    """B14 and B12 on their path, the package's public surface (neither
+    lies on a model path): FA1 through `flash_attention_v1` and the
+    separate-array decode through `paged_decode_attention` at the repo's
+    benchmark shapes, the counts zeroed just before and read just after;
+    then each output against its plain version and the device times (FA1
+    beside B1 at the same shape: the FA1/FA2 gap)."""
+    import tiny_flash_attention_tpu_torch as tfa
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        flash_attention_v1_plain)
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_plain)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_attention, pack_paged_cache)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    v1_in = [(randn(qs, dt, gen), randn(ks, dt, gen), randn(ks, dt, gen))
+             for _, qs, ks, dt, _ in V1_CASES]
+    b12_in = [b12_inputs(gen, fmt, lens) for _, fmt, lens in B12_CASES]
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    tfa.flash_attention_v1.launches = 0
+    paged_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    v1_out = [tfa.flash_attention_v1(q, k, v, causal=case[4],
+                                     return_lse=True)
+              for case, (q, k, v) in zip(V1_CASES, v1_in)]
+    b12_out = [paged_decode_attention(*x) for x in b12_in]
+    torch.cuda.synchronize()
+    launches = {"flash_v1": tfa.flash_attention_v1.launches,
+                "paged_decode_separate": paged_decode_attention.launches}
+    # ---------------------------------------------------------------------
+    want = {"flash_v1": len(V1_CASES),
+            "paged_decode_separate": len(B12_CASES)}
+    log(f"B14/B12 surface: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"surface launches {launches} != {want}")
+
+    rows = {}
+    for (name, qs, ks, dt, causal), (q, k, v), (out, lse) in zip(
+            V1_CASES, v1_in, v1_out):
+        sc = qs[-1] ** -0.5
+        ref, ref_lse = flash_attention_v1_plain(q, k, v, causal=causal,
+                                                sm_scale=sc)
+        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+        atol = tolerance_for(dt)
+        ok = err <= atol and lse_err <= atol and bool(
+            torch.isfinite(out).all())
+        mask = None
+        if causal and qs[2] != ks[2]:
+            mask = torch.ones(qs[2], ks[2], dtype=torch.bool,
+                              device="cuda").tril(ks[2] - qs[2])
+        t_kernel = cuda_time_ms(lambda: tfa.flash_attention_v1(
+            q, k, v, causal=causal), iters=10)["median_ms"]
+        t_fa2 = cuda_time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                             iters=10)["median_ms"]
+        t_plain = cuda_time_ms(lambda: flash_attention_v1_plain(
+            q, k, v, causal=causal, sm_scale=sc), iters=5)["median_ms"]
+        t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None),
+            iters=10)["median_ms"]
+        bound_ms, bound_by = flash_bound(q, k, causal)
+        log(f"flash_v1 {name}: q{qs} kv{ks} {str(dt).split('.')[-1]} causal="
+            f"{causal} | out err {err:.3e} lse err {lse_err:.3e} (gate "
+            f"{atol:.0e}) | FA1 kernel {t_kernel:.4f} ms, B1 (FA2) "
+            f"{t_fa2:.4f} ms: FA1/FA2 {t_kernel / t_fa2:.2f}x | plain "
+            f"{t_plain:.4f} ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"FA1 kernel disagrees with plain: {name}")
+        rows[name] = {"max_abs_err": max(err, lse_err), "ms": t_kernel,
+                      "plain_ms": t_plain, "library_ms": t_sdpa,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "fa2_ms": t_fa2}
+    del v1_in, v1_out
+
+    for (name, fmt, _), (q, k, v, lengths, table), (out, lse) in zip(
+            B12_CASES, b12_in, b12_out):
+        sc = q.shape[-1] ** -0.5
+        ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
+                                          sm_scale=sc)
+        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+        ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
+              and bool(torch.isfinite(out).all()))
+        t_kernel = cuda_time_ms(lambda: paged_decode_attention(
+            q, k, v, lengths, table), iters=20)["median_ms"]
+        t_plain = cuda_time_ms(lambda: paged_decode_plain(
+            q, k, v, lengths, table, sm_scale=sc), iters=5)["median_ms"]
+        kv = k.values if fmt == "int8" else k
+        bound_ms, bound_by = decode_bound(q, kv, lengths, table, 128)
+        extra = ""
+        if fmt == "bf16":      # B4 over the same K/V, packed into fused pages
+            fused = pack_paged_cache(k, v)
+            t_b4 = cuda_time_ms(lambda: fused_paged_decode_attention(
+                q, fused, lengths, table, page_size=128),
+                iters=20)["median_ms"]
+            extra = f" | B4 on the same K/V fused {t_b4:.4f} ms"
+            del fused
+        kv_bytes = bound_ms * 1e-3 * PEAK_BYTES_PER_S
+        log(f"paged_decode_separate {name}: q{tuple(q.shape)} pages"
+            f"{tuple(kv.shape)} lengths {lengths.tolist()} | out err "
+            f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} "
+            f"(gate {DECODE_LSE_GATE:.0e}) | kernel {t_kernel:.4f} ms plain "
+            f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
+            f"{kv_bytes / (t_kernel * 1e-3) / 1e9:.1f} GB/s{extra} | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"B12 kernel disagrees with plain: {name}")
+        rows[name] = {"max_abs_err": max(err, lse_err), "ms": t_kernel,
+                      "plain_ms": t_plain, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"launches": launches, "rows": rows}
+
+
+# (name, q shape, kv shape, window, segment bounds): the JAX window
+# benchmark (attention_bench.py:171-193), the windowed engine's prefill, a
+# decode offset, and the window with segment ids
+WINDOW_CASES = [
+    ("bench s8192 w1024", (1, 8, 8192, 128), (1, 2, 8192, 128), 1024, None),
+    ("engine prefill 8 x 2048 w1024", (8, 8, 2048, 128), (8, 2, 2048, 128),
+     1024, None),
+    ("decode offset q128/kv2048 w512", (2, 8, 128, 128), (2, 2, 2048, 128),
+     512, None),
+    ("segments (37, 300, 650) w200", (2, 8, 700, 128), (2, 2, 700, 128), 200,
+     (37, 300, 650)),
+]
+
+
+def check_window(name, q_shape, kv_shape, window, bounds, gen) -> dict:
+    """B1 with a window against its plain version, timed beside B1 causal
+    without the window and SDPA with a boolean band mask; without segment
+    ids also B11's non-jagged entry with the window. The bound counts
+    the in-window pairs (w(w+1)/2 + (S - w)w a head at the bench shape) and
+    the K/V rows some window needs."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    b, hq, q_len, d = q_shape
+    kv_len = kv_shape[2]
+    q = randn(q_shape, torch.bfloat16, gen)
+    k, v = (randn(kv_shape, torch.bfloat16, gen) for _ in range(2))
+    pos = torch.arange(q_len, device="cuda")[:, None] + kv_len - q_len
+    cols = torch.arange(kv_len, device="cuda")[None, :]
+    band = (cols <= pos) & (cols > pos - window)            # (q_len, kv_len)
+    seg = None
+    mask = band[None, None]
+    if bounds is not None:
+        seg = segment_ids(b, q_len, bounds)
+        mask = band[None] & (seg[:, :, None] == seg[:, None, :])
+        mask = mask[:, None]
+    pairs = float(mask.expand(b, 1, q_len, kv_len).sum())
+    needed = float(mask.any(dim=-2).expand(b, 1, kv_len).sum())
+    nbytes = ((2 * q.numel() + 2 * needed * kv_shape[1] * d) * 2
+              + q[..., 0].numel() * 4 + (2 * seg.numel() * 4 if seg
+                                         is not None else 0))
+    bound = _bound(4.0 * d * hq * pairs, nbytes, torch.bfloat16)
+    ids = None if seg is None else (seg, seg)
+    row = time_masked(
+        f"B1 window {name}", q, k, v,
+        kernel=lambda: flash_attention(q, k, v, causal=True, window=window,
+                                       segment_ids=ids, return_lse=True),
+        plain=lambda: flash_attention_plain(
+            q, k, v, causal=True, sm_scale=d ** -0.5, window=window,
+            segment_ids=ids, return_lse=True),
+        sdpa_mask=mask, sdpa_causal=False, bound=bound)
+    t_causal = cuda_time_ms(lambda: flash_attention(
+        q, k, v, causal=True, segment_ids=ids), iters=5)["median_ms"]
+    log(f"B1 window {name}: {row['ms']:.4f} ms against B1 causal without "
+        f"the window {t_causal:.4f} ms ({t_causal / row['ms']:.2f}x); "
+        f"{pairs / (b * q_len):.1f} visible columns a row")
+    row["causal_ms"] = t_causal
+    if seg is None:
+        # B11's non-jagged entry takes the same launch: bit-equal output
+        got = flash_attention_rowloop(q, k, v, causal=True, window=window)
+        want = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"windowed row loop differs from B1: {name}")
+        t_row = cuda_time_ms(lambda: flash_attention_rowloop(
+            q, k, v, causal=True, window=window), iters=5)["median_ms"]
+        log(f"B11 window {name} (non-jagged entry): {t_row:.4f} ms, output "
+            f"bit-equal to B1's; bound {bound[0]:.4f} ms ({bound[1]})")
+        row["rowloop_ms"] = t_row
+    return row
+
+
+def ring_bound(q, pages, lengths, window) -> tuple[float, str]:
+    """Least time for one ring-mode decode: the K and V rows of the last
+    min(length, window) tokens read once (int8: with their scales), q, out,
+    the LSE and the lengths; 4 * d flops per (q head, token)."""
+    batch, hq, d = q.shape
+    hkv = pages.shape[0]
+    tokens = float(np.minimum(lengths.cpu().numpy(), window).sum())
+    scale_bytes = 8 if pages.dtype == torch.int8 else 0
+    nbytes = (tokens * hkv * (2 * d * pages.element_size() + scale_bytes)
+              + 2 * q.numel() * q.element_size() + batch * hq * 4 + batch * 4)
+    return _bound(4.0 * hq * d * tokens, nbytes, q.dtype)
+
+
+def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
+               ps=128, P=16) -> dict:
+    """B4's ring mode against its plain version over a table that has
+    wrapped (the windowed engine's geometry: 16 pages of 128 a slot)."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_attention, fused_paged_decode_plain,
+        pack_paged_cache)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    num_pages = batch * P + 8
+    q = randn((batch, hq, d), torch.bfloat16, gen)
+    pages = pack_paged_cache(
+        randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+        randn((hkv, num_pages, ps, d), torch.bfloat16, gen), fmt)
+    perm = torch.randperm(num_pages, generator=gen, device="cuda")
+    table = perm[:batch * P].reshape(batch, P).to(torch.int32)
+    lengths = torch.tensor([1, window, window + 65, P * ps, P * ps + 1,
+                            P * ps + 700, 3 * P * ps + 5, 9000],
+                           dtype=torch.int32, device="cuda")
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                            page_size=ps, sm_scale=d ** -0.5,
+                                            window=window)
+    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
+          and bool(torch.isfinite(out).all()))
+    t_kernel = cuda_time_ms(lambda: fused_paged_decode_attention(
+        q, pages, lengths, table, page_size=ps, window=window),
+        iters=20)["median_ms"]
+    t_plain = cuda_time_ms(lambda: fused_paged_decode_plain(
+        q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+        window=window), iters=5)["median_ms"]
+    bound_ms, bound_by = ring_bound(q, pages, lengths, window)
+    log(f"ring decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
+        f"table{tuple(table.shape)} window {window} lengths "
+        f"{lengths.tolist()} | out err {err:.3e} (gate "
+        f"{DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} (gate "
+        f"{DECODE_LSE_GATE:.0e}) | kernel {t_kernel:.4f} ms plain "
+        f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ring decode disagrees with plain: {name}")
+    return {"max_abs_err": max(err, lse_err), "ms": t_kernel,
+            "plain_ms": t_plain, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+SWA_WINDOW = 1024        # attention_bench.py:173, the Mistral-style window
+SWA_PAGES_PER_SEQ = 16   # ring capacity 2048 >= 1024 + 2 x 128
+SWA_CHUNKS = 8           # 8 x steps(32): 256 decode steps
+
+
+def swa_phase(seed: int) -> dict:
+    """The cell swa_serving: the engine model with attn_window=1024 served
+    from a ring cache (page_size 128, 8 slots, 16 pages a slot), 8 prompts
+    of 1792-2048 tokens admitted with one add_requests, then 256 decode
+    steps by steps(32), so every ring wraps. Launch counts per admission and
+    step; the first decode step and the first step after every ring has
+    wrapped against the same step with the plain versions on a copy of the
+    cache; tokens against their argmax; the ring decode's time at the
+    wrapped cache beside B4 without a window over a cache of that length."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request)
+    from tiny_flash_attention_tpu_torch.models.inference import decode_step
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    cfg = dataclasses.replace(engine_config(), attn_window=SWA_WINDOW)
+    max_seqs, ps, n_chunk = 8, 128, 32
+    cap = SWA_PAGES_PER_SEQ * ps
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    eng = InferenceEngine(cfg, params,
+                          num_pages=max_seqs * SWA_PAGES_PER_SEQ + 8,
+                          page_size=ps, max_seqs=max_seqs,
+                          pages_per_seq=SWA_PAGES_PER_SEQ, seed=seed,
+                          device="cuda")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1792, 2049, max_seqs)
+    n_steps = n_chunk * SWA_CHUNKS
+    # none finishes: the check's extra step and the profile's two windows
+    max_new = 1 + n_steps + 1 + 2 * PROFILE_STEPS + 8
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(), max_new)
+            for n in lens]
+    counters = [(flash_attention, "launches"),
+                (flash_attention, "window_launches"),
+                (fused_paged_decode_attention, "launches"),
+                (fused_paged_decode_attention, "ring_launches"),
+                (fused_page_append, "launches")]
+
+    def snapshot():
+        return dict(pages=[p.clone() for p in eng.cache.pages],
+                    table=eng.cache.page_table.copy(),
+                    lengths=eng.cache.lengths.copy(),
+                    last=eng.last_token.copy())
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    for fn, name in counters:
+        setattr(fn, name, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.add_requests(reqs)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = snapshot()
+    chunk_s = []
+    for _ in range(SWA_CHUNKS):
+        t0 = time.perf_counter()
+        eng.steps(n_chunk)            # ends in a device-to-host copy
+        chunk_s.append(time.perf_counter() - t0)
+    counts = [getattr(fn, name) for fn, name in counters]
+    launches = {"flash_fwd": counts[0], "flash_fwd_window": counts[1],
+                "paged_decode": counts[2], "paged_decode_ring": counts[3],
+                "page_append": counts[4]}
+    # ---------------------------------------------------------------------
+    L = cfg.n_layers
+    want = {"flash_fwd": L, "flash_fwd_window": L, "paged_decode": 0,
+            "paged_decode_ring": n_steps * L, "page_append": n_steps * L}
+    ends = eng.cache.lengths.copy()
+    log(f"swa_serving: window {SWA_WINDOW}, ring capacity {cap}; prompts "
+        f"{lens.tolist()}; lengths after {n_steps} steps {ends.tolist()}; "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"swa_serving launches {launches} != {want}")
+    if not (ends > cap).all():
+        raise AssertionError("a ring did not wrap")
+    for r in reqs:
+        assert len(r.generated) == 1 + n_steps, len(r.generated)
+
+    def step_logits(snap):
+        dec, _ = decode_step(
+            cfg, params, [p.clone() for p in snap["pages"]],
+            torch.as_tensor(snap["last"], device="cuda"),
+            torch.as_tensor(snap["lengths"], device="cuda"),
+            torch.as_tensor(snap["table"], device="cuda"), page_size=ps,
+            fmt="bf16")
+        return dec
+
+    wrapped = snapshot()
+    errs = []
+    for label, snap, want_tok in (
+            ("first decode step", first, [r.generated[1] for r in reqs]),
+            (f"first step after every ring wrapped (lengths "
+             f"{wrapped['lengths'].min()}-{wrapped['lengths'].max()})",
+             wrapped, None)):
+        got = step_logits(snap)
+        with plain_kernels():
+            ref = step_logits(snap)
+        scale = float(ref.abs().max())
+        err = max_err(got, ref)
+        gate = ENGINE_LOGIT_GATE * scale
+        argmax = got.argmax(-1).tolist()
+        if want_tok is None:          # the engine's next step takes it
+            eng.step()
+            want_tok = [r.generated[-1] for r in reqs]
+        log(f"swa_serving {label}: logits vs plain versions max err "
+            f"{err:.4f} (gate {gate:.4f} = {ENGINE_LOGIT_GATE:.1%} of max "
+            f"|logit| {scale:.3f}); tokens {want_tok} vs argmax {argmax}")
+        if err > gate or not torch.isfinite(got).all():
+            raise AssertionError(f"swa_serving logits disagree: {label}")
+        if want_tok != argmax:
+            raise AssertionError(f"swa_serving tokens are not the argmax: "
+                                 f"{label}")
+        errs.append(err / scale)
+    tok_s = max_seqs * n_chunk / chunk_s[-1]
+    log(f"swa_serving timing: admission of 8 prompts (L_pad "
+        f"{-(-int(lens.max()) // ps) * ps}) {prefill_ms:.1f} ms; decode "
+        f"steps({n_chunk}) {[round(x * 1e3, 2) for x in chunk_s]} ms -> "
+        f"{tok_s:.0f} tokens/s (8 slots, last chunk)")
+    profile_window(f"per windowed decode step (steps({PROFILE_STEPS}))",
+                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS)
+
+    # the ring decode at the wrapped cache (O(window)) beside B4 without a
+    # window over a bf16 cache holding every token of the same lengths
+    page_table, lengths = eng.cache.device_views()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qd = randn((max_seqs, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
+    t_ring = cuda_time_ms(lambda: fused_paged_decode_attention(
+        qd, eng.cache.pages[0], lengths, page_table, page_size=ps,
+        window=SWA_WINDOW), iters=20)["median_ms"]
+    P = -(-int(lengths.max()) // ps)
+    full = randn((cfg.n_kv_heads, max_seqs * P + 1, 2 * ps, cfg.d_head),
+                 torch.bfloat16, gen)
+    table = torch.arange(max_seqs * P, dtype=torch.int32,
+                         device="cuda").reshape(max_seqs, P)
+    t_full = cuda_time_ms(lambda: fused_paged_decode_attention(
+        qd, full, lengths, table, page_size=ps), iters=20)["median_ms"]
+    log(f"swa_serving ring decode at the wrapped cache (lengths "
+        f"{lengths.tolist()}, window {SWA_WINDOW}): {t_ring:.4f} ms against "
+        f"B4 without a window over the same lengths {t_full:.4f} ms "
+        f"({t_full / t_ring:.2f}x)")
+    return {"launches": launches, "logit_err": max(errs), "tok_s": tok_s,
+            "ring_ms": t_ring, "full_ms": t_full}
+
+
 def time_sampled_decode(eng, n_chunk: int) -> None:
     """One greedy and one sampled chunk back to back, host clock: the
     sampled path draws its uniforms on the device and, like the greedy
@@ -1656,6 +2130,8 @@ def main() -> int:
                                                 text))
         log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
             f"registers, {spills} bytes of spill stores in all (ptxas)")
+        if len(regs) <= 8:
+            log("    registers: " + ", ".join(instance_registers(text)))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FLASH_CASES:
@@ -1684,6 +2160,10 @@ def main() -> int:
     qmm_split_sweep(gen)
     bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
                 for case in BWD_CASES]
+    window_rows = {case[0]: check_window(*case, gen) for case in WINDOW_CASES}
+    ring_rows = {fmt: check_ring(f"{fmt} pages, wrapped table", fmt, gen)
+                 for fmt in ("bf16", "int8")}
+    surface = surface_phase(gen)
     check_not_ported_raise()
 
     run = engine_phase(SEED)
@@ -1699,6 +2179,7 @@ def main() -> int:
     quant = quant_serving_phase(SEED)
     ragged = ragged_admission_phase(SEED)
     enc = encoder_phase(SEED)
+    swa = swa_phase(SEED)
 
     train = train_phase(SEED)
     for (batch, seq), state in train["states"].items():
@@ -1719,19 +2200,33 @@ def main() -> int:
     flash_row["max_abs_err"] = max(
         flash_row["max_abs_err"], first["max_abs_err"], seg_err,
         *(slice_rows[k]["max_abs_err"]
-          for k in ("packed with", "packed without", "encoder", "padded")))
+          for k in ("packed with", "packed without", "encoder", "padded")),
+        *(r["max_abs_err"] for r in window_rows.values()))
     rowloop_row = dict(slice_rows["jagged"])
     rowloop_row["max_abs_err"] = max(rowloop_row["max_abs_err"], rowloop_err)
     page_table, lengths = eng.cache.device_views()
     qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
     decode_row = check_decode("main path: engine cache, layer 0", qd,
                               eng.cache.pages[0], lengths, page_table, 128)
+    # the ring mode's errors join B4's row (bf16 pages) and its int8 row
+    decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
+                                    ring_rows["bf16"]["max_abs_err"])
     eng8k = quant["engines"][(False, 7936)]
     page_table, lengths = eng8k.cache.device_views()
     int8_row = check_decode("main path: int8 engine cache at prompt 7936, "
                             "layer 0", qd, eng8k.cache.pages[0], lengths,
                             page_table, 128)
+    int8_row["max_abs_err"] = max(int8_row["max_abs_err"],
+                                  ring_rows["int8"]["max_abs_err"])
     qlaunch = quant["launches"]
+    # B14's row: FA1 at the MHA headline shape, B12's: config 2 over bf16
+    # pages; each with the worst error of its cases
+    srows = surface["rows"]
+    v1_row = dict(srows[V1_CASES[0][0]])
+    v1_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"] for c in V1_CASES)
+    b12_row = dict(srows[B12_CASES[0][0]])
+    b12_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"]
+                                 for c in B12_CASES)
     # the backward's rows: each kernel at the train step's 4 x 2048 shape,
     # the worst error over both train shapes; the plain and library times
     # are those of the whole backward (one function computes dq, dk, dv)
@@ -1753,7 +2248,9 @@ def main() -> int:
          "library_ms": main_bwd["library_ms"]}
         for part in ("dq", "dkv")]
     # flash_fwd runs on every main path but the jagged admission: its
-    # launches are the engines', the encoder's and the train step's
+    # launches are the engines' (the windowed one's included), the
+    # encoder's and the train step's; paged_decode's include the windowed
+    # engine's ring-mode launches
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
@@ -1762,7 +2259,8 @@ def main() -> int:
                      "tiny_flash_attention_tpu/ops/flash_tri.py:658",
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
-         + train["launches"]["flash_fwd"], **flash_row},
+         + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"],
+         **flash_row},
         {"name": "flash_rowloop", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
@@ -1771,8 +2269,8 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"]
-         + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"],
-         **decode_row},
+         + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"]
+         + swa["launches"]["paged_decode_ring"], **decode_row},
         *bwd_kernels,
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
@@ -1782,13 +2280,25 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": run["launches"]["page_append"]
-         + qlaunch["page_append"] + ragged["launches"]["page_append"],
+         + qlaunch["page_append"] + ragged["launches"]["page_append"]
+         + swa["launches"]["page_append"],
          **append_rows[("int8", 128)]},
         {"name": "quant_matmul", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "tiny_flash_attention_tpu/ops/quant_matmul.py:84",
          "launches": qlaunch["quant_matmul"],
          **{k: v for k, v in qmm_rows["lm_head"].items() if k != "route_ms"}},
+        {"name": "flash_v1", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
+         "launches": surface["launches"]["flash_v1"],
+         **{k: v for k, v in v1_row.items() if k != "fa2_ms"}},
+        {"name": "paged_decode_separate", "route": "cuda",
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         "launches": surface["launches"]["paged_decode_separate"],
+         **b12_row},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)

@@ -11,7 +11,10 @@ here are the odd ones chip_smoke.py does not reach: ragged tiles, head_dim
 64, every supported GQA group, f32, length 0 and sliced page tables, int8
 pages of each geometry, the append in both formats, the quantized matmul at
 1 to 16 rows, ragged N and K, fp8 weights, segment ids with boundaries off
-the tile edges, and jagged lengths around a tile.
+the tile edges, jagged lengths around a tile, the FA1 kernel, the
+separate-array decode in both formats, the sliding window (1, off the
+tiles, wider than the sequence) and the decode's ring mode over wrapped
+tables.
 """
 
 import pytest
@@ -23,6 +26,10 @@ from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd, flash_attention_bwd_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
     flash_attention_rowloop, flash_attention_rowloop_plain)
+from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+    flash_attention_v1, flash_attention_v1_plain)
+from tiny_flash_attention_tpu_torch.ops.paged import (
+    paged_decode_attention, paged_decode_plain)
 from tiny_flash_attention_tpu_torch.ops import quant as Q
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention, fused_paged_decode_plain,
@@ -134,8 +141,10 @@ def test_decode_loop_never_syncs_with_the_host(gen, greedy):
 
 def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, causal=True, window=16)
+    qg = q.clone().requires_grad_()
+    out = flash_attention(qg, qg, qg, causal=True, window=16)
+    with pytest.raises(NotImplementedError, match="window"):
+        out.float().sum().backward()          # the windowed backward
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
     with pytest.raises(NotImplementedError):
@@ -234,8 +243,10 @@ def test_backward_through_segment_ids_raises(gen):
     out = flash_attention(q, q, q, segment_ids=(seg, seg))
     with pytest.raises(NotImplementedError, match="segment"):
         out.float().sum().backward()
-    with pytest.raises(NotImplementedError, match="window"):
-        flash_attention_rowloop(q, q, q, causal=True, window=16)
+    out = flash_attention(q, q, q, causal=True, window=16,
+                          segment_ids=(seg, seg))
+    with pytest.raises(NotImplementedError):
+        out.float().sum().backward()
 
 
 # The backward kernels repeat their plain version's rounding points, so the
@@ -404,3 +415,152 @@ def test_quantized_matmul_routes_by_rows(gen):
         assert quantized_matmul_cuda.launches == before + launched
         want = quantized_matmul_plain(x, qw)
         assert _err(got, want) <= _qmm_gate(want)
+
+
+@pytest.mark.parametrize("b,h,q_len,kv_len,d,causal,dtype", [
+    (1, 2, 64, 64, 128, True, torch.bfloat16),
+    (2, 3, 300, 260, 128, True, torch.bfloat16),      # padded kv
+    (1, 2, 100, 333, 64, True, torch.bfloat16),       # the decode offset
+    (1, 2, 300, 100, 128, True, torch.bfloat16),      # tiles no kv reaches
+    (1, 2, 700, 700, 64, False, torch.bfloat16),
+    (1, 2, 130, 130, 128, True, torch.float32),
+    (1, 2, 200, 70, 64, True, torch.float32),
+    (1, 2, 65, 97, 64, False, torch.float32),
+])
+def test_v1_kernel_matches_plain(gen, b, h, q_len, kv_len, d, causal, dtype):
+    """The FA1 kernel against its plain version; rows that see no column
+    are 0 with the sentinel LSE in both."""
+    q = _randn((b, h, q_len, d), dtype, gen)
+    k = _randn((b, h, kv_len, d), dtype, gen)
+    v = _randn((b, h, kv_len, d), dtype, gen)
+    before = flash_attention_v1.launches
+    out, lse = flash_attention_v1(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention_v1.launches == before + 1
+    ref, ref_lse = flash_attention_v1_plain(q, k, v, causal=causal,
+                                            sm_scale=d ** -0.5)
+    atol = tolerance_for(dtype)
+    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    if causal and q_len > kv_len:
+        assert bool((out[:, :, :q_len - kv_len] == 0).all())
+
+
+@pytest.mark.parametrize("fmt,group,d,ps", [
+    ("bf16", 1, 64, 16), ("bf16", 4, 128, 128), ("bf16", 8, 64, 64),
+    ("f32", 2, 128, 16), ("f32", 4, 64, 128),
+    ("int8 bf16", 1, 64, 128), ("int8 bf16", 4, 128, 128),
+    ("int8 bf16", 8, 128, 256), ("int8 f32", 2, 64, 128),
+    ("int8 f32", 4, 128, 256)])
+def test_separate_decode_kernel_matches_plain(gen, fmt, group, d, ps):
+    """Separate K/V page arrays (int8 pages with f32 scale pages, at page
+    sizes that are multiples of 128 as JAX requires), lengths 0, 1, a page
+    edge, the full table and past it, a column slice of the table."""
+    B, hkv, P = 5, 2, 4
+    num_pages = B * P + 3
+    dtype = torch.float32 if fmt.endswith("f32") else torch.bfloat16
+    q = _randn((B, hkv * group, d), dtype, gen)
+    k = _randn((hkv, num_pages, ps, d), dtype, gen)
+    v = _randn((hkv, num_pages, ps, d), dtype, gen)
+    if fmt.startswith("int8"):
+        k, v = Q.quantize_int8(k, axis=-1), Q.quantize_int8(v, axis=-1)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1, ps, P * ps, 10**6], dtype=torch.int32,
+                           device="cuda")
+    before = paged_decode_attention.launches
+    for tab in (table, table[:, :3]):
+        out, lse = paged_decode_attention(q, k, v, lengths, tab)
+        torch.cuda.synchronize()
+        ref, ref_lse = paged_decode_plain(q, k, v, lengths, tab,
+                                          sm_scale=d ** -0.5)
+        assert _err(out, ref) <= tolerance_for(dtype)
+        assert _err(lse, ref_lse) <= tolerance_for(dtype)
+        assert bool((out[0] == 0).all())
+    assert paged_decode_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("b,hq,hkv,q_len,kv_len,d,window,dtype", [
+    (1, 4, 2, 300, 300, 128, 1, torch.bfloat16),
+    (2, 8, 2, 700, 700, 128, 100, torch.bfloat16),
+    (1, 4, 2, 100, 333, 64, 64, torch.bfloat16),       # the decode offset
+    (1, 4, 2, 200, 200, 128, 1000, torch.bfloat16),    # wider than the row
+    (1, 2, 2, 1, 500, 128, 129, torch.bfloat16),       # one decode row
+    (1, 4, 2, 130, 130, 128, 37, torch.float32),
+    (1, 4, 2, 200, 70, 64, 20, torch.float32),         # empty leading rows
+    (1, 8, 1, 333, 333, 64, 64, torch.float32),
+])
+def test_window_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
+                                     window, dtype):
+    """The window in the forward kernel (and the row loop's non-jagged
+    entry) against the plain version; a window at least kv_len is plain
+    causal."""
+    q = _randn((b, hq, q_len, d), dtype, gen)
+    k = _randn((b, hkv, kv_len, d), dtype, gen)
+    v = _randn((b, hkv, kv_len, d), dtype, gen)
+    before = flash_attention.window_launches
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.window_launches == before + 1
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=True,
+                                         sm_scale=d ** -0.5, window=window,
+                                         return_lse=True)
+    atol = tolerance_for(dtype)
+    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    row = flash_attention_rowloop(q, k, v, causal=True, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(row, (out, lse)))
+    if window >= kv_len:
+        plain = flash_attention(q, k, v, causal=True, return_lse=True)
+        assert all(torch.equal(x, y) for x, y in zip(plain, (out, lse)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_window_with_segments_kernel_matches_plain(gen, dtype):
+    q = _randn((2, 8, 300, 128), dtype, gen)
+    k = _randn((2, 2, 300, 128), dtype, gen)
+    v = _randn((2, 2, 300, 128), dtype, gen)
+    seg = _segment_ids(2, 300, (37, 100, 250), gen)
+    out, lse = flash_attention(q, k, v, causal=True, window=50,
+                               segment_ids=(seg, seg), return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(
+        q, k, v, causal=True, sm_scale=128 ** -0.5, window=50,
+        segment_ids=(seg, seg), return_lse=True)
+    atol = tolerance_for(dtype)
+    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    pruned = flash_attention(q, k, v, causal=True, window=50,
+                             segment_ids=(seg, seg),
+                             segment_starts=(0, 37, 100, 250),
+                             return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(pruned, (out, lse)))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("group,ps", [(1, 16), (4, 64)])
+@pytest.mark.parametrize("window", [1, 35, "full"])
+def test_ring_decode_kernel_matches_plain(gen, fmt, group, ps, window):
+    """The ring mode over a random table: lengths 1, inside the table, past
+    it once and three times; a window of 1, one across a page edge and the
+    ring's whole capacity."""
+    B, hkv, d, P = 5, 2, 128, 4
+    num_pages = B * P + 3
+    window = P * ps if window == "full" else window
+    dtype = torch.float32 if fmt == "f32" else torch.bfloat16
+    q = _randn((B, hkv * group, d), dtype, gen)
+    pages = pack_paged_cache(_randn((hkv, num_pages, ps, d), dtype, gen),
+                             _randn((hkv, num_pages, ps, d), dtype, gen),
+                             "int8" if fmt == "int8" else "bf16")
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, 40, P * ps + 9, 3 * P * ps + 30, 1000],
+                           dtype=torch.int32, device="cuda")
+    before = fused_paged_decode_attention.ring_launches
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    assert fused_paged_decode_attention.ring_launches == before + 1
+    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                            page_size=ps, sm_scale=d ** -0.5,
+                                            window=window)
+    assert _err(out, ref) <= tolerance_for(dtype)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype)

@@ -3,6 +3,7 @@ entry points run on the card unless the caller asks for the CPU, and the
 plain versions taken on the CPU never count as kernel launches."""
 
 import ast
+import dataclasses
 import pathlib
 
 import pytest
@@ -18,6 +19,8 @@ from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
     flash_attention_rowloop)
+from tiny_flash_attention_tpu_torch.ops.flash_v1 import flash_attention_v1
+from tiny_flash_attention_tpu_torch.ops.paged import paged_decode_attention
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention)
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
@@ -50,8 +53,9 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_are_found():
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "page_append",
-                                "paged_decode", "quant_matmul"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_v1",
+                                "page_append", "paged_decode",
+                                "paged_decode_separate", "quant_matmul"]
 
 
 SMALL = TT.ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_q_heads=2,
@@ -87,10 +91,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_cpu_calls_launch_no_kernel():
     counters = [flash_attention, flash_attention_bwd,
                 flash_attention_rowloop, fused_paged_decode_attention,
-                fused_page_append, quantized_matmul_cuda]
+                fused_page_append, quantized_matmul_cuda, flash_attention_v1,
+                paged_decode_attention]
+    extra = [(fused_paged_decode_attention, "int8_launches"),
+             (fused_paged_decode_attention, "ring_launches"),
+             (flash_attention, "window_launches")]
     for fn in counters:
         fn.launches = 0
-    fused_paged_decode_attention.int8_launches = 0
+    for fn, name in extra:
+        setattr(fn, name, 0)
     params = TT.init_params(SMALL, torch.Generator().manual_seed(0),
                             device="cpu")
     for p, fmt in ((params, "bf16"), (TT.quantize_params(params), "int8")):
@@ -106,12 +115,23 @@ def test_cpu_calls_launch_no_kernel():
         getattr(eng, admit)([Request(list(range(5)), 3),
                              Request(list(range(20)), 3)])
         eng.steps(2)
+    # the windowed model: windowed prefill, ring decode past the capacity
+    windowed = dataclasses.replace(SMALL, attn_window=16)
+    eng = InferenceEngine(windowed, params, num_pages=8, page_size=16,
+                          max_seqs=2, pages_per_seq=3, device="cpu")
+    out = eng.generate([list(range(5)), list(range(30))], max_new_tokens=30,
+                       chunk=8)
+    assert [len(o) for o in out] == [30, 30]
     TE.embed_texts(SMALL, params, torch.zeros((2, 24), dtype=torch.int32),
                    torch.tensor([24, 9]))
+    x = torch.zeros((1, 2, 8, 64))
+    flash_attention_v1(x, x, x, causal=True)
+    paged_decode_attention(x[:, :, 0], x, x, torch.ones(1, dtype=torch.int32),
+                           torch.zeros((1, 1), dtype=torch.int32))
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     flash_attention(q, q, q, causal=True).sum().backward()
     step, init = make_train_step(SMALL, device="cpu")
     step(*init(params), torch.randint(0, 64, (2, 16)))
     assert [fn.launches for fn in counters] == [0] * len(counters)
-    assert fused_paged_decode_attention.int8_launches == 0
+    assert [getattr(fn, name) for fn, name in extra] == [0] * len(extra)
 

@@ -103,21 +103,57 @@ def test_decode_column_slice_and_clamp():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("group", [1, 4])
+def test_ring_decode_matches_jax_kernel(dtype, group):
+    """The ring mode (window) against JAX's in interpret mode: lengths 1, a
+    window band across a page edge, a ring wrapped once and one wrapped
+    three times, over a random page permutation."""
+    rng = np.random.default_rng(3)
+    B, hkv, d, ps, P, NP = 4, 2, 64, 16, 4, 20
+    hq = hkv * group
+    q, jq = _both(rng.standard_normal((B, hq, d)).astype(np.float32), dtype)
+    pages, jpages = _both(
+        rng.standard_normal((hkv, NP, 2 * ps, d)).astype(np.float32), dtype)
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    lengths = np.array([1, 41, P * ps + 9, 3 * P * ps + 30], np.int32)
+    out, lse = tpf.fused_paged_decode_attention(
+        q, pages, torch.from_numpy(lengths), torch.from_numpy(table),
+        page_size=ps, window=35)
+    jout, jlse = jpf.fused_paged_decode_attention(
+        jq, jpages, jnp.asarray(lengths), jnp.asarray(table), page_size=ps,
+        window=35)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)),
+                               atol=tolerance_for(dtype), rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
+                               atol=tolerance_for(dtype), rtol=1e-5)
+
+
 def test_decode_rejects_what_is_not_ported():
+    """Bad page geometry and a window past the ring's capacity raise; a
+    window inside it is the ring mode, over int8 and bf16 pages alike, and
+    agrees with JAX's."""
     q = torch.zeros((1, 2, 64))
     pages = torch.zeros((1, 4, 2 * 16 + 8, 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="window"):
-        tpf.fused_paged_decode_attention(
-            q, pages, torch.ones(1, dtype=torch.int32),
-            torch.zeros((1, 2), dtype=torch.int32), page_size=16, window=8)
+    lengths = torch.ones(1, dtype=torch.int32)
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    for p in (pages, torch.zeros((1, 4, 32, 64))):
+        out, lse = tpf.fused_paged_decode_attention(
+            q, p, lengths, table, page_size=16, window=8)
+        jout, jlse = jpf.fused_paged_decode_attention(
+            jnp.asarray(q.numpy()), jnp.asarray(p.numpy()),
+            jnp.asarray(lengths.numpy()), jnp.asarray(table.numpy()),
+            page_size=16, window=8)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=0)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-6)
+        with pytest.raises(ValueError, match="window"):
+            tpf.fused_paged_decode_attention(q, p, lengths, table,
+                                             page_size=16, window=33)
     with pytest.raises(ValueError, match="int8 pages"):
         tpf.fused_paged_decode_attention(
             q, pages[:, :, :36], torch.ones(1, dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), page_size=16)
-    with pytest.raises(NotImplementedError, match="window"):
-        tpf.fused_paged_decode_attention(
-            q, torch.zeros((1, 4, 32, 64)), torch.ones(1, dtype=torch.int32),
-            torch.zeros((1, 2), dtype=torch.int32), page_size=16, window=8)
     with pytest.raises(ValueError, match="page_size"):
         tpf.fused_paged_decode_attention(
             q, torch.zeros((1, 4, 24, 64)), torch.ones(1, dtype=torch.int32),

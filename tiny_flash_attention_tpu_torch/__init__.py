@@ -8,22 +8,41 @@ CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
 
 Layer map (counterparts in the JAX package):
-  ops.reference    -- mha_reference oracle (ops/reference.py)
-  ops.flash        -- flash_attention forward (segment ids, segment_starts)
-                      -> csrc/flash_fwd.cu
+  ops.reference    -- the oracle ladder: naive, safe, online, the FA1 and
+                      FA2 references, mha_reference (ops/reference.py)
+  ops.flash        -- flash_attention forward (window, segment ids,
+                      segment_starts) -> csrc/flash_fwd.cu
+  ops.flash_v1     -- the FA1 loop-order forward -> csrc/flash_v1.cu
   ops.flash_rowloop -- row-loop forward with jagged lengths -> the jagged
                       mode of csrc/flash_fwd.cu
   ops.flash_bwd    -- flash_attention backward -> csrc/flash_bwd.cu
-  ops.paged_fused  -- fused pages (bf16, int8): decode attention ->
-                      csrc/paged_decode.cu, token append -> csrc/page_append.cu
+  ops.paged        -- decode over separate K/V page arrays (bf16, int8) ->
+                      csrc/paged_decode_separate.cu
+  ops.paged_fused  -- fused pages (bf16, int8): decode attention and its
+                      ring mode -> csrc/paged_decode.cu, token append ->
+                      csrc/page_append.cu
   ops.quant        -- int8/fp8 quantizers, QuantizedTensor, quantized_matmul
   ops.quant_matmul -- weight-only quantized matmul -> csrc/quant_matmul.cu
   ops.configs      -- the kernels' tile sizes
-  models           -- GQA decoder and its loss, paged KV cache, inference
-                      paths (batched, packed, jagged prefill), engine, the
-                      bidirectional encoder
+  models           -- GQA decoder (optionally sliding-window) and its loss,
+                      paged KV cache, inference paths (batched, packed,
+                      jagged prefill), engine (with the windowed ring
+                      cache), the bidirectional encoder
   parallel         -- the single-card train step and its checkpoints
   utils            -- tolerances, device choice, CUDA-event timing
 """
 
 __version__ = "0.1.0"
+
+from tiny_flash_attention_tpu_torch.ops.reference import (  # noqa: E402
+    attention_naive,
+    attention_safe,
+    attention_online,
+    flash_attention_v1_ref,
+    flash_attention_v2_ref,
+    mha_reference,
+)
+from tiny_flash_attention_tpu_torch.ops.flash import (  # noqa: E402
+    flash_attention)
+from tiny_flash_attention_tpu_torch.ops.flash_v1 import (  # noqa: E402
+    flash_attention_v1)

@@ -16,7 +16,7 @@
 // out like q and a natural-log LSE (B, hq, Sq) in f32. The mask value is
 // -0.7 * FLT_MAX, never -inf; a row with no visible column gets output 0 and
 // LSE m * ln2 (the TPU kernels' empty-row guard and sentinel). Optional
-// inputs (FwdMasks, each off when null):
+// inputs (FwdMasks, each off when null; the window, off when 0):
 //   * segment ids q_seg (B, Sq), kv_seg (B, Skv): only equal ids attend. Ids
 //     are runtime values, so with them every tile pays the mask (JAX's
 //     any_masked = ... or with_segments); the KV ids of a tile ride the
@@ -28,6 +28,15 @@
 //   * tile_order (n q tiles): the q tile each blockIdx.x takes. The host
 //     knows the pruned work of every tile (the starts are static), so it
 //     hands the grid out longest work first.
+//   * window (> 0, causal): the sliding window; the row at position p sees
+//     columns [p - window + 1, p]. A q tile's kv loop starts at the tile of
+//     its first row's left edge (with every q tile doing about the same
+//     work, the reversed grid order below is harmless), and only tiles that
+//     straddle the band's left edge pay the extra compare. It composes with
+//     the decode offset, segment ids and tile_lo; not with seq_lens. Whether
+//     there is a window is a template parameter, so a launch without one
+//     pays no test of it (a runtime test cost such launches 6-16 % on the
+//     H100, most where every tile is masked).
 //   * seq_lens (B): the jagged mode (q_len == kv_len, causal). Row b's
 //     columns and rows at or past L = seq_lens[b] are out: the kv walk clamps
 //     to min(last row, L - 1), columns >= L are masked, rows >= L are empty
@@ -79,6 +88,15 @@ struct FwdMasks {
   const int* seq_lens;    // (B) jagged lengths, q_len == kv_len
 };
 
+// The first kv tile of a windowed q tile whose first row sits at position
+// `pos`: `lo`, or the tile of the row's window edge where that is later;
+// never past the last tile hi - 1.
+__device__ __forceinline__ int window_lo(int lo, int hi, int pos, int window,
+                                         int bn) {
+  const int left = pos - window + 1;
+  return left > 0 ? max(lo, min(left / bn, hi - 1)) : lo;
+}
+
 // Rows [q0, q0 + rows) as empty rows: out 0, LSE the sentinel m * ln2 of a
 // row whose running max stayed at the mask value. Zero is all-zero bits in
 // bf16 and f32, and a row of D = 64 or 128 elements is whole 16-byte stores.
@@ -102,7 +120,7 @@ constexpr int PAD = 8;  // bf16 per smem row: rows land 16 bytes apart in banks
 static_assert(BM == WARPS * 16, "each warp owns 16 q rows");
 static_assert(BN % 16 == 0, "kv tile is a multiple of the mma depth");
 
-template <int D>
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -110,7 +128,7 @@ __global__ void __launch_bounds__(THREADS)
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, FwdMasks mk, int hq,
                           int hkv, int q_len, int kv_len, int causal,
-                          float scale_log2) {
+                          float scale_log2, int window) {
   constexpr int LD = D + PAD;
   constexpr int CH = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -142,7 +160,8 @@ __global__ void __launch_bounds__(THREADS)
   }
   const int hi = min(kv_tiles(q0, BM, q_len, kv_len, causal, BN),
                      (col_end + BN - 1) / BN);
-  const int lo = mk.tile_lo ? max(0, min(mk.tile_lo[qt], hi - 1)) : 0;
+  int lo = mk.tile_lo ? max(0, min(mk.tile_lo[qt], hi - 1)) : 0;
+  if (WINDOW) lo = window_lo(lo, hi, q0 + offset, window, BN);
   // every tile pays the mask with ids, and in a jagged tile that holds rows
   // past L
   const bool mask_all = segs || (mk.seq_lens && q0 + BM > row_end);
@@ -204,6 +223,9 @@ __global__ void __launch_bounds__(THREADS)
   // this thread's rows: qrow (accumulator slots 0,1) and qrow + 8 (slots 2,3)
   const int qrow = q0 + warp * 16 + lane / 4;
   const int warp_first_pos = q0 + warp * 16 + offset;
+  // a tile whose first column lies left of the window edge of the warp's
+  // last row pays the window compare
+  const int warp_left = warp_first_pos + 15 - window + 1;
   int qid[2] = {0, 0};  // this thread's rows' segment ids
   if (segs) {
 #pragma unroll
@@ -242,7 +264,8 @@ __global__ void __launch_bounds__(THREADS)
 
     const int kv0 = j * BN;
     const bool need_mask = mask_all || kv0 + BN > col_end ||
-                           (causal && kv0 + BN - 1 > warp_first_pos);
+                           (causal && kv0 + BN - 1 > warp_first_pos) ||
+                           (WINDOW && kv0 < warp_left);
     if (need_mask) {
       const int* tile_ids = kid + buf * BN;
 #pragma unroll
@@ -256,6 +279,7 @@ __global__ void __launch_bounds__(THREADS)
           const int row = qrow + (i >> 1) * 8;
           const bool ok = col < col_end && row < row_end &&
                           (!causal || col <= row + offset) &&
+                          (!WINDOW || col > row + offset - window) &&
                           (!segs || qid[i >> 1] == ((i & 1) ? kv_id.y : kv_id.x));
           if (!ok) s[nt][i] = kMaskValue;
         }
@@ -343,20 +367,23 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         void* lse, const FwdMasks& mk, int batch, int hq,
                         int hkv, int q_len, int kv_len, int causal,
-                        float scale_log2, cudaStream_t stream) {
+                        int window, float scale_log2, cudaStream_t stream) {
   const int smem = 5 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16) +
                    2 * BN * (int)sizeof(int);
   static_assert(BM == BN, "smem size assumes equal q and kv tiles");
-  static bool smem_set[kMaxDevices] = {};
-  cudaError_t err = raise_smem_limit(flash_fwd_bf16_kernel<D>, smem, smem_set);
+  const bool windowed = window > 0;
+  const auto kernel = windowed ? flash_fwd_bf16_kernel<D, true>
+                               : flash_fwd_bf16_kernel<D, false>;
+  static bool smem_set[2][kMaxDevices] = {};
+  cudaError_t err = raise_smem_limit(kernel, smem, smem_set[windowed]);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BM - 1) / BM, hq, batch);
-  flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, causal,
-      scale_log2);
+      scale_log2, window);
   return cudaGetLastError();
 }
 
@@ -369,14 +396,14 @@ constexpr int FTHREADS = TFA_FWD_F32_THREADS;
 static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
               "the f32 thread map is 16 x 16 threads over a 64 x 64 tile");
 
-template <int D>
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(FTHREADS)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, FwdMasks mk, int hq,
                          int hkv, int q_len, int kv_len, int causal,
-                         float scale_log2) {
+                         float scale_log2, int window) {
   constexpr int PS = FN + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qt = reinterpret_cast<float*>(smem_raw);  // [D][FM], q^T, scaled
@@ -407,7 +434,8 @@ __global__ void __launch_bounds__(FTHREADS)
   }
   const int hi = min(kv_tiles(q0, FM, q_len, kv_len, causal, FN),
                      (col_end + FN - 1) / FN);
-  const int lo = mk.tile_lo ? max(0, min(mk.tile_lo[q0 / FM], hi - 1)) : 0;
+  int lo = mk.tile_lo ? max(0, min(mk.tile_lo[q0 / FM], hi - 1)) : 0;
+  if (WINDOW) lo = window_lo(lo, hi, q0 + offset, window, FN);
   const bool mask_all = segs || (mk.seq_lens && q0 + FM > row_end);
   const int* kv_ids = segs ? mk.kv_seg + (size_t)b * kv_len : nullptr;
   int qid[4] = {0, 0, 0, 0};
@@ -482,7 +510,8 @@ __global__ void __launch_bounds__(FTHREADS)
     }
 
     if (mask_all || kv0 + FN > col_end ||
-        (causal && kv0 + FN - 1 > q0 + offset)) {
+        (causal && kv0 + FN - 1 > q0 + offset) ||
+        (WINDOW && kv0 < q0 + FM + offset - window)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -490,6 +519,7 @@ __global__ void __launch_bounds__(FTHREADS)
           const int col = kv0 + cg + 16 * j, row = q0 + rg * 4 + i;
           const bool ok = col < col_end && row < row_end &&
                           (!causal || col <= row + offset) &&
+                          (!WINDOW || col > row + offset - window) &&
                           (!segs || qid[i] == kid[cg + 16 * j]);
           if (!ok) s[i][j] = kMaskValue;
         }
@@ -553,19 +583,22 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, const FwdMasks& mk, int batch, int hq,
                        int hkv, int q_len, int kv_len, int causal,
-                       float scale_log2, cudaStream_t stream) {
+                       int window, float scale_log2, cudaStream_t stream) {
   const int smem =
       (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float) +
       FN * (int)sizeof(int);
-  static bool smem_set[kMaxDevices] = {};
-  cudaError_t err = raise_smem_limit(flash_fwd_f32_kernel<D>, smem, smem_set);
+  const bool windowed = window > 0;
+  const auto kernel = windowed ? flash_fwd_f32_kernel<D, true>
+                               : flash_fwd_f32_kernel<D, false>;
+  static bool smem_set[2][kMaxDevices] = {};
+  cudaError_t err = raise_smem_limit(kernel, smem, smem_set[windowed]);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + FM - 1) / FM, hq, batch);
-  flash_fwd_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
+  kernel<<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, causal,
-      scale_log2);
+      scale_log2, window);
   return cudaGetLastError();
 }
 
@@ -574,7 +607,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // Returns a cudaError_t: 0 when the kernel was launched. dtype: 0 bf16,
 // 1 f32. head_dim: 64 or 128. q_seg, kv_seg, tile_lo, tile_order and
 // seq_lens may each be null (FwdMasks); tile_lo and tile_order hold one
-// int per q tile of this dtype's block_m. The caller has checked shapes,
+// int per q tile of this dtype's block_m. window: 0 for none, else >= 1
+// with causal and without seq_lens. The caller has checked shapes,
 // contiguity and 16-byte alignment.
 extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* q_seg,
@@ -582,9 +616,11 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                              const void* tile_order, const void* seq_lens,
                              int batch, int hq, int hkv, int q_len,
                              int kv_len, int head_dim, int causal,
-                             float scale_log2, int dtype, void* stream) {
+                             int window, float scale_log2, int dtype,
+                             void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
-      kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr))
+      kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
+      window < 0 || (window > 0 && (!causal || seq_lens != nullptr)))
     return (int)cudaErrorInvalidValue;
   const FwdMasks mk{static_cast<const int*>(q_seg),
                     static_cast<const int*>(kv_seg),
@@ -594,15 +630,15 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
     return (int)launch_bf16<128>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
-                                 kv_len, causal, scale_log2, s);
+                                 kv_len, causal, window, scale_log2, s);
   if (dtype == 0 && head_dim == 64)
     return (int)launch_bf16<64>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
-                                kv_len, causal, scale_log2, s);
+                                kv_len, causal, window, scale_log2, s);
   if (dtype == 1 && head_dim == 128)
     return (int)launch_f32<128>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
-                                kv_len, causal, scale_log2, s);
+                                kv_len, causal, window, scale_log2, s);
   if (dtype == 1 && head_dim == 64)
     return (int)launch_f32<64>(q, k, v, o, lse, mk, batch, hq, hkv, q_len,
-                               kv_len, causal, scale_log2, s);
+                               kv_len, causal, window, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,8 +9,12 @@ the last two cost ~sum(L_i^2)/2 of attention where the first costs
 B * L_max^2 / 2. Every decode step advances ALL slots in one fixed-shape
 pass (inactive slots decode at position 0 against the reserved scratch page
 0 and are ignored), and finished sequences free their pages. The JAX
-engine's key splits become draws from one `torch.Generator`. The
-sliding-window ring cache is not ported yet.
+engine's key splits become draws from one `torch.Generator`. A
+sliding-window model (`ModelConfig(attn_window=w)`) gets the ring cache:
+each slot holds its full table width of pages, whose capacity
+pages_per_seq * page_size must cover w + 2 pages, and generation runs past
+that capacity while the decode attends the last w tokens (batched
+admission only).
 """
 
 from __future__ import annotations
@@ -117,8 +121,19 @@ class InferenceEngine:
 
         Prompts pad to the longest request's page-multiple bucket; right
         padding is harmless under the causal mask and cache writes slice
-        by true length.
+        by true length. A windowed model's slots are rings of the full
+        table width; a prompt must fit the ring.
         """
+        if self.cfg.attn_window is not None:
+            cap = self.cache.pages_per_seq * self.page_size
+            if self.cfg.attn_window + 2 * self.page_size > cap:
+                raise ValueError(
+                    f"ring capacity {cap} (pages_per_seq * page_size) must "
+                    f"cover the window {self.cfg.attn_window} + 2 pages")
+            for req in reqs:
+                if len(req.prompt) > cap:
+                    raise ValueError(f"prompt ({len(req.prompt)} tokens) "
+                                     f"exceeds the ring capacity {cap}")
         slots = self._alloc(reqs)
         toks = pad_prompts([r.prompt for r in reqs], self.page_size)
         rows, last, temps = self._sample_rows(
@@ -187,14 +202,17 @@ class InferenceEngine:
         return slots
 
     def _no_window(self, mode: str) -> None:
-        if getattr(self.cfg, "attn_window", None) is not None:
+        if self.cfg.attn_window is not None:
             raise ValueError(f"{mode} admission + windowed ring cache: use "
                              "add_requests")
 
     def _alloc(self, reqs: List[Request]) -> List[int]:
         slots = []
         for req in reqs:
-            slot = self.cache.alloc_slot(len(req.prompt) + req.max_new_tokens)
+            slot = self.cache.alloc_slot(
+                self.cache.pages_per_seq * self.page_size
+                if self.cfg.attn_window is not None
+                else len(req.prompt) + req.max_new_tokens)
             req.slot = slot
             self.requests[slot] = req
             slots.append(slot)
@@ -249,31 +267,37 @@ class InferenceEngine:
 
         Sequences that hit EOS mid-chunk stop being recorded, but their
         cache rows still advance (chunked-decode overrun; grow_slot
-        reserves for it). Returns {slot: [tokens...]} actually recorded.
+        reserves for it). Windowed slots hold their whole ring already:
+        they neither grow nor take a narrower table. Returns {slot:
+        [tokens...]} actually recorded.
         """
         active = [s for s, r in self.requests.items() if not r.done]
         if not active or n <= 0:
             return {}
-        # clamp to table capacity: a request whose prompt + max_new_tokens
-        # fills its page_table row is not grown past it; the decode write
-        # wraps overrun rows onto the slot's own pages
-        cap = self.cache.pages_per_seq * self.page_size
-        for slot in active:
-            self.cache.grow_slot(
-                slot, min(int(self.cache.lengths[slot]) + n, cap))
+        windowed = self.cfg.attn_window is not None
+        if not windowed:
+            # clamp to table capacity: a request whose prompt +
+            # max_new_tokens fills its page_table row is not grown past it;
+            # the decode write wraps overrun rows onto the slot's own pages
+            cap = self.cache.pages_per_seq * self.page_size
+            for slot in active:
+                self.cache.grow_slot(
+                    slot, min(int(self.cache.lengths[slot]) + n, cap))
 
         lengths = self.cache.lengths.copy()
         positions = self._tensor(np.where(lengths > 0, lengths, 0)
                                  .astype(np.int32))
         page_table, _ = self.cache.device_views()
-        # power-of-two bucket of the live table width: the decode kernel
-        # walks only the pages below each length, but the plain path and
-        # the table copy scale with the width. A column slice is a view.
-        need = int(np.max(np.where(lengths > 0, lengths, 0))) + n
-        pages_needed = -(-need // self.page_size)
-        bucket = 1 << max(0, (pages_needed - 1)).bit_length()
-        if bucket < self.cache.pages_per_seq:
-            page_table = page_table[:, :bucket]
+        if not windowed:
+            # power-of-two bucket of the live table width: the decode
+            # kernel walks only the pages below each length, but the plain
+            # path and the table copy scale with the width. A column slice
+            # is a view. A ring needs its whole width (true wrap).
+            need = int(np.max(np.where(lengths > 0, lengths, 0))) + n
+            pages_needed = -(-need // self.page_size)
+            bucket = 1 << max(0, (pages_needed - 1)).bit_length()
+            if bucket < self.cache.pages_per_seq:
+                page_table = page_table[:, :bucket]
         sampled = self._decode_chunk(positions, page_table, n).cpu().numpy()
 
         out: Dict[int, List[int]] = {s: [] for s in active}

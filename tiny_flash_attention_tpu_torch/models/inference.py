@@ -9,7 +9,10 @@ scan over steps a Python loop that keeps the sampled tokens on the device
 until the end. The decode step's append is the hand-written append kernel
 on the card (`_append_rows`), where the JAX engine runs an XLA scatter.
 The packed and jagged prefills make their kernel operands (segment ids and
-the tile table, the lengths) on the device once, before the layer loop.
+the tile table, the lengths) on the device once, before the layer loop. A
+sliding-window model (`cfg.attn_window`) prefills through the forward
+kernel's window and decodes through the ring mode of the decode kernel,
+whose lengths run past the table's capacity.
 """
 
 from __future__ import annotations
@@ -119,8 +122,13 @@ def _decode_core(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
     x = params["embed"][tokens.long()][:, None, :].to(cfg.dtype)  # (B,1,dm)
     # a chunked-decode overrun of a finished request can push positions
     # past the table's capacity: the WRITE wraps onto the slot's own pages
-    # (the tokens are discarded) and the attended length stops at the table
-    lengths = torch.clamp(positions + 1, max=width * ps).to(torch.int32)
+    # (the tokens are discarded) and the attended length stops at the
+    # table. A windowed model's table is a ring: its lengths are not
+    # clamped, and the decode attends the last window of them.
+    lengths = positions + 1
+    if cfg.attn_window is None:
+        lengths = torch.clamp(lengths, max=width * ps)
+    lengths = lengths.to(torch.int32)
     page_ids = torch.gather(page_table, 1,
                             ((positions // ps) % width)[:, None].long())[:, 0]
     rows = positions % ps
@@ -131,7 +139,8 @@ def _decode_core(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
         _append_rows(pages[li], k[:, :, 0], v[:, :, 0], page_ids, rows,
                      page_size=ps, fmt=fmt)
         o, _ = fused_paged_decode_attention(q[:, :, 0], pages[li], lengths,
-                                            page_table, page_size=ps)
+                                            page_table, page_size=ps,
+                                            window=cfg.attn_window)
         o = o.reshape(B, 1, cfg.n_q_heads * cfg.d_head).to(cfg.dtype)
         x = x + T._proj(o, layer["wo"])
         x = T.mlp_block(cfg, layer, x)

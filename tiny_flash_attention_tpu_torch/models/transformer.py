@@ -10,7 +10,10 @@ rms_norm rounds before the gamma multiply, RoPE and SiLU compute in f32.
 the trainer (parallel/train.py) can ask for its gradient.
 `quantize_params` makes the weight-only int8/fp8 variant: every projection
 becomes a QuantizedTensor (per-output-channel scales) and `_proj` sends it
-through `quantized_matmul`. The sliding window is not ported yet.
+through `quantized_matmul`. `attn_window` makes it a sliding-window
+(Mistral-style) model: attention sees the last `attn_window` positions, in
+the forward kernel's window mode; such a model serves on the card (the
+decode's ring mode), and its backward raises there.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     # "flash" (the forward kernel) | "reference" (plain mha_reference)
     attn_impl: str = "flash"
+    # optional sliding-window attention (Mistral-style); None = full causal
+    attn_window: Optional[int] = None
 
     @property
     def group(self) -> int:
@@ -181,8 +186,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def _attention(cfg: ModelConfig, q, k, v, *, causal: bool = True):
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal,
+                               window=cfg.attn_window)
     if cfg.attn_impl == "reference":
+        if cfg.attn_window is not None:
+            raise ValueError("a sliding window needs attn_impl='flash'")
         return mha_reference(q, k, v, causal=causal).to(q.dtype)
     raise ValueError(f"attn_impl {cfg.attn_impl!r}")
 

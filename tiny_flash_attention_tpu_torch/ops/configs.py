@@ -25,9 +25,16 @@ class TileConfig:
 FLASH_FWD_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
 # f32 forward on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile.
 FLASH_FWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
-# paged decode: one block per (kv head, sequence); warps split the sequence
-# into 32-token chunks.
+# paged decode (fused and separate pages): one block per (kv head,
+# sequence); warps split the sequence into 32-token chunks.
 PAGED_DECODE_WARPS = 8
+# FA1 forward (the teaching kernel): the forward's tiles (bf16: 4 warps x 16
+# q rows on mma.sync, K and V of one 64-row kv tile in 35 KB of shared
+# memory; f32: 16 x 16 threads over a 64 x 64 score tile); a block walks
+# FLASH_V1_Q_TILES q tiles of one head (interleaved) inside each kv step.
+FLASH_V1_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
+FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=256)
+FLASH_V1_Q_TILES = 4
 # bf16 backward, dq: a block of 4 warps x 16 q rows steps over 64-row kv tiles
 # (q, dout and two stages of K and V: 6 x 64 x 136 bf16 = 104 KB).
 FLASH_BWD_BF16_DQ = TileConfig(block_m=64, block_n=64, threads=128)
@@ -90,4 +97,7 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_QMM", QUANT_MATMUL),
         f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
+        *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
+        *_tile_defines("TFA_V1_F32", FLASH_V1_F32),
+        f"-DTFA_V1_Q_TILES={FLASH_V1_Q_TILES}",
     ]

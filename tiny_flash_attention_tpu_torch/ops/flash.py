@@ -5,17 +5,19 @@ three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
 csrc/flash_fwd.cu, ports all three. A CPU tensor takes the plain version
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
-the kernel at every shape, segment ids and `segment_starts` included, or
-raises for what the kernel does not do yet (sliding window, quantized K/V,
-head_dim other than 64 or 128). `segment_starts` become the kernel's tile
-table (`segment_tiles`): the first kv tile of each q tile, as JAX's
-`_build_worklist` prunes its work list to the block diagonal.
+the kernel at every shape, the sliding window, segment ids and
+`segment_starts` included, or raises for what the kernel does not do yet
+(quantized K/V, head_dim other than 64 or 128). `segment_starts` become the
+kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
+JAX's `_build_worklist` prunes its work list to the block diagonal; a window
+starts each q tile's kv range at its band, as JAX's work list holds only
+band tiles.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609). Its backward is
 ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
-CUDA and their plain version on the CPU; on CUDA it has no segment ids yet
-and raises when reached with them.
+CUDA and their plain version on the CPU; on CUDA it has no segment ids and
+no window yet and raises when reached with them.
 
 The JAX entry routes q_len, kv_len <= 512 to XLA; that cutoff was a v5e
 measurement, so the port has none until H100 numbers set one.
@@ -124,8 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flow through `_FlashAttention` (the backward kernels on CUDA, their
     plain version on the CPU). return_lse=True is forward-only, as in JAX
     (flash.py:704-707). On the CPU, window and segment ids take the plain
-    forward, which torch autograd differentiates. On CUDA a window raises;
-    segment ids run the forward kernel, and a backward through them raises.
+    forward, which torch autograd differentiates. On CUDA they run the
+    forward kernel, and a backward through either raises.
     """
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -154,13 +156,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        if window is not None:
-            raise NotImplementedError(
-                "the CUDA flash kernels (forward and backward) have no "
-                "sliding window yet")
-        masks = {}
+        masks = {} if window is None else {"window": window}
         if segment_ids is not None:
-            masks = dict(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
+            masks.update(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
                          kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
             if segment_starts is not None:
                 masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
@@ -177,7 +175,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  return_lse=return_lse)
 
 
-flash_attention.launches = 0   # kernel launches, counted by _flash_fwd_cuda
+# kernel launches, counted by _flash_fwd_cuda; window_launches those with a
+# sliding window
+flash_attention.launches = 0
+flash_attention.window_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -189,10 +190,12 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, sm_scale: float,
                 masks: Optional[dict] = None):
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-        ctx.segments = bool(masks)
+        masks = masks or {}
+        ctx.segments = "q_seg" in masks
+        ctx.window = masks.get("window")
         if q.is_cuda:
             out, lse = _flash_fwd_cuda(q, k, v, causal=causal,
-                                       sm_scale=sm_scale, **(masks or {}))
+                                       sm_scale=sm_scale, **masks)
         else:
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              sm_scale=sm_scale,
@@ -209,6 +212,10 @@ class _FlashAttention(torch.autograd.Function):
         if ctx.segments:
             raise NotImplementedError(
                 "the CUDA flash backward has no segment ids yet")
+        if ctx.window is not None:
+            raise NotImplementedError(
+                "the CUDA flash backward has no sliding window yet: a "
+                "windowed model does not train on the card")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
@@ -296,7 +303,7 @@ def _tiles_for(segment_starts, q_len: int, causal: bool,
 def _flash_fwd_fn():
     fn = _build.library("flash_fwd").tfa_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -307,15 +314,18 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
     lse)."""
     out = launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale, **masks)
     flash_attention.launches += 1
+    if masks.get("window") is not None:
+        flash_attention.window_launches += 1
     return out
 
 
 def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
                kv_seg=None, tiles: Optional[SegmentTiles] = None,
-               seq_lengths=None):
+               seq_lengths=None, window: Optional[int] = None):
     """One launch of csrc/flash_fwd.cu, counted by the caller; returns (out,
     lse). q_seg/kv_seg, tiles and seq_lengths (int32 on q's device) turn on
-    the kernel's segment mask, its pruned kv ranges and its jagged mode."""
+    the kernel's segment mask, its pruned kv ranges and its jagged mode;
+    window (causal, no seq_lengths) its sliding window."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
@@ -345,7 +355,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *(None if t is None else t.data_ptr()
                               for t in extras),
-            bs, hq, hkv, q_len, kv_len, d, int(causal), scale_log2,
+            bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
+            scale_log2,
             _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_fwd")
     return out, lse

@@ -8,8 +8,9 @@ walks its KV range in a loop already, so the port is the jagged mode of
 csrc/flash_fwd.cu (one more bound on that loop, the `seq_lens` operand),
 launched and counted here as a kernel of its own.
 
-On CUDA the kernel runs, or the call raises (sliding window). On the CPU
-the plain version, `flash_attention_rowloop_plain`, runs. The TPU tuning
+On CUDA the kernel runs, its sliding window included (without
+`seq_lengths`: JAX's jagged mode takes no window either). On the CPU the
+plain version, `flash_attention_rowloop_plain`, runs. The TPU tuning
 arguments (`config`, `chunk`, `unroll`, `single_loop`, `interpret`) have no
 meaning on Hopper and are not taken.
 
@@ -56,14 +57,11 @@ def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("seq_lengths = jagged causal prefill (q_len == "
                          "kv_len, no window)")
     if q.is_cuda:
-        if window is not None:
-            raise NotImplementedError("the CUDA row-loop kernel has no "
-                                      "sliding window yet")
         lens = None
         if seq_lengths is not None:
             lens = F.as_int32(seq_lengths, (bs,), q)
         out = F.launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                           seq_lengths=lens)
+                           seq_lengths=lens, window=window)
         flash_attention_rowloop.launches += 1
         return out
     if q.device.type != "cpu":

@@ -15,8 +15,8 @@ dtype (bf16 or f32). `fused_paged_decode_attention` attends one new token
 per sequence through a page table; `fused_page_append` writes one token per
 (kv head, sequence) in place (quantized for int8 pages). A CPU tensor takes
 the plain version, a CUDA tensor launches csrc/paged_decode.cu (ports
-`_fused_decode_kernel`) or csrc/page_append.cu (ports `_append_kernel`)
-or raises. The sliding-window ring mode of the decode is not ported yet.
+`_fused_decode_kernel`, its sliding-window ring mode included) or
+csrc/page_append.cu (ports `_append_kernel`) or raises.
 """
 
 from __future__ import annotations
@@ -255,91 +255,130 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
 
     q: (batch, q_heads, d). fused_pages: (kv_heads, num_pages, rows, d),
     rows = 2*page_size for pages of q's dtype, 2*page_size + 2*sr for int8
-    pages. lengths: (batch,) int32, the tokens each sequence attends
-    (clamped to the table width page_indices.shape[1] * page_size).
+    pages. lengths: (batch,) int32, the tokens each sequence holds.
     page_indices: (batch, pages_per_seq) int32; a column slice of a wider
-    table is fine. window (the JAX ring mode) is not ported yet and raises.
+    table is fine. Without a window each sequence attends its first
+    min(length, pages_per_seq * page_size) tokens. With `window` (the JAX
+    ring mode) it attends [length - window, length), length unclamped, and
+    token t lies on the table's page (t // page_size) % pages_per_seq: the
+    table is a ring, and window <= pages_per_seq * page_size.
     Returns (out (batch, q_heads, d), lse (batch, q_heads) f32).
     """
     batch, hq, d = q.shape
     hkv, num_pages, rows, d2 = fused_pages.shape
-    if window is not None:
-        raise NotImplementedError("the sliding-window ring mode of the "
-                                  "decode is not ported yet")
     fmt = "int8" if fused_pages.dtype == torch.int8 else "bf16"
     if rows != page_rows(page_size, d, fmt) or d2 != d:
         raise ValueError(f"pages {tuple(fused_pages.shape)} do not hold "
                          f"{fmt} pages of page_size {page_size} and d {d}")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    _check_window(window, page_indices.shape[1] * page_size)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
         return _decode_cuda(q, fused_pages, lengths, page_indices,
-                            page_size=page_size, sm_scale=sm_scale)
+                            page_size=page_size, sm_scale=sm_scale,
+                            window=window)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return fused_paged_decode_plain(q, fused_pages, lengths, page_indices,
-                                    page_size=page_size, sm_scale=sm_scale)
+                                    page_size=page_size, sm_scale=sm_scale,
+                                    window=window)
 
 
-# counted by _decode_cuda: launches over pages of q's dtype, int8_launches
-# over int8 pages
+# counted by _decode_cuda: launches without a window over pages of q's
+# dtype, int8_launches over int8 pages, ring_launches with a window (either
+# format)
 fused_paged_decode_attention.launches = 0
 fused_paged_decode_attention.int8_launches = 0
+fused_paged_decode_attention.ring_launches = 0
 
 
-def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
-                             page_size: int, sm_scale: float):
-    """Plain PyTorch version with the kernel's arithmetic: q scaled by
-    sm_scale*log2(e) in the input dtype, log2-domain softmax, the mask
-    value and empty-row guard, p cast to the input dtype before the PV
-    product. Over int8 pages (paged_fused.py:389-436 of the JAX package):
-    the payload converted exactly, the f32 scores times the K scales, l
-    summed over the unscaled p, and p times the V scales in f32 cast to
-    the input dtype before the PV product. Runs on any device; gathers
-    every page of the table."""
-    batch, hq, d = q.shape
-    hkv = fused_pages.shape[0]
-    group = hq // hkv
-    ps = page_size
-    P = page_indices.shape[1]
-    c = in_dtype(sm_scale * LOG2E, q.dtype)
-    qs = (q.float() * c).to(q.dtype).float().reshape(batch, hkv, group, d)
-    g = fused_pages[:, page_indices.long()]            # (hkv, B, P, rows, d)
-    quantized = fused_pages.dtype == torch.int8
-    if quantized:
-        kp, vp, ksc, vsc = unpack_int8_pages(g, ps)
-        ksc = ksc.reshape(hkv, batch, 1, P * ps).transpose(0, 1)
-        vsc = vsc.reshape(hkv, batch, 1, P * ps).transpose(0, 1)
+def _check_window(window: Optional[int], capacity: int) -> None:
+    if window is not None and not 1 <= window <= capacity:
+        raise ValueError(f"window {window} outside [1, {capacity}], the "
+                         f"ring's capacity (pages_per_seq * page_size)")
+
+
+def token_pages(lengths: torch.Tensor, page_indices: torch.Tensor,
+                page_size: int, window: Optional[int] = None):
+    """(page ids, rows, valid), each (batch, T): the page and row of every
+    token a decode attends, in order. Without a window T is the table's
+    capacity P * page_size and token t is valid below min(length, T); with
+    one, T = window, the tokens are [length - window, length) (valid from
+    0) and token t lies on logical page (t // page_size) % P."""
+    batch, P = page_indices.shape
+    dev = page_indices.device
+    n = lengths.to(dev).long()[:, None]
+    if window is None:
+        pos = torch.arange(P * page_size, device=dev)[None, :].expand(
+            batch, -1)
+        valid = pos < n.clamp(max=P * page_size)
     else:
-        kp, vp = g[:, :, :, :ps], g[:, :, :, ps:]
-    kk = kp.reshape(hkv, batch, P * ps, d).transpose(0, 1)
-    vv = vp.reshape(hkv, batch, P * ps, d).transpose(0, 1)
-    s = torch.matmul(qs, kk.to(q.dtype).float().transpose(-1, -2))
-    if quantized:
-        s = s * ksc                                        # (B, hkv, G, P*ps)
-    n = lengths.to(q.device).long().clamp(max=P * ps)
-    cols = torch.arange(P * ps, device=q.device)
-    s = torch.where(cols[None, None, None, :] < n[:, None, None, None], s,
-                    DEFAULT_MASK_VALUE)
+        pos = n - window + torch.arange(window, device=dev)[None, :]
+        valid = pos >= 0
+        pos = pos.clamp(min=0)
+    ids = torch.gather(page_indices.long(), 1, (pos // page_size) % P)
+    return ids, pos % page_size, valid
+
+
+def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
+                 sm_scale: float):
+    """The decode kernels' arithmetic over gathered tokens: k_tok/v_tok
+    (hkv, batch, T, d), int8 payloads with f32 scales k_scale/v_scale
+    (hkv, batch, T) or pages of q's dtype with scales None, valid (batch,
+    T). q is scaled by sm_scale*log2(e) in its dtype, the softmax runs in
+    the log2 domain with the mask value and empty-row guard, and p is cast
+    to q's dtype before the PV product. int8 (paged_fused.py:389-436 and
+    paged.py:176-210 of the JAX package): the payload converts exactly, the
+    f32 scores are multiplied by the K scales, l sums the unscaled p, and p
+    times the V scales in f32 is what is cast before the PV product.
+    Returns (out (batch, hq, d), lse (batch, hq))."""
+    batch, hq, d = q.shape
+    hkv = k_tok.shape[0]
+    c = in_dtype(sm_scale * LOG2E, q.dtype)
+    qs = (q.float() * c).to(q.dtype).float().reshape(batch, hkv, hq // hkv,
+                                                      d)
+    kk = k_tok.transpose(0, 1).to(q.dtype).float()     # (B, hkv, T, d)
+    vv = v_tok.transpose(0, 1).to(q.dtype).float()
+    s = torch.matmul(qs, kk.transpose(-1, -2))          # (B, hkv, G, T)
+    if k_scale is not None:
+        s = s * k_scale.transpose(0, 1)[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m) * (m > 0.5 * DEFAULT_MASK_VALUE)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where((l == 0.0) | torch.isnan(l), 1.0, l)
-    pv = p * vsc if quantized else p
-    out = torch.matmul(pv.to(q.dtype).float(),
-                       vv.to(q.dtype).float()) / l_safe
+    pv = p if v_scale is None else p * v_scale.transpose(0, 1)[:, :, None, :]
+    out = torch.matmul(pv.to(q.dtype).float(), vv) / l_safe
     lse = m[..., 0] * LN2 + torch.log(l_safe[..., 0])
-    return (out.to(q.dtype).reshape(batch, hq, d),
-            lse.reshape(batch, hq))
+    return out.to(q.dtype).reshape(batch, hq, d), lse.reshape(batch, hq)
+
+
+def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
+                             page_size: int, sm_scale: float,
+                             window: Optional[int] = None):
+    """Plain PyTorch version of the fused-page decode (`decode_plain` over
+    the tokens of `token_pages`, ring mode included). Runs on any device;
+    gathers every token it attends, and without a window the whole
+    table."""
+    ps = page_size
+    ids, rows, valid = token_pages(lengths, page_indices, ps, window)
+    if fused_pages.dtype != torch.int8:
+        return decode_plain(q, fused_pages[:, ids, rows],
+                            fused_pages[:, ids, ps + rows], None, None,
+                            valid, sm_scale=sm_scale)
+    _, _, ksc, vsc = unpack_int8_pages(fused_pages, ps)   # (hkv, N, ps)
+    return decode_plain(q, fused_pages[:, ids, rows],
+                        fused_pages[:, ids, ps + rows], ksc[:, ids, rows],
+                        vsc[:, ids, rows], valid, sm_scale=sm_scale)
 
 
 def _decode_fn():
     fn = _build.library("paged_decode").tfa_paged_decode
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -347,7 +386,7 @@ def _decode_fn():
 
 
 def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
-                 sm_scale: float):
+                 sm_scale: float, window: Optional[int]):
     """Launches csrc/paged_decode.cu; returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, prows = fused_pages.shape[:3]
@@ -386,11 +425,13 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0),
             page_indices.shape[1], out.data_ptr(), lse.data_ptr(), batch,
-            hq, hkv, num_pages, page_size, prows, d, scale_log2,
-            _KERNEL_DTYPES[q.dtype], int(quantized),
+            hq, hkv, num_pages, page_size, prows, d, window or 0,
+            scale_log2, _KERNEL_DTYPES[q.dtype], int(quantized),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode")
-    if quantized:
+    if window is not None:
+        fused_paged_decode_attention.ring_launches += 1
+    elif quantized:
         fused_paged_decode_attention.int8_launches += 1
     else:
         fused_paged_decode_attention.launches += 1
