@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
 card (the flash forward with and without segment ids, with the sliding
-window, and its jagged row-loop mode, the flash backward's dq and dk/dv
-kernels, the paged decode over bf16 and int8 pages and its ring mode, the
+window, and its jagged row-loop mode, the flash backward's kernels (bf16:
+prep, main, post; f32: dq, dk/dv) with the window, segment ids and
+segment_starts, the paged decode over bf16 and int8 pages and its ring mode, the
 page append, the weight-only quantized matmul, the FA1 forward and the
 decode over separate K/V page arrays at the shapes of the repo's attention
 benchmark). Then it runs the engine benchmark's model (vocab 32768, d_model
@@ -23,11 +24,13 @@ at 8 x 2048 and 32 x 512 (benchmarks/encoder_bench.py); the same model
 with a sliding window of 1024 served from a ring cache (8 prompts of
 1792-2048 tokens, 256 decode steps past the ring's capacity); and training,
 AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
-train_bench.py's configs). It fails if a kernel does not build, launch or
-agree, if a path did not go through its kernels, if a path's output
-disagrees with its plain version, or if the train step's loss is not
-finite, does not fall, or its gradients disagree with those through the
-plain attention.
+train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
+train cell) and two f32 steps at 1 x 1024. It fails if a kernel does not
+build, launch or agree, if a path did not go through its kernels, if a
+path's output disagrees with its plain version, if the train step's loss
+is not finite, does not fall, or its gradients disagree with those through
+the plain attention, or if a backward through an entry whose JAX kernel
+has no VJP does not raise.
 
 Stdout: one line per check, then the kernels' JSON line, then the card's
 name and power limit, then as the last line
@@ -163,22 +166,45 @@ def flash_bound(q, k, causal: bool) -> tuple[float, str]:
     return _bound(flops, nbytes, q.dtype)
 
 
-def bwd_bound(q, k, causal: bool, part: str) -> tuple[float, str]:
-    """Least time for the backward or one of its kernels: 2 * d flops per
-    visible pair for each product it computes (the backward as a whole needs
-    5: s, dp, dv, dk, dq; the dq kernel computes 3: s, dp, dq; the dk/dv
-    kernel 4: s, dp, dv, dk). The backward reads q, k, v, out, do and the
-    f32 LSE once, a kernel q, k, v, do, the LSE and the f32 delta; each
-    writes its gradients once."""
-    products = {"all": 5, "dq": 3, "dkv": 4}[part]
-    flops = 2.0 * products * q.shape[-1] * _visible_pairs(q, k, causal)
+def mask_pairs(q, k, causal: bool, window=None, ids=None) -> float:
+    """(row, column) pairs the masks let through, over all heads: causal
+    with the decode offset, the window, or segment ids of a packed row
+    ((b, n) numpy, q_len == kv_len)."""
+    if ids is not None:
+        return q.shape[1] * id_pairs(ids, causal)
+    if window is None:
+        return _visible_pairs(q, k, causal)
+    b, hq, q_len, _ = q.shape
+    kv_len = k.shape[2]
+    pos = np.arange(q_len) + (kv_len - q_len)
+    seen = np.minimum(pos, kv_len - 1) - np.maximum(pos - window + 1, 0) + 1
+    return b * hq * float(np.clip(seen, 0, None).sum())
+
+
+def bwd_bound(q, k, part: str, pairs: float) -> tuple[float, str]:
+    """Least time for the backward or one of its kernels on `pairs`
+    visible pairs: 2 * d flops a pair for each product it computes (the
+    backward as a whole, and the bf16 main kernel, 5: s, dp, dv, dk, dq;
+    the f32 dq kernel 3: s, dp, dq; the f32 dk/dv kernel 4: s, dp, dv, dk),
+    each input read once and each output written once. The backward reads
+    q, k, v, out, do and the f32 LSE and writes dq, dk, dv. bf16 prep reads
+    q, out, do and the LSE and writes qs and the f32 lse2 and delta; main
+    reads q, qs, do, k, v, lse2 and delta and writes the f32 accumulators
+    (dq of q's size, dk and dv of k's); post reads those and writes dq, dk,
+    dv. The f32 kernels read q, do, k, v, the LSE and delta and write their
+    gradients."""
     el, rows = q.element_size(), q[..., 0].numel()
-    if part == "all":                  # q, out, do, k, v, lse
-        reads = (3 * q.numel() + 2 * k.numel()) * el + rows * 4
-    else:                              # q, do, k, v, lse, delta
-        reads = (2 * q.numel() + 2 * k.numel()) * el + 2 * rows * 4
-    writes = {"all": q.numel() + 2 * k.numel(), "dq": q.numel(),
-              "dkv": 2 * k.numel()}[part] * el
+    nq, nk = q.numel(), k.numel()
+    products, reads, writes = {
+        "all": (5, (3 * nq + 2 * nk) * el + rows * 4, (nq + 2 * nk) * el),
+        "prep": (0, 3 * nq * el + rows * 4, nq * el + 2 * rows * 4),
+        "main": (5, (3 * nq + 2 * nk) * el + 2 * rows * 4,
+                 (nq + 2 * nk) * 4),
+        "post": (0, (nq + 2 * nk) * 4, (nq + 2 * nk) * el),
+        "dq": (3, (2 * nq + 2 * nk) * el + 2 * rows * 4, nq * el),
+        "dkv": (4, (2 * nq + 2 * nk) * el + 2 * rows * 4, 2 * nk * el),
+    }[part]
+    flops = 2.0 * products * q.shape[-1] * pairs
     return _bound(flops, reads + writes, q.dtype)
 
 
@@ -363,24 +389,61 @@ def decode_inputs_int8(gen, *, ps, P, batch=8, hq=8, hkv=2, d=128):
 
 
 def check_not_ported_raise() -> None:
-    """What this slice leaves out raises on the card, never falls back."""
+    """What the port does not do raises on the card, never falls back; a
+    backward through an entry whose JAX kernel has no VJP raises at
+    backward() (ROADMAP C1), and never drops the gradient."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
         flash_attention_rowloop)
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        flash_attention_v1)
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        quantized_matmul_cuda)
 
     q = torch.zeros((1, 2, 128, 128), device="cuda", dtype=torch.bfloat16)
-    seg = torch.zeros((1, 128), device="cuda", dtype=torch.int32)
     lse = torch.zeros((1, 2, 128), device="cuda")
-    qg = q.clone().requires_grad_()
+    pages = torch.zeros((2, 4, 32, 128), device="cuda", dtype=torch.bfloat16)
+    kv_pages = torch.zeros((2, 4, 16, 128), device="cuda",
+                           dtype=torch.bfloat16)
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
+    qw = Q.quantize_weight(torch.ones((128, 64), device="cuda"))
+    no_vjp = {
+        "flash_attention(return_lse=True)":
+            lambda x: flash_attention(x, q, q, causal=True,
+                                      return_lse=True)[0],
+        "flash_attention_rowloop":
+            lambda x: flash_attention_rowloop(x, q, q, causal=True)[0],
+        "flash_attention_v1": lambda x: flash_attention_v1(x, q, q),
+        "fused_paged_decode_attention":
+            lambda x: fused_paged_decode_attention(
+                x[0, :, :2].transpose(0, 1), pages, lengths, table,
+                page_size=16)[0],
+        "paged_decode_attention":
+            lambda x: paged_decode_attention(
+                x[0, :, :2].transpose(0, 1), kv_pages, kv_pages, lengths,
+                table)[0],
+        "quantized_matmul_cuda":
+            lambda x: quantized_matmul_cuda(x[0, 0, :8], qw),
+    }
+    for name, fn in no_vjp.items():
+        out = fn(q.clone().requires_grad_())
+        try:
+            out.float().sum().backward()
+        except NotImplementedError as e:
+            if "as in JAX" in str(e):
+                continue
+        raise AssertionError(f"a backward through {name} did not raise")
+    log(f"backward through {len(no_vjp)} entries without a JAX VJP raises "
+        f"NotImplementedError on the card: ok ({', '.join(no_vjp)})")
     attempts = [
-        # the forward runs the kernel; its backward has no segment ids and
-        # no window yet
-        lambda: flash_attention(qg, qg, qg, segment_ids=(seg, seg))
-        .float().sum().backward(),
-        lambda: flash_attention(qg, qg, qg, causal=True, window=64)
-        .float().sum().backward(),
         lambda: flash_attention(q, q.to(torch.int8), q.to(torch.int8)),
         lambda: flash_attention_rowloop(q, q.to(torch.int8),
                                         q.to(torch.int8), causal=True),
@@ -582,23 +645,33 @@ def check_append(name, fmt, ps, gen, *, iters=20):
 
 # --- phase 4: flash backward, kernels vs plain and the oracle ----------------
 
-# (name, q shape, kv shape, dtype, causal); the first two are the train
-# step's per-layer shapes
+# (name, q shape, kv shape, dtype, causal, masks); the first two are the
+# train step's per-layer shapes, the window 1024 row the swa train cell's;
+# masks: "window", "mix" (segment ids of the jagged mix packed into one
+# row, its page bucket), "starts" (with its static segment_starts)
 BWD_CASES = [
     ("train step 4 x 2048 (tri regime)", (4, 8, 2048, 128), (4, 2, 2048, 128),
-     torch.bfloat16, True),
+     torch.bfloat16, True, {}),
     ("train step 1 x 8192 (tri with head splits, banded regime)",
-     (1, 8, 8192, 128), (1, 2, 8192, 128), torch.bfloat16, True),
+     (1, 8, 8192, 128), (1, 2, 8192, 128), torch.bfloat16, True, {}),
     ("causal 768 (fused work-list regime)", (2, 8, 768, 128),
-     (2, 2, 768, 128), torch.bfloat16, True),
+     (2, 2, 768, 128), torch.bfloat16, True, {}),
     ("non-causal 1024", (2, 8, 1024, 128), (2, 2, 1024, 128),
-     torch.bfloat16, False),
+     torch.bfloat16, False, {}),
     ("decode offset q128/kv2048", (2, 8, 128, 128), (2, 2, 2048, 128),
-     torch.bfloat16, True),
+     torch.bfloat16, True, {}),
     ("empty rows q2048/kv128", (2, 8, 2048, 128), (2, 2, 128, 128),
-     torch.bfloat16, True),
+     torch.bfloat16, True, {}),
     ("causal 1024 f32", (1, 8, 1024, 128), (1, 2, 1024, 128), torch.float32,
-     True),
+     True, {}),
+    ("window 1024 (swa train step)", (1, 8, 8192, 128), (1, 2, 8192, 128),
+     torch.bfloat16, True, {"window": 1024}),
+    ("packed mix, ids and segment_starts", (1, 8, 9984, 128),
+     (1, 2, 9984, 128), torch.bfloat16, True, {"mix": True, "starts": True}),
+    ("packed mix, ids without segment_starts", (1, 8, 9984, 128),
+     (1, 2, 9984, 128), torch.bfloat16, True, {"mix": True}),
+    ("window 256 f32", (1, 8, 1024, 128), (1, 2, 1024, 128), torch.float32,
+     True, {"window": 256}),
 ]
 
 
@@ -607,13 +680,16 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
+def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
+              iters=10):
     """The backward kernels vs their plain version and vs autograd through
-    the f32 plain forward on one shape; then the device times of the whole
-    backward call, of each kernel alone, of the plain version and of SDPA's
-    backward."""
+    the f32 plain forward on one shape, with its masks; then the device
+    times of the whole backward call, of each kernel alone (bf16: prep,
+    main, post; f32: dq, dk/dv), of the plain version and of SDPA's
+    backward (with a boolean mask where the masks are more than causal)."""
+    from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
     from tiny_flash_attention_tpu_torch.ops.flash import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, visible_mask)
     from tiny_flash_attention_tpu_torch.ops import flash_bwd as FB
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
@@ -622,16 +698,25 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
     k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
     do = randn(q_shape, dtype, gen)
     sm_scale = 1.0 / q_shape[-1] ** 0.5
-    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    got = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    mk, ids = {"window": masks.get("window")}, None
+    if masks.get("mix"):
+        _, ids, _, offs = pack_prompts([[0] * n for n in JAGGED_MIX], 128,
+                                       "page")
+        seg = torch.as_tensor(ids, device="cuda")
+        mk["segment_ids"] = (seg, seg)
+    kw = dict(mk, segment_starts=offs if masks.get("starts") else None)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **mk)
+    got = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, **kw)
     torch.cuda.synchronize()
     plain = FB.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal, sm_scale=sm_scale)
+                                         causal=causal, sm_scale=sm_scale,
+                                         **mk)
     err_plain = [_rel_err(g, w) for g, w in zip(got, plain)]
     abs_err = max(max_err(g, w) for g, w in zip(got, plain))
     del plain
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
-    ref = flash_attention_plain(*leaves, causal=causal, sm_scale=sm_scale)
+    ref = flash_attention_plain(*leaves, causal=causal, sm_scale=sm_scale,
+                                **mk)
     oracle = torch.autograd.grad(ref, leaves, do.float())
     err_oracle = [_rel_err(g, w) for g, w in zip(got, oracle)]
     del ref, oracle, leaves
@@ -639,25 +724,26 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
     ok = (finite and max(err_plain) <= BWD_PLAIN_GATE[dtype]
           and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
 
-    args = FB._bwd_inputs(q, k, v, out, lse, do)
-    dq, dk, dv = (torch.empty_like(g) for g in got)
+    call = FB.BwdLaunch(q, k, v, out, lse, do, causal=causal,
+                        sm_scale=sm_scale, **kw)
+    stages = ({"prep": 1, "main": 2, "post": 4} if dtype == torch.bfloat16
+              else {"dq": 1, "dkv": 2})
     t_call = cuda_time_ms(lambda: FB.flash_attention_bwd(
-        q, k, v, out, lse, do, causal=causal), iters=iters)["median_ms"]
-    t_dq = cuda_time_ms(lambda: FB._launch(
-        *args, dq=dq, dk=None, dv=None, causal=causal, sm_scale=sm_scale),
+        q, k, v, out, lse, do, causal=causal, **kw),
         iters=iters)["median_ms"]
-    t_dkv = cuda_time_ms(lambda: FB._launch(
-        *args, dq=None, dk=dk, dv=dv, causal=causal, sm_scale=sm_scale),
-        iters=iters)["median_ms"]
+    t_part = {part: cuda_time_ms(lambda s=s: call.run(s),
+                                 iters=iters)["median_ms"]
+              for part, s in stages.items()}
+    del call
     t_plain = cuda_time_ms(lambda: FB.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, causal=causal, sm_scale=sm_scale),
+        q, k, v, out, lse, do, causal=causal, sm_scale=sm_scale, **mk),
         iters=2 if q_shape[2] >= 8192 else iters)["median_ms"]
     mask = None
-    if causal and q_shape[2] != kv_shape[2]:
+    if causal and (q_shape[2] != kv_shape[2] or len(masks)):
         # SDPA's is_causal aligns the mask top-left; the port's is
         # bottom-right (row i sits at i + kv_len - q_len)
-        mask = torch.ones(q_shape[2], kv_shape[2], dtype=torch.bool,
-                          device="cuda").tril(kv_shape[2] - q_shape[2])
+        mask = visible_mask(q_shape[2], kv_shape[2], "cuda", causal=True,
+                            **mk)
     sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
     s_out = F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=mask, is_causal=causal and mask is None,
@@ -665,25 +751,27 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
     t_sdpa = cuda_time_ms(lambda: torch.autograd.grad(
         s_out, (sq, sk, sv), do, retain_graph=True),
         iters=iters)["median_ms"]
-    del s_out
-    bounds = {part: bwd_bound(q, k, causal, part)
-              for part in ("all", "dq", "dkv")}
+    del s_out, mask
+    pairs = mask_pairs(q, k, causal, masks.get("window"), ids)
+    bounds = {part: bwd_bound(q, k, part, pairs)
+              for part in ("all", *stages)}
     log(f"flash bwd {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
         f"{str(dtype).split('.')[-1]} causal={causal} | dq/dk/dv err vs "
         f"plain {err_plain[0]:.2e}/{err_plain[1]:.2e}/{err_plain[2]:.2e} "
         f"(gate {BWD_PLAIN_GATE[dtype]:.0e}), vs f32 autograd "
         f"{err_oracle[0]:.2e}/{err_oracle[1]:.2e}/{err_oracle[2]:.2e} "
         f"(gate {BWD_ORACLE_GATE[dtype]:.0e}) of max |grad| | call "
-        f"{t_call:.4f} ms (dq {t_dq:.4f}, dkv {t_dkv:.4f}) plain "
-        f"{t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms bound "
-        f"{bounds['all'][0]:.4f} ms ({bounds['all'][1]}; dq "
-        f"{bounds['dq'][0]:.4f}, dkv {bounds['dkv'][0]:.4f}) | "
+        f"{t_call:.4f} ms ("
+        + ", ".join(f"{p} {t:.4f}" for p, t in t_part.items())
+        + f") plain {t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms bound "
+        f"{bounds['all'][0]:.4f} ms ({bounds['all'][1]}; "
+        + ", ".join(f"{p} {bounds[p][0]:.4f}" for p in stages)
+        + f") | {bounds['all'][0] / t_call:.1%} of the bound | "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash backward kernels disagree: {name}")
-    return {"max_abs_err": abs_err, "ms": {"dq": t_dq, "dkv": t_dkv},
-            "plain_ms": t_plain, "library_ms": t_sdpa,
-            "bound": {"dq": bounds["dq"], "dkv": bounds["dkv"]}}
+    return {"max_abs_err": abs_err, "ms": t_part, "call_ms": t_call,
+            "plain_ms": t_plain, "library_ms": t_sdpa, "bound": bounds}
 
 
 # --- phase 5: the engine end to end ------------------------------------------
@@ -1502,8 +1590,14 @@ def encoder_phase(seed: int) -> dict:
 
 # --- phase 6: training at full width -----------------------------------------
 
-# (batch, seq, timed steps): benchmarks/train_bench.py's two configs
-TRAIN_CONFIGS = [(4, 2048, 8), (1, 8192, 3)]
+# (batch, seq, timed steps, window): benchmarks/train_bench.py's two
+# configs, then the swa train cell: the model with the sliding window of
+# swa_serving (1024) at 1 x 8192, whose backward takes the window
+TRAIN_CONFIGS = [(4, 2048, 8, None), (1, 8192, 3, None), (1, 8192, 3, 1024)]
+# the f32 train step (ModelConfig dtype float32): its backward runs the f32
+# kernels at the shape of BWD_CASES' "causal 1024 f32" row, whose times
+# and bound the f32 kernels' JSON rows report; (batch, seq, steps)
+TRAIN_F32 = (1, 1024, 2)
 
 
 def train_grad_check(cfg, params, tokens) -> float:
@@ -1532,10 +1626,10 @@ def train_grad_check(cfg, params, tokens) -> float:
 
 
 def train_phase(seed: int) -> dict:
-    """The train step of parallel/train.py at the train benchmark's widths:
-    one warm-up and the timed steps per config on one fixed token batch,
-    the launch counts zeroed just before the timed steps and read just
-    after."""
+    """The train step of parallel/train.py at the train benchmark's widths
+    and in the swa train cell: one warm-up and the timed steps per config
+    on one fixed token batch, the launch counts zeroed just before the
+    timed steps and read just after; then the f32 train step."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -1547,10 +1641,11 @@ def train_phase(seed: int) -> dict:
                         dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params0 = T.init_params(cfg, gen, device="cuda")
-    step, init_state = make_train_step(cfg, learning_rate=1e-3)
     launches = {"flash_fwd": 0, "flash_bwd": 0}
-    out = {"step": step, "states": {}}
-    for batch, seq, n_timed in TRAIN_CONFIGS:
+    out = {"states": {}}
+    for batch, seq, n_timed, window in TRAIN_CONFIGS:
+        run_cfg = dataclasses.replace(cfg, attn_window=window)
+        step, init_state = make_train_step(run_cfg, learning_rate=1e-3)
         params, opt = init_state(params0)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                                generator=gen, device="cuda")
@@ -1560,6 +1655,7 @@ def train_phase(seed: int) -> dict:
 
         # ---- the main path: counts zeroed just before, read just after ----
         flash_attention.launches = 0
+        flash_attention.window_launches = 0
         flash_attention_bwd.launches = 0
         t0 = time.perf_counter()
         losses = []
@@ -1569,31 +1665,60 @@ def train_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = {"flash_fwd": flash_attention.launches,
+               "flash_fwd_window": flash_attention.window_launches,
                "flash_bwd": flash_attention_bwd.launches}
         # ---------------------------------------------------------------------
 
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses = [float(x) for x in [loss0] + losses]
         want = n_timed * cfg.n_layers
-        log(f"train {batch} x {seq}: {n_timed} steps in {dt * 1e3:.1f} ms, "
+        label = f"{batch} x {seq}" + (f" window {window} (swa train)"
+                                      if window else "")
+        log(f"train {label}: {n_timed} steps in {dt * 1e3:.1f} ms, "
             f"{dt / n_timed * 1e3:.2f} ms/step, "
             f"{batch * seq * n_timed / dt:.0f} tokens/s, peak memory "
             f"{peak:.2f} GiB; loss {' '.join(f'{x:.4f}' for x in losses)}; "
-            f"launches {got} (expected {want} each: one forward and one "
-            f"backward call per layer per step, a backward call launching "
-            f"the dq and the dk/dv kernel once each)")
-        if got != {"flash_fwd": want, "flash_bwd": want}:
-            raise AssertionError(f"train launches {got} != {want} each")
+            f"launches {got} (expected {want} forward and {want} backward "
+            f"calls: one each per layer per step, {cfg.n_layers} layers; "
+            f"a backward call launches flash_bwd_prep, flash_bwd_main and "
+            f"flash_bwd_post once each)")
+        expect = {"flash_fwd": want, "flash_fwd_window": want if window
+                  else 0, "flash_bwd": want}
+        if got != expect:
+            raise AssertionError(f"train launches {got} != {expect}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"train loss not finite or not falling: "
                                  f"{losses}")
         for key in launches:
             launches[key] += got[key]
-        out["states"][(batch, seq)] = (params, opt, tokens)
+        out["states"][label] = (step, params, opt, tokens)
     out["launches"] = launches
 
+    # the f32 train step: its backward runs the f32 dq and dk/dv kernels
+    batch, seq, n_steps = TRAIN_F32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    step, init_state = make_train_step(cfg32, learning_rate=1e-3)
+    params, opt = init_state(T.init_params(cfg32, gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    flash_attention_bwd.launches = 0
+    losses = []
+    for _ in range(n_steps):
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))
+    out["launches"]["flash_bwd_f32"] = flash_attention_bwd.launches
+    shown = " ".join(f"{x:.4f}" for x in losses)
+    log(f"train f32 {batch} x {seq}: loss {shown}; "
+        f"{flash_attention_bwd.launches} backward calls (expected "
+        f"{n_steps * cfg.n_layers}: the f32 dq and dk/dv kernels once each)")
+    if flash_attention_bwd.launches != n_steps * cfg.n_layers or not (
+            np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"f32 train step: launches "
+                             f"{flash_attention_bwd.launches}, {losses}")
+    del params, opt
+
     # gradients of one step (the initial weights, the 4 x 2048 batch)
-    err = train_grad_check(cfg, params0, out["states"][(4, 2048)][2])
+    err = train_grad_check(cfg, params0, out["states"]["4 x 2048"][3])
     log(f"train step gradients through the kernels vs attn_impl='reference':"
         f" max relative Frobenius distance over parameters {err:.3e} "
         f"(gate {TRAIN_GRAD_GATE:.0e})")
@@ -2182,9 +2307,9 @@ def main() -> int:
     swa = swa_phase(SEED)
 
     train = train_phase(SEED)
-    for (batch, seq), state in train["states"].items():
-        profile_window(f"per train step of {batch} x {seq} tokens",
-                       lambda s=state: train["step"](*s), 1)
+    for label, (step, *state) in train["states"].items():
+        profile_window(f"per train step of {label} tokens",
+                       lambda f=step, s=state: f(*s), 1)
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -2227,26 +2352,42 @@ def main() -> int:
     b12_row = dict(srows[B12_CASES[0][0]])
     b12_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"]
                                  for c in B12_CASES)
-    # the backward's rows: each kernel at the train step's 4 x 2048 shape,
-    # the worst error over both train shapes; the plain and library times
-    # are those of the whole backward (one function computes dq, dk, dv)
-    main_bwd = bwd_rows[0]
+    # the backward's rows: each kernel at the train step's 4 x 2048 shape
+    # (the f32 kernels at the f32 train step's 1 x 1024, the first f32
+    # case), the worst error over the cases of its dtype; the plain and
+    # library times are those of the whole backward (one function computes
+    # dq, dk, dv)
     bwd_replaces = ("tiny_flash_attention_tpu/ops/flash_tri_bwd.py:302; "
                     "tiny_flash_attention_tpu/ops/flash_tri_bwd.py:583; "
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:436; "
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:560; "
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:609")
+
+    def bwd_kernel(part, row, dtype, launches):
+        worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
+                    if c[3] == dtype)
+        suffix = "_f32" if dtype == torch.float32 else ""
+        return {"name": f"flash_bwd_{part}{suffix}", "route": "cuda",
+                "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": bwd_replaces, "launches": launches,
+                "max_abs_err": worst, "ms": row["ms"][part],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound"][part][0],
+                "bound_by": row["bound"][part][1],
+                "library_ms": row["library_ms"]}
+
+    f32_row, f32_case = next((r, c) for r, c in zip(bwd_rows, BWD_CASES)
+                             if c[3] == torch.float32)
+    if f32_case[1] != (TRAIN_F32[0], 8, TRAIN_F32[1], 128):
+        raise AssertionError(f"the f32 row {f32_case[1]} is not the f32 "
+                             f"train step's shape {TRAIN_F32}")
     bwd_kernels = [
-        {"name": f"flash_bwd_{part}", "route": "cuda",
-         "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": bwd_replaces,
-         "launches": train["launches"]["flash_bwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows[:2]),
-         "ms": main_bwd["ms"][part], "plain_ms": main_bwd["plain_ms"],
-         "bound_ms": main_bwd["bound"][part][0],
-         "bound_by": main_bwd["bound"][part][1],
-         "library_ms": main_bwd["library_ms"]}
-        for part in ("dq", "dkv")]
+        *(bwd_kernel(part, bwd_rows[0], torch.bfloat16,
+                     train["launches"]["flash_bwd"])
+          for part in ("prep", "main", "post")),
+        *(bwd_kernel(part, f32_row, torch.float32,
+                     train["launches"]["flash_bwd_f32"])
+          for part in ("dq", "dkv"))]
     # flash_fwd runs on every main path but the jagged admission: its
     # launches are the engines' (the windowed one's included), the
     # encoder's and the train step's; paged_decode's include the windowed

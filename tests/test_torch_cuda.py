@@ -141,10 +141,6 @@ def test_decode_loop_never_syncs_with_the_host(gen, greedy):
 
 def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
-    qg = q.clone().requires_grad_()
-    out = flash_attention(qg, qg, qg, causal=True, window=16)
-    with pytest.raises(NotImplementedError, match="window"):
-        out.float().sum().backward()          # the windowed backward
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
     with pytest.raises(NotImplementedError):
@@ -237,16 +233,68 @@ def test_rowloop_kernel_matches_plain(gen, dtype):
         assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
 
 
-def test_backward_through_segment_ids_raises(gen):
-    q = _randn((1, 2, 64, 64), torch.bfloat16, gen).requires_grad_()
-    seg = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
-    out = flash_attention(q, q, q, segment_ids=(seg, seg))
-    with pytest.raises(NotImplementedError, match="segment"):
+def _forward_only_calls(gen):
+    """{name: fn} for each CUDA entry whose JAX kernel has no VJP: fn(x)
+    runs it on x, a leaf that requires grad, and returns a float output."""
+    b16 = torch.bfloat16
+    q4 = _randn((1, 4, 64, 64), b16, gen)
+    ps, d = 16, 64
+    pages = _randn((2, 4, 2 * ps, d), b16, gen)
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
+    kp = _randn((2, 4, ps, d), b16, gen)
+    qw = Q.quantize_weight(_randn((64, 32), torch.float32, gen))
+    return {
+        "flash_attention(return_lse=True)":
+            lambda x: flash_attention(x, q4, q4, causal=True,
+                                      return_lse=True)[0],
+        "flash_attention_rowloop":
+            lambda x: flash_attention_rowloop(x, q4, q4, causal=True)[0],
+        "flash_attention_v1": lambda x: flash_attention_v1(x, q4, q4),
+        "fused_paged_decode_attention":
+            lambda x: fused_paged_decode_attention(
+                x[0, :, :2].transpose(0, 1), pages, lengths, table,
+                page_size=ps)[0],
+        "paged_decode_attention":
+            lambda x: paged_decode_attention(
+                x[0, :, :2].transpose(0, 1), kp, kp, lengths, table)[0],
+        "quantized_matmul_cuda":
+            lambda x: quantized_matmul_cuda(x[0, 0, :8], qw),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "flash_attention(return_lse=True)", "flash_attention_rowloop",
+    "flash_attention_v1", "fused_paged_decode_attention",
+    "paged_decode_attention", "quantized_matmul_cuda"])
+def test_forward_only_entries_raise_at_backward(gen, name):
+    """An entry whose JAX kernel has no VJP raises NotImplementedError at
+    backward() rather than dropping the gradient; with grad off it runs
+    without the Function."""
+    fn = _forward_only_calls(gen)[name]
+    x = _randn((1, 4, 64, 64), torch.bfloat16, gen).requires_grad_()
+    out = fn(x)
+    assert out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="as in JAX"):
         out.float().sum().backward()
-    out = flash_attention(q, q, q, causal=True, window=16,
-                          segment_ids=(seg, seg))
-    with pytest.raises(NotImplementedError):
-        out.float().sum().backward()
+    with torch.no_grad():
+        assert fn(x).grad_fn is None
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+def test_quantized_matmul_gradient_matches_plain(gen, rows):
+    """quantized_matmul is differentiable in x on either route (the kernel
+    at 8 rows, the cuBLAS product at 16), as JAX's jnp.dot is."""
+    qw = Q.quantize_weight(_randn((512, 256), torch.float32, gen))
+    x = (_randn((rows, 512), torch.bfloat16, gen) / 512 ** 0.5)
+    w = _randn((rows, 256), torch.float32, gen)
+    leaf = x.clone().requires_grad_()
+    (Q.quantized_matmul(leaf, qw).float() * w).sum().backward()
+    ref = x.clone().requires_grad_()
+    (quantized_matmul_plain(ref, qw).float() * w).sum().backward()
+    assert leaf.grad.dtype == torch.bfloat16
+    assert _err(leaf.grad, ref.grad) <= 2 ** -7 * float(
+        ref.grad.float().abs().max())
 
 
 # The backward kernels repeat their plain version's rounding points, so the
@@ -291,6 +339,105 @@ def test_flash_bwd_kernels_match_plain(gen, b, hq, hkv, q_len, kv_len, d,
         assert err <= BWD_GATE[dtype], f"{name}: {err:.3e}"
     if causal and q_len > kv_len:        # rows that see nothing get dq = 0
         assert bool((got[0][:, :, :q_len - kv_len] == 0).all())
+
+
+# (b, hq, hkv, q_len, kv_len, d, dtype, window, bounds, starts): odd
+# lengths, groups 1, 2 and 4, head_dim 64 and 128, the window off the
+# tiles, ids with and without static starts, a window with ids
+MASKED_BWD = [
+    (1, 4, 4, 97, 97, 64, torch.bfloat16, 30, None, False),
+    (2, 4, 2, 300, 300, 128, torch.bfloat16, 100, None, False),
+    (1, 8, 2, 130, 333, 128, torch.bfloat16, 64, None, False),   # offset
+    (1, 8, 2, 300, 300, 128, torch.bfloat16, None, (37, 100, 250), False),
+    (1, 8, 2, 300, 300, 128, torch.bfloat16, None, (37, 100, 250), True),
+    (2, 4, 1, 130, 130, 64, torch.bfloat16, None, (1, 64, 127), True),
+    (1, 4, 2, 300, 300, 64, torch.bfloat16, 70, (37, 200), True),
+    (1, 4, 4, 97, 97, 64, torch.float32, 30, None, False),
+    (1, 8, 2, 130, 130, 128, torch.float32, None, (50, 64), True),
+    (1, 4, 2, 300, 300, 64, torch.float32, 70, (37, 200), True),
+]
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,q_len,kv_len,d,dtype,window,bounds,starts", MASKED_BWD)
+def test_masked_bwd_kernels_match_plain(gen, b, hq, hkv, q_len, kv_len, d,
+                                        dtype, window, bounds, starts):
+    """The backward with the window, segment ids (a q id that matches no
+    kv column: dq 0 on its row) and static segment_starts, against the
+    plain version; the starts change no bit."""
+    q = _randn((b, hq, q_len, d), dtype, gen)
+    k = _randn((b, hkv, kv_len, d), dtype, gen)
+    v = _randn((b, hkv, kv_len, d), dtype, gen)
+    do = _randn((b, hq, q_len, d), dtype, gen)
+    masks = {"window": window}
+    if bounds is not None:
+        seg = _segment_ids(b, q_len, bounds, gen)
+        q_seg = seg.clone()
+        if not starts:
+            q_seg[0, 3] = -7
+        masks["segment_ids"] = (q_seg, seg)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True,
+                               **masks)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **masks)
+    if starts:
+        pruned = flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                     segment_starts=(0, *bounds), **masks)
+        torch.cuda.synchronize()
+        for g, w in zip(got, pruned):
+            if dtype == torch.float32:
+                assert torch.equal(g, w)
+            else:   # the f32 sums arrive in another order: one ulp
+                assert _err(g, w) <= 2 ** -7 * float(g.float().abs().max())
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     sm_scale=d ** -0.5, **masks)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        err = _rel_err(g, w)
+        assert err <= BWD_GATE[dtype], f"{name}: {err:.3e}"
+    if bounds is not None and not starts:
+        assert bool((got[0][0, :, 3] == 0).all())
+
+
+def test_masked_autograd_matches_autograd_through_plain(gen):
+    """flash_attention's Function with a window and ids on the card
+    against torch autograd through the f32 plain forward."""
+    seg = _segment_ids(1, 300, (37, 200), gen)
+    leaves = [_randn(s, torch.bfloat16, gen).requires_grad_()
+              for s in ((1, 8, 300, 128), (1, 2, 300, 128),
+                        (1, 2, 300, 128))]
+    w = _randn((1, 8, 300, 128), torch.float32, gen)
+    masks = {"window": 90, "segment_ids": (seg, seg)}
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, causal=True, segment_starts=(37, 200),
+                          **masks)
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    f32 = [t.detach().float().requires_grad_() for t in leaves]
+    ref = flash_attention_plain(*f32, causal=True, sm_scale=128 ** -0.5,
+                                **masks)
+    want = torch.autograd.grad((ref * w).sum(), f32)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, r) <= 2e-2, name
+
+
+def test_bwd_two_runs_agree_within_one_ulp(gen):
+    """The bf16 backward adds its f32 partial sums into the accumulators
+    in an order that changes from run to run: two runs agree within one
+    bf16 ulp of each result."""
+    q = _randn((2, 8, 1000, 128), torch.bfloat16, gen)
+    k = _randn((2, 2, 1000, 128), torch.bfloat16, gen)
+    v = _randn((2, 2, 1000, 128), torch.bfloat16, gen)
+    do = _randn((2, 8, 1000, 128), torch.bfloat16, gen)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    one = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    two = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        a, b = a.float(), b.float()
+        ulp = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+        assert bool(((a - b).abs() <= ulp).all())
 
 
 def test_autograd_runs_both_kernels(gen):

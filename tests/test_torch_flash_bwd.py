@@ -139,15 +139,18 @@ def test_autograd_matches_autograd_through_plain(q_shape, kv_shape, causal,
 
 
 def test_return_lse_and_window_stay_off_the_function():
-    """return_lse=True is forward-only, as in JAX; on the CPU a window or
-    segment ids take the plain forward, which torch autograd
-    differentiates."""
+    """return_lse=True stays off the Function, as in JAX (on the CPU the
+    plain forward, which torch autograd differentiates); a window and
+    segment ids go through it, as on the card, with the plain forward and
+    the plain backward."""
     q = torch.randn((1, 2, 32, 64), requires_grad=True)
     out, lse = flash_attention(q, q, q, causal=True, return_lse=True)
     assert "FlashAttention" not in type(out.grad_fn).__name__
-    out = flash_attention(q, q, q, causal=True, window=8)
-    assert "FlashAttention" not in type(out.grad_fn).__name__
-    out = flash_attention(q, q, q, causal=True)
-    assert "FlashAttention" in type(out.grad_fn).__name__
-    out.sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    seg = torch.tensor([[0] * 20 + [1] * 12])
+    for kw in ({"window": 8}, {"segment_ids": (seg, seg)},
+               {"window": 8, "segment_ids": (seg, seg)}, {}):
+        q.grad = None
+        out = flash_attention(q, q, q, causal=True, **kw)
+        assert "FlashAttention" in type(out.grad_fn).__name__
+        out.sum().backward()
+        assert q.grad is not None and bool(torch.isfinite(q.grad).all())

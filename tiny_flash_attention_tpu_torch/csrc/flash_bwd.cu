@@ -9,53 +9,76 @@
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:560      flash_attention_bwd   (_bwd_dq_kernel)
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:609      flash_attention_bwd   (_bwd_dkv_kernel)
 //
-// Contract: q, dout (B, hq, Sq, D) and k, v (B, hkv, Skv, D), contiguous, of
-// one dtype; lse (B, hq, Sq) is the forward's natural-log LSE and delta
-// (B, hq, Sq) = rowsum(dout * out), both f32 (the wrapper computes delta, as
-// the JAX package does in XLA outside its kernels). Causal rows sit at
-// position row + Skv - Sq. Writes dq like q, and dk, dv like k, with dk and
-// dv summed over the GQA group of each kv head.
+// Contract: q, out, dout (B, hq, Sq, D) and k, v (B, hkv, Skv, D),
+// contiguous, of one dtype; lse (B, hq, Sq) is the forward's natural-log
+// LSE in f32. Causal rows sit at position row + Skv - Sq. Writes dq like q,
+// and dk, dv like k, summed over the GQA group of each kv head. The masks
+// are the forward's (flash_fwd.cu): the window (row at position p sees
+// columns [p - window + 1, p]), segment ids (equal ids attend), the mask
+// value -0.7 * FLT_MAX and p = 0 on rows whose LSE is the empty-row
+// sentinel (the TPU kernels' guard). Which tiles a block visits comes from
+// a host-built table (ops/flash_bwd.py::bwd_tiles, JAX's work lists): for
+// each kv tile the range of q tiles that can see it (causal, window and
+// static segment_starts clamp it), and the order of the tiles, longest
+// range first. A tile outside every range is never read; its gradients
+// are the zeros the accumulators start from.
 //
 // Arithmetic (the work-list kernels' rounding points, flash_bwd.py:173, so
 // the recomputed p matches the LSE that flash_fwd.cu wrote with the same
 // fold): s2 = (q * scale_log2 rounded to the input dtype) k^T in f32;
-// p = exp2(s2 - lse * log2 e), 0 where masked and on rows whose LSE is the
-// empty-row sentinel; dp = dout v^T; ds = p (dp - delta). The tensor cores
-// take p and ds rounded to bf16 and accumulate in f32:
-// dv = sum p^T dout, dk = sm_scale sum ds^T q, dq = sm_scale sum ds k, each
-// rounded once at the write. The f32 kernels run in f32 FMAs on the CUDA
-// cores (never TF32; the f32 gate is 2e-5) and round nothing in between.
+// p = exp2(s2 - lse * log2 e); dp = dout v^T; ds = p (dp - delta) with
+// delta = rowsum(dout * out) in f32. The tensor cores take p and ds rounded
+// to bf16 and accumulate in f32: dv = sum p^T dout, dk = sm_scale sum ds^T
+// q, dq = sm_scale sum ds k, each rounded once at the write.
 //
-// Design: the split backward (the layout of _bwd_dq_kernel/_bwd_dkv_kernel),
-// deterministic, with no atomics.
-//   flash_bwd_dkv: one block per (64-row kv tile, kv head, batch); K and V
-//     stay in shared memory while the block walks the group's q heads and,
-//     per head, the q tiles the causal clamp lets see this kv tile. Each of
-//     the 4 warps owns 16 kv rows and keeps their dk and dv in registers, so
-//     the GQA sum happens inside the block. q, dout, lse and delta tiles of
-//     32 rows stream through a two-stage cp.async ring.
-//   flash_bwd_dq: one block per (64-row q tile, q head, batch), longest
-//     causal rows first; each warp owns 16 q rows and keeps dq in registers
-//     while K/V tiles of 64 rows stream through a two-stage cp.async ring.
-// Both use mma.sync m16n8k16 (bf16 in, f32 accumulate); every product keeps
-// its left operand in the accumulator-as-A-fragment layout of
-// flash_common.cuh, so p and ds never leave registers.
+// What bounds it: tensor-core FLOPs, 5 products per visible (row, column)
+// pair (s, dp, dv, dk, dq: 2.5x the forward's 4 * D flops). At
+// (4, 8, 2048, 128) causal that is 85.9 GFLOP over 989 TF/s = 0.087 ms.
 //
-// What bounds it: tensor-core FLOPs. The least work is 5 products per
-// visible (row, column) pair (s, dp, dv, dk, dq: 2.5x the forward's 4 * D
-// flops per pair); this split design does 7, because each kernel recomputes
-// s and dp. At (4, 8, 2048, 128) causal the bound is 85.9 GFLOP over
-// 989 TF/s = 0.087 ms; at (1, 8, 8192, 128) 343.6 GFLOP, 0.347 ms.
+// bf16 design: three kernels, one pass over the tiles, 5 products.
+//   flash_bwd_prep: one warp per q row: delta = rowsum(dout * out) and the
+//     log2 LSE (+inf on empty rows and padding, so p = 0 there) in f32,
+//     read from bf16 once, and qs = q * bf16(scale_log2) rounded to bf16:
+//     q is scaled once per row, not once per kv tile that reads it.
+//   flash_bwd_main: one block per (kv tile of 128 rows, q head, batch):
+//     splitting each GQA group across blocks gives 4x the blocks of a kv-
+//     head grid, and the blocks are numbered longest band first. K and V
+//     of the tile land once by TMA; the q tiles (64 rows of q, qs, dout,
+//     with the log2 LSE, delta and q ids) stream through a two-stage ring
+//     of TMA loads and mbarriers. Two warpgroups each own 64 kv rows and
+//     run wgmma: S^T = K qs^T and dP^T = V dout^T (both operands from
+//     shared memory), dV += P^T dout and dK += dS^T q (P^T, dS^T as bf16
+//     registers, dout and q read MN-major); dS^T goes to shared memory as
+//     bf16 and dQ = dS K (each warpgroup 64 of the 128 head dims) is added
+//     in f32 into a global accumulator by the TMA bulk reduce-add. At the
+//     end dK and dV, in f32, are bulk-reduce-added into kv-head
+//     accumulators (the GQA sum). The accumulators hold each 64-row tile
+//     in the order of the wgmma fragments, so both stages of staging are
+//     contiguous 16-byte stores. Only tiles that straddle the diagonal,
+//     the window's edge or the kv_len edge, or have segment ids, pay the
+//     element compare; whether there is a window and whether there are ids
+//     are template parameters.
+//   flash_bwd_post: dq = bf16(dq_acc * sm_scale), dk = bf16(dk_acc *
+//     sm_scale), dv = bf16(dv_acc): the one rounding at the write of JAX's
+//     VMEM accumulators.
+// The f32 sums into the accumulators arrive in an order that changes from
+// run to run, so two runs may differ by one bf16 ulp (a held divergence).
+//
+// f32 design (CUDA-core FMAs, never TF32; the f32 gate is 2e-5): the split
+// backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic. flash_bwd_dkv:
+// one block per (64-row kv tile, kv head, batch) walks the group's q heads
+// and its q tiles; flash_bwd_dq: one block per (64-row q tile, q head,
+// batch) walks its kv tiles, from a q-major table.
 //
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
+#include <cuda.h>
+
 #include "flash_common.cuh"
 
-#if !defined(TFA_BWD_BF16_DQ_BLOCK_M) || !defined(TFA_BWD_BF16_DQ_BLOCK_N) ||   \
-    !defined(TFA_BWD_BF16_DQ_THREADS) || !defined(TFA_BWD_BF16_DKV_BLOCK_M) || \
-    !defined(TFA_BWD_BF16_DKV_BLOCK_N) ||                                      \
-    !defined(TFA_BWD_BF16_DKV_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) ||     \
+#if !defined(TFA_BWD_BF16_BLOCK_M) || !defined(TFA_BWD_BF16_BLOCK_N) || \
+    !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) ||   \
     !defined(TFA_BWD_F32_BLOCK_N) || !defined(TFA_BWD_F32_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
@@ -64,466 +87,729 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int PAD = 8;  // bf16 per smem row: rows land 16 bytes apart in banks
+// One tile table (3, n) int32: lo[n], hi[n] (the range [lo, hi) of the
+// other side's tiles, empty when hi <= lo), order[n] (the tile of each
+// block, longest range first).
+struct Table {
+  const int* lo;
+  const int* hi;
+  const int* order;
+  __host__ __device__ Table(const int* t, int n)
+      : lo(t), hi(t + n), order(t + 2 * n) {}
+};
 
-// The LSE in the log2 domain, or +inf on rows that carry the empty-row
-// sentinel (and on padding rows), so that exp2(s - lse2) is 0 there.
-__device__ __forceinline__ float lse2_of(float lse) {
-  const float l2 = lse * kLog2e;
-  return l2 > 0.5f * kMaskValue ? l2 : INFINITY;
+// ----------------------------------------------------- Hopper primitives
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
 }
 
-// A row-major 16-row slab of a bf16 smem tile as an mma A fragment.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int ld,
-                                       int row0, int k0, int lane) {
-  const int row = row0 + (lane % 8) + ((lane / 8) & 1) * 8;
-  ldsm_x4(a, tile + row * ld + k0 + (lane / 16) * 8);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// B fragments of n-tiles nt, nt + 1 at depth k0 from a tile stored [n][k].
-__device__ __forceinline__ void load_b(uint32_t* b, const bf16* tile, int ld,
-                                       int nt, int k0, int lane) {
-  const int mi = lane / 8;
-  ldsm_x4(b, tile + (nt * 8 + (mi >> 1) * 8 + lane % 8) * ld + k0 +
-                 (mi & 1) * 8);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// B fragments of n-tiles dn, dn + 1 at depth k0 from a tile stored [k][n].
-__device__ __forceinline__ void load_b_trans(uint32_t* b, const bf16* tile,
-                                             int ld, int dn, int k0,
-                                             int lane) {
-  const int mi = lane / 8;
-  ldsm_x4_trans(b, tile + (k0 + (mi & 1) * 8 + lane % 8) * ld +
-                       (dn + (mi >> 1)) * 8);
+// TMA: a box of a 3-D tensor map at (c0, c1, c2) into shared memory,
+// completing on `bar`; rows past the tensor's end land as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
 }
 
-// acc (16 x 8 * NT) += a (16 x D, smem rows row0..) * b^T (b stored [n][k])
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt_smem(float (*acc)[4], const bf16* a,
-                                             int row0, const bf16* b,
-                                             int lane) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    load_a(af, a, LD, row0, kk * 16, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bb[4];
-      load_b(bb, b, LD, nt, kk * 16, lane);
-      mma_16816(acc[nt], af, bb[0], bb[1]);
-      mma_16816(acc[nt + 1], af, bb[2], bb[3]);
-    }
-  }
+// A contiguous bulk copy (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// acc (16 x D) += a (16 x 16 * KT, register fragments) * b (stored [k][n])
-template <int D, int KT>
-__device__ __forceinline__ void mma_ab_regs(float (*acc)[4], uint32_t (*a)[4],
-                                            const bf16* b, int lane) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      uint32_t bb[4];
-      load_b_trans(bb, b, LD, dn, kk * 16, lane);
-      mma_16816(acc[dn], a[kk], bb[0], bb[1]);
-      mma_16816(acc[dn + 1], a[kk], bb[2], bb[3]);
-    }
-  }
+// global[dst] += smem[src] in f32, element by element, as one bulk op.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Packs a 16 x 8 * NT accumulator to bf16 A fragments (16 x 16 * NT / 2).
-template <int NT>
-__device__ __forceinline__ void pack_a(uint32_t (*a)[4], float (*c)[4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    a[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(c[nt][0], c[nt][1]);
-    a[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(c[nt][2], c[nt][3]);
-  }
+// The issuing thread's bulk ops have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to the async proxy
+// (wgmma, bulk copies) before a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void zero(float (*acc)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Writes a warp's 16 x D accumulator times `scale` as bf16 rows row0.. of g.
+// Keeps the compiler from moving reads or writes of these registers across
+// a wgmma wait (the products write them asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A wgmma shared-memory descriptor of a tile in the 128-byte swizzle that
+// TMA writes (rows of 64 bf16, 8-row groups 1024 bytes apart, the tile
+// 1024-byte aligned). K-major: the start may sit 32, 64 or 96 bytes into a
+// row (the 16-wide k slice); sbo = 1024, lbo unused. MN-major: lbo is the
+// stride between 64-wide column blocks, sbo the stride between 8-row k
+// groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (p
+// below 2^-126 contributes nothing a bf16 operand could hold).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The byte offset of element (row, col) of a tile of 64-wide bf16 rows in
+// the 128-byte swizzle: 16-byte chunk col / 8 XOR row % 8.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// clang-format off
+// d (64 x 64, f32) += A (64 x 16) * B (16 x 64), both from shared memory;
+// TA / TB: 0 K-major, 1 MN-major (transposed); scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64) from
+// shared memory, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128) from
+// shared memory, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// clang-format on
+
+// ------------------------------------------------------------- bf16 path
+
+constexpr int HM = TFA_BWD_BF16_BLOCK_M;       // q rows per step
+constexpr int HN = TFA_BWD_BF16_BLOCK_N;       // kv rows per block
+constexpr int HTHREADS = TFA_BWD_BF16_THREADS;  // two warpgroups
+static_assert(HM == 64 && HN == 128 && HTHREADS == 256,
+              "two warpgroups of 64 kv rows over 64-row q steps");
+constexpr int PREP_WARPS = 8;                   // warps per prep block
+
+// Shared memory of the main kernel, in bytes from a 1024-aligned base.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* g, float (*acc)[4],
-                                           int row0, int n_rows, float scale,
-                                           int lane) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + lane / 4 + r * 8;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int col = dn * 8 + (lane % 4) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(g + (size_t)row * D + col) =
-          __floats2bfloat162_rn(acc[dn][2 * r] * scale,
-                                acc[dn][2 * r + 1] * scale);
+struct Smem {
+  static constexpr int KV = HN * D * 2;          // K or V of the tile
+  static constexpr int QT = HM * D * 2;          // one q-side tile
+  static constexpr int ROWS = 3 * HM * 4;        // lse2, delta, q ids
+  static constexpr int STAGE = (3 * QT + ROWS + 1023) / 1024 * 1024;
+  static constexpr int K = 0;
+  static constexpr int V = KV;
+  static constexpr int RING = 2 * KV;            // 2 stages: q, qs, dout
+  static constexpr int DST = RING + 2 * STAGE;   // dS^T [HN][HM] bf16
+  static constexpr int STG = DST + HN * HM * 2;  // dQ staging, 2 x 16 KB
+  static constexpr int BAR = STG + 2 * HM * 64 * 4;
+  static constexpr int TOTAL = BAR + 64;
+  static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
+  static_assert(2 * 2 * 64 * D * 4 <= DST, "dK/dV staging fits the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(32 * PREP_WARPS)
+    flash_bwd_prep_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ out,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ qs, float* __restrict__ lse2,
+                          float* __restrict__ delta, int n_bh, int q_len,
+                          int q_pad, float scale_log2) {
+  constexpr int LANES = D / 8;                   // 16 bytes a lane
+  constexpr int PER_WARP = 32 / LANES;           // rows a warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long row = ((long)blockIdx.x * PREP_WARPS + warp) * PER_WARP +
+                   lane / LANES;                 // (bh, r), padded
+  if (row >= (long)n_bh * q_pad) return;         // whole rows leave together
+  const int bh = (int)(row / q_pad), r = (int)(row % q_pad);
+  const int sub = lane % LANES;
+  if (r >= q_len) {
+    if (sub == 0) {
+      lse2[row] = INFINITY;
+      delta[row] = 0.f;
     }
+    return;
   }
-}
-
-// ------------------------------------------------------------ bf16 dk / dv
-
-constexpr int KM = TFA_BWD_BF16_DKV_BLOCK_M;  // q rows per step
-constexpr int KN = TFA_BWD_BF16_DKV_BLOCK_N;  // kv rows per block
-constexpr int KTHREADS = TFA_BWD_BF16_DKV_THREADS;
-static_assert(KN == KTHREADS / 32 * 16, "each warp owns 16 kv rows");
-static_assert(KM % 16 == 0, "the q step is a multiple of the mma depth");
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // K, V; per stage q, q scaled, dout; per stage lse2 and delta
-  return (2 * KN + 2 * 3 * KM) * (D + PAD) * (int)sizeof(bf16) +
-         2 * 2 * KM * (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(KTHREADS)
-    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const bf16* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              int hq, int hkv, int q_len, int kv_len,
-                              int causal, float scale_log2, float sm_scale) {
-  constexpr int LD = D + PAD;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int STAGE = 3 * KM * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [KN][LD]
-  bf16* vs = ks + KN * LD;                       // [KN][LD]
-  bf16* ring = vs + KN * LD;  // [2] x {q [KM][LD], q scaled, dout}
-  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);  // [2][2][KM]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kv0 = blockIdx.x * KN;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int group = hq / hkv;
-  const int offset = kv_len - q_len;
-  // the first q row that sees column kv0 (always < q_len: the last row sits
-  // at position kv_len - 1)
-  const int first_row = causal ? max(0, kv0 - offset) : 0;
-  const int qt0 = first_row / KM;
-  const int n_qt = (q_len + KM - 1) / KM - qt0;
-  const int n_it = group * n_qt;  // (head, q tile) steps, heads outer
-
-  const bf16* kg = k + ((size_t)(b * hkv + kvh) * kv_len) * D;
-  const bf16* vg = v + ((size_t)(b * hkv + kvh) * kv_len) * D;
-  for (int c = tid; c < KN * CH; c += KTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool valid = kv0 + r < kv_len;
-    const size_t src = (size_t)(valid ? kv0 + r : 0) * D + col;
-    cp_async16(ks + r * LD + col, kg + src, valid);
-    cp_async16(vs + r * LD + col, vg + src, valid);
-  }
-
-  auto load_step = [&](int it, int st) {
-    const int h = kvh * group + it / n_qt;
-    const int q0 = (qt0 + it % n_qt) * KM;
-    const size_t head = (size_t)(b * hq + h) * q_len;
-    bf16* qd = ring + st * STAGE;
-    bf16* dd = qd + 2 * KM * LD;
-    for (int c = tid; c < KM * CH; c += KTHREADS) {
-      const int r = c / CH, col = (c % CH) * 8;
-      const bool valid = q0 + r < q_len;
-      const size_t src = (head + (valid ? q0 + r : 0)) * D + col;
-      cp_async16(qd + r * LD + col, q + src, valid);
-      cp_async16(dd + r * LD + col, dout + src, valid);
-    }
-    float* sd = stats + st * 2 * KM;
-    for (int r = tid; r < KM; r += KTHREADS) {
-      const bool valid = q0 + r < q_len;
-      const size_t src = head + (valid ? q0 + r : 0);
-      cp_async4(sd + r, lse + src, valid);
-      cp_async4(sd + KM + r, delta + src, valid);
-    }
-  };
-
-  load_step(0, 0);
-  cp_async_commit();
-
-  float dka[D / 8][4], dva[D / 8][4];
-  zero<D / 8>(dka);
-  zero<D / 8>(dva);
-  const int kv_warp = kv0 + warp * 16;
+  const size_t off = ((size_t)bh * q_len + r) * D + sub * 8;
   const float qscale = __bfloat162float(__float2bfloat16_rn(scale_log2));
-
-  for (int it = 0; it < n_it; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_it) load_step(it + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int q0 = (qt0 + it % n_qt) * KM;
-    bf16* qr = ring + st * STAGE;  // q as stored
-    bf16* qsc = qr + KM * LD;
-    const bf16* dos = qr + 2 * KM * LD;
-    float* sd = stats + st * 2 * KM;
-
-    // q scaled by sm_scale*log2(e) rounded to bf16, product rounded to bf16
-    // (the forward's fold), beside q as stored (for dK)
-    for (int c = tid; c < KM * CH; c += KTHREADS) {
-      const int r = c / CH, col = (c % CH) * 8;
-      uint4 raw = *reinterpret_cast<const uint4*>(qr + r * LD + col);
-      bf16* e = reinterpret_cast<bf16*>(&raw);
+  const uint4 o4 = *reinterpret_cast<const uint4*>(out + off);
+  const uint4 g4 = *reinterpret_cast<const uint4*>(dout + off);
+  uint4 x4 = *reinterpret_cast<const uint4*>(q + off);
+  const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&o4);
+  const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&g4);
+  __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&x4);
+  float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
-      *reinterpret_cast<uint4*>(qsc + r * LD + col) = raw;
-    }
-    __syncthreads();
-
-    // S^T = K Qs^T: 16 kv rows x KM q columns per warp
-    float s[KM / 8][4];
-    zero<KM / 8>(s);
-    mma_abt_smem<D, KM / 8>(s, ks, warp * 16, qsc, lane);
-
-    const bool need_mask = q0 + KM > q_len || kv_warp + 16 > kv_len ||
-                           (causal && kv_warp + 15 > q0 + offset);
-#pragma unroll
-    for (int nt = 0; nt < KM / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = nt * 8 + (lane % 4) * 2 + (i & 1);
-        float p = exp2f(s[nt][i] - lse2_of(sd[qc]));
-        if (need_mask) {
-          const int row = q0 + qc, col = kv_warp + lane / 4 + (i >> 1) * 8;
-          if (!(row < q_len && col < kv_len && (!causal || col <= row + offset)))
-            p = 0.f;
-        }
-        s[nt][i] = p;
-      }
-    }
-
-    // dV += P^T dout
-    uint32_t pa[KM / 16][4];
-    pack_a<KM / 8>(pa, s);
-    mma_ab_regs<D, KM / 16>(dva, pa, dos, lane);
-
-    // dP^T = V dout^T, then dS^T = P^T (dP^T - delta)
-    float dp[KM / 8][4];
-    zero<KM / 8>(dp);
-    mma_abt_smem<D, KM / 8>(dp, vs, warp * 16, dos, lane);
-#pragma unroll
-    for (int nt = 0; nt < KM / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = nt * 8 + (lane % 4) * 2 + (i & 1);
-        dp[nt][i] = s[nt][i] * (dp[nt][i] - sd[KM + qc]);
-      }
-    }
-
-    // dK += dS^T q (q as stored, not scaled)
-    uint32_t dsa[KM / 16][4];
-    pack_a<KM / 8>(dsa, dp);
-    mma_ab_regs<D, KM / 16>(dka, dsa, qr, lane);
-    __syncthreads();  // this stage is refilled at the next step
+  for (int i = 0; i < 4; ++i) {
+    dot = fmaf(__low2float(o[i]), __low2float(g[i]), dot);
+    dot = fmaf(__high2float(o[i]), __high2float(g[i]), dot);
+    x[i] = __floats2bfloat162_rn(__low2float(x[i]) * qscale,
+                                 __high2float(x[i]) * qscale);
   }
-
-  const size_t base = (size_t)(b * hkv + kvh) * kv_len * D;
-  store_rows<D>(dk + base, dka, kv_warp, kv_len, sm_scale, lane);
-  store_rows<D>(dv + base, dva, kv_warp, kv_len, 1.f, lane);
+  *reinterpret_cast<uint4*>(qs + off) = x4;
+  // the lanes of one row: every lane of the group took the same branch
+  const unsigned group = (LANES == 32 ? 0xffffffffu : (1u << LANES) - 1u)
+                         << (lane / LANES * LANES);
+#pragma unroll
+  for (int m = LANES / 2; m > 0; m >>= 1)
+    dot += __shfl_xor_sync(group, dot, m);
+  if (sub == 0) {
+    const float l2 = lse[(size_t)bh * q_len + r] * kLog2e;
+    lse2[row] = l2 > 0.5f * kMaskValue ? l2 : INFINITY;
+    delta[row] = dot;
+  }
 }
 
-// --------------------------------------------------------------- bf16 dq
+template <int D, bool WINDOW, bool SEGS>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_qs,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, const int* table,
+                          float* __restrict__ dq_acc,
+                          float* __restrict__ dk_acc,
+                          float* __restrict__ dv_acc, int batch, int hq,
+                          int hkv, int q_len, int kv_len, int q_pad,
+                          int causal, int window) {
+  using S = Smem<D>;
+  constexpr int BOXES = D / 64;                  // 64-wide column blocks
+  constexpr int DQ_PARTS = D / 64;               // dQ chunks per q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::BAR);  // [2]
+  uint64_t* kv_bar = full + 2;
 
-constexpr int QM = TFA_BWD_BF16_DQ_BLOCK_M;  // q rows per block
-constexpr int QN = TFA_BWD_BF16_DQ_BLOCK_N;  // kv rows per step
-constexpr int QTHREADS = TFA_BWD_BF16_DQ_THREADS;
-static_assert(QM == QTHREADS / 32 * 16, "each warp owns 16 q rows");
-static_assert(QN % 16 == 0, "the kv step is a multiple of the mma depth");
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  // q scaled, dout; two stages of K and V
-  return (2 * QM + 4 * QN) * (D + PAD) * (int)sizeof(bf16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(QTHREADS)
-    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             bf16* __restrict__ dq, int hq, int hkv,
-                             int q_len, int kv_len, int causal,
-                             float scale_log2, float sm_scale) {
-  constexpr int LD = D + PAD;
-  constexpr int CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [QM][LD], scaled
-  bf16* dos = qs + QM * LD;                      // [QM][LD]
-  bf16* ks = dos + QM * LD;                      // [2][QN][LD]
-  bf16* vs = ks + 2 * QN * LD;                   // [2][QN][LD]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * QM;  // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_kvt = (kv_len + HN - 1) / HN;
+  const Table tab(table, n_kvt);
+  const int rank = blockIdx.x / (hq * batch);    // longest band first
+  const int hb = blockIdx.x % (hq * batch);
+  const int j = tab.order[rank];
+  const int h = hb % hq, b = hb / hq;
   const int kvh = h / (hq / hkv);
-  const int offset = kv_len - q_len;
-  const size_t head = (size_t)(b * hq + h) * q_len;
-  const bf16* qg = q + head * D;
-  const bf16* dog = dout + head * D;
-  const bf16* kg = k + (size_t)(b * hkv + kvh) * kv_len * D;
-  const bf16* vg = v + (size_t)(b * hkv + kvh) * kv_len * D;
-  const int n_tiles = kv_tiles(q0, QM, q_len, kv_len, causal, QN);
+  const int lo = tab.lo[j];
+  const int n = tab.hi[j] - lo;                  // q tiles to visit
+  if (n <= 0) return;  // no row sees the tile: its gradients stay 0
 
-  auto load_kv = [&](int tile, int buf) {
-    const int kv0 = tile * QN;
-    bf16* kd = ks + buf * QN * LD;
-    bf16* vd = vs + buf * QN * LD;
-    for (int c = tid; c < QN * CH; c += QTHREADS) {
-      const int r = c / CH, col = (c % CH) * 8;
-      const bool valid = kv0 + r < kv_len;
-      const size_t src = (size_t)(valid ? kv0 + r : 0) * D + col;
-      cp_async16(kd + r * LD + col, kg + src, valid);
-      cp_async16(vd + r * LD + col, vg + src, valid);
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int kv0 = j * HN;
+  const int offset = kv_len - q_len;
+  const int bh = b * hq + h;
+  const size_t rows_base = (size_t)bh * q_pad;   // lse2, delta rows
+
+  auto stage_ptr = [&](int st) { return sm + S::RING + st * S::STAGE; };
+  auto load_stage = [&](int st, int qt) {
+    unsigned char* p = stage_ptr(st);
+    mbar_expect_tx(&full[st], 3 * S::QT + (SEGS ? 3 : 2) * HM * 4);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load_3d(p + c * HM * 128, &tm_q, &full[st], 64 * c, qt * HM, bh);
+      tma_load_3d(p + S::QT + c * HM * 128, &tm_qs, &full[st], 64 * c,
+                  qt * HM, bh);
+      tma_load_3d(p + 2 * S::QT + c * HM * 128, &tm_do, &full[st], 64 * c,
+                  qt * HM, bh);
     }
+    float* rows = reinterpret_cast<float*>(p + 3 * S::QT);
+    bulk_load(rows, lse2 + rows_base + qt * HM, HM * 4, &full[st]);
+    bulk_load(rows + HM, delta + rows_base + qt * HM, HM * 4, &full[st]);
+    if (SEGS)
+      bulk_load(rows + 2 * HM, q_seg + (size_t)b * q_pad + qt * HM, HM * 4,
+                &full[st]);
   };
 
-  load_kv(0, 0);
-  for (int c = tid; c < QM * CH; c += QTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool valid = q0 + r < q_len;
-    cp_async16(dos + r * LD + col,
-               dog + (size_t)(valid ? q0 + r : 0) * D + col, valid);
-  }
-  cp_async_commit();
-
-  // q scaled as in the forward: (q * bf16(scale_log2)) rounded to bf16
-  const float qscale = __bfloat162float(__float2bfloat16_rn(scale_log2));
-  for (int c = tid; c < QM * CH; c += QTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < q_len)
-      raw = *reinterpret_cast<const uint4*>(qg + (size_t)(q0 + r) * D + col);
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
-    *reinterpret_cast<uint4*>(qs + r * LD + col) = raw;
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t qa[D / 16][4];
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * S::KV);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qa[kk], qs, LD, warp * 16, kk * 16, lane);
-
-  // this thread's rows: qrow (accumulator slots 0, 1) and qrow + 8 (2, 3)
-  const int qrow = q0 + warp * 16 + lane / 4;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow + r * 8;
-    lse2[r] = row < q_len ? lse2_of(lse[head + row]) : INFINITY;
-    dlt[r] = row < q_len ? delta[head + row] : 0.f;
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load_3d(sm + S::K + c * HN * 128, &tm_k, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+      tma_load_3d(sm + S::V + c * HN * 128, &tm_v, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+    }
+    load_stage(0, lo);
+    if (n > 1) load_stage(1, lo + 1);
   }
-  const int warp_first_pos = q0 + warp * 16 + offset;
 
-  float dqa[D / 8][4];
-  zero<D / 8>(dqa);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) load_kv(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* kt = ks + buf * QN * LD;
-    const bf16* vt = vs + buf * QN * LD;
+  // this thread's kv rows: kr (accumulator slots 0, 1 of each 8-column
+  // block) and kr + 8 (slots 2, 3)
+  const int kvw = kv0 + wg * 64;                 // the warpgroup's first row
+  const int kr = kvw + warp * 16 + lane / 4;
+  int kid0 = 0, kid1 = 0;
+  if (SEGS) {
+    if (kr < kv_len) kid0 = kv_seg[(size_t)b * kv_len + kr];
+    if (kr + 8 < kv_len) kid1 = kv_seg[(size_t)b * kv_len + kr + 8];
+  }
+  const unsigned char* kw = sm + S::K + wg * 64 * 128;  // this WG's K rows
+  const unsigned char* vw = sm + S::V + wg * 64 * 128;
+  unsigned char* dst = sm + S::DST;
+  float* stg = reinterpret_cast<float*>(sm + S::STG) + wg * HM * 64;
+  // dQ: with D = 128 each warpgroup takes 64 head dims over all 128 kv
+  // rows; with D = 64 all head dims over its own 64 kv rows
+  constexpr int DQ_STEPS = D == 128 ? HN / 16 : 64 / 16;
+  const int dq_kv0 = D == 128 ? 0 : wg * 64;
+  const int dq_box = D == 128 ? wg : 0;
 
-    // S = Qs K^T (q fragments in registers)
-    float s[QN / 8][4];
-    zero<QN / 8>(s);
+  float dv[D / 2], dk[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    const int qt = lo + it, q0 = qt * HM;
+    unsigned char* sp = stage_ptr(st);
+    const unsigned char* qsm = sp;
+    const unsigned char* qss = sp + S::QT;
+    const unsigned char* dos = sp + 2 * S::QT;
+    const float* l2s = reinterpret_cast<const float*>(sp + 3 * S::QT);
+    const float* dls = l2s + HM;
+    const int* qids = reinterpret_cast<const int*>(l2s + 2 * HM);
+    mbar_wait(&full[st], (it >> 1) & 1);
+
+    // S^T = K qs^T and dP^T = V dout^T: 64 kv rows x 64 q columns each
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < QN / 8; nt += 2) {
-        uint32_t bb[4];
-        load_b(bb, kt, LD, nt, kk * 16, lane);
-        mma_16816(s[nt], qa[kk], bb[0], bb[1]);
-        mma_16816(s[nt + 1], qa[kk], bb[2], bb[3]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(
+          s, smem_desc(kw + (kk / 4) * HN * 128 + (kk % 4) * 32, 16, 1024),
+          smem_desc(qss + (kk / 4) * HM * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0, 0>(
+          dp, smem_desc(vw + (kk / 4) * HN * 128 + (kk % 4) * 32, 16, 1024),
+          smem_desc(dos + (kk / 4) * HM * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+
+    // P^T = exp2(S^T - lse2) (0 where masked and on empty rows)
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool need_mask = SEGS || kvw + 64 > kv_len ||
+                           (causal && kvw + 63 > q0 + offset) ||
+                           (WINDOW && kvw < q0 + 64 + offset - window);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(l2s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(s[4 * jj + e] - ((e & 1) ? l2.y : l2.x));
+        if (need_mask) {
+          const int col = e < 2 ? kr : kr + 8;   // kv position
+          const int row = q0 + c + (e & 1);      // q row
+          bool ok = col < kv_len && (!causal || col <= row + offset) &&
+                    (!WINDOW || col > row + offset - window);
+          if (SEGS) ok = ok && qids[c + (e & 1)] == (e < 2 ? kid0 : kid1);
+          if (!ok) p = 0.f;
+        }
+        s[4 * jj + e] = p;
       }
     }
-    // dP = dout V^T
-    float dp[QN / 8][4];
-    zero<QN / 8>(dp);
-    mma_abt_smem<D, QN / 8>(dp, dos, warp * 16, vt, lane);
-
-    const int kv0 = j * QN;
-    const bool need_mask =
-        kv0 + QN > kv_len || (causal && kv0 + QN - 1 > warp_first_pos);
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int nt = 0; nt < QN / 8; ++nt) {
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * (lane & 3);
+      const float2 dl = *reinterpret_cast<const float2*>(dls + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    // P^T and dS^T as bf16 A fragments (the accumulator layout is the
+    // A-fragment layout over each 16 columns)
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        float p = exp2f(s[nt][i] - lse2[r]);
-        if (need_mask) {
-          const int col = kv0 + nt * 8 + (lane % 4) * 2 + (i & 1);
-          if (!(col < kv_len && (!causal || col <= qrow + r * 8 + offset)))
-            p = 0.f;
-        }
-        dp[nt][i] = p * (dp[nt][i] - dlt[r]);
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        da[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
       }
-    }
 
-    // dQ += dS K
-    uint32_t dsa[QN / 16][4];
-    pack_a<QN / 8>(dsa, dp);
-    mma_ab_regs<D, QN / 16>(dqa, dsa, kt, lane);
-    __syncthreads();  // the buffer is refilled two steps from now
+    // dV += P^T dout, dK += dS^T q (dout and q read MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = smem_desc(dos + kk * 16 * 128, HM * 128, 1024);
+      if constexpr (D == 128) wgmma_rs_n128(dv, pa[kk], db);
+      else wgmma_rs_n64(dv, pa[kk], db);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = smem_desc(qsm + kk * 16 * 128, HM * 128, 1024);
+      if constexpr (D == 128) wgmma_rs_n128(dk, da[kk], db);
+      else wgmma_rs_n64(dk, da[kk], db);
+    }
+    wgmma_commit();
+    // dS^T to shared memory in the 128-byte swizzle, beside the products
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * (lane & 3);
+      const int r0 = wg * 64 + warp * 16 + lane / 4;
+      *reinterpret_cast<uint32_t*>(dst + swz(r0, c)) = da[jj / 2][(jj % 2) * 2];
+      *reinterpret_cast<uint32_t*>(dst + swz(r0 + 8, c)) =
+          da[jj / 2][(jj % 2) * 2 + 1];
+    }
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    fence_async_smem();
+    __syncthreads();  // dS^T whole; this stage is read by no one
+    if (tid == 0 && it + 2 < n) load_stage(st, qt + 2);
+
+    // dQ (64 q rows x 64 head dims) = dS K, read MN-major from dS^T and K
+    float dq[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_STEPS; ++kk)
+      wgmma_ss_n64<1, 1>(
+          dq, smem_desc(dst + (dq_kv0 + 16 * kk) * 128, 64 * 128, 1024),
+          smem_desc(sm + S::K + dq_box * HN * 128 + (dq_kv0 + 16 * kk) * 128,
+                    HN * 128, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (t == 0) bulk_wait_read();  // the last step's dQ left the staging
+    __syncthreads();               // and dS^T is read by no one
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      reinterpret_cast<float4*>(stg)[i * 128 + t] =
+          make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
+    fence_async_smem();
+    named_bar(1 + wg, 128);
+    if (t == 0)
+      bulk_reduce_add(dq_acc + (((size_t)bh * (q_pad / HM) + qt) * DQ_PARTS +
+                                dq_box) * (HM * 64),
+                      stg, HM * 64 * 4);
   }
 
-  store_rows<D>(dq + head * D, dqa, q0 + warp * 16, q_len, sm_scale, lane);
+  // dK, dV of the warpgroup's 64 rows, f32 in fragment order, into the
+  // kv head's accumulators (the ring and K/V are free now)
+  if (t == 0) bulk_wait_read();
+  __syncthreads();
+  float4* dks = reinterpret_cast<float4*>(sm) + wg * 2 * 64 * D / 4;
+  float4* dvs = dks + 64 * D / 4;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    dks[i * 128 + t] = make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2],
+                                   dk[4 * i + 3]);
+    dvs[i * 128 + t] = make_float4(dv[4 * i], dv[4 * i + 1], dv[4 * i + 2],
+                                   dv[4 * i + 3]);
+  }
+  fence_async_smem();
+  named_bar(1 + wg, 128);
+  if (t == 0) {
+    const size_t at =
+        (((size_t)(b * hkv + kvh) * n_kvt + j) * 2 + wg) * (64 * D);
+    bulk_reduce_add(dk_acc + at, dks, 64 * D * 4);
+    bulk_reduce_add(dv_acc + at, dvs, 64 * D * 4);
+    bulk_wait_read();  // the writes complete before the next launch
+  }
 }
 
+// One 64-row chunk of an accumulator in fragment order (64 x cw f32,
+// float4 (i, t) holding rows R, R + 8 and columns C, C + 1 of the wgmma
+// accumulator layout), scaled and rounded to bf16 through shared memory,
+// then written as whole 16-byte pieces of rows. `parts` chunks make a tile
+// of `tile_rows` rows: the parts of a 64-row tile split its columns (dq at
+// D = 128), those of a 128-row tile its rows (dk, dv).
+template <int D, int cw>
+__device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
+                                           long chunk, int parts,
+                                           int tile_rows, int tiles,
+                                           int n_rows, float scale,
+                                           bf16* tile) {
+  constexpr int LD = D + 8;                      // bf16 per tile row
+  const int t = threadIdx.x;
+  const float4* a4 = reinterpret_cast<const float4*>(acc) + chunk * cw * 16;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  float4 av[cw / 8];
+#pragma unroll
+  for (int i = 0; i < cw / 8; ++i) av[i] = a4[i * 128 + t];
+#pragma unroll
+  for (int i = 0; i < cw / 8; ++i) {
+    const float4 a = av[i];
+    const int c = 8 * i + 2 * (t % 4);
+    *reinterpret_cast<__nv_bfloat162*>(tile + r * LD + c) =
+        __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * LD + c) =
+        __floats2bfloat162_rn(a.z * scale, a.w * scale);
+  }
+  __syncthreads();
+  const int part = (int)(chunk % parts);
+  const int tidx = (int)((chunk / parts) % tiles);
+  const long bh = chunk / parts / tiles;
+  const int row0 = tidx * tile_rows + (tile_rows == 64 ? 0 : part * 64);
+  const int col0 = tile_rows == 64 ? part * 64 : 0;
+  bf16* o = out + (size_t)bh * n_rows * D + col0;
+  for (int x = t; x < 64 * cw / 8; x += 128) {
+    const int row = x / (cw / 8), c8 = (x % (cw / 8)) * 8;
+    if (row0 + row < n_rows)
+      *reinterpret_cast<uint4*>(o + (size_t)(row0 + row) * D + c8) =
+          *reinterpret_cast<const uint4*>(tile + row * LD + c8);
+  }
+}
+
+// One block of 128 threads per 64-row chunk: dq's chunks, then dk's, then
+// dv's.
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dq, void* dk, void* dv,
-                        int batch, int hq, int hkv, int q_len, int kv_len,
-                        int causal, float scale_log2, float sm_scale,
-                        cudaStream_t stream) {
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* db = static_cast<const bf16*>(dout);
-  if (dq != nullptr) {
-    static bool smem_set[kMaxDevices] = {};
-    cudaError_t err = raise_smem_limit(flash_bwd_dq_bf16_kernel<D>,
-                                       dq_smem_bytes<D>(), smem_set);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((q_len + QM - 1) / QM, hq, batch);
-    flash_bwd_dq_bf16_kernel<D><<<grid, QTHREADS, dq_smem_bytes<D>(),
-                                  stream>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), hq, hkv, q_len,
-        kv_len, causal, scale_log2, sm_scale);
-    err = cudaGetLastError();
+__global__ void __launch_bounds__(128)
+    flash_bwd_post_kernel(const float* __restrict__ dq_acc,
+                          const float* __restrict__ dk_acc,
+                          const float* __restrict__ dv_acc,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, long n_dq, long n_kv,
+                          int q_len, int kv_len, float sm_scale) {
+  __shared__ __align__(16) bf16 tile[64 * (D + 8)];
+  const long g = blockIdx.x;
+  const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + HN - 1) / HN;
+  if (g < n_dq)
+    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, sm_scale,
+                      tile);
+  else if (g < n_dq + n_kv)
+    post_chunk<D, D>(dk_acc, dk, g - n_dq, 2, HN, n_kvt, kv_len, sm_scale,
+                     tile);
+  else
+    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, 1.f,
+                     tile);
+}
+
+// cuTensorMapEncodeTiled, fetched through the CUDA runtime's entry-point
+// query (no link to libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &res) ==
+            cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (D, rows, heads) bf16 tensor as a 3-D map with boxes of 64 columns x
+// box_rows rows of one head, in the 128-byte swizzle.
+bool bf16_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
+              int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Bf16Args {
+  const void *q, *k, *v, *out, *dout;
+  const float* lse;
+  void* qs;
+  float *lse2, *delta;
+  const int *q_seg, *kv_seg, *table;
+  float *dq_acc, *dk_acc, *dv_acc;
+  void *dq, *dk, *dv;
+  int batch, hq, hkv, q_len, kv_len, causal, window;
+  float scale_log2, sm_scale;
+};
+
+template <int D, bool WINDOW, bool SEGS>
+cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
+  static bool smem_set[kMaxDevices] = {};
+  const auto kernel = flash_bwd_main_kernel<D, WINDOW, SEGS>;
+  cudaError_t err = raise_smem_limit(kernel, Smem<D>::ALLOC, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mq, mqs, mdo, mk, mv;
+  const int bhq = a.batch * a.hq, bhk = a.batch * a.hkv;
+  if (!bf16_map(&mq, a.q, D, a.q_len, bhq, HM) ||
+      !bf16_map(&mqs, a.qs, D, a.q_len, bhq, HM) ||
+      !bf16_map(&mdo, a.dout, D, a.q_len, bhq, HM) ||
+      !bf16_map(&mk, a.k, D, a.kv_len, bhk, HN) ||
+      !bf16_map(&mv, a.v, D, a.kv_len, bhk, HN))
+    return cudaErrorInvalidValue;
+  const int n_kvt = (a.kv_len + HN - 1) / HN;
+  const int q_pad = (a.q_len + HM - 1) / HM * HM;
+  kernel<<<n_kvt * a.hq * a.batch, HTHREADS, Smem<D>::ALLOC, stream>>>(
+      mq, mqs, mdo, mk, mv, a.lse2, a.delta, a.q_seg, a.kv_seg, a.table,
+      a.dq_acc, a.dk_acc, a.dv_acc, a.batch, a.hq, a.hkv, a.q_len, a.kv_len,
+      q_pad, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// stages: 1 prep, 2 main, 4 post (chip_smoke.py times them one by one).
+template <int D>
+cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
+  const int q_pad = (a.q_len + HM - 1) / HM * HM;
+  const int n_bh = a.batch * a.hq;
+  if (stages & 1) {
+    const long rows = (long)n_bh * q_pad;
+    const int per_block = PREP_WARPS * 32 / (D / 8);
+    flash_bwd_prep_kernel<D><<<(unsigned)((rows + per_block - 1) / per_block),
+                               32 * PREP_WARPS, 0, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.out),
+        static_cast<const bf16*>(a.dout), a.lse, static_cast<bf16*>(a.qs),
+        a.lse2, a.delta, n_bh, a.q_len, q_pad, a.scale_log2);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (dk != nullptr) {
-    static bool smem_set[kMaxDevices] = {};
-    cudaError_t err = raise_smem_limit(flash_bwd_dkv_bf16_kernel<D>,
-                                       dkv_smem_bytes<D>(), smem_set);
+  if (stages & 2) {
+    const bool w = a.window > 0, s = a.q_seg != nullptr;
+    const cudaError_t err =
+        w ? (s ? launch_main<D, true, true>(a, stream)
+               : launch_main<D, true, false>(a, stream))
+          : (s ? launch_main<D, false, true>(a, stream)
+               : launch_main<D, false, false>(a, stream));
     if (err != cudaSuccess) return err;
-    const dim3 grid((kv_len + KN - 1) / KN, hkv, batch);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, KTHREADS, dkv_smem_bytes<D>(),
-                                   stream>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), hq, hkv, q_len, kv_len, causal, scale_log2,
-        sm_scale);
-    err = cudaGetLastError();
+  }
+  if (stages & 4) {
+    const int n_kvt = (a.kv_len + HN - 1) / HN;
+    const long n_dq = (long)n_bh * (q_pad / HM) * (D / 64);  // 64-row chunks
+    const long n_kv = (long)a.batch * a.hkv * n_kvt * 2;
+    flash_bwd_post_kernel<D><<<(unsigned)(n_dq + 2 * n_kv), 128, 0,
+                               stream>>>(
+        a.dq_acc, a.dk_acc, a.dv_acc, static_cast<bf16*>(a.dq),
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n_dq, n_kv,
+        a.q_len, a.kv_len, a.sm_scale);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -545,9 +831,17 @@ static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
 constexpr int PT = 68;      // row stride of a transposed [D][64] tile
 constexpr int PS = FN + 1;  // row stride of the [64][64] score tile
 
+// The LSE in the log2 domain, or +inf on rows that carry the empty-row
+// sentinel (and on padding rows), so that exp2(s - lse2) is 0 there.
+__device__ __forceinline__ float lse2_of(float lse) {
+  const float l2 = lse * kLog2e;
+  return l2 > 0.5f * kMaskValue ? l2 : INFINITY;
+}
+
 template <int D>
 constexpr int f32_smem_bytes() {
-  return (4 * D * PT + 64 * PS + 2 * 64) * (int)sizeof(float);
+  return (4 * D * PT + 64 * PS + 2 * 64) * (int)sizeof(float) +
+         64 * (int)sizeof(int);
 }
 
 // rows [r0, r0 + 64) of a row-major (rows, D) matrix -> t[d * PT + r],
@@ -565,6 +859,13 @@ __device__ __forceinline__ void load_t(float* t, const float* g, int r0,
     t[(col + 2) * PT + r] = x.z * scale;
     t[(col + 3) * PT + r] = x.w * scale;
   }
+}
+
+// 64 ids from rows [r0, r0 + 64) of one batch row (0 past n)
+__device__ __forceinline__ void load_ids(int* dst, const int* ids, int r0,
+                                         int n, int tid) {
+  for (int r = tid; r < 64; r += FTHREADS)
+    dst[r] = r0 + r < n ? ids[r0 + r] : 0;
 }
 
 // out[i][j] = sum_d a[d][rg * 4 + i] * (b[d][cg + 16 j] * bscale)
@@ -623,6 +924,16 @@ __device__ __forceinline__ void store_f32(float* g, float (&acc)[4][D / 16],
   }
 }
 
+// Whether q row `row` sees kv column `col` under the causal mask (with the
+// decode offset), the window and the ids (qid, kid; equal when off).
+__device__ __forceinline__ bool visible(int row, int col, int q_len,
+                                        int kv_len, int causal, int window,
+                                        int qid, int kid) {
+  const int pos = row + kv_len - q_len;
+  return row < q_len && col < kv_len && (!causal || col <= pos) &&
+         (window <= 0 || col > pos - window) && qid == kid;
+}
+
 template <int D>
 __global__ void __launch_bounds__(FTHREADS)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
@@ -631,9 +942,12 @@ __global__ void __launch_bounds__(FTHREADS)
                              const float* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int hq, int hkv, int q_len, int kv_len,
-                             int causal, float scale_log2, float sm_scale) {
+                             const int* __restrict__ q_seg,
+                             const int* __restrict__ kv_seg,
+                             const int* table, float* __restrict__ dk,
+                             float* __restrict__ dv, int hq, int hkv,
+                             int q_len, int kv_len, int causal, int window,
+                             float scale_log2, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* kt = reinterpret_cast<float*>(smem_raw);  // [D][PT] this block's K
   float* vt = kt + D * PT;                         // [D][PT] this block's V
@@ -642,16 +956,27 @@ __global__ void __launch_bounds__(FTHREADS)
   float* ps = dot + D * PT;                        // [64][PS] P^T, then dS^T
   float* l2s = ps + 64 * PS;                       // [64] lse2 of the q tile
   float* dls = l2s + 64;                           // [64] delta of the q tile
+  int* qids = reinterpret_cast<int*>(dls + 64);    // [64] q ids of the tile
 
+  const int n_kvt = (kv_len + FN - 1) / FN;
+  const Table tab(table, n_kvt);
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int kv0 = blockIdx.x * FN;
+  const int jt = tab.order[blockIdx.x];
+  const int kv0 = jt * FN;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int group = hq / hkv;
-  const int offset = kv_len - q_len;
-  const int first_row = causal ? max(0, kv0 - offset) : 0;
-  const int qt0 = first_row / FM;
-  const int n_qt = (q_len + FM - 1) / FM - qt0;
+  const int lo = tab.lo[jt];
+  const int n_qt = max(0, tab.hi[jt] - lo);
   const size_t kv_base = (size_t)(b * hkv + kvh) * kv_len * D;
+  const bool segs = q_seg != nullptr;
+  int kid[4] = {0, 0, 0, 0};  // ids of this thread's kv rows
+  if (segs) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = kv0 + rg * 4 + i;
+      if (col < kv_len) kid[i] = kv_seg[(size_t)b * kv_len + col];
+    }
+  }
 
   load_t<D>(kt, k + kv_base, kv0, kv_len, 1.f, tid);
   load_t<D>(vt, v + kv_base, kv0, kv_len, 1.f, tid);
@@ -664,7 +989,7 @@ __global__ void __launch_bounds__(FTHREADS)
 
   for (int it = 0; it < group * n_qt; ++it) {
     const int h = kvh * group + it / n_qt;
-    const int q0 = (qt0 + it % n_qt) * FM;
+    const int q0 = (lo + it % n_qt) * FM;
     const size_t head = (size_t)(b * hq + h) * q_len;
     __syncthreads();  // the previous step's tiles are no longer read
     load_t<D>(qt, q + head * D, q0, q_len, 1.f, tid);
@@ -674,6 +999,7 @@ __global__ void __launch_bounds__(FTHREADS)
       l2s[r] = valid ? lse2_of(lse[head + q0 + r]) : INFINITY;
       dls[r] = valid ? delta[head + q0 + r] : 0.f;
     }
+    if (segs) load_ids(qids, q_seg + (size_t)b * q_len, q0, q_len, tid);
     __syncthreads();
 
     // S^T (kv rows x q columns) with q scaled in f32 as it is read; dP^T
@@ -685,9 +1011,9 @@ __global__ void __launch_bounds__(FTHREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qc = cg + 16 * j;
-        const int row = q0 + qc, col = kv0 + rg * 4 + i;
         float p = exp2f(s[i][j] - l2s[qc]);
-        if (!(row < q_len && col < kv_len && (!causal || col <= row + offset)))
+        if (!visible(q0 + qc, kv0 + rg * 4 + i, q_len, kv_len, causal,
+                     window, segs ? qids[qc] : 0, kid[i]))
           p = 0.f;
         s[i][j] = p;
         dp[i][j] = p * (dp[i][j] - dls[qc]);
@@ -717,8 +1043,10 @@ __global__ void __launch_bounds__(FTHREADS)
                             const float* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
+                            const int* __restrict__ q_seg,
+                            const int* __restrict__ kv_seg, const int* table,
                             float* __restrict__ dq, int hq, int hkv,
-                            int q_len, int kv_len, int causal,
+                            int q_len, int kv_len, int causal, int window,
                             float scale_log2, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qt = reinterpret_cast<float*>(smem_raw);  // [D][PT] q scaled
@@ -726,24 +1054,30 @@ __global__ void __launch_bounds__(FTHREADS)
   float* kt = dot + D * PT;                        // [D][PT] K tile
   float* vt = kt + D * PT;                         // [D][PT] V tile
   float* dss = vt + D * PT;                        // [64][PS] dS
+  int* kids = reinterpret_cast<int*>(dss + 64 * PS + 2 * 64);  // [64]
 
+  const int n_qt = (q_len + FM - 1) / FM;
+  const Table tab(table, n_qt);
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FM;  // longest rows first
+  const int qi = tab.order[blockIdx.x];
+  const int q0 = qi * FM;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
-  const int offset = kv_len - q_len;
   const size_t head = (size_t)(b * hq + h) * q_len;
   const size_t kv_base = (size_t)(b * hkv + kvh) * kv_len * D;
-  const int n_tiles = kv_tiles(q0, FM, q_len, kv_len, causal, FN);
+  const int lo = tab.lo[qi], hi = tab.hi[qi];
+  const bool segs = q_seg != nullptr;
 
   load_t<D>(qt, q + head * D, q0, q_len, scale_log2, tid);
   load_t<D>(dot, dout + head * D, q0, q_len, 1.f, tid);
   float lse2[4], dlt[4];
+  int qid[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg * 4 + i;
     lse2[i] = row < q_len ? lse2_of(lse[head + row]) : INFINITY;
     dlt[i] = row < q_len ? delta[head + row] : 0.f;
+    if (segs && row < q_len) qid[i] = q_seg[(size_t)b * q_len + row];
   }
 
   float dqa[4][D / 16];
@@ -752,11 +1086,12 @@ __global__ void __launch_bounds__(FTHREADS)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dqa[i][j] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = lo; t < hi; ++t) {
     const int kv0 = t * FN;
     __syncthreads();  // the previous tile's kt / vt / dss are no longer read
     load_t<D>(kt, k + kv_base, kv0, kv_len, 1.f, tid);
     load_t<D>(vt, v + kv_base, kv0, kv_len, 1.f, tid);
+    if (segs) load_ids(kids, kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -768,7 +1103,9 @@ __global__ void __launch_bounds__(FTHREADS)
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + rg * 4 + i, col = kv0 + cg + 16 * j;
         float p = exp2f(s[i][j] - lse2[i]);
-        if (!(col < kv_len && (!causal || col <= row + offset))) p = 0.f;
+        if (!visible(row, col, q_len, kv_len, causal, window, qid[i],
+                     segs ? kids[cg + 16 * j] : 0))
+          p = 0.f;
         dss[(rg * 4 + i) * PS + cg + 16 * j] = p * (dp[i][j] - dlt[i]);
       }
     }
@@ -779,40 +1116,41 @@ __global__ void __launch_bounds__(FTHREADS)
   store_f32<D>(dq + head * D, dqa, q0, q_len, sm_scale, rg, cg);
 }
 
+struct F32Args {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  const int *q_seg, *kv_seg, *kv_table, *q_table;
+  float *dq, *dk, *dv;
+  int batch, hq, hkv, q_len, kv_len, causal, window;
+  float scale_log2, sm_scale;
+};
+
+// stages: 1 the dq kernel, 2 the dk/dv kernel.
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       void* dq, void* dk, void* dv, int batch, int hq,
-                       int hkv, int q_len, int kv_len, int causal,
-                       float scale_log2, float sm_scale,
-                       cudaStream_t stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
+cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
   const int smem = f32_smem_bytes<D>();
-  if (dq != nullptr) {
+  if (stages & 1) {
     static bool smem_set[kMaxDevices] = {};
     cudaError_t err =
         raise_smem_limit(flash_bwd_dq_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((q_len + FM - 1) / FM, hq, batch);
+    const dim3 grid((a.q_len + FM - 1) / FM, a.hq, a.batch);
     flash_bwd_dq_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
-        qf, kf, vf, df, lse, delta, static_cast<float*>(dq), hq, hkv, q_len,
-        kv_len, causal, scale_log2, sm_scale);
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg, a.q_table,
+        a.dq, a.hq, a.hkv, a.q_len, a.kv_len, a.causal, a.window,
+        a.scale_log2, a.sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (dk != nullptr) {
+  if (stages & 2) {
     static bool smem_set[kMaxDevices] = {};
     cudaError_t err =
         raise_smem_limit(flash_bwd_dkv_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((kv_len + FN - 1) / FN, hkv, batch);
+    const dim3 grid((a.kv_len + FN - 1) / FN, a.hkv, a.batch);
     flash_bwd_dkv_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
-        qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), hq, hkv, q_len, kv_len, causal, scale_log2,
-        sm_scale);
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg, a.kv_table,
+        a.dk, a.dv, a.hq, a.hkv, a.q_len, a.kv_len, a.causal, a.window,
+        a.scale_log2, a.sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -821,38 +1159,56 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the kernels were launched. Launches the dq
-// kernel when dq is not null and the dk/dv kernel when dk (and dv) are not
-// null. dtype: 0 bf16, 1 f32. head_dim: 64 or 128. The caller has checked
-// shapes, contiguity and 16-byte alignment.
-extern "C" int tfa_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dq, void* dk, void* dv,
-                             int batch, int hq, int hkv, int q_len,
-                             int kv_len, int head_dim, int causal,
-                             float scale_log2, float sm_scale, int dtype,
-                             void* stream) {
+// Returns a cudaError_t: 0 when the kernels were launched. dtype 0 (bf16):
+// `stages` 1 flash_bwd_prep (delta, lse2 and qs from q, out, dout, lse), 2
+// flash_bwd_main (into dq_acc, dk_acc, dv_acc, zeroed by the caller), 4
+// flash_bwd_post (dq, dk, dv); q_seg is padded to whole 64-row tiles and
+// kv_table is the (3, ceil(kv_len / 128)) table of 64-row q tiles. dtype 1
+// (f32): `stages` 1 the dq kernel (q_table: (3, ceil(q_len / 64)) of 64-row
+// kv tiles), 2 the dk/dv kernel (kv_table: (3, ceil(kv_len / 64)) of 64-row
+// q tiles); delta is an input, rowsum(dout * out). q_seg and kv_seg are
+// both null or both set; window 0 is none. head_dim: 64 or 128. The caller
+// has checked shapes, contiguity and 16-byte alignment.
+extern "C" int tfa_flash_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* qs, void* lse2, void* delta,
+    const void* q_seg, const void* kv_seg, const void* kv_table,
+    const void* q_table, void* dq_acc, void* dk_acc, void* dv_acc, void* dq,
+    void* dk, void* dv, int batch, int hq, int hkv, int q_len, int kv_len,
+    int head_dim, int causal, int window, float scale_log2, float sm_scale,
+    int dtype, int stages, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
-      kv_len <= 0 || (dk == nullptr) != (dv == nullptr))
+      kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
+      window < 0 || (window > 0 && !causal) ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_bf16<128>(q, k, v, dout, l, dl, dq, dk, dv, batch, hq,
-                                 hkv, q_len, kv_len, causal, scale_log2,
-                                 sm_scale, s);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_bf16<64>(q, k, v, dout, l, dl, dq, dk, dv, batch, hq,
-                                hkv, q_len, kv_len, causal, scale_log2,
-                                sm_scale, s);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_f32<128>(q, k, v, dout, l, dl, dq, dk, dv, batch, hq,
-                                hkv, q_len, kv_len, causal, scale_log2,
-                                sm_scale, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_f32<64>(q, k, v, dout, l, dl, dq, dk, dv, batch, hq,
-                               hkv, q_len, kv_len, causal, scale_log2,
-                               sm_scale, s);
+  const int* qseg = static_cast<const int*>(q_seg);
+  const int* kvseg = static_cast<const int*>(kv_seg);
+  if (dtype == 0) {
+    const Bf16Args a{q, k, v, out, dout, static_cast<const float*>(lse), qs,
+                     static_cast<float*>(lse2), static_cast<float*>(delta),
+                     qseg, kvseg, static_cast<const int*>(kv_table),
+                     static_cast<float*>(dq_acc), static_cast<float*>(dk_acc),
+                     static_cast<float*>(dv_acc), dq, dk, dv, batch, hq, hkv,
+                     q_len, kv_len, causal, window, scale_log2, sm_scale};
+    return (int)(head_dim == 128 ? launch_bf16<128>(a, stages, s)
+                                 : launch_bf16<64>(a, stages, s));
+  }
+  if (dtype == 1) {
+    const F32Args a{static_cast<const float*>(q),
+                    static_cast<const float*>(k),
+                    static_cast<const float*>(v),
+                    static_cast<const float*>(dout),
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(delta),
+                    qseg, kvseg, static_cast<const int*>(kv_table),
+                    static_cast<const int*>(q_table),
+                    static_cast<float*>(dq), static_cast<float*>(dk),
+                    static_cast<float*>(dv), batch, hq, hkv, q_len, kv_len,
+                    causal, window, scale_log2, sm_scale};
+    return (int)(head_dim == 128 ? launch_f32<128>(a, stages, s)
+                                 : launch_f32<64>(a, stages, s));
+  }
   return (int)cudaErrorInvalidValue;
 }

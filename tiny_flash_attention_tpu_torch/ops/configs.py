@@ -35,13 +35,12 @@ PAGED_DECODE_WARPS = 8
 FLASH_V1_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
 FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=256)
 FLASH_V1_Q_TILES = 4
-# bf16 backward, dq: a block of 4 warps x 16 q rows steps over 64-row kv tiles
-# (q, dout and two stages of K and V: 6 x 64 x 136 bf16 = 104 KB).
-FLASH_BWD_BF16_DQ = TileConfig(block_m=64, block_n=64, threads=128)
-# bf16 backward, dk/dv: a block of 4 warps x 16 kv rows steps over 32-row q
-# tiles; each warp holds its rows' dk and dv in f32 registers (2 x 64 per
-# thread at head_dim 128), which is what keeps the q step at 32 rows.
-FLASH_BWD_BF16_DKV = TileConfig(block_m=32, block_n=64, threads=128)
+# bf16 backward, one pass: a block of two warpgroups owns a 128-row kv tile
+# (64 rows each, dk and dv in f32 registers: 2 x 64 per thread at head_dim
+# 128) and steps over 64-row q tiles that TMA streams through a two-stage
+# ring (K, V, two stages of q, qs and dout, dS^T and the dQ staging: 211 KB
+# of shared memory at head_dim 128). The kernel is written for these sizes.
+FLASH_BWD_BF16 = TileConfig(block_m=64, block_n=128, threads=256)
 # f32 backward, both kernels: 16 x 16 threads over a 64 x 64 score tile.
 FLASH_BWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
 # weight-only quantized matmul: a block owns 32 output columns and a slice
@@ -91,8 +90,7 @@ def nvcc_defines() -> list[str]:
     return [
         *_tile_defines("TFA_FWD_BF16", FLASH_FWD_BF16),
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
-        *_tile_defines("TFA_BWD_BF16_DQ", FLASH_BWD_BF16_DQ),
-        *_tile_defines("TFA_BWD_BF16_DKV", FLASH_BWD_BF16_DKV),
+        *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),
         f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",

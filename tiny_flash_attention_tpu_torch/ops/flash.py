@@ -14,10 +14,11 @@ starts each q tile's kv range at its band, as JAX's work list holds only
 band tiles.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
-custom_vjp (`_flash` and its two rules, flash.py:555-609). Its backward is
+custom_vjp (`_flash` and its two rules, flash.py:555-609), window, segment
+ids and `segment_starts` included. Its backward is
 ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
-CUDA and their plain version on the CPU; on CUDA it has no segment ids and
-no window yet and raises when reached with them.
+CUDA and their plain version on the CPU. `return_lse=True` stays off it, as
+in JAX: on CUDA a gradient through it raises (`forward_only`).
 
 The JAX entry routes q_len, kv_len <= 512 to XLA; that cutoff was a v5e
 measurement, so the port has none until H100 numbers set one.
@@ -38,6 +39,7 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_F32)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
@@ -59,7 +61,9 @@ class SegmentTiles:
     """Static `segment_starts` as the forward kernel's tile table, on the
     device: `tile_lo[i]` is the first kv tile q tile i visits (the segment
     start of its first row), `order[i]` the q tile block i takes, longest
-    pruned work first. Built by `segment_tiles`."""
+    pruned work first; `starts` the offsets themselves, from which the
+    backward builds its own table. Built by `segment_tiles`."""
+    starts: tuple
     q_len: int
     causal: bool
     block_m: int
@@ -97,7 +101,7 @@ def segment_tiles(segment_starts, q_len: int, *, causal: bool,
     order = np.argsort(lo - hi, kind="stable")
     both = torch.as_tensor(np.stack([lo, order]).astype(np.int32),
                            device=device)
-    return SegmentTiles(q_len, causal, bm, bn, both[0], both[1])
+    return SegmentTiles(starts, q_len, causal, bm, bn, both[0], both[1])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -123,11 +127,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns out (like q), and lse if asked. fp16 computes in f32, as in
     the JAX package, and its gradient flows through the casts. Gradients
-    flow through `_FlashAttention` (the backward kernels on CUDA, their
-    plain version on the CPU). return_lse=True is forward-only, as in JAX
-    (flash.py:704-707). On the CPU, window and segment ids take the plain
-    forward, which torch autograd differentiates. On CUDA they run the
-    forward kernel, and a backward through either raises.
+    flow through `_FlashAttention` (the kernels on CUDA, their plain
+    versions on the CPU), with the window, segment ids and segment_starts.
+    return_lse=True is forward-only, as in JAX (flash.py:704-707): on the
+    CPU it takes the plain forward, on CUDA a backward through it raises.
     """
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -155,24 +158,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.to(torch.float16)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    if q.is_cuda:
-        masks = {} if window is None else {"window": window}
-        if segment_ids is not None:
-            masks.update(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
-                         kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
-            if segment_starts is not None:
-                masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
-        if return_lse:
-            return _flash_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                                   **masks)
-        return _FlashAttention.apply(q, k, v, causal, sm_scale, masks)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
-    if window is None and segment_ids is None and not return_lse:
-        return _FlashAttention.apply(q, k, v, causal, sm_scale)
-    return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 segment_ids=segment_ids, window=window,
-                                 return_lse=return_lse)
+    if return_lse and not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale,
+                                     segment_ids=segment_ids, window=window,
+                                     return_lse=True)
+    masks = {} if window is None else {"window": window}
+    if segment_ids is not None:
+        masks.update(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
+                     kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
+        if segment_starts is not None and q.is_cuda:
+            masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
+    if return_lse:
+        return forward_only(
+            "flash_attention(return_lse=True)",
+            lambda: _flash_fwd_cuda(q, k, v, causal=causal,
+                                    sm_scale=sm_scale, **masks), q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, masks)
 
 
 # kernel launches, counted by _flash_fwd_cuda; window_launches those with a
@@ -182,26 +186,31 @@ flash_attention.window_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """out = attention(q, k, v), saving (q, k, v, out, lse) for a backward
-    that recomputes p tile by tile. The forward is the kernel on CUDA and
-    the plain version on the CPU; so is the backward."""
+    """out = attention(q, k, v), saving (q, k, v, out, lse) and the masks
+    (window, ids, the static segment starts) for a backward that
+    recomputes p tile by tile. The forward is the kernel on CUDA and the
+    plain version on the CPU; so is the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float,
-                masks: Optional[dict] = None):
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, masks: dict):
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-        masks = masks or {}
-        ctx.segments = "q_seg" in masks
-        ctx.window = masks.get("window")
+        window = masks.get("window")
+        segment_ids = None
+        if "q_seg" in masks:
+            segment_ids = (masks["q_seg"], masks["kv_seg"])
         if q.is_cuda:
             out, lse = _flash_fwd_cuda(q, k, v, causal=causal,
                                        sm_scale=sm_scale, **masks)
         else:
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              sm_scale=sm_scale,
-                                             return_lse=True)
+                                             segment_ids=segment_ids,
+                                             window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.window, ctx.segment_ids = window, segment_ids
+        tiles = masks.get("tiles")
+        ctx.segment_starts = None if tiles is None else tiles.starts
         return out
 
     @staticmethod
@@ -209,17 +218,11 @@ class _FlashAttention(torch.autograd.Function):
         # imported here: ops/flash_bwd.py imports this module's helpers
         from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
             flash_attention_bwd)
-        if ctx.segments:
-            raise NotImplementedError(
-                "the CUDA flash backward has no segment ids yet")
-        if ctx.window is not None:
-            raise NotImplementedError(
-                "the CUDA flash backward has no sliding window yet: a "
-                "windowed model does not train on the card")
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
-                                         causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do, causal=ctx.causal, sm_scale=ctx.sm_scale,
+            segment_ids=ctx.segment_ids, window=ctx.window,
+            segment_starts=ctx.segment_starts)
         return dq, dk, dv, None, None, None
 
 
@@ -237,20 +240,11 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    guard = causal and kv_len < q_len
-    if causal:
-        pos = torch.arange(q_len, device=q.device)[:, None] + kv_len - q_len
-        cols = torch.arange(kv_len, device=q.device)[None, :]
-        valid = cols <= pos
-        if window is not None:
-            valid &= cols >= pos - window + 1
+    guard = (causal and kv_len < q_len) or segment_ids is not None
+    valid = visible_mask(q_len, kv_len, q.device, causal=causal,
+                         window=window, segment_ids=segment_ids)
+    if valid is not None:
         s = torch.where(valid, s, DEFAULT_MASK_VALUE)
-    if segment_ids is not None:
-        qseg, kvseg = (torch.as_tensor(x, device=q.device)
-                       for x in segment_ids)
-        seg_ok = qseg[:, None, :, None] == kvseg[:, None, None, :]
-        s = torch.where(seg_ok, s, DEFAULT_MASK_VALUE)
-        guard = True
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if guard:
@@ -267,6 +261,27 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
         lse = torch.where(m[..., 0] > 0.5 * DEFAULT_MASK_VALUE, lse,
                           m[..., 0] * LN2)
     return out, lse
+
+
+def visible_mask(q_len: int, kv_len: int, device, *, causal: bool,
+                 window: Optional[int] = None, segment_ids=None):
+    """Which (row, column) pairs attend, as a bool tensor that broadcasts
+    over (batch, heads, q_len, kv_len), or None when all do: causal with
+    the decode offset (row i sits at i + kv_len - q_len), the window (the
+    row at position p sees [p - window + 1, p]) and equal segment ids."""
+    valid = None
+    if causal:
+        pos = torch.arange(q_len, device=device)[:, None] + kv_len - q_len
+        cols = torch.arange(kv_len, device=device)[None, :]
+        valid = cols <= pos
+        if window is not None:
+            valid &= cols >= pos - window + 1
+    if segment_ids is not None:
+        qseg, kvseg = (torch.as_tensor(x, device=device)
+                       for x in segment_ids)
+        seg_ok = qseg[:, None, :, None] == kvseg[:, None, None, :]
+        valid = seg_ok if valid is None else valid & seg_ok
+    return valid
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from tiny_flash_attention_tpu_torch.ops import flash as F
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 
 def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
@@ -60,10 +61,13 @@ def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
         lens = None
         if seq_lengths is not None:
             lens = F.as_int32(seq_lengths, (bs,), q)
-        out = F.launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                           seq_lengths=lens, window=window)
-        flash_attention_rowloop.launches += 1
-        return out
+
+        def launch():
+            out = F.launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                               seq_lengths=lens, window=window)
+            flash_attention_rowloop.launches += 1
+            return out
+        return forward_only("flash_attention_rowloop", launch, q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return flash_attention_rowloop_plain(q, k, v, causal=causal,

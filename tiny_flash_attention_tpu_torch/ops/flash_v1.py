@@ -29,6 +29,7 @@ from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, LOG2E, _aligned, in_dtype)
 from tiny_flash_attention_tpu_torch.ops.reference import (
     DEFAULT_MASK_VALUE, causal_mask)
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -58,7 +59,10 @@ def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        out, lse = _v1_cuda(q, k, v, causal=causal, sm_scale=sm_scale)
+        out, lse = forward_only(
+            "flash_attention_v1",
+            lambda: _v1_cuda(q, k, v, causal=causal, sm_scale=sm_scale),
+            q, k, v)
     elif q.device.type == "cpu":
         out, lse = flash_attention_v1_plain(q, k, v, causal=causal,
                                             sm_scale=sm_scale)

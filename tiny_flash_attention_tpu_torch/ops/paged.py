@@ -29,6 +29,7 @@ from tiny_flash_attention_tpu_torch.ops.flash import LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     decode_plain, token_pages)
 from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -89,8 +90,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        return _decode_cuda(q, k, v, k_scale, v_scale, lengths,
-                            page_indices, sm_scale=sm_scale)
+        return forward_only(
+            "paged_decode_attention",
+            lambda: _decode_cuda(q, k, v, k_scale, v_scale, lengths,
+                                 page_indices, sm_scale=sm_scale), q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return paged_decode_plain(q, k_pages, v_pages, lengths, page_indices,

@@ -32,6 +32,7 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -276,9 +277,11 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        return _decode_cuda(q, fused_pages, lengths, page_indices,
-                            page_size=page_size, sm_scale=sm_scale,
-                            window=window)
+        return forward_only(
+            "fused_paged_decode_attention",
+            lambda: _decode_cuda(q, fused_pages, lengths, page_indices,
+                                 page_size=page_size, sm_scale=sm_scale,
+                                 window=window), q, fused_pages)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return fused_paged_decode_plain(q, fused_pages, lengths, page_indices,

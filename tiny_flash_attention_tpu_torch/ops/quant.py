@@ -13,7 +13,8 @@ count (`ops/configs.py::QUANT_MATMUL_MAX_ROWS`): decode rows launch the
 hand-written kernel (ops/quant_matmul.py), which reads the int8/e4m3 weight
 once; prefill rows are a large product, which converts the payload to the
 activation dtype and hands it to cuBLAS with f32 output, the scale applied
-in f32 afterwards (the JAX package leaves that product to XLA too).
+in f32 afterwards (the JAX package leaves that product to XLA too). On
+either route it is differentiable in x, as JAX's `jnp.dot` is.
 """
 
 from __future__ import annotations
@@ -117,19 +118,48 @@ def quantized_matmul(x: torch.Tensor, qw: QuantizedTensor,
         raise ValueError(f"unsupported device {x.device}")
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
-    if x2.shape[0] <= QUANT_MATMUL_MAX_ROWS:
-        out = quantized_matmul_cuda(x2, qw, out_dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _QuantizedMatmul.apply(x2, qw, out_dtype)
     else:
-        out = _large_product(x2, qw, out_dtype)
+        out = _route(x2, qw, out_dtype)
     return out.reshape(*lead, out.shape[-1])
+
+
+def _route(x: torch.Tensor, qw, out_dtype) -> torch.Tensor:
+    """The kernel for decode rows, the cuBLAS product above."""
+    if x.shape[0] <= QUANT_MATMUL_MAX_ROWS:
+        return quantized_matmul_cuda(x, qw, out_dtype)
+    return _large_product(x, qw, out_dtype)
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+    """`_route` with the gradient in x that JAX's `jnp.dot` has:
+    dx = (g * scales) @ W^T with W the payload converted to x's dtype and
+    g * scales taken in f32 and rounded to x's dtype, in the form of
+    `_large_product` (f32 output), rounded once to x's dtype (the weights
+    take no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, qw, out_dtype):
+        ctx.qw, ctx.x_dtype = qw, x.dtype
+        return _route(x, qw, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        gs = (g.float() * ctx.qw.scales.float()).to(ctx.x_dtype)
+        dx = _mm_f32(gs, ctx.qw.values.to(ctx.x_dtype).t())
+        return dx.to(ctx.x_dtype), None, None
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b on a's dtype, a cuBLAS product with f32 output."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 def _large_product(x: torch.Tensor, qw, out_dtype) -> torch.Tensor:
     """Prefill rows: the payload converted exactly to x's dtype, a cuBLAS
     product with f32 output (`torch.mm(..., out_dtype=)`), then the scale."""
-    w = qw.values.to(x.dtype)
-    if x.dtype == torch.float32:
-        acc = torch.mm(x, w)
-    else:
-        acc = torch.mm(x, w, out_dtype=torch.float32)
+    acc = _mm_f32(x, qw.values.to(x.dtype))
     return (acc * qw.scales.float()).to(out_dtype)

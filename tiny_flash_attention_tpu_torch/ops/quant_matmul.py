@@ -21,6 +21,7 @@ import torch
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     QUANT_MATMUL_MAX_SPLITS, quant_matmul_splits)
+from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _W_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -51,7 +52,14 @@ def quantized_matmul_cuda(x: torch.Tensor, qw, out_dtype=None, *,
     """Launches csrc/quant_matmul.cu on x (M, K), M <= 16 rows; returns
     (M, N) in out_dtype (default x's). splits: the K slices (default
     ops/configs.py::quant_matmul_splits). Raises NotImplementedError on
-    what the kernel does not take."""
+    what the kernel does not take, and at backward() (the Pallas kernel
+    has no VJP; `ops/quant.py::quantized_matmul` is differentiable)."""
+    return forward_only(
+        "quantized_matmul_cuda",
+        lambda: _matmul_cuda(x, qw, out_dtype, splits), x)
+
+
+def _matmul_cuda(x, qw, out_dtype, splits):
     out_dtype = x.dtype if out_dtype is None else out_dtype
     values, scales = qw.values, qw.scales
     if x.dim() != 2 or values.dim() != 2:
