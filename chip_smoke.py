@@ -6,7 +6,10 @@
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
 card (the flash forward with and without segment ids, with the sliding
-window, and its jagged row-loop mode, the flash backward's kernels (bf16:
+window, and its jagged row-loop mode; its quantized instances over int8
+and fp8 K/V through flash_attention_quantized at the JAX package's two
+quantized-prefill benchmarks and with each mask; the flash backward's
+kernels (bf16:
 prep, main, post; f32: dq, dk/dv) with the window, segment ids and
 segment_starts, the paged decode over bf16 and int8 pages and its ring mode, the
 page append, the weight-only quantized matmul, the FA1 forward and the
@@ -226,14 +229,14 @@ def decode_bound(q, pages, lengths, table, page_size) -> tuple[float, str]:
 
 
 def instance_registers(ptxas_log: str) -> list:
-    """'kernel<template args>: registers' for each kernel instance in a
-    ptxas -v log, read from the mangled names, where each name is preceded
-    by its length (flash_fwd_bf16_kernel<128,0>: head_dim 128, no
-    window)."""
+    """'kernel<template args>: registers/spill bytes' for each kernel
+    instance in a ptxas -v log, read from the mangled names, where each
+    name is preceded by its length (flash_fwd_bf16_kernel<128,0,1>: head_dim
+    128, no window, int8 payloads)."""
     out = []
-    for name, regs in re.findall(
-            r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
-            ptxas_log, re.S):
+    for name, spills, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores"
+            r".*?Used (\d+) registers", ptxas_log, re.S):
         label = name[:60]
         # every digit run and its suffixes: a hash may end in a digit
         for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
@@ -244,7 +247,7 @@ def instance_registers(ptxas_log: str) -> list:
                 nums = re.findall(r"(\d+)E", args.group(1))
                 label = f"{ident}<{','.join(nums)}>"
                 break
-        out.append(f"{label}: {regs}")
+        out.append(f"{label}: {regs}/{spills}")
     return out
 
 
@@ -396,6 +399,8 @@ def check_not_ported_raise() -> None:
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized)
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
         flash_attention_rowloop)
     from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
@@ -415,10 +420,13 @@ def check_not_ported_raise() -> None:
     table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     qw = Q.quantize_weight(torch.ones((128, 64), device="cuda"))
+    k8, v8 = Q.quantize_kv(q, q, "int8")
     no_vjp = {
         "flash_attention(return_lse=True)":
             lambda x: flash_attention(x, q, q, causal=True,
                                       return_lse=True)[0],
+        "flash_attention_quantized":
+            lambda x: flash_attention_quantized(x, k8, v8, causal=True),
         "flash_attention_rowloop":
             lambda x: flash_attention_rowloop(x, q, q, causal=True)[0],
         "flash_attention_v1": lambda x: flash_attention_v1(x, q, q),
@@ -1885,6 +1893,213 @@ def surface_phase(gen) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# --- the quantized forward: flash_attention_quantized ------------------------
+
+# The JAX package's two quantized-prefill benchmarks (benchmarks/
+# attention_bench.py:108-143), bf16 q, causal: (name, payload format, q
+# shape, kv shape). The fp8 chunk sits at the decode offset 28672.
+QUANT_BENCH = [
+    ("int8 prefill s2048", "int8", (2, 8, 2048, 128), (2, 2, 2048, 128)),
+    ("fp8 chunked prefill, 4096 rows of 32768", "fp8", (1, 8, 4096, 128),
+     (1, 2, 32768, 128)),
+]
+# The masks, causal: (name, format, q shape, kv shape, q dtype, window,
+# the packed jagged mix's ids)
+QUANT_MASK_CASES = [
+    ("window 256", "fp8", (1, 8, 1024, 128), (1, 2, 1024, 128),
+     torch.bfloat16, 256, False),
+    ("packed jagged mix", "int8", (1, 8, 9984, 128), (1, 2, 9984, 128),
+     torch.bfloat16, None, True),
+    ("q_len 1024 > kv_len 512, empty rows", "fp8", (1, 8, 1024, 128),
+     (1, 2, 512, 128), torch.bfloat16, None, False),
+    ("f32 q over int8", "int8", (1, 8, 1024, 128), (1, 2, 1024, 128),
+     torch.float32, None, False),
+]
+# The quantized kernel against its plain version on the LSE (out: the
+# dtype gates, of min(1, max|ref|): at the fp8 chunk's ~30k visible columns
+# |out| is ~1e-2, under the bare gate): both take s from the same products,
+# summed in another order.
+QUANT_LSE_GATE = 1e-4
+
+
+def quant_bound(q, kq, pairs: float) -> tuple[float, str]:
+    """Least time for the quantized forward on `pairs` visible pairs: 4 * d
+    flops a pair at q's dtype's peak (the products run on the converted
+    payload); q read and out written once in q's dtype, the K and V
+    payloads (1 byte an element) and their f32 scales read once, the f32
+    LSE written once."""
+    nbytes = (2 * q.numel() * q.element_size() + 2 * kq.values.numel()
+              + 2 * kq.scales.numel() * 4 + q[..., 0].numel() * 4)
+    return _bound(4.0 * q.shape[-1] * pairs, nbytes, q.dtype)
+
+
+def visible(q_len, kv_len, *, window=None, seg=None) -> torch.Tensor:
+    """The causal mask with the decode offset (and the window, the ids) as
+    a boolean (b or 1, 1, q_len, kv_len) tensor for SDPA."""
+    pos = torch.arange(q_len, device="cuda")[:, None] + kv_len - q_len
+    cols = torch.arange(kv_len, device="cuda")[None, :]
+    mask = cols <= pos
+    if window is not None:
+        mask &= cols > pos - window
+    mask = mask[None, None]
+    if seg is not None:
+        mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+    return mask
+
+
+def check_quant(name, q, kq, vq, out, lse, *, v_fault=False, **kw) -> float:
+    """One quantized call against its plain version on the card: out within
+    the dtype gate times min(1, max|ref|), the LSE within QUANT_LSE_GATE.
+    Prints, for information, the largest difference from SDPA over the
+    dequantized K/V on the rows that see a column and, with `v_fault`, what
+    the out gate reads against a V-side fault: the plain version with its v
+    scales ignored (a zero out reads 1 of max|ref|)."""
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    q_len, kv_len = q.shape[2], kq.shape[2]
+
+    def plain(v_scales):
+        return flash_attention_quantized_plain(
+            q, kq.values, vq.values, kq.scales, v_scales, causal=True,
+            sm_scale=q.shape[-1] ** -0.5, return_lse=True, **kw)
+
+    ref, ref_lse = plain(vq.scales)
+    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    ref_max = float(ref.float().abs().max())
+    fault = ""
+    if v_fault:
+        unscaled = plain(torch.ones_like(vq.scales))[0]
+        fault = (f" | v scales ignored would read "
+                 f"{max_err(unscaled, ref) / ref_max:.3e} of max|ref|")
+        del unscaled
+    del ref, ref_lse
+    seg = None if kw.get("segment_ids") is None else kw["segment_ids"][0]
+    mask = visible(q_len, kv_len, window=kw.get("window"), seg=seg)
+    sdpa = F.scaled_dot_product_attention(
+        q, kq.dequantize(q.dtype), vq.dequantize(q.dtype), attn_mask=mask,
+        enable_gqa=True)
+    seen = mask.any(dim=-1).expand(out.shape[:3])
+    sdpa_err = max_err(out[seen], sdpa[seen])
+    del sdpa, mask
+    atol = tolerance_for(q.dtype)
+    ok = (err <= atol * min(1.0, ref_max) and lse_err <= QUANT_LSE_GATE
+          and bool(torch.isfinite(out).all()))
+    log(f"{name}: q{tuple(q.shape)} {str(kq.dtype).split('.')[-1]} "
+        f"kv{tuple(kq.shape)} | out err {err:.3e} = {err / ref_max:.3e} of "
+        f"max|ref| {ref_max:.3e} (gate {atol:.0e} of min(1, max|ref|)) lse "
+        f"err {lse_err:.3e} (gate {QUANT_LSE_GATE:.0e}) against the plain "
+        f"version{fault} | SDPA over the dequantized K/V differs by "
+        f"{sdpa_err:.3e} (information) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quantized kernel disagrees with plain: {name}")
+    return max(err, lse_err)
+
+
+def quant_flash_phase(gen) -> dict:
+    """The quantized forward on its path, the package entry
+    `flash_attention_quantized` (JAX's is on no model path either), at the
+    JAX package's two benchmark shapes: the counts zeroed just before and
+    read just after; then each output against its plain version, the
+    device times of the call, of B1 on the bf16 K/V it was quantized from
+    (JAX's yardstick in the benchmark) and of SDPA on those, beside the
+    bound; then the masks at smaller shapes."""
+    import tiny_flash_attention_tpu_torch as tfa
+    from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    fq = tfa.flash_attention_quantized
+    bench_in = []
+    for _, fmt, qs, ks in QUANT_BENCH:
+        q = randn(qs, torch.bfloat16, gen)
+        k, v = (randn(ks, torch.bfloat16, gen) for _ in range(2))
+        bench_in.append((q, k, v, *Q.quantize_kv(k, v, fmt)))
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    fq.launches = fq.int8_launches = fq.fp8_launches = 0
+    torch.cuda.synchronize()
+    outs = [fq(q, kq, vq, causal=True, return_lse=True)
+            for q, _, _, kq, vq in bench_in]
+    torch.cuda.synchronize()
+    launches = {"int8": fq.int8_launches, "fp8": fq.fp8_launches}
+    # ---------------------------------------------------------------------
+    log(f"quantized flash: launches {launches}, {fq.launches} in all "
+        f"(expected one of each)")
+    if launches != {"int8": 1, "fp8": 1} or fq.launches != 2:
+        raise AssertionError(f"quantized launches {launches}")
+
+    rows, worst = {}, {"int8": 0.0, "fp8": 0.0}
+    for (name, fmt, _, _), (q, k, v, kq, vq) in zip(QUANT_BENCH, bench_in):
+        out, lse = outs.pop(0)
+        worst[fmt] = check_quant(f"quantized flash {name}", q, kq, vq, out,
+                                 lse, v_fault=True)
+        del out, lse
+        sc = q.shape[-1] ** -0.5
+        mask = None if q.shape[2] == k.shape[2] else visible(q.shape[2],
+                                                              k.shape[2])
+        t_kernel = cuda_time_ms(lambda: fq(q, kq, vq, causal=True),
+                                iters=10)["median_ms"]
+        t_b1 = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
+                            iters=10)["median_ms"]
+        t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True), iters=10)["median_ms"]
+        t_plain = cuda_time_ms(lambda: flash_attention_quantized_plain(
+            q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+            sm_scale=sc), iters=2)["median_ms"]
+        bound_ms, bound_by = quant_bound(q, kq, mask_pairs(q, k, True))
+        log(f"quantized flash {name}: kernel {t_kernel:.4f} ms, B1 on the "
+            f"bf16 K/V {t_b1:.4f} ms (quantized/B1 {t_kernel / t_b1:.3f}x), "
+            f"SDPA on the bf16 K/V {t_sdpa:.4f} ms, plain {t_plain:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bound_ms / t_kernel:.1%} of it)")
+        rows[fmt] = {"ms": t_kernel, "plain_ms": t_plain,
+                     "library_ms": t_sdpa, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "b1_ms": t_b1}
+        del mask
+    del bench_in
+
+    for name, fmt, qs, ks, dtype, window, packed in QUANT_MASK_CASES:
+        q = randn(qs, dtype, gen)
+        kq, vq = Q.quantize_kv(randn(ks, dtype, gen), randn(ks, dtype, gen),
+                               fmt)
+        kw = {"window": window}
+        starts = None
+        if packed:
+            _, segs, _, starts = pack_prompts([[0] * n for n in JAGGED_MIX],
+                                              128, "page")
+            seg = torch.as_tensor(segs, device="cuda")
+            kw["segment_ids"] = (seg, seg)
+        out, lse = fq(q, kq, vq, causal=True, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        err = check_quant(f"quantized flash {name}", q, kq, vq, out, lse,
+                          **kw)
+        if qs[2] > ks[2] and not bool(
+                (out[:, :, :qs[2] - ks[2]] == 0).all()):
+            raise AssertionError(f"{name}: rows before every kv position "
+                                 "are not 0")
+        if packed:
+            pruned = fq(q, kq, vq, causal=True, return_lse=True,
+                        segment_starts=starts, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(pruned, (out, lse)))
+            log(f"quantized flash {name}: segment_starts bit-equal to none: "
+                f"{same}")
+            if not same:
+                raise AssertionError("segment_starts changed the quantized "
+                                     "packed output")
+        worst[fmt] = max(worst[fmt], err)
+        del q, kq, vq, out, lse
+    for fmt in rows:
+        rows[fmt]["max_abs_err"] = worst[fmt]
+    return {"launches": launches, "rows": rows}
+
+
 # (name, q shape, kv shape, window, segment bounds): the JAX window
 # benchmark (attention_bench.py:171-193), the windowed engine's prefill, a
 # decode offset, and the window with segment ids
@@ -2255,8 +2470,9 @@ def main() -> int:
                                                 text))
         log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
             f"registers, {spills} bytes of spill stores in all (ptxas)")
-        if len(regs) <= 8:
-            log("    registers: " + ", ".join(instance_registers(text)))
+        if len(regs) <= 16:
+            log("    registers/spill bytes: "
+                + ", ".join(instance_registers(text)))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FLASH_CASES:
@@ -2289,6 +2505,7 @@ def main() -> int:
     ring_rows = {fmt: check_ring(f"{fmt} pages, wrapped table", fmt, gen)
                  for fmt in ("bf16", "int8")}
     surface = surface_phase(gen)
+    quant_flash = quant_flash_phase(gen)
     check_not_ported_raise()
 
     run = engine_phase(SEED)
@@ -2440,6 +2657,16 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
          "launches": surface["launches"]["paged_decode_separate"],
          **b12_row},
+        *({"name": f"flash_fwd_quant_{fmt}", "route": "cuda",
+           "source": "tiny_flash_attention_tpu_torch/csrc/"
+                     "flash_fwd_quant.cu",
+           "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "
+                       "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
+                       "tiny_flash_attention_tpu/ops/flash_tri.py:658",
+           "launches": quant_flash["launches"][fmt],
+           **{k: v for k, v in quant_flash["rows"][fmt].items()
+              if k != "b1_ms"}}
+          for fmt in ("int8", "fp8")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)

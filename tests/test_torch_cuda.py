@@ -14,7 +14,10 @@ pages of each geometry, the append in both formats, the quantized matmul at
 the tile edges, jagged lengths around a tile, the FA1 kernel, the
 separate-array decode in both formats, the sliding window (1, off the
 tiles, wider than the sequence) and the decode's ring mode over wrapped
-tables.
+tables, and the quantized forward (int8 and e4m3 K/V with per-token
+scales) at lengths 97/130/300, head_dim 64/128, groups 1/2/4, bf16 and f32
+q, with the window, segment ids, segment_starts, the decode offset and
+empty rows.
 """
 
 import pytest
@@ -24,6 +27,8 @@ from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
     flash_attention_bwd, flash_attention_bwd_plain)
+from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+    flash_attention_quantized, flash_attention_quantized_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
     flash_attention_rowloop, flash_attention_rowloop_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
@@ -156,6 +161,20 @@ def test_not_ported_raises_on_the_card(gen):
         flash_attention_bwd(q, q.float(), q.float(), q,
                             torch.zeros((1, 2, 64), device="cuda"), q,
                             causal=True)
+    # int8 K/V without their scales, the jagged mode over int8, one
+    # quantized call over two payload formats, a head_dim the quantized
+    # instances do not take
+    q8 = q.to(torch.int8)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q8, q8)
+    with pytest.raises(NotImplementedError):
+        flash_attention_rowloop(q, q8, q8, causal=True)
+    k8 = Q.quantize_int8(q)
+    with pytest.raises(NotImplementedError):
+        flash_attention_quantized(q, k8, Q.quantize_fp8(q))
+    k96 = Q.quantize_int8(q96)
+    with pytest.raises(NotImplementedError):
+        flash_attention_quantized(q96, k96, k96)
 
 
 def _segment_ids(b, n, bounds, gen):
@@ -244,7 +263,10 @@ def _forward_only_calls(gen):
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     kp = _randn((2, 4, ps, d), b16, gen)
     qw = Q.quantize_weight(_randn((64, 32), torch.float32, gen))
+    k8, v8 = Q.quantize_kv(q4, q4, "int8")
     return {
+        "flash_attention_quantized":
+            lambda x: flash_attention_quantized(x, k8, v8, causal=True),
         "flash_attention(return_lse=True)":
             lambda x: flash_attention(x, q4, q4, causal=True,
                                       return_lse=True)[0],
@@ -264,7 +286,8 @@ def _forward_only_calls(gen):
 
 
 @pytest.mark.parametrize("name", [
-    "flash_attention(return_lse=True)", "flash_attention_rowloop",
+    "flash_attention(return_lse=True)", "flash_attention_quantized",
+    "flash_attention_rowloop",
     "flash_attention_v1", "fused_paged_decode_attention",
     "paged_decode_attention", "quantized_matmul_cuda"])
 def test_forward_only_entries_raise_at_backward(gen, name):
@@ -711,3 +734,97 @@ def test_ring_decode_kernel_matches_plain(gen, fmt, group, ps, window):
                                             window=window)
     assert _err(out, ref) <= tolerance_for(dtype)
     assert _err(lse, ref_lse) <= tolerance_for(dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,q_len,kv_len,d,fmt,dtype,masks", [
+    (1, 4, 4, 97, 97, 64, "int8", torch.bfloat16, {"causal": True}),
+    (2, 8, 4, 130, 130, 128, "fp8", torch.bfloat16, {"causal": False}),
+    (1, 8, 2, 300, 300, 128, "int8", torch.float32, {"causal": True}),
+    (1, 4, 1, 97, 300, 64, "fp8", torch.float32, {"causal": True}),
+    (1, 4, 2, 300, 130, 128, "int8", torch.bfloat16, {"causal": True}),
+    (1, 2, 2, 1, 333, 128, "fp8", torch.bfloat16, {"causal": True}),
+    (2, 8, 2, 300, 300, 128, "fp8", torch.bfloat16,
+     {"causal": True, "window": 61}),
+    (1, 4, 2, 130, 130, 64, "int8", torch.float32,
+     {"causal": True, "window": 17}),
+    (2, 8, 2, 300, 300, 128, "int8", torch.bfloat16,
+     {"causal": True, "ids": (37, 100, 101, 250)}),
+    (1, 4, 4, 130, 130, 64, "fp8", torch.float32,
+     {"causal": False, "ids": (1, 64, 127)}),
+    (1, 8, 2, 300, 300, 128, "fp8", torch.bfloat16,
+     {"causal": True, "ids": (37, 100, 250), "starts": True}),
+    (1, 4, 2, 97, 97, 64, "int8", torch.float32,
+     {"causal": True, "ids": (50,), "starts": True, "window": 40}),
+], ids=["g1-d64", "g2-noncausal", "g4-f32", "offset-f32", "empty-rows",
+        "decode-row", "window-bf16", "window-f32", "ids-bf16", "ids-f32",
+        "starts-bf16", "starts-window-f32"])
+def test_quantized_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
+                                        fmt, dtype, masks):
+    """The quantized instances against their plain version (out within the
+    dtype gate of min(1, max|ref|)); each call counts one launch of its
+    format; segment_starts prune without changing a bit; rows before every
+    kv position are 0."""
+    q = _randn((b, hq, q_len, d), dtype, gen)
+    k, v = Q.quantize_kv(_randn((b, hkv, kv_len, d), torch.float32, gen),
+                         _randn((b, hkv, kv_len, d), torch.float32, gen),
+                         fmt)
+    kw = {"causal": masks["causal"], "window": masks.get("window")}
+    if "ids" in masks:
+        seg = _segment_ids(b, q_len, masks["ids"], gen)
+        kw["segment_ids"] = (seg, seg)
+    per_fmt = "int8_launches" if fmt == "int8" else "fp8_launches"
+    before = (flash_attention_quantized.launches,
+              getattr(flash_attention_quantized, per_fmt))
+    out, lse = flash_attention_quantized(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_quantized.launches,
+            getattr(flash_attention_quantized, per_fmt)) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_quantized_plain(
+        q, k.values, v.values, k.scales, v.scales, sm_scale=d ** -0.5,
+        return_lse=True, **kw)
+    atol = tolerance_for(dtype)
+    # out's gate scales with |out|, small where a row sees many columns
+    ref_max = float(ref.float().abs().max())
+    assert _err(out, ref) <= atol * min(1.0, ref_max)
+    assert _err(lse, ref_lse) <= atol
+    if kw["causal"] and q_len > kv_len:
+        assert bool((out[:, :, :q_len - kv_len] == 0).all())
+    if masks.get("starts"):
+        pruned = flash_attention_quantized(
+            q, k, v, return_lse=True, segment_starts=(0, *masks["ids"]),
+            **kw)
+        assert all(torch.equal(x, y) for x, y in zip(pruned, (out, lse)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_quantized_kernel_maps_e4m3_codes_as_jax(gen, dtype):
+    """K all zero (every column weighs the same) and V columns of one
+    special e4m3 code each at scale 1: under bf16 q the kernel gives JAX's
+    mapping (subnormal codes high, 0x7F/0xFF +/-480), under f32 q the exact
+    value (NaN for the NaN codes), as its plain version does."""
+    special = [0x01, 0x03, 0x07, 0x08, 0x7E, 0x7F, 0xFE, 0xFF]
+    b, hq, n, d = 1, 2, 130, 64
+    q = _randn((b, hq, n, d), dtype, gen)
+    codes = torch.randint(0x08, 0x70, (b, 1, n, d), generator=gen,
+                          device="cuda").to(torch.uint8)
+    codes[..., :len(special)] = torch.tensor(special, dtype=torch.uint8,
+                                             device="cuda")
+    ones = torch.ones((b, 1, n, 1), device="cuda")
+    k = Q.QuantizedTensor(torch.zeros_like(codes).view(torch.float8_e4m3fn),
+                          ones)
+    v = Q.QuantizedTensor(codes.view(torch.float8_e4m3fn), ones)
+    out = flash_attention_quantized(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_quantized_plain(q, k.values, v.values, ones, ones,
+                                          causal=False, sm_scale=d ** -0.5)
+    cols = slice(0, len(special))
+    torch.testing.assert_close(out[..., cols], ref[..., cols], rtol=0,
+                               atol=0, equal_nan=True)
+    assert _err(out[..., len(special):], ref[..., len(special):]) <= \
+        tolerance_for(dtype)
+    if dtype == torch.bfloat16:
+        assert float(out[0, 0, 0, 5]) == 480.0
+        assert float(out[0, 0, 0, 7]) == -480.0
+    else:
+        assert bool(torch.isnan(out[..., 5]).all())

@@ -17,12 +17,15 @@ from tiny_flash_attention_tpu_torch.models.engine import (
 from tiny_flash_attention_tpu_torch.models.kv_cache import PagedKVCache
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import flash_attention_bwd
+from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+    flash_attention_quantized)
 from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
     flash_attention_rowloop)
 from tiny_flash_attention_tpu_torch.ops.flash_v1 import flash_attention_v1
 from tiny_flash_attention_tpu_torch.ops.paged import paged_decode_attention
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention)
+from tiny_flash_attention_tpu_torch.ops.quant import quantize_kv
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda)
 from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
@@ -53,8 +56,8 @@ def test_no_jax_import(path):
 
 
 def test_kernel_sources_are_found():
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_v1",
-                                "page_append", "paged_decode",
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_fwd_quant",
+                                "flash_v1", "page_append", "paged_decode",
                                 "paged_decode_separate", "quant_matmul"]
 
 
@@ -88,14 +91,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     make_train_step(SMALL, device="cpu")
 
 
+def test_quantized_flash_runs_where_its_tensors_lie():
+    """flash_attention_quantized takes the plain version for CPU tensors
+    only: a tensor on another device that is not CUDA raises."""
+    q = torch.zeros((1, 2, 8, 64))
+    k, v = quantize_kv(q, q, "int8")
+    assert flash_attention_quantized(q, k, v, causal=True).shape == q.shape
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_quantized(q.to("meta"), k, v, causal=True)
+
+
 def test_cpu_calls_launch_no_kernel():
     counters = [flash_attention, flash_attention_bwd,
                 flash_attention_rowloop, fused_paged_decode_attention,
                 fused_page_append, quantized_matmul_cuda, flash_attention_v1,
-                paged_decode_attention]
+                paged_decode_attention, flash_attention_quantized]
     extra = [(fused_paged_decode_attention, "int8_launches"),
              (fused_paged_decode_attention, "ring_launches"),
-             (flash_attention, "window_launches")]
+             (flash_attention, "window_launches"),
+             (flash_attention_quantized, "int8_launches"),
+             (flash_attention_quantized, "fp8_launches")]
     for fn in counters:
         fn.launches = 0
     for fn, name in extra:
@@ -128,6 +143,10 @@ def test_cpu_calls_launch_no_kernel():
     flash_attention_v1(x, x, x, causal=True)
     paged_decode_attention(x[:, :, 0], x, x, torch.ones(1, dtype=torch.int32),
                            torch.zeros((1, 1), dtype=torch.int32))
+    for fmt in ("int8", "fp8"):
+        kq, vq = quantize_kv(x, x, fmt)
+        flash_attention_quantized(x, kq, vq, causal=True, window=4,
+                                  return_lse=True)
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     flash_attention(q, q, q, causal=True).sum().backward()
     step, init = make_train_step(SMALL, device="cpu")

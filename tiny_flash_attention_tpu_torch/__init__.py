@@ -21,6 +21,9 @@ Layer map (counterparts in the JAX package):
   ops.paged_fused  -- fused pages (bf16, int8): decode attention and its
                       ring mode -> csrc/paged_decode.cu, token append ->
                       csrc/page_append.cu
+  ops.flash_quant  -- flash_attention_quantized: the forward over int8/fp8
+                      K/V with per-token scales -> csrc/flash_fwd_quant.cu
+                      (B1's kernels with quantized operands)
   ops.quant        -- int8/fp8 quantizers, QuantizedTensor, quantized_matmul
   ops.quant_matmul -- weight-only quantized matmul -> csrc/quant_matmul.cu
   ops.configs      -- the kernels' tile sizes
@@ -46,3 +49,5 @@ from tiny_flash_attention_tpu_torch.ops.flash import (  # noqa: E402
     flash_attention)
 from tiny_flash_attention_tpu_torch.ops.flash_v1 import (  # noqa: E402
     flash_attention_v1)
+from tiny_flash_attention_tpu_torch.ops.flash_quant import (  # noqa: E402
+    flash_attention_quantized)

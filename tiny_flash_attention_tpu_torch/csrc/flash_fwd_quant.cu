@@ -1,0 +1,58 @@
+// Flash-attention-2 forward for Hopper (sm_90a) over a quantized KV cache:
+// int8 or fp8-e4m3 K/V payloads with per-token f32 scales.
+//
+// Replaces the quantized mode of the TPU forward kernels
+//   tiny_flash_attention_tpu/ops/flash.py::_flash_fwd_impl      (_fwd_kernel,
+//       k_scales / v_scales: flash.py:268-273, :336-341, :469-481)
+//   tiny_flash_attention_tpu/ops/flash_tri.py::tri_flash_fwd    (_tri_kernel)
+//   tiny_flash_attention_tpu/ops/flash_tri.py::tri_block_fwd    (_tri_block_kernel)
+// behind tiny_flash_attention_tpu/ops/flash_quant.py::flash_attention_quantized.
+//
+// The kernels are B1's (flash_fwd.cuh) with FMT kInt8 or kE4m3: the cp.async
+// ring carries payload rows (half a bf16 row's bytes) and their scales; each
+// landed tile is converted in shared memory into a bf16 (f32) tile of the
+// unquantized layout, so the S and PV products are the unquantized ones. The
+// scales fold around them: s *= kscale before the mask, l from the bare p,
+// p *= vscale before its one rounding. What bounds it: the tensor-core FLOPs
+// at prefill shapes, as for B1 (the K/V bytes halve, the operations do not);
+// the convert pass adds shared-memory traffic and one barrier a tile, the
+// price of the simplest right design (converts in registers and a TMA /
+// wgmma pipeline are the forward's redesign). Every option of B1 but the
+// jagged mode (JAX's row loop has no quantized operands). Tile sizes: the
+// forward's own, ops/configs.py FLASH_FWD_*.
+
+#include "flash_fwd.cuh"
+
+// Returns a cudaError_t: 0 when the kernel was launched. fmt: 1 int8, 2 e4m3
+// (k and v alike); k_scales, v_scales: (B, hkv, kv_len) f32, not null.
+// dtype (of q and out): 0 bf16, 1 f32. head_dim: 64 or 128. q_seg, kv_seg,
+// tile_lo and tile_order as in tfa_flash_fwd; window: 0 for none, else >= 1
+// with causal. The caller has checked shapes, contiguity and alignment.
+extern "C" int tfa_flash_fwd_quant(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_seg, const void* kv_seg, const void* tile_lo,
+    const void* tile_order, const void* k_scales, const void* v_scales,
+    int batch, int hq, int hkv, int q_len, int kv_len, int head_dim,
+    int causal, int window, float scale_log2, int fmt, int dtype,
+    void* stream) {
+  if (!fwd_args_valid(batch, hq, hkv, q_len, kv_len, q_seg, kv_seg, nullptr,
+                      causal, window) ||
+      k_scales == nullptr || v_scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const FwdMasks mk{static_cast<const int*>(q_seg),
+                    static_cast<const int*>(kv_seg),
+                    static_cast<const int*>(tile_lo),
+                    static_cast<const int*>(tile_order), nullptr};
+  const KvScales sc{static_cast<const float*>(k_scales),
+                    static_cast<const float*>(v_scales)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fmt == kInt8)
+    return (int)launch_fwd<kInt8>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
+                                  q_len, kv_len, head_dim, causal, window,
+                                  scale_log2, dtype, s);
+  if (fmt == kE4m3)
+    return (int)launch_fwd<kE4m3>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
+                                  q_len, kv_len, head_dim, causal, window,
+                                  scale_log2, dtype, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -137,6 +137,13 @@ def params_from_jax(tree: dict, device=None) -> dict:
     }
 
 
+def quantized_from_jax(qt, device=None) -> Q.QuantizedTensor:
+    """A JAX QuantizedTensor (its values and scales as numpy arrays, e.g.
+    `jax.tree.map(np.asarray, qt)`) -> the port's, byte for byte: int8 as
+    it is, ml_dtypes float8_e4m3fn through a uint8 view."""
+    return _leaf_from_jax(qt, resolve_device(device))
+
+
 def quantize_params(params: dict, fmt: str = "int8") -> dict:
     """Weight-only quantization of every projection and the lm_head, with
     per-output-channel scales; the embedding and the norms stay."""

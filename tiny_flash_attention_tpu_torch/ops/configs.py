@@ -25,6 +25,12 @@ class TileConfig:
 FLASH_FWD_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
 # f32 forward on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile.
 FLASH_FWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
+# The forward's quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3
+# K/V with per-token scales) take the same tiles: their two-stage ring
+# carries 1-byte payload rows and their f32 scales, and each landed tile is
+# converted into one bf16 (or f32) staging tile of the unquantized layout
+# (bf16 at head_dim 128: q 17 KB + ring 2 x 2 x 8 KB + staging 35 KB +
+# scales and ids 1.5 KB = 86 KB of shared memory).
 # paged decode (fused and separate pages): one block per (kv head,
 # sequence); warps split the sequence into 32-token chunks.
 PAGED_DECODE_WARPS = 8

@@ -7,7 +7,9 @@ csrc/flash_fwd.cu, ports all three. A CPU tensor takes the plain version
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
-(quantized K/V, head_dim other than 64 or 128). `segment_starts` become the
+(head_dim other than 64 or 128). Quantized K/V take the quantized instances
+of the same kernel, csrc/flash_fwd_quant.cu, through
+ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
 kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
 JAX's `_build_worklist` prunes its work list to the block diagonal; a window
 starts each q tile's kv range at its band, as JAX's work list holds only
@@ -46,6 +48,8 @@ LN2 = math.log(2.0)
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+# K/V payload formats of the quantized instances (csrc/flash_fwd_quant.cu)
+PAYLOAD_FORMATS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 @functools.lru_cache(maxsize=64)
@@ -82,7 +86,8 @@ def segment_tiles(segment_starts, q_len: int, *, causal: bool,
     whose segments start at `segment_starts` (JAX's `_build_worklist`,
     flash.py:100-128: a q tile's kv range starts at the tile of its first
     row's segment start). One host-to-device copy: build it once and pass
-    it to every layer's `flash_attention(..., segment_starts=tiles)`."""
+    it to every layer's `flash_attention(..., segment_starts=tiles)` (or
+    `flash_attention_quantized`'s: its instances take the same tiles)."""
     starts = tuple(sorted({0, *(int(x) for x in segment_starts)}))
     if starts[0] < 0 or starts[-1] >= q_len:
         raise ValueError(f"segment_starts {segment_starts} outside "
@@ -132,22 +137,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return_lse=True is forward-only, as in JAX (flash.py:704-707): on the
     CPU it takes the plain forward, on CUDA a backward through it raises.
     """
-    bs, hq, q_len, d = q.shape
+    _, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
-    if hq % hkv:
-        raise ValueError(f"GQA needs q_heads {hq} % kv_heads {hkv} == 0")
-    if window is not None:
-        if not causal:
-            raise ValueError("sliding window requires causal=True")
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        window = int(window)
-    if segment_starts is not None:
-        if segment_ids is None:
-            raise ValueError("segment_starts prunes scheduling; "
-                             "segment_ids carry the mask")
-        if q_len != kv_len:
-            raise ValueError("segment_starts requires q_len == kv_len")
+    window = check_masks(hq, hkv, q_len, kv_len, causal=causal,
+                         window=window, segment_ids=segment_ids,
+                         segment_starts=segment_starts)
     if q.dtype == torch.float16:
         out = flash_attention(
             q.float(), k.float(), v.float(), causal=causal,
@@ -165,18 +159,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      sm_scale=sm_scale,
                                      segment_ids=segment_ids, window=window,
                                      return_lse=True)
-    masks = {} if window is None else {"window": window}
-    if segment_ids is not None:
-        masks.update(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
-                     kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
-        if segment_starts is not None and q.is_cuda:
-            masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
+    masks = kernel_masks(q, kv_len, causal=causal, window=window,
+                         segment_ids=segment_ids,
+                         segment_starts=segment_starts)
     if return_lse:
         return forward_only(
             "flash_attention(return_lse=True)",
             lambda: _flash_fwd_cuda(q, k, v, causal=causal,
                                     sm_scale=sm_scale, **masks), q, k, v)
     return _FlashAttention.apply(q, k, v, causal, sm_scale, masks)
+
+
+def check_masks(hq: int, hkv: int, q_len: int, kv_len: int, *,
+                causal: bool, window, segment_ids, segment_starts):
+    """Raises ValueError where JAX's entries assert (GQA, a window without
+    causal, segment_starts without ids or with q_len != kv_len); returns
+    the window as an int (or None)."""
+    if hq % hkv:
+        raise ValueError(f"GQA needs q_heads {hq} % kv_heads {hkv} == 0")
+    if window is not None:
+        if not causal:
+            raise ValueError("sliding window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        window = int(window)
+    if segment_starts is not None:
+        if segment_ids is None:
+            raise ValueError("segment_starts prunes scheduling; "
+                             "segment_ids carry the mask")
+        if q_len != kv_len:
+            raise ValueError("segment_starts requires q_len == kv_len")
+    return window
+
+
+def kernel_masks(q: torch.Tensor, kv_len: int, *, causal: bool, window,
+                 segment_ids, segment_starts) -> dict:
+    """The mask operands of one forward launch (`launch_fwd`'s keywords):
+    the window, the ids as int32 on q's device and, on CUDA, the tile table
+    of `segment_starts`."""
+    bs, _, q_len, _ = q.shape
+    masks = {} if window is None else {"window": window}
+    if segment_ids is not None:
+        masks.update(q_seg=as_int32(segment_ids[0], (bs, q_len), q),
+                     kv_seg=as_int32(segment_ids[1], (bs, kv_len), q))
+        if segment_starts is not None and q.is_cuda:
+            masks["tiles"] = _tiles_for(segment_starts, q_len, causal, q)
+    return masks
 
 
 # kernel launches, counted by _flash_fwd_cuda; window_launches those with a
@@ -324,6 +352,16 @@ def _flash_fwd_fn():
     return fn
 
 
+def _flash_fwd_quant_fn():
+    fn = _build.library("flash_fwd_quant").tfa_flash_fwd_quant
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
     """Launches csrc/flash_fwd.cu for `flash_attention`; returns (out,
     lse)."""
@@ -336,19 +374,40 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
 
 def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
                kv_seg=None, tiles: Optional[SegmentTiles] = None,
-               seq_lengths=None, window: Optional[int] = None):
+               seq_lengths=None, window: Optional[int] = None,
+               k_scales=None, v_scales=None):
     """One launch of csrc/flash_fwd.cu, counted by the caller; returns (out,
     lse). q_seg/kv_seg, tiles and seq_lengths (int32 on q's device) turn on
     the kernel's segment mask, its pruned kv ranges and its jagged mode;
-    window (causal, no seq_lengths) its sliding window."""
+    window (causal, no seq_lengths) its sliding window. With k_scales and
+    v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
+    of one format and the quantized instances (csrc/flash_fwd_quant.cu)
+    run, every mask but the jagged mode included."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
+    quantized = k_scales is not None or v_scales is not None
+    if quantized:
+        if k.dtype not in PAYLOAD_FORMATS or v.dtype != k.dtype \
+                or q.dtype not in _KERNEL_DTYPES:
+            raise NotImplementedError(
+                f"the quantized CUDA forward takes bf16 or f32 q over int8 "
+                f"or e4m3 k/v of one format, got {q.dtype}, {k.dtype}, "
+                f"{v.dtype}")
+        if seq_lengths is not None:
+            raise NotImplementedError(
+                "the jagged mode takes no quantized K/V (JAX's row loop has "
+                "no quantized operands)")
+        for s in (k_scales, v_scales):
+            if s is None or s.dtype != torch.float32 \
+                    or tuple(s.shape) != (bs, hkv, kv_len, 1):
+                raise ValueError(f"k_scales and v_scales are f32 "
+                                 f"{(bs, hkv, kv_len, 1)}")
+    elif q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise NotImplementedError(
             f"the CUDA forward kernel takes bf16 or f32 q/k/v of one dtype "
-            f"(quantized K/V are not ported yet), got {q.dtype}, {k.dtype}, "
-            f"{v.dtype}")
+            f"(int8 or e4m3 K/V with their scales), got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
     if d not in _KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d}: the CUDA forward kernel "
                                   f"takes {_KERNEL_HEAD_DIMS}")
@@ -360,18 +419,29 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     if q_len == 0 or kv_len == 0 or bs == 0:
         raise ValueError("empty q or kv")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    if quantized:
+        scales = [_aligned(s) for s in (k_scales, v_scales)]
+        if any(s.device != q.device for s in scales):
+            raise ValueError("the scales must be on q's device")
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
-    extras = (q_seg, kv_seg, None if tiles is None else tiles.tile_lo,
-              None if tiles is None else tiles.order, seq_lengths)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (q_seg, kv_seg,
+                        None if tiles is None else tiles.tile_lo,
+                        None if tiles is None else tiles.order)))
+    dims = (bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0)
     with _build.on_device(q.device):
-        err = _flash_fwd_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *(None if t is None else t.data_ptr()
-                              for t in extras),
-            bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
-            scale_log2,
-            _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_fwd")
+        stream = torch.cuda.current_stream().cuda_stream
+        if quantized:
+            err = _flash_fwd_quant_fn()(
+                *ptrs, *(s.data_ptr() for s in scales), *dims, scale_log2,
+                PAYLOAD_FORMATS[k.dtype], _KERNEL_DTYPES[q.dtype], stream)
+        else:
+            err = _flash_fwd_fn()(
+                *ptrs, None if seq_lengths is None else seq_lengths.data_ptr(),
+                *dims, scale_log2, _KERNEL_DTYPES[q.dtype], stream)
+    _build.check(err, "flash_fwd_quant" if quantized else "flash_fwd")
     return out, lse
