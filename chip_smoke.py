@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bwd-spread   # only the backward's spread
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -28,12 +29,17 @@ with a sliding window of 1024 served from a ring cache (8 prompts of
 1792-2048 tokens, 256 decode steps past the ring's capacity); and training,
 AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
 train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
-train cell) and two f32 steps at 1 x 1024. It fails if a kernel does not
-build, launch or agree, if a path did not go through its kernels, if a
-path's output disagrees with its plain version, if the train step's loss
-is not finite, does not fall, or its gradients disagree with those through
-the plain attention, or if a backward through an entry whose JAX kernel
-has no VJP does not raise.
+train cell) and two f32 steps at 1 x 1024. The flash forward's bf16 out is
+also gated row by row (utils/testing.py), and at causal 2048 and 8192 the
+gate must reject two faults planted in the plain version (a stale V tile, a
+dropped kv tile). It also reads, without gating it, how far two runs of the
+bf16 backward differ (bwd_spread). It fails if a kernel does not
+build, launch or agree, if the flash forward's bf16 instances are not on
+wgmma (no HGMMA, or any HMMA, in their SASS), if a path did not go through
+its kernels, if a path's output disagrees with its plain version, if the
+train step's loss is not finite, does not fall, or its gradients disagree
+with those through the plain attention, or if a backward through an entry
+whose JAX kernel has no VJP does not raise.
 
 Stdout: one line per check, then the kernels' JSON line, then the card's
 name and power limit, then as the last line
@@ -48,6 +54,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -228,27 +235,48 @@ def decode_bound(q, pages, lengths, table, page_size) -> tuple[float, str]:
     return _bound(4.0 * hq * d * tokens, nbytes, q.dtype)
 
 
+def kernel_label(name: str) -> str:
+    """'kernel<template args>' for a mangled kernel name, read from the
+    name itself, where each identifier is preceded by its length
+    (flash_fwd_bf16_kernel<128,0,1>: head_dim 128, no window, int8
+    payloads); the name's first 60 characters otherwise."""
+    # every digit run and its suffixes: a hash may end in a digit
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
+        start = m.start() + len(m.group(1))
+        ident = name[start:start + int(m.group(1))]
+        args = re.match(r"I((?:L[a-z]\d+E)+)E", name[start + len(ident):])
+        if ident.endswith("_kernel") and args:
+            nums = re.findall(r"(\d+)E", args.group(1))
+            return f"{ident}<{','.join(nums)}>"
+    return name[:60]
+
+
 def instance_registers(ptxas_log: str) -> list:
     """'kernel<template args>: registers/spill bytes' for each kernel
-    instance in a ptxas -v log, read from the mangled names, where each
-    name is preceded by its length (flash_fwd_bf16_kernel<128,0,1>: head_dim
-    128, no window, int8 payloads)."""
-    out = []
-    for name, spills, regs in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores"
-            r".*?Used (\d+) registers", ptxas_log, re.S):
-        label = name[:60]
-        # every digit run and its suffixes: a hash may end in a digit
-        for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
-            start = m.start() + len(m.group(1))
-            ident = name[start:start + int(m.group(1))]
-            args = re.match(r"I((?:L[a-z]\d+E)+)E", name[start + len(ident):])
-            if ident.endswith("_kernel") and args:
-                nums = re.findall(r"(\d+)E", args.group(1))
-                label = f"{ident}<{','.join(nums)}>"
-                break
-        out.append(f"{label}: {regs}/{spills}")
-    return out
+    instance in a ptxas -v log."""
+    return [f"{kernel_label(name)}: {regs}/{spills}"
+            for name, spills, regs in re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
+                r"stores.*?Used (\d+) registers", ptxas_log, re.S)]
+
+
+def wgmma_instructions(lib_path: str) -> dict:
+    """{kernel label: (HGMMA count, HMMA count)} in the SASS of a built
+    library (cuobjdump -sass): which tensor-core path each kernel took,
+    wgmma (HGMMA) or mma.sync (HMMA)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m.group(1))
+            counts[label] = [0, 0]
+        elif label is not None:
+            counts[label][0] += "HGMMA" in line
+            counts[label][1] += bool(re.search(r"\bHMMA\b", line))
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def max_err(a, b) -> float:
@@ -271,25 +299,94 @@ def gpu_info() -> str:
 # --- phase 2: flash forward, kernel vs plain ---------------------------------
 
 
-def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
+def gate_text(dtype) -> str:
+    """The flash forward's gates for `dtype`, as the log prints them."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_LSE_GATE, BF16_ROW_GATE, tolerance_for)
+
+    atol = tolerance_for(dtype)
+    if dtype != torch.bfloat16:
+        return f"gate {atol:.0e}"
+    return (f"gates: {atol:.0e}; at the fold row {BF16_ROW_GATE:.4e} of the "
+            f"row's max |out|, lse {BF16_LSE_GATE:.0e}")
+
+
+def flash_readings(errs, folded=None) -> str:
+    text = f"out err {errs['out']:.3e} lse err {errs['lse']:.3e}"
+    if folded is not None:
+        text += (f"; at the fold: row {folded['row']:.3e} (out err "
+                 f"{folded['out']:.3e}) lse err {folded['lse']:.3e}")
+    return text
+
+
+def planted_faults(name, q, k, v, sm_scale) -> None:
+    """Two faults of B1's pipeline, planted in the rows of the last q tile
+    (128 rows, the ones that read the most kv tiles) of the plain version
+    on the folded q, put through the same gate as the kernel's output: (1)
+    kv tile j's V replaced by tile j - 1's, as a stale ring stage would
+    give; (2) kv tile j dropped (its columns masked by a segment id); j
+    the middle tile. Each must fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_BF16
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        flash_gate, fold_q)
+
+    def plain(x, sc, vv=v, ids=None):
+        return flash_attention_plain(x, k, vv, causal=True, sm_scale=sc,
+                                     segment_ids=ids, return_lse=True)
+
+    b, _, q_len, _ = q.shape
+    kv_len, bn = k.shape[2], FLASH_FWD_BF16.block_n
+    j = kv_len // bn // 2
+    tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
+    rows = slice(q_len - 128, q_len)
+    qf, scale = fold_q(q, sm_scale)
+    stale = v.clone()
+    stale[:, :, tile] = v[:, :, prev]
+    kv_ids = torch.zeros((b, kv_len), dtype=torch.int32, device="cuda")
+    kv_ids[:, tile] = 1
+    q_ids = torch.zeros((b, 128), dtype=torch.int32, device="cuda")
+    faults = {f"V of kv tile {j} from tile {j - 1}": plain(
+                  qf[:, :, rows], scale, vv=stale),
+              f"kv tile {j} dropped": plain(
+                  qf[:, :, rows], scale, ids=(q_ids, kv_ids))}
+    for label, (f_out, f_lse) in faults.items():
+        out, lse = plain(qf, scale)
+        out[:, :, rows], lse[:, :, rows] = f_out, f_lse
+        errs, folded, ok = flash_gate(out, lse, plain, q, torch.bfloat16)
+        log(f"flash {name}: planted fault in the last q tile's rows, "
+            f"{label}: {flash_readings(errs, folded)} "
+            f"({gate_text(torch.bfloat16)}) | "
+            f"{'PASSES THE GATE' if ok else 'caught'}")
+        if ok:
+            raise AssertionError(f"the flash gate passes a planted fault: "
+                                 f"{name}, {label}")
+
+
+def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
+                faults=False):
     """Kernel vs plain on one shape, then the device times of the kernel,
-    the plain version and SDPA (cuda_time_ms: L2 cold, no host time)."""
+    the plain version and SDPA (cuda_time_ms: L2 cold, no host time). With
+    `faults`, also what the gate reads on planted faults (planted_faults)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
-    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
 
     q = randn(q_shape, dtype, gen)
     k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
     sm_scale = 1.0 / q_shape[-1] ** 0.5
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
-                                         sm_scale=sm_scale, return_lse=True)
-    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
-    atol = tolerance_for(dtype)
-    ok = err <= atol and lse_err <= atol and bool(torch.isfinite(out).all())
+    errs, folded, ok = flash_gate(
+        out, lse, lambda qq, sc: flash_attention_plain(
+            qq, k, v, causal=causal, sm_scale=sc, return_lse=True), q, dtype)
+    ok = ok and bool(torch.isfinite(out).all())
+    if faults:
+        planted_faults(name, q, k, v, sm_scale)
+    del out, lse
     mask = None
     if causal and q_shape[2] != kv_shape[2]:
         # SDPA's is_causal aligns the mask top-left; the port's is
@@ -306,13 +403,15 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10):
         iters=iters)["median_ms"]
     bound_ms, bound_by = flash_bound(q, k, causal)
     log(f"flash {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
-        f"{str(dtype).split('.')[-1]} causal={causal} | out err {err:.3e} "
-        f"lse err {lse_err:.3e} (gate {atol:.0e}) | kernel {t_kernel:.4f} ms "
+        f"{str(dtype).split('.')[-1]} causal={causal} | "
+        f"{flash_readings(errs, folded)} ({gate_text(dtype)}) | kernel "
+        f"{t_kernel:.4f} ms "
         f"plain {t_plain:.4f} ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms "
-        f"({bound_by}) | {'ok' if ok else 'FAIL'}")
+        f"({bound_by}) | {bound_ms / t_kernel:.1%} of the bound, "
+        f"{t_kernel / t_sdpa:.2f}x SDPA | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with plain: {name}")
-    return {"max_abs_err": max(err, lse_err), "ms": t_kernel,
+    return {"max_abs_err": max(errs["out"], errs["lse"]), "ms": t_kernel,
             "plain_ms": t_plain, "library_ms": t_sdpa, "bound_ms": bound_ms,
             "bound_by": bound_by, "shape": [list(q_shape), list(kv_shape)]}
 
@@ -686,6 +785,58 @@ BWD_CASES = [
 def _rel_err(got, want) -> float:
     want = want.float()
     return float((got.float() - want).abs().max() / want.abs().max())
+
+
+BWD_SPREAD_PAIRS = 10
+
+
+def bwd_spread() -> None:
+    """The bf16 backward's run-to-run spread (ROADMAP C2), a reading and
+    not a gate: on the inputs of tests/test_torch_cuda.py::
+    test_bwd_two_runs_agree_within_one_ulp (seed 0), BWD_SPREAD_PAIRS pairs
+    of backward runs from the kernel forward's out and LSE and as many from
+    the plain forward's: how many pairs differ somewhere by more than one
+    bf16 ulp of the larger value (what that test asserts), and the element
+    that differs most relative to its size. The f32 sums into the
+    accumulators arrive in a run-dependent order."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16) for s in ((2, 8, 1000, 128), (2, 2, 1000, 128),
+                                  (2, 2, 1000, 128), (2, 8, 1000, 128)))
+    forwards = {
+        "kernel forward": flash_attention(q, k, v, causal=True,
+                                          return_lse=True),
+        "plain forward": flash_attention_plain(q, k, v, causal=True,
+                                               sm_scale=128 ** -0.5,
+                                               return_lse=True)}
+    for label, (out, lse) in forwards.items():
+        beyond, worst = 0, (0.0, "none")
+        for _ in range(BWD_SPREAD_PAIRS):
+            one = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+            two = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+            torch.cuda.synchronize()
+            pair_beyond = False
+            for name, a, b in zip(("dq", "dk", "dv"), one, two):
+                a, b = a.float(), b.float()
+                big = torch.maximum(a.abs(), b.abs())
+                pair_beyond |= bool(((a - b).abs() > big * 2.0 ** -7).any())
+                rel = torch.where(a == b, 0.0, (a - b).abs() / big)
+                at = int(rel.argmax())
+                if float(rel.flatten()[at]) > worst[0]:
+                    idx = tuple(int(x) for x in np.unravel_index(at, a.shape))
+                    worst = (float(rel.flatten()[at]),
+                             f"{name}{list(idx)} {float(a[idx]):.4e} vs "
+                             f"{float(b[idx]):.4e} (max |{name}| "
+                             f"{float(big.max()):.4e})")
+            beyond += pair_beyond
+        log(f"bwd spread, {label}: {beyond}/{BWD_SPREAD_PAIRS} pairs of runs "
+            f"differ by more than one bf16 ulp somewhere; the largest "
+            f"relative difference {worst[0]:.3e}, at {worst[1]}")
 
 
 def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
@@ -1156,7 +1307,7 @@ def check_segments(name, q_shape, bounds, dtype, causal, gen) -> float:
     which must not change a bit."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
-    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
 
     b, hq, n, d = q_shape
     q = randn(q_shape, dtype, gen)
@@ -1167,44 +1318,47 @@ def check_segments(name, q_shape, bounds, dtype, causal, gen) -> float:
     out, lse = flash_attention(q, k, v, causal=causal,
                                segment_ids=(q_seg, seg), return_lse=True)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
-                                         sm_scale=d ** -0.5,
-                                         segment_ids=(q_seg, seg),
-                                         return_lse=True)
-    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    errs, folded, ok = flash_gate(
+        out, lse, lambda qq, sc: flash_attention_plain(
+            qq, k, v, causal=causal, sm_scale=sc, segment_ids=(q_seg, seg),
+            return_lse=True), q, dtype)
     empty = bool((out[-1, :, n // 2] == 0).all())
     pruned = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
                              segment_starts=(0, *bounds), return_lse=True)
     full = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
                            return_lse=True)
     same = all(torch.equal(x, y) for x, y in zip(pruned, full))
-    atol = tolerance_for(dtype)
-    ok = err <= atol and lse_err <= atol and empty and same
+    ok = ok and empty and same
     log(f"flash segments {name}: q{tuple(q_shape)} bounds {bounds} causal="
-        f"{causal} | out err {err:.3e} lse err {lse_err:.3e} (gate "
-        f"{atol:.0e}) | unmatched row empty: {empty} | segment_starts "
-        f"bit-equal to none: {same} | {'ok' if ok else 'FAIL'}")
+        f"{causal} | {flash_readings(errs, folded)} ({gate_text(dtype)}) | "
+        f"unmatched row empty: {empty} | segment_starts bit-equal to none: "
+        f"{same} | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"segment kernel disagrees: {name}")
-    return max(err, lse_err)
+    return max(errs["out"], errs["lse"])
 
 
-def check_rows(name, out, lse, ref, ref_lse, lens, atol) -> float:
-    """Rows below each length within the gate (out and LSE), rows at or
-    past it exactly 0 with the plain version's sentinel LSE."""
-    err = 0.0
+def check_rows(name, out, lse, plain, q, lens) -> dict:
+    """Rows below each length within the flash gate (utils/testing.py::
+    flash_gate against plain(q', sm_scale)), rows at or past it exactly 0
+    with the plain version's sentinel LSE. Returns the readings: {"errs",
+    "folded"}."""
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    ref, ref_lse = plain(q, q.shape[-1] ** -0.5)
     for bi, L in enumerate(lens):
-        err = max(err, max_err(out[bi, :, :L], ref[bi, :, :L]),
-                  max_err(lse[bi, :, :L], ref_lse[bi, :, :L]))
         past_ok = (bool((out[bi, :, L:] == 0).all())
                    and torch.allclose(lse[bi, :, L:], ref_lse[bi, :, L:],
                                       rtol=1e-6, atol=0.0))
         if not past_ok:
             raise AssertionError(f"{name}: row {bi} past its length {L} is "
                                  "not an empty row")
-    if not err <= atol:
-        raise AssertionError(f"{name}: err {err:.3e} > {atol:.0e}")
-    return err
+    del ref, ref_lse
+    errs, folded, ok = flash_gate(out, lse, plain, q, q.dtype, lens)
+    if not ok:
+        raise AssertionError(f"{name}: {flash_readings(errs, folded)} "
+                             f"({gate_text(q.dtype)})")
+    return {"errs": errs, "folded": folded}
 
 
 def check_rowloop(gen) -> float:
@@ -1213,7 +1367,6 @@ def check_rowloop(gen) -> float:
     a decode offset."""
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
         flash_attention_rowloop, flash_attention_rowloop_plain)
-    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
     n = 1024
     lens = [1, 63, 64, 65, n]
@@ -1221,7 +1374,6 @@ def check_rowloop(gen) -> float:
     for dtype in (torch.bfloat16, torch.float32):
         q = randn((5, 8, n, 128), dtype, gen)
         k, v = (randn((5, 2, n, 128), dtype, gen) for _ in range(2))
-        atol = tolerance_for(dtype)
         cases = [("jagged", q, True, lens), ("non-causal", q, False, None),
                  ("decode offset q128", q[:, :, -128:], True, None)]
         for label, qq, causal, ln in cases:
@@ -1229,16 +1381,18 @@ def check_rowloop(gen) -> float:
             out, lse = flash_attention_rowloop(qq, k, v, causal=causal,
                                                seq_lengths=lt)
             torch.cuda.synchronize()
-            ref, ref_lse = flash_attention_rowloop_plain(
-                qq, k, v, causal=causal, sm_scale=128 ** -0.5,
-                seq_lengths=lt)
-            err = check_rows(f"rowloop {label}", out, lse, ref, ref_lse,
-                             ln or [qq.shape[2]] * 5, atol)
-            worst = max(worst, err)
+            got = check_rows(
+                f"rowloop {label}", out, lse,
+                lambda x, sc, c=causal, lt=lt: flash_attention_rowloop_plain(
+                    x, k, v, causal=c, sm_scale=sc, seq_lengths=lt),
+                qq, ln or [qq.shape[2]] * 5)
+            errs = got["errs"]
+            worst = max(worst, errs["out"], errs["lse"])
             log(f"rowloop {label} {str(dtype).split('.')[-1]}: q"
-                f"{tuple(qq.shape)} kv{tuple(k.shape)} lengths {ln} | err "
-                f"{err:.3e} (gate {atol:.0e}) on rows below each length; "
-                f"rows past it 0 with the sentinel LSE | ok")
+                f"{tuple(qq.shape)} kv{tuple(k.shape)} lengths {ln} | "
+                f"{flash_readings(errs, got['folded'])} ({gate_text(dtype)}) "
+                f"on rows below each length; rows past it 0 with the "
+                f"sentinel LSE | ok")
     return worst
 
 
@@ -1262,20 +1416,19 @@ def sdpa_kernel_name(fn) -> str:
 def time_masked(name, q, k, v, *, kernel, plain, sdpa_mask, sdpa_causal,
                 bound, valid_lens=None, iters=5) -> dict:
     """One slice kernel at a main-path shape: against its plain version
-    (on rows below `valid_lens` where given), then the device times of the
-    kernel, the plain version and SDPA with a boolean mask (the library
-    yardstick, which the port never calls)."""
+    (on rows below `valid_lens` where given; plain(q', sm_scale) takes the
+    q and scale to use, q and head_dim ** -0.5 by default), then the device
+    times of the kernel, the plain version and SDPA with a boolean mask
+    (the library yardstick, which the port never calls)."""
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
-    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
     out, lse = kernel()
     torch.cuda.synchronize()
-    ref, ref_lse = plain()
     lens = valid_lens or [q.shape[2]] * q.shape[0]
-    err = check_rows(name, out, lse, ref, ref_lse, lens,
-                     tolerance_for(q.dtype))
-    del out, lse, ref, ref_lse
+    got = check_rows(name, out, lse, plain, q, lens)
+    errs = got["errs"]
+    del out, lse
     t_kernel = cuda_time_ms(kernel, iters=iters)["median_ms"]
     t_plain = cuda_time_ms(plain, iters=2)["median_ms"]
 
@@ -1286,12 +1439,15 @@ def time_masked(name, q, k, v, *, kernel, plain, sdpa_mask, sdpa_causal,
     t_sdpa = cuda_time_ms(sdpa, iters=iters)["median_ms"]
     backend = sdpa_kernel_name(sdpa)
     bound_ms, bound_by = bound
-    log(f"{name}: q{tuple(q.shape)} kv{tuple(k.shape)} | err {err:.3e} | "
+    log(f"{name}: q{tuple(q.shape)} kv{tuple(k.shape)} | "
+        f"{flash_readings(errs, got['folded'])} ({gate_text(q.dtype)}) | "
         f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms sdpa "
         f"{t_sdpa:.4f} ms ({backend}) bound {bound_ms:.4f} ms ({bound_by}) "
-        f"| {bound_ms / t_kernel:.1%} of the bound | ok")
-    return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
-            "library_ms": t_sdpa, "bound_ms": bound_ms, "bound_by": bound_by}
+        f"| {bound_ms / t_kernel:.1%} of the bound, {t_kernel / t_sdpa:.2f}x "
+        f"SDPA | ok")
+    return {"max_abs_err": max(errs["out"], errs["lse"]), "ms": t_kernel,
+            "plain_ms": t_plain, "library_ms": t_sdpa, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def time_ragged_kernels(gen, seed: int) -> dict:
@@ -1314,8 +1470,7 @@ def time_ragged_kernels(gen, seed: int) -> dict:
     q = randn((1, 8, n, 128), torch.bfloat16, gen)
     k, v = (randn((1, 2, n, 128), torch.bfloat16, gen) for _ in range(2))
     seg = torch.as_tensor(segs, device="cuda")
-    tiles = segment_tiles(offs, n, causal=True, dtype=torch.bfloat16,
-                          device="cuda")
+    tiles = segment_tiles(offs, n, causal=True, device="cuda")
     same = seg[0][:, None] == seg[0][None, :]
     mask = (same & torch.ones_like(same).tril())[None, None]
     bound = ragged_bound(q, k, id_pairs(segs, True), int_bytes=2 * n * 4)
@@ -1325,8 +1480,8 @@ def time_ragged_kernels(gen, seed: int) -> dict:
             kernel=lambda st=starts: flash_attention(
                 q, k, v, causal=True, segment_ids=(seg, seg),
                 segment_starts=st, return_lse=True),
-            plain=lambda: flash_attention_plain(
-                q, k, v, causal=True, sm_scale=sc, segment_ids=(seg, seg),
+            plain=lambda x=q, s=sc: flash_attention_plain(
+                x, k, v, causal=True, sm_scale=s, segment_ids=(seg, seg),
                 return_lse=True),
             sdpa_mask=mask, sdpa_causal=False, bound=bound)
     pruned = flash_attention(q, k, v, causal=True, segment_ids=(seg, seg),
@@ -1348,8 +1503,8 @@ def time_ragged_kernels(gen, seed: int) -> dict:
         "B1 encoder batch 8 x 2048, pad ids", q, k, v,
         kernel=lambda: flash_attention(q, k, v, segment_ids=(eseg, eseg),
                                        return_lse=True),
-        plain=lambda: flash_attention_plain(
-            q, k, v, causal=False, sm_scale=sc, segment_ids=(eseg, eseg),
+        plain=lambda x=q, s=sc: flash_attention_plain(
+            x, k, v, causal=False, sm_scale=s, segment_ids=(eseg, eseg),
             return_lse=True),
         sdpa_mask=(eseg[:, :, None] == eseg[:, None, :])[:, None],
         sdpa_causal=False,
@@ -1371,8 +1526,8 @@ def time_ragged_kernels(gen, seed: int) -> dict:
         "B11 jagged batch of the mix", q, k, v,
         kernel=lambda: flash_attention_rowloop(q, k, v, causal=True,
                                                seq_lengths=lt),
-        plain=lambda: flash_attention_rowloop_plain(
-            q, k, v, causal=True, sm_scale=sc, seq_lengths=lt),
+        plain=lambda x=q, s=sc: flash_attention_rowloop_plain(
+            x, k, v, causal=True, sm_scale=s, seq_lengths=lt),
         sdpa_mask=jmask, sdpa_causal=False, valid_lens=JAGGED_MIX,
         bound=ragged_bound(q, k, pairs, tokens=sum(JAGGED_MIX),
                            int_bytes=8 * 4))
@@ -1381,8 +1536,8 @@ def time_ragged_kernels(gen, seed: int) -> dict:
         "B1 the mix padded to 8 x 4096", q, k, v,
         kernel=lambda: flash_attention(q, k, v, causal=True,
                                        return_lse=True),
-        plain=lambda: flash_attention_plain(q, k, v, causal=True,
-                                            sm_scale=sc, return_lse=True),
+        plain=lambda x=q, s=sc: flash_attention_plain(
+            x, k, v, causal=True, sm_scale=s, return_lse=True),
         sdpa_mask=None, sdpa_causal=True, bound=flash_bound(q, k, True))
     log(f"B11 at the mix {rows['jagged']['ms']:.4f} ms against B1 on the "
         f"padded batch {rows['padded']['ms']:.4f} ms: "
@@ -1844,7 +1999,9 @@ def surface_phase(gen) -> dict:
         log(f"flash_v1 {name}: q{qs} kv{ks} {str(dt).split('.')[-1]} causal="
             f"{causal} | out err {err:.3e} lse err {lse_err:.3e} (gate "
             f"{atol:.0e}) | FA1 kernel {t_kernel:.4f} ms, B1 (FA2) "
-            f"{t_fa2:.4f} ms: FA1/FA2 {t_kernel / t_fa2:.2f}x | plain "
+            f"{t_fa2:.4f} ms ({bound_ms / t_fa2:.1%} of the bound, "
+            f"{t_fa2 / t_sdpa:.2f}x SDPA): FA1/FA2 "
+            f"{t_kernel / t_fa2:.2f}x | plain "
             f"{t_plain:.4f} ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms "
             f"({bound_by}) | {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -2054,8 +2211,11 @@ def quant_flash_phase(gen) -> dict:
             q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
             sm_scale=sc), iters=2)["median_ms"]
         bound_ms, bound_by = quant_bound(q, kq, mask_pairs(q, k, True))
+        b1_bound = flash_bound(q, k, True)[0]
         log(f"quantized flash {name}: kernel {t_kernel:.4f} ms, B1 on the "
-            f"bf16 K/V {t_b1:.4f} ms (quantized/B1 {t_kernel / t_b1:.3f}x), "
+            f"bf16 K/V {t_b1:.4f} ms ({b1_bound / t_b1:.1%} of its bound, "
+            f"{t_b1 / t_sdpa:.2f}x SDPA; quantized/B1 "
+            f"{t_kernel / t_b1:.3f}x), "
             f"SDPA on the bf16 K/V {t_sdpa:.4f} ms, plain {t_plain:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, "
             f"{bound_ms / t_kernel:.1%} of it)")
@@ -2151,8 +2311,8 @@ def check_window(name, q_shape, kv_shape, window, bounds, gen) -> dict:
         f"B1 window {name}", q, k, v,
         kernel=lambda: flash_attention(q, k, v, causal=True, window=window,
                                        segment_ids=ids, return_lse=True),
-        plain=lambda: flash_attention_plain(
-            q, k, v, causal=True, sm_scale=d ** -0.5, window=window,
+        plain=lambda x=q, s=d ** -0.5: flash_attention_plain(
+            x, k, v, causal=True, sm_scale=s, window=window,
             segment_ids=ids, return_lse=True),
         sdpa_mask=mask, sdpa_causal=False, bound=bound)
     t_causal = cuda_time_ms(lambda: flash_attention(
@@ -2171,7 +2331,9 @@ def check_window(name, q_shape, kv_shape, window, bounds, gen) -> dict:
         t_row = cuda_time_ms(lambda: flash_attention_rowloop(
             q, k, v, causal=True, window=window), iters=5)["median_ms"]
         log(f"B11 window {name} (non-jagged entry): {t_row:.4f} ms, output "
-            f"bit-equal to B1's; bound {bound[0]:.4f} ms ({bound[1]})")
+            f"bit-equal to B1's; bound {bound[0]:.4f} ms ({bound[1]}), "
+            f"{bound[0] / t_row:.1%} of it, {t_row / row['library_ms']:.2f}x "
+            f"SDPA")
         row["rowloop_ms"] = t_row
     return row
 
@@ -2473,10 +2635,27 @@ def main() -> int:
         if len(regs) <= 16:
             log("    registers/spill bytes: "
                 + ", ".join(instance_registers(text)))
+    # B1's bf16 instances run on wgmma: HGMMA in their SASS, no HMMA
+    sass = {k: v for k, v in wgmma_instructions(
+        str(_build._target("flash_fwd")[1])).items()
+        if k.startswith("flash_fwd_wgmma_kernel")}
+    log("  flash_fwd bf16 instances, HGMMA/HMMA instructions (cuobjdump "
+        "-sass): " + ", ".join(f"{k}: {g}/{h}" for k, (g, h) in sass.items()))
+    if not sass or any(g == 0 or h > 0 for g, h in sass.values()):
+        raise AssertionError("flash_fwd's bf16 instances are not on wgmma")
+    # the forward's shared memory: ops/configs.py's sizes are the kernels'
+    from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    for name, quantized in (("flash_fwd", False), ("flash_fwd_quant", True)):
+        check_smem_layouts(_build.library(name), quantized)
+    log("  forward shared memory: ops/configs.py::fwd_smem_bytes gives each "
+        "library's own size (tfa_flash_fwd_smem, tfa_flash_fwd_quant_smem) "
+        "for every instance")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FLASH_CASES:
-        check_flash(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
+        check_flash(*case, gen, iters=5 if case[1][2] >= 8192 else 10,
+                    faults=case[4] and case[1][2] in (2048, 8192)
+                    and case[1][2] == case[2][2])
     seg_err = max(check_segments(*case, gen) for case in SEG_CASES)
     rowloop_err = check_rowloop(gen)
     q, pages, lengths, table = decode_inputs(gen)
@@ -2501,6 +2680,7 @@ def main() -> int:
     qmm_split_sweep(gen)
     bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
                 for case in BWD_CASES]
+    bwd_spread()
     window_rows = {case[0]: check_window(*case, gen) for case in WINDOW_CASES}
     ring_rows = {fmt: check_ring(f"{fmt} pages, wrapped table", fmt, gen)
                  for fmt in ("bf16", "int8")}
@@ -2611,6 +2791,9 @@ def main() -> int:
     # engine's ring-mode launches
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
+         "design": "bf16: wgmma and a TMA/mbarrier ring, 128-row q and kv "
+                   "tiles, two consumer warpgroups and a producer warpgroup "
+                   "(setmaxnreg); f32: CUDA cores",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "
                      "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
@@ -2677,4 +2860,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--bwd-spread"]:
+        # only the spread reading, with the package found on sys.path (so
+        # a copy of this script can read another tree's kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        bwd_spread()
+        sys.exit(0)
     sys.exit(main())

@@ -17,7 +17,11 @@ tiles, wider than the sequence) and the decode's ring mode over wrapped
 tables, and the quantized forward (int8 and e4m3 K/V with per-token
 scales) at lengths 97/130/300, head_dim 64/128, groups 1/2/4, bf16 and f32
 q, with the window, segment ids, segment_starts, the decode offset and
-empty rows.
+empty rows; and the bf16 forward at the edges of its 128-row tiles: q and
+kv lengths 1/127/128/129/255/257, head_dim 64/128 at groups 1/2/4/8, one
+and 130 decode rows over 2100, window edges at columns 127 and 129, ids
+changing across the tile edge (bulk-copied and loaded), and jagged lengths
+0/1/127/128/129.
 """
 
 import pytest
@@ -41,7 +45,8 @@ from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     pack_paged_cache, page_append_plain, page_rows)
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda, quantized_matmul_plain)
-from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+from tiny_flash_attention_tpu_torch.utils.testing import (
+    flash_gate, tolerance_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +64,13 @@ def _randn(shape, dtype, gen):
 
 def _err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def _assert_flash_gate(out, lse, plain, q, dtype):
+    """B1 against its plain version, plain(q', sm_scale): the dtype gate
+    and, for bf16, the gate at the kernel's q fold (utils/testing.py)."""
+    errs, folded, ok = flash_gate(out, lse, plain, q, dtype)
+    assert ok, (errs, folded)
 
 
 @pytest.mark.parametrize("b,hq,hkv,q_len,kv_len,d,causal,dtype", [
@@ -81,11 +93,8 @@ def test_flash_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
-                                         sm_scale=d ** -0.5, return_lse=True)
-    atol = tolerance_for(dtype)
-    assert _err(out, ref) <= atol
-    assert _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=causal, sm_scale=sc, return_lse=True), q, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
@@ -208,11 +217,9 @@ def test_segment_kernel_matches_plain(gen, b, hq, hkv, n, d, causal, dtype,
                                segment_ids=(q_seg, seg), return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref, ref_lse = flash_attention_plain(
-        q, k, v, causal=causal, sm_scale=d ** -0.5,
-        segment_ids=(q_seg, seg), return_lse=True)
-    atol = tolerance_for(dtype)
-    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=causal, sm_scale=sc, segment_ids=(q_seg, seg),
+        return_lse=True), q, dtype)
     assert bool((out[0, :, 3] == 0).all())
     pruned = flash_attention(q, k, v, causal=causal, segment_ids=(seg, seg),
                              segment_starts=(0, *bounds), return_lse=True)
@@ -238,8 +245,8 @@ def test_rowloop_kernel_matches_plain(gen, dtype):
     assert flash_attention_rowloop.launches == before + 1
     ref, ref_lse = flash_attention_rowloop_plain(
         q, k, v, causal=True, sm_scale=128 ** -0.5, seq_lengths=lens)
-    atol = tolerance_for(dtype)
-    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_rowloop_plain(
+        x, k, v, causal=True, sm_scale=sc, seq_lengths=lens), q, dtype)
     for bi, L in enumerate(lens.tolist()):
         assert bool((out[bi, :, L:] == 0).all())
         torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
@@ -247,9 +254,9 @@ def test_rowloop_kernel_matches_plain(gen, dtype):
     for q_len, causal in ((192, False), (40, True)):
         out, lse = flash_attention_rowloop(q[:, :, :q_len], k, v,
                                            causal=causal)
-        ref, ref_lse = flash_attention_rowloop_plain(
-            q[:, :, :q_len], k, v, causal=causal, sm_scale=128 ** -0.5)
-        assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+        _assert_flash_gate(
+            out, lse, lambda x, sc, c=causal: flash_attention_rowloop_plain(
+                x, k, v, causal=c, sm_scale=sc), q[:, :, :q_len], dtype)
 
 
 def _forward_only_calls(gen):
@@ -672,11 +679,9 @@ def test_window_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
                                return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention.window_launches == before + 1
-    ref, ref_lse = flash_attention_plain(q, k, v, causal=True,
-                                         sm_scale=d ** -0.5, window=window,
-                                         return_lse=True)
-    atol = tolerance_for(dtype)
-    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, window=window, return_lse=True),
+        q, dtype)
     row = flash_attention_rowloop(q, k, v, causal=True, window=window)
     assert all(torch.equal(x, y) for x, y in zip(row, (out, lse)))
     if window >= kv_len:
@@ -693,11 +698,9 @@ def test_window_with_segments_kernel_matches_plain(gen, dtype):
     out, lse = flash_attention(q, k, v, causal=True, window=50,
                                segment_ids=(seg, seg), return_lse=True)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_attention_plain(
-        q, k, v, causal=True, sm_scale=128 ** -0.5, window=50,
-        segment_ids=(seg, seg), return_lse=True)
-    atol = tolerance_for(dtype)
-    assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, window=50,
+        segment_ids=(seg, seg), return_lse=True), q, dtype)
     pruned = flash_attention(q, k, v, causal=True, window=50,
                              segment_ids=(seg, seg),
                              segment_starts=(0, 37, 100, 250),
@@ -828,3 +831,111 @@ def test_quantized_kernel_maps_e4m3_codes_as_jax(gen, dtype):
         assert float(out[0, 0, 0, 7]) == -480.0
     else:
         assert bool(torch.isnan(out[..., 5]).all())
+
+
+# --- B1's bf16 kernel at its tile edges (128-row q and kv tiles, wgmma) ------
+
+EDGES = [1, 127, 128, 129, 255, 257]
+
+
+def _flash_vs_plain(gen, b, hq, hkv, q_len, kv_len, d, **kw):
+    """One launch of B1 (bf16) against its plain version at the bf16 gates;
+    returns the inputs and the kernel's (out, lse)."""
+    q = _randn((b, hq, q_len, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
+        x, k, v, sm_scale=sc, return_lse=True, **kw), q, torch.bfloat16)
+    assert bool(torch.isfinite(got[0]).all())
+    return (q, k, v), got
+
+
+def test_forward_smem_layouts_match_configs(gen):
+    """ops/configs.py::fwd_smem_bytes gives the shared memory that each
+    instance of the built forward libraries takes (their exported sizes)."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    for name, quantized in (("flash_fwd", False), ("flash_fwd_quant", True)):
+        check_smem_layouts(_build.library(name), quantized)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", EDGES)
+@pytest.mark.parametrize("q_len", EDGES)
+def test_bf16_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """q_len and kv_len on each side of the 128-row tiles (one row, a tile
+    but one, a tile, a tile and one, two tiles but one, two and one)."""
+    _flash_vs_plain(gen, 1, 8, 2, q_len, kv_len, 128, causal=causal)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [129, 257])
+def test_bf16_kernel_head_dims_and_groups(gen, n, d, group):
+    _flash_vs_plain(gen, 2, 2 * group, 2, n, n, d, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_len", [1, 130])
+def test_bf16_kernel_decode_offset(gen, q_len, d):
+    """q rows at the end of a kv of 2100: one row (the block's second
+    warpgroup idle) and a tile and two rows."""
+    _flash_vs_plain(gen, 2, 8, 2, q_len, 2100, d, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [130, 128])
+def test_bf16_kernel_window_edge_at_tile_edges(gen, window, d):
+    """The window's left edge for the q tile at row 256 falls at column 127
+    (window 130) and 129 (window 128), beside the 128-column tile edge; the
+    row loop's non-jagged entry gives the same bits."""
+    (q, k, v), got = _flash_vs_plain(gen, 1, 4, 2, 400, 400, d,
+                                     causal=True, window=window)
+    row = flash_attention_rowloop(q, k, v, causal=True, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(row, got))
+
+
+@pytest.mark.parametrize("n", [300, 301], ids=["bulk-ids", "loaded-ids"])
+def test_bf16_kernel_ids_across_the_tile_edge(gen, n):
+    """Segment ids that change at 127, 128 and 129, causal and not, with kv
+    lengths whose ids come by bulk copy (n % 4 == 0) and by the producer
+    warp's loads; segment_starts prune without changing a bit."""
+    bounds = (127, 128, 129, 250)
+    seg = _segment_ids(2, n, bounds, gen)
+    for causal in (True, False):
+        (q, k, v), got = _flash_vs_plain(gen, 2, 8, 2, n, n, 128,
+                                         causal=causal,
+                                         segment_ids=(seg, seg))
+        pruned = flash_attention(q, k, v, causal=causal,
+                                 segment_ids=(seg, seg),
+                                 segment_starts=(0, *bounds),
+                                 return_lse=True)
+        assert all(torch.equal(x, y) for x, y in zip(pruned, got))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_rowloop_jagged_lengths_at_tile_edges(gen, d):
+    """Jagged lengths 0, 1, 127, 128, 129 and the whole row: rows past a
+    length are exactly 0 with the sentinel LSE."""
+    lens = torch.tensor([0, 1, 127, 128, 129, 300], dtype=torch.int32,
+                        device="cuda")
+    q = _randn((6, 8, 300, d), torch.bfloat16, gen)
+    k = _randn((6, 2, 300, d), torch.bfloat16, gen)
+    v = _randn((6, 2, 300, d), torch.bfloat16, gen)
+    before = flash_attention_rowloop.launches
+    out, lse = flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_attention_rowloop.launches == before + 1
+    ref, ref_lse = flash_attention_rowloop_plain(
+        q, k, v, causal=True, sm_scale=d ** -0.5, seq_lengths=lens)
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_rowloop_plain(
+        x, k, v, causal=True, sm_scale=sc, seq_lengths=lens), q,
+        torch.bfloat16)
+    for bi, L in enumerate(lens.tolist()):
+        assert bool((out[bi, :, L:] == 0).all())
+        torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
+                                   rtol=1e-6, atol=0)   # the sentinel

@@ -18,7 +18,8 @@ from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.reference import (
     DEFAULT_MASK_VALUE, mha_reference)
-from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+from tiny_flash_attention_tpu_torch.utils.testing import (
+    flash_gate, fold_q, tolerance_for)
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
         torch.float16: jnp.float16}
@@ -152,3 +153,41 @@ def test_validation_matches_jax():
         flash_attention(q, k, v, window=4)
     with pytest.raises(ValueError, match="segment_ids"):
         flash_attention(q, k, v, segment_starts=(0,))
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [
+    pytest.param((1, 4, 640, 64), (1, 2, 640, 64), id="worklist-kernel"),
+    pytest.param((1, 4, 1024, 128), (1, 2, 1024, 128), id="tri-kernel"),
+])
+def test_bf16_gate_at_the_fold_holds_the_kernels_and_catches_faults(
+        q_shape, kv_shape):
+    """The bf16 forward's gate (utils/testing.py::flash_gate) on JAX's
+    Pallas kernels in interpret mode, whose q fold the CUDA kernel
+    repeats: they pass it against the port's plain version. A stale V
+    tile (tile 3's V read for tile 4) or a dropped kv tile (tile 4) in the
+    rows of the last 128-row q tile of the plain version on the folded q
+    fails it."""
+    (q, k, v), (jq, jk, jv) = _inputs(q_shape, kv_shape, torch.bfloat16,
+                                      seed=5)
+
+    def plain(x, sc, vv=v, ids=None):
+        return flash_attention_plain(x, k, vv, causal=True, sm_scale=sc,
+                                     segment_ids=ids, return_lse=True)
+
+    jout, jlse = jax_flash(jq, jk, jv, causal=True, return_lse=True)
+    out = torch.from_numpy(_f32(jout)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.asarray(jlse))
+    assert flash_gate(out, lse, plain, q, torch.bfloat16)[2]
+
+    qf, scale = fold_q(q, q_shape[-1] ** -0.5)
+    rows, tile = slice(q_shape[2] - 128, None), slice(512, 640)
+    stale = v.clone()
+    stale[:, :, tile] = v[:, :, 384:512]
+    kv_ids = torch.zeros((1, kv_shape[2]), dtype=torch.int32)
+    kv_ids[:, tile] = 1
+    q_ids = torch.zeros((1, 128), dtype=torch.int32)
+    for fault in (plain(qf[:, :, rows], scale, vv=stale),
+                  plain(qf[:, :, rows], scale, ids=(q_ids, kv_ids))):
+        bad_out, bad_lse = plain(qf, scale)
+        bad_out[:, :, rows], bad_lse[:, :, rows] = fault
+        assert not flash_gate(bad_out, bad_lse, plain, q, torch.bfloat16)[2]

@@ -73,9 +73,7 @@
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
-#include <cuda.h>
-
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
 #if !defined(TFA_BWD_BF16_BLOCK_M) || !defined(TFA_BWD_BF16_BLOCK_N) || \
     !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) ||   \
@@ -97,185 +95,6 @@ struct Table {
   __host__ __device__ Table(const int* t, int n)
       : lo(t), hi(t + n), order(t + 2 * n) {}
 };
-
-// ----------------------------------------------------- Hopper primitives
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: a box of a 3-D tensor map at (c0, c1, c2) into shared memory,
-// completing on `bar`; rows past the tensor's end land as zeros.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A contiguous bulk copy (16-byte aligned, a multiple of 16 bytes).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// global[dst] += smem[src] in f32, element by element, as one bulk op.
-__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
-                                                uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
-      "[%1], %2;\n" ::"l"(dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// The issuing thread's bulk ops have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Generic-proxy writes to shared memory, made visible to the async proxy
-// (wgmma, bulk copies) before a barrier.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of these registers across
-// a wgmma wait (the products write them asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// A wgmma shared-memory descriptor of a tile in the 128-byte swizzle that
-// TMA writes (rows of 64 bf16, 8-row groups 1024 bytes apart, the tile
-// 1024-byte aligned). K-major: the start may sit 32, 64 or 96 bytes into a
-// row (the 16-wide k slice); sbo = 1024, lbo unused. MN-major: lbo is the
-// stride between 64-wide column blocks, sbo the stride between 8-row k
-// groups.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0 (p
-// below 2^-126 contributes nothing a bf16 operand could hold).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The byte offset of element (row, col) of a tile of 64-wide bf16 rows in
-// the 128-byte swizzle: 16-byte chunk col / 8 XOR row % 8.
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
-
-// clang-format off
-// d (64 x 64, f32) += A (64 x 16) * B (16 x 64), both from shared memory;
-// TA / TB: 0 K-major, 1 MN-major (transposed); scale_d 0 overwrites d.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64) from
-// shared memory, B MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128) from
-// shared memory, B MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-// clang-format on
 
 // ------------------------------------------------------------- bf16 path
 
@@ -690,54 +509,6 @@ __global__ void __launch_bounds__(128)
   else
     post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, 1.f,
                      tile);
-}
-
-// cuTensorMapEncodeTiled, fetched through the CUDA runtime's entry-point
-// query (no link to libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (D, rows, heads) bf16 tensor as a 3-D map with boxes of 64 columns x
-// box_rows rows of one head, in the 128-byte swizzle.
-bool bf16_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
-              int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Bf16Args {

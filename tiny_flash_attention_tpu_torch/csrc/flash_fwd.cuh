@@ -1,6 +1,8 @@
-// Flash-attention-2 forward for Hopper (sm_90a): the kernel bodies, shared by
-// flash_fwd.cu (bf16/f32 K/V) and flash_fwd_quant.cu (int8/e4m3 K/V with
-// per-token scales).
+// Flash-attention-2 forward for Hopper (sm_90a) on mma.sync and the CUDA
+// cores: the kernel bodies of the quantized instances (flash_fwd_quant.cu,
+// int8/e4m3 K/V with per-token scales, bf16 or f32 q) and of the f32
+// instances of flash_fwd.cu. The bf16 instances of flash_fwd.cu are the
+// wgmma/TMA kernel of that source; the contract below is theirs too.
 //
 // Replaces the three TPU forward kernels, which compute one contract and
 // differ only in TPU scheduling (VMEM residency, work lists, the triangle
@@ -22,11 +24,12 @@
 //   * segment ids q_seg (B, Sq), kv_seg (B, Skv): only equal ids attend. Ids
 //     are runtime values, so with them every tile pays the mask (JAX's
 //     any_masked = ... or with_segments); the KV ids of a tile ride the
-//     cp.async ring beside its K rows.
+//     ring beside its K rows.
 //   * tile_lo (n q tiles): the first kv tile of each q tile, from the static
 //     segment_starts of a packed row (the segment start of the tile's first
 //     row, JAX's _build_worklist): the kv loop runs [lo, hi), so a packed
-//     prefill costs sum(L_i^2)/2, not (sum L_i)^2/2.
+//     prefill costs sum(L_i^2)/2, not (sum L_i)^2/2. The table is built for
+//     the instance's own q and kv tile sizes (ops/flash.py::SegmentTiles).
 //   * tile_order (n q tiles): the q tile each blockIdx.x takes. The host
 //     knows the pruned work of every tile (the starts are static), so it
 //     hands the grid out longest work first.
@@ -39,16 +42,17 @@
 //     there is a window is a template parameter, so a launch without one
 //     pays no test of it (a runtime test cost such launches 6-16 % on the
 //     H100, most where every tile is masked).
-//   * seq_lens (B): the jagged mode (q_len == kv_len, causal). Row b's
-//     columns and rows at or past L = seq_lens[b] are out: the kv walk clamps
-//     to min(last row, L - 1), columns >= L are masked, rows >= L are empty
-//     rows (out 0, the sentinel), and a q tile that starts at or past L
-//     writes them and exits. The row-loop TPU kernel's point, a KV walk
-//     inside one grid step with a dynamic trip count, is how every block
-//     here already works; its jagged lengths are one more bound on that
-//     walk, so B11 is this mode of the B1 kernel (as B2 and B3 are B1), not
-//     a second kernel. The grid keeps the reversed order below: the lengths
-//     are runtime values, and blocks past L cost a store and an exit.
+//   * seq_lens (B): the jagged mode (q_len == kv_len, causal; unquantized
+//     K/V only). Row b's columns and rows at or past L = seq_lens[b] are out:
+//     the kv walk clamps to min(last row, L - 1), columns >= L are masked,
+//     rows >= L are empty rows (out 0, the sentinel), and a q tile that
+//     starts at or past L writes them and exits. The row-loop TPU kernel's
+//     point, a KV walk inside one grid step with a dynamic trip count, is
+//     how every block here already works; its jagged lengths are one more
+//     bound on that walk, so B11 is this mode of the B1 kernel (as B2 and B3
+//     are B1), not a second kernel. The grid keeps the reversed order below:
+//     the lengths are runtime values, and blocks past L cost a store and an
+//     exit.
 //
 // Quantized K/V (FMT kInt8 or kE4m3, the quantized instances of
 // flash_fwd_quant.cu; every option above but seq_lens): k/v are 1-byte
@@ -63,20 +67,19 @@
 // read what they read without quantization. int8 converts exactly; e4m3 to
 // bf16 repeats the TPU kernels' integer mapping (flash.py:59-80: the
 // subnormal codes land high, the NaN codes give +/-480), e4m3 to f32 is
-// exact (JAX's astype). FMT is a template parameter: the unquantized
-// instances compile as they did before it existed.
+// exact (JAX's astype).
 //
 // What bounds it: at prefill shapes the tensor-core FLOPs (4 * rows * cols * D
 // per head over the visible triangle), far above the card's
-// operations-per-byte ridge. The bf16 design: one block of 4 warps per
-// (q tile of 64 rows, q head, batch); each warp owns 16 rows and runs
+// operations-per-byte ridge. The quantized bf16 design: one block of 4 warps
+// per (q tile of 64 rows, q head, batch); each warp owns 16 rows and runs
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) for S = Q K^T and O += P V with
 // P kept in registers (the S accumulator layout is the A-operand layout).
-// K/V tiles of 64 rows stream through a two-stage cp.async ring in shared
-// memory. Causal blocks stop at the diagonal tile, and only tiles that
-// straddle the diagonal or the ragged kv edge pay for the mask. The softmax
-// state is online in f32 in the log2 domain: sm_scale * log2(e) is folded
-// into q in the input dtype, as every TPU kernel does (flash.py:241).
+// Payload tiles of 64 rows stream through a two-stage cp.async ring in
+// shared memory. Causal blocks stop at the diagonal tile, and only tiles
+// that straddle the diagonal or the ragged kv edge pay for the mask. The
+// softmax state is online in f32 in the log2 domain: sm_scale * log2(e) is
+// folded into q in the input dtype, as every TPU kernel does (flash.py:241).
 // Blocks run longest causal rows first so the tail of the grid is short
 // (pruned packed rows: longest pruned work first, from tile_order).
 //
@@ -85,8 +88,9 @@
 // 64 x 64 score tile and a 4 x D/16 piece of the output.
 //
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
-// defines (FLASH_FWD_*, for both sources); the build refuses to compile
-// without them.
+// defines (FLASH_FWD_QUANT_BF16 for the quantized bf16 body, FLASH_FWD_F32
+// for the f32 body, quantized or not); the build refuses to compile without
+// them.
 
 #pragma once
 
@@ -94,8 +98,8 @@
 
 #include "flash_common.cuh"
 
-#if !defined(TFA_FWD_BF16_BLOCK_M) || !defined(TFA_FWD_BF16_BLOCK_N) || \
-    !defined(TFA_FWD_BF16_THREADS) || !defined(TFA_FWD_F32_BLOCK_M) ||   \
+#if !defined(TFA_FWDQ_BF16_BLOCK_M) || !defined(TFA_FWDQ_BF16_BLOCK_N) ||  \
+    !defined(TFA_FWDQ_BF16_THREADS) || !defined(TFA_FWD_F32_BLOCK_M) ||    \
     !defined(TFA_FWD_F32_BLOCK_N) || !defined(TFA_FWD_F32_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
@@ -217,15 +221,26 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
                      payload_f32<FMT>(w >> 24));
 }
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------------------------ quantized bf16 path
 
-constexpr int BM = TFA_FWD_BF16_BLOCK_M;
-constexpr int BN = TFA_FWD_BF16_BLOCK_N;
-constexpr int THREADS = TFA_FWD_BF16_THREADS;
+constexpr int BM = TFA_FWDQ_BF16_BLOCK_M;
+constexpr int BN = TFA_FWDQ_BF16_BLOCK_N;
+constexpr int THREADS = TFA_FWDQ_BF16_THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 8;  // bf16 per smem row: rows land 16 bytes apart in banks
 static_assert(BM == WARPS * 16, "each warp owns 16 q rows");
 static_assert(BN % 16 == 0, "kv tile is a multiple of the mma depth");
+static_assert(BM == BN, "smem size assumes equal q and kv tiles");
+
+// Dynamic shared memory of a quantized bf16 block: q and one converted K
+// and V tile (rows padded), a two-stage ring of payload rows with their k
+// and v scales, and the kv ids (ops/configs.py::fwd_smem_bytes mirrors it;
+// tfa_flash_fwd_quant_smem exports it).
+template <int D>
+constexpr int bf16_quant_smem_bytes() {
+  return 3 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16) +
+         2 * BN * (2 * D + 2 * (int)sizeof(float)) + 2 * BN * (int)sizeof(int);
+}
 
 template <int D, bool WINDOW, int FMT>
 __global__ void __launch_bounds__(THREADS)
@@ -236,21 +251,19 @@ __global__ void __launch_bounds__(THREADS)
                           float* __restrict__ lse, FwdMasks mk, KvScales sc,
                           int hq, int hkv, int q_len, int kv_len, int causal,
                           float scale_log2, int window) {
-  constexpr bool QUANT = FMT != kNone;
+  static_assert(FMT != kNone, "bf16 K/V take flash_fwd.cu's wgmma kernel");
   constexpr int LD = D + PAD;
   constexpr int CH = D / 8;  // 16-byte chunks per row
-  // unquantized: K and V tiles of the ring; quantized: one converted K and V
-  constexpr int KV_BUFS = QUANT ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BM * LD;            // [KV_BUFS][BN][LD]
-  __nv_bfloat16* vs = ks + KV_BUFS * BN * LD;  // [KV_BUFS][BN][LD]
-  // quantized: the ring of payload rows [2][BN][D] bytes and scales [2][BN]
-  uint8_t* kp = reinterpret_cast<uint8_t*>(vs + KV_BUFS * BN * LD);
-  uint8_t* vp = kp + (QUANT ? 2 * BN * D : 0);
-  float* ksc = reinterpret_cast<float*>(vp + (QUANT ? 2 * BN * D : 0));
-  float* vsc = ksc + (QUANT ? 2 * BN : 0);
-  int* kid = reinterpret_cast<int*>(vsc + (QUANT ? 2 * BN : 0));  // [2][BN]
+  __nv_bfloat16* ks = qs + BM * LD;  // [BN][LD], the converted K tile
+  __nv_bfloat16* vs = ks + BN * LD;  // [BN][LD], the converted V tile
+  // the ring of payload rows [2][BN][D] bytes and scales [2][BN]
+  uint8_t* kp = reinterpret_cast<uint8_t*>(vs + BN * LD);
+  uint8_t* vp = kp + 2 * BN * D;
+  float* ksc = reinterpret_cast<float*>(vp + 2 * BN * D);
+  float* vsc = ksc + 2 * BN;
+  int* kid = reinterpret_cast<int*>(vsc + 2 * BN);  // [2][BN]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int qt = mk.tile_order ? mk.tile_order[blockIdx.x]
@@ -284,34 +297,22 @@ __global__ void __launch_bounds__(THREADS)
 
   auto load_kv = [&](int tile, int buf) {
     const int kv0 = tile * BN;
-    if constexpr (!QUANT) {
-      __nv_bfloat16* kd = ks + buf * BN * LD;
-      __nv_bfloat16* vd = vs + buf * BN * LD;
-      for (int c = tid; c < BN * CH; c += THREADS) {
-        const int r = c / CH, col = (c % CH) * 8;
-        const bool valid = kv0 + r < kv_len;
-        const size_t src = (size_t)(valid ? kv0 + r : 0) * D + col;
-        cp_async16(kd + r * LD + col, kg + src, valid);
-        cp_async16(vd + r * LD + col, vg + src, valid);
-      }
-    } else {
-      constexpr int PCH = D / 16;  // 16-byte chunks per payload row
-      uint8_t* kd = kp + buf * BN * D;
-      uint8_t* vd = vp + buf * BN * D;
-      for (int c = tid; c < BN * PCH; c += THREADS) {
-        const int r = c / PCH, col = (c % PCH) * 16;
-        const bool valid = kv0 + r < kv_len;
-        const size_t src = (size_t)(valid ? kv0 + r : 0) * D + col;
-        cp_async16(kd + r * D + col, kg + src, valid);
-        cp_async16(vd + r * D + col, vg + src, valid);
-      }
-      const size_t head = (size_t)(b * hkv + kvh) * kv_len;
-      for (int r = tid; r < BN; r += THREADS) {
-        const bool valid = kv0 + r < kv_len;
-        const size_t src = head + (valid ? kv0 + r : 0);
-        cp_async4(ksc + buf * BN + r, sc.k + src, valid);
-        cp_async4(vsc + buf * BN + r, sc.v + src, valid);
-      }
+    constexpr int PCH = D / 16;  // 16-byte chunks per payload row
+    uint8_t* kd = kp + buf * BN * D;
+    uint8_t* vd = vp + buf * BN * D;
+    for (int c = tid; c < BN * PCH; c += THREADS) {
+      const int r = c / PCH, col = (c % PCH) * 16;
+      const bool valid = kv0 + r < kv_len;
+      const size_t src = (size_t)(valid ? kv0 + r : 0) * D + col;
+      cp_async16(kd + r * D + col, kg + src, valid);
+      cp_async16(vd + r * D + col, vg + src, valid);
+    }
+    const size_t head = (size_t)(b * hkv + kvh) * kv_len;
+    for (int r = tid; r < BN; r += THREADS) {
+      const bool valid = kv0 + r < kv_len;
+      const size_t src = head + (valid ? kv0 + r : 0);
+      cp_async4(ksc + buf * BN + r, sc.k + src, valid);
+      cp_async4(vsc + buf * BN + r, sc.v + src, valid);
     }
     if (segs) {
       for (int r = tid; r < BN; r += THREADS) {
@@ -376,17 +377,15 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if constexpr (QUANT) {
-      // the landed payload tile into the bf16 staging tiles; the barrier at
-      // the end of the previous iteration freed them
-      payload_tile_to_bf16<FMT, D>(ks, kp + buf * BN * D, BN, LD, tid,
-                                   THREADS);
-      payload_tile_to_bf16<FMT, D>(vs, vp + buf * BN * D, BN, LD, tid,
-                                   THREADS);
-      __syncthreads();
-    }
-    const __nv_bfloat16* kt = ks + (QUANT ? 0 : buf * BN * LD);
-    const __nv_bfloat16* vt = vs + (QUANT ? 0 : buf * BN * LD);
+    // the landed payload tile into the bf16 staging tiles; the barrier at
+    // the end of the previous iteration freed them
+    payload_tile_to_bf16<FMT, D>(ks, kp + buf * BN * D, BN, LD, tid,
+                                 THREADS);
+    payload_tile_to_bf16<FMT, D>(vs, vp + buf * BN * D, BN, LD, tid,
+                                 THREADS);
+    __syncthreads();
+    const __nv_bfloat16* kt = ks;
+    const __nv_bfloat16* vt = vs;
 
     // S = Q K^T, 16 x BN per warp
     float s[BN / 8][4];
@@ -406,7 +405,7 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 
-    if constexpr (QUANT) {
+    {
       // s *= kscale of its column, before the mask: a masked entry stays
       // exactly the mask value
       const float* kscale = ksc + buf * BN;
@@ -473,16 +472,11 @@ __global__ void __launch_bounds__(THREADS)
       const float p3 = exp2f(s[nt][3] - m_new[1]) * keep[1];
       rs[0] += p0 + p1;
       rs[1] += p2 + p3;
-      if constexpr (QUANT) {
-        // p *= vscale of its column in f32, then the one rounding to bf16
-        const float2 f = *reinterpret_cast<const float2*>(
-            vsc + buf * BN + nt * 8 + (lane % 4) * 2);
-        pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0 * f.x, p1 * f.y);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2 * f.x, p3 * f.y);
-      } else {
-        pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0, p1);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
-      }
+      // p *= vscale of its column in f32, then the one rounding to bf16
+      const float2 f = *reinterpret_cast<const float2*>(
+          vsc + buf * BN + nt * 8 + (lane % 4) * 2);
+      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0 * f.x, p1 * f.y);
+      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2 * f.x, p3 * f.y);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + rs[r];
@@ -536,17 +530,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int batch, int hq, int hkv, int q_len, int kv_len,
                         int causal, int window, float scale_log2,
                         cudaStream_t stream) {
-  static_assert(BM == BN, "smem size assumes equal q and kv tiles");
-  // unquantized: q + a two-stage ring of K and V tiles, the kv ids;
-  // quantized: q + one bf16 K and V tile, a two-stage ring of payload rows
-  // and their k and v scales, the kv ids
-  const int smem =
-      FMT == kNone
-          ? 5 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16) +
-                2 * BN * (int)sizeof(int)
-          : 3 * BM * (D + PAD) * (int)sizeof(__nv_bfloat16) +
-                2 * BN * (2 * D + 2 * (int)sizeof(float)) +
-                2 * BN * (int)sizeof(int);
+  const int smem = bf16_quant_smem_bytes<D>();
   using KV = KvElem<FMT, __nv_bfloat16>;
   const bool windowed = window > 0;
   const auto kernel = windowed ? flash_fwd_bf16_kernel<D, true, FMT>
@@ -571,6 +555,17 @@ constexpr int FTHREADS = TFA_FWD_F32_THREADS;
 // thread t owns rows (t / 16) * 4 + [0, 4) and columns t % 16 + 16 * [0, n)
 static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
               "the f32 thread map is 16 x 16 threads over a 64 x 64 tile");
+
+// Dynamic shared memory of an f32 block: q^T, k^T, v, p (rows padded by
+// one) and the kv ids; quantized, the tile's k and v scales too
+// (ops/configs.py::fwd_smem_bytes mirrors it; tfa_flash_fwd_smem and
+// tfa_flash_fwd_quant_smem export it).
+template <int D, int FMT>
+constexpr int f32_smem_bytes() {
+  return (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float) +
+         FN * (int)sizeof(int) +
+         (FMT == kNone ? 0 : 2 * FN * (int)sizeof(float));
+}
 
 template <int D, bool WINDOW, int FMT>
 __global__ void __launch_bounds__(FTHREADS)
@@ -794,10 +789,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int batch, int hq, int hkv, int q_len, int kv_len,
                        int causal, int window, float scale_log2,
                        cudaStream_t stream) {
-  // q^T, k^T, v, p and the kv ids; quantized: and the k and v scales
-  const int smem =
-      (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float) +
-      FN * (int)sizeof(int) + (FMT == kNone ? 0 : 2 * FN * (int)sizeof(float));
+  const int smem = f32_smem_bytes<D, FMT>();
   using KV = KvElem<FMT, float>;
   const bool windowed = window > 0;
   const auto kernel = windowed ? flash_fwd_f32_kernel<D, true, FMT>
@@ -814,9 +806,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// One launch of the instance for q's dtype (0 bf16, 1 f32) and head_dim (64
-// or 128) over K/V of payload format FMT; cudaErrorInvalidValue for any
-// other. The caller has checked the rest.
+// One launch of the quantized instance for q's dtype (0 bf16, 1 f32) and
+// head_dim (64 or 128) over K/V of payload format FMT;
+// cudaErrorInvalidValue for any other. The caller has checked the rest.
 template <int FMT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const FwdMasks& mk, const KvScales& sc,

@@ -79,7 +79,7 @@ def prefill_forward_packed(cfg: T.ModelConfig, params: dict,
     """
     seg = seg_ids.to(device=tokens.device, dtype=torch.int32)
     tiles = segment_tiles(segment_starts, tokens.shape[1], causal=True,
-                          dtype=cfg.dtype, device=tokens.device)
+                          device=tokens.device)
     return _prefill(cfg, params, tokens, positions,
                     lambda q, k, v: flash_attention(
                         q, k, v, causal=True, segment_ids=(seg, seg),

@@ -3,17 +3,18 @@
 Counterpart of tiny_flash_attention_tpu/ops/flash.py::flash_attention. The
 three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
-csrc/flash_fwd.cu, ports all three. A CPU tensor takes the plain version
+csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles;
+f32: the CUDA cores over 64-row tiles). A CPU tensor takes the plain version
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
 (head_dim other than 64 or 128). Quantized K/V take the quantized instances
-of the same kernel, csrc/flash_fwd_quant.cu, through
+of the kernel, csrc/flash_fwd_quant.cu (mma.sync over 64-row tiles), through
 ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
 kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
-JAX's `_build_worklist` prunes its work list to the block diagonal; a window
-starts each q tile's kv range at its band, as JAX's work list holds only
-band tiles.
+JAX's `_build_worklist` prunes its work list to the block diagonal, built
+for each instance's own tiles on first use; a window starts each q tile's kv
+range at its band, as JAX's work list holds only band tiles.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609), window, segment
@@ -39,7 +40,8 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_F32)
+    FLASH_FWD_BF16, FLASH_FWD_F32, FLASH_FWD_QUANT_BF16, TileConfig,
+    fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -60,53 +62,81 @@ def in_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class SegmentTiles:
-    """Static `segment_starts` as the forward kernel's tile table, on the
-    device: `tile_lo[i]` is the first kv tile q tile i visits (the segment
-    start of its first row), `order[i]` the q tile block i takes, longest
-    pruned work first; `starts` the offsets themselves, from which the
-    backward builds its own table. Built by `segment_tiles`."""
+    """Static `segment_starts` of a packed row of q_len (== kv_len) tokens,
+    as the forward kernels' tile tables on `device`: `table(cfg)` gives, for
+    the q and kv tiles of one forward instance, `tile_lo[i]` (the first kv
+    tile q tile i visits, the segment start of its first row) and
+    `order[i]` (the q tile block i takes, longest pruned work first). Each
+    table is built on first use and kept, one per tile config, so one
+    object serves every layer and both the bf16 and the quantized entries.
+    `starts` are the offsets themselves, from which the backward builds
+    its own table. Built by `segment_tiles`."""
     starts: tuple
     q_len: int
     causal: bool
-    block_m: int
-    block_n: int
-    tile_lo: torch.Tensor
-    order: torch.Tensor
+    device: torch.device
+    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def table(self, cfg: TileConfig) -> tuple[torch.Tensor, torch.Tensor]:
+        """(tile_lo, order) int32 on the device for `cfg`'s tiles."""
+        key = (cfg.block_m, cfg.block_n)
+        if key not in self._tables:
+            lo, _, order = tile_table(self.starts, self.q_len,
+                                      causal=self.causal,
+                                      block_m=cfg.block_m,
+                                      block_n=cfg.block_n)
+            both = torch.as_tensor(np.stack([lo, order]).astype(np.int32),
+                                   device=self.device)
+            self._tables[key] = (both[0], both[1])
+        return self._tables[key]
 
 
-def _fwd_tiles(dtype: torch.dtype):
-    return FLASH_FWD_BF16 if dtype == torch.bfloat16 else FLASH_FWD_F32
+def fwd_config(dtype: torch.dtype, quantized: bool = False) -> TileConfig:
+    """The tiles of the forward instance for q's dtype over unquantized or
+    quantized (int8/e4m3) K/V: f32 q takes the f32 body's either way."""
+    if dtype != torch.bfloat16:
+        return FLASH_FWD_F32
+    return FLASH_FWD_QUANT_BF16 if quantized else FLASH_FWD_BF16
 
 
-def segment_tiles(segment_starts, q_len: int, *, causal: bool,
-                  dtype: torch.dtype, device) -> SegmentTiles:
-    """The kernel's tile table for a packed row of q_len (== kv_len) tokens
-    whose segments start at `segment_starts` (JAX's `_build_worklist`,
-    flash.py:100-128: a q tile's kv range starts at the tile of its first
-    row's segment start). One host-to-device copy: build it once and pass
-    it to every layer's `flash_attention(..., segment_starts=tiles)` (or
-    `flash_attention_quantized`'s: its instances take the same tiles)."""
-    starts = tuple(sorted({0, *(int(x) for x in segment_starts)}))
-    if starts[0] < 0 or starts[-1] >= q_len:
-        raise ValueError(f"segment_starts {segment_starts} outside "
-                         f"[0, {q_len})")
-    cfg = _fwd_tiles(dtype)
-    bm, bn = cfg.block_m, cfg.block_n
+def tile_table(starts, q_len: int, *, causal: bool, block_m: int,
+               block_n: int):
+    """The kv range [lo, hi) of each q tile of a packed row (JAX's
+    `_build_worklist`, flash.py:100-128: a q tile's range starts at the
+    tile of its first row's segment start; causal, it ends at the tile of
+    its last row, as the kernels' `kv_tiles` clamps it) and the order of
+    the q tiles, longest range first. numpy int arrays (lo, hi, order)."""
+    bm, bn = block_m, block_n
     n_kv = -(-q_len // bn)
     first = np.arange(-(-q_len // bm)) * bm
     if causal:
         hi = np.minimum(n_kv, (np.minimum(first + bm, q_len) - 1) // bn + 1)
     else:
         hi = np.full(first.shape, n_kv)
-    table = np.asarray(starts)
+    table = np.asarray(sorted(starts))
     seg_start = table[np.searchsorted(table, first, side="right") - 1]
     lo = np.minimum(seg_start // bn, hi - 1)
     order = np.argsort(lo - hi, kind="stable")
-    both = torch.as_tensor(np.stack([lo, order]).astype(np.int32),
-                           device=device)
-    return SegmentTiles(starts, q_len, causal, bm, bn, both[0], both[1])
+    return lo, hi, order
+
+
+def segment_tiles(segment_starts, q_len: int, *, causal: bool,
+                  device) -> SegmentTiles:
+    """The kernels' tile tables for a packed row of q_len (== kv_len)
+    tokens whose segments start at `segment_starts`. Build it once and pass
+    it to every layer's `flash_attention(..., segment_starts=tiles)` (or
+    `flash_attention_quantized`'s): each instance's table is copied to the
+    device once, at its first launch."""
+    starts = tuple(sorted({0, *(int(x) for x in segment_starts)}))
+    if starts[0] < 0 or starts[-1] >= q_len:
+        raise ValueError(f"segment_starts {segment_starts} outside "
+                         f"[0, {q_len})")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return SegmentTiles(starts, q_len, causal, device)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -329,23 +359,42 @@ def as_int32(x, shape, like: torch.Tensor) -> torch.Tensor:
 
 def _tiles_for(segment_starts, q_len: int, causal: bool,
                q: torch.Tensor) -> SegmentTiles:
-    """`segment_starts` as a tile table that fits this launch, built here
-    when the caller passed the static offsets."""
+    """`segment_starts` as the tile tables of this launch, built here when
+    the caller passed the static offsets."""
     if not isinstance(segment_starts, SegmentTiles):
         return segment_tiles(segment_starts, q_len, causal=causal,
-                             dtype=q.dtype, device=q.device)
-    cfg = _fwd_tiles(q.dtype)
-    if (segment_starts.q_len, segment_starts.causal, segment_starts.block_m,
-            segment_starts.block_n, segment_starts.tile_lo.device) != (
-            q_len, causal, cfg.block_m, cfg.block_n, q.device):
-        raise ValueError("SegmentTiles were built for another q_len, mask, "
-                         "tile size or device")
+                             device=q.device)
+    if (segment_starts.q_len, segment_starts.causal,
+            segment_starts.device) != (q_len, causal, q.device):
+        raise ValueError("SegmentTiles were built for another q_len, mask "
+                         "or device")
     return segment_starts
 
 
+def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
+    """Holds `fwd_smem_bytes` to the shared memory the library's instances
+    take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
+    kernels' own layouts) for both dtypes and head dims; raises where they
+    differ."""
+    smem = (lib.tfa_flash_fwd_quant_smem if quantized
+            else lib.tfa_flash_fwd_smem)
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for dtype, code in _KERNEL_DTYPES.items():
+        cfg = fwd_config(dtype, quantized)
+        for d in _KERNEL_HEAD_DIMS:
+            want = fwd_smem_bytes(cfg, d, quantized)
+            if smem(code, d) != want:
+                raise RuntimeError(
+                    f"ops/configs.py::fwd_smem_bytes gives {want} bytes for "
+                    f"{cfg} at head_dim {d} (quantized={quantized}); the "
+                    f"kernel takes {smem(code, d)}")
+
+
 def _flash_fwd_fn():
-    fn = _build.library("flash_fwd").tfa_flash_fwd
+    lib = _build.library("flash_fwd")
+    fn = lib.tfa_flash_fwd
     if fn.argtypes is None:
+        check_smem_layouts(lib, quantized=False)
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -353,8 +402,10 @@ def _flash_fwd_fn():
 
 
 def _flash_fwd_quant_fn():
-    fn = _build.library("flash_fwd_quant").tfa_flash_fwd_quant
+    lib = _build.library("flash_fwd_quant")
+    fn = lib.tfa_flash_fwd_quant
     if fn.argtypes is None:
+        check_smem_layouts(lib, quantized=True)
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -418,6 +469,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         raise ValueError(f"shapes {q.shape}, {k.shape}, {v.shape}")
     if q_len == 0 or kv_len == 0 or bs == 0:
         raise ValueError("empty q or kv")
+    cfg = fwd_config(q.dtype, quantized)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if quantized:
         scales = [_aligned(s) for s in (k_scales, v_scales)]
@@ -430,8 +482,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             lse.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (q_seg, kv_seg,
-                        None if tiles is None else tiles.tile_lo,
-                        None if tiles is None else tiles.order)))
+                        *((None, None) if tiles is None
+                          else tiles.table(cfg)))))
     dims = (bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
