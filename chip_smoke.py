@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --bwd-spread   # only the backward's spread
+    python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -32,11 +32,17 @@ train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
 train cell) and two f32 steps at 1 x 1024. The flash forward's bf16 out is
 also gated row by row (utils/testing.py), and at causal 2048 and 8192 the
 gate must reject two faults planted in the plain version (a stale V tile, a
-dropped kv tile). It also reads, without gating it, how far two runs of the
-bf16 backward differ (bwd_spread). It fails if a kernel does not
-build, launch or agree, if the flash forward's bf16 instances are not on
+dropped kv tile). Two runs of the bf16 backward must give the same bits
+(bwd_spread: its sums run in a fixed order). The decodes are held against
+their plain version at the kernel's own split count and unsplit, the
+quantized matmul at every engine projection at 8 rows and at 1. It fails
+if a kernel does not build, launch or agree, if the flash forward's bf16
+instances are not on
 wgmma (no HGMMA, or any HMMA, in their SASS), if a path did not go through
-its kernels, if a path's output disagrees with its plain version, if the
+its kernels, if a decode step's launches differ from the parent tree's
+(303 bf16, 303 / 299 int8 KV with bf16 / int8 weights, 302 windowed), if
+two backward runs differ in any bit, if a path's output disagrees with its
+plain version, if the
 train step's loss is not finite, does not fall, or its gradients disagree
 with those through the plain attention, or if a backward through an entry
 whose JAX kernel has no VJP does not raise.
@@ -95,6 +101,16 @@ BWD_ORACLE_GATE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 QMM_GATE = 2.0 ** -7
 # The append kernel and its plain version run the same IEEE operations
 # (amax, amax / 127, x / scale, round half to even): bit for bit.
+# The decodes' design, for the kernels line.
+DECODE_DESIGN = ("split-KV in one launch: grid (splits, kv heads, sequences), "
+                 "512-token page-aligned splits covering the table width; "
+                 "each warp's 32-token chunks land by cp.async.bulk through "
+                 "a ring in shared memory; the last split to arrive merges "
+                 "the partials in split order (exact LSE combine)")
+# Launches per decode step in the profiled engine cells, the parent tree's
+# (PERF.md §5): a redesigned kernel keeps one launch per layer a step.
+STEP_LAUNCHES = {"bf16": 303, "int8 KV, bf16 weights": 303,
+                 "int8 KV, int8 weights": 299, "windowed": 302}
 # One train step's gradients through the kernels against those through
 # attn_impl="reference", per parameter, by relative Frobenius norm: earlier
 # runs read 1.89e-2 (bf16 activations round at other points in the two
@@ -419,22 +435,46 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
 # --- phase 3: paged decode, kernel vs plain ----------------------------------
 
 
+def split_errs(out, lse, plain):
+    """(out err, lse err, ok) of a decode against its plain version at the
+    kernel's own splits and unsplit: the worst of both, and whether both
+    pass the decode gates."""
+    ref, ref_lse = plain("kernel")
+    whole, whole_lse = plain(None)
+    err = max(max_err(out, ref), max_err(out, whole))
+    lse_err = max(max_err(lse, ref_lse), max_err(lse, whole_lse))
+    ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
+          and bool(torch.isfinite(out).all()))
+    return err, lse_err, ok
+
+
+def kernel_splits(pages_per_seq, page_size, window=None) -> tuple:
+    """(splits launched, pages a split) of a decode by ops/configs.py's
+    rule."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import decode_splits
+
+    per, n = decode_splits(pages_per_seq, page_size, window)
+    return n, per
+
+
 def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
+    """B4 against its plain version at the kernel's split count (the
+    same page-aligned partials, merged in order) and unsplit, at the decode
+    gates; device times of both and the bound."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_attention, fused_paged_decode_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
 
     sm_scale = 1.0 / q.shape[-1] ** 0.5
+    n_splits, per = kernel_splits(table.shape[1], page_size)
     out, lse = fused_paged_decode_attention(q, pages, lengths, table,
                                             page_size=page_size)
     torch.cuda.synchronize()
-    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
-                                            page_size=page_size,
-                                            sm_scale=sm_scale)
-    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
-    ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
-          and bool(torch.isfinite(out).all()))
+    err, lse_err, ok = split_errs(
+        out, lse, lambda sp: fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=page_size,
+            sm_scale=sm_scale, splits=sp))
     t_kernel = cuda_time_ms(lambda: fused_paged_decode_attention(
         q, pages, lengths, table, page_size=page_size),
         iters=iters)["median_ms"]
@@ -444,9 +484,11 @@ def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
     bound_ms, bound_by = decode_bound(q, pages, lengths, table, page_size)
     kv_bytes = bound_ms * 1e-3 * PEAK_BYTES_PER_S
     log(f"decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
-        f"table{tuple(table.shape)} lengths {lengths.tolist()} | out err "
-        f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} "
-        f"(gate {DECODE_LSE_GATE:.0e}) | kernel "
+        f"table{tuple(table.shape)} lengths {lengths.tolist()} | {n_splits} "
+        f"splits of {per} pages ({n_splits * pages.shape[0] * q.shape[0]} "
+        f"blocks) | out err {err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err "
+        f"{lse_err:.3e} (gate {DECODE_LSE_GATE:.0e}; against the split and "
+        f"the unsplit plain version) | kernel "
         f"{t_kernel:.4f} ms plain {t_plain:.4f} ms bound {bound_ms:.4f} ms "
         f"({bound_by}) | {kv_bytes / (t_kernel * 1e-3) / 1e9:.1f} GB/s | "
         f"{'ok' if ok else 'FAIL'}")
@@ -454,8 +496,28 @@ def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
         raise AssertionError(f"decode kernel disagrees with plain: {name}")
     return {"max_abs_err": max(err, lse_err), "ms": t_kernel,
             "plain_ms": t_plain, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "bound_by": bound_by, "splits": n_splits,
             "shape": [list(q.shape), list(pages.shape), list(table.shape)]}
+
+
+def decode_split_sweep(name, q, pages, lengths, table, page_size) -> None:
+    """B4's time by split count at one cache: what ops/configs.py::
+    paged_decode_split_pages should choose."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        decode_splits, fused_paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    chosen, per_chosen = kernel_splits(table.shape[1], page_size)
+    cells = []
+    for sp in sorted({1, 4, 8, 16, chosen, 32, 64}):
+        per, n = decode_splits(table.shape[1], page_size, None, sp)
+        t = cuda_time_ms(lambda: fused_paged_decode_attention(
+            q, pages, lengths, table, page_size=page_size, splits=sp),
+            iters=20)["median_ms"]
+        cells.append(f"{n} x {per} pages: {t:.4f}")
+    log(f"decode splits {name}, kernel ms: " + "; ".join(cells)
+        + f" (chosen: {chosen} x {per_chosen} pages)")
 
 
 def decode_inputs(gen, *, batch=8, hq=8, hkv=2, d=128, ps=128, P=32):
@@ -790,15 +852,15 @@ def _rel_err(got, want) -> float:
 BWD_SPREAD_PAIRS = 10
 
 
-def bwd_spread() -> None:
-    """The bf16 backward's run-to-run spread (ROADMAP C2), a reading and
-    not a gate: on the inputs of tests/test_torch_cuda.py::
-    test_bwd_two_runs_agree_within_one_ulp (seed 0), BWD_SPREAD_PAIRS pairs
-    of backward runs from the kernel forward's out and LSE and as many from
-    the plain forward's: how many pairs differ somewhere by more than one
-    bf16 ulp of the larger value (what that test asserts), and the element
-    that differs most relative to its size. The f32 sums into the
-    accumulators arrive in a run-dependent order."""
+def bwd_spread(gate: bool = True) -> None:
+    """The bf16 backward's run-to-run spread (ROADMAP C2): on the inputs of
+    tests/test_torch_cuda.py::test_bwd_two_runs_agree_within_one_ulp (seed
+    0), BWD_SPREAD_PAIRS pairs of backward runs from the kernel forward's
+    out and LSE and as many from the plain forward's: how many pairs differ
+    in any bit, how many by more than one bf16 ulp of the larger value
+    somewhere, and the element that differs most relative to its size. The
+    sums run in an order fixed by the shape and the masks, so with `gate`
+    any pair that differs in a bit fails (--bwd-spread only reads)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -814,14 +876,16 @@ def bwd_spread() -> None:
         "plain forward": flash_attention_plain(q, k, v, causal=True,
                                                sm_scale=128 ** -0.5,
                                                return_lse=True)}
+    differ_all = 0
     for label, (out, lse) in forwards.items():
-        beyond, worst = 0, (0.0, "none")
+        beyond, differ, worst = 0, 0, (0.0, "none")
         for _ in range(BWD_SPREAD_PAIRS):
             one = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
             two = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
             torch.cuda.synchronize()
-            pair_beyond = False
+            pair_beyond = pair_differs = False
             for name, a, b in zip(("dq", "dk", "dv"), one, two):
+                pair_differs |= not torch.equal(a, b)
                 a, b = a.float(), b.float()
                 big = torch.maximum(a.abs(), b.abs())
                 pair_beyond |= bool(((a - b).abs() > big * 2.0 ** -7).any())
@@ -834,9 +898,16 @@ def bwd_spread() -> None:
                              f"{float(b[idx]):.4e} (max |{name}| "
                              f"{float(big.max()):.4e})")
             beyond += pair_beyond
-        log(f"bwd spread, {label}: {beyond}/{BWD_SPREAD_PAIRS} pairs of runs "
-            f"differ by more than one bf16 ulp somewhere; the largest "
-            f"relative difference {worst[0]:.3e}, at {worst[1]}")
+            differ += pair_differs
+        differ_all += differ
+        log(f"bwd spread, {label}: {differ}/{BWD_SPREAD_PAIRS} pairs of runs "
+            f"differ in any bit, {beyond}/{BWD_SPREAD_PAIRS} by more than one "
+            f"bf16 ulp somewhere; the largest relative difference "
+            f"{worst[0]:.3e}, at {worst[1]}"
+            + (f" | {'ok' if differ == 0 else 'FAIL'}" if gate else ""))
+    if gate and differ_all:
+        raise AssertionError("two runs of the bf16 backward differ: its sums "
+                             "are not in a fixed order")
 
 
 def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
@@ -1253,7 +1324,8 @@ def quant_engine_run(cfg, params, label, quantized, prompt_len,
         f"{[round(x * 1e3, 2) for x in chunk_s]} ms -> {tok_s:.0f} tokens/s"
         f" (8 slots, last chunk)")
     profile_window(f"per int8 decode step ({label}, steps({PROFILE_STEPS}))",
-                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS)
+                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
+                   STEP_LAUNCHES[label.split(", prompt")[0]])
     return {"launches": launches, "engine": eng}
 
 
@@ -2015,11 +2087,10 @@ def surface_phase(gen) -> dict:
     for (name, fmt, _), (q, k, v, lengths, table), (out, lse) in zip(
             B12_CASES, b12_in, b12_out):
         sc = q.shape[-1] ** -0.5
-        ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
-                                          sm_scale=sc)
-        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
-        ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
-              and bool(torch.isfinite(out).all()))
+        n_splits, per = kernel_splits(table.shape[1], 128)
+        err, lse_err, ok = split_errs(
+            out, lse, lambda sp: paged_decode_plain(
+                q, k, v, lengths, table, sm_scale=sc, splits=sp))
         t_kernel = cuda_time_ms(lambda: paged_decode_attention(
             q, k, v, lengths, table), iters=20)["median_ms"]
         t_plain = cuda_time_ms(lambda: paged_decode_plain(
@@ -2036,7 +2107,8 @@ def surface_phase(gen) -> dict:
             del fused
         kv_bytes = bound_ms * 1e-3 * PEAK_BYTES_PER_S
         log(f"paged_decode_separate {name}: q{tuple(q.shape)} pages"
-            f"{tuple(kv.shape)} lengths {lengths.tolist()} | out err "
+            f"{tuple(kv.shape)} lengths {lengths.tolist()} | {n_splits} "
+            f"splits of {per} pages | out err "
             f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} "
             f"(gate {DECODE_LSE_GATE:.0e}) | kernel {t_kernel:.4f} ms plain "
             f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
@@ -2371,15 +2443,14 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
     lengths = torch.tensor([1, window, window + 65, P * ps, P * ps + 1,
                             P * ps + 700, 3 * P * ps + 5, 9000],
                            dtype=torch.int32, device="cuda")
+    n_splits, per = kernel_splits(P, ps, window)
     out, lse = fused_paged_decode_attention(q, pages, lengths, table,
                                             page_size=ps, window=window)
     torch.cuda.synchronize()
-    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
-                                            page_size=ps, sm_scale=d ** -0.5,
-                                            window=window)
-    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
-    ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
-          and bool(torch.isfinite(out).all()))
+    err, lse_err, ok = split_errs(
+        out, lse, lambda sp: fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            window=window, splits=sp))
     t_kernel = cuda_time_ms(lambda: fused_paged_decode_attention(
         q, pages, lengths, table, page_size=ps, window=window),
         iters=20)["median_ms"]
@@ -2389,9 +2460,10 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
     bound_ms, bound_by = ring_bound(q, pages, lengths, window)
     log(f"ring decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
         f"table{tuple(table.shape)} window {window} lengths "
-        f"{lengths.tolist()} | out err {err:.3e} (gate "
-        f"{DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} (gate "
-        f"{DECODE_LSE_GATE:.0e}) | kernel {t_kernel:.4f} ms plain "
+        f"{lengths.tolist()} | {n_splits} splits of {per} pages | out err "
+        f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} (gate "
+        f"{DECODE_LSE_GATE:.0e}; split and unsplit plain) | kernel "
+        f"{t_kernel:.4f} ms plain "
         f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2528,7 +2600,8 @@ def swa_phase(seed: int) -> dict:
         f"steps({n_chunk}) {[round(x * 1e3, 2) for x in chunk_s]} ms -> "
         f"{tok_s:.0f} tokens/s (8 slots, last chunk)")
     profile_window(f"per windowed decode step (steps({PROFILE_STEPS}))",
-                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS)
+                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
+                   STEP_LAUNCHES["windowed"])
 
     # the ring decode at the wrapped cache (O(window)) beside B4 without a
     # window over a bf16 cache holding every token of the same lengths
@@ -2570,10 +2643,11 @@ def time_sampled_decode(eng, n_chunk: int) -> None:
         for k, (dt, r) in rates.items()) + " (temperature 1 for sampled)")
 
 
-def profile_window(label: str, fn, n: int) -> None:
+def profile_window(label: str, fn, n: int, launches=None) -> None:
     """Where the time of fn() goes, per unit of n: the device time of its
     kernels from torch.profiler, against fn's wall time taken without the
-    profiler (which slows the host)."""
+    profiler (which slows the host). With `launches`, fails unless the
+    kernel launches per unit are that many."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2593,6 +2667,8 @@ def profile_window(label: str, fn, n: int) -> None:
     if not kernels:
         log(f"profile {label}: the profiler recorded no device time "
             "(not measured)")
+        if launches is not None:
+            raise AssertionError(f"profile {label}: no launches recorded")
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
@@ -2602,6 +2678,10 @@ def profile_window(label: str, fn, n: int) -> None:
     for e in kernels[:8]:
         log(f"  {e.self_device_time_total / n / 1e3:.4f} ms "
             f"{e.count / n:5.1f}x  {e.key[:90]}")
+    got = sum(e.count for e in kernels) / n
+    if launches is not None and got != launches:
+        raise AssertionError(f"profile {label}: {got} launches a step, the "
+                             f"parent tree's {launches}")
 
 
 def main() -> int:
@@ -2674,13 +2754,15 @@ def main() -> int:
                                    ("int8", 128), ("int8", 256))}
     qmm_rows = {name: check_qmm(name, 8, k, n, "int8", gen)
                 for name, k, n in QMM_SHAPES}
+    for name, k, n in QMM_SHAPES:
+        check_qmm(f"{name}, 1 row", 1, k, n, "int8", gen)
     check_qmm("lm_head, fp8 weight", 8, 1024, 32768, "fp8", gen)
     check_qmm("w_down, 3 rows", 3, 4096, 1024, "int8", gen)
     qmm_row_sweep(gen)
     qmm_split_sweep(gen)
     bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
                 for case in BWD_CASES]
-    bwd_spread()
+    bwd_spread(gate=True)
     window_rows = {case[0]: check_window(*case, gen) for case in WINDOW_CASES}
     ring_rows = {fmt: check_ring(f"{fmt} pages, wrapped table", fmt, gen)
                  for fmt in ("bf16", "int8")}
@@ -2691,7 +2773,8 @@ def main() -> int:
     run = engine_phase(SEED)
     eng, cfg = run["engine"], run["cfg"]
     profile_window(f"per decode step (steps({PROFILE_STEPS}), 8 slots)",
-                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS)
+                   lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
+                   STEP_LAUNCHES["bf16"])
     profile_window("per prefill of 4 x 2048 tokens",
                    lambda: prefill_forward_batched(cfg, eng.params,
                                                    run["long_tokens"]), 1)
@@ -2738,6 +2821,8 @@ def main() -> int:
     int8_row = check_decode("main path: int8 engine cache at prompt 7936, "
                             "layer 0", qd, eng8k.cache.pages[0], lengths,
                             page_table, 128)
+    decode_split_sweep("int8 engine cache at prompt 7936", qd,
+                       eng8k.cache.pages[0], lengths, page_table, 128)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"],
                                   ring_rows["int8"]["max_abs_err"])
     qlaunch = quant["launches"]
@@ -2764,7 +2849,16 @@ def main() -> int:
         worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
                     if c[3] == dtype)
         suffix = "_f32" if dtype == torch.float32 else ""
+        design = ("bf16: prep; main on wgmma/TMA, one block per (128-row "
+                  "kv tile, q head), longest band first, walking its q "
+                  "tiles downward; dQ bulk-reduce-added in each q tile's "
+                  "chain in kv-tile rank order (turn counters), dK/dV in "
+                  "per-q-head f32 slots; post sums the GQA group in head "
+                  "order: a fixed sum order, bit-identical runs"
+                  if dtype == torch.bfloat16 else
+                  "f32: CUDA cores, dq and dk/dv kernels, deterministic")
         return {"name": f"flash_bwd_{part}{suffix}", "route": "cuda",
+                "design": design,
                 "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
                 "replaces": bwd_replaces, "launches": launches,
                 "max_abs_err": worst, "ms": row["ms"][part],
@@ -2807,6 +2901,7 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
          "launches": ragged["launches"]["flash_rowloop"], **rowloop_row},
         {"name": "paged_decode", "route": "cuda",
+         "design": DECODE_DESIGN,
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"]
@@ -2814,6 +2909,8 @@ def main() -> int:
          + swa["launches"]["paged_decode_ring"], **decode_row},
         *bwd_kernels,
         {"name": "paged_decode_int8", "route": "cuda",
+         "design": "int8 pages, scale rows by bulk copy, exact "
+                   "byte-permute conversion; " + DECODE_DESIGN,
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": qlaunch["paged_decode_int8"], **int8_row},
@@ -2825,6 +2922,13 @@ def main() -> int:
          + swa["launches"]["page_append"],
          **append_rows[("int8", 128)]},
         {"name": "quant_matmul", "route": "cuda",
+         "design": "bf16 x: mma.sync m16n8k16 on the tensor cores with the "
+                   "weight as the 16-row operand (out^T = w^T x^T), payload "
+                   "converted exactly in registers by byte permutes (int8) "
+                   "or the e4m3x2 convert, a 4-stage cp.async ring of 64 x "
+                   "128-byte weight tiles, x staged once per block, a "
+                   "persistent grid over 128-column tiles, K split over a "
+                   "cluster where N is small; f32 x: CUDA cores",
          "source": "tiny_flash_attention_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "tiny_flash_attention_tpu/ops/quant_matmul.py:84",
          "launches": qlaunch["quant_matmul"],
@@ -2835,6 +2939,8 @@ def main() -> int:
          "launches": surface["launches"]["flash_v1"],
          **{k: v for k, v in v1_row.items() if k != "fa2_ms"}},
         {"name": "paged_decode_separate", "route": "cuda",
+         "design": "separate K/V page arrays on B4's template; "
+                   + DECODE_DESIGN,
          "source": "tiny_flash_attention_tpu_torch/csrc/"
                    "paged_decode_separate.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
@@ -2865,6 +2971,6 @@ if __name__ == "__main__":
         # a copy of this script can read another tree's kernels)
         if not torch.cuda.is_available():
             sys.exit(1)
-        bwd_spread()
+        bwd_spread(gate=False)
         sys.exit(0)
     sys.exit(main())

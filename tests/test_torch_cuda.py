@@ -21,7 +21,12 @@ empty rows; and the bf16 forward at the edges of its 128-row tiles: q and
 kv lengths 1/127/128/129/255/257, head_dim 64/128 at groups 1/2/4/8, one
 and 130 decode rows over 2100, window edges at columns 127 and 129, ids
 changing across the tile edge (bulk-copied and loaded), and jagged lengths
-0/1/127/128/129.
+0/1/127/128/129. Then the bf16 backward bit for bit across runs under
+every mask at groups 1 and 4, the quantized matmul's conversion of all 256
+int8 and e4m3 codes and its every engine projection at 1 to 8 rows, and
+the split decode (fused and separate pages) at several split counts
+against its split plain version, a split past the lengths and a wrapped
+ring included.
 """
 
 import pytest
@@ -939,3 +944,148 @@ def test_bf16_rowloop_jagged_lengths_at_tile_edges(gen, d):
         assert bool((out[bi, :, L:] == 0).all())
         torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
                                    rtol=1e-6, atol=0)   # the sentinel
+
+
+# (hq, hkv, d, masks): groups 1 and 4, head_dim 64 and 128, causal, the
+# window, segment ids, and ids with static segment_starts
+DETERMINISM = [
+    (4, 4, 128, "causal"), (8, 2, 128, "causal"), (8, 2, 64, "causal"),
+    (4, 4, 64, "window"), (8, 2, 128, "window"), (8, 2, 128, "ids"),
+    (4, 4, 128, "starts"), (8, 2, 64, "starts"),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,d,masks", DETERMINISM)
+def test_bwd_runs_are_bit_identical(gen, hq, hkv, d, masks):
+    """The bf16 backward sums in an order fixed by the shape and the masks
+    (per-head dK, dV slots summed in head order; dQ added in each q tile's
+    chain): three runs on the same inputs give the same bits."""
+    b, n = 2, 1000
+    q = _randn((b, hq, n, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    do = _randn((b, hq, n, d), torch.bfloat16, gen)
+    kw, starts = {}, None
+    if masks == "window":
+        kw["window"] = 300
+    if masks in ("ids", "starts"):
+        seg = _segment_ids(b, n, (130, 480, 700), gen)
+        kw["segment_ids"] = (seg, seg)
+        if masks == "starts":
+            starts = (0, 130, 480, 700)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True, **kw)
+    runs = [flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                segment_starts=starts, **kw)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for name, a, c in zip(("dq", "dk", "dv"), runs[0], other):
+            assert torch.equal(a, c), name
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
+        assert _rel_err(g, w) <= BWD_GATE[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_matmul_converts_every_code_exactly(gen, fmt):
+    """The bf16-x kernel's payload conversion (byte permutes for int8, the
+    e4m3x2 convert for fp8) gives every one of the 256 codes exactly as
+    the plain version's astype, in both halves of a converted pair; the
+    e4m3 NaN codes stay NaN."""
+    from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
+        convert_codes)
+    got = convert_codes(fmt, "cuda")
+    torch.cuda.synchronize()
+    codes = torch.arange(256, device="cuda").to(torch.uint8)
+    want = codes.view(torch.int8 if fmt == "int8"
+                      else torch.float8_e4m3fn).to(torch.bfloat16)
+    nan = torch.isnan(want)
+    assert int(nan.sum()) == (0 if fmt == "int8" else 2)
+    for half in got:
+        assert torch.equal(torch.isnan(half), nan)
+        assert torch.equal(half[~nan].view(torch.int16),
+                           want[~nan].view(torch.int16))
+
+
+ENGINE_PROJECTIONS = [(1024, 1024), (1024, 256), (1024, 4096), (4096, 1024),
+                      (1024, 32768)]
+
+
+@pytest.mark.parametrize("wfmt", ["int8", "fp8"])
+@pytest.mark.parametrize("k,n", ENGINE_PROJECTIONS)
+def test_quant_matmul_engine_projections(gen, wfmt, k, n):
+    """Every projection of the engine model (wq/wo, wk/wv, w_gate/w_up,
+    w_down, the lm_head) at the kernel's rows 1 to 8, on its default K
+    split, against the plain version."""
+    qw = Q.quantize_weight(_randn((k, n), torch.float32, gen), wfmt)
+    for m in range(1, 9):
+        x = _randn((m, k), torch.bfloat16, gen)
+        got = quantized_matmul_cuda(x, qw)
+        torch.cuda.synchronize()
+        want = quantized_matmul_plain(x, qw)
+        assert _err(got, want) <= _qmm_gate(want), m
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 5, 64])
+def test_decode_splits_match_split_plain(gen, fmt, ring, splits):
+    """The split decode at several split counts (one split a page; 64 asks
+    for more splits than pages) against the plain version over the same
+    splits, at the decode gates (out 4e-3, LSE 1e-4), and against the
+    unsplit plain version at the dtype gate: lengths 0, 1, a page edge,
+    the full table and past it, or a ring that wrapped once and three
+    times; splits past a sequence's length give empty partials."""
+    B, hkv, group, d, ps, P = 5, 2, 4, 128, 32, 8
+    num_pages = B * P + 3
+    window = 100 if ring else None
+    q = _randn((B, hkv * group, d), torch.bfloat16, gen)
+    pages = pack_paged_cache(_randn((hkv, num_pages, ps, d), torch.bfloat16,
+                                    gen),
+                             _randn((hkv, num_pages, ps, d), torch.bfloat16,
+                                    gen), fmt)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor(
+        [1, 40, P * ps + 9, 3 * P * ps + 30, 150] if ring
+        else [0, 1, ps, P * ps, 10**6], dtype=torch.int32, device="cuda")
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window,
+                                            splits=splits)
+    torch.cuda.synchronize()
+    kw = dict(page_size=ps, sm_scale=d ** -0.5, window=window)
+    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                            splits=splits, **kw)
+    assert _err(out, ref) <= 4e-3 and _err(lse, ref_lse) <= 1e-4
+    whole, whole_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                                **kw)
+    assert _err(out, whole) <= tolerance_for(torch.bfloat16)
+    assert _err(lse, whole_lse) <= tolerance_for(torch.bfloat16)
+    if not ring:
+        assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 3, 64])
+def test_separate_decode_splits_match_split_plain(gen, fmt, splits):
+    """B12 on the split template at several split counts, int8 pages with
+    f32 scale pages included, against its split plain version."""
+    B, hkv, group, d, ps, P = 5, 2, 4, 128, 128, 4
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), torch.bfloat16, gen)
+    k = _randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+    v = _randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+    if fmt == "int8":
+        k, v = Q.quantize_int8(k, axis=-1), Q.quantize_int8(v, axis=-1)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1, ps, 300, 10**6], dtype=torch.int32,
+                           device="cuda")
+    out, lse = paged_decode_attention(q, k, v, lengths, table,
+                                      splits=splits)
+    torch.cuda.synchronize()
+    ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
+                                      sm_scale=d ** -0.5, splits=splits)
+    assert _err(out, ref) <= 4e-3 and _err(lse, ref_lse) <= 1e-4
+    assert bool((out[0] == 0).all())

@@ -6,8 +6,8 @@ and through the port's `flash_attention_bwd` (its plain version on the
 CPU), with the sliding window, segment ids and static `segment_starts`;
 then `flash_attention`'s autograd Function with these masks against torch
 autograd through the plain forward; then the backward's tile tables
-against JAX's work lists. Gates: f32 1e-5, bf16 2e-2 of the largest
-|gradient|.
+against JAX's work lists, and the order of the bf16 kernels' dQ sums
+built from them. Gates: f32 1e-5, bf16 2e-2 of the largest |gradient|.
 """
 
 import jax.numpy as jnp
@@ -22,7 +22,7 @@ from tiny_flash_attention_tpu_torch.ops.configs import (
 from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
-    bwd_tiles, flash_attention_bwd)
+    bwd_tiles, dq_chain, flash_attention_bwd)
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -189,7 +189,7 @@ def _live(q_len, kv_len, causal, window, starts, bq, bkv):
     return set(zip((rows // bq).tolist(), (cols // bkv).tolist()))
 
 
-@pytest.mark.parametrize("q_len,kv_len,causal,window,starts", [
+TILE_CASES = [
     (256, 256, True, None, None),
     (1024, 1024, True, 200, None),
     (300, 700, True, 100, None),           # the decode offset
@@ -198,7 +198,10 @@ def _live(q_len, kv_len, causal, window, starts, bq, bkv):
     (640, 640, True, None, (96, 200, 333)),
     (640, 640, False, None, (96, 200, 333)),
     (640, 640, True, 150, (96, 200, 333)),
-])
+]
+
+
+@pytest.mark.parametrize("q_len,kv_len,causal,window,starts", TILE_CASES)
 def test_tile_tables_cover_the_live_work_lists(q_len, kv_len, causal,
                                                window, starts):
     """Every live (q tile, kv tile) pair is in the backward's kv-major and
@@ -235,6 +238,34 @@ def test_tile_tables_cover_the_live_work_lists(q_len, kv_len, causal,
     jax_q = set(zip(qis.tolist(), kvis.tolist()))
     assert mine_kv <= jax_kv
     assert mine_q <= jax_q
+
+
+@pytest.mark.parametrize("q_len,kv_len,causal,window,starts",
+                         TILE_CASES + [(8192, 8192, True, None, None),
+                                       (2048, 2048, True, 1024, None)])
+def test_dq_chain_orders_each_q_tile_by_rank(q_len, kv_len, causal, window,
+                                             starts):
+    """The bf16 kernels add each q tile's dQ contributions in a chain: the
+    kv tiles that see q tile i are numbered 0..n-1 in the rank order of the
+    table (the order in which their blocks are numbered and dispatched),
+    so a block waits only on blocks of lower rank."""
+    cfg = FLASH_BWD_BF16
+    kv_t, _ = bwd_tiles(q_len, kv_len, causal=causal, window=window,
+                        segment_starts=starts, block_m=cfg.block_m,
+                        block_n=cfg.block_n)
+    base, pos = dq_chain(kv_t)
+    lo, hi, order = kv_t
+    assert base.dtype == pos.dtype == np.int32
+    assert pos.size == int(np.maximum(hi - lo, 0).sum())
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    chains = {}
+    for j in range(order.size):
+        for i, qt in enumerate(range(lo[j], hi[j])):
+            chains.setdefault(qt, []).append((rank[j], pos[base[j] + i]))
+    for qt, links in chains.items():
+        links.sort()
+        assert [p for _, p in links] == list(range(len(links))), qt
 
 
 def test_forward_only_raises_at_backward():

@@ -49,20 +49,37 @@
 //     run wgmma: S^T = K qs^T and dP^T = V dout^T (both operands from
 //     shared memory), dV += P^T dout and dK += dS^T q (P^T, dS^T as bf16
 //     registers, dout and q read MN-major); dS^T goes to shared memory as
-//     bf16 and dQ = dS K (each warpgroup 64 of the 128 head dims) is added
-//     in f32 into a global accumulator by the TMA bulk reduce-add. At the
-//     end dK and dV, in f32, are bulk-reduce-added into kv-head
-//     accumulators (the GQA sum). The accumulators hold each 64-row tile
-//     in the order of the wgmma fragments, so both stages of staging are
-//     contiguous 16-byte stores. Only tiles that straddle the diagonal,
+//     bf16 and dQ = dS K (each warpgroup 64 of the 128 head dims; at head
+//     dim 64 the two warpgroups' halves of the kv rows, summed in shared
+//     memory) is added in f32 into a global accumulator by the TMA bulk
+//     reduce-add, in turn (below). At the end dK and dV, in f32, are bulk-
+//     stored into the q head's own slots. The accumulators hold each 64-row
+//     tile in the order of the wgmma fragments, so both stages of staging
+//     are contiguous 16-byte stores. Only tiles that straddle the diagonal,
 //     the window's edge or the kv_len edge, or have segment ids, pay the
 //     element compare; whether there is a window and whether there are ids
 //     are template parameters.
-//   flash_bwd_post: dq = bf16(dq_acc * sm_scale), dk = bf16(dk_acc *
-//     sm_scale), dv = bf16(dv_acc): the one rounding at the write of JAX's
-//     VMEM accumulators.
-// The f32 sums into the accumulators arrive in an order that changes from
-// run to run, so two runs may differ by one bf16 ulp (a held divergence).
+//   flash_bwd_post: dq = bf16(dq_acc * sm_scale), dk = bf16(sum of the
+//     group's slots * sm_scale), dv = bf16(sum of the slots), the slots
+//     summed in q-head order: the one rounding at the write of JAX's VMEM
+//     accumulators.
+// Every f32 sum runs in an order fixed by the shape and the masks, so two
+// runs give the same bits (the TPU walks its grid in one order). dK, dV:
+// one writer per slot, the group summed in head order by post. dQ: the
+// contributions to a q tile are added in a chain, in the rank order of
+// their kv tiles (FA3's deterministic mode): the block waits until the
+// tile's counter reaches its place in the chain (a host-built table,
+// ops/flash_bwd.py::dq_chain), issues its bulk reduce-add, and passes the
+// turn when the add is complete, in its next step just before it stages
+// that step's dQ: the add's round trip hides behind a whole step's
+// products, never stalling the block. A block walks its q tiles from the
+// last down: the blocks of lower rank (longer ranges, which end at the same
+// or a lower q tile) reach each tile at the same step or earlier, so a
+// chain link costs at most one step, once, where an upward walk would make
+// kv tile j wait for the steps of all the tiles before it. A block waits
+// only on blocks of lower rank, which have lower block indices: they were
+// dispatched before it, so they are resident or done and the chain cannot
+// deadlock.
 //
 // f32 design (CUDA-core FMAs, never TF32; the f32 gate is 2e-5): the split
 // backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic. flash_bwd_dkv:
@@ -87,13 +104,18 @@ typedef __nv_bfloat16 bf16;
 
 // One tile table (3, n) int32: lo[n], hi[n] (the range [lo, hi) of the
 // other side's tiles, empty when hi <= lo), order[n] (the tile of each
-// block, longest range first).
+// block, longest range first). The bf16 kv-major table goes on with the dQ
+// chain: base[n], then pos: tile j's place in the chain of q tile lo[j] +
+// i is pos[base[j] + i].
 struct Table {
   const int* lo;
   const int* hi;
   const int* order;
+  const int* base;
+  const int* pos;
   __host__ __device__ Table(const int* t, int n)
-      : lo(t), hi(t + n), order(t + 2 * n) {}
+      : lo(t), hi(t + n), order(t + 2 * n), base(t + 3 * n),
+        pos(t + 4 * n) {}
 };
 
 // ------------------------------------------------------------- bf16 path
@@ -190,9 +212,9 @@ __global__ void __launch_bounds__(HTHREADS, 1)
                           const int* __restrict__ kv_seg, const int* table,
                           float* __restrict__ dq_acc,
                           float* __restrict__ dk_acc,
-                          float* __restrict__ dv_acc, int batch, int hq,
-                          int hkv, int q_len, int kv_len, int q_pad,
-                          int causal, int window) {
+                          float* __restrict__ dv_acc, int* dq_turn,
+                          int batch, int hq, int hkv, int q_len, int kv_len,
+                          int q_pad, int causal, int window) {
   using S = Smem<D>;
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
   constexpr int DQ_PARTS = D / 64;               // dQ chunks per q tile
@@ -211,13 +233,23 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   const int kvh = h / (hq / hkv);
   const int lo = tab.lo[j];
   const int n = tab.hi[j] - lo;                  // q tiles to visit
-  if (n <= 0) return;  // no row sees the tile: its gradients stay 0
-
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int bh = b * hq + h;
+  // this q head's dK, dV slots of the tile: 2 x 64 rows, f32
+  auto dkv_slot = [&](float* acc) {
+    return acc + ((size_t)bh * n_kvt + j) * 2 * (64 * D);
+  };
+  if (n <= 0) {  // no row sees the tile: its gradients are 0
+    for (int i = tid; i < 2 * 64 * D / 4; i += HTHREADS) {
+      reinterpret_cast<float4*>(dkv_slot(dk_acc))[i] = make_float4(0, 0, 0, 0);
+      reinterpret_cast<float4*>(dkv_slot(dv_acc))[i] = make_float4(0, 0, 0, 0);
+    }
+    return;
+  }
+
   const int warp = t / 32, lane = t % 32;
   const int kv0 = j * HN;
   const int offset = kv_len - q_len;
-  const int bh = b * hq + h;
   const size_t rows_base = (size_t)bh * q_pad;   // lse2, delta rows
 
   auto stage_ptr = [&](int st) { return sm + S::RING + st * S::STAGE; };
@@ -256,8 +288,8 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       tma_load_3d(sm + S::V + c * HN * 128, &tm_v, kv_bar, 64 * c, kv0,
                   b * hkv + kvh);
     }
-    load_stage(0, lo);
-    if (n > 1) load_stage(1, lo + 1);
+    load_stage(0, lo + n - 1);  // the q tiles from the last down
+    if (n > 1) load_stage(1, lo + n - 2);
   }
 
   // this thread's kv rows: kr (accumulator slots 0, 1 of each 8-column
@@ -278,6 +310,12 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   constexpr int DQ_STEPS = D == 128 ? HN / 16 : 64 / 16;
   const int dq_kv0 = D == 128 ? 0 : wg * 64;
   const int dq_box = D == 128 ? wg : 0;
+  // who adds dQ: each warpgroup its 64 head dims (D = 128), or warpgroup 0
+  // the sum of both halves (D = 64); the turn counter of q tile qt's part
+  const bool adds = D == 128 || wg == 0;
+  auto turn = [&](int qt) {
+    return dq_turn + ((size_t)bh * (q_pad / HM) + qt) * DQ_PARTS + dq_box;
+  };
 
   float dv[D / 2], dk[D / 2];
 #pragma unroll
@@ -286,7 +324,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   mbar_wait(kv_bar, 0);
   for (int it = 0; it < n; ++it) {
     const int st = it & 1;
-    const int qt = lo + it, q0 = qt * HM;
+    const int qt = lo + n - 1 - it, q0 = qt * HM;
     unsigned char* sp = stage_ptr(st);
     const unsigned char* qsm = sp;
     const unsigned char* qss = sp + S::QT;
@@ -391,7 +429,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     fence_regs(da);
     fence_async_smem();
     __syncthreads();  // dS^T whole; this stage is read by no one
-    if (tid == 0 && it + 2 < n) load_stage(st, qt + 2);
+    if (tid == 0 && it + 2 < n) load_stage(st, qt - 2);
 
     // dQ (64 q rows x 64 head dims) = dS K, read MN-major from dS^T and K
     float dq[32];
@@ -406,23 +444,54 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
-    if (t == 0) bulk_wait_read();  // the last step's dQ left the staging
-    __syncthreads();               // and dS^T is read by no one
+    if (t == 0 && adds && it > 0) {
+      bulk_wait_all();          // the last step's dQ is in dq_acc (and left
+      turn_pass(turn(qt + 1));  // the staging): the next in its chain adds
+    }
+    __syncthreads();          // and dS^T is read by no one
+    float4* stg4 = reinterpret_cast<float4*>(stg);
+    if constexpr (D == 64) {  // warpgroup 0 adds warpgroup 1's half
+      if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      reinterpret_cast<float4*>(stg)[i * 128 + t] =
-          make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2], dq[4 * i + 3]);
-    fence_async_smem();
-    named_bar(1 + wg, 128);
-    if (t == 0)
-      bulk_reduce_add(dq_acc + (((size_t)bh * (q_pad / HM) + qt) * DQ_PARTS +
-                                dq_box) * (HM * 64),
-                      stg, HM * 64 * 4);
+        for (int i = 0; i < 8; ++i)
+          stg4[i * 128 + t] = make_float4(dq[4 * i], dq[4 * i + 1],
+                                          dq[4 * i + 2], dq[4 * i + 3]);
+      }
+      __syncthreads();
+      if (wg == 0) {
+        const float4* other = stg4 + HM * 64 / 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 o = other[i * 128 + t];
+          dq[4 * i] += o.x;
+          dq[4 * i + 1] += o.y;
+          dq[4 * i + 2] += o.z;
+          dq[4 * i + 3] += o.w;
+        }
+      }
+    }
+    if (adds) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        stg4[i * 128 + t] = make_float4(dq[4 * i], dq[4 * i + 1],
+                                        dq[4 * i + 2], dq[4 * i + 3]);
+      fence_async_smem();
+      named_bar(1 + wg, 128);
+      if (t == 0) {
+        int* cnt = turn(qt);
+        turn_wait(cnt, tab.pos[tab.base[j] + qt - lo]);
+        bulk_reduce_add(dq_acc + (cnt - dq_turn) * (HM * 64), stg,
+                        HM * 64 * 4);
+      }
+    }
+  }
+  if (t == 0 && adds) {
+    bulk_wait_all();
+    turn_pass(turn(lo));
   }
 
   // dK, dV of the warpgroup's 64 rows, f32 in fragment order, into the
-  // kv head's accumulators (the ring and K/V are free now)
-  if (t == 0) bulk_wait_read();
+  // q head's slots (the ring and K/V are free now)
   __syncthreads();
   float4* dks = reinterpret_cast<float4*>(sm) + wg * 2 * 64 * D / 4;
   float4* dvs = dks + 64 * D / 4;
@@ -436,10 +505,8 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   fence_async_smem();
   named_bar(1 + wg, 128);
   if (t == 0) {
-    const size_t at =
-        (((size_t)(b * hkv + kvh) * n_kvt + j) * 2 + wg) * (64 * D);
-    bulk_reduce_add(dk_acc + at, dks, 64 * D * 4);
-    bulk_reduce_add(dv_acc + at, dvs, 64 * D * 4);
+    bulk_store(dkv_slot(dk_acc) + wg * (64 * D), dks, 64 * D * 4);
+    bulk_store(dkv_slot(dv_acc) + wg * (64 * D), dvs, 64 * D * 4);
     bulk_wait_read();  // the writes complete before the next launch
   }
 }
@@ -449,20 +516,36 @@ __global__ void __launch_bounds__(HTHREADS, 1)
 // accumulator layout), scaled and rounded to bf16 through shared memory,
 // then written as whole 16-byte pieces of rows. `parts` chunks make a tile
 // of `tile_rows` rows: the parts of a 64-row tile split its columns (dq at
-// D = 128), those of a 128-row tile its rows (dk, dv).
+// D = 128), those of a 128-row tile its rows (dk, dv). With `group` > 1 the
+// chunk is the sum of `group` slots, `stride` chunks apart, in slot order
+// (dk, dv: the q heads of a kv head).
 template <int D, int cw>
 __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
                                            long chunk, int parts,
                                            int tile_rows, int tiles,
                                            int n_rows, float scale,
+                                           int group, long stride,
                                            bf16* tile) {
   constexpr int LD = D + 8;                      // bf16 per tile row
   const int t = threadIdx.x;
-  const float4* a4 = reinterpret_cast<const float4*>(acc) + chunk * cw * 16;
+  const int per = parts * tiles;                 // chunks of one head
+  const float4* a4 = reinterpret_cast<const float4*>(acc) +
+                     ((chunk / per) * group * per + chunk % per) * cw * 16;
   const int r = 16 * (t / 32) + (t % 32) / 4;
   float4 av[cw / 8];
 #pragma unroll
   for (int i = 0; i < cw / 8; ++i) av[i] = a4[i * 128 + t];
+  for (int g = 1; g < group; ++g) {
+    const float4* s4 = a4 + g * stride * cw * 16;
+#pragma unroll
+    for (int i = 0; i < cw / 8; ++i) {
+      const float4 x = s4[i * 128 + t];
+      av[i].x += x.x;
+      av[i].y += x.y;
+      av[i].z += x.z;
+      av[i].w += x.w;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < cw / 8; ++i) {
     const float4 a = av[i];
@@ -496,19 +579,20 @@ __global__ void __launch_bounds__(128)
                           const float* __restrict__ dv_acc,
                           bf16* __restrict__ dq, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, long n_dq, long n_kv,
-                          int q_len, int kv_len, float sm_scale) {
+                          int q_len, int kv_len, int group,
+                          float sm_scale) {
   __shared__ __align__(16) bf16 tile[64 * (D + 8)];
   const long g = blockIdx.x;
   const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + HN - 1) / HN;
   if (g < n_dq)
-    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, sm_scale,
+    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, sm_scale, 1, 0,
                       tile);
   else if (g < n_dq + n_kv)
     post_chunk<D, D>(dk_acc, dk, g - n_dq, 2, HN, n_kvt, kv_len, sm_scale,
-                     tile);
+                     group, 2L * n_kvt, tile);
   else
     post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, 1.f,
-                     tile);
+                     group, 2L * n_kvt, tile);
 }
 
 struct Bf16Args {
@@ -518,6 +602,7 @@ struct Bf16Args {
   float *lse2, *delta;
   const int *q_seg, *kv_seg, *table;
   float *dq_acc, *dk_acc, *dv_acc;
+  int* dq_turn;
   void *dq, *dk, *dv;
   int batch, hq, hkv, q_len, kv_len, causal, window;
   float scale_log2, sm_scale;
@@ -541,8 +626,8 @@ cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
   const int q_pad = (a.q_len + HM - 1) / HM * HM;
   kernel<<<n_kvt * a.hq * a.batch, HTHREADS, Smem<D>::ALLOC, stream>>>(
       mq, mqs, mdo, mk, mv, a.lse2, a.delta, a.q_seg, a.kv_seg, a.table,
-      a.dq_acc, a.dk_acc, a.dv_acc, a.batch, a.hq, a.hkv, a.q_len, a.kv_len,
-      q_pad, a.causal, a.window);
+      a.dq_acc, a.dk_acc, a.dv_acc, a.dq_turn, a.batch, a.hq, a.hkv, a.q_len,
+      a.kv_len, q_pad, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -579,7 +664,7 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
                                stream>>>(
         a.dq_acc, a.dk_acc, a.dv_acc, static_cast<bf16*>(a.dq),
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n_dq, n_kv,
-        a.q_len, a.kv_len, a.sm_scale);
+        a.q_len, a.kv_len, a.hq / a.hkv, a.sm_scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -932,9 +1017,12 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 
 // Returns a cudaError_t: 0 when the kernels were launched. dtype 0 (bf16):
 // `stages` 1 flash_bwd_prep (delta, lse2 and qs from q, out, dout, lse), 2
-// flash_bwd_main (into dq_acc, dk_acc, dv_acc, zeroed by the caller), 4
-// flash_bwd_post (dq, dk, dv); q_seg is padded to whole 64-row tiles and
-// kv_table is the (3, ceil(kv_len / 128)) table of 64-row q tiles. dtype 1
+// flash_bwd_main (into dq_acc and the dq_turn counters, both zeroed by the
+// caller, one per (batch, q head, 64-row q tile, 64 head dims), and
+// dk_acc, dv_acc: (batch, hq, ceil(kv_len / 128), 2, 64 * head_dim) f32
+// each, all written), 4 flash_bwd_post (dq, dk, dv); q_seg is padded to
+// whole 64-row tiles and kv_table is the (3, ceil(kv_len / 128)) table of
+// 64-row q tiles followed by its dQ chain (base, pos). dtype 1
 // (f32): `stages` 1 the dq kernel (q_table: (3, ceil(q_len / 64)) of 64-row
 // kv tiles), 2 the dk/dv kernel (kv_table: (3, ceil(kv_len / 64)) of 64-row
 // q tiles); delta is an input, rowsum(dout * out). q_seg and kv_seg are
@@ -944,10 +1032,10 @@ extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* qs, void* lse2, void* delta,
     const void* q_seg, const void* kv_seg, const void* kv_table,
-    const void* q_table, void* dq_acc, void* dk_acc, void* dv_acc, void* dq,
-    void* dk, void* dv, int batch, int hq, int hkv, int q_len, int kv_len,
-    int head_dim, int causal, int window, float scale_log2, float sm_scale,
-    int dtype, int stages, void* stream) {
+    const void* q_table, void* dq_acc, void* dk_acc, void* dv_acc,
+    void* dq_turn, void* dq, void* dk, void* dv, int batch, int hq, int hkv,
+    int q_len, int kv_len, int head_dim, int causal, int window,
+    float scale_log2, float sm_scale, int dtype, int stages, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
       kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
       window < 0 || (window > 0 && !causal) ||
@@ -961,7 +1049,8 @@ extern "C" int tfa_flash_bwd(
                      static_cast<float*>(lse2), static_cast<float*>(delta),
                      qseg, kvseg, static_cast<const int*>(kv_table),
                      static_cast<float*>(dq_acc), static_cast<float*>(dk_acc),
-                     static_cast<float*>(dv_acc), dq, dk, dv, batch, hq, hkv,
+                     static_cast<float*>(dv_acc), static_cast<int*>(dq_turn),
+                     dq, dk, dv, batch, hq, hkv,
                      q_len, kv_len, causal, window, scale_log2, sm_scale};
     return (int)(head_dim == 128 ? launch_bf16<128>(a, stages, s)
                                  : launch_bf16<64>(a, stages, s));

@@ -83,9 +83,47 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// global[dst] = smem[src], as one bulk op.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // The issuing thread's bulk ops have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The issuing thread's bulk ops are complete: their writes to global memory
+// are done, and ordered before this thread's later generic accesses.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A turn-taking counter in global memory: waits until *cnt reaches `turn`
+// (acquire: the writes of the turns before are seen, bulk ops included).
+__device__ __forceinline__ void turn_wait(const int* cnt, int turn) {
+  int v;
+  do {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(cnt)
+                 : "memory");
+  } while (v < turn);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Passes the turn on (release: this thread's writes before are seen by the
+// next waiter).
+__device__ __forceinline__ void turn_pass(int* cnt) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(cnt)
+               : "memory");
 }
 
 // Generic-proxy writes to shared memory, made visible to the async proxy

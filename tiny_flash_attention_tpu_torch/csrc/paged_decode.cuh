@@ -9,22 +9,56 @@
 // What bounds it: the KV bytes. Each (sequence, kv head) reads
 // 2 * length * D page elements once (int8: one byte each, plus 8 scale
 // bytes per token) and does 4 * group * D FLOPs per token, two orders of
-// magnitude below the card's operations-per-byte ridge. The design: one
-// block per (kv head, sequence) serves the group's q rows, so every KV byte
-// is read once per kv head; the block's 8 warps split the tokens into
-// 32-token chunks (warp w takes chunks w, w + 8, ...) to keep many loads in
-// flight. In a chunk each lane scores its own token with 16-byte row loads
-// (q sits in shared memory, read as a broadcast), the warp updates its online
-// softmax, and then each lane accumulates a D/32 slice of P V with coalesced
-// V row loads. The warps' states merge once, at the end, with the exact LSE
-// combine. Softmax runs in the log2 domain with sm_scale * log2(e) folded into
-// q in the input dtype, P is rounded to the input dtype before the PV
-// product, the mask value is -0.7 * FLT_MAX, m starts at -inf and an empty or
-// NaN l is guarded (paged_fused.py:346, :443), all as the TPU kernels do.
-// int8 pages keep the TPU kernels' rounding points (paged_fused.py:389-436,
-// paged.py:176-210): the payload converts exactly, the f32 score is
-// multiplied by the token's K scale, l sums the unscaled p, and p times the
-// token's V scale (in f32) is what rounds to q's dtype before the PV product.
+// magnitude below the card's operations-per-byte ridge. By Little's law the
+// card needs about 2 MB of loads in flight (3.35 TB/s times ~0.7 us), which
+// one block per (kv head, sequence), 16 blocks for 8 sequences of 2 kv
+// heads, cannot keep.
+//
+// The design: split-KV in one launch. The grid is (splits, kv heads,
+// sequences); split x owns a contiguous, page-aligned range of the
+// attended tokens, `pages_per_split` logical pages of the table (or of the
+// ring's window), so a sequence's tokens are walked by `splits` blocks at
+// once. A split's size is fixed in tokens and the count covers the
+// table's width (host-known, never from the lengths: ops/configs.py::
+// paged_decode_split_pages), so a result does not depend on how wide the
+// table is; a split past a sequence's length has no token and gives an
+// empty partial, which adds exact zeros to the merge.
+//   - Loads: each of a block's WARPS warps walks 32-token chunks of the
+//     split (chunk w, w + WARPS, ...) through its own ring of STAGES
+//     stages in shared memory. One lane issues a chunk's K rows and V rows
+//     as bulk copies (cp.async.bulk, completing on the stage's mbarrier):
+//     the 32 rows of one page are one contiguous run per side (two runs of
+//     16 at page_size 16), and an int8 page adds its scale rows, 32 bytes
+//     of each of the 4 byte-rows per side (fused pages) or 128 bytes of f32
+//     (separate), read once per chunk and not as single bytes per token.
+//   - Scores: 8 lanes score one token, 4 tokens a step (each lane 16-byte
+//     pieces of the row, so a quarter-warp reads a whole row and no read
+//     conflicts), reduced by 3 shuffles; a lane keeps its slice of the
+//     group's q in registers (in shared memory, in the lanes' order, where
+//     that would take more than 64 registers). int8 payloads convert
+//     exactly by byte permute into an f32 2^23 + b + 128 and a subtract (no
+//     int-to-float conversion pipe).
+//   - Softmax per chunk (the warp's online softmax); p goes to shared
+//     memory, and each lane accumulates a D/32 slice of P V over the
+//     chunk's rows, reading p as a broadcast.
+//   - A warp's first chunks are in flight before q is staged.
+//   - The merge: the warps' (m, l, acc) combine in warp order into the
+//     block's partial, which goes to a workspace (f32, cached per device
+//     and shape by the caller); the block that arrives last at the
+//     (sequence, kv head)'s counter merges the splits' partials in split
+//     order, so the result does not depend on the arrival order, writes out
+//     and the LSE, and resets the counter for the next call. Both merges
+//     are the exact LSE combine (the math of parallel/ring.py:43-52). With
+//     one split the block writes out directly.
+// The arithmetic is the TPU kernels': softmax in the log2 domain with
+// sm_scale * log2(e) folded into q in the input dtype, P rounded to the
+// input dtype before the PV product, the mask value -0.7 * FLT_MAX, m
+// starting at -inf and an empty or NaN l guarded (paged_fused.py:346,
+// :443). int8 pages keep the TPU kernels' rounding points
+// (paged_fused.py:389-436, paged.py:176-210): the payload converts
+// exactly, the f32 score is multiplied by the token's K scale, l sums the
+// unscaled p, and p times the token's V scale (in f32) is what rounds to
+// q's dtype before the PV product.
 //
 // Without a window the attended tokens are [0, min(lengths[b], P * ps)): the
 // kernel never reads a page id past the table width. With a window (RING)
@@ -32,16 +66,14 @@
 // on logical page (t / ps) % P: the table is a ring of P pages that holds the
 // last window of tokens for an unbounded generation, and the walk costs
 // O(window), not O(length) (the ring mode of paged_fused.py:316-327,
-// :409-410, :490-497). The caller keeps window <= P * ps. page_indices may be
-// a column slice of a wider table: its row stride is an argument.
+// :409-410, :490-497); the splits then cover the pages of the window,
+// counted from the page of its first token. The caller keeps window <= P *
+// ps. page_indices may be a column slice of a wider table: its row stride
+// is an argument. page_size is 16 or a multiple of 32.
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #if !defined(TFA_DECODE_WARPS)
 #error "the warp count is passed by the build (ops/configs.py)"
@@ -49,16 +81,13 @@
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * FLT_MAX;
-constexpr float kLn2 = 0.69314718055994530942f;
 constexpr int WARPS = TFA_DECODE_WARPS;
-constexpr int CHUNK = 32;  // tokens per warp step: one per lane when scoring
+constexpr int CHUNK = 32;  // tokens per warp step
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -71,28 +100,36 @@ __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
 
-// one lane's slice of a V row, loaded as a single vector
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Lane {
-  T v[E];
-};
-
 // rounds to the input dtype and back (identity for f32)
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// the f32 scale of token row r of a page, from its 4 bytes at rows
-// first_row + 4 * (r / D) + j, lane r % D
-template <int D>
-__device__ __forceinline__ float page_scale(const int8_t* page, int first_row,
-                                            int r) {
-  const uint8_t* p = reinterpret_cast<const uint8_t*>(page) +
-                     (size_t)(first_row + 4 * (r / D)) * D + r % D;
-  const uint32_t bits = (uint32_t)p[0] | (uint32_t)p[D] << 8 |
-                        (uint32_t)p[2 * D] << 16 | (uint32_t)p[3 * D] << 24;
-  return __uint_as_float(bits);
+// The page elements of a 16- (or 8-) byte piece, exactly as f32: int8 by
+// byte permute into 2^23 + b + 128 and a subtract.
+template <typename P, int N>
+__device__ __forceinline__ void piece_to_f(const uint32_t* w, float* f) {
+  if constexpr (sizeof(P) == 1) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[4 * i + b] =
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) -
+            8388736.f;
+    }
+  } else if constexpr (sizeof(P) == 2) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = __uint_as_float(w[i]);
+  }
 }
 
 // Fused pages (paged_fused.py:86-103): one (hkv, num_pages, page_rows, D)
@@ -112,14 +149,25 @@ struct FusedPages {
   __device__ const P* v_row(int h, int id, int r) const {
     return page(h, id) + (size_t)(page_size + r) * D;
   }
-  __device__ float k_scale(int h, int id, int r) const {
-    return page_scale<D>(reinterpret_cast<const int8_t*>(page(h, id)),
-                         2 * page_size, r);
-  }
-  __device__ float v_scale(int h, int id, int r) const {
+  // the scale bytes of rows [r, r + n) into sc (K: [4][32] bytes, V: the
+  // next 128), at token offset o of the chunk
+  __device__ void load_scales(int h, int id, int r, int n, int o,
+                              uint8_t* sc, uint64_t* bar) const {
     const int sr = (page_rows - 2 * page_size) / 2;
-    return page_scale<D>(reinterpret_cast<const int8_t*>(page(h, id)),
-                         2 * page_size + sr, r);
+    const uint8_t* base = reinterpret_cast<const uint8_t*>(page(h, id));
+    const size_t row = 2 * page_size + 4 * (r / D);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bulk_load(sc + 32 * j + o, base + (row + j) * D + r % D, n, bar);
+      bulk_load(sc + 128 + 32 * j + o, base + (row + sr + j) * D + r % D, n,
+                bar);
+    }
+  }
+  // token t's scale from the landed bytes (sc: K's, or sc + 128: V's)
+  __device__ static float scale(const uint8_t* sc, int t) {
+    return __uint_as_float((uint32_t)sc[t] | (uint32_t)sc[32 + t] << 8 |
+                           (uint32_t)sc[64 + t] << 16 |
+                           (uint32_t)sc[96 + t] << 24);
   }
 };
 
@@ -141,13 +189,37 @@ struct SeparatePages {
   __device__ const P* v_row(int h, int id, int r) const {
     return v + token(h, id, r) * D;
   }
-  __device__ float k_scale(int h, int id, int r) const {
-    return k_scales[token(h, id, r)];
+  __device__ void load_scales(int h, int id, int r, int n, int o,
+                              uint8_t* sc, uint64_t* bar) const {
+    bulk_load(sc + 4 * o, k_scales + token(h, id, r), 4 * n, bar);
+    bulk_load(sc + 128 + 4 * o, v_scales + token(h, id, r), 4 * n, bar);
   }
-  __device__ float v_scale(int h, int id, int r) const {
-    return v_scales[token(h, id, r)];
+  __device__ static float scale(const uint8_t* sc, int t) {
+    return reinterpret_cast<const float*>(sc)[t];
   }
 };
+
+// Ring stages a warp keeps, by page element size: two for int8, one for
+// wider pages (the 2-byte stage is twice the size; other warps and blocks
+// keep the loads in flight).
+template <typename P>
+__host__ __device__ constexpr int decode_stages() {
+  return sizeof(P) == 1 ? 2 : 1;
+}
+
+template <typename P, int D>
+__host__ __device__ constexpr int decode_stage_bytes() {
+  return 2 * CHUNK * D * (int)sizeof(P) + (sizeof(P) == 1 ? 256 : 0);
+}
+
+// Dynamic shared memory of one block: the warps' rings, q in the lanes'
+// order, each warp's p of a chunk, the mbarriers (the warps' merge reuses
+// the rings).
+template <typename P, int D, int G>
+__host__ __device__ constexpr int decode_smem_bytes() {
+  return WARPS * decode_stages<P>() * decode_stage_bytes<P, D>() +
+         G * D * 4 + WARPS * CHUNK * G * 4 + WARPS * decode_stages<P>() * 8;
+}
 
 // T: q and out dtype; P: page element type (T, or int8_t for int8 pages);
 // L: the page layout; RING: the sliding-window ring walk (window > 0).
@@ -156,165 +228,375 @@ __global__ void __launch_bounds__(WARPS * 32)
     paged_decode_kernel(const T* __restrict__ q, const L pages,
                         const int* __restrict__ lengths,
                         const int* __restrict__ page_indices, int pi_stride,
-                        int pages_per_seq, T* __restrict__ out,
-                        float* __restrict__ lse, int hkv, int window,
+                        int pages_per_seq, int pages_per_split,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* ws, int* arrivals, int hkv, int window,
                         float scale_log2) {
   constexpr bool QUANT = sizeof(P) == 1;
-  constexpr int E = D / 32;            // output elements per lane
-  constexpr int VEC = 16 / sizeof(P);  // page elements per 16-byte load
-  static_assert(D % 32 == 0 && D % VEC == 0, "head_dim");
-  __shared__ __align__(16) float qs[G][D];
-  __shared__ float red_m[WARPS][G];
-  __shared__ float red_l[WARPS][G];
-  __shared__ float red_acc[WARPS][G][D];
+  constexpr int STAGES = decode_stages<P>();
+  constexpr int SB = decode_stage_bytes<P, D>();
+  constexpr int E = D / 32;                  // PV: output elements a lane
+  constexpr int LB = D * (int)sizeof(P) / 8; // scores: row bytes a lane
+  constexpr int PB = LB >= 16 ? 16 : LB;     // bytes a piece
+  constexpr int NP = LB / PB;                // pieces a lane
+  constexpr int EP = PB / (int)sizeof(P);    // elements a piece
+  constexpr int LE = D / 8;                  // elements a lane scores
+  constexpr bool QREG = G * LE <= 64;        // q in registers
+  static_assert(D % 32 == 0 && PB % 4 == 0 && NP * EP == LE && LE % 4 == 0,
+                "head_dim");
+  static_assert(WARPS * G * (D + 2) * 4 <= WARPS * STAGES * SB,
+                "the warps' merge fits in the rings");
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* qp = reinterpret_cast<float*>(smem + WARPS * STAGES * SB);
+  float* pw = qp + G * D + (threadIdx.x / 32) * CHUNK * G;  // [CHUNK][G]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qp + G * D + WARPS * CHUNK * G);
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hq = hkv * G;
   const int ps = pages.page_size;
-  const float qscale = round_to<T>(scale_log2);
-  for (int i = tid; i < G * D; i += WARPS * 32)
-    qs[i / D][i % D] =
-        round_to<T>(to_f(q[((size_t)b * hq + h * G) * D + i]) * qscale);
-  __syncthreads();
+  unsigned char* wring = ring + warp * STAGES * SB;
+  uint64_t* wbar = bars + warp * STAGES;
+  if (lane == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(&wbar[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
 
-  // tokens [first, n)
+  // this split's tokens [t_lo, t_hi)
+  const int P_ = pages_per_seq;
   const int n = RING ? max(0, lengths[b])
-                     : max(0, min(lengths[b], pages_per_seq * ps));
+                     : max(0, min(lengths[b], P_ * ps));
   const int first = RING ? max(0, n - window) : 0;
+  const int p0 = (RING ? first / ps : 0) + split * pages_per_split;
+  const int t_lo = max(first, p0 * ps);
+  const int t_hi = min(n, (p0 + pages_per_split) * ps);
+  const int c_first = t_lo / CHUNK * CHUNK;
+  const int n_chunks = t_hi > t_lo ? (t_hi - c_first + CHUNK - 1) / CHUNK : 0;
+  const int mine =
+      n_chunks > warp ? (n_chunks - warp + WARPS - 1) / WARPS : 0;
   const int* pt = page_indices + (size_t)b * pi_stride;
   auto page_of = [&](int t) {
     const int lp = t / ps;
-    return pt[RING ? lp % pages_per_seq : lp];
+    return pt[RING ? lp % P_ : lp];
   };
+  const int seg = min(ps, CHUNK);  // rows of one page in a chunk
+
+  // lane 0: the warp's local chunk c into its stage
+  auto issue = [&](int c) {
+    const int c0 = c_first + (warp + WARPS * c) * CHUNK;
+    unsigned char* st = wring + c % STAGES * SB;
+    uint64_t* bar = &wbar[c % STAGES];
+    uint32_t bytes = 0;
+    for (int o = 0; o < CHUNK; o += seg)
+      if (c0 + o + seg > t_lo && c0 + o < t_hi)
+        bytes += seg * (2 * D * (int)sizeof(P) + (QUANT ? 8 : 0));
+    mbar_expect_tx(bar, bytes);
+    for (int o = 0; o < CHUNK; o += seg) {
+      const int t = c0 + o;
+      if (!(t + seg > t_lo && t < t_hi)) continue;
+      const int id = page_of(t), r = t % ps;
+      const uint32_t nb = seg * D * sizeof(P);
+      bulk_load(st + o * D * sizeof(P), pages.k_row(h, id, r), nb, bar);
+      bulk_load(st + (CHUNK + o) * D * sizeof(P), pages.v_row(h, id, r), nb,
+                bar);
+      if constexpr (QUANT)
+        pages.load_scales(h, id, r, seg, o,
+                          st + 2 * CHUNK * D * sizeof(P), bar);
+    }
+  };
+  if (lane == 0)
+    for (int c = 0; c < min(STAGES, mine); ++c) issue(c);
+
+  // q folded by scale_log2 in its dtype, in the lanes' order: element l of
+  // lane i's scoring slice (piece l / EP at 16-byte index i + 8 * piece) at
+  // qp[((g * LE / 4 + l / 4) * 8 + i) * 4 + l % 4]
+  const float qscale = round_to<T>(scale_log2);
+  for (int x = tid; x < G * D; x += WARPS * 32) {
+    const int g = x / D, d = x % D;
+    const int pc = d / EP, i = pc % 8, l = pc / 8 * EP + d % EP;
+    qp[((g * (LE / 4) + l / 4) * 8 + i) * 4 + l % 4] =
+        round_to<T>(to_f(q[((size_t)b * hq + h * G) * D + x]) * qscale);
+  }
+  __syncthreads();
+  const float4* qp4 = reinterpret_cast<const float4*>(qp);
+  float qr[QREG ? G : 1][QREG ? LE : 4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int l4 = 0; l4 < LE / 4; ++l4) {
+        const float4 v = qp4[(g * (LE / 4) + l4) * 8 + lane % 8];
+        qr[g][4 * l4] = v.x, qr[g][4 * l4 + 1] = v.y;
+        qr[g][4 * l4 + 2] = v.z, qr[g][4 * l4 + 3] = v.w;
+      }
+  }
 
   float m_run[G], l_run[G], acc[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m_run[g] = -INFINITY;
-    l_run[g] = 0.f;  // per-lane partial, warp-reduced at the end
+    l_run[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
+  const int j = lane / 8, i = lane % 8;  // scoring: token 4 st + j, slice i
 
-  for (int base = first + warp * CHUNK; base < n; base += WARPS * CHUNK) {
-    // scores: lane `lane` takes token base + lane
-    const int t = base + lane;
-    float s[G];
-    float vscale = 1.f;
-    if (t < n) {
-      const int id = page_of(t), r = t % ps;
-      const P* krow = pages.k_row(h, id, r);
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = 0.f;
-#pragma unroll
-      for (int d0 = 0; d0 < D; d0 += VEC) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-        const P* kv = reinterpret_cast<const P*>(&raw);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float kf = to_f(kv[i]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] = fmaf(qs[g][d0 + i], kf, s[g]);
-        }
-      }
-      if constexpr (QUANT) {
-        const float kscale = pages.k_scale(h, id, r);
-        vscale = pages.v_scale(h, id, r);
-#pragma unroll
-        for (int g = 0; g < G; ++g) s[g] *= kscale;
-      }
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = kMaskValue;
+  for (int c = 0; c < mine; ++c) {
+    const int c0 = c_first + (warp + WARPS * c) * CHUNK;
+    mbar_wait(&wbar[c % STAGES], (c / STAGES) & 1);
+    const unsigned char* st = wring + c % STAGES * SB;
+    const P* ks = reinterpret_cast<const P*>(st);
+    const P* vs = ks + CHUNK * D;
+    const uint8_t* sc = st + 2 * CHUNK * D * sizeof(P);
+    // the chunk's scales, lane = token
+    float kscale = 1.f, vscale = 1.f;
+    if constexpr (QUANT) {
+      kscale = L::scale(sc, lane);
+      vscale = L::scale(sc + 128, lane);
     }
 
-    float p[G];
+    // scores, 4 tokens a step
+    float s[8][G];
+#pragma unroll
+    for (int stp = 0; stp < 8; ++stp) {
+      const int tt = 4 * stp + j;
+      const unsigned char* krow =
+          reinterpret_cast<const unsigned char*>(ks + tt * D);
+      float part[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) {
+        uint32_t w[PB / 4];
+        if constexpr (PB == 16) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(krow + (i + 8 * pc) * 16);
+          w[0] = raw.x, w[1] = raw.y, w[2] = raw.z, w[3] = raw.w;
+        } else {
+          const uint2 raw = *reinterpret_cast<const uint2*>(krow + i * 8);
+          w[0] = raw.x, w[1] = raw.y;
+        }
+        float kf[EP];
+        piece_to_f<P, EP>(w, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int e4 = 0; e4 < EP / 4; ++e4) {
+            const int l = pc * EP + 4 * e4;
+            float4 qv;
+            if constexpr (QREG)
+              qv = make_float4(qr[g][l], qr[g][l + 1], qr[g][l + 2],
+                               qr[g][l + 3]);
+            else
+              qv = qp4[(g * (LE / 4) + l / 4) * 8 + i];
+            part[g] = fmaf(qv.x, kf[4 * e4], part[g]);
+            part[g] = fmaf(qv.y, kf[4 * e4 + 1], part[g]);
+            part[g] = fmaf(qv.z, kf[4 * e4 + 2], part[g]);
+            part[g] = fmaf(qv.w, kf[4 * e4 + 3], part[g]);
+          }
+      }
+      const float ksc = QUANT ? __shfl_sync(0xffffffffu, kscale, tt) : 1.f;
+      const int t = c0 + tt;
+      const bool ok = t >= t_lo && t < t_hi;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float x = part[g];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        s[stp][g] = ok ? (QUANT ? x * ksc : x) : kMaskValue;
+      }
+    }
+
+    // the online softmax over the chunk; s becomes p, rounded to T (int8:
+    // times the token's V scale)
+    float vsc[8];
+#pragma unroll
+    for (int stp = 0; stp < 8; ++stp)
+      vsc[stp] = QUANT ? __shfl_sync(0xffffffffu, vscale, 4 * stp + j) : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float mx = s[g];
+      float mx = s[0][g];
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      for (int stp = 1; stp < 8; ++stp) mx = fmaxf(mx, s[stp][g]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
       mx = fmaxf(mx, m_run[g]);
       const float alpha = exp2f(m_run[g] - mx);
       const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
-      const float pf = exp2f(s[g] - mx) * keep;
-      l_run[g] = alpha * l_run[g] + pf;
-      p[g] = round_to<T>(QUANT ? pf * vscale : pf);
+      float psum = 0.f;
+#pragma unroll
+      for (int stp = 0; stp < 8; ++stp) {
+        const float pf = exp2f(s[stp][g] - mx) * keep;
+        psum += pf;
+        s[stp][g] = round_to<T>(QUANT ? pf * vsc[stp] : pf);
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 8);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 16);
+      l_run[g] = alpha * l_run[g] + psum;
       m_run[g] = mx;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
     }
+    if (i == 0) {  // token 4 stp + j's p, for the whole warp
+#pragma unroll
+      for (int stp = 0; stp < 8; ++stp)
+#pragma unroll
+        for (int g = 0; g < G; ++g) pw[(4 * stp + j) * G + g] = s[stp][g];
+    }
+    __syncwarp();
 
     // P V: lane `lane` owns output columns [lane * E, lane * E + E)
-    const int cnt = min(CHUNK, n - base);
-#pragma unroll 4
-    for (int tt = 0; tt < cnt; ++tt) {
-      const int tok = base + tt;
-      const P* vrow = pages.v_row(h, page_of(tok), tok % ps) + lane * E;
-      const Lane<P, E> vl = *reinterpret_cast<const Lane<P, E>*>(vrow);
+#pragma unroll
+    for (int tt = 0; tt < CHUNK; ++tt) {
+      const int t = c0 + tt;
+      if (t < t_lo || t >= t_hi) continue;  // the same for the whole warp
+      uint32_t w[E * sizeof(P) >= 4 ? E * sizeof(P) / 4 : 1];
+      const unsigned char* vrow = reinterpret_cast<const unsigned char*>(
+          vs + tt * D + lane * E);
       float vf[E];
+      if constexpr (E * sizeof(P) == 2) {  // int8 at head_dim 64
+        const uint32_t h16 = *reinterpret_cast<const uint16_t*>(vrow);
+        w[0] = h16;
+        float f4[4];
+        piece_to_f<P, 4>(w, f4);
+        vf[0] = f4[0], vf[1] = f4[1];
+      } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e) vf[e] = to_f(vl.v[e]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pt_g = __shfl_sync(0xffffffffu, p[g], tt);
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pt_g, vf[e], acc[g][e]);
+        for (int x = 0; x < E * (int)sizeof(P) / 4; ++x)
+          w[x] = reinterpret_cast<const uint32_t*>(vrow)[x];
+        piece_to_f<P, E>(w, vf);
       }
+      float pg[G];
+      if constexpr (G % 4 == 0) {
+#pragma unroll
+        for (int g4 = 0; g4 < G / 4; ++g4) {
+          const float4 v = reinterpret_cast<const float4*>(pw + tt * G)[g4];
+          pg[4 * g4] = v.x, pg[4 * g4 + 1] = v.y;
+          pg[4 * g4 + 2] = v.z, pg[4 * g4 + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) pg[g] = pw[tt * G + g];
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pg[g], vf[e], acc[g][e]);
     }
+    __syncwarp();  // the stage and p are read: both may be refilled
+    if (lane == 0 && c + STAGES < mine) issue(c + STAGES);
   }
 
-  // merge the warps' (m, l, acc) with the exact LSE combine
+  // the warps' (m, l, acc), merged in warp order into the block's partial
+  __syncthreads();  // the rings are read and every copy has landed
+  float* red_m = reinterpret_cast<float*>(smem);
+  float* red_l = red_m + WARPS * G;
+  float* red_acc = red_l + WARPS * G;  // [WARPS][G][D]
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float l = l_run[g];
-#pragma unroll
-    for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
     if (lane == 0) {
-      red_m[warp][g] = m_run[g];
-      red_l[warp][g] = l;
+      red_m[warp * G + g] = m_run[g];
+      red_l[warp * G + g] = l_run[g];
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) red_acc[warp][g][lane * E + e] = acc[g][e];
+    for (int e = 0; e < E; ++e)
+      red_acc[(warp * G + g) * D + lane * E + e] = acc[g][e];
   }
   __syncthreads();
 
-  for (int i = tid; i < G * D; i += WARPS * 32) {
-    const int g = i / D, d = i % D;
-    float m_f = -INFINITY;
-    for (int w = 0; w < WARPS; ++w) m_f = fmaxf(m_f, red_m[w][g]);
-    float num = 0.f, den = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      // a warp that saw no token keeps m = -inf and weighs nothing
-      const float wt =
-          red_m[w][g] == -INFINITY ? 0.f : exp2f(red_m[w][g] - m_f);
-      num += red_acc[w][g][d] * wt;
-      den += red_l[w][g] * wt;
-    }
+  // a partial that saw no token keeps m = -inf and weighs nothing
+  auto write_out = [&](int g, int d, float m_f, float num, float den) {
     const float l_safe = (den == 0.f || den != den) ? 1.f : den;
     const size_t row = (size_t)b * hq + h * G + g;
     out[row * D + d] = from_f<T>(num / l_safe);
     if (d == 0)
       lse[row] = (m_f == -INFINITY ? kMaskValue : m_f) * kLn2 + logf(l_safe);
+  };
+  float* mine_ws =
+      ws + (((size_t)b * hkv + h) * splits + split) * G * (D + 2);
+  for (int x = tid; x < G * D; x += WARPS * 32) {
+    const int g = x / D, d = x % D;
+    float m_b = -INFINITY;
+    for (int w = 0; w < WARPS; ++w) m_b = fmaxf(m_b, red_m[w * G + g]);
+    float num = 0.f, den = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float mw = red_m[w * G + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - m_b);
+      num += red_acc[(w * G + g) * D + d] * wt;
+      den += red_l[w * G + g] * wt;
+    }
+    if (splits == 1) {
+      write_out(g, d, m_b, num, den);
+    } else {
+      mine_ws[g * (D + 2) + 2 + d] = num;
+      if (d == 0) {
+        mine_ws[g * (D + 2)] = m_b;
+        mine_ws[g * (D + 2) + 1] = den;
+      }
+    }
   }
+  if (splits == 1) return;
+
+  // the last split to arrive merges them all, in split order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  int* count = arrivals + (size_t)b * hkv + h;
+  if (tid == 0) last = atomicAdd(count, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* all = ws + ((size_t)b * hkv + h) * splits * G * (D + 2);
+  for (int x = tid; x < G * D; x += WARPS * 32) {
+    const int g = x / D, d = x % D;
+    float m_f = -INFINITY;
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp)
+      m_f = fmaxf(m_f, __ldcg(all + (sp * G + g) * (D + 2)));
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* part = all + (sp * G + g) * (D + 2);
+      const float ms = __ldcg(part);
+      const float wt = ms == -INFINITY ? 0.f : exp2f(ms - m_f);
+      num += __ldcg(part + 2 + d) * wt;
+      den += __ldcg(part + 1) * wt;
+    }
+    write_out(g, d, m_f, num, den);
+  }
+  if (tid == 0) *count = 0;  // ready for the next call
 }
 
-// Launches the kernel for a group of 1, 2, 4 or 8 q heads per kv head.
+// Launches the kernel for a group of 1, 2, 4 or 8 q heads per kv head over
+// `splits` splits of `pages_per_split` pages; ws holds batch * hkv * splits
+// * group * (D + 2) floats and arrivals batch * hkv zeroed ints (both
+// unused with one split).
 template <typename T, typename P, int D, bool RING, typename L>
 cudaError_t launch_group(int group, const void* q, const L& pages,
                          const void* lengths, const void* page_indices,
-                         int pi_stride, int pages_per_seq, void* out,
-                         void* lse, int batch, int hkv, int window,
+                         int pi_stride, int pages_per_seq, int splits,
+                         int pages_per_split, void* out, void* lse, void* ws,
+                         void* arrivals, int batch, int hkv, int window,
                          float scale_log2, cudaStream_t stream) {
-  const dim3 grid(hkv, batch);
-#define TFA_DECODE_LAUNCH(G)                                               \
-  paged_decode_kernel<T, P, D, G, RING, L><<<grid, WARPS * 32, 0, stream>>>( \
-      static_cast<const T*>(q), pages, static_cast<const int*>(lengths),   \
-      static_cast<const int*>(page_indices), pi_stride, pages_per_seq,     \
-      static_cast<T*>(out), static_cast<float*>(lse), hkv, window,         \
-      scale_log2)
+  const dim3 grid(splits, hkv, batch);
+#define TFA_DECODE_LAUNCH(G)                                                 \
+  {                                                                          \
+    const auto kernel = paged_decode_kernel<T, P, D, G, RING, L>;           \
+    constexpr int smem = decode_smem_bytes<P, D, G>();                       \
+    static bool smem_set[kMaxDevices] = {};                                  \
+    const cudaError_t err = raise_smem_limit(kernel, smem, smem_set);       \
+    if (err != cudaSuccess) return err;                                      \
+    kernel<<<grid, WARPS * 32, smem, stream>>>(                              \
+        static_cast<const T*>(q), pages, static_cast<const int*>(lengths),  \
+        static_cast<const int*>(page_indices), pi_stride, pages_per_seq,    \
+        pages_per_split, static_cast<T*>(out), static_cast<float*>(lse),    \
+        static_cast<float*>(ws), static_cast<int*>(arrivals), hkv, window,  \
+        scale_log2);                                                         \
+  }
   switch (group) {
     case 1: TFA_DECODE_LAUNCH(1); break;
     case 2: TFA_DECODE_LAUNCH(2); break;

@@ -5,12 +5,13 @@
 // (_paged_decode_kernel): K and V pages (hkv, num_pages, ps, D) in q's dtype,
 // or int8 payloads with f32 per-token scales (hkv, num_pages, ps, 1). The TPU
 // kernel's double-buffered page DMAs and early stop are, on Hopper, the
-// decode kernel of paged_decode.cuh (one block per (kv head, sequence), warps
-// over 32-token chunks, loads in flight across warps, the walk ending at the
-// length) with the separate-array page layout; its design and bound are
-// there. The attended length is clamped to the table width, and length 0
-// gives out 0 and the LSE sentinel, where the TPU kernel leaves the output
-// unwritten in both cases.
+// decode kernel of paged_decode.cuh (split-KV: blocks over page-aligned
+// ranges of the table, each warp's chunks landing by bulk copies through a
+// ring in shared memory, the walk ending at the length, the splits merged in
+// order by the last to arrive) with the separate-array page layout; its
+// design and bound are there. The attended length is clamped to the table
+// width, and length 0 gives out 0 and the LSE sentinel, where the TPU
+// kernel leaves the output unwritten in both cases.
 
 #include "paged_decode.cuh"
 
@@ -21,16 +22,19 @@ cudaError_t launch_separate(int group, const void* q, const void* k,
                             const void* v, const void* k_scales,
                             const void* v_scales, const void* lengths,
                             const void* page_indices, int pi_stride,
-                            int pages_per_seq, void* out, void* lse,
-                            int batch, int hkv, int num_pages, int page_size,
-                            float scale_log2, cudaStream_t stream) {
+                            int pages_per_seq, int splits,
+                            int pages_per_split, void* out, void* lse,
+                            void* ws, void* arrivals, int batch, int hkv,
+                            int num_pages, int page_size, float scale_log2,
+                            cudaStream_t stream) {
   const SeparatePages<P, D> layout{
       static_cast<const P*>(k), static_cast<const P*>(v),
       static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), num_pages, page_size};
-  return launch_group<T, P, D, false>(group, q, layout, lengths, page_indices,
-                                      pi_stride, pages_per_seq, out, lse,
-                                      batch, hkv, 0, scale_log2, stream);
+  return launch_group<T, P, D, false>(
+      group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
+      splits, pages_per_split, out, lse, ws, arrivals, batch, hkv, 0,
+      scale_log2, stream);
 }
 
 }  // namespace
@@ -38,24 +42,28 @@ cudaError_t launch_separate(int group, const void* q, const void* k,
 // Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype (the scale pointers
 // are ignored), 1 int8 pages with f32 scales. head_dim: 64 or 128; group
-// (hq / hkv): 1, 2, 4 or 8. The caller has checked shapes, contiguity and
-// alignment.
+// (hq / hkv): 1, 2, 4 or 8; page_size 16 or a multiple of 32. splits,
+// pages_per_split, ws and arrivals as in tfa_paged_decode. The caller has
+// checked shapes, contiguity and 16-byte alignment.
 extern "C" int tfa_paged_decode_separate(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* lengths, const void* page_indices,
-    int pi_stride, int pages_per_seq, void* out, void* lse, int batch,
-    int hq, int hkv, int num_pages, int page_size, int head_dim,
-    float scale_log2, int dtype, int quantized, void* stream) {
+    int pi_stride, int pages_per_seq, int splits, int pages_per_split,
+    void* out, void* lse, void* ws, void* arrivals, int batch, int hq,
+    int hkv, int num_pages, int page_size, int head_dim, float scale_log2,
+    int dtype, int quantized, void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || page_size <= 0 ||
-      pages_per_seq <= 0 ||
+      (page_size != 16 && page_size % 32) || pages_per_seq <= 0 ||
+      splits < 1 || pages_per_split < 1 ||
+      (splits > 1 && (ws == nullptr || arrivals == nullptr)) ||
       (quantized && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFA_DECODE_ARGS                                                   \
   group, q, k, v, k_scales, v_scales, lengths, page_indices, pi_stride,  \
-      pages_per_seq, out, lse, batch, hkv, num_pages, page_size,         \
-      scale_log2, s
+      pages_per_seq, splits, pages_per_split, out, lse, ws, arrivals,     \
+      batch, hkv, num_pages, page_size, scale_log2, s
 #define TFA_DECODE_DISPATCH(T, P)                                         \
   if (head_dim == 128)                                                    \
     return (int)launch_separate<T, P, 128>(TFA_DECODE_ARGS);              \

@@ -74,9 +74,40 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
                      f"({'quantized' if quantized else 'unquantized'} K/V)")
 
 
-# paged decode (fused and separate pages): one block per (kv head,
-# sequence); warps split the sequence into 32-token chunks.
-PAGED_DECODE_WARPS = 8
+# paged decode (fused and separate pages), split over the kv length: one
+# block of PAGED_DECODE_WARPS warps per (split, kv head, sequence); each
+# warp walks 32-token chunks of its split through a ring in shared memory.
+# A split holds PAGED_DECODE_SPLIT_TOKENS tokens of whole pages, counted
+# from the table's first page (or the window's), and the splits cover the
+# table's width (or the window): both known on the host, never the lengths,
+# which live on the card. The split's size is fixed in tokens, not derived
+# from the width, so a sequence's result does not depend on how wide the
+# engine buckets its table (the splits past a length are empty and add
+# exact zeros). At the int8 engine's 8k cells (64 pages of 128, 8
+# sequences, 2 kv heads) that is 16 splits, 256 blocks, about 2 a SM of the
+# H100's 132; chip_smoke.py's sweep there (`decode_split_sweep`, PERF.md)
+# found 16 splits of 4 pages faster than 22 of 3 and 32 of 2.
+PAGED_DECODE_WARPS = 4
+PAGED_DECODE_SPLIT_TOKENS = 512
+
+
+def window_pages(window: int, page_size: int) -> int:
+    """The most pages `window` consecutive tokens touch."""
+    return (window + page_size - 2) // page_size + 1
+
+
+def paged_decode_split_pages(page_size: int) -> int:
+    """Whole pages in one split of the decode."""
+    return max(1, PAGED_DECODE_SPLIT_TOKENS // page_size)
+
+
+def decode_split_plan(pages: int, splits: int) -> tuple[int, int]:
+    """(pages a split, splits) for `splits` asked of `pages` pages: whole
+    pages a split, the last split not empty."""
+    per = -(-pages // max(1, splits))
+    return per, -(-pages // per)
+
+
 # FA1 forward (the teaching kernel): the mma.sync tiles (bf16: 4 warps x 16
 # q rows on mma.sync, K and V of one 64-row kv tile in 35 KB of shared
 # memory; f32: 16 x 16 threads over a 64 x 64 score tile); a block walks
@@ -92,39 +123,55 @@ FLASH_V1_Q_TILES = 4
 FLASH_BWD_BF16 = TileConfig(block_m=64, block_n=128, threads=256)
 # f32 backward, both kernels: 16 x 16 threads over a 64 x 64 score tile.
 FLASH_BWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
-# weight-only quantized matmul: a block owns 32 output columns and a slice
-# of K; its 8 warps split the slice (4 column groups of 8 per warp row, 8 k
-# rows per warp step); x is staged in 512-column chunks of f32 in shared
-# memory. block_m is the most rows the kernel takes (x rows in shared
-# memory, 8 f32 accumulators per row per thread).
+# weight-only quantized matmul, bf16 x (csrc/quant_matmul.cu, on the
+# tensor cores): a block of 4 warps walks tiles of 128 output columns over
+# its slice of K; the weight streams through a ring of QUANT_MATMUL_STAGES
+# stages of QUANT_MATMUL_K_STAGE rows x 128 bytes in shared memory (16 rows
+# a warp); block_m is the most rows the kernel takes (two 8-row B tiles of
+# mma.sync m16n8k16).
+QUANT_MATMUL_TC = TileConfig(block_m=16, block_n=128, threads=128)
+QUANT_MATMUL_K_STAGE = 64
+QUANT_MATMUL_STAGES = 4
+# f32 x keeps the CUDA-core body (the tensor cores would round f32 x to
+# TF32): a block owns 32 output columns and a slice of K; its 8 warps split
+# the slice (4 column groups of 8 per warp row, 8 k rows per warp step); x
+# is staged in 512-column chunks of f32 in shared memory.
 QUANT_MATMUL = TileConfig(block_m=16, block_n=32, threads=256)
 QUANT_MATMUL_K_CHUNK = 512
-# K slices of one call (the blocks of a thread block cluster, at most 8),
-# set from chip_smoke.py's split sweep on the H100 (the times are in
-# PERF.md): only where N gives fewer than 66 column blocks (wq/wo, wk/wv,
-# w_down of the engine model), up to about 128 blocks in all, and never
-# below 512 k rows a block; w_gate/w_up and the lm_head are slower sliced.
+# K slices of one call (the blocks of a thread block cluster, at most 8):
+# enough that the column tiles times the slices fill about
+# QUANT_MATMUL_TARGET_BLOCKS blocks, never below QUANT_MATMUL_MIN_SPLIT_ROWS
+# k rows a block (two stages), and enough that x's slice fits in shared
+# memory (QUANT_MATMUL_X_BYTES, bf16). The H100 sweep of chip_smoke.py
+# (`qmm_split_sweep`, the times in PERF.md) checks the choice.
 QUANT_MATMUL_MAX_SPLITS = 8
-QUANT_MATMUL_SPLIT_BELOW_BLOCKS = 66
-QUANT_MATMUL_TARGET_BLOCKS = 128
-QUANT_MATMUL_MIN_SPLIT_ROWS = 512
+QUANT_MATMUL_TARGET_BLOCKS = 132
+QUANT_MATMUL_MIN_SPLIT_ROWS = 128
+QUANT_MATMUL_X_BYTES = 128 * 1024
 
 
-def quant_matmul_splits(n: int, k: int) -> int:
-    """K slices for a quantized matmul of N columns and depth K."""
-    blocks = -(-n // QUANT_MATMUL.block_n)
-    if blocks >= QUANT_MATMUL_SPLIT_BELOW_BLOCKS:
-        return 1
-    return max(1, min(QUANT_MATMUL_MAX_SPLITS,
-                      k // QUANT_MATMUL_MIN_SPLIT_ROWS,
-                      -(-QUANT_MATMUL_TARGET_BLOCKS // blocks)))
+def quant_matmul_splits(n: int, k: int, rows: int = 8) -> int:
+    """K slices for a quantized matmul of N columns, depth K and `rows`
+    rows of x."""
+    tiles = -(-n // QUANT_MATMUL_TC.block_n)
+    want = min(QUANT_MATMUL_MAX_SPLITS, k // QUANT_MATMUL_MIN_SPLIT_ROWS,
+               -(-QUANT_MATMUL_TARGET_BLOCKS // tiles))
+    rows = 8 if rows <= 8 else 16
+    fit = -(-rows * k * 2 // QUANT_MATMUL_X_BYTES)
+    splits = max(1, want, min(fit, QUANT_MATMUL_MAX_SPLITS, k))
+    # the kernel's slices are whole stages: the count it launches
+    stage = QUANT_MATMUL_K_STAGE
+    per = -(-k // splits)
+    per = -(-per // stage) * stage
+    return -(-k // per)
 
 
 # quantized_matmul's route on the card: the kernel up to this many
 # activation rows (decode: B x 1), the cuBLAS product on the converted
 # payload above (prefill). Set from chip_smoke.py's row sweep on the H100
 # (the times are in PERF.md): up to 8 rows the kernel is the faster at
-# every engine projection, at 16 rows the route wins at w_down (K 4096).
+# every engine projection; the tensor-core kernel also wins at 16 rows,
+# which no engine path has measured end to end, so the route stays.
 QUANT_MATMUL_MAX_ROWS = 8
 
 
@@ -145,6 +192,10 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),
         f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",
+        f"-DTFA_QMM_TC_BLOCK_N={QUANT_MATMUL_TC.block_n}",
+        f"-DTFA_QMM_TC_THREADS={QUANT_MATMUL_TC.threads}",
+        f"-DTFA_QMM_TC_K_STAGE={QUANT_MATMUL_K_STAGE}",
+        f"-DTFA_QMM_TC_STAGES={QUANT_MATMUL_STAGES}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
         *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
         *_tile_defines("TFA_V1_F32", FLASH_V1_F32),

@@ -18,6 +18,13 @@ host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
 causal, window and `segment_starts` clamp each tile's range; they prune
 work and change no result.
 
+Two runs give bit-identical gradients (the TPU walks its grid in one
+order): the bf16 kernels sum in an order fixed by the shape and the masks.
+dK and dV: one f32 slot per q head, summed over the GQA group in head order
+by the postprocess. dQ: each q tile's contributions are added in a chain,
+in the kv tiles' rank order (`dq_chain`), each block waiting on a counter
+for its turn.
+
 The rounding points are the work-list kernels' (flash_bwd.py:173): the
 scale sm_scale * log2(e) is folded into q in the input dtype before the
 q k^T product, so the recomputed p matches the LSE that the forward kernel
@@ -222,16 +229,38 @@ def bwd_tiles(q_len: int, kv_len: int, *, causal: bool,
     return table(kv_lo, kv_hi), table(q_lo, q_hi)
 
 
+def dq_chain(kv_table):
+    """The order of the dQ sums: (base (n_kv,), pos (sum of ranges,)),
+    int32. The blocks of a kv-major table add into the q tiles of their
+    ranges; kv tile j's contribution to q tile lo[j] + i is number
+    pos[base[j] + i] of that q tile's chain, counted in rank order (the
+    order of `order`, in which blocks are numbered and dispatched), so a
+    block waits only on blocks of lower rank."""
+    lo, hi, order = (np.asarray(r, np.int64) for r in kv_table[:3])
+    span = np.maximum(hi - lo, 0)
+    base = np.concatenate([[0], np.cumsum(span)[:-1]])
+    pos = np.zeros(int(span.sum()), np.int64)
+    seen = np.zeros(int(max(hi.max(initial=0), 0)), np.int64)
+    for j in order:
+        qts = np.arange(lo[j], hi[j])
+        pos[base[j] + qts - lo[j]] = seen[qts]
+        seen[qts] += 1
+    return base.astype(np.int32), pos.astype(np.int32)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_tiles(q_len, kv_len, causal, window, starts, block_m, block_n,
                   device):
+    """The tables on the device: kv-major (lo, hi, order, then
+    `dq_chain`'s base and pos, flat) and q-major (3, n)."""
     kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
                           segment_starts=starts, block_m=block_m,
                           block_n=block_n)
-    both = torch.as_tensor(np.concatenate([kv_t, q_t], axis=1),
+    kv_flat = np.concatenate([kv_t.ravel(), *dq_chain(kv_t)])
+    both = torch.as_tensor(np.concatenate([kv_flat, q_t.ravel()]),
                            device=device)
-    return both[:, :kv_t.shape[1]].contiguous(), \
-        both[:, kv_t.shape[1]:].contiguous()
+    return both[:kv_flat.size].contiguous(), \
+        both[kv_flat.size:].view(3, -1).contiguous()
 
 
 # --- the kernels -------------------------------------------------------------
@@ -240,7 +269,7 @@ def _device_tiles(q_len, kv_len, causal, window, starts, block_m, block_n,
 def _flash_bwd_fn():
     fn = _build.library("flash_bwd").tfa_flash_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -279,7 +308,8 @@ def _starts_key(segment_starts):
 class BwdLaunch:
     """One backward call, checked and allocated: `run(stages)` launches its
     kernels (bf16: 1 prep, 2 main, 4 post; f32: 1 dq, 2 dk/dv), so that
-    chip_smoke.py can time each alone. `grads` are (dq, dk, dv)."""
+    chip_smoke.py can time each alone (a repeated bf16 main run first
+    zeroes the dQ chain's counters). `grads` are (dq, dk, dv)."""
 
     def __init__(self, q, k, v, out, lse, do, *, causal: bool,
                  sm_scale: float, segment_ids=None,
@@ -306,16 +336,23 @@ class BwdLaunch:
             kv_pad = -(-kv_len // cfg.block_n) * cfg.block_n
             if q_seg is not None:
                 q_seg = F.pad(q_seg, (0, q_pad - q_len)).contiguous()
-            n_dq, n_kv = bs * hq * q_pad * d, bs * hkv * kv_pad * d
-            acc = torch.zeros(n_dq + 2 * n_kv, dtype=torch.float32,
+            # dq's f32 sums, then the chain counters of each (batch, q
+            # head, q tile, 64-column part), zeroed together; dk and dv in
+            # one f32 slot per q head, written whole by the main kernel
+            n_dq, n_kv = bs * hq * q_pad * d, bs * hq * kv_pad * d
+            n_cnt = bs * hq * (q_pad // cfg.block_m) * (d // 64)
+            acc = torch.zeros(n_dq + n_cnt, dtype=torch.float32,
+                              device=q.device)
+            dkv = torch.empty(2 * n_kv, dtype=torch.float32,
                               device=q.device)
             rows = torch.empty((2, bs * hq * q_pad), dtype=torch.float32,
                                device=q.device)
             bufs = (torch.empty_like(q), rows[0], rows[1], acc[:n_dq],
-                       acc[n_dq:n_dq + n_kv], acc[n_dq + n_kv:])
+                    dkv[:n_kv], dkv[n_kv:], acc[n_dq:].view(torch.int32))
+            self._turns = bufs[-1]
         else:
             delta = (do * out).sum(-1)
-            bufs = (None, None, delta, None, None, None)
+            bufs = (None, None, delta, None, None, None, None)
         self._keep = (q, k, v, out, lse, do, q_seg, kv_seg, bufs)
         ptr = (lambda t: None if t is None else t.data_ptr())
         self._args = (
@@ -328,10 +365,17 @@ class BwdLaunch:
             in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
             _KERNEL_DTYPES[q.dtype])
         self.device = q.device
+        self._main_runs = 0
 
     def run(self, stages: Optional[int] = None) -> None:
         if stages is None:
             stages = 7 if self.bf16 else 3
+        if self.bf16 and stages & 2:
+            # the dQ chain's counters start at 0 (zeroed with dq_acc at the
+            # first run; chip_smoke.py times the main kernel alone again)
+            if self._main_runs:
+                self._turns.zero_()
+            self._main_runs += 1
         with _build.on_device(self.device):
             err = _flash_bwd_fn()(*self._args, stages,
                                   torch.cuda.current_stream().cuda_stream)

@@ -7,8 +7,8 @@ the paged decode of the north-star's "paged KV decode" configuration
 `QuantizedTensor`s whose f32 scales are pages (kv_heads, num_pages,
 page_size, 1). A CPU tensor takes the plain version (`paged_decode_plain`,
 the fused decode's arithmetic over these arrays); a CUDA tensor launches
-csrc/paged_decode_separate.cu, the decode kernel of csrc/paged_decode.cuh
-over this layout, or raises.
+csrc/paged_decode_separate.cu, the split decode kernel of
+csrc/paged_decode.cuh over this layout, or raises.
 
 Two divergences from JAX, where its output is unwritten: a length of 0
 gives out 0 and the LSE sentinel, and a length past the table width
@@ -27,7 +27,8 @@ import torch
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.flash import LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    decode_plain, token_pages)
+    decode_plain, decode_splits, decode_workspace, kernel_page_size,
+    split_args, token_pages)
 from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -47,7 +48,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
                            lengths: torch.Tensor,
                            page_indices: torch.Tensor, *,
                            sm_scale: Optional[float] = None,
-                           pages_per_block: Optional[int] = None):
+                           pages_per_block: Optional[int] = None,
+                           splits: Optional[int] = None):
     """Single-token decode attention over a paged KV cache.
 
     q: (batch, q_heads, d). k_pages, v_pages: (kv_heads, num_pages,
@@ -56,7 +58,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     page_size must be a multiple of 128 (as in JAX). lengths: (batch,) int,
     the tokens of each sequence; page_indices (batch, pages_per_seq).
     pages_per_block is the TPU kernel's tile of pages: it must divide
-    pages_per_seq, as there, and changes no result.
+    pages_per_seq, as there, and changes no result. splits: the kernel's
+    blocks per sequence and kv head on the card (default: splits of
+    ops/configs.py::paged_decode_split_pages pages).
     Returns (out (batch, q_heads, d), lse (batch, q_heads) f32).
     """
     quantized = isinstance(k_pages, QuantizedTensor)
@@ -93,7 +97,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
         return forward_only(
             "paged_decode_attention",
             lambda: _decode_cuda(q, k, v, k_scale, v_scale, lengths,
-                                 page_indices, sm_scale=sm_scale), q, k, v)
+                                 page_indices, sm_scale=sm_scale,
+                                 splits=splits), q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return paged_decode_plain(q, k_pages, v_pages, lengths, page_indices,
@@ -104,10 +109,11 @@ paged_decode_attention.launches = 0   # kernel launches, either format
 
 
 def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
-                       sm_scale: float):
+                       sm_scale: float, splits: Optional[int] = None):
     """Plain PyTorch version with the kernel's arithmetic (`decode_plain`
-    of ops/paged_fused.py over the tokens below each clamped length). Runs
-    on any device; gathers the whole table."""
+    of ops/paged_fused.py over the tokens below each clamped length; with
+    `splits` (a count, or "kernel"), over the kernel's splits, merged in
+    order). Runs on any device; gathers the whole table."""
     k, k_scale = _split(k_pages)
     v, v_scale = _split(v_pages)
     ids, rows, valid = token_pages(lengths, page_indices, k.shape[2])
@@ -115,14 +121,15 @@ def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
         q, k[:, ids, rows], v[:, ids, rows],
         None if k_scale is None else k_scale[:, ids, rows],
         None if v_scale is None else v_scale[:, ids, rows], valid,
-        sm_scale=sm_scale)
+        sm_scale=sm_scale,
+        **split_args(lengths, page_indices, k.shape[2], None, splits))
 
 
 def _decode_fn():
     fn = _build.library("paged_decode_separate").tfa_paged_decode_separate
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -130,7 +137,7 @@ def _decode_fn():
 
 
 def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
-                 sm_scale: float):
+                 sm_scale: float, splits: Optional[int]):
     """Launches csrc/paged_decode_separate.cu; returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, page_size, _ = k.shape
@@ -145,6 +152,10 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         raise NotImplementedError(
             f"head_dim {d}, group {hq // hkv}: the CUDA decode kernel takes "
             f"head_dim {_KERNEL_HEAD_DIMS} and group {_KERNEL_GROUPS}")
+    if not kernel_page_size(page_size):
+        raise NotImplementedError(
+            f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
+            f"multiple of 32")
     dev = q.device
     tensors = [k, v, lengths, page_indices] + (
         [k_scale, v_scale] if quantized else [])
@@ -158,9 +169,10 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
     for t in (k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("pages must be contiguous and 16-byte aligned")
-    if quantized and not (k_scale.is_contiguous()
-                          and v_scale.is_contiguous()):
-        raise ValueError("scale pages must be contiguous")
+    if quantized and not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                             for t in (k_scale, v_scale)):
+        raise ValueError("scale pages must be contiguous and 16-byte "
+                         "aligned")
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
               else (None, None))
     q = q.contiguous()
@@ -170,12 +182,16 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         page_indices = page_indices.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
+    P = page_indices.shape[1]
+    per, n_splits = decode_splits(P, page_size, None, splits)
+    ws = decode_workspace(dev, batch, hkv, n_splits, hq // hkv, d)
     with _build.on_device(dev):
         err = _decode_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
             lengths.data_ptr(), page_indices.data_ptr(),
-            page_indices.stride(0), page_indices.shape[1], out.data_ptr(),
-            lse.data_ptr(), batch, hq, hkv, num_pages, page_size, d,
+            page_indices.stride(0), P, n_splits, per, out.data_ptr(),
+            lse.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), batch, hq,
+            hkv, num_pages, page_size, d,
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
             int(quantized), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode_separate")

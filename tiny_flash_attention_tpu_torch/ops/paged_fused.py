@@ -17,6 +17,11 @@ per sequence through a page table; `fused_page_append` writes one token per
 the plain version, a CUDA tensor launches csrc/paged_decode.cu (ports
 `_fused_decode_kernel`, its sliding-window ring mode included) or
 csrc/page_append.cu (ports `_append_kernel`) or raises.
+
+The decode kernel splits each sequence's tokens over several blocks
+(page-aligned ranges of the table, `decode_splits`) and merges their
+partial softmax states in split order; `fused_paged_decode_plain(...,
+splits=k)` computes the same partials and merge.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.ops.configs import (
+    decode_split_plan, paged_decode_split_pages, window_pages)
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -38,6 +45,12 @@ _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
+
+
+def kernel_page_size(page_size: int) -> bool:
+    """Whether the decode kernels take this page size (a 32-token chunk
+    holds whole pages, or lies in one)."""
+    return page_size == 16 or (page_size > 0 and page_size % 32 == 0)
 
 
 # --- page packing ------------------------------------------------------------
@@ -251,7 +264,8 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
                                  page_indices: torch.Tensor, *,
                                  page_size: int,
                                  sm_scale: Optional[float] = None,
-                                 window: Optional[int] = None):
+                                 window: Optional[int] = None,
+                                 splits: Optional[int] = None):
     """Decode attention over fused KV pages.
 
     q: (batch, q_heads, d). fused_pages: (kv_heads, num_pages, rows, d),
@@ -262,8 +276,11 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
     min(length, pages_per_seq * page_size) tokens. With `window` (the JAX
     ring mode) it attends [length - window, length), length unclamped, and
     token t lies on the table's page (t // page_size) % pages_per_seq: the
-    table is a ring, and window <= pages_per_seq * page_size.
-    Returns (out (batch, q_heads, d), lse (batch, q_heads) f32).
+    table is a ring, and window <= pages_per_seq * page_size. splits: the
+    blocks per sequence and kv head on the card (default: splits of
+    ops/configs.py::paged_decode_split_pages pages); on the CPU the plain
+    version without splits. Returns (out (batch, q_heads, d), lse (batch,
+    q_heads) f32).
     """
     batch, hq, d = q.shape
     hkv, num_pages, rows, d2 = fused_pages.shape
@@ -281,7 +298,8 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
             "fused_paged_decode_attention",
             lambda: _decode_cuda(q, fused_pages, lengths, page_indices,
                                  page_size=page_size, sm_scale=sm_scale,
-                                 window=window), q, fused_pages)
+                                 window=window, splits=splits),
+            q, fused_pages)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return fused_paged_decode_plain(q, fused_pages, lengths, page_indices,
@@ -303,30 +321,70 @@ def _check_window(window: Optional[int], capacity: int) -> None:
                          f"ring's capacity (pages_per_seq * page_size)")
 
 
-def token_pages(lengths: torch.Tensor, page_indices: torch.Tensor,
-                page_size: int, window: Optional[int] = None):
-    """(page ids, rows, valid), each (batch, T): the page and row of every
-    token a decode attends, in order. Without a window T is the table's
-    capacity P * page_size and token t is valid below min(length, T); with
-    one, T = window, the tokens are [length - window, length) (valid from
-    0) and token t lies on logical page (t // page_size) % P."""
-    batch, P = page_indices.shape
-    dev = page_indices.device
-    n = lengths.to(dev).long()[:, None]
+def token_positions(lengths: torch.Tensor, pages_per_seq: int,
+                    page_size: int, window: Optional[int] = None):
+    """(positions, valid), each (batch, T): the position of every token a
+    decode attends, in order. Without a window T is the table's capacity
+    P * page_size and token t is valid below min(length, T); with one,
+    T = window, the tokens are [length - window, length) (valid from 0,
+    positions clamped to 0)."""
+    P = pages_per_seq
+    dev = lengths.device
+    n = lengths.long()[:, None]
     if window is None:
         pos = torch.arange(P * page_size, device=dev)[None, :].expand(
-            batch, -1)
+            n.shape[0], -1)
         valid = pos < n.clamp(max=P * page_size)
     else:
         pos = n - window + torch.arange(window, device=dev)[None, :]
         valid = pos >= 0
         pos = pos.clamp(min=0)
+    return pos, valid
+
+
+def token_pages(lengths: torch.Tensor, page_indices: torch.Tensor,
+                page_size: int, window: Optional[int] = None):
+    """(page ids, rows, valid), each (batch, T): the page and row of every
+    token a decode attends, in order (`token_positions`); with a window
+    token t lies on logical page (t // page_size) % P."""
+    P = page_indices.shape[1]
+    pos, valid = token_positions(lengths.to(page_indices.device), P,
+                                 page_size, window)
     ids = torch.gather(page_indices.long(), 1, (pos // page_size) % P)
     return ids, pos % page_size, valid
 
 
+def decode_splits(pages_per_seq: int, page_size: int,
+                  window: Optional[int] = None,
+                  splits: Optional[int] = None) -> tuple[int, int]:
+    """(pages a split, splits) of a decode: the splits cover the table's
+    pages, or with a window the pages the window touches counted from the
+    page of its first token. By default a split holds
+    ops/configs.py::paged_decode_split_pages pages; `splits` asks for a
+    count instead. Each split holds whole pages."""
+    pages = (pages_per_seq if window is None
+             else window_pages(window, page_size))
+    if splits is None:
+        per = paged_decode_split_pages(page_size)
+        return per, -(-pages // per)
+    return decode_split_plan(pages, splits)
+
+
+def token_splits(lengths: torch.Tensor, pages_per_seq: int, page_size: int,
+                 window: Optional[int], pages_per_split: int):
+    """(batch, T): the split of every token of `token_positions` (its
+    page, counted from the table's first or the window's first, over
+    pages_per_split)."""
+    pos, _ = token_positions(lengths, pages_per_seq, page_size, window)
+    page = pos // page_size
+    if window is not None:
+        first = (lengths.long()[:, None] - window).clamp(min=0)
+        page = page - first // page_size
+    return page // pages_per_split
+
+
 def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
-                 sm_scale: float):
+                 sm_scale: float, split_of=None, n_splits: int = 1):
     """The decode kernels' arithmetic over gathered tokens: k_tok/v_tok
     (hkv, batch, T, d), int8 payloads with f32 scales k_scale/v_scale
     (hkv, batch, T) or pages of q's dtype with scales None, valid (batch,
@@ -336,6 +394,9 @@ def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
     paged.py:176-210 of the JAX package): the payload converts exactly, the
     f32 scores are multiplied by the K scales, l sums the unscaled p, and p
     times the V scales in f32 is what is cast before the PV product.
+    With split_of (batch, T), each token's split in [0, n_splits): the
+    softmax state (m, l, acc) of each split over its own tokens, then the
+    exact LSE combine of the splits in split order, as the kernels do.
     Returns (out (batch, hq, d), lse (batch, hq))."""
     batch, hq, d = q.shape
     hkv = k_tok.shape[0]
@@ -347,41 +408,94 @@ def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
     s = torch.matmul(qs, kk.transpose(-1, -2))          # (B, hkv, G, T)
     if k_scale is not None:
         s = s * k_scale.transpose(0, 1)[:, :, None, :]
-    s = torch.where(valid[:, None, None, :], s, DEFAULT_MASK_VALUE)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m) * (m > 0.5 * DEFAULT_MASK_VALUE)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where((l == 0.0) | torch.isnan(l), 1.0, l)
-    pv = p if v_scale is None else p * v_scale.transpose(0, 1)[:, :, None, :]
-    out = torch.matmul(pv.to(q.dtype).float(), vv) / l_safe
-    lse = m[..., 0] * LN2 + torch.log(l_safe[..., 0])
+    vsc = None if v_scale is None else v_scale.transpose(0, 1)[:, :, None,
+                                                                  :]
+    if split_of is None:
+        split_of, n_splits = torch.zeros_like(valid, dtype=torch.long), 1
+    m_f = num = den = None
+    for x in range(n_splits):   # in split order
+        mine = valid & (split_of == x)
+        sx = torch.where(mine[:, None, None, :], s, DEFAULT_MASK_VALUE)
+        m = sx.amax(dim=-1, keepdim=True)
+        p = torch.exp2(sx - m) * (m > 0.5 * DEFAULT_MASK_VALUE)
+        l = p.sum(dim=-1, keepdim=True)
+        pv = p if vsc is None else p * vsc
+        acc = torch.matmul(pv.to(q.dtype).float(), vv)
+        if m_f is None:
+            m_f, num, den = m, acc, l
+            continue
+        m_new = torch.maximum(m_f, m)
+        w_old, w_x = torch.exp2(m_f - m_new), torch.exp2(m - m_new)
+        m_f, num, den = m_new, num * w_old + acc * w_x, den * w_old + l * w_x
+    l_safe = torch.where((den == 0.0) | torch.isnan(den), 1.0, den)
+    out = num / l_safe
+    lse = m_f[..., 0] * LN2 + torch.log(l_safe[..., 0])
     return out.to(q.dtype).reshape(batch, hq, d), lse.reshape(batch, hq)
+
+
+def split_args(lengths, page_indices, page_size: int,
+               window: Optional[int], splits) -> dict:
+    """decode_plain's split arguments: none for splits None; the kernel's
+    default splits for "kernel"; else `splits` asked."""
+    if splits is None:
+        return {}
+    if splits == "kernel":
+        splits = None
+    P = page_indices.shape[1]
+    per, n = decode_splits(P, page_size, window, splits)
+    return {"split_of": token_splits(lengths.to(page_indices.device), P,
+                                     page_size, window, per),
+            "n_splits": n}
 
 
 def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
                              page_size: int, sm_scale: float,
-                             window: Optional[int] = None):
+                             window: Optional[int] = None,
+                             splits: Optional[int] = None):
     """Plain PyTorch version of the fused-page decode (`decode_plain` over
-    the tokens of `token_pages`, ring mode included). Runs on any device;
-    gathers every token it attends, and without a window the whole
+    the tokens of `token_pages`, ring mode included); with `splits`, over
+    the kernel's splits of the tokens (`decode_splits`: a count asked, or
+    "kernel" for the kernel's default), merged in order. Runs on any
+    device; gathers every token it attends, and without a window the whole
     table."""
     ps = page_size
     ids, rows, valid = token_pages(lengths, page_indices, ps, window)
+    kw = split_args(lengths, page_indices, ps, window, splits)
     if fused_pages.dtype != torch.int8:
         return decode_plain(q, fused_pages[:, ids, rows],
                             fused_pages[:, ids, ps + rows], None, None,
-                            valid, sm_scale=sm_scale)
+                            valid, sm_scale=sm_scale, **kw)
     _, _, ksc, vsc = unpack_int8_pages(fused_pages, ps)   # (hkv, N, ps)
     return decode_plain(q, fused_pages[:, ids, rows],
                         fused_pages[:, ids, ps + rows], ksc[:, ids, rows],
-                        vsc[:, ids, rows], valid, sm_scale=sm_scale)
+                        vsc[:, ids, rows], valid, sm_scale=sm_scale, **kw)
+
+
+_workspaces: dict = {}
+
+
+def decode_workspace(device, batch: int, kv_heads: int, splits: int,
+                     group: int, d: int):
+    """(partials f32, arrival counters int32 zeros) of the split decode,
+    allocated once per device and shape and kept: the kernel leaves the
+    counters at zero, so a call allocates nothing (a later CUDA graph can
+    capture it). One stream at a time uses a workspace."""
+    key = (str(device), batch, kv_heads, splits, group, d)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = (torch.empty(batch * kv_heads * splits * group * (d + 2),
+                          dtype=torch.float32, device=device),
+              torch.zeros(batch * kv_heads, dtype=torch.int32,
+                          device=device))
+        _workspaces[key] = ws
+    return ws
 
 
 def _decode_fn():
     fn = _build.library("paged_decode").tfa_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -389,7 +503,8 @@ def _decode_fn():
 
 
 def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
-                 sm_scale: float, window: Optional[int]):
+                 sm_scale: float, window: Optional[int],
+                 splits: Optional[int]):
     """Launches csrc/paged_decode.cu; returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, prows = fused_pages.shape[:3]
@@ -403,6 +518,10 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         raise NotImplementedError(
             f"head_dim {d}, group {hq // hkv}: the CUDA decode kernel takes "
             f"head_dim {_KERNEL_HEAD_DIMS} and group {_KERNEL_GROUPS}")
+    if not kernel_page_size(page_size):
+        raise NotImplementedError(
+            f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
+            f"multiple of 32")
     dev = q.device
     if not (fused_pages.device == dev and lengths.device == dev
             and page_indices.device == dev):
@@ -423,14 +542,17 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
     out = torch.empty_like(q)
     lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
+    P = page_indices.shape[1]
+    per, n_splits = decode_splits(P, page_size, window, splits)
+    ws = decode_workspace(dev, batch, hkv, n_splits, hq // hkv, d)
     with _build.on_device(dev):
         err = _decode_fn()(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
-            page_indices.data_ptr(), page_indices.stride(0),
-            page_indices.shape[1], out.data_ptr(), lse.data_ptr(), batch,
-            hq, hkv, num_pages, page_size, prows, d, window or 0,
-            scale_log2, _KERNEL_DTYPES[q.dtype], int(quantized),
-            torch.cuda.current_stream().cuda_stream)
+            page_indices.data_ptr(), page_indices.stride(0), P, n_splits,
+            per, out.data_ptr(), lse.data_ptr(), ws[0].data_ptr(),
+            ws[1].data_ptr(), batch, hq, hkv, num_pages, page_size, prows,
+            d, window or 0, scale_log2, _KERNEL_DTYPES[q.dtype],
+            int(quantized), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode")
     if window is not None:
         fused_paged_decode_attention.ring_launches += 1

@@ -9,7 +9,10 @@ f32 and rounds once to the output dtype (quant.py:116-118 of the JAX
 package). At decode rows the function is bound by the weight's bytes: the
 kernel (csrc/quant_matmul.cu) reads each weight byte once and never writes
 a converted copy, which an eager `values.to(bf16)` + matmul would (three
-times the int8 bytes). `qw` is any object with `.values` and `.scales`.
+times the int8 bytes). With bf16 x it converts the payload in registers and
+multiplies on the tensor cores (mma.sync, the weight as the 16-row
+operand); with f32 x on the CUDA cores. `qw` is any object with `.values`
+and `.scales`.
 """
 
 from __future__ import annotations
@@ -88,10 +91,14 @@ def _matmul_cuda(x, qw, out_dtype, splits):
     if not values.is_contiguous() or values.data_ptr() % 16:
         raise ValueError("values must be contiguous and 16-byte aligned")
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
     scales = scales.contiguous()
+    if scales.data_ptr() % 16:
+        scales = scales.clone()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     rows = next(b for b in _ROW_BUCKETS if b >= m)
-    splits = quant_matmul_splits(n, k) if splits is None else splits
+    splits = quant_matmul_splits(n, k, m) if splits is None else splits
     if not 1 <= splits <= min(QUANT_MATMUL_MAX_SPLITS, k):
         raise ValueError(f"splits {splits} for K {k}")
     with _build.on_device(dev):
@@ -106,3 +113,19 @@ def _matmul_cuda(x, qw, out_dtype, splits):
 
 
 quantized_matmul_cuda.launches = 0
+
+
+def convert_codes(fmt: str, device) -> torch.Tensor:
+    """Every payload code as the bf16-x kernel converts it, on the card:
+    (2, 256) bf16, row 0 a code in the low half of a converted pair, row 1
+    in the high half (indexed by code, 0..255 as unsigned bytes)."""
+    fn = _build.library("quant_matmul").tfa_quant_convert_codes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty(512, dtype=torch.bfloat16, device=device)
+    with _build.on_device(out.device):
+        err = fn(int(fmt == "fp8"), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "quant_matmul codes")
+    return out.view(2, 256)
