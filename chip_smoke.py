@@ -81,6 +81,13 @@ PROFILE_STEPS = 8
 # in [0.25, 0.5)) and 9.5e-7 on the LSE.
 DECODE_OUT_GATE = 4e-3
 DECODE_LSE_GATE = 1e-4
+# The absolute out gate fits no row length: at 8016 tokens |out| is about
+# 0.02, so 4e-3 lets a V-side fault through. Out is also held row by row
+# against the plain version at the kernel's own splits (the same partials
+# and merge): each (sequence, q head) row's largest error over that row's
+# largest |out|, at most two bf16 ulps of that value, as B1's row gate.
+# Planted V-side faults (a stale V chunk, a wrong V-scale row) must fail it.
+DECODE_ROW_GATE = 2.0 ** -6
 # Engine logits against the plain attention path, as a share of the
 # largest |logit|: earlier runs read 0.0391 of 4.688 (0.83 %) at prefill
 # and 0.0352 (0.76 %) at the first decode step.
@@ -436,16 +443,75 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
 
 
 def split_errs(out, lse, plain):
-    """(out err, lse err, ok) of a decode against its plain version at the
-    kernel's own splits and unsplit: the worst of both, and whether both
-    pass the decode gates."""
+    """(out err, row err, lse err, ok) of a decode against its plain
+    version at the kernel's own splits and unsplit: the absolute errors
+    are the worst of both, the row error (`row_err`) is against the split
+    version; ok when all pass the decode gates."""
+    from tiny_flash_attention_tpu_torch.utils.testing import row_err
+
     ref, ref_lse = plain("kernel")
     whole, whole_lse = plain(None)
     err = max(max_err(out, ref), max_err(out, whole))
+    row = row_err(out, ref)
     lse_err = max(max_err(lse, ref_lse), max_err(lse, whole_lse))
-    ok = (err <= DECODE_OUT_GATE and lse_err <= DECODE_LSE_GATE
-          and bool(torch.isfinite(out).all()))
-    return err, lse_err, ok
+    ok = (err <= DECODE_OUT_GATE and row <= DECODE_ROW_GATE
+          and lse_err <= DECODE_LSE_GATE and bool(torch.isfinite(out).all()))
+    return err, row, lse_err, ok
+
+
+def gate_readings(err, row, lse_err) -> str:
+    return (f"out err {err:.3e} (gate {DECODE_OUT_GATE:.0e}) row "
+            f"{row:.3e} (gate {DECODE_ROW_GATE:.4e}, split plain) lse err "
+            f"{lse_err:.3e} (gate {DECODE_LSE_GATE:.0e}; split and unsplit "
+            f"plain)")
+
+
+def fault_pages(lengths, table, page_size) -> tuple:
+    """(page, page before it) of the planted decode faults: the middle page
+    of the longest sequence's attended tokens."""
+    seq = int(lengths.argmax())
+    n = min(int(lengths[seq]), table.shape[1] * page_size) // page_size
+    return int(table[seq, n // 2]), int(table[seq, n // 2 - 1])
+
+
+def check_v_faults(name, faults, plain) -> None:
+    """Planted V-side faults of a decode, put through its gates against the
+    sound plain version (`split_errs`): `faults` maps a label to the
+    faulted plain version's (out, lse) at the kernel's splits. Each must
+    fail."""
+    for label, (f_out, f_lse) in faults.items():
+        err, row, lse_err, ok = split_errs(f_out, f_lse, plain)
+        log(f"decode {name}: planted fault, {label}: "
+            f"{gate_readings(err, row, lse_err)} | "
+            f"{'PASSES THE GATE' if ok else 'caught'}")
+        if ok:
+            raise AssertionError(f"the decode gate passes a planted fault: "
+                                 f"{name}, {label}")
+
+
+def b4_faults(q, pages, lengths, table, page_size) -> dict:
+    """B4's planted faults in the plain version at the kernel's splits, on
+    the middle page of the longest sequence: its V rows of tokens 32-63
+    replaced by those of tokens 0-31 (a stale chunk of the bulk-copy
+    ring); for int8 pages also its V-scale rows replaced by the page
+    before's."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_plain, scale_rows_per_side)
+
+    ps = page_size
+    page, prev = fault_pages(lengths, table, ps)
+    stale = pages.clone()
+    stale[:, page, ps + 32:ps + 64] = pages[:, page, ps:ps + 32]
+    bad = {"V of tokens 32-63 of a page from tokens 0-31": stale}
+    if pages.dtype == torch.int8:
+        v_scales = 2 * ps + scale_rows_per_side(ps, pages.shape[-1])
+        wrong = pages.clone()
+        wrong[:, page, v_scales:] = pages[:, prev, v_scales:]
+        bad["V-scale rows of a page from the page before"] = wrong
+    return {label: fused_paged_decode_plain(
+                q, x, lengths, table, page_size=ps,
+                sm_scale=q.shape[-1] ** -0.5, splits="kernel")
+            for label, x in bad.items()}
 
 
 def kernel_splits(pages_per_seq, page_size, window=None) -> tuple:
@@ -457,10 +523,38 @@ def kernel_splits(pages_per_seq, page_size, window=None) -> tuple:
     return n, per
 
 
-def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
+def b12_faults(q, k, v, lengths, table) -> dict:
+    """B12's planted faults, as b4_faults over separate K and V arrays: a
+    stale V chunk; for int8 pages also a page's V scales from the page
+    before."""
+    from tiny_flash_attention_tpu_torch.ops.paged import paged_decode_plain
+    from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
+
+    int8 = isinstance(v, QuantizedTensor)
+    vals = v.values if int8 else v
+    page, prev = fault_pages(lengths, table, vals.shape[2])
+    stale = vals.clone()
+    stale[:, page, 32:64] = vals[:, page, 0:32]
+    bad = {"V of tokens 32-63 of a page from tokens 0-31":
+           QuantizedTensor(values=stale, scales=v.scales) if int8
+           else stale}
+    if int8:
+        wrong = v.scales.clone()
+        wrong[:, page] = v.scales[:, prev]
+        bad["V scales of a page from the page before"] = QuantizedTensor(
+            values=v.values, scales=wrong)
+    return {label: paged_decode_plain(q, k, x, lengths, table,
+                                      sm_scale=q.shape[-1] ** -0.5,
+                                      splits="kernel")
+            for label, x in bad.items()}
+
+
+def check_decode(name, q, pages, lengths, table, page_size, *, iters=20,
+                 faults=False):
     """B4 against its plain version at the kernel's split count (the
     same page-aligned partials, merged in order) and unsplit, at the decode
-    gates; device times of both and the bound."""
+    gates; device times of both and the bound. With `faults`, also what the
+    gates read on planted V-side faults (b4_faults)."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_attention, fused_paged_decode_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -471,10 +565,13 @@ def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
     out, lse = fused_paged_decode_attention(q, pages, lengths, table,
                                             page_size=page_size)
     torch.cuda.synchronize()
-    err, lse_err, ok = split_errs(
-        out, lse, lambda sp: fused_paged_decode_plain(
-            q, pages, lengths, table, page_size=page_size,
-            sm_scale=sm_scale, splits=sp))
+    plain = (lambda sp: fused_paged_decode_plain(
+        q, pages, lengths, table, page_size=page_size, sm_scale=sm_scale,
+        splits=sp))
+    err, row, lse_err, ok = split_errs(out, lse, plain)
+    if faults:
+        check_v_faults(name, b4_faults(q, pages, lengths, table, page_size),
+                       plain)
     t_kernel = cuda_time_ms(lambda: fused_paged_decode_attention(
         q, pages, lengths, table, page_size=page_size),
         iters=iters)["median_ms"]
@@ -486,9 +583,7 @@ def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
     log(f"decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
         f"table{tuple(table.shape)} lengths {lengths.tolist()} | {n_splits} "
         f"splits of {per} pages ({n_splits * pages.shape[0] * q.shape[0]} "
-        f"blocks) | out err {err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err "
-        f"{lse_err:.3e} (gate {DECODE_LSE_GATE:.0e}; against the split and "
-        f"the unsplit plain version) | kernel "
+        f"blocks) | {gate_readings(err, row, lse_err)} | kernel "
         f"{t_kernel:.4f} ms plain {t_plain:.4f} ms bound {bound_ms:.4f} ms "
         f"({bound_by}) | {kv_bytes / (t_kernel * 1e-3) / 1e9:.1f} GB/s | "
         f"{'ok' if ok else 'FAIL'}")
@@ -502,7 +597,9 @@ def check_decode(name, q, pages, lengths, table, page_size, *, iters=20):
 
 def decode_split_sweep(name, q, pages, lengths, table, page_size) -> None:
     """B4's time by split count at one cache: what ops/configs.py::
-    paged_decode_split_pages should choose."""
+    PAGED_DECODE_SPLIT_TOKENS should be (set for each count, then
+    restored)."""
+    from tiny_flash_attention_tpu_torch.ops import configs
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         decode_splits, fused_paged_decode_attention)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -510,12 +607,17 @@ def decode_split_sweep(name, q, pages, lengths, table, page_size) -> None:
 
     chosen, per_chosen = kernel_splits(table.shape[1], page_size)
     cells = []
-    for sp in sorted({1, 4, 8, 16, chosen, 32, 64}):
-        per, n = decode_splits(table.shape[1], page_size, None, sp)
-        t = cuda_time_ms(lambda: fused_paged_decode_attention(
-            q, pages, lengths, table, page_size=page_size, splits=sp),
-            iters=20)["median_ms"]
-        cells.append(f"{n} x {per} pages: {t:.4f}")
+    default = configs.PAGED_DECODE_SPLIT_TOKENS
+    try:
+        for sp in sorted({1, 4, 8, 16, chosen, 32, 64}):
+            per, n = decode_splits(table.shape[1], page_size, None, sp)
+            configs.PAGED_DECODE_SPLIT_TOKENS = per * page_size
+            t = cuda_time_ms(lambda: fused_paged_decode_attention(
+                q, pages, lengths, table, page_size=page_size),
+                iters=20)["median_ms"]
+            cells.append(f"{n} x {per} pages: {t:.4f}")
+    finally:
+        configs.PAGED_DECODE_SPLIT_TOKENS = default
     log(f"decode splits {name}, kernel ms: " + "; ".join(cells)
         + f" (chosen: {chosen} x {per_chosen} pages)")
 
@@ -2088,9 +2190,11 @@ def surface_phase(gen) -> dict:
             B12_CASES, b12_in, b12_out):
         sc = q.shape[-1] ** -0.5
         n_splits, per = kernel_splits(table.shape[1], 128)
-        err, lse_err, ok = split_errs(
-            out, lse, lambda sp: paged_decode_plain(
-                q, k, v, lengths, table, sm_scale=sc, splits=sp))
+        plain = (lambda sp: paged_decode_plain(
+            q, k, v, lengths, table, sm_scale=sc, splits=sp))
+        err, row, lse_err, ok = split_errs(out, lse, plain)
+        check_v_faults(f"separate {name}", b12_faults(q, k, v, lengths,
+                                                      table), plain)
         t_kernel = cuda_time_ms(lambda: paged_decode_attention(
             q, k, v, lengths, table), iters=20)["median_ms"]
         t_plain = cuda_time_ms(lambda: paged_decode_plain(
@@ -2108,9 +2212,8 @@ def surface_phase(gen) -> dict:
         kv_bytes = bound_ms * 1e-3 * PEAK_BYTES_PER_S
         log(f"paged_decode_separate {name}: q{tuple(q.shape)} pages"
             f"{tuple(kv.shape)} lengths {lengths.tolist()} | {n_splits} "
-            f"splits of {per} pages | out err "
-            f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} "
-            f"(gate {DECODE_LSE_GATE:.0e}) | kernel {t_kernel:.4f} ms plain "
+            f"splits of {per} pages | {gate_readings(err, row, lse_err)} | "
+            f"kernel {t_kernel:.4f} ms plain "
             f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
             f"{kv_bytes / (t_kernel * 1e-3) / 1e9:.1f} GB/s{extra} | "
             f"{'ok' if ok else 'FAIL'}")
@@ -2447,7 +2550,7 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
     out, lse = fused_paged_decode_attention(q, pages, lengths, table,
                                             page_size=ps, window=window)
     torch.cuda.synchronize()
-    err, lse_err, ok = split_errs(
+    err, row, lse_err, ok = split_errs(
         out, lse, lambda sp: fused_paged_decode_plain(
             q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
             window=window, splits=sp))
@@ -2460,10 +2563,8 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
     bound_ms, bound_by = ring_bound(q, pages, lengths, window)
     log(f"ring decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
         f"table{tuple(table.shape)} window {window} lengths "
-        f"{lengths.tolist()} | {n_splits} splits of {per} pages | out err "
-        f"{err:.3e} (gate {DECODE_OUT_GATE:.0e}) lse err {lse_err:.3e} (gate "
-        f"{DECODE_LSE_GATE:.0e}; split and unsplit plain) | kernel "
-        f"{t_kernel:.4f} ms plain "
+        f"{lengths.tolist()} | {n_splits} splits of {per} pages | "
+        f"{gate_readings(err, row, lse_err)} | kernel {t_kernel:.4f} ms plain "
         f"{t_plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2812,7 +2913,8 @@ def main() -> int:
     page_table, lengths = eng.cache.device_views()
     qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
     decode_row = check_decode("main path: engine cache, layer 0", qd,
-                              eng.cache.pages[0], lengths, page_table, 128)
+                              eng.cache.pages[0], lengths, page_table, 128,
+                              faults=True)
     # the ring mode's errors join B4's row (bf16 pages) and its int8 row
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
                                     ring_rows["bf16"]["max_abs_err"])
@@ -2820,7 +2922,7 @@ def main() -> int:
     page_table, lengths = eng8k.cache.device_views()
     int8_row = check_decode("main path: int8 engine cache at prompt 7936, "
                             "layer 0", qd, eng8k.cache.pages[0], lengths,
-                            page_table, 128)
+                            page_table, 128, faults=True)
     decode_split_sweep("int8 engine cache at prompt 7936", qd,
                        eng8k.cache.pages[0], lengths, page_table, 128)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"],
@@ -2972,5 +3074,21 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(1)
         bwd_spread(gate=False)
+        sys.exit(0)
+    if sys.argv[1:] == ["--bwd"]:
+        # only the bf16 backward at the train steps' shapes (4 x 2048,
+        # 1 x 8192, the window) and the spread gate, with the package found
+        # on sys.path (so that one call can time two trees' kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        from tiny_flash_attention_tpu_torch import _build
+
+        bwd_gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for case in BWD_CASES:
+            if case[1][2] == case[2][2] >= 2048 and "mix" not in case[5]:
+                check_bwd(*case, bwd_gen, iters=10)
+        bwd_spread(gate=True)
+        log("  flash_bwd registers/spill bytes: " + ", ".join(
+            instance_registers(_build.build_log("flash_bwd"))))
         sys.exit(0)
     sys.exit(main())

@@ -35,7 +35,7 @@ import torch
 from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
-    flash_attention_bwd, flash_attention_bwd_plain)
+    BwdLaunch, flash_attention_bwd, flash_attention_bwd_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_quant import (
     flash_attention_quantized, flash_attention_quantized_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
@@ -44,14 +44,14 @@ from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
     flash_attention_v1, flash_attention_v1_plain)
 from tiny_flash_attention_tpu_torch.ops.paged import (
     paged_decode_attention, paged_decode_plain)
-from tiny_flash_attention_tpu_torch.ops import quant as Q
+from tiny_flash_attention_tpu_torch.ops import configs, quant as Q
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    fused_page_append, fused_paged_decode_attention, fused_paged_decode_plain,
-    pack_paged_cache, page_append_plain, page_rows)
+    decode_splits, fused_page_append, fused_paged_decode_attention,
+    fused_paged_decode_plain, pack_paged_cache, page_append_plain, page_rows)
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda, quantized_matmul_plain)
 from tiny_flash_attention_tpu_torch.utils.testing import (
-    flash_gate, tolerance_for)
+    flash_gate, row_err, tolerance_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -987,6 +987,35 @@ def test_bwd_runs_are_bit_identical(gen, hq, hkv, d, masks):
         assert _rel_err(g, w) <= BWD_GATE[torch.bfloat16], name
 
 
+@pytest.mark.parametrize("hq,hkv,d,masks", DETERMINISM)
+def test_bwd_chain_counters_end_at_zero(gen, hq, hkv, d, masks):
+    """The last link of each q tile's dQ chain sets its counter back to 0:
+    after a call, and after the main kernel alone runs again, every
+    counter reads 0."""
+    b, n = 2, 1000
+    q = _randn((b, hq, n, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    do = _randn((b, hq, n, d), torch.bfloat16, gen)
+    kw = {"window": 300} if masks == "window" else {}
+    if masks in ("ids", "starts"):
+        seg = _segment_ids(b, n, (130, 480, 700), gen)
+        kw["segment_ids"] = (seg, seg)
+        if masks == "starts":
+            kw["segment_starts"] = (0, 130, 480, 700)
+    fwd_kw = {key: val for key, val in kw.items() if key != "segment_starts"}
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True,
+                               **fwd_kw)
+    call = BwdLaunch(q, k, v, out, lse, do, causal=True, sm_scale=d ** -0.5,
+                     **kw)
+    call.run()
+    torch.cuda.synchronize()
+    assert int(call.turns.abs().max()) == 0
+    call.run(2)
+    torch.cuda.synchronize()
+    assert int(call.turns.abs().max()) == 0
+
+
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 def test_quant_matmul_converts_every_code_exactly(gen, fmt):
     """The bf16-x kernel's payload conversion (byte permutes for int8, the
@@ -1030,13 +1059,16 @@ def test_quant_matmul_engine_projections(gen, wfmt, k, n):
 @pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
 @pytest.mark.parametrize("fmt", ["bf16", "int8"])
 @pytest.mark.parametrize("splits", [1, 2, 5, 64])
-def test_decode_splits_match_split_plain(gen, fmt, ring, splits):
+def test_decode_splits_match_split_plain(gen, monkeypatch, fmt, ring,
+                                         splits):
     """The split decode at several split counts (one split a page; 64 asks
-    for more splits than pages) against the plain version over the same
-    splits, at the decode gates (out 4e-3, LSE 1e-4), and against the
-    unsplit plain version at the dtype gate: lengths 0, 1, a page edge,
-    the full table and past it, or a ring that wrapped once and three
-    times; splits past a sequence's length give empty partials."""
+    for more splits than pages), set through the split size in tokens,
+    against the plain version over the same splits, at the decode gates
+    (out 4e-3, LSE 1e-4, out row by row 2^-6 of the row's largest |out|),
+    and against the unsplit plain version at the dtype gate: lengths 0, 1,
+    a page edge, the full table and past it, or a ring that wrapped once
+    and three times; splits past a sequence's length give empty
+    partials."""
     B, hkv, group, d, ps, P = 5, 2, 4, 128, 32, 8
     num_pages = B * P + 3
     window = 100 if ring else None
@@ -1050,14 +1082,17 @@ def test_decode_splits_match_split_plain(gen, fmt, ring, splits):
     lengths = torch.tensor(
         [1, 40, P * ps + 9, 3 * P * ps + 30, 150] if ring
         else [0, 1, ps, P * ps, 10**6], dtype=torch.int32, device="cuda")
+    per, n = decode_splits(P, ps, window, splits)
+    monkeypatch.setattr(configs, "PAGED_DECODE_SPLIT_TOKENS", per * ps)
+    assert decode_splits(P, ps, window) == (per, n)
     out, lse = fused_paged_decode_attention(q, pages, lengths, table,
-                                            page_size=ps, window=window,
-                                            splits=splits)
+                                            page_size=ps, window=window)
     torch.cuda.synchronize()
     kw = dict(page_size=ps, sm_scale=d ** -0.5, window=window)
     ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
                                             splits=splits, **kw)
     assert _err(out, ref) <= 4e-3 and _err(lse, ref_lse) <= 1e-4
+    assert row_err(out, ref) <= 2.0 ** -6
     whole, whole_lse = fused_paged_decode_plain(q, pages, lengths, table,
                                                 **kw)
     assert _err(out, whole) <= tolerance_for(torch.bfloat16)
@@ -1066,11 +1101,47 @@ def test_decode_splits_match_split_plain(gen, fmt, ring, splits):
         assert bool((out[0] == 0).all())
 
 
+def test_decode_on_two_streams(gen):
+    """Decodes of one shape on two streams at once each use their own
+    cached workspace (partials and arrival counters) and agree with the
+    plain version."""
+    B, hkv, group, d, ps, P = 4, 2, 4, 128, 128, 16
+    num_pages = B * P
+    runs = []
+    for _ in range(2):
+        q = _randn((B, hkv * group, d), torch.bfloat16, gen)
+        pages = pack_paged_cache(
+            _randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+            _randn((hkv, num_pages, ps, d), torch.bfloat16, gen), "int8")
+        table = torch.randperm(num_pages, generator=gen, device="cuda")[
+            :B * P].reshape(B, P).to(torch.int32)
+        lengths = torch.full((B,), P * ps - 5, dtype=torch.int32,
+                             device="cuda")
+        runs.append((q, pages, lengths, table))
+    streams = [torch.cuda.Stream() for _ in runs]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, (q, pages, lengths, table) in zip(streams, runs):
+        with torch.cuda.stream(stream):
+            outs.append([fused_paged_decode_attention(
+                q, pages, lengths, table, page_size=ps) for _ in range(20)])
+    torch.cuda.synchronize()
+    for (q, pages, lengths, table), results in zip(runs, outs):
+        ref, ref_lse = fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            splits="kernel")
+        for out, lse in results:
+            assert row_err(out, ref) <= 2.0 ** -6
+            assert _err(lse, ref_lse) <= 1e-4
+
+
 @pytest.mark.parametrize("fmt", ["bf16", "int8"])
 @pytest.mark.parametrize("splits", [1, 3, 64])
-def test_separate_decode_splits_match_split_plain(gen, fmt, splits):
-    """B12 on the split template at several split counts, int8 pages with
-    f32 scale pages included, against its split plain version."""
+def test_separate_decode_splits_match_split_plain(gen, monkeypatch, fmt,
+                                                  splits):
+    """B12 on the split template at several split counts (set through the
+    split size in tokens), int8 pages with f32 scale pages included,
+    against its split plain version."""
     B, hkv, group, d, ps, P = 5, 2, 4, 128, 128, 4
     num_pages = B * P + 3
     q = _randn((B, hkv * group, d), torch.bfloat16, gen)
@@ -1082,10 +1153,12 @@ def test_separate_decode_splits_match_split_plain(gen, fmt, splits):
         :B * P].reshape(B, P).to(torch.int32)
     lengths = torch.tensor([0, 1, ps, 300, 10**6], dtype=torch.int32,
                            device="cuda")
-    out, lse = paged_decode_attention(q, k, v, lengths, table,
-                                      splits=splits)
+    per, _ = decode_splits(P, ps, None, splits)
+    monkeypatch.setattr(configs, "PAGED_DECODE_SPLIT_TOKENS", per * ps)
+    out, lse = paged_decode_attention(q, k, v, lengths, table)
     torch.cuda.synchronize()
     ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
                                       sm_scale=d ** -0.5, splits=splits)
     assert _err(out, ref) <= 4e-3 and _err(lse, ref_lse) <= 1e-4
+    assert row_err(out, ref) <= 2.0 ** -6
     assert bool((out[0] == 0).all())

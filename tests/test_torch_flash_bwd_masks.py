@@ -248,14 +248,15 @@ def test_dq_chain_orders_each_q_tile_by_rank(q_len, kv_len, causal, window,
     """The bf16 kernels add each q tile's dQ contributions in a chain: the
     kv tiles that see q tile i are numbered 0..n-1 in the rank order of the
     table (the order in which their blocks are numbered and dispatched),
-    so a block waits only on blocks of lower rank."""
+    so a block waits only on blocks of lower rank; each q tile's chain
+    length is its number of links (its last link resets the counter)."""
     cfg = FLASH_BWD_BF16
     kv_t, _ = bwd_tiles(q_len, kv_len, causal=causal, window=window,
                         segment_starts=starts, block_m=cfg.block_m,
                         block_n=cfg.block_n)
-    base, pos = dq_chain(kv_t)
+    base, pos, length = dq_chain(kv_t)
     lo, hi, order = kv_t
-    assert base.dtype == pos.dtype == np.int32
+    assert base.dtype == pos.dtype == length.dtype == np.int32
     assert pos.size == int(np.maximum(hi - lo, 0).sum())
     rank = np.empty_like(order)
     rank[order] = np.arange(order.size)
@@ -266,6 +267,9 @@ def test_dq_chain_orders_each_q_tile_by_rank(q_len, kv_len, causal, window,
     for qt, links in chains.items():
         links.sort()
         assert [p for _, p in links] == list(range(len(links))), qt
+    assert length.size == max(int(hi.max()), 0)
+    assert all(int(length[qt]) == len(chains.get(qt, ()))
+               for qt in range(length.size))
 
 
 def test_forward_only_raises_at_backward():

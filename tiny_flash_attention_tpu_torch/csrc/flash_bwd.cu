@@ -70,16 +70,17 @@
 // their kv tiles (FA3's deterministic mode): the block waits until the
 // tile's counter reaches its place in the chain (a host-built table,
 // ops/flash_bwd.py::dq_chain), issues its bulk reduce-add, and passes the
-// turn when the add is complete, in its next step just before it stages
-// that step's dQ: the add's round trip hides behind a whole step's
-// products, never stalling the block. A block walks its q tiles from the
+// turn when the add is complete, in its next step once that step's first
+// two products are issued: the add's round trip hides behind the step's
+// loads and those products. A block walks its q tiles from the
 // last down: the blocks of lower rank (longer ranges, which end at the same
 // or a lower q tile) reach each tile at the same step or earlier, so a
 // chain link costs at most one step, once, where an upward walk would make
 // kv tile j wait for the steps of all the tiles before it. A block waits
 // only on blocks of lower rank, which have lower block indices: they were
 // dispatched before it, so they are resident or done and the chain cannot
-// deadlock.
+// deadlock. The last link of a chain sets its counter back to 0, so the
+// counters are 0 at every launch (the call zeroes them once with dq_acc).
 //
 // f32 design (CUDA-core FMAs, never TF32; the f32 gate is 2e-5): the split
 // backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic. flash_bwd_dkv:
@@ -106,7 +107,8 @@ typedef __nv_bfloat16 bf16;
 // other side's tiles, empty when hi <= lo), order[n] (the tile of each
 // block, longest range first). The bf16 kv-major table goes on with the dQ
 // chain: base[n], then pos: tile j's place in the chain of q tile lo[j] +
-// i is pos[base[j] + i].
+// i is pos[base[j] + i], then the links of each q tile's chain
+// (`chain_len`, after the last tile's pos).
 struct Table {
   const int* lo;
   const int* hi;
@@ -116,6 +118,9 @@ struct Table {
   __host__ __device__ Table(const int* t, int n)
       : lo(t), hi(t + n), order(t + 2 * n), base(t + 3 * n),
         pos(t + 4 * n) {}
+  __device__ const int* chain_len(int n) const {
+    return pos + base[n - 1] + max(hi[n - 1] - lo[n - 1], 0);
+  }
 };
 
 // ------------------------------------------------------------- bf16 path
@@ -316,6 +321,20 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   auto turn = [&](int qt) {
     return dq_turn + ((size_t)bh * (q_pad / HM) + qt) * DQ_PARTS + dq_box;
   };
+  // this tile's link in each q tile's chain (chain_pos[qt]), and whether
+  // it is the chain's last, kept by thread 0 of an adding warpgroup from
+  // its add to its pass as link * 2 + last (`passed`). The last link sets
+  // the counter back to 0 for the next launch (no one waits on it now)
+  // where the others pass the turn on.
+  const int* chain_pos = tab.pos + tab.base[j] - lo;
+  const int* chain_len = tab.chain_len(n_kvt);
+  int passed = 0;
+  auto pass_turn = [&](int qt, int code) {
+    if (code & 1)
+      turn_reset(turn(qt));
+    else
+      turn_pass(turn(qt));
+  };
 
   float dv[D / 2], dk[D / 2];
 #pragma unroll
@@ -351,6 +370,10 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           smem_desc(dos + (kk / 4) * HM * 128 + (kk % 4) * 32, 16, 1024),
           kk > 0);
     wgmma_commit();
+    if (t == 0 && adds && it > 0) {
+      bulk_wait_all();   // the last step's dQ is in dq_acc (and left the
+      pass_turn(qt + 1, passed);  // staging): the next in its chain adds
+    }
 
     // P^T = exp2(S^T - lse2) (0 where masked and on empty rows)
     wgmma_wait<1>();
@@ -444,10 +467,6 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
-    if (t == 0 && adds && it > 0) {
-      bulk_wait_all();          // the last step's dQ is in dq_acc (and left
-      turn_pass(turn(qt + 1));  // the staging): the next in its chain adds
-    }
     __syncthreads();          // and dS^T is read by no one
     float4* stg4 = reinterpret_cast<float4*>(stg);
     if constexpr (D == 64) {  // warpgroup 0 adds warpgroup 1's half
@@ -479,15 +498,17 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       named_bar(1 + wg, 128);
       if (t == 0) {
         int* cnt = turn(qt);
-        turn_wait(cnt, tab.pos[tab.base[j] + qt - lo]);
+        const int x = chain_pos[qt], last = x + 1 == chain_len[qt];
+        turn_wait(cnt, x);
         bulk_reduce_add(dq_acc + (cnt - dq_turn) * (HM * 64), stg,
                         HM * 64 * 4);
+        passed = 2 * x + last;
       }
     }
   }
   if (t == 0 && adds) {
     bulk_wait_all();
-    turn_pass(turn(lo));
+    pass_turn(lo, passed);
   }
 
   // dK, dV of the warpgroup's 64 rows, f32 in fragment order, into the
@@ -1018,11 +1039,13 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // Returns a cudaError_t: 0 when the kernels were launched. dtype 0 (bf16):
 // `stages` 1 flash_bwd_prep (delta, lse2 and qs from q, out, dout, lse), 2
 // flash_bwd_main (into dq_acc and the dq_turn counters, both zeroed by the
-// caller, one per (batch, q head, 64-row q tile, 64 head dims), and
+// caller, one counter per (batch, q head, 64-row q tile, 64 head dims),
+// which the kernel leaves at 0; and
 // dk_acc, dv_acc: (batch, hq, ceil(kv_len / 128), 2, 64 * head_dim) f32
 // each, all written), 4 flash_bwd_post (dq, dk, dv); q_seg is padded to
 // whole 64-row tiles and kv_table is the (3, ceil(kv_len / 128)) table of
-// 64-row q tiles followed by its dQ chain (base, pos). dtype 1
+// 64-row q tiles followed by its dQ chain (base, pos, chain lengths).
+// dtype 1
 // (f32): `stages` 1 the dq kernel (q_table: (3, ceil(q_len / 64)) of 64-row
 // kv tiles), 2 the dk/dv kernel (kv_table: (3, ceil(kv_len / 64)) of 64-row
 // q tiles); delta is an input, rowsum(dout * out). q_seg and kv_seg are

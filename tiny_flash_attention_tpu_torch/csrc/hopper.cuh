@@ -126,6 +126,12 @@ __device__ __forceinline__ void turn_pass(int* cnt) {
                : "memory");
 }
 
+// Sets a turn-taking counter back to 0: its last turn, on which no one
+// waits (the next kernel in the stream sees the 0).
+__device__ __forceinline__ void turn_reset(int* cnt) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], 0;\n" ::"l"(cnt) : "memory");
+}
+
 // Generic-proxy writes to shared memory, made visible to the async proxy
 // (wgmma, bulk copies) before a barrier.
 __device__ __forceinline__ void fence_async_smem() {

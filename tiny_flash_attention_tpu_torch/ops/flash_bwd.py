@@ -23,7 +23,7 @@ order): the bf16 kernels sum in an order fixed by the shape and the masks.
 dK and dV: one f32 slot per q head, summed over the GQA group in head order
 by the postprocess. dQ: each q tile's contributions are added in a chain,
 in the kv tiles' rank order (`dq_chain`), each block waiting on a counter
-for its turn.
+for its turn; the last link of a chain sets the counter back to 0.
 
 The rounding points are the work-list kernels' (flash_bwd.py:173): the
 scale sm_scale * log2(e) is folded into q in the input dtype before the
@@ -230,12 +230,14 @@ def bwd_tiles(q_len: int, kv_len: int, *, causal: bool,
 
 
 def dq_chain(kv_table):
-    """The order of the dQ sums: (base (n_kv,), pos (sum of ranges,)),
-    int32. The blocks of a kv-major table add into the q tiles of their
-    ranges; kv tile j's contribution to q tile lo[j] + i is number
-    pos[base[j] + i] of that q tile's chain, counted in rank order (the
-    order of `order`, in which blocks are numbered and dispatched), so a
-    block waits only on blocks of lower rank."""
+    """The order of the dQ sums: (base (n_kv,), pos (sum of ranges,),
+    length (q tiles,)), int32. The blocks of a kv-major table add into the
+    q tiles of their ranges; kv tile j's contribution to q tile lo[j] + i
+    is number pos[base[j] + i] of that q tile's chain, counted in rank
+    order (the order of `order`, in which blocks are numbered and
+    dispatched), so a block waits only on blocks of lower rank. length[i]
+    is the links of q tile i's chain: the last one resets the tile's
+    counter for the next call."""
     lo, hi, order = (np.asarray(r, np.int64) for r in kv_table[:3])
     span = np.maximum(hi - lo, 0)
     base = np.concatenate([[0], np.cumsum(span)[:-1]])
@@ -245,14 +247,15 @@ def dq_chain(kv_table):
         qts = np.arange(lo[j], hi[j])
         pos[base[j] + qts - lo[j]] = seen[qts]
         seen[qts] += 1
-    return base.astype(np.int32), pos.astype(np.int32)
+    return base.astype(np.int32), pos.astype(np.int32), \
+        seen.astype(np.int32)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_tiles(q_len, kv_len, causal, window, starts, block_m, block_n,
                   device):
     """The tables on the device: kv-major (lo, hi, order, then
-    `dq_chain`'s base and pos, flat) and q-major (3, n)."""
+    `dq_chain`'s base, pos and length, flat) and q-major (3, n)."""
     kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
                           segment_starts=starts, block_m=block_m,
                           block_n=block_n)
@@ -308,8 +311,8 @@ def _starts_key(segment_starts):
 class BwdLaunch:
     """One backward call, checked and allocated: `run(stages)` launches its
     kernels (bf16: 1 prep, 2 main, 4 post; f32: 1 dq, 2 dk/dv), so that
-    chip_smoke.py can time each alone (a repeated bf16 main run first
-    zeroes the dQ chain's counters). `grads` are (dq, dk, dv)."""
+    chip_smoke.py can time each alone. `grads` are (dq, dk, dv); `turns`
+    the bf16 dQ chain's counters, which the main kernel leaves at 0."""
 
     def __init__(self, q, k, v, out, lse, do, *, causal: bool,
                  sm_scale: float, segment_ids=None,
@@ -349,10 +352,11 @@ class BwdLaunch:
                                device=q.device)
             bufs = (torch.empty_like(q), rows[0], rows[1], acc[:n_dq],
                     dkv[:n_kv], dkv[n_kv:], acc[n_dq:].view(torch.int32))
-            self._turns = bufs[-1]
+            self.turns = bufs[-1]
         else:
             delta = (do * out).sum(-1)
             bufs = (None, None, delta, None, None, None, None)
+            self.turns = None
         self._keep = (q, k, v, out, lse, do, q_seg, kv_seg, bufs)
         ptr = (lambda t: None if t is None else t.data_ptr())
         self._args = (
@@ -365,17 +369,10 @@ class BwdLaunch:
             in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
             _KERNEL_DTYPES[q.dtype])
         self.device = q.device
-        self._main_runs = 0
 
     def run(self, stages: Optional[int] = None) -> None:
         if stages is None:
             stages = 7 if self.bf16 else 3
-        if self.bf16 and stages & 2:
-            # the dQ chain's counters start at 0 (zeroed with dq_acc at the
-            # first run; chip_smoke.py times the main kernel alone again)
-            if self._main_runs:
-                self._turns.zero_()
-            self._main_runs += 1
         with _build.on_device(self.device):
             err = _flash_bwd_fn()(*self._args, stages,
                                   torch.cuda.current_stream().cuda_stream)

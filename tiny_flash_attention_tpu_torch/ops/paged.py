@@ -48,8 +48,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
                            lengths: torch.Tensor,
                            page_indices: torch.Tensor, *,
                            sm_scale: Optional[float] = None,
-                           pages_per_block: Optional[int] = None,
-                           splits: Optional[int] = None):
+                           pages_per_block: Optional[int] = None):
     """Single-token decode attention over a paged KV cache.
 
     q: (batch, q_heads, d). k_pages, v_pages: (kv_heads, num_pages,
@@ -58,9 +57,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     page_size must be a multiple of 128 (as in JAX). lengths: (batch,) int,
     the tokens of each sequence; page_indices (batch, pages_per_seq).
     pages_per_block is the TPU kernel's tile of pages: it must divide
-    pages_per_seq, as there, and changes no result. splits: the kernel's
-    blocks per sequence and kv head on the card (default: splits of
-    ops/configs.py::paged_decode_split_pages pages).
+    pages_per_seq, as there, and changes no result. On the card each
+    sequence's tokens are split over blocks of
+    ops/configs.py::paged_decode_split_pages pages, as in the fused decode.
     Returns (out (batch, q_heads, d), lse (batch, q_heads) f32).
     """
     quantized = isinstance(k_pages, QuantizedTensor)
@@ -97,8 +96,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
         return forward_only(
             "paged_decode_attention",
             lambda: _decode_cuda(q, k, v, k_scale, v_scale, lengths,
-                                 page_indices, sm_scale=sm_scale,
-                                 splits=splits), q, k, v)
+                                 page_indices, sm_scale=sm_scale), q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return paged_decode_plain(q, k_pages, v_pages, lengths, page_indices,
@@ -137,7 +135,7 @@ def _decode_fn():
 
 
 def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
-                 sm_scale: float, splits: Optional[int]):
+                 sm_scale: float):
     """Launches csrc/paged_decode_separate.cu; returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, page_size, _ = k.shape
@@ -183,9 +181,11 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
     out = torch.empty_like(q)
     lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
     P = page_indices.shape[1]
-    per, n_splits = decode_splits(P, page_size, None, splits)
-    ws = decode_workspace(dev, batch, hkv, n_splits, hq // hkv, d)
+    per, n_splits = decode_splits(P, page_size)
     with _build.on_device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = decode_workspace(dev, stream, batch, hkv, n_splits, hq // hkv,
+                              d)
         err = _decode_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
             lengths.data_ptr(), page_indices.data_ptr(),
@@ -193,7 +193,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
             lse.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), batch, hq,
             hkv, num_pages, page_size, d,
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
-            int(quantized), torch.cuda.current_stream().cuda_stream)
+            int(quantized), stream)
     _build.check(err, "paged_decode_separate")
     paged_decode_attention.launches += 1
     return out, lse

@@ -264,8 +264,7 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
                                  page_indices: torch.Tensor, *,
                                  page_size: int,
                                  sm_scale: Optional[float] = None,
-                                 window: Optional[int] = None,
-                                 splits: Optional[int] = None):
+                                 window: Optional[int] = None):
     """Decode attention over fused KV pages.
 
     q: (batch, q_heads, d). fused_pages: (kv_heads, num_pages, rows, d),
@@ -276,11 +275,11 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
     min(length, pages_per_seq * page_size) tokens. With `window` (the JAX
     ring mode) it attends [length - window, length), length unclamped, and
     token t lies on the table's page (t // page_size) % pages_per_seq: the
-    table is a ring, and window <= pages_per_seq * page_size. splits: the
-    blocks per sequence and kv head on the card (default: splits of
-    ops/configs.py::paged_decode_split_pages pages); on the CPU the plain
-    version without splits. Returns (out (batch, q_heads, d), lse (batch,
-    q_heads) f32).
+    table is a ring, and window <= pages_per_seq * page_size. On the card
+    each sequence's tokens are split over blocks of
+    ops/configs.py::paged_decode_split_pages pages (`decode_splits`); on
+    the CPU the plain version runs unsplit. Returns (out (batch, q_heads,
+    d), lse (batch, q_heads) f32).
     """
     batch, hq, d = q.shape
     hkv, num_pages, rows, d2 = fused_pages.shape
@@ -298,7 +297,7 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
             "fused_paged_decode_attention",
             lambda: _decode_cuda(q, fused_pages, lengths, page_indices,
                                  page_size=page_size, sm_scale=sm_scale,
-                                 window=window, splits=splits),
+                                 window=window),
             q, fused_pages)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
@@ -474,13 +473,17 @@ def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
 _workspaces: dict = {}
 
 
-def decode_workspace(device, batch: int, kv_heads: int, splits: int,
-                     group: int, d: int):
+def decode_workspace(device, stream: int, batch: int, kv_heads: int,
+                     splits: int, group: int, d: int):
     """(partials f32, arrival counters int32 zeros) of the split decode,
-    allocated once per device and shape and kept: the kernel leaves the
-    counters at zero, so a call allocates nothing (a later CUDA graph can
-    capture it). One stream at a time uses a workspace."""
-    key = (str(device), batch, kv_heads, splits, group, d)
+    allocated once per device, stream and shape and kept: the kernel
+    leaves the counters at zero, so a call allocates nothing (a later CUDA
+    graph can capture it). Launches on one stream run in order, so they
+    share a workspace; another stream gets its own. A launch that dies
+    part way leaves counters set, and a later call on that stream and
+    shape would merge early: such a fault leaves the CUDA context unusable
+    anyway. `stream` is the launch's CUDA stream handle."""
+    key = (str(device), stream, batch, kv_heads, splits, group, d)
     ws = _workspaces.get(key)
     if ws is None:
         ws = (torch.empty(batch * kv_heads * splits * group * (d + 2),
@@ -503,8 +506,7 @@ def _decode_fn():
 
 
 def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
-                 sm_scale: float, window: Optional[int],
-                 splits: Optional[int]):
+                 sm_scale: float, window: Optional[int]):
     """Launches csrc/paged_decode.cu; returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, prows = fused_pages.shape[:3]
@@ -543,16 +545,18 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
     lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
     P = page_indices.shape[1]
-    per, n_splits = decode_splits(P, page_size, window, splits)
-    ws = decode_workspace(dev, batch, hkv, n_splits, hq // hkv, d)
+    per, n_splits = decode_splits(P, page_size, window)
     with _build.on_device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = decode_workspace(dev, stream, batch, hkv, n_splits, hq // hkv,
+                              d)
         err = _decode_fn()(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0), P, n_splits,
             per, out.data_ptr(), lse.data_ptr(), ws[0].data_ptr(),
             ws[1].data_ptr(), batch, hq, hkv, num_pages, page_size, prows,
             d, window or 0, scale_log2, _KERNEL_DTYPES[q.dtype],
-            int(quantized), torch.cuda.current_stream().cuda_stream)
+            int(quantized), stream)
     _build.check(err, "paged_decode")
     if window is not None:
         fused_paged_decode_attention.ring_launches += 1
