@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
+    python3 chip_smoke.py --train-f32    # only the f32 train step's profile
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -29,15 +30,17 @@ with a sliding window of 1024 served from a ring cache (8 prompts of
 1792-2048 tokens, 256 decode steps past the ring's capacity); and training,
 AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
 train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
-train cell) and two f32 steps at 1 x 1024. The flash forward's bf16 out is
-also gated row by row (utils/testing.py), and at causal 2048 and 8192 the
-gate must reject two faults planted in the plain version (a stale V tile, a
-dropped kv tile). Two runs of the bf16 backward must give the same bits
-(bwd_spread: its sums run in a fixed order). The decodes are held against
+train cell) and two f32 steps at 1 x 1024. The flash forward's and FA1's
+bf16 out is also gated row by row (utils/testing.py), and at causal 2048
+and 8192 (FA1: 2048) the gate must reject faults planted in the plain
+version (a stale V tile, a dropped kv tile; for FA1 also a q tile's state
+not reloaded at one kv step). Two runs of the backward must give the same
+bits (bwd_spread for bf16, check_bwd for f32: their sums run in a fixed
+order). The decodes are held against
 their plain version at the kernel's own split count and unsplit, the
 quantized matmul at every engine projection at 8 rows and at 1. It fails
-if a kernel does not build, launch or agree, if the flash forward's bf16
-instances are not on
+if a kernel does not build, launch or agree, if the bf16 instances of
+the flash forward or of FA1 are not on
 wgmma (no HGMMA, or any HMMA, in their SASS), if a path did not go through
 its kernels, if a decode step's launches differ from the parent tree's
 (303 bf16, 303 / 299 int8 KV with bf16 / int8 weights, 302 windowed), if
@@ -140,6 +143,8 @@ FLASH_CASES = [
      torch.bfloat16, True),
     ("causal 1024 f32", (2, 8, 1024, 128), (2, 2, 1024, 128),
      torch.float32, True),
+    ("causal 1024 f32, the f32 train step's shape", (1, 8, 1024, 128),
+     (1, 2, 1024, 128), torch.float32, True),
 ]
 
 
@@ -352,8 +357,7 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
     from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_BF16
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention_plain)
-    from tiny_flash_attention_tpu_torch.utils.testing import (
-        flash_gate, fold_q)
+    from tiny_flash_attention_tpu_torch.utils.testing import fold_q
 
     def plain(x, sc, vv=v, ids=None):
         return flash_attention_plain(x, k, vv, causal=True, sm_scale=sc,
@@ -374,17 +378,65 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
                   qf[:, :, rows], scale, vv=stale),
               f"kv tile {j} dropped": plain(
                   qf[:, :, rows], scale, ids=(q_ids, kv_ids))}
+    gate_faults(f"flash {name}", faults, plain, q, rows)
+
+
+def gate_faults(name, faults, plain, q, rows) -> None:
+    """Each fault's (out, lse) of the rows `rows`, written into the plain
+    version's output on the folded q, put through the bf16 flash gate
+    against `plain`: each must fail it."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        flash_gate, fold_q)
+
     for label, (f_out, f_lse) in faults.items():
-        out, lse = plain(qf, scale)
+        out, lse = plain(*fold_q(q, q.shape[-1] ** -0.5))
         out[:, :, rows], lse[:, :, rows] = f_out, f_lse
         errs, folded, ok = flash_gate(out, lse, plain, q, torch.bfloat16)
-        log(f"flash {name}: planted fault in the last q tile's rows, "
+        log(f"{name}: planted fault in the last q tile's rows, "
             f"{label}: {flash_readings(errs, folded)} "
             f"({gate_text(torch.bfloat16)}) | "
             f"{'PASSES THE GATE' if ok else 'caught'}")
         if ok:
             raise AssertionError(f"the flash gate passes a planted fault: "
                                  f"{name}, {label}")
+
+
+def v1_planted_faults(name, q, k, v, sm_scale) -> None:
+    """Three faults of B14's pipeline (causal, q_len == kv_len), planted in
+    the last q tile's rows (128, the tile that walks every kv tile) of
+    FA1's plain version on the folded q and gated as the kernel's output
+    is: (1) kv tile j's V from tile j - 1 (a stale K/V ring stage); (2) kv
+    tile j dropped; (3) FA1's own fault, the tile's state not reloaded at
+    kv step j, so it restarts from zero there and sees kv tiles j.. only;
+    j the middle tile. Each is the plain version on cut inputs: the q rows
+    keep their positions (the decode offset), and kv tiles before the
+    cut lie left of every row's causal edge."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_V1_BF16
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        flash_attention_v1_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import fold_q
+
+    def plain(x, sc, kk=k, vv=v):
+        return flash_attention_v1_plain(x, kk, vv, causal=True, sm_scale=sc)
+
+    q_len, kv_len = q.shape[2], k.shape[2]
+    bm, bn = FLASH_V1_BF16.block_m, FLASH_V1_BF16.block_n
+    j = kv_len // bn // 2
+    tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
+    rows = slice(q_len - bm, q_len)
+    qf, scale = fold_q(q, sm_scale)
+    stale = v.clone()
+    stale[:, :, tile] = v[:, :, prev]
+    keep = torch.ones(kv_len, dtype=torch.bool, device="cuda")
+    keep[tile] = False
+    faults = {f"V of kv tile {j} from tile {j - 1}": plain(
+                  qf[:, :, rows], scale, vv=stale),
+              f"kv tile {j} dropped": plain(
+                  qf[:, :, rows], scale, kk=k[:, :, keep], vv=v[:, :, keep]),
+              f"state not reloaded at kv step {j}": plain(
+                  qf[:, :, rows], scale, kk=k[:, :, j * bn:],
+                  vv=v[:, :, j * bn:])}
+    gate_faults(f"flash_v1 {name}", faults, plain, q, rows)
 
 
 def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
@@ -882,6 +934,7 @@ def check_append(name, fmt, ps, gen, *, iters=20):
         cuda_time_ms)
 
     pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps)
+    base = pages.clone()
     want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
                              page_size=ps)
     got = fused_page_append(pages, k_new, v_new, ids, rows, page_size=ps)
@@ -894,6 +947,24 @@ def check_append(name, fmt, ps, gen, *, iters=20):
     t_plain = cuda_time_ms(lambda: page_append_plain(
         pages, k_new, v_new, ids, rows, page_size=ps), iters=iters)[
         "median_ms"]
+    t_lib = None
+    if fmt == "bf16":
+        # one PyTorch call does the bf16 append: index_put_ of the K and V
+        # rows at their (kv head, page, row) positions, the indices and
+        # values laid out beforehand (int8 pages have no such call: the
+        # quantization and the scale bytes are passes of their own)
+        batch, hkv, _ = k_new.shape
+        pos = torch.cat([rows, rows + ps]).long()
+        idx = (torch.arange(hkv, device="cuda")[:, None].expand(
+                   hkv, 2 * batch),
+               torch.cat([ids, ids]).long()[None].expand(hkv, 2 * batch),
+               pos[None].expand(hkv, 2 * batch))
+        vals = torch.cat([k_new, v_new]).transpose(0, 1).contiguous()
+        base.index_put_(idx, vals)
+        if not torch.equal(base, want):
+            raise AssertionError(f"index_put_ append differs: {name}")
+        t_lib = cuda_time_ms(lambda: base.index_put_(idx, vals),
+                             iters=iters)["median_ms"]
     h_kernel = host_us(lambda: fused_page_append(
         pages, k_new, v_new, ids, rows, page_size=ps))
     h_plain = host_us(lambda: page_append_plain(
@@ -905,13 +976,14 @@ def check_append(name, fmt, ps, gen, *, iters=20):
     bound_ms, bound_by = _bound(0.0, nbytes, torch.bfloat16)
     log(f"page append {name}: {fmt} pages{tuple(pages.shape)} ps {ps}, "
         f"{batch} tokens x {hkv} kv heads | bit-exact vs plain: {ok} | "
-        f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
-        f"{bound_ms:.6f} ms ({bound_by}) | host {h_kernel:.1f} us a call, "
-        f"plain {h_plain:.1f} us | {'ok' if ok else 'FAIL'}")
+        f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms"
+        + (f" index_put_ {t_lib:.4f} ms" if t_lib is not None else "")
+        + f" bound {bound_ms:.6f} ms ({bound_by}) | host {h_kernel:.1f} us "
+        f"a call, plain {h_plain:.1f} us | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"append kernel disagrees with plain: {name}")
     return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # --- phase 4: flash backward, kernels vs plain and the oracle ----------------
@@ -944,6 +1016,53 @@ BWD_CASES = [
     ("window 256 f32", (1, 8, 1024, 128), (1, 2, 1024, 128), torch.float32,
      True, {"window": 256}),
 ]
+
+
+def bwd_f32_split_sweep(gen) -> None:
+    """The f32 backward at the f32 train step's shape (the first f32 row of
+    BWD_CASES) for several runs a tile (ops/configs.py::
+    FLASH_BWD_F32_SPLIT, read at each call): device ms of the call and of
+    each kernel, each split held to the plain gate; the setting is
+    restored."""
+    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops import flash_bwd as FB
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    name, q_shape, kv_shape, dtype, causal, _ = next(
+        c for c in BWD_CASES if c[3] == torch.float32)
+    q = randn(q_shape, dtype, gen)
+    k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
+    do = randn(q_shape, dtype, gen)
+    sc = q_shape[-1] ** -0.5
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    plain = FB.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, sm_scale=sc)
+    chosen, cells = configs.FLASH_BWD_F32_SPLIT, []
+    try:
+        for split in (1, 2, 3, 4, 6, 8, 16):
+            configs.FLASH_BWD_F32_SPLIT = split
+            call = FB.BwdLaunch(q, k, v, out, lse, do, causal=causal,
+                                sm_scale=sc)
+            call.run()
+            torch.cuda.synchronize()
+            err = max(_rel_err(g, w) for g, w in zip(call.grads, plain))
+            if not err <= BWD_PLAIN_GATE[dtype]:
+                raise AssertionError(f"f32 backward at split {split}: "
+                                     f"{err:.3e}")
+            t = {part: cuda_time_ms(lambda s=s: call.run(s),
+                                    iters=10)["median_ms"]
+                 for part, s in (("call", 7), ("dq", 1), ("dkv", 2),
+                                 ("post", 4))}
+            cells.append(f"{split}: " + "/".join(f"{x:.4f}"
+                                                 for x in t.values()))
+            del call
+    finally:
+        configs.FLASH_BWD_F32_SPLIT = chosen
+    log(f"f32 backward split sweep, {name}, runs of at most S tiles a "
+        f"block (S: call/dq/dkv/post ms): " + "; ".join(cells)
+        + f" (chosen: S {chosen})")
 
 
 def _rel_err(got, want) -> float:
@@ -1017,8 +1136,9 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     """The backward kernels vs their plain version and vs autograd through
     the f32 plain forward on one shape, with its masks; then the device
     times of the whole backward call, of each kernel alone (bf16: prep,
-    main, post; f32: dq, dk/dv), of the plain version and of SDPA's
-    backward (with a boolean mask where the masks are more than causal)."""
+    main, post; f32: dq, dk/dv, post), of the plain version and of SDPA's
+    backward (with a boolean mask where the masks are more than causal).
+    f32: two calls on the same inputs must give the same bits."""
     from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain, visible_mask)
@@ -1039,6 +1159,12 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     kw = dict(mk, segment_starts=offs if masks.get("starts") else None)
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **mk)
     got = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, **kw)
+    same = True
+    if dtype == torch.float32:   # the f32 sums run in a fixed order
+        again = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
     torch.cuda.synchronize()
     plain = FB.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                          causal=causal, sm_scale=sm_scale,
@@ -1053,13 +1179,16 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     err_oracle = [_rel_err(g, w) for g, w in zip(got, oracle)]
     del ref, oracle, leaves
     finite = all(bool(torch.isfinite(g).all()) for g in got)
-    ok = (finite and max(err_plain) <= BWD_PLAIN_GATE[dtype]
+    ok = (finite and same and max(err_plain) <= BWD_PLAIN_GATE[dtype]
           and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
 
     call = FB.BwdLaunch(q, k, v, out, lse, do, causal=causal,
                         sm_scale=sm_scale, **kw)
     stages = ({"prep": 1, "main": 2, "post": 4} if dtype == torch.bfloat16
-              else {"dq": 1, "dkv": 2})
+              else {"dq": 1, "dkv": 2, "post": 4})
+    # the f32 post reads the kernels' slots (items x q heads of 64 rows)
+    slot_bytes = (sum(x.numel() for x in call.slots) * 4
+                  if dtype == torch.float32 else None)
     t_call = cuda_time_ms(lambda: FB.flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal, **kw),
         iters=iters)["median_ms"]
@@ -1087,6 +1216,9 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     pairs = mask_pairs(q, k, causal, masks.get("window"), ids)
     bounds = {part: bwd_bound(q, k, part, pairs)
               for part in ("all", *stages)}
+    if slot_bytes is not None:
+        bounds["post"] = _bound(0.0, slot_bytes + (q.numel() + 2 * k.numel())
+                                * 4, dtype)
     log(f"flash bwd {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
         f"{str(dtype).split('.')[-1]} causal={causal} | dq/dk/dv err vs "
         f"plain {err_plain[0]:.2e}/{err_plain[1]:.2e}/{err_plain[2]:.2e} "
@@ -1098,8 +1230,11 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
         + f") plain {t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms bound "
         f"{bounds['all'][0]:.4f} ms ({bounds['all'][1]}; "
         + ", ".join(f"{p} {bounds[p][0]:.4f}" for p in stages)
-        + f") | {bounds['all'][0] / t_call:.1%} of the bound | "
-        f"{'ok' if ok else 'FAIL'}")
+        + f") | {bounds['all'][0] / t_call:.1%} of the bound, "
+        f"{t_call / t_sdpa:.2f}x SDPA"
+        + ("" if dtype == torch.bfloat16 else
+           f" | two calls bit-identical: {same}")
+        + f" | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash backward kernels disagree: {name}")
     return {"max_abs_err": abs_err, "ms": t_part, "call_ms": t_call,
@@ -1962,6 +2097,29 @@ def train_grad_check(cfg, params, tokens) -> float:
                for g, w in zip(got, want))
 
 
+def train_f32_profile(seed: int) -> int:
+    """The f32 train step at TRAIN_F32's shape (the engine model in f32),
+    one warm-up step, then where one step's time goes (profile_window)."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {gpu_info()}")
+    batch, seq, _ = TRAIN_F32
+    cfg = dataclasses.replace(engine_config(), dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step, init_state = make_train_step(cfg, learning_rate=1e-3)
+    params, opt = init_state(T.init_params(cfg, gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    step(params, opt, tokens)                    # warm-up
+    for _ in range(2):
+        profile_window(f"per train step of f32 {batch} x {seq} tokens",
+                       lambda: step(params, opt, tokens), 1)
+    return 0
+
+
 def train_phase(seed: int) -> dict:
     """The train step of parallel/train.py at the train benchmark's widths
     and in the swa train cell: one warm-up and the timed steps per config
@@ -2047,12 +2205,13 @@ def train_phase(seed: int) -> dict:
     shown = " ".join(f"{x:.4f}" for x in losses)
     log(f"train f32 {batch} x {seq}: loss {shown}; "
         f"{flash_attention_bwd.launches} backward calls (expected "
-        f"{n_steps * cfg.n_layers}: the f32 dq and dk/dv kernels once each)")
+        f"{n_steps * cfg.n_layers}: the f32 dq, dk/dv and post kernels "
+        f"once each)")
     if flash_attention_bwd.launches != n_steps * cfg.n_layers or not (
             np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"f32 train step: launches "
                              f"{flash_attention_bwd.launches}, {losses}")
-    del params, opt
+    out["states"][f"f32 {batch} x {seq}"] = (step, params, opt, tokens)
 
     # gradients of one step (the initial weights, the 4 x 2048 batch)
     err = train_grad_check(cfg, params0, out["states"]["4 x 2048"][3])
@@ -2122,7 +2281,7 @@ def surface_phase(gen) -> dict:
         fused_paged_decode_attention, pack_paged_cache)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
-    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
 
     v1_in = [(randn(qs, dt, gen), randn(ks, dt, gen), randn(ks, dt, gen))
              for _, qs, ks, dt, _ in V1_CASES]
@@ -2150,12 +2309,14 @@ def surface_phase(gen) -> dict:
     for (name, qs, ks, dt, causal), (q, k, v), (out, lse) in zip(
             V1_CASES, v1_in, v1_out):
         sc = qs[-1] ** -0.5
-        ref, ref_lse = flash_attention_v1_plain(q, k, v, causal=causal,
-                                                sm_scale=sc)
-        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
-        atol = tolerance_for(dt)
-        ok = err <= atol and lse_err <= atol and bool(
-            torch.isfinite(out).all())
+        # the dtype gate and, for bf16, B1's gate at the q fold (row by
+        # row, the LSE at 1e-4), against FA1's plain version
+        errs, folded, ok = flash_gate(
+            out, lse, lambda qq, s2: flash_attention_v1_plain(
+                qq, k, v, causal=causal, sm_scale=s2), q, dt)
+        ok = ok and bool(torch.isfinite(out).all())
+        if dt == torch.bfloat16 and causal and qs[2] == ks[2]:
+            v1_planted_faults(name, q, k, v, sc)
         mask = None
         if causal and qs[2] != ks[2]:
             mask = torch.ones(qs[2], ks[2], dtype=torch.bool,
@@ -2171,8 +2332,9 @@ def surface_phase(gen) -> dict:
             iters=10)["median_ms"]
         bound_ms, bound_by = flash_bound(q, k, causal)
         log(f"flash_v1 {name}: q{qs} kv{ks} {str(dt).split('.')[-1]} causal="
-            f"{causal} | out err {err:.3e} lse err {lse_err:.3e} (gate "
-            f"{atol:.0e}) | FA1 kernel {t_kernel:.4f} ms, B1 (FA2) "
+            f"{causal} | {flash_readings(errs, folded)} ({gate_text(dt)}) | "
+            f"FA1 kernel {t_kernel:.4f} ms ({bound_ms / t_kernel:.1%} of the "
+            f"bound, {t_kernel / t_sdpa:.2f}x SDPA), B1 (FA2) "
             f"{t_fa2:.4f} ms ({bound_ms / t_fa2:.1%} of the bound, "
             f"{t_fa2 / t_sdpa:.2f}x SDPA): FA1/FA2 "
             f"{t_kernel / t_fa2:.2f}x | plain "
@@ -2180,10 +2342,10 @@ def surface_phase(gen) -> dict:
             f"({bound_by}) | {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"FA1 kernel disagrees with plain: {name}")
-        rows[name] = {"max_abs_err": max(err, lse_err), "ms": t_kernel,
-                      "plain_ms": t_plain, "library_ms": t_sdpa,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "fa2_ms": t_fa2}
+        rows[name] = {"max_abs_err": max(errs["out"], errs["lse"]),
+                      "ms": t_kernel, "plain_ms": t_plain,
+                      "library_ms": t_sdpa, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "fa2_ms": t_fa2}
     del v1_in, v1_out
 
     for (name, fmt, _), (q, k, v, lengths, table), (out, lse) in zip(
@@ -2816,21 +2978,30 @@ def main() -> int:
         if len(regs) <= 16:
             log("    registers/spill bytes: "
                 + ", ".join(instance_registers(text)))
-    # B1's bf16 instances run on wgmma: HGMMA in their SASS, no HMMA
-    sass = {k: v for k, v in wgmma_instructions(
-        str(_build._target("flash_fwd")[1])).items()
-        if k.startswith("flash_fwd_wgmma_kernel")}
-    log("  flash_fwd bf16 instances, HGMMA/HMMA instructions (cuobjdump "
-        "-sass): " + ", ".join(f"{k}: {g}/{h}" for k, (g, h) in sass.items()))
-    if not sass or any(g == 0 or h > 0 for g, h in sass.values()):
-        raise AssertionError("flash_fwd's bf16 instances are not on wgmma")
-    # the forward's shared memory: ops/configs.py's sizes are the kernels'
+    # the bf16 instances of B1 and B14 run on wgmma: HGMMA in their SASS,
+    # no HMMA
+    for lib, prefix in (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                        ("flash_v1", "flash_v1_wgmma_kernel")):
+        sass = {k: v for k, v in wgmma_instructions(
+            str(_build._target(lib)[1])).items() if k.startswith(prefix)}
+        log(f"  {lib} bf16 instances, HGMMA/HMMA instructions (cuobjdump "
+            "-sass): " + ", ".join(f"{k}: {g}/{h}"
+                                   for k, (g, h) in sass.items()))
+        if not sass or any(g == 0 or h > 0 for g, h in sass.values()):
+            raise AssertionError(f"{lib}'s bf16 instances are not on wgmma")
+    # shared memory: ops/configs.py's sizes are the kernels'
     from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_f32_smem
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        check_smem_layout)
     for name, quantized in (("flash_fwd", False), ("flash_fwd_quant", True)):
         check_smem_layouts(_build.library(name), quantized)
-    log("  forward shared memory: ops/configs.py::fwd_smem_bytes gives each "
-        "library's own size (tfa_flash_fwd_smem, tfa_flash_fwd_quant_smem) "
-        "for every instance")
+    check_smem_layout(_build.library("flash_v1"))
+    check_f32_smem(_build.library("flash_bwd"))
+    log("  shared memory: ops/configs.py's fwd_smem_bytes, v1_smem_bytes and "
+        "bwd_f32_smem_bytes give each library's own size "
+        "(tfa_flash_fwd_smem, tfa_flash_fwd_quant_smem, tfa_flash_v1_smem, "
+        "tfa_flash_bwd_f32_smem) for every instance")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FLASH_CASES:
@@ -2863,6 +3034,7 @@ def main() -> int:
     qmm_split_sweep(gen)
     bwd_rows = [check_bwd(*case, gen, iters=5 if case[1][2] >= 8192 else 10)
                 for case in BWD_CASES]
+    bwd_f32_split_sweep(gen)
     bwd_spread(gate=True)
     window_rows = {case[0]: check_window(*case, gen) for case in WINDOW_CASES}
     ring_rows = {fmt: check_ring(f"{fmt} pages, wrapped table", fmt, gen)
@@ -2958,7 +3130,14 @@ def main() -> int:
                   "per-q-head f32 slots; post sums the GQA group in head "
                   "order: a fixed sum order, bit-identical runs"
                   if dtype == torch.bfloat16 else
-                  "f32: CUDA cores, dq and dk/dv kernels, deterministic")
+                  "f32: CUDA cores (no TF32); dq and dk/dv kernels over "
+                  "work lists that cut each 64-row tile's range at the "
+                  "multiples of 8 tiles, one block per (run, q head, batch), "
+                  "two halves of 128 threads (S/P and dV; dP/dS and dK), "
+                  "8 x 4 and 8 x 8 register tiles fed by swizzled float4 "
+                  "reads, a two-stage cp.async ring; slots summed by post "
+                  "in a fixed order (items, then q heads): bit-identical "
+                  "runs")
         return {"name": f"flash_bwd_{part}{suffix}", "route": "cuda",
                 "design": design,
                 "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
@@ -2980,7 +3159,7 @@ def main() -> int:
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
                      train["launches"]["flash_bwd_f32"])
-          for part in ("dq", "dkv"))]
+          for part in ("dq", "dkv", "post"))]
     # flash_fwd runs on every main path but the jagged admission: its
     # launches are the engines' (the windowed one's included), the
     # encoder's and the train step's; paged_decode's include the windowed
@@ -3036,6 +3215,14 @@ def main() -> int:
          "launches": qlaunch["quant_matmul"],
          **{k: v for k, v in qmm_rows["lm_head"].items() if k != "route_ms"}},
         {"name": "flash_v1", "route": "cuda",
+         "design": "bf16: FA1's loop order (kv tiles outer, q tiles inner, "
+                   "every q tile's state reloaded and stored back on each "
+                   "kv step, in fragment order) on wgmma and TMA: a "
+                   "producer warpgroup streams K/V through a two-stage "
+                   "ring and the q tiles through a two-stage ring of their "
+                   "own, two consumer warpgroups of 64 q rows; two 128-row "
+                   "q tiles a block, dealt longest first in snake order; "
+                   "f32: CUDA cores",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
          "launches": surface["launches"]["flash_v1"],
@@ -3075,6 +3262,13 @@ if __name__ == "__main__":
             sys.exit(1)
         bwd_spread(gate=False)
         sys.exit(0)
+    if sys.argv[1:] == ["--train-f32"]:
+        # only the device time of the f32 train step (TRAIN_F32's shape, the
+        # engine model in f32), with the package found on sys.path (so that
+        # one call can time two trees' f32 backward end to end)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(train_f32_profile(SEED))
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,
         # 1 x 8192, the window) and the spread gate, with the package found

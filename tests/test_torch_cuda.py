@@ -354,6 +354,11 @@ def _rel_err(got, want):
     (1, 4, 4, 65, 65, 64, False, torch.float32),
     (1, 8, 2, 130, 130, 128, True, torch.float32),
     (1, 8, 1, 200, 70, 64, True, torch.float32),
+    # the f32 kernels' work lists split ranges of more than 4 tiles
+    (2, 4, 4, 333, 333, 128, True, torch.float32),     # group 1
+    (1, 4, 2, 301, 301, 64, False, torch.float32),     # group 2
+    (1, 8, 2, 97, 451, 128, True, torch.float32),      # group 4, offset
+    (1, 8, 1, 517, 517, 128, True, torch.float32),     # group 8
 ])
 def test_flash_bwd_kernels_match_plain(gen, b, hq, hkv, q_len, kv_len, d,
                                        causal, dtype):
@@ -390,6 +395,12 @@ MASKED_BWD = [
     (1, 4, 4, 97, 97, 64, torch.float32, 30, None, False),
     (1, 8, 2, 130, 130, 128, torch.float32, None, (50, 64), True),
     (1, 4, 2, 300, 300, 64, torch.float32, 70, (37, 200), True),
+    # f32 at groups 1, 2, 4 and 8, odd lengths, every mask
+    (2, 4, 4, 333, 333, 128, torch.float32, 150, None, False),
+    (1, 4, 2, 401, 401, 128, torch.float32, None, (37, 100, 250), False),
+    (1, 8, 2, 130, 451, 64, torch.float32, 90, None, False),     # offset
+    (1, 8, 1, 517, 517, 128, torch.float32, None, (61, 300, 302), True),
+    (2, 8, 1, 301, 301, 64, torch.float32, 200, (37, 200), True),
 ]
 
 
@@ -608,10 +619,16 @@ def test_quantized_matmul_routes_by_rows(gen):
     (1, 2, 130, 130, 128, True, torch.float32),
     (1, 2, 200, 70, 64, True, torch.float32),
     (1, 2, 65, 97, 64, False, torch.float32),
+    (1, 2, 1, 2100, 128, True, torch.bfloat16),       # one decode row
+    (1, 2, 130, 2100, 64, True, torch.bfloat16),      # 130 decode rows
+    (1, 2, 1000, 130, 128, True, torch.bfloat16),     # 6 tiles see nothing
+    (2, 2, 1280, 1280, 128, True, torch.bfloat16),    # 5 blocks a head
+    (1, 3, 1920, 1920, 64, False, torch.bfloat16),
 ])
 def test_v1_kernel_matches_plain(gen, b, h, q_len, kv_len, d, causal, dtype):
-    """The FA1 kernel against its plain version; rows that see no column
-    are 0 with the sentinel LSE in both."""
+    """The FA1 kernel against its plain version at the dtype gate and, in
+    bf16, at the gate of its q fold (row by row, the LSE at 1e-4); rows
+    that see no column are 0 with the sentinel LSE in both."""
     q = _randn((b, h, q_len, d), dtype, gen)
     k = _randn((b, h, kv_len, d), dtype, gen)
     v = _randn((b, h, kv_len, d), dtype, gen)
@@ -623,8 +640,42 @@ def test_v1_kernel_matches_plain(gen, b, h, q_len, kv_len, d, causal, dtype):
                                             sm_scale=d ** -0.5)
     atol = tolerance_for(dtype)
     assert _err(out, ref) <= atol and _err(lse, ref_lse) <= atol
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_v1_plain(
+        x, k, v, causal=causal, sm_scale=sc), q, dtype)
     if causal and q_len > kv_len:
         assert bool((out[:, :, :q_len - kv_len] == 0).all())
+        torch.testing.assert_close(lse[:, :, :q_len - kv_len],
+                                   ref_lse[:, :, :q_len - kv_len],
+                                   rtol=1e-6, atol=0)   # the sentinel
+
+
+V1_EDGES = [127, 128, 129, 255, 257]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", V1_EDGES)
+@pytest.mark.parametrize("q_len", V1_EDGES)
+def test_v1_bf16_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """The bf16 FA1 kernel (128-row q and kv tiles) at lengths around its
+    tile edges, at the row gate."""
+    q = _randn((1, 2, q_len, 128), torch.bfloat16, gen)
+    k = _randn((1, 2, kv_len, 128), torch.bfloat16, gen)
+    v = _randn((1, 2, kv_len, 128), torch.bfloat16, gen)
+    out, lse = flash_attention_v1(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_v1_plain(
+        x, k, v, causal=causal, sm_scale=sc), q, torch.bfloat16)
+
+
+def test_v1_bf16_kernel_runs_are_bit_identical(gen):
+    """Each q tile's state goes to its own scratch slots and back by the
+    same thread, in a fixed order: two calls give the same bits."""
+    q, k, v = (_randn((2, 4, 777, 128), torch.bfloat16, gen)
+               for _ in range(3))
+    one = flash_attention_v1(q, k, v, causal=True, return_lse=True)
+    two = flash_attention_v1(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.parametrize("fmt,group,d,ps", [
@@ -985,6 +1036,65 @@ def test_bwd_runs_are_bit_identical(gen, hq, hkv, d, masks):
                                      sm_scale=d ** -0.5, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
         assert _rel_err(g, w) <= BWD_GATE[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("hq,hkv,masks", [
+    (4, 4, "causal"), (8, 2, "window"), (8, 1, "ids"), (4, 2, "starts")])
+def test_f32_bwd_runs_are_bit_identical(gen, hq, hkv, masks):
+    """The f32 backward sums in an order fixed by the shape and the masks
+    (one slot per (work item, q head), summed by the post in range and
+    head order): three runs on the same inputs give the same bits."""
+    b, n, d = 1, 700, 128
+    q = _randn((b, hq, n, d), torch.float32, gen)
+    k = _randn((b, hkv, n, d), torch.float32, gen)
+    v = _randn((b, hkv, n, d), torch.float32, gen)
+    do = _randn((b, hq, n, d), torch.float32, gen)
+    kw, starts = {}, None
+    if masks == "window":
+        kw["window"] = 300
+    if masks in ("ids", "starts"):
+        seg = _segment_ids(b, n, (130, 480, 600), gen)
+        kw["segment_ids"] = (seg, seg)
+        if masks == "starts":
+            starts = (0, 130, 480, 600)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True, **kw)
+    runs = [flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                segment_starts=starts, **kw)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for name, a, c in zip(("dq", "dk", "dv"), runs[0], other):
+            assert torch.equal(a, c), name
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
+        assert _rel_err(g, w) <= BWD_GATE[torch.float32], name
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_f32_bwd_splits_match_plain(gen, monkeypatch, split):
+    """The f32 backward with the tiles' ranges cut into runs of 1 to 8
+    tiles (ops/configs.py::FLASH_BWD_F32_SPLIT, read at each call), with a
+    window and ids at group 4: each against the plain version, and the
+    segment_starts pruning changes no bit."""
+    monkeypatch.setattr(configs, "FLASH_BWD_F32_SPLIT", split)
+    b, hq, hkv, n, d = 1, 8, 2, 611, 64
+    q = _randn((b, hq, n, d), torch.float32, gen)
+    k = _randn((b, hkv, n, d), torch.float32, gen)
+    v = _randn((b, hkv, n, d), torch.float32, gen)
+    do = _randn((b, hq, n, d), torch.float32, gen)
+    seg = _segment_ids(b, n, (100, 333), gen)
+    kw = {"window": 400, "segment_ids": (seg, seg)}
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
+    pruned = flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                 segment_starts=(0, 100, 333), **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, pruned, want):
+        assert torch.equal(g, p), name
+        assert _rel_err(g, w) <= BWD_GATE[torch.float32], name
 
 
 @pytest.mark.parametrize("hq,hkv,d,masks", DETERMINISM)

@@ -83,10 +83,11 @@
 // counters are 0 at every launch (the call zeroes them once with dq_acc).
 //
 // f32 design (CUDA-core FMAs, never TF32; the f32 gate is 2e-5): the split
-// backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic. flash_bwd_dkv:
-// one block per (64-row kv tile, kv head, batch) walks the group's q heads
-// and its q tiles; flash_bwd_dq: one block per (64-row q tile, q head,
-// batch) walks its kv tiles, from a q-major table.
+// backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic, three
+// kernels (the f32 path below): flash_bwd_dkv_f32, one block per (64-row kv
+// tile and a run of its q tiles, cut at the multiples of
+// FLASH_BWD_F32_SPLIT, q head, batch) into slots of its own; flash_bwd_dq_f32, the same over a q-major
+// list; flash_bwd_post_f32, the slots summed in a fixed order.
 //
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
@@ -694,111 +695,191 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
 
 // ----------------------------------------------------------------- f32 path
 //
-// 256 threads over a 64 x 64 score tile: thread (rg, cg) = (tid / 16,
-// tid % 16) owns its rows rg * 4 + [0, 4) and columns cg + 16 * [0, 4), and
-// the same rows of the D-wide accumulators at columns cg + 16 * [0, D / 16).
-// Tiles sit transposed in shared memory ([D][PT]); the pad of PT keeps the
-// column reads of the accumulating products to two-way bank conflicts.
+// CUDA-core FMAs in f32 throughout (never TF32). Two kernels and a post,
+// over 64 x 64 score tiles and blocks of 256 threads:
+//   flash_bwd_dkv_f32: one block per (work item, q head, batch); a work item
+//     is a 64-row kv tile and a run of the q tiles that see it, cut at
+//     the multiples of FLASH_BWD_F32_SPLIT (ops/flash_bwd.py::f32_work:
+//     at fixed tiles, so segment_starts' pruning changes no bit), so the
+//     causal band's long ranges split over several blocks and the card
+//     fills (192 blocks at (1, 8, 1024) causal against 32 of one block per
+//     (kv tile, kv head)). K and V land once; the q tiles (q, dout and their rows' LSE,
+//     delta and ids) stream through a two-stage cp.async ring, the next
+//     one landing while the current one is used. The block's two halves
+//     of 128 threads split each step: the first computes S^T = K qs^T and P
+//     and accumulates dV += P^T dout, the second dP^T = V dout^T and dS =
+//     P (dP - delta) and accumulates dK += dS^T q. It writes its dK, dV sums
+//     to a slot of its own (work item, q head).
+//   flash_bwd_dq_f32: the same over a q-major work list: q and dout land
+//     once, the kv tiles (K, V and their ids) stream through the ring; one
+//     half computes S and P, the other dP and dS, and all 256 threads
+//     accumulate dQ += dS K into the item's slot.
+//   flash_bwd_post_f32: each output element sums its slots in a fixed
+//     order (dq: its q tile's items in range order; dk, dv: the GQA group's
+//     q heads in head order, each over its kv tile's items in range order),
+//     then scales dq and dk by sm_scale. So two runs give the same bits.
+// The products are register tiles fed by 16-byte shared-memory reads: the
+// score products keep 8 x 4 outputs a thread (8 rows broadcast across the
+// warp, 4 rows 16 apart) and walk the head dim 4 columns at a time, 12
+// float4 reads for 128 FMAs; the accumulating products keep 8 x (D / 16)
+// (dk/dv, 64 at head_dim 128) or 4 x (D / 16) outputs a thread, 4 (3)
+// float4 reads for 64 (32) FMAs. Counted in shared-memory wavefronts a
+// warp, by the code (not measured), that is 16 per 4096 FMAs for the
+// scores, 6 per 2048 for dK and dV and 5 per 1024 for dQ, where the 4 x 4
+// tiles before took 5 per 512 and 20 per 1024 (two-way conflicts):
+// 2.5x, 6.7x and 4x fewer. Tiles sit row-major in shared memory, each
+// row's 16-byte chunks XOR-swizzled by row % 8, so the cp.async copies
+// land unchanged and the strided float4 reads are free of bank conflicts. One block takes
+// 231,680 bytes of shared memory at head_dim 128 (K and V of a tile and two
+// stages of q and dout are 192 KB in f32), so an SM holds one block of 8
+// warps; the ring hides the loads' latency instead.
 
-constexpr int FM = TFA_BWD_F32_BLOCK_M;
-constexpr int FN = TFA_BWD_F32_BLOCK_N;
+constexpr int FT = TFA_BWD_F32_BLOCK_M;      // rows of a tile, both sides
 constexpr int FTHREADS = TFA_BWD_F32_THREADS;
-static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
-              "the f32 thread map is 16 x 16 threads over a 64 x 64 tile");
-constexpr int PT = 68;      // row stride of a transposed [D][64] tile
-constexpr int PS = FN + 1;  // row stride of the [64][64] score tile
+static_assert(TFA_BWD_F32_BLOCK_M == 64 && TFA_BWD_F32_BLOCK_N == 64 &&
+                  FTHREADS == 256,
+              "two halves of 128 threads over 64 x 64 score tiles");
 
 // The LSE in the log2 domain, or +inf on rows that carry the empty-row
-// sentinel (and on padding rows), so that exp2(s - lse2) is 0 there.
+// sentinel, so that exp2(s - lse2) is 0 there.
 __device__ __forceinline__ float lse2_of(float lse) {
   const float l2 = lse * kLog2e;
   return l2 > 0.5f * kMaskValue ? l2 : INFINITY;
 }
 
+// Shared memory of an f32 block, in floats: two tiles that stay (K, V or q,
+// dout), a two-stage ring of two tiles, two 64 x 64 score tiles (P and dS),
+// and the rows: for each ring stage and for the tiles that stay, three of
+// 64 (LSE, delta, ids; or ids).
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (4 * D * PT + 64 * PS + 2 * 64) * (int)sizeof(float) +
-         64 * (int)sizeof(int);
+struct F32Smem {
+  static constexpr int TILE = FT * D;
+  static constexpr int STAY = 0;                 // [2][TILE]
+  static constexpr int RING = 2 * TILE;          // [2 stages][2][TILE]
+  static constexpr int P = RING + 4 * TILE;      // [64][64]
+  static constexpr int DS = P + FT * FT;         // [64][64]
+  static constexpr int ROWS = DS + FT * FT;      // [3][3][64]
+  static constexpr int TOTAL = ROWS + 9 * FT;
+  static constexpr int BYTES = TOTAL * 4;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+// Float offset of element (r, c) in a row-major tile of W-wide rows, its
+// 16-byte chunks swizzled by r % 8.
+template <int W>
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * W + ((((c >> 2) ^ r) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
 }
 
-// rows [r0, r0 + 64) of a row-major (rows, D) matrix -> t[d * PT + r],
-// times `scale`; rows at or past n_rows are 0
+// rows [r0, r0 + 64) of a row-major (n_rows, D) matrix into a swizzled
+// tile by cp.async; rows past n_rows land as zeros
 template <int D>
-__device__ __forceinline__ void load_t(float* t, const float* g, int r0,
-                                       int n_rows, float scale, int tid) {
-  for (int c = tid; c < 64 * D / 4; c += FTHREADS) {
-    const int r = c % 64, col = (c / 64) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n_rows)
-      x = *reinterpret_cast<const float4*>(g + (size_t)(r0 + r) * D + col);
-    t[(col + 0) * PT + r] = x.x * scale;
-    t[(col + 1) * PT + r] = x.y * scale;
-    t[(col + 2) * PT + r] = x.z * scale;
-    t[(col + 3) * PT + r] = x.w * scale;
+__device__ __forceinline__ void stage_tile(float* t, const float* g, int r0,
+                                           int n_rows, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int x = tid; x < FT * C4; x += FTHREADS) {
+    const int r = x / C4, c = (x % C4) * 4;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(t + sw<D>(r, c), g + (size_t)(ok ? r0 + r : 0) * D + c, ok);
   }
 }
 
-// 64 ids from rows [r0, r0 + 64) of one batch row (0 past n)
-__device__ __forceinline__ void load_ids(int* dst, const int* ids, int r0,
-                                         int n, int tid) {
-  for (int r = tid; r < 64; r += FTHREADS)
-    dst[r] = r0 + r < n ? ids[r0 + r] : 0;
+// 64 consecutive 4-byte values from `g` at [r0, r0 + 64), 0 past n
+__device__ __forceinline__ void stage_row(void* dst, const void* g, int r0,
+                                          int n, int lane64) {
+  const bool ok = r0 + lane64 < n;
+  cp_async4(static_cast<int*>(dst) + lane64,
+            static_cast<const int*>(g) + (ok ? r0 + lane64 : 0), ok);
 }
 
-// out[i][j] = sum_d a[d][rg * 4 + i] * (b[d][cg + 16 j] * bscale)
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&out)[4][4], const float* a,
-                                         const float* b, float bscale,
-                                         int rg, int cg) {
+// acc[k][i] = sum_d R[8a + k][d] * C[g + 16 i][d] over the head dim, each
+// operand times its scale where SR / SC (the q fold, rounded per element
+// as the plain version rounds q * c): R's rows are read as float4s that
+// the warp's 16 threads of one `a` share, C's as float4s of 16 rows.
+template <int D, bool SR, bool SC>
+__device__ __forceinline__ void score_tile(float (&acc)[8][4],
+                                           const float* R, const float* C,
+                                           float scale, int a, int g) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < 8; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 8
-  for (int kk = 0; kk < D; ++kk) {
-    const float4 av = *reinterpret_cast<const float4*>(a + kk * PT + rg * 4);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
+    for (int i = 0; i < 4; ++i) acc[k][i] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < D; c += 4) {
+    float4 cv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float bv = b[kk * PT + cg + 16 * j] * bscale;
+    for (int i = 0; i < 4; ++i) {
+      cv[i] = *reinterpret_cast<const float4*>(C + sw<D>(g + 16 * i, c));
+      if (SC) {
+        cv[i].x *= scale; cv[i].y *= scale;
+        cv[i].z *= scale; cv[i].w *= scale;
+      }
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][j] = fmaf(ar[i], bv, out[i][j]);
+    for (int k = 0; k < 8; ++k) {
+      float4 rv = *reinterpret_cast<const float4*>(R + sw<D>(8 * a + k, c));
+      if (SR) {
+        rv.x *= scale; rv.y *= scale;
+        rv.z *= scale; rv.w *= scale;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[k][i] = fmaf(rv.x, cv[i].x, acc[k][i]);
+        acc[k][i] = fmaf(rv.y, cv[i].y, acc[k][i]);
+        acc[k][i] = fmaf(rv.z, cv[i].z, acc[k][i]);
+        acc[k][i] = fmaf(rv.w, cv[i].w, acc[k][i]);
+      }
     }
   }
 }
 
-// acc[i][j] += sum_c sc[(rg * 4 + i) * PS + c] * b[(cg + 16 j) * PT + c]
-template <int D>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16],
-                                                const float* sc,
-                                                const float* b, int rg,
-                                                int cg) {
+// acc[k][j] += sum_x A[x][RW * a + k] * B[x][4 (e + 16 (j / 4)) + j % 4]
+// over the 64 rows x of both: A a 64 x 64 score tile, B a 64 x D tile; this
+// thread's RW rows of A's columns, its D / 16 columns of B in chunks e + 16 c
+template <int D, int RW>
+__device__ __forceinline__ void accumulate(float (&acc)[RW][D / 16],
+                                           const float* A, const float* B,
+                                           int a, int e) {
+  constexpr int NC = D / 64;                     // B chunks a thread
 #pragma unroll 4
-  for (int c = 0; c < 64; ++c) {
-    float sr[4];
+  for (int x = 0; x < FT; ++x) {
+    float av[RW];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sr[i] = sc[(rg * 4 + i) * PS + c];
+    for (int h = 0; h < RW / 4; ++h) {
+      const float4 v4 =
+          *reinterpret_cast<const float4*>(A + sw<FT>(x, RW * a + 4 * h));
+      av[4 * h] = v4.x; av[4 * h + 1] = v4.y;
+      av[4 * h + 2] = v4.z; av[4 * h + 3] = v4.w;
+    }
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float bv = b[(cg + 16 * j) * PT + c];
+    for (int cc = 0; cc < NC; ++cc) {
+      const float4 b4 = *reinterpret_cast<const float4*>(
+          B + sw<D>(x, 4 * (e + 16 * cc)));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(sr[i], bv, acc[i][j]);
+      for (int k = 0; k < RW; ++k) {
+        acc[k][4 * cc] = fmaf(av[k], b4.x, acc[k][4 * cc]);
+        acc[k][4 * cc + 1] = fmaf(av[k], b4.y, acc[k][4 * cc + 1]);
+        acc[k][4 * cc + 2] = fmaf(av[k], b4.z, acc[k][4 * cc + 2]);
+        acc[k][4 * cc + 3] = fmaf(av[k], b4.w, acc[k][4 * cc + 3]);
+      }
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_f32(float* g, float (&acc)[4][D / 16],
-                                          int r0, int n_rows, float scale,
-                                          int rg, int cg) {
+// The accumulator's rows RW * a + k of a 64 x D slot, row-major
+template <int D, int RW>
+__device__ __forceinline__ void store_slot(float* slot,
+                                           const float (&acc)[RW][D / 16],
+                                           int a, int e) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + rg * 4 + i;
-    if (row >= n_rows) continue;
+  for (int k = 0; k < RW; ++k)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      g[(size_t)row * D + cg + 16 * j] = acc[i][j] * scale;
-  }
+    for (int cc = 0; cc < D / 64; ++cc)
+      *reinterpret_cast<float4*>(slot + (RW * a + k) * D +
+                                 4 * (e + 16 * cc)) =
+          make_float4(acc[k][4 * cc], acc[k][4 * cc + 1], acc[k][4 * cc + 2],
+                      acc[k][4 * cc + 3]);
 }
 
 // Whether q row `row` sees kv column `col` under the causal mask (with the
@@ -811,8 +892,19 @@ __device__ __forceinline__ bool visible(int row, int col, int q_len,
          (window <= 0 || col > pos - window) && qid == kid;
 }
 
+// A work list (ops/flash_bwd.py::f32_work), int32: tile[n], lo[n], hi[n]
+// (the item's range of the other side's tiles), order[n] (the item of
+// each block rank, longest range first), first[tiles + 1] (tile t's items
+// are first[t] .. first[t + 1] - 1, in range order).
+struct Work {
+  const int *tile, *lo, *hi, *order, *first;
+  __host__ __device__ Work(const int* w, int n)
+      : tile(w), lo(w + n), hi(w + 2 * n), order(w + 3 * n),
+        first(w + 4 * n) {}
+};
+
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, 1)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -820,100 +912,134 @@ __global__ void __launch_bounds__(FTHREADS)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const int* __restrict__ q_seg,
-                             const int* __restrict__ kv_seg,
-                             const int* table, float* __restrict__ dk,
-                             float* __restrict__ dv, int hq, int hkv,
-                             int q_len, int kv_len, int causal, int window,
-                             float scale_log2, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* kt = reinterpret_cast<float*>(smem_raw);  // [D][PT] this block's K
-  float* vt = kt + D * PT;                         // [D][PT] this block's V
-  float* qt = vt + D * PT;                         // [D][PT] q as stored
-  float* dot = qt + D * PT;                        // [D][PT] dout
-  float* ps = dot + D * PT;                        // [64][PS] P^T, then dS^T
-  float* l2s = ps + 64 * PS;                       // [64] lse2 of the q tile
-  float* dls = l2s + 64;                           // [64] delta of the q tile
-  int* qids = reinterpret_cast<int*>(dls + 64);    // [64] q ids of the tile
+                             const int* __restrict__ kv_seg, const int* work,
+                             int n_items, float* __restrict__ dk_slots,
+                             float* __restrict__ dv_slots, int batch, int hq,
+                             int hkv, int q_len, int kv_len, int causal,
+                             int window, float scale_log2) {
+  using S = F32Smem<D>;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm + S::STAY;
+  float* vs = ks + S::TILE;
+  int* kids = reinterpret_cast<int*>(fsm + S::ROWS + 6 * FT);
 
-  const int n_kvt = (kv_len + FN - 1) / FN;
-  const Table tab(table, n_kvt);
-  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int jt = tab.order[blockIdx.x];
-  const int kv0 = jt * FN;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int group = hq / hkv;
-  const int lo = tab.lo[jt];
-  const int n_qt = max(0, tab.hi[jt] - lo);
+  const Work wk(work, n_items);
+  const int n_bh = batch * hq;
+  const int item = wk.order[blockIdx.x / n_bh];
+  const int bh = blockIdx.x % n_bh;
+  const int h = bh % hq, b = bh / hq;
+  const int kvh = h / (hq / hkv);
+  const int kv0 = wk.tile[item] * FT, lo = wk.lo[item];
+  const int n = max(0, wk.hi[item] - lo);        // q tiles to visit
+  const int tid = threadIdx.x, half = tid / 128, u = tid % 128;
+  const int a = u / 16, g = u % 16;              // this thread's row groups
+  const size_t head = (size_t)bh * q_len;
   const size_t kv_base = (size_t)(b * hkv + kvh) * kv_len * D;
   const bool segs = q_seg != nullptr;
-  int kid[4] = {0, 0, 0, 0};  // ids of this thread's kv rows
-  if (segs) {
+  const float* qh = q + head * D;
+  const float* doh = dout + head * D;
+
+  auto ring = [&](int st) { return fsm + S::RING + st * 2 * S::TILE; };
+  auto rows = [&](int st) { return fsm + S::ROWS + st * 3 * FT; };
+  // q tile `it` of the range (q, dout, LSE, delta, ids) into stage it % 2
+  auto stage_q = [&](int it) {
+    const int q0 = (lo + it) * FT, st = it % 2;
+    stage_tile<D>(ring(st), qh, q0, q_len, tid);
+    stage_tile<D>(ring(st) + S::TILE, doh, q0, q_len, tid);
+    if (tid < FT) stage_row(rows(st), lse + head, q0, q_len, tid);
+    else if (tid < 2 * FT)
+      stage_row(rows(st) + FT, delta + head, q0, q_len, tid - FT);
+    else if (segs && tid < 3 * FT)
+      stage_row(rows(st) + 2 * FT, q_seg + (size_t)b * q_len, q0, q_len,
+                tid - 2 * FT);
+  };
+
+  stage_tile<D>(ks, k + kv_base, kv0, kv_len, tid);
+  stage_tile<D>(vs, v + kv_base, kv0, kv_len, tid);
+  if (segs && tid < FT)
+    stage_row(kids, kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
+  if (n > 0) stage_q(0);
+  cp_async_commit();
+
+  float acc[8][D / 16];                          // dV (half 0) or dK (half 1)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = kv0 + rg * 4 + i;
-      if (col < kv_len) kid[i] = kv_seg[(size_t)b * kv_len + col];
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int y = 0; y < D / 16; ++y) acc[x][y] = 0.f;
+  float* P = fsm + S::P;                         // [q][kv]
+  float* DS = fsm + S::DS;                       // [q][kv]
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it % 2, q0 = (lo + it) * FT;
+    if (it + 1 < n) {
+      stage_q(it + 1);   // lands while this step runs
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
+    __syncthreads();     // stage st (and K, V) landed for every thread
+    const float* qt = ring(st);
+    const float* dot = qt + S::TILE;
+    const float* rw = rows(st);
+    const int* qids = reinterpret_cast<const int*>(rw + 2 * FT);
 
-  load_t<D>(kt, k + kv_base, kv0, kv_len, 1.f, tid);
-  load_t<D>(vt, v + kv_base, kv0, kv_len, 1.f, tid);
-
-  float dka[4][D / 16], dva[4][D / 16];
+    // S^T (kv x q) with q folded as it is read, or dP^T
+    float sc[8][4];
+    if (half == 0) score_tile<D, false, true>(sc, ks, qt, scale_log2, a, g);
+    else score_tile<D, false, false>(sc, vs, dot, 1.f, a, g);
+    if (half == 0) {     // P^T, stored as P [q][kv]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int qc = g + 16 * i;
+        const float l2 = lse2_of(rw[qc]);
+        float p[8];
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int it = 0; it < group * n_qt; ++it) {
-    const int h = kvh * group + it / n_qt;
-    const int q0 = (lo + it % n_qt) * FM;
-    const size_t head = (size_t)(b * hq + h) * q_len;
-    __syncthreads();  // the previous step's tiles are no longer read
-    load_t<D>(qt, q + head * D, q0, q_len, 1.f, tid);
-    load_t<D>(dot, dout + head * D, q0, q_len, 1.f, tid);
-    for (int r = tid; r < FM; r += FTHREADS) {
-      const bool valid = q0 + r < q_len;
-      l2s[r] = valid ? lse2_of(lse[head + q0 + r]) : INFINITY;
-      dls[r] = valid ? delta[head + q0 + r] : 0.f;
-    }
-    if (segs) load_ids(qids, q_seg + (size_t)b * q_len, q0, q_len, tid);
-    __syncthreads();
-
-    // S^T (kv rows x q columns) with q scaled in f32 as it is read; dP^T
-    float s[4][4], dp[4][4];
-    tile_abt<D>(s, kt, qt, scale_log2, rg, cg);
-    tile_abt<D>(dp, vt, dot, 1.f, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = cg + 16 * j;
-        float p = exp2f(s[i][j] - l2s[qc]);
-        if (!visible(q0 + qc, kv0 + rg * 4 + i, q_len, kv_len, causal,
-                     window, segs ? qids[qc] : 0, kid[i]))
-          p = 0.f;
-        s[i][j] = p;
-        dp[i][j] = p * (dp[i][j] - dls[qc]);
-        ps[(rg * 4 + i) * PS + qc] = p;
+        for (int x = 0; x < 8; ++x) {
+          const int col = kv0 + 8 * a + x;
+          const bool ok = visible(q0 + qc, col, q_len, kv_len, causal,
+                                  window, segs ? qids[qc] : 0,
+                                  segs ? kids[8 * a + x] : 0);
+          p[x] = ok ? exp2f(sc[x][i] - l2) : 0.f;
+        }
+        *reinterpret_cast<float4*>(P + sw<FT>(qc, 8 * a)) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(P + sw<FT>(qc, 8 * a + 4)) =
+            make_float4(p[4], p[5], p[6], p[7]);
       }
     }
-    __syncthreads();
-    tile_accumulate<D>(dva, ps, dot, rg, cg);  // dV += P^T dout
-    __syncthreads();
+    __syncthreads();     // P written
+    if (half == 1) {     // dS = P (dP - delta), stored [q][kv]
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int qc = g + 16 * i;
+        const float dl = rw[FT + qc];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(rg * 4 + i) * PS + cg + 16 * j] = dp[i][j];
-    __syncthreads();
-    tile_accumulate<D>(dka, ps, qt, rg, cg);  // dK += dS^T q
+        for (int h4 = 0; h4 < 2; ++h4) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(P + sw<FT>(qc, 8 * a + 4 * h4));
+          *reinterpret_cast<float4*>(DS + sw<FT>(qc, 8 * a + 4 * h4)) =
+              make_float4(p4.x * (sc[4 * h4][i] - dl),
+                          p4.y * (sc[4 * h4 + 1][i] - dl),
+                          p4.z * (sc[4 * h4 + 2][i] - dl),
+                          p4.w * (sc[4 * h4 + 3][i] - dl));
+        }
+      }
+      named_bar(1, 128);  // dS written by the half that reads it
+      accumulate<D, 8>(acc, DS, qt, a, g);   // dK += dS^T q
+    } else {
+      accumulate<D, 8>(acc, P, dot, a, g);   // dV += P^T dout
+    }
+    __syncthreads();     // stage st, P and dS are no longer read
   }
 
-  store_f32<D>(dk + kv_base, dka, kv0, kv_len, sm_scale, rg, cg);
-  store_f32<D>(dv + kv_base, dva, kv0, kv_len, 1.f, rg, cg);
+  cp_async_wait<0>();    // an empty range: K and V still in flight
+  const size_t slot = ((size_t)item * n_bh + bh) * FT * D;
+  store_slot<D, 8>((half == 0 ? dv_slots : dk_slots) + slot, acc, a, g);
 }
 
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, 1)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -921,100 +1047,204 @@ __global__ void __launch_bounds__(FTHREADS)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             const int* __restrict__ q_seg,
-                            const int* __restrict__ kv_seg, const int* table,
-                            float* __restrict__ dq, int hq, int hkv,
-                            int q_len, int kv_len, int causal, int window,
-                            float scale_log2, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [D][PT] q scaled
-  float* dot = qt + D * PT;                        // [D][PT] dout
-  float* kt = dot + D * PT;                        // [D][PT] K tile
-  float* vt = kt + D * PT;                         // [D][PT] V tile
-  float* dss = vt + D * PT;                        // [64][PS] dS
-  int* kids = reinterpret_cast<int*>(dss + 64 * PS + 2 * 64);  // [64]
+                            const int* __restrict__ kv_seg, const int* work,
+                            int n_items, float* __restrict__ dq_slots,
+                            int batch, int hq, int hkv, int q_len,
+                            int kv_len, int causal, int window,
+                            float scale_log2) {
+  using S = F32Smem<D>;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm + S::STAY;
+  float* dos = qs + S::TILE;
+  float* qrows = fsm + S::ROWS + 6 * FT;         // LSE, delta, q ids
 
-  const int n_qt = (q_len + FM - 1) / FM;
-  const Table tab(table, n_qt);
-  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int qi = tab.order[blockIdx.x];
-  const int q0 = qi * FM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const Work wk(work, n_items);
+  const int n_bh = batch * hq;
+  const int item = wk.order[blockIdx.x / n_bh];
+  const int bh = blockIdx.x % n_bh;
+  const int h = bh % hq, b = bh / hq;
   const int kvh = h / (hq / hkv);
-  const size_t head = (size_t)(b * hq + h) * q_len;
+  const int q0 = wk.tile[item] * FT, lo = wk.lo[item];
+  const int n = max(0, wk.hi[item] - lo);        // kv tiles to visit
+  const int tid = threadIdx.x, half = tid / 128, u = tid % 128;
+  const int a = u / 16, g = u % 16;
+  const size_t head = (size_t)bh * q_len;
   const size_t kv_base = (size_t)(b * hkv + kvh) * kv_len * D;
-  const int lo = tab.lo[qi], hi = tab.hi[qi];
   const bool segs = q_seg != nullptr;
 
-  load_t<D>(qt, q + head * D, q0, q_len, scale_log2, tid);
-  load_t<D>(dot, dout + head * D, q0, q_len, 1.f, tid);
-  float lse2[4], dlt[4];
-  int qid[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    lse2[i] = row < q_len ? lse2_of(lse[head + row]) : INFINITY;
-    dlt[i] = row < q_len ? delta[head + row] : 0.f;
-    if (segs && row < q_len) qid[i] = q_seg[(size_t)b * q_len + row];
-  }
+  auto ring = [&](int st) { return fsm + S::RING + st * 2 * S::TILE; };
+  auto kids = [&](int st) {
+    return reinterpret_cast<int*>(fsm + S::ROWS + st * 3 * FT);
+  };
+  auto stage_kv = [&](int it) {
+    const int kv0 = (lo + it) * FT, st = it % 2;
+    stage_tile<D>(ring(st), k + kv_base, kv0, kv_len, tid);
+    stage_tile<D>(ring(st) + S::TILE, v + kv_base, kv0, kv_len, tid);
+    if (segs && tid < FT)
+      stage_row(kids(st), kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
+  };
 
-  float dqa[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dqa[i][j] = 0.f;
+  stage_tile<D>(qs, q + head * D, q0, q_len, tid);
+  stage_tile<D>(dos, dout + head * D, q0, q_len, tid);
+  if (tid < FT) stage_row(qrows, lse + head, q0, q_len, tid);
+  else if (tid < 2 * FT) stage_row(qrows + FT, delta + head, q0, q_len,
+                                   tid - FT);
+  else if (segs && tid < 3 * FT)
+    stage_row(qrows + 2 * FT, q_seg + (size_t)b * q_len, q0, q_len,
+              tid - 2 * FT);
+  if (n > 0) stage_kv(0);
+  cp_async_commit();
 
-  for (int t = lo; t < hi; ++t) {
-    const int kv0 = t * FN;
-    __syncthreads();  // the previous tile's kt / vt / dss are no longer read
-    load_t<D>(kt, k + kv_base, kv0, kv_len, 1.f, tid);
-    load_t<D>(vt, v + kv_base, kv0, kv_len, 1.f, tid);
-    if (segs) load_ids(kids, kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
-    __syncthreads();
+  // dQ: rows 4 * (tid / 16) + [0, 4), columns of chunks tid % 16 + 16 c
+  const int a2 = tid / 16, e2 = tid % 16;
+  float acc[4][D / 16];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < D / 16; ++y) acc[x][y] = 0.f;
+  float* PT = fsm + S::P;                        // P^T, then dS^T [kv][q]
+  const int* qids = reinterpret_cast<const int*>(qrows + 2 * FT);
 
-    float s[4][4], dp[4][4];
-    tile_abt<D>(s, qt, kt, 1.f, rg, cg);
-    tile_abt<D>(dp, dot, vt, 1.f, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + rg * 4 + i, col = kv0 + cg + 16 * j;
-        float p = exp2f(s[i][j] - lse2[i]);
-        if (!visible(row, col, q_len, kv_len, causal, window, qid[i],
-                     segs ? kids[cg + 16 * j] : 0))
-          p = 0.f;
-        dss[(rg * 4 + i) * PS + cg + 16 * j] = p * (dp[i][j] - dlt[i]);
-      }
+  for (int it = 0; it < n; ++it) {
+    const int st = it % 2, kv0 = (lo + it) * FT;
+    if (it + 1 < n) {
+      stage_kv(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    tile_accumulate<D>(dqa, dss, kt, rg, cg);  // dQ += dS K
+    const float* kt = ring(st);
+    const float* vt = kt + S::TILE;
+    const int* kid = kids(st);
+
+    // S (q x kv) with q folded as it is read, or dP
+    float sc[8][4];
+    if (half == 0) score_tile<D, true, false>(sc, qs, kt, scale_log2, a, g);
+    else score_tile<D, false, false>(sc, dos, vt, 1.f, a, g);
+    if (half == 0) {     // P, stored as P^T [kv][q]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kc = g + 16 * i;
+        float p[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int row = q0 + 8 * a + x;
+          const bool ok = visible(row, kv0 + kc, q_len, kv_len, causal,
+                                  window, segs ? qids[8 * a + x] : 0,
+                                  segs ? kid[kc] : 0);
+          p[x] = ok ? exp2f(sc[x][i] - lse2_of(qrows[8 * a + x])) : 0.f;
+        }
+        *reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a)) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a + 4)) =
+            make_float4(p[4], p[5], p[6], p[7]);
+      }
+    }
+    __syncthreads();     // P^T written
+    if (half == 1) {     // dS^T = P^T (dP^T - delta), in place
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kc = g + 16 * i;
+#pragma unroll
+        for (int h4 = 0; h4 < 2; ++h4) {
+          float4* p4 =
+              reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a + 4 * h4));
+          const float* dl = qrows + FT + 8 * a + 4 * h4;
+          float4 x4 = *p4;
+          x4.x *= sc[4 * h4][i] - dl[0];
+          x4.y *= sc[4 * h4 + 1][i] - dl[1];
+          x4.z *= sc[4 * h4 + 2][i] - dl[2];
+          x4.w *= sc[4 * h4 + 3][i] - dl[3];
+          *p4 = x4;
+        }
+      }
+    }
+    __syncthreads();     // dS^T written
+    accumulate<D, 4>(acc, PT, kt, a2, e2);       // dQ += dS K
+    __syncthreads();     // stage st and dS^T are no longer read
   }
 
-  store_f32<D>(dq + head * D, dqa, q0, q_len, sm_scale, rg, cg);
+  cp_async_wait<0>();    // an empty range: q and dout still in flight
+  store_slot<D, 4>(dq_slots + ((size_t)item * n_bh + bh) * FT * D, acc, a2,
+                   e2);
+}
+
+// One thread per float4 of dq, then of dk, then of dv: the sum of its
+// slots in a fixed order, scaled.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_post_f32_kernel(const float4* __restrict__ dq_slots,
+                              const float4* __restrict__ dk_slots,
+                              const float4* __restrict__ dv_slots,
+                              const int* q_work, int q_items,
+                              const int* kv_work, int kv_items,
+                              float4* __restrict__ dq, float4* __restrict__ dk,
+                              float4* __restrict__ dv, int batch, int hq,
+                              int hkv, int q_len, int kv_len,
+                              float sm_scale) {
+  constexpr int C4 = D / 4;
+  const long n_dq = (long)batch * hq * q_len * C4;
+  const long n_kv = (long)batch * hkv * kv_len * C4;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_bh = batch * hq;
+  if (i >= n_dq + 2 * n_kv) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float4* slots, int item, int bh, int r, int c) {
+    const float4 x = slots[(((size_t)item * n_bh + bh) * FT + r) * C4 + c];
+    s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+  };
+  if (i < n_dq) {
+    const int c = (int)(i % C4);
+    const long row = i / C4;
+    const int bh = (int)(row / q_len), r = (int)(row % q_len);
+    const Work wk(q_work, q_items);
+    for (int it = wk.first[r / FT]; it < wk.first[r / FT + 1]; ++it)
+      add(dq_slots, it, bh, r % FT, c);
+    dq[i] = make_float4(s.x * sm_scale, s.y * sm_scale, s.z * sm_scale,
+                        s.w * sm_scale);
+    return;
+  }
+  const bool is_k = i < n_dq + n_kv;
+  const long j = i - n_dq - (is_k ? 0 : n_kv);
+  const int c = (int)(j % C4);
+  const long row = j / C4;
+  const int bkv = (int)(row / kv_len), r = (int)(row % kv_len);
+  const int b = bkv / hkv, kvh = bkv % hkv, group = hq / hkv;
+  const Work wk(kv_work, kv_items);
+  for (int gi = 0; gi < group; ++gi)
+    for (int it = wk.first[r / FT]; it < wk.first[r / FT + 1]; ++it)
+      add(is_k ? dk_slots : dv_slots, it, b * hq + kvh * group + gi, r % FT,
+          c);
+  const float f = is_k ? sm_scale : 1.f;
+  (is_k ? dk : dv)[j] = make_float4(s.x * f, s.y * f, s.z * f, s.w * f);
 }
 
 struct F32Args {
   const float *q, *k, *v, *dout, *lse, *delta;
-  const int *q_seg, *kv_seg, *kv_table, *q_table;
+  const int *q_seg, *kv_seg, *kv_work, *q_work;
+  int kv_items, q_items;
+  float *dq_slots, *dk_slots, *dv_slots;
   float *dq, *dk, *dv;
   int batch, hq, hkv, q_len, kv_len, causal, window;
   float scale_log2, sm_scale;
 };
 
-// stages: 1 the dq kernel, 2 the dk/dv kernel.
+// stages: 1 the dq kernel, 2 the dk/dv kernel, 4 the post.
 template <int D>
 cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
-  const int smem = f32_smem_bytes<D>();
+  const int smem = F32Smem<D>::BYTES;
+  const int n_bh = a.batch * a.hq;
   if (stages & 1) {
     static bool smem_set[kMaxDevices] = {};
     cudaError_t err =
         raise_smem_limit(flash_bwd_dq_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.q_len + FM - 1) / FM, a.hq, a.batch);
-    flash_bwd_dq_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg, a.q_table,
-        a.dq, a.hq, a.hkv, a.q_len, a.kv_len, a.causal, a.window,
-        a.scale_log2, a.sm_scale);
+    flash_bwd_dq_f32_kernel<D><<<a.q_items * n_bh, FTHREADS, smem, stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg, a.q_work,
+        a.q_items, a.dq_slots, a.batch, a.hq, a.hkv, a.q_len, a.kv_len,
+        a.causal, a.window, a.scale_log2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1023,12 +1253,26 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
     cudaError_t err =
         raise_smem_limit(flash_bwd_dkv_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.kv_len + FN - 1) / FN, a.hkv, a.batch);
-    flash_bwd_dkv_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg, a.kv_table,
-        a.dk, a.dv, a.hq, a.hkv, a.q_len, a.kv_len, a.causal, a.window,
-        a.scale_log2, a.sm_scale);
+    flash_bwd_dkv_f32_kernel<D>
+        <<<a.kv_items * n_bh, FTHREADS, smem, stream>>>(
+            a.q, a.k, a.v, a.dout, a.lse, a.delta, a.q_seg, a.kv_seg,
+            a.kv_work, a.kv_items, a.dk_slots, a.dv_slots, a.batch, a.hq,
+            a.hkv, a.q_len, a.kv_len, a.causal, a.window, a.scale_log2);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (stages & 4) {
+    const long n = ((long)n_bh * a.q_len + 2L * a.batch * a.hkv * a.kv_len) *
+                   (D / 4);
+    flash_bwd_post_f32_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0,
+                                   stream>>>(
+        reinterpret_cast<const float4*>(a.dq_slots),
+        reinterpret_cast<const float4*>(a.dk_slots),
+        reinterpret_cast<const float4*>(a.dv_slots), a.q_work, a.q_items,
+        a.kv_work, a.kv_items, reinterpret_cast<float4*>(a.dq),
+        reinterpret_cast<float4*>(a.dk), reinterpret_cast<float4*>(a.dv),
+        a.batch, a.hq, a.hkv, a.q_len, a.kv_len, a.sm_scale);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1040,17 +1284,19 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // `stages` 1 flash_bwd_prep (delta, lse2 and qs from q, out, dout, lse), 2
 // flash_bwd_main (into dq_acc and the dq_turn counters, both zeroed by the
 // caller, one counter per (batch, q head, 64-row q tile, 64 head dims),
-// which the kernel leaves at 0; and
-// dk_acc, dv_acc: (batch, hq, ceil(kv_len / 128), 2, 64 * head_dim) f32
-// each, all written), 4 flash_bwd_post (dq, dk, dv); q_seg is padded to
-// whole 64-row tiles and kv_table is the (3, ceil(kv_len / 128)) table of
-// 64-row q tiles followed by its dQ chain (base, pos, chain lengths).
-// dtype 1
-// (f32): `stages` 1 the dq kernel (q_table: (3, ceil(q_len / 64)) of 64-row
-// kv tiles), 2 the dk/dv kernel (kv_table: (3, ceil(kv_len / 64)) of 64-row
-// q tiles); delta is an input, rowsum(dout * out). q_seg and kv_seg are
-// both null or both set; window 0 is none. head_dim: 64 or 128. The caller
-// has checked shapes, contiguity and 16-byte alignment.
+// which the kernel leaves at 0; and dk_acc, dv_acc: (batch, hq,
+// ceil(kv_len / 128), 2, 64 * head_dim) f32 each, all written), 4
+// flash_bwd_post (dq, dk, dv); q_seg is padded to whole 64-row tiles and
+// kv_table is the (3, ceil(kv_len / 128)) table of 64-row q tiles followed
+// by its dQ chain (base, pos, chain lengths). dtype 1 (f32): `stages` 1
+// the dq kernel (q_table: the q-major work list of q_items items over
+// 64-row tiles, ops/flash_bwd.py::f32_work; into dq_acc, q_items x batch x
+// hq slots of 64 x head_dim f32), 2 the dk/dv kernel (kv_table: the
+// kv-major work list of kv_items items; into dk_acc and dv_acc, kv_items x
+// batch x hq slots each), 4 the post (dq, dk, dv from the slots); every
+// slot is written; delta is an input, rowsum(dout * out). q_seg and kv_seg
+// are both null or both set; window 0 is none. head_dim: 64 or 128. The
+// caller has checked shapes, contiguity and 16-byte alignment.
 extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* qs, void* lse2, void* delta,
@@ -1058,7 +1304,8 @@ extern "C" int tfa_flash_bwd(
     const void* q_table, void* dq_acc, void* dk_acc, void* dv_acc,
     void* dq_turn, void* dq, void* dk, void* dv, int batch, int hq, int hkv,
     int q_len, int kv_len, int head_dim, int causal, int window,
-    float scale_log2, float sm_scale, int dtype, int stages, void* stream) {
+    int kv_items, int q_items, float scale_log2, float sm_scale, int dtype,
+    int stages, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
       kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
       window < 0 || (window > 0 && !causal) ||
@@ -1079,6 +1326,8 @@ extern "C" int tfa_flash_bwd(
                                  : launch_bf16<64>(a, stages, s));
   }
   if (dtype == 1) {
+    if (kv_items < (kv_len + FT - 1) / FT || q_items < (q_len + FT - 1) / FT)
+      return (int)cudaErrorInvalidValue;
     const F32Args a{static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),
@@ -1086,12 +1335,23 @@ extern "C" int tfa_flash_bwd(
                     static_cast<const float*>(lse),
                     static_cast<const float*>(delta),
                     qseg, kvseg, static_cast<const int*>(kv_table),
-                    static_cast<const int*>(q_table),
-                    static_cast<float*>(dq), static_cast<float*>(dk),
-                    static_cast<float*>(dv), batch, hq, hkv, q_len, kv_len,
-                    causal, window, scale_log2, sm_scale};
+                    static_cast<const int*>(q_table), kv_items, q_items,
+                    static_cast<float*>(dq_acc), static_cast<float*>(dk_acc),
+                    static_cast<float*>(dv_acc), static_cast<float*>(dq),
+                    static_cast<float*>(dk), static_cast<float*>(dv), batch,
+                    hq, hkv, q_len, kv_len, causal, window, scale_log2,
+                    sm_scale};
     return (int)(head_dim == 128 ? launch_f32<128>(a, stages, s)
                                  : launch_f32<64>(a, stages, s));
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of an f32 block (both kernels) at head_dim 64
+// or 128; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
+// bwd_f32_smem_bytes to it when it loads this library.
+extern "C" int tfa_flash_bwd_f32_smem(int head_dim) {
+  if (head_dim == 128) return F32Smem<128>::BYTES;
+  if (head_dim == 64) return F32Smem<64>::BYTES;
+  return -1;
 }

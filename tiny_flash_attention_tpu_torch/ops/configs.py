@@ -108,21 +108,71 @@ def decode_split_plan(pages: int, splits: int) -> tuple[int, int]:
     return per, -(-pages // per)
 
 
-# FA1 forward (the teaching kernel): the mma.sync tiles (bf16: 4 warps x 16
-# q rows on mma.sync, K and V of one 64-row kv tile in 35 KB of shared
-# memory; f32: 16 x 16 threads over a 64 x 64 score tile); a block walks
-# FLASH_V1_Q_TILES q tiles of one head (interleaved) inside each kv step.
-FLASH_V1_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
+# FA1 forward (the teaching kernel, csrc/flash_v1.cu). bf16 on wgmma and
+# TMA with FA1's loop order: a block of three warpgroups (two consumers of
+# 64 q rows, a producer) walks the kv tiles and, inside each, its
+# FLASH_V1_BF16_Q_TILES q tiles of 128 rows from the host-built schedule
+# (ops/flash_v1.py::v1_schedule); K and V stream through a ring of
+# FLASH_V1_BF16_STAGES stages, the q tiles of the inner loop through a ring
+# of as many of their own. Two K/V stages let tile j + 1 land while tile
+# j's q tiles are walked; a third does not fit beside two q stages
+# (`v1_smem_bytes`: 197,712 bytes at head_dim 128). Two q tiles a block:
+# 128 blocks at the benchmark's (2, 8, 2048) shape on 132 SMs.
+FLASH_V1_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
+FLASH_V1_BF16_STAGES = 2
+FLASH_V1_BF16_Q_TILES = 2
+# f32 on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile; a block
+# walks FLASH_V1_F32_Q_TILES q tiles of one head (interleaved) inside each
+# kv step.
 FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=256)
-FLASH_V1_Q_TILES = 4
+FLASH_V1_F32_Q_TILES = 4
+
+
+def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
+    """Dynamic shared memory of one FA1 block at `cfg`'s tiles, as the
+    kernels lay it out (csrc/flash_v1.cu `V1Smem` and `f32_smem_bytes`;
+    the library exports its own sizes, `tfa_flash_v1_smem`, and
+    ops/flash_v1.py checks that these agree when it loads it)."""
+    m, n, d = cfg.block_m, cfg.block_n, head_dim
+    if cfg is FLASH_V1_BF16:
+        stages = FLASH_V1_BF16_STAGES
+        # per stage a q tile, K and V, and five mbarriers (q full and
+        # empty, K full, V full, K/V empty); room to align the base to 1024
+        # bytes
+        return stages * (m * d * 2 + 2 * n * d * 2 + 5 * 8) + 1024
+    if cfg is FLASH_V1_F32:
+        # q^T, k^T, v and p (rows padded by 1)
+        return (d * m + d * n + n * d + m * (n + 1)) * 4
+    raise ValueError(f"{cfg} is not an FA1 config")
 # bf16 backward, one pass: a block of two warpgroups owns a 128-row kv tile
 # (64 rows each, dk and dv in f32 registers: 2 x 64 per thread at head_dim
 # 128) and steps over 64-row q tiles that TMA streams through a two-stage
 # ring (K, V, two stages of q, qs and dout, dS^T and the dQ staging: 211 KB
 # of shared memory at head_dim 128). The kernel is written for these sizes.
 FLASH_BWD_BF16 = TileConfig(block_m=64, block_n=128, threads=256)
-# f32 backward, both kernels: 16 x 16 threads over a 64 x 64 score tile.
+# f32 backward on the CUDA cores (csrc/flash_bwd.cu's f32 path): 64-row
+# tiles on both sides, blocks of two halves of 128 threads; a dk/dv block
+# takes one kv tile and a run of the q tiles that see it, cut at the
+# multiples of FLASH_BWD_F32_SPLIT (read at each call), for one q head (a
+# dq block the same, q-major), so the causal band's long ranges split over
+# blocks: 192 a kernel at (1, 8, 1024) causal on the 132 SMs, where one
+# block a (kv tile, kv head) gave 32. chip_smoke.py's sweep
+# (`bwd_f32_split_sweep`, PERF.md) found runs of 8 tiles faster than 1, 2,
+# 3, 4, 6 and 16 there. Shared memory (`bwd_f32_smem_bytes`): 231,680
+# bytes at head_dim 128, one block an SM.
 FLASH_BWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
+FLASH_BWD_F32_SPLIT = 8
+
+
+def bwd_f32_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one f32 backward block (both kernels), as
+    csrc/flash_bwd.cu `F32Smem` lays it out (the library exports its own,
+    `tfa_flash_bwd_f32_smem`, and ops/flash_bwd.py checks that they agree
+    when it loads it): two tiles that stay, a two-stage ring of two tiles,
+    the P and dS score tiles, and nine rows of 64 (LSE, delta and ids for
+    each stage and for the tiles that stay), all f32 or int32."""
+    t, d = FLASH_BWD_F32.block_m, head_dim
+    return (6 * t * d + 2 * t * t + 9 * t) * 4
 # weight-only quantized matmul, bf16 x (csrc/quant_matmul.cu, on the
 # tensor cores): a block of 4 warps walks tiles of 128 output columns over
 # its slice of K; the weight streams through a ring of QUANT_MATMUL_STAGES
@@ -198,6 +248,8 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_QMM_TC_STAGES={QUANT_MATMUL_STAGES}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
         *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
+        f"-DTFA_V1_BF16_STAGES={FLASH_V1_BF16_STAGES}",
+        f"-DTFA_V1_BF16_Q_TILES={FLASH_V1_BF16_Q_TILES}",
         *_tile_defines("TFA_V1_F32", FLASH_V1_F32),
-        f"-DTFA_V1_Q_TILES={FLASH_V1_Q_TILES}",
+        f"-DTFA_V1_F32_Q_TILES={FLASH_V1_F32_Q_TILES}",
     ]

@@ -6,12 +6,14 @@ one contract and differ only in TPU scheduling:
 `ops/flash_bwd.py::_flash_bwd_fused` and `::flash_attention_bwd` (its split
 dq and dk/dv kernels). One Hopper source, csrc/flash_bwd.cu, ports all five:
 in bf16 as one pass (a preprocess, the wgmma/TMA main kernel, a
-postprocess), in f32 as two kernels (dq, and dk/dv summed over the GQA
-group). Both take the masks of JAX's `flash_attention_bwd`: the sliding
-window, segment ids and static `segment_starts`. A CPU tensor takes the
-plain version; a CUDA tensor takes the kernels or raises for what they do
-not do (quantized K/V, head_dim other than 64 or 128). There is no fallback
-from the card to the plain version.
+postprocess), in f32 as the split form (a dq and a dk/dv kernel over work
+lists that split each tile's range, `f32_work`, into slots of their own,
+and a postprocess that sums the slots). Both take the masks of JAX's
+`flash_attention_bwd`: the sliding window, segment ids and static
+`segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
+takes the kernels or raises for what they do not do (quantized K/V,
+head_dim other than 64 or 128). There is no fallback from the card to the
+plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -19,11 +21,15 @@ causal, window and `segment_starts` clamp each tile's range; they prune
 work and change no result.
 
 Two runs give bit-identical gradients (the TPU walks its grid in one
-order): the bf16 kernels sum in an order fixed by the shape and the masks.
+order): the kernels sum in an order fixed by the shape and the masks. bf16
 dK and dV: one f32 slot per q head, summed over the GQA group in head order
-by the postprocess. dQ: each q tile's contributions are added in a chain,
+by the postprocess; dQ: each q tile's contributions are added in a chain,
 in the kv tiles' rank order (`dq_chain`), each block waiting on a counter
-for its turn; the last link of a chain sets the counter back to 0.
+for its turn; the last link of a chain sets the counter back to 0. f32: one
+slot per (work item, q head) for each of dq, dk and dv; the postprocess
+sums a tile's items in range order and, for dk and dv, the GQA group's q
+heads in head order (`f32_slot_sums_plain` is the plain version of that
+layout and order).
 
 The rounding points are the work-list kernels' (flash_bwd.py:173): the
 scale sm_scale * log2(e) is folded into q in the input dtype before the
@@ -47,8 +53,9 @@ import torch
 import torch.nn.functional as F
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_BWD_BF16, FLASH_BWD_F32)
+    FLASH_BWD_BF16, FLASH_BWD_F32, bwd_f32_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, _aligned, as_int32, in_dtype,
     visible_mask)
@@ -109,7 +116,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # calls that launched the kernels, counted by _flash_bwd_cuda; a bf16 call
 # launches flash_bwd_prep, flash_bwd_main and flash_bwd_post once each, an
-# f32 call the dq and the dk/dv kernel once each
+# f32 call the dq, the dk/dv and the post kernel once each
 flash_attention_bwd.launches = 0
 
 
@@ -251,6 +258,116 @@ def dq_chain(kv_table):
         seen.astype(np.int32)
 
 
+def f32_work(table, split: Optional[int] = None):
+    """The f32 kernels' work list from a (3, n) tile table (`bwd_tiles`):
+    each tile's range [lo, hi) of the other side's tiles cut at the
+    multiples of `split` (default: ops/configs.py::FLASH_BWD_F32_SPLIT,
+    read at each call) into runs of at most `split`, one item each, in
+    range order (a tile no one sees is one empty item, whose block writes
+    zeros). The cuts sit at fixed tiles, so a range that `segment_starts`
+    prunes sums its pairs in the same runs and order as the unpruned one
+    (the pruned tiles and runs add exact zeros): the pruning changes no
+    bit. Returns (flat int32 array:
+    tile[m], lo[m], hi[m], order[m] (the items longest run first, the
+    order in which blocks take them), first[n + 1] (tile t's items are
+    first[t] .. first[t + 1] - 1); m, the number of items)."""
+    split = configs.FLASH_BWD_F32_SPLIT if split is None else split
+    lo, hi = (np.asarray(r, np.int64) for r in table[:2])
+    items, first = [], [0]
+    for t in range(lo.size):
+        span = int(hi[t] - lo[t])
+        if span <= 0:
+            items.append((t, 0, 0))
+        for a in range(int(lo[t]) - int(lo[t]) % split, int(hi[t]), split):
+            items.append((t, max(int(lo[t]), a), min(int(hi[t]), a + split)))
+        first.append(len(items))
+    tile, ilo, ihi = (np.asarray(c, np.int64) for c in zip(*items))
+    order = np.argsort(-(ihi - ilo), kind="stable")
+    flat = np.concatenate([tile, ilo, ihi, order, first]).astype(np.int32)
+    return flat, len(items)
+
+
+def f32_slot_sums_plain(q, k, v, out, lse, do, *, causal: bool,
+                        sm_scale: float, segment_ids=None,
+                        window: Optional[int] = None, segment_starts=None):
+    """The f32 kernels' slot layout and sum order in plain PyTorch: each
+    work item of `f32_work` (of the tables at FLASH_BWD_F32's tiles, with
+    `segment_starts` pruning them) computes its q head's contribution from
+    the pairs of its tile and its run of the other side's tiles into a
+    slot of its own (a 64-row tile of f32, like the kernels'); dq sums its
+    q tile's items in range order, dk and dv the GQA group's q heads in
+    head order, each over its kv tile's items in range order. Returns
+    (dq, dk, dv) in q's dtype. A pair outside every item would be lost and
+    one in two counted twice, so this holds the work lists to the plain
+    backward."""
+    bs, hq, q_len, d = q.shape
+    hkv, kv_len = k.shape[1], k.shape[2]
+    group = hq // hkv
+    t = FLASH_BWD_F32.block_m
+    kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
+                          segment_starts=_starts_key(segment_starts),
+                          block_m=t, block_n=t)
+    dt = q.dtype
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    qs = (q * in_dtype(sm_scale * LOG2E, dt)).to(dt).float()
+    valid = visible_mask(q_len, kv_len, q.device, causal=causal,
+                         window=window, segment_ids=segment_ids)
+    s2 = torch.matmul(qs, kr.transpose(-1, -2))
+    if valid is not None:
+        s2 = torch.where(valid, s2, DEFAULT_MASK_VALUE)
+    lse2 = lse.float()[..., None] * LOG2E
+    p = torch.where(lse2 > 0.5 * DEFAULT_MASK_VALUE, torch.exp2(s2 - lse2),
+                    0.0)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do.float(), vr.transpose(-1, -2)) - delta)
+
+    def sums(table, grad):
+        """grad(tile rows, other-side columns) -> (bs, hq, 64, d) slot for
+        every item, summed per tile in range order."""
+        flat, m = f32_work(table)
+        tiles, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
+        first = flat[4 * m:]
+        res = []
+        for tile in range(first.size - 1):
+            acc = None
+            for it in range(first[tile], first[tile + 1]):
+                rows = slice(tiles[it] * t, (tiles[it] + 1) * t)
+                cols = slice(ilo[it] * t, ihi[it] * t)
+                slot = grad(rows, cols)
+                acc = slot if acc is None else acc + slot
+            res.append(acc)
+        return torch.cat(res, dim=2)
+
+    dq = sums(q_t, lambda r, c: torch.matmul(ds[:, :, r, c], kr[:, :, c]))
+    dk_h = sums(kv_t, lambda r, c: torch.matmul(
+        ds[:, :, c, r].transpose(-1, -2), q.float()[:, :, c]))
+    dv_h = sums(kv_t, lambda r, c: torch.matmul(
+        p[:, :, c, r].transpose(-1, -2), do.float()[:, :, c]))
+
+    def group_sum(x):
+        x = x.view(bs, hkv, group, kv_len, d)
+        acc = x[:, :, 0]
+        for g in range(1, group):
+            acc = acc + x[:, :, g]
+        return acc
+
+    return ((dq * sm_scale).to(dt), (group_sum(dk_h) * sm_scale).to(dt),
+            group_sum(dv_h).to(dt))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_f32_work(q_len, kv_len, causal, window, starts, split, device):
+    """The f32 work lists on the device: (kv-major list, its items,
+    q-major list, its items)."""
+    t = FLASH_BWD_F32.block_m
+    kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
+                          segment_starts=starts, block_m=t, block_n=t)
+    (kv_w, kv_n), (q_w, q_n) = f32_work(kv_t, split), f32_work(q_t, split)
+    both = torch.as_tensor(np.concatenate([kv_w, q_w]), device=device)
+    return both[:kv_w.size], kv_n, both[kv_w.size:], q_n
+
+
 @functools.lru_cache(maxsize=64)
 def _device_tiles(q_len, kv_len, causal, window, starts, block_m, block_n,
                   device):
@@ -269,10 +386,25 @@ def _device_tiles(q_len, kv_len, causal, window, starts, block_m, block_n,
 # --- the kernels -------------------------------------------------------------
 
 
+def check_f32_smem(lib: ctypes.CDLL) -> None:
+    """Holds `bwd_f32_smem_bytes` to the shared memory the library's f32
+    kernels take (`tfa_flash_bwd_f32_smem`); raises where they differ."""
+    smem = lib.tfa_flash_bwd_f32_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for d in _KERNEL_HEAD_DIMS:
+        if smem(d) != bwd_f32_smem_bytes(d):
+            raise RuntimeError(
+                f"ops/configs.py::bwd_f32_smem_bytes gives "
+                f"{bwd_f32_smem_bytes(d)} bytes at head_dim {d}; the f32 "
+                f"backward kernels take {smem(d)}")
+
+
 def _flash_bwd_fn():
-    fn = _build.library("flash_bwd").tfa_flash_bwd
+    lib = _build.library("flash_bwd")
+    fn = lib.tfa_flash_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+        check_f32_smem(lib)
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -310,9 +442,10 @@ def _starts_key(segment_starts):
 
 class BwdLaunch:
     """One backward call, checked and allocated: `run(stages)` launches its
-    kernels (bf16: 1 prep, 2 main, 4 post; f32: 1 dq, 2 dk/dv), so that
-    chip_smoke.py can time each alone. `grads` are (dq, dk, dv); `turns`
-    the bf16 dQ chain's counters, which the main kernel leaves at 0."""
+    kernels (bf16: 1 prep, 2 main, 4 post; f32: 1 dq, 2 dk/dv, 4 post), so
+    that chip_smoke.py can time each alone. `grads` are (dq, dk, dv);
+    `turns` the bf16 dQ chain's counters, which the main kernel leaves at
+    0; `slots` the f32 kernels' (dq, dk, dv) slots."""
 
     def __init__(self, q, k, v, out, lse, do, *, causal: bool,
                  sm_scale: float, segment_ids=None,
@@ -321,10 +454,18 @@ class BwdLaunch:
         bs, hq, q_len, d = q.shape
         _, hkv, kv_len, _ = k.shape
         self.bf16 = q.dtype == torch.bfloat16
-        cfg = FLASH_BWD_BF16 if self.bf16 else FLASH_BWD_F32
-        self.kv_table, self.q_table = _device_tiles(
-            q_len, kv_len, causal, window, _starts_key(segment_starts),
-            cfg.block_m, cfg.block_n, str(q.device))
+        starts = _starts_key(segment_starts)
+        items = (0, 0)
+        if self.bf16:
+            cfg = FLASH_BWD_BF16
+            self.kv_table, self.q_table = _device_tiles(
+                q_len, kv_len, causal, window, starts, cfg.block_m,
+                cfg.block_n, str(q.device))
+        else:
+            self.kv_table, kv_n, self.q_table, q_n = _device_f32_work(
+                q_len, kv_len, causal, window, starts,
+                configs.FLASH_BWD_F32_SPLIT, str(q.device))
+            items = (kv_n, q_n)
         q, k, v, out, do = (_aligned(t) for t in (q, k, v, out, do))
         lse = _aligned(lse)
         self.grads = (torch.empty_like(q), torch.empty_like(k),
@@ -354,8 +495,17 @@ class BwdLaunch:
                     dkv[:n_kv], dkv[n_kv:], acc[n_dq:].view(torch.int32))
             self.turns = bufs[-1]
         else:
+            # rowsum(dout * out); one f32 slot of 64 x d per (work item,
+            # q head) for each of dq (q-major items), dk and dv (kv-major),
+            # every one written by its block
             delta = (do * out).sum(-1)
-            bufs = (None, None, delta, None, None, None, None)
+            n = bs * hq * FLASH_BWD_F32.block_m * d
+            kv_n, q_n = items
+            slots = torch.empty((q_n + 2 * kv_n) * n, dtype=torch.float32,
+                                device=q.device)
+            self.slots = (slots[:q_n * n], slots[q_n * n:(q_n + kv_n) * n],
+                          slots[(q_n + kv_n) * n:])
+            bufs = (None, None, delta, *self.slots, None)
             self.turns = None
         self._keep = (q, k, v, out, lse, do, q_seg, kv_seg, bufs)
         ptr = (lambda t: None if t is None else t.data_ptr())
@@ -366,13 +516,11 @@ class BwdLaunch:
             self.q_table.data_ptr(), *(ptr(t) for t in bufs[3:]),
             *(g.data_ptr() for g in self.grads),
             bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
-            in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
+            *items, in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
             _KERNEL_DTYPES[q.dtype])
         self.device = q.device
 
-    def run(self, stages: Optional[int] = None) -> None:
-        if stages is None:
-            stages = 7 if self.bf16 else 3
+    def run(self, stages: int = 7) -> None:
         with _build.on_device(self.device):
             err = _flash_bwd_fn()(*self._args, stages,
                                   torch.cuda.current_stream().cuda_stream)

@@ -6,7 +6,8 @@ forward (ops/flash.py) so that the gap between the two stays visible. A CPU
 tensor takes the plain version (`flash_attention_v1_plain`); a CUDA tensor
 launches csrc/flash_v1.cu, which keeps FA1's order on the card (KV tiles
 outer, every q tile's running state in a global scratch reloaded on each KV
-step), or raises.
+step; bf16 on wgmma and TMA, its blocks' q tiles from `v1_schedule`), or
+raises.
 
 One divergence from JAX: every row that sees no column (causal with q_len >
 kv_len) gets out 0 and the LSE sentinel (mask value) * ln2. JAX gives that
@@ -17,14 +18,16 @@ result that depends on its block size.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_V1_BF16, FLASH_V1_F32)
+    FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_F32, v1_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, LOG2E, _aligned, in_dtype)
 from tiny_flash_attention_tpu_torch.ops.reference import (
@@ -97,10 +100,80 @@ def flash_attention_v1_plain(q, k, v, *, causal: bool, sm_scale: float):
     return out.to(q.dtype), lse
 
 
+def kv_tile_counts(q_len: int, kv_len: int, causal: bool, block_m: int,
+                   block_n: int) -> np.ndarray:
+    """The kv tiles [0, hi) each q tile visits, as the kernel counts them
+    (csrc/flash_common.cuh::kv_tiles): up to the causal clamp of its last
+    row, at least one, so rows that precede every kv position still get
+    the sentinel."""
+    n_all = -(-kv_len // block_n)
+    q0 = np.arange(-(-q_len // block_m), dtype=np.int64) * block_m
+    if not causal:
+        return np.full(q0.shape, n_all, np.int64)
+    last = np.minimum(q0 + block_m, q_len) - 1 + (kv_len - q_len)
+    return np.where(last < 0, 1, np.minimum(n_all, last // block_n + 1))
+
+
+def v1_schedule(q_len: int, kv_len: int, causal: bool,
+                block_m: int = FLASH_V1_BF16.block_m,
+                block_n: int = FLASH_V1_BF16.block_n,
+                per_block: int = FLASH_V1_BF16_Q_TILES) -> np.ndarray:
+    """The q tiles of each bf16 FA1 block, (blocks, per_block) int32, -1
+    for none: the tiles longest first (most kv tiles to visit), dealt to
+    ceil(n / per_block) blocks in snake order (0 .. B-1, then B-1 .. 0),
+    so that each block's kv steps add up to about the same (causal: block
+    i takes tiles n-1-i and i). Every q tile appears once."""
+    work = kv_tile_counts(q_len, kv_len, causal, block_m, block_n)
+    n_blocks = -(-work.size // per_block)
+    table = np.full((n_blocks, per_block), -1, np.int32)
+    for rank, tile in enumerate(np.argsort(-work, kind="stable")):
+        rnd, pos = divmod(rank, n_blocks)
+        table[pos if rnd % 2 == 0 else n_blocks - 1 - pos, rnd] = tile
+    return table
+
+
+def v1_state_floats(dtype: torch.dtype, bh: int, q_len: int, d: int) -> int:
+    """f32 scratch of the kernel's running state: bf16, one slot per (head,
+    128-row q tile) of block_m * (d + 8) floats (each thread's accumulator
+    fragments and its (m, m', l, l')); f32, m, l and the accumulator of
+    every row, rows padded to whole 64-row tiles."""
+    if dtype == torch.bfloat16:
+        bm = FLASH_V1_BF16.block_m
+        return bh * -(-q_len // bm) * bm * (d + 8)
+    bm = FLASH_V1_F32.block_m
+    return bh * -(-q_len // bm) * bm * (d + 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_schedule(q_len, kv_len, causal, device):
+    return torch.as_tensor(v1_schedule(q_len, kv_len, causal), device=device)
+
+
+def check_smem_layout(lib: ctypes.CDLL) -> None:
+    """Holds `v1_smem_bytes` to the shared memory the library's instances
+    take (`tfa_flash_v1_smem`, from the kernels' own layouts) for both
+    dtypes and head dims; raises where they differ."""
+    smem = lib.tfa_flash_v1_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for dtype, code in _KERNEL_DTYPES.items():
+        cfg = FLASH_V1_BF16 if dtype == torch.bfloat16 else FLASH_V1_F32
+        for d in _KERNEL_HEAD_DIMS:
+            want = v1_smem_bytes(cfg, d)
+            if smem(code, d) != want:
+                raise RuntimeError(
+                    f"ops/configs.py::v1_smem_bytes gives {want} bytes for "
+                    f"{cfg} at head_dim {d}; the kernel takes "
+                    f"{smem(code, d)}")
+
+
 def _v1_fn():
-    fn = _build.library("flash_v1").tfa_flash_v1
+    lib = _build.library("flash_v1")
+    fn = lib.tfa_flash_v1
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        check_smem_layout(lib)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                ctypes.c_longlong]
+                       + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -123,18 +196,19 @@ def _v1_cuda(q, k, v, *, causal: bool, sm_scale: float):
     if q_len == 0 or kv_len == 0 or b * h == 0:
         raise ValueError("empty q or kv")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    bm = (FLASH_V1_BF16 if q.dtype == torch.bfloat16 else FLASH_V1_F32).block_m
-    rows = -(-q_len // bm) * bm
     dev = q.device
-    m = torch.empty((b * h, rows), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b * h, rows, d), dtype=torch.float32, device=dev)
+    n = v1_state_floats(q.dtype, b * h, q_len, d)
+    state = torch.empty(n, dtype=torch.float32, device=dev)
+    sched = (_device_schedule(q_len, kv_len, bool(causal), str(dev))
+             if q.dtype == torch.bfloat16 else None)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=dev)
     with _build.on_device(dev):
         err = _v1_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(), rows,
+            lse.data_ptr(), state.data_ptr(),
+            None if sched is None else sched.data_ptr(),
+            0 if sched is None else sched.shape[0], n,
             b * h, q_len, kv_len, d, int(causal),
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
