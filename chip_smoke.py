@@ -32,15 +32,19 @@ AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
 train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
 train cell) and two f32 steps at 1 x 1024. The flash forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
-and 8192 (FA1: 2048) the gate must reject faults planted in the plain
-version (a stale V tile, a dropped kv tile; for FA1 also a q tile's state
-not reloaded at one kv step). Two runs of the backward must give the same
+and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
+planted in the plain version (a stale V tile, a dropped kv tile; for FA1
+also a q tile's state not reloaded at one kv step); at both quantized
+benchmark shapes the quantized gate must reject a bf16 stage left from the
+previous tile, k scales shifted by one token and v scales ignored. Two
+runs of the backward must give the same
 bits (bwd_spread for bf16, check_bwd for f32: their sums run in a fixed
 order). The decodes are held against
 their plain version at the kernel's own split count and unsplit, the
 quantized matmul at every engine projection at 8 rows and at 1. It fails
-if a kernel does not build, launch or agree, if the bf16 instances of
-the flash forward or of FA1 are not on
+if a kernel does not build, launch or agree, if the bf16-q instances of
+the flash forward (over bf16 K/V and over int8/e4m3 payloads) or FA1's
+bf16 instances are not on
 wgmma (no HGMMA, or any HMMA, in their SASS), if a path did not go through
 its kernels, if a decode step's launches differ from the parent tree's
 (303 bf16, 303 / 299 int8 KV with bf16 / int8 weights, 302 windowed), if
@@ -78,6 +82,7 @@ SEED = 0
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 PROFILE_STEPS = 8
+PROFILE_SETTLE_S = 0.1   # the profiler's pause before the profiled run
 # The decode kernel and its plain version share their arithmetic (q scaled
 # in bf16, p rounded to bf16 before PV), so they agree far inside the
 # generic bf16 gate: earlier runs read at most 1.95e-3 on out (one bf16 ulp
@@ -383,18 +388,18 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
 
 def gate_faults(name, faults, plain, q, rows) -> None:
     """Each fault's (out, lse) of the rows `rows`, written into the plain
-    version's output on the folded q, put through the bf16 flash gate
-    against `plain`: each must fail it."""
+    version's output on the folded q, put through the flash gate of q's
+    dtype against `plain`: each must fail it."""
     from tiny_flash_attention_tpu_torch.utils.testing import (
         flash_gate, fold_q)
 
     for label, (f_out, f_lse) in faults.items():
         out, lse = plain(*fold_q(q, q.shape[-1] ** -0.5))
         out[:, :, rows], lse[:, :, rows] = f_out, f_lse
-        errs, folded, ok = flash_gate(out, lse, plain, q, torch.bfloat16)
+        errs, folded, ok = flash_gate(out, lse, plain, q, q.dtype)
         log(f"{name}: planted fault in the last q tile's rows, "
             f"{label}: {flash_readings(errs, folded)} "
-            f"({gate_text(torch.bfloat16)}) | "
+            f"({gate_text(q.dtype)}) | "
             f"{'PASSES THE GATE' if ok else 'caught'}")
         if ok:
             raise AssertionError(f"the flash gate passes a planted fault: "
@@ -403,24 +408,25 @@ def gate_faults(name, faults, plain, q, rows) -> None:
 
 def v1_planted_faults(name, q, k, v, sm_scale) -> None:
     """Three faults of B14's pipeline (causal, q_len == kv_len), planted in
-    the last q tile's rows (128, the tile that walks every kv tile) of
-    FA1's plain version on the folded q and gated as the kernel's output
-    is: (1) kv tile j's V from tile j - 1 (a stale K/V ring stage); (2) kv
-    tile j dropped; (3) FA1's own fault, the tile's state not reloaded at
-    kv step j, so it restarts from zero there and sees kv tiles j.. only;
-    j the middle tile. Each is the plain version on cut inputs: the q rows
-    keep their positions (the decode offset), and kv tiles before the
-    cut lie left of every row's causal edge."""
-    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_V1_BF16
+    the last q tile's rows (the tile of q's dtype, which walks every kv
+    tile) of FA1's plain version on the folded q and gated as the kernel's
+    output is (bf16: at the fold too; f32: at its dtype gate): (1) kv tile
+    j's V from tile j - 1 (a stale K/V ring stage); (2) kv tile j dropped;
+    (3) FA1's own fault, the tile's state not reloaded at kv step j, so it
+    restarts from zero there and sees kv tiles j.. only; j the middle
+    tile. Each is the plain version on cut inputs: the q rows keep their
+    positions (the decode offset), and kv tiles before the cut lie left of
+    every row's causal edge."""
     from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
-        flash_attention_v1_plain)
+        flash_attention_v1_plain, v1_config)
     from tiny_flash_attention_tpu_torch.utils.testing import fold_q
 
     def plain(x, sc, kk=k, vv=v):
         return flash_attention_v1_plain(x, kk, vv, causal=True, sm_scale=sc)
 
     q_len, kv_len = q.shape[2], k.shape[2]
-    bm, bn = FLASH_V1_BF16.block_m, FLASH_V1_BF16.block_n
+    cfg, _ = v1_config(q.dtype)
+    bm, bn = cfg.block_m, cfg.block_n
     j = kv_len // bn // 2
     tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
     rows = slice(q_len - bm, q_len)
@@ -2289,6 +2295,7 @@ def surface_phase(gen) -> dict:
 
     # ---- the main path: counts zeroed just before, read just after ----
     tfa.flash_attention_v1.launches = 0
+    tfa.flash_attention_v1.f32_launches = 0
     paged_decode_attention.launches = 0
     torch.cuda.synchronize()
     v1_out = [tfa.flash_attention_v1(q, k, v, causal=case[4],
@@ -2297,9 +2304,11 @@ def surface_phase(gen) -> dict:
     b12_out = [paged_decode_attention(*x) for x in b12_in]
     torch.cuda.synchronize()
     launches = {"flash_v1": tfa.flash_attention_v1.launches,
+                "flash_v1_f32": tfa.flash_attention_v1.f32_launches,
                 "paged_decode_separate": paged_decode_attention.launches}
     # ---------------------------------------------------------------------
     want = {"flash_v1": len(V1_CASES),
+            "flash_v1_f32": sum(c[3] == torch.float32 for c in V1_CASES),
             "paged_decode_separate": len(B12_CASES)}
     log(f"B14/B12 surface: launches {launches} (expected {want})")
     if launches != want:
@@ -2315,7 +2324,7 @@ def surface_phase(gen) -> dict:
             out, lse, lambda qq, s2: flash_attention_v1_plain(
                 qq, k, v, causal=causal, sm_scale=s2), q, dt)
         ok = ok and bool(torch.isfinite(out).all())
-        if dt == torch.bfloat16 and causal and qs[2] == ks[2]:
+        if causal and qs[2] == ks[2]:
             v1_planted_faults(name, q, k, v, sc)
         mask = None
         if causal and qs[2] != ks[2]:
@@ -2441,33 +2450,88 @@ def visible(q_len, kv_len, *, window=None, seg=None) -> torch.Tensor:
     return mask
 
 
-def check_quant(name, q, kq, vq, out, lse, *, v_fault=False, **kw) -> float:
-    """One quantized call against its plain version on the card: out within
-    the dtype gate times min(1, max|ref|), the LSE within QUANT_LSE_GATE.
-    Prints, for information, the largest difference from SDPA over the
-    dequantized K/V on the rows that see a column and, with `v_fault`, what
-    the out gate reads against a V-side fault: the plain version with its v
-    scales ignored (a zero out reads 1 of max|ref|)."""
-    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
-        flash_attention_quantized_plain)
+def tolerance_for_text(dtype) -> str:
     from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
-    q_len, kv_len = q.shape[2], kq.shape[2]
+    return f"{tolerance_for(dtype):.0e} of min(1, max|ref|)"
 
-    def plain(v_scales):
-        return flash_attention_quantized_plain(
-            q, kq.values, vq.values, kq.scales, v_scales, causal=True,
-            sm_scale=q.shape[-1] ** -0.5, return_lse=True, **kw)
 
-    ref, ref_lse = plain(vq.scales)
+def quant_gate(out, lse, ref, ref_lse) -> tuple[float, float, float, bool]:
+    """(out err, max|ref|, lse err, ok): a quantized call's (out, lse)
+    against its plain version's, out within the dtype gate times min(1,
+    max|ref|), the LSE within QUANT_LSE_GATE, out finite."""
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
     err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
     ref_max = float(ref.float().abs().max())
-    fault = ""
-    if v_fault:
-        unscaled = plain(torch.ones_like(vq.scales))[0]
-        fault = (f" | v scales ignored would read "
-                 f"{max_err(unscaled, ref) / ref_max:.3e} of max|ref|")
-        del unscaled
+    ok = (err <= tolerance_for(out.dtype) * min(1.0, ref_max)
+          and lse_err <= QUANT_LSE_GATE and bool(torch.isfinite(out).all()))
+    return err, ref_max, lse_err, ok
+
+
+def quant_planted_faults(name, q, kq, vq, ref, ref_lse) -> None:
+    """Three faults of the quantized pipeline (causal), planted in the rows
+    of the last q tile (128 rows, the ones that read the most kv tiles) of
+    the plain version and put through the quantized gate (`quant_gate`)
+    against the sound plain version, as B1's planted faults are: (1) the
+    bf16 stage of kv tile j left over from tile j - 1 (its conversion
+    skipped: tile j's payloads are tile j - 1's, its scales its own); (2)
+    the k scales shifted by one token; (3) the v scales ignored (all 1); j
+    the middle kv tile of those rows. Each must fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_BF16
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+
+    q_len, kv_len = q.shape[2], kq.shape[2]
+    bn = FLASH_FWD_BF16.block_n
+    j = kv_len // bn // 2
+    tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
+    rows = slice(q_len - 128, q_len)
+    ks, vs = kq.scales, vq.scales
+    stale = []
+    for x in (kq.values, vq.values):
+        y = x.clone()
+        y[:, :, tile] = x[:, :, prev]
+        stale.append(y)
+    faults = {
+        f"stage of kv tile {j} left from tile {j - 1}": (*stale, ks, vs),
+        "k scales shifted by one token": (
+            kq.values, vq.values, torch.roll(ks, 1, dims=2), vs),
+        "v scales ignored": (kq.values, vq.values, ks, torch.ones_like(vs)),
+    }
+    for label, (kk, vv, fks, fvs) in faults.items():
+        f_out, f_lse = flash_attention_quantized_plain(
+            q[:, :, rows], kk, vv, fks, fvs, causal=True,
+            sm_scale=q.shape[-1] ** -0.5, return_lse=True)
+        out, lse = ref.clone(), ref_lse.clone()
+        out[:, :, rows], lse[:, :, rows] = f_out, f_lse
+        err, ref_max, lse_err, ok = quant_gate(out, lse, ref, ref_lse)
+        log(f"{name}: planted fault in the last q tile's rows, {label}: out "
+            f"err {err / ref_max:.3e} of max|ref| (gate "
+            f"{tolerance_for_text(q.dtype)}) lse err {lse_err:.3e} (gate "
+            f"{QUANT_LSE_GATE:.0e}) | {'PASSES THE GATE' if ok else 'caught'}")
+        if ok:
+            raise AssertionError(f"the quantized gate passes a planted "
+                                 f"fault: {name}, {label}")
+        del f_out, f_lse, out, lse
+
+
+def check_quant(name, q, kq, vq, out, lse, *, faults=False, **kw) -> float:
+    """One quantized call against its plain version on the card
+    (`quant_gate`). Prints, for information, the largest difference from
+    SDPA over the dequantized K/V on the rows that see a column. With
+    `faults` (causal, no other mask), the planted faults of
+    `quant_planted_faults` must fail the same gate."""
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+
+    q_len, kv_len = q.shape[2], kq.shape[2]
+    ref, ref_lse = flash_attention_quantized_plain(
+        q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+        sm_scale=q.shape[-1] ** -0.5, return_lse=True, **kw)
+    err, ref_max, lse_err, ok = quant_gate(out, lse, ref, ref_lse)
+    if faults:
+        quant_planted_faults(name, q, kq, vq, ref, ref_lse)
     del ref, ref_lse
     seg = None if kw.get("segment_ids") is None else kw["segment_ids"][0]
     mask = visible(q_len, kv_len, window=kw.get("window"), seg=seg)
@@ -2477,14 +2541,11 @@ def check_quant(name, q, kq, vq, out, lse, *, v_fault=False, **kw) -> float:
     seen = mask.any(dim=-1).expand(out.shape[:3])
     sdpa_err = max_err(out[seen], sdpa[seen])
     del sdpa, mask
-    atol = tolerance_for(q.dtype)
-    ok = (err <= atol * min(1.0, ref_max) and lse_err <= QUANT_LSE_GATE
-          and bool(torch.isfinite(out).all()))
     log(f"{name}: q{tuple(q.shape)} {str(kq.dtype).split('.')[-1]} "
         f"kv{tuple(kq.shape)} | out err {err:.3e} = {err / ref_max:.3e} of "
-        f"max|ref| {ref_max:.3e} (gate {atol:.0e} of min(1, max|ref|)) lse "
+        f"max|ref| {ref_max:.3e} (gate {tolerance_for_text(q.dtype)}) lse "
         f"err {lse_err:.3e} (gate {QUANT_LSE_GATE:.0e}) against the plain "
-        f"version{fault} | SDPA over the dequantized K/V differs by "
+        f"version | SDPA over the dequantized K/V differs by "
         f"{sdpa_err:.3e} (information) | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"quantized kernel disagrees with plain: {name}")
@@ -2532,7 +2593,7 @@ def quant_flash_phase(gen) -> dict:
     for (name, fmt, _, _), (q, k, v, kq, vq) in zip(QUANT_BENCH, bench_in):
         out, lse = outs.pop(0)
         worst[fmt] = check_quant(f"quantized flash {name}", q, kq, vq, out,
-                                 lse, v_fault=True)
+                                 lse, faults=True)
         del out, lse
         sc = q.shape[-1] ** -0.5
         mask = None if q.shape[2] == k.shape[2] else visible(q.shape[2],
@@ -2921,6 +2982,10 @@ def profile_window(label: str, fn, n: int, launches=None) -> None:
     wall_ms = (time.perf_counter() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # started at once, fn loses the first device records of about one
+        # profile in twenty (a prefix of its kernels, in any tree); a pause
+        # lets the profiler settle (PERF.md, section 7)
+        time.sleep(PROFILE_SETTLE_S)
         fn()
         torch.cuda.synchronize()
     # user annotations (the optimizer's step) span kernels counted anyway
@@ -2975,12 +3040,14 @@ def main() -> int:
                                                 text))
         log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
             f"registers, {spills} bytes of spill stores in all (ptxas)")
-        if len(regs) <= 16:
+        if len(regs) <= 32:
             log("    registers/spill bytes: "
                 + ", ".join(instance_registers(text)))
-    # the bf16 instances of B1 and B14 run on wgmma: HGMMA in their SASS,
+    # the bf16-q instances of B1 (over bf16 K/V and over int8/e4m3
+    # payloads) and B14's bf16 instances run on wgmma: HGMMA in their SASS,
     # no HMMA
     for lib, prefix in (("flash_fwd", "flash_fwd_wgmma_kernel"),
+                        ("flash_fwd_quant", "flash_fwd_wgmma_kernel"),
                         ("flash_v1", "flash_v1_wgmma_kernel")):
         sass = {k: v for k, v in wgmma_instructions(
             str(_build._target(lib)[1])).items() if k.startswith(prefix)}
@@ -2988,7 +3055,8 @@ def main() -> int:
             "-sass): " + ", ".join(f"{k}: {g}/{h}"
                                    for k, (g, h) in sass.items()))
         if not sass or any(g == 0 or h > 0 for g, h in sass.values()):
-            raise AssertionError(f"{lib}'s bf16 instances are not on wgmma")
+            raise AssertionError(f"{lib}'s bf16-q instances are not on "
+                                 "wgmma")
     # shared memory: ops/configs.py's sizes are the kernels'
     from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_f32_smem
@@ -3104,7 +3172,10 @@ def main() -> int:
     # pages; each with the worst error of its cases
     srows = surface["rows"]
     v1_row = dict(srows[V1_CASES[0][0]])
-    v1_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"] for c in V1_CASES)
+    v1_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"] for c in V1_CASES
+                                if c[3] == torch.bfloat16)
+    v1_f32_row = dict(srows[next(c[0] for c in V1_CASES
+                                 if c[3] == torch.float32)])
     b12_row = dict(srows[B12_CASES[0][0]])
     b12_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"]
                                  for c in B12_CASES)
@@ -3221,12 +3292,25 @@ def main() -> int:
                    "producer warpgroup streams K/V through a two-stage "
                    "ring and the q tiles through a two-stage ring of their "
                    "own, two consumer warpgroups of 64 q rows; two 128-row "
-                   "q tiles a block, dealt longest first in snake order; "
-                   "f32: CUDA cores",
+                   "q tiles a block, dealt longest first in snake order",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
          "launches": surface["launches"]["flash_v1"],
          **{k: v for k, v in v1_row.items() if k != "fa2_ms"}},
+        {"name": "flash_v1_f32", "route": "cuda",
+         "design": "f32 on the CUDA cores (no TF32), FA1's order and state "
+                   "round trip kept: 17 warps a block, two 64-row q tiles "
+                   "from the snake schedule (128 blocks at (2,8,1024)); "
+                   "two S groups of 128 threads take the steps in turn (8 "
+                   "x 4 score tiles, the tile's own max and sum), a PV "
+                   "group of 256 (8 x 4 output tiles) merges each step "
+                   "into the state it reloads and stores back (its own "
+                   "coalesced slots), a loader warp streams K and q by "
+                   "cp.async into swizzled rings on mbarriers",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
+         "launches": surface["launches"]["flash_v1_f32"],
+         **{k: v for k, v in v1_f32_row.items() if k != "fa2_ms"}},
         {"name": "paged_decode_separate", "route": "cuda",
          "design": "separate K/V page arrays on B4's template; "
                    + DECODE_DESIGN,
@@ -3236,6 +3320,12 @@ def main() -> int:
          "launches": surface["launches"]["paged_decode_separate"],
          **b12_row},
         *({"name": f"flash_fwd_quant_{fmt}", "route": "cuda",
+           "design": "bf16 q: B1's wgmma/TMA kernel (flash_fwd_wgmma.cuh); "
+                     "its producer warpgroup bulk-copies each payload tile "
+                     "into the second half of its ring stage and expands "
+                     "it in place into the swizzled bf16 tile, two bytes "
+                     "an instruction; the consumers read the per-token "
+                     "scales through L1",
            "source": "tiny_flash_attention_tpu_torch/csrc/"
                      "flash_fwd_quant.cu",
            "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "

@@ -624,6 +624,16 @@ def test_quantized_matmul_routes_by_rows(gen):
     (1, 2, 1000, 130, 128, True, torch.bfloat16),     # 6 tiles see nothing
     (2, 2, 1280, 1280, 128, True, torch.bfloat16),    # 5 blocks a head
     (1, 3, 1920, 1920, 64, False, torch.bfloat16),
+    # f32 at the edges of its 64-row tiles, two q tiles a block
+    (1, 2, 63, 63, 128, True, torch.float32),
+    (1, 2, 64, 65, 64, True, torch.float32),          # the decode offset
+    (2, 3, 129, 127, 128, True, torch.float32),       # rows before every kv
+    (1, 2, 65, 64, 128, False, torch.float32),
+    (1, 2, 257, 257, 128, False, torch.float32),
+    (1, 2, 1, 333, 128, True, torch.float32),         # one decode row
+    (1, 2, 1000, 130, 64, True, torch.float32),       # 13 tiles see nothing
+    (2, 2, 1024, 1024, 128, True, torch.float32),     # 8 blocks a head
+    (1, 3, 320, 320, 64, True, torch.float32),        # an odd tile count
 ])
 def test_v1_kernel_matches_plain(gen, b, h, q_len, kv_len, d, causal, dtype):
     """The FA1 kernel against its plain version at the dtype gate and, in
@@ -667,15 +677,25 @@ def test_v1_bf16_kernel_at_tile_edges(gen, q_len, kv_len, causal):
         x, k, v, causal=causal, sm_scale=sc), q, torch.bfloat16)
 
 
-def test_v1_bf16_kernel_runs_are_bit_identical(gen):
-    """Each q tile's state goes to its own scratch slots and back by the
-    same thread, in a fixed order: two calls give the same bits."""
-    q, k, v = (_randn((2, 4, 777, 128), torch.bfloat16, gen)
-               for _ in range(3))
+def _v1_two_calls_agree(gen, dtype):
+    q, k, v = (_randn((2, 4, 777, 128), dtype, gen) for _ in range(3))
     one = flash_attention_v1(q, k, v, causal=True, return_lse=True)
     two = flash_attention_v1(q, k, v, causal=True, return_lse=True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_v1_bf16_kernel_runs_are_bit_identical(gen):
+    """Each q tile's state goes to its own scratch slots and back by the
+    same thread, in a fixed order: two calls give the same bits."""
+    _v1_two_calls_agree(gen, torch.bfloat16)
+
+
+def test_v1_f32_kernel_runs_are_bit_identical(gen):
+    """The f32 instance: each step's p' comes from its S group in step
+    order, and each PV thread stores and reloads its own state slots, so
+    two calls give the same bits."""
+    _v1_two_calls_agree(gen, torch.float32)
 
 
 @pytest.mark.parametrize("fmt,group,d,ps", [
@@ -814,9 +834,24 @@ def test_ring_decode_kernel_matches_plain(gen, fmt, group, ps, window):
      {"causal": True, "ids": (37, 100, 250), "starts": True}),
     (1, 4, 2, 97, 97, 64, "int8", torch.float32,
      {"causal": True, "ids": (50,), "starts": True, "window": 40}),
+    # bf16 q at the edges of the 128-row tiles (odd kv lengths pad the
+    # scale rows), rows before every kv position, the window and ids
+    # across a tile edge, head_dim 64
+    (1, 4, 2, 127, 127, 128, "int8", torch.bfloat16, {"causal": True}),
+    (1, 4, 2, 128, 128, 128, "fp8", torch.bfloat16, {"causal": True}),
+    (1, 4, 2, 129, 129, 64, "int8", torch.bfloat16, {"causal": False}),
+    (2, 8, 2, 257, 257, 128, "fp8", torch.bfloat16, {"causal": True}),
+    (1, 4, 2, 257, 129, 128, "int8", torch.bfloat16, {"causal": True}),
+    (1, 4, 4, 129, 257, 64, "fp8", torch.bfloat16, {"causal": True}),
+    (1, 8, 2, 257, 257, 128, "int8", torch.bfloat16,
+     {"causal": True, "window": 129}),
+    (1, 8, 2, 257, 257, 64, "fp8", torch.bfloat16,
+     {"causal": True, "ids": (1, 127, 128, 129), "starts": True}),
 ], ids=["g1-d64", "g2-noncausal", "g4-f32", "offset-f32", "empty-rows",
         "decode-row", "window-bf16", "window-f32", "ids-bf16", "ids-f32",
-        "starts-bf16", "starts-window-f32"])
+        "starts-bf16", "starts-window-f32", "edge127", "edge128",
+        "edge129-d64", "edge257", "q257-kv129", "q129-kv257-d64",
+        "window129-257", "starts-edges-d64"])
 def test_quantized_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
                                         fmt, dtype, masks):
     """The quantized instances against their plain version (out within the
@@ -854,6 +889,19 @@ def test_quantized_kernel_matches_plain(gen, b, hq, hkv, q_len, kv_len, d,
             q, k, v, return_lse=True, segment_starts=(0, *masks["ids"]),
             **kw)
         assert all(torch.equal(x, y) for x, y in zip(pruned, (out, lse)))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_kernel_runs_are_bit_identical(gen, fmt):
+    """bf16 q over payloads: each tile's conversion and sums run in a fixed
+    order, so two calls give the same bits."""
+    q = _randn((2, 8, 777, 128), torch.bfloat16, gen)
+    k, v = Q.quantize_kv(_randn((2, 2, 777, 128), torch.float32, gen),
+                         _randn((2, 2, 777, 128), torch.float32, gen), fmt)
+    one = flash_attention_quantized(q, k, v, causal=True, return_lse=True)
+    two = flash_attention_quantized(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)

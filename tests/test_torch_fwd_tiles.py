@@ -1,8 +1,9 @@
 """The forward kernels' tile tables and shared-memory budgets, on the CPU.
 
-The bf16 forward (wgmma, 128-row tiles) and the quantized and f32
-instances (64-row tiles) prune a packed row's work with tables built for
-their own tiles from one `SegmentTiles` (ops/flash.py). Held here:
+The bf16 forward (wgmma, 128-row tiles; over bf16 K/V and over int8/e4m3
+payloads alike) and the f32 instances (64-row tiles, over f32 K/V and over
+payloads) prune a packed row's work with tables built for their own tiles
+from one `SegmentTiles` (ops/flash.py). Held here:
 
   * every (row, column) pair that `visible_mask` lets through lies in its
     q tile's kv range [lo, hi) of `tile_table`, for random packed starts,
@@ -16,7 +17,11 @@ their own tiles from one `SegmentTiles` (ops/flash.py). Held here:
     within the dtype gates;
   * `fwd_smem_bytes` (which the libraries' own sizes are held to when
     they load, on the card) fits a block's 227 KB at head_dim 64 and 128
-    for every forward instance.
+    for every forward instance; the quantized bf16-q instances take B1's
+    layout;
+  * the bf16 kernel's pair conversion of payload bytes, mirrored by
+    `convert_pairs`, gives `payload_to_compute`'s bits for all 65,536 byte
+    pairs of int8 and of e4m3.
 """
 
 import jax
@@ -33,20 +38,22 @@ from tiny_flash_attention_tpu.ops.flash_quant import (
 from tiny_flash_attention_tpu_torch.models.transformer import (
     quantized_from_jax)
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_F32, FLASH_FWD_QUANT_BF16, SMEM_PER_BLOCK,
-    TileConfig, fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_F32, SMEM_PER_BLOCK, TileConfig,
+    fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     check_smem_layouts, flash_attention, fwd_config, segment_tiles,
     tile_table, visible_mask)
 from tiny_flash_attention_tpu_torch.ops.flash_quant import (
-    flash_attention_quantized)
+    convert_pairs, flash_attention_quantized, payload_to_compute)
 from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
+# the tiles of each forward instance's table (bf16 q over quantized K/V
+# runs the bf16 kernel, on its tiles)
 CONFIGS = {"bf16": FLASH_FWD_BF16, "f32": FLASH_FWD_F32,
-           "quant_bf16": FLASH_FWD_QUANT_BF16}
+           "quant_bf16": fwd_config(torch.bfloat16, quantized=True)}
 # every forward instance: its tiles, and whether its K/V are quantized
 INSTANCES = {"bf16": (FLASH_FWD_BF16, False), "f32": (FLASH_FWD_F32, False),
-             "quant_bf16": (FLASH_FWD_QUANT_BF16, True),
+             "quant_bf16": (FLASH_FWD_BF16, True),
              "quant_f32": (FLASH_FWD_F32, True)}
 INTERP = FlashConfig(block_q=128, block_kv=128, interpret=True)
 
@@ -118,12 +125,14 @@ def test_one_segment_tiles_serve_both_entries_as_jax():
                                segment_starts=tuple(starts), config=INTERP)
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) <= atol
 
-    # the device tables: one per forward config, built once each
+    # the device tables: one per forward config, built once each; the
+    # quantized bf16-q entry shares the bf16 kernel's
     bf16 = tiles.table(fwd_config(torch.bfloat16))
     quant = tiles.table(fwd_config(torch.bfloat16, quantized=True))
+    f32 = tiles.table(fwd_config(torch.float32, quantized=True))
     assert tiles.table(fwd_config(torch.bfloat16)) is bf16
-    for (lo, order), cfg in ((bf16, FLASH_FWD_BF16),
-                             (quant, FLASH_FWD_QUANT_BF16)):
+    assert quant is bf16
+    for (lo, order), cfg in ((bf16, FLASH_FWD_BF16), (f32, FLASH_FWD_F32)):
         want_lo, _, want_order = tile_table(
             starts, q_len, causal=True, block_m=cfg.block_m,
             block_n=cfg.block_n)
@@ -131,7 +140,7 @@ def test_one_segment_tiles_serve_both_entries_as_jax():
         assert lo.tolist() == want_lo.tolist()
         assert order.tolist() == want_order.tolist()
     assert len(bf16[0]) == -(-q_len // FLASH_FWD_BF16.block_m)
-    assert len(quant[0]) == -(-q_len // FLASH_FWD_QUANT_BF16.block_m)
+    assert len(f32[0]) == -(-q_len // FLASH_FWD_F32.block_m)
 
 
 @pytest.mark.parametrize("cfg", list(INSTANCES), ids=list(INSTANCES))
@@ -145,15 +154,25 @@ def test_forward_smem_fits_a_block(cfg, head_dim):
 def test_fwd_config_by_dtype_and_payload():
     assert fwd_config(torch.bfloat16) is FLASH_FWD_BF16
     assert fwd_config(torch.float32) is FLASH_FWD_F32
-    assert fwd_config(torch.bfloat16, quantized=True) is FLASH_FWD_QUANT_BF16
+    # bf16 q over payloads runs the bf16 kernel, its tiles and its layout
+    assert fwd_config(torch.bfloat16, quantized=True) is FLASH_FWD_BF16
     assert fwd_config(torch.float32, quantized=True) is FLASH_FWD_F32
+    # ... and its layout, with a payload-copy mbarrier a stage: q, three
+    # stages of K, V and ids, 13 mbarriers, the alignment slack
+    for d in (64, 128):
+        assert (fwd_smem_bytes(FLASH_FWD_BF16, d, quantized=True)
+                == fwd_smem_bytes(FLASH_FWD_BF16, d) + 3 * 8)
+    assert fwd_smem_bytes(FLASH_FWD_BF16, 128) == 232016
+    assert fwd_smem_bytes(FLASH_FWD_BF16, 128, True) == 232040
+    assert fwd_smem_bytes(FLASH_FWD_BF16, 64, True) == (
+        128 * 64 * 2 + 3 * (2 * 128 * 64 * 2 + 128 * 4) + 13 * 8 + 1024)
     # the f32 body's quantized instances add their k and v scales
     assert (fwd_smem_bytes(FLASH_FWD_F32, 128, True)
             == fwd_smem_bytes(FLASH_FWD_F32, 128) + 2 * 64 * 4)
     with pytest.raises(ValueError):
         fwd_smem_bytes(TileConfig(64, 64, 128), 128)
     with pytest.raises(ValueError):
-        fwd_smem_bytes(FLASH_FWD_BF16, 128, quantized=True)
+        fwd_smem_bytes(TileConfig(64, 64, 128), 128, quantized=True)
 
 
 class _Library:
@@ -179,3 +198,23 @@ def test_smem_layouts_are_held_to_the_library(quantized):
     sizes[(0, 64)] += 16
     with pytest.raises(RuntimeError, match="fwd_smem_bytes"):
         check_smem_layouts(_Library(sizes), quantized)
+
+
+@pytest.mark.parametrize("fmt,dtype", [("int8", torch.int8),
+                                       ("fp8", torch.float8_e4m3fn)],
+                         ids=["int8", "e4m3"])
+def test_pair_conversion_matches_payload_to_compute(fmt, dtype):
+    """The bf16 kernel converts two payload bytes an instruction (int8: a
+    byte permute, lop3 and a bf16x2 fma against a magic number; e4m3:
+    JAX's integer mapping with shifts, a sign-replicating byte permute and
+    lop3): its mirror `convert_pairs` gives payload_to_compute's bf16 bits
+    for every one of the 65,536 byte pairs, zeros' signs, the subnormal
+    e4m3 codes (landing high) and the NaN codes (+/-480) included."""
+    pairs = torch.arange(1 << 16)
+    got = convert_pairs(pairs, fmt)
+    payload = torch.stack([pairs & 0xFF, pairs >> 8], -1).to(
+        torch.uint8).view(dtype)
+    want = payload_to_compute(payload, torch.bfloat16).view(
+        torch.int16).to(torch.int64) & 0xFFFF
+    assert got.shape == want.shape == (1 << 16, 2)
+    assert torch.equal(got, want)

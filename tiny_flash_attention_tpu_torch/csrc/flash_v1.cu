@@ -57,13 +57,13 @@
 //     same thread's reload, one KV step later, in program order. FA1's
 //     round trip costs issue slots and L2 traffic, not a stall.
 //
-// The f32 instance keeps its CUDA-core body (16 x 16 threads over 64 x 64
-// tiles, never TF32), FLASH_V1_F32_Q_TILES q tiles of one head a block,
-// interleaved.
+// The f32 instance runs on the CUDA cores (never TF32) with FA1's order and
+// round trip kept; its design is at the f32 path below.
 //
 // Tile sizes, stages and q tiles a block come from
-// tiny_flash_attention_tpu_torch/ops/configs.py as -D defines; the bf16
-// shared-memory layout is V1Smem (tfa_flash_v1_smem exports both sizes).
+// tiny_flash_attention_tpu_torch/ops/configs.py as -D defines; the
+// shared-memory layouts are V1Smem and V1F32Smem (tfa_flash_v1_smem exports
+// their sizes).
 
 #include "hopper.cuh"
 
@@ -430,184 +430,446 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 // ----------------------------------------------------------------- f32 path
+//
+// Real f32 FMAs on the CUDA cores (never TF32; the f32 gate is 2e-5), FA1's
+// order kept: one block of 17 warps takes F_QT 64-row q tiles of one head
+// from v1_schedule (longest first, snake order) and walks the kv tiles of 64
+// rows outer, its q tiles inner. A (kv tile j, q tile t) step is FA1's
+// (Algorithm 1 of the FlashAttention paper): S = q_t K_j^T with q folded by
+// sm_scale * log2 e in f32, the tile's own row max mt and p' = exp2(s - mt),
+// lt = rowsum(p'); then the state of t (m, l and the unnormalized output)
+// is reloaded from the scratch, merged (m' = max(m, mt), O = O exp2(m - m')
+// + exp2(mt - m') p' V_j, the same for l) and stored back; at t's last kv
+// tile, out = O / l and the LSE are written instead. The warps split a
+// step's two products by role, so that each product runs on register tiles
+// fed by float4 reads and the two run at once:
+//   * two S groups of 128 threads take the steps in turn (even, odd); a
+//     thread computes an 8 x 4 tile of S (rows 8a.., columns g + 16 i) over
+//     the head dim, 12 float4 reads for 128 FMAs, then the masked, tile-
+//     local softmax (row max and sum over 16 lanes), and writes p'^T and
+//     (mt, lt) of its step to its group's buffer in shared memory.
+//   * the PV group of 256 threads takes every step in order: a thread owns
+//     an (D / 16) x 4 tile of O (8 x 4 at head_dim 128; rows, and a
+//     16-byte column chunk), reloads its O and (m, l) from the scratch while
+//     it computes its tile of p' V_j (3 float4 reads for 32 FMAs), merges
+//     and stores them back: each thread's own slots, coalesced (float4 i of
+//     thread w at [i * 256 + w]; the (m, l) of a row group by its first
+//     D / 32 lanes, broadcast by shuffles), so no barrier or wait stands
+//     between a store and the reload, which is the same thread's, one kv
+//     step later. The S groups hold no state.
+//   * a loader warp streams K tiles through a two-stage ring and each
+//     step's q tile into its S group's buffer, by cp.async, each tile's
+//     copies completing on an mbarrier (cp.async.mbarrier.arrive); the S
+//     groups arrive on empty barriers once they have read them. The PV
+//     group loads V into a two-stage ring of its own, tile j + 1 landing
+//     while tile j's steps run, with one barrier among its warps a kv tile.
+// So kv tile j + 1 lands while tile j's q tiles are walked, and no block
+// barrier runs inside the loop: mbarriers between the roles, two P buffers
+// (one per S group) between the S groups and the PV group. Tiles sit
+// row-major with each row's 16-byte chunks XOR-swizzled (K, V by the row, q
+// by the row's 8-row group), so the strided float4 reads are free of bank
+// conflicts. Shared memory (V1F32Smem): 230,496 bytes at head_dim 128, one
+// block of 17 warps an SM.
 
-// The running state of every q row of every head, in global memory: rows
-// padded to whole q tiles.
-struct V1State {
-  float* m;    // (B * H, rows) running max (log2 domain)
-  float* l;    // (B * H, rows) running sum
-  float* acc;  // (B * H, rows, D) unnormalized output
-  int rows;
+constexpr int FM = TFA_V1_F32_BLOCK_M;         // q rows per tile
+constexpr int FN = TFA_V1_F32_BLOCK_N;         // kv rows per tile
+constexpr int FTHREADS = TFA_V1_F32_THREADS;   // 2 S groups, PV, loader
+constexpr int F_QT = TFA_V1_F32_Q_TILES;       // q tiles a block
+static_assert(FM == 64 && FN == 64 && FTHREADS == 544 && F_QT == 2,
+              "two S groups of 128 threads over 64 x 64 score tiles, a PV "
+              "group of 256 and a loader warp; the S groups take the steps "
+              "in turn, so with two q tiles a block each takes at most one "
+              "step a kv tile");
+constexpr int S_THREADS = 128, PV_THREADS = 256;
+
+
+// Shared memory of an f32 block, in floats: the K and V rings, one q tile
+// and one p'^T (64 x 64) per S group, and its (mt, lt) rows; then the
+// mbarriers: k_full, k_empty, q_full, q_empty, p_full, p_empty, two each.
+template <int D>
+struct V1F32Smem {
+  static constexpr int TILE = FM * D;
+  static constexpr int K = 0;                    // [2][TILE]
+  static constexpr int V = K + 2 * TILE;         // [2][TILE]
+  static constexpr int Q = V + 2 * TILE;         // [2 groups][TILE]
+  static constexpr int P = Q + 2 * TILE;         // [2 groups][FN][FM]
+  static constexpr int R = P + 2 * FN * FM;      // [2 groups][2][FM]
+  static constexpr int BAR = R + 2 * 2 * FM;
+  static constexpr int BYTES = BAR * 4 + 12 * 8;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-constexpr int FM = TFA_V1_F32_BLOCK_M;
-constexpr int FN = TFA_V1_F32_BLOCK_N;
-constexpr int FTHREADS = TFA_V1_F32_THREADS;
-// thread t owns rows (t / 16) * 4 + [0, 4) and columns t % 16 + 16 * [0, n)
-static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
-              "the f32 thread map is 16 x 16 threads over a 64 x 64 tile");
+// float4s of one q tile's state slot: the PV threads' accumulators, then
+// the (m, l) of the 64 rows
+template <int D>
+__host__ __device__ constexpr int f32_state_f4() {
+  return FM * (D + 2) / 4;
+}
+
+// Float offset of element (r, c) of a row-major tile of W-wide f32 rows,
+// its 16-byte chunks XOR-swizzled by key % 8 within each group of eight.
+template <int W>
+__device__ __forceinline__ int swf(int r, int c, int key) {
+  return r * W + ((((c >> 2) ^ key) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
+}
+
+// This thread's cp.async copies so far complete on `bar` (an arrival of its
+// own: the barrier counts the copying threads).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Rows [r0, r0 + 64) of a row-major (n_rows, D) f32 matrix into a swizzled
+// tile (chunk key: the row >> shift), `nt` threads from `i0`; rows past
+// n_rows land as zeros.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* t, const float* g, int r0,
+                                          int n_rows, int shift, int i0,
+                                          int nt) {
+  constexpr int C4 = D / 4;
+  for (int x = i0; x < FM * C4; x += nt) {
+    const int r = x / C4, c = (x % C4) * 4;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(t + swf<D>(r, c, r >> shift),
+               g + (size_t)(ok ? r0 + r : 0) * D + c, ok);
+  }
+}
 
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, 1)
     flash_v1_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, V1State st, int q_len,
+                        float* __restrict__ lse, float4* state,
+                        const int* __restrict__ schedule, int q_len,
                         int kv_len, int causal, float scale_log2) {
-  constexpr int PS = FN + 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [D][FM], q^T, scaled
-  float* kt = qt + D * FM;                         // [D][FN], k^T
-  float* vs = kt + D * FN;                         // [FN][D]
-  float* ps = vs + FN * D;                         // [FM][PS]
+  using S = V1F32Smem<D>;
+  constexpr int TILE = S::TILE;
+  extern __shared__ __align__(16) float fsm[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fsm + S::BAR);
+  uint64_t* k_full = bars;
+  uint64_t* k_empty = bars + 2;
+  uint64_t* q_full = bars + 4;
+  uint64_t* q_empty = bars + 6;
+  uint64_t* p_full = bars + 8;
+  uint64_t* p_empty = bars + 10;
 
   const int tid = threadIdx.x;
-  const int rg = tid / 16, cg = tid % 16;
   const int bh = blockIdx.y;
-  const int offset = kv_len - q_len;
   const int n_q = (q_len + FM - 1) / FM;
-  const float* qg = q + (size_t)bh * q_len * D;
-  const float* kg = k + (size_t)bh * kv_len * D;
-  const float* vg = v + (size_t)bh * kv_len * D;
-  float* og = o + (size_t)bh * q_len * D;
-  float* lg = lse + (size_t)bh * q_len;
-  float* mg = st.m + (size_t)bh * st.rows;
-  float* sg = st.l + (size_t)bh * st.rows;
-  float* ag = st.acc + (size_t)bh * st.rows * D;
-
+  const int offset = kv_len - q_len;
+  // this block's q tiles (-1: none) and the kv tiles each sees, [0, hi)
+  int tiles[F_QT], hi[F_QT];
   int kv_end = 0;
-  for (int t = blockIdx.x; t < n_q; t += gridDim.x)
-    kv_end = max(kv_end, kv_tiles(t * FM, FM, q_len, kv_len, causal, FN));
+#pragma unroll
+  for (int i = 0; i < F_QT; ++i) {
+    tiles[i] = schedule[blockIdx.x * F_QT + i];
+    hi[i] = tiles[i] < 0 ? 0
+                         : kv_tiles(tiles[i] * FM, FM, q_len, kv_len, causal,
+                                    FN);
+    kv_end = max(kv_end, hi[i]);
+  }
 
-  for (int j = 0; j < kv_end; ++j) {  // the outer loop: KV tiles
-    const int kv0 = j * FN;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int c = tid; c < FN * D / 4; c += FTHREADS) {
-      const int r = c % FN, col = (c / FN) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (kv0 + r < kv_len) {
-        kx = *reinterpret_cast<const float4*>(kg + (size_t)(kv0 + r) * D + col);
-        vx = *reinterpret_cast<const float4*>(vg + (size_t)(kv0 + r) * D + col);
-      }
-      kt[(col + 0) * FN + r] = kx.x;
-      kt[(col + 1) * FN + r] = kx.y;
-      kt[(col + 2) * FN + r] = kx.z;
-      kt[(col + 3) * FN + r] = kx.w;
-      *reinterpret_cast<float4*>(vs + r * D + col) = vx;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&k_full[i], 32);
+      mbar_init(&k_empty[i], 2 * S_THREADS);
+      mbar_init(&q_full[i], 32);
+      mbar_init(&q_empty[i], S_THREADS);
+      mbar_init(&p_full[i], S_THREADS);
+      mbar_init(&p_empty[i], PV_THREADS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    for (int t = blockIdx.x; t < n_q; t += gridDim.x) {  // inner: q tiles
-      const int q0 = t * FM;
-      const int hi = kv_tiles(q0, FM, q_len, kv_len, causal, FN);
-      if (j >= hi) continue;
-      __syncthreads();  // the previous q tile's qt and ps are no longer read
-      for (int c = tid; c < FM * D / 4; c += FTHREADS) {
-        const int r = c % FM, col = (c / FM) * 4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + r < q_len)
-          x = *reinterpret_cast<const float4*>(qg + (size_t)(q0 + r) * D + col);
-        qt[(col + 0) * FM + r] = x.x * scale_log2;
-        qt[(col + 1) * FM + r] = x.y * scale_log2;
-        qt[(col + 2) * FM + r] = x.z * scale_log2;
-        qt[(col + 3) * FM + r] = x.w * scale_log2;
+  if (tid >= 2 * S_THREADS + PV_THREADS) {
+    // -------------------------------------------------------------- loader
+    const int lane = tid % 32;
+    const float* kg = k + (size_t)bh * kv_len * D;
+    const float* qg = q + (size_t)bh * q_len * D;
+    int s = 0, qn[2] = {0, 0};
+    for (int j = 0; j < kv_end; ++j) {           // the outer loop: kv tiles
+      const int st = j & 1;
+      if (j >= 2) mbar_wait(&k_empty[st], ((j >> 1) - 1) & 1);
+      stage_f32<D>(fsm + S::K + st * TILE, kg, j * FN, kv_len, 0, lane, 32);
+      cp_async_arrive(&k_full[st]);
+#pragma unroll
+      for (int i = 0; i < F_QT; ++i) {           // inner: q tiles
+        if (j >= hi[i]) continue;
+        const int g = s & 1;
+        ++s;
+        if (qn[g] >= 1) mbar_wait(&q_empty[g], (qn[g] - 1) & 1);
+        ++qn[g];
+        stage_f32<D>(fsm + S::Q + g * TILE, qg, tiles[i] * FM, q_len, 3,
+                     lane, 32);
+        cp_async_arrive(&q_full[g]);
       }
-      __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < D; ++kk) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qt + kk * FM + rg * 4);
-        const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float kv = kt[kk * FN + cg + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[i][c] = fmaf(qr[i], kv, s[i][c]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else if (tid < 2 * S_THREADS) {
+    // ------------------------------------------------------------ S groups
+    const int g = tid / S_THREADS, u = tid % S_THREADS;
+    const int a = u / 16, c16 = u % 16;  // rows 8a + [0, 8), columns c16 + 16i
+    float* qs = fsm + S::Q + g * TILE;
+    float* pt = fsm + S::P + g * FN * FM;        // p'^T [kv][q]
+    float* rows = fsm + S::R + g * 2 * FM;       // mt, lt
+    int s = 0, qn = 0, pn = 0;
+    for (int j = 0; j < kv_end; ++j) {
+      const int st = j & 1, kv0 = j * FN;
+      const float* kt = fsm + S::K + st * TILE;
+      bool had = false;
+#pragma unroll 1
+      for (int i = 0; i < F_QT; ++i) {
+        if (j >= hi[i]) continue;
+        const bool mine = (s & 1) == g;
+        ++s;
+        if (!mine) continue;
+        had = true;
+        const int q0 = tiles[i] * FM;
+        // the q tile, reloaded on every step: q * (sm_scale * log2 e) in
+        // f32 (the plain version's rounding), in place
+        mbar_wait(&q_full[g], qn & 1);
+        ++qn;
+        for (int x = u; x < TILE / 4; x += S_THREADS) {
+          float4* p4 = reinterpret_cast<float4*>(qs) + x;
+          float4 y = *p4;
+          y.x *= scale_log2; y.y *= scale_log2;
+          y.z *= scale_log2; y.w *= scale_log2;
+          *p4 = y;
         }
-      }
-      if (kv0 + FN > kv_len || (causal && kv0 + FN - 1 > q0 + offset)) {
+        named_bar(1 + g, S_THREADS);
+        mbar_wait(&k_full[st], (j >> 1) & 1);
+        // S: rows 8a + r, columns c16 + 16 i
+        float sc[8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sc[r][c] = 0.f;
+#pragma unroll 1
+        for (int d = 0; d < D; d += 4) {
+          float4 kv[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int col = kv0 + cg + 16 * c, row = q0 + rg * 4 + i;
-            if (col >= kv_len || (causal && col > row + offset))
-              s[i][c] = kMaskValue;
+            const int kr = c16 + 16 * c;
+            kv[c] = *reinterpret_cast<const float4*>(kt + swf<D>(kr, d, kr));
           }
-      }
-
-      float acc[4][D / 16];
-      float m_run[4], l_run[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + rg * 4 + i;
-        // the tile's state: initial at the first KV tile, else reloaded
-        const float m_prev = j == 0 ? -INFINITY : mg[row];
-        const float l_prev = j == 0 ? 0.f : sg[row];
-        float mx = m_prev;
+          for (int r = 0; r < 8; ++r) {
+            const float4 qv = *reinterpret_cast<const float4*>(
+                qs + swf<D>(8 * a + r, d, a));
 #pragma unroll
-        for (int c = 0; c < 4; ++c) mx = fmaxf(mx, s[i][c]);
+            for (int c = 0; c < 4; ++c) {
+              sc[r][c] = fmaf(qv.x, kv[c].x, sc[r][c]);
+              sc[r][c] = fmaf(qv.y, kv[c].y, sc[r][c]);
+              sc[r][c] = fmaf(qv.z, kv[c].z, sc[r][c]);
+              sc[r][c] = fmaf(qv.w, kv[c].w, sc[r][c]);
+            }
+          }
+        }
+        mbar_arrive(&q_empty[g]);                // q and K read
+        mbar_arrive(&k_empty[st]);
+        // the mask where the thread's rows straddle the diagonal or the kv
+        // edge
+        if (kv0 + FN > kv_len ||
+            (causal && kv0 + FN - 1 > q0 + 8 * a + offset)) {
 #pragma unroll
-        for (int w = 1; w < 16; w <<= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-        const float alpha = exp2f(m_prev - mx);
-        const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
-        float rs = 0.f;
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int col = kv0 + c16 + 16 * c, row = q0 + 8 * a + r;
+              if (col >= kv_len || (causal && col > row + offset))
+                sc[r][c] = kMaskValue;
+            }
+        }
+        // the tile's own softmax (log2 domain): row max and sum over the
+        // 16 lanes of a row group; a row whose columns are all masked here
+        // gives p' = 0, lt = 0 and mt at the mask value
+        float mt[8], lt[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
+#pragma unroll
+          for (int w = 1; w < 16; w <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+          const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            sc[r][c] = exp2f(sc[r][c] - mx) * keep;
+            sum += sc[r][c];
+          }
+#pragma unroll
+          for (int w = 1; w < 16; w <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, w);
+          mt[r] = mx;
+          lt[r] = sum;
+        }
+        // p'^T and (mt, lt) into this group's buffer, once the PV group has
+        // read the previous ones
+        if (pn >= 1) mbar_wait(&p_empty[g], (pn - 1) & 1);
+        ++pn;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const float p = exp2f(s[i][c] - mx) * keep;
-          rs += p;
-          ps[(rg * 4 + i) * PS + cg + 16 * c] = p;
+          const int col = c16 + 16 * c;
+          *reinterpret_cast<float4*>(pt + swf<FM>(col, 8 * a, col)) =
+              make_float4(sc[0][c], sc[1][c], sc[2][c], sc[3][c]);
+          *reinterpret_cast<float4*>(pt + swf<FM>(col, 8 * a + 4, col)) =
+              make_float4(sc[4][c], sc[5][c], sc[6][c], sc[7][c]);
         }
-#pragma unroll
-        for (int w = 1; w < 16; w <<= 1)
-          rs += __shfl_xor_sync(0xffffffffu, rs, w);
-        l_run[i] = alpha * l_prev + rs;
-        m_run[i] = mx;
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c)
-          acc[i][c] = j == 0 ? 0.f
-                             : ag[(size_t)row * D + cg + 16 * c] * alpha;
+        if (c16 == 0) {
+          float4* r4 = reinterpret_cast<float4*>(rows + 8 * a);
+          r4[0] = make_float4(mt[0], mt[1], mt[2], mt[3]);
+          r4[1] = make_float4(mt[4], mt[5], mt[6], mt[7]);
+          r4 = reinterpret_cast<float4*>(rows + FM + 8 * a);
+          r4[0] = make_float4(lt[0], lt[1], lt[2], lt[3]);
+          r4[1] = make_float4(lt[4], lt[5], lt[6], lt[7]);
+        }
+        mbar_arrive(&p_full[g]);
       }
-      __syncthreads();
-
+      if (!had) mbar_arrive(&k_empty[st]);       // no step of this kv tile
+    }
+  } else {
+    // ------------------------------------------------------------ PV group
+    constexpr int C4 = D / 4;                    // column chunks
+    constexpr int RP = D / 16;                   // rows a thread
+    constexpr int ML = RP / 2;                   // float4s of (m, l) a row group
+    const int w = tid - 2 * S_THREADS;
+    const int e = w % C4, a2 = w / C4;           // rows RP a2 + [0, RP)
+    const float* vg = v + (size_t)bh * kv_len * D;
+    float* og = o + (size_t)bh * q_len * D;
+    float* lg = lse + (size_t)bh * q_len;
+    stage_f32<D>(fsm + S::V, vg, 0, kv_len, 0, w, PV_THREADS);
+    cp_async_commit();
+    int s = 0, pn[2] = {0, 0};
+    for (int j = 0; j < kv_end; ++j) {
+      // V_j landed for every PV thread, and V_{j-1} no longer read: its
+      // stage takes V_{j+1}
+      cp_async_wait<0>();
+      named_bar(3, PV_THREADS);
+      if (j + 1 < kv_end) {
+        stage_f32<D>(fsm + S::V + ((j + 1) & 1) * TILE, vg, (j + 1) * FN,
+                     kv_len, 0, w, PV_THREADS);
+        cp_async_commit();
+      }
+      const float* vt = fsm + S::V + (j & 1) * TILE;
+#pragma unroll 1
+      for (int i = 0; i < F_QT; ++i) {
+        if (j >= hi[i]) continue;
+        const int g = s & 1;
+        ++s;
+        float4* sl = state + ((size_t)bh * n_q + tiles[i]) * f32_state_f4<D>();
+        float4* ml_slot = sl + RP * PV_THREADS + a2 * ML + e;
+        mbar_wait(&p_full[g], pn[g] & 1);
+        ++pn[g];
+        const float* pt = fsm + S::P + g * FN * FM;
+        const float* rows = fsm + S::R + g * 2 * FM;
+        // p' V_j: rows RP a2 + r, columns 4e + [0, 4)
+        float pv[RP][4];
+#pragma unroll
+        for (int r = 0; r < RP; ++r)
+          pv[r][0] = pv[r][1] = pv[r][2] = pv[r][3] = 0.f;
 #pragma unroll 4
-      for (int kk = 0; kk < FN; ++kk) {
-        float pr[4];
+        for (int x = 0; x < FN; ++x) {
+          float pr[RP];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pr[i] = ps[(rg * 4 + i) * PS + kk];
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          const float vv = vs[kk * D + cg + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i], vv, acc[i][c]);
-        }
-      }
-
-      const bool last = j == hi - 1;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + rg * 4 + i;
-        if (!last) {  // FA1's signature cost: the state goes back to memory
-          if (cg == 0) {
-            mg[row] = m_run[i];
-            sg[row] = l_run[i];
+          for (int h = 0; h < RP / 4; ++h) {
+            const float4 p4 = *reinterpret_cast<const float4*>(
+                pt + swf<FM>(x, RP * a2 + 4 * h, x));
+            pr[4 * h] = p4.x; pr[4 * h + 1] = p4.y;
+            pr[4 * h + 2] = p4.z; pr[4 * h + 3] = p4.w;
           }
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(vt + swf<D>(x, 4 * e, x));
 #pragma unroll
-          for (int c = 0; c < D / 16; ++c)
-            ag[(size_t)row * D + cg + 16 * c] = acc[i][c];
-        } else if (row < q_len) {
-          const float l = l_run[i];
-          const float l_safe = (l == 0.f || l != l) ? 1.f : l;
+          for (int r = 0; r < RP; ++r) {
+            pv[r][0] = fmaf(pr[r], v4.x, pv[r][0]);
+            pv[r][1] = fmaf(pr[r], v4.y, pv[r][1]);
+            pv[r][2] = fmaf(pr[r], v4.z, pv[r][2]);
+            pv[r][3] = fmaf(pr[r], v4.w, pv[r][3]);
+          }
+        }
+        float mt[RP], lt[RP];
 #pragma unroll
-          for (int c = 0; c < D / 16; ++c)
-            og[(size_t)row * D + cg + 16 * c] = acc[i][c] / l_safe;
-          if (cg == 0) lg[row] = m_run[i] * kLn2 + logf(l_safe);
+        for (int h = 0; h < RP / 4; ++h) {
+          const float4 m4 =
+              *reinterpret_cast<const float4*>(rows + RP * a2 + 4 * h);
+          const float4 l4 =
+              *reinterpret_cast<const float4*>(rows + FM + RP * a2 + 4 * h);
+          mt[4 * h] = m4.x; mt[4 * h + 1] = m4.y;
+          mt[4 * h + 2] = m4.z; mt[4 * h + 3] = m4.w;
+          lt[4 * h] = l4.x; lt[4 * h + 1] = l4.y;
+          lt[4 * h + 2] = l4.z; lt[4 * h + 3] = l4.w;
+        }
+        mbar_arrive(&p_empty[g]);                // p' and (mt, lt) read
+        // FA1's round trip: the tile's state comes back from the scratch
+        // (after the product, whose registers it would otherwise hold; the
+        // S groups' warps cover its latency)
+        float acc[RP][4];
+        float4 ml = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j > 0) {
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            const float4 x = sl[r * PV_THREADS + w];
+            acc[r][0] = x.x; acc[r][1] = x.y; acc[r][2] = x.z; acc[r][3] = x.w;
+          }
+          if (e < ML) ml = *ml_slot;
+        } else {
+#pragma unroll
+          for (int r = 0; r < RP; ++r)
+            acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+        }
+        // the merge with the reloaded state: lanes [0, RP / 4) of the row
+        // group hold m, the next RP / 4 l, broadcast by shuffles
+        float m_new[RP], l_new[RP];
+#pragma unroll
+        for (int r = 0; r < RP; ++r) {
+          const float comp[4] = {ml.x, ml.y, ml.z, ml.w};
+          float m_prev = __shfl_sync(0xffffffffu, comp[r % 4], r / 4, C4);
+          float l_prev =
+              __shfl_sync(0xffffffffu, comp[r % 4], RP / 4 + r / 4, C4);
+          if (j == 0) {
+            m_prev = -INFINITY;
+            l_prev = 0.f;
+          }
+          m_new[r] = fmaxf(m_prev, mt[r]);
+          const float alpha = exp2f(m_prev - m_new[r]);
+          const float beta = exp2f(mt[r] - m_new[r]);
+          l_new[r] = alpha * l_prev + beta * lt[r];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[r][c] = fmaf(acc[r][c], alpha, pv[r][c] * beta);
+        }
+        if (j < hi[i] - 1) {
+          // the state back to its slots, without waiting for the stores
+#pragma unroll
+          for (int r = 0; r < RP; ++r)
+            sl[r * PV_THREADS + w] =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+          for (int f = 0; f < ML; ++f) {
+            if (e != f) continue;
+            const float* src = f < RP / 4 ? m_new : l_new;
+            const int h = f % (RP / 4);
+            *ml_slot = make_float4(src[4 * h], src[4 * h + 1], src[4 * h + 2],
+                                   src[4 * h + 3]);
+          }
+        } else {  // the tile's last visible kv tile: out and the LSE
+          const int q0 = tiles[i] * FM;
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            const int row = q0 + RP * a2 + r;
+            const float l = l_new[r];
+            const float l_safe = (l == 0.f || l != l) ? 1.f : l;
+            if (row < q_len) {
+              *reinterpret_cast<float4*>(og + (size_t)row * D + 4 * e) =
+                  make_float4(acc[r][0] / l_safe, acc[r][1] / l_safe,
+                              acc[r][2] / l_safe, acc[r][3] / l_safe);
+              if (e == r) lg[row] = m_new[r] * kLn2 + logf(l_safe);
+            }
+          }
         }
       }
     }
@@ -615,25 +877,20 @@ __global__ void __launch_bounds__(FTHREADS)
 }
 
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float);
-}
-
-template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       void* lse, const V1State& st, int bh, int q_len,
-                       int kv_len, int causal, float scale_log2,
-                       cudaStream_t stream) {
-  const int smem = f32_smem_bytes<D>();
+                       void* lse, float* state, const int* schedule,
+                       int n_blocks, int bh, int q_len, int kv_len,
+                       int causal, float scale_log2, cudaStream_t stream) {
+  const int smem = V1F32Smem<D>::BYTES;
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(flash_v1_f32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const int n_q = (q_len + FM - 1) / FM;
-  const dim3 grid((n_q + TFA_V1_F32_Q_TILES - 1) / TFA_V1_F32_Q_TILES, bh);
+  const dim3 grid(n_blocks, bh);
   flash_v1_f32_kernel<D><<<grid, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), st, q_len, kv_len, causal, scale_log2);
+      static_cast<float*>(lse), reinterpret_cast<float4*>(state), schedule,
+      q_len, kv_len, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -641,31 +898,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // Returns a cudaError_t: 0 when the kernel was launched. bh = batch *
 // heads; dtype: 0 bf16, 1 f32; head_dim: 64 or 128. `state` holds
-// `state_floats` f32 of scratch that needs no initial values: bf16, the
-// slots of every (bh, 128-row q tile), 128 * (head_dim + 8) floats each;
-// f32, m and l (bh, rows) and the accumulator (bh, rows, head_dim), rows =
-// q_len rounded up to 64 (ops/flash_v1.py::v1_state_floats). bf16 takes
-// `schedule`, n_blocks x Q_TILES q tiles (-1: none), every q tile once
-// (ops/flash_v1.py::v1_schedule); f32 ignores it. The caller has checked
-// shapes, contiguity and 16-byte alignment; a bf16 launch whose tensor maps
-// cannot be encoded returns cudaErrorInvalidValue.
+// `state_floats` f32 of scratch that needs no initial values: the slots of
+// every (bh, q tile), bf16 128 * (head_dim + 8) floats a 128-row tile, f32
+// 64 * (head_dim + 2) a 64-row tile (ops/flash_v1.py::v1_state_floats).
+// `schedule` holds n_blocks x the dtype's q tiles a block (-1: none), every
+// q tile of its block_m once (ops/flash_v1.py::v1_schedule). The caller has
+// checked shapes, contiguity and 16-byte alignment; a bf16 launch whose
+// tensor maps cannot be encoded returns cudaErrorInvalidValue.
 extern "C" int tfa_flash_v1(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* state,
                             const void* schedule, int n_blocks,
                             long long state_floats, int bh, int q_len,
                             int kv_len, int head_dim, int causal,
                             float scale_log2, int dtype, void* stream) {
-  if (bh <= 0 || q_len <= 0 || kv_len <= 0 ||
+  if (bh <= 0 || q_len <= 0 || kv_len <= 0 || schedule == nullptr ||
       (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(state);
+  const int* sched = static_cast<const int*>(schedule);
   if (dtype == 0) {
     const long long n_q = (q_len + BM - 1) / BM;
-    if (schedule == nullptr || n_blocks * Q_TILES < n_q ||
+    if (n_blocks * Q_TILES < n_q ||
         state_floats < (long long)bh * n_q * BM * (head_dim + 8))
       return (int)cudaErrorInvalidValue;
-    const int* sched = static_cast<const int*>(schedule);
     return (int)(head_dim == 128
                      ? launch_bf16<128>(q, k, v, o, lse, sf, sched, n_blocks,
                                         bh, q_len, kv_len, causal,
@@ -675,16 +931,17 @@ extern "C" int tfa_flash_v1(const void* q, const void* k, const void* v,
                                        s));
   }
   if (dtype == 1) {
-    const int rows = (q_len + FM - 1) / FM * FM;
-    if (state_floats < (long long)bh * rows * (head_dim + 2))
+    const long long n_q = (q_len + FM - 1) / FM;
+    if (n_blocks * F_QT < n_q ||
+        state_floats < (long long)bh * n_q * FM * (head_dim + 2))
       return (int)cudaErrorInvalidValue;
-    const V1State st{sf, sf + (size_t)bh * rows, sf + (size_t)2 * bh * rows,
-                     rows};
     return (int)(head_dim == 128
-                     ? launch_f32<128>(q, k, v, o, lse, st, bh, q_len, kv_len,
-                                       causal, scale_log2, s)
-                     : launch_f32<64>(q, k, v, o, lse, st, bh, q_len, kv_len,
-                                      causal, scale_log2, s));
+                     ? launch_f32<128>(q, k, v, o, lse, sf, sched, n_blocks,
+                                       bh, q_len, kv_len, causal, scale_log2,
+                                       s)
+                     : launch_f32<64>(q, k, v, o, lse, sf, sched, n_blocks,
+                                      bh, q_len, kv_len, causal, scale_log2,
+                                      s));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -696,7 +953,7 @@ extern "C" int tfa_flash_v1(const void* q, const void* k, const void* v,
 extern "C" int tfa_flash_v1_smem(int dtype, int head_dim) {
   if (dtype == 0 && head_dim == 128) return V1Smem<128>::ALLOC;
   if (dtype == 0 && head_dim == 64) return V1Smem<64>::ALLOC;
-  if (dtype == 1 && head_dim == 128) return f32_smem_bytes<128>();
-  if (dtype == 1 && head_dim == 64) return f32_smem_bytes<64>();
+  if (dtype == 1 && head_dim == 128) return V1F32Smem<128>::BYTES;
+  if (dtype == 1 && head_dim == 64) return V1F32Smem<64>::BYTES;
   return -1;
 }

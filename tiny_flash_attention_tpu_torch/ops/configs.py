@@ -31,17 +31,12 @@ class TileConfig:
 FLASH_FWD_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_FWD_BF16_STAGES = 3   # ring stages
 # f32 forward on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile.
+# The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V with
+# per-token scales) take the tiles of their q dtype's design: bf16 q the
+# wgmma kernel's (its producer warpgroup converts each payload tile into the
+# ring's bf16 stage, in the same layout and shared memory), f32 q the f32
+# body's.
 FLASH_FWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
-# The forward's quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3
-# K/V with per-token scales) keep the mma.sync body of csrc/flash_fwd.cuh
-# (4 warps x 16 q rows, 64-row kv tiles): their two-stage cp.async ring
-# carries 1-byte payload rows and their f32 scales, and each landed tile is
-# converted into one bf16 (or f32) staging tile of the unquantized layout,
-# which wgmma could only read back from shared memory through a stage of
-# its own. With bf16 q their tiles differ from the bf16 design's (64-row
-# mma.sync tiles against 128-row wgmma tiles), so they take a config of
-# their own; with f32 q they run the f32 body on FLASH_FWD_F32's tiles.
-FLASH_FWD_QUANT_BF16 = TileConfig(block_m=64, block_n=64, threads=128)
 # Shared memory one block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 
@@ -50,21 +45,19 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
                    quantized: bool = False) -> int:
     """Dynamic shared memory of one forward block at `cfg`'s tiles over
     unquantized or quantized K/V, as the kernels lay it out (csrc/
-    flash_fwd.cu `FwdSmem`, csrc/flash_fwd.cuh `bf16_quant_smem_bytes` and
-    `f32_smem_bytes`). The libraries export their own sizes
-    (`tfa_flash_fwd_smem`, `tfa_flash_fwd_quant_smem`), and ops/flash.py
-    checks that these agree when it loads them."""
+    flash_fwd_wgmma.cuh `FwdSmem`, csrc/flash_fwd.cuh `f32_smem_bytes`).
+    The libraries export their own sizes (`tfa_flash_fwd_smem`,
+    `tfa_flash_fwd_quant_smem`), and ops/flash.py checks that these agree
+    when it loads them."""
     m, n, d = cfg.block_m, cfg.block_n, head_dim
-    if cfg is FLASH_FWD_BF16 and not quantized:
+    if cfg is FLASH_FWD_BF16:
         stages = FLASH_FWD_BF16_STAGES
         # q; per stage K, V and the kv ids; the mbarriers (q, and full K,
-        # full V, empty per stage); room to align the base to 1024 bytes
+        # full V, empty per stage; quantized K/V, which land as payloads in
+        # the ring and expand there, also the payload copies' per stage);
+        # room to align the base to 1024 bytes
         return (m * d * 2 + stages * (2 * n * d * 2 + n * 4)
-                + (1 + 3 * stages) * 8 + 1024)
-    if cfg is FLASH_FWD_QUANT_BF16 and quantized:
-        # q and one converted K and V tile (rows padded by 8 bf16), a
-        # two-stage ring of payload rows with their k and v scales, the ids
-        return 3 * m * (d + 8) * 2 + 2 * n * (2 * d + 2 * 4) + 2 * n * 4
+                + (1 + (4 if quantized else 3) * stages) * 8 + 1024)
     if cfg is FLASH_FWD_F32:
         # q^T, k^T, v, p (rows padded by 1) and the kv ids; quantized: the
         # tile's k and v scales
@@ -121,16 +114,21 @@ def decode_split_plan(pages: int, splits: int) -> tuple[int, int]:
 FLASH_V1_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_V1_BF16_STAGES = 2
 FLASH_V1_BF16_Q_TILES = 2
-# f32 on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile; a block
-# walks FLASH_V1_F32_Q_TILES q tiles of one head (interleaved) inside each
-# kv step.
-FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=256)
-FLASH_V1_F32_Q_TILES = 4
+# f32 on the CUDA cores with FA1's order kept: a block of 17 warps takes
+# FLASH_V1_F32_Q_TILES 64-row q tiles from the same schedule at 64-row tiles
+# (128 blocks at the benchmark's (2, 8, 1024) on 132 SMs) and splits each
+# (kv tile, q tile) step by role: two S groups of 128 threads (8 x 4 score
+# tiles) take the steps in turn, a PV group of 256 (8 x 4 output tiles)
+# merges every step into the reloaded state, a loader warp streams K and q
+# by cp.async. Shared memory (`v1_smem_bytes`): 230,496 bytes at head_dim
+# 128, one block an SM.
+FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=544)
+FLASH_V1_F32_Q_TILES = 2
 
 
 def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
     """Dynamic shared memory of one FA1 block at `cfg`'s tiles, as the
-    kernels lay it out (csrc/flash_v1.cu `V1Smem` and `f32_smem_bytes`;
+    kernels lay it out (csrc/flash_v1.cu `V1Smem` and `V1F32Smem`;
     the library exports its own sizes, `tfa_flash_v1_smem`, and
     ops/flash_v1.py checks that these agree when it loads it)."""
     m, n, d = cfg.block_m, cfg.block_n, head_dim
@@ -141,8 +139,9 @@ def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
         # bytes
         return stages * (m * d * 2 + 2 * n * d * 2 + 5 * 8) + 1024
     if cfg is FLASH_V1_F32:
-        # q^T, k^T, v and p (rows padded by 1)
-        return (d * m + d * n + n * d + m * (n + 1)) * 4
+        # two-stage K and V rings, a q tile and a p'^T tile (kv x q) per S
+        # group and its rows' (max, sum), all f32; six pairs of mbarriers
+        return (4 * n * d + 2 * m * d + 2 * n * m + 4 * m) * 4 + 12 * 8
     raise ValueError(f"{cfg} is not an FA1 config")
 # bf16 backward, one pass: a block of two warpgroups owns a 128-row kv tile
 # (64 rows each, dk and dv in f32 registers: 2 x 64 per thread at head_dim
@@ -237,7 +236,6 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_FWD_BF16", FLASH_FWD_BF16),
         f"-DTFA_FWD_BF16_STAGES={FLASH_FWD_BF16_STAGES}",
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
-        *_tile_defines("TFA_FWDQ_BF16", FLASH_FWD_QUANT_BF16),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),

@@ -9,7 +9,8 @@ f32: the CUDA cores over 64-row tiles). A CPU tensor takes the plain version
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
 (head_dim other than 64 or 128). Quantized K/V take the quantized instances
-of the kernel, csrc/flash_fwd_quant.cu (mma.sync over 64-row tiles), through
+of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the same wgmma/TMA kernel
+over 128-row tiles, its producer converting the payloads), through
 ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
 kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
 JAX's `_build_worklist` prunes its work list to the block diagonal, built
@@ -40,8 +41,7 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_F32, FLASH_FWD_QUANT_BF16, TileConfig,
-    fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_F32, TileConfig, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -95,10 +95,8 @@ class SegmentTiles:
 
 def fwd_config(dtype: torch.dtype, quantized: bool = False) -> TileConfig:
     """The tiles of the forward instance for q's dtype over unquantized or
-    quantized (int8/e4m3) K/V: f32 q takes the f32 body's either way."""
-    if dtype != torch.bfloat16:
-        return FLASH_FWD_F32
-    return FLASH_FWD_QUANT_BF16 if quantized else FLASH_FWD_BF16
+    quantized (int8/e4m3) K/V: each q dtype's design takes both."""
+    return FLASH_FWD_BF16 if dtype == torch.bfloat16 else FLASH_FWD_F32
 
 
 def tile_table(starts, q_len: int, *, causal: bool, block_m: int,
@@ -342,6 +340,18 @@ def visible_mask(q_len: int, kv_len: int, device, *, causal: bool,
     return valid
 
 
+def _scale_rows(s: torch.Tensor) -> torch.Tensor:
+    """(b, hkv, kv_len, 1) per-token scales as the quantized kernel reads
+    them: (b, hkv, ld) rows, ld = kv_len rounded up to whole kv tiles of
+    FLASH_FWD_BF16 (the kernel reads a tile's columns without a bound),
+    padded with zeros where kv_len is not, 16-byte aligned."""
+    s = s.reshape(s.shape[0], s.shape[1], s.shape[2])
+    pad = -s.shape[-1] % FLASH_FWD_BF16.block_n
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad))
+    return _aligned(s)
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
@@ -406,7 +416,7 @@ def _flash_fwd_quant_fn():
     fn = lib.tfa_flash_fwd_quant
     if fn.argtypes is None:
         check_smem_layouts(lib, quantized=True)
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -472,9 +482,9 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     cfg = fwd_config(q.dtype, quantized)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if quantized:
-        scales = [_aligned(s) for s in (k_scales, v_scales)]
-        if any(s.device != q.device for s in scales):
+        if any(s.device != q.device for s in (k_scales, v_scales)):
             raise ValueError("the scales must be on q's device")
+        scales = [_scale_rows(s) for s in (k_scales, v_scales)]
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
@@ -489,7 +499,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         stream = torch.cuda.current_stream().cuda_stream
         if quantized:
             err = _flash_fwd_quant_fn()(
-                *ptrs, *(s.data_ptr() for s in scales), *dims, scale_log2,
+                *ptrs, *(s.data_ptr() for s in scales), scales[0].shape[-1],
+                *dims, scale_log2,
                 PAYLOAD_FORMATS[k.dtype], _KERNEL_DTYPES[q.dtype], stream)
         else:
             err = _flash_fwd_fn()(

@@ -9,12 +9,14 @@ no dequantized cache is ever written to device memory:
     s = (q @ k_payload^T) * k_scale^T      before the mask
     o += (p * v_scale^T) @ v_payload       after l has summed the bare p
 
-On CUDA the quantized instances of B1 run (csrc/flash_fwd_quant.cu, the
-kernel bodies of csrc/flash_fwd.cuh): their cp.async ring carries the
-payload rows and their scales, and each landed tile is converted in shared
-memory into the bf16 (or f32) tile the unquantized products read. The
-triangle kernels' regime (causal q_len == kv_len >= 1024) takes the same
-launch, as B2 and B3 do in `flash_attention`. On the CPU the plain version,
+On CUDA the quantized instances of B1 run (csrc/flash_fwd_quant.cu): with
+bf16 q, B1's own wgmma/TMA kernel (csrc/flash_fwd_wgmma.cuh), whose producer
+warpgroup loads the payload rows, converts them two bytes an instruction
+(`convert_pairs` mirrors that arithmetic here) and stores them as the
+ring's bf16 stage, while the consumers read the scales; with f32 q, the
+CUDA-core body of csrc/flash_fwd.cuh. The triangle kernels' regime (causal
+q_len == kv_len >= 1024) takes the same launch, as B2 and B3 do in
+`flash_attention`. On the CPU the plain version,
 `flash_attention_quantized_plain`, runs.
 
 The payload converts as JAX's `_payload_to_compute` does (`payload_to_compute`
@@ -55,6 +57,44 @@ def payload_to_compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         bits = torch.where(bits >= 1 << 15, bits - (1 << 16), bits)
         return bits.to(torch.int16).view(torch.bfloat16)
     return x.to(dtype)
+
+
+def _bf16_half(words: torch.Tensor, shift: int) -> torch.Tensor:
+    """The bf16 in bits [shift, shift + 16) of int64 words, as f32."""
+    b = (words >> shift) & 0xFFFF
+    b = torch.where(b >= 1 << 15, b - (1 << 16), b)
+    return b.to(torch.int16).view(torch.bfloat16).float()
+
+
+def convert_pairs(pairs: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The bf16 kernel's payload conversion (csrc/flash_fwd_wgmma.cuh,
+    `int8_pair_bf16` and `e4m3_pair_bf16`), step by step in int64: `pairs`
+    holds two payload bytes each (the first in bits 0-7); returns their
+    bf16 bits, (..., 2) int64, the first byte's first. int8: h = 0x4300 |
+    (x & 0x7F) and g = 0xC300 | (x & 0x80) as bf16, summed by a bf16 fma
+    with 1.0 (exact). e4m3: t = mag << 4, a mask from bit 15 of t + 0x7FF0,
+    ((t + 0x3C00) & mask) | sign. `payload_to_compute` is the reference."""
+    p = pairs.to(torch.int64) & 0xFFFF
+    if fmt == "int8":
+        lo = (p & 0xFF) | ((p >> 8) << 16)           # prmt 0x4140
+        m = (lo & 0x007F007F) | 0x43004300
+        g = (lo & 0x00800080) | 0xC300C300
+        halves = []
+        for sh in (0, 16):
+            s = (_bf16_half(m, sh) * 1.0 + _bf16_half(g, sh)).to(
+                torch.bfloat16)
+            halves.append(s.view(torch.int16).to(torch.int64) & 0xFFFF)
+        return torch.stack(halves, -1)
+    if fmt != "fp8":
+        raise ValueError(f"payload format {fmt!r}")
+    hi = ((p & 0xFF) << 8) | ((p >> 8) << 24)        # prmt 0x1404
+    t = (hi >> 4) & 0x07F007F0
+    x = t + 0x7FF07FF0
+    nz = torch.zeros_like(x)
+    for bit, half in ((15, 0x0000FFFF), (31, 0xFFFF0000)):   # prmt 0xBB99
+        nz = nz | torch.where((x >> bit) & 1 == 1, half, 0)
+    out = ((t + 0x3C003C00) & nz) | (hi & 0x80008000)
+    return torch.stack([out & 0xFFFF, (out >> 16) & 0xFFFF], -1)
 
 
 def flash_attention_quantized(q: torch.Tensor, k: QuantizedTensor,

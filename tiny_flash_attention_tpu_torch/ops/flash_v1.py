@@ -6,8 +6,8 @@ forward (ops/flash.py) so that the gap between the two stays visible. A CPU
 tensor takes the plain version (`flash_attention_v1_plain`); a CUDA tensor
 launches csrc/flash_v1.cu, which keeps FA1's order on the card (KV tiles
 outer, every q tile's running state in a global scratch reloaded on each KV
-step; bf16 on wgmma and TMA, its blocks' q tiles from `v1_schedule`), or
-raises.
+step; bf16 on wgmma and TMA, f32 on the CUDA cores, each block's q tiles
+from `v1_schedule` at its dtype's tiles), or raises.
 
 One divergence from JAX: every row that sees no column (causal with q_len >
 kv_len) gets out 0 and the LSE sentinel (mask value) * ln2. JAX gives that
@@ -27,7 +27,8 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_F32, v1_smem_bytes)
+    FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_F32, FLASH_V1_F32_Q_TILES,
+    TileConfig, v1_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, LOG2E, _aligned, in_dtype)
 from tiny_flash_attention_tpu_torch.ops.reference import (
@@ -74,7 +75,10 @@ def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
-flash_attention_v1.launches = 0   # kernel launches, counted by _v1_cuda
+# kernel launches, counted by _v1_cuda; f32_launches those of the f32
+# instance
+flash_attention_v1.launches = 0
+flash_attention_v1.f32_launches = 0
 
 
 def flash_attention_v1_plain(q, k, v, *, causal: bool, sm_scale: float):
@@ -118,11 +122,12 @@ def v1_schedule(q_len: int, kv_len: int, causal: bool,
                 block_m: int = FLASH_V1_BF16.block_m,
                 block_n: int = FLASH_V1_BF16.block_n,
                 per_block: int = FLASH_V1_BF16_Q_TILES) -> np.ndarray:
-    """The q tiles of each bf16 FA1 block, (blocks, per_block) int32, -1
-    for none: the tiles longest first (most kv tiles to visit), dealt to
+    """The q tiles of each FA1 block, (blocks, per_block) int32, -1 for
+    none: the tiles longest first (most kv tiles to visit), dealt to
     ceil(n / per_block) blocks in snake order (0 .. B-1, then B-1 .. 0),
     so that each block's kv steps add up to about the same (causal: block
-    i takes tiles n-1-i and i). Every q tile appears once."""
+    i takes tiles n-1-i and i). Every q tile appears once. The defaults
+    are the bf16 kernel's tiles; `v1_config` gives each dtype's."""
     work = kv_tile_counts(q_len, kv_len, causal, block_m, block_n)
     n_blocks = -(-work.size // per_block)
     table = np.full((n_blocks, per_block), -1, np.int32)
@@ -132,21 +137,31 @@ def v1_schedule(q_len: int, kv_len: int, causal: bool,
     return table
 
 
-def v1_state_floats(dtype: torch.dtype, bh: int, q_len: int, d: int) -> int:
-    """f32 scratch of the kernel's running state: bf16, one slot per (head,
-    128-row q tile) of block_m * (d + 8) floats (each thread's accumulator
-    fragments and its (m, m', l, l')); f32, m, l and the accumulator of
-    every row, rows padded to whole 64-row tiles."""
+def v1_config(dtype: torch.dtype) -> tuple[TileConfig, int]:
+    """The FA1 kernel's tiles for q's dtype and its q tiles a block."""
     if dtype == torch.bfloat16:
-        bm = FLASH_V1_BF16.block_m
-        return bh * -(-q_len // bm) * bm * (d + 8)
-    bm = FLASH_V1_F32.block_m
-    return bh * -(-q_len // bm) * bm * (d + 2)
+        return FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES
+    return FLASH_V1_F32, FLASH_V1_F32_Q_TILES
+
+
+def v1_state_floats(dtype: torch.dtype, bh: int, q_len: int, d: int) -> int:
+    """f32 scratch of the kernel's running state, one slot per (head, q
+    tile): bf16, block_m * (d + 8) floats a 128-row tile (each consumer
+    thread's accumulator fragments and its (m, m', l, l')); f32,
+    block_m * (d + 2) a 64-row tile (each PV thread's accumulator tile and
+    the rows' (m, l))."""
+    cfg, _ = v1_config(dtype)
+    bm = cfg.block_m
+    return bh * -(-q_len // bm) * bm * (d + (8 if dtype == torch.bfloat16
+                                             else 2))
 
 
 @functools.lru_cache(maxsize=64)
-def _device_schedule(q_len, kv_len, causal, device):
-    return torch.as_tensor(v1_schedule(q_len, kv_len, causal), device=device)
+def _device_schedule(q_len, kv_len, causal, dtype, device):
+    cfg, per_block = v1_config(dtype)
+    return torch.as_tensor(v1_schedule(q_len, kv_len, causal, cfg.block_m,
+                                       cfg.block_n, per_block),
+                           device=device)
 
 
 def check_smem_layout(lib: ctypes.CDLL) -> None:
@@ -156,7 +171,7 @@ def check_smem_layout(lib: ctypes.CDLL) -> None:
     smem = lib.tfa_flash_v1_smem
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        cfg = FLASH_V1_BF16 if dtype == torch.bfloat16 else FLASH_V1_F32
+        cfg, _ = v1_config(dtype)
         for d in _KERNEL_HEAD_DIMS:
             want = v1_smem_bytes(cfg, d)
             if smem(code, d) != want:
@@ -199,19 +214,19 @@ def _v1_cuda(q, k, v, *, causal: bool, sm_scale: float):
     dev = q.device
     n = v1_state_floats(q.dtype, b * h, q_len, d)
     state = torch.empty(n, dtype=torch.float32, device=dev)
-    sched = (_device_schedule(q_len, kv_len, bool(causal), str(dev))
-             if q.dtype == torch.bfloat16 else None)
+    sched = _device_schedule(q_len, kv_len, bool(causal), q.dtype, str(dev))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=dev)
     with _build.on_device(dev):
         err = _v1_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), state.data_ptr(),
-            None if sched is None else sched.data_ptr(),
-            0 if sched is None else sched.shape[0], n,
+            lse.data_ptr(), state.data_ptr(), sched.data_ptr(),
+            sched.shape[0], n,
             b * h, q_len, kv_len, d, int(causal),
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_v1")
     flash_attention_v1.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention_v1.f32_launches += 1
     return out, lse
