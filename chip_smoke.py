@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
     python3 chip_smoke.py --train-f32    # only the f32 train step's profile
+    python3 chip_smoke.py --f32-append   # only B1 f32 and the append, timed
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -151,6 +152,8 @@ FLASH_CASES = [
     ("causal 1024 f32, the f32 train step's shape", (1, 8, 1024, 128),
      (1, 2, 1024, 128), torch.float32, True),
 ]
+# the f32 train step's attention (q, kv shapes): B1's f32 row
+F32_FWD_SHAPE = ((1, 8, 1024, 128), (1, 2, 1024, 128))
 
 
 def log(msg: str) -> None:
@@ -353,36 +356,45 @@ def flash_readings(errs, folded=None) -> str:
 
 
 def planted_faults(name, q, k, v, sm_scale) -> None:
-    """Two faults of B1's pipeline, planted in the rows of the last q tile
-    (128 rows, the ones that read the most kv tiles) of the plain version
-    on the folded q, put through the same gate as the kernel's output: (1)
-    kv tile j's V replaced by tile j - 1's, as a stale ring stage would
-    give; (2) kv tile j dropped (its columns masked by a segment id); j
-    the middle tile. Each must fail the gate."""
-    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_BF16
+    """Faults of B1's pipeline, planted in the rows of the last q tile (of
+    q's dtype's instance: the rows that read the most kv tiles) of the
+    plain version on the folded q, put through the same gate as the
+    kernel's output: (1) kv tile j's V replaced by tile j - 1's, as a stale
+    ring stage would give; (2) kv tile j dropped (its columns masked by a
+    segment id); j the middle tile; f32 also (3) the tile's first run of
+    kv tiles (FLASH_FWD_F32_SPLIT of them) lost in the merge. Each must
+    fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops import configs
     from tiny_flash_attention_tpu_torch.ops.flash import (
-        flash_attention_plain)
+        flash_attention_plain, fwd_config)
     from tiny_flash_attention_tpu_torch.utils.testing import fold_q
 
     def plain(x, sc, vv=v, ids=None):
         return flash_attention_plain(x, k, vv, causal=True, sm_scale=sc,
                                      segment_ids=ids, return_lse=True)
 
+    def dropped(cols):
+        kv_ids = torch.zeros((b, kv_len), dtype=torch.int32, device="cuda")
+        kv_ids[:, cols] = 1
+        q_ids = torch.zeros((b, bm), dtype=torch.int32, device="cuda")
+        return plain(qf[:, :, rows], scale, ids=(q_ids, kv_ids))
+
     b, _, q_len, _ = q.shape
-    kv_len, bn = k.shape[2], FLASH_FWD_BF16.block_n
+    cfg = fwd_config(q.dtype)
+    kv_len, bm, bn = k.shape[2], cfg.block_m, cfg.block_n
     j = kv_len // bn // 2
     tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
-    rows = slice(q_len - 128, q_len)
+    rows = slice(q_len - bm, q_len)
     qf, scale = fold_q(q, sm_scale)
     stale = v.clone()
     stale[:, :, tile] = v[:, :, prev]
-    kv_ids = torch.zeros((b, kv_len), dtype=torch.int32, device="cuda")
-    kv_ids[:, tile] = 1
-    q_ids = torch.zeros((b, 128), dtype=torch.int32, device="cuda")
     faults = {f"V of kv tile {j} from tile {j - 1}": plain(
                   qf[:, :, rows], scale, vv=stale),
-              f"kv tile {j} dropped": plain(
-                  qf[:, :, rows], scale, ids=(q_ids, kv_ids))}
+              f"kv tile {j} dropped": dropped(tile)}
+    if q.dtype == torch.float32:
+        split = configs.FLASH_FWD_F32_SPLIT
+        faults[f"run of kv tiles [0, {split}) lost in the merge"] = \
+            dropped(slice(0, split * bn))
     gate_faults(f"flash {name}", faults, plain, q, rows)
 
 
@@ -465,6 +477,15 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
         out, lse, lambda qq, sc: flash_attention_plain(
             qq, k, v, causal=causal, sm_scale=sc, return_lse=True), q, dtype)
     ok = ok and bool(torch.isfinite(out).all())
+    same = ""
+    if dtype == torch.float32:
+        # the f32 instance merges its runs in a fixed order
+        again = flash_attention(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        bits = all(torch.equal(x, y) for x, y in zip(again, (out, lse)))
+        same = f"; two calls bit-identical: {bits}"
+        ok = ok and bits
+        del again
     if faults:
         planted_faults(name, q, k, v, sm_scale)
     del out, lse
@@ -485,7 +506,8 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
     bound_ms, bound_by = flash_bound(q, k, causal)
     log(f"flash {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
         f"{str(dtype).split('.')[-1]} causal={causal} | "
-        f"{flash_readings(errs, folded)} ({gate_text(dtype)}) | kernel "
+        f"{flash_readings(errs, folded)} ({gate_text(dtype)}){same} | "
+        f"kernel "
         f"{t_kernel:.4f} ms "
         f"plain {t_plain:.4f} ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms "
         f"({bound_by}) | {bound_ms / t_kernel:.1%} of the bound, "
@@ -495,6 +517,44 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
     return {"max_abs_err": max(errs["out"], errs["lse"]), "ms": t_kernel,
             "plain_ms": t_plain, "library_ms": t_sdpa, "bound_ms": bound_ms,
             "bound_by": bound_by, "shape": [list(q_shape), list(kv_shape)]}
+
+
+def fwd_f32_split_sweep(gen) -> None:
+    """B1's f32 instance at the f32 train step's shape for several runs a
+    q tile (ops/configs.py::FLASH_FWD_F32_SPLIT, read at each call): the
+    blocks and device ms of each, each held to the f32 gate against the
+    plain version; the setting is restored."""
+    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain, fwd_f32_work)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    q_shape, kv_shape = F32_FWD_SHAPE
+    q = randn(q_shape, torch.float32, gen)
+    k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
+    chosen, cells = configs.FLASH_FWD_F32_SPLIT, []
+    try:
+        for split in (1, 2, 3, 4, 5, 6, 8, 16):
+            configs.FLASH_FWD_F32_SPLIT = split
+            out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            torch.cuda.synchronize()
+            errs, _, ok = flash_gate(out, lse, lambda x, sc: (
+                flash_attention_plain(x, k, v, causal=True, sm_scale=sc,
+                                      return_lse=True)), q, torch.float32)
+            if not ok:
+                raise AssertionError(f"f32 forward at split {split}: {errs}")
+            blocks = fwd_f32_work(q_shape[2], kv_shape[2],
+                                  causal=True)[1] * q_shape[0] * q_shape[1]
+            t = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
+                             iters=10)["median_ms"]
+            cells.append(f"{split}: {blocks} blocks {t:.4f}")
+    finally:
+        configs.FLASH_FWD_F32_SPLIT = chosen
+    log(f"f32 forward split sweep, q{q_shape} kv{kv_shape} causal, runs of "
+        f"at most S kv tiles a block (S: blocks, ms): " + "; ".join(cells)
+        + f" (chosen: S {chosen})")
 
 
 # --- phase 3: paged decode, kernel vs plain ----------------------------------
@@ -975,6 +1035,7 @@ def check_append(name, fmt, ps, gen, *, iters=20):
         pages, k_new, v_new, ids, rows, page_size=ps))
     h_plain = host_us(lambda: page_append_plain(
         pages, k_new, v_new, ids, rows, page_size=ps))
+    floor = launch_floor_ms(iters)
     batch, hkv, d = k_new.shape
     row_bytes = d * pages.element_size() + (4 if fmt == "int8" else 0)
     nbytes = (2 * k_new.numel() * k_new.element_size() + 8 * batch
@@ -984,12 +1045,25 @@ def check_append(name, fmt, ps, gen, *, iters=20):
         f"{batch} tokens x {hkv} kv heads | bit-exact vs plain: {ok} | "
         f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms"
         + (f" index_put_ {t_lib:.4f} ms" if t_lib is not None else "")
-        + f" bound {bound_ms:.6f} ms ({bound_by}) | host {h_kernel:.1f} us "
-        f"a call, plain {h_plain:.1f} us | {'ok' if ok else 'FAIL'}")
+        + f" bound {bound_ms:.6f} ms ({bound_by}); launch floor (a "
+        f"one-element add_) {floor:.4f} ms, kernel {t_kernel / floor:.2f}x "
+        f"it | host {h_kernel:.1f} us a call, plain {h_plain:.1f} us | "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"append kernel disagrees with plain: {name}")
     return {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
-            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": t_lib, "bound_ms": bound_ms, "bound_by": bound_by,
+            "floor_ms": floor}
+
+
+def launch_floor_ms(iters: int = 20) -> float:
+    """The least time any launch reads under cuda_time_ms: a one-element
+    add_ (its L2 flushed like every timed call's)."""
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    one = torch.zeros(1, device="cuda")
+    return cuda_time_ms(lambda: one.add_(1.0), iters=iters)["median_ms"]
 
 
 # --- phase 4: flash backward, kernels vs plain and the oracle ----------------
@@ -2122,7 +2196,71 @@ def train_f32_profile(seed: int) -> int:
     step(params, opt, tokens)                    # warm-up
     for _ in range(2):
         profile_window(f"per train step of f32 {batch} x {seq} tokens",
-                       lambda: step(params, opt, tokens), 1)
+                       lambda: step(params, opt, tokens), 1,
+                       watch="flash_fwd_f32")
+    return 0
+
+
+def f32_append_rows(seed: int) -> int:
+    """Only B1's f32 instance and the append, device ms each, with the
+    package found on sys.path (so that one call can time two trees): B1 f32
+    at the f32 train step's shape, f32 q over int8 and e4m3 payloads at the
+    int8 benchmark's shape, the append into int8 and bf16 pages at the
+    engine's shape beside the launch floor; then the f32 train step's
+    profile (B1 f32's time a launch in it) and the bf16 engine's decode
+    step's (the append's time a launch in it)."""
+    import tiny_flash_attention_tpu_torch as tfa
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request)
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {gpu_info()}; package {tfa.__file__}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q_shape, kv_shape = F32_FWD_SHAPE
+    q = randn(q_shape, torch.float32, gen)
+    k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
+    times = {"f32": cuda_time_ms(lambda: flash_attention(q, k, v,
+                                                         causal=True),
+                                 iters=20)["median_ms"]}
+    _, _, qs, ks = QUANT_BENCH[0]
+    q = randn(qs, torch.float32, gen)
+    k, v = (randn(ks, torch.float32, gen) for _ in range(2))
+    for fmt in ("int8", "fp8"):
+        kq, vq = Q.quantize_kv(k, v, fmt)
+        times[f"f32 q {fmt}"] = cuda_time_ms(
+            lambda: tfa.flash_attention_quantized(q, kq, vq, causal=True),
+            iters=20)["median_ms"]
+    del q, k, v
+    for fmt in ("int8", "bf16"):
+        pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=128)
+        times[f"append {fmt}"] = cuda_time_ms(
+            lambda: fused_page_append(pages, k_new, v_new, ids, rows,
+                                      page_size=128), iters=50)["median_ms"]
+    times["launch floor"] = launch_floor_ms(50)
+    log("rows (device ms): " + "; ".join(f"{key} {t:.4f}"
+                                         for key, t in times.items()))
+    train_f32_profile(seed)
+    cfg = engine_config()
+    params = T.init_params(cfg, gen, device="cuda")
+    eng = InferenceEngine(cfg, params, num_pages=8 * 32 + 8, page_size=128,
+                          max_seqs=8, pages_per_seq=32, seed=seed,
+                          device="cuda")
+    rng = np.random.default_rng(seed)
+    eng.add_requests([Request(rng.integers(0, cfg.vocab_size, n).tolist(),
+                              64) for n in rng.integers(600, 2049, 8)])
+    eng.steps(8)
+    for _ in range(2):
+        profile_window(f"per decode step (steps({PROFILE_STEPS}), 8 slots)",
+                       lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
+                       watch="page_append")
     return 0
 
 
@@ -2202,20 +2340,25 @@ def train_phase(seed: int) -> dict:
     params, opt = init_state(T.init_params(cfg32, gen, device="cuda"))
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda")
+    flash_attention.launches = 0
     flash_attention_bwd.launches = 0
     losses = []
     for _ in range(n_steps):
         params, opt, loss = step(params, opt, tokens)
         losses.append(float(loss))
+    out["launches"]["flash_fwd_f32"] = flash_attention.launches
     out["launches"]["flash_bwd_f32"] = flash_attention_bwd.launches
     shown = " ".join(f"{x:.4f}" for x in losses)
     log(f"train f32 {batch} x {seq}: loss {shown}; "
+        f"{flash_attention.launches} forward and "
         f"{flash_attention_bwd.launches} backward calls (expected "
-        f"{n_steps * cfg.n_layers}: the f32 dq, dk/dv and post kernels "
-        f"once each)")
-    if flash_attention_bwd.launches != n_steps * cfg.n_layers or not (
+        f"{n_steps * cfg.n_layers} each: the f32 forward once, the f32 dq, "
+        f"dk/dv and post kernels once each)")
+    if (flash_attention.launches, flash_attention_bwd.launches) != (
+            n_steps * cfg.n_layers, n_steps * cfg.n_layers) or not (
             np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"f32 train step: launches "
+                             f"{flash_attention.launches}, "
                              f"{flash_attention_bwd.launches}, {losses}")
     out["states"][f"f32 {batch} x {seq}"] = (step, params, opt, tokens)
 
@@ -2456,16 +2599,25 @@ def tolerance_for_text(dtype) -> str:
     return f"{tolerance_for(dtype):.0e} of min(1, max|ref|)"
 
 
+def quant_lse_gate(dtype) -> float:
+    """The quantized forward's LSE gate: QUANT_LSE_GATE, and the f32 gate
+    with f32 q (both sides compute in f32)."""
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    return min(QUANT_LSE_GATE, tolerance_for(dtype))
+
+
 def quant_gate(out, lse, ref, ref_lse) -> tuple[float, float, float, bool]:
     """(out err, max|ref|, lse err, ok): a quantized call's (out, lse)
     against its plain version's, out within the dtype gate times min(1,
-    max|ref|), the LSE within QUANT_LSE_GATE, out finite."""
+    max|ref|), the LSE within `quant_lse_gate`, out finite."""
     from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 
     err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
     ref_max = float(ref.float().abs().max())
     ok = (err <= tolerance_for(out.dtype) * min(1.0, ref_max)
-          and lse_err <= QUANT_LSE_GATE and bool(torch.isfinite(out).all()))
+          and lse_err <= quant_lse_gate(out.dtype)
+          and bool(torch.isfinite(out).all()))
     return err, ref_max, lse_err, ok
 
 
@@ -2509,7 +2661,8 @@ def quant_planted_faults(name, q, kq, vq, ref, ref_lse) -> None:
         log(f"{name}: planted fault in the last q tile's rows, {label}: out "
             f"err {err / ref_max:.3e} of max|ref| (gate "
             f"{tolerance_for_text(q.dtype)}) lse err {lse_err:.3e} (gate "
-            f"{QUANT_LSE_GATE:.0e}) | {'PASSES THE GATE' if ok else 'caught'}")
+            f"{quant_lse_gate(q.dtype):.0e}) | "
+            f"{'PASSES THE GATE' if ok else 'caught'}")
         if ok:
             raise AssertionError(f"the quantized gate passes a planted "
                                  f"fault: {name}, {label}")
@@ -2544,7 +2697,8 @@ def check_quant(name, q, kq, vq, out, lse, *, faults=False, **kw) -> float:
     log(f"{name}: q{tuple(q.shape)} {str(kq.dtype).split('.')[-1]} "
         f"kv{tuple(kq.shape)} | out err {err:.3e} = {err / ref_max:.3e} of "
         f"max|ref| {ref_max:.3e} (gate {tolerance_for_text(q.dtype)}) lse "
-        f"err {lse_err:.3e} (gate {QUANT_LSE_GATE:.0e}) against the plain "
+        f"err {lse_err:.3e} (gate {quant_lse_gate(q.dtype):.0e}) against "
+        f"the plain "
         f"version | SDPA over the dequantized K/V differs by "
         f"{sdpa_err:.3e} (information) | {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2655,7 +2809,67 @@ def quant_flash_phase(gen) -> dict:
         del q, kq, vq, out, lse
     for fmt in rows:
         rows[fmt]["max_abs_err"] = worst[fmt]
+    rows.update(quant_f32q_rows(gen, fq))
+    launches.update({f"{fmt}_f32q": rows[f"{fmt}_f32q"].pop("launches")
+                     for fmt in ("int8", "fp8")})
     return {"launches": launches, "rows": rows}
+
+
+def quant_f32q_rows(gen, fq) -> dict:
+    """The f32 body's quantized instances: f32 q over int8 and e4m3
+    payloads at the int8 benchmark's shape, the counts zeroed just before
+    and read just after; each against its plain version with the planted
+    faults (`check_quant`), then the device times of the call, of the
+    plain version and of SDPA in f32 on the dequantized K/V, beside the
+    bound. Returns {"int8_f32q": row, "fp8_f32q": row}, each row with its
+    launches."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    _, _, qs, ks = QUANT_BENCH[0]
+    q = randn(qs, torch.float32, gen)
+    k, v = (randn(ks, torch.float32, gen) for _ in range(2))
+    kv = {fmt: Q.quantize_kv(k, v, fmt) for fmt in ("int8", "fp8")}
+    del k, v
+    # ---- the main path: counts zeroed just before, read just after ----
+    fq.launches = fq.int8_launches = fq.fp8_launches = 0
+    torch.cuda.synchronize()
+    outs = {fmt: fq(q, kq, vq, causal=True, return_lse=True)
+            for fmt, (kq, vq) in kv.items()}
+    torch.cuda.synchronize()
+    launches = {"int8": fq.int8_launches, "fp8": fq.fp8_launches}
+    # ---------------------------------------------------------------------
+    if launches != {"int8": 1, "fp8": 1} or fq.launches != 2:
+        raise AssertionError(f"f32-q quantized launches {launches}")
+    rows = {}
+    for fmt, (kq, vq) in kv.items():
+        name = f"quantized flash f32 q over {fmt} at {qs}/{ks[:2]}"
+        out, lse = outs.pop(fmt)
+        err = check_quant(name, q, kq, vq, out, lse, faults=True)
+        del out, lse
+        t_kernel = cuda_time_ms(lambda: fq(q, kq, vq, causal=True),
+                                iters=10)["median_ms"]
+        kd, vd = kq.dequantize(torch.float32), vq.dequantize(torch.float32)
+        t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, is_causal=True, enable_gqa=True), iters=10)[
+            "median_ms"]
+        del kd, vd
+        t_plain = cuda_time_ms(lambda: flash_attention_quantized_plain(
+            q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+            sm_scale=qs[-1] ** -0.5), iters=2)["median_ms"]
+        bound_ms, bound_by = quant_bound(q, kq, mask_pairs(q, kq, True))
+        log(f"{name}: kernel {t_kernel:.4f} ms, SDPA f32 on the dequantized "
+            f"K/V {t_sdpa:.4f} ms ({t_kernel / t_sdpa:.2f}x), plain "
+            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bound_ms / t_kernel:.1%} of it); launches {launches[fmt]}")
+        rows[f"{fmt}_f32q"] = {"max_abs_err": err, "ms": t_kernel,
+                               "plain_ms": t_plain, "library_ms": t_sdpa,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "launches": launches[fmt]}
+    return rows
 
 
 # (name, q shape, kv shape, window, segment bounds): the JAX window
@@ -2967,11 +3181,14 @@ def time_sampled_decode(eng, n_chunk: int) -> None:
         for k, (dt, r) in rates.items()) + " (temperature 1 for sampled)")
 
 
-def profile_window(label: str, fn, n: int, launches=None) -> None:
+def profile_window(label: str, fn, n: int, launches=None,
+                   watch=None) -> None:
     """Where the time of fn() goes, per unit of n: the device time of its
     kernels from torch.profiler, against fn's wall time taken without the
     profiler (which slows the host). With `launches`, fails unless the
-    kernel launches per unit are that many."""
+    kernel launches per unit are that many; with `watch`, also prints the
+    device time a launch of the kernels whose name holds it (L2 as the
+    run leaves it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3006,6 +3223,13 @@ def profile_window(label: str, fn, n: int, launches=None) -> None:
     for e in kernels[:8]:
         log(f"  {e.self_device_time_total / n / 1e3:.4f} ms "
             f"{e.count / n:5.1f}x  {e.key[:90]}")
+    if watch is not None:
+        seen = [e for e in kernels if watch in e.key]
+        count = sum(e.count for e in seen)
+        each = (sum(e.self_device_time_total for e in seen) / count / 1e3
+                if count else float("nan"))
+        log(f"  {watch}: {count / n:.1f} launches a unit, {each:.5f} ms a "
+            f"launch in this profile")
     got = sum(e.count for e in kernels) / n
     if launches is not None and got != launches:
         raise AssertionError(f"profile {label}: {got} launches a step, the "
@@ -3072,10 +3296,15 @@ def main() -> int:
         "tfa_flash_bwd_f32_smem) for every instance")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32_fwd_row = None
     for case in FLASH_CASES:
-        check_flash(*case, gen, iters=5 if case[1][2] >= 8192 else 10,
-                    faults=case[4] and case[1][2] in (2048, 8192)
-                    and case[1][2] == case[2][2])
+        row = check_flash(*case, gen, iters=5 if case[1][2] >= 8192 else 10,
+                          faults=case[4] and case[1][2] == case[2][2] and (
+                              case[1][2] in (2048, 8192)
+                              or case[1] == F32_FWD_SHAPE[0]))
+        if case[1] == F32_FWD_SHAPE[0]:
+            f32_fwd_row = row
+    fwd_f32_split_sweep(gen)
     seg_err = max(check_segments(*case, gen) for case in SEG_CASES)
     rowloop_err = check_rowloop(gen)
     q, pages, lengths, table = decode_inputs(gen)
@@ -3115,7 +3344,7 @@ def main() -> int:
     eng, cfg = run["engine"], run["cfg"]
     profile_window(f"per decode step (steps({PROFILE_STEPS}), 8 slots)",
                    lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
-                   STEP_LAUNCHES["bf16"])
+                   STEP_LAUNCHES["bf16"], watch="page_append")
     profile_window("per prefill of 4 x 2048 tokens",
                    lambda: prefill_forward_batched(cfg, eng.params,
                                                    run["long_tokens"]), 1)
@@ -3130,7 +3359,9 @@ def main() -> int:
     train = train_phase(SEED)
     for label, (step, *state) in train["states"].items():
         profile_window(f"per train step of {label} tokens",
-                       lambda f=step, s=state: f(*s), 1)
+                       lambda f=step, s=state: f(*s), 1,
+                       watch="flash_fwd_f32" if label.startswith("f32")
+                       else None)
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -3235,19 +3466,31 @@ def main() -> int:
     # launches are the engines' (the windowed one's included), the
     # encoder's and the train step's; paged_decode's include the windowed
     # engine's ring-mode launches
+    fwd_replaces = ("tiny_flash_attention_tpu/ops/flash.py:533; "
+                    "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
+                    "tiny_flash_attention_tpu/ops/flash_tri.py:658")
+    f32_design = ("f32 on the CUDA cores (no TF32): each 128-row q tile's "
+                  "kv range cut at the multiples of S kv tiles into runs, "
+                  "one block per (run, q head, batch), longest first; the "
+                  "last run of a tile to arrive merges the partials in run "
+                  "order (exact LSE combine); 256 threads, 8 x 4 score and "
+                  "8 x 8 output register tiles fed by swizzled float4 "
+                  "reads, a two-stage cp.async K/V ring")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "design": "bf16: wgmma and a TMA/mbarrier ring, 128-row q and kv "
                    "tiles, two consumer warpgroups and a producer warpgroup "
-                   "(setmaxnreg); f32: CUDA cores",
+                   "(setmaxnreg); f32: flash_fwd_f32",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "tiny_flash_attention_tpu/ops/flash.py:533; "
-                     "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
-                     "tiny_flash_attention_tpu/ops/flash_tri.py:658",
+         "replaces": fwd_replaces,
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"],
          **flash_row},
+        {"name": "flash_fwd_f32", "route": "cuda", "design": f32_design,
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces,
+         "launches": train["launches"]["flash_fwd_f32"], **f32_fwd_row},
         {"name": "flash_rowloop", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
@@ -3335,6 +3578,16 @@ def main() -> int:
            **{k: v for k, v in quant_flash["rows"][fmt].items()
               if k != "b1_ms"}}
           for fmt in ("int8", "fp8")),
+        *({"name": f"flash_fwd_quant_{fmt}_f32q", "route": "cuda",
+           "design": "f32 q: " + f32_design + "; each payload tile loaded "
+                     "into registers a step ahead and converted exactly "
+                     "into its ring stage",
+           "source": "tiny_flash_attention_tpu_torch/csrc/"
+                     "flash_fwd_quant.cu",
+           "replaces": fwd_replaces,
+           "launches": quant_flash["launches"][f"{fmt}_f32q"],
+           **quant_flash["rows"][f"{fmt}_f32q"]}
+          for fmt in ("int8", "fp8")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)
@@ -3359,6 +3612,12 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(1)
         sys.exit(train_f32_profile(SEED))
+    if sys.argv[1:] == ["--f32-append"]:
+        # only B1's f32 instance and the append, with the package found on
+        # sys.path (so that one call can time two trees' kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(f32_append_rows(SEED))
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,
         # 1 x 8192, the window) and the spread gate, with the package found

@@ -26,7 +26,11 @@ every mask at groups 1 and 4, the quantized matmul's conversion of all 256
 int8 and e4m3 codes and its every engine projection at 1 to 8 rows, and
 the split decode (fused and separate pages) at several split counts
 against its split plain version, a split past the lengths and a wrapped
-ring included.
+ring included. Last, B1's f32 instance over its kv runs: bit-identical
+calls under every mask, runs of 1 to 16 tiles against the plain version
+(segment_starts changing no bit), f32 q over int8 and e4m3 payloads at
+the edges of its tiles; and 1,000 appends, each right after a kernel that
+writes its rows, bit for bit against the plain version.
 """
 
 import pytest
@@ -1320,3 +1324,124 @@ def test_separate_decode_splits_match_split_plain(gen, monkeypatch, fmt,
     assert _err(out, ref) <= 4e-3 and _err(lse, ref_lse) <= 1e-4
     assert row_err(out, ref) <= 2.0 ** -6
     assert bool((out[0] == 0).all())
+
+
+# --- B1's f32 instance over kv runs, and the append after a writer ----------
+
+
+def _f32_inputs(gen, hq, hkv, n, d, bounds=None):
+    q = _randn((1, hq, n, d), torch.float32, gen)
+    k = _randn((1, hkv, n, d), torch.float32, gen)
+    v = _randn((1, hkv, n, d), torch.float32, gen)
+    seg = None if bounds is None else _segment_ids(1, n, bounds, gen)
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("hq,hkv,masks", [
+    (8, 8, "causal"), (8, 2, "window"), (8, 1, "ids"), (4, 2, "starts")])
+def test_f32_fwd_runs_are_bit_identical(gen, hq, hkv, masks):
+    """The f32 forward merges each q tile's runs in run order (the last run
+    to arrive, in a fixed order): three calls give the same bits."""
+    q, k, v, seg = _f32_inputs(gen, hq, hkv, 1100, 128,
+                               (130, 480, 600) if masks in ("ids", "starts")
+                               else None)
+    kw = {"causal": True}
+    if masks == "window":
+        kw["window"] = 300
+    if seg is not None:
+        kw["segment_ids"] = (seg, seg)
+    if masks == "starts":
+        kw["segment_starts"] = (0, 130, 480, 600)
+    runs = [flash_attention(q, k, v, return_lse=True, **kw)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+    kw.pop("segment_starts", None)
+    _assert_flash_gate(*runs[0], lambda x, sc: flash_attention_plain(
+        x, k, v, sm_scale=sc, return_lse=True, **kw), q, torch.float32)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
+def test_f32_fwd_splits_match_plain(gen, monkeypatch, split):
+    """The f32 forward with each q tile's kv range cut into runs of 1 to
+    16 tiles (ops/configs.py::FLASH_FWD_F32_SPLIT, read at each call), with
+    a window and ids at group 4 and with the decode offset: each against
+    the plain version, and segment_starts' pruning changes no bit."""
+    monkeypatch.setattr(configs, "FLASH_FWD_F32_SPLIT", split)
+    q, k, v, seg = _f32_inputs(gen, 8, 2, 611, 64, (100, 333))
+    kw = {"causal": True, "window": 400, "segment_ids": (seg, seg)}
+    got = flash_attention(q, k, v, return_lse=True, **kw)
+    pruned = flash_attention(q, k, v, return_lse=True,
+                             segment_starts=(0, 100, 333), **kw)
+    q1 = q[:, :, 400:]
+    offset = flash_attention(q1, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, pruned))
+    _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
+        x, k, v, sm_scale=sc, return_lse=True, **kw), q, torch.float32)
+    _assert_flash_gate(*offset, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, return_lse=True), q1,
+        torch.float32)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_len,kv_len", [(1, 1), (127, 127), (128, 128),
+                                          (129, 129), (257, 63),
+                                          (64, 257), (300, 300)])
+def test_f32q_quantized_kernel_at_tile_edges(gen, monkeypatch, fmt, q_len,
+                                             kv_len):
+    """f32 q over int8 and e4m3 payloads at the edges of the f32 body's
+    128-row q tiles and 64-row kv tiles (rows before every column
+    included), at runs of 2 kv tiles, so that the longer ranges split,
+    against the plain version."""
+    monkeypatch.setattr(configs, "FLASH_FWD_F32_SPLIT", 2)
+    d = 128
+    q = _randn((1, 8, q_len, d), torch.float32, gen)
+    k, v = Q.quantize_kv(_randn((1, 2, kv_len, d), torch.float32, gen),
+                         _randn((1, 2, kv_len, d), torch.float32, gen), fmt)
+    out, lse = flash_attention_quantized(q, k, v, causal=True,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_quantized_plain(
+        q, k.values, v.values, k.scales, v.scales, causal=True,
+        sm_scale=d ** -0.5, return_lse=True)
+    atol = tolerance_for(torch.float32)
+    assert _err(out, ref) <= atol * min(1.0, float(ref.abs().max()))
+    assert _err(lse, ref_lse) <= atol
+    if q_len > kv_len:
+        assert bool((out[:, :, :q_len - kv_len] == 0).all())
+
+
+@pytest.mark.parametrize("fmt,src", [("bf16", torch.bfloat16),
+                                     ("int8", torch.bfloat16),
+                                     ("int8", torch.float32)])
+def test_append_reads_what_the_kernel_before_it_wrote(gen, fmt, src):
+    """1,000 appends, each launched right after a kernel that writes its
+    k_new and v_new in place (a copy into the same tensors), each into rows
+    of its own: the pages match the plain version's bit for bit, so no
+    append read a row before its writer had written it."""
+    steps, B, hkv, d, ps = 1000, 8, 2, 128, 16
+    num_pages = steps * B // ps
+    pdtype = torch.int8 if fmt == "int8" else src
+    pages = torch.zeros((hkv, num_pages, page_rows(ps, d, fmt), d),
+                        dtype=pdtype, device="cuda")
+    ks = _randn((steps, B, hkv, d), src, gen)
+    vs = _randn((steps, B, hkv, d), src, gen)
+    k_new = torch.empty((B, hkv, d), dtype=src, device="cuda")
+    v_new = torch.empty_like(k_new)
+    slot = torch.arange(steps * B, dtype=torch.int32,
+                        device="cuda").view(steps, B)
+    ids, rows = slot // ps, slot % ps
+    want = pages.clone()
+    for i in range(steps):
+        page_append_plain(want, ks[i], vs[i], ids[i], rows[i], page_size=ps)
+    before = fused_page_append.launches
+    for i in range(steps):
+        k_new.copy_(ks[i])
+        v_new.copy_(vs[i])
+        fused_page_append(pages, k_new, v_new, ids[i], rows[i],
+                          page_size=ps)
+    torch.cuda.synchronize()
+    assert fused_page_append.launches == before + steps
+    assert torch.equal(pages.view(torch.uint8), want.view(torch.uint8))

@@ -1,14 +1,16 @@
 """The forward kernels' tile tables and shared-memory budgets, on the CPU.
 
 The bf16 forward (wgmma, 128-row tiles; over bf16 K/V and over int8/e4m3
-payloads alike) and the f32 instances (64-row tiles, over f32 K/V and over
-payloads) prune a packed row's work with tables built for their own tiles
-from one `SegmentTiles` (ops/flash.py). Held here:
+payloads alike) and the f32 instances (128-row q and 64-row kv tiles, over
+f32 K/V and over payloads) prune a packed row's work with tables built for
+their own tiles from one `SegmentTiles` (ops/flash.py): the bf16 kernel's
+`tile_table`, the f32 kernel's `fwd_f32_tiles`, cut into its work list.
+Held here:
 
   * every (row, column) pair that `visible_mask` lets through lies in its
-    q tile's kv range [lo, hi) of `tile_table`, for random packed starts,
-    causal and not, at every forward config, so no kernel skips a visible
-    tile;
+    q tile's kv range [lo, hi) of `tile_table` (`fwd_f32_tiles` for the f32
+    instances, which agrees with it), for random packed starts, causal and
+    not, at every forward config, so no kernel skips a visible tile;
   * the block order is a permutation of the q tiles, longest range first;
   * one `SegmentTiles` feeds `flash_attention` and
     `flash_attention_quantized` (their plain versions here), builds one
@@ -41,8 +43,8 @@ from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_F32, SMEM_PER_BLOCK, TileConfig,
     fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
-    check_smem_layouts, flash_attention, fwd_config, segment_tiles,
-    tile_table, visible_mask)
+    check_smem_layouts, flash_attention, fwd_config, fwd_f32_tiles,
+    segment_tiles, tile_table, visible_mask)
 from tiny_flash_attention_tpu_torch.ops.flash_quant import (
     convert_pairs, flash_attention_quantized, payload_to_compute)
 from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
@@ -79,6 +81,10 @@ def test_visible_pairs_lie_in_their_tile_range(cfg, causal, seed, q_len):
     starts, ids = _packed(seed, q_len)
     lo, hi, order = tile_table(starts, q_len, causal=causal, block_m=bm,
                                block_n=bn)
+    if CONFIGS[cfg] is FLASH_FWD_F32:
+        f32 = fwd_f32_tiles(q_len, q_len, causal=causal, starts=starts)
+        assert all(x.tolist() == y.tolist()
+                   for x, y in zip(f32, (lo, hi, order)))
     t = torch.from_numpy(ids)
     vis = visible_mask(q_len, q_len, "cpu", causal=causal,
                        segment_ids=(t, t))[0, 0].numpy()
@@ -126,10 +132,13 @@ def test_one_segment_tiles_serve_both_entries_as_jax():
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) <= atol
 
     # the device tables: one per forward config, built once each; the
-    # quantized bf16-q entry shares the bf16 kernel's
+    # quantized bf16-q entry shares the bf16 kernel's; the f32 instances
+    # take the same starts into their own ranges (their work list)
     bf16 = tiles.table(fwd_config(torch.bfloat16))
     quant = tiles.table(fwd_config(torch.bfloat16, quantized=True))
-    f32 = tiles.table(fwd_config(torch.float32, quantized=True))
+    f32 = tuple(torch.as_tensor(x, dtype=torch.int32) for x in
+                fwd_f32_tiles(q_len, q_len, causal=True,
+                              starts=tiles.starts)[::2])
     assert tiles.table(fwd_config(torch.bfloat16)) is bf16
     assert quant is bf16
     for (lo, order), cfg in ((bf16, FLASH_FWD_BF16), (f32, FLASH_FWD_F32)):
@@ -166,9 +175,12 @@ def test_fwd_config_by_dtype_and_payload():
     assert fwd_smem_bytes(FLASH_FWD_BF16, 128, True) == 232040
     assert fwd_smem_bytes(FLASH_FWD_BF16, 64, True) == (
         128 * 64 * 2 + 3 * (2 * 128 * 64 * 2 + 128 * 4) + 13 * 8 + 1024)
-    # the f32 body's quantized instances add their k and v scales
+    # the f32 body: q, two stages of K and V, P^T, each stage's kv ids;
+    # its quantized instances add each stage's k and v scales
+    assert fwd_smem_bytes(FLASH_FWD_F32, 128) == (
+        (128 * 128 + 4 * 64 * 128 + 64 * 128) * 4 + 2 * 64 * 4) == 229888
     assert (fwd_smem_bytes(FLASH_FWD_F32, 128, True)
-            == fwd_smem_bytes(FLASH_FWD_F32, 128) + 2 * 64 * 4)
+            == fwd_smem_bytes(FLASH_FWD_F32, 128) + 2 * 2 * 64 * 4)
     with pytest.raises(ValueError):
         fwd_smem_bytes(TileConfig(64, 64, 128), 128)
     with pytest.raises(ValueError):

@@ -92,6 +92,7 @@
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #if !defined(TFA_BWD_BF16_BLOCK_M) || !defined(TFA_BWD_BF16_BLOCK_N) || \
@@ -729,7 +730,9 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
 // tiles before took 5 per 512 and 20 per 1024 (two-way conflicts):
 // 2.5x, 6.7x and 4x fewer. Tiles sit row-major in shared memory, each
 // row's 16-byte chunks XOR-swizzled by row % 8, so the cp.async copies
-// land unchanged and the strided float4 reads are free of bank conflicts. One block takes
+// land unchanged and the strided float4 reads are free of bank conflicts
+// (the tiles and products of f32_tiles.cuh, shared with the forward's f32
+// body). One block takes
 // 231,680 bytes of shared memory at head_dim 128 (K and V of a tile and two
 // stages of q and dout are 192 KB in f32), so an SM holds one block of 8
 // warps; the ring hides the loads' latency instead.
@@ -764,109 +767,6 @@ struct F32Smem {
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// Float offset of element (r, c) in a row-major tile of W-wide rows, its
-// 16-byte chunks swizzled by r % 8.
-template <int W>
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * W + ((((c >> 2) ^ r) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
-}
-
-// rows [r0, r0 + 64) of a row-major (n_rows, D) matrix into a swizzled
-// tile by cp.async; rows past n_rows land as zeros
-template <int D>
-__device__ __forceinline__ void stage_tile(float* t, const float* g, int r0,
-                                           int n_rows, int tid) {
-  constexpr int C4 = D / 4;
-#pragma unroll
-  for (int x = tid; x < FT * C4; x += FTHREADS) {
-    const int r = x / C4, c = (x % C4) * 4;
-    const bool ok = r0 + r < n_rows;
-    cp_async16(t + sw<D>(r, c), g + (size_t)(ok ? r0 + r : 0) * D + c, ok);
-  }
-}
-
-// 64 consecutive 4-byte values from `g` at [r0, r0 + 64), 0 past n
-__device__ __forceinline__ void stage_row(void* dst, const void* g, int r0,
-                                          int n, int lane64) {
-  const bool ok = r0 + lane64 < n;
-  cp_async4(static_cast<int*>(dst) + lane64,
-            static_cast<const int*>(g) + (ok ? r0 + lane64 : 0), ok);
-}
-
-// acc[k][i] = sum_d R[8a + k][d] * C[g + 16 i][d] over the head dim, each
-// operand times its scale where SR / SC (the q fold, rounded per element
-// as the plain version rounds q * c): R's rows are read as float4s that
-// the warp's 16 threads of one `a` share, C's as float4s of 16 rows.
-template <int D, bool SR, bool SC>
-__device__ __forceinline__ void score_tile(float (&acc)[8][4],
-                                           const float* R, const float* C,
-                                           float scale, int a, int g) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[k][i] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < D; c += 4) {
-    float4 cv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      cv[i] = *reinterpret_cast<const float4*>(C + sw<D>(g + 16 * i, c));
-      if (SC) {
-        cv[i].x *= scale; cv[i].y *= scale;
-        cv[i].z *= scale; cv[i].w *= scale;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float4 rv = *reinterpret_cast<const float4*>(R + sw<D>(8 * a + k, c));
-      if (SR) {
-        rv.x *= scale; rv.y *= scale;
-        rv.z *= scale; rv.w *= scale;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[k][i] = fmaf(rv.x, cv[i].x, acc[k][i]);
-        acc[k][i] = fmaf(rv.y, cv[i].y, acc[k][i]);
-        acc[k][i] = fmaf(rv.z, cv[i].z, acc[k][i]);
-        acc[k][i] = fmaf(rv.w, cv[i].w, acc[k][i]);
-      }
-    }
-  }
-}
-
-// acc[k][j] += sum_x A[x][RW * a + k] * B[x][4 (e + 16 (j / 4)) + j % 4]
-// over the 64 rows x of both: A a 64 x 64 score tile, B a 64 x D tile; this
-// thread's RW rows of A's columns, its D / 16 columns of B in chunks e + 16 c
-template <int D, int RW>
-__device__ __forceinline__ void accumulate(float (&acc)[RW][D / 16],
-                                           const float* A, const float* B,
-                                           int a, int e) {
-  constexpr int NC = D / 64;                     // B chunks a thread
-#pragma unroll 4
-  for (int x = 0; x < FT; ++x) {
-    float av[RW];
-#pragma unroll
-    for (int h = 0; h < RW / 4; ++h) {
-      const float4 v4 =
-          *reinterpret_cast<const float4*>(A + sw<FT>(x, RW * a + 4 * h));
-      av[4 * h] = v4.x; av[4 * h + 1] = v4.y;
-      av[4 * h + 2] = v4.z; av[4 * h + 3] = v4.w;
-    }
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const float4 b4 = *reinterpret_cast<const float4*>(
-          B + sw<D>(x, 4 * (e + 16 * cc)));
-#pragma unroll
-      for (int k = 0; k < RW; ++k) {
-        acc[k][4 * cc] = fmaf(av[k], b4.x, acc[k][4 * cc]);
-        acc[k][4 * cc + 1] = fmaf(av[k], b4.y, acc[k][4 * cc + 1]);
-        acc[k][4 * cc + 2] = fmaf(av[k], b4.z, acc[k][4 * cc + 2]);
-        acc[k][4 * cc + 3] = fmaf(av[k], b4.w, acc[k][4 * cc + 3]);
-      }
-    }
-  }
-}
-
 // The accumulator's rows RW * a + k of a 64 x D slot, row-major
 template <int D, int RW>
 __device__ __forceinline__ void store_slot(float* slot,
@@ -891,17 +791,6 @@ __device__ __forceinline__ bool visible(int row, int col, int q_len,
   return row < q_len && col < kv_len && (!causal || col <= pos) &&
          (window <= 0 || col > pos - window) && qid == kid;
 }
-
-// A work list (ops/flash_bwd.py::f32_work), int32: tile[n], lo[n], hi[n]
-// (the item's range of the other side's tiles), order[n] (the item of
-// each block rank, longest range first), first[tiles + 1] (tile t's items
-// are first[t] .. first[t + 1] - 1, in range order).
-struct Work {
-  const int *tile, *lo, *hi, *order, *first;
-  __host__ __device__ Work(const int* w, int n)
-      : tile(w), lo(w + n), hi(w + 2 * n), order(w + 3 * n),
-        first(w + 4 * n) {}
-};
 
 template <int D>
 __global__ void __launch_bounds__(FTHREADS, 1)
@@ -944,8 +833,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   // q tile `it` of the range (q, dout, LSE, delta, ids) into stage it % 2
   auto stage_q = [&](int it) {
     const int q0 = (lo + it) * FT, st = it % 2;
-    stage_tile<D>(ring(st), qh, q0, q_len, tid);
-    stage_tile<D>(ring(st) + S::TILE, doh, q0, q_len, tid);
+    stage_tile<D, FT, FTHREADS>(ring(st), qh, q0, q_len, tid);
+    stage_tile<D, FT, FTHREADS>(ring(st) + S::TILE, doh, q0, q_len, tid);
     if (tid < FT) stage_row(rows(st), lse + head, q0, q_len, tid);
     else if (tid < 2 * FT)
       stage_row(rows(st) + FT, delta + head, q0, q_len, tid - FT);
@@ -954,8 +843,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                 tid - 2 * FT);
   };
 
-  stage_tile<D>(ks, k + kv_base, kv0, kv_len, tid);
-  stage_tile<D>(vs, v + kv_base, kv0, kv_len, tid);
+  stage_tile<D, FT, FTHREADS>(ks, k + kv_base, kv0, kv_len, tid);
+  stage_tile<D, FT, FTHREADS>(vs, v + kv_base, kv0, kv_len, tid);
   if (segs && tid < FT)
     stage_row(kids, kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
   if (n > 0) stage_q(0);
@@ -1026,9 +915,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         }
       }
       named_bar(1, 128);  // dS written by the half that reads it
-      accumulate<D, 8>(acc, DS, qt, a, g);   // dK += dS^T q
+      accumulate<D, 8, FT>(acc, DS, qt, a, g);   // dK += dS^T q
     } else {
-      accumulate<D, 8>(acc, P, dot, a, g);   // dV += P^T dout
+      accumulate<D, 8, FT>(acc, P, dot, a, g);   // dV += P^T dout
     }
     __syncthreads();     // stage st, P and dS are no longer read
   }
@@ -1078,14 +967,15 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   };
   auto stage_kv = [&](int it) {
     const int kv0 = (lo + it) * FT, st = it % 2;
-    stage_tile<D>(ring(st), k + kv_base, kv0, kv_len, tid);
-    stage_tile<D>(ring(st) + S::TILE, v + kv_base, kv0, kv_len, tid);
+    stage_tile<D, FT, FTHREADS>(ring(st), k + kv_base, kv0, kv_len, tid);
+    stage_tile<D, FT, FTHREADS>(ring(st) + S::TILE, v + kv_base, kv0,
+                                kv_len, tid);
     if (segs && tid < FT)
       stage_row(kids(st), kv_seg + (size_t)b * kv_len, kv0, kv_len, tid);
   };
 
-  stage_tile<D>(qs, q + head * D, q0, q_len, tid);
-  stage_tile<D>(dos, dout + head * D, q0, q_len, tid);
+  stage_tile<D, FT, FTHREADS>(qs, q + head * D, q0, q_len, tid);
+  stage_tile<D, FT, FTHREADS>(dos, dout + head * D, q0, q_len, tid);
   if (tid < FT) stage_row(qrows, lse + head, q0, q_len, tid);
   else if (tid < 2 * FT) stage_row(qrows + FT, delta + head, q0, q_len,
                                    tid - FT);
@@ -1162,7 +1052,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       }
     }
     __syncthreads();     // dS^T written
-    accumulate<D, 4>(acc, PT, kt, a2, e2);       // dQ += dS K
+    accumulate<D, 4, FT>(acc, PT, kt, a2, e2);       // dQ += dS K
     __syncthreads();     // stage st and dS^T are no longer read
   }
 

@@ -11,25 +11,29 @@
 //   tiny_flash_attention_tpu/ops/flash_rowloop.py::flash_attention_rowloop
 // for K/V in q's dtype. The contract and every mask are those of
 // flash_fwd.cuh; what bounds the bf16 kernel and its design are in
-// flash_fwd_wgmma.cuh.
+// flash_fwd_wgmma.cuh, the f32 kernel's in flash_fwd.cuh.
 
 #include "flash_fwd_wgmma.cuh"
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype: 0 bf16,
 // 1 f32. head_dim: 64 or 128. q_seg, kv_seg, tile_lo, tile_order and
 // seq_lens may each be null (FwdMasks); tile_lo and tile_order hold one
-// int per q tile of this dtype's block_m. window: 0 for none, else >= 1
-// with causal and without seq_lens. The caller has checked shapes,
-// contiguity and 16-byte alignment. A bf16 launch whose tensor maps cannot
-// be encoded returns cudaErrorInvalidValue.
+// int per q tile of the bf16 instance's block_m (the f32 instance takes
+// neither: its work list holds the pruned ranges and their order). work,
+// n_items, partials, arrivals: the f32 instance's runs and merge workspace
+// (F32Runs in flash_fwd.cuh; ops/flash.py::fwd_f32_work), unused in bf16.
+// window: 0 for none, else >= 1 with causal and without seq_lens. The
+// caller has checked shapes, contiguity and 16-byte alignment. A bf16
+// launch whose tensor maps cannot be encoded returns cudaErrorInvalidValue.
 extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* q_seg,
                              const void* kv_seg, const void* tile_lo,
                              const void* tile_order, const void* seq_lens,
-                             int batch, int hq, int hkv, int q_len,
-                             int kv_len, int head_dim, int causal,
-                             int window, float scale_log2, int dtype,
-                             void* stream) {
+                             const void* work, void* partials,
+                             void* arrivals, int batch, int hq, int hkv,
+                             int q_len, int kv_len, int head_dim,
+                             int causal, int window, int n_items,
+                             float scale_log2, int dtype, void* stream) {
   if (!fwd_args_valid(batch, hq, hkv, q_len, kv_len, q_seg, kv_seg, seq_lens,
                       causal, window))
     return (int)cudaErrorInvalidValue;
@@ -39,6 +43,9 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(tile_order),
                     static_cast<const int*>(seq_lens)};
   const KvScales none{nullptr, nullptr, 0};
+  const F32Runs runs{static_cast<const int*>(work), n_items,
+                     static_cast<float*>(partials),
+                     static_cast<int*>(arrivals)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QuantKv bf16_kv{nullptr, nullptr, nullptr, nullptr, 0};
   if (dtype == 0 && head_dim == 128)
@@ -50,13 +57,13 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                                             batch, hq, hkv, q_len, kv_len,
                                             causal, window, scale_log2, s);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch_f32<128, kNone>(q, k, v, o, lse, mk, none, batch, hq,
-                                       hkv, q_len, kv_len, causal, window,
-                                       scale_log2, s);
+    return (int)launch_f32<128, kNone>(q, k, v, o, lse, mk, none, runs,
+                                       batch, hq, hkv, q_len, kv_len, causal,
+                                       window, scale_log2, s);
   if (dtype == 1 && head_dim == 64)
-    return (int)launch_f32<64, kNone>(q, k, v, o, lse, mk, none, batch, hq,
-                                      hkv, q_len, kv_len, causal, window,
-                                      scale_log2, s);
+    return (int)launch_f32<64, kNone>(q, k, v, o, lse, mk, none, runs,
+                                      batch, hq, hkv, q_len, kv_len, causal,
+                                      window, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -65,13 +65,10 @@
 // subnormal codes land high, the NaN codes give +/-480), e4m3 to f32 is
 // exact (JAX's astype).
 //
-// The f32 kernel computes in real f32 FMAs on the CUDA cores (never TF32;
-// the f32 gate is 2e-5): 256 threads, each owning a 4 x 4 piece of the
-// 64 x 64 score tile and a 4 x D/16 piece of the output; quantized, each
-// tile's payload bytes are converted to f32 as they are staged. What bounds
-// it: the f32 FMAs (4 * D per visible pair and q head at 67 TF/s). Blocks
-// run longest causal rows first (tile_order's longest pruned work first
-// with segment_starts).
+// The f32 kernel (f32 q, below) computes in real f32 FMAs on the CUDA
+// cores (never TF32; the f32 gate is 2e-5) over a host-built work list of
+// kv runs, longest first, merged in a fixed order; its tile_lo, tile_order
+// and window arrive folded into that list, not as FwdMasks.
 //
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines (FLASH_FWD_F32); the build refuses to compile without them.
@@ -80,7 +77,7 @@
 
 #include <type_traits>
 
-#include "flash_common.cuh"
+#include "f32_tiles.cuh"
 
 #if !defined(TFA_FWD_F32_BLOCK_M) || !defined(TFA_FWD_F32_BLOCK_N) || \
     !defined(TFA_FWD_F32_THREADS)
@@ -166,185 +163,264 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 }
 
 // ----------------------------------------------------------------- f32 path
+//
+// f32 q over f32 K/V, or over int8/e4m3 payloads converted to f32 exactly:
+// real f32 FMAs on the CUDA cores, never TF32 (the f32 gate is 2e-5). What
+// bounds it: the FMAs, 2 * D a visible (row, column) pair and q head at
+// 67 TF/s. The design:
+//   * runs: each 128-row q tile's kv range [lo, hi) (the causal clamp,
+//     tile_lo's pruning and the window's band, built on the host:
+//     ops/flash.py::fwd_f32_work) is cut at the multiples of
+//     FLASH_FWD_F32_SPLIT kv tiles into runs, one block per (run, q head,
+//     batch), the longest runs first. Under the causal mask one block per q
+//     tile gives tiles of very unequal length (at the f32 train step's
+//     (1, 8, 1024), 128 blocks of 64-row tiles walking 1 to 16 kv tiles,
+//     one wave on 132 SMs); the runs fill the card more evenly.
+//   * a run whose tile has more runs writes its partial (o unnormalized, m
+//     in the log2 domain, l) to a slot of its own; the last run of the tile
+//     to arrive (a counter per (q tile, q head, batch), which it sets back
+//     to 0) combines the tile's runs in run order with the exact LSE
+//     combine, its own from its registers; a tile of one run writes its
+//     rows directly by the same formula. So two calls give the same bits,
+//     and segment_starts' pruning changes no bit: the cuts sit at fixed
+//     tiles, and a run it drops holds only masked tiles, whose partial adds
+//     exact zeros.
+//   * 256 threads over a 128 x 64 score tile: thread (a, g) = (tid / 16,
+//     tid % 16) holds S at rows 8a .. 8a + 7 and columns g + 16 i (8 x 4,
+//     f32_tiles.cuh's score_tile: 12 float4 reads for 128 FMAs) and O at
+//     the same 8 rows (8 x D / 16, accumulate: 4 float4 reads for 64 FMAs at
+//     head_dim 128), so a row's max and sum reduce over 16 lanes and its
+//     rescale stays in the thread. P goes to shared memory transposed
+//     (P^T, kv x q), swizzled.
+//   * K and V stream through a two-stage ring: tile t + 1's copies
+//     (cp.async) are issued as tile t's products start and waited for at
+//     the top of step t + 1, two barriers a step. Quantized, tile t + 1's
+//     payload bytes are loaded into registers as step t starts and
+//     converted into the free stage after its PV product; the ids and
+//     scales ride the ring by cp.async.
+//   * shared memory (F32Layout): q (scaled by scale_log2 in place once it
+//     lands), two K/V stages, P^T, and each stage's ids (quantized, its k
+//     and v scales): 229,888 bytes at head_dim 128 (230,912 quantized), one
+//     block an SM.
 
 constexpr int FM = TFA_FWD_F32_BLOCK_M;
 constexpr int FN = TFA_FWD_F32_BLOCK_N;
 constexpr int FTHREADS = TFA_FWD_F32_THREADS;
-// thread t owns rows (t / 16) * 4 + [0, 4) and columns t % 16 + 16 * [0, n)
-static_assert(FM == 64 && FN == 64 && FTHREADS == 256,
-              "the f32 thread map is 16 x 16 threads over a 64 x 64 tile");
+// thread t owns rows 8 (t / 16) + [0, 8) and columns t % 16 + 16 * [0, n)
+static_assert(FM == 128 && FN == 64 && FTHREADS == 256,
+              "the f32 thread map is 16 x 16 threads over a 128 x 64 tile");
 
-// Dynamic shared memory of an f32 block: q^T, k^T, v, p (rows padded by
-// one) and the kv ids; quantized, the tile's k and v scales too
-// (ops/configs.py::fwd_smem_bytes mirrors it; tfa_flash_fwd_smem and
-// tfa_flash_fwd_quant_smem export it).
+// The f32 body's shared memory, in floats: q [FM][D], two stages of K and
+// V [FN][D], P^T [FN][FM], and each stage's rows [ROWS][FN] (kv ids;
+// quantized, also the k and v scales).
+template <int D, int FMT>
+struct F32Layout {
+  static constexpr int ROWS = FMT == kNone ? 1 : 3;
+  static constexpr int Q = 0;
+  static constexpr int KV = FM * D;
+  static constexpr int PT = KV + 4 * FN * D;
+  static constexpr int RW = PT + FN * FM;
+  static constexpr int BYTES = (RW + 2 * ROWS * FN) * 4;
+  // and one static int: the merge's arrival flag
+  static_assert(BYTES + 4 <= 232448, "a block has 227 KB of shared memory");
+};
+
+// Dynamic shared memory of an f32 block (ops/configs.py::fwd_smem_bytes
+// mirrors it; tfa_flash_fwd_smem and tfa_flash_fwd_quant_smem export it).
 template <int D, int FMT>
 constexpr int f32_smem_bytes() {
-  return (D * FM + D * FN + FN * D + FM * (FN + 1)) * (int)sizeof(float) +
-         FN * (int)sizeof(int) +
-         (FMT == kNone ? 0 : 2 * FN * (int)sizeof(float));
+  return F32Layout<D, FMT>::BYTES;
 }
 
+// The f32 launch's work list (ops/flash.py::fwd_f32_work: n_items runs
+// over the q tiles of FM rows) and its merge workspace: partials, n_items
+// x batch x hq slots of FM x (D + 2) f32 (o, then m, then l), written only
+// for tiles of more than one run; arrivals, one zeroed int per (batch, q
+// head, q tile), left at 0. Both may be null where every tile is one run.
+struct F32Runs {
+  const int* work;
+  int n_items;
+  float* partials;
+  int* arrivals;
+};
+
 template <int D, bool WINDOW, int FMT>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, 1)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const KvElem<FMT, float>* __restrict__ k,
                          const KvElem<FMT, float>* __restrict__ v,
                          float* __restrict__ o, float* __restrict__ lse,
-                         FwdMasks mk, KvScales sc, int hq, int hkv,
-                         int q_len, int kv_len, int causal, float scale_log2,
-                         int window) {
+                         FwdMasks mk, KvScales sc, F32Runs runs, int batch,
+                         int hq, int hkv, int q_len, int kv_len, int causal,
+                         float scale_log2, int window) {
   constexpr bool QUANT = FMT != kNone;
-  constexpr int PS = FN + 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [D][FM], q^T, scaled
-  float* kt = qt + D * FM;                         // [D][FN], k^T
-  float* vs = kt + D * FN;                         // [FN][D]
-  float* ps = vs + FN * D;                         // [FM][PS]
-  int* kid = reinterpret_cast<int*>(ps + FM * PS);  // [FN] kv ids
-  // quantized: the tile's k and v scales [FN] each
-  float* ksc = reinterpret_cast<float*>(kid + FN);
-  float* vsc = ksc + FN;
+  constexpr int C4 = D / 4, C16 = D / 16;        // 16-byte chunks a row
+  using L = F32Layout<D, FMT>;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm + L::Q;
+  float* pt = fsm + L::PT;
+  auto kst = [&](int st) { return fsm + L::KV + st * 2 * FN * D; };
+  auto vst = [&](int st) { return fsm + L::KV + (st * 2 + 1) * FN * D; };
+  auto rows = [&](int st) { return fsm + L::RW + st * L::ROWS * FN; };
 
-  const int tid = threadIdx.x;
-  const int rg = tid / 16, cg = tid % 16;
-  const int q0 = (mk.tile_order ? mk.tile_order[blockIdx.x]
-                                : gridDim.x - 1 - blockIdx.x) * FM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const Work wk(runs.work, runs.n_items);
+  const int n_bh = batch * hq;
+  const int item = wk.order[blockIdx.x / n_bh];
+  const int bh = blockIdx.x % n_bh;
+  const int h = bh % hq, b = bh / hq;
   const int kvh = h / (hq / hkv);
+  const int tile = wk.tile[item], q0 = tile * FM;
+  const int first = wk.first[tile], n_runs = wk.first[tile + 1] - first;
+  const int tid = threadIdx.x, a = tid / 16, g = tid % 16;
   const int offset = kv_len - q_len;
-  const float* qg = q + (size_t)(b * hq + h) * q_len * D;
+  const float* qg = q + (size_t)bh * q_len * D;
   const auto* kg = k + (size_t)(b * hkv + kvh) * kv_len * D;
   const auto* vg = v + (size_t)(b * hkv + kvh) * kv_len * D;
-  float* og = o + (size_t)(b * hq + h) * q_len * D;
-  float* lg = lse + (size_t)(b * hq + h) * q_len;
   const bool segs = mk.q_seg != nullptr;
   const int col_end =
       mk.seq_lens ? min(max(mk.seq_lens[b], 0), kv_len) : kv_len;
   const int row_end = mk.seq_lens ? col_end : q_len;
-  if (q0 >= row_end) {
-    write_empty_rows<float, D>(og, lg, q0, min(FM, q_len - q0));
-    return;
-  }
-  const int hi = min(kv_tiles(q0, FM, q_len, kv_len, causal, FN),
-                     (col_end + FN - 1) / FN);
-  int lo = mk.tile_lo ? max(0, min(mk.tile_lo[q0 / FM], hi - 1)) : 0;
-  if (WINDOW) lo = window_lo(lo, hi, q0 + offset, window, FN);
+  // the run's kv tiles, clamped to the jagged length (a q tile at or past
+  // it visits none: its rows are empty)
+  const int lo = wk.lo[item];
+  const int hi = q0 >= row_end ? lo
+                               : min(wk.hi[item], (col_end + FN - 1) / FN);
+  const int n = max(0, hi - lo);
   const bool mask_all = segs || (mk.seq_lens && q0 + FM > row_end);
   const int* kv_ids = segs ? mk.kv_seg + (size_t)b * kv_len : nullptr;
-  int qid[4] = {0, 0, 0, 0};
+  const size_t scale_head = (size_t)(b * hkv + kvh) * sc.ld;
+  int qid[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (segs) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + 8 * a + i;
       if (row < q_len) qid[i] = mk.q_seg[(size_t)b * q_len + row];
     }
   }
 
-  for (int c = tid; c < FM * D / 4; c += FTHREADS) {
-    const int r = c % FM, col = (c / FM) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < q_len)
-      x = *reinterpret_cast<const float4*>(qg + (size_t)(q0 + r) * D + col);
-    qt[(col + 0) * FM + r] = x.x * scale_log2;
-    qt[(col + 1) * FM + r] = x.y * scale_log2;
-    qt[(col + 2) * FM + r] = x.z * scale_log2;
-    qt[(col + 3) * FM + r] = x.w * scale_log2;
-  }
-
-  float acc[4][D / 16];
+  // tile `it` of the run into stage it % 2 by cp.async: f32 K and V, the
+  // kv ids, quantized the k and v scales (the payloads go by registers)
+  auto stage_kv = [&](int it) {
+    const int kv0 = (lo + it) * FN;
+    float* rw = rows(it & 1);
+    if constexpr (!QUANT) {
+      stage_tile<D, FN, FTHREADS>(kst(it & 1), kg, kv0, kv_len, tid);
+      stage_tile<D, FN, FTHREADS>(vst(it & 1), vg, kv0, kv_len, tid);
+    } else {
+      if (tid >= FN && tid < 2 * FN)
+        stage_row(rw + FN, sc.k + scale_head, kv0, kv_len, tid - FN);
+      else if (tid >= 2 * FN && tid < 3 * FN)
+        stage_row(rw + 2 * FN, sc.v + scale_head, kv0, kv_len, tid - 2 * FN);
+    }
+    if (segs && tid < FN) stage_row(rw, kv_ids, kv0, kv_len, tid);
+  };
+  // quantized: tile `it`'s K and V payload rows into registers (rows past
+  // kv_len as zeros), 16 bytes at a time; then, converted to f32, into a
+  // stage
+  constexpr int PW = QUANT ? FN * C16 / FTHREADS : 1;
+  static_assert(!QUANT || FN * C16 % FTHREADS == 0, "whole payload chunks");
+  uint4 pk[PW], pv[PW];
+  auto load_payload = [&](int it) {
+    if constexpr (QUANT) {
+      const int kv0 = (lo + it) * FN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int w = 0; w < PW; ++w) {
+        const int x = tid + w * FTHREADS, r = x / C16, c = (x % C16) * 16;
+        const bool ok = kv0 + r < kv_len;
+        const size_t at = (size_t)(ok ? kv0 + r : 0) * D + c;
+        pk[w] = ok ? *reinterpret_cast<const uint4*>(kg + at)
+                   : make_uint4(0u, 0u, 0u, 0u);
+        pv[w] = ok ? *reinterpret_cast<const uint4*>(vg + at)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  auto store_payload = [&](int st) {
+    if constexpr (QUANT) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  float m_run[4], l_run[4];
+      for (int w = 0; w < PW; ++w) {
+        const int x = tid + w * FTHREADS, r = x / C16, c = (x % C16) * 16;
+        const uint32_t kw[4] = {pk[w].x, pk[w].y, pk[w].z, pk[w].w};
+        const uint32_t vw[4] = {pv[w].x, pv[w].y, pv[w].z, pv[w].w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-
-  for (int t = lo; t < hi; ++t) {
-    const int kv0 = t * FN;
-    __syncthreads();  // previous tile's kt / vs / ps are no longer read
-    for (int c = tid; c < FN * D / 4; c += FTHREADS) {
-      const int r = c % FN, col = (c / FN) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (kv0 + r < kv_len) {
-        if constexpr (QUANT) {
-          // four payload bytes, converted to f32
-          const size_t at = (size_t)(kv0 + r) * D + col;
-          kx = payload4_f32<FMT>(*reinterpret_cast<const uint32_t*>(kg + at));
-          vx = payload4_f32<FMT>(*reinterpret_cast<const uint32_t*>(vg + at));
-        } else {
-          kx = *reinterpret_cast<const float4*>(kg + (size_t)(kv0 + r) * D + col);
-          vx = *reinterpret_cast<const float4*>(vg + (size_t)(kv0 + r) * D + col);
+        for (int j = 0; j < 4; ++j) {
+          *reinterpret_cast<float4*>(kst(st) + sw<D>(r, c + 4 * j)) =
+              payload4_f32<FMT>(kw[j]);
+          *reinterpret_cast<float4*>(vst(st) + sw<D>(r, c + 4 * j)) =
+              payload4_f32<FMT>(vw[j]);
         }
       }
-      kt[(col + 0) * FN + r] = kx.x;
-      kt[(col + 1) * FN + r] = kx.y;
-      kt[(col + 2) * FN + r] = kx.z;
-      kt[(col + 3) * FN + r] = kx.w;
-      *reinterpret_cast<float4*>(vs + r * D + col) = vx;
     }
-    if (segs) {
-      for (int r = tid; r < FN; r += FTHREADS)
-        kid[r] = kv0 + r < kv_len ? kv_ids[kv0 + r] : 0;
-    }
-    if constexpr (QUANT) {
-      const size_t head = (size_t)(b * hkv + kvh) * sc.ld;
-      for (int r = tid; r < FN; r += FTHREADS) {
-        const bool valid = kv0 + r < kv_len;
-        ksc[r] = valid ? sc.k[head + kv0 + r] : 0.f;
-        vsc[r] = valid ? sc.v[head + kv0 + r] : 0.f;
+  };
+
+  stage_tile<D, FM, FTHREADS>(qs, qg, q0, q_len, tid);
+  if (n > 0) stage_kv(0);
+  cp_async_commit();
+  if (n > 0) {       // quantized: the first tile's payloads at once
+    load_payload(0);
+    store_payload(0);
+  }
+
+  float acc[8][D / 16];
+  float m_run[8], l_run[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1, kv0 = (lo + it) * FN;
+    cp_async_wait<0>();
+    if (it == 0) {   // the fold, on the q chunks this thread copied
+      for (int x = tid; x < FM * C4; x += FTHREADS) {
+        float4* p = reinterpret_cast<float4*>(qs + sw<D>(x / C4, x % C4 * 4));
+        float4 y = *p;
+        y.x *= scale_log2; y.y *= scale_log2;
+        y.z *= scale_log2; y.w *= scale_log2;
+        *p = y;
       }
     }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt + kk * FM + rg * 4);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = kt[kk * FN + cg + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = fmaf(qr[i], kv, s[i][j]);
-      }
+    __syncthreads();   // tile it and q landed for all; P^T and the other
+                       // stage are no longer read
+    if (it + 1 < n) {  // tile it + 1 lands while this step runs
+      stage_kv(it + 1);
+      cp_async_commit();
+      load_payload(it + 1);
     }
+    const float* rw = rows(st);
 
+    float s[8][4];
+    score_tile<D, false, false>(s, qs, kst(st), 1.f, a, g);
     if constexpr (QUANT) {  // s *= kscale of its column, before the mask
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float f = ksc[cg + 16 * j];
+        const float f = rw[FN + g + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] *= f;
+        for (int i = 0; i < 8; ++i) s[i][j] *= f;
       }
     }
-
     if (mask_all || kv0 + FN > col_end ||
         (causal && kv0 + FN - 1 > q0 + offset) ||
         (WINDOW && kv0 < q0 + FM + offset - window)) {
+      const int* kid = reinterpret_cast<const int*>(rw);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int col = kv0 + cg + 16 * j, row = q0 + rg * 4 + i;
+          const int col = kv0 + g + 16 * j, row = q0 + 8 * a + i;
           const bool ok = col < col_end && row < row_end &&
                           (!causal || col <= row + offset) &&
                           (!WINDOW || col > row + offset - window) &&
-                          (!segs || qid[i] == kid[cg + 16 * j]);
+                          (!segs || qid[i] == kid[g + 16 * j]);
           if (!ok) s[i][j] = kMaskValue;
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 8; ++i) {
       float mx = m_run[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
@@ -359,44 +435,109 @@ __global__ void __launch_bounds__(FTHREADS)
         const float p = exp2f(s[i][j] - mx) * keep;
         rs += p;
         // quantized: l sums the bare p, PV takes p * vscale of its column
-        if constexpr (QUANT)
-          ps[(rg * 4 + i) * PS + cg + 16 * j] = p * vsc[cg + 16 * j];
-        else
-          ps[(rg * 4 + i) * PS + cg + 16 * j] = p;
+        s[i][j] = QUANT ? p * rw[2 * FN + g + 16 * j] : p;
       }
       l_run[i] = alpha * l_run[i] + rs;
       m_run[i] = mx;
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, 8 * a)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, 8 * a + 4)) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncthreads();   // P^T written
+    accumulate<D, 8, FM>(acc, pt, vst(st), a, g);
+    if (it + 1 < n) store_payload((it + 1) & 1);
+  }
+  cp_async_wait<0>();  // a run of no tiles: q still in flight
 
-#pragma unroll 4
-    for (int kk = 0; kk < FN; ++kk) {
-      float pr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(rg * 4 + i) * PS + kk];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float vv = vs[kk * D + cg + 16 * j];
+    for (int w = 1; w < 16; w <<= 1)
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], w);
+
+  // a tile of several runs: the partial into this run's slot; the last run
+  // to arrive goes on to combine them all
+  auto slot = [&](int x) {
+    return runs.partials + ((size_t)x * n_bh + bh) * FM * (D + 2);
+  };
+  if (n_runs > 1) {
+    float* part = slot(item);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * a + i;
+#pragma unroll
+      for (int cc = 0; cc < D / 64; ++cc)
+        *reinterpret_cast<float4*>(part + r * D + 4 * (g + 16 * cc)) =
+            make_float4(acc[i][4 * cc], acc[i][4 * cc + 1],
+                        acc[i][4 * cc + 2], acc[i][4 * cc + 3]);
+      if (g == 0) {
+        part[FM * D + r] = m_run[i];
+        part[FM * D + FM + r] = l_run[i];
       }
     }
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    int* count = runs.arrivals + (size_t)bh * ((q_len + FM - 1) / FM) + tile;
+    if (tid == 0) last = atomicAdd(count, 1) == n_runs - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid == 0) *count = 0;  // ready for the next call
   }
 
+  // the tile's runs in run order, this block's own from its registers:
+  // o = sum w_x o_x / sum w_x l_x, w_x = 2^(m_x - max m); an empty row
+  // (no visible column in any run) gets 0 and the sentinel m * ln2
+  float* og = o + (size_t)bh * q_len * D;
+  float* lg = lse + (size_t)bh * q_len;
+  const int own = item - first;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * a + i;
+    float mx = m_run[i];
+    for (int x = 0; x < n_runs; ++x)
+      if (x != own) mx = fmaxf(mx, __ldcg(slot(first + x) + FM * D + r));
+    float den = 0.f, num[D / 16];
 #pragma unroll
-    for (int w = 1; w < 16; w <<= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
-    const float l_safe = (l == 0.f || l != l) ? 1.f : l;
-    const int row = q0 + rg * 4 + i;
+    for (int c = 0; c < D / 16; ++c) num[c] = 0.f;
+    for (int x = 0; x < n_runs; ++x) {
+      float m_x = m_run[i], l_x = l_run[i], o_x[D / 16];
+      if (x == own) {
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) o_x[c] = acc[i][c];
+      } else {
+        const float* part = slot(first + x);
+        m_x = __ldcg(part + FM * D + r);
+        l_x = __ldcg(part + FM * D + FM + r);
+#pragma unroll
+        for (int cc = 0; cc < D / 64; ++cc) {
+          const float4 y = __ldcg(reinterpret_cast<const float4*>(
+              part + r * D + 4 * (g + 16 * cc)));
+          o_x[4 * cc] = y.x; o_x[4 * cc + 1] = y.y;
+          o_x[4 * cc + 2] = y.z; o_x[4 * cc + 3] = y.w;
+        }
+      }
+      const float w = m_x == -INFINITY ? 0.f : exp2f(m_x - mx);
+      den += l_x * w;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) num[c] += o_x[c] * w;
+    }
+    const int row = q0 + r;
     if (row < q_len) {
+      const float l_safe = (den == 0.f || den != den) ? 1.f : den;
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        og[(size_t)row * D + cg + 16 * j] = acc[i][j] / l_safe;
-      if (cg == 0) lg[row] = m_run[i] * kLn2 + logf(l_safe);
+      for (int cc = 0; cc < D / 64; ++cc)
+        *reinterpret_cast<float4*>(og + (size_t)row * D + 4 * (g + 16 * cc)) =
+            make_float4(num[4 * cc] / l_safe, num[4 * cc + 1] / l_safe,
+                        num[4 * cc + 2] / l_safe, num[4 * cc + 3] / l_safe);
+      if (g == 0) lg[row] = fmaxf(mx, kMaskValue) * kLn2 + logf(l_safe);
     }
   }
 }
@@ -404,9 +545,13 @@ __global__ void __launch_bounds__(FTHREADS)
 template <int D, int FMT>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, const FwdMasks& mk, const KvScales& sc,
-                       int batch, int hq, int hkv, int q_len, int kv_len,
-                       int causal, int window, float scale_log2,
-                       cudaStream_t stream) {
+                       const F32Runs& runs, int batch, int hq, int hkv,
+                       int q_len, int kv_len, int causal, int window,
+                       float scale_log2, cudaStream_t stream) {
+  const long blocks = (long)runs.n_items * batch * hq;
+  if (runs.work == nullptr || runs.n_items < (q_len + FM - 1) / FM ||
+      blocks > 0x7FFFFFFFL)
+    return cudaErrorInvalidValue;
   const int smem = f32_smem_bytes<D, FMT>();
   using KV = KvElem<FMT, float>;
   const bool windowed = window > 0;
@@ -415,12 +560,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   static bool smem_set[2][kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(kernel, smem, smem_set[windowed]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + FM - 1) / FM, hq, batch);
-  kernel<<<grid, FTHREADS, smem, stream>>>(
+  kernel<<<(unsigned)blocks, FTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), mk, sc, hq, hkv, q_len, kv_len, causal,
-      scale_log2, window);
+      static_cast<float*>(lse), mk, sc, runs, batch, hq, hkv, q_len, kv_len,
+      causal, scale_log2, window);
   return cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@
 // K/V bytes halve, the operations do not); the conversion is the
 // producer's, two payload bytes an instruction, beside the consumers'
 // work. f32 q: the CUDA-core body of flash_fwd.cuh on FLASH_FWD_F32's
-// tiles, converting each byte to f32 exactly as it stages the tile. Every
+// tiles and kv runs, each tile's payload bytes loaded into registers a
+// step ahead and converted to f32 exactly into its ring stage. Every
 // option of B1 but the jagged mode (JAX's row loop has no quantized
 // operands).
 
@@ -30,7 +31,8 @@ namespace {
 template <int FMT>
 cudaError_t launch_quant(const void* q, const void* k, const void* v,
                          void* o, void* lse, const FwdMasks& mk,
-                         const KvScales& sc, int batch, int hq, int hkv,
+                         const KvScales& sc, const F32Runs& runs,
+                         int batch, int hq, int hkv,
                          int q_len, int kv_len, int head_dim, int causal,
                          int window, float scale_log2, int dtype,
                          cudaStream_t s) {
@@ -45,11 +47,13 @@ cudaError_t launch_quant(const void* q, const void* k, const void* v,
                                      q_len, kv_len, causal, window,
                                      scale_log2, s);
   if (dtype == 1 && head_dim == 128)
-    return launch_f32<128, FMT>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
-                                q_len, kv_len, causal, window, scale_log2, s);
+    return launch_f32<128, FMT>(q, k, v, o, lse, mk, sc, runs, batch, hq,
+                                hkv, q_len, kv_len, causal, window,
+                                scale_log2, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_f32<64, FMT>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
-                               q_len, kv_len, causal, window, scale_log2, s);
+    return launch_f32<64, FMT>(q, k, v, o, lse, mk, sc, runs, batch, hq,
+                               hkv, q_len, kv_len, causal, window,
+                               scale_log2, s);
   return cudaErrorInvalidValue;
 }
 
@@ -60,15 +64,18 @@ cudaError_t launch_quant(const void* q, const void* k, const void* v,
 // scale_ld at least kv_len rounded up to a whole 128-column tile (a tile's
 // columns are read without a bound).
 // dtype (of q and out): 0 bf16, 1 f32. head_dim: 64 or 128. q_seg, kv_seg,
-// tile_lo and tile_order as in tfa_flash_fwd (one int per q tile of this
-// instance's block_m, ops/flash.py::fwd_config); window: 0 for none, else
-// >= 1 with causal. The caller has checked shapes, contiguity and alignment.
+// tile_lo and tile_order as in tfa_flash_fwd (one int per q tile of the
+// bf16 instance's block_m, ops/flash.py::fwd_config); work, partials,
+// arrivals and n_items the f32 instance's, as in tfa_flash_fwd; window: 0
+// for none, else >= 1 with causal. The caller has checked shapes,
+// contiguity and alignment.
 extern "C" int tfa_flash_fwd_quant(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_seg, const void* kv_seg, const void* tile_lo,
     const void* tile_order, const void* k_scales, const void* v_scales,
-    int scale_ld, int batch, int hq, int hkv, int q_len, int kv_len,
-    int head_dim, int causal, int window, float scale_log2, int fmt,
+    const void* work, void* partials, void* arrivals, int scale_ld,
+    int batch, int hq, int hkv, int q_len, int kv_len, int head_dim,
+    int causal, int window, int n_items, float scale_log2, int fmt,
     int dtype, void* stream) {
   if (!fwd_args_valid(batch, hq, hkv, q_len, kv_len, q_seg, kv_seg, nullptr,
                       causal, window) ||
@@ -81,15 +88,18 @@ extern "C" int tfa_flash_fwd_quant(
                     static_cast<const int*>(tile_order), nullptr};
   const KvScales sc{static_cast<const float*>(k_scales),
                     static_cast<const float*>(v_scales), scale_ld};
+  const F32Runs runs{static_cast<const int*>(work), n_items,
+                     static_cast<float*>(partials),
+                     static_cast<int*>(arrivals)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fmt == kInt8)
-    return (int)launch_quant<kInt8>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
-                                    q_len, kv_len, head_dim, causal, window,
-                                    scale_log2, dtype, s);
+    return (int)launch_quant<kInt8>(q, k, v, o, lse, mk, sc, runs, batch, hq,
+                                    hkv, q_len, kv_len, head_dim, causal,
+                                    window, scale_log2, dtype, s);
   if (fmt == kE4m3)
-    return (int)launch_quant<kE4m3>(q, k, v, o, lse, mk, sc, batch, hq, hkv,
-                                    q_len, kv_len, head_dim, causal, window,
-                                    scale_log2, dtype, s);
+    return (int)launch_quant<kE4m3>(q, k, v, o, lse, mk, sc, runs, batch, hq,
+                                    hkv, q_len, kv_len, head_dim, causal,
+                                    window, scale_log2, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,13 +30,23 @@ class TileConfig:
 # bytes at head_dim 128.
 FLASH_FWD_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_FWD_BF16_STAGES = 3   # ring stages
-# f32 forward on the CUDA cores: 16 x 16 threads over a 64 x 64 score tile.
-# The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V with
-# per-token scales) take the tiles of their q dtype's design: bf16 q the
-# wgmma kernel's (its producer warpgroup converts each payload tile into the
-# ring's bf16 stage, in the same layout and shared memory), f32 q the f32
-# body's.
-FLASH_FWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
+# f32 forward on the CUDA cores (csrc/flash_fwd.cuh's f32 body): 256
+# threads over a 128 x 64 score tile, 8 x 4 scores and 8 x D/16 outputs a
+# thread; K and V stream through a two-stage cp.async ring. Each 128-row q
+# tile's kv range is cut at the multiples of FLASH_FWD_F32_SPLIT kv tiles
+# (read at each call) into runs, one block per (run, q head, batch),
+# merged in run order by the last run of the tile to arrive: at the f32
+# train step's (1, 8, 1024) causal, 144 blocks at S 5 on the 132 SMs, none
+# longer than 5 kv tiles (chip_smoke.py's sweep, `fwd_f32_split_sweep`,
+# PERF.md). The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V
+# with per-token scales) take the tiles of their q dtype's design: bf16 q
+# the wgmma kernel's (its producer warpgroup converts each payload tile
+# into the ring's bf16 stage, in the same layout and shared memory), f32 q
+# the f32 body's (each payload tile loaded into registers a step ahead and
+# converted into its stage). Shared memory (`fwd_smem_bytes`): 229,888
+# bytes at head_dim 128, 230,912 quantized; one block an SM.
+FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
+FLASH_FWD_F32_SPLIT = 5
 # Shared memory one block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 
@@ -59,10 +69,10 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
         return (m * d * 2 + stages * (2 * n * d * 2 + n * 4)
                 + (1 + (4 if quantized else 3) * stages) * 8 + 1024)
     if cfg is FLASH_FWD_F32:
-        # q^T, k^T, v, p (rows padded by 1) and the kv ids; quantized: the
-        # tile's k and v scales
-        return ((d * m + d * n + n * d + m * (n + 1)) * 4 + n * 4
-                + (2 * n * 4 if quantized else 0))
+        # q, two stages of K and V, P^T (kv x q), all f32; per stage the
+        # kv ids and, quantized, the k and v scales
+        return ((m * d + 4 * n * d + n * m) * 4
+                + 2 * (3 if quantized else 1) * n * 4)
     raise ValueError(f"{cfg} is not a forward config "
                      f"({'quantized' if quantized else 'unquantized'} K/V)")
 

@@ -4,11 +4,14 @@ Counterpart of tiny_flash_attention_tpu/ops/flash.py::flash_attention. The
 three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
 csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles;
-f32: the CUDA cores over 64-row tiles). A CPU tensor takes the plain version
+f32: the CUDA cores over 128-row q and 64-row kv tiles). A CPU tensor takes the plain version
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
-(head_dim other than 64 or 128). Quantized K/V take the quantized instances
+(head_dim other than 64 or 128). The f32 instance walks a work list
+(`fwd_f32_work`): each q tile's kv range cut into runs, one block each,
+merged in run order in the kernel (`f32_split_merge_plain` is that layout
+and order in plain PyTorch). Quantized K/V take the quantized instances
 of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the same wgmma/TMA kernel
 over 128-row tiles, its producer converting the payloads), through
 ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_F32, TileConfig, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -135,6 +139,74 @@ def segment_tiles(segment_starts, q_len: int, *, causal: bool,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return SegmentTiles(starts, q_len, causal, device)
+
+
+def run_work(table, split: int):
+    """A work list from a (3, n) tile table (lo, hi, order: `fwd_f32_tiles`,
+    ops/flash_bwd.py::bwd_tiles): each tile's range [lo, hi) of the other
+    side's tiles cut at the multiples of `split` into runs of at most
+    `split`, one item each, in range order (a tile with an empty range is
+    one empty item, whose block writes zeros). The cuts sit at fixed
+    tiles, so a range that `segment_starts` prunes keeps the unpruned
+    range's runs from its first tile on (the pruned tiles and runs add
+    exact zeros): the pruning changes no bit. Returns (flat int32 array:
+    tile[m], lo[m], hi[m], order[m] (the items longest run first, the
+    order in which blocks take them), first[n + 1] (tile t's items are
+    first[t] .. first[t + 1] - 1); m, the number of items)."""
+    lo, hi = (np.asarray(r, np.int64) for r in table[:2])
+    items, first = [], [0]
+    for t in range(lo.size):
+        if hi[t] <= lo[t]:
+            items.append((t, 0, 0))
+        for a in range(int(lo[t]) - int(lo[t]) % split, int(hi[t]), split):
+            items.append((t, max(int(lo[t]), a), min(int(hi[t]), a + split)))
+        first.append(len(items))
+    tile, ilo, ihi = (np.asarray(c, np.int64) for c in zip(*items))
+    order = np.argsort(-(ihi - ilo), kind="stable")
+    flat = np.concatenate([tile, ilo, ihi, order, first]).astype(np.int32)
+    return flat, len(items)
+
+
+def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
+                  window: Optional[int] = None, starts=None):
+    """The f32 forward's tile table, (3, n) int64 (lo, hi, order): the kv
+    tiles [lo, hi) of each q tile of FLASH_FWD_F32, clamped as the kernels
+    clamp them: causal up to the tile of its last row's position (the
+    decode offset; at least one tile, so rows before every column get the
+    sentinel), from the tile of its first row's segment start
+    (`segment_starts`, as `tile_table`) and of its first row's window
+    edge; order, the tiles longest range first."""
+    bm, bn = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
+    n_kv = -(-kv_len // bn)
+    first = np.arange(-(-q_len // bm), dtype=np.int64) * bm
+    offset = kv_len - q_len
+    hi = np.full(first.shape, n_kv)
+    if causal:
+        last = np.minimum(first + bm, q_len) - 1 + offset
+        hi = np.where(last < 0, 1, np.minimum(n_kv, np.maximum(last, 0)
+                                              // bn + 1))
+    lo = np.zeros_like(first)
+    if starts is not None:
+        table = np.asarray(sorted({0, *(int(x) for x in starts)}))
+        seg_start = table[np.searchsorted(table, first, side="right") - 1]
+        lo = np.minimum(seg_start // bn, hi - 1)
+    if window is not None:
+        left = first + offset - window + 1
+        lo = np.where(left > 0, np.maximum(lo, np.minimum(
+            np.maximum(left, 0) // bn, hi - 1)), lo)
+    order = np.argsort(lo - hi, kind="stable")
+    return np.stack([lo, hi, order])
+
+
+def fwd_f32_work(q_len: int, kv_len: int, *, causal: bool,
+                 window: Optional[int] = None, starts=None,
+                 split: Optional[int] = None):
+    """The f32 forward's work list: `run_work` of `fwd_f32_tiles` at runs
+    of `split` kv tiles (default ops/configs.py::FLASH_FWD_F32_SPLIT, read
+    at each call)."""
+    split = configs.FLASH_FWD_F32_SPLIT if split is None else split
+    return run_work(fwd_f32_tiles(q_len, kv_len, causal=causal,
+                                  window=window, starts=starts), split)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -319,6 +391,65 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     return out, lse
 
 
+def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
+                          segment_ids=None, window: Optional[int] = None,
+                          segment_starts=None):
+    """The f32 kernel's run layout and merge order in plain PyTorch: each
+    run of `fwd_f32_work` (FLASH_FWD_F32's tiles, `segment_starts` pruning
+    the ranges) computes its partial from its q tile's rows over its kv
+    tiles' columns, q folded by scale_log2 as the kernel folds it: m, the
+    run's row max in the log2 domain; l, the sum of p = 2^(s - m) (0 on a
+    row the run does not see); o = p v. A tile's runs combine in run order:
+    o = sum w o_x / sum w l_x, w = 2^(m_x - max m), LSE = max m ln 2 +
+    log(sum w l_x), an empty row 0 with the sentinel. Returns (out, lse)
+    in f32. A pair outside every run would be lost and one in two counted
+    twice, so this holds the work list to the plain forward."""
+    bs, hq, q_len, d = q.shape
+    hkv, kv_len = k.shape[1], k.shape[2]
+    group = hq // hkv
+    bm, bn = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    qs = q.float() * in_dtype(sm_scale * LOG2E, torch.float32)
+    s2 = torch.matmul(qs, kr.transpose(-1, -2))
+    valid = visible_mask(q_len, kv_len, q.device, causal=causal,
+                         window=window, segment_ids=segment_ids)
+    if valid is not None:
+        s2 = torch.where(valid, s2, DEFAULT_MASK_VALUE)
+    starts = segment_starts
+    if isinstance(starts, SegmentTiles):
+        starts = starts.starts
+    flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
+                           starts=starts)
+    _, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
+    first = flat[4 * m:]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    for t in range(first.size - 1):
+        rows = slice(t * bm, min((t + 1) * bm, q_len))
+        parts = []
+        for it in range(first[t], first[t + 1]):
+            cols = slice(int(ilo[it]) * bn, min(int(ihi[it]) * bn, kv_len))
+            sr = s2[:, :, rows, cols]
+            mr = sr.amax(-1, keepdim=True)
+            p = torch.exp2(sr - mr) * (mr > 0.5 * DEFAULT_MASK_VALUE)
+            parts.append((mr, p.sum(-1, keepdim=True),
+                          torch.matmul(p, vr[:, :, cols])))
+        mx = parts[0][0]
+        for mr, _, _ in parts[1:]:
+            mx = torch.maximum(mx, mr)
+        num, den = 0.0, 0.0
+        for mr, lr, orr in parts:
+            w = torch.where(mr == -math.inf, 0.0, torch.exp2(mr - mx))
+            den = den + lr * w
+            num = num + orr * w
+        l_safe = torch.where(den == 0.0, 1.0, den)
+        out[:, :, rows] = num / l_safe
+        lse[:, :, rows] = (torch.clamp(mx, min=DEFAULT_MASK_VALUE) * LN2
+                           + torch.log(l_safe))[..., 0]
+    return out, lse
+
+
 def visible_mask(q_len: int, kv_len: int, device, *, causal: bool,
                  window: Optional[int] = None, segment_ids=None):
     """Which (row, column) pairs attend, as a bool tensor that broadcasts
@@ -405,7 +536,7 @@ def _flash_fwd_fn():
     fn = lib.tfa_flash_fwd
     if fn.argtypes is None:
         check_smem_layouts(lib, quantized=False)
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -416,11 +547,42 @@ def _flash_fwd_quant_fn():
     fn = lib.tfa_flash_fwd_quant
     if fn.argtypes is None:
         check_smem_layouts(lib, quantized=True)
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _device_fwd_work(q_len, kv_len, causal, window, starts, split, device):
+    """The f32 forward's work list on the device: (list, its items,
+    whether any q tile has more than one run)."""
+    flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
+                           starts=starts, split=split)
+    split_tiles = bool((np.diff(flat[4 * m:]) > 1).any())
+    return torch.as_tensor(flat, device=device), m, split_tiles
+
+
+_fwd_workspaces: dict = {}
+
+
+def fwd_workspace(device, stream: int, n_items: int, n_bh: int,
+                  n_tiles: int, d: int):
+    """(partials f32, arrival counters int32 zeros) of the f32 forward's
+    merge, allocated once per device, stream and shape and kept: the
+    kernel leaves the counters at zero, so a call allocates nothing.
+    Launches on one stream run in order, so they share a workspace;
+    another stream gets its own. `stream` is the launch's CUDA stream
+    handle."""
+    key = (str(device), stream, n_items, n_bh, n_tiles, d)
+    ws = _fwd_workspaces.get(key)
+    if ws is None:
+        ws = (torch.empty(n_items * n_bh * FLASH_FWD_F32.block_m * (d + 2),
+                          dtype=torch.float32, device=device),
+              torch.zeros(n_bh * n_tiles, dtype=torch.int32, device=device))
+        _fwd_workspaces[key] = ws
+    return ws
 
 
 def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
@@ -488,23 +650,40 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
+    work, n_items, split_tiles = None, 0, False
+    if q.dtype == torch.float32:
+        # the f32 instance takes the pruned ranges and their order from its
+        # work list, not from the tile table
+        work, n_items, split_tiles = _device_fwd_work(
+            q_len, kv_len, bool(causal), window,
+            None if tiles is None else tiles.starts,
+            configs.FLASH_FWD_F32_SPLIT, str(q.device))
+        tiles = None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (q_seg, kv_seg,
                         *((None, None) if tiles is None
                           else tiles.table(cfg)))))
-    dims = (bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0)
+    dims = (bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
+            n_items)
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        runs = (None, None, None)
+        if work is not None:
+            ws = (fwd_workspace(q.device, stream, n_items, bs * hq,
+                                -(-q_len // cfg.block_m), d)
+                  if split_tiles else (None, None))
+            runs = (work.data_ptr(),
+                    *(None if t is None else t.data_ptr() for t in ws))
         if quantized:
             err = _flash_fwd_quant_fn()(
-                *ptrs, *(s.data_ptr() for s in scales), scales[0].shape[-1],
-                *dims, scale_log2,
+                *ptrs, *(s.data_ptr() for s in scales), *runs,
+                scales[0].shape[-1], *dims, scale_log2,
                 PAYLOAD_FORMATS[k.dtype], _KERNEL_DTYPES[q.dtype], stream)
         else:
             err = _flash_fwd_fn()(
                 *ptrs, None if seq_lengths is None else seq_lengths.data_ptr(),
-                *dims, scale_log2, _KERNEL_DTYPES[q.dtype], stream)
+                *runs, *dims, scale_log2, _KERNEL_DTYPES[q.dtype], stream)
     _build.check(err, "flash_fwd_quant" if quantized else "flash_fwd")
     return out, lse

@@ -58,7 +58,7 @@ from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_BWD_BF16, FLASH_BWD_F32, bwd_f32_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, _aligned, as_int32, in_dtype,
-    visible_mask)
+    run_work, visible_mask)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 
@@ -260,31 +260,10 @@ def dq_chain(kv_table):
 
 def f32_work(table, split: Optional[int] = None):
     """The f32 kernels' work list from a (3, n) tile table (`bwd_tiles`):
-    each tile's range [lo, hi) of the other side's tiles cut at the
-    multiples of `split` (default: ops/configs.py::FLASH_BWD_F32_SPLIT,
-    read at each call) into runs of at most `split`, one item each, in
-    range order (a tile no one sees is one empty item, whose block writes
-    zeros). The cuts sit at fixed tiles, so a range that `segment_starts`
-    prunes sums its pairs in the same runs and order as the unpruned one
-    (the pruned tiles and runs add exact zeros): the pruning changes no
-    bit. Returns (flat int32 array:
-    tile[m], lo[m], hi[m], order[m] (the items longest run first, the
-    order in which blocks take them), first[n + 1] (tile t's items are
-    first[t] .. first[t + 1] - 1); m, the number of items)."""
-    split = configs.FLASH_BWD_F32_SPLIT if split is None else split
-    lo, hi = (np.asarray(r, np.int64) for r in table[:2])
-    items, first = [], [0]
-    for t in range(lo.size):
-        span = int(hi[t] - lo[t])
-        if span <= 0:
-            items.append((t, 0, 0))
-        for a in range(int(lo[t]) - int(lo[t]) % split, int(hi[t]), split):
-            items.append((t, max(int(lo[t]), a), min(int(hi[t]), a + split)))
-        first.append(len(items))
-    tile, ilo, ihi = (np.asarray(c, np.int64) for c in zip(*items))
-    order = np.argsort(-(ihi - ilo), kind="stable")
-    flat = np.concatenate([tile, ilo, ihi, order, first]).astype(np.int32)
-    return flat, len(items)
+    `run_work` at runs of `split` (default: ops/configs.py::
+    FLASH_BWD_F32_SPLIT, read at each call)."""
+    return run_work(table, configs.FLASH_BWD_F32_SPLIT if split is None
+                    else split)
 
 
 def f32_slot_sums_plain(q, k, v, out, lse, do, *, causal: bool,
