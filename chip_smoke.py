@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
-    python3 chip_smoke.py --train-f32    # only the f32 train step's profile
     python3 chip_smoke.py --f32-append   # only B1 f32 and the append, timed
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
@@ -362,11 +361,10 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
     kernel's output: (1) kv tile j's V replaced by tile j - 1's, as a stale
     ring stage would give; (2) kv tile j dropped (its columns masked by a
     segment id); j the middle tile; f32 also (3) the tile's first run of
-    kv tiles (FLASH_FWD_F32_SPLIT of them) lost in the merge. Each must
-    fail the gate."""
-    from tiny_flash_attention_tpu_torch.ops import configs
+    kv tiles (`fwd_f32_split`'s, at most half the tiles) lost in the
+    merge. Each must fail the gate."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
-        flash_attention_plain, fwd_config)
+        flash_attention_plain, fwd_config, fwd_f32_split)
     from tiny_flash_attention_tpu_torch.utils.testing import fold_q
 
     def plain(x, sc, vv=v, ids=None):
@@ -392,7 +390,8 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
                   qf[:, :, rows], scale, vv=stale),
               f"kv tile {j} dropped": dropped(tile)}
     if q.dtype == torch.float32:
-        split = configs.FLASH_FWD_F32_SPLIT
+        split = min(fwd_f32_split(q_len, kv_len, causal=True,
+                                  n_bh=b * q.shape[1]), kv_len // bn // 2)
         faults[f"run of kv tiles [0, {split}) lost in the merge"] = \
             dropped(slice(0, split * bn))
     gate_faults(f"flash {name}", faults, plain, q, rows)
@@ -545,8 +544,9 @@ def fwd_f32_split_sweep(gen) -> None:
                                       return_lse=True)), q, torch.float32)
             if not ok:
                 raise AssertionError(f"f32 forward at split {split}: {errs}")
-            blocks = fwd_f32_work(q_shape[2], kv_shape[2],
-                                  causal=True)[1] * q_shape[0] * q_shape[1]
+            n_bh = q_shape[0] * q_shape[1]
+            blocks = fwd_f32_work(q_shape[2], kv_shape[2], causal=True,
+                                  n_bh=n_bh)[1] * n_bh
             t = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
                              iters=10)["median_ms"]
             cells.append(f"{split}: {blocks} blocks {t:.4f}")
@@ -3605,13 +3605,6 @@ if __name__ == "__main__":
             sys.exit(1)
         bwd_spread(gate=False)
         sys.exit(0)
-    if sys.argv[1:] == ["--train-f32"]:
-        # only the device time of the f32 train step (TRAIN_F32's shape, the
-        # engine model in f32), with the package found on sys.path (so that
-        # one call can time two trees' f32 backward end to end)
-        if not torch.cuda.is_available():
-            sys.exit(1)
-        sys.exit(train_f32_profile(SEED))
     if sys.argv[1:] == ["--f32-append"]:
         # only B1's f32 instance and the append, with the package found on
         # sys.path (so that one call can time two trees' kernels)

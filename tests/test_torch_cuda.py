@@ -1385,6 +1385,45 @@ def test_f32_fwd_splits_match_plain(gen, monkeypatch, split):
         torch.float32)
 
 
+def _workspace_bytes():
+    from tiny_flash_attention_tpu_torch.ops import flash as flash_mod
+
+    return sum(t.numel() * t.element_size()
+               for ws in flash_mod._fwd_workspaces.values() for t in ws)
+
+
+@pytest.mark.parametrize("hq,hkv,q_len,kv_len,slots", [
+    (8, 2, 8192, 8192, False), (2, 1, 4096, 32768, True)])
+def test_f32_fwd_workspace_stays_bounded(gen, hq, hkv, q_len, kv_len,
+                                         slots):
+    """At long f32 lengths the merge's workspace stays within its bound
+    (FLASH_FWD_F32_MAX_SLOTS slots of 128 x 130 f32): (1, 8, 8192) causal
+    fills the card with its q tiles and takes no slot; a 4096-row chunk
+    over a 32768-token cache splits at longer runs. Each against the plain
+    version."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        fwd_f32_slots, fwd_f32_work)
+
+    d = 128
+    q = _randn((1, hq, q_len, d), torch.float32, gen)
+    k, v = (_randn((1, hkv, kv_len, d), torch.float32, gen)
+            for _ in range(2))
+    before = _workspace_bytes()
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    n_slots = fwd_f32_slots(*fwd_f32_work(q_len, kv_len, causal=True,
+                                          n_bh=hq))[1]
+    assert (n_slots > 0) == slots
+    assert n_slots * hq <= configs.FLASH_FWD_F32_MAX_SLOTS
+    bound = configs.FLASH_FWD_F32_MAX_SLOTS * 128 * (d + 2) * 4 + 4096
+    assert _workspace_bytes() <= max(before, bound)
+    if not slots:
+        assert _workspace_bytes() == before
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, return_lse=True), q,
+        torch.float32)
+
+
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("q_len,kv_len", [(1, 1), (127, 127), (128, 128),
                                           (129, 129), (257, 63),

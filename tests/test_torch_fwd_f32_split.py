@@ -13,6 +13,10 @@ merges the tile's runs in run order with the exact LSE combine. Held here:
     f32 train step's (1, 8, 1024) causal the configured split gives at
     least 128 blocks (one block per 64-row q tile gave 128 of very unequal
     length);
+  * the run length comes from the shape (`fwd_f32_split`): no split where
+    the q tiles fill two waves, and never more merge slots than
+    FLASH_FWD_F32_MAX_SLOTS (the workspace's bound) at long lengths; the
+    slots number only the items of tiles that split (`fwd_f32_slots`);
   * `f32_split_merge_plain`, the kernel's run layout and merge order in
     plain PyTorch, against the port's plain forward and the JAX package's
     `flash_attention` in f32 (its XLA route at these lengths, its Pallas
@@ -38,8 +42,8 @@ from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_F32, FLASH_FWD_F32_SPLIT)
 from tiny_flash_attention_tpu_torch.ops.flash import (
-    f32_split_merge_plain, flash_attention_plain, fwd_f32_tiles,
-    fwd_f32_work, visible_mask)
+    f32_split_merge_plain, flash_attention_plain, fwd_f32_slots,
+    fwd_f32_split, fwd_f32_tiles, fwd_f32_work, visible_mask)
 
 BM, BN = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
 INTERP = FlashConfig(block_q=128, block_kv=128, interpret=True)
@@ -108,7 +112,74 @@ def test_runs_fill_the_card_at_the_f32_train_shape(split, blocks):
     the configured split gives at least 128 on the H100's 132 SMs."""
     assert fwd_f32_work(1024, 1024, causal=True, split=split)[1] * 8 \
         == blocks
-    assert fwd_f32_work(1024, 1024, causal=True)[1] * 8 >= 128
+    assert fwd_f32_split(1024, 1024, causal=True, n_bh=8) \
+        == FLASH_FWD_F32_SPLIT
+    assert fwd_f32_work(1024, 1024, causal=True, n_bh=8)[1] * 8 >= 128
+
+
+@pytest.mark.parametrize("q_len,kv_len,causal,window,starts", WORK_CASES)
+def test_slots_number_the_items_of_split_tiles(q_len, kv_len, causal,
+                                               window, starts):
+    """Each item of a tile of several runs has a slot of its own, in item
+    order; a tile of one run has none (-1)."""
+    for split in (1, 3, FLASH_FWD_F32_SPLIT):
+        flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
+                               starts=starts, split=split)
+        slots, n_slots = fwd_f32_slots(flat, m)
+        first = flat[4 * m:]
+        want, nxt = [], 0
+        for t in range(first.size - 1):
+            runs = int(first[t + 1] - first[t])
+            if runs == 1:
+                want.append(-1)
+            else:
+                want += range(nxt, nxt + runs)
+                nxt += runs
+        assert slots.dtype == np.int32 and slots.tolist() == want
+        assert n_slots == nxt
+
+
+# (batch x q heads, q_len, kv_len, causal): the f32 train step's shape, the
+# int8 bench shape, long causal and non-causal lengths, a chunk of 4096 q
+# rows over a 32768-token cache, many heads
+SPLIT_SHAPES = [(8, 1024, 1024, True), (16, 2048, 2048, True),
+                (8, 8192, 8192, True), (8, 4096, 32768, True),
+                (8, 32768, 32768, False), (1, 32768, 32768, True),
+                (1, 128, 131072, False), (64, 1024, 1024, True),
+                (2, 300, 700, True), (8, 1, 900, True)]
+
+
+@pytest.mark.parametrize("n_bh,q_len,kv_len,causal", SPLIT_SHAPES)
+def test_split_bounds_the_workspace(n_bh, q_len, kv_len, causal):
+    """The run length `fwd_f32_split` takes from the shape: where the q
+    tiles give at least FLASH_FWD_F32_SPLIT_BELOW blocks, one run a tile
+    (no slots, no workspace); else at least FLASH_FWD_F32_SPLIT tiles, the
+    least whose slots over the batch and heads stay within
+    FLASH_FWD_F32_MAX_SLOTS, so the merge's workspace stays under
+    FLASH_FWD_F32_MAX_SLOTS x 128 x (D + 2) f32 whatever the length; a
+    window or segment_starts only shortens the ranges and needs no more."""
+    split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh)
+    n_tiles, n_kv = -(-q_len // BM), -(-kv_len // BN)
+    cap = configs.FLASH_FWD_F32_MAX_SLOTS
+    for window, starts in ((None, None), (q_len // 3 + 1, None),
+                           (None, (0, q_len // 2)) if q_len == kv_len
+                           else (None, None)):
+        if window is not None and not causal:
+            continue
+        flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
+                               starts=starts, n_bh=n_bh)
+        _, n_slots = fwd_f32_slots(flat, m)
+        assert n_slots * n_bh <= cap
+        if n_tiles * n_bh >= configs.FLASH_FWD_F32_SPLIT_BELOW:
+            assert split >= n_kv and n_slots == 0 and m == n_tiles
+    assert split >= FLASH_FWD_F32_SPLIT
+    if split > FLASH_FWD_F32_SPLIT and n_tiles * n_bh \
+            < configs.FLASH_FWD_F32_SPLIT_BELOW:
+        # the least such split: one tile shorter needs too many slots
+        flat, m = fwd_f32_work(q_len, kv_len, causal=causal,
+                               split=split - 1)
+        assert fwd_f32_slots(flat, m)[1] * n_bh > cap
+    assert n_slots * n_bh * BM * (128 + 2) * 4 <= 71 * 2 ** 20
 
 
 def _inputs(hq, hkv, q_len, kv_len, d, seed):

@@ -177,7 +177,8 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 //     (1, 8, 1024), 128 blocks of 64-row tiles walking 1 to 16 kv tiles,
 //     one wave on 132 SMs); the runs fill the card more evenly.
 //   * a run whose tile has more runs writes its partial (o unnormalized, m
-//     in the log2 domain, l) to a slot of its own; the last run of the tile
+//     in the log2 domain, l) to a slot of its own (the work list's slot
+//     index; tiles of one run have none); the last run of the tile
 //     to arrive (a counter per (q tile, q head, batch), which it sets back
 //     to 0) combines the tile's runs in run order with the exact LSE
 //     combine, its own from its registers; a tile of one run writes its
@@ -233,10 +234,11 @@ constexpr int f32_smem_bytes() {
 }
 
 // The f32 launch's work list (ops/flash.py::fwd_f32_work: n_items runs
-// over the q tiles of FM rows) and its merge workspace: partials, n_items
-// x batch x hq slots of FM x (D + 2) f32 (o, then m, then l), written only
-// for tiles of more than one run; arrivals, one zeroed int per (batch, q
-// head, q tile), left at 0. Both may be null where every tile is one run.
+// over the q tiles of FM rows, then each item's slot, fwd_f32_slots) and
+// its merge workspace: partials, a slot x batch x hq array of FM x (D + 2)
+// f32 (o, then m, then l), for the items of tiles of more than one run;
+// arrivals, one zeroed int per (batch, q head, q tile), left at 0. Both
+// may be null where every tile is one run.
 struct F32Runs {
   const int* work;
   int n_items;
@@ -461,10 +463,14 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     for (int w = 1; w < 16; w <<= 1)
       l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], w);
 
-  // a tile of several runs: the partial into this run's slot; the last run
-  // to arrive goes on to combine them all
+  // a tile of several runs: the partial into this run's slot (a tile's
+  // items have consecutive slots, from its first item's); the last run to
+  // arrive goes on to combine them all
+  const int slot0 = n_runs > 1 ? wk.first[(q_len + FM - 1) / FM + 1 + first]
+                               : 0;
   auto slot = [&](int x) {
-    return runs.partials + ((size_t)x * n_bh + bh) * FM * (D + 2);
+    return runs.partials +
+           ((size_t)(slot0 + x - first) * n_bh + bh) * FM * (D + 2);
   };
   if (n_runs > 1) {
     float* part = slot(item);

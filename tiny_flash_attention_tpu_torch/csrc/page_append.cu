@@ -16,23 +16,12 @@
 // row % D (kv_cache.py:301-309).
 //
 // What bounds it: nothing on the card; it moves 2 * B * hkv rows of D
-// values (4 KB at the engine's 8 tokens x 2 kv heads of 128), so its time
-// is the latency of its launch and of its memory round trips. The design
-// for latency:
-//   * one block of one warp per (sequence, kv head): the whole append of a
-//     layer is one launch where the scatter decomposition takes 2 payload
-//     scatters, 8 single-byte scale scatters and the quantize ops. Blocks
-//     of 2, 4, 8 and 16 such warps were no faster, cold or inside the
-//     decode step (PERF.md).
-//   * one round trip to memory: each lane issues its loads of the target
-//     (page id, row) and of its K or V source values together, before any
-//     test that uses them; then it converts and stores. A target outside
-//     the pages array is skipped (the engine never makes one).
-//   * 16-byte accesses: a row of D values is D / 8 lanes of 8 values on
-//     neighbouring addresses (a 16-byte bf16 load, two f32 ones), the
-//     warp's first D / 8 lanes on K, the next on V (at D = 64 the upper
-//     half repeats the lower and stores nothing); int8 pages take an
-//     8-byte store a lane, the amax a reduction over the row's lanes.
+// values. One warp per (kv head, sequence) converts and stores its two
+// rows (each lane E = D / 32 contiguous values; the amax is a warp
+// reduction), so the whole append of a layer is one launch where the
+// scatter decomposition takes 2 payload scatters, 8 single-byte scale
+// scatters and the quantize ops. A target outside the pages array is
+// skipped: the engine never makes one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,112 +30,67 @@
 namespace {
 
 constexpr float kInt8Max = 127.f;
-constexpr int kVals = 8;   // values a lane
 
-// 16 bytes of global memory, loaded as they are issued: volatile, so the
-// compiler keeps the load ahead of the target's test
-__device__ __forceinline__ uint4 load16(const void* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
-  return r;
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(float x) { return x; }
 
-// a lane's 8 source values: one 16-byte load of bf16, two of f32
-template <typename S>
-struct Src {
-  uint4 raw[sizeof(S) / 2];
-  __device__ __forceinline__ void load(const S* p) {
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(S) / 2); ++i)
-      raw[i] = load16(reinterpret_cast<const uint4*>(p) + i);
-  }
-  __device__ __forceinline__ void to_float(float (&x)[kVals]) const {
-    if constexpr (sizeof(S) == 2) {
-      const __nv_bfloat162* h =
-          reinterpret_cast<const __nv_bfloat162*>(&raw[0]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        x[2 * i] = f.x;
-        x[2 * i + 1] = f.y;
-      }
-    } else {
-      const float* f = reinterpret_cast<const float*>(raw);
-#pragma unroll
-      for (int i = 0; i < kVals; ++i) x[i] = f[i];
-    }
-  }
-};
-
-// 8 values converted to the page type and stored (round to nearest even)
-__device__ __forceinline__ void store_row(__nv_bfloat16* dst,
-                                          const float (&x)[kVals]) {
-  uint4 w;
-  uint32_t* u = reinterpret_cast<uint32_t*>(&w);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    u[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(dst) = w;
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
-__device__ __forceinline__ void store_row(float* dst,
-                                          const float (&x)[kVals]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
 }
 
 // S: dtype of k_new / v_new; P: page element type (bf16, f32 or int8_t)
 template <typename S, typename P, int D>
-__global__ void page_append_kernel(const S* __restrict__ k_new,
-                                   const S* __restrict__ v_new,
-                                   const int* __restrict__ page_ids,
-                                   const int* __restrict__ rows,
-                                   P* __restrict__ pages, int batch, int hkv,
-                                   int num_pages, int page_rows,
-                                   int page_size) {
-  constexpr int L = D / kVals;                   // lanes a row
-  const int lane = threadIdx.x, wi = blockIdx.x;  // wi: b * hkv + h
-  const int b = wi / hkv, h = wi % hkv;
-  const int side = (lane / L) & 1, j = lane % L;  // K or V, chunk
-  // every load of the lane, issued before any test
+__global__ void __launch_bounds__(32)
+    page_append_kernel(const S* __restrict__ k_new,
+                       const S* __restrict__ v_new,
+                       const int* __restrict__ page_ids,
+                       const int* __restrict__ rows, P* __restrict__ pages,
+                       int hkv, int num_pages, int page_rows, int page_size) {
+  constexpr int E = D / 32;
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
   const int pid = page_ids[b], row = rows[b];
-  Src<S> src;
-  src.load((side ? v_new : k_new) + (size_t)wi * D + j * kVals);
   if (pid < 0 || pid >= num_pages || row < 0 || row >= page_size) return;
-  float x[kVals];
-  src.to_float(x);
-  const bool writer = lane < 2 * L;
   P* page = pages + ((size_t)h * num_pages + pid) * page_rows * D;
-  P* dst = page + (size_t)(side * page_size + row) * D + j * kVals;
-  if constexpr (sizeof(P) == 1) {
-    float amax = 0.f;
+  const int sr = (page_rows - 2 * page_size) / 2;  // scale rows per side
 #pragma unroll
-    for (int e = 0; e < kVals; ++e) amax = fmaxf(amax, fabsf(x[e]));
+  for (int side = 0; side < 2; ++side) {
+    const S* src = (side ? v_new : k_new) + ((size_t)b * hkv + h) * D +
+                   lane * E;
+    float x[E];
 #pragma unroll
-    for (int w = L / 2; w > 0; w >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, w));
-    const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, kInt8Max);
-    uint32_t q[2] = {0u, 0u};
+    for (int e = 0; e < E; ++e) x[e] = to_f(src[e]);
+    P* dst = page + (size_t)(side * page_size + row) * D + lane * E;
+    if constexpr (sizeof(P) == 1) {
+      float amax = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVals; ++e) {
-      const float r = rintf(__fdiv_rn(x[e], scale));
-      const int c = (int)fminf(fmaxf(r, -kInt8Max), kInt8Max);
-      q[e / 4] |= (uint32_t)(uint8_t)(int8_t)c << (8 * (e % 4));
-    }
-    if (writer) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
-      if (j < 4) {  // the f32 scale's 4 little-endian bytes
-        const int sr = (page_rows - 2 * page_size) / 2;  // scale rows a side
-        const uint32_t bits = __float_as_uint(scale);
-        const int srow = 2 * page_size + side * sr + 4 * (row / D) + j;
-        page[(size_t)srow * D + row % D] = (P)(int8_t)(bits >> (8 * j));
+      for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(x[e]));
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, w));
+      const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, kInt8Max);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float r = rintf(__fdiv_rn(x[e], scale));
+        dst[e] = (P)(int)fminf(fmaxf(r, -kInt8Max), kInt8Max);
       }
+      if (lane < 4) {
+        const uint32_t bits = __float_as_uint(scale);
+        const int srow = 2 * page_size + side * sr + 4 * (row / D) + lane;
+        page[(size_t)srow * D + row % D] = (P)(int8_t)(bits >> (8 * lane));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[e] = from_f<P>(x[e]);
     }
-  } else if (writer) {
-    store_row(dst, x);
   }
 }
 
@@ -155,11 +99,12 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
                    const void* page_ids, const void* rows, void* pages,
                    int batch, int hkv, int num_pages, int page_rows,
                    int page_size, cudaStream_t stream) {
+  const dim3 grid(hkv, batch);
 #define TFA_APPEND_LAUNCH(D)                                                \
-  page_append_kernel<S, P, D><<<batch * hkv, 32, 0, stream>>>(              \
+  page_append_kernel<S, P, D><<<grid, 32, 0, stream>>>(                     \
       static_cast<const S*>(k_new), static_cast<const S*>(v_new),           \
       static_cast<const int*>(page_ids), static_cast<const int*>(rows),     \
-      static_cast<P*>(pages), batch, hkv, num_pages, page_rows, page_size)
+      static_cast<P*>(pages), hkv, num_pages, page_rows, page_size)
   if (head_dim == 128) {
     TFA_APPEND_LAUNCH(128);
   } else if (head_dim == 64) {
@@ -176,7 +121,7 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
 // Returns a cudaError_t: 0 when the kernel was launched. src_dtype (k_new,
 // v_new): 0 bf16, 1 f32. page_dtype: 0 bf16, 1 f32, 2 int8 (then page_rows
 // = 2 * page_size + 2 * sr). head_dim: 64 or 128. The caller has checked
-// shapes, contiguity and 16-byte alignment.
+// shapes, contiguity and alignment.
 extern "C" int tfa_page_append(const void* k_new, const void* v_new,
                                const void* page_ids, const void* rows,
                                void* pages, int batch, int hkv,

@@ -32,13 +32,19 @@ FLASH_FWD_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_FWD_BF16_STAGES = 3   # ring stages
 # f32 forward on the CUDA cores (csrc/flash_fwd.cuh's f32 body): 256
 # threads over a 128 x 64 score tile, 8 x 4 scores and 8 x D/16 outputs a
-# thread; K and V stream through a two-stage cp.async ring. Each 128-row q
-# tile's kv range is cut at the multiples of FLASH_FWD_F32_SPLIT kv tiles
-# (read at each call) into runs, one block per (run, q head, batch),
-# merged in run order by the last run of the tile to arrive: at the f32
-# train step's (1, 8, 1024) causal, 144 blocks at S 5 on the 132 SMs, none
-# longer than 5 kv tiles (chip_smoke.py's sweep, `fwd_f32_split_sweep`,
-# PERF.md). The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V
+# thread; K and V stream through a two-stage cp.async ring. Where the q
+# tiles give fewer than FLASH_FWD_F32_SPLIT_BELOW blocks (two waves of the
+# H100's 132 SMs), each 128-row q tile's kv range is cut at the multiples
+# of S kv tiles into runs, one block per (run, q head, batch), merged in
+# run order by the last run of the tile to arrive: S is
+# FLASH_FWD_F32_SPLIT (read at each call), or the least S above it whose
+# runs of tiles that split need at most FLASH_FWD_F32_MAX_SLOTS partial
+# slots over the batch and heads (ops/flash.py::fwd_f32_split; the merge's
+# workspace stays under 1056 x 128 x 130 x 4 bytes, 70 MB, at head_dim
+# 128). At the f32 train step's (1, 8, 1024) causal, 144 blocks at S 5 on
+# the 132 SMs, none longer than 5 kv tiles (chip_smoke.py's sweep,
+# `fwd_f32_split_sweep`, PERF.md); with enough q tiles, no split and no
+# workspace. The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V
 # with per-token scales) take the tiles of their q dtype's design: bf16 q
 # the wgmma kernel's (its producer warpgroup converts each payload tile
 # into the ring's bf16 stage, in the same layout and shared memory), f32 q
@@ -47,6 +53,8 @@ FLASH_FWD_BF16_STAGES = 3   # ring stages
 # bytes at head_dim 128, 230,912 quantized; one block an SM.
 FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
 FLASH_FWD_F32_SPLIT = 5
+FLASH_FWD_F32_SPLIT_BELOW = 264
+FLASH_FWD_F32_MAX_SLOTS = 1056
 # Shared memory one block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 

@@ -198,15 +198,49 @@ def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
     return np.stack([lo, hi, order])
 
 
+def fwd_f32_split(q_len: int, kv_len: int, *, causal: bool,
+                  n_bh: int) -> int:
+    """The f32 forward's run length in kv tiles for a launch of n_bh =
+    batch x q heads, from the shape alone (so `segment_starts` and the
+    window change no cut): every kv tile, one run a q tile, where the q
+    tiles give at least ops/configs.py::FLASH_FWD_F32_SPLIT_BELOW blocks;
+    else the least S from FLASH_FWD_F32_SPLIT up (both read at each call)
+    whose runs of the q tiles that split take at most
+    FLASH_FWD_F32_MAX_SLOTS partial slots over the n_bh rows (counted on
+    the unpruned causal ranges, which a window or segment_starts only
+    shorten)."""
+    lo, hi = fwd_f32_tiles(q_len, kv_len, causal=causal)[:2]
+    n_kv = -(-kv_len // FLASH_FWD_F32.block_n)
+    first = configs.FLASH_FWD_F32_SPLIT
+    if lo.size * n_bh >= configs.FLASH_FWD_F32_SPLIT_BELOW or first >= n_kv:
+        return max(first, n_kv)   # one run a q tile
+    s = np.arange(first, n_kv + 1)[:, None]
+    runs = -(-hi // s) - lo // s
+    slots = np.where(runs > 1, runs, 0).sum(axis=1) * n_bh
+    return int(s[np.argmax(slots <= configs.FLASH_FWD_F32_MAX_SLOTS), 0])
+
+
 def fwd_f32_work(q_len: int, kv_len: int, *, causal: bool,
                  window: Optional[int] = None, starts=None,
-                 split: Optional[int] = None):
+                 split: Optional[int] = None, n_bh: int = 1):
     """The f32 forward's work list: `run_work` of `fwd_f32_tiles` at runs
-    of `split` kv tiles (default ops/configs.py::FLASH_FWD_F32_SPLIT, read
-    at each call)."""
-    split = configs.FLASH_FWD_F32_SPLIT if split is None else split
+    of `split` kv tiles (default `fwd_f32_split` for n_bh = batch x q
+    heads)."""
+    if split is None:
+        split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh)
     return run_work(fwd_f32_tiles(q_len, kv_len, causal=causal,
                                   window=window, starts=starts), split)
+
+
+def fwd_f32_slots(flat, m: int):
+    """The merge slot of each item of an f32 work list (`fwd_f32_work`):
+    the items of q tiles of more than one run numbered in item order, -1
+    for a tile of one run, which writes its rows directly. Returns (int32
+    array of m slots, the number of slots)."""
+    runs = np.diff(flat[4 * m:])
+    split = np.repeat(runs > 1, runs)
+    return (np.where(split, np.cumsum(split) - 1, -1).astype(np.int32),
+            int(split.sum()))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -420,7 +454,7 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
     if isinstance(starts, SegmentTiles):
         starts = starts.starts
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts)
+                           starts=starts, n_bh=bs * hq)
     _, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
     first = flat[4 * m:]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -555,32 +589,41 @@ def _flash_fwd_quant_fn():
 
 
 @functools.lru_cache(maxsize=64)
-def _device_fwd_work(q_len, kv_len, causal, window, starts, split, device):
-    """The f32 forward's work list on the device: (list, its items,
-    whether any q tile has more than one run)."""
+def _device_fwd_work(q_len, kv_len, causal, window, starts, n_bh, settings,
+                     device):
+    """The f32 forward's work list for n_bh = batch x q heads on the device,
+    each item's merge slot appended (`fwd_f32_slots`): (list, its items,
+    its slots). `settings`, the split settings of ops/configs.py read by
+    the caller, keys the cache."""
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts, split=split)
-    split_tiles = bool((np.diff(flat[4 * m:]) > 1).any())
-    return torch.as_tensor(flat, device=device), m, split_tiles
+                           starts=starts, n_bh=n_bh)
+    slots, n_slots = fwd_f32_slots(flat, m)
+    return (torch.as_tensor(np.concatenate([flat, slots]), device=device),
+            m, n_slots)
 
 
 _fwd_workspaces: dict = {}
 
 
-def fwd_workspace(device, stream: int, n_items: int, n_bh: int,
+def fwd_workspace(device, stream: int, n_slots: int, n_bh: int,
                   n_tiles: int, d: int):
     """(partials f32, arrival counters int32 zeros) of the f32 forward's
-    merge, allocated once per device, stream and shape and kept: the
-    kernel leaves the counters at zero, so a call allocates nothing.
-    Launches on one stream run in order, so they share a workspace;
-    another stream gets its own. `stream` is the launch's CUDA stream
+    merge: n_slots x n_bh slots of 128 x (d + 2) floats, one counter per
+    (q tile, q head, batch). One workspace per device and stream, grown to
+    the largest launch and kept (at most FLASH_FWD_F32_MAX_SLOTS slots,
+    `fwd_f32_split`): the kernel leaves the counters at zero, so a call
+    allocates nothing. Launches on one stream run in order, so they share
+    it; another stream gets its own. `stream` is the launch's CUDA stream
     handle."""
-    key = (str(device), stream, n_items, n_bh, n_tiles, d)
+    key = (str(device), stream)
+    need = n_slots * n_bh * FLASH_FWD_F32.block_m * (d + 2), n_bh * n_tiles
     ws = _fwd_workspaces.get(key)
-    if ws is None:
-        ws = (torch.empty(n_items * n_bh * FLASH_FWD_F32.block_m * (d + 2),
-                          dtype=torch.float32, device=device),
-              torch.zeros(n_bh * n_tiles, dtype=torch.int32, device=device))
+    if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(need[0], have[0]), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(need[1], have[1]), dtype=torch.int32,
+                          device=device))
         _fwd_workspaces[key] = ws
     return ws
 
@@ -650,14 +693,15 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     out = torch.empty_like(q)
     lse = torch.empty((bs, hq, q_len), dtype=torch.float32, device=q.device)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
-    work, n_items, split_tiles = None, 0, False
+    work, n_items, n_slots = None, 0, 0
     if q.dtype == torch.float32:
         # the f32 instance takes the pruned ranges and their order from its
         # work list, not from the tile table
-        work, n_items, split_tiles = _device_fwd_work(
+        work, n_items, n_slots = _device_fwd_work(
             q_len, kv_len, bool(causal), window,
-            None if tiles is None else tiles.starts,
-            configs.FLASH_FWD_F32_SPLIT, str(q.device))
+            None if tiles is None else tiles.starts, bs * hq,
+            (configs.FLASH_FWD_F32_SPLIT, configs.FLASH_FWD_F32_SPLIT_BELOW,
+             configs.FLASH_FWD_F32_MAX_SLOTS), str(q.device))
         tiles = None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(),
@@ -671,9 +715,9 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         stream = torch.cuda.current_stream().cuda_stream
         runs = (None, None, None)
         if work is not None:
-            ws = (fwd_workspace(q.device, stream, n_items, bs * hq,
+            ws = (fwd_workspace(q.device, stream, n_slots, bs * hq,
                                 -(-q_len // cfg.block_m), d)
-                  if split_tiles else (None, None))
+                  if n_slots else (None, None))
             runs = (work.data_ptr(),
                     *(None if t is None else t.data_ptr() for t in ws))
         if quantized:

@@ -36,8 +36,7 @@ import torch.nn.functional as F
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     decode_split_plan, paged_decode_split_pages, window_pages)
-from tiny_flash_attention_tpu_torch.ops.flash import (
-    LN2, LOG2E, _aligned, in_dtype)
+from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
@@ -239,10 +238,10 @@ def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
     if page_ids.shape != (batch,) or rows.shape != (batch,):
         raise ValueError(f"page_ids {tuple(page_ids.shape)}, rows "
                          f"{tuple(rows.shape)} for batch {batch}")
-    if not pages.is_contiguous() or pages.data_ptr() % 16:
-        raise ValueError("fused pages must be contiguous and 16-byte "
-                         "aligned (they are updated in place)")
-    k_new, v_new = _aligned(k_new), _aligned(v_new)
+    if not pages.is_contiguous():
+        raise ValueError("fused pages must be contiguous (they are updated "
+                         "in place)")
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
     page_ids = page_ids.to(torch.int32).contiguous()
     rows = rows.to(torch.int32).contiguous()
     with _build.on_device(dev):
