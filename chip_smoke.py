@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
-    python3 chip_smoke.py --f32-append   # only B1 f32 and the append, timed
+    python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -293,6 +293,28 @@ def instance_registers(ptxas_log: str) -> list:
             for name, spills, regs in re.findall(
                 r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
                 r"stores.*?Used (\d+) registers", ptxas_log, re.S)]
+
+
+def spilling_instances(ptxas_log: str) -> list:
+    """'kernel<template args>: registers/spill bytes' for each kernel
+    instance of a ptxas -v log that spills, demangled by c++filt where the
+    toolkit's host has it (the decodes' instances take types as template
+    arguments, which `kernel_label` does not read)."""
+    found = [(name, int(spills), regs) for name, spills, regs in re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
+        r"stores.*?Used (\d+) registers", ptxas_log, re.S) if int(spills)]
+    names = [name for name, _, _ in found]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60).stdout
+        demangled = out.splitlines()
+        if len(demangled) == len(names):
+            names = [re.sub(r"\(anonymous namespace\)::|\(.*$", "", x)
+                     .replace("__nv_bfloat16", "bf16")
+                     .replace("signed char", "i8") for x in demangled]
+    return [f"{name}: {regs}/{spills}"
+            for name, (_, spills, regs) in zip(names, found)]
 
 
 def wgmma_instructions(lib_path: str) -> dict:
@@ -740,10 +762,11 @@ def decode_split_sweep(name, q, pages, lengths, table, page_size) -> None:
         + f" (chosen: {chosen} x {per_chosen} pages)")
 
 
-def decode_inputs(gen, *, batch=8, hq=8, hkv=2, d=128, ps=128, P=32):
+def decode_inputs(gen, *, batch=8, hq=8, hkv=2, d=128, ps=128, P=32,
+                  dtype=torch.bfloat16):
     num_pages = batch * P + 8
-    q = randn((batch, hq, d), torch.bfloat16, gen)
-    pages = randn((hkv, num_pages, 2 * ps, d), torch.bfloat16, gen)
+    q = randn((batch, hq, d), dtype, gen)
+    pages = randn((hkv, num_pages, 2 * ps, d), dtype, gen)
     perm = torch.randperm(num_pages, generator=gen, device="cuda")
     table = perm[:batch * P].reshape(batch, P).to(torch.int32)
     rand = torch.randint(2, P * ps, (batch - 4,), generator=gen,
@@ -789,7 +812,7 @@ def check_not_ported_raise() -> None:
     from tiny_flash_attention_tpu_torch.ops.paged import (
         paged_decode_attention)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_paged_decode_attention)
+        fused_page_append, fused_paged_decode_attention)
     from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
         quantized_matmul_cuda)
 
@@ -839,6 +862,33 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
+    # head_dim above 128 in the flash kernels; the decodes and the append
+    # at a head_dim they have no instance of (pages are read in place), a
+    # page size that is neither 16 nor a multiple of 32
+    q256 = torch.zeros((1, 2, 128, 256), device="cuda", dtype=torch.bfloat16)
+    q72 = torch.zeros((2, 6, 72), device="cuda", dtype=torch.bfloat16)
+    pages72 = torch.zeros((2, 4, 32, 72), device="cuda",
+                          dtype=torch.bfloat16)
+    pages48 = torch.zeros((2, 4, 96, 128), device="cuda",
+                          dtype=torch.bfloat16)
+    two = torch.zeros(2, dtype=torch.int32, device="cuda")
+    attempts += [
+        lambda: flash_attention(q256, q256, q256, causal=True),
+        lambda: flash_attention_bwd(q256, q256, q256, q256, lse, q256,
+                                    causal=True),
+        lambda: flash_attention_v1(q256, q256, q256),
+        lambda: flash_attention_quantized(q256, *Q.quantize_kv(
+            q256, q256, "int8")),
+        lambda: fused_paged_decode_attention(q72, pages72, lengths, table,
+                                             page_size=16),
+        lambda: paged_decode_attention(q72, pages72, pages72, lengths,
+                                       table),
+        lambda: fused_page_append(pages72, q72[:, :2], q72[:, :2], two, two,
+                                  page_size=16),
+        lambda: fused_paged_decode_attention(
+            torch.zeros((2, 6, 128), device="cuda", dtype=torch.bfloat16),
+            pages48, lengths, table, page_size=48),
+    ]
     for fn in attempts:
         try:
             fn()
@@ -846,7 +896,10 @@ def check_not_ported_raise() -> None:
             continue
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
-    log("not-ported features raise NotImplementedError on the card: ok")
+    log(f"not-ported features raise NotImplementedError on the card: ok "
+        f"({len(attempts)}: int8 K/V without scales, head_dim 256 in the "
+        f"forward, backward, FA1 and the quantized forward, the decodes "
+        f"and the append at head_dim 72, page size 48)")
 
 
 # --- phase 3b: the quantized path's kernels, kernel vs plain -----------------
@@ -990,7 +1043,7 @@ def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32):
     return pages, k_new, v_new, ids.to(torch.int32), rows.to(torch.int32)
 
 
-def check_append(name, fmt, ps, gen, *, iters=20):
+def check_append(name, fmt, ps, gen, *, iters=20, d=128):
     """The append kernel vs its plain version (the scatter decomposition),
     bit for bit; device times of both. The bound: the new rows read once,
     the page rows and scale bytes written once."""
@@ -999,7 +1052,7 @@ def check_append(name, fmt, ps, gen, *, iters=20):
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
 
-    pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps)
+    pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps, d=d)
     base = pages.clone()
     want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
                              page_size=ps)
@@ -1262,7 +1315,13 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     ok = (finite and same and max(err_plain) <= BWD_PLAIN_GATE[dtype]
           and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
 
-    call = FB.BwdLaunch(q, k, v, out, lse, do, causal=causal,
+    # each kernel alone, on the tensors padded to the kernels' head_dim (what
+    # the call launches; the bound stays at the true head_dim)
+    from tiny_flash_attention_tpu_torch.ops.dims import (
+        kernel_head_dim, pad_head_dim)
+    dk = kernel_head_dim(q_shape[-1], "the CUDA backward kernels")
+    call = FB.BwdLaunch(*(pad_head_dim(t, dk) for t in (q, k, v, out)), lse,
+                        pad_head_dim(do, dk), causal=causal,
                         sm_scale=sm_scale, **kw)
     stages = ({"prep": 1, "main": 2, "post": 4} if dtype == torch.bfloat16
               else {"dq": 1, "dkv": 2, "post": 4})
@@ -2198,69 +2257,6 @@ def train_f32_profile(seed: int) -> int:
         profile_window(f"per train step of f32 {batch} x {seq} tokens",
                        lambda: step(params, opt, tokens), 1,
                        watch="flash_fwd_f32")
-    return 0
-
-
-def f32_append_rows(seed: int) -> int:
-    """Only B1's f32 instance and the append, device ms each, with the
-    package found on sys.path (so that one call can time two trees): B1 f32
-    at the f32 train step's shape, f32 q over int8 and e4m3 payloads at the
-    int8 benchmark's shape, the append into int8 and bf16 pages at the
-    engine's shape beside the launch floor; then the f32 train step's
-    profile (B1 f32's time a launch in it) and the bf16 engine's decode
-    step's (the append's time a launch in it)."""
-    import tiny_flash_attention_tpu_torch as tfa
-    from tiny_flash_attention_tpu_torch.models import transformer as T
-    from tiny_flash_attention_tpu_torch.models.engine import (
-        InferenceEngine, Request)
-    from tiny_flash_attention_tpu_torch.ops import quant as Q
-    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
-    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_page_append)
-    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
-        cuda_time_ms)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"card: {gpu_info()}; package {tfa.__file__}")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q_shape, kv_shape = F32_FWD_SHAPE
-    q = randn(q_shape, torch.float32, gen)
-    k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
-    times = {"f32": cuda_time_ms(lambda: flash_attention(q, k, v,
-                                                         causal=True),
-                                 iters=20)["median_ms"]}
-    _, _, qs, ks = QUANT_BENCH[0]
-    q = randn(qs, torch.float32, gen)
-    k, v = (randn(ks, torch.float32, gen) for _ in range(2))
-    for fmt in ("int8", "fp8"):
-        kq, vq = Q.quantize_kv(k, v, fmt)
-        times[f"f32 q {fmt}"] = cuda_time_ms(
-            lambda: tfa.flash_attention_quantized(q, kq, vq, causal=True),
-            iters=20)["median_ms"]
-    del q, k, v
-    for fmt in ("int8", "bf16"):
-        pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=128)
-        times[f"append {fmt}"] = cuda_time_ms(
-            lambda: fused_page_append(pages, k_new, v_new, ids, rows,
-                                      page_size=128), iters=50)["median_ms"]
-    times["launch floor"] = launch_floor_ms(50)
-    log("rows (device ms): " + "; ".join(f"{key} {t:.4f}"
-                                         for key, t in times.items()))
-    train_f32_profile(seed)
-    cfg = engine_config()
-    params = T.init_params(cfg, gen, device="cuda")
-    eng = InferenceEngine(cfg, params, num_pages=8 * 32 + 8, page_size=128,
-                          max_seqs=8, pages_per_seq=32, seed=seed,
-                          device="cuda")
-    rng = np.random.default_rng(seed)
-    eng.add_requests([Request(rng.integers(0, cfg.vocab_size, n).tolist(),
-                              64) for n in rng.integers(600, 2049, 8)])
-    eng.steps(8)
-    for _ in range(2):
-        profile_window(f"per decode step (steps({PROFILE_STEPS}), 8 slots)",
-                       lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
-                       watch="page_append")
     return 0
 
 
@@ -3236,6 +3232,508 @@ def profile_window(label: str, fn, n: int, launches=None,
                              f"parent tree's {launches}")
 
 
+def main_path_rows(seed: int) -> int:
+    """Only the head_dim-128 rows, device ms each, with the package found on
+    sys.path (so that one call can time two trees' kernels): B1 bf16 at
+    (4,8,768,128) and (4,8,2048,128) causal, B1 f32 at the f32 train step's
+    shape, f32 q over int8 and e4m3 payloads at the int8 benchmark's shape,
+    the bf16 backward call at (4,8,2048,128), B4 over int8 pages of 8016
+    tokens and over a bf16 engine cache, the append cold beside the launch
+    floor; then the bf16 engine's decode step (its launches and the
+    append's time a launch in it) and the f32 train step (B1 f32's time a
+    launch in it), each profiled twice."""
+    import tiny_flash_attention_tpu_torch as tfa
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request)
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {gpu_info()}; package {tfa.__file__}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    times = {}
+    for n in (768, 2048):
+        q = randn((4, 8, n, 128), torch.bfloat16, gen)
+        k, v = (randn((4, 2, n, 128), torch.bfloat16, gen) for _ in range(2))
+        times[f"B1 (4,8,{n})"] = cuda_time_ms(
+            lambda: flash_attention(q, k, v, causal=True),
+            iters=20)["median_ms"]
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    do = randn(q.shape, torch.bfloat16, gen)
+    times["bwd call (4,8,2048)"] = cuda_time_ms(
+        lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        iters=10)["median_ms"]
+    q_shape, kv_shape = F32_FWD_SHAPE
+    q = randn(q_shape, torch.float32, gen)
+    k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
+    times["B1 f32 (1,8,1024)"] = cuda_time_ms(
+        lambda: flash_attention(q, k, v, causal=True), iters=20)["median_ms"]
+    _, _, qs, ks = QUANT_BENCH[0]
+    q = randn(qs, torch.float32, gen)
+    k, v = (randn(ks, torch.float32, gen) for _ in range(2))
+    for fmt in ("int8", "fp8"):
+        kq, vq = Q.quantize_kv(k, v, fmt)
+        times[f"f32 q {fmt}"] = cuda_time_ms(
+            lambda: tfa.flash_attention_quantized(q, kq, vq, causal=True),
+            iters=20)["median_ms"]
+    del q, k, v, kq, vq, out, lse, do
+    x = decode_inputs_int8(gen, ps=128, P=64)
+    lengths = torch.full((8,), 8016, dtype=torch.int32, device="cuda")
+    times["B4 int8 8016"] = cuda_time_ms(
+        lambda: fused_paged_decode_attention(x[0], x[1], lengths, x[3],
+                                             page_size=128),
+        iters=20)["median_ms"]
+    del x
+    for fmt in ("int8", "bf16"):
+        pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=128)
+        times[f"append {fmt}"] = cuda_time_ms(
+            lambda: fused_page_append(pages, k_new, v_new, ids, rows,
+                                      page_size=128), iters=50)["median_ms"]
+    times["launch floor"] = launch_floor_ms(50)
+    cfg = engine_config()
+    params = T.init_params(cfg, gen, device="cuda")
+    eng = InferenceEngine(cfg, params, num_pages=8 * 32 + 8, page_size=128,
+                          max_seqs=8, pages_per_seq=32, seed=seed,
+                          device="cuda")
+    rng = np.random.default_rng(seed)
+    eng.add_requests([Request(rng.integers(0, cfg.vocab_size, n).tolist(),
+                              64) for n in rng.integers(600, 2049, 8)])
+    eng.steps(8)
+    table, lengths = eng.cache.device_views()
+    qd = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
+    times["B4 bf16 engine cache"] = cuda_time_ms(
+        lambda: fused_paged_decode_attention(qd, eng.cache.pages[0], lengths,
+                                             table, page_size=128),
+        iters=20)["median_ms"]
+    log("rows (device ms): " + "; ".join(f"{key} {t:.4f}"
+                                         for key, t in times.items()))
+    for _ in range(2):
+        profile_window(f"per decode step (steps({PROFILE_STEPS}), 8 slots)",
+                       lambda: eng.steps(PROFILE_STEPS), PROFILE_STEPS,
+                       STEP_LAUNCHES["bf16"], watch="page_append")
+    del eng, params
+    train_f32_profile(seed)
+    return 0
+
+
+# --- phase 8: head dims and GQA groups no instance compiles ------------------
+
+# B1 (bf16 and f32) at head dims it pads (72: no multiple of 16) and groups
+# 1, 3, 7, each under one mask: (d, group, mask)
+DIMS_FLASH_CASES = [(72, 1, "causal"), (72, 3, "window"), (72, 7, "ids"),
+                    (80, 1, "window"), (80, 3, "ids"), (80, 7, "causal"),
+                    (96, 1, "ids"), (96, 3, "causal"), (96, 7, "window")]
+# B4 at head_dim 80 and 96 and the groups it pads, (d, group, page size)
+DIMS_DECODE_CASES = [(80, 3, 64), (80, 5, 128), (80, 7, 64), (80, 12, 128),
+                     (80, 16, 64), (96, 3, 128), (96, 5, 64), (96, 7, 128),
+                     (96, 12, 64), (96, 16, 128)]
+# The two models served at published widths (their config.json), 4 layers:
+# (label, ModelConfig fields, int8 page size: JAX's int8 page rule needs
+# page_size <= head_dim or a multiple of it)
+DIMS_MODELS = [
+    ("Phi-3-mini widths", dict(vocab_size=32064, d_model=3072, n_q_heads=32,
+                               n_kv_heads=32, d_head=96, d_ff=8192,
+                               rope_theta=10000.0, rms_eps=1e-5), 64),
+    ("Llama-3.2-3B widths", dict(vocab_size=128256, d_model=3072,
+                                 n_q_heads=24, n_kv_heads=8, d_head=128,
+                                 d_ff=8192, rope_theta=500000.0,
+                                 rms_eps=1e-5), 128),
+]
+DIMS_LAYERS = 4
+
+
+def dims_mask(mask, b, n) -> dict:
+    """The keywords of one mask: causal, a window of 200, or causal with
+    segment ids changing off the tiles."""
+    if mask == "window":
+        return {"causal": True, "window": 200}
+    if mask == "ids":
+        seg = segment_ids(b, n, (300, 777))
+        return {"causal": True, "segment_ids": (seg, seg)}
+    return {"causal": True}
+
+
+def check_dims_flash(d, group, mask, dtype, gen) -> float:
+    """B1 at a padded head_dim against its plain version at the true one
+    (the dtype gate, and in bf16 the gate at the q fold with the LSE);
+    returns the worst error. At head_dim 96 also a planted fault: the
+    plain version at the padded head_dim's scale (1/sqrt(128), what a
+    default scale taken after the padding would give) must fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    b, hkv, n = 2, 2, 1024
+    q = randn((b, hkv * group, n, d), dtype, gen)
+    k, v = randn((b, hkv, n, d), dtype, gen), randn((b, hkv, n, d), dtype,
+                                                    gen)
+    kw = dims_mask(mask, b, n)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+
+    def plain(qq, sc):
+        return flash_attention_plain(qq, k, v, sm_scale=sc, return_lse=True,
+                                     **kw)
+
+    errs, folded, ok = flash_gate(out, lse, plain, q, dtype)
+    ok = (ok and out.shape == q.shape and bool(torch.isfinite(out).all())
+          and flash_attention.launches == before + 1)
+    log(f"dims: flash d {d} group {group} {mask} "
+        f"{str(dtype).split('.')[-1]} q{tuple(q.shape)} | "
+        f"{flash_readings(errs, folded)} ({gate_text(dtype)}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernel disagrees at head_dim {d}")
+    if d == 96:
+        f_out, f_lse = plain(q, 128 ** -0.5)
+        f_errs, f_folded, f_ok = flash_gate(f_out, f_lse, plain, q, dtype)
+        log(f"dims: flash d 96 {str(dtype).split('.')[-1]}: planted fault, "
+            f"sm_scale 1/sqrt(128): {flash_readings(f_errs, f_folded)} | "
+            f"{'PASSES THE GATE' if f_ok else 'caught'}")
+        if f_ok:
+            raise AssertionError("the flash gate passes a wrong sm_scale")
+    return max(errs["out"], errs["lse"])
+
+
+def check_dims_b12(gen) -> float:
+    """B12 at head_dim 96, group 3, bf16 and int8 pages, against its plain
+    version at the kernel's splits and unsplit, with its planted faults."""
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_plain)
+
+    worst = 0.0
+    for fmt in ("bf16", "int8"):
+        q, k, v, lengths, table = b12_inputs(
+            gen, fmt, [1, 127, 128, 129, 1000, 4096, 6000, 8192], hq=6,
+            hkv=2, d=96, P=64)
+        out, lse = paged_decode_attention(q, k, v, lengths, table)
+        torch.cuda.synchronize()
+        plain = (lambda sp: paged_decode_plain(
+            q, k, v, lengths, table, sm_scale=96 ** -0.5, splits=sp))
+        err, row, lse_err, ok = split_errs(out, lse, plain)
+        check_v_faults(f"separate d 96 group 3 {fmt}",
+                       b12_faults(q, k, v, lengths, table), plain)
+        log(f"dims: paged_decode_separate d 96 group 3 {fmt} pages | "
+            f"{gate_readings(err, row, lse_err)} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("B12 disagrees at head_dim 96")
+        worst = max(worst, err, lse_err)
+    return worst
+
+
+def dims_phase(gen) -> dict:
+    """Every kernel at the head dims and groups that no instance compiles,
+    against its plain version: B1 (bf16, f32; causal, window, ids; the
+    fold, the LSE, a wrong-scale fault), its quantized instances, the
+    backward, FA1, B4 (bf16, f32, int8 pages, the ring mode, planted V
+    faults), B12 and B5 (bit for bit); and the time of B1 and the backward
+    at head_dim 96 beside their bound at the true head_dim and SDPA."""
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized)
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        flash_attention_v1, flash_attention_v1_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    rows = {"errs": {}}
+    errs = rows["errs"]
+    errs["flash_fwd"] = max(check_dims_flash(*c, torch.bfloat16, gen)
+                            for c in DIMS_FLASH_CASES)
+    errs["flash_fwd_f32"] = max(check_dims_flash(*c, torch.float32, gen)
+                                for c in DIMS_FLASH_CASES)
+    # the quantized forward at head_dim 96, group 3: payloads padded with
+    # code 0, scales as they are
+    q = randn((2, 24, 2048, 96), torch.bfloat16, gen)
+    k, v = (randn((2, 8, 2048, 96), torch.bfloat16, gen) for _ in range(2))
+    for fmt in ("int8", "fp8"):
+        kq, vq = Q.quantize_kv(k, v, fmt)
+        out, lse = flash_attention_quantized(q, kq, vq, causal=True,
+                                             return_lse=True)
+        errs[f"flash_fwd_quant_{fmt}"] = check_quant(
+            f"dims: quantized flash {fmt} d 96 group 3", q, kq, vq, out, lse,
+            faults=True)
+    del q, k, v, kq, vq, out, lse
+    # FA1 at head_dim 80
+    for dtype, n in ((torch.bfloat16, 2048), (torch.float32, 1024)):
+        q, k, v = (randn((2, 8, n, 80), dtype, gen) for _ in range(3))
+        out, lse = flash_attention_v1(q, k, v, causal=True, return_lse=True)
+        e, folded, ok = flash_gate(out, lse, lambda qq, sc:
+                                   flash_attention_v1_plain(
+                                       qq, k, v, causal=True, sm_scale=sc),
+                                   q, dtype)
+        log(f"dims: flash_v1 d 80 {str(dtype).split('.')[-1]} "
+            f"q{tuple(q.shape)} | {flash_readings(e, folded)} "
+            f"({gate_text(dtype)}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("FA1 disagrees at head_dim 80")
+        key = "flash_v1" if dtype == torch.bfloat16 else "flash_v1_f32"
+        errs[key] = max(e["out"], e["lse"])
+    # B4: bf16 pages at every case, int8 pages at every case (at page size
+    # 64 where the case's is neither at most head_dim nor a multiple of it:
+    # JAX's int8 page rule), f32 at two; the ring mode; planted V faults at
+    # one case of each format
+    dec, dec8 = 0.0, 0.0
+    for i, (d, group, ps) in enumerate(DIMS_DECODE_CASES):
+        P = 4096 // ps
+        x = decode_inputs(gen, hq=2 * group, d=d, ps=ps, P=P)
+        r = check_decode(f"dims: bf16 d {d} group {group} ps {ps}", *x, ps,
+                         iters=5, faults=i == 0)
+        dec = max(dec, r["max_abs_err"])
+        ps8 = ps if ps <= d or ps % d == 0 else 64
+        x = decode_inputs_int8(gen, ps=ps8, P=4096 // ps8, hq=2 * group, d=d)
+        r = check_decode(f"dims: int8 d {d} group {group} ps {ps8}", *x, ps8,
+                         iters=5, faults=i == 5)
+        dec8 = max(dec8, r["max_abs_err"])
+    for d, group in ((80, 3), (96, 12)):
+        x = decode_inputs(gen, hq=2 * group, d=d, ps=64, P=64,
+                          dtype=torch.float32)
+        check_decode(f"dims: f32 d {d} group {group} ps 64", *x, 64, iters=5)
+    x = decode_inputs_int8(gen, ps=160, P=25, hq=6, d=80)
+    r = check_decode("dims: int8 d 80 group 3 ps 160 (scale rows in two "
+                     "groups)", *x, 160, iters=5)
+    dec8 = max(dec8, r["max_abs_err"])
+    for fmt, d, group in (("bf16", 96, 3), ("int8", 96, 7), ("bf16", 80, 16),
+                          ("int8", 80, 5)):
+        r = check_ring(f"dims: {fmt} d {d} group {group}", fmt, gen,
+                       hq=2 * group, d=d, ps=64, P=32)
+        if fmt == "bf16":
+            dec = max(dec, r["max_abs_err"])
+        else:
+            dec8 = max(dec8, r["max_abs_err"])
+    errs["paged_decode"], errs["paged_decode_int8"] = dec, dec8
+    errs["paged_decode_separate"] = check_dims_b12(gen)
+    errs["page_append"] = max(
+        check_append(f"dims: {fmt} d {d} ps {ps}", fmt, ps, gen, d=d,
+                     iters=5)["max_abs_err"]
+        for fmt, d, ps in (("bf16", 80, 128), ("bf16", 96, 128),
+                           ("int8", 80, 64), ("int8", 80, 160),
+                           ("int8", 96, 64), ("int8", 96, 96)))
+    # the new shapes timed: B1 at (4,32,2048,96) causal, the backward at
+    # (1,32,2048,96), beside the bound at head_dim 96 and SDPA
+    rows["flash"] = check_flash("dims: B1 at head_dim 96", (4, 32, 2048, 96),
+                                (4, 32, 2048, 96), torch.bfloat16, True, gen,
+                                faults=True)
+    # the call's parts: the kernel on tensors padded beforehand, and the
+    # three pads and the slice of out alone
+    from tiny_flash_attention_tpu_torch.ops.dims import (
+        pad_head_dim, unpad_head_dim)
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    q, k, v = (randn((4, 32, 2048, 96), torch.bfloat16, gen)
+               for _ in range(3))
+    qp, kp, vp = (pad_head_dim(t, 128) for t in (q, k, v))
+    t_kernel = cuda_time_ms(lambda: flash_attention(qp, kp, vp, causal=True),
+                            iters=10)["median_ms"]
+    t_pads = cuda_time_ms(lambda: (
+        [pad_head_dim(t, 128) for t in (q, k, v)],
+        unpad_head_dim(qp, 96)), iters=10)["median_ms"]
+    log(f"dims: B1 at head_dim 96, the call's parts: the kernel on tensors "
+        f"padded to 128 {t_kernel:.4f} ms; three pads and the slice of out "
+        f"{t_pads:.4f} ms")
+    rows["flash"].update(padded_kernel_ms=t_kernel, pads_ms=t_pads)
+    del q, k, v, qp, kp, vp
+    rows["flash_bwd"] = check_bwd("dims: backward at head_dim 96",
+                                  (1, 32, 2048, 96), (1, 32, 2048, 96),
+                                  torch.bfloat16, True, {}, gen)
+    errs["flash_bwd"] = rows["flash_bwd"]["max_abs_err"]
+    return rows
+
+
+def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
+    """One engine at a model's published widths: 8 prompts of 512-2048
+    tokens admitted in two batches of 4, two steps(32) chunks, the launch
+    counts zeroed just before the admissions and read just after the
+    chunks; then the longer admission's prefill logits and the first
+    decode step, each against the same call with every kernel swapped for
+    its plain version (plain_kernels), within ENGINE_LOGIT_GATE of the
+    largest |logit|, and the engine's greedy tokens the argmax of the
+    kernels' logits."""
+    from tiny_flash_attention_tpu_torch.models.engine import (
+        InferenceEngine, Request, pad_prompts)
+    from tiny_flash_attention_tpu_torch.models.inference import (
+        decode_step, prefill_forward_batched)
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+
+    max_seqs, n_chunk, n_chunks = 8, 32, 2
+    pps = -(-(2048 + n_chunk * n_chunks + 8) // ps)
+    eng = InferenceEngine(cfg, params, num_pages=max_seqs * pps + 8,
+                          page_size=ps, max_seqs=max_seqs, pages_per_seq=pps,
+                          kv_format=fmt, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    lens = sorted(int(n) for n in rng.integers(512, 2049, max_seqs))
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(),
+                    1 + n_chunk * n_chunks + 8) for n in lens]
+    attr = "int8_launches" if fmt == "int8" else "launches"
+
+    # ---- the main path: counts zeroed just before, read just after ----
+    flash_attention.launches = 0
+    setattr(fused_paged_decode_attention, attr, 0)
+    fused_page_append.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in (reqs[:4], reqs[4:]):
+        eng.add_requests(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    snap = dict(pages=[p.clone() for p in eng.cache.pages],
+                table=eng.cache.page_table.copy(),
+                lengths=eng.cache.lengths.copy(),
+                last=eng.last_token.copy())
+    chunk_s = []
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        eng.steps(n_chunk)            # ends in a device-to-host copy
+        chunk_s.append(time.perf_counter() - t0)
+    launches = {"flash_fwd": flash_attention.launches,
+                f"paged_decode{'_int8' if fmt == 'int8' else ''}":
+                    getattr(fused_paged_decode_attention, attr),
+                "page_append": fused_page_append.launches}
+    # ---------------------------------------------------------------------
+
+    steps, L = n_chunk * n_chunks, cfg.n_layers
+    want = dict(zip(launches, (2 * L, steps * L, steps * L)))
+    log(f"dims engine [{label}, {fmt} pages ps {ps}]: prompts {lens}; "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"dims engine launches {launches} != {want}")
+    for r in reqs:
+        assert len(r.generated) == 1 + steps, len(r.generated)
+
+    long = reqs[4:]
+    toks = torch.as_tensor(pad_prompts([r.prompt for r in long], ps),
+                           device="cuda")
+    rows = torch.arange(len(long), device="cuda")
+    last = torch.tensor([len(r.prompt) - 1 for r in long], device="cuda")
+
+    def first_step():
+        dec, _ = decode_step(
+            cfg, params, [p.clone() for p in snap["pages"]],
+            torch.as_tensor(snap["last"], device="cuda"),
+            torch.as_tensor(snap["lengths"], device="cuda"),
+            torch.as_tensor(snap["table"], device="cuda"), page_size=ps,
+            fmt=fmt)
+        return dec
+
+    slots = torch.tensor([r.slot for r in reqs], device="cuda")
+    got_pre = prefill_forward_batched(cfg, params, toks)[0][rows, last]
+    got_dec = first_step()[slots]
+    with plain_kernels():
+        ref_pre = prefill_forward_batched(cfg, params, toks)[0][rows, last]
+        ref_dec = first_step()[slots]
+    worst = 0.0
+    for what, got, ref, tokens in (
+            ("prefill (the longer admission)", got_pre, ref_pre,
+             [r.generated[0] for r in long]),
+            ("first decode step", got_dec, ref_dec,
+             [r.generated[1] for r in reqs])):
+        scale = float(ref.abs().max())
+        err = max_err(got, ref)
+        gate = ENGINE_LOGIT_GATE * scale
+        argmax = got.argmax(-1).tolist()
+        same = sum(a == b for a, b in zip(argmax, ref.argmax(-1).tolist()))
+        log(f"dims engine [{label}, {fmt}]: {what} vs plain kernels: max err "
+            f"{err:.4f} (gate {gate:.4f} = {ENGINE_LOGIT_GATE:.1%} of max "
+            f"|logit| {scale:.3f}); tokens {tokens} vs argmax {argmax} (the "
+            f"plain kernels' argmax agrees on {same} of {len(argmax)})")
+        if err > gate or not torch.isfinite(got).all():
+            raise AssertionError(f"dims engine logits disagree: {label}")
+        if tokens != argmax:
+            raise AssertionError(f"dims engine tokens are not the argmax: "
+                                 f"{label}")
+        worst = max(worst, err)
+    tok_s = max_seqs * n_chunk / chunk_s[-1]
+    log(f"dims engine [{label}, {fmt}] timing: two admissions of 4 "
+        f"{prefill_ms:.1f} ms; decode steps({n_chunk}) "
+        f"{[round(x * 1e3, 2) for x in chunk_s]} ms -> {tok_s:.0f} tokens/s "
+        f"(8 slots, last chunk)")
+    return {"launches": launches, "engine": eng, "err": worst}
+
+
+def dims_model_phase(seed) -> dict:
+    """The two models at their published widths (DIMS_MODELS), cut to
+    DIMS_LAYERS layers, random weights from the seed: each served over bf16
+    pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
+    each bf16 engine's cache (layer 0) beside its bound; then one train
+    step pair at the first model's widths (1 x 2048, bf16, AdamW): the loss
+    falls, the gradients agree with those through the plain attention."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+
+    totals, caches = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for label, fields, ps8 in DIMS_MODELS:
+        cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS,
+                            dtype=torch.bfloat16)
+        params = T.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(seed), device="cuda")
+        n_params = sum(t.numel() for t in [
+            params["embed"], params["lm_head"], params["final_norm"]]) + sum(
+            t.numel() for layer in params["layers"] for t in layer.values())
+        log(f"dims model [{label}]: {n_params / 1e6:.1f} M params, "
+            f"{DIMS_LAYERS} layers, {cfg.n_q_heads}/{cfg.n_kv_heads} heads "
+            f"of {cfg.d_head} (group {cfg.group})")
+        for fmt, ps in (("bf16", 128), ("int8", ps8)):
+            run = dims_engine_run(label, cfg, params, fmt, ps, seed)
+            for key, n in run["launches"].items():
+                totals[key] = totals.get(key, 0) + n
+            if fmt == "bf16":
+                table, lengths = run["engine"].cache.device_views()
+                q = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
+                caches[label] = check_decode(
+                    f"dims: {label} engine cache, layer 0", q,
+                    run["engine"].cache.pages[0], lengths, table, 128,
+                    faults=True)
+            del run
+        del params
+    # one train step pair at the first model's widths
+    label, fields, _ = DIMS_MODELS[0]
+    cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.bfloat16)
+    step, init_state = make_train_step(cfg, learning_rate=1e-3)
+    params0 = T.init_params(cfg, gen, device="cuda")
+    params, opt = init_state(params0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device="cuda")
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))
+    dt = time.perf_counter() - t0
+    got = (flash_attention.launches, flash_attention_bwd.launches)
+    totals["flash_fwd"] = totals.get("flash_fwd", 0) + got[0]
+    totals["flash_bwd"] = got[1]
+    err = train_grad_check(cfg, params0, tokens)
+    log(f"dims train [{label}, 1 x 2048]: loss {losses[0]:.4f} -> "
+        f"{losses[1]:.4f} in 2 steps ({dt * 1e3:.1f} ms); {got[0]} forward "
+        f"and {got[1]} backward calls (expected {2 * cfg.n_layers} each); "
+        f"gradients vs attn_impl='reference': max relative Frobenius "
+        f"distance {err:.3e} (gate {TRAIN_GRAD_GATE:.0e})")
+    if got != (2 * cfg.n_layers,) * 2 or not (
+            np.isfinite(losses).all() and losses[1] < losses[0]):
+        raise AssertionError(f"dims train step: {got}, {losses}")
+    if not err <= TRAIN_GRAD_GATE:
+        raise AssertionError("dims train gradients disagree with the plain "
+                             "path")
+    return {"launches": totals, "caches": caches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -3256,7 +3754,10 @@ def main() -> int:
     info = gpu_info()
     log(f"card: {info}")
     t_build = _build.build()
-    log(f"build: {_build.sources()} in {t_build:.1f} s (nvcc, parallel)")
+    log(f"build: {_build.sources()} in {t_build:.1f} s (nvcc, parallel); "
+        f"each source's nvcc, s: " + ", ".join(
+            f"{name} {t:.1f}" for name, t in sorted(
+                _build.build_seconds.items(), key=lambda x: -x[1])))
     for name in _build.sources():
         text = _build.build_log(name)
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
@@ -3267,6 +3768,9 @@ def main() -> int:
         if len(regs) <= 32:
             log("    registers/spill bytes: "
                 + ", ".join(instance_registers(text)))
+        elif spills:
+            log("    instances that spill, registers/spill bytes: "
+                + "; ".join(spilling_instances(text)))
     # the bf16-q instances of B1 (over bf16 K/V and over int8/e4m3
     # payloads) and B14's bf16 instances run on wgmma: HGMMA in their SASS,
     # no HMMA
@@ -3338,6 +3842,7 @@ def main() -> int:
                  for fmt in ("bf16", "int8")}
     surface = surface_phase(gen)
     quant_flash = quant_flash_phase(gen)
+    dims = dims_phase(gen)
     check_not_ported_raise()
 
     run = engine_phase(SEED)
@@ -3355,6 +3860,8 @@ def main() -> int:
     ragged = ragged_admission_phase(SEED)
     enc = encoder_phase(SEED)
     swa = swa_phase(SEED)
+    dims_models = dims_model_phase(SEED)
+    dlaunch = dims_models["launches"]
 
     train = train_phase(SEED)
     for label, (step, *state) in train["states"].items():
@@ -3378,7 +3885,10 @@ def main() -> int:
         flash_row["max_abs_err"], first["max_abs_err"], seg_err,
         *(slice_rows[k]["max_abs_err"]
           for k in ("packed with", "packed without", "encoder", "padded")),
-        *(r["max_abs_err"] for r in window_rows.values()))
+        *(r["max_abs_err"] for r in window_rows.values()),
+        dims["errs"]["flash_fwd"])
+    f32_fwd_row["max_abs_err"] = max(f32_fwd_row["max_abs_err"],
+                                     dims["errs"]["flash_fwd_f32"])
     rowloop_row = dict(slice_rows["jagged"])
     rowloop_row["max_abs_err"] = max(rowloop_row["max_abs_err"], rowloop_err)
     page_table, lengths = eng.cache.device_views()
@@ -3388,7 +3898,8 @@ def main() -> int:
                               faults=True)
     # the ring mode's errors join B4's row (bf16 pages) and its int8 row
     decode_row["max_abs_err"] = max(decode_row["max_abs_err"],
-                                    ring_rows["bf16"]["max_abs_err"])
+                                    ring_rows["bf16"]["max_abs_err"],
+                                    dims["errs"]["paged_decode"])
     eng8k = quant["engines"][(False, 7936)]
     page_table, lengths = eng8k.cache.device_views()
     int8_row = check_decode("main path: int8 engine cache at prompt 7936, "
@@ -3397,19 +3908,23 @@ def main() -> int:
     decode_split_sweep("int8 engine cache at prompt 7936", qd,
                        eng8k.cache.pages[0], lengths, page_table, 128)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"],
-                                  ring_rows["int8"]["max_abs_err"])
+                                  ring_rows["int8"]["max_abs_err"],
+                                  dims["errs"]["paged_decode_int8"])
     qlaunch = quant["launches"]
     # B14's row: FA1 at the MHA headline shape, B12's: config 2 over bf16
     # pages; each with the worst error of its cases
     srows = surface["rows"]
     v1_row = dict(srows[V1_CASES[0][0]])
-    v1_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"] for c in V1_CASES
-                                if c[3] == torch.bfloat16)
+    v1_row["max_abs_err"] = max(dims["errs"]["flash_v1"], *(
+        srows[c[0]]["max_abs_err"] for c in V1_CASES
+        if c[3] == torch.bfloat16))
     v1_f32_row = dict(srows[next(c[0] for c in V1_CASES
                                  if c[3] == torch.float32)])
     b12_row = dict(srows[B12_CASES[0][0]])
-    b12_row["max_abs_err"] = max(srows[c[0]]["max_abs_err"]
-                                 for c in B12_CASES)
+    b12_row["max_abs_err"] = max(dims["errs"]["paged_decode_separate"], *(
+        srows[c[0]]["max_abs_err"] for c in B12_CASES))
+    v1_f32_row["max_abs_err"] = max(v1_f32_row["max_abs_err"],
+                                    dims["errs"]["flash_v1_f32"])
     # the backward's rows: each kernel at the train step's 4 x 2048 shape
     # (the f32 kernels at the f32 train step's 1 x 1024, the first f32
     # case), the worst error over the cases of its dtype; the plain and
@@ -3424,6 +3939,8 @@ def main() -> int:
     def bwd_kernel(part, row, dtype, launches):
         worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
                     if c[3] == dtype)
+        if dtype == torch.bfloat16:
+            worst = max(worst, dims["errs"]["flash_bwd"])
         suffix = "_f32" if dtype == torch.float32 else ""
         design = ("bf16: prep; main on wgmma/TMA, one block per (128-row "
                   "kv tile, q head), longest band first, walking its q "
@@ -3457,7 +3974,7 @@ def main() -> int:
                              f"train step's shape {TRAIN_F32}")
     bwd_kernels = [
         *(bwd_kernel(part, bwd_rows[0], torch.bfloat16,
-                     train["launches"]["flash_bwd"])
+                     train["launches"]["flash_bwd"] + dlaunch["flash_bwd"])
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
                      train["launches"]["flash_bwd_f32"])
@@ -3485,8 +4002,8 @@ def main() -> int:
          "replaces": fwd_replaces,
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
-         + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"],
-         **flash_row},
+         + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"]
+         + dlaunch["flash_fwd"], **flash_row},
         {"name": "flash_fwd_f32", "route": "cuda", "design": f32_design,
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,
@@ -3501,21 +4018,25 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"]
          + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"]
-         + swa["launches"]["paged_decode_ring"], **decode_row},
+         + swa["launches"]["paged_decode_ring"] + dlaunch["paged_decode"],
+         **decode_row},
         *bwd_kernels,
         {"name": "paged_decode_int8", "route": "cuda",
          "design": "int8 pages, scale rows by bulk copy, exact "
                    "byte-permute conversion; " + DECODE_DESIGN,
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
-         "launches": qlaunch["paged_decode_int8"], **int8_row},
+         "launches": qlaunch["paged_decode_int8"]
+         + dlaunch["paged_decode_int8"], **int8_row},
         {"name": "page_append", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": run["launches"]["page_append"]
          + qlaunch["page_append"] + ragged["launches"]["page_append"]
-         + swa["launches"]["page_append"],
-         **append_rows[("int8", 128)]},
+         + swa["launches"]["page_append"] + dlaunch["page_append"],
+         **append_rows[("int8", 128)],
+         "max_abs_err": max(append_rows[("int8", 128)]["max_abs_err"],
+                            dims["errs"]["page_append"])},
         {"name": "quant_matmul", "route": "cuda",
          "design": "bf16 x: mma.sync m16n8k16 on the tensor cores with the "
                    "weight as the 16-row operand (out^T = w^T x^T), payload "
@@ -3576,7 +4097,9 @@ def main() -> int:
                        "tiny_flash_attention_tpu/ops/flash_tri.py:658",
            "launches": quant_flash["launches"][fmt],
            **{k: v for k, v in quant_flash["rows"][fmt].items()
-              if k != "b1_ms"}}
+              if k != "b1_ms"},
+           "max_abs_err": max(quant_flash["rows"][fmt]["max_abs_err"],
+                              dims["errs"][f"flash_fwd_quant_{fmt}"])}
           for fmt in ("int8", "fp8")),
         *({"name": f"flash_fwd_quant_{fmt}_f32q", "route": "cuda",
            "design": "f32 q: " + f32_design + "; each payload tile loaded "
@@ -3605,12 +4128,12 @@ if __name__ == "__main__":
             sys.exit(1)
         bwd_spread(gate=False)
         sys.exit(0)
-    if sys.argv[1:] == ["--f32-append"]:
-        # only B1's f32 instance and the append, with the package found on
-        # sys.path (so that one call can time two trees' kernels)
+    if sys.argv[1:] == ["--rows"]:
+        # only the head_dim-128 rows this tree must keep, with the package
+        # found on sys.path (so that one call can time two trees' kernels)
         if not torch.cuda.is_available():
             sys.exit(1)
-        sys.exit(f32_append_rows(SEED))
+        sys.exit(main_path_rows(SEED))
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,
         # 1 x 8192, the window) and the spread gate, with the package found

@@ -30,7 +30,14 @@ ring included. Last, B1's f32 instance over its kv runs: bit-identical
 calls under every mask, runs of 1 to 16 tiles against the plain version
 (segment_starts changing no bit), f32 q over int8 and e4m3 payloads at
 the edges of its tiles; and 1,000 appends, each right after a kernel that
-writes its rows, bit for bit against the plain version.
+writes its rows, bit for bit against the plain version. Last, the head dims
+and groups no instance compiles (ops/dims.py): B1 at head_dim 72/80/96 and
+groups 1/3/7 under each mask, its quantized instances, the backward and
+autograd, FA1 at 80/96, the fused decode at 80/96 and groups 3/5/7/12/16
+over bf16, f32 and int8 pages (the ring mode; int8 scale rows split over two
+groups at page size 160), the separate decode, and the append bit for bit;
+and the shapes that stay out raise (head_dim 256; a decode or append at
+head_dim 72; page size 48).
 """
 
 import pytest
@@ -166,22 +173,24 @@ def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
+    # head_dim above 128 (the kernels pad up to 128 and no further)
     with pytest.raises(NotImplementedError):
-        flash_attention(_randn((1, 2, 8, 96), torch.bfloat16, gen),
-                        _randn((1, 2, 8, 96), torch.bfloat16, gen),
-                        _randn((1, 2, 8, 96), torch.bfloat16, gen))
-    q96 = _randn((1, 2, 8, 96), torch.bfloat16, gen)
+        flash_attention(_randn((1, 2, 8, 256), torch.bfloat16, gen),
+                        _randn((1, 2, 8, 256), torch.bfloat16, gen),
+                        _randn((1, 2, 8, 256), torch.bfloat16, gen))
+    q256 = _randn((1, 2, 8, 256), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
-        flash_attention_bwd(q96, q96, q96, q96,
-                            torch.zeros((1, 2, 8), device="cuda"), q96,
+        flash_attention_bwd(q256, q256, q256, q256,
+                            torch.zeros((1, 2, 8), device="cuda"), q256,
                             causal=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention_v1(q256, q256, q256)
     with pytest.raises(NotImplementedError):
         flash_attention_bwd(q, q.float(), q.float(), q,
                             torch.zeros((1, 2, 64), device="cuda"), q,
                             causal=True)
     # int8 K/V without their scales, the jagged mode over int8, one
-    # quantized call over two payload formats, a head_dim the quantized
-    # instances do not take
+    # quantized call over two payload formats, a head_dim above 128
     q8 = q.to(torch.int8)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q8, q8)
@@ -190,9 +199,31 @@ def test_not_ported_raises_on_the_card(gen):
     k8 = Q.quantize_int8(q)
     with pytest.raises(NotImplementedError):
         flash_attention_quantized(q, k8, Q.quantize_fp8(q))
-    k96 = Q.quantize_int8(q96)
+    k256 = Q.quantize_int8(q256)
     with pytest.raises(NotImplementedError):
-        flash_attention_quantized(q96, k96, k96)
+        flash_attention_quantized(q256, k256, k256)
+    # the decodes and the append read pages in place: head_dim 72 has no
+    # instance; nor has a page size that is neither 16 nor a multiple of 32
+    q72 = _randn((2, 6, 72), torch.bfloat16, gen)
+    pages72 = torch.zeros((2, 8, 32, 72), dtype=torch.bfloat16,
+                          device="cuda")
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError):
+        fused_paged_decode_attention(q72, pages72, lengths, table,
+                                     page_size=16)
+    with pytest.raises(NotImplementedError):
+        paged_decode_attention(q72, pages72, pages72, lengths, table)
+    rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError):
+        fused_page_append(pages72, q72[:, :2], q72[:, :2], rows2, rows2,
+                          page_size=16)
+    pages48 = torch.zeros((2, 8, 96, 128), dtype=torch.bfloat16,
+                          device="cuda")
+    with pytest.raises(NotImplementedError):
+        fused_paged_decode_attention(_randn((2, 6, 128), torch.bfloat16,
+                                            gen), pages48, lengths, table,
+                                     page_size=48)
 
 
 def _segment_ids(b, n, bounds, gen):
@@ -535,7 +566,11 @@ def test_int8_decode_kernel_matches_plain(gen, dtype, ps, d, group):
 @pytest.mark.parametrize("src,fmt,ps,d", [
     (torch.bfloat16, "bf16", 128, 128), (torch.float32, "bf16", 16, 64),
     (torch.bfloat16, "int8", 64, 128), (torch.bfloat16, "int8", 128, 128),
-    (torch.float32, "int8", 256, 128), (torch.bfloat16, "int8", 128, 64)])
+    (torch.float32, "int8", 256, 128), (torch.bfloat16, "int8", 128, 64),
+    # head_dim 80 and 96 (columns lane + 32 e), int8 scales in two groups
+    (torch.bfloat16, "bf16", 128, 96), (torch.float32, "bf16", 16, 80),
+    (torch.bfloat16, "int8", 64, 96), (torch.float32, "int8", 96, 96),
+    (torch.bfloat16, "int8", 160, 80), (torch.bfloat16, "int8", 64, 80)])
 def test_append_kernel_is_bit_exact(gen, src, fmt, ps, d):
     """The append kernel and its plain version run the same IEEE ops, so
     the pages agree bit for bit, an all-zero row (scale 1) included."""
@@ -638,6 +673,11 @@ def test_quantized_matmul_routes_by_rows(gen):
     (1, 2, 1000, 130, 64, True, torch.float32),       # 13 tiles see nothing
     (2, 2, 1024, 1024, 128, True, torch.float32),     # 8 blocks a head
     (1, 3, 320, 320, 64, True, torch.float32),        # an odd tile count
+    # head dims padded to 128
+    (1, 3, 300, 260, 80, True, torch.bfloat16),
+    (1, 3, 300, 260, 96, True, torch.bfloat16),
+    (1, 3, 300, 260, 80, True, torch.float32),
+    (1, 3, 300, 260, 96, False, torch.float32),
 ])
 def test_v1_kernel_matches_plain(gen, b, h, q_len, kv_len, d, causal, dtype):
     """The FA1 kernel against its plain version at the dtype gate and, in
@@ -707,7 +747,10 @@ def test_v1_f32_kernel_runs_are_bit_identical(gen):
     ("f32", 2, 128, 16), ("f32", 4, 64, 128),
     ("int8 bf16", 1, 64, 128), ("int8 bf16", 4, 128, 128),
     ("int8 bf16", 8, 128, 256), ("int8 f32", 2, 64, 128),
-    ("int8 f32", 4, 128, 256)])
+    ("int8 f32", 4, 128, 256),
+    # head_dim 80 and 96, groups padded to 4 and 8 and two row blocks
+    ("bf16", 3, 96, 128), ("int8 bf16", 3, 96, 128), ("bf16", 16, 80, 128),
+    ("f32", 7, 80, 128)])
 def test_separate_decode_kernel_matches_plain(gen, fmt, group, d, ps):
     """Separate K/V page arrays (int8 pages with f32 scale pages, at page
     sizes that are multiples of 128 as JAX requires), lengths 0, 1, a page
@@ -1484,3 +1527,160 @@ def test_append_reads_what_the_kernel_before_it_wrote(gen, fmt, src):
     torch.cuda.synchronize()
     assert fused_page_append.launches == before + steps
     assert torch.equal(pages.view(torch.uint8), want.view(torch.uint8))
+
+
+# --- head dims and groups that no instance compiles --------------------------
+# The flash kernels pad head_dim to 64 or 128 with zero columns; the decodes
+# read rows of 80 and 96 in place and pad a kv head's q rows to 1, 2, 4, 8
+# or row blocks of 8; the append writes rows of 80 and 96 (ops/dims.py).
+
+
+def _ids(b, n, gen):
+    return _segment_ids(b, n, (37, 100), gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("d,group,mask", [
+    (72, 1, "causal"), (80, 3, "window"), (96, 7, "ids"), (96, 3, "causal"),
+    (80, 7, "full"), (72, 3, "ids"), (96, 1, "window")])
+def test_dims_flash_kernel_matches_plain(gen, dtype, d, group, mask):
+    """B1 at head dims it pads (72: no multiple of 16) and groups 1, 3, 7,
+    against the plain version at the true head_dim and its scale, at the
+    dtype gate and (bf16) at the q fold; out comes back at the true
+    head_dim."""
+    b, hkv, n = 2, 2, 300
+    q = _randn((b, hkv * group, n, d), dtype, gen)
+    k = _randn((b, hkv, n, d), dtype, gen)
+    v = _randn((b, hkv, n, d), dtype, gen)
+    kw = {"causal": mask != "full"}
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(b, n, gen)
+        kw["segment_ids"] = (seg, seg)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, sm_scale=sc, return_lse=True, **kw), q, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_dims_quantized_kernel_matches_plain(gen, dtype, fmt):
+    """The quantized forward at head_dim 96, group 3: payloads padded with
+    code 0, scales unchanged."""
+    q = _randn((1, 6, 130, 96), dtype, gen)
+    kv = _randn((1, 2, 300, 96), dtype, gen)
+    quant = Q.quantize_int8 if fmt == "int8" else Q.quantize_fp8
+    kq, vq = quant(kv), quant(kv * 0.5)
+    out, lse = flash_attention_quantized(q, kq, vq, causal=True,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_quantized_plain(
+        q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+        sm_scale=96 ** -0.5, return_lse=True)
+    assert out.shape == q.shape
+    assert _err(out, ref) <= tolerance_for(dtype)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("d,group,window", [(96, 3, None), (80, 7, 50),
+                                            (72, 1, None)])
+def test_dims_bwd_matches_plain(gen, dtype, d, group, window):
+    """The backward at padded head dims, against its plain version at the
+    true head_dim; gradients come back at the true head_dim, through
+    flash_attention_bwd and through autograd."""
+    b, hkv, n = 1, 2, 300
+    q = _randn((b, hkv * group, n, d), dtype, gen)
+    k = _randn((b, hkv, n, d), dtype, gen)
+    v = _randn((b, hkv, n, d), dtype, gen)
+    do = _randn((b, hkv * group, n, d), dtype, gen)
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                              window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     sm_scale=d ** -0.5, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _rel_err(g, w) <= BWD_GATE[dtype], name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=True, window=window).backward(do)
+    for name, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert t.grad.shape == w.shape
+        assert _rel_err(t.grad, w) <= BWD_GATE[dtype], name
+
+
+DIMS_DECODE = [(fmt, d, group, ps)
+               for fmt in ("bf16", "f32", "int8 bf16", "int8 f32")
+               for d, group, ps in ((80, 3, 64), (96, 5, 32), (80, 7, 16),
+                                    (96, 12, 64), (80, 16, 32))]
+
+
+@pytest.mark.parametrize("fmt,d,group,ps", DIMS_DECODE)
+def test_dims_decode_kernel_matches_plain(gen, fmt, d, group, ps):
+    """The fused decode at head_dim 80 and 96 and groups 3, 5, 7, 12, 16
+    over pages of q's dtype and int8 pages, lengths 0, 1, a page edge, the
+    full table and past it, at the kernel's splits and unsplit, and the
+    ring mode over a wrapped table."""
+    B, hkv, P = 5, 2, 12
+    num_pages = B * P + 3
+    dtype = torch.float32 if fmt.endswith("f32") else torch.bfloat16
+    q = _randn((B, hkv * group, d), dtype, gen)
+    pages = pack_paged_cache(_randn((hkv, num_pages, ps, d), dtype, gen),
+                             _randn((hkv, num_pages, ps, d), dtype, gen),
+                             "int8" if fmt.startswith("int8") else "bf16")
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1, ps, P * ps, 10**6], dtype=torch.int32,
+                           device="cuda")
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and lse.shape == q.shape[:2]
+    for splits in ("kernel", None):
+        ref, ref_lse = fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            splits=splits)
+        assert _err(out, ref) <= tolerance_for(dtype)
+        assert _err(lse, ref_lse) <= tolerance_for(dtype)
+    assert bool((out[0] == 0).all())
+    ring = torch.tensor([1, 40, P * ps + 9, 3 * P * ps + 30, 300],
+                        dtype=torch.int32, device="cuda")
+    out, lse = fused_paged_decode_attention(q, pages, ring, table,
+                                            page_size=ps, window=100)
+    torch.cuda.synchronize()
+    ref, ref_lse = fused_paged_decode_plain(q, pages, ring, table,
+                                            page_size=ps, sm_scale=d ** -0.5,
+                                            window=100)
+    assert _err(out, ref) <= tolerance_for(dtype)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_dims_int8_decode_scale_rows_across_groups(gen, dtype):
+    """int8 pages of 160 tokens at head_dim 80: a page's scales fill two
+    groups of 80 columns, and the 32-token chunk at tokens 64-95 reads its
+    scale bytes from both."""
+    B, hkv, ps, P, d = 3, 2, 160, 3, 80
+    num_pages = B * P + 2
+    q = _randn((B, hkv * 3, d), dtype, gen)
+    pages = pack_paged_cache(_randn((hkv, num_pages, ps, d), dtype, gen),
+                             _randn((hkv, num_pages, ps, d), dtype, gen),
+                             "int8")
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([96, 250, P * ps], dtype=torch.int32,
+                           device="cuda")
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps)
+    torch.cuda.synchronize()
+    ref, ref_lse = fused_paged_decode_plain(q, pages, lengths, table,
+                                            page_size=ps, sm_scale=d ** -0.5)
+    assert _err(out, ref) <= tolerance_for(dtype)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype)

@@ -33,6 +33,8 @@ NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# seconds each source's nvcc took in this process's builds
+build_seconds: dict[str, float] = {}
 
 
 def _flags() -> list[str]:
@@ -65,8 +67,8 @@ def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
 def build(names: list[str] | None = None) -> float:
     """Compiles the named sources (default: all) not built yet, in parallel.
 
-    Returns the seconds spent. Raises if any nvcc fails; its output is in
-    `build_log(name)`.
+    Returns the seconds spent (each source's nvcc in `build_seconds`).
+    Raises if any nvcc fails; its output is in `build_log(name)`.
     """
     names = sources() if names is None else names
     t0 = time.perf_counter()
@@ -85,17 +87,25 @@ def build(names: list[str] | None = None) -> float:
                     [nvcc, *_flags(), "-o", str(tmp), str(src)],
                     stdout=log, stderr=subprocess.STDOUT)))
         failed = []
-        for name, so, tmp, proc in procs:
-            try:
-                rc = proc.wait(timeout=NVCC_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                rc = -1
-            if rc == 0:
-                os.replace(tmp, so)
-            else:
-                failed.append(name)
+        pending = list(procs)
+        while pending:
+            time.sleep(0.05)
+            waited = time.perf_counter() - t0
+            for item in list(pending):
+                name, so, tmp, proc = item
+                rc = proc.poll()
+                if rc is None and waited > NVCC_TIMEOUT_S:
+                    proc.kill()
+                    proc.wait()
+                    rc = -1
+                if rc is None:
+                    continue
+                pending.remove(item)
+                build_seconds[name] = waited
+                if rc == 0:
+                    os.replace(tmp, so)
+                else:
+                    failed.append(name)
         if failed:
             raise RuntimeError(
                 f"nvcc failed for {failed}; logs: "

@@ -17,8 +17,10 @@
 //
 // What bounds it: nothing on the card; it moves 2 * B * hkv rows of D
 // values. One warp per (kv head, sequence) converts and stores its two
-// rows (each lane E = D / 32 contiguous values; the amax is a warp
-// reduction), so the whole append of a layer is one launch where the
+// rows (each lane D / 32 contiguous values at head_dim 64 and 128, else
+// the ceil(D / 32) values lane, lane + 32, ... below D: head_dim 80 and
+// 96; the amax is a warp reduction), so the whole append of a layer is one
+// launch where the
 // scatter decomposition takes 2 payload scatters, 8 single-byte scale
 // scatters and the quantize ops. A target outside the pages array is
 // skipped: the engine never makes one.
@@ -55,20 +57,25 @@ __global__ void __launch_bounds__(32)
                        const int* __restrict__ page_ids,
                        const int* __restrict__ rows, P* __restrict__ pages,
                        int hkv, int num_pages, int page_rows, int page_size) {
-  constexpr int E = D / 32;
+  constexpr bool STRIDED = D % 64 != 0;
+  constexpr int E = (D + 31) / 32;
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  // the lane's value e: at off(e) past its first column, live below D (at
+  // head_dim 64 and 128 every value, known at compile time)
+  auto off = [&](int e) { return STRIDED ? 32 * e : e; };
+  auto live = [&](int e) { return !STRIDED || lane + 32 * e < D; };
   const int pid = page_ids[b], row = rows[b];
   if (pid < 0 || pid >= num_pages || row < 0 || row >= page_size) return;
   P* page = pages + ((size_t)h * num_pages + pid) * page_rows * D;
   const int sr = (page_rows - 2 * page_size) / 2;  // scale rows per side
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
-    const S* src = (side ? v_new : k_new) + ((size_t)b * hkv + h) * D +
-                   lane * E;
+    const int first = STRIDED ? lane : lane * E;
+    const S* src = (side ? v_new : k_new) + ((size_t)b * hkv + h) * D + first;
     float x[E];
 #pragma unroll
-    for (int e = 0; e < E; ++e) x[e] = to_f(src[e]);
-    P* dst = page + (size_t)(side * page_size + row) * D + lane * E;
+    for (int e = 0; e < E; ++e) x[e] = live(e) ? to_f(src[off(e)]) : 0.f;
+    P* dst = page + (size_t)(side * page_size + row) * D + first;
     if constexpr (sizeof(P) == 1) {
       float amax = 0.f;
 #pragma unroll
@@ -80,7 +87,8 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const float r = rintf(__fdiv_rn(x[e], scale));
-        dst[e] = (P)(int)fminf(fmaxf(r, -kInt8Max), kInt8Max);
+        if (live(e))
+          dst[off(e)] = (P)(int)fminf(fmaxf(r, -kInt8Max), kInt8Max);
       }
       if (lane < 4) {
         const uint32_t bits = __float_as_uint(scale);
@@ -89,7 +97,8 @@ __global__ void __launch_bounds__(32)
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e) dst[e] = from_f<P>(x[e]);
+      for (int e = 0; e < E; ++e)
+        if (live(e)) dst[off(e)] = from_f<P>(x[e]);
     }
   }
 }
@@ -109,6 +118,10 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
     TFA_APPEND_LAUNCH(128);
   } else if (head_dim == 64) {
     TFA_APPEND_LAUNCH(64);
+  } else if (head_dim == 96) {
+    TFA_APPEND_LAUNCH(96);
+  } else if (head_dim == 80) {
+    TFA_APPEND_LAUNCH(80);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -120,8 +133,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
 
 // Returns a cudaError_t: 0 when the kernel was launched. src_dtype (k_new,
 // v_new): 0 bf16, 1 f32. page_dtype: 0 bf16, 1 f32, 2 int8 (then page_rows
-// = 2 * page_size + 2 * sr). head_dim: 64 or 128. The caller has checked
-// shapes, contiguity and alignment.
+// = 2 * page_size + 2 * sr). head_dim: 64, 80, 96 or 128. The caller has
+// checked shapes, contiguity and alignment.
 extern "C" int tfa_page_append(const void* k_new, const void* v_new,
                                const void* page_ids, const void* rows,
                                void* pages, int batch, int hkv,

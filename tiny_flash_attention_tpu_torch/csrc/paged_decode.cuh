@@ -31,17 +31,31 @@
 //     16 at page_size 16), and an int8 page adds its scale rows, 32 bytes
 //     of each of the 4 byte-rows per side (fused pages) or 128 bytes of f32
 //     (separate), read once per chunk and not as single bytes per token.
-//   - Scores: 8 lanes score one token, 4 tokens a step (each lane 16-byte
-//     pieces of the row, so a quarter-warp reads a whole row and no read
-//     conflicts), reduced by 3 shuffles; a lane keeps its slice of the
-//     group's q in registers (in shared memory, in the lanes' order, where
-//     that would take more than 64 registers). int8 payloads convert
+//   - Scores: 8 lanes score one token, 4 tokens a step, each lane D/8
+//     elements of the row in pieces of up to 16 bytes (piece p of lane i at
+//     byte (i + 8 p) * piece, so a quarter-warp reads whole runs of the row
+//     and no read conflicts), reduced by 3 shuffles; a lane keeps its slice
+//     of the group's q in registers (in shared memory, in the lanes' order,
+//     where that would take more than 64 registers). The piece is the
+//     largest of 16, 8, 4 and 2 bytes that divides a lane's D/8 elements:
+//     16 at head_dim 64 and 128 (8 for int8 at 64); at 80 and 96, whose
+//     rows split into eight equal slices of 20 / 24 bytes (bf16) or 10 / 12
+//     (int8), 4- and 8-byte pieces (2 and 4 for int8), so no lane idles and
+//     the FMAs a lane does stay D/8 x G a token. int8 payloads convert
 //     exactly by byte permute into an f32 2^23 + b + 128 and a subtract (no
 //     int-to-float conversion pipe).
 //   - Softmax per chunk (the warp's online softmax); p goes to shared
-//     memory, and each lane accumulates a D/32 slice of P V over the
-//     chunk's rows, reading p as a broadcast.
+//     memory, and each lane accumulates its columns of P V over the
+//     chunk's rows, reading p as a broadcast: D/32 contiguous columns at
+//     head_dim 64 and 128 (whole 4-byte words, read at once), else the
+//     ceil(D/32) columns lane, lane + 32, lane + 64 (at 80 the third only
+//     in lanes 0-15), one element a read: 3 contiguous bf16 or int8 values
+//     at 96 would straddle words.
 //   - A warp's first chunks are in flight before q is staged.
+//   - GQA groups: G q rows a kv head in one block, G in {1, 2, 4, 8}; the
+//     caller pads a kv head's rows to the next G with zero rows (sliced
+//     away), and above 8 covers them with `qblocks` row blocks of 8, each
+//     its own grid row over the same pages (the second reads them from L2).
 //   - The merge: the warps' (m, l, acc) combine in warp order into the
 //     block's partial, which goes to a workspace (f32, cached per device
 //     and shape by the caller); the block that arrives last at the
@@ -69,7 +83,8 @@
 // :409-410, :490-497); the splits then cover the pages of the window,
 // counted from the page of its first token. The caller keeps window <= P *
 // ps. page_indices may be a column slice of a wider table: its row stride
-// is an argument. page_size is 16 or a multiple of 32.
+// is an argument. page_size is 16 or a multiple of 32; head_dim 64, 80, 96
+// or 128 (every row a multiple of 16 bytes, so bulk copies move it).
 
 #pragma once
 
@@ -106,16 +121,16 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// The page elements of a 16- (or 8-) byte piece, exactly as f32: int8 by
-// byte permute into 2^23 + b + 128 and a subtract.
+// The N page elements of a piece (16 bytes or fewer), exactly as f32: int8
+// by byte permute into 2^23 + b + 128 and a subtract.
 template <typename P, int N>
 __device__ __forceinline__ void piece_to_f(const uint32_t* w, float* f) {
   if constexpr (sizeof(P) == 1) {
 #pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
+    for (int i = 0; i < (N + 3) / 4; ++i) {
       const uint32_t u = w[i] ^ 0x80808080u;
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
+      for (int b = 0; b < 4 && 4 * i + b < N; ++b)
         f[4 * i + b] =
             __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) -
             8388736.f;
@@ -130,6 +145,45 @@ __device__ __forceinline__ void piece_to_f(const uint32_t* w, float* f) {
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = __uint_as_float(w[i]);
   }
+}
+
+// The 32-bit words of a PB-byte piece of shared memory (PB 16, 8, 4 or 2;
+// a 2-byte piece in the low half of w[0]).
+template <int PB>
+__device__ __forceinline__ void load_piece(const unsigned char* p,
+                                           uint32_t* w) {
+  if constexpr (PB == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    w[0] = raw.x, w[1] = raw.y, w[2] = raw.z, w[3] = raw.w;
+  } else if constexpr (PB == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    w[0] = raw.x, w[1] = raw.y;
+  } else if constexpr (PB == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+// QV consecutive floats of shared memory (QV 4 or 2)
+template <int QV>
+__device__ __forceinline__ void load_q(const float* p, float* v) {
+  if constexpr (QV == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+// One page element as f32 (exact for int8)
+template <typename P>
+__device__ __forceinline__ float elem_to_f(P x) {
+  if constexpr (sizeof(P) == 1)
+    return (float)(int)x;
+  else
+    return to_f(x);
 }
 
 // Fused pages (paged_fused.py:86-103): one (hkv, num_pages, page_rows, D)
@@ -150,17 +204,24 @@ struct FusedPages {
     return page(h, id) + (size_t)(page_size + r) * D;
   }
   // the scale bytes of rows [r, r + n) into sc (K: [4][32] bytes, V: the
-  // next 128), at token offset o of the chunk
+  // next 128), at token offset o of the chunk; a run that crosses a group
+  // of D tokens (head_dim 80 at page_size 160: tokens 64-95) is two copies,
+  // each a multiple of 16 bytes (16 divides D and the chunk's offsets)
   __device__ void load_scales(int h, int id, int r, int n, int o,
                               uint8_t* sc, uint64_t* bar) const {
     const int sr = (page_rows - 2 * page_size) / 2;
     const uint8_t* base = reinterpret_cast<const uint8_t*>(page(h, id));
-    const size_t row = 2 * page_size + 4 * (r / D);
+    for (int a = 0; a < n;) {
+      const int t = r + a, take = min(n - a, D - t % D);
+      const size_t row = 2 * page_size + 4 * (t / D);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bulk_load(sc + 32 * j + o, base + (row + j) * D + r % D, n, bar);
-      bulk_load(sc + 128 + 32 * j + o, base + (row + sr + j) * D + r % D, n,
-                bar);
+      for (int j = 0; j < 4; ++j) {
+        bulk_load(sc + 32 * j + o + a, base + (row + j) * D + t % D, take,
+                  bar);
+        bulk_load(sc + 128 + 32 * j + o + a,
+                  base + (row + sr + j) * D + t % D, take, bar);
+      }
+      a += take;
     }
   }
   // token t's scale from the landed bytes (sc: K's, or sc + 128: V's)
@@ -230,19 +291,23 @@ __global__ void __launch_bounds__(WARPS * 32)
                         const int* __restrict__ page_indices, int pi_stride,
                         int pages_per_seq, int pages_per_split,
                         T* __restrict__ out, float* __restrict__ lse,
-                        float* ws, int* arrivals, int hkv, int window,
-                        float scale_log2) {
+                        float* ws, int* arrivals, int hkv, int qblocks,
+                        int window, float scale_log2) {
   constexpr bool QUANT = sizeof(P) == 1;
   constexpr int STAGES = decode_stages<P>();
   constexpr int SB = decode_stage_bytes<P, D>();
-  constexpr int E = D / 32;                  // PV: output elements a lane
-  constexpr int LB = D * (int)sizeof(P) / 8; // scores: row bytes a lane
-  constexpr int PB = LB >= 16 ? 16 : LB;     // bytes a piece
+  constexpr bool STRIDED = D % 64 != 0;      // PV columns lane + 32 e
+  constexpr int E = (D + 31) / 32;           // PV: output elements a lane
+  constexpr int LE = D / 8;                  // elements a lane scores
+  constexpr int LB = LE * (int)sizeof(P);    // scores: row bytes a lane
+  constexpr int PB = LB % 16 == 0 ? 16       // bytes a piece
+                     : LB % 8 == 0 ? 8
+                     : LB % 4 == 0 ? 4 : 2;
   constexpr int NP = LB / PB;                // pieces a lane
   constexpr int EP = PB / (int)sizeof(P);    // elements a piece
-  constexpr int LE = D / 8;                  // elements a lane scores
+  constexpr int QV = EP % 4 == 0 ? 4 : 2;    // q floats a shared read
   constexpr bool QREG = G * LE <= 64;        // q in registers
-  static_assert(D % 32 == 0 && PB % 4 == 0 && NP * EP == LE && LE % 4 == 0,
+  static_assert(D % 16 == 0 && LB % PB == 0 && NP * EP == LE && EP % QV == 0,
                 "head_dim");
   static_assert(WARPS * G * (D + 2) * 4 <= WARPS * STAGES * SB,
                 "the warps' merge fits in the rings");
@@ -252,7 +317,10 @@ __global__ void __launch_bounds__(WARPS * 32)
   float* pw = qp + G * D + (threadIdx.x / 32) * CHUNK * G;  // [CHUNK][G]
   uint64_t* bars = reinterpret_cast<uint64_t*>(qp + G * D + WARPS * CHUNK * G);
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // grid row hv: q rows [hv * G, hv * G + G) of the (padded) q heads, over
+  // kv head h's pages (qblocks grid rows a kv head); hkv counts grid rows
+  const int split = blockIdx.x, hv = blockIdx.y, b = blockIdx.z;
+  const int h = qblocks == 1 ? hv : hv / qblocks;
   const int splits = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hq = hkv * G;
@@ -311,27 +379,24 @@ __global__ void __launch_bounds__(WARPS * 32)
     for (int c = 0; c < min(STAGES, mine); ++c) issue(c);
 
   // q folded by scale_log2 in its dtype, in the lanes' order: element l of
-  // lane i's scoring slice (piece l / EP at 16-byte index i + 8 * piece) at
-  // qp[((g * LE / 4 + l / 4) * 8 + i) * 4 + l % 4]
+  // lane i's scoring slice (piece l / EP at piece index i + 8 * piece) at
+  // qp[((g * LE / QV + l / QV) * 8 + i) * QV + l % QV]
   const float qscale = round_to<T>(scale_log2);
   for (int x = tid; x < G * D; x += WARPS * 32) {
     const int g = x / D, d = x % D;
     const int pc = d / EP, i = pc % 8, l = pc / 8 * EP + d % EP;
-    qp[((g * (LE / 4) + l / 4) * 8 + i) * 4 + l % 4] =
-        round_to<T>(to_f(q[((size_t)b * hq + h * G) * D + x]) * qscale);
+    qp[((g * (LE / QV) + l / QV) * 8 + i) * QV + l % QV] =
+        round_to<T>(to_f(q[((size_t)b * hq + hv * G) * D + x]) * qscale);
   }
   __syncthreads();
-  const float4* qp4 = reinterpret_cast<const float4*>(qp);
-  float qr[QREG ? G : 1][QREG ? LE : 4];
+  float qr[QREG ? G : 1][QREG ? LE : QV];
   if constexpr (QREG) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int l4 = 0; l4 < LE / 4; ++l4) {
-        const float4 v = qp4[(g * (LE / 4) + l4) * 8 + lane % 8];
-        qr[g][4 * l4] = v.x, qr[g][4 * l4 + 1] = v.y;
-        qr[g][4 * l4 + 2] = v.z, qr[g][4 * l4 + 3] = v.w;
-      }
+      for (int lv = 0; lv < LE / QV; ++lv)
+        load_q<QV>(qp + ((g * (LE / QV) + lv) * 8 + lane % 8) * QV,
+                   &qr[g][QV * lv]);
   }
 
   float m_run[G], l_run[G], acc[G][E];
@@ -343,6 +408,10 @@ __global__ void __launch_bounds__(WARPS * 32)
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
   const int j = lane / 8, i = lane % 8;  // scoring: token 4 st + j, slice i
+  // PV: lane's output column e, live below D (at head_dim 64 and 128 every
+  // column, known at compile time)
+  auto col = [&](int e) { return STRIDED ? lane + 32 * e : lane * E + e; };
+  auto live = [&](int e) { return !STRIDED || lane + 32 * e < D; };
 
   for (int c = 0; c < mine; ++c) {
     const int c0 = c_first + (warp + WARPS * c) * CHUNK;
@@ -370,32 +439,25 @@ __global__ void __launch_bounds__(WARPS * 32)
       for (int g = 0; g < G; ++g) part[g] = 0.f;
 #pragma unroll
       for (int pc = 0; pc < NP; ++pc) {
-        uint32_t w[PB / 4];
-        if constexpr (PB == 16) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(krow + (i + 8 * pc) * 16);
-          w[0] = raw.x, w[1] = raw.y, w[2] = raw.z, w[3] = raw.w;
-        } else {
-          const uint2 raw = *reinterpret_cast<const uint2*>(krow + i * 8);
-          w[0] = raw.x, w[1] = raw.y;
-        }
+        uint32_t w[PB >= 4 ? PB / 4 : 1];
+        load_piece<PB>(krow + (i + 8 * pc) * PB, w);
         float kf[EP];
         piece_to_f<P, EP>(w, kf);
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int e4 = 0; e4 < EP / 4; ++e4) {
-            const int l = pc * EP + 4 * e4;
-            float4 qv;
-            if constexpr (QREG)
-              qv = make_float4(qr[g][l], qr[g][l + 1], qr[g][l + 2],
-                               qr[g][l + 3]);
-            else
-              qv = qp4[(g * (LE / 4) + l / 4) * 8 + i];
-            part[g] = fmaf(qv.x, kf[4 * e4], part[g]);
-            part[g] = fmaf(qv.y, kf[4 * e4 + 1], part[g]);
-            part[g] = fmaf(qv.z, kf[4 * e4 + 2], part[g]);
-            part[g] = fmaf(qv.w, kf[4 * e4 + 3], part[g]);
+          for (int ev = 0; ev < EP / QV; ++ev) {
+            const int l = pc * EP + QV * ev;
+            float qv[QV];
+            if constexpr (QREG) {
+#pragma unroll
+              for (int u = 0; u < QV; ++u) qv[u] = qr[g][l + u];
+            } else {
+              load_q<QV>(qp + ((g * (LE / QV) + l / QV) * 8 + i) * QV, qv);
+            }
+#pragma unroll
+            for (int u = 0; u < QV; ++u)
+              part[g] = fmaf(qv[u], kf[QV * ev + u], part[g]);
           }
       }
       const float ksc = QUANT ? __shfl_sync(0xffffffffu, kscale, tt) : 1.f;
@@ -449,7 +511,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
     __syncwarp();
 
-    // P V: lane `lane` owns output columns [lane * E, lane * E + E)
+    // P V: lane `lane` owns output columns col(e), e < E
 #pragma unroll
     for (int tt = 0; tt < CHUNK; ++tt) {
       const int t = c0 + tt;
@@ -458,7 +520,11 @@ __global__ void __launch_bounds__(WARPS * 32)
       const unsigned char* vrow = reinterpret_cast<const unsigned char*>(
           vs + tt * D + lane * E);
       float vf[E];
-      if constexpr (E * sizeof(P) == 2) {  // int8 at head_dim 64
+      if constexpr (STRIDED) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          vf[e] = live(e) ? elem_to_f(vs[tt * D + col(e)]) : 0.f;
+      } else if constexpr (E * sizeof(P) == 2) {  // int8 at head_dim 64
         const uint32_t h16 = *reinterpret_cast<const uint16_t*>(vrow);
         w[0] = h16;
         float f4[4];
@@ -504,20 +570,20 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      red_acc[(warp * G + g) * D + lane * E + e] = acc[g][e];
+      if (live(e)) red_acc[(warp * G + g) * D + col(e)] = acc[g][e];
   }
   __syncthreads();
 
   // a partial that saw no token keeps m = -inf and weighs nothing
   auto write_out = [&](int g, int d, float m_f, float num, float den) {
     const float l_safe = (den == 0.f || den != den) ? 1.f : den;
-    const size_t row = (size_t)b * hq + h * G + g;
+    const size_t row = (size_t)b * hq + hv * G + g;
     out[row * D + d] = from_f<T>(num / l_safe);
     if (d == 0)
       lse[row] = (m_f == -INFINITY ? kMaskValue : m_f) * kLn2 + logf(l_safe);
   };
   float* mine_ws =
-      ws + (((size_t)b * hkv + h) * splits + split) * G * (D + 2);
+      ws + (((size_t)b * hkv + hv) * splits + split) * G * (D + 2);
   for (int x = tid; x < G * D; x += WARPS * 32) {
     const int g = x / D, d = x % D;
     float m_b = -INFINITY;
@@ -545,12 +611,12 @@ __global__ void __launch_bounds__(WARPS * 32)
   __shared__ int last;
   __threadfence();
   __syncthreads();
-  int* count = arrivals + (size_t)b * hkv + h;
+  int* count = arrivals + (size_t)b * hkv + hv;
   if (tid == 0) last = atomicAdd(count, 1) == splits - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* all = ws + ((size_t)b * hkv + h) * splits * G * (D + 2);
+  const float* all = ws + ((size_t)b * hkv + hv) * splits * G * (D + 2);
   for (int x = tid; x < G * D; x += WARPS * 32) {
     const int g = x / D, d = x % D;
     float m_f = -INFINITY;
@@ -571,18 +637,19 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (tid == 0) *count = 0;  // ready for the next call
 }
 
-// Launches the kernel for a group of 1, 2, 4 or 8 q heads per kv head over
-// `splits` splits of `pages_per_split` pages; ws holds batch * hkv * splits
-// * group * (D + 2) floats and arrivals batch * hkv zeroed ints (both
-// unused with one split).
+// Launches the kernel for a group of 1, 2, 4 or 8 q rows per grid row,
+// qblocks grid rows per kv head (q holds hkv * qblocks * group rows a
+// sequence), over `splits` splits of `pages_per_split` pages; ws holds
+// batch * hkv * qblocks * splits * group * (D + 2) floats and arrivals
+// batch * hkv * qblocks zeroed ints (both unused with one split).
 template <typename T, typename P, int D, bool RING, typename L>
 cudaError_t launch_group(int group, const void* q, const L& pages,
                          const void* lengths, const void* page_indices,
                          int pi_stride, int pages_per_seq, int splits,
                          int pages_per_split, void* out, void* lse, void* ws,
-                         void* arrivals, int batch, int hkv, int window,
-                         float scale_log2, cudaStream_t stream) {
-  const dim3 grid(splits, hkv, batch);
+                         void* arrivals, int batch, int hkv, int qblocks,
+                         int window, float scale_log2, cudaStream_t stream) {
+  const dim3 grid(splits, hkv * qblocks, batch);
 #define TFA_DECODE_LAUNCH(G)                                                 \
   {                                                                          \
     const auto kernel = paged_decode_kernel<T, P, D, G, RING, L>;           \
@@ -594,8 +661,8 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
         static_cast<const T*>(q), pages, static_cast<const int*>(lengths),  \
         static_cast<const int*>(page_indices), pi_stride, pages_per_seq,    \
         pages_per_split, static_cast<T*>(out), static_cast<float*>(lse),    \
-        static_cast<float*>(ws), static_cast<int*>(arrivals), hkv, window,  \
-        scale_log2);                                                         \
+        static_cast<float*>(ws), static_cast<int*>(arrivals),              \
+        hkv * qblocks, qblocks, window, scale_log2);                         \
   }
   switch (group) {
     case 1: TFA_DECODE_LAUNCH(1); break;

@@ -25,49 +25,53 @@ cudaError_t launch_separate(int group, const void* q, const void* k,
                             int pages_per_seq, int splits,
                             int pages_per_split, void* out, void* lse,
                             void* ws, void* arrivals, int batch, int hkv,
-                            int num_pages, int page_size, float scale_log2,
-                            cudaStream_t stream) {
+                            int qblocks, int num_pages, int page_size,
+                            float scale_log2, cudaStream_t stream) {
   const SeparatePages<P, D> layout{
       static_cast<const P*>(k), static_cast<const P*>(v),
       static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), num_pages, page_size};
   return launch_group<T, P, D, false>(
       group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
-      splits, pages_per_split, out, lse, ws, arrivals, batch, hkv, 0,
-      scale_log2, stream);
+      splits, pages_per_split, out, lse, ws, arrivals, batch, hkv, qblocks,
+      0, scale_log2, stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype (the scale pointers
-// are ignored), 1 int8 pages with f32 scales. head_dim: 64 or 128; group
-// (hq / hkv): 1, 2, 4 or 8; page_size 16 or a multiple of 32. splits,
-// pages_per_split, ws and arrivals as in tfa_paged_decode. The caller has
-// checked shapes, contiguity and 16-byte alignment.
+// are ignored), 1 int8 pages with f32 scales. head_dim: 64, 80, 96 or 128;
+// hq = hkv * qblocks * group, group 1, 2, 4 or 8; page_size 16 or a
+// multiple of 32. splits, pages_per_split, ws and arrivals as in
+// tfa_paged_decode. The caller has checked shapes, contiguity and 16-byte
+// alignment.
 extern "C" int tfa_paged_decode_separate(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* lengths, const void* page_indices,
     int pi_stride, int pages_per_seq, int splits, int pages_per_split,
     void* out, void* lse, void* ws, void* arrivals, int batch, int hq,
-    int hkv, int num_pages, int page_size, int head_dim, float scale_log2,
-    int dtype, int quantized, void* stream) {
-  if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || page_size <= 0 ||
-      (page_size != 16 && page_size % 32) || pages_per_seq <= 0 ||
+    int hkv, int qblocks, int num_pages, int page_size, int head_dim,
+    float scale_log2, int dtype, int quantized, void* stream) {
+  if (batch <= 0 || hkv <= 0 || qblocks <= 0 || hq % (hkv * qblocks) != 0 ||
+      page_size <= 0 || (page_size != 16 && page_size % 32) ||
+      pages_per_seq <= 0 ||
       splits < 1 || pages_per_split < 1 ||
       (splits > 1 && (ws == nullptr || arrivals == nullptr)) ||
       (quantized && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int group = hq / hkv;
+  const int group = hq / (hkv * qblocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFA_DECODE_ARGS                                                   \
   group, q, k, v, k_scales, v_scales, lengths, page_indices, pi_stride,  \
       pages_per_seq, splits, pages_per_split, out, lse, ws, arrivals,     \
-      batch, hkv, num_pages, page_size, scale_log2, s
+      batch, hkv, qblocks, num_pages, page_size, scale_log2, s
 #define TFA_DECODE_DISPATCH(T, P)                                         \
   if (head_dim == 128)                                                    \
     return (int)launch_separate<T, P, 128>(TFA_DECODE_ARGS);              \
   if (head_dim == 64) return (int)launch_separate<T, P, 64>(TFA_DECODE_ARGS); \
+  if (head_dim == 96) return (int)launch_separate<T, P, 96>(TFA_DECODE_ARGS); \
+  if (head_dim == 80) return (int)launch_separate<T, P, 80>(TFA_DECODE_ARGS); \
   return (int)cudaErrorInvalidValue
   if (dtype == 0 && !quantized) {
     TFA_DECODE_DISPATCH(__nv_bfloat16, __nv_bfloat16);

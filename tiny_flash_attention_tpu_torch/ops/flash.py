@@ -8,9 +8,13 @@ f32: the CUDA cores over 128-row q and 64-row kv tiles). A CPU tensor takes the 
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
-(head_dim other than 64 or 128). The f32 instance walks a work list
-(`fwd_f32_work`): each q tile's kv range cut into runs, one block each,
-merged in run order in the kernel (`f32_split_merge_plain` is that layout
+(head_dim above 128). The kernel compiles head_dim 64 and 128; any other
+head_dim up to 128 is padded with zero columns to the next of them and the
+output sliced back (ops/dims.py), as JAX pads to 128 lanes; the autograd
+Function pads once and saves the padded tensors, so the backward runs on
+them and returns gradients at the true head_dim. The f32 instance walks a
+work list (`fwd_f32_work`): each q tile's kv range cut into runs, one block
+each, merged in run order in the kernel (`f32_split_merge_plain` is that layout
 and order in plain PyTorch). Quantized K/V take the quantized instances
 of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the same wgmma/TMA kernel
 over 128-row tiles, its producer converting the payloads), through
@@ -46,6 +50,8 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_F32, TileConfig, fwd_smem_bytes)
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -53,7 +59,6 @@ LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
 # K/V payload formats of the quantized instances (csrc/flash_fwd_quant.cu)
 PAYLOAD_FORMATS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
@@ -355,6 +360,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float, masks: dict):
+        ctx.d = q.shape[-1]
+        if q.is_cuda:
+            # pad once to the kernels' head_dim; the backward runs on the
+            # saved padded tensors
+            dk = kernel_head_dim(ctx.d, "the CUDA forward kernel")
+            q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         window = masks.get("window")
         segment_ids = None
@@ -373,7 +384,7 @@ class _FlashAttention(torch.autograd.Function):
         ctx.window, ctx.segment_ids = window, segment_ids
         tiles = masks.get("tiles")
         ctx.segment_starts = None if tiles is None else tiles.starts
-        return out
+        return unpad_head_dim(out, ctx.d)
 
     @staticmethod
     def backward(ctx, do):
@@ -382,10 +393,12 @@ class _FlashAttention(torch.autograd.Function):
             flash_attention_bwd)
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, do, causal=ctx.causal, sm_scale=ctx.sm_scale,
+            q, k, v, out, lse, pad_head_dim(do, q.shape[-1]),
+            causal=ctx.causal, sm_scale=ctx.sm_scale,
             segment_ids=ctx.segment_ids, window=ctx.window,
             segment_starts=ctx.segment_starts)
-        return dq, dk, dv, None, None, None
+        return (*(unpad_head_dim(g, ctx.d) for g in (dq, dk, dv)), None,
+                None, None)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
@@ -556,7 +569,7 @@ def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
         cfg = fwd_config(dtype, quantized)
-        for d in _KERNEL_HEAD_DIMS:
+        for d in FLASH_HEAD_DIMS:
             want = fwd_smem_bytes(cfg, d, quantized)
             if smem(code, d) != want:
                 raise RuntimeError(
@@ -648,7 +661,9 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     window (causal, no seq_lengths) its sliding window. With k_scales and
     v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
-    run, every mask but the jagged mode included."""
+    run, every mask but the jagged mode included. A head_dim under 128
+    that the kernels do not compile runs padded (ops/dims.py) and out
+    comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     quantized = k_scales is not None or v_scales is not None
@@ -674,9 +689,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             f"the CUDA forward kernel takes bf16 or f32 q/k/v of one dtype "
             f"(int8 or e4m3 K/V with their scales), got {q.dtype}, "
             f"{k.dtype}, {v.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d}: the CUDA forward kernel "
-                                  f"takes {_KERNEL_HEAD_DIMS}")
+    dk = kernel_head_dim(d, "the CUDA forward kernel")
     if not (k.is_cuda and v.is_cuda and k.device == q.device
             and v.device == q.device):
         raise ValueError("q, k and v must be on one CUDA device")
@@ -684,6 +697,13 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         raise ValueError(f"shapes {q.shape}, {k.shape}, {v.shape}")
     if q_len == 0 or kv_len == 0 or bs == 0:
         raise ValueError("empty q or kv")
+    if dk != d:
+        out, lse = launch_fwd(
+            *(pad_head_dim(t, dk) for t in (q, k, v)), causal=causal,
+            sm_scale=sm_scale, q_seg=q_seg, kv_seg=kv_seg, tiles=tiles,
+            seq_lengths=seq_lengths, window=window, k_scales=k_scales,
+            v_scales=v_scales)
+        return unpad_head_dim(out, d), lse
     cfg = fwd_config(q.dtype, quantized)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if quantized:

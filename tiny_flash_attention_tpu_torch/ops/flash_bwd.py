@@ -12,8 +12,10 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V,
-head_dim other than 64 or 128). There is no fallback from the card to the
-plain version.
+head_dim above 128). The kernels compile head_dim 64 and 128; other head
+dims run padded with zero columns to the next of them, the gradients
+sliced back (ops/dims.py), as JAX pads its backward to 128 lanes. There is
+no fallback from the card to the plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -56,9 +58,11 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_BWD_BF16, FLASH_BWD_F32, bwd_f32_smem_bytes)
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
-    LOG2E, _KERNEL_DTYPES, _KERNEL_HEAD_DIMS, _aligned, as_int32, in_dtype,
-    run_work, visible_mask)
+    LOG2E, _KERNEL_DTYPES, _aligned, as_int32, in_dtype, run_work,
+    visible_mask)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 
@@ -370,7 +374,7 @@ def check_f32_smem(lib: ctypes.CDLL) -> None:
     kernels take (`tfa_flash_bwd_f32_smem`); raises where they differ."""
     smem = lib.tfa_flash_bwd_f32_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    for d in _KERNEL_HEAD_DIMS:
+    for d in FLASH_HEAD_DIMS:
         if smem(d) != bwd_f32_smem_bytes(d):
             raise RuntimeError(
                 f"ops/configs.py::bwd_f32_smem_bytes gives "
@@ -399,9 +403,9 @@ def _check_inputs(q, k, v, out, lse, do) -> None:
             f"the CUDA backward kernels take bf16 or f32 tensors of one "
             f"dtype (quantized K/V have no backward, as in JAX), got "
             f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {do.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
+    if d not in FLASH_HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d}: the CUDA backward kernels "
-                                  f"take {_KERNEL_HEAD_DIMS}")
+                                  f"take {FLASH_HEAD_DIMS}")
     if lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32, got {lse.dtype}")
     if any(not t.is_cuda or t.device != q.device
@@ -507,8 +511,13 @@ class BwdLaunch:
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, **kw):
-    """Launches the kernels of csrc/flash_bwd.cu; returns (dq, dk, dv)."""
+    """Launches the kernels of csrc/flash_bwd.cu, on q, k, v, out and do
+    padded to the kernels' head_dim; returns (dq, dk, dv) at the true
+    head_dim."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d, "the CUDA backward kernels")
+    q, k, v, out, do = (pad_head_dim(t, dk) for t in (q, k, v, out, do))
     call = BwdLaunch(q, k, v, out, lse, do, **kw)
     call.run()
     flash_attention_bwd.launches += 1
-    return call.grads
+    return tuple(unpad_head_dim(g, d) for g in call.grads)

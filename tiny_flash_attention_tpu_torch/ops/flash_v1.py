@@ -7,7 +7,9 @@ tensor takes the plain version (`flash_attention_v1_plain`); a CUDA tensor
 launches csrc/flash_v1.cu, which keeps FA1's order on the card (KV tiles
 outer, every q tile's running state in a global scratch reloaded on each KV
 step; bf16 on wgmma and TMA, f32 on the CUDA cores, each block's q tiles
-from `v1_schedule` at its dtype's tiles), or raises.
+from `v1_schedule` at its dtype's tiles), or raises. The kernel compiles
+head_dim 64 and 128; other head dims up to 128 run padded with zero
+columns (ops/dims.py), as in the forward.
 
 One divergence from JAX: every row that sees no column (causal with q_len >
 kv_len) gets out 0 and the LSE sentinel (mask value) * ln2. JAX gives that
@@ -29,6 +31,8 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_F32, FLASH_V1_F32_Q_TILES,
     TileConfig, v1_smem_bytes)
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, LOG2E, _aligned, in_dtype)
 from tiny_flash_attention_tpu_torch.ops.reference import (
@@ -36,7 +40,6 @@ from tiny_flash_attention_tpu_torch.ops.reference import (
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -172,7 +175,7 @@ def check_smem_layout(lib: ctypes.CDLL) -> None:
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
         cfg, _ = v1_config(dtype)
-        for d in _KERNEL_HEAD_DIMS:
+        for d in FLASH_HEAD_DIMS:
             want = v1_smem_bytes(cfg, d)
             if smem(code, d) != want:
                 raise RuntimeError(
@@ -203,13 +206,15 @@ def _v1_cuda(q, k, v, *, causal: bool, sm_scale: float):
         raise NotImplementedError(
             f"the CUDA FA1 kernel takes bf16 or f32 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d}: the CUDA FA1 kernel takes "
-                                  f"{_KERNEL_HEAD_DIMS}")
+    dk = kernel_head_dim(d, "the CUDA FA1 kernel")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on one CUDA device")
     if q_len == 0 or kv_len == 0 or b * h == 0:
         raise ValueError("empty q or kv")
+    if dk != d:
+        out, lse = _v1_cuda(*(pad_head_dim(t, dk) for t in (q, k, v)),
+                            causal=causal, sm_scale=sm_scale)
+        return unpad_head_dim(out, d), lse
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     dev = q.device
     n = v1_state_floats(q.dtype, b * h, q_len, d)

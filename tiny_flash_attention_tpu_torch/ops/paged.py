@@ -8,7 +8,9 @@ the paged decode of the north-star's "paged KV decode" configuration
 page_size, 1). A CPU tensor takes the plain version (`paged_decode_plain`,
 the fused decode's arithmetic over these arrays); a CUDA tensor launches
 csrc/paged_decode_separate.cu, the split decode kernel of
-csrc/paged_decode.cuh over this layout, or raises.
+csrc/paged_decode.cuh over this layout, or raises. It takes head_dim 64,
+80, 96 and 128 and any GQA group, the q rows padded as in
+ops/paged_fused.py.
 
 Two divergences from JAX, where its output is unwritten: a length of 0
 gives out 0 and the LSE sentinel, and a length past the table width
@@ -25,6 +27,8 @@ from typing import Optional
 import torch
 
 from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    decode_group, decode_head_dim, pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     decode_plain, decode_splits, decode_workspace, kernel_page_size,
@@ -33,8 +37,6 @@ from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_GROUPS = (1, 2, 4, 8)
 
 
 def _split(pages):
@@ -127,7 +129,7 @@ def _decode_fn():
     fn = _build.library("paged_decode_separate").tfa_paged_decode_separate
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -146,10 +148,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {k.dtype}")
-    if d not in _KERNEL_HEAD_DIMS or hq // hkv not in _KERNEL_GROUPS:
-        raise NotImplementedError(
-            f"head_dim {d}, group {hq // hkv}: the CUDA decode kernel takes "
-            f"head_dim {_KERNEL_HEAD_DIMS} and group {_KERNEL_GROUPS}")
+    decode_head_dim(d, "the CUDA decode kernel")
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
@@ -173,27 +172,28 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
                          "aligned")
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
               else (None, None))
-    q = q.contiguous()
+    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv)
+    q = pad_group(q.contiguous(), hkv, rows * blocks)
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32)
     if page_indices.stride(1) != 1:
         page_indices = page_indices.contiguous()
     out = torch.empty_like(q)
-    lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
     P = page_indices.shape[1]
     per, n_splits = decode_splits(P, page_size)
     with _build.on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        ws = decode_workspace(dev, stream, batch, hkv, n_splits, hq // hkv,
-                              d)
+        ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
+                              rows, d)
         err = _decode_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
             lengths.data_ptr(), page_indices.data_ptr(),
             page_indices.stride(0), P, n_splits, per, out.data_ptr(),
-            lse.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), batch, hq,
-            hkv, num_pages, page_size, d,
+            lse.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), batch,
+            q.shape[1], hkv, blocks, num_pages, page_size, d,
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
             int(quantized), stream)
     _build.check(err, "paged_decode_separate")
     paged_decode_attention.launches += 1
-    return out, lse
+    return unpad_group(out, hkv, group), unpad_group(lse, hkv, group)

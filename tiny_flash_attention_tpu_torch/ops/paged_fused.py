@@ -21,7 +21,11 @@ csrc/page_append.cu (ports `_append_kernel`) or raises.
 The decode kernel splits each sequence's tokens over several blocks
 (page-aligned ranges of the table, `decode_splits`) and merges their
 partial softmax states in split order; `fused_paged_decode_plain(...,
-splits=k)` computes the same partials and merge.
+splits=k)` computes the same partials and merge. Both kernels read rows of
+head_dim 64, 80, 96 or 128 in place (pages are never padded); the decode
+compiles 1, 2, 4 or 8 q rows a kv head and takes any GQA group by padding
+each kv head's q rows to the next of them, or to row blocks of 8 above 8,
+and slicing out and the LSE back (ops/dims.py), as JAX pads them to 8.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch.nn.functional as F
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     decode_split_plan, paged_decode_split_pages, window_pages)
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    decode_group, decode_head_dim, pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -43,8 +49,6 @@ from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
-_KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_GROUPS = (1, 2, 4, 8)
 
 
 def kernel_page_size(page_size: int) -> bool:
@@ -228,9 +232,7 @@ def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
             f"the CUDA append kernel takes bf16 or f32 rows into bf16, f32 "
             f"or int8 pages, got {k_new.dtype}, {v_new.dtype} into "
             f"{pages.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d}: the CUDA append kernel "
-                                  f"takes {_KERNEL_HEAD_DIMS}")
+    decode_head_dim(d, "the CUDA append kernel")
     dev = pages.device
     if not all(t.device == dev for t in (k_new, v_new, page_ids, rows)):
         raise ValueError("pages, rows and targets must be on one CUDA "
@@ -476,6 +478,8 @@ _workspaces: dict = {}
 def decode_workspace(device, stream: int, batch: int, kv_heads: int,
                      splits: int, group: int, d: int):
     """(partials f32, arrival counters int32 zeros) of the split decode,
+    for `kv_heads` block rows (kv heads x q row blocks) of `group` q rows
+    (the padded group, ops/dims.py::decode_group),
     allocated once per device, stream and shape and kept: the kernel
     leaves the counters at zero, so a call allocates nothing (a later CUDA
     graph can capture it). Launches on one stream run in order, so they
@@ -498,7 +502,7 @@ def _decode_fn():
     fn = _build.library("paged_decode").tfa_paged_decode
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -516,10 +520,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
-    if d not in _KERNEL_HEAD_DIMS or hq // hkv not in _KERNEL_GROUPS:
-        raise NotImplementedError(
-            f"head_dim {d}, group {hq // hkv}: the CUDA decode kernel takes "
-            f"head_dim {_KERNEL_HEAD_DIMS} and group {_KERNEL_GROUPS}")
+    decode_head_dim(d, "the CUDA decode kernel")
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
@@ -536,27 +537,28 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
     if not fused_pages.is_contiguous() or fused_pages.data_ptr() % 16:
         raise ValueError("fused pages must be contiguous and 16-byte "
                          "aligned (they are updated in place)")
-    q = q.contiguous()
+    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv)
+    q = pad_group(q.contiguous(), hkv, rows * blocks)
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32)
     if page_indices.stride(1) != 1:
         page_indices = page_indices.contiguous()
     out = torch.empty_like(q)
-    lse = torch.empty((batch, hq), dtype=torch.float32, device=dev)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
     scale_log2 = in_dtype(sm_scale * LOG2E, q.dtype)
     P = page_indices.shape[1]
     per, n_splits = decode_splits(P, page_size, window)
     with _build.on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        ws = decode_workspace(dev, stream, batch, hkv, n_splits, hq // hkv,
-                              d)
+        ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
+                              rows, d)
         err = _decode_fn()(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0), P, n_splits,
             per, out.data_ptr(), lse.data_ptr(), ws[0].data_ptr(),
-            ws[1].data_ptr(), batch, hq, hkv, num_pages, page_size, prows,
-            d, window or 0, scale_log2, _KERNEL_DTYPES[q.dtype],
-            int(quantized), stream)
+            ws[1].data_ptr(), batch, q.shape[1], hkv, blocks, num_pages,
+            page_size, prows, d, window or 0, scale_log2,
+            _KERNEL_DTYPES[q.dtype], int(quantized), stream)
     _build.check(err, "paged_decode")
     if window is not None:
         fused_paged_decode_attention.ring_launches += 1
@@ -564,4 +566,4 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         fused_paged_decode_attention.int8_launches += 1
     else:
         fused_paged_decode_attention.launches += 1
-    return out, lse
+    return unpad_group(out, hkv, group), unpad_group(lse, hkv, group)
