@@ -1315,11 +1315,12 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     ok = (finite and same and max(err_plain) <= BWD_PLAIN_GATE[dtype]
           and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
 
-    # each kernel alone, on the tensors padded to the kernels' head_dim (what
-    # the call launches; the bound stays at the true head_dim)
+    # each kernel alone, on the tensors the call hands them (padded only
+    # where the kernels do not read the head_dim in place; the bound stays
+    # at the true head_dim)
     from tiny_flash_attention_tpu_torch.ops.dims import (
-        kernel_head_dim, pad_head_dim)
-    dk = kernel_head_dim(q_shape[-1], "the CUDA backward kernels")
+        flash_head_dim, pad_head_dim)
+    dk = flash_head_dim(q_shape[-1], dtype, "the CUDA backward kernels")
     call = FB.BwdLaunch(*(pad_head_dim(t, dk) for t in (q, k, v, out)), lse,
                         pad_head_dim(do, dk), causal=causal,
                         sm_scale=sm_scale, **kw)
@@ -3233,15 +3234,18 @@ def profile_window(label: str, fn, n: int, launches=None,
 
 
 def main_path_rows(seed: int) -> int:
-    """Only the head_dim-128 rows, device ms each, with the package found on
-    sys.path (so that one call can time two trees' kernels): B1 bf16 at
-    (4,8,768,128) and (4,8,2048,128) causal, B1 f32 at the f32 train step's
-    shape, f32 q over int8 and e4m3 payloads at the int8 benchmark's shape,
-    the bf16 backward call at (4,8,2048,128), B4 over int8 pages of 8016
-    tokens and over a bf16 engine cache, the append cold beside the launch
-    floor; then the bf16 engine's decode step (its launches and the
-    append's time a launch in it) and the f32 train step (B1 f32's time a
-    launch in it), each profiled twice."""
+    """Only the rows this tree must keep, device ms each, with the package
+    found on sys.path (so that one call can time two trees' kernels): B1
+    bf16 at (4,8,768,128), (4,8,2048,128) and (1,8,8192,128) causal, B11 at
+    the jagged batch of the mix, B1 f32 at the f32 train step's shape, f32
+    q over int8 and e4m3 payloads at the int8 benchmark's shape, the bf16
+    backward call at (4,8,2048,128), (1,8,8192,128) and (2,8,768,128), B4
+    over int8 pages of 8016 tokens and over a bf16 engine cache, the append
+    cold beside the launch floor; B1 at (4,32,2048,96) and the backward at
+    (1,32,2048,96), the Phi-3-mini-width calls (a tree that pads them
+    times its pads too); then the bf16 engine's decode step (its launches
+    and the append's time a launch in it) and the f32 train step (B1 f32's
+    time a launch in it), each profiled twice."""
     import tiny_flash_attention_tpu_torch as tfa
     from tiny_flash_attention_tpu_torch.models import transformer as T
     from tiny_flash_attention_tpu_torch.ops import quant as Q
@@ -3250,6 +3254,8 @@ def main_path_rows(seed: int) -> int:
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_page_append, fused_paged_decode_attention)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -3270,6 +3276,34 @@ def main_path_rows(seed: int) -> int:
     do = randn(q.shape, torch.bfloat16, gen)
     times["bwd call (4,8,2048)"] = cuda_time_ms(
         lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        iters=10)["median_ms"]
+    # the long row (B1 row 3, the backward's row 7), the short backward
+    # (row 8) and the Phi-3-mini-width calls
+    for label, qs, ks, fwd, bwd in (
+            ("(1,8,8192)", (1, 8, 8192, 128), (1, 2, 8192, 128), True, True),
+            ("(2,8,768)", (2, 8, 768, 128), (2, 2, 768, 128), False, True),
+            ("(4,32,2048,96)", (4, 32, 2048, 96), (4, 32, 2048, 96), True,
+             False),
+            ("(1,32,2048,96)", (1, 32, 2048, 96), (1, 32, 2048, 96), False,
+             True)):
+        q = randn(qs, torch.bfloat16, gen)
+        k, v = (randn(ks, torch.bfloat16, gen) for _ in range(2))
+        if fwd:
+            times[f"B1 {label}"] = cuda_time_ms(
+                lambda: flash_attention(q, k, v, causal=True),
+                iters=10)["median_ms"]
+        if bwd:
+            out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            do = randn(q.shape, torch.bfloat16, gen)
+            times[f"bwd call {label}"] = cuda_time_ms(
+                lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                            causal=True),
+                iters=10)["median_ms"]
+    q = randn((8, 8, 4096, 128), torch.bfloat16, gen)
+    k, v = (randn((8, 2, 4096, 128), torch.bfloat16, gen) for _ in range(2))
+    lt = torch.tensor(JAGGED_MIX, dtype=torch.int32, device="cuda")
+    times["B11 jagged mix"] = cuda_time_ms(
+        lambda: flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lt),
         iters=10)["median_ms"]
     q_shape, kv_shape = F32_FWD_SHAPE
     q = randn(q_shape, torch.float32, gen)
@@ -3362,11 +3396,14 @@ def dims_mask(mask, b, n) -> dict:
 
 
 def check_dims_flash(d, group, mask, dtype, gen) -> float:
-    """B1 at a padded head_dim against its plain version at the true one
-    (the dtype gate, and in bf16 the gate at the q fold with the LSE);
-    returns the worst error. At head_dim 96 also a planted fault: the
-    plain version at the padded head_dim's scale (1/sqrt(128), what a
-    default scale taken after the padding would give) must fail the gate."""
+    """B1 at a head_dim no instance has (bf16: read in place; f32: padded)
+    against its plain version at the true one (the dtype gate, and in
+    bf16 the gate at the q fold with the LSE); returns the worst error. At
+    head_dim 96 also planted faults: the plain version at the padded
+    head_dim's scale (1/sqrt(128), what a default scale taken after the
+    padding would give) must fail the gate, and in bf16 so must out as an
+    epilogue that stored all 128 columns of the tile at stride 96
+    (all_columns_epilogue)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
@@ -3401,6 +3438,16 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
             f"{'PASSES THE GATE' if f_ok else 'caught'}")
         if f_ok:
             raise AssertionError("the flash gate passes a wrong sm_scale")
+    if d == 96 and dtype == torch.bfloat16:
+        e_errs, e_folded, e_ok = flash_gate(all_columns_epilogue(out, 128),
+                                            lse, plain, q, dtype)
+        log(f"dims: flash d 96 group {group} bfloat16: planted fault, an "
+            f"epilogue storing all 128 columns at stride 96: "
+            f"{flash_readings(e_errs, e_folded)} | "
+            f"{'PASSES THE GATE' if e_ok else 'caught'}")
+        if e_ok:
+            raise AssertionError("the flash gate passes an epilogue that "
+                                 "stores all 128 columns")
     return max(errs["out"], errs["lse"])
 
 
@@ -3430,13 +3477,245 @@ def check_dims_b12(gen) -> float:
     return worst
 
 
+@contextlib.contextmanager
+def narrow_products(on: bool):
+    """The bf16 flash kernels' instance for the calls inside: with `on` the
+    width-80/96 instances (products over the true head dims), else the
+    128-wide one (products over the tiles' zero columns too)."""
+    from tiny_flash_attention_tpu_torch.ops import configs
+    keep = configs.FLASH_NARROW_PRODUCTS
+    configs.FLASH_NARROW_PRODUCTS = on
+    try:
+        yield
+    finally:
+        configs.FLASH_NARROW_PRODUCTS = keep
+
+
+@contextlib.contextmanager
+def padded_head_dims():
+    """The calls inside pad every head_dim to the kernels' tile width
+    through pad_head_dim and slice back, as before the bf16 kernels read it
+    in place (ops/dims.py::reads_in_place taking 64 and 128 only)."""
+    from tiny_flash_attention_tpu_torch.ops import dims
+    keep = dims.reads_in_place
+    dims.reads_in_place = lambda d: d in dims.FLASH_HEAD_DIMS
+    try:
+        yield
+    finally:
+        dims.reads_in_place = keep
+
+
+# a device kernel that copies or pads (the pads, slices and contiguous
+# copies around a padded call)
+COPY_KERNEL = re.compile("copy|pad", re.IGNORECASE)
+
+
+def kernel_names(fn):
+    """The device kernels one call of fn() launches, in order, from
+    torch.profiler; None where the profiler recorded no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)   # as in profile_window
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return names or None
+
+
+def kernel_short_name(name: str) -> str:
+    """A device kernel's name without its namespace, template arguments
+    and parameters (its first identifier followed by '<' or '(')."""
+    m = re.search(r"(\w+)(?=[<(])", name)
+    return m.group(1) if m else name[:40]
+
+
+def copy_readings(names, padded_names) -> tuple[str, bool]:
+    """The profile's verdict on one in-place call: its kernels (short
+    names), whether any copies or pads, and the padded call's copies for
+    contrast; (text, ok). No profile reads "not measured" and passes on
+    the counter alone."""
+    if names is None or padded_names is None:
+        return "kernels not measured (no device records)", True
+    short = sorted({kernel_short_name(n) for n in names})
+    copies = [n for n in names if COPY_KERNEL.search(n)]
+    padded = sum(bool(COPY_KERNEL.search(n)) for n in padded_names)
+    return (f"kernels {short}, {len(copies)} copy or pad kernels (the "
+            f"padded call: {padded} of {len(padded_names)})", not copies)
+
+
+def time_turns(calls: dict, rounds: int = 2) -> dict:
+    """Device times (cuda_time_ms medians, L2 cold) of each call in turns,
+    `rounds` times: {label: [ms, ...]}."""
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    times = {label: [] for label in calls}
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            times[label].append(cuda_time_ms(fn, iters=10)["median_ms"])
+    return times
+
+
+def spread(ts) -> str:
+    return f"{min(ts):.4f}–{max(ts):.4f}" if len(ts) > 1 else f"{ts[0]:.4f}"
+
+
+def in_place_fwd(d: int, gen) -> dict:
+    """B1 at (4,32,2048,d) causal on tensors of head_dim d: the call makes
+    no pad copy (pad_head_dim's counter; no copy or pad kernel in its
+    profile), and its out and LSE, on the width-d instance and on the
+    128-wide one, are the bits of the padded call (padded_head_dims:
+    three pads, the 128-wide instance, the slice of out). Then the device
+    times of the in-place call on each instance, the padded call and SDPA
+    at head_dim d, in turns in this call, beside the bound at head_dim
+    d."""
+    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+
+    q, k, v = (randn((4, 32, 2048, d), torch.bfloat16, gen)
+               for _ in range(3))
+
+    def fwd(narrow=True, padded=False, lse=True):
+        with narrow_products(narrow), (padded_head_dims() if padded
+                                       else contextlib.nullcontext()):
+            return flash_attention(q, k, v, causal=True, return_lse=lse)
+
+    copies = pad_head_dim.copies
+    got, wide = fwd(), fwd(narrow=False)
+    in_copies = pad_head_dim.copies - copies
+    ref = fwd(padded=True)
+    pad_copies = pad_head_dim.copies - copies - in_copies
+    torch.cuda.synchronize()
+    bits = {name: all(torch.equal(a, b) for a, b in zip(x, ref))
+            for name, x in ((f"n{d}", got), ("n128", wide))}
+    del got, wide, ref
+    prof, ok_prof = copy_readings(kernel_names(lambda: fwd(lse=False)),
+                                  kernel_names(lambda: fwd(padded=True,
+                                                           lse=False)))
+    times = time_turns({
+        f"n{d}": lambda: fwd(lse=False),
+        "n128": lambda: fwd(narrow=False, lse=False),
+        "padded call": lambda: fwd(padded=True, lse=False),
+        "sdpa": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True)})
+    bound_ms, bound_by = flash_bound(q, k, True)
+    kept = f"n{d}" if configs.FLASH_NARROW_PRODUCTS else "n128"
+    faster = min((f"n{d}", "n128"), key=lambda x: min(times[x]))
+    ok = in_copies == 0 and all(bits.values()) and ok_prof
+    log(f"dims: B1 at (4,32,2048,{d}) causal read in place: pad copies "
+        f"{in_copies} (the padded call {pad_copies}); {prof}; out and LSE "
+        f"bit-identical to the padded call: {bits} | "
+        + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
+        + f", bound {bound_ms:.4f} ms ({bound_by}) | {kept} (kept) "
+        f"{bound_ms / min(times[kept]):.1%} of the bound, "
+        f"{min(times[kept]) / min(times['sdpa']):.2f}x SDPA, "
+        f"{min(times['padded call']) / min(times[kept]):.2f}x faster than "
+        f"the padded call; faster instance: {faster} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"B1 at head_dim {d} copies or differs from "
+                             f"the padded call")
+    return {"times": times, "kept": kept, "bound_ms": bound_ms}
+
+
+def in_place_bwd(d: int, gen) -> dict:
+    """The bf16 backward at (1,32,2048,d) causal on tensors of head_dim
+    d, as in_place_fwd: no pad copy, no copy or pad kernel; dq, dk and dv
+    on both instances the bits of the padded call (five pads, three
+    slices); then the device times of the call on each instance, its main
+    kernel on each, the padded call and SDPA's backward at head_dim d, in
+    turns, beside the bound."""
+    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        BwdLaunch, flash_attention_bwd)
+
+    q, k, v, do = (randn((1, 32, 2048, d), torch.bfloat16, gen)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def bwd(narrow=True, padded=False):
+        with narrow_products(narrow), (padded_head_dims() if padded
+                                       else contextlib.nullcontext()):
+            return flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+
+    def main_kernel(narrow):
+        with narrow_products(narrow):
+            call = BwdLaunch(q, k, v, out, lse, do, causal=True,
+                             sm_scale=d ** -0.5)
+        call.run(1)
+        return lambda: call.run(2)
+
+    copies = pad_head_dim.copies
+    got, wide = bwd(), bwd(narrow=False)
+    in_copies = pad_head_dim.copies - copies
+    ref = bwd(padded=True)
+    pad_copies = pad_head_dim.copies - copies - in_copies
+    torch.cuda.synchronize()
+    bits = {name: all(torch.equal(a, b) for a, b in zip(x, ref))
+            for name, x in ((f"n{d}", got), ("n128", wide))}
+    del got, wide, ref
+    prof, ok_prof = copy_readings(kernel_names(bwd),
+                                  kernel_names(lambda: bwd(padded=True)))
+    sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    times = time_turns({
+        f"n{d}": bwd, "n128": lambda: bwd(narrow=False),
+        f"main n{d}": main_kernel(True), "main n128": main_kernel(False),
+        "padded call": lambda: bwd(padded=True),
+        "sdpa bwd": lambda: torch.autograd.grad(s_out, (sq, sk, sv), do,
+                                                retain_graph=True)})
+    del s_out
+    bound_ms, bound_by = bwd_bound(q, k, "all", mask_pairs(q, k, True))
+    kept = f"n{d}" if configs.FLASH_NARROW_PRODUCTS else "n128"
+    faster = min((f"n{d}", "n128"), key=lambda x: min(times[x]))
+    ok = in_copies == 0 and all(bits.values()) and ok_prof
+    log(f"dims: backward at (1,32,2048,{d}) causal read in place: pad "
+        f"copies {in_copies} (the padded call {pad_copies}); {prof}; dq, "
+        f"dk, dv bit-identical to the padded call: {bits} | "
+        + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
+        + f", bound {bound_ms:.4f} ms ({bound_by}) | {kept} (kept) "
+        f"{bound_ms / min(times[kept]):.1%} of the bound, "
+        f"{min(times[kept]) / min(times['sdpa bwd']):.2f}x SDPA, "
+        f"{min(times['padded call']) / min(times[kept]):.2f}x faster than "
+        f"the padded call; faster instance: {faster} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the backward at head_dim {d} copies or "
+                             f"differs from the padded call")
+    return {"times": times, "kept": kept, "bound_ms": bound_ms}
+
+
+def all_columns_epilogue(out: torch.Tensor, width: int) -> torch.Tensor:
+    """out (..., d) as an epilogue that stored all `width` columns of each
+    row (the tile's, zeros past d) at stride d would leave it, the rows
+    stored from the last down (the grid walks its q tiles from the last):
+    each row's columns past d land on the first width - d columns of the
+    rows after it, as zeros."""
+    d = out.shape[-1]
+    rows = F.pad(out, (0, width - d)).reshape(-1, width)
+    got = rows[:, :d].clone()
+    k = 1
+    while k * d < width:      # row r - k reaches row r's first columns
+        got[k:, :width - k * d] = rows[:-k, k * d:]
+        k += 1
+    return got.reshape(out.shape)
+
+
 def dims_phase(gen) -> dict:
     """Every kernel at the head dims and groups that no instance compiles,
     against its plain version: B1 (bf16, f32; causal, window, ids; the
     fold, the LSE, a wrong-scale fault), its quantized instances, the
     backward, FA1, B4 (bf16, f32, int8 pages, the ring mode, planted V
-    faults), B12 and B5 (bit for bit); and the time of B1 and the backward
-    at head_dim 96 beside their bound at the true head_dim and SDPA."""
+    faults), B12 and B5 (bit for bit); and the time of B1 at head_dim 96
+    and 80 and of the backward at 96, read in place, beside their bound at
+    the true head_dim, SDPA and the padded call, on both instances."""
     from tiny_flash_attention_tpu_torch.ops import quant as Q
     from tiny_flash_attention_tpu_torch.ops.flash_quant import (
         flash_attention_quantized)
@@ -3517,35 +3796,25 @@ def dims_phase(gen) -> dict:
         for fmt, d, ps in (("bf16", 80, 128), ("bf16", 96, 128),
                            ("int8", 80, 64), ("int8", 80, 160),
                            ("int8", 96, 64), ("int8", 96, 96)))
-    # the new shapes timed: B1 at (4,32,2048,96) causal, the backward at
-    # (1,32,2048,96), beside the bound at head_dim 96 and SDPA
+    # the shapes of Phi-3-mini's widths timed: B1 at (4,32,2048,96) and at
+    # head_dim 80, the backward at (1,32,2048,96), each read in place, beside
+    # the bound at the true head_dim and SDPA; then the in-place call beside
+    # the padded call and each instance in one call (in_place_fwd/_bwd)
     rows["flash"] = check_flash("dims: B1 at head_dim 96", (4, 32, 2048, 96),
                                 (4, 32, 2048, 96), torch.bfloat16, True, gen,
                                 faults=True)
-    # the call's parts: the kernel on tensors padded beforehand, and the
-    # three pads and the slice of out alone
-    from tiny_flash_attention_tpu_torch.ops.dims import (
-        pad_head_dim, unpad_head_dim)
-    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
-    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
-        cuda_time_ms)
-    q, k, v = (randn((4, 32, 2048, 96), torch.bfloat16, gen)
-               for _ in range(3))
-    qp, kp, vp = (pad_head_dim(t, 128) for t in (q, k, v))
-    t_kernel = cuda_time_ms(lambda: flash_attention(qp, kp, vp, causal=True),
-                            iters=10)["median_ms"]
-    t_pads = cuda_time_ms(lambda: (
-        [pad_head_dim(t, 128) for t in (q, k, v)],
-        unpad_head_dim(qp, 96)), iters=10)["median_ms"]
-    log(f"dims: B1 at head_dim 96, the call's parts: the kernel on tensors "
-        f"padded to 128 {t_kernel:.4f} ms; three pads and the slice of out "
-        f"{t_pads:.4f} ms")
-    rows["flash"].update(padded_kernel_ms=t_kernel, pads_ms=t_pads)
-    del q, k, v, qp, kp, vp
+    rows["flash80"] = check_flash("dims: B1 at head_dim 80",
+                                  (4, 32, 2048, 80), (4, 32, 2048, 80),
+                                  torch.bfloat16, True, gen)
+    errs["flash_fwd"] = max(errs["flash_fwd"],
+                            rows["flash"]["max_abs_err"],
+                            rows["flash80"]["max_abs_err"])
+    rows["in_place"] = {d: in_place_fwd(d, gen) for d in (96, 80)}
     rows["flash_bwd"] = check_bwd("dims: backward at head_dim 96",
                                   (1, 32, 2048, 96), (1, 32, 2048, 96),
                                   torch.bfloat16, True, {}, gen)
     errs["flash_bwd"] = rows["flash_bwd"]["max_abs_err"]
+    rows["in_place_bwd"] = in_place_bwd(96, gen)
     return rows
 
 
@@ -3667,16 +3936,20 @@ def dims_model_phase(seed) -> dict:
     pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
     each bf16 engine's cache (layer 0) beside its bound; then one train
     step pair at the first model's widths (1 x 2048, bf16, AdamW): the loss
-    falls, the gradients agree with those through the plain attention."""
+    falls, the gradients agree with those through the plain attention; its
+    peak device memory beside that of the same pair from the same weights
+    run padded (padded_head_dims). Returns the launches in all and by
+    model."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
-    totals, caches = {}, {}
+    totals, caches, by_model = {}, {}, {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for label, fields, ps8 in DIMS_MODELS:
+        mine = by_model.setdefault(label, {})
         cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS,
                             dtype=torch.bfloat16)
         params = T.init_params(cfg, torch.Generator(device="cuda")
@@ -3691,6 +3964,7 @@ def dims_model_phase(seed) -> dict:
             run = dims_engine_run(label, cfg, params, fmt, ps, seed)
             for key, n in run["launches"].items():
                 totals[key] = totals.get(key, 0) + n
+                mine[key] = mine.get(key, 0) + n
             if fmt == "bf16":
                 table, lengths = run["engine"].cache.device_views()
                 q = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
@@ -3710,6 +3984,8 @@ def dims_model_phase(seed) -> dict:
                            device="cuda")
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     losses = []
     t0 = time.perf_counter()
     for _ in range(2):
@@ -3717,8 +3993,30 @@ def dims_model_phase(seed) -> dict:
         losses.append(float(loss))
     dt = time.perf_counter() - t0
     got = (flash_attention.launches, flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
     totals["flash_fwd"] = totals.get("flash_fwd", 0) + got[0]
     totals["flash_bwd"] = got[1]
+    mine = by_model[label]
+    mine["flash_fwd"] = mine.get("flash_fwd", 0) + got[0]
+    mine["flash_bwd"] = got[1]
+    # the same pair padded, from the same weights
+    del params, opt
+    params, opt = init_state(params0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    padded_losses = []
+    with padded_head_dims():
+        for _ in range(2):
+            params, opt, loss = step(params, opt, tokens)
+            padded_losses.append(float(loss))
+    padded_peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    log(f"dims train [{label}, 1 x 2048]: peak device memory of the pair "
+        f"{peak / 2**20:.1f} MiB read in place, {padded_peak / 2**20:.1f} "
+        f"MiB padded ({(padded_peak - peak) / 2**20:.1f} MiB saved); the "
+        f"padded pair's losses {padded_losses[0]:.4f} -> "
+        f"{padded_losses[1]:.4f}, the same bits: "
+        f"{padded_losses == losses}")
     err = train_grad_check(cfg, params0, tokens)
     log(f"dims train [{label}, 1 x 2048]: loss {losses[0]:.4f} -> "
         f"{losses[1]:.4f} in 2 steps ({dt * 1e3:.1f} ms); {got[0]} forward "
@@ -3731,7 +4029,7 @@ def dims_model_phase(seed) -> dict:
     if not err <= TRAIN_GRAD_GATE:
         raise AssertionError("dims train gradients disagree with the plain "
                              "path")
-    return {"launches": totals, "caches": caches}
+    return {"launches": totals, "by_model": by_model, "caches": caches}
 
 
 def main() -> int:
@@ -3862,6 +4160,10 @@ def main() -> int:
     swa = swa_phase(SEED)
     dims_models = dims_model_phase(SEED)
     dlaunch = dims_models["launches"]
+    # the Phi-3-mini-width runs launch the head_dim-96 instances; the
+    # Llama-3.2-3B-width runs the head_dim-128 ones
+    phi = dims_models["by_model"][DIMS_MODELS[0][0]]
+    llama = dims_models["by_model"][DIMS_MODELS[1][0]]
 
     train = train_phase(SEED)
     for label, (step, *state) in train["states"].items():
@@ -3936,12 +4238,13 @@ def main() -> int:
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:560; "
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:609")
 
-    def bwd_kernel(part, row, dtype, launches):
+    def bwd_kernel(part, row, dtype, launches, suffix=None):
         worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
                     if c[3] == dtype)
         if dtype == torch.bfloat16:
             worst = max(worst, dims["errs"]["flash_bwd"])
-        suffix = "_f32" if dtype == torch.float32 else ""
+        if suffix is None:
+            suffix = "_f32" if dtype == torch.float32 else ""
         design = ("bf16: prep; main on wgmma/TMA, one block per (128-row "
                   "kv tile, q head), longest band first, walking its q "
                   "tiles downward; dQ bulk-reduce-added in each q tile's "
@@ -3974,7 +4277,13 @@ def main() -> int:
                              f"train step's shape {TRAIN_F32}")
     bwd_kernels = [
         *(bwd_kernel(part, bwd_rows[0], torch.bfloat16,
-                     train["launches"]["flash_bwd"] + dlaunch["flash_bwd"])
+                     train["launches"]["flash_bwd"] + llama.get("flash_bwd",
+                                                                0))
+          for part in ("prep", "main", "post")),
+        # the head_dim-96 instances (read in place, products of 96 columns)
+        # at the Phi-3-mini-width train step's (1,32,2048,96)
+        *(bwd_kernel(part, dims["flash_bwd"], torch.bfloat16,
+                     phi["flash_bwd"], suffix="_d96")
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
                      train["launches"]["flash_bwd_f32"])
@@ -4003,7 +4312,16 @@ def main() -> int:
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"]
-         + dlaunch["flash_fwd"], **flash_row},
+         + llama["flash_fwd"], **flash_row},
+        {"name": "flash_fwd_d96", "route": "cuda",
+         "design": "the bf16 kernel at head_dim 96 read in place: tensor "
+                   "maps of the true width (TMA lands zeros past column "
+                   "96), S over 6 k-steps, PV as m64n96k16 (a 48-float "
+                   "O), the epilogue storing 96 columns at stride 96; no "
+                   "pad or slice copy",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces, "launches": phi["flash_fwd"],
+         **dims["flash"]},
         {"name": "flash_fwd_f32", "route": "cuda", "design": f32_design,
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,

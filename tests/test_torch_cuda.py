@@ -37,7 +37,11 @@ autograd, FA1 at 80/96, the fused decode at 80/96 and groups 3/5/7/12/16
 over bf16, f32 and int8 pages (the ring mode; int8 scale rows split over two
 groups at page size 160), the separate decode, and the append bit for bit;
 and the shapes that stay out raise (head_dim 256; a decode or append at
-head_dim 72; page size 48).
+head_dim 72; page size 48). Last, the head dims that the bf16 forward and
+backward read in place (32, 48, 72, 80, 96 at groups 1, 3, 7 under every
+mask, 300 rows): their results bit for bit those of the call on padded
+tensors, with no pad copy; the instances of width 80 and 96 bit for bit
+the 128-wide one; and the f32 and quantized forward still padding.
 """
 
 import pytest
@@ -56,6 +60,8 @@ from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
 from tiny_flash_attention_tpu_torch.ops.paged import (
     paged_decode_attention, paged_decode_plain)
 from tiny_flash_attention_tpu_torch.ops import configs, quant as Q
+from tiny_flash_attention_tpu_torch.ops.dims import (
+    kernel_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     decode_splits, fused_page_append, fused_paged_decode_attention,
     fused_paged_decode_plain, pack_paged_cache, page_append_plain, page_rows)
@@ -1092,12 +1098,13 @@ def test_bf16_rowloop_jagged_lengths_at_tile_edges(gen, d):
                                    rtol=1e-6, atol=0)   # the sentinel
 
 
-# (hq, hkv, d, masks): groups 1 and 4, head_dim 64 and 128, causal, the
-# window, segment ids, and ids with static segment_starts
+# (hq, hkv, d, masks): groups 1 and 4, head_dim 64, 96 (read in place) and
+# 128, causal, the window, segment ids, and ids with static segment_starts
 DETERMINISM = [
     (4, 4, 128, "causal"), (8, 2, 128, "causal"), (8, 2, 64, "causal"),
     (4, 4, 64, "window"), (8, 2, 128, "window"), (8, 2, 128, "ids"),
     (4, 4, 128, "starts"), (8, 2, 64, "starts"),
+    (8, 2, 96, "causal"), (4, 4, 96, "window"), (8, 2, 96, "ids"),
 ]
 
 
@@ -1684,3 +1691,129 @@ def test_dims_int8_decode_scale_rows_across_groups(gen, dtype):
                                             page_size=ps, sm_scale=d ** -0.5)
     assert _err(out, ref) <= tolerance_for(dtype)
     assert _err(lse, ref_lse) <= tolerance_for(dtype)
+
+
+# --- head dims read in place -------------------------------------------------
+# The bf16 forward over bf16 K/V and the bf16 backward read and write any
+# head_dim that is a multiple of 8 at its true width (ops/dims.py::
+# flash_head_dim): their results are the bits of the same call on tensors
+# padded to the tiles' width by pad_head_dim, and the call makes no copy.
+
+IN_PLACE = [(d, group, mask) for d in (32, 48, 72, 80, 96)
+            for group in (1, 3, 7)
+            for mask in ("causal", "window", "ids", "jagged")]
+
+
+def _in_place_inputs(gen, d, group, mask, n=300):
+    """q, k, v, do at head_dim d (n rows: not a multiple of either kernel's
+    tile, so the last tile's masked rows are stored) and the mask's
+    keywords (the jagged mode's lengths for "jagged")."""
+    b, hkv = 2, 2
+    q = _randn((b, hkv * group, n, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, n, d), torch.bfloat16, gen)
+    do = _randn((b, hkv * group, n, d), torch.bfloat16, gen)
+    kw = {}
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(b, n, gen)
+        kw["segment_ids"] = (seg, seg)
+    if mask == "jagged":
+        kw["seq_lengths"] = torch.tensor([129, n], dtype=torch.int32,
+                                         device="cuda")
+    return (q, k, v, do), kw
+
+
+def _padded(*ts):
+    w = kernel_head_dim(ts[0].shape[-1], "the kernel")
+    return [pad_head_dim(t, w) for t in ts]
+
+
+@pytest.mark.parametrize("d,group,mask", IN_PLACE)
+def test_in_place_forward_is_the_padded_call(gen, d, group, mask):
+    """B1 at a head_dim it reads in place: out and the LSE are the bits of
+    the call on tensors padded to the tile's width (sliced back), and the
+    call pads nothing."""
+    (q, k, v, _), kw = _in_place_inputs(gen, d, group, mask)
+    sc = d ** -0.5
+    fn = flash_attention_rowloop if mask == "jagged" else flash_attention
+    extra = {} if mask == "jagged" else {"return_lse": True}
+    before, copies = fn.launches, pad_head_dim.copies
+    out, lse = fn(q, k, v, causal=True, sm_scale=sc, **kw, **extra)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies and fn.launches == before + 1
+    assert out.shape == q.shape
+    pout, plse = fn(*_padded(q, k, v), causal=True, sm_scale=sc, **kw,
+                    **extra)
+    assert torch.equal(out, unpad_head_dim(pout, d))
+    assert torch.equal(lse, plse)
+
+
+@pytest.mark.parametrize("d,group,mask", [
+    x for x in IN_PLACE if x[2] != "jagged"])
+def test_in_place_bwd_is_the_padded_call(gen, d, group, mask):
+    """The bf16 backward at a head_dim it reads in place: dq, dk and dv are
+    the bits of the call on tensors padded to the tile's width (sliced
+    back), through flash_attention_bwd and through autograd, and neither
+    pads."""
+    (q, k, v, do), kw = _in_place_inputs(gen, d, group, mask)
+    sc = d ** -0.5
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True, **kw)
+    copies = pad_head_dim.copies
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=True, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies
+    want = flash_attention_bwd(*_padded(q, k, v, out), lse, *_padded(do),
+                               causal=True, sm_scale=sc, **kw)
+    pl = [t.requires_grad_() for t in _padded(q, k, v)]
+    flash_attention(*pl, causal=True, sm_scale=sc, **kw).backward(
+        *_padded(do))
+    for name, g, t, w, p in zip(("dq", "dk", "dv"), got, leaves, want, pl):
+        assert g.shape == t.shape
+        assert torch.equal(g, unpad_head_dim(w, d)), name
+        assert torch.equal(t.grad, unpad_head_dim(p.grad, d)), name
+        assert torch.equal(t.grad, g), name
+
+
+@pytest.mark.parametrize("d", [72, 80, 88, 96])
+def test_narrow_products_are_the_wide_instance(gen, monkeypatch, d):
+    """The instances of width 80 and 96 (products that skip the tiles' zero
+    columns) give the bits of the 128-wide instance, forward and
+    backward."""
+    (q, k, v, do), kw = _in_place_inputs(gen, d, 3, "causal")
+    calls = []
+    for narrow in (True, False):
+        monkeypatch.setattr(configs, "FLASH_NARROW_PRODUCTS", narrow)
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        calls.append((out, lse, *flash_attention_bwd(q, k, v, out, lse, do,
+                                                      causal=True)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *calls):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, "quantized"], ids=str)
+def test_f32_and_quantized_forward_still_pad(gen, dtype):
+    """The f32 instances and the quantized forward read tiles of 64 or 128
+    columns: at head_dim 96 each call pads (three copies), and is right."""
+    q = _randn((1, 6, 130, 96), torch.float32 if dtype == torch.float32
+               else torch.bfloat16, gen)
+    kv = _randn((1, 2, 130, 96), q.dtype, gen)
+    copies = pad_head_dim.copies
+    if dtype == "quantized":
+        kq, vq = Q.quantize_int8(kv), Q.quantize_int8(kv * 0.5)
+        out, _ = flash_attention_quantized(q, kq, vq, causal=True,
+                                           return_lse=True)
+        ref = flash_attention_quantized_plain(
+            q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+            sm_scale=96 ** -0.5)
+    else:
+        out = flash_attention(q, kv, kv, causal=True)
+        ref = flash_attention_plain(q, kv, kv, causal=True,
+                                    sm_scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies + 3
+    assert _err(out, ref) <= tolerance_for(q.dtype)

@@ -3,13 +3,17 @@ package, on the CPU.
 
 The JAX package takes any head_dim (its forward and backward pad it to 128
 lanes) and any group (its decodes pad a kv head's q rows to 8). The port's
-kernels compile head_dim 64/128 (flash) or 64/80/96/128 (decodes, append)
-and groups 1/2/4/8; its wrappers pad around them with ops/dims.py. Here the
-same numpy inputs, made from a seed, go through the JAX function (its
-Pallas kernels in interpret mode, or its XLA route where JAX takes one)
-and through the port twice: its public entry (the plain version, on the
-CPU) and the padded route the card takes (pad, the plain version in the
-kernel's place, unpad). Gates: fp32 2e-5, bf16 2e-2 (utils/testing.py);
+bf16 flash forward and backward read any head_dim that is a multiple of 8
+in place; its f32 and quantized flash instances and FA1 take tiles of
+64/128 columns, the decodes and append head_dim 64/80/96/128, and the
+decodes groups 1/2/4/8; its wrappers pad around them with ops/dims.py
+(`flash_head_dim` is the rule). Here the same numpy inputs, made from a
+seed, go through the JAX function (its Pallas kernels in interpret mode,
+or its XLA route where JAX takes one) and through the port twice: its
+public entry (the plain version at the true head_dim, on the CPU, what
+the in-place kernels compute) and the padded route (pad, the plain
+version in the kernel's place, unpad). Gates: fp32 2e-5, bf16 2e-2
+(utils/testing.py);
 the append and the int8 pages bit for bit. Two small engines (2 layers,
 head_dim 96 at group 1, head_dim 128 at group 3) carry JAX's weights over
 with params_from_jax and must give JAX's greedy tokens.
@@ -80,6 +84,42 @@ def test_kernel_head_dim_pads_to_the_next_instance(d, dk):
         assert padded.shape == (2, 3, 5, dk)
         assert bool((padded[..., d:] == 0).all())
     assert torch.equal(dims.unpad_head_dim(padded, d), x)
+
+
+@pytest.mark.parametrize("d", range(1, 137))
+def test_in_place_rule(d):
+    """bf16 over bf16 K/V, the flash kernels take a head_dim that is a
+    multiple of 8 in place (64 and 128 are their tiles' own widths), pad
+    any other to the next tile width, and raise above 128; pad_head_dim
+    counts each copy it makes."""
+    what = "the CUDA forward kernel"
+    if d > 128:
+        with pytest.raises(NotImplementedError, match="up to 128"):
+            dims.flash_head_dim(d, torch.bfloat16, what)
+        assert not dims.reads_in_place(d)
+        return
+    in_place = d % 8 == 0
+    assert dims.reads_in_place(d) == in_place
+    want = d if in_place else dims.kernel_head_dim(d, what)
+    assert dims.flash_head_dim(d, torch.bfloat16, what) == want
+    x = torch.zeros(1, 1, 3, d)
+    before = dims.pad_head_dim.copies
+    y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.bfloat16, what))
+    assert y.shape[-1] == want
+    assert dims.pad_head_dim.copies == before + (not in_place)
+
+
+@pytest.mark.parametrize("d", [8, 48, 72, 80, 96, 100])
+def test_f32_and_quantized_entries_pad(d):
+    """The f32 instances and the quantized forward read tiles of 64 or 128
+    columns: every head_dim pads to the next (what the card's wrappers do
+    before launching them)."""
+    what = "the CUDA forward kernel"
+    dk = dims.kernel_head_dim(d, what)
+    assert dims.flash_head_dim(d, torch.float32, what) == dk
+    assert dims.flash_head_dim(d, torch.bfloat16, what,
+                               quantized=True) == dk
+    assert dk in dims.FLASH_HEAD_DIMS and dk > d
 
 
 def test_head_dims_above_128_raise():
@@ -175,7 +215,7 @@ def _padded_decode(q, pages, lengths, table, hkv, **kw):
 
 # --- the flash forward and backward ------------------------------------------
 
-FWD_CASES = [(d, group, mask) for d in (72, 80, 96) for group in (3, 7)
+FWD_CASES = [(d, group, mask) for d in (48, 72, 80, 96) for group in (3, 7)
              for mask in ("causal", "window", "ids")]
 
 
@@ -190,8 +230,9 @@ def _ids(b, n, bounds):
 @pytest.mark.parametrize("d,group,mask", FWD_CASES)
 def test_flash_forward_matches_jax(d, group, mask, dtype):
     """JAX pads head_dim to 128 lanes in its Pallas kernels (q_len 640 is
-    above its XLA cutoff); the port's entry and its padded route hold to
-    it, out and the LSE."""
+    above its XLA cutoff); the port's entry (at the true head_dim, as the
+    bf16 kernels read it in place) and its padded route hold to it, out
+    and the LSE."""
     rng = np.random.default_rng(d * 10 + group)
     b, hkv, n = 1, 2, 640
     q, jq = _both(rng.standard_normal((b, hkv * group, n, d)), dtype)
@@ -223,20 +264,23 @@ def test_flash_forward_matches_jax(d, group, mask, dtype):
     _close(plse, jlse, atol, "padded lse")
 
 
+@pytest.mark.parametrize("d", [48, 80, 96])
 @pytest.mark.parametrize("path", ["fused", "split"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_backward_matches_jax(monkeypatch, causal, path):
-    """JAX's flash_attention_bwd pads head_dim 96 to 128 (interpret mode);
-    the port's backward and its padded route (q, k, v, out, do padded, the
-    plain backward, gradients unpadded) hold to it at JAX's 1e-5 in f32."""
+def test_backward_matches_jax(monkeypatch, causal, path, d):
+    """JAX's flash_attention_bwd pads head_dim 48, 80 and 96 to 128
+    (interpret mode); the port's backward (at the true head_dim, as the
+    bf16 kernels read it in place) and its padded route (q, k, v, out, do
+    padded, the plain backward, gradients unpadded) hold to it at JAX's
+    1e-5 in f32."""
     if path == "split":
         monkeypatch.setattr(JFB, "_FUSED_SCRATCH_LIMIT", 0)
-    rng = np.random.default_rng(96)
-    q_shape, kv_shape = (1, 6, 256, 96), (1, 2, 256, 96)
+    rng = np.random.default_rng(d)
+    q_shape, kv_shape = (1, 6, 256, d), (1, 2, 256, d)
     arrs = [rng.standard_normal(s).astype(np.float32)
             for s in (q_shape, kv_shape, kv_shape, q_shape)]
     jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
-    sc = 96 ** -0.5
+    sc = d ** -0.5
     jout, jlse = _xla_attention(jq, jk, jv, None, causal, sc, True)
     want = JFB.flash_attention_bwd(jq, jk, jv, jout, jlse, jdo,
                                    causal=causal, sm_scale=sc, block_q=128,
@@ -244,27 +288,29 @@ def test_backward_matches_jax(monkeypatch, causal, path):
     q, k, v, out, lse, do = (torch.from_numpy(np.array(_np(a)))
                              for a in (jq, jk, jv, jout, jlse, jdo))
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    dk = dims.kernel_head_dim(d, "the kernel")
     padded = flash_attention_bwd_plain(
-        *(dims.pad_head_dim(t, 128) for t in (q, k, v, out)), lse,
-        dims.pad_head_dim(do, 128), causal=causal, sm_scale=sc)
+        *(dims.pad_head_dim(t, dk) for t in (q, k, v, out)), lse,
+        dims.pad_head_dim(do, dk), causal=causal, sm_scale=sc)
     for name, g, p, w in zip(("dq", "dk", "dv"), got, padded, want):
         _close(g, w, 1e-5, name)
-        _close(dims.unpad_head_dim(p, 96), w, 1e-5, f"padded {name}")
-        assert bool((p[..., 96:] == 0).all())
+        _close(dims.unpad_head_dim(p, d), w, 1e-5, f"padded {name}")
+        assert bool((p[..., d:] == 0).all())
 
 
-def test_autograd_returns_gradients_at_the_true_head_dim():
-    """The autograd Function's gradients at head_dim 80 are those of
-    autograd through the plain forward, at the true head_dim."""
-    rng = np.random.default_rng(80)
+@pytest.mark.parametrize("d", [48, 80, 96])
+def test_autograd_returns_gradients_at_the_true_head_dim(d):
+    """The autograd Function's gradients at head_dim 48, 80 and 96 are
+    those of autograd through the plain forward, at the true head_dim."""
+    rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               for s in ((1, 6, 100, 80), (1, 2, 100, 80), (1, 2, 100, 80)))
-    do = torch.from_numpy(rng.standard_normal((1, 6, 100, 80)).astype(
+               for s in ((1, 6, 100, d), (1, 2, 100, d), (1, 2, 100, d)))
+    do = torch.from_numpy(rng.standard_normal((1, 6, 100, d)).astype(
         np.float32))
     a = [t.clone().requires_grad_() for t in (q, k, v)]
     flash_attention(*a, causal=True).backward(do)
     b = [t.clone().requires_grad_() for t in (q, k, v)]
-    flash_attention_plain(*b, causal=True, sm_scale=80 ** -0.5).backward(do)
+    flash_attention_plain(*b, causal=True, sm_scale=d ** -0.5).backward(do)
     for x, y in zip(a, b):
         assert x.grad.shape == x.shape
         _close(x.grad, y.grad, 2e-5, "grad")

@@ -9,12 +9,14 @@
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:560      flash_attention_bwd   (_bwd_dq_kernel)
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:609      flash_attention_bwd   (_bwd_dkv_kernel)
 //
-// Contract: q, out, dout (B, hq, Sq, D) and k, v (B, hkv, Skv, D),
-// contiguous, of one dtype; lse (B, hq, Sq) is the forward's natural-log
-// LSE in f32. Causal rows sit at position row + Skv - Sq. Writes dq like q,
-// and dk, dv like k, summed over the GQA group of each kv head. The masks
-// are the forward's (flash_fwd.cu): the window (row at position p sees
-// columns [p - window + 1, p]), segment ids (equal ids attend), the mask
+// Contract: q, out, dout (B, hq, Sq, d) and k, v (B, hkv, Skv, d),
+// contiguous, of one dtype (bf16: d any multiple of 8 up to 128, read and
+// written at its true width; f32: d 64 or 128); lse (B, hq, Sq) is the
+// forward's natural-log LSE in f32. Causal rows sit at position row + Skv -
+// Sq. Writes dq like q, and dk, dv like k, summed over the GQA group of
+// each kv head. The masks are the forward's (flash_fwd.cu): the window (row
+// at position p sees columns [p - window + 1, p]), segment ids (equal ids
+// attend), the mask
 // value -0.7 * FLT_MAX and p = 0 on rows whose LSE is the empty-row
 // sentinel (the TPU kernels' guard). Which tiles a block visits comes from
 // a host-built table (ops/flash_bwd.py::bwd_tiles, JAX's work lists): for
@@ -63,6 +65,16 @@
 //     group's slots * sm_scale), dv = bf16(sum of the slots), the slots
 //     summed in q-head order: the one rounding at the write of JAX's VMEM
 //     accumulators.
+//   The true head_dim d (hopper.cuh::flash_width picks an instance of width
+//   N >= d over tiles of D = 64 or 128 columns): prep reads and writes rows
+//   at stride d, its lanes past d adding 0 to delta in the same order as
+//   over a padded row; the main kernel's maps take d, so TMA lands zeros in
+//   the tiles' columns past d; S^T and dP^T run N / 16 k-steps, dV and dK
+//   are m64nNk16 products (48 floats each at N = 96); dQ keeps its two
+//   64-column parts (the zero columns of K give zeros); post writes the
+//   columns below d at stride d. The slots and dq_acc stay at D columns,
+//   internal. So a call at d is the bits of the call on tensors padded to D,
+//   with no pad or slice copy.
 // Every f32 sum runs in an order fixed by the shape and the masks, so two
 // runs give the same bits (the TPU walks its grid in one order). dK, dV:
 // one writer per slot, the group summed in head order by post. dQ: the
@@ -152,6 +164,9 @@ struct Smem {
   static_assert(2 * 2 * 64 * D * 4 <= DST, "dK/dV staging fits the ring");
 };
 
+// Rows of d columns (a multiple of 8, at most D): a row's LANES lanes keep
+// D's map, those past d reading nothing and adding 0 to delta, so delta's
+// sum runs in the order of a row padded to D.
 template <int D>
 __global__ void __launch_bounds__(32 * PREP_WARPS)
     flash_bwd_prep_kernel(const bf16* __restrict__ q,
@@ -160,7 +175,7 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
                           const float* __restrict__ lse,
                           bf16* __restrict__ qs, float* __restrict__ lse2,
                           float* __restrict__ delta, int n_bh, int q_len,
-                          int q_pad, float scale_log2) {
+                          int q_pad, int d, float scale_log2) {
   constexpr int LANES = D / 8;                   // 16 bytes a lane
   constexpr int PER_WARP = 32 / LANES;           // rows a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -176,11 +191,13 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
     }
     return;
   }
-  const size_t off = ((size_t)bh * q_len + r) * D + sub * 8;
+  const size_t off = ((size_t)bh * q_len + r) * d + sub * 8;
+  const bool live = sub * 8 < d;                 // a lane inside the row
   const float qscale = __bfloat162float(__float2bfloat16_rn(scale_log2));
-  const uint4 o4 = *reinterpret_cast<const uint4*>(out + off);
-  const uint4 g4 = *reinterpret_cast<const uint4*>(dout + off);
-  uint4 x4 = *reinterpret_cast<const uint4*>(q + off);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 o4 = live ? *reinterpret_cast<const uint4*>(out + off) : zero;
+  const uint4 g4 = live ? *reinterpret_cast<const uint4*>(dout + off) : zero;
+  uint4 x4 = live ? *reinterpret_cast<const uint4*>(q + off) : zero;
   const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&o4);
   const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&g4);
   __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&x4);
@@ -192,7 +209,7 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
     x[i] = __floats2bfloat162_rn(__low2float(x[i]) * qscale,
                                  __high2float(x[i]) * qscale);
   }
-  *reinterpret_cast<uint4*>(qs + off) = x4;
+  if (live) *reinterpret_cast<uint4*>(qs + off) = x4;
   // the lanes of one row: every lane of the group took the same branch
   const unsigned group = (LANES == 32 ? 0xffffffffu : (1u << LANES) - 1u)
                          << (lane / LANES * LANES);
@@ -206,7 +223,9 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
   }
 }
 
-template <int D, bool WINDOW, bool SEGS>
+// N: the instance's product width (D = tile_cols(N) columns of tiles and
+// slots); the tensor maps carry the true head_dim.
+template <int N, bool WINDOW, bool SEGS>
 __global__ void __launch_bounds__(HTHREADS, 1)
     flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_qs,
@@ -222,6 +241,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
                           float* __restrict__ dv_acc, int* dq_turn,
                           int batch, int hq, int hkv, int q_len, int kv_len,
                           int q_pad, int causal, int window) {
+  constexpr int D = tile_cols(N);
   using S = Smem<D>;
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
   constexpr int DQ_PARTS = D / 64;               // dQ chunks per q tile
@@ -338,9 +358,9 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       turn_pass(turn(qt));
   };
 
-  float dv[D / 2], dk[D / 2];
+  float dv[N / 2], dk[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) dv[i] = dk[i] = 0.f;
 
   mbar_wait(kv_bar, 0);
   for (int it = 0; it < n; ++it) {
@@ -359,14 +379,14 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < N / 16; ++kk)
       wgmma_ss_n64<0, 0>(
           s, smem_desc(kw + (kk / 4) * HN * 128 + (kk % 4) * 32, 16, 1024),
           smem_desc(qss + (kk / 4) * HM * 128 + (kk % 4) * 32, 16, 1024),
           kk > 0);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < N / 16; ++kk)
       wgmma_ss_n64<0, 0>(
           dp, smem_desc(vw + (kk / 4) * HN * 128 + (kk % 4) * 32, 16, 1024),
           smem_desc(dos + (kk / 4) * HM * 128 + (kk % 4) * 32, 16, 1024),
@@ -426,17 +446,13 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     // dV += P^T dout, dK += dS^T q (dout and q read MN-major)
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = smem_desc(dos + kk * 16 * 128, HM * 128, 1024);
-      if constexpr (D == 128) wgmma_rs_n128(dv, pa[kk], db);
-      else wgmma_rs_n64(dv, pa[kk], db);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<N>(dv, pa[kk],
+                  smem_desc(dos + kk * 16 * 128, HM * 128, 1024));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = smem_desc(qsm + kk * 16 * 128, HM * 128, 1024);
-      if constexpr (D == 128) wgmma_rs_n128(dk, da[kk], db);
-      else wgmma_rs_n64(dk, da[kk], db);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<N>(dk, da[kk],
+                  smem_desc(qsm + kk * 16 * 128, HM * 128, 1024));
     wgmma_commit();
     // dS^T to shared memory in the 128-byte swizzle, beside the products
 #pragma unroll
@@ -514,12 +530,14 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   }
 
   // dK, dV of the warpgroup's 64 rows, f32 in fragment order, into the
-  // q head's slots (the ring and K/V are free now)
+  // q head's slots (the ring and K/V are free now): their first 64 x N
+  // floats (fragment order keeps each 8-column group whole), which hold
+  // every column that post reads
   __syncthreads();
   float4* dks = reinterpret_cast<float4*>(sm) + wg * 2 * 64 * D / 4;
   float4* dvs = dks + 64 * D / 4;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < N / 8; ++i) {
     dks[i * 128 + t] = make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2],
                                    dk[4 * i + 3]);
     dvs[i * 128 + t] = make_float4(dv[4 * i], dv[4 * i + 1], dv[4 * i + 2],
@@ -528,8 +546,8 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   fence_async_smem();
   named_bar(1 + wg, 128);
   if (t == 0) {
-    bulk_store(dkv_slot(dk_acc) + wg * (64 * D), dks, 64 * D * 4);
-    bulk_store(dkv_slot(dv_acc) + wg * (64 * D), dvs, 64 * D * 4);
+    bulk_store(dkv_slot(dk_acc) + wg * (64 * D), dks, 64 * N * 4);
+    bulk_store(dkv_slot(dv_acc) + wg * (64 * D), dvs, 64 * N * 4);
     bulk_wait_read();  // the writes complete before the next launch
   }
 }
@@ -537,16 +555,18 @@ __global__ void __launch_bounds__(HTHREADS, 1)
 // One 64-row chunk of an accumulator in fragment order (64 x cw f32,
 // float4 (i, t) holding rows R, R + 8 and columns C, C + 1 of the wgmma
 // accumulator layout), scaled and rounded to bf16 through shared memory,
-// then written as whole 16-byte pieces of rows. `parts` chunks make a tile
-// of `tile_rows` rows: the parts of a 64-row tile split its columns (dq at
-// D = 128), those of a 128-row tile its rows (dk, dv). With `group` > 1 the
-// chunk is the sum of `group` slots, `stride` chunks apart, in slot order
-// (dk, dv: the q heads of a kv head).
+// then written as whole 16-byte pieces of rows of d columns (the columns
+// of the chunk below d; d a multiple of 8, so each 8-column group is
+// written whole or not at all). `parts` chunks make a tile of
+// `tile_rows` rows: the parts of a 64-row tile split its columns (dq at D =
+// 128: the second part holds columns 64 to d), those of a 128-row tile its
+// rows (dk, dv). With `group` > 1 the chunk is the sum of `group` slots,
+// `stride` chunks apart, in slot order (dk, dv: the q heads of a kv head).
 template <int D, int cw>
 __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
                                            long chunk, int parts,
                                            int tile_rows, int tiles,
-                                           int n_rows, float scale,
+                                           int n_rows, int d, float scale,
                                            int group, long stride,
                                            bf16* tile) {
   constexpr int LD = D + 8;                      // bf16 per tile row
@@ -555,14 +575,23 @@ __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
   const float4* a4 = reinterpret_cast<const float4*>(acc) +
                      ((chunk / per) * group * per + chunk % per) * cw * 16;
   const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int part = (int)(chunk % parts);
+  const int col0 = tile_rows == 64 ? part * 64 : 0;
+  const int cols = min(cw, d - col0);            // the chunk's columns < d
+  // Every load is issued, unconditionally, so their latencies overlap: a
+  // group past d reloads group 0 (the same lines, cached), its value
+  // unused. Loads behind branches cost post 2-5 % at head_dim 128.
+  int at[cw / 8];
+#pragma unroll
+  for (int i = 0; i < cw / 8; ++i) at[i] = (8 * i < cols ? i : 0) * 128 + t;
   float4 av[cw / 8];
 #pragma unroll
-  for (int i = 0; i < cw / 8; ++i) av[i] = a4[i * 128 + t];
+  for (int i = 0; i < cw / 8; ++i) av[i] = a4[at[i]];
   for (int g = 1; g < group; ++g) {
     const float4* s4 = a4 + g * stride * cw * 16;
 #pragma unroll
     for (int i = 0; i < cw / 8; ++i) {
-      const float4 x = s4[i * 128 + t];
+      const float4 x = s4[at[i]];
       av[i].x += x.x;
       av[i].y += x.y;
       av[i].z += x.z;
@@ -579,16 +608,14 @@ __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
         __floats2bfloat162_rn(a.z * scale, a.w * scale);
   }
   __syncthreads();
-  const int part = (int)(chunk % parts);
   const int tidx = (int)((chunk / parts) % tiles);
   const long bh = chunk / parts / tiles;
   const int row0 = tidx * tile_rows + (tile_rows == 64 ? 0 : part * 64);
-  const int col0 = tile_rows == 64 ? part * 64 : 0;
-  bf16* o = out + (size_t)bh * n_rows * D + col0;
+  bf16* o = out + (size_t)bh * n_rows * d + col0;
   for (int x = t; x < 64 * cw / 8; x += 128) {
     const int row = x / (cw / 8), c8 = (x % (cw / 8)) * 8;
-    if (row0 + row < n_rows)
-      *reinterpret_cast<uint4*>(o + (size_t)(row0 + row) * D + c8) =
+    if (row0 + row < n_rows && c8 < cols)
+      *reinterpret_cast<uint4*>(o + (size_t)(row0 + row) * d + c8) =
           *reinterpret_cast<const uint4*>(tile + row * LD + c8);
   }
 }
@@ -602,20 +629,20 @@ __global__ void __launch_bounds__(128)
                           const float* __restrict__ dv_acc,
                           bf16* __restrict__ dq, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, long n_dq, long n_kv,
-                          int q_len, int kv_len, int group,
+                          int q_len, int kv_len, int d, int group,
                           float sm_scale) {
   __shared__ __align__(16) bf16 tile[64 * (D + 8)];
   const long g = blockIdx.x;
   const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + HN - 1) / HN;
   if (g < n_dq)
-    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, sm_scale, 1, 0,
-                      tile);
+    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, d, sm_scale,
+                      1, 0, tile);
   else if (g < n_dq + n_kv)
-    post_chunk<D, D>(dk_acc, dk, g - n_dq, 2, HN, n_kvt, kv_len, sm_scale,
-                     group, 2L * n_kvt, tile);
+    post_chunk<D, D>(dk_acc, dk, g - n_dq, 2, HN, n_kvt, kv_len, d,
+                     sm_scale, group, 2L * n_kvt, tile);
   else
-    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, 1.f,
-                     group, 2L * n_kvt, tile);
+    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, d,
+                     1.f, group, 2L * n_kvt, tile);
 }
 
 struct Bf16Args {
@@ -627,36 +654,39 @@ struct Bf16Args {
   float *dq_acc, *dk_acc, *dv_acc;
   int* dq_turn;
   void *dq, *dk, *dv;
-  int batch, hq, hkv, q_len, kv_len, causal, window;
+  int batch, hq, hkv, q_len, kv_len, d, causal, window;
   float scale_log2, sm_scale;
 };
 
-template <int D, bool WINDOW, bool SEGS>
+template <int N, bool WINDOW, bool SEGS>
 cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
+  constexpr int ALLOC = Smem<tile_cols(N)>::ALLOC;
   static bool smem_set[kMaxDevices] = {};
-  const auto kernel = flash_bwd_main_kernel<D, WINDOW, SEGS>;
-  cudaError_t err = raise_smem_limit(kernel, Smem<D>::ALLOC, smem_set);
+  const auto kernel = flash_bwd_main_kernel<N, WINDOW, SEGS>;
+  cudaError_t err = raise_smem_limit(kernel, ALLOC, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mqs, mdo, mk, mv;
   const int bhq = a.batch * a.hq, bhk = a.batch * a.hkv;
-  if (!bf16_map(&mq, a.q, D, a.q_len, bhq, HM) ||
-      !bf16_map(&mqs, a.qs, D, a.q_len, bhq, HM) ||
-      !bf16_map(&mdo, a.dout, D, a.q_len, bhq, HM) ||
-      !bf16_map(&mk, a.k, D, a.kv_len, bhk, HN) ||
-      !bf16_map(&mv, a.v, D, a.kv_len, bhk, HN))
+  if (!bf16_map(&mq, a.q, a.d, a.q_len, bhq, HM) ||
+      !bf16_map(&mqs, a.qs, a.d, a.q_len, bhq, HM) ||
+      !bf16_map(&mdo, a.dout, a.d, a.q_len, bhq, HM) ||
+      !bf16_map(&mk, a.k, a.d, a.kv_len, bhk, HN) ||
+      !bf16_map(&mv, a.v, a.d, a.kv_len, bhk, HN))
     return cudaErrorInvalidValue;
   const int n_kvt = (a.kv_len + HN - 1) / HN;
   const int q_pad = (a.q_len + HM - 1) / HM * HM;
-  kernel<<<n_kvt * a.hq * a.batch, HTHREADS, Smem<D>::ALLOC, stream>>>(
+  kernel<<<n_kvt * a.hq * a.batch, HTHREADS, ALLOC, stream>>>(
       mq, mqs, mdo, mk, mv, a.lse2, a.delta, a.q_seg, a.kv_seg, a.table,
       a.dq_acc, a.dk_acc, a.dv_acc, a.dq_turn, a.batch, a.hq, a.hkv, a.q_len,
       a.kv_len, q_pad, a.causal, a.window);
   return cudaGetLastError();
 }
 
-// stages: 1 prep, 2 main, 4 post (chip_smoke.py times them one by one).
-template <int D>
+// The kernels of the instance of width N; stages: 1 prep, 2 main, 4 post
+// (chip_smoke.py times them one by one).
+template <int N>
 cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
+  constexpr int D = tile_cols(N);
   const int q_pad = (a.q_len + HM - 1) / HM * HM;
   const int n_bh = a.batch * a.hq;
   if (stages & 1) {
@@ -666,17 +696,17 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
                                32 * PREP_WARPS, 0, stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.out),
         static_cast<const bf16*>(a.dout), a.lse, static_cast<bf16*>(a.qs),
-        a.lse2, a.delta, n_bh, a.q_len, q_pad, a.scale_log2);
+        a.lse2, a.delta, n_bh, a.q_len, q_pad, a.d, a.scale_log2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (stages & 2) {
     const bool w = a.window > 0, s = a.q_seg != nullptr;
     const cudaError_t err =
-        w ? (s ? launch_main<D, true, true>(a, stream)
-               : launch_main<D, true, false>(a, stream))
-          : (s ? launch_main<D, false, true>(a, stream)
-               : launch_main<D, false, false>(a, stream));
+        w ? (s ? launch_main<N, true, true>(a, stream)
+               : launch_main<N, true, false>(a, stream))
+          : (s ? launch_main<N, false, true>(a, stream)
+               : launch_main<N, false, false>(a, stream));
     if (err != cudaSuccess) return err;
   }
   if (stages & 4) {
@@ -687,7 +717,7 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
                                stream>>>(
         a.dq_acc, a.dk_acc, a.dv_acc, static_cast<bf16*>(a.dq),
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n_dq, n_kv,
-        a.q_len, a.kv_len, a.hq / a.hkv, a.sm_scale);
+        a.q_len, a.kv_len, a.d, a.hq / a.hkv, a.sm_scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1185,7 +1215,10 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // kv-major work list of kv_items items; into dk_acc and dv_acc, kv_items x
 // batch x hq slots each), 4 the post (dq, dk, dv from the slots); every
 // slot is written; delta is an input, rowsum(dout * out). q_seg and kv_seg
-// are both null or both set; window 0 is none. head_dim: 64 or 128. The
+// are both null or both set; window 0 is none. head_dim: bf16 any multiple
+// of 8 up to 128, read and written at its true width by the instance
+// flash_width(head_dim, narrow) picks (hopper.cuh; dq_acc, the counters and
+// the slots at that instance's tile columns, 64 or 128); f32 64 or 128. The
 // caller has checked shapes, contiguity and 16-byte alignment.
 extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
@@ -1195,11 +1228,10 @@ extern "C" int tfa_flash_bwd(
     void* dq_turn, void* dq, void* dk, void* dv, int batch, int hq, int hkv,
     int q_len, int kv_len, int head_dim, int causal, int window,
     int kv_items, int q_items, float scale_log2, float sm_scale, int dtype,
-    int stages, void* stream) {
+    int narrow, int stages, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || q_len <= 0 ||
       kv_len <= 0 || (q_seg == nullptr) != (kv_seg == nullptr) ||
-      window < 0 || (window > 0 && !causal) ||
-      (head_dim != 64 && head_dim != 128))
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qseg = static_cast<const int*>(q_seg);
@@ -1211,11 +1243,17 @@ extern "C" int tfa_flash_bwd(
                      static_cast<float*>(dq_acc), static_cast<float*>(dk_acc),
                      static_cast<float*>(dv_acc), static_cast<int*>(dq_turn),
                      dq, dk, dv, batch, hq, hkv,
-                     q_len, kv_len, causal, window, scale_log2, sm_scale};
-    return (int)(head_dim == 128 ? launch_bf16<128>(a, stages, s)
-                                 : launch_bf16<64>(a, stages, s));
+                     q_len, kv_len, head_dim, causal, window, scale_log2,
+                     sm_scale};
+    switch (flash_width(head_dim, narrow)) {
+      case 64: return (int)launch_bf16<64>(a, stages, s);
+      case 80: return (int)launch_bf16<80>(a, stages, s);
+      case 96: return (int)launch_bf16<96>(a, stages, s);
+      case 128: return (int)launch_bf16<128>(a, stages, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  if (dtype == 1) {
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
     if (kv_items < (kv_len + FT - 1) / FT || q_items < (q_len + FT - 1) / FT)
       return (int)cudaErrorInvalidValue;
     const F32Args a{static_cast<const float*>(q),

@@ -16,8 +16,11 @@
 #include "flash_fwd_wgmma.cuh"
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype: 0 bf16,
-// 1 f32. head_dim: 64 or 128. q_seg, kv_seg, tile_lo, tile_order and
-// seq_lens may each be null (FwdMasks); tile_lo and tile_order hold one
+// 1 f32. head_dim: bf16 any multiple of 8 up to 128, read and written at
+// its true width by the instance flash_width(head_dim, narrow) picks
+// (hopper.cuh: 64, 80, 96 or 128; narrow 0 takes 64 or 128); f32 64 or
+// 128. q_seg, kv_seg, tile_lo, tile_order and seq_lens may each be null
+// (FwdMasks); tile_lo and tile_order hold one
 // int per q tile of the bf16 instance's block_m (the f32 instance takes
 // neither: its work list holds the pruned ranges and their order). work,
 // n_items, partials, arrivals: the f32 instance's runs and merge workspace
@@ -33,7 +36,8 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* arrivals, int batch, int hq, int hkv,
                              int q_len, int kv_len, int head_dim,
                              int causal, int window, int n_items,
-                             float scale_log2, int dtype, void* stream) {
+                             float scale_log2, int dtype, int narrow,
+                             void* stream) {
   if (!fwd_args_valid(batch, hq, hkv, q_len, kv_len, q_seg, kv_seg, seq_lens,
                       causal, window))
     return (int)cudaErrorInvalidValue;
@@ -48,14 +52,20 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
                      static_cast<int*>(arrivals)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QuantKv bf16_kv{nullptr, nullptr, nullptr, nullptr, 0};
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_wgmma_fwd<128, kNone>(q, k, v, o, lse, mk, bf16_kv,
-                                             batch, hq, hkv, q_len, kv_len,
-                                             causal, window, scale_log2, s);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_wgmma_fwd<64, kNone>(q, k, v, o, lse, mk, bf16_kv,
-                                            batch, hq, hkv, q_len, kv_len,
-                                            causal, window, scale_log2, s);
+  if (dtype == 0) {
+    const auto launch = [&](auto width) {
+      return (int)launch_wgmma_fwd<decltype(width)::value, kNone>(
+          q, k, v, o, lse, mk, bf16_kv, batch, hq, hkv, q_len, kv_len,
+          head_dim, causal, window, scale_log2, s);
+    };
+    switch (flash_width(head_dim, narrow)) {
+      case 64: return launch(std::integral_constant<int, 64>());
+      case 80: return launch(std::integral_constant<int, 80>());
+      case 96: return launch(std::integral_constant<int, 96>());
+      case 128: return launch(std::integral_constant<int, 128>());
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 1 && head_dim == 128)
     return (int)launch_f32<128, kNone>(q, k, v, o, lse, mk, none, runs,
                                        batch, hq, hkv, q_len, kv_len, causal,
@@ -68,8 +78,10 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory one block of the instance for dtype (0 bf16,
-// 1 f32) and head_dim (64 or 128) takes; -1 for any other. ops/flash.py
-// holds ops/configs.py::fwd_smem_bytes to it when it loads this library.
+// 1 f32) and head_dim (64 or 128: the tiles' columns, which the bf16
+// instances of width 80 and 96 share with 128) takes; -1 for any other.
+// ops/flash.py holds ops/configs.py::fwd_smem_bytes to it when it loads
+// this library.
 extern "C" int tfa_flash_fwd_smem(int dtype, int head_dim) {
   if (dtype == 0 && head_dim == 128) return FwdSmem<128, false>::ALLOC;
   if (dtype == 0 && head_dim == 64) return FwdSmem<64, false>::ALLOC;

@@ -120,13 +120,14 @@ __device__ __forceinline__ int window_lo(int lo, int hi, int pos, int window,
   return left > 0 ? max(lo, min(left / bn, hi - 1)) : lo;
 }
 
-// Rows [q0, q0 + rows) as empty rows: out 0, LSE the sentinel m * ln2 of a
-// row whose running max stayed at the mask value. Zero is all-zero bits in
-// bf16 and f32, and a row of D = 64 or 128 elements is whole 16-byte stores.
-template <typename T, int D>
-__device__ void write_empty_rows(T* og, float* lg, int q0, int rows) {
-  uint4* dst = reinterpret_cast<uint4*>(og + (size_t)q0 * D);
-  const int n = rows * D * (int)sizeof(T) / 16;
+// Rows [q0, q0 + rows) of width w as empty rows: out 0, LSE the sentinel m
+// * ln2 of a row whose running max stayed at the mask value. Zero is
+// all-zero bits in bf16 and f32, and the rows are whole 16-byte stores (w a
+// multiple of 8 in bf16, and q0 a multiple of 8).
+template <typename T>
+__device__ void write_empty_rows(T* og, float* lg, int q0, int rows, int w) {
+  uint4* dst = reinterpret_cast<uint4*>(og + (size_t)q0 * w);
+  const int n = rows * w * (int)sizeof(T) / 16;
   for (int c = threadIdx.x; c < n; c += blockDim.x)
     dst[c] = make_uint4(0u, 0u, 0u, 0u);
   for (int r = threadIdx.x; r < rows; r += blockDim.x)

@@ -40,11 +40,11 @@ cudaError_t launch_quant(const void* q, const void* k, const void* v,
                    static_cast<const uint8_t*>(v), sc.k, sc.v, sc.ld};
   if (dtype == 0 && head_dim == 128)
     return launch_wgmma_fwd<128, FMT>(q, k, v, o, lse, mk, qk, batch, hq,
-                                      hkv, q_len, kv_len, causal, window,
-                                      scale_log2, s);
+                                      hkv, q_len, kv_len, 128, causal,
+                                      window, scale_log2, s);
   if (dtype == 0 && head_dim == 64)
     return launch_wgmma_fwd<64, FMT>(q, k, v, o, lse, mk, qk, batch, hq, hkv,
-                                     q_len, kv_len, causal, window,
+                                     q_len, kv_len, 64, causal, window,
                                      scale_log2, s);
   if (dtype == 1 && head_dim == 128)
     return launch_f32<128, FMT>(q, k, v, o, lse, mk, sc, runs, batch, hq,

@@ -5,7 +5,7 @@
 // from segment_starts, the window, the jagged seq_lens mode, the mask value
 // and the empty-row sentinel) are those of flash_fwd.cuh.
 //
-// What bounds it: the tensor-core FLOPs (4 * D per visible (row, column)
+// What bounds it: the tensor-core FLOPs (4 * d per visible (row, column)
 // pair and q head), far above the card's operations-per-byte ridge at
 // prefill shapes. The design, FA3's structure (without its persistent tile
 // scheduler):
@@ -16,14 +16,25 @@
 //     pairs.
 //   * one elected producer thread loads the q tile once by TMA. bf16 K/V:
 //     the same thread streams 128-row K and V tiles through a ring of STAGES
-//     stages by TMA: 3-D tensor maps over (D, rows, batch * heads) in the
-//     128-byte swizzle, head_dim 128 as two 64-column boxes, rows past a
-//     head's length filled with zeros (the mask covers them). Each stage has
-//     a full barrier for K and its kv ids, one for V (so S starts before V
-//     has landed), and an empty barrier on which the 256 consumer threads
-//     arrive once they have read it. The kv ids come by bulk copy where
-//     kv_len and the pointer keep the source 16-byte aligned, else by the
-//     producer warp's own loads.
+//     stages by TMA: 3-D tensor maps over (d, rows, batch * heads) in the
+//     128-byte swizzle, tiles of D = 128 columns as two 64-column boxes,
+//     rows past a head's length filled with zeros (the mask covers them).
+//     Each stage has a full barrier for K and its kv ids, one for V (so S
+//     starts before V has landed), and an empty barrier on which the 256
+//     consumer threads arrive once they have read it. The kv ids come by
+//     bulk copy where kv_len and the pointer keep the source 16-byte
+//     aligned, else by the producer warp's own loads.
+//   * q, K, V and out are read and written at their true head_dim d (any
+//     multiple of 8 up to the tiles' D; hopper.cuh::flash_width picks the
+//     instance): the maps' boxes land zeros past column d, and those zero
+//     columns add exact zeros to every product, so the result is the bits
+//     of the same call on tensors padded to D. An instance of width N (64,
+//     80, 96 or 128) runs its products over N columns only: S over N / 16
+//     k-steps, PV as m64nNk16 (a 48-float O at N = 96), so at d = 96 a
+//     third of the padded products is not issued (each output column
+//     accumulates alone, and a skipped k-step would add exact zeros). The
+//     epilogue stores the columns below d at stride d: no pad or slice
+//     copy.
 //   * quantized K/V (FMT kInt8 or kE4m3): the producer warpgroup fills the
 //     same ring in the same layout, so the consumers see a stage exactly as
 //     they do over bf16 K/V. Its elected thread bulk-copies a tile's K and V
@@ -55,7 +66,7 @@
 //   * a consumer folds bf16(sm_scale * log2 e) into its 64 rows of q in
 //     shared memory (generic stores, then the async-proxy fence and a
 //     warpgroup barrier before wgmma reads them), then for each kv tile: S =
-//     Q K^T as SS wgmma m64n128k16 over D / 16 steps; quantized, s times the
+//     Q K^T as SS wgmma m64n128k16 over N / 16 steps; quantized, s times the
 //     k scale of its column; the element mask, paid only by warps whose tile
 //     straddles the diagonal, the window's left edge or the kv edge, or has
 //     ids; the online softmax in f32 in the log2 domain (the accumulator
@@ -65,7 +76,7 @@
 //     flushed, as in the backward; l sums the bare p); P rounded to bf16
 //     (quantized: p times the v scale of its column in f32 first, the one
 //     rounding after) is, packed, the A operand of the RS wgmma O += P V (V
-//     read MN-major, m64n{D}k16 over 8 steps); then the stage is released.
+//     read MN-major, m64n{N}k16 over 8 steps); then the stage is released.
 //     Tile j's S product is issued before tile j - 1's PV product, so the
 //     softmax of tile j runs while the tensor cores do that PV product
 //     (FA3's intra-warpgroup overlap), and O is rescaled once it has landed.
@@ -137,9 +148,9 @@ struct FwdSmem {
   static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
 };
 
-// Quantized K/V of one launch: payloads (B, hkv, kv_len, D) bytes and
-// scales (B, hkv, ld) f32, ld at least kv_len rounded up to a whole kv tile
-// (zeros past kv_len); null for bf16 K/V.
+// Quantized K/V of one launch (instances with N = D = d only): payloads (B,
+// hkv, kv_len, D) bytes and scales (B, hkv, ld) f32, ld at least kv_len
+// rounded up to a whole kv tile (zeros past kv_len); null for bf16 K/V.
 struct QuantKv {
   const uint8_t* k;
   const uint8_t* v;
@@ -216,16 +227,20 @@ __device__ __forceinline__ void sts16(void* p, const uint4& v) {
                : "memory");
 }
 
-template <int D, bool WINDOW, bool SEGS, int FMT>
+// N: the instance's product width; d: the true head_dim (d <= N, the row
+// stride of q, K, V and out).
+template <int N, bool WINDOW, bool SEGS, int FMT>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, FwdMasks mk, int hq,
-                           int hkv, int q_len, int kv_len, int causal,
+                           int hkv, int q_len, int kv_len, int d, int causal,
                            float scale_log2, int window, QuantKv qk) {
   constexpr bool QUANT = FMT != kNone;
+  constexpr int D = tile_cols(N);                // shared-memory tile columns
+  static_assert(!QUANT || N == D, "payload rows are whole tiles");
   using S = FwdSmem<D, QUANT>;
   constexpr int STAGES = S::STAGES;
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
@@ -246,14 +261,14 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
   const int offset = kv_len - q_len;
-  __nv_bfloat16* og = o + (size_t)(b * hq + h) * q_len * D;
+  __nv_bfloat16* og = o + (size_t)(b * hq + h) * q_len * d;
   float* lg = lse + (size_t)(b * hq + h) * q_len;
   // jagged: columns end at L (the kv length otherwise), rows at L (q_len)
   const int col_end =
       mk.seq_lens ? min(max(mk.seq_lens[b], 0), kv_len) : kv_len;
   const int row_end = mk.seq_lens ? col_end : q_len;
   if (q0 >= row_end) {  // a jagged tile wholly past its row's length
-    write_empty_rows<__nv_bfloat16, D>(og, lg, q0, min(WM, q_len - q0));
+    write_empty_rows(og, lg, q0, min(WM, q_len - q0), d);
     return;
   }
   const int hi = min(kv_tiles(q0, WM, q_len, kv_len, causal, WN),
@@ -467,9 +482,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
           sh + kv0 + 8 * jj + 2 * (lane % 4)));
     };
 
-    float oacc[D / 2];
+    float oacc[N / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) oacc[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // per-thread partial sums, quad-reduced last
 
@@ -599,7 +614,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       const unsigned char* kt = sm + S::K + st * S::KV;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < N / 16; ++kk)
         wgmma_ss_n128<0, 0>(
             s, smem_desc(qw + (kk / 4) * WM * 128 + (kk % 4) * 32, 16, 1024),
             smem_desc(kt + (kk / 4) * WN * 128 + (kk % 4) * 32, 16, 1024),
@@ -613,9 +628,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WN / 16; ++kk) {
-        const uint64_t db = smem_desc(vt + kk * 16 * 128, WN * 128, 1024);
-        if constexpr (D == 128) wgmma_rs_n128(oacc, pa[kk], db);
-        else wgmma_rs_n64(oacc, pa[kk], db);
+        wgmma_rs<N>(oacc, pa[kk],
+                    smem_desc(vt + kk * 16 * 128, WN * 128, 1024));
       }
       wgmma_commit();
     };
@@ -664,7 +678,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         fence_regs(pa);
         mbar_arrive(&empty[prev]);  // this thread has read stage prev
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < N / 8; ++i) {
           oacc[4 * i + 0] *= alpha[0];
           oacc[4 * i + 1] *= alpha[0];
           oacc[4 * i + 2] *= alpha[1];
@@ -705,12 +719,29 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       const float l_safe = (l == 0.f || l != l) ? 1.f : l;
       const int row = qrow + r * 8;
       if (row < q_len) {
+        // The columns below d (8-column groups: d is a multiple of 8). At d
+        // == N every column, at the constant stride N, with no branch: a
+        // branch around each group serializes the divisions (5 % of B1's
+        // time at head_dim 128). Below N a branch skips each group past d,
+        // its divisions too: computing every group first and storing the
+        // ones below d was 8-14 % slower at head_dim 80 and 96 on the
+        // 128-wide instance (PERF.md).
+        if (d == N) {
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-          const int col = 8 * i + 2 * (lane % 4);
-          *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * D + col) =
-              __floats2bfloat162_rn(oacc[4 * i + 2 * r] / l_safe,
-                                    oacc[4 * i + 2 * r + 1] / l_safe);
+          for (int i = 0; i < N / 8; ++i) {
+            const int col = 8 * i + 2 * (lane % 4);
+            *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * N + col) =
+                __floats2bfloat162_rn(oacc[4 * i + 2 * r] / l_safe,
+                                      oacc[4 * i + 2 * r + 1] / l_safe);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < N / 8; ++i)
+            if (8 * i < d)
+              *reinterpret_cast<uint32_t*>(og + (size_t)row * d + 8 * i +
+                                           2 * (lane % 4)) =
+                  pack_bf16(oacc[4 * i + 2 * r] / l_safe,
+                            oacc[4 * i + 2 * r + 1] / l_safe);
         }
         if (lane % 4 == 0) lg[row] = m_run[r] * kLn2 + logf(l_safe);
       }
@@ -718,25 +749,26 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
-// One launch of the wgmma kernel: bf16 q (and, for FMT kNone, bf16 K/V by
-// TMA); qk the payloads and scales for FMT kInt8 / kE4m3.
-template <int D, bool WINDOW, bool SEGS, int FMT>
+// One launch of the wgmma kernel of width N at head_dim d: bf16 q (and,
+// for FMT kNone, bf16 K/V by TMA); qk the payloads and scales for FMT
+// kInt8 / kE4m3 (d == N).
+template <int N, bool WINDOW, bool SEGS, int FMT>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, void* lse, const FwdMasks& mk,
                          const QuantKv& qk, int batch, int hq, int hkv,
-                         int q_len, int kv_len, int causal, int window,
-                         float scale_log2, cudaStream_t stream) {
-  using S = FwdSmem<D, FMT != kNone>;
-  const auto kernel = flash_fwd_wgmma_kernel<D, WINDOW, SEGS, FMT>;
+                         int q_len, int kv_len, int d, int causal,
+                         int window, float scale_log2, cudaStream_t stream) {
+  using S = FwdSmem<tile_cols(N), FMT != kNone>;
+  const auto kernel = flash_fwd_wgmma_kernel<N, WINDOW, SEGS, FMT>;
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(kernel, S::ALLOC, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mkv[2];
-  if (!bf16_map(&mq, q, D, q_len, batch * hq, WM))
+  if (!bf16_map(&mq, q, d, q_len, batch * hq, WM))
     return cudaErrorInvalidValue;
   if (FMT == kNone) {
-    if (!bf16_map(&mkv[0], k, D, kv_len, batch * hkv, WN) ||
-        !bf16_map(&mkv[1], v, D, kv_len, batch * hkv, WN))
+    if (!bf16_map(&mkv[0], k, d, kv_len, batch * hkv, WN) ||
+        !bf16_map(&mkv[1], v, d, kv_len, batch * hkv, WN))
       return cudaErrorInvalidValue;
   } else {
     mkv[0] = mkv[1] = mq;  // not read: the producer loads the payloads
@@ -744,24 +776,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid((q_len + WM - 1) / WM, hq, batch);
   kernel<<<grid, WTHREADS, S::ALLOC, stream>>>(
       mq, mkv[0], mkv[1], static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, causal,
+      static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, d, causal,
       scale_log2, window, qk);
   return cudaGetLastError();
 }
 
-// The instance for the window and the ids of one launch.
-template <int D, int FMT>
+// The instance of width N for the window and the ids of one launch.
+template <int N, int FMT>
 cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const FwdMasks& mk,
                              const QuantKv& qk, int batch, int hq, int hkv,
-                             int q_len, int kv_len, int causal, int window,
-                             float scale_log2, cudaStream_t s) {
+                             int q_len, int kv_len, int d, int causal,
+                             int window, float scale_log2, cudaStream_t s) {
   const bool w = window > 0, g = mk.q_seg != nullptr;
-  const auto launch = w ? (g ? launch_wgmma<D, true, true, FMT>
-                             : launch_wgmma<D, true, false, FMT>)
-                        : (g ? launch_wgmma<D, false, true, FMT>
-                             : launch_wgmma<D, false, false, FMT>);
-  return launch(q, k, v, o, lse, mk, qk, batch, hq, hkv, q_len, kv_len,
+  const auto launch = w ? (g ? launch_wgmma<N, true, true, FMT>
+                             : launch_wgmma<N, true, false, FMT>)
+                        : (g ? launch_wgmma<N, false, true, FMT>
+                             : launch_wgmma<N, false, false, FMT>);
+  return launch(q, k, v, o, lse, mk, qk, batch, hq, hkv, q_len, kv_len, d,
                 causal, window, scale_log2, s);
 }
 

@@ -50,7 +50,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 }
 
 // TMA: a box of a 3-D tensor map at (c0, c1, c2) into shared memory,
-// completing on `bar`; rows past the tensor's end land as zeros.
+// completing on `bar` with the whole box's bytes; rows and columns past the
+// tensor's end land as zeros.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -259,7 +260,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// d (64 x 80, f32) += A (64 x 16, bf16 in registers) * B (16 x 80) from
+// shared memory, B MN-major (transposed): 80 columns are whole 64-column
+// blocks and a part of the next (lbo apart), read in 8-column pieces.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 96, f32) += A (64 x 16, bf16 in registers) * B (16 x 96) from
+// shared memory, B MN-major (transposed): 96 columns are whole 64-column
+// blocks and a part of the next (lbo apart), read in 8-column pieces.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 // clang-format on
+
+// The RS product at the instance's width N (64, 80, 96 or 128 columns of B).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128, "a wgmma width");
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// The bf16 flash kernels' instances: a product width N (the columns their
+// products cover, at least the head_dim d they serve) over shared-memory
+// tiles of tile_cols(N) columns (64, or two 64-column boxes). Rows of any d
+// are read and written at their true width, the tiles' columns past d
+// zero-filled by TMA.
+__host__ __device__ constexpr int tile_cols(int n) {
+  return n <= 64 ? 64 : 128;
+}
+
+// The width of the instance that serves head_dim d, a multiple of 8 up to
+// 128 (0 for any other d): 64 up to 64; with `narrow` 80 and 96 up to them
+// (their products skip the zero columns), else 128.
+inline int flash_width(int d, int narrow) {
+  if (d <= 0 || d > 128 || d % 8 != 0) return 0;
+  if (d <= 64) return 64;
+  if (narrow && d <= 80) return 80;
+  if (narrow && d <= 96) return 96;
+  return 128;
+}
 
 // Warpgroup register reallocation (the whole warpgroup executes it): a
 // producer warpgroup gives its registers back, consumers take them.
@@ -302,8 +365,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, rows, heads) bf16 tensor as a 3-D map with boxes of 64 columns x
-// box_rows rows of one head, in the 128-byte swizzle.
+// A (d, rows, heads) bf16 tensor as a 3-D map with boxes of 64 columns x
+// box_rows rows of one head, in the 128-byte swizzle. d is the tensor's true
+// width (its row stride, a multiple of 8: a tensor map's strides are whole
+// 16-byte pieces); a box that reaches past column d lands zeros there, as
+// past the last row.
 bool bf16_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
               int box_rows) {
   const EncodeTiled enc = encode_tiled();

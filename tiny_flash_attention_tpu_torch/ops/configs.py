@@ -30,6 +30,14 @@ class TileConfig:
 # bytes at head_dim 128.
 FLASH_FWD_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_FWD_BF16_STAGES = 3   # ring stages
+# The bf16 forward and backward read any head_dim d that is a multiple of 8
+# at its true width (ops/dims.py::flash_head_dim). With
+# FLASH_NARROW_PRODUCTS (read at each call) a d in (64, 80] or (80, 96]
+# runs the instances of width 80 or 96 (csrc/hopper.cuh::flash_width), whose
+# products skip the zero columns of the 128-column tiles; without it, the
+# 128-wide instance, whose products run over those zeros (the bits are the
+# same: chip_smoke.py times both in one call, PERF.md).
+FLASH_NARROW_PRODUCTS = True
 # f32 forward on the CUDA cores (csrc/flash_fwd.cuh's f32 body): 256
 # threads over a 128 x 64 score tile, 8 x 4 scores and 8 x D/16 outputs a
 # thread; K and V stream through a two-stage cp.async ring. Where the q

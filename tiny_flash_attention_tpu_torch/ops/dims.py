@@ -5,12 +5,21 @@ pad head_dim to whole 128-lane tiles with zero columns
 (tiny_flash_attention_tpu/ops/flash.py:423-431, ops/flash_bwd.py:478-493),
 its decodes pad the q rows of a kv head to a multiple of 8
 (ops/paged_fused.py:503-506, ops/paged.py:287), and each slices the result
-back. The port's kernels compile a few instances (the flash kernels head_dim
-64 and 128; the decodes groups 1, 2, 4 and 8), so the wrappers do the same
-with these plain functions:
+back. The port's kernels compile a few instances (the flash kernels' tiles
+of 64 and 128 columns; the decodes groups 1, 2, 4 and 8), so the wrappers
+do the same with these plain functions where a kernel cannot read the true
+shape in place:
 
+- `flash_head_dim`: the one rule. The bf16 forward over bf16 K/V and the
+  bf16 backward read and write any head_dim that is a multiple of 8 up to
+  128 at its true width (`reads_in_place`): their tensor maps land zeros
+  past column d and their epilogues store only the columns below d, so
+  they are handed the tensors as they are. Every other head_dim below 128
+  (not a multiple of 8: a tensor map's row stride is whole 16-byte pieces),
+  and every head_dim of the f32 instances, the quantized forward and FA1,
+  is padded to `kernel_head_dim`.
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
-  the next instance, 64 below it and 128 up to it. A zero column adds
+  the next tile width, 64 below it and 128 up to it. A zero column adds
   exact zeros to every q k^T product, so the scores, the softmax, the LSE
   and the true columns of out and of every gradient are unchanged; the
   padded columns of out and of the gradients come out 0. The softmax
@@ -24,6 +33,8 @@ with these plain functions:
   lane, over the 255 registers a thread may use at head_dim 128.
 
 A head_dim that is already an instance is passed through without a copy.
+`pad_head_dim.copies` counts the copies it makes, so a caller (the card
+tests, chip_smoke.py) can show that a path copies nothing.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-# head dims the flash kernels (forward, backward, FA1) compile
+# the flash kernels' tile widths (forward, backward, FA1)
 FLASH_HEAD_DIMS = (64, 128)
 # head dims and q rows a kv head that the decode kernels compile
 DECODE_HEAD_DIMS = (64, 80, 96, 128)
@@ -52,16 +63,41 @@ def kernel_head_dim(d: int, what: str) -> int:
         f"(padded to {' or '.join(map(str, FLASH_HEAD_DIMS))})")
 
 
+def reads_in_place(d: int) -> bool:
+    """Whether the bf16 forward and backward kernels take head_dim d at its
+    true width: a multiple of 8 (rows of whole 16-byte pieces, a tensor
+    map's stride) up to 128."""
+    return 0 < d <= FLASH_HEAD_DIMS[-1] and d % 8 == 0
+
+
+def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
+                   quantized: bool = False) -> int:
+    """The head_dim a flash forward or backward kernel is handed for
+    tensors of head_dim d: d itself where it reads them in place (bf16
+    over bf16 K/V, `reads_in_place`), else `kernel_head_dim(d)`, the
+    width they are padded to (f32, quantized K/V, d not a multiple of 8).
+    Raises NotImplementedError above 128, naming `what`."""
+    dk = kernel_head_dim(d, what)
+    if dtype == torch.bfloat16 and not quantized and reads_in_place(d):
+        return d
+    return dk
+
+
 def pad_head_dim(x: torch.Tensor, dk: int) -> torch.Tensor:
     """x (..., d) with dk - d zero columns appended (x itself when d ==
     dk). One-byte payloads (int8, e4m3) pad with code 0 through a byte
-    view: both codes are exact zeros."""
+    view: both codes are exact zeros. Each copy adds one to
+    `pad_head_dim.copies`."""
     d = x.shape[-1]
     if d == dk:
         return x
+    pad_head_dim.copies += 1
     if x.element_size() == 1:
         return F.pad(x.view(torch.uint8), (0, dk - d)).view(x.dtype)
     return F.pad(x, (0, dk - d))
+
+
+pad_head_dim.copies = 0
 
 
 def unpad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:

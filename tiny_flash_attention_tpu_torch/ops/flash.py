@@ -8,16 +8,21 @@ f32: the CUDA cores over 128-row q and 64-row kv tiles). A CPU tensor takes the 
 (`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
 the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
-(head_dim above 128). The kernel compiles head_dim 64 and 128; any other
-head_dim up to 128 is padded with zero columns to the next of them and the
-output sliced back (ops/dims.py), as JAX pads to 128 lanes; the autograd
-Function pads once and saves the padded tensors, so the backward runs on
-them and returns gradients at the true head_dim. The f32 instance walks a
-work list (`fwd_f32_work`): each q tile's kv range cut into runs, one block
-each, merged in run order in the kernel (`f32_split_merge_plain` is that layout
-and order in plain PyTorch). Quantized K/V take the quantized instances
-of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the same wgmma/TMA kernel
-over 128-row tiles, its producer converting the payloads), through
+(head_dim above 128). The bf16 kernel over bf16 K/V reads and writes any
+head_dim that is a multiple of 8 at its true width (the zero columns of
+JAX's padding to 128 lanes, which add exact zeros, are TMA's fill past
+column d); every other head_dim up to 128, and every head_dim of the f32
+and quantized instances (tiles of 64 and 128 columns), is padded with zero
+columns to the next tile width and the output sliced back
+(ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
+handed the kernel (padded only where the forward padded), so the backward
+runs on them and returns gradients at the true head_dim. The f32 instance
+walks a work list (`fwd_f32_work`): each q tile's kv range cut into runs,
+one block each, merged in run order in the kernel (`f32_split_merge_plain`
+is that layout and order in plain PyTorch). Quantized K/V take the
+quantized instances of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the
+same wgmma/TMA kernel over 128-row tiles, its producer converting the
+payloads), through
 ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
 kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
 JAX's `_build_worklist` prunes its work list to the block diagonal, built
@@ -51,7 +56,7 @@ from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_F32, TileConfig, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, flash_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -362,9 +367,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, sm_scale: float, masks: dict):
         ctx.d = q.shape[-1]
         if q.is_cuda:
-            # pad once to the kernels' head_dim; the backward runs on the
-            # saved padded tensors
-            dk = kernel_head_dim(ctx.d, "the CUDA forward kernel")
+            # pad once where the kernels do not read the head_dim in place;
+            # the backward runs on the saved tensors
+            dk = flash_head_dim(ctx.d, q.dtype, "the CUDA forward kernel")
             q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         window = masks.get("window")
@@ -584,7 +589,8 @@ def _flash_fwd_fn():
     if fn.argtypes is None:
         check_smem_layouts(lib, quantized=False)
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -661,8 +667,9 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     window (causal, no seq_lengths) its sliding window. With k_scales and
     v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
-    run, every mask but the jagged mode included. A head_dim under 128
-    that the kernels do not compile runs padded (ops/dims.py) and out
+    run, every mask but the jagged mode included. bf16 over bf16 K/V reads
+    and writes any head_dim that is a multiple of 8 in place; any other
+    head_dim under 128 runs padded (ops/dims.py::flash_head_dim) and out
     comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -689,7 +696,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             f"the CUDA forward kernel takes bf16 or f32 q/k/v of one dtype "
             f"(int8 or e4m3 K/V with their scales), got {q.dtype}, "
             f"{k.dtype}, {v.dtype}")
-    dk = kernel_head_dim(d, "the CUDA forward kernel")
+    dk = flash_head_dim(d, q.dtype, "the CUDA forward kernel",
+                        quantized=quantized)
     if not (k.is_cuda and v.is_cuda and k.device == q.device
             and v.device == q.device):
         raise ValueError("q, k and v must be on one CUDA device")
@@ -748,6 +756,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         else:
             err = _flash_fwd_fn()(
                 *ptrs, None if seq_lengths is None else seq_lengths.data_ptr(),
-                *runs, *dims, scale_log2, _KERNEL_DTYPES[q.dtype], stream)
+                *runs, *dims, scale_log2, _KERNEL_DTYPES[q.dtype],
+                int(configs.FLASH_NARROW_PRODUCTS), stream)
     _build.check(err, "flash_fwd_quant" if quantized else "flash_fwd")
     return out, lse

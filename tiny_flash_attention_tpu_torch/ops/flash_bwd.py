@@ -12,10 +12,13 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V,
-head_dim above 128). The kernels compile head_dim 64 and 128; other head
-dims run padded with zero columns to the next of them, the gradients
-sliced back (ops/dims.py), as JAX pads its backward to 128 lanes. There is
-no fallback from the card to the plain version.
+head_dim above 128). The bf16 kernels read q, k, v, out and do and write
+dq, dk and dv at any head_dim that is a multiple of 8 in place (JAX pads
+its backward to 128 lanes; the kernels' tiles take TMA's zeros past the
+true head_dim instead); other head dims, and the f32 kernels' (64 and 128),
+run padded with zero columns to the next tile width, the gradients sliced
+back (ops/dims.py::flash_head_dim). There is no fallback from the card to
+the plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -59,7 +62,8 @@ from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_BWD_BF16, FLASH_BWD_F32, bwd_f32_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, flash_head_dim, kernel_head_dim, pad_head_dim,
+    unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _aligned, as_int32, in_dtype, run_work,
     visible_mask)
@@ -389,7 +393,7 @@ def _flash_bwd_fn():
         check_f32_smem(lib)
         fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -403,9 +407,11 @@ def _check_inputs(q, k, v, out, lse, do) -> None:
             f"the CUDA backward kernels take bf16 or f32 tensors of one "
             f"dtype (quantized K/V have no backward, as in JAX), got "
             f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {do.dtype}")
-    if d not in FLASH_HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d}: the CUDA backward kernels "
-                                  f"take {FLASH_HEAD_DIMS}")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
+    if dk != d:
+        raise NotImplementedError(
+            f"head_dim {d}: the CUDA {str(q.dtype).split('.')[-1]} backward "
+            f"kernels take it padded to {dk} (flash_attention_bwd pads)")
     if lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32, got {lse.dtype}")
     if any(not t.is_cuda or t.device != q.device
@@ -465,9 +471,12 @@ class BwdLaunch:
                 q_seg = F.pad(q_seg, (0, q_pad - q_len)).contiguous()
             # dq's f32 sums, then the chain counters of each (batch, q
             # head, q tile, 64-column part), zeroed together; dk and dv in
-            # one f32 slot per q head, written whole by the main kernel
-            n_dq, n_kv = bs * hq * q_pad * d, bs * hq * kv_pad * d
-            n_cnt = bs * hq * (q_pad // cfg.block_m) * (d // 64)
+            # one f32 slot per q head, written by the main kernel: all at
+            # the tiles' width (64 or 128 columns, the head dims past d 0
+            # or unread)
+            w = kernel_head_dim(d, "the CUDA backward kernels")
+            n_dq, n_kv = bs * hq * q_pad * w, bs * hq * kv_pad * w
+            n_cnt = bs * hq * (q_pad // cfg.block_m) * (w // 64)
             acc = torch.zeros(n_dq + n_cnt, dtype=torch.float32,
                               device=q.device)
             dkv = torch.empty(2 * n_kv, dtype=torch.float32,
@@ -500,7 +509,7 @@ class BwdLaunch:
             *(g.data_ptr() for g in self.grads),
             bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
             *items, in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
-            _KERNEL_DTYPES[q.dtype])
+            _KERNEL_DTYPES[q.dtype], int(configs.FLASH_NARROW_PRODUCTS))
         self.device = q.device
 
     def run(self, stages: int = 7) -> None:
@@ -511,11 +520,12 @@ class BwdLaunch:
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, **kw):
-    """Launches the kernels of csrc/flash_bwd.cu, on q, k, v, out and do
-    padded to the kernels' head_dim; returns (dq, dk, dv) at the true
+    """Launches the kernels of csrc/flash_bwd.cu on q, k, v, out and do as
+    they are, or padded where the kernels do not read the head_dim in place
+    (ops/dims.py::flash_head_dim); returns (dq, dk, dv) at the true
     head_dim."""
     d = q.shape[-1]
-    dk = kernel_head_dim(d, "the CUDA backward kernels")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
     q, k, v, out, do = (pad_head_dim(t, dk) for t in (q, k, v, out, do))
     call = BwdLaunch(q, k, v, out, lse, do, **kw)
     call.run()
