@@ -295,14 +295,16 @@ def instance_registers(ptxas_log: str) -> list:
                 r"stores.*?Used (\d+) registers", ptxas_log, re.S)]
 
 
-def spilling_instances(ptxas_log: str) -> list:
+def spilling_instances(ptxas_log: str, every: bool = False) -> list:
     """'kernel<template args>: registers/spill bytes' for each kernel
-    instance of a ptxas -v log that spills, demangled by c++filt where the
-    toolkit's host has it (the decodes' instances take types as template
-    arguments, which `kernel_label` does not read)."""
+    instance of a ptxas -v log that spills (with `every`, for each),
+    demangled by c++filt where the toolkit's host has it (the decodes'
+    instances take types as template arguments, which `kernel_label` does
+    not read)."""
     found = [(name, int(spills), regs) for name, spills, regs in re.findall(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
-        r"stores.*?Used (\d+) registers", ptxas_log, re.S) if int(spills)]
+        r"stores.*?Used (\d+) registers", ptxas_log, re.S)
+        if every or int(spills)]
     names = [name for name, _, _ in found]
     filt = shutil.which("c++filt")
     if filt and names:
@@ -862,32 +864,51 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head_dim above 128 in the flash kernels; the decodes and the append
-    # at a head_dim they have no instance of (pages are read in place), a
-    # page size that is neither 16 nor a multiple of 32
-    q256 = torch.zeros((1, 2, 128, 256), device="cuda", dtype=torch.bfloat16)
-    q72 = torch.zeros((2, 6, 72), device="cuda", dtype=torch.bfloat16)
-    pages72 = torch.zeros((2, 4, 32, 72), device="cuda",
-                          dtype=torch.bfloat16)
-    pages48 = torch.zeros((2, 4, 96, 128), device="cuda",
-                          dtype=torch.bfloat16)
+    # head_dim above 256 in the flash kernels, and above 128 in the
+    # instances without a wide one (f32, the quantized forward, FA1); the
+    # decodes and the append at a head_dim they have no instance of (pages
+    # are read in place: 72, 192) and over f32 at 256, a page size that is
+    # neither 16 nor a multiple of 32
+    def zeros(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, device="cuda", dtype=dtype)
+
+    q264, q256 = zeros(1, 2, 128, 264), zeros(1, 2, 128, 256)
+    f256 = zeros(1, 2, 128, 256, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
-        lambda: flash_attention(q256, q256, q256, causal=True),
-        lambda: flash_attention_bwd(q256, q256, q256, q256, lse, q256,
+        lambda: flash_attention(q264, q264, q264, causal=True),
+        lambda: flash_attention_bwd(q264, q264, q264, q264, lse, q264,
+                                    causal=True),
+        lambda: flash_attention(f256, f256, f256, causal=True),
+        lambda: flash_attention_bwd(f256, f256, f256, f256, lse, f256,
                                     causal=True),
         lambda: flash_attention_v1(q256, q256, q256),
+        lambda: flash_attention_v1(f256, f256, f256),
         lambda: flash_attention_quantized(q256, *Q.quantize_kv(
             q256, q256, "int8")),
-        lambda: fused_paged_decode_attention(q72, pages72, lengths, table,
+        lambda: flash_attention_quantized(f256, *Q.quantize_kv(
+            q256, q256, "int8")),
+    ]
+    for d in (72, 192):
+        qd, pages_d = zeros(2, 6, d), zeros(2, 4, 32, d)
+        attempts += [
+            lambda q=qd, p=pages_d: fused_paged_decode_attention(
+                q, p, lengths, table, page_size=16),
+            lambda q=qd, p=pages_d: paged_decode_attention(
+                q, p, p, lengths, table),
+            lambda q=qd, p=pages_d: fused_page_append(
+                p, q[:, :2], q[:, :2], two, two, page_size=16)]
+    qf, pages_f = (zeros(2, 6, 256, dtype=torch.float32),
+                   zeros(2, 4, 32, 256, dtype=torch.float32))
+    attempts += [
+        lambda: fused_paged_decode_attention(qf, pages_f, lengths, table,
                                              page_size=16),
-        lambda: paged_decode_attention(q72, pages72, pages72, lengths,
-                                       table),
-        lambda: fused_page_append(pages72, q72[:, :2], q72[:, :2], two, two,
+        lambda: paged_decode_attention(qf, pages_f, pages_f, lengths, table),
+        lambda: fused_page_append(pages_f, qf[:, :2], qf[:, :2], two, two,
                                   page_size=16),
         lambda: fused_paged_decode_attention(
-            torch.zeros((2, 6, 128), device="cuda", dtype=torch.bfloat16),
-            pages48, lengths, table, page_size=48),
+            zeros(2, 6, 128), zeros(2, 4, 96, 128), lengths, table,
+            page_size=48),
     ]
     for fn in attempts:
         try:
@@ -897,9 +918,11 @@ def check_not_ported_raise() -> None:
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
-        f"({len(attempts)}: int8 K/V without scales, head_dim 256 in the "
-        f"forward, backward, FA1 and the quantized forward, the decodes "
-        f"and the append at head_dim 72, page size 48)")
+        f"({len(attempts)}: int8 K/V without scales, head_dim 264 in the "
+        f"forward and backward, head_dim 256 in the f32 forward and "
+        f"backward, FA1 (bf16, f32) and the quantized forward (bf16 q, f32 "
+        f"q), the decodes and the append at head_dim 72 and 192 and over "
+        f"f32 at 256, page size 48)")
 
 
 # --- phase 3b: the quantized path's kernels, kernel vs plain -----------------
@@ -1043,7 +1066,7 @@ def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32):
     return pages, k_new, v_new, ids.to(torch.int32), rows.to(torch.int32)
 
 
-def check_append(name, fmt, ps, gen, *, iters=20, d=128):
+def check_append(name, fmt, ps, gen, *, iters=20, d=128, hkv=2):
     """The append kernel vs its plain version (the scatter decomposition),
     bit for bit; device times of both. The bound: the new rows read once,
     the page rows and scale bytes written once."""
@@ -1052,7 +1075,8 @@ def check_append(name, fmt, ps, gen, *, iters=20, d=128):
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
 
-    pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps, d=d)
+    pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps, d=d,
+                                                   hkv=hkv)
     base = pages.clone()
     want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
                              page_size=ps)
@@ -1206,7 +1230,7 @@ def _rel_err(got, want) -> float:
 BWD_SPREAD_PAIRS = 10
 
 
-def bwd_spread(gate: bool = True) -> None:
+def bwd_spread(gate: bool = True, d: int = 128) -> None:
     """The bf16 backward's run-to-run spread (ROADMAP C2): on the inputs of
     tests/test_torch_cuda.py::test_bwd_two_runs_agree_within_one_ulp (seed
     0), BWD_SPREAD_PAIRS pairs of backward runs from the kernel forward's
@@ -1214,7 +1238,8 @@ def bwd_spread(gate: bool = True) -> None:
     in any bit, how many by more than one bf16 ulp of the larger value
     somewhere, and the element that differs most relative to its size. The
     sums run in an order fixed by the shape and the masks, so with `gate`
-    any pair that differs in a bit fails (--bwd-spread only reads)."""
+    any pair that differs in a bit fails (--bwd-spread only reads). `d`:
+    the head_dim (256: the wide instance)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -1222,13 +1247,13 @@ def bwd_spread(gate: bool = True) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(
-        torch.bfloat16) for s in ((2, 8, 1000, 128), (2, 2, 1000, 128),
-                                  (2, 2, 1000, 128), (2, 8, 1000, 128)))
+        torch.bfloat16) for s in ((2, 8, 1000, d), (2, 2, 1000, d),
+                                  (2, 2, 1000, d), (2, 8, 1000, d)))
     forwards = {
         "kernel forward": flash_attention(q, k, v, causal=True,
                                           return_lse=True),
         "plain forward": flash_attention_plain(q, k, v, causal=True,
-                                               sm_scale=128 ** -0.5,
+                                               sm_scale=d ** -0.5,
                                                return_lse=True)}
     differ_all = 0
     for label, (out, lse) in forwards.items():
@@ -1254,7 +1279,8 @@ def bwd_spread(gate: bool = True) -> None:
             beyond += pair_beyond
             differ += pair_differs
         differ_all += differ
-        log(f"bwd spread, {label}: {differ}/{BWD_SPREAD_PAIRS} pairs of runs "
+        log(f"bwd spread, head_dim {d}, {label}: {differ}/{BWD_SPREAD_PAIRS} "
+            f"pairs of runs "
             f"differ in any bit, {beyond}/{BWD_SPREAD_PAIRS} by more than one "
             f"bf16 ulp somewhere; the largest relative difference "
             f"{worst[0]:.3e}, at {worst[1]}"
@@ -3185,7 +3211,11 @@ def profile_window(label: str, fn, n: int, launches=None,
     profiler (which slows the host). With `launches`, fails unless the
     kernel launches per unit are that many; with `watch`, also prints the
     device time a launch of the kernels whose name holds it (L2 as the
-    run leaves it)."""
+    run leaves it). A window whose launch count differs is profiled once
+    more after a longer pause (the profiler has dropped 2 of a decode
+    window's 2424 device records), and the count must hold there; where it
+    does not, the kernels whose count is not a whole number a unit are
+    printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3194,18 +3224,28 @@ def profile_window(label: str, fn, n: int, launches=None,
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # started at once, fn loses the first device records of about one
-        # profile in twenty (a prefix of its kernels, in any tree); a pause
-        # lets the profiler settle (PERF.md, section 7)
-        time.sleep(PROFILE_SETTLE_S)
-        fn()
-        torch.cuda.synchronize()
-    # user annotations (the optimizer's step) span kernels counted anyway
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+
+    def device_kernels(settle=PROFILE_SETTLE_S):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # started at once, fn loses the first device records of about
+            # one profile in twenty (a prefix of its kernels, in any tree);
+            # a pause lets the profiler settle (PERF.md, section 7)
+            time.sleep(settle)
+            fn()
+            torch.cuda.synchronize()
+        # user annotations (the optimizer's step) span kernels counted
+        # anyway
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+
+    kernels = device_kernels()
+    got = sum(e.count for e in kernels) / n
+    if kernels and launches is not None and got != launches:
+        log(f"profile {label}: {got} launches a step recorded, not "
+            f"{launches}: profiled again after a 1 s pause")
+        kernels = device_kernels(settle=1.0)
     if not kernels:
         log(f"profile {label}: the profiler recorded no device time "
             "(not measured)")
@@ -3229,6 +3269,9 @@ def profile_window(label: str, fn, n: int, launches=None,
             f"launch in this profile")
     got = sum(e.count for e in kernels) / n
     if launches is not None and got != launches:
+        log(f"profile {label}: kernels not a whole number of times a unit: "
+            + "; ".join(f"{e.count} x {e.key[:70]}" for e in kernels
+                        if e.count % n))
         raise AssertionError(f"profile {label}: {got} launches a step, the "
                              f"parent tree's {launches}")
 
@@ -3380,8 +3423,18 @@ DIMS_MODELS = [
                                  n_q_heads=24, n_kv_heads=8, d_head=128,
                                  d_ff=8192, rope_theta=500000.0,
                                  rms_eps=1e-5), 128),
+    # google/gemma-2b's widths (its config.json): head_dim 256, one kv head
+    # (group 8, MQA), n_q_heads * d_head == d_model; the llama-family
+    # decoder runs them (Gemma's GeGLU, (1 + w) norm and embedding scale
+    # are not in the JAX package)
+    ("Gemma-2B widths", dict(vocab_size=256000, d_model=2048, n_q_heads=8,
+                             n_kv_heads=1, d_head=256, d_ff=16384,
+                             rope_theta=10000.0, rms_eps=1e-6), 128),
 ]
 DIMS_LAYERS = 4
+# the models whose train step pair runs: Phi-3-mini's (beside the same
+# pair padded) and Gemma-2B's (head_dim 256, a tile width: nothing pads)
+DIMS_TRAIN = ("Phi-3-mini widths", "Gemma-2B widths")
 
 
 def dims_mask(mask, b, n) -> dict:
@@ -3399,11 +3452,11 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
     """B1 at a head_dim no instance has (bf16: read in place; f32: padded)
     against its plain version at the true one (the dtype gate, and in
     bf16 the gate at the q fold with the LSE); returns the worst error. At
-    head_dim 96 also planted faults: the plain version at the padded
-    head_dim's scale (1/sqrt(128), what a default scale taken after the
-    padding would give) must fail the gate, and in bf16 so must out as an
-    epilogue that stored all 128 columns of the tile at stride 96
-    (all_columns_epilogue)."""
+    head_dim 96 (192) also planted faults: the plain version at the padded
+    head_dim's scale (1/sqrt(128), 1/sqrt(256): what a default scale taken
+    after the padding would give) must fail the gate, and in bf16 so must
+    out as an epilogue that stored all 128 (256) columns of the tile at
+    stride 96 (192) (all_columns_epilogue)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
@@ -3430,51 +3483,71 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees at head_dim {d}")
-    if d == 96:
-        f_out, f_lse = plain(q, 128 ** -0.5)
+    tile = {96: 128, 192: 256}.get(d)     # the padded width of d
+    if tile:
+        f_out, f_lse = plain(q, tile ** -0.5)
         f_errs, f_folded, f_ok = flash_gate(f_out, f_lse, plain, q, dtype)
-        log(f"dims: flash d 96 {str(dtype).split('.')[-1]}: planted fault, "
-            f"sm_scale 1/sqrt(128): {flash_readings(f_errs, f_folded)} | "
+        log(f"dims: flash d {d} {str(dtype).split('.')[-1]}: planted fault, "
+            f"sm_scale 1/sqrt({tile}): {flash_readings(f_errs, f_folded)} | "
             f"{'PASSES THE GATE' if f_ok else 'caught'}")
         if f_ok:
             raise AssertionError("the flash gate passes a wrong sm_scale")
-    if d == 96 and dtype == torch.bfloat16:
-        e_errs, e_folded, e_ok = flash_gate(all_columns_epilogue(out, 128),
+    if tile and dtype == torch.bfloat16:
+        e_errs, e_folded, e_ok = flash_gate(all_columns_epilogue(out, tile),
                                             lse, plain, q, dtype)
-        log(f"dims: flash d 96 group {group} bfloat16: planted fault, an "
-            f"epilogue storing all 128 columns at stride 96: "
+        log(f"dims: flash d {d} group {group} bfloat16: planted fault, an "
+            f"epilogue storing all {tile} columns at stride {d}: "
             f"{flash_readings(e_errs, e_folded)} | "
             f"{'PASSES THE GATE' if e_ok else 'caught'}")
         if e_ok:
-            raise AssertionError("the flash gate passes an epilogue that "
-                                 "stores all 128 columns")
+            raise AssertionError(f"the flash gate passes an epilogue that "
+                                 f"stores all {tile} columns")
     return max(errs["out"], errs["lse"])
 
 
-def check_dims_b12(gen) -> float:
-    """B12 at head_dim 96, group 3, bf16 and int8 pages, against its plain
-    version at the kernel's splits and unsplit, with its planted faults."""
+def check_dims_b12(gen, d=96, hq=6, hkv=2) -> dict:
+    """B12 at a head_dim and group of its own (hq / hkv), bf16 and int8
+    pages, against its plain version at the kernel's splits and unsplit,
+    with its planted faults; the device times of the kernel and the plain
+    version beside the bound. Returns a row per format, with the launches
+    of the checked calls."""
     from tiny_flash_attention_tpu_torch.ops.paged import (
         paged_decode_attention, paged_decode_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
 
-    worst = 0.0
+    rows, label = {}, f"d {d} group {hq // hkv}"
     for fmt in ("bf16", "int8"):
         q, k, v, lengths, table = b12_inputs(
-            gen, fmt, [1, 127, 128, 129, 1000, 4096, 6000, 8192], hq=6,
-            hkv=2, d=96, P=64)
+            gen, fmt, [1, 127, 128, 129, 1000, 4096, 6000, 8192], hq=hq,
+            hkv=hkv, d=d, P=64)
+        before = paged_decode_attention.launches
         out, lse = paged_decode_attention(q, k, v, lengths, table)
+        launches = paged_decode_attention.launches - before
         torch.cuda.synchronize()
         plain = (lambda sp: paged_decode_plain(
-            q, k, v, lengths, table, sm_scale=96 ** -0.5, splits=sp))
+            q, k, v, lengths, table, sm_scale=d ** -0.5, splits=sp))
         err, row, lse_err, ok = split_errs(out, lse, plain)
-        check_v_faults(f"separate d 96 group 3 {fmt}",
+        check_v_faults(f"separate {label} {fmt}",
                        b12_faults(q, k, v, lengths, table), plain)
-        log(f"dims: paged_decode_separate d 96 group 3 {fmt} pages | "
-            f"{gate_readings(err, row, lse_err)} | {'ok' if ok else 'FAIL'}")
+        t_kernel = cuda_time_ms(lambda: paged_decode_attention(
+            q, k, v, lengths, table), iters=10)["median_ms"]
+        t_plain = cuda_time_ms(lambda: paged_decode_plain(
+            q, k, v, lengths, table, sm_scale=d ** -0.5),
+            iters=5)["median_ms"]
+        kv = k.values if fmt == "int8" else k
+        bound_ms, bound_by = decode_bound(q, kv, lengths, table, 128)
+        log(f"dims: paged_decode_separate {label} {fmt} pages "
+            f"q{tuple(q.shape)} | {gate_readings(err, row, lse_err)} | "
+            f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) | {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("B12 disagrees at head_dim 96")
-        worst = max(worst, err, lse_err)
-    return worst
+            raise AssertionError(f"B12 disagrees at head_dim {d}")
+        rows[fmt] = {"max_abs_err": max(err, lse_err), "ms": t_kernel,
+                     "plain_ms": t_plain, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches": launches}
+    return rows
 
 
 @contextlib.contextmanager
@@ -3495,10 +3568,11 @@ def narrow_products(on: bool):
 def padded_head_dims():
     """The calls inside pad every head_dim to the kernels' tile width
     through pad_head_dim and slice back, as before the bf16 kernels read it
-    in place (ops/dims.py::reads_in_place taking 64 and 128 only)."""
+    in place (ops/dims.py::reads_in_place taking the tile widths only)."""
     from tiny_flash_attention_tpu_torch.ops import dims
     keep = dims.reads_in_place
-    dims.reads_in_place = lambda d: d in dims.FLASH_HEAD_DIMS
+    dims.reads_in_place = lambda d: d in (*dims.FLASH_HEAD_DIMS,
+                                          dims.WIDE_HEAD_DIM)
     try:
         yield
     finally:
@@ -3564,21 +3638,25 @@ def spread(ts) -> str:
     return f"{min(ts):.4f}–{max(ts):.4f}" if len(ts) > 1 else f"{ts[0]:.4f}"
 
 
-def in_place_fwd(d: int, gen) -> dict:
-    """B1 at (4,32,2048,d) causal on tensors of head_dim d: the call makes
-    no pad copy (pad_head_dim's counter; no copy or pad kernel in its
-    profile), and its out and LSE, on the width-d instance and on the
-    128-wide one, are the bits of the padded call (padded_head_dims:
-    three pads, the 128-wide instance, the slice of out). Then the device
-    times of the in-place call on each instance, the padded call and SDPA
-    at head_dim d, in turns in this call, beside the bound at head_dim
-    d."""
+def in_place_fwd(d: int, gen, shape=(4, 32, 2048), hkv=None) -> dict:
+    """B1 at (b, h, n, d) causal (h / hkv q heads a kv head) on tensors of
+    head_dim d: the call makes no pad copy (pad_head_dim's counter; no
+    copy or pad kernel in its profile), and its out and LSE, on the
+    instance it takes and, up to 128, on the 128-wide one, are the bits of
+    the padded call (padded_head_dims: three pads, the 128- or 256-wide
+    instance, the slice of out). Then the device times of the in-place
+    call on each instance, the padded call and SDPA at head_dim d, in
+    turns in this call, beside the bound at head_dim d."""
     from tiny_flash_attention_tpu_torch.ops import configs
     from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 
-    q, k, v = (randn((4, 32, 2048, d), torch.bfloat16, gen)
-               for _ in range(3))
+    b, h, n = shape
+    hkv = hkv or h
+    q = randn((b, h, n, d), torch.bfloat16, gen)
+    k, v = (randn((b, hkv, n, d), torch.bfloat16, gen) for _ in range(2))
+    wide = d > 128
+    inst = "n256" if wide else f"n{d}"
 
     def fwd(narrow=True, padded=False, lse=True):
         with narrow_products(narrow), (padded_head_dims() if padded
@@ -3586,30 +3664,33 @@ def in_place_fwd(d: int, gen) -> dict:
             return flash_attention(q, k, v, causal=True, return_lse=lse)
 
     copies = pad_head_dim.copies
-    got, wide = fwd(), fwd(narrow=False)
+    calls = {inst: fwd()}
+    if not wide:
+        calls["n128"] = fwd(narrow=False)
     in_copies = pad_head_dim.copies - copies
     ref = fwd(padded=True)
     pad_copies = pad_head_dim.copies - copies - in_copies
     torch.cuda.synchronize()
     bits = {name: all(torch.equal(a, b) for a, b in zip(x, ref))
-            for name, x in ((f"n{d}", got), ("n128", wide))}
-    del got, wide, ref
+            for name, x in calls.items()}
+    del calls, ref
     prof, ok_prof = copy_readings(kernel_names(lambda: fwd(lse=False)),
                                   kernel_names(lambda: fwd(padded=True,
                                                            lse=False)))
+    timed = {inst: lambda: fwd(lse=False)}
+    if not wide:
+        timed["n128"] = lambda: fwd(narrow=False, lse=False)
     times = time_turns({
-        f"n{d}": lambda: fwd(lse=False),
-        "n128": lambda: fwd(narrow=False, lse=False),
-        "padded call": lambda: fwd(padded=True, lse=False),
-        "sdpa": lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True)})
+        **timed, "padded call": lambda: fwd(padded=True, lse=False),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hkv != h)})
     bound_ms, bound_by = flash_bound(q, k, True)
-    kept = f"n{d}" if configs.FLASH_NARROW_PRODUCTS else "n128"
-    faster = min((f"n{d}", "n128"), key=lambda x: min(times[x]))
+    kept = inst if wide or configs.FLASH_NARROW_PRODUCTS else "n128"
+    faster = min(timed, key=lambda x: min(times[x]))
     ok = in_copies == 0 and all(bits.values()) and ok_prof
-    log(f"dims: B1 at (4,32,2048,{d}) causal read in place: pad copies "
-        f"{in_copies} (the padded call {pad_copies}); {prof}; out and LSE "
-        f"bit-identical to the padded call: {bits} | "
+    log(f"dims: B1 at ({b},{h},{n},{d})/({b},{hkv}) causal read in place: "
+        f"pad copies {in_copies} (the padded call {pad_copies}); {prof}; "
+        f"out and LSE bit-identical to the padded call: {bits} | "
         + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
         + f", bound {bound_ms:.4f} ms ({bound_by}) | {kept} (kept) "
         f"{bound_ms / min(times[kept]):.1%} of the bound, "
@@ -3623,22 +3704,26 @@ def in_place_fwd(d: int, gen) -> dict:
     return {"times": times, "kept": kept, "bound_ms": bound_ms}
 
 
-def in_place_bwd(d: int, gen) -> dict:
-    """The bf16 backward at (1,32,2048,d) causal on tensors of head_dim
-    d, as in_place_fwd: no pad copy, no copy or pad kernel; dq, dk and dv
-    on both instances the bits of the padded call (five pads, three
-    slices); then the device times of the call on each instance, its main
-    kernel on each, the padded call and SDPA's backward at head_dim d, in
-    turns, beside the bound."""
+def in_place_bwd(d: int, gen, shape=(1, 32, 2048), hkv=None) -> dict:
+    """The bf16 backward at (b, h, n, d) causal on tensors of head_dim d,
+    as in_place_fwd: no pad copy, no copy or pad kernel; dq, dk and dv on
+    each instance the bits of the padded call (five pads, three slices);
+    then the device times of the call on each instance, its main kernel on
+    each, the padded call and SDPA's backward at head_dim d, in turns,
+    beside the bound."""
     from tiny_flash_attention_tpu_torch.ops import configs
     from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         BwdLaunch, flash_attention_bwd)
 
-    q, k, v, do = (randn((1, 32, 2048, d), torch.bfloat16, gen)
-                   for _ in range(4))
+    b, h, n = shape
+    hkv = hkv or h
+    q, do = (randn((b, h, n, d), torch.bfloat16, gen) for _ in range(2))
+    k, v = (randn((b, hkv, n, d), torch.bfloat16, gen) for _ in range(2))
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    wide = d > 128
+    inst = "n256" if wide else f"n{d}"
 
     def bwd(narrow=True, padded=False):
         with narrow_products(narrow), (padded_head_dims() if padded
@@ -3653,32 +3738,38 @@ def in_place_bwd(d: int, gen) -> dict:
         return lambda: call.run(2)
 
     copies = pad_head_dim.copies
-    got, wide = bwd(), bwd(narrow=False)
+    calls = {inst: bwd()}
+    if not wide:
+        calls["n128"] = bwd(narrow=False)
     in_copies = pad_head_dim.copies - copies
     ref = bwd(padded=True)
     pad_copies = pad_head_dim.copies - copies - in_copies
     torch.cuda.synchronize()
     bits = {name: all(torch.equal(a, b) for a, b in zip(x, ref))
-            for name, x in ((f"n{d}", got), ("n128", wide))}
-    del got, wide, ref
+            for name, x in calls.items()}
+    del calls, ref
     prof, ok_prof = copy_readings(kernel_names(bwd),
                                   kernel_names(lambda: bwd(padded=True)))
     sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
-    s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                           enable_gqa=hkv != h)
+    timed = {inst: bwd, f"main {inst}": main_kernel(True)}
+    if not wide:
+        timed.update({"n128": lambda: bwd(narrow=False),
+                      "main n128": main_kernel(False)})
     times = time_turns({
-        f"n{d}": bwd, "n128": lambda: bwd(narrow=False),
-        f"main n{d}": main_kernel(True), "main n128": main_kernel(False),
-        "padded call": lambda: bwd(padded=True),
+        **timed, "padded call": lambda: bwd(padded=True),
         "sdpa bwd": lambda: torch.autograd.grad(s_out, (sq, sk, sv), do,
                                                 retain_graph=True)})
     del s_out
     bound_ms, bound_by = bwd_bound(q, k, "all", mask_pairs(q, k, True))
-    kept = f"n{d}" if configs.FLASH_NARROW_PRODUCTS else "n128"
-    faster = min((f"n{d}", "n128"), key=lambda x: min(times[x]))
+    kept = inst if wide or configs.FLASH_NARROW_PRODUCTS else "n128"
+    faster = min((x for x in timed if not x.startswith("main")),
+                 key=lambda x: min(times[x]))
     ok = in_copies == 0 and all(bits.values()) and ok_prof
-    log(f"dims: backward at (1,32,2048,{d}) causal read in place: pad "
-        f"copies {in_copies} (the padded call {pad_copies}); {prof}; dq, "
-        f"dk, dv bit-identical to the padded call: {bits} | "
+    log(f"dims: backward at ({b},{h},{n},{d})/({b},{hkv}) causal read in "
+        f"place: pad copies {in_copies} (the padded call {pad_copies}); "
+        f"{prof}; dq, dk, dv bit-identical to the padded call: {bits} | "
         + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
         + f", bound {bound_ms:.4f} ms ({bound_by}) | {kept} (kept) "
         f"{bound_ms / min(times[kept]):.1%} of the bound, "
@@ -3789,7 +3880,8 @@ def dims_phase(gen) -> dict:
         else:
             dec8 = max(dec8, r["max_abs_err"])
     errs["paged_decode"], errs["paged_decode_int8"] = dec, dec8
-    errs["paged_decode_separate"] = check_dims_b12(gen)
+    errs["paged_decode_separate"] = max(
+        r["max_abs_err"] for r in check_dims_b12(gen).values())
     errs["page_append"] = max(
         check_append(f"dims: {fmt} d {d} ps {ps}", fmt, ps, gen, d=d,
                      iters=5)["max_abs_err"]
@@ -3815,6 +3907,71 @@ def dims_phase(gen) -> dict:
                                   torch.bfloat16, True, {}, gen)
     errs["flash_bwd"] = rows["flash_bwd"]["max_abs_err"]
     rows["in_place_bwd"] = in_place_bwd(96, gen)
+    return rows
+
+
+# --- phase 8b: head_dim 256, the wide instances ----------------------------
+
+# B1 at head dims in (128, 256] read in place (and 136, the least above
+# 128) and groups 1, 2, 8 (Gemma's MQA, GQA and MHA members), each under
+# one mask: (d, group, mask)
+WIDE_FLASH_CASES = [(256, 1, "causal"), (256, 2, "window"), (256, 8, "ids"),
+                    (192, 1, "ids"), (192, 2, "causal"), (192, 8, "window"),
+                    (136, 8, "causal")]
+# Gemma-2B's prefill and train step: (q shape, kv shape)
+WIDE_FWD_SHAPE = ((4, 8, 2048, 256), (4, 1, 2048, 256))
+WIDE_BWD_SHAPE = ((1, 8, 2048, 256), (1, 1, 2048, 256))
+
+
+def wide_phase(gen) -> dict:
+    """Every kernel of the bf16 serving and training path at head_dim 256
+    (and 192, 136: in place on the wide instances) against its plain
+    version: B1 under each mask and group with planted faults at 192 (a
+    scale from 256, an epilogue storing all 256 columns), at Gemma-2B's
+    prefill shape timed beside SDPA and the bound, and at 192 read in place
+    beside the padded call; the backward at Gemma-2B's train step, with the
+    window at 192 and the jagged mix's ids and starts at 256, in place at
+    192, its spread at 256; B4's ring mode and B12 over bf16 and int8
+    pages; B5 bit for bit. (B4 over a Gemma-2B-width engine cache is timed
+    in dims_model_phase.)"""
+    rows = {"errs": {}}
+    errs = rows["errs"]
+    errs["flash_fwd"] = max(check_dims_flash(*c, torch.bfloat16, gen)
+                            for c in WIDE_FLASH_CASES)
+    rows["flash"] = check_flash("wide: B1 at the Gemma-2B prefill",
+                                *WIDE_FWD_SHAPE, torch.bfloat16, True, gen,
+                                faults=True)
+    errs["flash_fwd"] = max(errs["flash_fwd"], rows["flash"]["max_abs_err"])
+    rows["in_place"] = in_place_fwd(192, gen, shape=(4, 8, 2048), hkv=1)
+    rows["flash_bwd"] = check_bwd("wide: backward at the Gemma-2B train step",
+                                  *WIDE_BWD_SHAPE, torch.bfloat16, True, {},
+                                  gen)
+    worst = rows["flash_bwd"]["max_abs_err"]
+    for case in (("wide: backward at 192, window 200", (2, 4, 1000, 192),
+                  (2, 2, 1000, 192), torch.bfloat16, True, {"window": 200}),
+                 ("wide: backward at 256, the jagged mix's ids and starts",
+                  (1, 8, 9984, 256), (1, 2, 9984, 256), torch.bfloat16, True,
+                  {"mix": True, "starts": True})):
+        worst = max(worst, check_bwd(*case, gen, iters=3)["max_abs_err"])
+    errs["flash_bwd"] = worst
+    rows["in_place_bwd"] = in_place_bwd(192, gen, shape=(1, 8, 2048), hkv=1)
+    bwd_spread(gate=True, d=256)
+    ring = 0.0
+    for fmt, group in (("bf16", 1), ("bf16", 8), ("int8", 2), ("int8", 8)):
+        r = check_ring(f"wide: {fmt} d 256 group {group}", fmt, gen,
+                       hq=group, hkv=1, d=256, ps=128, P=16)
+        ring = max(ring, r["max_abs_err"])
+    errs["ring"] = ring
+    rows["b12"] = check_dims_b12(gen, d=256, hq=8, hkv=1)
+    errs["paged_decode_separate"] = max(r["max_abs_err"]
+                                        for r in rows["b12"].values())
+    rows["append"] = {
+        (fmt, ps): check_append(f"wide: {fmt} d 256 ps {ps}, Gemma-2B's 8 "
+                                f"tokens x 1 kv head", fmt, ps, gen, d=256,
+                                hkv=1, iters=10)
+        for fmt, ps in (("bf16", 128), ("int8", 128), ("int8", 256))}
+    errs["page_append"] = max(r["max_abs_err"]
+                              for r in rows["append"].values())
     return rows
 
 
@@ -3930,23 +4087,71 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
     return {"launches": launches, "engine": eng, "err": worst}
 
 
+def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen) -> dict:
+    """B4 at head_dim 256 over a Gemma-2B-width engine cache (layer 0, one
+    kv head) at groups 1, 2 and 8 against its plain version (planted V
+    faults at 8), timed beside the bound; then group 8 on the G = 8
+    instance and as two row blocks of G = 4 (ops/configs.py
+    DECODE_WIDE_GROUP), timed in turns, each held to the plain version,
+    with every head_dim-256 decode instance's registers and spill bytes.
+    Returns {group: row} and the routes' times."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_attention)
+
+    rows = {}
+    for group in (1, 2, 8):
+        q = randn((table.shape[0], group, 256), torch.bfloat16, gen)
+        rows[group] = check_decode(
+            f"wide: {label} {fmt} engine cache, layer 0, group {group}", q,
+            pages, lengths, table, ps, iters=10, faults=group == 8)
+
+    @contextlib.contextmanager
+    def wide_group(g):
+        keep = configs.DECODE_WIDE_GROUP
+        configs.DECODE_WIDE_GROUP = g
+        try:
+            yield
+        finally:
+            configs.DECODE_WIDE_GROUP = keep
+
+    def route(g):
+        def call():
+            with wide_group(g):
+                return fused_paged_decode_attention(q, pages, lengths, table,
+                                                    page_size=ps)
+        return call
+
+    with wide_group(4):
+        check_decode(f"wide: {label} {fmt} engine cache, group 8 as 2 x G 4",
+                     q, pages, lengths, table, ps, iters=3)
+    same = all(torch.equal(a, b) for a, b in zip(route(8)(), route(4)()))
+    times = time_turns({"G 8": route(8), "2 x G 4": route(4)}, rounds=2)
+    regs = [x for x in spilling_instances(
+        _build.build_log("paged_decode"), every=True) if ", 256," in x]
+    log(f"wide: {label} {fmt} decode at group 8, the routes in turns: "
+        + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
+        + f"; the same bits: {same}; kept G {configs.DECODE_WIDE_GROUP}; "
+        f"head_dim-256 instances, registers/spill bytes: {'; '.join(regs)}")
+    return {"rows": rows, "routes": times}
+
+
 def dims_model_phase(seed) -> dict:
-    """The two models at their published widths (DIMS_MODELS), cut to
+    """The models at their published widths (DIMS_MODELS), cut to
     DIMS_LAYERS layers, random weights from the seed: each served over bf16
     pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
-    each bf16 engine's cache (layer 0) beside its bound; then one train
-    step pair at the first model's widths (1 x 2048, bf16, AdamW): the loss
-    falls, the gradients agree with those through the plain attention; its
-    peak device memory beside that of the same pair from the same weights
-    run padded (padded_head_dims). Returns the launches in all and by
-    model."""
+    each bf16 engine's cache (layer 0) beside its bound, at head_dim 256
+    also at groups 1, 2, 8 over both caches with the G-8 and 2 x G-4 routes
+    (wide_decode_groups); then one train step pair at the widths of each of
+    DIMS_TRAIN (1 x 2048, bf16, AdamW): the loss falls, the gradients agree
+    with those through the plain attention; its peak device memory, beside
+    that of the same pair from the same weights run padded
+    (padded_head_dims) where the head_dim is not a tile width. Returns the
+    launches in all and by model."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
-    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
-    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
-        flash_attention_bwd)
-    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
-    totals, caches, by_model = {}, {}, {}
+    totals, caches, by_model, wide = {}, {}, {}, {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for label, fields, ps8 in DIMS_MODELS:
         mine = by_model.setdefault(label, {})
@@ -3965,17 +4170,39 @@ def dims_model_phase(seed) -> dict:
             for key, n in run["launches"].items():
                 totals[key] = totals.get(key, 0) + n
                 mine[key] = mine.get(key, 0) + n
+            table, lengths = run["engine"].cache.device_views()
             if fmt == "bf16":
-                table, lengths = run["engine"].cache.device_views()
                 q = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
                 caches[label] = check_decode(
                     f"dims: {label} engine cache, layer 0", q,
                     run["engine"].cache.pages[0], lengths, table, 128,
                     faults=True)
+            if cfg.d_head == 256:
+                wide[fmt] = wide_decode_groups(
+                    label, fmt, run["engine"].cache.pages[0], lengths, table,
+                    ps, gen)
             del run
         del params
-    # one train step pair at the first model's widths
-    label, fields, _ = DIMS_MODELS[0]
+    for label, fields, _ in DIMS_MODELS:
+        if label in DIMS_TRAIN:
+            train_pair(label, fields, gen, totals, by_model)
+    return {"launches": totals, "by_model": by_model, "caches": caches,
+            "wide": wide}
+
+
+def train_pair(label, fields, gen, totals, by_model) -> None:
+    """One AdamW step pair at a model's published widths (DIMS_LAYERS
+    layers, 1 x 2048, bf16) with the launches counted into totals and
+    by_model; the loss falls and the gradients agree with those through
+    the plain attention; peak device memory, beside the same pair padded
+    where the head_dim is not a tile width."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops import dims
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+
     cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.bfloat16)
     step, init_state = make_train_step(cfg, learning_rate=1e-3)
     params0 = T.init_params(cfg, gen, device="cuda")
@@ -3995,28 +4222,34 @@ def dims_model_phase(seed) -> dict:
     got = (flash_attention.launches, flash_attention_bwd.launches)
     peak = torch.cuda.max_memory_allocated()
     totals["flash_fwd"] = totals.get("flash_fwd", 0) + got[0]
-    totals["flash_bwd"] = got[1]
+    totals["flash_bwd"] = totals.get("flash_bwd", 0) + got[1]
     mine = by_model[label]
     mine["flash_fwd"] = mine.get("flash_fwd", 0) + got[0]
     mine["flash_bwd"] = got[1]
-    # the same pair padded, from the same weights
     del params, opt
-    params, opt = init_state(params0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    padded_losses = []
-    with padded_head_dims():
-        for _ in range(2):
-            params, opt, loss = step(params, opt, tokens)
-            padded_losses.append(float(loss))
-    padded_peak = torch.cuda.max_memory_allocated()
-    del params, opt
-    log(f"dims train [{label}, 1 x 2048]: peak device memory of the pair "
-        f"{peak / 2**20:.1f} MiB read in place, {padded_peak / 2**20:.1f} "
-        f"MiB padded ({(padded_peak - peak) / 2**20:.1f} MiB saved); the "
-        f"padded pair's losses {padded_losses[0]:.4f} -> "
-        f"{padded_losses[1]:.4f}, the same bits: "
-        f"{padded_losses == losses}")
+    if cfg.d_head in (*dims.FLASH_HEAD_DIMS, dims.WIDE_HEAD_DIM):
+        log(f"dims train [{label}, 1 x 2048]: peak device memory of the "
+            f"pair {peak / 2**20:.1f} MiB (head_dim {cfg.d_head}, a tile "
+            f"width: nothing pads)")
+    else:
+        # the same pair padded, from the same weights
+        params, opt = init_state(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        padded_losses = []
+        with padded_head_dims():
+            for _ in range(2):
+                params, opt, loss = step(params, opt, tokens)
+                padded_losses.append(float(loss))
+        padded_peak = torch.cuda.max_memory_allocated()
+        del params, opt
+        log(f"dims train [{label}, 1 x 2048]: peak device memory of the "
+            f"pair {peak / 2**20:.1f} MiB read in place, "
+            f"{padded_peak / 2**20:.1f} MiB padded "
+            f"({(padded_peak - peak) / 2**20:.1f} MiB saved); the padded "
+            f"pair's losses {padded_losses[0]:.4f} -> "
+            f"{padded_losses[1]:.4f}, the same bits: "
+            f"{padded_losses == losses}")
     err = train_grad_check(cfg, params0, tokens)
     log(f"dims train [{label}, 1 x 2048]: loss {losses[0]:.4f} -> "
         f"{losses[1]:.4f} in 2 steps ({dt * 1e3:.1f} ms); {got[0]} forward "
@@ -4029,7 +4262,6 @@ def dims_model_phase(seed) -> dict:
     if not err <= TRAIN_GRAD_GATE:
         raise AssertionError("dims train gradients disagree with the plain "
                              "path")
-    return {"launches": totals, "by_model": by_model, "caches": caches}
 
 
 def main() -> int:
@@ -4070,10 +4302,13 @@ def main() -> int:
             log("    instances that spill, registers/spill bytes: "
                 + "; ".join(spilling_instances(text)))
     # the bf16-q instances of B1 (over bf16 K/V and over int8/e4m3
-    # payloads) and B14's bf16 instances run on wgmma: HGMMA in their SASS,
-    # no HMMA
+    # payloads, its wide head_dim-256 instances included), the bf16
+    # backward's main kernels (the wide one included) and B14's bf16
+    # instances run on wgmma: HGMMA in their SASS, no HMMA
     for lib, prefix in (("flash_fwd", "flash_fwd_wgmma_kernel"),
                         ("flash_fwd_quant", "flash_fwd_wgmma_kernel"),
+                        ("flash_bwd", "flash_bwd_main_kernel"),
+                        ("flash_bwd", "flash_bwd_wide_kernel"),
                         ("flash_v1", "flash_v1_wgmma_kernel")):
         sass = {k: v for k, v in wgmma_instructions(
             str(_build._target(lib)[1])).items() if k.startswith(prefix)}
@@ -4085,17 +4320,20 @@ def main() -> int:
                                  "wgmma")
     # shared memory: ops/configs.py's sizes are the kernels'
     from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
-    from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_f32_smem
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        check_bf16_smem, check_f32_smem)
     from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
         check_smem_layout)
     for name, quantized in (("flash_fwd", False), ("flash_fwd_quant", True)):
         check_smem_layouts(_build.library(name), quantized)
     check_smem_layout(_build.library("flash_v1"))
     check_f32_smem(_build.library("flash_bwd"))
-    log("  shared memory: ops/configs.py's fwd_smem_bytes, v1_smem_bytes and "
-        "bwd_f32_smem_bytes give each library's own size "
+    check_bf16_smem(_build.library("flash_bwd"))
+    log("  shared memory: ops/configs.py's fwd_smem_bytes, v1_smem_bytes, "
+        "bwd_f32_smem_bytes and bwd_smem_bytes give each library's own size "
         "(tfa_flash_fwd_smem, tfa_flash_fwd_quant_smem, tfa_flash_v1_smem, "
-        "tfa_flash_bwd_f32_smem) for every instance")
+        "tfa_flash_bwd_f32_smem, tfa_flash_bwd_bf16_smem) for every "
+        "instance, the head_dim-256 ones included")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32_fwd_row = None
@@ -4158,12 +4396,16 @@ def main() -> int:
     ragged = ragged_admission_phase(SEED)
     enc = encoder_phase(SEED)
     swa = swa_phase(SEED)
+    wide = wide_phase(gen)
     dims_models = dims_model_phase(SEED)
     dlaunch = dims_models["launches"]
     # the Phi-3-mini-width runs launch the head_dim-96 instances; the
     # Llama-3.2-3B-width runs the head_dim-128 ones
     phi = dims_models["by_model"][DIMS_MODELS[0][0]]
     llama = dims_models["by_model"][DIMS_MODELS[1][0]]
+    # ... and the Gemma-2B-width runs the head_dim-256 (wide) ones
+    gemma = dims_models["by_model"][DIMS_MODELS[2][0]]
+    wide_dec = dims_models["wide"]
 
     train = train_phase(SEED)
     for label, (step, *state) in train["states"].items():
@@ -4238,11 +4480,13 @@ def main() -> int:
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:560; "
                     "tiny_flash_attention_tpu/ops/flash_bwd.py:609")
 
-    def bwd_kernel(part, row, dtype, launches, suffix=None):
-        worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
-                    if c[3] == dtype)
-        if dtype == torch.bfloat16:
-            worst = max(worst, dims["errs"]["flash_bwd"])
+    def bwd_kernel(part, row, dtype, launches, suffix=None, worst=None,
+                   design=None):
+        if worst is None:
+            worst = max(r["max_abs_err"] for r, c in zip(bwd_rows, BWD_CASES)
+                        if c[3] == dtype)
+            if dtype == torch.bfloat16:
+                worst = max(worst, dims["errs"]["flash_bwd"])
         if suffix is None:
             suffix = "_f32" if dtype == torch.float32 else ""
         design = ("bf16: prep; main on wgmma/TMA, one block per (128-row "
@@ -4259,7 +4503,7 @@ def main() -> int:
                   "8 x 4 and 8 x 8 register tiles fed by swizzled float4 "
                   "reads, a two-stage cp.async ring; slots summed by post "
                   "in a fixed order (items, then q heads): bit-identical "
-                  "runs")
+                  "runs") if design is None else design
         return {"name": f"flash_bwd_{part}{suffix}", "route": "cuda",
                 "design": design,
                 "source": "tiny_flash_attention_tpu_torch/csrc/flash_bwd.cu",
@@ -4284,6 +4528,21 @@ def main() -> int:
         # at the Phi-3-mini-width train step's (1,32,2048,96)
         *(bwd_kernel(part, dims["flash_bwd"], torch.bfloat16,
                      phi["flash_bwd"], suffix="_d96")
+          for part in ("prep", "main", "post")),
+        # the wide instances (head_dim 256) at the Gemma-2B-width train
+        # step's (1,8,2048,256)/(1,1)
+        *(bwd_kernel(part, wide["flash_bwd"], torch.bfloat16,
+                     gemma["flash_bwd"], suffix="_d256",
+                     worst=wide["errs"]["flash_bwd"], design=(
+                         "bf16 at head_dim 129-256 (tiles of 256 columns): "
+                         "prep and post as at 128; main on wgmma/TMA, one "
+                         "block per (64-row kv tile, q head), two "
+                         "warpgroups splitting S^T/dP^T by q columns "
+                         "(m64n32k16) and dK/dV/dQ by head dims (m64n128k16, "
+                         "m64n64k16), P^T and dS^T exchanged as bf16 in "
+                         "shared memory, one q-side stage (qs loaded ahead), "
+                         "dQ added by float4 atomics in each q tile's chain "
+                         "in rank order: bit-identical runs"))
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
                      train["launches"]["flash_bwd_f32"])
@@ -4322,6 +4581,17 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces, "launches": phi["flash_fwd"],
          **dims["flash"]},
+        {"name": "flash_fwd_d256", "route": "cuda",
+         "design": "the bf16 kernel's wide instance (head dims 129-256 read "
+                   "in place, tiles of four 64-column boxes): 128 q rows, "
+                   "64-row kv tiles in a two-stage TMA ring whose K and V "
+                   "slots are released apart (K once its softmax has read "
+                   "it), S as m64n64k16 over 16 k-steps, PV as m64n256k16 "
+                   "(a 128-float O), the ping-pong and the intra-warpgroup "
+                   "overlap kept",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces, "launches": gemma["flash_fwd"],
+         **wide["flash"], "max_abs_err": wide["errs"]["flash_fwd"]},
         {"name": "flash_fwd_f32", "route": "cuda", "design": f32_design,
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,
@@ -4336,8 +4606,27 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": run["launches"]["paged_decode"]
          + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"]
-         + swa["launches"]["paged_decode_ring"] + dlaunch["paged_decode"],
-         **decode_row},
+         + swa["launches"]["paged_decode_ring"] + dlaunch["paged_decode"]
+         - gemma["paged_decode"], **decode_row},
+        {"name": "paged_decode_d256", "route": "cuda",
+         "design": "head_dim 256 over bf16 pages: 32 KiB a warp's stage, "
+                   "each lane 32 elements of a row scored in four 16-byte "
+                   "pieces and 8 contiguous output columns, q in shared "
+                   "memory above G 2; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": gemma["paged_decode"], **wide_dec["bf16"]["rows"][8],
+         "max_abs_err": max(wide["errs"]["ring"], *(
+             r["max_abs_err"] for r in wide_dec["bf16"]["rows"].values()))},
+        {"name": "paged_decode_int8_d256", "route": "cuda",
+         "design": "head_dim 256 over int8 pages (two 16,640-byte stages a "
+                   "warp); " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": gemma["paged_decode_int8"],
+         **wide_dec["int8"]["rows"][8],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in wide_dec["int8"]["rows"].values())},
         *bwd_kernels,
         {"name": "paged_decode_int8", "route": "cuda",
          "design": "int8 pages, scale rows by bulk copy, exact "
@@ -4345,16 +4634,26 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": qlaunch["paged_decode_int8"]
-         + dlaunch["paged_decode_int8"], **int8_row},
+         + dlaunch["paged_decode_int8"] - gemma["paged_decode_int8"],
+         **int8_row},
         {"name": "page_append", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": run["launches"]["page_append"]
          + qlaunch["page_append"] + ragged["launches"]["page_append"]
-         + swa["launches"]["page_append"] + dlaunch["page_append"],
+         + swa["launches"]["page_append"] + dlaunch["page_append"]
+         - gemma["page_append"],
          **append_rows[("int8", 128)],
          "max_abs_err": max(append_rows[("int8", 128)]["max_abs_err"],
                             dims["errs"]["page_append"])},
+        {"name": "page_append_d256", "route": "cuda",
+         "design": "head_dim 256: a warp per (kv head, sequence), 8 "
+                   "contiguous values a lane",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": gemma["page_append"],
+         **wide["append"][("int8", 128)],
+         "max_abs_err": wide["errs"]["page_append"]},
         {"name": "quant_matmul", "route": "cuda",
          "design": "bf16 x: mma.sync m16n8k16 on the tensor cores with the "
                    "weight as the 16-row operand (out^T = w^T x^T), payload "
@@ -4401,6 +4700,15 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
          "launches": surface["launches"]["paged_decode_separate"],
          **b12_row},
+        {"name": "paged_decode_separate_d256", "route": "cuda",
+         "design": "separate K/V page arrays at head_dim 256 on B4's "
+                   "template; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         **wide["b12"]["bf16"],
+         "launches": sum(r["launches"] for r in wide["b12"].values()),
+         "max_abs_err": wide["errs"]["paged_decode_separate"]},
         *({"name": f"flash_fwd_quant_{fmt}", "route": "cuda",
            "design": "bf16 q: B1's wgmma/TMA kernel (flash_fwd_wgmma.cuh); "
                      "its producer warpgroup bulk-copies each payload tile "

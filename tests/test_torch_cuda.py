@@ -179,18 +179,27 @@ def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
-    # head_dim above 128 (the kernels pad up to 128 and no further)
+    # head_dim above 256 (the bf16 kernels pad up to 256 and no further)
+    q264 = _randn((1, 2, 8, 264), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
-        flash_attention(_randn((1, 2, 8, 256), torch.bfloat16, gen),
-                        _randn((1, 2, 8, 256), torch.bfloat16, gen),
-                        _randn((1, 2, 8, 256), torch.bfloat16, gen))
+        flash_attention(q264, q264, q264)
+    with pytest.raises(NotImplementedError):
+        flash_attention_bwd(q264, q264, q264, q264,
+                            torch.zeros((1, 2, 8), device="cuda"), q264,
+                            causal=True)
+    # head_dim 256 where no wide instance is compiled: f32, FA1
     q256 = _randn((1, 2, 8, 256), torch.bfloat16, gen)
+    f256 = q256.float()
     with pytest.raises(NotImplementedError):
-        flash_attention_bwd(q256, q256, q256, q256,
-                            torch.zeros((1, 2, 8), device="cuda"), q256,
+        flash_attention(f256, f256, f256)
+    with pytest.raises(NotImplementedError):
+        flash_attention_bwd(f256, f256, f256, f256,
+                            torch.zeros((1, 2, 8), device="cuda"), f256,
                             causal=True)
     with pytest.raises(NotImplementedError):
         flash_attention_v1(q256, q256, q256)
+    with pytest.raises(NotImplementedError):
+        flash_attention_v1(f256, f256, f256)
     with pytest.raises(NotImplementedError):
         flash_attention_bwd(q, q.float(), q.float(), q,
                             torch.zeros((1, 2, 64), device="cuda"), q,
@@ -208,22 +217,24 @@ def test_not_ported_raises_on_the_card(gen):
     k256 = Q.quantize_int8(q256)
     with pytest.raises(NotImplementedError):
         flash_attention_quantized(q256, k256, k256)
-    # the decodes and the append read pages in place: head_dim 72 has no
-    # instance; nor has a page size that is neither 16 nor a multiple of 32
-    q72 = _randn((2, 6, 72), torch.bfloat16, gen)
-    pages72 = torch.zeros((2, 8, 32, 72), dtype=torch.bfloat16,
-                          device="cuda")
+    # the decodes and the append read pages in place: head dims 72 and
+    # 192 have no instance, nor has f32 at 256; nor has a page size that
+    # is neither 16 nor a multiple of 32
     table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        fused_paged_decode_attention(q72, pages72, lengths, table,
-                                     page_size=16)
-    with pytest.raises(NotImplementedError):
-        paged_decode_attention(q72, pages72, pages72, lengths, table)
     rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        fused_page_append(pages72, q72[:, :2], q72[:, :2], rows2, rows2,
-                          page_size=16)
+    for d, dtype in ((72, torch.bfloat16), (192, torch.bfloat16),
+                     (256, torch.float32)):
+        qd = _randn((2, 6, d), dtype, gen)
+        pages_d = torch.zeros((2, 8, 32, d), dtype=dtype, device="cuda")
+        with pytest.raises(NotImplementedError):
+            fused_paged_decode_attention(qd, pages_d, lengths, table,
+                                         page_size=16)
+        with pytest.raises(NotImplementedError):
+            paged_decode_attention(qd, pages_d, pages_d, lengths, table)
+        with pytest.raises(NotImplementedError):
+            fused_page_append(pages_d, qd[:, :2], qd[:, :2], rows2, rows2,
+                              page_size=16)
     pages48 = torch.zeros((2, 8, 96, 128), dtype=torch.bfloat16,
                           device="cuda")
     with pytest.raises(NotImplementedError):
@@ -576,7 +587,11 @@ def test_int8_decode_kernel_matches_plain(gen, dtype, ps, d, group):
     # head_dim 80 and 96 (columns lane + 32 e), int8 scales in two groups
     (torch.bfloat16, "bf16", 128, 96), (torch.float32, "bf16", 16, 80),
     (torch.bfloat16, "int8", 64, 96), (torch.float32, "int8", 96, 96),
-    (torch.bfloat16, "int8", 160, 80), (torch.bfloat16, "int8", 64, 80)])
+    (torch.bfloat16, "int8", 160, 80), (torch.bfloat16, "int8", 64, 80),
+    # head_dim 256 (8 contiguous values a lane)
+    (torch.bfloat16, "bf16", 128, 256), (torch.bfloat16, "bf16", 16, 256),
+    (torch.bfloat16, "int8", 128, 256), (torch.bfloat16, "int8", 256, 256),
+    (torch.float32, "int8", 64, 256)])
 def test_append_kernel_is_bit_exact(gen, src, fmt, ps, d):
     """The append kernel and its plain version run the same IEEE ops, so
     the pages agree bit for bit, an all-zero row (scale 1) included."""
@@ -756,7 +771,10 @@ def test_v1_f32_kernel_runs_are_bit_identical(gen):
     ("int8 f32", 4, 128, 256),
     # head_dim 80 and 96, groups padded to 4 and 8 and two row blocks
     ("bf16", 3, 96, 128), ("int8 bf16", 3, 96, 128), ("bf16", 16, 80, 128),
-    ("f32", 7, 80, 128)])
+    ("f32", 7, 80, 128),
+    # head_dim 256 (bf16 q), groups 1, 2, 8 (two row blocks of 4)
+    ("bf16", 8, 256, 128), ("int8 bf16", 2, 256, 128), ("bf16", 1, 256, 16),
+    ("int8 bf16", 8, 256, 256)])
 def test_separate_decode_kernel_matches_plain(gen, fmt, group, d, ps):
     """Separate K/V page arrays (int8 pages with f32 scale pages, at page
     sizes that are multiples of 128 as JAX requires), lengths 0, 1, a page
@@ -1098,13 +1116,16 @@ def test_bf16_rowloop_jagged_lengths_at_tile_edges(gen, d):
                                    rtol=1e-6, atol=0)   # the sentinel
 
 
-# (hq, hkv, d, masks): groups 1 and 4, head_dim 64, 96 (read in place) and
-# 128, causal, the window, segment ids, and ids with static segment_starts
+# (hq, hkv, d, masks): groups 1, 4 and 8, head_dim 64, 96 and 192 (read in
+# place), 128 and 256, causal, the window, segment ids, and ids with static
+# segment_starts
 DETERMINISM = [
     (4, 4, 128, "causal"), (8, 2, 128, "causal"), (8, 2, 64, "causal"),
     (4, 4, 64, "window"), (8, 2, 128, "window"), (8, 2, 128, "ids"),
     (4, 4, 128, "starts"), (8, 2, 64, "starts"),
     (8, 2, 96, "causal"), (4, 4, 96, "window"), (8, 2, 96, "ids"),
+    (8, 1, 256, "causal"), (4, 4, 256, "window"), (8, 2, 256, "ids"),
+    (8, 1, 256, "starts"), (8, 2, 192, "causal"), (4, 4, 192, "starts"),
 ]
 
 
@@ -1626,7 +1647,10 @@ def test_dims_bwd_matches_plain(gen, dtype, d, group, window):
 DIMS_DECODE = [(fmt, d, group, ps)
                for fmt in ("bf16", "f32", "int8 bf16", "int8 f32")
                for d, group, ps in ((80, 3, 64), (96, 5, 32), (80, 7, 16),
-                                    (96, 12, 64), (80, 16, 32))]
+                                    (96, 12, 64), (80, 16, 32))] + [
+    # head_dim 256 (bf16 q over bf16 or int8 pages)
+    (fmt, 256, group, ps) for fmt in ("bf16", "int8 bf16")
+    for group, ps in ((1, 64), (2, 32), (8, 16), (12, 128), (3, 256))]
 
 
 @pytest.mark.parametrize("fmt,d,group,ps", DIMS_DECODE)
@@ -1701,7 +1725,10 @@ def test_dims_int8_decode_scale_rows_across_groups(gen, dtype):
 
 IN_PLACE = [(d, group, mask) for d in (32, 48, 72, 80, 96)
             for group in (1, 3, 7)
-            for mask in ("causal", "window", "ids", "jagged")]
+            for mask in ("causal", "window", "ids", "jagged")] + [
+    # the wide instances (tiles of 256 columns) at 136 and 192
+    (d, group, mask) for d in (136, 192) for group in (1, 4)
+    for mask in ("causal", "window", "ids", "jagged")]
 
 
 def _in_place_inputs(gen, d, group, mask, n=300):
@@ -1726,7 +1753,7 @@ def _in_place_inputs(gen, d, group, mask, n=300):
 
 
 def _padded(*ts):
-    w = kernel_head_dim(ts[0].shape[-1], "the kernel")
+    w = kernel_head_dim(ts[0].shape[-1], "the kernel", wide=True)
     return [pad_head_dim(t, w) for t in ts]
 
 
@@ -1817,3 +1844,141 @@ def test_f32_and_quantized_forward_still_pad(gen, dtype):
     torch.cuda.synchronize()
     assert pad_head_dim.copies == copies + 3
     assert _err(out, ref) <= tolerance_for(q.dtype)
+
+
+# --- head_dim 256: the wide instances ------------------------------------------
+# B1 over 64-row kv tiles in two stages (K and V slots released apart), the
+# backward's wide main kernel (64-row kv blocks, the head dims split between
+# the warpgroups), the decodes and the append at 256 (ops/dims.py).
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "full",
+                                  "offset"])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_flash_kernel_matches_plain(gen, d, group, mask):
+    """B1's wide instance against its plain version at the bf16 gates: 300
+    rows (not a multiple of the 64-row kv tiles), each mask, the decode
+    offset (130 q rows over 300 kv rows)."""
+    kw = {"causal": mask != "full"}
+    q_len = 130 if mask == "offset" else 300
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(2, 300, gen)
+        kw["segment_ids"] = (seg, seg)
+    hkv = 2 if group < 8 else 1
+    _flash_vs_plain(gen, 2, hkv * group, hkv, q_len, 300, d, **kw)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 129, 257])
+@pytest.mark.parametrize("q_len", [1, 127, 129, 257])
+def test_wide_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """q_len on each side of the 128-row q tiles and kv_len on each side of
+    the wide instance's 64-row kv tiles (one, a ring stage's worth, two
+    stages and one)."""
+    _flash_vs_plain(gen, 1, 8, 1, q_len, kv_len, 256, causal=causal)
+
+
+def test_wide_kernel_ids_with_segment_starts(gen):
+    """segment_starts prune each q tile's range on the wide instance's own
+    table (64-row kv tiles): the same bits as without them."""
+    b, n = 1, 1000
+    q = _randn((b, 8, n, 256), torch.bfloat16, gen)
+    k = _randn((b, 1, n, 256), torch.bfloat16, gen)
+    v = _randn((b, 1, n, 256), torch.bfloat16, gen)
+    seg = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+    for x in (130, 480, 700):
+        seg[:, x:] += 1
+    got = flash_attention(q, k, v, causal=True, segment_ids=(seg, seg),
+                          segment_starts=(0, 130, 480, 700), return_lse=True)
+    want = flash_attention(q, k, v, causal=True, segment_ids=(seg, seg),
+                           return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, segment_ids=(seg, seg),
+        return_lse=True), q, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "starts",
+                                  "full"])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_bwd_matches_plain(gen, d, group, mask):
+    """The wide backward against its plain version at the bf16 gate, each
+    mask, 1000 rows (not a multiple of the 64-row tiles) over 900 kv rows
+    where causal is off; through flash_attention_bwd and autograd."""
+    b, hkv = 2, 2 if group == 1 else 1
+    q_len, kv_len = (1000, 900) if mask == "full" else (1000, 1000)
+    q = _randn((b, hkv * group, q_len, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    do = _randn((b, hkv * group, q_len, d), torch.bfloat16, gen)
+    kw, starts = {"causal": mask != "full"}, None
+    if mask == "window":
+        kw["window"] = 300
+    if mask in ("ids", "starts"):
+        seg = _segment_ids(b, q_len, (130, 480, 700), gen)
+        kw["segment_ids"] = (seg, seg)
+        if mask == "starts":
+            starts = (0, 130, 480, 700)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, segment_starts=starts,
+                              **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_GATE[torch.bfloat16], name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, segment_starts=starts, **kw).backward(do)
+    for name, t, g in zip(("dq", "dk", "dv"), leaves, got):
+        assert torch.equal(t.grad, g), name
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("wide_group", [4, 8])
+def test_wide_decode_routes_match_plain(gen, monkeypatch, wide_group, fmt,
+                                        ring):
+    """A group of 8 at head_dim 256, as two row blocks of G = 4 (the kept
+    route) and on the G = 8 instance, over bf16 and int8 pages, in plain
+    and ring mode: both against the plain version, and the same bits."""
+    monkeypatch.setattr(configs, "DECODE_WIDE_GROUP", wide_group)
+    B, hkv, ps, P, d = 4, 1, 64, 6, 256
+    num_pages = B * P + 3
+    q = _randn((B, 8, d), torch.bfloat16, gen)
+    pages = pack_paged_cache(
+        _randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+        _randn((hkv, num_pages, ps, d), torch.bfloat16, gen), fmt)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, ps, P * ps - 5, 3 * P * ps + 30 if ring
+                            else P * ps], dtype=torch.int32, device="cuda")
+    window = 200 if ring else None
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    ref, ref_lse = fused_paged_decode_plain(
+        q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+        window=window, splits="kernel")
+    assert _err(out, ref) <= tolerance_for(torch.bfloat16)
+    assert _err(lse, ref_lse) <= 1e-4
+    monkeypatch.setattr(configs, "DECODE_WIDE_GROUP", 12 - wide_group)
+    other = fused_paged_decode_attention(q, pages, lengths, table,
+                                         page_size=ps, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip((out, lse), other))
+
+
+def test_wide_smem_layouts_match_configs(gen):
+    """ops/configs.py::bwd_smem_bytes gives the shared memory of each bf16
+    backward main kernel, the wide one included (the library's sizes)."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_bf16_smem
+    check_bf16_smem(_build.library("flash_bwd"))

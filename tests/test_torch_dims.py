@@ -4,8 +4,9 @@ package, on the CPU.
 The JAX package takes any head_dim (its forward and backward pad it to 128
 lanes) and any group (its decodes pad a kv head's q rows to 8). The port's
 bf16 flash forward and backward read any head_dim that is a multiple of 8
-in place; its f32 and quantized flash instances and FA1 take tiles of
-64/128 columns, the decodes and append head_dim 64/80/96/128, and the
+in place (up to 256: tests/test_torch_dims256.py holds the wide instances);
+its f32 and quantized flash instances and FA1 take tiles of 64/128
+columns, the decodes and append head_dim 64/80/96/128 (and 256), and the
 decodes groups 1/2/4/8; its wrappers pad around them with ops/dims.py
 (`flash_head_dim` is the rule). Here the same numpy inputs, made from a
 seed, go through the JAX function (its Pallas kernels in interpret mode,
@@ -72,9 +73,10 @@ def _both(a, dtype):
 
 
 @pytest.mark.parametrize("d,dk", [(1, 64), (48, 64), (64, 64), (72, 128),
-                                  (80, 128), (96, 128), (128, 128)])
+                                  (80, 128), (96, 128), (128, 128),
+                                  (130, 256), (200, 256), (256, 256)])
 def test_kernel_head_dim_pads_to_the_next_instance(d, dk):
-    assert dims.kernel_head_dim(d, "the kernel") == dk
+    assert dims.kernel_head_dim(d, "the kernel", wide=dk > 128) == dk
     x = torch.randn(2, 3, 5, d)
     padded = dims.pad_head_dim(x, dk)
     if d == dk:
@@ -89,18 +91,14 @@ def test_kernel_head_dim_pads_to_the_next_instance(d, dk):
 @pytest.mark.parametrize("d", range(1, 137))
 def test_in_place_rule(d):
     """bf16 over bf16 K/V, the flash kernels take a head_dim that is a
-    multiple of 8 in place (64 and 128 are their tiles' own widths), pad
-    any other to the next tile width, and raise above 128; pad_head_dim
-    counts each copy it makes."""
+    multiple of 8 in place (64, 128 and 256 are their tiles' own widths)
+    and pad any other to the next tile width (256 above 128: the wide
+    instances, tests/test_torch_dims256.py); pad_head_dim counts each copy
+    it makes."""
     what = "the CUDA forward kernel"
-    if d > 128:
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            dims.flash_head_dim(d, torch.bfloat16, what)
-        assert not dims.reads_in_place(d)
-        return
     in_place = d % 8 == 0
     assert dims.reads_in_place(d) == in_place
-    want = d if in_place else dims.kernel_head_dim(d, what)
+    want = d if in_place else dims.kernel_head_dim(d, what, wide=True)
     assert dims.flash_head_dim(d, torch.bfloat16, what) == want
     x = torch.zeros(1, 1, 3, d)
     before = dims.pad_head_dim.copies
@@ -123,14 +121,37 @@ def test_f32_and_quantized_entries_pad(d):
 
 
 def test_head_dims_above_128_raise():
+    """Above 256 every flash entry raises; above 128 the instances the
+    wide slice did not port (f32, the quantized forward, FA1) raise,
+    naming themselves; the decodes and the append raise at head dims
+    they do not compile (192 among them) and, at 256, over f32."""
+    for d in (264, 384, 512):
+        with pytest.raises(NotImplementedError, match="up to 256"):
+            dims.kernel_head_dim(d, "the CUDA forward kernel", wide=True)
+        with pytest.raises(NotImplementedError, match="up to 256"):
+            dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward kernel")
     for d in (129, 256, 384):
         with pytest.raises(NotImplementedError, match="up to 128"):
-            dims.kernel_head_dim(d, "the CUDA forward kernel")
-    for d in (72, 112, 256):
+            dims.kernel_head_dim(d, "the CUDA FA1 kernel")
+        with pytest.raises(NotImplementedError, match="float32 takes "
+                           "head_dim up to 128"):
+            dims.flash_head_dim(d, torch.float32, "the CUDA forward kernel")
+        with pytest.raises(NotImplementedError, match="K/V takes head_dim "
+                           "up to 128"):
+            dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
+                                "kernel", quantized=True)
+    for d in (72, 112, 192, 264):
         with pytest.raises(NotImplementedError, match="80, 96"):
             dims.decode_head_dim(d, "the CUDA decode kernel")
+    for what in ("the CUDA decode kernel", "the CUDA append kernel"):
+        with pytest.raises(NotImplementedError, match="f32 up to head_dim "
+                           "128"):
+            dims.decode_head_dim(256, what, torch.float32)
     for d in dims.DECODE_HEAD_DIMS:
         dims.decode_head_dim(d, "the CUDA decode kernel")
+        dims.decode_head_dim(d, "the CUDA append kernel", torch.int8)
+        if d <= 128:
+            dims.decode_head_dim(d, "the CUDA decode kernel", torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn],

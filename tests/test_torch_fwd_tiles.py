@@ -40,8 +40,8 @@ from tiny_flash_attention_tpu.ops.flash_quant import (
 from tiny_flash_attention_tpu_torch.models.transformer import (
     quantized_from_jax)
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_F32, SMEM_PER_BLOCK, TileConfig,
-    fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, SMEM_PER_BLOCK,
+    TileConfig, bwd_smem_bytes, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     check_smem_layouts, flash_attention, fwd_config, fwd_f32_tiles,
     segment_tiles, tile_table, visible_mask)
@@ -52,7 +52,8 @@ from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
 # the tiles of each forward instance's table (bf16 q over quantized K/V
 # runs the bf16 kernel, on its tiles)
 CONFIGS = {"bf16": FLASH_FWD_BF16, "f32": FLASH_FWD_F32,
-           "quant_bf16": fwd_config(torch.bfloat16, quantized=True)}
+           "quant_bf16": fwd_config(torch.bfloat16, quantized=True),
+           "bf16_wide": fwd_config(torch.bfloat16, head_dim=256)}
 # every forward instance: its tiles, and whether its K/V are quantized
 INSTANCES = {"bf16": (FLASH_FWD_BF16, False), "f32": (FLASH_FWD_F32, False),
              "quant_bf16": (FLASH_FWD_BF16, True),
@@ -187,6 +188,49 @@ def test_fwd_config_by_dtype_and_payload():
         fwd_smem_bytes(TileConfig(64, 64, 128), 128, quantized=True)
 
 
+def test_wide_instances_fit_a_block():
+    """The head_dim-256 instances' budgets: B1 over 64-row kv tiles in two
+    stages with K's and V's empty barriers apart (q 64 KiB, two stages of
+    K, V and ids, 1 + 4 x 2 mbarriers, the alignment slack), where three
+    stages or 128-row tiles would not fit; the backward's wide main kernel
+    (K, V, one stage of qs, q and dout, the rows' kilobyte, P^T and two
+    dS^T tiles, the mbarriers' 64 bytes, the slack)."""
+    wide = fwd_smem_bytes(FLASH_FWD_BF16_WIDE, 256)
+    assert wide == (128 * 256 * 2 + 2 * (2 * 64 * 256 * 2 + 64 * 4)
+                    + 9 * 8 + 1024) == 198216 <= SMEM_PER_BLOCK
+    # two stages of 128-row tiles, or three of 64-row ones, would not fit
+    assert 128 * 256 * 2 + 2 * 2 * 128 * 256 * 2 > SMEM_PER_BLOCK
+    assert 128 * 256 * 2 + 3 * 2 * 64 * 256 * 2 > SMEM_PER_BLOCK
+    assert bwd_smem_bytes(256) == (2 * 64 * 256 * 2 + 3 * 64 * 256 * 2
+                                   + 1024 + 3 * 64 * 64 * 2 + 64 + 1024)
+    assert bwd_smem_bytes(256) == 190528 <= SMEM_PER_BLOCK
+    # the 128-row layout at 256 would not fit
+    assert (2 * 128 * 256 * 2 + 2 * 3 * 64 * 256 * 2) > SMEM_PER_BLOCK
+    for d in (64, 128):
+        assert 0 < bwd_smem_bytes(d) <= SMEM_PER_BLOCK
+    assert bwd_smem_bytes(128) == 216128
+
+
+class _BwdLibrary:
+    """Stands in for a built backward library: its bf16 main kernels'
+    shared-memory sizes by head_dim."""
+
+    def __init__(self, sizes):
+        self.tfa_flash_bwd_bf16_smem = lambda head_dim: sizes[head_dim]
+
+
+def test_bwd_smem_is_held_to_the_library():
+    """check_bf16_smem passes where the library's sizes are
+    bwd_smem_bytes' at 64, 128 and 256, and raises where one differs."""
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_bf16_smem
+
+    sizes = {d: bwd_smem_bytes(d) for d in (64, 128, 256)}
+    check_bf16_smem(_BwdLibrary(sizes))
+    sizes[256] += 64
+    with pytest.raises(RuntimeError, match="bwd_smem_bytes"):
+        check_bf16_smem(_BwdLibrary(sizes))
+
+
 class _Library:
     """Stands in for a built forward library: its exported shared-memory
     sizes by (dtype code, head_dim), for both sources."""
@@ -202,10 +246,12 @@ class _Library:
 def test_smem_layouts_are_held_to_the_library(quantized):
     """check_smem_layouts passes where the library's sizes are
     fwd_smem_bytes' and raises where one instance's differs."""
-    sizes = {(code, d): fwd_smem_bytes(fwd_config(dtype, quantized), d,
+    sizes = {(code, d): fwd_smem_bytes(fwd_config(dtype, quantized, d), d,
                                        quantized)
              for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1))
              for d in (64, 128)}
+    if not quantized:   # the wide instance, bf16 over bf16 K/V only
+        sizes[(0, 256)] = fwd_smem_bytes(FLASH_FWD_BF16_WIDE, 256)
     check_smem_layouts(_Library(sizes), quantized)
     sizes[(0, 64)] += 16
     with pytest.raises(RuntimeError, match="fwd_smem_bytes"):

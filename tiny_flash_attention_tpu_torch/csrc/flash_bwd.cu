@@ -10,7 +10,7 @@
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:609      flash_attention_bwd   (_bwd_dkv_kernel)
 //
 // Contract: q, out, dout (B, hq, Sq, d) and k, v (B, hkv, Skv, d),
-// contiguous, of one dtype (bf16: d any multiple of 8 up to 128, read and
+// contiguous, of one dtype (bf16: d any multiple of 8 up to 256, read and
 // written at its true width; f32: d 64 or 128); lse (B, hq, Sq) is the
 // forward's natural-log LSE in f32. Causal rows sit at position row + Skv -
 // Sq. Writes dq like q, and dk, dv like k, summed over the GQA group of
@@ -66,7 +66,8 @@
 //     summed in q-head order: the one rounding at the write of JAX's VMEM
 //     accumulators.
 //   The true head_dim d (hopper.cuh::flash_width picks an instance of width
-//   N >= d over tiles of D = 64 or 128 columns): prep reads and writes rows
+//   N >= d over tiles of D = 64, 128 or 256 columns; above 128 the main
+//   kernel is the wide one, below): prep reads and writes rows
 //   at stride d, its lanes past d adding 0 to delta in the same order as
 //   over a padded row; the main kernel's maps take d, so TMA lands zeros in
 //   the tiles' columns past d; S^T and dP^T run N / 16 k-steps, dV and dK
@@ -104,11 +105,15 @@
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
+#include <type_traits>
+
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #if !defined(TFA_BWD_BF16_BLOCK_M) || !defined(TFA_BWD_BF16_BLOCK_N) || \
-    !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) ||   \
+    !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_BF16_WIDE_BLOCK_M) || \
+    !defined(TFA_BWD_BF16_WIDE_BLOCK_N) ||                                \
+    !defined(TFA_BWD_BF16_WIDE_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) || \
     !defined(TFA_BWD_F32_BLOCK_N) || !defined(TFA_BWD_F32_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
@@ -552,6 +557,369 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   }
 }
 
+// ------------------------------------------------------ the wide instance
+//
+// Head dims in (128, 256] (N = 256, tiles of four 64-column boxes). The
+// layout above cannot hold them: a warpgroup's dK and dV of 64 kv rows
+// would be 256 f32 registers a thread, and K and V of a 128-row tile (128
+// KiB) beside a two-stage ring of q, qs and dout (192 KiB) exceed the
+// block's shared memory. So the wide main kernel takes one block per
+// (64-row kv tile, q head, batch) (ops/configs.py FLASH_BWD_BF16_WIDE), and
+// its two warpgroups share each 64-row q step this way:
+//   * S^T = K qs^T and dP^T = V dout^T by q columns: warpgroup w takes the
+//     step's q rows [32w, 32w + 32) (m64n32k16 over 16 k-steps each) and
+//     computes their P^T and dS^T in f32 at the rounding points above, so
+//     no product runs twice and no f32 tile changes hands; both write
+//     their columns of P^T and dS^T as bf16 into shared tiles.
+//   * dV += P^T dout and dK += dS^T q by head dims: warpgroup w holds
+//     columns [128w, 128w + 128) of both, 64 + 64 f32 registers a thread,
+//     A from the shared P^T and dS^T tiles (m64n128k16 over 4 k-steps).
+//   * dQ = dS K by head dims: warpgroup w the 64-column parts 2w and 2w + 1
+//     (m64n64k16 over 4 k-steps each), added into dq_acc in the chain of
+//     the q tile: the warpgroup's thread 0 waits for the tile's turn on
+//     both parts' counters, a warpgroup barrier, then every thread adds
+//     its fragments as float4 atomic adds (one writer at a time, so the sums
+//     keep the chain's order; a staging tile would not fit beside the
+//     rest, 64 KiB). The turn passes in the next step once its first
+//     products are issued: each thread's fence makes its adds visible,
+//     then a warpgroup barrier and thread 0's release.
+//   * one stage of qs, q and dout (96 KiB) beside K and V (64 KiB): the
+//     next q tile's qs is loaded once both warpgroups' S^T have landed,
+//     its q, dout and rows once dV and dK have, and a step's S^T is issued
+//     once its qs has landed, before the rest. dS^T has two buffers, so
+//     one step's dQ and the next step's dS^T need no barrier between them.
+// A dK/dV slot holds one 64-row chunk a kv tile in fragment order, the
+// 8-column group i of warpgroup w at group 16w + i: post reads it as it
+// reads each 64-row half of the 128-row tiles.
+constexpr int WHN = TFA_BWD_BF16_WIDE_BLOCK_N;  // kv rows per wide block
+static_assert(WHN == 64 && TFA_BWD_BF16_WIDE_BLOCK_M == HM &&
+                  TFA_BWD_BF16_WIDE_THREADS == HTHREADS,
+              "two warpgroups over a 64-row kv tile and 64-row q steps");
+
+// kv rows of a main-kernel block at tiles of D columns
+__host__ __device__ constexpr int bwd_kv_rows(int d) {
+  return d > 128 ? WHN : HN;
+}
+
+template <int D>
+struct WideSmem {
+  static constexpr int KV = WHN * D * 2;         // K or V of the tile
+  static constexpr int QT = HM * D * 2;          // one q-side tile
+  static constexpr int K = 0;
+  static constexpr int V = KV;
+  static constexpr int QS = 2 * KV;              // the q-side stage: qs,
+  static constexpr int Q = QS + QT;              // q,
+  static constexpr int DO = Q + QT;              // dout,
+  static constexpr int ROWS = DO + QT;           // lse2, delta, q ids
+  static constexpr int PT = ROWS + 1024;         // P^T [WHN][HM] bf16
+  static constexpr int DST = PT + WHN * HM * 2;  // dS^T [2][WHN][HM] bf16
+  static constexpr int BAR = DST + 2 * WHN * HM * 2;
+  static constexpr int TOTAL = BAR + 64;
+  static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
+  static_assert(3 * HM * 4 <= 1024, "the rows fit their kilobyte");
+  static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
+};
+
+template <int N, bool WINDOW, bool SEGS>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_qs,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ q_seg,
+                          const int* __restrict__ kv_seg, const int* table,
+                          float* __restrict__ dq_acc,
+                          float* __restrict__ dk_acc,
+                          float* __restrict__ dv_acc, int* dq_turn,
+                          int batch, int hq, int hkv, int q_len, int kv_len,
+                          int q_pad, int causal, int window) {
+  constexpr int D = tile_cols(N);
+  static_assert(D == 256 && N == 256, "the wide instance");
+  using S = WideSmem<D>;
+  constexpr int BOXES = D / 64;                  // 64-wide column blocks
+  constexpr int DQ_PARTS = D / 64;               // dQ chunks per q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qs_full = reinterpret_cast<uint64_t*>(sm + S::BAR);
+  uint64_t* full = qs_full + 1;                  // q, dout and the rows
+  uint64_t* kv_bar = qs_full + 2;
+
+  const int n_kvt = (kv_len + WHN - 1) / WHN;
+  const Table tab(table, n_kvt);
+  const int rank = blockIdx.x / (hq * batch);    // longest band first
+  const int hb = blockIdx.x % (hq * batch);
+  const int j = tab.order[rank];
+  const int h = hb % hq, b = hb / hq;
+  const int kvh = h / (hq / hkv);
+  const int lo = tab.lo[j];
+  const int n = tab.hi[j] - lo;                  // q tiles to visit
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int bh = b * hq + h;
+  // this q head's dK, dV slot of the tile: 64 rows, f32
+  auto dkv_slot = [&](float* acc) {
+    return acc + ((size_t)bh * n_kvt + j) * (WHN * D);
+  };
+  if (n <= 0) {  // no row sees the tile: its gradients are 0
+    for (int i = tid; i < WHN * D / 4; i += HTHREADS) {
+      reinterpret_cast<float4*>(dkv_slot(dk_acc))[i] = make_float4(0, 0, 0, 0);
+      reinterpret_cast<float4*>(dkv_slot(dv_acc))[i] = make_float4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const int warp = t / 32, lane = t % 32;
+  const int kv0 = j * WHN;
+  const int offset = kv_len - q_len;
+  const size_t rows_base = (size_t)bh * q_pad;   // lse2, delta rows
+
+  auto load_qs = [&](int qt) {
+    mbar_expect_tx(qs_full, S::QT);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load_3d(sm + S::QS + c * HM * 128, &tm_qs, qs_full, 64 * c,
+                  qt * HM, bh);
+  };
+  auto load_rest = [&](int qt) {
+    mbar_expect_tx(full, 2 * S::QT + (SEGS ? 3 : 2) * HM * 4);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load_3d(sm + S::Q + c * HM * 128, &tm_q, full, 64 * c, qt * HM,
+                  bh);
+      tma_load_3d(sm + S::DO + c * HM * 128, &tm_do, full, 64 * c, qt * HM,
+                  bh);
+    }
+    float* rows = reinterpret_cast<float*>(sm + S::ROWS);
+    bulk_load(rows, lse2 + rows_base + qt * HM, HM * 4, full);
+    bulk_load(rows + HM, delta + rows_base + qt * HM, HM * 4, full);
+    if (SEGS)
+      bulk_load(rows + 2 * HM, q_seg + (size_t)b * q_pad + qt * HM, HM * 4,
+                full);
+  };
+
+  if (tid == 0) {
+    mbar_init(qs_full, 1);
+    mbar_init(full, 1);
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * S::KV);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load_3d(sm + S::K + c * WHN * 128, &tm_k, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+      tma_load_3d(sm + S::V + c * WHN * 128, &tm_v, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+    }
+    load_qs(lo + n - 1);  // the q tiles from the last down
+    load_rest(lo + n - 1);
+  }
+
+  // this thread's kv rows: kr (accumulator slots 0, 1 of each 8-column
+  // block) and kr + 8 (slots 2, 3); its warpgroup's q columns of a step
+  // (S^T, dP^T) and head dims (dV, dK, dQ)
+  const int kr = kv0 + warp * 16 + lane / 4;
+  int kid0 = 0, kid1 = 0;
+  if (SEGS) {
+    if (kr < kv_len) kid0 = kv_seg[(size_t)b * kv_len + kr];
+    if (kr + 8 < kv_len) kid1 = kv_seg[(size_t)b * kv_len + kr + 8];
+  }
+  const int qc = wg * 32;
+  const int part0 = 2 * wg;                      // its dQ parts and boxes
+  auto turn = [&](int qt, int part) {
+    return dq_turn + ((size_t)bh * (q_pad / HM) + qt) * DQ_PARTS + part;
+  };
+  // this tile's link in each q tile's chain, and the link just added as
+  // link * 2 + last (`passed`): the last link sets the counters back to 0
+  const int* chain_pos = tab.pos + tab.base[j] - lo;
+  const int* chain_len = tab.chain_len(n_kvt);
+  int passed = 0;
+  // the adds of the step before are visible to the next link
+  auto pass_turns = [&](int qt) {
+    __threadfence();
+    named_bar(1 + wg, 128);
+    if (t == 0)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (passed & 1)
+          turn_reset(turn(qt, part0 + p));
+        else
+          turn_pass(turn(qt, part0 + p));
+      }
+  };
+
+  float dv[64], dk[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+
+  const unsigned char* qss = sm + S::QS;
+  const unsigned char* qsm = sm + S::Q;
+  const unsigned char* dos = sm + S::DO;
+  const float* l2s = reinterpret_cast<const float*>(sm + S::ROWS);
+  const float* dls = l2s + HM;
+  const int* qids = reinterpret_cast<const int*>(l2s + 2 * HM);
+  unsigned char* pt = sm + S::PT;
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n; ++it) {
+    const int qt = lo + n - 1 - it, q0 = qt * HM;
+    unsigned char* dst = sm + S::DST + (it & 1) * WHN * HM * 2;
+    mbar_wait(qs_full, it & 1);
+
+    // S^T = K qs^T and dP^T = V dout^T: 64 kv rows x this warpgroup's 32
+    // q columns each; S^T starts before dout and the rows have landed
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss<32, 0, 0>(
+          s, smem_desc(sm + S::K + (kk / 4) * WHN * 128 + (kk % 4) * 32, 16,
+                       1024),
+          smem_desc(qss + (kk / 4) * HM * 128 + qc * 128 + (kk % 4) * 32, 16,
+                    1024),
+          kk > 0);
+    wgmma_commit();
+    mbar_wait(full, it & 1);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss<32, 0, 0>(
+          dp, smem_desc(sm + S::V + (kk / 4) * WHN * 128 + (kk % 4) * 32, 16,
+                        1024),
+          smem_desc(dos + (kk / 4) * HM * 128 + qc * 128 + (kk % 4) * 32, 16,
+                    1024),
+          kk > 0);
+    wgmma_commit();
+    if (it > 0) pass_turns(qt + 1);
+
+    // P^T = exp2(S^T - lse2) (0 where masked and on empty rows)
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool need_mask = SEGS || kv0 + WHN > kv_len ||
+                           (causal && kv0 + WHN - 1 > q0 + offset) ||
+                           (WINDOW && kv0 < q0 + HM + offset - window);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = qc + 8 * jj + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(l2s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(s[4 * jj + e] - ((e & 1) ? l2.y : l2.x));
+        if (need_mask) {
+          const int col = e < 2 ? kr : kr + 8;   // kv position
+          const int row = q0 + c + (e & 1);      // q row
+          bool ok = col < kv_len && (!causal || col <= row + offset) &&
+                    (!WINDOW || col > row + offset - window);
+          if (SEGS) ok = ok && qids[c + (e & 1)] == (e < 2 ? kid0 : kid1);
+          if (!ok) p = 0.f;
+        }
+        s[4 * jj + e] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = qc + 8 * jj + 2 * (lane & 3);
+      const float2 dl = *reinterpret_cast<const float2*>(dls + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    // P^T and dS^T as bf16 into the shared tiles, in the 128-byte swizzle
+    // (kv rows, q columns): the A operands of dV and dK
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = qc + 8 * jj + 2 * (lane & 3);
+      const int r0 = warp * 16 + lane / 4;
+      *reinterpret_cast<uint32_t*>(pt + swz(r0, c)) =
+          pack_bf16(s[4 * jj], s[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(pt + swz(r0 + 8, c)) =
+          pack_bf16(s[4 * jj + 2], s[4 * jj + 3]);
+      *reinterpret_cast<uint32_t*>(dst + swz(r0, c)) =
+          pack_bf16(dp[4 * jj], dp[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(dst + swz(r0 + 8, c)) =
+          pack_bf16(dp[4 * jj + 2], dp[4 * jj + 3]);
+    }
+    fence_async_smem();
+    __syncthreads();  // P^T and dS^T whole; qs is read by no one
+    if (tid == 0 && it + 1 < n) load_qs(qt - 1);
+
+    // dV += P^T dout, dK += dS^T q over this warpgroup's 128 head dims
+    // (dout and q read MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HM / 16; ++kk)
+      wgmma_ss<128, 0, 1>(
+          dv, smem_desc(pt + kk * 32, 16, 1024),
+          smem_desc(dos + part0 * HM * 128 + kk * 16 * 128, HM * 128, 1024),
+          1);
+#pragma unroll
+    for (int kk = 0; kk < HM / 16; ++kk)
+      wgmma_ss<128, 0, 1>(
+          dk, smem_desc(dst + kk * 32, 16, 1024),
+          smem_desc(qsm + part0 * HM * 128 + kk * 16 * 128, HM * 128, 1024),
+          1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // q, dout, the rows and P^T are read by no one
+    if (tid == 0 && it + 1 < n) load_rest(qt - 1);
+
+    // dQ (64 q rows x 64 head dims, two parts) = dS K, read MN-major from
+    // dS^T and K, each added in its turn
+    const int x = chain_pos[qt];
+    passed = 2 * x + (x + 1 == chain_len[qt]);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WHN / 16; ++kk)
+        wgmma_ss<64, 1, 1>(
+            dq, smem_desc(dst + 16 * kk * 128, 64 * 128, 1024),
+            smem_desc(sm + S::K + (part0 + p) * WHN * 128 + 16 * kk * 128,
+                      WHN * 128, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (p == 0) {
+        if (t == 0) {
+          turn_wait(turn(qt, part0), x);
+          turn_wait(turn(qt, part0 + 1), x);
+        }
+        named_bar(1 + wg, 128);
+      }
+      float4* acc = reinterpret_cast<float4*>(
+          dq_acc + (turn(qt, part0 + p) - dq_turn) * (HM * 64));
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        atomicAdd(acc + i * 128 + t,
+                  make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2],
+                              dq[4 * i + 3]));
+    }
+  }
+  pass_turns(lo);
+
+  // dK, dV of the warpgroup's 128 head dims, f32 in fragment order, into
+  // the q head's slot
+  float4* dks = reinterpret_cast<float4*>(dkv_slot(dk_acc));
+  float4* dvs = reinterpret_cast<float4*>(dkv_slot(dv_acc));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    dks[(16 * wg + i) * 128 + t] = make_float4(dk[4 * i], dk[4 * i + 1],
+                                               dk[4 * i + 2], dk[4 * i + 3]);
+    dvs[(16 * wg + i) * 128 + t] = make_float4(dv[4 * i], dv[4 * i + 1],
+                                               dv[4 * i + 2], dv[4 * i + 3]);
+  }
+}
+
 // One 64-row chunk of an accumulator in fragment order (64 x cw f32,
 // float4 (i, t) holding rows R, R + 8 and columns C, C + 1 of the wgmma
 // accumulator layout), scaled and rounded to bf16 through shared memory,
@@ -631,18 +999,19 @@ __global__ void __launch_bounds__(128)
                           bf16* __restrict__ dv, long n_dq, long n_kv,
                           int q_len, int kv_len, int d, int group,
                           float sm_scale) {
+  constexpr int KVR = bwd_kv_rows(D), KV_PARTS = KVR / 64;
   __shared__ __align__(16) bf16 tile[64 * (D + 8)];
   const long g = blockIdx.x;
-  const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + HN - 1) / HN;
+  const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + KVR - 1) / KVR;
   if (g < n_dq)
     post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, d, sm_scale,
                       1, 0, tile);
   else if (g < n_dq + n_kv)
-    post_chunk<D, D>(dk_acc, dk, g - n_dq, 2, HN, n_kvt, kv_len, d,
-                     sm_scale, group, 2L * n_kvt, tile);
+    post_chunk<D, D>(dk_acc, dk, g - n_dq, KV_PARTS, KVR, n_kvt, kv_len, d,
+                     sm_scale, group, (long)KV_PARTS * n_kvt, tile);
   else
-    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, 2, HN, n_kvt, kv_len, d,
-                     1.f, group, 2L * n_kvt, tile);
+    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, KV_PARTS, KVR, n_kvt,
+                     kv_len, d, 1.f, group, (long)KV_PARTS * n_kvt, tile);
 }
 
 struct Bf16Args {
@@ -658,11 +1027,22 @@ struct Bf16Args {
   float scale_log2, sm_scale;
 };
 
+// The main kernel of the instance of width N: the wide layout above 128.
+template <int N, bool WINDOW, bool SEGS>
+constexpr auto main_kernel() {
+  if constexpr (tile_cols(N) > 128)
+    return flash_bwd_wide_kernel<N, WINDOW, SEGS>;
+  else
+    return flash_bwd_main_kernel<N, WINDOW, SEGS>;
+}
+
 template <int N, bool WINDOW, bool SEGS>
 cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
-  constexpr int ALLOC = Smem<tile_cols(N)>::ALLOC;
+  constexpr int D = tile_cols(N), KVR = bwd_kv_rows(D);
+  constexpr int ALLOC =
+      std::conditional_t<(D > 128), WideSmem<D>, Smem<D>>::ALLOC;
   static bool smem_set[kMaxDevices] = {};
-  const auto kernel = flash_bwd_main_kernel<N, WINDOW, SEGS>;
+  const auto kernel = main_kernel<N, WINDOW, SEGS>();
   cudaError_t err = raise_smem_limit(kernel, ALLOC, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mqs, mdo, mk, mv;
@@ -670,10 +1050,10 @@ cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
   if (!bf16_map(&mq, a.q, a.d, a.q_len, bhq, HM) ||
       !bf16_map(&mqs, a.qs, a.d, a.q_len, bhq, HM) ||
       !bf16_map(&mdo, a.dout, a.d, a.q_len, bhq, HM) ||
-      !bf16_map(&mk, a.k, a.d, a.kv_len, bhk, HN) ||
-      !bf16_map(&mv, a.v, a.d, a.kv_len, bhk, HN))
+      !bf16_map(&mk, a.k, a.d, a.kv_len, bhk, KVR) ||
+      !bf16_map(&mv, a.v, a.d, a.kv_len, bhk, KVR))
     return cudaErrorInvalidValue;
-  const int n_kvt = (a.kv_len + HN - 1) / HN;
+  const int n_kvt = (a.kv_len + KVR - 1) / KVR;
   const int q_pad = (a.q_len + HM - 1) / HM * HM;
   kernel<<<n_kvt * a.hq * a.batch, HTHREADS, ALLOC, stream>>>(
       mq, mqs, mdo, mk, mv, a.lse2, a.delta, a.q_seg, a.kv_seg, a.table,
@@ -710,9 +1090,10 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   if (stages & 4) {
-    const int n_kvt = (a.kv_len + HN - 1) / HN;
+    constexpr int KVR = bwd_kv_rows(D);
+    const int n_kvt = (a.kv_len + KVR - 1) / KVR;
     const long n_dq = (long)n_bh * (q_pad / HM) * (D / 64);  // 64-row chunks
-    const long n_kv = (long)a.batch * a.hkv * n_kvt * 2;
+    const long n_kv = (long)a.batch * a.hkv * n_kvt * (KVR / 64);
     flash_bwd_post_kernel<D><<<(unsigned)(n_dq + 2 * n_kv), 128, 0,
                                stream>>>(
         a.dq_acc, a.dk_acc, a.dv_acc, static_cast<bf16*>(a.dq),
@@ -1205,9 +1586,10 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // flash_bwd_main (into dq_acc and the dq_turn counters, both zeroed by the
 // caller, one counter per (batch, q head, 64-row q tile, 64 head dims),
 // which the kernel leaves at 0; and dk_acc, dv_acc: (batch, hq,
-// ceil(kv_len / 128), 2, 64 * head_dim) f32 each, all written), 4
+// ceil(kv_len / R), R / 64, 64 * D) f32 each, all written, R the kv rows
+// of a block: 128, 64 at the wide instance, D its tile columns), 4
 // flash_bwd_post (dq, dk, dv); q_seg is padded to whole 64-row tiles and
-// kv_table is the (3, ceil(kv_len / 128)) table of 64-row q tiles followed
+// kv_table is the (3, ceil(kv_len / R)) table of 64-row q tiles followed
 // by its dQ chain (base, pos, chain lengths). dtype 1 (f32): `stages` 1
 // the dq kernel (q_table: the q-major work list of q_items items over
 // 64-row tiles, ops/flash_bwd.py::f32_work; into dq_acc, q_items x batch x
@@ -1216,9 +1598,10 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // batch x hq slots each), 4 the post (dq, dk, dv from the slots); every
 // slot is written; delta is an input, rowsum(dout * out). q_seg and kv_seg
 // are both null or both set; window 0 is none. head_dim: bf16 any multiple
-// of 8 up to 128, read and written at its true width by the instance
+// of 8 up to 256, read and written at its true width by the instance
 // flash_width(head_dim, narrow) picks (hopper.cuh; dq_acc, the counters and
-// the slots at that instance's tile columns, 64 or 128); f32 64 or 128. The
+// the slots at that instance's tile columns, 64, 128 or 256); f32 64 or
+// 128. The
 // caller has checked shapes, contiguity and 16-byte alignment.
 extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
@@ -1250,6 +1633,7 @@ extern "C" int tfa_flash_bwd(
       case 80: return (int)launch_bf16<80>(a, stages, s);
       case 96: return (int)launch_bf16<96>(a, stages, s);
       case 128: return (int)launch_bf16<128>(a, stages, s);
+      case 256: return (int)launch_bf16<256>(a, stages, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1273,6 +1657,16 @@ extern "C" int tfa_flash_bwd(
                                  : launch_f32<64>(a, stages, s));
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a bf16 main block at the tiles' head_dim 64,
+// 128 or 256; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
+// bwd_smem_bytes to it when it loads this library.
+extern "C" int tfa_flash_bwd_bf16_smem(int head_dim) {
+  if (head_dim == 256) return WideSmem<256>::ALLOC;
+  if (head_dim == 128) return Smem<128>::ALLOC;
+  if (head_dim == 64) return Smem<64>::ALLOC;
+  return -1;
 }
 
 // The dynamic shared memory of an f32 block (both kernels) at head_dim 64

@@ -80,7 +80,8 @@ extern "C" int tfa_flash_fwd_quant(
   if (!fwd_args_valid(batch, hq, hkv, q_len, kv_len, q_seg, kv_seg, nullptr,
                       causal, window) ||
       k_scales == nullptr || v_scales == nullptr ||
-      scale_ld < (kv_len + WN - 1) / WN * WN)
+      scale_ld < (kv_len + FwdTiles<128>::BN - 1) / FwdTiles<128>::BN *
+                     FwdTiles<128>::BN)
     return (int)cudaErrorInvalidValue;
   const FwdMasks mk{static_cast<const int*>(q_seg),
                     static_cast<const int*>(kv_seg),

@@ -29,7 +29,7 @@
 //     instance): the maps' boxes land zeros past column d, and those zero
 //     columns add exact zeros to every product, so the result is the bits
 //     of the same call on tensors padded to D. An instance of width N (64,
-//     80, 96 or 128) runs its products over N columns only: S over N / 16
+//     80, 96, 128 or 256) runs its products over N columns only: S over N / 16
 //     k-steps, PV as m64nNk16 (a 48-float O at N = 96), so at d = 96 a
 //     third of the padded products is not issued (each output column
 //     accumulates alone, and a skipped k-step would add exact zeros). The
@@ -84,6 +84,17 @@
 //   * the two consumers take turns to issue their products (FA3's
 //     ping-pong, two named barriers), so one's softmax runs while the
 //     tensor cores do the other's products.
+//   * the wide instance (N = 256: head dims in (128, 256], tiles of four
+//     64-column boxes) keeps this structure over 64-row kv tiles and a ring
+//     of two stages (ops/configs.py FLASH_FWD_BF16_WIDE): the q tile alone
+//     is 64 KiB and one 128-row K+V stage 128 KiB, so 128-row tiles fit one
+//     stage at most, and three 64-row stages do not fit (256 KiB). A
+//     consumer's O is 128 f32 registers, S 32, P 16 packed pairs; PV is
+//     m64n256k16. With two stages the overlap above would hold both: the
+//     stage's empty barrier is split into K's and V's (k_empty, empty), the
+//     consumers release tile j's K once its softmax has read its scores
+//     and ids, and V once its PV product has landed, so the producer loads
+//     tile j + 2's K while tile j + 1's S runs.
 // Blocks run longest causal rows first (tile_order's longest pruned work
 // first with segment_starts). A warpgroup whose rows all lie past q_len or
 // the jagged length only keeps the ring's count and writes empty rows.
@@ -99,18 +110,39 @@
 #include "hopper.cuh"
 
 #if !defined(TFA_FWD_BF16_BLOCK_M) || !defined(TFA_FWD_BF16_BLOCK_N) || \
-    !defined(TFA_FWD_BF16_THREADS) || !defined(TFA_FWD_BF16_STAGES)
+    !defined(TFA_FWD_BF16_THREADS) || !defined(TFA_FWD_BF16_STAGES) ||    \
+    !defined(TFA_FWD_BF16_WIDE_BLOCK_M) ||                                \
+    !defined(TFA_FWD_BF16_WIDE_BLOCK_N) ||                                \
+    !defined(TFA_FWD_BF16_WIDE_THREADS) || !defined(TFA_FWD_BF16_WIDE_STAGES)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
 
 namespace {
 
 constexpr int WM = TFA_FWD_BF16_BLOCK_M;        // q rows per block
-constexpr int WN = TFA_FWD_BF16_BLOCK_N;        // kv rows per tile
 constexpr int WTHREADS = TFA_FWD_BF16_THREADS;  // 2 consumers + 1 producer
-static_assert(WM == 128 && WN == 128 && WTHREADS == 384,
+static_assert(WM == 128 && TFA_FWD_BF16_BLOCK_N == 128 && WTHREADS == 384 &&
+                  TFA_FWD_BF16_WIDE_BLOCK_M == WM &&
+                  TFA_FWD_BF16_WIDE_BLOCK_N == 64 &&
+                  TFA_FWD_BF16_WIDE_THREADS == WTHREADS &&
+                  TFA_FWD_BF16_WIDE_STAGES == 2,
               "two consumer warpgroups of 64 q rows and a producer "
-              "warpgroup over 128-row kv tiles");
+              "warpgroup over 128-row kv tiles (64-row in two stages at "
+              "the wide instance)");
+
+// The kv tile and the ring of the instances over tiles of D columns: 128
+// rows in TFA_FWD_BF16_STAGES stages up to 128 columns, 64 rows in two
+// stages at 256, whose K and V slots are released apart (SPLIT).
+template <int D>
+struct FwdTiles {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int BN =
+      WIDE ? TFA_FWD_BF16_WIDE_BLOCK_N : TFA_FWD_BF16_BLOCK_N;
+  static constexpr int STAGES =
+      WIDE ? TFA_FWD_BF16_WIDE_STAGES : TFA_FWD_BF16_STAGES;
+  static constexpr bool SPLIT = STAGES == 2;
+};
+
 constexpr int CONSUMERS = 256;  // consumer threads: arrivals on an empty slot
 constexpr int PRODUCERS = 128;  // quantized: arrivals on a full slot
 // Registers a thread by role, of the launch's 168 * 384 = 64512: bf16 K/V,
@@ -133,17 +165,21 @@ static_assert(128 * kProducerRegs<kInt8> + 256 * kConsumerRegs<kInt8> <=
 // tile; a stage's copies complete on pay_full.
 template <int D, bool QUANT>
 struct FwdSmem {
-  static constexpr int STAGES = TFA_FWD_BF16_STAGES;
+  static constexpr int WN = FwdTiles<D>::BN;     // kv rows per tile
+  static constexpr int STAGES = FwdTiles<D>::STAGES;
+  static constexpr bool SPLIT = FwdTiles<D>::SPLIT;
   static constexpr int QT = WM * D * 2;          // the q tile
   static constexpr int KV = WN * D * 2;          // one K or V tile
   static constexpr int Q = 0;
   static constexpr int K = QT;                   // [STAGES] K tiles
   static constexpr int V = K + STAGES * KV;      // [STAGES] V tiles
   static constexpr int IDS = V + STAGES * KV;    // [STAGES][WN] kv ids
-  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]; quantized also
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES] (V's slot, or
+  // the stage's); SPLIT also k_empty[STAGES]; quantized also
   // pay_full[STAGES]
   static constexpr int BAR = IDS + STAGES * WN * 4;
-  static constexpr int TOTAL = BAR + (1 + (QUANT ? 4 : 3) * STAGES) * 8;
+  static constexpr int TOTAL =
+      BAR + (1 + (3 + SPLIT + QUANT) * STAGES) * 8;
   static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
   static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
 };
@@ -240,9 +276,12 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            float scale_log2, int window, QuantKv qk) {
   constexpr bool QUANT = FMT != kNone;
   constexpr int D = tile_cols(N);                // shared-memory tile columns
-  static_assert(!QUANT || N == D, "payload rows are whole tiles");
+  static_assert(!QUANT || (N == D && D <= 128), "payload rows are whole "
+                "tiles of 128-row stages");
   using S = FwdSmem<D, QUANT>;
+  constexpr int WN = S::WN;                      // kv rows per tile
   constexpr int STAGES = S::STAGES;
+  constexpr bool SPLIT = S::SPLIT;
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -250,8 +289,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::BAR);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
-  uint64_t* pay_full = empty + STAGES;            // quantized only
+  uint64_t* empty = v_full + STAGES;   // V's slot (SPLIT), else the stage
+  uint64_t* k_empty = SPLIT ? empty + STAGES : empty;  // K's slot
+  uint64_t* pay_full = empty + (SPLIT ? 2 : 1) * STAGES;  // quantized only
   int* ids = reinterpret_cast<int*>(sm + S::IDS);
 
   const int tid = threadIdx.x, wg = tid / 128;
@@ -284,6 +324,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       mbar_init(&k_full[st], QUANT ? PRODUCERS : 1);
       mbar_init(&v_full[st], QUANT ? PRODUCERS : 1);
       mbar_init(&empty[st], CONSUMERS);
+      if (SPLIT) mbar_init(&k_empty[st], CONSUMERS);
       if (QUANT) mbar_init(&pay_full[st], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -413,7 +454,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       }
       for (int it = 0; it < n; ++it) {
         const int st = it % STAGES, kv0 = (lo + it) * WN;
-        if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+        if (it >= STAGES) mbar_wait(&k_empty[st], (it / STAGES - 1) & 1);
         int* tile_ids = ids + st * WN;
         if (SEGS && !bulk_ids) {
           // columns past kv_len are masked whatever their ids
@@ -431,6 +472,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                         &k_full[st], 64 * c, kv0, bhk);
           if (id_bytes) bulk_load(tile_ids, kv_ids + kv0, id_bytes,
                                   &k_full[st]);
+          if (SPLIT && it >= STAGES)
+            mbar_wait(&empty[st], (it / STAGES - 1) & 1);
           mbar_expect_tx(&v_full[st], S::KV);
 #pragma unroll
           for (int c = 0; c < BOXES; ++c)
@@ -515,7 +558,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // alpha gets the factor that rescales O. Quantized, s is first
     // multiplied by the k scale of its column, before the mask, so a masked
     // entry stays exactly the mask value.
-    auto softmax = [&](float (&s)[64], int kv0, int st, float (&alpha)[2]) {
+    auto softmax = [&](float (&s)[WN / 2], int kv0, int st,
+                       float (&alpha)[2]) {
       if constexpr (QUANT) {
 #pragma unroll
         for (int jj = 0; jj < WN / 8; ++jj) {
@@ -590,7 +634,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // P in bf16 (the TPU kernels cast p before the second dot), packed as
     // the A fragments of the PV product, 16 kv columns each; quantized, p
     // times the v scale of its column in f32 first (the tile at kv0)
-    auto pack_p = [&](const float (&s)[64], uint32_t (&pa)[WN / 16][4],
+    auto pack_p = [&](const float (&s)[WN / 2], uint32_t (&pa)[WN / 16][4],
                       int kv0) {
       if constexpr (QUANT) {
 #pragma unroll
@@ -609,13 +653,13 @@ __global__ void __launch_bounds__(WTHREADS, 1)
             pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
       }
     };
-    // S = Q K^T of the tile in stage st: 64 q rows x 128 kv columns
-    auto issue_s = [&](float (&s)[64], int st) {
+    // S = Q K^T of the tile in stage st: 64 q rows x WN kv columns
+    auto issue_s = [&](float (&s)[WN / 2], int st) {
       const unsigned char* kt = sm + S::K + st * S::KV;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < N / 16; ++kk)
-        wgmma_ss_n128<0, 0>(
+        wgmma_ss<WN, 0, 0>(
             s, smem_desc(qw + (kk / 4) * WM * 128 + (kk % 4) * 32, 16, 1024),
             smem_desc(kt + (kk / 4) * WN * 128 + (kk % 4) * 32, 16, 1024),
             kk > 0);
@@ -651,7 +695,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       // Tile it's S product is issued before tile it - 1's PV product, so
       // tile it's softmax runs while the tensor cores do that PV product
       // (FA3's intra-warpgroup overlap); O is rescaled once PV has landed.
-      float s[64], alpha[2];
+      float s[WN / 2], alpha[2];
       uint32_t pa[WN / 16][4];
       mbar_wait(&k_full[0], 0);
       turn_begin();
@@ -660,6 +704,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       wgmma_wait<0>();
       fence_regs(s);
       softmax(s, lo * WN, 0, alpha);  // O is 0: nothing to rescale
+      if (SPLIT) mbar_arrive(&k_empty[0]);  // its scores and ids are read
       pack_p(s, pa, lo * WN);
       for (int it = 1; it < n; ++it) {
         const int st = it % STAGES, prev = (it - 1) % STAGES;
@@ -673,6 +718,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         wgmma_wait<1>();  // S, the older group, has landed
         fence_regs(s);
         softmax(s, kv0, st, alpha);
+        if (SPLIT) mbar_arrive(&k_empty[st]);
         wgmma_wait<0>();
         fence_regs(oacc);
         fence_regs(pa);
@@ -704,6 +750,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       for (int it = 0; it < n; ++it) {
         mbar_wait(&k_full[it % STAGES], (it / STAGES) & 1);
         mbar_arrive(&empty[it % STAGES]);
+        if (SPLIT) mbar_arrive(&k_empty[it % STAGES]);
         turn_begin();
         turn_end(it == n - 1);
       }
@@ -759,6 +806,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int q_len, int kv_len, int d, int causal,
                          int window, float scale_log2, cudaStream_t stream) {
   using S = FwdSmem<tile_cols(N), FMT != kNone>;
+  constexpr int WN = S::WN;
   const auto kernel = flash_fwd_wgmma_kernel<N, WINDOW, SEGS, FMT>;
   static bool smem_set[kMaxDevices] = {};
   cudaError_t err = raise_smem_limit(kernel, S::ALLOC, smem_set);

@@ -17,7 +17,7 @@
 //
 // What bounds it: nothing on the card; it moves 2 * B * hkv rows of D
 // values. One warp per (kv head, sequence) converts and stores its two
-// rows (each lane D / 32 contiguous values at head_dim 64 and 128, else
+// rows (each lane D / 32 contiguous values at head_dim 64, 128 and 256, else
 // the ceil(D / 32) values lane, lane + 32, ... below D: head_dim 80 and
 // 96; the amax is a warp reduction), so the whole append of a layer is one
 // launch where the
@@ -116,6 +116,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
       static_cast<P*>(pages), hkv, num_pages, page_rows, page_size)
   if (head_dim == 128) {
     TFA_APPEND_LAUNCH(128);
+  } else if (head_dim == 256) {
+    TFA_APPEND_LAUNCH(256);
   } else if (head_dim == 64) {
     TFA_APPEND_LAUNCH(64);
   } else if (head_dim == 96) {
@@ -133,8 +135,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
 
 // Returns a cudaError_t: 0 when the kernel was launched. src_dtype (k_new,
 // v_new): 0 bf16, 1 f32. page_dtype: 0 bf16, 1 f32, 2 int8 (then page_rows
-// = 2 * page_size + 2 * sr). head_dim: 64, 80, 96 or 128. The caller has
-// checked shapes, contiguity and alignment.
+// = 2 * page_size + 2 * sr). head_dim: 64, 80, 96, 128 or 256. The caller
+// has checked shapes, contiguity and alignment.
 extern "C" int tfa_page_append(const void* k_new, const void* v_new,
                                const void* page_ids, const void* rows,
                                void* pages, int batch, int hkv,

@@ -36,9 +36,9 @@ cudaError_t launch_fused(int group, const void* q, const void* pages,
 // Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype with page_rows =
 // 2 * page_size, 1 int8 pages with page_rows = 2 * page_size + 2 * sr.
-// head_dim: 64, 80, 96 or 128; hq = hkv * qblocks * group, group 1, 2, 4
-// or 8 q rows a block, qblocks blocks of them a kv head (the caller pads
-// the q heads); page_size 16 or a multiple of 32. window: 0 for none, else
+// head_dim: 64, 80, 96 or 128, and 256 with bf16 q; hq = hkv * qblocks *
+// group, group 1, 2, 4 or 8 q rows a block, qblocks blocks of them a kv
+// head (the caller pads the q heads); page_size 16 or a multiple of 32. window: 0 for none, else
 // the ring mode over [length - window, length), window <= P * ps. splits
 // blocks per (sequence, q row block) of pages_per_split pages each (of the
 // table, or of the window's pages), covering them; with splits > 1, ws
@@ -76,9 +76,15 @@ extern "C" int tfa_paged_decode(const void* q, const void* pages,
   if (head_dim == 80) return (int)launch_fused<T, P, 80>(TFA_DECODE_ARGS);   \
   return (int)cudaErrorInvalidValue
   if (dtype == 0 && !quantized) {
+    if (head_dim == 256)
+      return (int)launch_fused<__nv_bfloat16, __nv_bfloat16, 256>(
+          TFA_DECODE_ARGS);
     TFA_DECODE_DISPATCH(__nv_bfloat16, __nv_bfloat16);
   }
   if (dtype == 0 && quantized) {
+    if (head_dim == 256)
+      return (int)launch_fused<__nv_bfloat16, int8_t, 256>(
+          TFA_DECODE_ARGS);
     TFA_DECODE_DISPATCH(__nv_bfloat16, int8_t);
   }
   if (dtype == 1 && !quantized) {

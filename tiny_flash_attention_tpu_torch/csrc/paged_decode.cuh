@@ -84,7 +84,15 @@
 // counted from the page of its first token. The caller keeps window <= P *
 // ps. page_indices may be a column slice of a wider table: its row stride
 // is an argument. page_size is 16 or a multiple of 32; head_dim 64, 80, 96
-// or 128 (every row a multiple of 16 bytes, so bulk copies move it).
+// or 128 (every row a multiple of 16 bytes, so bulk copies move it), and
+// 256 over bf16 and int8 pages: a warp's 32-token stage of bf16 pages is
+// then 32 KiB (the block's rings 128 KiB, one block an SM), each lane
+// scores 32 elements of a row in four 16-byte pieces and owns 8
+// contiguous output columns; the group's q stays in shared memory above
+// G = 2 (G * 32 floats). f32 pages at 256 would need 64 KiB a warp, 256 KiB
+// for the four: they are not compiled. ops/dims.py::decode_group may cover
+// a group of 8 at head_dim 256 by two row blocks of 4 (ops/configs.py
+// DECODE_WIDE_GROUP), which read the same pages, the second from L2.
 
 #pragma once
 

@@ -41,7 +41,7 @@ cudaError_t launch_separate(int group, const void* q, const void* k,
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype (the scale pointers
-// are ignored), 1 int8 pages with f32 scales. head_dim: 64, 80, 96 or 128;
+// are ignored), 1 int8 pages with f32 scales. head_dim: 64, 80, 96 or 128, and 256 with bf16 q;
 // hq = hkv * qblocks * group, group 1, 2, 4 or 8; page_size 16 or a
 // multiple of 32. splits, pages_per_split, ws and arrivals as in
 // tfa_paged_decode. The caller has checked shapes, contiguity and 16-byte
@@ -74,9 +74,15 @@ extern "C" int tfa_paged_decode_separate(
   if (head_dim == 80) return (int)launch_separate<T, P, 80>(TFA_DECODE_ARGS); \
   return (int)cudaErrorInvalidValue
   if (dtype == 0 && !quantized) {
+    if (head_dim == 256)
+      return (int)launch_separate<__nv_bfloat16, __nv_bfloat16, 256>(
+          TFA_DECODE_ARGS);
     TFA_DECODE_DISPATCH(__nv_bfloat16, __nv_bfloat16);
   }
   if (dtype == 0 && quantized) {
+    if (head_dim == 256)
+      return (int)launch_separate<__nv_bfloat16, int8_t, 256>(
+          TFA_DECODE_ARGS);
     TFA_DECODE_DISPATCH(__nv_bfloat16, int8_t);
   }
   if (dtype == 1 && !quantized) {

@@ -30,6 +30,15 @@ class TileConfig:
 # bytes at head_dim 128.
 FLASH_FWD_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_FWD_BF16_STAGES = 3   # ring stages
+# The wide instance (head dims in (128, 256], tiles of 256 columns): the q
+# tile alone is 64 KiB and one 128-row K+V stage 128 KiB, so its kv tiles
+# are 64 rows in a ring of two stages (198,216 bytes), three stages not
+# fitting (256 KiB); the stage's empty barrier is split into K's and V's,
+# so the K of tile j + 2 loads once tile j's softmax has read it while tile
+# j + 1's S runs (csrc/flash_fwd_wgmma.cuh). O is 128 f32 registers a
+# consumer thread, S 32, P 16.
+FLASH_FWD_BF16_WIDE = TileConfig(block_m=128, block_n=64, threads=384)
+FLASH_FWD_BF16_WIDE_STAGES = 2
 # The bf16 forward and backward read any head_dim d that is a multiple of 8
 # at its true width (ops/dims.py::flash_head_dim). With
 # FLASH_NARROW_PRODUCTS (read at each call) a d in (64, 80] or (80, 96]
@@ -76,14 +85,17 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
     `tfa_flash_fwd_quant_smem`), and ops/flash.py checks that these agree
     when it loads them."""
     m, n, d = cfg.block_m, cfg.block_n, head_dim
-    if cfg is FLASH_FWD_BF16:
-        stages = FLASH_FWD_BF16_STAGES
+    if cfg is FLASH_FWD_BF16 or cfg is FLASH_FWD_BF16_WIDE:
+        stages = (FLASH_FWD_BF16_STAGES if cfg is FLASH_FWD_BF16
+                  else FLASH_FWD_BF16_WIDE_STAGES)
         # q; per stage K, V and the kv ids; the mbarriers (q, and full K,
-        # full V, empty per stage; quantized K/V, which land as payloads in
-        # the ring and expand there, also the payload copies' per stage);
-        # room to align the base to 1024 bytes
+        # full V, empty per stage; a two-stage ring also K's empty;
+        # quantized K/V, which land as payloads in the ring and expand
+        # there, also the payload copies' per stage); room to align the
+        # base to 1024 bytes
+        bars = 3 + (stages == 2) + quantized
         return (m * d * 2 + stages * (2 * n * d * 2 + n * 4)
-                + (1 + (4 if quantized else 3) * stages) * 8 + 1024)
+                + (1 + bars * stages) * 8 + 1024)
     if cfg is FLASH_FWD_F32:
         # q, two stages of K and V, P^T (kv x q), all f32; per stage the
         # kv ids and, quantized, the k and v scales
@@ -108,6 +120,14 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
 # found 16 splits of 4 pages faster than 22 of 3 and 32 of 2.
 PAGED_DECODE_WARPS = 4
 PAGED_DECODE_SPLIT_TOKENS = 512
+# The q rows a decode block takes at head_dim 256 (ops/dims.py::
+# decode_group, read at each call): 4, so a group of 8 runs as two row
+# blocks over the same pages (the second reading them from L2). The G = 8
+# instance (64 PV accumulators and 64 scores a lane, q in shared memory)
+# compiles to 32 registers and 28 KB of spill stores a thread, and ran
+# 10x slower than the two row blocks at Gemma-2B's group 8 on the H100
+# (chip_smoke.py times both in turns, PERF.md).
+DECODE_WIDE_GROUP = 4
 
 
 def window_pages(window: int, page_size: int) -> int:
@@ -175,6 +195,38 @@ def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
 # ring (K, V, two stages of q, qs and dout, dS^T and the dQ staging: 211 KB
 # of shared memory at head_dim 128). The kernel is written for these sizes.
 FLASH_BWD_BF16 = TileConfig(block_m=64, block_n=128, threads=256)
+# The wide instance (head dims in (128, 256]): one block per 64-row kv
+# tile, its two warpgroups splitting the head dim of dK and dV (64 + 64
+# f32 registers a thread, where 64 x 256 of both would be 256) and the q
+# columns of S^T and dP^T; one stage of q, qs and dout (96 KiB) beside K
+# and V (64 KiB), P^T and two dS^T tiles: 190,528 bytes (csrc/flash_bwd.cu,
+# the wide kernel).
+FLASH_BWD_BF16_WIDE = TileConfig(block_m=64, block_n=64, threads=256)
+
+
+def bwd_config(head_dim: int) -> TileConfig:
+    """The bf16 backward's tiles at the tiles' head_dim (64, 128 or 256)."""
+    return FLASH_BWD_BF16_WIDE if head_dim > 128 else FLASH_BWD_BF16
+
+
+def bwd_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one bf16 backward main block at the tiles'
+    head_dim, as csrc/flash_bwd.cu lays it out (`Smem`, `WideSmem`; the
+    library exports its own, `tfa_flash_bwd_bf16_smem`, and
+    ops/flash_bwd.py checks that they agree when it loads it)."""
+    d = head_dim
+    m = FLASH_BWD_BF16.block_m
+    qt, rows = m * d * 2, 3 * m * 4
+    if head_dim > 128:
+        n = FLASH_BWD_BF16_WIDE.block_n
+        # K, V; qs, q, dout and the rows (a kilobyte); P^T and two dS^T
+        # (bf16, n x m); three mbarriers in 64 bytes
+        return 2 * n * d * 2 + 3 * qt + 1024 + 3 * n * m * 2 + 64 + 1024
+    n = FLASH_BWD_BF16.block_n
+    stage = -(-(3 * qt + rows) // 1024) * 1024
+    # K, V; two stages; dS^T (bf16, n x m); the dQ staging (2 x m x 64
+    # f32); the mbarriers in 64 bytes
+    return 2 * n * d * 2 + 2 * stage + n * m * 2 + 2 * m * 64 * 4 + 64 + 1024
 # f32 backward on the CUDA cores (csrc/flash_bwd.cu's f32 path): 64-row
 # tiles on both sides, blocks of two halves of 128 threads; a dk/dv block
 # takes one kv tile and a run of the q tiles that see it, cut at the
@@ -261,8 +313,11 @@ def nvcc_defines() -> list[str]:
     return [
         *_tile_defines("TFA_FWD_BF16", FLASH_FWD_BF16),
         f"-DTFA_FWD_BF16_STAGES={FLASH_FWD_BF16_STAGES}",
+        *_tile_defines("TFA_FWD_BF16_WIDE", FLASH_FWD_BF16_WIDE),
+        f"-DTFA_FWD_BF16_WIDE_STAGES={FLASH_FWD_BF16_WIDE_STAGES}",
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
+        *_tile_defines("TFA_BWD_BF16_WIDE", FLASH_BWD_BF16_WIDE),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),
         f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",

@@ -6,20 +6,23 @@ pad head_dim to whole 128-lane tiles with zero columns
 its decodes pad the q rows of a kv head to a multiple of 8
 (ops/paged_fused.py:503-506, ops/paged.py:287), and each slices the result
 back. The port's kernels compile a few instances (the flash kernels' tiles
-of 64 and 128 columns; the decodes groups 1, 2, 4 and 8), so the wrappers
-do the same with these plain functions where a kernel cannot read the true
-shape in place:
+of 64 and 128 columns, and 256 for the bf16 forward over bf16 K/V and the
+bf16 backward; the decodes groups 1, 2, 4 and 8), so the wrappers do the
+same with these plain functions where a kernel cannot read the true shape
+in place:
 
 - `flash_head_dim`: the one rule. The bf16 forward over bf16 K/V and the
   bf16 backward read and write any head_dim that is a multiple of 8 up to
-  128 at its true width (`reads_in_place`): their tensor maps land zeros
+  256 at its true width (`reads_in_place`): their tensor maps land zeros
   past column d and their epilogues store only the columns below d, so
-  they are handed the tensors as they are. Every other head_dim below 128
-  (not a multiple of 8: a tensor map's row stride is whole 16-byte pieces),
-  and every head_dim of the f32 instances, the quantized forward and FA1,
-  is padded to `kernel_head_dim`.
+  they are handed the tensors as they are. Every other head_dim up to 256
+  (not a multiple of 8: a tensor map's row stride is whole 16-byte pieces)
+  is padded to `kernel_head_dim`, and so is every head_dim up to 128 of
+  the f32 instances, the quantized forward and FA1, which have no wide
+  instance yet: above 128 they raise, naming themselves.
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
-  the next tile width, 64 below it and 128 up to it. A zero column adds
+  the next tile width, 64 below it, 128 up to it, 256 above (the wide
+  instances). A zero column adds
   exact zeros to every q k^T product, so the scores, the softmax, the LSE
   and the true columns of out and of every gradient are unchanged; the
   padded columns of out and of the gradients come out 0. The softmax
@@ -44,30 +47,37 @@ import math
 import torch
 import torch.nn.functional as F
 
-# the flash kernels' tile widths (forward, backward, FA1)
+from tiny_flash_attention_tpu_torch.ops import configs
+
+# the flash kernels' tile widths (forward, backward, FA1), and the wide
+# instances' of the bf16 forward over bf16 K/V and the bf16 backward
 FLASH_HEAD_DIMS = (64, 128)
-# head dims and q rows a kv head that the decode kernels compile
-DECODE_HEAD_DIMS = (64, 80, 96, 128)
+WIDE_HEAD_DIM = 256
+# head dims and q rows a kv head that the decode kernels compile (256 over
+# bf16 and int8 pages only: `decode_head_dim`)
+DECODE_HEAD_DIMS = (64, 80, 96, 128, 256)
 DECODE_GROUPS = (1, 2, 4, 8)
 
 
-def kernel_head_dim(d: int, what: str) -> int:
+def kernel_head_dim(d: int, what: str, *, wide: bool = False) -> int:
     """The flash kernels' head_dim that serves d: 64 for d <= 64, 128 for
-    d <= 128. Raises NotImplementedError above 128, naming `what` (the
-    kernel) and what it takes."""
-    for dk in FLASH_HEAD_DIMS:
+    d <= 128, and with `wide` (the instances that have one) 256 for d <=
+    256. Raises NotImplementedError above, naming `what` (the kernel) and
+    what it takes."""
+    widths = (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM) if wide else FLASH_HEAD_DIMS
+    for dk in widths:
         if 0 < d <= dk:
             return dk
     raise NotImplementedError(
-        f"head_dim {d}: {what} takes head_dim up to {FLASH_HEAD_DIMS[-1]} "
-        f"(padded to {' or '.join(map(str, FLASH_HEAD_DIMS))})")
+        f"head_dim {d}: {what} takes head_dim up to {widths[-1]} "
+        f"(padded to {' or '.join(map(str, widths))})")
 
 
 def reads_in_place(d: int) -> bool:
     """Whether the bf16 forward and backward kernels take head_dim d at its
     true width: a multiple of 8 (rows of whole 16-byte pieces, a tensor
-    map's stride) up to 128."""
-    return 0 < d <= FLASH_HEAD_DIMS[-1] and d % 8 == 0
+    map's stride) up to 256."""
+    return 0 < d <= WIDE_HEAD_DIM and d % 8 == 0
 
 
 def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
@@ -75,12 +85,15 @@ def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
     """The head_dim a flash forward or backward kernel is handed for
     tensors of head_dim d: d itself where it reads them in place (bf16
     over bf16 K/V, `reads_in_place`), else `kernel_head_dim(d)`, the
-    width they are padded to (f32, quantized K/V, d not a multiple of 8).
-    Raises NotImplementedError above 128, naming `what`."""
-    dk = kernel_head_dim(d, what)
-    if dtype == torch.bfloat16 and not quantized and reads_in_place(d):
-        return d
-    return dk
+    width they are padded to (d not a multiple of 8; f32 and quantized
+    K/V, up to 128). Raises NotImplementedError above 256, and for f32 and
+    quantized K/V above 128, naming `what` and the instance."""
+    if dtype == torch.bfloat16 and not quantized:
+        dk = kernel_head_dim(d, what, wide=True)
+        return d if reads_in_place(d) else dk
+    kind = ("over int8/e4m3 K/V" if quantized
+            else f"in {str(dtype).split('.')[-1]}")
+    return kernel_head_dim(d, f"{what} {kind}")
 
 
 def pad_head_dim(x: torch.Tensor, dk: int) -> torch.Tensor:
@@ -105,26 +118,38 @@ def unpad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
     return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
-def decode_head_dim(d: int, what: str) -> None:
+def decode_head_dim(d: int, what: str,
+                    dtype: torch.dtype = torch.bfloat16) -> None:
     """Raises NotImplementedError where the decode and append kernels
     compile no instance of head_dim d (their pages are read in place, so
-    they are never padded)."""
+    they are never padded); `dtype` is q's (decode) or the pages' (append).
+    f32 stops at 128: a warp's 32-token stage of f32 pages alone is 64 KiB
+    at 256, and the block's four warps would need 256 KiB, so neither f32
+    pages nor f32 q (whose pages are f32 or int8) have an instance there."""
     if d not in DECODE_HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {d}: {what} takes head_dim {DECODE_HEAD_DIMS} (the "
             f"pages are read in place, never padded)")
+    if d == WIDE_HEAD_DIM and dtype == torch.float32:
+        raise NotImplementedError(
+            f"head_dim {d}: {what} takes f32 up to head_dim 128 (a warp's "
+            f"32-token stage of f32 pages is 64 KiB at {d}); bf16 and int8 "
+            f"pages under bf16 q take {d}")
 
 
-def decode_group(group: int) -> tuple[int, int]:
+def decode_group(group: int, d: int = 128) -> tuple[int, int]:
     """(G, blocks): the decode instance's q rows a kv head and the row
     blocks that cover `group` q heads a kv head, G * blocks >= group: the
-    least compiled G up to 8, else ceil(group / 8) blocks of 8."""
+    least compiled G up to the top, else ceil(group / top) blocks of the
+    top. The top is 8, and at head_dim 256 ops/configs.py's
+    DECODE_WIDE_GROUP (read at each call)."""
     if group < 1:
         raise ValueError(f"group {group}")
+    top = configs.DECODE_WIDE_GROUP if d == WIDE_HEAD_DIM \
+        else DECODE_GROUPS[-1]
     for g in DECODE_GROUPS:
-        if group <= g:
+        if g <= top and group <= g:
             return g, 1
-    top = DECODE_GROUPS[-1]
     return top, math.ceil(group / top)
 
 

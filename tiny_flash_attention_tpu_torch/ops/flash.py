@@ -3,18 +3,19 @@
 Counterpart of tiny_flash_attention_tpu/ops/flash.py::flash_attention. The
 three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
-csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles;
-f32: the CUDA cores over 128-row q and 64-row kv tiles). A CPU tensor takes the plain version
-(`flash_attention_plain`, the port of `_xla_attention`); a CUDA tensor takes
-the kernel at every shape, the sliding window, segment ids and
+csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles,
+64-row kv tiles at the wide instance, head dims above 128; f32: the CUDA
+cores over 128-row q and 64-row kv tiles). A CPU tensor takes the plain
+version (`flash_attention_plain`, the port of `_xla_attention`); a CUDA
+tensor takes the kernel at every shape, the sliding window, segment ids and
 `segment_starts` included, or raises for what the kernel does not do yet
-(head_dim above 128). The bf16 kernel over bf16 K/V reads and writes any
-head_dim that is a multiple of 8 at its true width (the zero columns of
-JAX's padding to 128 lanes, which add exact zeros, are TMA's fill past
-column d); every other head_dim up to 128, and every head_dim of the f32
-and quantized instances (tiles of 64 and 128 columns), is padded with zero
-columns to the next tile width and the output sliced back
-(ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
+(head_dim above 256; in f32 and over quantized K/V above 128). The bf16
+kernel over bf16 K/V reads and writes any head_dim that is a multiple of 8
+up to 256 at its true width (the zero columns of JAX's padding to 128
+lanes, which add exact zeros, are TMA's fill past column d); every other
+head_dim, and every head_dim of the f32 and quantized instances (tiles of
+64 and 128 columns), is padded with zero columns to the next tile width and
+the output sliced back (ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
 handed the kernel (padded only where the forward padded), so the backward
 runs on them and returns gradients at the true head_dim. The f32 instance
 walks a work list (`fwd_f32_work`): each q tile's kv range cut into runs,
@@ -54,9 +55,11 @@ import torch
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_F32, TileConfig, fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, TileConfig,
+    fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, flash_head_dim, pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, pad_head_dim,
+    unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -107,10 +110,17 @@ class SegmentTiles:
         return self._tables[key]
 
 
-def fwd_config(dtype: torch.dtype, quantized: bool = False) -> TileConfig:
+def fwd_config(dtype: torch.dtype, quantized: bool = False,
+               head_dim: int = 128) -> TileConfig:
     """The tiles of the forward instance for q's dtype over unquantized or
-    quantized (int8/e4m3) K/V: each q dtype's design takes both."""
-    return FLASH_FWD_BF16 if dtype == torch.bfloat16 else FLASH_FWD_F32
+    quantized (int8/e4m3) K/V at head_dim (each q dtype's design takes
+    both): bf16 over bf16 K/V above 128 takes the wide instance's 64-row kv
+    tiles."""
+    if dtype != torch.bfloat16:
+        return FLASH_FWD_F32
+    if head_dim > FLASH_HEAD_DIMS[-1] and not quantized:
+        return FLASH_FWD_BF16_WIDE
+    return FLASH_FWD_BF16
 
 
 def tile_table(starts, q_len: int, *, causal: bool, block_m: int,
@@ -567,14 +577,15 @@ def _tiles_for(segment_starts, q_len: int, causal: bool,
 def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     """Holds `fwd_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
-    kernels' own layouts) for both dtypes and head dims; raises where they
-    differ."""
+    kernels' own layouts) for both dtypes and every tile width (bf16 over
+    bf16 K/V also the wide one); raises where they differ."""
     smem = (lib.tfa_flash_fwd_quant_smem if quantized
             else lib.tfa_flash_fwd_smem)
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        cfg = fwd_config(dtype, quantized)
-        for d in FLASH_HEAD_DIMS:
+        wide = dtype == torch.bfloat16 and not quantized
+        for d in (*FLASH_HEAD_DIMS, *((WIDE_HEAD_DIM,) if wide else ())):
+            cfg = fwd_config(dtype, quantized, d)
             want = fwd_smem_bytes(cfg, d, quantized)
             if smem(code, d) != want:
                 raise RuntimeError(
@@ -668,8 +679,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
     run, every mask but the jagged mode included. bf16 over bf16 K/V reads
-    and writes any head_dim that is a multiple of 8 in place; any other
-    head_dim under 128 runs padded (ops/dims.py::flash_head_dim) and out
+    and writes any head_dim that is a multiple of 8 up to 256 in place;
+    any other head_dim runs padded (ops/dims.py::flash_head_dim) and out
     comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
@@ -712,7 +723,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             seq_lengths=seq_lengths, window=window, k_scales=k_scales,
             v_scales=v_scales)
         return unpad_head_dim(out, d), lse
-    cfg = fwd_config(q.dtype, quantized)
+    cfg = fwd_config(q.dtype, quantized, d)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if quantized:
         if any(s.device != q.device for s in (k_scales, v_scales)):

@@ -12,13 +12,14 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V,
-head_dim above 128). The bf16 kernels read q, k, v, out and do and write
-dq, dk and dv at any head_dim that is a multiple of 8 in place (JAX pads
-its backward to 128 lanes; the kernels' tiles take TMA's zeros past the
-true head_dim instead); other head dims, and the f32 kernels' (64 and 128),
-run padded with zero columns to the next tile width, the gradients sliced
-back (ops/dims.py::flash_head_dim). There is no fallback from the card to
-the plain version.
+head_dim above 256, in f32 above 128). The bf16 kernels read q, k, v, out
+and do and write dq, dk and dv at any head_dim that is a multiple of 8 up
+to 256 in place (JAX pads its backward to 128 lanes; the kernels' tiles
+take TMA's zeros past the true head_dim instead; above 128 the wide main
+kernel, over 64-row kv tiles); other head dims, and the f32 kernels' (64
+and 128), run padded with zero columns to the next tile width, the
+gradients sliced back (ops/dims.py::flash_head_dim). There is no fallback
+from the card to the plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -60,10 +61,10 @@ import torch.nn.functional as F
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_BWD_BF16, FLASH_BWD_F32, bwd_f32_smem_bytes)
+    FLASH_BWD_F32, bwd_config, bwd_f32_smem_bytes, bwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, flash_head_dim, kernel_head_dim, pad_head_dim,
-    unpad_head_dim)
+    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, kernel_head_dim,
+    pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _aligned, as_int32, in_dtype, run_work,
     visible_mask)
@@ -386,11 +387,26 @@ def check_f32_smem(lib: ctypes.CDLL) -> None:
                 f"backward kernels take {smem(d)}")
 
 
+def check_bf16_smem(lib: ctypes.CDLL) -> None:
+    """Holds `bwd_smem_bytes` to the shared memory the library's bf16 main
+    kernels take at every tile width, the wide one included
+    (`tfa_flash_bwd_bf16_smem`); raises where they differ."""
+    smem = lib.tfa_flash_bwd_bf16_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
+        if smem(d) != bwd_smem_bytes(d):
+            raise RuntimeError(
+                f"ops/configs.py::bwd_smem_bytes gives {bwd_smem_bytes(d)} "
+                f"bytes at head_dim {d}; the bf16 backward's main kernel "
+                f"takes {smem(d)}")
+
+
 def _flash_bwd_fn():
     lib = _build.library("flash_bwd")
     fn = lib.tfa_flash_bwd
     if fn.argtypes is None:
         check_f32_smem(lib)
+        check_bf16_smem(lib)
         fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -446,7 +462,10 @@ class BwdLaunch:
         starts = _starts_key(segment_starts)
         items = (0, 0)
         if self.bf16:
-            cfg = FLASH_BWD_BF16
+            # the tiles' width (64, 128 or 256 columns, the head dims past d
+            # 0 or unread) and the instance's tiles at it
+            w = kernel_head_dim(d, "the CUDA backward kernels", wide=True)
+            cfg = bwd_config(w)
             self.kv_table, self.q_table = _device_tiles(
                 q_len, kv_len, causal, window, starts, cfg.block_m,
                 cfg.block_n, str(q.device))
@@ -472,9 +491,7 @@ class BwdLaunch:
             # dq's f32 sums, then the chain counters of each (batch, q
             # head, q tile, 64-column part), zeroed together; dk and dv in
             # one f32 slot per q head, written by the main kernel: all at
-            # the tiles' width (64 or 128 columns, the head dims past d 0
-            # or unread)
-            w = kernel_head_dim(d, "the CUDA backward kernels")
+            # the tiles' width
             n_dq, n_kv = bs * hq * q_pad * w, bs * hq * kv_pad * w
             n_cnt = bs * hq * (q_pad // cfg.block_m) * (w // 64)
             acc = torch.zeros(n_dq + n_cnt, dtype=torch.float32,

@@ -148,7 +148,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {k.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel")
+    decode_head_dim(d, "the CUDA decode kernel", q.dtype)
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
@@ -172,7 +172,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
                          "aligned")
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized
               else (None, None))
-    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv)
+    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv, d)
     q = pad_group(q.contiguous(), hkv, rows * blocks)
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32)

@@ -232,7 +232,7 @@ def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
             f"the CUDA append kernel takes bf16 or f32 rows into bf16, f32 "
             f"or int8 pages, got {k_new.dtype}, {v_new.dtype} into "
             f"{pages.dtype}")
-    decode_head_dim(d, "the CUDA append kernel")
+    decode_head_dim(d, "the CUDA append kernel", pages.dtype)
     dev = pages.device
     if not all(t.device == dev for t in (k_new, v_new, page_ids, rows)):
         raise ValueError("pages, rows and targets must be on one CUDA "
@@ -520,7 +520,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel")
+    decode_head_dim(d, "the CUDA decode kernel", q.dtype)
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
@@ -537,7 +537,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
     if not fused_pages.is_contiguous() or fused_pages.data_ptr() % 16:
         raise ValueError("fused pages must be contiguous and 16-byte "
                          "aligned (they are updated in place)")
-    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv)
+    group, (rows, blocks) = hq // hkv, decode_group(hq // hkv, d)
     q = pad_group(q.contiguous(), hkv, rows * blocks)
     lengths = lengths.to(torch.int32).contiguous()
     page_indices = page_indices.to(torch.int32)
