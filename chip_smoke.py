@@ -3212,10 +3212,9 @@ def profile_window(label: str, fn, n: int, launches=None,
     kernel launches per unit are that many; with `watch`, also prints the
     device time a launch of the kernels whose name holds it (L2 as the
     run leaves it). A window whose launch count differs is profiled once
-    more after a longer pause (the profiler has dropped 2 of a decode
-    window's 2424 device records), and the count must hold there; where it
-    does not, the kernels whose count is not a whole number a unit are
-    printed."""
+    more after a longer pause (the profiler can drop a prefix of a
+    window's records), and the count must hold there; where it does not,
+    the kernels whose count is not a whole number a unit are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
