@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
+    python3 chip_smoke.py --same-sass DIR  # the SASS of the instances this
+                                         # tree shares with the tree at DIR
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -30,7 +32,14 @@ with a sliding window of 1024 served from a ring cache (8 prompts of
 1792-2048 tokens, 256 decode steps past the ring's capacity); and training,
 AdamW steps at batch 4 x seq 2048 and 1 x 8192 (benchmarks/
 train_bench.py's configs), the sliding-window model at 1 x 8192 (the swa
-train cell) and two f32 steps at 1 x 1024. The flash forward's and FA1's
+train cell) and two f32 steps at 1 x 1024. Then head dims and groups no
+instance of 64/128 columns covers: every kernel at 72/80/96 and groups
+3-16, the wide instances at 136/192/256 and groups 1/2/8 (B1, the
+backward, the decodes over bf16 and int8 pages, the append), and three
+models at published widths, 4 layers each, served over bf16 and int8
+pages (Phi-3-mini's, Llama-3.2-3B's and Gemma-2B's, head_dim 256, one kv
+head), two of them also trained (Phi-3-mini's, Gemma-2B's). The flash
+forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
 planted in the plain version (a stale V tile, a dropped kv tile; for FA1
@@ -336,6 +345,63 @@ def wgmma_instructions(lib_path: str) -> dict:
             counts[label][0] += "HGMMA" in line
             counts[label][1] += bool(re.search(r"\bHMMA\b", line))
     return {k: tuple(v) for k, v in counts.items()}
+
+
+# the libraries whose instances a change may leave as they were
+SASS_LIBS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_separate",
+             "page_append")
+# the anonymous namespace's name in a kernel's symbol: it holds a hash of
+# the build
+ANON_NAMESPACE = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cuh?_[0-9a-f]{8}")
+
+
+def sass_functions(lib_path: str) -> dict:
+    """{kernel symbol: its SASS instructions} of a built library
+    (cuobjdump -sass), the anonymous namespace's hashed name and every
+    address taken out, so two builds of the same code compare equal."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = ANON_NAMESPACE.sub("ANON", m.group(1))
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        if name and m:
+            funcs[name].append(re.sub(r"0x[0-9a-f]+", "X",
+                                      ANON_NAMESPACE.sub("ANON", m.group(1))))
+    return funcs
+
+
+def same_sass(other: str) -> int:
+    """Builds SASS_LIBS in this tree and in the tree at `other` (with that
+    tree's own _build, in a process of its own) and compares the SASS of
+    every kernel instance both have: per library, how many are identical
+    and which differ. Returns 0 when none differs."""
+    from tiny_flash_attention_tpu_torch import _build
+
+    code = ("from tiny_flash_attention_tpu_torch import _build; "
+            f"_build.build({list(SASS_LIBS)!r}); "
+            f"print(*[_build._target(n)[1] for n in {list(SASS_LIBS)!r}])")
+    there = subprocess.run([sys.executable, "-c", code], cwd=other,
+                           capture_output=True, text=True, check=True,
+                           timeout=900).stdout.split()[-len(SASS_LIBS):]
+    _build.build(list(SASS_LIBS))
+    differ = 0
+    for name, other_lib in zip(SASS_LIBS, there):
+        a = sass_functions(other_lib)
+        b = sass_functions(str(_build._target(name)[1]))
+        both = [f for f in b if f in a]
+        diff = [kernel_label(f) for f in both if a[f] != b[f]]
+        differ += len(diff)
+        log(f"same sass, {name}: {len(both)} kernel instances in both trees, "
+            f"{len(both) - len(diff)} identical, differing: {diff}; "
+            f"{len(b) - len(both)} only in this tree, "
+            f"{len(a) - len(both)} only in {other}")
+    return 1 if differ else 0
 
 
 def max_err(a, b) -> float:
@@ -4746,6 +4812,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--same-sass":
+        sys.exit(same_sass(sys.argv[2]))
     if sys.argv[1:] == ["--bwd-spread"]:
         # only the spread reading, with the package found on sys.path (so
         # a copy of this script can read another tree's kernels)
