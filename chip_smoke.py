@@ -284,15 +284,19 @@ def kernel_label(name: str) -> str:
     name itself, where each identifier is preceded by its length
     (flash_fwd_bf16_kernel<128,0,1>: head_dim 128, no window, int8
     payloads); the name's first 60 characters otherwise."""
-    # every digit run and its suffixes: a hash may end in a digit
+    # every digit run and its suffixes: a hash may end in a digit, and a
+    # digit run inside the anonymous namespace's hash can measure out a
+    # longer "identifier" that ends where the kernel's does; the kernel's
+    # own name is the shortest
+    found = []
     for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
         start = m.start() + len(m.group(1))
         ident = name[start:start + int(m.group(1))]
         args = re.match(r"I((?:L[a-z]\d+E)+)E", name[start + len(ident):])
         if ident.endswith("_kernel") and args:
             nums = re.findall(r"(\d+)E", args.group(1))
-            return f"{ident}<{','.join(nums)}>"
-    return name[:60]
+            found.append(f"{ident}<{','.join(nums)}>")
+    return min(found, key=len) if found else name[:60]
 
 
 def instance_registers(ptxas_log: str) -> list:
