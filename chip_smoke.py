@@ -356,7 +356,8 @@ SASS_LIBS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_separate",
              "page_append")
 # the anonymous namespace's name in a kernel's symbol: it holds a hash of
 # the build
-ANON_NAMESPACE = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cuh?_[0-9a-f]{8}")
+ANON_NAMESPACE = re.compile(
+    r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cuh?_[0-9a-f]{8}")
 
 
 def sass_functions(lib_path: str) -> dict:

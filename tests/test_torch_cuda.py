@@ -1846,7 +1846,7 @@ def test_f32_and_quantized_forward_still_pad(gen, dtype):
     assert _err(out, ref) <= tolerance_for(q.dtype)
 
 
-# --- head_dim 256: the wide instances ------------------------------------------
+# --- head_dim 256: the wide instances ----------------------------------------
 # B1 over 64-row kv tiles in two stages (K and V slots released apart), the
 # backward's wide main kernel (64-row kv blocks, the head dims split between
 # the warpgroups), the decodes and the append at 256 (ops/dims.py).

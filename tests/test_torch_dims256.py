@@ -68,7 +68,7 @@ def _both(a, dtype):
     return torch.from_numpy(a).to(dtype), jnp.asarray(a, _JNP[dtype])
 
 
-# --- the rule ------------------------------------------------------------------
+# --- the rule ----------------------------------------------------------------
 
 
 @pytest.mark.parametrize("d", range(129, 265))
@@ -128,7 +128,7 @@ def test_wide_tiles_and_groups(d):
         configs.DECODE_WIDE_GROUP = keep
 
 
-# --- the flash forward and backward --------------------------------------------
+# --- the flash forward and backward ------------------------------------------
 
 FWD_CASES = [(d, group, mask) for d in (192, 256) for group in (1, 8)
              for mask in ("causal", "window", "ids")]
@@ -230,7 +230,7 @@ def test_autograd_returns_gradients_at_the_true_head_dim(d):
         _close(x.grad, y.grad, 2e-5, "grad")
 
 
-# --- the decodes and the append ------------------------------------------------
+# --- the decodes and the append ----------------------------------------------
 
 DECODE_CASES = [(group, fmt, window) for group in (1, 2, 8, 12)
                 for fmt in ("bf16", "int8") for window in (None, 100)]
@@ -359,7 +359,7 @@ def test_separate_decode_matches_jax(fmt):
         _close(l, jlse, 1e-4, "lse")
 
 
-# --- the engine end to end -----------------------------------------------------
+# --- the engine end to end ---------------------------------------------------
 
 
 def test_engine_greedy_tokens_match_jax():
