@@ -4,8 +4,6 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
-    python3 chip_smoke.py --same-sass DIR  # the SASS of the instances this
-                                         # tree shares with the tree at DIR
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -349,64 +347,6 @@ def wgmma_instructions(lib_path: str) -> dict:
             counts[label][0] += "HGMMA" in line
             counts[label][1] += bool(re.search(r"\bHMMA\b", line))
     return {k: tuple(v) for k, v in counts.items()}
-
-
-# the libraries whose instances a change may leave as they were
-SASS_LIBS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_separate",
-             "page_append")
-# the anonymous namespace's name in a kernel's symbol: it holds a hash of
-# the build
-ANON_NAMESPACE = re.compile(
-    r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cuh?_[0-9a-f]{8}")
-
-
-def sass_functions(lib_path: str) -> dict:
-    """{kernel symbol: its SASS instructions} of a built library
-    (cuobjdump -sass), the anonymous namespace's hashed name and every
-    address taken out, so two builds of the same code compare equal."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    funcs, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = ANON_NAMESPACE.sub("ANON", m.group(1))
-            funcs[name] = []
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?);", line)
-        if name and m:
-            funcs[name].append(re.sub(r"0x[0-9a-f]+", "X",
-                                      ANON_NAMESPACE.sub("ANON", m.group(1))))
-    return funcs
-
-
-def same_sass(other: str) -> int:
-    """Builds SASS_LIBS in this tree and in the tree at `other` (with that
-    tree's own _build, in a process of its own) and compares the SASS of
-    every kernel instance both have: per library, how many are identical
-    and which differ. Returns 0 when none differs."""
-    from tiny_flash_attention_tpu_torch import _build
-
-    code = ("from tiny_flash_attention_tpu_torch import _build; "
-            f"_build.build({list(SASS_LIBS)!r}); "
-            f"print(*[_build._target(n)[1] for n in {list(SASS_LIBS)!r}])")
-    there = subprocess.run([sys.executable, "-c", code], cwd=other,
-                           capture_output=True, text=True, check=True,
-                           timeout=900).stdout.split()[-len(SASS_LIBS):]
-    _build.build(list(SASS_LIBS))
-    differ = 0
-    for name, other_lib in zip(SASS_LIBS, there):
-        a = sass_functions(other_lib)
-        b = sass_functions(str(_build._target(name)[1]))
-        both = [f for f in b if f in a]
-        diff = [kernel_label(f) for f in both if a[f] != b[f]]
-        differ += len(diff)
-        log(f"same sass, {name}: {len(both)} kernel instances in both trees, "
-            f"{len(both) - len(diff)} identical, differing: {diff}; "
-            f"{len(b) - len(both)} only in this tree, "
-            f"{len(a) - len(both)} only in {other}")
-    return 1 if differ else 0
 
 
 def max_err(a, b) -> float:
@@ -3280,12 +3220,10 @@ def profile_window(label: str, fn, n: int, launches=None,
     """Where the time of fn() goes, per unit of n: the device time of its
     kernels from torch.profiler, against fn's wall time taken without the
     profiler (which slows the host). With `launches`, fails unless the
-    kernel launches per unit are that many; with `watch`, also prints the
-    device time a launch of the kernels whose name holds it (L2 as the
-    run leaves it). A window whose launch count differs is profiled once
-    more after a longer pause (the profiler can drop a prefix of a
-    window's records), and the count must hold there; where it does not,
-    the kernels whose count is not a whole number a unit are printed."""
+    kernel launches per unit are that many, and prints first the kernels
+    whose count is not a whole number a unit and the runtime API calls that
+    launch or copy; with `watch`, also prints the device time a launch of
+    the kernels whose name holds it (L2 as the run leaves it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3294,28 +3232,18 @@ def profile_window(label: str, fn, n: int, launches=None,
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-
-    def device_kernels(settle=PROFILE_SETTLE_S):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # started at once, fn loses the first device records of about
-            # one profile in twenty (a prefix of its kernels, in any tree);
-            # a pause lets the profiler settle (PERF.md, section 7)
-            time.sleep(settle)
-            fn()
-            torch.cuda.synchronize()
-        # user annotations (the optimizer's step) span kernels counted
-        # anyway
-        return [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
-
-    kernels = device_kernels()
-    got = sum(e.count for e in kernels) / n
-    if kernels and launches is not None and got != launches:
-        log(f"profile {label}: {got} launches a step recorded, not "
-            f"{launches}: profiled again after a 1 s pause")
-        kernels = device_kernels(settle=1.0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # started at once, fn loses the first device records of about one
+        # profile in twenty (a prefix of its kernels, in any tree); a pause
+        # lets the profiler settle (PERF.md, section 7)
+        time.sleep(PROFILE_SETTLE_S)
+        fn()
+        torch.cuda.synchronize()
+    # user annotations (the optimizer's step) span kernels counted anyway
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log(f"profile {label}: the profiler recorded no device time "
             "(not measured)")
@@ -3339,9 +3267,16 @@ def profile_window(label: str, fn, n: int, launches=None,
             f"launch in this profile")
     got = sum(e.count for e in kernels) / n
     if launches is not None and got != launches:
+        # what the host issued: a launch or copy it made whose device
+        # record is missing shows here (PERF.md, PR 16)
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+                 and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
         log(f"profile {label}: kernels not a whole number of times a unit: "
             + "; ".join(f"{e.count} x {e.key[:70]}" for e in kernels
-                        if e.count % n))
+                        if e.count % n)
+            + f"; the runtime API's launch and copy calls "
+            f"{sum(calls.values()) / n} a unit: {calls}")
         raise AssertionError(f"profile {label}: {got} launches a step, the "
                              f"parent tree's {launches}")
 
@@ -4159,16 +4094,11 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
 
 def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen) -> dict:
     """B4 at head_dim 256 over a Gemma-2B-width engine cache (layer 0, one
-    kv head) at groups 1, 2 and 8 against its plain version (planted V
-    faults at 8), timed beside the bound; then group 8 on the G = 8
-    instance and as two row blocks of G = 4 (ops/configs.py
-    DECODE_WIDE_GROUP), timed in turns, each held to the plain version,
-    with every head_dim-256 decode instance's registers and spill bytes.
-    Returns {group: row} and the routes' times."""
+    kv head) at groups 1, 2 and 8 (two row blocks of G = 4) against its
+    plain version (planted V faults at 8), timed beside the bound, with
+    every head_dim-256 decode instance's registers and spill bytes.
+    Returns {"rows": {group: row}}."""
     from tiny_flash_attention_tpu_torch import _build
-    from tiny_flash_attention_tpu_torch.ops import configs
-    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_paged_decode_attention)
 
     rows = {}
     for group in (1, 2, 8):
@@ -4176,35 +4106,11 @@ def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen) -> dict:
         rows[group] = check_decode(
             f"wide: {label} {fmt} engine cache, layer 0, group {group}", q,
             pages, lengths, table, ps, iters=10, faults=group == 8)
-
-    @contextlib.contextmanager
-    def wide_group(g):
-        keep = configs.DECODE_WIDE_GROUP
-        configs.DECODE_WIDE_GROUP = g
-        try:
-            yield
-        finally:
-            configs.DECODE_WIDE_GROUP = keep
-
-    def route(g):
-        def call():
-            with wide_group(g):
-                return fused_paged_decode_attention(q, pages, lengths, table,
-                                                    page_size=ps)
-        return call
-
-    with wide_group(4):
-        check_decode(f"wide: {label} {fmt} engine cache, group 8 as 2 x G 4",
-                     q, pages, lengths, table, ps, iters=3)
-    same = all(torch.equal(a, b) for a, b in zip(route(8)(), route(4)()))
-    times = time_turns({"G 8": route(8), "2 x G 4": route(4)}, rounds=2)
     regs = [x for x in spilling_instances(
         _build.build_log("paged_decode"), every=True) if ", 256," in x]
-    log(f"wide: {label} {fmt} decode at group 8, the routes in turns: "
-        + ", ".join(f"{x} {spread(t)} ms" for x, t in times.items())
-        + f"; the same bits: {same}; kept G {configs.DECODE_WIDE_GROUP}; "
-        f"head_dim-256 instances, registers/spill bytes: {'; '.join(regs)}")
-    return {"rows": rows, "routes": times}
+    log(f"wide: {label} {fmt} decode, head_dim-256 instances, "
+        f"registers/spill bytes: {'; '.join(regs)}")
+    return {"rows": rows}
 
 
 def dims_model_phase(seed) -> dict:
@@ -4212,8 +4118,7 @@ def dims_model_phase(seed) -> dict:
     DIMS_LAYERS layers, random weights from the seed: each served over bf16
     pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
     each bf16 engine's cache (layer 0) beside its bound, at head_dim 256
-    also at groups 1, 2, 8 over both caches with the G-8 and 2 x G-4 routes
-    (wide_decode_groups); then one train step pair at the widths of each of
+    also at groups 1, 2, 8 over both caches (wide_decode_groups); then one train step pair at the widths of each of
     DIMS_TRAIN (1 x 2048, bf16, AdamW): the loss falls, the gradients agree
     with those through the plain attention; its peak device memory, beside
     that of the same pair from the same weights run padded
@@ -4466,6 +4371,11 @@ def main() -> int:
     ragged = ragged_admission_phase(SEED)
     enc = encoder_phase(SEED)
     swa = swa_phase(SEED)
+    # after the serving phases' profiles: run before the engine phase, the
+    # wide phase left two of the decode step's five small host-to-device
+    # copies without a device record in every profile, the host's calls
+    # and the kernels recorded the same (PERF.md, PR 16); the launch gates
+    # count device records
     wide = wide_phase(gen)
     dims_models = dims_model_phase(SEED)
     dlaunch = dims_models["launches"]
@@ -4817,8 +4727,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--same-sass":
-        sys.exit(same_sass(sys.argv[2]))
     if sys.argv[1:] == ["--bwd-spread"]:
         # only the spread reading, with the package found on sys.path (so
         # a copy of this script can read another tree's kernels)

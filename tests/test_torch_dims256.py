@@ -106,26 +106,19 @@ def test_in_place_rule_above_128(d):
 def test_wide_tiles_and_groups(d):
     """The wide instances' tiles: B1 over 64-row kv tiles in two stages,
     the backward over 64-row kv blocks; the decode covers a group of 8 at
-    head_dim 256 by two row blocks of 4 (DECODE_WIDE_GROUP, read at each
-    call) or, set to 8, by one block of 8, and at 128 always by one of 8."""
+    head_dim 256 by two row blocks of 4 (its instances stop at G = 4), and
+    at 128 by one of 8."""
     from tiny_flash_attention_tpu_torch.ops.flash import fwd_config
 
     assert fwd_config(torch.bfloat16, False, d) is configs.FLASH_FWD_BF16_WIDE
     assert fwd_config(torch.bfloat16, True, d) is configs.FLASH_FWD_BF16
     assert configs.bwd_config(256) is configs.FLASH_BWD_BF16_WIDE
-    assert configs.DECODE_WIDE_GROUP == 4
     assert dims.decode_group(8, 256) == (4, 2)
     assert dims.decode_group(3, 256) == (4, 1)
     assert dims.decode_group(12, 256) == (4, 3)
     assert dims.decode_group(2, 256) == (2, 1)
     assert dims.decode_group(8, 128) == (8, 1)
-    keep = configs.DECODE_WIDE_GROUP
-    try:
-        configs.DECODE_WIDE_GROUP = 8
-        assert dims.decode_group(8, 256) == (8, 1)
-        assert dims.decode_group(12, 256) == (8, 2)
-    finally:
-        configs.DECODE_WIDE_GROUP = keep
+    assert dims.decode_group(12, 128) == (8, 2)
 
 
 # --- the flash forward and backward ------------------------------------------

@@ -37,9 +37,10 @@ cudaError_t launch_fused(int group, const void* q, const void* pages,
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype with page_rows =
 // 2 * page_size, 1 int8 pages with page_rows = 2 * page_size + 2 * sr.
 // head_dim: 64, 80, 96 or 128, and 256 with bf16 q; hq = hkv * qblocks *
-// group, group 1, 2, 4 or 8 q rows a block, qblocks blocks of them a kv
-// head (the caller pads the q heads); page_size 16 or a multiple of 32. window: 0 for none, else
-// the ring mode over [length - window, length), window <= P * ps. splits
+// group, group 1, 2, 4 or 8 q rows a block (at most 4 at 256), qblocks
+// blocks of them a kv head (the caller pads the q heads); page_size 16 or
+// a multiple of 32. window: 0 for none, else the ring mode over [length -
+// window, length), window <= P * ps. splits
 // blocks per (sequence, q row block) of pages_per_split pages each (of the
 // table, or of the window's pages), covering them; with splits > 1, ws
 // holds batch * hkv * qblocks * splits * group * (head_dim + 2) floats and

@@ -90,9 +90,10 @@
 // scores 32 elements of a row in four 16-byte pieces and owns 8
 // contiguous output columns; the group's q stays in shared memory above
 // G = 2 (G * 32 floats). f32 pages at 256 would need 64 KiB a warp, 256 KiB
-// for the four: they are not compiled. ops/dims.py::decode_group may cover
-// a group of 8 at head_dim 256 by two row blocks of 4 (ops/configs.py
-// DECODE_WIDE_GROUP), which read the same pages, the second from L2.
+// for the four: they are not compiled. At 256 G stops at 4 (a G = 8
+// instance spilled 28 KB a thread): ops/dims.py::decode_group covers a
+// group of 8 by two row blocks of 4, which read the same pages, the second
+// from L2.
 
 #pragma once
 
@@ -645,11 +646,12 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (tid == 0) *count = 0;  // ready for the next call
 }
 
-// Launches the kernel for a group of 1, 2, 4 or 8 q rows per grid row,
-// qblocks grid rows per kv head (q holds hkv * qblocks * group rows a
-// sequence), over `splits` splits of `pages_per_split` pages; ws holds
-// batch * hkv * qblocks * splits * group * (D + 2) floats and arrivals
-// batch * hkv * qblocks zeroed ints (both unused with one split).
+// Launches the kernel for a group of 1, 2, 4 or 8 q rows per grid row (at
+// most 4 at head_dim 256), qblocks grid rows per kv head (q holds hkv *
+// qblocks * group rows a sequence), over `splits` splits of
+// `pages_per_split` pages; ws holds batch * hkv * qblocks * splits * group
+// * (D + 2) floats and arrivals batch * hkv * qblocks zeroed ints (both
+// unused with one split).
 template <typename T, typename P, int D, bool RING, typename L>
 cudaError_t launch_group(int group, const void* q, const L& pages,
                          const void* lengths, const void* page_indices,
@@ -676,7 +678,10 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
     case 1: TFA_DECODE_LAUNCH(1); break;
     case 2: TFA_DECODE_LAUNCH(2); break;
     case 4: TFA_DECODE_LAUNCH(4); break;
-    case 8: TFA_DECODE_LAUNCH(8); break;
+    case 8:
+      if constexpr (D > 128) return cudaErrorInvalidValue;
+      else TFA_DECODE_LAUNCH(8);
+      break;
     default: return cudaErrorInvalidValue;
   }
 #undef TFA_DECODE_LAUNCH

@@ -41,11 +41,11 @@ cudaError_t launch_separate(int group, const void* q, const void* k,
 
 // Returns a cudaError_t: 0 when the kernel was launched. dtype (of q and
 // out): 0 bf16, 1 f32; quantized: 0 pages of q's dtype (the scale pointers
-// are ignored), 1 int8 pages with f32 scales. head_dim: 64, 80, 96 or 128, and 256 with bf16 q;
-// hq = hkv * qblocks * group, group 1, 2, 4 or 8; page_size 16 or a
-// multiple of 32. splits, pages_per_split, ws and arrivals as in
-// tfa_paged_decode. The caller has checked shapes, contiguity and 16-byte
-// alignment.
+// are ignored), 1 int8 pages with f32 scales. head_dim: 64, 80, 96 or
+// 128, and 256 with bf16 q; hq = hkv * qblocks * group, group 1, 2, 4 or
+// 8 (at most 4 at 256); page_size 16 or a multiple of 32. splits,
+// pages_per_split, ws and arrivals as in tfa_paged_decode. The caller has
+// checked shapes, contiguity and 16-byte alignment.
 extern "C" int tfa_paged_decode_separate(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* lengths, const void* page_indices,

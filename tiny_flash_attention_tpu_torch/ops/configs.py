@@ -120,14 +120,6 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
 # found 16 splits of 4 pages faster than 22 of 3 and 32 of 2.
 PAGED_DECODE_WARPS = 4
 PAGED_DECODE_SPLIT_TOKENS = 512
-# The q rows a decode block takes at head_dim 256 (ops/dims.py::
-# decode_group, read at each call): 4, so a group of 8 runs as two row
-# blocks over the same pages (the second reading them from L2). The G = 8
-# instance (64 PV accumulators and 64 scores a lane, q in shared memory)
-# compiles to 32 registers and 28 KB of spill stores a thread, and ran
-# 10x slower than the two row blocks at Gemma-2B's group 8 on the H100
-# (chip_smoke.py times both in turns, PERF.md).
-DECODE_WIDE_GROUP = 4
 
 
 def window_pages(window: int, page_size: int) -> int:

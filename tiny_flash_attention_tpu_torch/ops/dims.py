@@ -47,8 +47,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tiny_flash_attention_tpu_torch.ops import configs
-
 # the flash kernels' tile widths (forward, backward, FA1), and the wide
 # instances' of the bf16 forward over bf16 K/V and the bf16 backward
 FLASH_HEAD_DIMS = (64, 128)
@@ -141,12 +139,14 @@ def decode_group(group: int, d: int = 128) -> tuple[int, int]:
     """(G, blocks): the decode instance's q rows a kv head and the row
     blocks that cover `group` q heads a kv head, G * blocks >= group: the
     least compiled G up to the top, else ceil(group / top) blocks of the
-    top. The top is 8, and at head_dim 256 ops/configs.py's
-    DECODE_WIDE_GROUP (read at each call)."""
+    top. The top is 8, and 4 at head_dim 256: there a G = 8 instance (64
+    PV accumulators and 64 scores a lane) spilled 28 KB a thread and ran
+    10x slower on the H100 than two row blocks of 4 over the same pages,
+    the second reading them from L2 (PERF.md, PR 16), so the kernels at 256
+    stop at G = 4."""
     if group < 1:
         raise ValueError(f"group {group}")
-    top = configs.DECODE_WIDE_GROUP if d == WIDE_HEAD_DIM \
-        else DECODE_GROUPS[-1]
+    top = 4 if d == WIDE_HEAD_DIM else DECODE_GROUPS[-1]
     for g in DECODE_GROUPS:
         if g <= top and group <= g:
             return g, 1
