@@ -3268,7 +3268,7 @@ def profile_window(label: str, fn, n: int, launches=None,
     got = sum(e.count for e in kernels) / n
     if launches is not None and got != launches:
         # what the host issued: a launch or copy it made whose device
-        # record is missing shows here (PERF.md, PR 16)
+        # record is missing shows here (PERF.md, section 6)
         calls = {e.key: e.count for e in prof.key_averages()
                  if e.device_type == DeviceType.CPU and e.key.startswith("cu")
                  and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
@@ -4118,9 +4118,10 @@ def dims_model_phase(seed) -> dict:
     DIMS_LAYERS layers, random weights from the seed: each served over bf16
     pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
     each bf16 engine's cache (layer 0) beside its bound, at head_dim 256
-    also at groups 1, 2, 8 over both caches (wide_decode_groups); then one train step pair at the widths of each of
-    DIMS_TRAIN (1 x 2048, bf16, AdamW): the loss falls, the gradients agree
-    with those through the plain attention; its peak device memory, beside
+    also at groups 1, 2, 8 over both caches (wide_decode_groups); then one
+    train step pair at the widths of each of DIMS_TRAIN (1 x 2048, bf16,
+    AdamW): the loss falls, the gradients agree with those through the
+    plain attention; its peak device memory, beside
     that of the same pair from the same weights run padded
     (padded_head_dims) where the head_dim is not a tile width. Returns the
     launches in all and by model."""
@@ -4374,8 +4375,8 @@ def main() -> int:
     # after the serving phases' profiles: run before the engine phase, the
     # wide phase left two of the decode step's five small host-to-device
     # copies without a device record in every profile, the host's calls
-    # and the kernels recorded the same (PERF.md, PR 16); the launch gates
-    # count device records
+    # and the kernels recorded the same (PERF.md, section 6); the launch
+    # gates count device records
     wide = wide_phase(gen)
     dims_models = dims_model_phase(SEED)
     dlaunch = dims_models["launches"]

@@ -142,8 +142,8 @@ def decode_group(group: int, d: int = 128) -> tuple[int, int]:
     top. The top is 8, and 4 at head_dim 256: there a G = 8 instance (64
     PV accumulators and 64 scores a lane) spilled 28 KB a thread and ran
     10x slower on the H100 than two row blocks of 4 over the same pages,
-    the second reading them from L2 (PERF.md, PR 16), so the kernels at 256
-    stop at G = 4."""
+    the second reading them from L2 (PERF.md, section 6), so the kernels
+    at 256 stop at G = 4."""
     if group < 1:
         raise ValueError(f"group {group}")
     top = 4 if d == WIDE_HEAD_DIM else DECODE_GROUPS[-1]
