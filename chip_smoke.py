@@ -36,8 +36,13 @@ instance of 64/128 columns covers: every kernel at 72/80/96 and groups
 backward, the decodes over bf16 and int8 pages, the append), and three
 models at published widths, 4 layers each, served over bf16 and int8
 pages (Phi-3-mini's, Llama-3.2-3B's and Gemma-2B's, head_dim 256, one kv
-head), two of them also trained (Phi-3-mini's, Gemma-2B's). The flash
-forward's and FA1's
+head), two of them also trained (Phi-3-mini's, Gemma-2B's). Then the f32
+path at head_dim 256: B1's wide f32 instance (Gemma-2B's (1,8,2048,256)
+causal, bit-identical calls, planted faults; 192 padded, the window, ids,
+the jagged mode), the f32 backward (bit-identical calls), the decodes with
+f32 q over f32 and int8 pages and the append into them, and the
+Gemma-2B-width model in f32 served over f32 and int8 pages and trained at
+1 x 2048. The flash forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
 planted in the plain version (a stale V tile, a dropped kv tile; for FA1
@@ -49,7 +54,8 @@ bits (bwd_spread for bf16, check_bwd for f32: their sums run in a fixed
 order). The decodes are held against
 their plain version at the kernel's own split count and unsplit, the
 quantized matmul at every engine projection at 8 rows and at 1. It fails
-if a kernel does not build, launch or agree, if the bf16-q instances of
+if a kernel does not build, launch or agree, if a kernel of the JSON line
+never launched in the run, if the bf16-q instances of
 the flash forward (over bf16 K/V and over int8/e4m3 payloads) or FA1's
 bf16 instances are not on
 wgmma (no HGMMA, or any HMMA, in their SASS), if a path did not go through
@@ -107,6 +113,12 @@ DECODE_ROW_GATE = 2.0 ** -6
 # largest |logit|: earlier runs read 0.0391 of 4.688 (0.83 %) at prefill
 # and 0.0352 (0.76 %) at the first decode step.
 ENGINE_LOGIT_GATE = 1.5e-2
+# ... in f32 (TF32 off): bf16's gate is bf16 rounding of the activations,
+# which f32 does not have; every kernel of the f32 path holds its plain
+# version to 2e-5, and sums in other orders through 4 layers stay orders
+# below 1e-3 of the largest |logit|: runs at Gemma-2B's widths read
+# 9.8e-6 of 5.114 at prefill and 3.1e-6 at the first decode step.
+ENGINE_F32_LOGIT_GATE = 1e-3
 # The backward kernels against their plain version, which repeats their
 # rounding points, relative to the largest |gradient|: earlier runs read at
 # most 3.45e-3 in bf16 (one bf16 ulp of a result is at most 2^-7 of it,
@@ -138,6 +150,11 @@ STEP_LAUNCHES = {"bf16": 303, "int8 KV, bf16 weights": 303,
 # runs read 1.89e-2 (bf16 activations round at other points in the two
 # attention paths).
 TRAIN_GRAD_GATE = 3e-2
+# ... in f32 (TF32 off): the kernels' f32 attention against the plain
+# attention, both in f32 FMAs with sums in other orders, through 4 layers:
+# 1e-3 of each gradient's norm, 30x under bf16's; runs at Gemma-2B's
+# widths read 4.3e-6.
+TRAIN_F32_GRAD_GATE = 1e-3
 
 # (name, q shape, kv shape, dtype, causal)
 FLASH_CASES = [
@@ -413,7 +430,7 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
         return plain(qf[:, :, rows], scale, ids=(q_ids, kv_ids))
 
     b, _, q_len, _ = q.shape
-    cfg = fwd_config(q.dtype)
+    cfg = fwd_config(q.dtype, head_dim=q.shape[-1])
     kv_len, bm, bn = k.shape[2], cfg.block_m, cfg.block_n
     j = kv_len // bn // 2
     tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
@@ -426,7 +443,8 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
               f"kv tile {j} dropped": dropped(tile)}
     if q.dtype == torch.float32:
         split = min(fwd_f32_split(q_len, kv_len, causal=True,
-                                  n_bh=b * q.shape[1]), kv_len // bn // 2)
+                                  n_bh=b * q.shape[1], cfg=cfg),
+                    kv_len // bn // 2)
         faults[f"run of kv tiles [0, {split}) lost in the merge"] = \
             dropped(slice(0, split * bn))
     gate_faults(f"flash {name}", faults, plain, q, rows)
@@ -875,23 +893,24 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head_dim above 256 in the flash kernels, and above 128 in the
-    # instances without a wide one (f32, the quantized forward, FA1); the
+    # head_dim above 256 in the flash kernels (bf16 and f32), and above 128
+    # in the instances without a wide one (the quantized forward, FA1); the
     # decodes and the append at a head_dim they have no instance of (pages
-    # are read in place: 72, 192) and over f32 at 256, a page size that is
-    # neither 16 nor a multiple of 32
+    # are read in place: 72, 192), a page size that is neither 16 nor a
+    # multiple of 32
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
     q264, q256 = zeros(1, 2, 128, 264), zeros(1, 2, 128, 256)
+    f264 = zeros(1, 2, 128, 264, dtype=torch.float32)
     f256 = zeros(1, 2, 128, 256, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
         lambda: flash_attention(q264, q264, q264, causal=True),
         lambda: flash_attention_bwd(q264, q264, q264, q264, lse, q264,
                                     causal=True),
-        lambda: flash_attention(f256, f256, f256, causal=True),
-        lambda: flash_attention_bwd(f256, f256, f256, f256, lse, f256,
+        lambda: flash_attention(f264, f264, f264, causal=True),
+        lambda: flash_attention_bwd(f264, f264, f264, f264, lse, f264,
                                     causal=True),
         lambda: flash_attention_v1(q256, q256, q256),
         lambda: flash_attention_v1(f256, f256, f256),
@@ -909,14 +928,7 @@ def check_not_ported_raise() -> None:
                 q, p, p, lengths, table),
             lambda q=qd, p=pages_d: fused_page_append(
                 p, q[:, :2], q[:, :2], two, two, page_size=16)]
-    qf, pages_f = (zeros(2, 6, 256, dtype=torch.float32),
-                   zeros(2, 4, 32, 256, dtype=torch.float32))
     attempts += [
-        lambda: fused_paged_decode_attention(qf, pages_f, lengths, table,
-                                             page_size=16),
-        lambda: paged_decode_attention(qf, pages_f, pages_f, lengths, table),
-        lambda: fused_page_append(pages_f, qf[:, :2], qf[:, :2], two, two,
-                                  page_size=16),
         lambda: fused_paged_decode_attention(
             zeros(2, 6, 128), zeros(2, 4, 96, 128), lengths, table,
             page_size=48),
@@ -930,10 +942,9 @@ def check_not_ported_raise() -> None:
                              "the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
         f"({len(attempts)}: int8 K/V without scales, head_dim 264 in the "
-        f"forward and backward, head_dim 256 in the f32 forward and "
-        f"backward, FA1 (bf16, f32) and the quantized forward (bf16 q, f32 "
-        f"q), the decodes and the append at head_dim 72 and 192 and over "
-        f"f32 at 256, page size 48)")
+        f"forward and backward (bf16, f32), at 256 FA1 (bf16, f32) and the "
+        f"quantized forward (bf16 q, f32 q), the decodes and the append at "
+        f"head_dim 72 and 192, page size 48)")
 
 
 # --- phase 3b: the quantized path's kernels, kernel vs plain -----------------
@@ -1060,7 +1071,10 @@ def qmm_split_sweep(gen) -> None:
             + "; ".join(cells) + f" (chosen: S {quant_matmul_splits(n, k)})")
 
 
-def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32):
+def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32,
+                  dtype=torch.bfloat16):
+    """Pages of `fmt` ("bf16": of the rows' dtype) and the rows of 8
+    tokens in `dtype`, random targets."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import page_rows
 
     num_pages = batch * P + 8
@@ -1069,25 +1083,26 @@ def append_inputs(gen, *, fmt, ps, batch=8, hkv=2, d=128, P=32):
         pages = torch.randint(-127, 128, shape, generator=gen,
                               device="cuda").to(torch.int8)
     else:
-        pages = randn(shape, torch.bfloat16, gen)
-    k_new = randn((batch, hkv, d), torch.bfloat16, gen)
-    v_new = randn((batch, hkv, d), torch.bfloat16, gen)
+        pages = randn(shape, dtype, gen)
+    k_new = randn((batch, hkv, d), dtype, gen)
+    v_new = randn((batch, hkv, d), dtype, gen)
     ids = torch.randperm(num_pages, generator=gen, device="cuda")[:batch]
     rows = torch.randint(0, ps, (batch,), generator=gen, device="cuda")
     return pages, k_new, v_new, ids.to(torch.int32), rows.to(torch.int32)
 
 
-def check_append(name, fmt, ps, gen, *, iters=20, d=128, hkv=2):
+def check_append(name, fmt, ps, gen, *, iters=20, d=128, hkv=2,
+                 dtype=torch.bfloat16):
     """The append kernel vs its plain version (the scatter decomposition),
-    bit for bit; device times of both. The bound: the new rows read once,
-    the page rows and scale bytes written once."""
+    bit for bit, rows in `dtype`; device times of both. The bound: the new
+    rows read once, the page rows and scale bytes written once."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_page_append, page_append_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
 
     pages, k_new, v_new, ids, rows = append_inputs(gen, fmt=fmt, ps=ps, d=d,
-                                                   hkv=hkv)
+                                                   hkv=hkv, dtype=dtype)
     base = pages.clone()
     want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
                              page_size=ps)
@@ -1103,10 +1118,11 @@ def check_append(name, fmt, ps, gen, *, iters=20, d=128, hkv=2):
         "median_ms"]
     t_lib = None
     if fmt == "bf16":
-        # one PyTorch call does the bf16 append: index_put_ of the K and V
-        # rows at their (kv head, page, row) positions, the indices and
-        # values laid out beforehand (int8 pages have no such call: the
-        # quantization and the scale bytes are passes of their own)
+        # one PyTorch call does the append into pages of the rows' dtype:
+        # index_put_ of the K and V rows at their (kv head, page, row)
+        # positions, the indices and values laid out beforehand (int8
+        # pages have no such call: the quantization and the scale bytes
+        # are passes of their own)
         batch, hkv, _ = k_new.shape
         pos = torch.cat([rows, rows + ps]).long()
         idx = (torch.arange(hkv, device="cuda")[:, None].expand(
@@ -1128,8 +1144,9 @@ def check_append(name, fmt, ps, gen, *, iters=20, d=128, hkv=2):
     row_bytes = d * pages.element_size() + (4 if fmt == "int8" else 0)
     nbytes = (2 * k_new.numel() * k_new.element_size() + 8 * batch
               + 2 * batch * hkv * row_bytes)
-    bound_ms, bound_by = _bound(0.0, nbytes, torch.bfloat16)
-    log(f"page append {name}: {fmt} pages{tuple(pages.shape)} ps {ps}, "
+    bound_ms, bound_by = _bound(0.0, nbytes, dtype)
+    log(f"page append {name}: {fmt} pages{tuple(pages.shape)} "
+        f"{str(pages.dtype).split('.')[-1]} ps {ps}, "
         f"{batch} tokens x {hkv} kv heads | bit-exact vs plain: {ok} | "
         f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms"
         + (f" index_put_ {t_lib:.4f} ms" if t_lib is not None else "")
@@ -1302,13 +1319,13 @@ def bwd_spread(gate: bool = True, d: int = 128) -> None:
 
 
 def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
-              iters=10):
+              iters=10, repeats=1):
     """The backward kernels vs their plain version and vs autograd through
     the f32 plain forward on one shape, with its masks; then the device
     times of the whole backward call, of each kernel alone (bf16: prep,
     main, post; f32: dq, dk/dv, post), of the plain version and of SDPA's
     backward (with a boolean mask where the masks are more than causal).
-    f32: two calls on the same inputs must give the same bits."""
+    f32: `repeats` more calls on the same inputs must give the same bits."""
     from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain, visible_mask)
@@ -1330,10 +1347,11 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **mk)
     got = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, **kw)
     same = True
-    if dtype == torch.float32:   # the f32 sums run in a fixed order
+    for _ in range(repeats if dtype == torch.float32 else 0):
+        # the f32 sums run in a fixed order
         again = FB.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                        **kw)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        same &= all(torch.equal(a, b) for a, b in zip(got, again))
         del again
     torch.cuda.synchronize()
     plain = FB.flash_attention_bwd_plain(q, k, v, out, lse, do,
@@ -1410,7 +1428,7 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
         + f") | {bounds['all'][0] / t_call:.1%} of the bound, "
         f"{t_call / t_sdpa:.2f}x SDPA"
         + ("" if dtype == torch.bfloat16 else
-           f" | two calls bit-identical: {same}")
+           f" | {repeats + 1} calls bit-identical: {same}")
         + f" | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash backward kernels disagree: {name}")
@@ -1847,19 +1865,20 @@ def check_rows(name, out, lse, plain, q, lens) -> dict:
     return {"errs": errs, "folded": folded}
 
 
-def check_rowloop(gen) -> float:
-    """B11 against its plain version: jagged lengths around one tile and
-    the whole row, bf16 and f32; then without lengths, non-causal and with
-    a decode offset."""
+def check_rowloop(gen, d=128, dtypes=(torch.bfloat16, torch.float32)
+                  ) -> float:
+    """B11 against its plain version at head_dim d: jagged lengths around
+    one tile and the whole row, in each of `dtypes`; then without lengths,
+    non-causal and with a decode offset."""
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
         flash_attention_rowloop, flash_attention_rowloop_plain)
 
     n = 1024
     lens = [1, 63, 64, 65, n]
     worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        q = randn((5, 8, n, 128), dtype, gen)
-        k, v = (randn((5, 2, n, 128), dtype, gen) for _ in range(2))
+    for dtype in dtypes:
+        q = randn((5, 8, n, d), dtype, gen)
+        k, v = (randn((5, 2, n, d), dtype, gen) for _ in range(2))
         cases = [("jagged", q, True, lens), ("non-causal", q, False, None),
                  ("decode offset q128", q[:, :, -128:], True, None)]
         for label, qq, causal, ln in cases:
@@ -2430,15 +2449,14 @@ B12_CASES = [("config 2, bf16 pages", "bf16", [8192] * 8),
 
 
 def b12_inputs(gen, fmt, lengths, *, batch=8, hq=8, hkv=2, d=128, ps=128,
-               P=64):
-    """q, K and V page arrays (int8 QuantizedTensors made from bf16 pages by
-    the port's quantizer), lengths and a random page table."""
+               P=64, dtype=torch.bfloat16):
+    """q, K and V page arrays in `dtype` (int8 QuantizedTensors made from
+    such pages by the port's quantizer), lengths and a random page table."""
     from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 
     num_pages = batch * P + 7
-    q = randn((batch, hq, d), torch.bfloat16, gen)
-    k, v = (randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
-            for _ in range(2))
+    q = randn((batch, hq, d), dtype, gen)
+    k, v = (randn((hkv, num_pages, ps, d), dtype, gen) for _ in range(2))
     if fmt == "int8":
         k, v = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
     perm = torch.randperm(num_pages, generator=gen, device="cuda")
@@ -2998,9 +3016,10 @@ def ring_bound(q, pages, lengths, window) -> tuple[float, str]:
 
 
 def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
-               ps=128, P=16) -> dict:
+               ps=128, P=16, dtype=torch.bfloat16) -> dict:
     """B4's ring mode against its plain version over a table that has
-    wrapped (the windowed engine's geometry: 16 pages of 128 a slot)."""
+    wrapped (the windowed engine's geometry: 16 pages of 128 a slot), q and
+    the K/V the pages are made from in `dtype`."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_attention, fused_paged_decode_plain,
         pack_paged_cache)
@@ -3008,10 +3027,10 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
         cuda_time_ms)
 
     num_pages = batch * P + 8
-    q = randn((batch, hq, d), torch.bfloat16, gen)
+    q = randn((batch, hq, d), dtype, gen)
     pages = pack_paged_cache(
-        randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
-        randn((hkv, num_pages, ps, d), torch.bfloat16, gen), fmt)
+        randn((hkv, num_pages, ps, d), dtype, gen),
+        randn((hkv, num_pages, ps, d), dtype, gen), fmt)
     perm = torch.randperm(num_pages, generator=gen, device="cuda")
     table = perm[:batch * P].reshape(batch, P).to(torch.int32)
     lengths = torch.tensor([1, window, window + 65, P * ps, P * ps + 1,
@@ -3032,7 +3051,9 @@ def check_ring(name, fmt, gen, *, window=1024, batch=8, hq=8, hkv=2, d=128,
         q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
         window=window), iters=5)["median_ms"]
     bound_ms, bound_by = ring_bound(q, pages, lengths, window)
-    log(f"ring decode {name}: q{tuple(q.shape)} pages{tuple(pages.shape)} "
+    log(f"ring decode {name}: q{tuple(q.shape)} "
+        f"{str(dtype).split('.')[-1]} pages{tuple(pages.shape)} "
+        f"{str(pages.dtype).split('.')[-1]} "
         f"table{tuple(table.shape)} window {window} lengths "
         f"{lengths.tolist()} | {n_splits} splits of {per} pages | "
         f"{gate_readings(err, row, lse_err)} | kernel {t_kernel:.4f} ms plain "
@@ -3285,8 +3306,9 @@ def main_path_rows(seed: int) -> int:
     """Only the rows this tree must keep, device ms each, with the package
     found on sys.path (so that one call can time two trees' kernels): B1
     bf16 at (4,8,768,128), (4,8,2048,128) and (1,8,8192,128) causal, B11 at
-    the jagged batch of the mix, B1 f32 at the f32 train step's shape, f32
-    q over int8 and e4m3 payloads at the int8 benchmark's shape, the bf16
+    the jagged batch of the mix, B1 f32 and the f32 backward call at the
+    f32 train step's shape, f32 q over int8 and e4m3 payloads at the int8
+    benchmark's shape, the bf16
     backward call at (4,8,2048,128), (1,8,8192,128) and (2,8,768,128), B4
     over int8 pages of 8016 tokens and over a bf16 engine cache, the append
     cold beside the launch floor; B1 at (4,32,2048,96) and the backward at
@@ -3358,6 +3380,11 @@ def main_path_rows(seed: int) -> int:
     k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
     times["B1 f32 (1,8,1024)"] = cuda_time_ms(
         lambda: flash_attention(q, k, v, causal=True), iters=20)["median_ms"]
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    do = randn(q.shape, torch.float32, gen)
+    times["bwd call f32 (1,8,1024)"] = cuda_time_ms(
+        lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        iters=10)["median_ms"]
     _, _, qs, ks = QUANT_BENCH[0]
     q = randn(qs, torch.float32, gen)
     k, v = (randn(ks, torch.float32, gen) for _ in range(2))
@@ -3510,12 +3537,12 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
     return max(errs["out"], errs["lse"])
 
 
-def check_dims_b12(gen, d=96, hq=6, hkv=2) -> dict:
-    """B12 at a head_dim and group of its own (hq / hkv), bf16 and int8
-    pages, against its plain version at the kernel's splits and unsplit,
-    with its planted faults; the device times of the kernel and the plain
-    version beside the bound. Returns a row per format, with the launches
-    of the checked calls."""
+def check_dims_b12(gen, d=96, hq=6, hkv=2, dtype=torch.bfloat16) -> dict:
+    """B12 at a head_dim and group of its own (hq / hkv), q in `dtype`
+    over pages of that dtype and int8 pages, against its plain version at
+    the kernel's splits and unsplit, with its planted faults; the device
+    times of the kernel and the plain version beside the bound. Returns a
+    row per format, with the launches of the checked calls."""
     from tiny_flash_attention_tpu_torch.ops.paged import (
         paged_decode_attention, paged_decode_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -3525,7 +3552,7 @@ def check_dims_b12(gen, d=96, hq=6, hkv=2) -> dict:
     for fmt in ("bf16", "int8"):
         q, k, v, lengths, table = b12_inputs(
             gen, fmt, [1, 127, 128, 129, 1000, 4096, 6000, 8192], hq=hq,
-            hkv=hkv, d=d, P=64)
+            hkv=hkv, d=d, P=64, dtype=dtype)
         before = paged_decode_attention.launches
         out, lse = paged_decode_attention(q, k, v, lengths, table)
         launches = paged_decode_attention.launches - before
@@ -3542,8 +3569,10 @@ def check_dims_b12(gen, d=96, hq=6, hkv=2) -> dict:
             iters=5)["median_ms"]
         kv = k.values if fmt == "int8" else k
         bound_ms, bound_by = decode_bound(q, kv, lengths, table, 128)
-        log(f"dims: paged_decode_separate {label} {fmt} pages "
-            f"q{tuple(q.shape)} | {gate_readings(err, row, lse_err)} | "
+        pages = "int8" if fmt == "int8" else str(dtype).split('.')[-1]
+        log(f"dims: paged_decode_separate {label} {pages} pages "
+            f"q{tuple(q.shape)} {str(dtype).split('.')[-1]} | "
+            f"{gate_readings(err, row, lse_err)} | "
             f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
             f"{bound_ms:.4f} ms ({bound_by}) | {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -3980,15 +4009,16 @@ def wide_phase(gen) -> dict:
     return rows
 
 
-def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
+def dims_engine_run(label, cfg, params, fmt, ps, seed,
+                    gate=ENGINE_LOGIT_GATE) -> dict:
     """One engine at a model's published widths: 8 prompts of 512-2048
     tokens admitted in two batches of 4, two steps(32) chunks, the launch
     counts zeroed just before the admissions and read just after the
     chunks; then the longer admission's prefill logits and the first
     decode step, each against the same call with every kernel swapped for
-    its plain version (plain_kernels), within ENGINE_LOGIT_GATE of the
-    largest |logit|, and the engine's greedy tokens the argmax of the
-    kernels' logits."""
+    its plain version (plain_kernels), within `gate` (ENGINE_LOGIT_GATE in
+    bf16) of the largest |logit|, and the engine's greedy tokens the
+    argmax of the kernels' logits."""
     from tiny_flash_attention_tpu_torch.models.engine import (
         InferenceEngine, Request, pad_prompts)
     from tiny_flash_attention_tpu_torch.models.inference import (
@@ -4035,7 +4065,9 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
 
     steps, L = n_chunk * n_chunks, cfg.n_layers
     want = dict(zip(launches, (2 * L, steps * L, steps * L)))
-    log(f"dims engine [{label}, {fmt} pages ps {ps}]: prompts {lens}; "
+    log(f"dims engine [{label}, {fmt} pages "
+        f"({str(eng.cache.pages[0].dtype).split('.')[-1]}) ps {ps}]: "
+        f"prompts {lens}; "
         f"launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"dims engine launches {launches} != {want}")
@@ -4071,14 +4103,14 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
              [r.generated[1] for r in reqs])):
         scale = float(ref.abs().max())
         err = max_err(got, ref)
-        gate = ENGINE_LOGIT_GATE * scale
+        limit = gate * scale
         argmax = got.argmax(-1).tolist()
         same = sum(a == b for a, b in zip(argmax, ref.argmax(-1).tolist()))
         log(f"dims engine [{label}, {fmt}]: {what} vs plain kernels: max err "
-            f"{err:.4f} (gate {gate:.4f} = {ENGINE_LOGIT_GATE:.1%} of max "
-            f"|logit| {scale:.3f}); tokens {tokens} vs argmax {argmax} (the "
-            f"plain kernels' argmax agrees on {same} of {len(argmax)})")
-        if err > gate or not torch.isfinite(got).all():
+            f"{err:.3e} (gate {limit:.3e} = {gate:.2%} of max |logit| "
+            f"{scale:.3f}); tokens {tokens} vs argmax {argmax} (the plain "
+            f"kernels' argmax agrees on {same} of {len(argmax)})")
+        if err > limit or not torch.isfinite(got).all():
             raise AssertionError(f"dims engine logits disagree: {label}")
         if tokens != argmax:
             raise AssertionError(f"dims engine tokens are not the argmax: "
@@ -4092,22 +4124,25 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed) -> dict:
     return {"launches": launches, "engine": eng, "err": worst}
 
 
-def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen) -> dict:
+def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen,
+                       dtype=torch.bfloat16) -> dict:
     """B4 at head_dim 256 over a Gemma-2B-width engine cache (layer 0, one
-    kv head) at groups 1, 2 and 8 (two row blocks of G = 4) against its
-    plain version (planted V faults at 8), timed beside the bound, with
-    every head_dim-256 decode instance's registers and spill bytes.
-    Returns {"rows": {group: row}}."""
+    kv head) at groups 1, 2 and 8 (two row blocks of G = 4), q in `dtype`,
+    against its plain version (planted V faults at 8), timed beside the
+    bound, with every head_dim-256 decode instance of q's dtype's source
+    and its registers and spill bytes. Returns {"rows": {group: row}}."""
     from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import DECODE_ENTRIES
 
     rows = {}
     for group in (1, 2, 8):
-        q = randn((table.shape[0], group, 256), torch.bfloat16, gen)
+        q = randn((table.shape[0], group, 256), dtype, gen)
         rows[group] = check_decode(
             f"wide: {label} {fmt} engine cache, layer 0, group {group}", q,
             pages, lengths, table, ps, iters=10, faults=group == 8)
     regs = [x for x in spilling_instances(
-        _build.build_log("paged_decode"), every=True) if ", 256," in x]
+        _build.build_log(DECODE_ENTRIES[dtype][0]), every=True)
+        if ", 256," in x]
     log(f"wide: {label} {fmt} decode, head_dim-256 instances, "
         f"registers/spill bytes: {'; '.join(regs)}")
     return {"rows": rows}
@@ -4166,12 +4201,14 @@ def dims_model_phase(seed) -> dict:
             "wide": wide}
 
 
-def train_pair(label, fields, gen, totals, by_model) -> None:
+def train_pair(label, fields, gen, totals, by_model,
+               dtype=torch.bfloat16) -> None:
     """One AdamW step pair at a model's published widths (DIMS_LAYERS
-    layers, 1 x 2048, bf16) with the launches counted into totals and
-    by_model; the loss falls and the gradients agree with those through
-    the plain attention; peak device memory, beside the same pair padded
-    where the head_dim is not a tile width."""
+    layers, 1 x 2048, in `dtype`) with the launches counted into totals
+    and by_model; the loss falls and the gradients agree with those
+    through the plain attention (TRAIN_GRAD_GATE; f32 TRAIN_F32_GRAD_GATE);
+    peak device memory, beside the same pair padded where the head_dim is
+    not a tile width."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
     from tiny_flash_attention_tpu_torch.ops import dims
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
@@ -4179,7 +4216,7 @@ def train_pair(label, fields, gen, totals, by_model) -> None:
         flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
-    cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.bfloat16)
+    cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=dtype)
     step, init_state = make_train_step(cfg, learning_rate=1e-3)
     params0 = T.init_params(cfg, gen, device="cuda")
     params, opt = init_state(params0)
@@ -4204,9 +4241,9 @@ def train_pair(label, fields, gen, totals, by_model) -> None:
     mine["flash_bwd"] = got[1]
     del params, opt
     if cfg.d_head in (*dims.FLASH_HEAD_DIMS, dims.WIDE_HEAD_DIM):
-        log(f"dims train [{label}, 1 x 2048]: peak device memory of the "
-            f"pair {peak / 2**20:.1f} MiB (head_dim {cfg.d_head}, a tile "
-            f"width: nothing pads)")
+        log(f"dims train [{label}, 1 x 2048, {str(dtype).split('.')[-1]}]: "
+            f"peak device memory of the pair {peak / 2**20:.1f} MiB "
+            f"(head_dim {cfg.d_head}, a tile width: nothing pads)")
     else:
         # the same pair padded, from the same weights
         params, opt = init_state(params0)
@@ -4227,17 +4264,139 @@ def train_pair(label, fields, gen, totals, by_model) -> None:
             f"{padded_losses[1]:.4f}, the same bits: "
             f"{padded_losses == losses}")
     err = train_grad_check(cfg, params0, tokens)
-    log(f"dims train [{label}, 1 x 2048]: loss {losses[0]:.4f} -> "
-        f"{losses[1]:.4f} in 2 steps ({dt * 1e3:.1f} ms); {got[0]} forward "
-        f"and {got[1]} backward calls (expected {2 * cfg.n_layers} each); "
-        f"gradients vs attn_impl='reference': max relative Frobenius "
-        f"distance {err:.3e} (gate {TRAIN_GRAD_GATE:.0e})")
+    grad_gate = (TRAIN_F32_GRAD_GATE if dtype == torch.float32
+                 else TRAIN_GRAD_GATE)
+    log(f"dims train [{label}, 1 x 2048, {str(dtype).split('.')[-1]}]: loss "
+        f"{losses[0]:.4f} -> {losses[1]:.4f} in 2 steps ({dt * 1e3:.1f} "
+        f"ms); {got[0]} forward and {got[1]} backward calls (expected "
+        f"{2 * cfg.n_layers} each); gradients vs attn_impl='reference': "
+        f"max relative Frobenius distance {err:.3e} (gate {grad_gate:.0e})")
     if got != (2 * cfg.n_layers,) * 2 or not (
             np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"dims train step: {got}, {losses}")
-    if not err <= TRAIN_GRAD_GATE:
+    if not err <= grad_gate:
         raise AssertionError("dims train gradients disagree with the plain "
                              "path")
+
+
+
+# --- phase 10: head_dim 256 on the f32 path ----------------------------------
+
+# Gemma-2B's attention in f32, the f32 prefill's and train step's per-layer
+# shape at 1 x 2048: (q shape, kv shape)
+WIDE_F32_SHAPE = ((1, 8, 2048, 256), (1, 1, 2048, 256))
+# B1 f32 at 256 and at 192 (padded to 256) under each mask and group:
+# (d, group, mask)
+WIDE_F32_FLASH_CASES = [(256, 1, "window"), (256, 8, "ids"),
+                        (256, 2, "causal"), (192, 8, "causal"),
+                        (192, 1, "window"), (192, 2, "ids")]
+# the calls of the f32 backward's bit-identity check at 256
+WIDE_F32_BWD_REPEATS = 4
+# an engine's page formats for an f32 model ("bf16" pages hold the model's
+# dtype) as the log names them
+F32_PAGES = {"bf16": "f32 pages", "int8": "int8 pages"}
+
+
+def wide_f32_phase(gen) -> dict:
+    """Every f32 kernel of the serving and training path at head_dim 256
+    against its plain version: B1 f32 at Gemma-2B's (1,8,2048,256)/(1,1)
+    causal, bit-identical over two calls, with planted faults (a stale V
+    tile, a dropped kv tile, a lost run of the merge), timed beside SDPA
+    in f32 (its backend named) and the bound; under each mask and group at
+    256 and at 192 through the padded route (its copies counted); its
+    jagged mode; the f32 backward at the same shape against its plain
+    version and autograd, bit-identical over WIDE_F32_BWD_REPEATS more
+    calls, timed beside SDPA's, and with the window at 192; B4's ring mode
+    over f32 and int8 pages; B12 in f32; B5 into f32 and int8 pages bit
+    for bit. (B4 over the Gemma-2B-width f32 engines' caches:
+    wide_f32_model_phase.)"""
+    from tiny_flash_attention_tpu_torch.ops import dims
+
+    rows = {"errs": {}}
+    errs = rows["errs"]
+    rows["flash"] = check_flash("wide f32: B1 at the Gemma-2B f32 prefill",
+                                *WIDE_F32_SHAPE, torch.float32, True, gen,
+                                faults=True)
+    q = randn(WIDE_F32_SHAPE[0], torch.float32, gen)
+    k = randn(WIDE_F32_SHAPE[1], torch.float32, gen)
+    log(f"wide f32: SDPA in f32 at q{WIDE_F32_SHAPE[0]} causal runs "
+        + sdpa_kernel_name(lambda: F.scaled_dot_product_attention(
+            q, k, k, is_causal=True, enable_gqa=True)))
+    del q, k
+    before = dims.pad_head_dim.copies
+    errs["flash_fwd"] = max(check_dims_flash(*c, torch.float32, gen)
+                            for c in WIDE_F32_FLASH_CASES)
+    copies = dims.pad_head_dim.copies - before
+    want = 3 * sum(c[0] != 256 for c in WIDE_F32_FLASH_CASES)
+    log(f"wide f32: B1's calls at 192 pad q, k and v to 256, at 256 "
+        f"nothing: {copies} copies (expected {want})")
+    if copies != want:
+        raise AssertionError(f"wide f32: {copies} pad copies, not {want}")
+    errs["flash_fwd"] = max(errs["flash_fwd"], rows["flash"]["max_abs_err"],
+                            check_rowloop(gen, d=256,
+                                          dtypes=(torch.float32,)))
+    rows["flash_bwd"] = check_bwd(
+        "wide f32: backward at the Gemma-2B f32 train step",
+        *WIDE_F32_SHAPE, torch.float32, True, {}, gen,
+        repeats=WIDE_F32_BWD_REPEATS)
+    errs["flash_bwd"] = max(
+        rows["flash_bwd"]["max_abs_err"],
+        check_bwd("wide f32: backward at 192, window 200",
+                  (2, 4, 1000, 192), (2, 2, 1000, 192), torch.float32, True,
+                  {"window": 200}, gen, iters=3)["max_abs_err"])
+    ring = 0.0
+    for fmt, group in (("bf16", 1), ("bf16", 8), ("int8", 2), ("int8", 8)):
+        r = check_ring(f"wide f32: {F32_PAGES[fmt]} d 256 group {group}", fmt,
+                       gen, hq=group, hkv=1, d=256, ps=128, P=16,
+                       dtype=torch.float32)
+        ring = max(ring, r["max_abs_err"])
+    errs["ring"] = ring
+    rows["b12"] = check_dims_b12(gen, d=256, hq=8, hkv=1,
+                                 dtype=torch.float32)
+    errs["paged_decode_separate"] = max(r["max_abs_err"]
+                                        for r in rows["b12"].values())
+    rows["append"] = {
+        fmt: check_append(f"wide f32: {F32_PAGES[fmt]} d 256 ps 128, "
+                          f"Gemma-2B's 8 tokens x 1 kv head", fmt, 128, gen,
+                          d=256, hkv=1, iters=10, dtype=torch.float32)
+        for fmt in ("bf16", "int8")}
+    errs["page_append"] = max(r["max_abs_err"]
+                              for r in rows["append"].values())
+    return rows
+
+
+def wide_f32_model_phase(seed) -> dict:
+    """The Gemma-2B-width model (DIMS_MODELS) in f32, DIMS_LAYERS layers,
+    random weights from the seed, TF32 off: served over f32 pages and over
+    int8 pages (dims_engine_run at ENGINE_F32_LOGIT_GATE), B4 over each
+    engine's cache with f32 q at groups 1, 2 and 8 (wide_decode_groups);
+    then the f32 train step pair at 1 x 2048 (train_pair). Returns the
+    launches of the engines and the pair by kernel, the pair's alone, and
+    the decode rows by page format."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+
+    label, fields, ps8 = DIMS_MODELS[2]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    log(f"wide f32 model [{label}, f32]: {DIMS_LAYERS} layers, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}")
+    launches, decode = {}, {}
+    for fmt, ps in (("bf16", 128), ("int8", ps8)):
+        run = dims_engine_run(f"{label}, f32", cfg, params, fmt, ps, seed,
+                              gate=ENGINE_F32_LOGIT_GATE)
+        for key, n in run["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+        table, lengths = run["engine"].cache.device_views()
+        decode[fmt] = wide_decode_groups(
+            f"{label}, f32", F32_PAGES[fmt], run["engine"].cache.pages[0],
+            lengths, table, ps, gen, dtype=torch.float32)
+        del run
+    del params
+    pair = {label: {}}
+    train_pair(label, fields, gen, launches, pair, dtype=torch.float32)
+    return {"launches": launches, "train": pair[label], "decode": decode}
 
 
 def main() -> int:
@@ -4387,6 +4546,13 @@ def main() -> int:
     # ... and the Gemma-2B-width runs the head_dim-256 (wide) ones
     gemma = dims_models["by_model"][DIMS_MODELS[2][0]]
     wide_dec = dims_models["wide"]
+    # the f32 path at head_dim 256: its kernels, then the Gemma-2B-width
+    # model in f32, served and trained
+    wide_f32 = wide_f32_phase(gen)
+    f32_models = wide_f32_model_phase(SEED)
+    f32_launch = f32_models["launches"]
+    from tiny_flash_attention_tpu_torch.ops.configs import (
+        PAGED_DECODE_F32_WIDE_WARPS as f32_warps)
 
     train = train_phase(SEED)
     for label, (step, *state) in train["states"].items():
@@ -4527,6 +4693,21 @@ def main() -> int:
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
                      train["launches"]["flash_bwd_f32"])
+          for part in ("dq", "dkv", "post")),
+        # the wide f32 instances (head_dim 256) at the Gemma-2B-width f32
+        # train step's (1,8,2048,256)/(1,1)
+        *(bwd_kernel(part, wide_f32["flash_bwd"], torch.float32,
+                     f32_models["train"]["flash_bwd"], suffix="_f32_d256",
+                     worst=wide_f32["errs"]["flash_bwd"], design=(
+                         "f32 at head_dim 129-256 (tiles of 256 columns): "
+                         "dq and dk/dv kernels over work lists of 32-row "
+                         "tiles on both sides (runs of 16 tiles, 512 rows), "
+                         "one block per (run, q head, batch), two halves of "
+                         "128 threads (S/P and dV; dP/dS and dK), 4 x 2 "
+                         "score and 4 x 16 dK/dV register tiles, dQ's 256 "
+                         "threads over two 128-column parts; a two-stage "
+                         "cp.async ring; slots summed by post in a fixed "
+                         "order: bit-identical runs"))
           for part in ("dq", "dkv", "post"))]
     # flash_fwd runs on every main path but the jagged admission: its
     # launches are the engines' (the windowed one's included), the
@@ -4577,6 +4758,16 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,
          "launches": train["launches"]["flash_fwd_f32"], **f32_fwd_row},
+        {"name": "flash_fwd_f32_d256", "route": "cuda",
+         "design": "f32's wide instance (head dims 129-256, tiles of 256 "
+                   "columns; 192 padded): 64-row q and 32-row kv tiles "
+                   "(a 128-row q tile alone is 128 KiB there), 4 x 2 score "
+                   "and 4 x 16 output register tiles a thread, the kv runs, "
+                   "the in-order merge (slots of 64 x 258 floats), every "
+                   "mask and the jagged mode of the 128 instance",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces, "launches": f32_launch["flash_fwd"],
+         **wide_f32["flash"], "max_abs_err": wide_f32["errs"]["flash_fwd"]},
         {"name": "flash_rowloop", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
@@ -4627,6 +4818,37 @@ def main() -> int:
          **append_rows[("int8", 128)],
          "max_abs_err": max(append_rows[("int8", 128)]["max_abs_err"],
                             dims["errs"]["page_append"])},
+        {"name": "paged_decode_f32_d256", "route": "cuda",
+         "design": "f32 q over f32 pages at head_dim 256: a warp's "
+                   "32-token stage is 64 KiB, so a block has "
+                   f"{f32_warps} warps ({f32_warps * 65536:,} bytes of "
+                   "rings), a group of 8 as two G-4 row blocks; "
+                   + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode_f32.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": f32_launch["paged_decode"],
+         **f32_models["decode"]["bf16"]["rows"][8],
+         "max_abs_err": max(wide_f32["errs"]["ring"], *(
+             r["max_abs_err"]
+             for r in f32_models["decode"]["bf16"]["rows"].values()))},
+        {"name": "paged_decode_int8_f32q_d256", "route": "cuda",
+         "design": "f32 q over int8 pages at head_dim 256 (two 16,640-byte "
+                   "stages a warp, four warps); " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode_f32.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": f32_launch["paged_decode_int8"],
+         **f32_models["decode"]["int8"]["rows"][8],
+         "max_abs_err": max(
+             r["max_abs_err"]
+             for r in f32_models["decode"]["int8"]["rows"].values())},
+        {"name": "page_append_f32_d256", "route": "cuda",
+         "design": "f32 rows into f32 pages at head_dim 256: a warp per "
+                   "(kv head, sequence), 8 contiguous values a lane",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": f32_launch["page_append"],
+         **wide_f32["append"]["bf16"],
+         "max_abs_err": wide_f32["errs"]["page_append"]},
         {"name": "page_append_d256", "route": "cuda",
          "design": "head_dim 256: a warp per (kv head, sequence), 8 "
                    "contiguous values a lane",
@@ -4690,6 +4912,17 @@ def main() -> int:
          **wide["b12"]["bf16"],
          "launches": sum(r["launches"] for r in wide["b12"].values()),
          "max_abs_err": wide["errs"]["paged_decode_separate"]},
+        {"name": "paged_decode_separate_f32_d256", "route": "cuda",
+         "design": "separate K/V page arrays at head_dim 256, f32 q over "
+                   f"f32 pages (blocks of {f32_warps} warps) and int8 "
+                   "pages; "
+                   "B4's template; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         **wide_f32["b12"]["bf16"],
+         "launches": sum(r["launches"] for r in wide_f32["b12"].values()),
+         "max_abs_err": wide_f32["errs"]["paged_decode_separate"]},
         *({"name": f"flash_fwd_quant_{fmt}", "route": "cuda",
            "design": "bf16 q: B1's wgmma/TMA kernel (flash_fwd_wgmma.cuh); "
                      "its producer warpgroup bulk-copies each payload tile "
@@ -4719,6 +4952,9 @@ def main() -> int:
            **quant_flash["rows"][f"{fmt}_f32q"]}
           for fmt in ("int8", "fp8")),
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched in the run: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info, flush=True)
     print(json.dumps({"ok": True, "device": {

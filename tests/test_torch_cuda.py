@@ -36,12 +36,19 @@ groups 1/3/7 under each mask, its quantized instances, the backward and
 autograd, FA1 at 80/96, the fused decode at 80/96 and groups 3/5/7/12/16
 over bf16, f32 and int8 pages (the ring mode; int8 scale rows split over two
 groups at page size 160), the separate decode, and the append bit for bit;
-and the shapes that stay out raise (head_dim 256; a decode or append at
-head_dim 72; page size 48). Last, the head dims that the bf16 forward and
+and the shapes that stay out raise (head_dim 264; FA1 and the quantized
+forward at 256; a decode or append at head_dim 72; page size 48). Last,
+the head dims that the bf16 forward and
 backward read in place (32, 48, 72, 80, 96 at groups 1, 3, 7 under every
 mask, 300 rows): their results bit for bit those of the call on padded
 tensors, with no pad copy; the instances of width 80 and 96 bit for bit
-the 128-wide one; and the f32 and quantized forward still padding.
+the 128-wide one; and the f32 and quantized forward still padding. Then
+head_dim 256 in f32: B1's wide f32 instance (each mask and group, 192
+padded, the edges of its 64-row q and 32-row kv tiles, the jagged mode,
+bit-identical calls, its merge workspace), the f32 backward (each mask,
+autograd, bit-identical runs), the decodes with f32 q over f32 and int8
+pages (groups 1 to 12, the ring mode), the separate decode and the append
+into f32 pages.
 """
 
 import pytest
@@ -179,23 +186,19 @@ def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
-    # head_dim above 256 (the bf16 kernels pad up to 256 and no further)
+    # head_dim above 256 (the bf16 and f32 kernels pad up to 256 and no
+    # further)
     q264 = _randn((1, 2, 8, 264), torch.bfloat16, gen)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q264, q264, q264)
-    with pytest.raises(NotImplementedError):
-        flash_attention_bwd(q264, q264, q264, q264,
-                            torch.zeros((1, 2, 8), device="cuda"), q264,
-                            causal=True)
-    # head_dim 256 where no wide instance is compiled: f32, FA1
+    for x in (q264, q264.float()):
+        with pytest.raises(NotImplementedError):
+            flash_attention(x, x, x)
+        with pytest.raises(NotImplementedError):
+            flash_attention_bwd(x, x, x, x,
+                                torch.zeros((1, 2, 8), device="cuda"), x,
+                                causal=True)
+    # head_dim 256 where no wide instance is compiled: FA1
     q256 = _randn((1, 2, 8, 256), torch.bfloat16, gen)
     f256 = q256.float()
-    with pytest.raises(NotImplementedError):
-        flash_attention(f256, f256, f256)
-    with pytest.raises(NotImplementedError):
-        flash_attention_bwd(f256, f256, f256, f256,
-                            torch.zeros((1, 2, 8), device="cuda"), f256,
-                            causal=True)
     with pytest.raises(NotImplementedError):
         flash_attention_v1(q256, q256, q256)
     with pytest.raises(NotImplementedError):
@@ -215,16 +218,17 @@ def test_not_ported_raises_on_the_card(gen):
     with pytest.raises(NotImplementedError):
         flash_attention_quantized(q, k8, Q.quantize_fp8(q))
     k256 = Q.quantize_int8(q256)
-    with pytest.raises(NotImplementedError):
-        flash_attention_quantized(q256, k256, k256)
+    for x in (q256, f256):
+        with pytest.raises(NotImplementedError):
+            flash_attention_quantized(x, k256, k256)
     # the decodes and the append read pages in place: head dims 72 and
-    # 192 have no instance, nor has f32 at 256; nor has a page size that
-    # is neither 16 nor a multiple of 32
+    # 192 have no instance, in either dtype; nor has a page size that is
+    # neither 16 nor a multiple of 32
     table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
     for d, dtype in ((72, torch.bfloat16), (192, torch.bfloat16),
-                     (256, torch.float32)):
+                     (192, torch.float32)):
         qd = _randn((2, 6, d), dtype, gen)
         pages_d = torch.zeros((2, 8, 32, d), dtype=dtype, device="cuda")
         with pytest.raises(NotImplementedError):
@@ -591,7 +595,8 @@ def test_int8_decode_kernel_matches_plain(gen, dtype, ps, d, group):
     # head_dim 256 (8 contiguous values a lane)
     (torch.bfloat16, "bf16", 128, 256), (torch.bfloat16, "bf16", 16, 256),
     (torch.bfloat16, "int8", 128, 256), (torch.bfloat16, "int8", 256, 256),
-    (torch.float32, "int8", 64, 256)])
+    (torch.float32, "int8", 64, 256), (torch.float32, "bf16", 128, 256),
+    (torch.float32, "bf16", 16, 256), (torch.float32, "int8", 128, 256)])
 def test_append_kernel_is_bit_exact(gen, src, fmt, ps, d):
     """The append kernel and its plain version run the same IEEE ops, so
     the pages agree bit for bit, an all-zero row (scale 1) included."""
@@ -772,9 +777,11 @@ def test_v1_f32_kernel_runs_are_bit_identical(gen):
     # head_dim 80 and 96, groups padded to 4 and 8 and two row blocks
     ("bf16", 3, 96, 128), ("int8 bf16", 3, 96, 128), ("bf16", 16, 80, 128),
     ("f32", 7, 80, 128),
-    # head_dim 256 (bf16 q), groups 1, 2, 8 (two row blocks of 4)
+    # head_dim 256, groups 1, 2, 8 (two row blocks of 4)
     ("bf16", 8, 256, 128), ("int8 bf16", 2, 256, 128), ("bf16", 1, 256, 16),
-    ("int8 bf16", 8, 256, 256)])
+    ("int8 bf16", 8, 256, 256), ("f32", 8, 256, 128),
+    ("int8 f32", 2, 256, 128), ("f32", 1, 256, 16),
+    ("int8 f32", 8, 256, 256)])
 def test_separate_decode_kernel_matches_plain(gen, fmt, group, d, ps):
     """Separate K/V page arrays (int8 pages with f32 scale pages, at page
     sizes that are multiples of 128 as JAX requires), lengths 0, 1, a page
@@ -1167,7 +1174,14 @@ def test_f32_bwd_runs_are_bit_identical(gen, hq, hkv, masks):
     """The f32 backward sums in an order fixed by the shape and the masks
     (one slot per (work item, q head), summed by the post in range and
     head order): three runs on the same inputs give the same bits."""
-    b, n, d = 1, 700, 128
+    _f32_bwd_runs_agree(gen, hq, hkv, masks, 128)
+
+
+def _f32_bwd_runs_agree(gen, hq, hkv, masks, d):
+    """Three f32 backward runs at head_dim d on the same inputs (700 rows,
+    causal, with `masks`) give the same bits, within the f32 gate of the
+    plain version."""
+    b, n = 1, 700
     q = _randn((b, hq, n, d), torch.float32, gen)
     k = _randn((b, hkv, n, d), torch.float32, gen)
     v = _randn((b, hkv, n, d), torch.float32, gen)
@@ -1413,7 +1427,14 @@ def _f32_inputs(gen, hq, hkv, n, d, bounds=None):
 def test_f32_fwd_runs_are_bit_identical(gen, hq, hkv, masks):
     """The f32 forward merges each q tile's runs in run order (the last run
     to arrive, in a fixed order): three calls give the same bits."""
-    q, k, v, seg = _f32_inputs(gen, hq, hkv, 1100, 128,
+    _f32_fwd_runs_agree(gen, hq, hkv, masks, 128)
+
+
+def _f32_fwd_runs_agree(gen, hq, hkv, masks, d):
+    """Three f32 forward calls at head_dim d on the same inputs (1100 rows,
+    causal, with `masks`) give the same bits, within the f32 gate of the
+    plain version."""
+    q, k, v, seg = _f32_inputs(gen, hq, hkv, 1100, d,
                                (130, 480, 600) if masks in ("ids", "starts")
                                else None)
     kw = {"causal": True}
@@ -1648,8 +1669,9 @@ DIMS_DECODE = [(fmt, d, group, ps)
                for fmt in ("bf16", "f32", "int8 bf16", "int8 f32")
                for d, group, ps in ((80, 3, 64), (96, 5, 32), (80, 7, 16),
                                     (96, 12, 64), (80, 16, 32))] + [
-    # head_dim 256 (bf16 q over bf16 or int8 pages)
-    (fmt, 256, group, ps) for fmt in ("bf16", "int8 bf16")
+    # head_dim 256, q in either dtype over pages of q's dtype or int8 pages
+    (fmt, 256, group, ps)
+    for fmt in ("bf16", "int8 bf16", "f32", "int8 f32")
     for group, ps in ((1, 64), (2, 32), (8, 16), (12, 128), (3, 256))]
 
 
@@ -1975,3 +1997,209 @@ def test_wide_smem_layouts_match_configs(gen):
     from tiny_flash_attention_tpu_torch import _build
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_bf16_smem
     check_bf16_smem(_build.library("flash_bwd"))
+
+
+# --- head_dim 256 in f32: the wide f32 instances -----------------------------
+# B1's f32 body over 64-row q and 32-row kv tiles, the f32 backward over
+# 32-row tiles, the decodes over f32 pages on blocks of fewer warps, the
+# append into f32 pages (ops/dims.py: f32 takes (128, 256], padded to 256).
+
+
+def _f32_vs_plain(gen, b, hq, hkv, q_len, kv_len, d, **kw):
+    """One launch of B1 in f32 against its plain version at the f32 gate;
+    returns the inputs and the kernel's (out, lse)."""
+    q = _randn((b, hq, q_len, d), torch.float32, gen)
+    k = _randn((b, hkv, kv_len, d), torch.float32, gen)
+    v = _randn((b, hkv, kv_len, d), torch.float32, gen)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
+        x, k, v, sm_scale=sc, return_lse=True, **kw), q, torch.float32)
+    return (q, k, v), got
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "full",
+                                  "offset"])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_f32_flash_kernel_matches_plain(gen, d, group, mask):
+    """B1's wide f32 instance against its plain version at the f32 gate:
+    300 rows (not a multiple of its 64-row q or 32-row kv tiles), each
+    mask, the decode offset (130 q rows over 300 kv rows); at 192 through
+    the padded route."""
+    kw = {"causal": mask != "full"}
+    q_len = 130 if mask == "offset" else 300
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(2, 300, gen)
+        kw["segment_ids"] = (seg, seg)
+    hkv = 2 if group < 8 else 1
+    copies = pad_head_dim.copies
+    _f32_vs_plain(gen, 2, hkv * group, hkv, q_len, 300, d, **kw)
+    assert pad_head_dim.copies == copies + (3 if d != 256 else 0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", [1, 31, 32, 33, 65, 257])
+@pytest.mark.parametrize("q_len", [1, 63, 64, 65, 129])
+def test_wide_f32_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """q_len on each side of the 64-row q tiles and kv_len on each side of
+    the 32-row kv tiles."""
+    _f32_vs_plain(gen, 1, 8, 1, q_len, kv_len, 256, causal=causal)
+
+
+def test_wide_f32_rowloop_jagged_lengths(gen):
+    """The jagged mode of the wide f32 instance: lengths 0, 1, 63, 64, 65
+    and the whole row; rows past a length are exactly 0 with the sentinel
+    LSE."""
+    d = 256
+    lens = torch.tensor([0, 1, 63, 64, 65, 300], dtype=torch.int32,
+                        device="cuda")
+    q = _randn((6, 8, 300, d), torch.float32, gen)
+    k = _randn((6, 1, 300, d), torch.float32, gen)
+    v = _randn((6, 1, 300, d), torch.float32, gen)
+    before = flash_attention_rowloop.launches
+    out, lse = flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_attention_rowloop.launches == before + 1
+    ref, ref_lse = flash_attention_rowloop_plain(
+        q, k, v, causal=True, sm_scale=d ** -0.5, seq_lengths=lens)
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_rowloop_plain(
+        x, k, v, causal=True, sm_scale=sc, seq_lengths=lens), q,
+        torch.float32)
+    for bi, L in enumerate(lens.tolist()):
+        assert bool((out[bi, :, L:] == 0).all())
+        torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
+                                   rtol=1e-6, atol=0)   # the sentinel
+
+
+@pytest.mark.parametrize("hq,hkv,masks", [
+    (8, 8, "causal"), (8, 2, "window"), (8, 1, "ids"), (4, 2, "starts")])
+def test_f32_fwd_runs_are_bit_identical_d256(gen, hq, hkv, masks):
+    """The wide f32 forward merges each q tile's runs in run order: three
+    calls give the same bits."""
+    _f32_fwd_runs_agree(gen, hq, hkv, masks, 256)
+
+
+@pytest.mark.parametrize("hq,hkv,masks", [
+    (4, 4, "causal"), (8, 2, "window"), (8, 1, "ids"), (4, 2, "starts")])
+def test_f32_bwd_runs_are_bit_identical_d256(gen, hq, hkv, masks):
+    """The wide f32 backward's slots are summed in a fixed order: three
+    runs give the same bits."""
+    _f32_bwd_runs_agree(gen, hq, hkv, masks, 256)
+
+
+@pytest.mark.parametrize("hq,hkv,q_len,kv_len,slots", [
+    (8, 1, 8192, 8192, False), (2, 1, 4096, 32768, True)])
+def test_wide_f32_fwd_workspace_stays_bounded(gen, hq, hkv, q_len, kv_len,
+                                              slots):
+    """The wide f32 merge's workspace stays within FLASH_FWD_F32_MAX_SLOTS
+    slots of 64 x 258 f32 (under the 128 instance's 128 x 130): (1, 8,
+    8192) causal fills the card with its q tiles, a 4096-row chunk over a
+    32768-token cache splits. Each against the plain version."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        fwd_config, fwd_f32_slots, fwd_f32_work)
+
+    d = 256
+    cfg = fwd_config(torch.float32, head_dim=d)
+    q = _randn((1, hq, q_len, d), torch.float32, gen)
+    k, v = (_randn((1, hkv, kv_len, d), torch.float32, gen)
+            for _ in range(2))
+    before = _workspace_bytes()
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    n_slots = fwd_f32_slots(*fwd_f32_work(q_len, kv_len, causal=True,
+                                          n_bh=hq, cfg=cfg))[1]
+    assert (n_slots > 0) == slots
+    assert n_slots * hq <= configs.FLASH_FWD_F32_MAX_SLOTS
+    bound = configs.FLASH_FWD_F32_MAX_SLOTS * 128 * (128 + 2) * 4 + 4096
+    assert _workspace_bytes() <= max(before, bound)
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, return_lse=True), q,
+        torch.float32)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "starts",
+                                  "full"])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_f32_bwd_matches_plain(gen, d, group, mask):
+    """The wide f32 backward against its plain version at the f32 gate,
+    each mask, 1000 rows (not a multiple of the 32-row tiles) over 900 kv
+    rows where causal is off; through flash_attention_bwd and autograd (at
+    192 padded to 256)."""
+    b, hkv = 2, 2 if group == 1 else 1
+    q_len, kv_len = (1000, 900) if mask == "full" else (1000, 1000)
+    q = _randn((b, hkv * group, q_len, d), torch.float32, gen)
+    k = _randn((b, hkv, kv_len, d), torch.float32, gen)
+    v = _randn((b, hkv, kv_len, d), torch.float32, gen)
+    do = _randn((b, hkv * group, q_len, d), torch.float32, gen)
+    kw, starts = {"causal": mask != "full"}, None
+    if mask == "window":
+        kw["window"] = 300
+    if mask in ("ids", "starts"):
+        seg = _segment_ids(b, q_len, (130, 480, 700), gen)
+        kw["segment_ids"] = (seg, seg)
+        if mask == "starts":
+            starts = (0, 130, 480, 700)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, segment_starts=starts,
+                              **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_GATE[torch.float32], name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, segment_starts=starts, **kw).backward(do)
+    for name, t, g in zip(("dq", "dk", "dv"), leaves, got):
+        assert torch.equal(t.grad, g), name
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 12])
+def test_wide_f32_decode_matches_plain(gen, group, fmt, ring):
+    """f32 q at head_dim 256 over f32 pages (blocks of
+    PAGED_DECODE_F32_WIDE_WARPS warps) and int8 pages, groups 1 to 12 (8
+    and 12 as row blocks of G = 4), lengths 0 and 1, a page edge and past
+    the table, in plain and ring mode, against the plain version at the
+    kernel's splits and unsplit."""
+    B, hkv, ps, P, d = 5, 1, 64, 10, 256
+    num_pages = B * P + 3
+    q = _randn((B, group, d), torch.float32, gen)
+    pages = pack_paged_cache(
+        _randn((hkv, num_pages, ps, d), torch.float32, gen),
+        _randn((hkv, num_pages, ps, d), torch.float32, gen), fmt)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([0, 1, ps, P * ps - 5, 3 * P * ps + 30 if ring
+                            else 10**6], dtype=torch.int32, device="cuda")
+    window = 200 if ring else None
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    for splits in ("kernel", None):
+        ref, ref_lse = fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            window=window, splits=splits)
+        assert _err(out, ref) <= tolerance_for(torch.float32)
+        assert _err(lse, ref_lse) <= 1e-4
+    assert bool((out[0] == 0).all())
+
+
+def test_wide_f32_smem_layouts_match_configs(gen):
+    """ops/configs.py's sizes are those of the wide f32 instances the
+    libraries export: the forward's (fwd_smem_bytes) and the backward's
+    (bwd_f32_smem_bytes)."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_f32_smem
+    check_smem_layouts(_build.library("flash_fwd"), False)
+    check_f32_smem(_build.library("flash_bwd"))

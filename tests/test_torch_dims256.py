@@ -5,9 +5,10 @@ The JAX package pads any head_dim to whole 128-lane tiles in its forward
 and backward, and its dispatch tables hold tiles for 256; its decodes and
 append take any width. The port's bf16 flash forward over bf16 K/V and its
 bf16 backward read any multiple of 8 up to 256 in place (the wide
-instances, 256 columns of tiles), other head dims up to 256 pad to 256, and
-the f32 instances, the quantized forward and FA1 stop at 128; the decodes
-and the append compile 256 over bf16 and int8 pages (ops/dims.py). Here the
+instances, 256 columns of tiles), other head dims up to 256 pad to 256 (in
+f32 every one: tests/test_torch_dims256_f32.py), and the quantized forward
+and FA1 stop at 128; the decodes and the append compile 256 over every
+page format (ops/dims.py). Here the
 same numpy inputs, made from a seed, go through the JAX function (its
 Pallas kernels in interpret mode) and through the port: its public entry
 (the plain version at the true head_dim, on the CPU, what the in-place
@@ -75,21 +76,22 @@ def _both(a, dtype):
 def test_in_place_rule_above_128(d):
     """bf16 over bf16 K/V, the flash kernels take a multiple of 8 up to
     256 in place (the wide instances), pad any other head_dim in (128,
-    256] to 256, and raise above 256; the f32 instances and the quantized
-    forward raise above 128, naming themselves; pad_head_dim counts each
-    copy it makes."""
+    256] to 256, and raise above 256; the f32 instances pad every head_dim
+    in (128, 256] to 256 and raise above; the quantized forward raises
+    above 128, naming itself; pad_head_dim counts each copy it makes."""
     what = "the CUDA forward kernel"
-    with pytest.raises(NotImplementedError, match="float32 takes head_dim "
-                       "up to 128"):
-        dims.flash_head_dim(d, torch.float32, what)
     with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
                        "head_dim up to 128"):
         dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
     if d > 256:
         with pytest.raises(NotImplementedError, match="up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, what)
+        with pytest.raises(NotImplementedError, match="float32 takes "
+                           "head_dim up to 256"):
+            dims.flash_head_dim(d, torch.float32, what)
         assert not dims.reads_in_place(d)
         return
+    assert dims.flash_head_dim(d, torch.float32, what) == 256
     in_place = d % 8 == 0
     assert dims.reads_in_place(d) == in_place
     assert dims.kernel_head_dim(d, what, wide=True) == 256

@@ -40,8 +40,8 @@ from tiny_flash_attention_tpu.ops.flash_quant import (
 from tiny_flash_attention_tpu_torch.models.transformer import (
     quantized_from_jax)
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, SMEM_PER_BLOCK,
-    TileConfig, bwd_smem_bytes, fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, FLASH_FWD_F32_WIDE,
+    SMEM_PER_BLOCK, TileConfig, bwd_smem_bytes, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     check_smem_layouts, flash_attention, fwd_config, fwd_f32_tiles,
     segment_tiles, tile_table, visible_mask)
@@ -250,8 +250,9 @@ def test_smem_layouts_are_held_to_the_library(quantized):
                                        quantized)
              for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1))
              for d in (64, 128)}
-    if not quantized:   # the wide instance, bf16 over bf16 K/V only
+    if not quantized:   # the wide instances, over K/V in q's dtype only
         sizes[(0, 256)] = fwd_smem_bytes(FLASH_FWD_BF16_WIDE, 256)
+        sizes[(1, 256)] = fwd_smem_bytes(FLASH_FWD_F32_WIDE, 256)
     check_smem_layouts(_Library(sizes), quantized)
     sizes[(0, 64)] += 16
     with pytest.raises(RuntimeError, match="fwd_smem_bytes"):

@@ -58,6 +58,7 @@ def test_no_jax_import(path):
 def test_kernel_sources_are_found():
     assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_fwd_quant",
                                 "flash_v1", "page_append", "paged_decode",
+                                "paged_decode_f32",
                                 "paged_decode_separate", "quant_matmul"]
 
 

@@ -3,8 +3,9 @@
 // path) share: row-major tiles in shared memory, each row's 16-byte chunks
 // XOR-swizzled by row % 8, so that cp.async copies land unchanged and the
 // strided float4 reads of the products are free of bank conflicts; the
-// score product (8 x 4 outputs a thread) and the accumulating product
-// (RW x D / 16 outputs a thread), both fed by 16-byte shared-memory reads;
+// score product (RW x CW outputs a thread: 8 x 4, or 4 x 2 on the head_dim
+// 256 instances' smaller tiles) and the accumulating product (RW x C / 16
+// outputs a thread), both fed by 16-byte shared-memory reads;
 // and the work lists that cut each tile's range into runs.
 
 #pragma once
@@ -35,31 +36,33 @@ __device__ __forceinline__ void stage_tile(float* t, const float* g, int r0,
   }
 }
 
-// 64 consecutive 4-byte values from `g` at [r0, r0 + 64), 0 past n
+// A tile row of consecutive 4-byte values from `g` at [r0, r0 + rows), 0
+// past n: the value at r0 + lane, by one thread a value
 __device__ __forceinline__ void stage_row(void* dst, const void* g, int r0,
-                                          int n, int lane64) {
-  const bool ok = r0 + lane64 < n;
-  cp_async4(static_cast<int*>(dst) + lane64,
-            static_cast<const int*>(g) + (ok ? r0 + lane64 : 0), ok);
+                                          int n, int lane) {
+  const bool ok = r0 + lane < n;
+  cp_async4(static_cast<int*>(dst) + lane,
+            static_cast<const int*>(g) + (ok ? r0 + lane : 0), ok);
 }
 
-// acc[k][i] = sum_d R[8a + k][d] * C[g + 16 i][d] over the head dim, each
-// operand times its scale where SR / SC (the q fold, rounded per element
-// as the plain version rounds q * c): R's rows are read as float4s that
-// the warp's 16 threads of one `a` share, C's as float4s of 16 rows.
-template <int D, bool SR, bool SC>
-__device__ __forceinline__ void score_tile(float (&acc)[8][4],
+// acc[k][i] = sum_d R[RW a + k][d] * C[g + 16 i][d] over the head dim (RW
+// rows, CW columns a thread), each operand times its scale where SR / SC
+// (the q fold, rounded per element as the plain version rounds q * c): R's
+// rows are read as float4s that the warp's 16 threads of one `a` share, C's
+// as float4s of 16 rows.
+template <int D, int RW, int CW, bool SR, bool SC>
+__device__ __forceinline__ void score_tile(float (&acc)[RW][CW],
                                            const float* R, const float* C,
                                            float scale, int a, int g) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
+  for (int k = 0; k < RW; ++k)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[k][i] = 0.f;
+    for (int i = 0; i < CW; ++i) acc[k][i] = 0.f;
 #pragma unroll 2
   for (int c = 0; c < D; c += 4) {
-    float4 cv[4];
+    float4 cv[CW];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < CW; ++i) {
       cv[i] = *reinterpret_cast<const float4*>(C + sw<D>(g + 16 * i, c));
       if (SC) {
         cv[i].x *= scale; cv[i].y *= scale;
@@ -67,14 +70,14 @@ __device__ __forceinline__ void score_tile(float (&acc)[8][4],
       }
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float4 rv = *reinterpret_cast<const float4*>(R + sw<D>(8 * a + k, c));
+    for (int k = 0; k < RW; ++k) {
+      float4 rv = *reinterpret_cast<const float4*>(R + sw<D>(RW * a + k, c));
       if (SR) {
         rv.x *= scale; rv.y *= scale;
         rv.z *= scale; rv.w *= scale;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CW; ++i) {
         acc[k][i] = fmaf(rv.x, cv[i].x, acc[k][i]);
         acc[k][i] = fmaf(rv.y, cv[i].y, acc[k][i]);
         acc[k][i] = fmaf(rv.z, cv[i].z, acc[k][i]);
@@ -85,16 +88,17 @@ __device__ __forceinline__ void score_tile(float (&acc)[8][4],
 }
 
 // acc[k][j] += sum_x A[x][RW * a + k] * B[x][4 (e + 16 (j / 4)) + j % 4]
-// over the 64 rows x of both: A a 64 x AW score tile, B a 64 x D tile;
-// this thread's RW rows of A's columns, its D / 16 columns of B in chunks
-// e + 16 c
-template <int D, int RW, int AW>
-__device__ __forceinline__ void accumulate(float (&acc)[RW][D / 16],
+// over the X rows x of both: A an X x AW score tile, B an X x C slice of a
+// tile of W-wide rows (W = C, or a column part of a wider tile: B then
+// points at its first column, a multiple of 32); this thread's RW rows of
+// A's columns, its C / 16 columns of B in chunks e + 16 c
+template <int C, int RW, int AW, int X = 64, int W = C>
+__device__ __forceinline__ void accumulate(float (&acc)[RW][C / 16],
                                            const float* A, const float* B,
                                            int a, int e) {
-  constexpr int NC = D / 64;                     // B chunks a thread
+  constexpr int NC = C / 64;                     // B chunks a thread
 #pragma unroll 4
-  for (int x = 0; x < 64; ++x) {
+  for (int x = 0; x < X; ++x) {
     float av[RW];
 #pragma unroll
     for (int h = 0; h < RW / 4; ++h) {
@@ -106,7 +110,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[RW][D / 16],
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const float4 b4 = *reinterpret_cast<const float4*>(
-          B + sw<D>(x, 4 * (e + 16 * cc)));
+          B + sw<W>(x, 4 * (e + 16 * cc)));
 #pragma unroll
       for (int k = 0; k < RW; ++k) {
         acc[k][4 * cc] = fmaf(av[k], b4.x, acc[k][4 * cc]);

@@ -11,7 +11,7 @@
 //
 // Contract: q, out, dout (B, hq, Sq, d) and k, v (B, hkv, Skv, d),
 // contiguous, of one dtype (bf16: d any multiple of 8 up to 256, read and
-// written at its true width; f32: d 64 or 128); lse (B, hq, Sq) is the
+// written at its true width; f32: d 64, 128 or 256); lse (B, hq, Sq) is the
 // forward's natural-log LSE in f32. Causal rows sit at position row + Skv -
 // Sq. Writes dq like q, and dk, dv like k, summed over the GQA group of
 // each kv head. The masks are the forward's (flash_fwd.cu): the window (row
@@ -98,9 +98,10 @@
 // f32 design (CUDA-core FMAs, never TF32; the f32 gate is 2e-5): the split
 // backward of _bwd_dq_kernel/_bwd_dkv_kernel, deterministic, three
 // kernels (the f32 path below): flash_bwd_dkv_f32, one block per (64-row kv
-// tile and a run of its q tiles, cut at the multiples of
-// FLASH_BWD_F32_SPLIT, q head, batch) into slots of its own; flash_bwd_dq_f32, the same over a q-major
-// list; flash_bwd_post_f32, the slots summed in a fixed order.
+// tile, 32-row at head_dim 256, and a run of its q tiles, cut at the
+// multiples of FLASH_BWD_F32_SPLIT's rows, q head, batch) into slots of its
+// own; flash_bwd_dq_f32, the same over a q-major list; flash_bwd_post_f32,
+// the slots summed in a fixed order.
 //
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
@@ -114,7 +115,9 @@
     !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_BF16_WIDE_BLOCK_M) || \
     !defined(TFA_BWD_BF16_WIDE_BLOCK_N) ||                                \
     !defined(TFA_BWD_BF16_WIDE_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) || \
-    !defined(TFA_BWD_F32_BLOCK_N) || !defined(TFA_BWD_F32_THREADS)
+    !defined(TFA_BWD_F32_BLOCK_N) || !defined(TFA_BWD_F32_THREADS) ||    \
+    !defined(TFA_BWD_F32_WIDE_BLOCK_M) ||                                 \
+    !defined(TFA_BWD_F32_WIDE_BLOCK_N) || !defined(TFA_BWD_F32_WIDE_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
 
@@ -1146,13 +1149,33 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
 // body). One block takes
 // 231,680 bytes of shared memory at head_dim 128 (K and V of a tile and two
 // stages of q and dout are 192 KB in f32), so an SM holds one block of 8
-// warps; the ring hides the loads' latency instead.
+// warps; the ring hides the loads' latency instead. At head_dim 256 (the
+// wide instances, BwdF32Tiles<256>) two 64-row tiles that stay would be
+// 128 KiB and one stage of two more as much, so the tiles are 32 rows on
+// both sides in the same ring (205,952 bytes): the score tiles keep 4 x 2
+// outputs a thread, dK and dV 4 x 16 (64, as at 128), and dQ's threads
+// split its 256 columns in two parts of 128, 4 x 8 a thread.
 
-constexpr int FT = TFA_BWD_F32_BLOCK_M;      // rows of a tile, both sides
-constexpr int FTHREADS = TFA_BWD_F32_THREADS;
 static_assert(TFA_BWD_F32_BLOCK_M == 64 && TFA_BWD_F32_BLOCK_N == 64 &&
-                  FTHREADS == 256,
-              "two halves of 128 threads over 64 x 64 score tiles");
+                  TFA_BWD_F32_WIDE_BLOCK_M == 32 &&
+                  TFA_BWD_F32_WIDE_BLOCK_N == 32 &&
+                  TFA_BWD_F32_THREADS == 256 &&
+                  TFA_BWD_F32_WIDE_THREADS == 256,
+              "two halves of 128 threads over 64 x 64 (wide: 32 x 32) score "
+              "tiles");
+constexpr int FTHREADS = TFA_BWD_F32_THREADS;
+
+// The f32 tiles at head_dim D: FT rows on both sides (FLASH_BWD_F32, or
+// FLASH_BWD_F32_WIDE above 128). A half's thread (a, g) = (u / 16, u % 16)
+// owns rows RW a + [0, RW) and columns g + 16 [0, CW) of a score tile and
+// rows RW a + [0, RW) of dK or dV; dQ's 256 threads take QP column parts of
+// D / QP, rows 4 (t / 16) + [0, 4) of the part's 4 FT threads.
+template <int D>
+struct BwdF32Tiles {
+  static constexpr int FT =
+      D > 128 ? TFA_BWD_F32_WIDE_BLOCK_M : TFA_BWD_F32_BLOCK_M;
+  static constexpr int RW = FT / 8, CW = FT / 16, QP = 64 / FT;
+};
 
 // The LSE in the log2 domain, or +inf on rows that carry the empty-row
 // sentinel, so that exp2(s - lse2) is 0 there.
@@ -1162,32 +1185,35 @@ __device__ __forceinline__ float lse2_of(float lse) {
 }
 
 // Shared memory of an f32 block, in floats: two tiles that stay (K, V or q,
-// dout), a two-stage ring of two tiles, two 64 x 64 score tiles (P and dS),
+// dout), a two-stage ring of two tiles, two FT x FT score tiles (P and dS),
 // and the rows: for each ring stage and for the tiles that stay, three of
-// 64 (LSE, delta, ids; or ids).
+// FT (LSE, delta, ids; or ids).
 template <int D>
 struct F32Smem {
+  static constexpr int FT = BwdF32Tiles<D>::FT;
   static constexpr int TILE = FT * D;
   static constexpr int STAY = 0;                 // [2][TILE]
   static constexpr int RING = 2 * TILE;          // [2 stages][2][TILE]
-  static constexpr int P = RING + 4 * TILE;      // [64][64]
-  static constexpr int DS = P + FT * FT;         // [64][64]
-  static constexpr int ROWS = DS + FT * FT;      // [3][3][64]
+  static constexpr int P = RING + 4 * TILE;      // [FT][FT]
+  static constexpr int DS = P + FT * FT;         // [FT][FT]
+  static constexpr int ROWS = DS + FT * FT;      // [3][3][FT]
   static constexpr int TOTAL = ROWS + 9 * FT;
   static constexpr int BYTES = TOTAL * 4;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// The accumulator's rows RW * a + k of a 64 x D slot, row-major
-template <int D, int RW>
+// The accumulator's rows RW * a + k of a slot of W-wide rows, its C / 16
+// columns in chunks e + 16 cc (C = W, or a column part: slot then points at
+// the part's first column), row-major
+template <int W, int RW, int C = W>
 __device__ __forceinline__ void store_slot(float* slot,
-                                           const float (&acc)[RW][D / 16],
+                                           const float (&acc)[RW][C / 16],
                                            int a, int e) {
 #pragma unroll
   for (int k = 0; k < RW; ++k)
 #pragma unroll
-    for (int cc = 0; cc < D / 64; ++cc)
-      *reinterpret_cast<float4*>(slot + (RW * a + k) * D +
+    for (int cc = 0; cc < C / 64; ++cc)
+      *reinterpret_cast<float4*>(slot + (RW * a + k) * W +
                                  4 * (e + 16 * cc)) =
           make_float4(acc[k][4 * cc], acc[k][4 * cc + 1], acc[k][4 * cc + 2],
                       acc[k][4 * cc + 3]);
@@ -1218,6 +1244,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                              int hkv, int q_len, int kv_len, int causal,
                              int window, float scale_log2) {
   using S = F32Smem<D>;
+  constexpr int FT = S::FT;
+  constexpr int RW = BwdF32Tiles<D>::RW, CW = BwdF32Tiles<D>::CW;
   extern __shared__ __align__(16) float fsm[];
   float* ks = fsm + S::STAY;
   float* vs = ks + S::TILE;
@@ -1261,9 +1289,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   if (n > 0) stage_q(0);
   cp_async_commit();
 
-  float acc[8][D / 16];                          // dV (half 0) or dK (half 1)
+  float acc[RW][D / 16];                         // dV (half 0) or dK (half 1)
 #pragma unroll
-  for (int x = 0; x < 8; ++x)
+  for (int x = 0; x < RW; ++x)
 #pragma unroll
     for (int y = 0; y < D / 16; ++y) acc[x][y] = 0.f;
   float* P = fsm + S::P;                         // [q][kv]
@@ -1285,40 +1313,43 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     const int* qids = reinterpret_cast<const int*>(rw + 2 * FT);
 
     // S^T (kv x q) with q folded as it is read, or dP^T
-    float sc[8][4];
-    if (half == 0) score_tile<D, false, true>(sc, ks, qt, scale_log2, a, g);
-    else score_tile<D, false, false>(sc, vs, dot, 1.f, a, g);
+    float sc[RW][CW];
+    if (half == 0)
+      score_tile<D, RW, CW, false, true>(sc, ks, qt, scale_log2, a, g);
+    else
+      score_tile<D, RW, CW, false, false>(sc, vs, dot, 1.f, a, g);
     if (half == 0) {     // P^T, stored as P [q][kv]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CW; ++i) {
         const int qc = g + 16 * i;
         const float l2 = lse2_of(rw[qc]);
-        float p[8];
+        float p[RW];
 #pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int col = kv0 + 8 * a + x;
+        for (int x = 0; x < RW; ++x) {
+          const int col = kv0 + RW * a + x;
           const bool ok = visible(q0 + qc, col, q_len, kv_len, causal,
                                   window, segs ? qids[qc] : 0,
-                                  segs ? kids[8 * a + x] : 0);
+                                  segs ? kids[RW * a + x] : 0);
           p[x] = ok ? exp2f(sc[x][i] - l2) : 0.f;
         }
-        *reinterpret_cast<float4*>(P + sw<FT>(qc, 8 * a)) =
-            make_float4(p[0], p[1], p[2], p[3]);
-        *reinterpret_cast<float4*>(P + sw<FT>(qc, 8 * a + 4)) =
-            make_float4(p[4], p[5], p[6], p[7]);
+#pragma unroll
+        for (int h4 = 0; h4 < RW / 4; ++h4)
+          *reinterpret_cast<float4*>(P + sw<FT>(qc, RW * a + 4 * h4)) =
+              make_float4(p[4 * h4], p[4 * h4 + 1], p[4 * h4 + 2],
+                          p[4 * h4 + 3]);
       }
     }
     __syncthreads();     // P written
     if (half == 1) {     // dS = P (dP - delta), stored [q][kv]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CW; ++i) {
         const int qc = g + 16 * i;
         const float dl = rw[FT + qc];
 #pragma unroll
-        for (int h4 = 0; h4 < 2; ++h4) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(P + sw<FT>(qc, 8 * a + 4 * h4));
-          *reinterpret_cast<float4*>(DS + sw<FT>(qc, 8 * a + 4 * h4)) =
+        for (int h4 = 0; h4 < RW / 4; ++h4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(
+              P + sw<FT>(qc, RW * a + 4 * h4));
+          *reinterpret_cast<float4*>(DS + sw<FT>(qc, RW * a + 4 * h4)) =
               make_float4(p4.x * (sc[4 * h4][i] - dl),
                           p4.y * (sc[4 * h4 + 1][i] - dl),
                           p4.z * (sc[4 * h4 + 2][i] - dl),
@@ -1326,16 +1357,16 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         }
       }
       named_bar(1, 128);  // dS written by the half that reads it
-      accumulate<D, 8, FT>(acc, DS, qt, a, g);   // dK += dS^T q
+      accumulate<D, RW, FT, FT>(acc, DS, qt, a, g);    // dK += dS^T q
     } else {
-      accumulate<D, 8, FT>(acc, P, dot, a, g);   // dV += P^T dout
+      accumulate<D, RW, FT, FT>(acc, P, dot, a, g);    // dV += P^T dout
     }
     __syncthreads();     // stage st, P and dS are no longer read
   }
 
   cp_async_wait<0>();    // an empty range: K and V still in flight
   const size_t slot = ((size_t)item * n_bh + bh) * FT * D;
-  store_slot<D, 8>((half == 0 ? dv_slots : dk_slots) + slot, acc, a, g);
+  store_slot<D, RW>((half == 0 ? dv_slots : dk_slots) + slot, acc, a, g);
 }
 
 template <int D>
@@ -1353,6 +1384,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                             int kv_len, int causal, int window,
                             float scale_log2) {
   using S = F32Smem<D>;
+  constexpr int FT = S::FT;
+  constexpr int RW = BwdF32Tiles<D>::RW, CW = BwdF32Tiles<D>::CW;
+  constexpr int QC = D / BwdF32Tiles<D>::QP;     // dQ columns of a part
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm + S::STAY;
   float* dos = qs + S::TILE;
@@ -1396,13 +1430,14 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   if (n > 0) stage_kv(0);
   cp_async_commit();
 
-  // dQ: rows 4 * (tid / 16) + [0, 4), columns of chunks tid % 16 + 16 c
-  const int a2 = tid / 16, e2 = tid % 16;
-  float acc[4][D / 16];
+  // dQ: column part `part` (QC columns from part * QC), rows 4 * a2 + [0, 4),
+  // columns of chunks e2 + 16 c
+  const int part = tid / (4 * FT), a2 = tid % (4 * FT) / 16, e2 = tid % 16;
+  float acc[4][QC / 16];
 #pragma unroll
   for (int x = 0; x < 4; ++x)
 #pragma unroll
-    for (int y = 0; y < D / 16; ++y) acc[x][y] = 0.f;
+    for (int y = 0; y < QC / 16; ++y) acc[x][y] = 0.f;
   float* PT = fsm + S::P;                        // P^T, then dS^T [kv][q]
   const int* qids = reinterpret_cast<const int*>(qrows + 2 * FT);
 
@@ -1421,38 +1456,41 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     const int* kid = kids(st);
 
     // S (q x kv) with q folded as it is read, or dP
-    float sc[8][4];
-    if (half == 0) score_tile<D, true, false>(sc, qs, kt, scale_log2, a, g);
-    else score_tile<D, false, false>(sc, dos, vt, 1.f, a, g);
+    float sc[RW][CW];
+    if (half == 0)
+      score_tile<D, RW, CW, true, false>(sc, qs, kt, scale_log2, a, g);
+    else
+      score_tile<D, RW, CW, false, false>(sc, dos, vt, 1.f, a, g);
     if (half == 0) {     // P, stored as P^T [kv][q]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CW; ++i) {
         const int kc = g + 16 * i;
-        float p[8];
+        float p[RW];
 #pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int row = q0 + 8 * a + x;
+        for (int x = 0; x < RW; ++x) {
+          const int row = q0 + RW * a + x;
           const bool ok = visible(row, kv0 + kc, q_len, kv_len, causal,
-                                  window, segs ? qids[8 * a + x] : 0,
+                                  window, segs ? qids[RW * a + x] : 0,
                                   segs ? kid[kc] : 0);
-          p[x] = ok ? exp2f(sc[x][i] - lse2_of(qrows[8 * a + x])) : 0.f;
+          p[x] = ok ? exp2f(sc[x][i] - lse2_of(qrows[RW * a + x])) : 0.f;
         }
-        *reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a)) =
-            make_float4(p[0], p[1], p[2], p[3]);
-        *reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a + 4)) =
-            make_float4(p[4], p[5], p[6], p[7]);
+#pragma unroll
+        for (int h4 = 0; h4 < RW / 4; ++h4)
+          *reinterpret_cast<float4*>(PT + sw<FT>(kc, RW * a + 4 * h4)) =
+              make_float4(p[4 * h4], p[4 * h4 + 1], p[4 * h4 + 2],
+                          p[4 * h4 + 3]);
       }
     }
     __syncthreads();     // P^T written
     if (half == 1) {     // dS^T = P^T (dP^T - delta), in place
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CW; ++i) {
         const int kc = g + 16 * i;
 #pragma unroll
-        for (int h4 = 0; h4 < 2; ++h4) {
+        for (int h4 = 0; h4 < RW / 4; ++h4) {
           float4* p4 =
-              reinterpret_cast<float4*>(PT + sw<FT>(kc, 8 * a + 4 * h4));
-          const float* dl = qrows + FT + 8 * a + 4 * h4;
+              reinterpret_cast<float4*>(PT + sw<FT>(kc, RW * a + 4 * h4));
+          const float* dl = qrows + FT + RW * a + 4 * h4;
           float4 x4 = *p4;
           x4.x *= sc[4 * h4][i] - dl[0];
           x4.y *= sc[4 * h4 + 1][i] - dl[1];
@@ -1463,13 +1501,15 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       }
     }
     __syncthreads();     // dS^T written
-    accumulate<D, 4, FT>(acc, PT, kt, a2, e2);       // dQ += dS K
+    accumulate<QC, 4, FT, FT, D>(acc, PT, kt + part * QC, a2,
+                                 e2);            // dQ += dS K
     __syncthreads();     // stage st and dS^T are no longer read
   }
 
   cp_async_wait<0>();    // an empty range: q and dout still in flight
-  store_slot<D, 4>(dq_slots + ((size_t)item * n_bh + bh) * FT * D, acc, a2,
-                   e2);
+  store_slot<D, 4, QC>(
+      dq_slots + ((size_t)item * n_bh + bh) * FT * D + part * QC, acc, a2,
+      e2);
 }
 
 // One thread per float4 of dq, then of dk, then of dv: the sum of its
@@ -1485,7 +1525,7 @@ __global__ void __launch_bounds__(256)
                               float4* __restrict__ dv, int batch, int hq,
                               int hkv, int q_len, int kv_len,
                               float sm_scale) {
-  constexpr int C4 = D / 4;
+  constexpr int C4 = D / 4, FT = BwdF32Tiles<D>::FT;
   const long n_dq = (long)batch * hq * q_len * C4;
   const long n_kv = (long)batch * hkv * kv_len * C4;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1535,6 +1575,10 @@ struct F32Args {
 // stages: 1 the dq kernel, 2 the dk/dv kernel, 4 the post.
 template <int D>
 cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
+  constexpr int FT = BwdF32Tiles<D>::FT;
+  if (a.kv_items < (a.kv_len + FT - 1) / FT ||
+      a.q_items < (a.q_len + FT - 1) / FT)
+    return cudaErrorInvalidValue;
   const int smem = F32Smem<D>::BYTES;
   const int n_bh = a.batch * a.hq;
   if (stages & 1) {
@@ -1592,17 +1636,18 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // kv_table is the (3, ceil(kv_len / R)) table of 64-row q tiles followed
 // by its dQ chain (base, pos, chain lengths). dtype 1 (f32): `stages` 1
 // the dq kernel (q_table: the q-major work list of q_items items over
-// 64-row tiles, ops/flash_bwd.py::f32_work; into dq_acc, q_items x batch x
-// hq slots of 64 x head_dim f32), 2 the dk/dv kernel (kv_table: the
+// 64-row tiles, 32-row at head_dim 256, ops/flash_bwd.py::f32_work; into
+// dq_acc, q_items x batch x hq slots of a tile's rows x head_dim f32), 2 the
+// dk/dv kernel (kv_table: the
 // kv-major work list of kv_items items; into dk_acc and dv_acc, kv_items x
 // batch x hq slots each), 4 the post (dq, dk, dv from the slots); every
 // slot is written; delta is an input, rowsum(dout * out). q_seg and kv_seg
 // are both null or both set; window 0 is none. head_dim: bf16 any multiple
 // of 8 up to 256, read and written at its true width by the instance
 // flash_width(head_dim, narrow) picks (hopper.cuh; dq_acc, the counters and
-// the slots at that instance's tile columns, 64, 128 or 256); f32 64 or
-// 128. The
-// caller has checked shapes, contiguity and 16-byte alignment.
+// the slots at that instance's tile columns, 64, 128 or 256); f32 64, 128
+// or 256. The caller has checked shapes, contiguity and 16-byte
+// alignment.
 extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* qs, void* lse2, void* delta,
@@ -1637,9 +1682,7 @@ extern "C" int tfa_flash_bwd(
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
-    if (kv_items < (kv_len + FT - 1) / FT || q_items < (q_len + FT - 1) / FT)
-      return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
     const F32Args a{static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),
@@ -1653,8 +1696,12 @@ extern "C" int tfa_flash_bwd(
                     static_cast<float*>(dk), static_cast<float*>(dv), batch,
                     hq, hkv, q_len, kv_len, causal, window, scale_log2,
                     sm_scale};
-    return (int)(head_dim == 128 ? launch_f32<128>(a, stages, s)
-                                 : launch_f32<64>(a, stages, s));
+    switch (head_dim) {
+      case 64: return (int)launch_f32<64>(a, stages, s);
+      case 128: return (int)launch_f32<128>(a, stages, s);
+      case 256: return (int)launch_f32<256>(a, stages, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1669,10 +1716,11 @@ extern "C" int tfa_flash_bwd_bf16_smem(int head_dim) {
   return -1;
 }
 
-// The dynamic shared memory of an f32 block (both kernels) at head_dim 64
-// or 128; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
+// The dynamic shared memory of an f32 block (both kernels) at head_dim 64,
+// 128 or 256; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
 // bwd_f32_smem_bytes to it when it loads this library.
 extern "C" int tfa_flash_bwd_f32_smem(int head_dim) {
+  if (head_dim == 256) return F32Smem<256>::BYTES;
   if (head_dim == 128) return F32Smem<128>::BYTES;
   if (head_dim == 64) return F32Smem<64>::BYTES;
   return -1;

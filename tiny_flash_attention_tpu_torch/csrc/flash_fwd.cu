@@ -19,11 +19,12 @@
 // 1 f32. head_dim: bf16 any multiple of 8 up to 256, read and written at
 // its true width by the instance flash_width(head_dim, narrow) picks
 // (hopper.cuh: 64, 80, 96, 128 or 256; narrow 0 takes 64, 128 or 256); f32
-// 64 or 128. q_seg, kv_seg, tile_lo, tile_order and seq_lens may each be
-// null (FwdMasks); tile_lo and tile_order hold one int per q tile of the
-// bf16 instance's tiles (the wide instance's kv tiles are 64 rows: its
-// tile_lo counts those; the f32 instance takes
-// neither: its work list holds the pruned ranges and their order). work,
+// 64, 128 or 256 (the wide instance's tiles, F32Tiles<256>). q_seg,
+// kv_seg, tile_lo, tile_order and seq_lens may each be null (FwdMasks);
+// tile_lo and tile_order hold one int per q tile of the bf16 instance's
+// tiles (the wide instance's kv tiles are 64 rows: its tile_lo counts
+// those; the f32 instance takes neither: its work list holds the pruned
+// ranges and their order). work,
 // n_items, partials, arrivals: the f32 instance's runs and merge workspace
 // (F32Runs in flash_fwd.cuh; ops/flash.py::fwd_f32_work), unused in bf16.
 // window: 0 for none, else >= 1 with causal and without seq_lens. The
@@ -68,26 +69,30 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_f32<128, kNone>(q, k, v, o, lse, mk, none, runs,
-                                       batch, hq, hkv, q_len, kv_len, causal,
-                                       window, scale_log2, s);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_f32<64, kNone>(q, k, v, o, lse, mk, none, runs,
-                                      batch, hq, hkv, q_len, kv_len, causal,
-                                      window, scale_log2, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const auto launch = [&](auto width) {
+    return (int)launch_f32<decltype(width)::value, kNone>(
+        q, k, v, o, lse, mk, none, runs, batch, hq, hkv, q_len, kv_len,
+        causal, window, scale_log2, s);
+  };
+  switch (head_dim) {
+    case 64: return launch(std::integral_constant<int, 64>());
+    case 128: return launch(std::integral_constant<int, 128>());
+    case 256: return launch(std::integral_constant<int, 256>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The dynamic shared memory one block of the instance for dtype (0 bf16,
-// 1 f32) and head_dim (64, 128 or, bf16, 256: the tiles' columns, which the
-// bf16 instances of width 80 and 96 share with 128) takes; -1 for any
+// 1 f32) and head_dim (64, 128 or 256: the tiles' columns, which the bf16
+// instances of width 80 and 96 share with 128) takes; -1 for any
 // other. ops/flash.py holds ops/configs.py::fwd_smem_bytes to it when it
 // loads this library.
 extern "C" int tfa_flash_fwd_smem(int dtype, int head_dim) {
   if (dtype == 0 && head_dim == 256) return FwdSmem<256, false>::ALLOC;
   if (dtype == 0 && head_dim == 128) return FwdSmem<128, false>::ALLOC;
   if (dtype == 0 && head_dim == 64) return FwdSmem<64, false>::ALLOC;
+  if (dtype == 1 && head_dim == 256) return f32_smem_bytes<256, kNone>();
   if (dtype == 1 && head_dim == 128) return f32_smem_bytes<128, kNone>();
   if (dtype == 1 && head_dim == 64) return f32_smem_bytes<64, kNone>();
   return -1;

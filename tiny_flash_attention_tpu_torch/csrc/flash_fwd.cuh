@@ -194,6 +194,11 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 //     head_dim 128), so a row's max and sum reduce over 16 lanes and its
 //     rescale stays in the thread. P goes to shared memory transposed
 //     (P^T, kv x q), swizzled.
+//   * head_dim 256 (the wide instance, F32Tiles<256>): q tiles of 64 rows
+//     and kv tiles of 32, the same threads over a 64 x 32 score tile, S at
+//     4 rows x 2 columns and O at 4 rows x 16 columns a thread (64
+//     registers, as at 128): a 128-row q tile alone would be 128 KiB and
+//     two 64-row K/V stages 256 KiB, over the block's 227 KB.
 //   * K and V stream through a two-stage ring: tile t + 1's copies
 //     (cp.async) are issued as tile t's products start and waited for at
 //     the top of step t + 1, two barriers a step. Quantized, tile t + 1's
@@ -202,27 +207,45 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 //     scales ride the ring by cp.async.
 //   * shared memory (F32Layout): q (scaled by scale_log2 in place once it
 //     lands), two K/V stages, P^T, and each stage's ids (quantized, its k
-//     and v scales): 229,888 bytes at head_dim 128 (230,912 quantized), one
-//     block an SM.
+//     and v scales): 229,888 bytes at head_dim 128 (230,912 quantized),
+//     205,056 at 256, one block an SM.
 
-constexpr int FM = TFA_FWD_F32_BLOCK_M;
-constexpr int FN = TFA_FWD_F32_BLOCK_N;
+#if !defined(TFA_FWD_F32_WIDE_BLOCK_M) || !defined(TFA_FWD_F32_WIDE_BLOCK_N) || \
+    !defined(TFA_FWD_F32_WIDE_THREADS)
+#error "tile sizes are passed by the build (ops/configs.py)"
+#endif
+
 constexpr int FTHREADS = TFA_FWD_F32_THREADS;
-// thread t owns rows 8 (t / 16) + [0, 8) and columns t % 16 + 16 * [0, n)
-static_assert(FM == 128 && FN == 64 && FTHREADS == 256,
-              "the f32 thread map is 16 x 16 threads over a 128 x 64 tile");
+static_assert(FTHREADS == 256 && TFA_FWD_F32_WIDE_THREADS == FTHREADS,
+              "the f32 thread map is 16 x 16 threads");
+
+// The f32 tiles at head_dim D: FM q rows and FN kv rows (FLASH_FWD_F32, or
+// FLASH_FWD_F32_WIDE above 128); thread t owns rows RW (t / 16) + [0, RW)
+// and columns t % 16 + 16 * [0, CW).
+template <int D>
+struct F32Tiles {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int FM =
+      WIDE ? TFA_FWD_F32_WIDE_BLOCK_M : TFA_FWD_F32_BLOCK_M;
+  static constexpr int FN =
+      WIDE ? TFA_FWD_F32_WIDE_BLOCK_N : TFA_FWD_F32_BLOCK_N;
+  static constexpr int RW = FM / 16, CW = FN / 16;
+  static_assert(WIDE ? FM == 64 && FN == 32 : FM == 128 && FN == 64,
+                "16 x 16 threads over a 128 x 64 (or, wide, 64 x 32) tile");
+};
 
 // The f32 body's shared memory, in floats: q [FM][D], two stages of K and
 // V [FN][D], P^T [FN][FM], and each stage's rows [ROWS][FN] (kv ids;
 // quantized, also the k and v scales).
 template <int D, int FMT>
 struct F32Layout {
+  static constexpr int FM = F32Tiles<D>::FM, FN = F32Tiles<D>::FN;
   static constexpr int ROWS = FMT == kNone ? 1 : 3;
   static constexpr int Q = 0;
   static constexpr int KV = FM * D;
   static constexpr int PT = KV + 4 * FN * D;
-  static constexpr int RW = PT + FN * FM;
-  static constexpr int BYTES = (RW + 2 * ROWS * FN) * 4;
+  static constexpr int ROWS_AT = PT + FN * FM;
+  static constexpr int BYTES = (ROWS_AT + 2 * ROWS * FN) * 4;
   // and one static int: the merge's arrival flag
   static_assert(BYTES + 4 <= 232448, "a block has 227 KB of shared memory");
 };
@@ -235,11 +258,11 @@ constexpr int f32_smem_bytes() {
 }
 
 // The f32 launch's work list (ops/flash.py::fwd_f32_work: n_items runs
-// over the q tiles of FM rows, then each item's slot, fwd_f32_slots) and
-// its merge workspace: partials, a slot x batch x hq array of FM x (D + 2)
-// f32 (o, then m, then l), for the items of tiles of more than one run;
-// arrivals, one zeroed int per (batch, q head, q tile), left at 0. Both
-// may be null where every tile is one run.
+// over the q tiles of FM rows, F32Tiles<D>, then each item's slot,
+// fwd_f32_slots) and its merge workspace: partials, a slot x batch x hq
+// array of FM x (D + 2) f32 (o, then m, then l), for the items of tiles of
+// more than one run; arrivals, one zeroed int per (batch, q head, q tile),
+// left at 0. Both may be null where every tile is one run.
 struct F32Runs {
   const int* work;
   int n_items;
@@ -258,13 +281,15 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                          float scale_log2, int window) {
   constexpr bool QUANT = FMT != kNone;
   constexpr int C4 = D / 4, C16 = D / 16;        // 16-byte chunks a row
+  constexpr int FM = F32Tiles<D>::FM, FN = F32Tiles<D>::FN;
+  constexpr int RW = F32Tiles<D>::RW, CW = F32Tiles<D>::CW;
   using L = F32Layout<D, FMT>;
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm + L::Q;
   float* pt = fsm + L::PT;
   auto kst = [&](int st) { return fsm + L::KV + st * 2 * FN * D; };
   auto vst = [&](int st) { return fsm + L::KV + (st * 2 + 1) * FN * D; };
-  auto rows = [&](int st) { return fsm + L::RW + st * L::ROWS * FN; };
+  auto rows = [&](int st) { return fsm + L::ROWS_AT + st * L::ROWS * FN; };
 
   const Work wk(runs.work, runs.n_items);
   const int n_bh = batch * hq;
@@ -292,11 +317,13 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   const bool mask_all = segs || (mk.seq_lens && q0 + FM > row_end);
   const int* kv_ids = segs ? mk.kv_seg + (size_t)b * kv_len : nullptr;
   const size_t scale_head = (size_t)(b * hkv + kvh) * sc.ld;
-  int qid[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int qid[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) qid[i] = 0;
   if (segs) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = q0 + 8 * a + i;
+    for (int i = 0; i < RW; ++i) {
+      const int row = q0 + RW * a + i;
       if (row < q_len) qid[i] = mk.q_seg[(size_t)b * q_len + row];
     }
   }
@@ -364,10 +391,10 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     store_payload(0);
   }
 
-  float acc[8][D / 16];
-  float m_run[8], l_run[8];
+  float acc[RW][D / 16];
+  float m_run[RW], l_run[RW];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RW; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
 #pragma unroll
@@ -395,14 +422,14 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     }
     const float* rw = rows(st);
 
-    float s[8][4];
-    score_tile<D, false, false>(s, qs, kst(st), 1.f, a, g);
+    float s[RW][CW];
+    score_tile<D, RW, CW, false, false>(s, qs, kst(st), 1.f, a, g);
     if constexpr (QUANT) {  // s *= kscale of its column, before the mask
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CW; ++j) {
         const float f = rw[FN + g + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s[i][j] *= f;
+        for (int i = 0; i < RW; ++i) s[i][j] *= f;
       }
     }
     if (mask_all || kv0 + FN > col_end ||
@@ -410,10 +437,10 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         (WINDOW && kv0 < q0 + FM + offset - window)) {
       const int* kid = reinterpret_cast<const int*>(rw);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RW; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = kv0 + g + 16 * j, row = q0 + 8 * a + i;
+        for (int j = 0; j < CW; ++j) {
+          const int col = kv0 + g + 16 * j, row = q0 + RW * a + i;
           const bool ok = col < col_end && row < row_end &&
                           (!causal || col <= row + offset) &&
                           (!WINDOW || col > row + offset - window) &&
@@ -423,10 +450,10 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     }
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RW; ++i) {
       float mx = m_run[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < CW; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
       for (int w = 1; w < 16; w <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
@@ -434,7 +461,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CW; ++j) {
         const float p = exp2f(s[i][j] - mx) * keep;
         rs += p;
         // quantized: l sums the bare p, PV takes p * vscale of its column
@@ -446,20 +473,20 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, 8 * a)) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, 8 * a + 4)) =
-          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
-    }
+    for (int j = 0; j < CW; ++j)
+#pragma unroll
+      for (int h = 0; h < RW / 4; ++h)
+        *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, RW * a + 4 * h)) =
+            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
+                        s[4 * h + 3][j]);
     __syncthreads();   // P^T written
-    accumulate<D, 8, FM>(acc, pt, vst(st), a, g);
+    accumulate<D, RW, FM, FN>(acc, pt, vst(st), a, g);
     if (it + 1 < n) store_payload((it + 1) & 1);
   }
   cp_async_wait<0>();  // a run of no tiles: q still in flight
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int w = 1; w < 16; w <<= 1)
       l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], w);
@@ -476,8 +503,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   if (n_runs > 1) {
     float* part = slot(item);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = 8 * a + i;
+    for (int i = 0; i < RW; ++i) {
+      const int r = RW * a + i;
 #pragma unroll
       for (int cc = 0; cc < D / 64; ++cc)
         *reinterpret_cast<float4*>(part + r * D + 4 * (g + 16 * cc)) =
@@ -506,8 +533,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   float* lg = lse + (size_t)bh * q_len;
   const int own = item - first;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * a + i;
+  for (int i = 0; i < RW; ++i) {
+    const int r = RW * a + i;
     float mx = m_run[i];
     for (int x = 0; x < n_runs; ++x)
       if (x != own) mx = fmaxf(mx, __ldcg(slot(first + x) + FM * D + r));
@@ -555,6 +582,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        const F32Runs& runs, int batch, int hq, int hkv,
                        int q_len, int kv_len, int causal, int window,
                        float scale_log2, cudaStream_t stream) {
+  constexpr int FM = F32Tiles<D>::FM;
   const long blocks = (long)runs.n_items * batch * hq;
   if (runs.work == nullptr || runs.n_items < (q_len + FM - 1) / FM ||
       blocks > 0x7FFFFFFFL)

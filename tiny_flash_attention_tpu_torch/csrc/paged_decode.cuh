@@ -85,27 +85,37 @@
 // ps. page_indices may be a column slice of a wider table: its row stride
 // is an argument. page_size is 16 or a multiple of 32; head_dim 64, 80, 96
 // or 128 (every row a multiple of 16 bytes, so bulk copies move it), and
-// 256 over bf16 and int8 pages: a warp's 32-token stage of bf16 pages is
-// then 32 KiB (the block's rings 128 KiB, one block an SM), each lane
-// scores 32 elements of a row in four 16-byte pieces and owns 8
-// contiguous output columns; the group's q stays in shared memory above
-// G = 2 (G * 32 floats). f32 pages at 256 would need 64 KiB a warp, 256 KiB
-// for the four: they are not compiled. At 256 G stops at 4 (a G = 8
+// 256: a warp's 32-token stage of bf16 pages is then 32 KiB (the block's
+// rings 128 KiB, one block an SM), each lane scores 32 elements of a row in
+// four 16-byte pieces and owns 8 contiguous output columns; the group's q
+// stays in shared memory above G = 2 (G * 32 floats). f32 pages need 64
+// KiB a warp there, 256 KiB for four, so their blocks take
+// TFA_DECODE_F32_WIDE_WARPS warps (`decode_warps`): fewer chunks in flight
+// a block, each split walked by fewer warps. At 256 G stops at 4 (a G = 8
 // instance spilled 28 KB a thread): ops/dims.py::decode_group covers a
 // group of 8 by two row blocks of 4, which read the same pages, the second
 // from L2.
 
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
-#if !defined(TFA_DECODE_WARPS)
-#error "the warp count is passed by the build (ops/configs.py)"
+#if !defined(TFA_DECODE_WARPS) || !defined(TFA_DECODE_F32_WIDE_WARPS)
+#error "the warp counts are passed by the build (ops/configs.py)"
 #endif
 
 namespace {
 
-constexpr int WARPS = TFA_DECODE_WARPS;
+// Warps a block: TFA_DECODE_WARPS, or TFA_DECODE_F32_WIDE_WARPS over f32
+// pages at head_dim 256, whose 32-token stage is 64 KiB a warp (four would
+// need 256 KiB of rings)
+template <typename P, int D>
+__host__ __device__ constexpr int decode_warps() {
+  return sizeof(P) == 4 && D > 128 ? TFA_DECODE_F32_WIDE_WARPS
+                                   : TFA_DECODE_WARPS;
+}
 constexpr int CHUNK = 32;  // tokens per warp step
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -287,6 +297,7 @@ __host__ __device__ constexpr int decode_stage_bytes() {
 // the rings).
 template <typename P, int D, int G>
 __host__ __device__ constexpr int decode_smem_bytes() {
+  constexpr int WARPS = decode_warps<P, D>();
   return WARPS * decode_stages<P>() * decode_stage_bytes<P, D>() +
          G * D * 4 + WARPS * CHUNK * G * 4 + WARPS * decode_stages<P>() * 8;
 }
@@ -294,7 +305,7 @@ __host__ __device__ constexpr int decode_smem_bytes() {
 // T: q and out dtype; P: page element type (T, or int8_t for int8 pages);
 // L: the page layout; RING: the sliding-window ring walk (window > 0).
 template <typename T, typename P, int D, int G, bool RING, typename L>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     paged_decode_kernel(const T* __restrict__ q, const L pages,
                         const int* __restrict__ lengths,
                         const int* __restrict__ page_indices, int pi_stride,
@@ -303,6 +314,7 @@ __global__ void __launch_bounds__(WARPS * 32)
                         float* ws, int* arrivals, int hkv, int qblocks,
                         int window, float scale_log2) {
   constexpr bool QUANT = sizeof(P) == 1;
+  constexpr int WARPS = decode_warps<P, D>();
   constexpr int STAGES = decode_stages<P>();
   constexpr int SB = decode_stage_bytes<P, D>();
   constexpr bool STRIDED = D % 64 != 0;      // PV columns lane + 32 e
@@ -667,7 +679,8 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
     static bool smem_set[kMaxDevices] = {};                                  \
     const cudaError_t err = raise_smem_limit(kernel, smem, smem_set);       \
     if (err != cudaSuccess) return err;                                      \
-    kernel<<<grid, WARPS * 32, smem, stream>>>(                              \
+    constexpr int threads = decode_warps<P, D>() * 32;                       \
+    kernel<<<grid, threads, smem, stream>>>(                                 \
         static_cast<const T*>(q), pages, static_cast<const int*>(lengths),  \
         static_cast<const int*>(page_indices), pi_stride, pages_per_seq,    \
         pages_per_split, static_cast<T*>(out), static_cast<float*>(lse),    \
@@ -686,6 +699,77 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
   }
 #undef TFA_DECODE_LAUNCH
   return cudaGetLastError();
+}
+
+// Launches over fused pages (the entries of paged_decode.cu and
+// paged_decode_f32.cu): T q's dtype, P the pages' (T, or int8_t).
+template <typename T, typename P, int D>
+cudaError_t launch_fused(int group, const void* q, const void* pages,
+                         const void* lengths, const void* page_indices,
+                         int pi_stride, int pages_per_seq, int splits,
+                         int pages_per_split, void* out, void* lse, void* ws,
+                         void* arrivals, int batch, int hkv, int qblocks,
+                         int num_pages, int page_size, int page_rows,
+                         int window, float scale_log2, cudaStream_t stream) {
+  const FusedPages<P, D> layout{static_cast<const P*>(pages), num_pages,
+                                page_size, page_rows};
+  if (window > 0)
+    return launch_group<T, P, D, true>(
+        group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
+        splits, pages_per_split, out, lse, ws, arrivals, batch, hkv, qblocks,
+        window, scale_log2, stream);
+  return launch_group<T, P, D, false>(
+      group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
+      splits, pages_per_split, out, lse, ws, arrivals, batch, hkv, qblocks,
+      0, scale_log2, stream);
+}
+
+template <typename X>
+struct PageType {
+  using type = X;
+};
+
+// One fused-page launch for q of type T over pages of q's type
+// (quantized 0) or int8 pages (quantized 1), the arguments checked as
+// tfa_paged_decode documents them; a cudaError_t.
+template <typename T>
+cudaError_t fused_decode(const void* q, const void* pages,
+                         const void* lengths, const void* page_indices,
+                         int pi_stride, int pages_per_seq, int splits,
+                         int pages_per_split, void* out, void* lse, void* ws,
+                         void* arrivals, int batch, int hq, int hkv,
+                         int qblocks, int num_pages, int page_size,
+                         int page_rows, int head_dim, int window,
+                         float scale_log2, int quantized,
+                         cudaStream_t stream) {
+  if (batch <= 0 || hkv <= 0 || qblocks <= 0 || hq % (hkv * qblocks) != 0 ||
+      page_size <= 0 || (page_size != 16 && page_size % 32) ||
+      pages_per_seq <= 0 ||
+      window < 0 || window > pages_per_seq * page_size || splits < 1 ||
+      pages_per_split < 1 ||
+      (splits > 1 && (ws == nullptr || arrivals == nullptr)) ||
+      (quantized ? page_rows <= 2 * page_size : page_rows != 2 * page_size))
+    return cudaErrorInvalidValue;
+  const int group = hq / (hkv * qblocks);
+  const auto launch = [&](auto page, auto width) {
+    return launch_fused<T, typename decltype(page)::type,
+                        decltype(width)::value>(
+        group, q, pages, lengths, page_indices, pi_stride, pages_per_seq,
+        splits, pages_per_split, out, lse, ws, arrivals, batch, hkv,
+        qblocks, num_pages, page_size, page_rows, window, scale_log2,
+        stream);
+  };
+  const auto widths = [&](auto page) {
+    switch (head_dim) {
+      case 64: return launch(page, std::integral_constant<int, 64>());
+      case 80: return launch(page, std::integral_constant<int, 80>());
+      case 96: return launch(page, std::integral_constant<int, 96>());
+      case 128: return launch(page, std::integral_constant<int, 128>());
+      case 256: return launch(page, std::integral_constant<int, 256>());
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  return quantized ? widths(PageType<int8_t>()) : widths(PageType<T>());
 }
 
 }  // namespace

@@ -69,6 +69,16 @@ FLASH_NARROW_PRODUCTS = True
 # converted into its stage). Shared memory (`fwd_smem_bytes`): 229,888
 # bytes at head_dim 128, 230,912 quantized; one block an SM.
 FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
+# The wide f32 instance (head dims in (128, 256], tiles of 256 columns): a
+# 128-row q tile alone is 128 KiB of f32 there and two 64-row K/V stages 256
+# KiB, so its q tiles are 64 rows and its kv tiles 32, in the same
+# two-stage ring (q 64 KiB, K/V 128 KiB, P^T 8 KiB: 205,056 bytes); a thread
+# holds S at 4 rows x 2 columns and O at 4 rows x 16 columns (64 registers,
+# as the 128 instance's 8 x 8). Its runs start from as many kv columns as
+# FLASH_FWD_F32_SPLIT's (`fwd_f32_split`); a merge slot, 64 x 258 floats,
+# is about the 128 instance's 128 x 130, so FLASH_FWD_F32_MAX_SLOTS keeps
+# the workspace under 70 MB at either width.
+FLASH_FWD_F32_WIDE = TileConfig(block_m=64, block_n=32, threads=256)
 FLASH_FWD_F32_SPLIT = 5
 FLASH_FWD_F32_SPLIT_BELOW = 264
 FLASH_FWD_F32_MAX_SLOTS = 1056
@@ -96,7 +106,7 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
         bars = 3 + (stages == 2) + quantized
         return (m * d * 2 + stages * (2 * n * d * 2 + n * 4)
                 + (1 + bars * stages) * 8 + 1024)
-    if cfg is FLASH_FWD_F32:
+    if cfg is FLASH_FWD_F32 or cfg is FLASH_FWD_F32_WIDE:
         # q, two stages of K and V, P^T (kv x q), all f32; per stage the
         # kv ids and, quantized, the k and v scales
         return ((m * d + 4 * n * d + n * m) * 4
@@ -119,6 +129,11 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
 # H100's 132; chip_smoke.py's sweep there (`decode_split_sweep`, PERF.md)
 # found 16 splits of 4 pages faster than 22 of 3 and 32 of 2.
 PAGED_DECODE_WARPS = 4
+# f32 pages at head_dim 256: a warp's 32-token stage of f32 K and V is 64
+# KiB, so a block of four would need 256 KiB; it takes
+# PAGED_DECODE_F32_WIDE_WARPS warps (196,608 bytes of rings at 3) and one
+# block an SM.
+PAGED_DECODE_F32_WIDE_WARPS = 3
 PAGED_DECODE_SPLIT_TOKENS = 512
 
 
@@ -231,6 +246,25 @@ def bwd_smem_bytes(head_dim: int) -> int:
 # bytes at head_dim 128, one block an SM.
 FLASH_BWD_F32 = TileConfig(block_m=64, block_n=64, threads=256)
 FLASH_BWD_F32_SPLIT = 8
+# The wide f32 instances (head dims in (128, 256]): two 64-row tiles that
+# stay are 128 KiB of f32 at 256 and one stage of two more as much, so the
+# tiles are 32 rows on both sides in the same two-stage ring (205,952
+# bytes); a half's dK or dV is 4 rows x 16 columns a thread (64 registers,
+# as at 128), dQ's 256 threads split its columns in two halves of 128. Runs
+# hold as many rows as FLASH_BWD_F32_SPLIT's (`bwd_f32_split`).
+FLASH_BWD_F32_WIDE = TileConfig(block_m=32, block_n=32, threads=256)
+
+
+def bwd_f32_config(head_dim: int) -> TileConfig:
+    """The f32 backward's tiles at the tiles' head_dim (64, 128 or 256)."""
+    return FLASH_BWD_F32_WIDE if head_dim > 128 else FLASH_BWD_F32
+
+
+def bwd_f32_split(head_dim: int) -> int:
+    """The f32 backward's run length in tiles at head_dim: the rows of
+    FLASH_BWD_F32_SPLIT (read at each call) tiles of FLASH_BWD_F32."""
+    return (FLASH_BWD_F32_SPLIT * FLASH_BWD_F32.block_m
+            // bwd_f32_config(head_dim).block_m)
 
 
 def bwd_f32_smem_bytes(head_dim: int) -> int:
@@ -238,9 +272,9 @@ def bwd_f32_smem_bytes(head_dim: int) -> int:
     csrc/flash_bwd.cu `F32Smem` lays it out (the library exports its own,
     `tfa_flash_bwd_f32_smem`, and ops/flash_bwd.py checks that they agree
     when it loads it): two tiles that stay, a two-stage ring of two tiles,
-    the P and dS score tiles, and nine rows of 64 (LSE, delta and ids for
-    each stage and for the tiles that stay), all f32 or int32."""
-    t, d = FLASH_BWD_F32.block_m, head_dim
+    the P and dS score tiles, and nine rows of a tile (LSE, delta and ids
+    for each stage and for the tiles that stay), all f32 or int32."""
+    t, d = bwd_f32_config(head_dim).block_m, head_dim
     return (6 * t * d + 2 * t * t + 9 * t) * 4
 # weight-only quantized matmul, bf16 x (csrc/quant_matmul.cu, on the
 # tensor cores): a block of 4 warps walks tiles of 128 output columns over
@@ -308,9 +342,11 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_FWD_BF16_WIDE", FLASH_FWD_BF16_WIDE),
         f"-DTFA_FWD_BF16_WIDE_STAGES={FLASH_FWD_BF16_WIDE_STAGES}",
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
+        *_tile_defines("TFA_FWD_F32_WIDE", FLASH_FWD_F32_WIDE),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
         *_tile_defines("TFA_BWD_BF16_WIDE", FLASH_BWD_BF16_WIDE),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
+        *_tile_defines("TFA_BWD_F32_WIDE", FLASH_BWD_F32_WIDE),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),
         f"-DTFA_QMM_K_CHUNK={QUANT_MATMUL_K_CHUNK}",
         f"-DTFA_QMM_TC_BLOCK_N={QUANT_MATMUL_TC.block_n}",
@@ -318,6 +354,7 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_QMM_TC_K_STAGE={QUANT_MATMUL_K_STAGE}",
         f"-DTFA_QMM_TC_STAGES={QUANT_MATMUL_STAGES}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
+        f"-DTFA_DECODE_F32_WIDE_WARPS={PAGED_DECODE_F32_WIDE_WARPS}",
         *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
         f"-DTFA_V1_BF16_STAGES={FLASH_V1_BF16_STAGES}",
         f"-DTFA_V1_BF16_Q_TILES={FLASH_V1_BF16_Q_TILES}",

@@ -6,10 +6,10 @@ pad head_dim to whole 128-lane tiles with zero columns
 its decodes pad the q rows of a kv head to a multiple of 8
 (ops/paged_fused.py:503-506, ops/paged.py:287), and each slices the result
 back. The port's kernels compile a few instances (the flash kernels' tiles
-of 64 and 128 columns, and 256 for the bf16 forward over bf16 K/V and the
-bf16 backward; the decodes groups 1, 2, 4 and 8), so the wrappers do the
-same with these plain functions where a kernel cannot read the true shape
-in place:
+of 64 and 128 columns, and 256 for the forward over K/V in q's dtype and
+the backward, bf16 and f32; the decodes groups 1, 2, 4 and 8), so the
+wrappers do the same with these plain functions where a kernel cannot read
+the true shape in place:
 
 - `flash_head_dim`: the one rule. The bf16 forward over bf16 K/V and the
   bf16 backward read and write any head_dim that is a multiple of 8 up to
@@ -17,9 +17,10 @@ in place:
   past column d and their epilogues store only the columns below d, so
   they are handed the tensors as they are. Every other head_dim up to 256
   (not a multiple of 8: a tensor map's row stride is whole 16-byte pieces)
-  is padded to `kernel_head_dim`, and so is every head_dim up to 128 of
-  the f32 instances, the quantized forward and FA1, which have no wide
-  instance yet: above 128 they raise, naming themselves.
+  is padded to `kernel_head_dim`, and so is every head_dim of the f32
+  forward and backward (64, 128 or 256) and up to 128 of the quantized
+  forward and FA1, which have no wide instance yet: above 128 they raise,
+  naming themselves.
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
   the next tile width, 64 below it, 128 up to it, 256 above (the wide
   instances). A zero column adds
@@ -48,11 +49,10 @@ import torch
 import torch.nn.functional as F
 
 # the flash kernels' tile widths (forward, backward, FA1), and the wide
-# instances' of the bf16 forward over bf16 K/V and the bf16 backward
+# instances' of the forward over K/V in q's dtype and the backward
 FLASH_HEAD_DIMS = (64, 128)
 WIDE_HEAD_DIM = 256
-# head dims and q rows a kv head that the decode kernels compile (256 over
-# bf16 and int8 pages only: `decode_head_dim`)
+# head dims and q rows a kv head that the decode kernels compile
 DECODE_HEAD_DIMS = (64, 80, 96, 128, 256)
 DECODE_GROUPS = (1, 2, 4, 8)
 
@@ -83,15 +83,16 @@ def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
     """The head_dim a flash forward or backward kernel is handed for
     tensors of head_dim d: d itself where it reads them in place (bf16
     over bf16 K/V, `reads_in_place`), else `kernel_head_dim(d)`, the
-    width they are padded to (d not a multiple of 8; f32 and quantized
-    K/V, up to 128). Raises NotImplementedError above 256, and for f32 and
-    quantized K/V above 128, naming `what` and the instance."""
-    if dtype == torch.bfloat16 and not quantized:
+    width they are padded to (d not a multiple of 8; f32, 64, 128 or 256;
+    quantized K/V, up to 128). Raises NotImplementedError above 256, and
+    for quantized K/V above 128, naming `what` and the instance."""
+    if quantized:
+        return kernel_head_dim(d, f"{what} over int8/e4m3 K/V")
+    if dtype == torch.bfloat16:
         dk = kernel_head_dim(d, what, wide=True)
         return d if reads_in_place(d) else dk
-    kind = ("over int8/e4m3 K/V" if quantized
-            else f"in {str(dtype).split('.')[-1]}")
-    return kernel_head_dim(d, f"{what} {kind}")
+    return kernel_head_dim(d, f"{what} in {str(dtype).split('.')[-1]}",
+                           wide=True)
 
 
 def pad_head_dim(x: torch.Tensor, dk: int) -> torch.Tensor:
@@ -116,23 +117,16 @@ def unpad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
     return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
-def decode_head_dim(d: int, what: str,
-                    dtype: torch.dtype = torch.bfloat16) -> None:
+def decode_head_dim(d: int, what: str) -> None:
     """Raises NotImplementedError where the decode and append kernels
     compile no instance of head_dim d (their pages are read in place, so
-    they are never padded); `dtype` is q's (decode) or the pages' (append).
-    f32 stops at 128: a warp's 32-token stage of f32 pages alone is 64 KiB
-    at 256, and the block's four warps would need 256 KiB, so neither f32
-    pages nor f32 q (whose pages are f32 or int8) have an instance there."""
+    they are never padded). Every dtype pair takes each of them: at 256 f32
+    pages, whose 32-token stage is 64 KiB a warp, run on blocks of fewer
+    warps (ops/configs.py::PAGED_DECODE_F32_WIDE_WARPS)."""
     if d not in DECODE_HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {d}: {what} takes head_dim {DECODE_HEAD_DIMS} (the "
             f"pages are read in place, never padded)")
-    if d == WIDE_HEAD_DIM and dtype == torch.float32:
-        raise NotImplementedError(
-            f"head_dim {d}: {what} takes f32 up to head_dim 128 (a warp's "
-            f"32-token stage of f32 pages is 64 KiB at {d}); bf16 and int8 "
-            f"pages under bf16 q take {d}")
 
 
 def decode_group(group: int, d: int = 128) -> tuple[int, int]:

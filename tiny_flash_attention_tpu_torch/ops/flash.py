@@ -5,17 +5,18 @@ three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
 csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles,
 64-row kv tiles at the wide instance, head dims above 128; f32: the CUDA
-cores over 128-row q and 64-row kv tiles). A CPU tensor takes the plain
-version (`flash_attention_plain`, the port of `_xla_attention`); a CUDA
-tensor takes the kernel at every shape, the sliding window, segment ids and
-`segment_starts` included, or raises for what the kernel does not do yet
-(head_dim above 256; in f32 and over quantized K/V above 128). The bf16
-kernel over bf16 K/V reads and writes any head_dim that is a multiple of 8
-up to 256 at its true width (the zero columns of JAX's padding to 128
-lanes, which add exact zeros, are TMA's fill past column d); every other
-head_dim, and every head_dim of the f32 and quantized instances (tiles of
-64 and 128 columns), is padded with zero columns to the next tile width and
-the output sliced back (ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
+cores over 128-row q and 64-row kv tiles, 64 and 32 at the wide instance).
+A CPU tensor takes the plain version (`flash_attention_plain`, the port of
+`_xla_attention`); a CUDA tensor takes the kernel at every shape, the
+sliding window, segment ids and `segment_starts` included, or raises for
+what the kernel does not do yet (head_dim above 256; over quantized K/V
+above 128). The bf16 kernel over bf16 K/V reads and writes any head_dim
+that is a multiple of 8 up to 256 at its true width (the zero columns of
+JAX's padding to 128 lanes, which add exact zeros, are TMA's fill past
+column d); every other head_dim, and every head_dim of the f32 instances
+(tiles of 64, 128 and 256 columns) and the quantized ones (64 and 128), is
+padded with zero columns to the next tile width and the output sliced back
+(ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
 handed the kernel (padded only where the forward padded), so the backward
 runs on them and returns gradients at the true head_dim. The f32 instance
 walks a work list (`fwd_f32_work`): each q tile's kv range cut into runs,
@@ -55,8 +56,8 @@ import torch
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, TileConfig,
-    fwd_smem_bytes)
+    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, FLASH_FWD_F32_WIDE,
+    TileConfig, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
     FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, pad_head_dim,
     unpad_head_dim)
@@ -114,13 +115,12 @@ def fwd_config(dtype: torch.dtype, quantized: bool = False,
                head_dim: int = 128) -> TileConfig:
     """The tiles of the forward instance for q's dtype over unquantized or
     quantized (int8/e4m3) K/V at head_dim (each q dtype's design takes
-    both): bf16 over bf16 K/V above 128 takes the wide instance's 64-row kv
-    tiles."""
+    both): over K/V in q's dtype above 128, the wide instance's (bf16:
+    64-row kv tiles; f32: 64-row q and 32-row kv tiles)."""
+    wide = head_dim > FLASH_HEAD_DIMS[-1] and not quantized
     if dtype != torch.bfloat16:
-        return FLASH_FWD_F32
-    if head_dim > FLASH_HEAD_DIMS[-1] and not quantized:
-        return FLASH_FWD_BF16_WIDE
-    return FLASH_FWD_BF16
+        return FLASH_FWD_F32_WIDE if wide else FLASH_FWD_F32
+    return FLASH_FWD_BF16_WIDE if wide else FLASH_FWD_BF16
 
 
 def tile_table(starts, q_len: int, *, causal: bool, block_m: int,
@@ -188,15 +188,17 @@ def run_work(table, split: int):
 
 
 def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
-                  window: Optional[int] = None, starts=None):
+                  window: Optional[int] = None, starts=None,
+                  cfg: TileConfig = FLASH_FWD_F32):
     """The f32 forward's tile table, (3, n) int64 (lo, hi, order): the kv
-    tiles [lo, hi) of each q tile of FLASH_FWD_F32, clamped as the kernels
-    clamp them: causal up to the tile of its last row's position (the
+    tiles [lo, hi) of each q tile of `cfg` (FLASH_FWD_F32, or
+    FLASH_FWD_F32_WIDE above head_dim 128), clamped as the kernels clamp
+    them: causal up to the tile of its last row's position (the
     decode offset; at least one tile, so rows before every column get the
     sentinel), from the tile of its first row's segment start
     (`segment_starts`, as `tile_table`) and of its first row's window
     edge; order, the tiles longest range first."""
-    bm, bn = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
+    bm, bn = cfg.block_m, cfg.block_n
     n_kv = -(-kv_len // bn)
     first = np.arange(-(-q_len // bm), dtype=np.int64) * bm
     offset = kv_len - q_len
@@ -219,19 +221,20 @@ def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
 
 
 def fwd_f32_split(q_len: int, kv_len: int, *, causal: bool,
-                  n_bh: int) -> int:
-    """The f32 forward's run length in kv tiles for a launch of n_bh =
-    batch x q heads, from the shape alone (so `segment_starts` and the
-    window change no cut): every kv tile, one run a q tile, where the q
+                  n_bh: int, cfg: TileConfig = FLASH_FWD_F32) -> int:
+    """The f32 forward's run length in `cfg`'s kv tiles for a launch of
+    n_bh = batch x q heads, from the shape alone (so `segment_starts` and
+    the window change no cut): every kv tile, one run a q tile, where the q
     tiles give at least ops/configs.py::FLASH_FWD_F32_SPLIT_BELOW blocks;
-    else the least S from FLASH_FWD_F32_SPLIT up (both read at each call)
-    whose runs of the q tiles that split take at most
-    FLASH_FWD_F32_MAX_SLOTS partial slots over the n_bh rows (counted on
-    the unpruned causal ranges, which a window or segment_starts only
-    shorten)."""
-    lo, hi = fwd_f32_tiles(q_len, kv_len, causal=causal)[:2]
-    n_kv = -(-kv_len // FLASH_FWD_F32.block_n)
-    first = configs.FLASH_FWD_F32_SPLIT
+    else the least S from the columns of FLASH_FWD_F32_SPLIT tiles of
+    FLASH_FWD_F32 up (both read at each call) whose runs of the q tiles
+    that split take at most FLASH_FWD_F32_MAX_SLOTS partial slots over the
+    n_bh rows (counted on the unpruned causal ranges, which a window or
+    segment_starts only shorten)."""
+    lo, hi = fwd_f32_tiles(q_len, kv_len, causal=causal, cfg=cfg)[:2]
+    n_kv = -(-kv_len // cfg.block_n)
+    first = (configs.FLASH_FWD_F32_SPLIT * FLASH_FWD_F32.block_n
+             // cfg.block_n)
     if lo.size * n_bh >= configs.FLASH_FWD_F32_SPLIT_BELOW or first >= n_kv:
         return max(first, n_kv)   # one run a q tile
     s = np.arange(first, n_kv + 1)[:, None]
@@ -242,14 +245,17 @@ def fwd_f32_split(q_len: int, kv_len: int, *, causal: bool,
 
 def fwd_f32_work(q_len: int, kv_len: int, *, causal: bool,
                  window: Optional[int] = None, starts=None,
-                 split: Optional[int] = None, n_bh: int = 1):
-    """The f32 forward's work list: `run_work` of `fwd_f32_tiles` at runs
-    of `split` kv tiles (default `fwd_f32_split` for n_bh = batch x q
-    heads)."""
+                 split: Optional[int] = None, n_bh: int = 1,
+                 cfg: TileConfig = FLASH_FWD_F32):
+    """The f32 forward's work list at `cfg`'s tiles: `run_work` of
+    `fwd_f32_tiles` at runs of `split` kv tiles (default `fwd_f32_split`
+    for n_bh = batch x q heads)."""
     if split is None:
-        split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh)
+        split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh,
+                              cfg=cfg)
     return run_work(fwd_f32_tiles(q_len, kv_len, causal=causal,
-                                  window=window, starts=starts), split)
+                                  window=window, starts=starts, cfg=cfg),
+                    split)
 
 
 def fwd_f32_slots(flat, m: int):
@@ -457,9 +463,10 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
                           segment_ids=None, window: Optional[int] = None,
                           segment_starts=None):
     """The f32 kernel's run layout and merge order in plain PyTorch: each
-    run of `fwd_f32_work` (FLASH_FWD_F32's tiles, `segment_starts` pruning
-    the ranges) computes its partial from its q tile's rows over its kv
-    tiles' columns, q folded by scale_log2 as the kernel folds it: m, the
+    run of `fwd_f32_work` (the tiles of the instance at q's head_dim,
+    `fwd_config`; `segment_starts` pruning the ranges) computes its
+    partial from its q tile's rows over its kv tiles' columns, q folded by
+    scale_log2 as the kernel folds it: m, the
     run's row max in the log2 domain; l, the sum of p = 2^(s - m) (0 on a
     row the run does not see); o = p v. A tile's runs combine in run order:
     o = sum w o_x / sum w l_x, w = 2^(m_x - max m), LSE = max m ln 2 +
@@ -469,7 +476,8 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
     bs, hq, q_len, d = q.shape
     hkv, kv_len = k.shape[1], k.shape[2]
     group = hq // hkv
-    bm, bn = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
+    cfg = fwd_config(torch.float32, head_dim=d)
+    bm, bn = cfg.block_m, cfg.block_n
     kr = k.repeat_interleave(group, dim=1).float()
     vr = v.repeat_interleave(group, dim=1).float()
     qs = q.float() * in_dtype(sm_scale * LOG2E, torch.float32)
@@ -482,7 +490,7 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
     if isinstance(starts, SegmentTiles):
         starts = starts.starts
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts, n_bh=bs * hq)
+                           starts=starts, n_bh=bs * hq, cfg=cfg)
     _, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
     first = flat[4 * m:]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -577,14 +585,14 @@ def _tiles_for(segment_starts, q_len: int, causal: bool,
 def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     """Holds `fwd_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
-    kernels' own layouts) for both dtypes and every tile width (bf16 over
-    bf16 K/V also the wide one); raises where they differ."""
+    kernels' own layouts) for both dtypes and every tile width (over K/V in
+    q's dtype also the wide one); raises where they differ."""
     smem = (lib.tfa_flash_fwd_quant_smem if quantized
             else lib.tfa_flash_fwd_smem)
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        wide = dtype == torch.bfloat16 and not quantized
-        for d in (*FLASH_HEAD_DIMS, *((WIDE_HEAD_DIM,) if wide else ())):
+        wide = () if quantized else (WIDE_HEAD_DIM,)
+        for d in (*FLASH_HEAD_DIMS, *wide):
             cfg = fwd_config(dtype, quantized, d)
             want = fwd_smem_bytes(cfg, d, quantized)
             if smem(code, d) != want:
@@ -619,14 +627,14 @@ def _flash_fwd_quant_fn():
 
 
 @functools.lru_cache(maxsize=64)
-def _device_fwd_work(q_len, kv_len, causal, window, starts, n_bh, settings,
-                     device):
-    """The f32 forward's work list for n_bh = batch x q heads on the device,
-    each item's merge slot appended (`fwd_f32_slots`): (list, its items,
-    its slots). `settings`, the split settings of ops/configs.py read by
-    the caller, keys the cache."""
+def _device_fwd_work(q_len, kv_len, causal, window, starts, n_bh, cfg,
+                     settings, device):
+    """The f32 forward's work list at `cfg`'s tiles for n_bh = batch x q
+    heads on the device, each item's merge slot appended (`fwd_f32_slots`):
+    (list, its items, its slots). `settings`, the split settings of
+    ops/configs.py read by the caller, keys the cache."""
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts, n_bh=n_bh)
+                           starts=starts, n_bh=n_bh, cfg=cfg)
     slots, n_slots = fwd_f32_slots(flat, m)
     return (torch.as_tensor(np.concatenate([flat, slots]), device=device),
             m, n_slots)
@@ -636,17 +644,19 @@ _fwd_workspaces: dict = {}
 
 
 def fwd_workspace(device, stream: int, n_slots: int, n_bh: int,
-                  n_tiles: int, d: int):
+                  n_tiles: int, d: int,
+                  block_m: int = FLASH_FWD_F32.block_m):
     """(partials f32, arrival counters int32 zeros) of the f32 forward's
-    merge: n_slots x n_bh slots of 128 x (d + 2) floats, one counter per
-    (q tile, q head, batch). One workspace per device and stream, grown to
-    the largest launch and kept (at most FLASH_FWD_F32_MAX_SLOTS slots,
-    `fwd_f32_split`): the kernel leaves the counters at zero, so a call
-    allocates nothing. Launches on one stream run in order, so they share
-    it; another stream gets its own. `stream` is the launch's CUDA stream
-    handle."""
+    merge: n_slots x n_bh slots of block_m x (d + 2) floats (the q tiles'
+    rows: 128, 64 at head_dim 256), one counter per (q tile, q head,
+    batch). One workspace per device and stream, grown to the largest
+    launch and kept (at most FLASH_FWD_F32_MAX_SLOTS slots,
+    `fwd_f32_split`; under 70 MB at either width): the kernel leaves the
+    counters at zero, so a call allocates nothing. Launches on one stream
+    run in order, so they share it; another stream gets its own. `stream`
+    is the launch's CUDA stream handle."""
     key = (str(device), stream)
-    need = n_slots * n_bh * FLASH_FWD_F32.block_m * (d + 2), n_bh * n_tiles
+    need = n_slots * n_bh * block_m * (d + 2), n_bh * n_tiles
     ws = _fwd_workspaces.get(key)
     if ws is None or ws[0].numel() < need[0] or ws[1].numel() < need[1]:
         have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
@@ -680,8 +690,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
     run, every mask but the jagged mode included. bf16 over bf16 K/V reads
     and writes any head_dim that is a multiple of 8 up to 256 in place;
-    any other head_dim runs padded (ops/dims.py::flash_head_dim) and out
-    comes back at the true head_dim."""
+    any other head_dim runs padded (ops/dims.py::flash_head_dim: f32 to 64,
+    128 or 256) and out comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     quantized = k_scales is not None or v_scales is not None
@@ -738,7 +748,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         # work list, not from the tile table
         work, n_items, n_slots = _device_fwd_work(
             q_len, kv_len, bool(causal), window,
-            None if tiles is None else tiles.starts, bs * hq,
+            None if tiles is None else tiles.starts, bs * hq, cfg,
             (configs.FLASH_FWD_F32_SPLIT, configs.FLASH_FWD_F32_SPLIT_BELOW,
              configs.FLASH_FWD_F32_MAX_SLOTS), str(q.device))
         tiles = None
@@ -755,7 +765,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         runs = (None, None, None)
         if work is not None:
             ws = (fwd_workspace(q.device, stream, n_slots, bs * hq,
-                                -(-q_len // cfg.block_m), d)
+                                -(-q_len // cfg.block_m), d, cfg.block_m)
                   if n_slots else (None, None))
             runs = (work.data_ptr(),
                     *(None if t is None else t.data_ptr() for t in ws))

@@ -12,14 +12,14 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V,
-head_dim above 256, in f32 above 128). The bf16 kernels read q, k, v, out
-and do and write dq, dk and dv at any head_dim that is a multiple of 8 up
-to 256 in place (JAX pads its backward to 128 lanes; the kernels' tiles
-take TMA's zeros past the true head_dim instead; above 128 the wide main
-kernel, over 64-row kv tiles); other head dims, and the f32 kernels' (64
-and 128), run padded with zero columns to the next tile width, the
-gradients sliced back (ops/dims.py::flash_head_dim). There is no fallback
-from the card to the plain version.
+head_dim above 256). The bf16 kernels read q, k, v, out and do and write
+dq, dk and dv at any head_dim that is a multiple of 8 up to 256 in place
+(JAX pads its backward to 128 lanes; the kernels' tiles take TMA's zeros
+past the true head_dim instead; above 128 the wide main kernel, over
+64-row kv tiles); other head dims, and the f32 kernels' (64, 128 and,
+over 32-row tiles, 256), run padded with zero columns to the next tile
+width, the gradients sliced back (ops/dims.py::flash_head_dim). There is
+no fallback from the card to the plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -61,7 +61,8 @@ import torch.nn.functional as F
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_BWD_F32, bwd_config, bwd_f32_smem_bytes, bwd_smem_bytes)
+    bwd_config, bwd_f32_config, bwd_f32_smem_bytes, bwd_f32_split,
+    bwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
     FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, kernel_head_dim,
     pad_head_dim, unpad_head_dim)
@@ -267,11 +268,11 @@ def dq_chain(kv_table):
         seen.astype(np.int32)
 
 
-def f32_work(table, split: Optional[int] = None):
-    """The f32 kernels' work list from a (3, n) tile table (`bwd_tiles`):
-    `run_work` at runs of `split` (default: ops/configs.py::
-    FLASH_BWD_F32_SPLIT, read at each call)."""
-    return run_work(table, configs.FLASH_BWD_F32_SPLIT if split is None
+def f32_work(table, split: Optional[int] = None, head_dim: int = 128):
+    """The f32 kernels' work list from a (3, n) tile table (`bwd_tiles` at
+    the tiles of the instance at head_dim): `run_work` at runs of `split`
+    (default: ops/configs.py::bwd_f32_split, read at each call)."""
+    return run_work(table, bwd_f32_split(head_dim) if split is None
                     else split)
 
 
@@ -279,19 +280,20 @@ def f32_slot_sums_plain(q, k, v, out, lse, do, *, causal: bool,
                         sm_scale: float, segment_ids=None,
                         window: Optional[int] = None, segment_starts=None):
     """The f32 kernels' slot layout and sum order in plain PyTorch: each
-    work item of `f32_work` (of the tables at FLASH_BWD_F32's tiles, with
-    `segment_starts` pruning them) computes its q head's contribution from
-    the pairs of its tile and its run of the other side's tiles into a
-    slot of its own (a 64-row tile of f32, like the kernels'); dq sums its
-    q tile's items in range order, dk and dv the GQA group's q heads in
-    head order, each over its kv tile's items in range order. Returns
+    work item of `f32_work` (of the tables at the tiles of the instance at
+    q's head_dim, `bwd_f32_config`, with `segment_starts` pruning them)
+    computes its q head's contribution from the pairs of its tile and its
+    run of the other side's tiles into a slot of its own (a tile of f32,
+    like the kernels'); dq sums its q tile's items in range order, dk and
+    dv the GQA group's q heads in head order, each over its kv tile's
+    items in range order. Returns
     (dq, dk, dv) in q's dtype. A pair outside every item would be lost and
     one in two counted twice, so this holds the work lists to the plain
     backward."""
     bs, hq, q_len, d = q.shape
     hkv, kv_len = k.shape[1], k.shape[2]
     group = hq // hkv
-    t = FLASH_BWD_F32.block_m
+    t = bwd_f32_config(d).block_m
     kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
                           segment_starts=_starts_key(segment_starts),
                           block_m=t, block_n=t)
@@ -311,9 +313,9 @@ def f32_slot_sums_plain(q, k, v, out, lse, do, *, causal: bool,
     ds = p * (torch.matmul(do.float(), vr.transpose(-1, -2)) - delta)
 
     def sums(table, grad):
-        """grad(tile rows, other-side columns) -> (bs, hq, 64, d) slot for
+        """grad(tile rows, other-side columns) -> (bs, hq, t, d) slot for
         every item, summed per tile in range order."""
-        flat, m = f32_work(table)
+        flat, m = f32_work(table, head_dim=d)
         tiles, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
         first = flat[4 * m:]
         res = []
@@ -345,10 +347,10 @@ def f32_slot_sums_plain(q, k, v, out, lse, do, *, causal: bool,
 
 
 @functools.lru_cache(maxsize=64)
-def _device_f32_work(q_len, kv_len, causal, window, starts, split, device):
-    """The f32 work lists on the device: (kv-major list, its items,
-    q-major list, its items)."""
-    t = FLASH_BWD_F32.block_m
+def _device_f32_work(q_len, kv_len, causal, window, starts, t, split,
+                     device):
+    """The f32 work lists at tiles of t rows on the device: (kv-major
+    list, its items, q-major list, its items)."""
     kv_t, q_t = bwd_tiles(q_len, kv_len, causal=causal, window=window,
                           segment_starts=starts, block_m=t, block_n=t)
     (kv_w, kv_n), (q_w, q_n) = f32_work(kv_t, split), f32_work(q_t, split)
@@ -379,7 +381,7 @@ def check_f32_smem(lib: ctypes.CDLL) -> None:
     kernels take (`tfa_flash_bwd_f32_smem`); raises where they differ."""
     smem = lib.tfa_flash_bwd_f32_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    for d in FLASH_HEAD_DIMS:
+    for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
         if smem(d) != bwd_f32_smem_bytes(d):
             raise RuntimeError(
                 f"ops/configs.py::bwd_f32_smem_bytes gives "
@@ -470,9 +472,10 @@ class BwdLaunch:
                 q_len, kv_len, causal, window, starts, cfg.block_m,
                 cfg.block_n, str(q.device))
         else:
+            t = bwd_f32_config(d).block_m
             self.kv_table, kv_n, self.q_table, q_n = _device_f32_work(
-                q_len, kv_len, causal, window, starts,
-                configs.FLASH_BWD_F32_SPLIT, str(q.device))
+                q_len, kv_len, causal, window, starts, t, bwd_f32_split(d),
+                str(q.device))
             items = (kv_n, q_n)
         q, k, v, out, do = (_aligned(t) for t in (q, k, v, out, do))
         lse = _aligned(lse)
@@ -504,11 +507,11 @@ class BwdLaunch:
                     dkv[:n_kv], dkv[n_kv:], acc[n_dq:].view(torch.int32))
             self.turns = bufs[-1]
         else:
-            # rowsum(dout * out); one f32 slot of 64 x d per (work item,
+            # rowsum(dout * out); one f32 slot of t x d per (work item,
             # q head) for each of dq (q-major items), dk and dv (kv-major),
             # every one written by its block
             delta = (do * out).sum(-1)
-            n = bs * hq * FLASH_BWD_F32.block_m * d
+            n = bs * hq * t * d
             kv_n, q_n = items
             slots = torch.empty((q_n + 2 * kv_n) * n, dtype=torch.float32,
                                 device=q.device)

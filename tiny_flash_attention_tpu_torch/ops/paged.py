@@ -9,7 +9,7 @@ page_size, 1). A CPU tensor takes the plain version (`paged_decode_plain`,
 the fused decode's arithmetic over these arrays); a CUDA tensor launches
 csrc/paged_decode_separate.cu, the split decode kernel of
 csrc/paged_decode.cuh over this layout, or raises. It takes head_dim 64,
-80, 96 and 128 and any GQA group, the q rows padded as in
+80, 96, 128 and 256 and any GQA group, the q rows padded as in
 ops/paged_fused.py.
 
 Two divergences from JAX, where its output is unwritten: a length of 0
@@ -148,7 +148,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {k.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel", q.dtype)
+    decode_head_dim(d, "the CUDA decode kernel")
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "

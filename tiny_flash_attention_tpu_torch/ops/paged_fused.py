@@ -14,18 +14,20 @@ token i's scale at [4 * (i // d) + j, i % d]. bf16 pages hold the model
 dtype (bf16 or f32). `fused_paged_decode_attention` attends one new token
 per sequence through a page table; `fused_page_append` writes one token per
 (kv head, sequence) in place (quantized for int8 pages). A CPU tensor takes
-the plain version, a CUDA tensor launches csrc/paged_decode.cu (ports
-`_fused_decode_kernel`, its sliding-window ring mode included) or
-csrc/page_append.cu (ports `_append_kernel`) or raises.
+the plain version, a CUDA tensor launches csrc/paged_decode.cu or, for
+f32 q, csrc/paged_decode_f32.cu (ports `_fused_decode_kernel`, its
+sliding-window ring mode included) or csrc/page_append.cu (ports
+`_append_kernel`) or raises.
 
 The decode kernel splits each sequence's tokens over several blocks
 (page-aligned ranges of the table, `decode_splits`) and merges their
 partial softmax states in split order; `fused_paged_decode_plain(...,
 splits=k)` computes the same partials and merge. Both kernels read rows of
-head_dim 64, 80, 96 or 128 in place (pages are never padded); the decode
-compiles 1, 2, 4 or 8 q rows a kv head and takes any GQA group by padding
-each kv head's q rows to the next of them, or to row blocks of 8 above 8,
-and slicing out and the LSE back (ops/dims.py), as JAX pads them to 8.
+head_dim 64, 80, 96, 128 or 256 in place (pages are never padded); the
+decode compiles 1, 2, 4 or 8 q rows a kv head (4 at 256) and takes any
+GQA group by padding each kv head's q rows to the next of them, or to row
+blocks of 8 (4) above, and slicing out and the LSE back (ops/dims.py), as
+JAX pads them to 8.
 """
 
 from __future__ import annotations
@@ -232,7 +234,7 @@ def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
             f"the CUDA append kernel takes bf16 or f32 rows into bf16, f32 "
             f"or int8 pages, got {k_new.dtype}, {v_new.dtype} into "
             f"{pages.dtype}")
-    decode_head_dim(d, "the CUDA append kernel", pages.dtype)
+    decode_head_dim(d, "the CUDA append kernel")
     dev = pages.device
     if not all(t.device == dev for t in (k_new, v_new, page_ids, rows)):
         raise ValueError("pages, rows and targets must be on one CUDA "
@@ -498,8 +500,14 @@ def decode_workspace(device, stream: int, batch: int, kv_heads: int,
     return ws
 
 
-def _decode_fn():
-    fn = _build.library("paged_decode").tfa_paged_decode
+# the source and entry of each q dtype's instances (built in parallel)
+DECODE_ENTRIES = {torch.bfloat16: ("paged_decode", "tfa_paged_decode"),
+                  torch.float32: ("paged_decode_f32", "tfa_paged_decode_f32")}
+
+
+def _decode_fn(dtype: torch.dtype):
+    source, entry = DECODE_ENTRIES[dtype]
+    fn = getattr(_build.library(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -511,7 +519,8 @@ def _decode_fn():
 
 def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
                  sm_scale: float, window: Optional[int]):
-    """Launches csrc/paged_decode.cu; returns (out, lse)."""
+    """Launches csrc/paged_decode.cu (bf16 q) or csrc/paged_decode_f32.cu
+    (f32 q); returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, prows = fused_pages.shape[:3]
     quantized = fused_pages.dtype == torch.int8
@@ -520,7 +529,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel", q.dtype)
+    decode_head_dim(d, "the CUDA decode kernel")
     if not kernel_page_size(page_size):
         raise NotImplementedError(
             f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
@@ -552,14 +561,14 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         stream = torch.cuda.current_stream().cuda_stream
         ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
                               rows, d)
-        err = _decode_fn()(
+        err = _decode_fn(q.dtype)(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0), P, n_splits,
             per, out.data_ptr(), lse.data_ptr(), ws[0].data_ptr(),
             ws[1].data_ptr(), batch, q.shape[1], hkv, blocks, num_pages,
             page_size, prows, d, window or 0, scale_log2,
             _KERNEL_DTYPES[q.dtype], int(quantized), stream)
-    _build.check(err, "paged_decode")
+    _build.check(err, DECODE_ENTRIES[q.dtype][0])
     if window is not None:
         fused_paged_decode_attention.ring_launches += 1
     elif quantized:
