@@ -42,7 +42,15 @@ causal, bit-identical calls, planted faults; 192 padded, the window, ids,
 the jagged mode), the f32 backward (bit-identical calls), the decodes with
 f32 q over f32 and int8 pages and the append into them, and the
 Gemma-2B-width model in f32 served over f32 and int8 pages and trained at
-1 x 2048. The flash forward's and FA1's
+1 x 2048. Then head_dim 256 in the quantized forward and FA1 (the phase
+`wide_quant_v1_phase`): flash_attention_quantized at Gemma-2B's widths on
+the JAX package's int8 prefill pattern, (2,8,2048,256) against
+(2,1,2048,256), with bf16 q over int8 and f32 q over int8 and e4m3, and on
+its fp8 chunk pattern, (1,8,4096,256) bf16 q against (1,1,32768,256) e4m3
+K/V at offset 28672; flash_attention_v1 at (2,8,2048,256) MHA bf16
+(causal and not) and (2,8,1024,256) f32; each beside SDPA and B1 on the
+same K/V, with the planted faults of the 128 rows; the masks and 192
+(padded, its copies counted) at smaller shapes. The flash forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
 planted in the plain version (a stale V tile, a dropped kv tile; for FA1
@@ -489,7 +497,7 @@ def v1_planted_faults(name, q, k, v, sm_scale) -> None:
         return flash_attention_v1_plain(x, kk, vv, causal=True, sm_scale=sc)
 
     q_len, kv_len = q.shape[2], k.shape[2]
-    cfg, _ = v1_config(q.dtype)
+    cfg, _ = v1_config(q.dtype, q.shape[-1])
     bm, bn = cfg.block_m, cfg.block_n
     j = kv_len // bn // 2
     tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
@@ -893,17 +901,15 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head_dim above 256 in the flash kernels (bf16 and f32), and above 128
-    # in the instances without a wide one (the quantized forward, FA1); the
-    # decodes and the append at a head_dim they have no instance of (pages
-    # are read in place: 72, 192), a page size that is neither 16 nor a
-    # multiple of 32
+    # head_dim above 256 in the flash kernels (bf16 and f32), the quantized
+    # forward and FA1 included; the decodes and the append at a head_dim
+    # they have no instance of (pages are read in place: 72, 192), a page
+    # size that is neither 16 nor a multiple of 32
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
-    q264, q256 = zeros(1, 2, 128, 264), zeros(1, 2, 128, 256)
+    q264 = zeros(1, 2, 128, 264)
     f264 = zeros(1, 2, 128, 264, dtype=torch.float32)
-    f256 = zeros(1, 2, 128, 256, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
         lambda: flash_attention(q264, q264, q264, causal=True),
@@ -912,12 +918,12 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention(f264, f264, f264, causal=True),
         lambda: flash_attention_bwd(f264, f264, f264, f264, lse, f264,
                                     causal=True),
-        lambda: flash_attention_v1(q256, q256, q256),
-        lambda: flash_attention_v1(f256, f256, f256),
-        lambda: flash_attention_quantized(q256, *Q.quantize_kv(
-            q256, q256, "int8")),
-        lambda: flash_attention_quantized(f256, *Q.quantize_kv(
-            q256, q256, "int8")),
+        lambda: flash_attention_v1(q264, q264, q264),
+        lambda: flash_attention_v1(f264, f264, f264),
+        lambda: flash_attention_quantized(q264, *Q.quantize_kv(
+            q264, q264, "int8")),
+        lambda: flash_attention_quantized(f264, *Q.quantize_kv(
+            q264, q264, "int8")),
     ]
     for d in (72, 192):
         qd, pages_d = zeros(2, 6, d), zeros(2, 4, 32, d)
@@ -942,7 +948,7 @@ def check_not_ported_raise() -> None:
                              "the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
         f"({len(attempts)}: int8 K/V without scales, head_dim 264 in the "
-        f"forward and backward (bf16, f32), at 256 FA1 (bf16, f32) and the "
+        f"forward and backward (bf16, f32), FA1 (bf16, f32) and the "
         f"quantized forward (bf16 q, f32 q), the decodes and the append at "
         f"head_dim 72 and 192, page size 48)")
 
@@ -2681,13 +2687,14 @@ def quant_planted_faults(name, q, kq, vq, ref, ref_lse) -> None:
     bf16 stage of kv tile j left over from tile j - 1 (its conversion
     skipped: tile j's payloads are tile j - 1's, its scales its own); (2)
     the k scales shifted by one token; (3) the v scales ignored (all 1); j
-    the middle kv tile of those rows. Each must fail the gate."""
-    from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_BF16
+    the middle kv tile (of the instance's tiles) of those rows. Each must
+    fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops.flash import fwd_config
     from tiny_flash_attention_tpu_torch.ops.flash_quant import (
         flash_attention_quantized_plain)
 
     q_len, kv_len = q.shape[2], kq.shape[2]
-    bn = FLASH_FWD_BF16.block_n
+    bn = fwd_config(q.dtype, True, q.shape[-1]).block_n
     j = kv_len // bn // 2
     tile, prev = slice(j * bn, (j + 1) * bn), slice((j - 1) * bn, j * bn)
     rows = slice(q_len - 128, q_len)
@@ -2922,6 +2929,245 @@ def quant_f32q_rows(gen, fq) -> dict:
                                "bound_ms": bound_ms, "bound_by": bound_by,
                                "launches": launches[fmt]}
     return rows
+
+
+# --- head_dim 256 in the quantized forward and FA1 ---------------------------
+
+# The quantized forward at Gemma-2B's attention widths (8 q heads over one
+# kv head of 256: DIMS_MODELS) on the JAX package's two benchmark patterns
+# (QUANT_BENCH), bf16 q, causal: (name, payload format, q shape, kv shape).
+# The fp8 chunk sits at the decode offset 28672.
+WIDE_QUANT_BENCH = [
+    ("int8 prefill s2048 at 256", "int8", (2, 8, 2048, 256),
+     (2, 1, 2048, 256)),
+    ("fp8 chunked prefill at 256, 4096 rows of 32768", "fp8",
+     (1, 8, 4096, 256), (1, 1, 32768, 256)),
+]
+# ... the masks at smaller shapes, at 192 (padded to 256) and at 256,
+# causal: (name, format, q shape, kv shape, q dtype, window, segment
+# bounds)
+WIDE_QUANT_MASK_CASES = [
+    ("d 192, window 256", "fp8", (1, 8, 1024, 192), (1, 1, 1024, 192),
+     torch.bfloat16, 256, None),
+    ("d 192, segment ids, f32 q", "int8", (1, 8, 1024, 192),
+     (1, 1, 1024, 192), torch.float32, None, (300, 700)),
+    ("d 256, window 200, f32 q", "fp8", (1, 8, 1024, 256), (1, 1, 1024, 256),
+     torch.float32, 200, None),
+    ("d 256, segment ids", "int8", (1, 8, 1024, 256), (1, 1, 1024, 256),
+     torch.bfloat16, None, (300, 700)),
+]
+# FA1 at row 14's shapes (PERF.md) at 256, MHA, and at 192 (padded):
+# (name, q shape (k and v alike), dtype, causal)
+WIDE_V1_CASES = [
+    ("MHA causal 2048 at 256", (2, 8, 2048, 256), torch.bfloat16, True),
+    ("MHA non-causal 2048 at 256", (2, 8, 2048, 256), torch.bfloat16,
+     False),
+    ("MHA causal 1024 f32 at 256", (2, 8, 1024, 256), torch.float32, True),
+]
+WIDE_V1_PAD_CASES = [
+    ("d 192 causal", (2, 8, 1024, 192), torch.bfloat16, True),
+    ("d 192 non-causal f32", (1, 8, 1024, 192), torch.float32, False),
+]
+
+
+def wide_quant_v1_phase(gen) -> dict:
+    """head_dim 256 in the quantized forward and FA1, through the package
+    entries (neither is on a model path, in JAX or here) at Gemma-2B's
+    attention widths: `flash_attention_quantized` with bf16 q at both
+    WIDE_QUANT_BENCH patterns and with f32 q over int8 and over e4m3 at the
+    first, `flash_attention_v1` at WIDE_V1_CASES, each group with the
+    counts zeroed just before and read just after, and no pad copy. Then
+    each output against its plain version (the quantized gate; FA1 at its
+    dtype gate and, in bf16, the fold's row gate) with the planted faults
+    of the 128 rows, and the device times of the call, of its plain
+    version, of SDPA on the K/V that were quantized (FA1: on the same
+    q/k/v) and of B1 on them, beside the bound at the true head_dim; then
+    the masks and 192 at smaller shapes, 3 pad copies a call at 192."""
+    import tiny_flash_attention_tpu_torch as tfa
+    from tiny_flash_attention_tpu_torch.ops import dims
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized_plain)
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        flash_attention_v1_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    fq, v1 = tfa.flash_attention_quantized, tfa.flash_attention_v1
+    # (row key, name, q, the bf16 or f32 K/V, their QuantizedTensors)
+    calls = []
+    for name, fmt, qs, ks in WIDE_QUANT_BENCH:
+        q = randn(qs, torch.bfloat16, gen)
+        k, v = (randn(ks, torch.bfloat16, gen) for _ in range(2))
+        calls.append((fmt, name, q, k, v, *Q.quantize_kv(k, v, fmt)))
+    _, _, qs, ks = WIDE_QUANT_BENCH[0]
+    q = randn(qs, torch.float32, gen)
+    k, v = (randn(ks, torch.float32, gen) for _ in range(2))
+    for fmt in ("int8", "fp8"):
+        calls.append((f"{fmt}_f32q", f"f32 q over {fmt} at {qs}/{ks[:2]}",
+                      q, k, v, *Q.quantize_kv(k, v, fmt)))
+    del q, k, v
+    v1_in = [tuple(randn(qs, dt, gen) for _ in range(3))
+             for _, qs, dt, _ in WIDE_V1_CASES]
+    copies = dims.pad_head_dim.copies
+    launches, outs = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        group = [c for c in calls if c[2].dtype == dtype]
+        # ---- the main path: counts zeroed just before, read just after --
+        fq.launches = fq.int8_launches = fq.fp8_launches = 0
+        torch.cuda.synchronize()
+        outs += [fq(c[2], c[5], c[6], causal=True, return_lse=True)
+                 for c in group]
+        torch.cuda.synchronize()
+        got = {"int8": fq.int8_launches, "fp8": fq.fp8_launches}
+        # -----------------------------------------------------------------
+        if got != {"int8": 1, "fp8": 1} or fq.launches != 2:
+            raise AssertionError(f"wide quantized launches {got} "
+                                 f"({dtype})")
+        for c in group:
+            launches[c[0]] = got[c[0].split("_")[0]]
+    # ---- the main path: counts zeroed just before, read just after ----
+    v1.launches = v1.f32_launches = 0
+    torch.cuda.synchronize()
+    v1_out = [v1(q, k, v, causal=case[3], return_lse=True)
+              for case, (q, k, v) in zip(WIDE_V1_CASES, v1_in)]
+    torch.cuda.synchronize()
+    launches["v1"], launches["v1_f32"] = v1.launches, v1.f32_launches
+    # ---------------------------------------------------------------------
+    copies = dims.pad_head_dim.copies - copies
+    want_v1 = (len(WIDE_V1_CASES),
+               sum(c[2] == torch.float32 for c in WIDE_V1_CASES))
+    log(f"wide quantized and FA1: launches {launches} (one each; FA1 "
+        f"{want_v1[0]}, {want_v1[1]} of them f32), pad copies at 256: "
+        f"{copies}")
+    if (launches["v1"], launches["v1_f32"]) != want_v1 or copies:
+        raise AssertionError(f"wide FA1 launches {launches}, {copies} pad "
+                             "copies at 256")
+
+    rows = {}
+    for (key, name, q, k, v, kq, vq), (out, lse) in zip(calls, outs):
+        err = check_quant(f"wide quantized flash {name}", q, kq, vq, out,
+                          lse, faults=True)
+        del out, lse
+        sc = q.shape[-1] ** -0.5
+        mask = None if q.shape[2] == k.shape[2] else visible(q.shape[2],
+                                                              k.shape[2])
+        t_kernel = cuda_time_ms(lambda: fq(q, kq, vq, causal=True),
+                                iters=10)["median_ms"]
+        t_b1 = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
+                            iters=10)["median_ms"]
+        t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True), iters=10)["median_ms"]
+        t_plain = cuda_time_ms(lambda: flash_attention_quantized_plain(
+            q, kq.values, vq.values, kq.scales, vq.scales, causal=True,
+            sm_scale=sc), iters=2)["median_ms"]
+        bound_ms, bound_by = quant_bound(q, kq, mask_pairs(q, k, True))
+        b1_bound = flash_bound(q, k, True)[0]
+        kv = str(k.dtype).split(".")[-1]
+        log(f"wide quantized flash {name}: kernel {t_kernel:.4f} ms, B1 on "
+            f"the {kv} K/V {t_b1:.4f} ms ({b1_bound / t_b1:.1%} of its "
+            f"bound, {t_b1 / t_sdpa:.2f}x SDPA; quantized/B1 "
+            f"{t_kernel / t_b1:.3f}x), SDPA on the {kv} K/V {t_sdpa:.4f} "
+            f"ms ({t_kernel / t_sdpa:.2f}x), plain {t_plain:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / t_kernel:.1%} of "
+            f"it); launches {launches[key]}")
+        rows[key] = {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+                     "library_ms": t_sdpa, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "b1_ms": t_b1}
+        del mask
+    del calls, outs
+
+    for name, fmt, qs, ks, dtype, window, bounds in WIDE_QUANT_MASK_CASES:
+        q = randn(qs, dtype, gen)
+        kq, vq = Q.quantize_kv(randn(ks, dtype, gen), randn(ks, dtype, gen),
+                               fmt)
+        kw = {"window": window}
+        if bounds is not None:
+            seg = segment_ids(qs[0], qs[2], bounds)
+            kw["segment_ids"] = (seg, seg)
+        before = dims.pad_head_dim.copies
+        out, lse = fq(q, kq, vq, causal=True, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        copies = dims.pad_head_dim.copies - before
+        err = check_quant(f"wide quantized flash {name}", q, kq, vq, out,
+                          lse, **kw)
+        want = 3 * (qs[-1] != 256)
+        log(f"wide quantized flash {name}: {copies} pad copies (expected "
+            f"{want})")
+        if copies != want:
+            raise AssertionError(f"{name}: {copies} pad copies")
+        if bounds is not None:
+            pruned = fq(q, kq, vq, causal=True, return_lse=True,
+                        segment_starts=(0, *bounds), **kw)
+            if not all(torch.equal(x, y) for x, y in zip(pruned,
+                                                         (out, lse))):
+                raise AssertionError(f"{name}: segment_starts changed the "
+                                     "output")
+        key = fmt if dtype == torch.bfloat16 else f"{fmt}_f32q"
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        del q, kq, vq, out, lse
+
+    def v1_check(name, q, k, v, causal, out, lse):
+        errs, folded, ok = flash_gate(
+            out, lse, lambda qq, s2: flash_attention_v1_plain(
+                qq, k, v, causal=causal, sm_scale=s2), q, q.dtype)
+        ok = ok and bool(torch.isfinite(out).all())
+        log(f"wide flash_v1 {name}: q{tuple(q.shape)} "
+            f"{str(q.dtype).split('.')[-1]} causal={causal} | "
+            f"{flash_readings(errs, folded)} ({gate_text(q.dtype)}) | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"FA1 kernel disagrees with plain: {name}")
+        return max(errs["out"], errs["lse"])
+
+    for (name, qs, dt, causal), (q, k, v), (out, lse) in zip(
+            WIDE_V1_CASES, v1_in, v1_out):
+        err = v1_check(name, q, k, v, causal, out, lse)
+        del out, lse
+        sc = qs[-1] ** -0.5
+        if causal:
+            v1_planted_faults(name, q, k, v, sc)
+        t_kernel = cuda_time_ms(lambda: v1(q, k, v, causal=causal),
+                                iters=10)["median_ms"]
+        t_b1 = cuda_time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            iters=10)["median_ms"]
+        t_plain = cuda_time_ms(lambda: flash_attention_v1_plain(
+            q, k, v, causal=causal, sm_scale=sc), iters=5)["median_ms"]
+        t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), iters=10)["median_ms"]
+        bound_ms, bound_by = flash_bound(q, k, causal)
+        log(f"wide flash_v1 {name}: FA1 kernel {t_kernel:.4f} ms "
+            f"({bound_ms / t_kernel:.1%} of the bound, "
+            f"{t_kernel / t_sdpa:.2f}x SDPA), B1 (FA2) {t_b1:.4f} ms "
+            f"({bound_ms / t_b1:.1%} of the bound, {t_b1 / t_sdpa:.2f}x "
+            f"SDPA): FA1/FA2 {t_kernel / t_b1:.2f}x | plain {t_plain:.4f} "
+            f"ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+        key = "v1" if dt == torch.bfloat16 else "v1_f32"
+        if key in rows:   # the first case of each dtype is the row
+            rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        else:
+            rows[key] = {"max_abs_err": err, "ms": t_kernel,
+                         "plain_ms": t_plain, "library_ms": t_sdpa,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "b1_ms": t_b1}
+    del v1_in, v1_out
+    for name, qs, dt, causal in WIDE_V1_PAD_CASES:
+        q, k, v = (randn(qs, dt, gen) for _ in range(3))
+        before = dims.pad_head_dim.copies
+        out, lse = v1(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        copies = dims.pad_head_dim.copies - before
+        err = v1_check(name, q, k, v, causal, out, lse)
+        log(f"wide flash_v1 {name}: {copies} pad copies (expected 3)")
+        if copies != 3:
+            raise AssertionError(f"{name}: {copies} pad copies")
+        key = "v1" if dt == torch.bfloat16 else "v1_f32"
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+        del q, k, v, out, lse
+    return {"launches": launches, "rows": rows}
 
 
 # (name, q shape, kv shape, window, segment bounds): the JAX window
@@ -3308,7 +3554,9 @@ def main_path_rows(seed: int) -> int:
     bf16 at (4,8,768,128), (4,8,2048,128) and (1,8,8192,128) causal, B11 at
     the jagged batch of the mix, B1 f32 and the f32 backward call at the
     f32 train step's shape, f32 q over int8 and e4m3 payloads at the int8
-    benchmark's shape, the bf16
+    benchmark's shape, bf16 q over int8 and e4m3 at both quantized
+    benchmarks (QUANT_BENCH), FA1 at (2,8,2048,128) bf16 and (2,8,1024,128)
+    f32 causal, the bf16
     backward call at (4,8,2048,128), (1,8,8192,128) and (2,8,768,128), B4
     over int8 pages of 8016 tokens and over a bf16 engine cache, the append
     cold beside the launch floor; B1 at (4,32,2048,96) and the backward at
@@ -3393,6 +3641,18 @@ def main_path_rows(seed: int) -> int:
         times[f"f32 q {fmt}"] = cuda_time_ms(
             lambda: tfa.flash_attention_quantized(q, kq, vq, causal=True),
             iters=20)["median_ms"]
+    for name, fmt, qs, ks in QUANT_BENCH:
+        q = randn(qs, torch.bfloat16, gen)
+        kq, vq = Q.quantize_kv(randn(ks, torch.bfloat16, gen),
+                               randn(ks, torch.bfloat16, gen), fmt)
+        times[f"quantized {name}"] = cuda_time_ms(
+            lambda: tfa.flash_attention_quantized(q, kq, vq, causal=True),
+            iters=10)["median_ms"]
+    for name, qs, ks, dt, causal in (V1_CASES[0], V1_CASES[2]):
+        q, k, v = (randn(qs, dt, gen) for _ in range(3))
+        times[f"FA1 {name}"] = cuda_time_ms(
+            lambda: tfa.flash_attention_v1(q, k, v, causal=causal),
+            iters=10)["median_ms"]
     del q, k, v, kq, vq, out, lse, do
     x = decode_inputs_int8(gen, ps=128, P=64)
     lengths = torch.full((8,), 8016, dtype=torch.int32, device="cuda")
@@ -4430,7 +4690,9 @@ def main() -> int:
                                                 text))
         log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
             f"registers, {spills} bytes of spill stores in all (ptxas)")
-        if len(regs) <= 32:
+        # every instance of the sources of at most 40 (the quantized
+        # forward's 36 and FA1's 6 among them)
+        if len(regs) <= 40:
             log("    registers/spill bytes: "
                 + ", ".join(instance_registers(text)))
         elif spills:
@@ -4439,7 +4701,8 @@ def main() -> int:
     # the bf16-q instances of B1 (over bf16 K/V and over int8/e4m3
     # payloads, its wide head_dim-256 instances included), the bf16
     # backward's main kernels (the wide one included) and B14's bf16
-    # instances run on wgmma: HGMMA in their SASS, no HMMA
+    # instances (its wide one included) run on wgmma: HGMMA in their SASS,
+    # no HMMA
     for lib, prefix in (("flash_fwd", "flash_fwd_wgmma_kernel"),
                         ("flash_fwd_quant", "flash_fwd_wgmma_kernel"),
                         ("flash_bwd", "flash_bwd_main_kernel"),
@@ -4468,7 +4731,8 @@ def main() -> int:
         "bwd_f32_smem_bytes and bwd_smem_bytes give each library's own size "
         "(tfa_flash_fwd_smem, tfa_flash_fwd_quant_smem, tfa_flash_v1_smem, "
         "tfa_flash_bwd_f32_smem, tfa_flash_bwd_bf16_smem) for every "
-        "instance, the head_dim-256 ones included")
+        "instance, the head_dim-256 ones included (the quantized forward's "
+        "and FA1's too)")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     f32_fwd_row = None
@@ -4551,6 +4815,10 @@ def main() -> int:
     wide_f32 = wide_f32_phase(gen)
     f32_models = wide_f32_model_phase(SEED)
     f32_launch = f32_models["launches"]
+    # head_dim 256 in the last two kernels that stopped at 128: the
+    # quantized forward and FA1, through their package entries
+    wide_qv = wide_quant_v1_phase(gen)
+    wq_rows = wide_qv["rows"]
     from tiny_flash_attention_tpu_torch.ops.configs import (
         PAGED_DECODE_F32_WIDE_WARPS as f32_warps)
 
@@ -4951,6 +5219,56 @@ def main() -> int:
            "launches": quant_flash["launches"][f"{fmt}_f32q"],
            **quant_flash["rows"][f"{fmt}_f32q"]}
           for fmt in ("int8", "fp8")),
+        *({"name": f"flash_fwd_quant_{fmt}_d256", "route": "cuda",
+           "design": "bf16 q at head dims 129-256 (padded to 256, payloads "
+                     "with code 0): B1's wide wgmma/TMA instance, 64-row "
+                     "kv tiles in a two-stage ring whose K and V slots "
+                     "are released apart; each 16 KiB payload tile lands "
+                     "in blocks 2-3 of its slot on a barrier of its own "
+                     "(K's, V's) and the producer expands blocks 0-1, "
+                     "then, from registers, 2-3; producer 56 registers, "
+                     "consumers 224",
+           "source": "tiny_flash_attention_tpu_torch/csrc/"
+                     "flash_fwd_quant.cu",
+           "replaces": fwd_replaces,
+           "launches": wide_qv["launches"][fmt],
+           **{k: v for k, v in wq_rows[fmt].items() if k != "b1_ms"}}
+          for fmt in ("int8", "fp8")),
+        *({"name": f"flash_fwd_quant_{fmt}_f32q_d256", "route": "cuda",
+           "design": "f32 q at head dims 129-256 (padded to 256): the wide "
+                     "f32 body (64-row q, 32-row kv tiles, the kv runs "
+                     "merged in order), each payload tile loaded into "
+                     "registers a step ahead (two 16-byte chunks a "
+                     "thread) and converted exactly into its ring stage",
+           "source": "tiny_flash_attention_tpu_torch/csrc/"
+                     "flash_fwd_quant.cu",
+           "replaces": fwd_replaces,
+           "launches": wide_qv["launches"][f"{fmt}_f32q"],
+           **{k: v for k, v in wq_rows[f"{fmt}_f32q"].items()
+              if k != "b1_ms"}}
+          for fmt in ("int8", "fp8")),
+        {"name": "flash_v1_d256", "route": "cuda",
+         "design": "bf16 at head dims 129-256 (padded to 256), FA1's order "
+                   "and state round trip kept on wgmma/TMA: 128-row q "
+                   "tiles, 64-row kv tiles (S as m64n64k16, PV as "
+                   "m64n256k16, a 128-float O reloaded from its state "
+                   "slot each step), K/V in a two-stage ring and the q "
+                   "tile in one stage (197,696 bytes)",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
+         "launches": wide_qv["launches"]["v1"],
+         **{k: v for k, v in wq_rows["v1"].items() if k != "b1_ms"}},
+        {"name": "flash_v1_f32_d256", "route": "cuda",
+         "design": "f32 at head dims 129-256 (padded to 256), FA1's order "
+                   "kept on the CUDA cores: 32-row q and kv tiles "
+                   "(205,408 bytes), the 17 warps' roles of the 128 "
+                   "instance with their maps scaled (4 x 2 scores an S "
+                   "thread, 8 x 4 outputs a PV thread, a row group over "
+                   "two warps, each keeping its copy of the rows' (m, l))",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_v1.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/flash_v1.py:144",
+         "launches": wide_qv["launches"]["v1_f32"],
+         **{k: v for k, v in wq_rows["v1_f32"].items() if k != "b1_ms"}},
     ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

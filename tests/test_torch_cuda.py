@@ -36,8 +36,9 @@ groups 1/3/7 under each mask, its quantized instances, the backward and
 autograd, FA1 at 80/96, the fused decode at 80/96 and groups 3/5/7/12/16
 over bf16, f32 and int8 pages (the ring mode; int8 scale rows split over two
 groups at page size 160), the separate decode, and the append bit for bit;
-and the shapes that stay out raise (head_dim 264; FA1 and the quantized
-forward at 256; a decode or append at head_dim 72; page size 48). Last,
+and the shapes that stay out raise (head_dim 264 in every flash entry, FA1
+and the quantized forward included; a decode or append at head_dim 72;
+page size 48). Last,
 the head dims that the bf16 forward and
 backward read in place (32, 48, 72, 80, 96 at groups 1, 3, 7 under every
 mask, 300 rows): their results bit for bit those of the call on padded
@@ -48,7 +49,11 @@ padded, the edges of its 64-row q and 32-row kv tiles, the jagged mode,
 bit-identical calls, its merge workspace), the f32 backward (each mask,
 autograd, bit-identical runs), the decodes with f32 q over f32 and int8
 pages (groups 1 to 12, the ring mode), the separate decode and the append
-into f32 pages.
+into f32 pages. Then head_dim 256 in the quantized forward (bf16 and f32
+q over int8 and e4m3, each mask, bit-identical calls) and FA1 (bf16 and
+f32, around the wide tiles, bit-identical calls), 192 through the padded
+route giving the 256 call's bits on its true columns, and their shared
+memory against ops/configs.py.
 """
 
 import pytest
@@ -196,19 +201,17 @@ def test_not_ported_raises_on_the_card(gen):
             flash_attention_bwd(x, x, x, x,
                                 torch.zeros((1, 2, 8), device="cuda"), x,
                                 causal=True)
-    # head_dim 256 where no wide instance is compiled: FA1
-    q256 = _randn((1, 2, 8, 256), torch.bfloat16, gen)
-    f256 = q256.float()
-    with pytest.raises(NotImplementedError):
-        flash_attention_v1(q256, q256, q256)
-    with pytest.raises(NotImplementedError):
-        flash_attention_v1(f256, f256, f256)
+    # head_dim above 256 in FA1 (its wide instances pad up to 256 and no
+    # further)
+    for x in (q264, q264.float()):
+        with pytest.raises(NotImplementedError):
+            flash_attention_v1(x, x, x)
     with pytest.raises(NotImplementedError):
         flash_attention_bwd(q, q.float(), q.float(), q,
                             torch.zeros((1, 2, 64), device="cuda"), q,
                             causal=True)
     # int8 K/V without their scales, the jagged mode over int8, one
-    # quantized call over two payload formats, a head_dim above 128
+    # quantized call over two payload formats, a head_dim above 256
     q8 = q.to(torch.int8)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q8, q8)
@@ -217,10 +220,10 @@ def test_not_ported_raises_on_the_card(gen):
     k8 = Q.quantize_int8(q)
     with pytest.raises(NotImplementedError):
         flash_attention_quantized(q, k8, Q.quantize_fp8(q))
-    k256 = Q.quantize_int8(q256)
-    for x in (q256, f256):
+    k264 = Q.quantize_int8(q264)
+    for x in (q264, q264.float()):
         with pytest.raises(NotImplementedError):
-            flash_attention_quantized(x, k256, k256)
+            flash_attention_quantized(x, k264, k264)
     # the decodes and the append read pages in place: head dims 72 and
     # 192 have no instance, in either dtype; nor has a page size that is
     # neither 16 nor a multiple of 32
@@ -2203,3 +2206,110 @@ def test_wide_f32_smem_layouts_match_configs(gen):
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_f32_smem
     check_smem_layouts(_build.library("flash_fwd"), False)
     check_f32_smem(_build.library("flash_bwd"))
+
+
+# --- head_dim 256 in the quantized forward and FA1 ---------------------------
+# The quantized instances of B1's wide kernels (bf16 q: 64-row kv tiles in
+# two stages, the payloads expanded in place; f32 q: the wide f32 body) and
+# FA1's wide instances (bf16: 64-row kv tiles; f32: 32 x 32 tiles); head
+# dims in (128, 256] pad to 256 (ops/dims.py).
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("hq,q_len,kv_len,masks", [
+    (8, 300, 300, {"causal": True}),
+    (1, 257, 129, {"causal": True}),
+    (8, 65, 400, {"causal": True}),
+    (2, 129, 257, {"causal": False}),
+    (8, 300, 300, {"causal": True, "window": 61}),
+    (8, 300, 300, {"causal": True, "ids": (37, 64, 65, 250),
+                   "starts": True}),
+], ids=["causal", "empty-rows", "offset", "noncausal", "window", "ids"])
+def test_wide_quantized_kernel_matches_plain(gen, hq, q_len, kv_len, masks,
+                                             fmt, dtype):
+    """The quantized instances at head_dim 256 (over 1 kv head) against
+    their plain version, out within the dtype gate of min(1, max|ref|),
+    one launch of the format each call, segment_starts changing no bit;
+    then 192 through the padded route: 3 pad copies, and on its true
+    columns the bits of the call on the inputs padded to 256 by hand."""
+    test_quantized_kernel_matches_plain(gen, 1, hq, 1, q_len, kv_len, 256,
+                                        fmt, dtype, masks)
+    q = _randn((1, hq, q_len, 192), dtype, gen)
+    k, v = Q.quantize_kv(_randn((1, 1, kv_len, 192), torch.float32, gen),
+                         _randn((1, 1, kv_len, 192), torch.float32, gen),
+                         fmt)
+    kw = {"causal": masks["causal"], "window": masks.get("window")}
+    copies = pad_head_dim.copies
+    out, lse = flash_attention_quantized(q, k, v, return_lse=True, **kw)
+    assert pad_head_dim.copies == copies + 3
+    kp, vp = (Q.QuantizedTensor(pad_head_dim(t.values, 256), t.scales)
+              for t in (k, v))
+    wide, wide_lse = flash_attention_quantized(
+        pad_head_dim(q, 256), kp, vp, sm_scale=192 ** -0.5, return_lse=True,
+        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, wide[..., :192]) and torch.equal(lse, wide_lse)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_wide_quantized_runs_are_bit_identical(gen, fmt):
+    """bf16 q over payloads at 256: the conversion and the sums run in a
+    fixed order, so two calls give the same bits; no pad copy."""
+    q = _randn((2, 8, 777, 256), torch.bfloat16, gen)
+    k, v = Q.quantize_kv(_randn((2, 1, 777, 256), torch.float32, gen),
+                         _randn((2, 1, 777, 256), torch.float32, gen), fmt)
+    copies = pad_head_dim.copies
+    one = flash_attention_quantized(q, k, v, causal=True, return_lse=True)
+    two = flash_attention_quantized(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("h,q_len,kv_len,causal", [
+    (2, 300, 260, True), (2, 300, 260, False), (4, 100, 333, True),
+    (2, 300, 100, True), (1, 33, 31, False), (2, 1, 2100, True),
+])
+def test_wide_v1_kernel_matches_plain(gen, h, q_len, kv_len, causal, dtype):
+    """FA1's wide instances at head_dim 256 against their plain version
+    (bf16 also at the fold), one launch each; then 192 padded: 3 pad
+    copies, and on its true columns the bits of the call on the inputs
+    padded by hand."""
+    test_v1_kernel_matches_plain(gen, 1, h, q_len, kv_len, 256, causal,
+                                 dtype)
+    q = _randn((1, h, q_len, 192), dtype, gen)
+    k, v = (_randn((1, h, kv_len, 192), dtype, gen) for _ in range(2))
+    copies = pad_head_dim.copies
+    out, lse = flash_attention_v1(q, k, v, causal=causal, return_lse=True)
+    assert pad_head_dim.copies == copies + 3
+    wide, wide_lse = flash_attention_v1(
+        *(pad_head_dim(t, 256) for t in (q, k, v)), causal=causal,
+        sm_scale=192 ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, wide[..., :192]) and torch.equal(lse, wide_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_wide_v1_runs_are_bit_identical(gen, dtype):
+    """FA1 at 256: every state round trip in a fixed order, two calls the
+    same bits."""
+    q = _randn((2, 4, 700, 256), dtype, gen)
+    k, v = (_randn((2, 4, 700, 256), dtype, gen) for _ in range(2))
+    one = flash_attention_v1(q, k, v, causal=True, return_lse=True)
+    two = flash_attention_v1(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_wide_quantized_and_v1_smem_layouts_match_configs(gen):
+    """ops/configs.py's fwd_smem_bytes (quantized) and v1_smem_bytes give
+    the shared memory the libraries' instances take, the head_dim-256 ones
+    included."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
+        check_smem_layout)
+    check_smem_layouts(_build.library("flash_fwd_quant"), True)
+    check_smem_layout(_build.library("flash_v1"))

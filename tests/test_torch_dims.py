@@ -121,11 +121,10 @@ def test_f32_and_quantized_entries_pad(d):
 
 
 def test_head_dims_above_128_raise():
-    """Above 256 every flash entry raises, f32 too; above 128 the instances
-    the wide slices did not port (the quantized forward, FA1) raise,
-    naming themselves; the decodes and the append raise at head dims they
-    do not compile (192 among them) and take every one they do, 256
-    included, in any dtype."""
+    """Above 256 every flash entry raises, f32, the quantized forward and
+    FA1 too, naming themselves, and each pads (128, 256] to 256; the
+    decodes and the append raise at head dims they do not compile (192
+    among them) and take every one they do, 256 included, in any dtype."""
     for d in (264, 384, 512):
         with pytest.raises(NotImplementedError, match="up to 256"):
             dims.kernel_head_dim(d, "the CUDA forward kernel", wide=True)
@@ -134,16 +133,21 @@ def test_head_dims_above_128_raise():
         with pytest.raises(NotImplementedError, match="float32 takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.float32, "the CUDA forward kernel")
-    for d in (129, 256, 384):
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            dims.kernel_head_dim(d, "the CUDA FA1 kernel")
+    for d in (264, 384):
+        with pytest.raises(NotImplementedError, match="FA1 kernel takes "
+                           "head_dim up to 256"):
+            dims.kernel_head_dim(d, "the CUDA FA1 kernel", wide=True)
         with pytest.raises(NotImplementedError, match="K/V takes head_dim "
-                           "up to 128"):
+                           "up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
                                 "kernel", quantized=True)
     for d in (129, 192, 256):
         assert dims.flash_head_dim(d, torch.float32,
                                    "the CUDA forward kernel") == 256
+        assert dims.kernel_head_dim(d, "the CUDA FA1 kernel",
+                                    wide=True) == 256
+        assert dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
+                                   "kernel", quantized=True) == 256
     for d in (72, 112, 192, 264):
         with pytest.raises(NotImplementedError, match="80, 96"):
             dims.decode_head_dim(d, "the CUDA decode kernel")

@@ -6,8 +6,9 @@ and backward, and its dispatch tables hold tiles for 256; its decodes and
 append take any width. The port's bf16 flash forward over bf16 K/V and its
 bf16 backward read any multiple of 8 up to 256 in place (the wide
 instances, 256 columns of tiles), other head dims up to 256 pad to 256 (in
-f32 every one: tests/test_torch_dims256_f32.py), and the quantized forward
-and FA1 stop at 128; the decodes and the append compile 256 over every
+f32 every one: tests/test_torch_dims256_f32.py), and so do the quantized
+forward and FA1 (tests/test_torch_dims256_quant_v1.py); the decodes and
+the append compile 256 over every
 page format (ops/dims.py). Here the
 same numpy inputs, made from a seed, go through the JAX function (its
 Pallas kernels in interpret mode) and through the port: its public entry
@@ -76,13 +77,17 @@ def _both(a, dtype):
 def test_in_place_rule_above_128(d):
     """bf16 over bf16 K/V, the flash kernels take a multiple of 8 up to
     256 in place (the wide instances), pad any other head_dim in (128,
-    256] to 256, and raise above 256; the f32 instances pad every head_dim
-    in (128, 256] to 256 and raise above; the quantized forward raises
-    above 128, naming itself; pad_head_dim counts each copy it makes."""
+    256] to 256, and raise above 256; the f32 instances and the quantized
+    forward pad every head_dim in (128, 256] to 256 and raise above,
+    naming themselves; pad_head_dim counts each copy it makes."""
     what = "the CUDA forward kernel"
-    with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
-                       "head_dim up to 128"):
-        dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
+    if d > 256:
+        with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
+                           "head_dim up to 256"):
+            dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
+    else:
+        assert dims.flash_head_dim(d, torch.bfloat16, what,
+                                   quantized=True) == 256
     if d > 256:
         with pytest.raises(NotImplementedError, match="up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, what)
@@ -106,14 +111,15 @@ def test_in_place_rule_above_128(d):
 
 @pytest.mark.parametrize("d", [192, 256])
 def test_wide_tiles_and_groups(d):
-    """The wide instances' tiles: B1 over 64-row kv tiles in two stages,
-    the backward over 64-row kv blocks; the decode covers a group of 8 at
+    """The wide instances' tiles: B1 over 64-row kv tiles in two stages
+    (over bf16 K/V and over int8/e4m3 payloads alike), the backward over
+    64-row kv blocks; the decode covers a group of 8 at
     head_dim 256 by two row blocks of 4 (its instances stop at G = 4), and
     at 128 by one of 8."""
     from tiny_flash_attention_tpu_torch.ops.flash import fwd_config
 
     assert fwd_config(torch.bfloat16, False, d) is configs.FLASH_FWD_BF16_WIDE
-    assert fwd_config(torch.bfloat16, True, d) is configs.FLASH_FWD_BF16
+    assert fwd_config(torch.bfloat16, True, d) is configs.FLASH_FWD_BF16_WIDE
     assert configs.bwd_config(256) is configs.FLASH_BWD_BF16_WIDE
     assert dims.decode_group(8, 256) == (4, 2)
     assert dims.decode_group(3, 256) == (4, 1)

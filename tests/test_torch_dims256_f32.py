@@ -93,13 +93,20 @@ def _ids(b, n, bounds):
 def test_f32_rule_above_128(d):
     """f32 takes every head_dim in (128, 256] on the wide instance, padded
     to 256 where d is not 256 (pad_head_dim counts the copy), and raises
-    above 256; the quantized forward and FA1 still raise from 129 (136
-    among them); the decodes and the append take 256 in every dtype."""
+    above 256; so do the quantized forward and FA1 (136 among them, 257
+    and 264 raising); the decodes and the append take 256 in every
+    dtype."""
     what = "the CUDA forward kernel"
-    with pytest.raises(NotImplementedError, match="up to 128"):
-        dims.flash_head_dim(d, torch.float32, what, quantized=True)
-    with pytest.raises(NotImplementedError, match="up to 128"):
-        dims.kernel_head_dim(d, "the CUDA FA1 kernel")
+    if d > 256:
+        with pytest.raises(NotImplementedError, match="up to 256"):
+            dims.flash_head_dim(d, torch.float32, what, quantized=True)
+        with pytest.raises(NotImplementedError, match="up to 256"):
+            dims.kernel_head_dim(d, "the CUDA FA1 kernel", wide=True)
+    else:
+        assert dims.flash_head_dim(d, torch.float32, what,
+                                   quantized=True) == 256
+        assert dims.kernel_head_dim(d, "the CUDA FA1 kernel",
+                                    wide=True) == 256
     if d > 256:
         with pytest.raises(NotImplementedError, match="float32 takes "
                            "head_dim up to 256"):
@@ -126,10 +133,11 @@ def test_wide_f32_instances_fit_a_block():
     and fits a block, where the 128 instances' tiles at 256 would not: the
     forward's q tile of 64 rows, two stages of 32-row K and V, P^T and each
     stage's kv ids; the backward's two 32-row tiles that stay, a two-stage
-    ring of two, P and dS and nine rows of 32."""
+    ring of two, P and dS and nine rows of 32. f32 q over payloads takes
+    the same wide tiles at 256."""
     assert fwd_config(torch.float32, head_dim=256) is FLASH_FWD_F32_WIDE
     assert fwd_config(torch.float32, head_dim=128) is FLASH_FWD_F32
-    assert fwd_config(torch.float32, True, 256) is FLASH_FWD_F32
+    assert fwd_config(torch.float32, True, 256) is FLASH_FWD_F32_WIDE
     fwd = fwd_smem_bytes(FLASH_FWD_F32_WIDE, 256)
     assert fwd == (64 * 256 + 4 * 32 * 256 + 32 * 64) * 4 + 2 * 32 * 4
     assert fwd == 205056 <= SMEM_PER_BLOCK

@@ -40,7 +40,7 @@ from tiny_flash_attention_tpu.ops.flash_quant import (
 from tiny_flash_attention_tpu_torch.models.transformer import (
     quantized_from_jax)
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, FLASH_FWD_F32_WIDE,
+    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32,
     SMEM_PER_BLOCK, TileConfig, bwd_smem_bytes, fwd_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     check_smem_layouts, flash_attention, fwd_config, fwd_f32_tiles,
@@ -246,13 +246,11 @@ class _Library:
 def test_smem_layouts_are_held_to_the_library(quantized):
     """check_smem_layouts passes where the library's sizes are
     fwd_smem_bytes' and raises where one instance's differs."""
+    # every tile width, the wide instances' (both sources) included
     sizes = {(code, d): fwd_smem_bytes(fwd_config(dtype, quantized, d), d,
                                        quantized)
              for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1))
-             for d in (64, 128)}
-    if not quantized:   # the wide instances, over K/V in q's dtype only
-        sizes[(0, 256)] = fwd_smem_bytes(FLASH_FWD_BF16_WIDE, 256)
-        sizes[(1, 256)] = fwd_smem_bytes(FLASH_FWD_F32_WIDE, 256)
+             for d in (64, 128, 256)}
     check_smem_layouts(_Library(sizes), quantized)
     sizes[(0, 64)] += 16
     with pytest.raises(RuntimeError, match="fwd_smem_bytes"):

@@ -94,7 +94,15 @@
 //     stage's empty barrier is split into K's and V's (k_empty, empty), the
 //     consumers release tile j's K once its softmax has read its scores
 //     and ids, and V once its PV product has landed, so the producer loads
-//     tile j + 2's K while tile j + 1's S runs.
+//     tile j + 2's K while tile j + 1's S runs. Its quantized instances
+//     (head dims in (128, 256] padded to 256 by the wrapper) keep both: a
+//     64-row payload tile is 16 KiB and lands in blocks 2-3 of its 32 KiB
+//     slot, so the producer expands blocks 0-1 first, holding the chunks
+//     that 2-3 will take in registers (64 bytes a thread), then, after its
+//     barrier, 2-3; K's and V's payloads land on barriers of their own
+//     (pay_full, v_pay) once k_empty and empty free their slots, and the
+//     producer expands tile j + 1's K and tile j's V while the consumers
+//     run tile j's S and tile j - 1's PV.
 // Blocks run longest causal rows first (tile_order's longest pruned work
 // first with segment_starts). A warpgroup whose rows all lie past q_len or
 // the jagged length only keeps the ring's count and writes empty rows.
@@ -149,14 +157,26 @@ constexpr int PRODUCERS = 128;  // quantized: arrivals on a full slot
 // 40 for the producer (an elected TMA thread) and 232 for the consumers;
 // quantized K/V, 88 for the producer, which expands the payloads (at fewer
 // it spills more and runs slower, PERF.md), and the rest, 208, for the
-// consumers.
-template <int FMT>
-constexpr int kProducerRegs = FMT == kNone ? 40 : 88;
-template <int FMT>
+// consumers. At the wide instance (tiles of D = 256 columns) the quantized
+// producer holds what it does at 128 (its half of a tile's payload chunks,
+// 16 registers) and the consumers 128 O floats, 32 S floats and 16 P
+// registers, so the producer keeps 56 and the consumers take 224 (ptxas
+// spills less from the consumers there than at 216 or 208; chip_smoke.py's
+// build line prints each instance's spill bytes).
+constexpr int WIDE_QUANT_PRODUCER_REGS = 56;
+template <int FMT, int D>
+constexpr int kProducerRegs =
+    FMT == kNone ? 40 : D > 128 ? WIDE_QUANT_PRODUCER_REGS : 88;
+template <int FMT, int D>
 constexpr int kConsumerRegs =
-    FMT == kNone ? 232 : (64512 - 128 * kProducerRegs<FMT>) / 256 / 8 * 8;
-static_assert(128 * kProducerRegs<kInt8> + 256 * kConsumerRegs<kInt8> <=
-                  168 * WTHREADS,
+    FMT == kNone ? 232
+                 : (64512 - 128 * kProducerRegs<FMT, D>) / 256 / 8 * 8;
+static_assert(128 * kProducerRegs<kInt8, 128> +
+                      256 * kConsumerRegs<kInt8, 128> <=
+                  168 * WTHREADS &&
+                  128 * kProducerRegs<kInt8, 256> +
+                          256 * kConsumerRegs<kInt8, 256> <=
+                      168 * WTHREADS,
               "the warpgroups share the launch's registers");
 
 // Shared memory of one block, in bytes from a 1024-aligned base. Quantized
@@ -176,17 +196,20 @@ struct FwdSmem {
   static constexpr int IDS = V + STAGES * KV;    // [STAGES][WN] kv ids
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES] (V's slot, or
   // the stage's); SPLIT also k_empty[STAGES]; quantized also
-  // pay_full[STAGES]
+  // pay_full[STAGES] (the stage's payload copies; SPLIT: K's), and SPLIT
+  // quantized v_pay[STAGES] (V's)
   static constexpr int BAR = IDS + STAGES * WN * 4;
   static constexpr int TOTAL =
-      BAR + (1 + (3 + SPLIT + QUANT) * STAGES) * 8;
+      BAR + (1 + (3 + SPLIT + QUANT * (1 + SPLIT)) * STAGES) * 8;
   static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
   static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
 };
 
 // Quantized K/V of one launch (instances with N = D = d only): payloads (B,
 // hkv, kv_len, D) bytes and scales (B, hkv, ld) f32, ld at least kv_len
-// rounded up to a whole kv tile (zeros past kv_len); null for bf16 K/V.
+// rounded up to a whole kv tile of the instance (zeros past kv_len; the
+// wrapper rounds to 128 rows, two of the wide instance's tiles); null for
+// bf16 K/V.
 struct QuantKv {
   const uint8_t* k;
   const uint8_t* v;
@@ -276,8 +299,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            float scale_log2, int window, QuantKv qk) {
   constexpr bool QUANT = FMT != kNone;
   constexpr int D = tile_cols(N);                // shared-memory tile columns
-  static_assert(!QUANT || (N == D && D <= 128), "payload rows are whole "
-                "tiles of 128-row stages");
+  static_assert(!QUANT || N == D, "payload rows are whole tile rows");
   using S = FwdSmem<D, QUANT>;
   constexpr int WN = S::WN;                      // kv rows per tile
   constexpr int STAGES = S::STAGES;
@@ -292,6 +314,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   uint64_t* empty = v_full + STAGES;   // V's slot (SPLIT), else the stage
   uint64_t* k_empty = SPLIT ? empty + STAGES : empty;  // K's slot
   uint64_t* pay_full = empty + (SPLIT ? 2 : 1) * STAGES;  // quantized only
+  uint64_t* v_pay = SPLIT ? pay_full + STAGES : pay_full;  // V's (SPLIT)
   int* ids = reinterpret_cast<int*>(sm + S::IDS);
 
   const int tid = threadIdx.x, wg = tid / 128;
@@ -326,6 +349,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       mbar_init(&empty[st], CONSUMERS);
       if (SPLIT) mbar_init(&k_empty[st], CONSUMERS);
       if (QUANT) mbar_init(&pay_full[st], 1);
+      if (QUANT && SPLIT) mbar_init(&v_pay[st], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -333,7 +357,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 
   if (wg == 2) {
     // ------------------------------------------------------------ producer
-    regs_dealloc<kProducerRegs<FMT>>();
+    regs_dealloc<kProducerRegs<FMT, D>>();
     if constexpr (QUANT) {
       const int pt = tid % 128, pw = pt / 32, lane = pt % 32;
       if (pt == 0) {
@@ -343,47 +367,58 @@ __global__ void __launch_bounds__(WTHREADS, 1)
           tma_load_3d(sm + S::Q + c * WM * 128, &tm_q, q_full, 64 * c, q0,
                       b * hq + h);
       }
-      // Pass x of a tile: each warp converts RPW whole payload rows (32
-      // chunks of 16 bytes, one a lane), the four warps 4 * RPW rows. A
-      // quarter warp takes two neighbouring rows r (even) and r + 1, four
-      // chunks of each: its payload reads hit eight different 16-byte bank
-      // groups (head_dim 128: one row's chunks of one 64-column block, the
-      // other row's of the other block; 64: the two 64-byte rows), and so
-      // do its swizzled bf16 stores (the two rows' swizzles differ).
-      constexpr int RPW = 8 / BOXES;
-      constexpr int PASSES = WN / (4 * RPW);
+      // Pass x of a tile: each thread converts one 16-byte payload chunk (a
+      // pass is 2 KiB of payload), a warp RPW rows (whole rows up to 128
+      // columns; at 256, two of a row's four 64-column blocks, so that a
+      // pass covers 16 rows' blocks 0-1 or 2-3). A quarter warp takes two
+      // neighbouring rows r (even) and r + 1, four chunks of each: its
+      // payload reads hit eight different 16-byte bank groups (head_dim
+      // 128: one row's chunks of one 64-column block, the other row's of
+      // the other block; 256: of two blocks an odd number apart; 64: the
+      // two 64-byte rows), and so do its swizzled bf16 stores (the two
+      // rows' swizzles differ).
+      constexpr int RPW = BOXES == 4 ? 4 : 8 / BOXES;
+      constexpr int PASSES = WN * D / 2048;
       const int quarter = lane >> 3, t8 = lane & 7;
-      const int rin = pw * RPW + 2 * (quarter / BOXES) + (t8 >> 2);
+      const int rin =
+          pw * RPW + 2 * (quarter / (BOXES == 1 ? 1 : 2)) + (t8 >> 2);
       const int chunk = 2 * (t8 & 3);            // its first bf16 chunk
-      const int f = BOXES == 2 ? ((t8 >> 2) ^ (quarter & 1)) : 0;
+      const int f = BOXES >= 2 ? ((t8 >> 2) ^ (quarter & 1)) : 0;
       const size_t head = (size_t)(b * hkv + kvh) * kv_len * D;
+      // the row and the 64-column block of pass x
+      auto row_of = [&](int x) {
+        return BOXES == 4 ? (x >> 1) * 16 + rin : x * 4 * RPW + rin;
+      };
+      auto box_of = [&](int x) {
+        return BOXES == 4 ? 2 * (x & 1) + f : BOXES == 2 ? f ^ (x & 1) : 0;
+      };
       // the payload chunk of pass x, from the stage's second half
       auto fetch = [&](const unsigned char* tile, int x) {
-        const int r = x * 4 * RPW + rin;
-        const int box = BOXES == 2 ? f ^ (x & 1) : 0;
         return *reinterpret_cast<const uint4*>(
-            tile + S::KV / 2 + r * D + (4 * box + (t8 & 3)) * 16);
+            tile + S::KV / 2 + row_of(x) * D +
+            (4 * box_of(x) + (t8 & 3)) * 16);
       };
       // ... converted into the two swizzled bf16 chunks of its row
       auto put = [&](unsigned char* tile, int x, const uint4& raw) {
-        const int r = x * 4 * RPW + rin;
-        const int box = BOXES == 2 ? f ^ (x & 1) : 0;
+        const int r = row_of(x);
         uint4 c0, c1;
         payload16_bf16<FMT>(raw, c0, c1);
-        unsigned char* row = tile + box * WN * 128 + r * 128;
+        unsigned char* row = tile + box_of(x) * WN * 128 + r * 128;
         sts16(row + ((chunk ^ (r & 7)) << 4), c0);
         sts16(row + (((chunk + 1) ^ (r & 7)) << 4), c1);
       };
       // A landed payload tile expands in place: the passes into the half of
       // the tile that the payload does not occupy (head_dim 128: the first
-      // 64-column block, where pass x goes to block f ^ (x & 1); 64: rows
-      // [0, 64)) first, while the chunks of the other passes are read into
-      // registers; a barrier among the producers; then those. Then the
-      // stage's full barrier.
+      // 64-column block, where pass x goes to block f ^ (x & 1); 256:
+      // blocks 0-1, the even passes; 64: rows [0, 64)) first, while the
+      // chunks of the other passes are read into registers; a barrier
+      // among the producers; then those. Then the stage's full barrier.
       auto expand = [&](unsigned char* tile, uint64_t* full) {
         constexpr int HALF = PASSES / 2;
         auto pass_of = [&](int k, int second) {
-          return BOXES == 2 ? 2 * k + (f ^ second) : k + second * HALF;
+          return BOXES == 4   ? 2 * k + second
+                 : BOXES == 2 ? 2 * k + (f ^ second)
+                              : k + second * HALF;
         };
         uint4 hold[HALF];
 #pragma unroll
@@ -397,45 +432,106 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         fence_async_smem();  // the generic stores, before wgmma reads them
         mbar_arrive(full);
       };
-      // One elected thread copies tile i's K and V payload rows (those
-      // below kv_len; the rest of the half keeps finite stale values, which
-      // the mask and p = 0 cover) into the second halves of its stage, once
-      // the stage is free, and prefetches its k and v scales into L1, where
-      // the consumers read them.
       const size_t srow = (size_t)(b * hkv + kvh) * qk.ld;
-      auto copy_tile = [&](int i) {
-        const int st = i % STAGES, kv0 = (lo + i) * WN;
-        if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
-        const uint32_t bytes = (uint32_t)min(WN, kv_len - kv0) * D;
-        mbar_expect_tx(&pay_full[st], 2 * bytes);
-        bulk_load(sm + S::K + st * S::KV + S::KV / 2,
-                  qk.k + head + (size_t)kv0 * D, bytes, &pay_full[st]);
-        bulk_load(sm + S::V + st * S::KV + S::KV / 2,
-                  qk.v + head + (size_t)kv0 * D, bytes, &pay_full[st]);
+      if constexpr (SPLIT) {
+        // The wide instance's ring frees K's and V's slots apart, so their
+        // copies land on barriers of their own (pay_full K's, v_pay V's):
+        // tile i's K payload once the consumers have freed K's slot of tile
+        // i - 2 (k_empty, after its softmax), its V payload once they have
+        // freed V's (empty, after its PV product). One elected thread
+        // copies a tile's payload rows (those below kv_len; the rest of the
+        // half keeps finite stale values, which the mask and p = 0 cover)
+        // into the second half of the slot and prefetches its scales into
+        // L1, where the consumers read them.
+        auto copy = [&](int i, bool is_v) {
+          const int st = i % STAGES, kv0 = (lo + i) * WN;
+          if (i >= STAGES)
+            mbar_wait(is_v ? &empty[st] : &k_empty[st],
+                      (i / STAGES - 1) & 1);
+          uint64_t* bar = is_v ? &v_pay[st] : &pay_full[st];
+          const uint32_t bytes = (uint32_t)min(WN, kv_len - kv0) * D;
+          mbar_expect_tx(bar, bytes);
+          bulk_load(sm + (is_v ? S::V : S::K) + st * S::KV + S::KV / 2,
+                    (is_v ? qk.v : qk.k) + head + (size_t)kv0 * D, bytes,
+                    bar);
 #pragma unroll
-        for (int c = 0; c < WN / 32; ++c) {
-          prefetch_l1(qk.ks + srow + kv0 + 32 * c);
-          prefetch_l1(qk.vs + srow + kv0 + 32 * c);
+          for (int c = 0; c < WN / 32; ++c)
+            prefetch_l1((is_v ? qk.vs : qk.ks) + srow + kv0 + 32 * c);
+        };
+        // a landed K tile's ids (columns past kv_len are masked whatever
+        // their ids) and its expansion; a V tile's expansion
+        auto expand_k = [&](int i) {
+          const int st = i % STAGES, kv0 = (lo + i) * WN;
+          mbar_wait(&pay_full[st], (i / STAGES) & 1);
+          if (SEGS && pt < WN)
+            ids[st * WN + pt] = kv0 + pt < kv_len ? kv_ids[kv0 + pt] : 0;
+          expand(sm + S::K + st * S::KV, &k_full[st]);
+        };
+        auto expand_v = [&](int i) {
+          const int st = i % STAGES;
+          mbar_wait(&v_pay[st], (i / STAGES) & 1);
+          expand(sm + S::V + st * S::KV, &v_full[st]);
+        };
+        // The producer's step it runs beside the consumers' step it (tile
+        // it's S, tile it - 1's PV): it expands tile it + 1's K and tile
+        // it's V, which their step it + 1 needs, then copies tile it + 2's
+        // K and tile it + 1's V as step it frees their slots, so a copy
+        // has the rest of that step and the next to land.
+        if (pt == 0) {
+          copy(0, false);
+          copy(0, true);
+          if (n > 1) copy(1, false);
         }
-      };
-      if (pt == 0) copy_tile(0);
-      for (int it = 0; it < n; ++it) {
-        const int st = it % STAGES, kv0 = (lo + it) * WN;
-        // Tile it + 1's stage is that of tile it - 2, which the consumers
-        // free at the end of their step it - 1: until then this wait holds
-        // tile it's expansion (its barrier waits for thread 0), and their
-        // step it waits for tile it's K. Copies issued after the expansion
-        // put their own latency there instead, and a thread 0 that tests
-        // the stage between passes costs the expansion more: both were
-        // slower at both benchmark shapes (PERF.md).
-        if (pt == 0 && it + 1 < n) copy_tile(it + 1);
-        // the stage is free once its copies have landed: its ids (columns
-        // past kv_len are masked whatever their ids), then the expansion
-        mbar_wait(&pay_full[st], (it / STAGES) & 1);
-        if (SEGS) ids[st * WN + pt] = kv0 + pt < kv_len ? kv_ids[kv0 + pt]
-                                                         : 0;
-        expand(sm + S::K + st * S::KV, &k_full[st]);
-        expand(sm + S::V + st * S::KV, &v_full[st]);
+        expand_k(0);
+        for (int it = 0; it < n; ++it) {
+          if (it + 1 < n) expand_k(it + 1);
+          expand_v(it);
+          if (pt == 0) {
+            if (it + 2 < n) copy(it + 2, false);
+            if (it + 1 < n) copy(it + 1, true);
+          }
+        }
+      } else {
+        // One elected thread copies tile i's K and V payload rows (those
+        // below kv_len; the rest of the half keeps finite stale values,
+        // which the mask and p = 0 cover) into the second halves of its
+        // stage, once the stage is free, and prefetches its k and v scales
+        // into L1, where the consumers read them.
+        auto copy_tile = [&](int i) {
+          const int st = i % STAGES, kv0 = (lo + i) * WN;
+          if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
+          const uint32_t bytes = (uint32_t)min(WN, kv_len - kv0) * D;
+          mbar_expect_tx(&pay_full[st], 2 * bytes);
+          bulk_load(sm + S::K + st * S::KV + S::KV / 2,
+                    qk.k + head + (size_t)kv0 * D, bytes, &pay_full[st]);
+          bulk_load(sm + S::V + st * S::KV + S::KV / 2,
+                    qk.v + head + (size_t)kv0 * D, bytes, &pay_full[st]);
+#pragma unroll
+          for (int c = 0; c < WN / 32; ++c) {
+            prefetch_l1(qk.ks + srow + kv0 + 32 * c);
+            prefetch_l1(qk.vs + srow + kv0 + 32 * c);
+          }
+        };
+        if (pt == 0) copy_tile(0);
+        for (int it = 0; it < n; ++it) {
+          const int st = it % STAGES, kv0 = (lo + it) * WN;
+          // Tile it + 1's stage is that of tile it - 2, which the consumers
+          // free at the end of their step it - 1: until then this wait
+          // holds tile it's expansion (its barrier waits for thread 0), and
+          // their step it waits for tile it's K. Copies issued after the
+          // expansion put their own latency there instead, and a thread 0
+          // that tests the stage between passes costs the expansion more:
+          // both were slower at both benchmark shapes (PERF.md).
+          if (pt == 0 && it + 1 < n) copy_tile(it + 1);
+          // the stage is free once its copies have landed: its ids
+          // (columns past kv_len are masked whatever their ids), then the
+          // expansion
+          mbar_wait(&pay_full[st], (it / STAGES) & 1);
+          if (SEGS) ids[st * WN + pt] = kv0 + pt < kv_len ? kv_ids[kv0 + pt]
+                                                           : 0;
+          expand(sm + S::K + st * S::KV, &k_full[st]);
+          expand(sm + S::V + st * S::KV, &v_full[st]);
+        }
       }
     } else if (tid % 128 < 32) {
       const int lane = tid % 32;
@@ -484,7 +580,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     }
   } else {
     // ------------------------------------------------------------ consumers
-    regs_alloc<kConsumerRegs<FMT>>();
+    regs_alloc<kConsumerRegs<FMT, D>>();
     const int t = tid % 128, warp = t / 32, lane = t % 32;
     const int r0 = q0 + wg * 64;                 // the warpgroup's first row
     const unsigned char* qw = sm + S::Q + wg * 64 * 128;  // its q rows

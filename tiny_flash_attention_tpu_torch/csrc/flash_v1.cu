@@ -56,14 +56,27 @@
 //     No thread waits for its stores: the next access to a slot is the
 //     same thread's reload, one KV step later, in program order. FA1's
 //     round trip costs issue slots and L2 traffic, not a stall.
+//   * head dims in (128, 256] (the wide instance, V1Tiles<256>): 64-row kv
+//     tiles, S as m64n64k16 and PV as m64n256k16 (O 128 floats a thread,
+//     its state slot 33 float4s), the K/V ring in two stages and the q
+//     tile in one (192 KiB; a second q stage beside them would need 256):
+//     the producer loads the next step's q tile once this step's S has
+//     read the stage, while its softmax and PV run.
 //
 // The f32 instance runs on the CUDA cores (never TF32) with FA1's order and
 // round trip kept; its design is at the f32 path below.
+//
+// Head dims in (128, 256] run the wide instances (the wrapper pads them to
+// 256): at the tiles above a block would need 394,320 bytes of shared
+// memory in bf16 and 427,104 in f32, so they take smaller tiles (V1Tiles,
+// V1F32Tiles; designs at each path).
 //
 // Tile sizes, stages and q tiles a block come from
 // tiny_flash_attention_tpu_torch/ops/configs.py as -D defines; the
 // shared-memory layouts are V1Smem and V1F32Smem (tfa_flash_v1_smem exports
 // their sizes).
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -71,7 +84,13 @@
     !defined(TFA_V1_BF16_THREADS) || !defined(TFA_V1_BF16_STAGES) ||    \
     !defined(TFA_V1_BF16_Q_TILES) || !defined(TFA_V1_F32_BLOCK_M) ||    \
     !defined(TFA_V1_F32_BLOCK_N) || !defined(TFA_V1_F32_THREADS) ||     \
-    !defined(TFA_V1_F32_Q_TILES)
+    !defined(TFA_V1_F32_Q_TILES) || !defined(TFA_V1_BF16_WIDE_BLOCK_M) || \
+    !defined(TFA_V1_BF16_WIDE_BLOCK_N) ||                               \
+    !defined(TFA_V1_BF16_WIDE_THREADS) ||                               \
+    !defined(TFA_V1_BF16_WIDE_Q_STAGES) ||                              \
+    !defined(TFA_V1_BF16_WIDE_KV_STAGES) ||                             \
+    !defined(TFA_V1_F32_WIDE_BLOCK_M) ||                                \
+    !defined(TFA_V1_F32_WIDE_BLOCK_N) || !defined(TFA_V1_F32_WIDE_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
 
@@ -82,30 +101,52 @@ typedef __nv_bfloat16 bf16;
 // ---------------------------------------------------------------- bf16 path
 
 constexpr int BM = TFA_V1_BF16_BLOCK_M;        // q rows per tile
-constexpr int BN = TFA_V1_BF16_BLOCK_N;        // kv rows per tile
 constexpr int THREADS = TFA_V1_BF16_THREADS;   // 2 consumers + 1 producer
 constexpr int Q_TILES = TFA_V1_BF16_Q_TILES;   // q tiles a block
-static_assert(BM == 128 && BN == 128 && THREADS == 384,
+static_assert(BM == 128 && TFA_V1_BF16_BLOCK_N == 128 && THREADS == 384 &&
+                  TFA_V1_BF16_WIDE_BLOCK_M == BM &&
+                  TFA_V1_BF16_WIDE_BLOCK_N == 64 &&
+                  TFA_V1_BF16_WIDE_THREADS == THREADS,
               "two consumer warpgroups of 64 q rows and a producer "
-              "warpgroup over 128-row kv tiles");
+              "warpgroup over 128-row kv tiles (64-row at the wide "
+              "instance)");
 constexpr int CONSUMERS = 256;
 // 40 * 128 + 232 * 256 = 64512 of the SM's 65536 registers
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-// Shared memory of one block, in bytes from a 1024-aligned base.
-// The q ring and the K/V ring have STAGES stages each.
+// The kv tile and the rings of the instance over tiles of D columns: up to
+// 128 columns, 128-row kv tiles and TFA_V1_BF16_STAGES stages of q and of
+// K/V; at 256 (the wide instance) a 128-row q tile is 64 KiB and a 128-row
+// K+V stage 128 KiB, so its kv tiles are 64 rows (S 32 f32 registers a
+// consumer thread beside O's 128, as B1's wide instance), in rings of
+// TFA_V1_BF16_WIDE_Q_STAGES q and TFA_V1_BF16_WIDE_KV_STAGES K/V stages.
+template <int D>
+struct V1Tiles {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int BN = WIDE ? TFA_V1_BF16_WIDE_BLOCK_N
+                                 : TFA_V1_BF16_BLOCK_N;
+  static constexpr int Q_STAGES = WIDE ? TFA_V1_BF16_WIDE_Q_STAGES
+                                       : TFA_V1_BF16_STAGES;
+  static constexpr int KV_STAGES = WIDE ? TFA_V1_BF16_WIDE_KV_STAGES
+                                        : TFA_V1_BF16_STAGES;
+};
+
+// Shared memory of one block, in bytes from a 1024-aligned base: the q
+// ring (QS stages) and the K/V ring (KS stages).
 template <int D>
 struct V1Smem {
-  static constexpr int STAGES = TFA_V1_BF16_STAGES;
+  static constexpr int BN = V1Tiles<D>::BN;      // kv rows per tile
+  static constexpr int QS = V1Tiles<D>::Q_STAGES;
+  static constexpr int KS = V1Tiles<D>::KV_STAGES;
   static constexpr int QT = BM * D * 2;          // one q tile
   static constexpr int KV = BN * D * 2;          // one K or V tile
-  static constexpr int Q = 0;                    // [STAGES] q tiles
-  static constexpr int K = STAGES * QT;          // [STAGES] K tiles
-  static constexpr int V = K + STAGES * KV;      // [STAGES] V tiles
-  // q_full, q_empty, k_full, v_full, kv_empty, [STAGES] each
-  static constexpr int BAR = V + STAGES * KV;
-  static constexpr int TOTAL = BAR + 5 * STAGES * 8;
+  static constexpr int Q = 0;                    // [QS] q tiles
+  static constexpr int K = QS * QT;              // [KS] K tiles
+  static constexpr int V = K + KS * KV;          // [KS] V tiles
+  // q_full, q_empty, [QS] each; k_full, v_full, kv_empty, [KS] each
+  static constexpr int BAR = V + KS * KV;
+  static constexpr int TOTAL = BAR + (2 * QS + 3 * KS) * 8;
   static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
   static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
 };
@@ -127,16 +168,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                           int q_len, int kv_len, int causal,
                           float scale_log2) {
   using S = V1Smem<D>;
-  constexpr int STAGES = S::STAGES;
+  constexpr int BN = S::BN;                      // kv rows per tile
+  constexpr int QS = S::QS, KS = S::KS;          // q and K/V ring stages
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::BAR);
-  uint64_t* q_empty = q_full + STAGES;
-  uint64_t* k_full = q_empty + STAGES;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* kv_empty = v_full + STAGES;
+  uint64_t* q_empty = q_full + QS;
+  uint64_t* k_full = q_empty + QS;
+  uint64_t* v_full = k_full + KS;
+  uint64_t* kv_empty = v_full + KS;
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int bh = blockIdx.y;
@@ -155,12 +197,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   if (tid == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&q_full[st], 1);
-      mbar_init(&q_empty[st], CONSUMERS);
-      mbar_init(&k_full[st], 1);
-      mbar_init(&v_full[st], 1);
-      mbar_init(&kv_empty[st], CONSUMERS);
+    for (int st = 0; st < (QS > KS ? QS : KS); ++st) {
+      if (st < QS) {
+        mbar_init(&q_full[st], 1);
+        mbar_init(&q_empty[st], CONSUMERS);
+      }
+      if (st < KS) {
+        mbar_init(&k_full[st], 1);
+        mbar_init(&v_full[st], 1);
+        mbar_init(&kv_empty[st], CONSUMERS);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -172,8 +218,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (tid % 128 == 0) {
       int qc = 0;                                // q tiles loaded so far
       for (int j = 0; j < kv_end; ++j) {         // the outer loop: KV tiles
-        const int st = j % STAGES;
-        if (j >= STAGES) mbar_wait(&kv_empty[st], (j / STAGES - 1) & 1);
+        const int st = j % KS;
+        if (j >= KS) mbar_wait(&kv_empty[st], (j / KS - 1) & 1);
         mbar_expect_tx(&k_full[st], S::KV);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c)
@@ -187,9 +233,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int i = 0; i < Q_TILES; ++i) {      // inner: q tiles
           if (j >= hi[i]) continue;
-          const int qs = qc % STAGES;
-          if (qc >= STAGES)
-            mbar_wait(&q_empty[qs], (qc / STAGES - 1) & 1);
+          const int qs = qc % QS;
+          if (qc >= QS) mbar_wait(&q_empty[qs], (qc / QS - 1) & 1);
           mbar_expect_tx(&q_full[qs], S::QT);
 #pragma unroll
           for (int c = 0; c < BOXES; ++c)
@@ -229,13 +274,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     int qc = 0;
     for (int j = 0; j < kv_end; ++j) {           // the outer loop: KV tiles
-      const int st = j % STAGES, kv0 = j * BN;
+      const int st = j % KS, kv0 = j * BN;
       bool first = true;                         // first q tile of this step
 #pragma unroll 1
       for (int i = 0; i < Q_TILES; ++i) {        // inner: q tiles
         if (j >= hi[i]) continue;
         const int tile = tiles[i], q0 = tile * BM;
-        const int qs = qc % STAGES;
+        const int qs = qc % QS;
         // FA1's round trip: the previous step's state goes back, this
         // step's comes in; both issued before the S product
         if (pending != nullptr) store_state(pending);
@@ -266,7 +311,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // rounded to bf16 (the TPU kernels' fold), in place, this
         // warpgroup's 64 rows; rows past q_len are TMA's zeros
         unsigned char* qw = sm + S::Q + qs * S::QT + wg * 64 * 128;
-        mbar_wait(&q_full[qs], (qc / STAGES) & 1);
+        mbar_wait(&q_full[qs], (qc / QS) & 1);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c) {
           uint4* p = reinterpret_cast<uint4*>(qw + c * BM * 128);
@@ -283,14 +328,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         fence_async_smem();  // the generic stores, before wgmma reads them
         named_bar(1 + wg, 128);
 
-        // S = Q K^T: 64 q rows x 128 kv columns
-        if (first) mbar_wait(&k_full[st], (j / STAGES) & 1);
+        // S = Q K^T: 64 q rows x BN kv columns
+        if (first) mbar_wait(&k_full[st], (j / KS) & 1);
         const unsigned char* kt = sm + S::K + st * S::KV;
-        float s[64];
+        float s[BN / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n128<0, 0>(
+          wgmma_ss<BN, 0, 0>(
               s, smem_desc(qw + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024),
               smem_desc(kt + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0);
@@ -361,15 +406,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int x = 0; x < 4; ++x)
             pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-        if (first) mbar_wait(&v_full[st], (j / STAGES) & 1);
+        if (first) mbar_wait(&v_full[st], (j / KS) & 1);
         first = false;
         const unsigned char* vt = sm + S::V + st * S::KV;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
-          const uint64_t db = smem_desc(vt + kk * 16 * 128, BN * 128, 1024);
-          if constexpr (D == 128) wgmma_rs_n128(oacc, pa[kk], db);
-          else wgmma_rs_n64(oacc, pa[kk], db);
+          wgmma_rs<D>(oacc, pa[kk],
+                      smem_desc(vt + kk * 16 * 128, BN * 128, 1024));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -418,8 +462,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv;
   if (!bf16_map(&mq, q, D, q_len, bh, BM) ||
-      !bf16_map(&mk, k, D, kv_len, bh, BN) ||
-      !bf16_map(&mv, v, D, kv_len, bh, BN))
+      !bf16_map(&mk, k, D, kv_len, bh, S::BN) ||
+      !bf16_map(&mv, v, D, kv_len, bh, S::BN))
     return cudaErrorInvalidValue;
   const dim3 grid(n_blocks, bh);
   kernel<<<grid, THREADS, S::ALLOC, stream>>>(
@@ -470,40 +514,75 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // by the row's 8-row group), so the strided float4 reads are free of bank
 // conflicts. Shared memory (V1F32Smem): 230,496 bytes at head_dim 128, one
 // block of 17 warps an SM.
+//
+// Head dims in (128, 256] (the wide instance, V1F32Tiles<256>): at 64 x 64
+// a block would need 427,104 bytes, so the tiles are 32 q rows and 32 kv
+// rows (205,408 bytes) and the roles keep their threads with their maps
+// scaled: an S thread holds 4 x 2 scores (rows 4a.., the q chunks keyed by
+// the row's 4-row group), a PV thread still 8 rows x 4 columns of O (32 x
+// 256 over 256 threads, as 64 x 128 at 128), so a row group spans two
+// warps, and each warp keeps its own copy of the group's (m, l) in the
+// state slot (a warp that read the other's would race its store).
 
-constexpr int FM = TFA_V1_F32_BLOCK_M;         // q rows per tile
-constexpr int FN = TFA_V1_F32_BLOCK_N;         // kv rows per tile
 constexpr int FTHREADS = TFA_V1_F32_THREADS;   // 2 S groups, PV, loader
 constexpr int F_QT = TFA_V1_F32_Q_TILES;       // q tiles a block
-static_assert(FM == 64 && FN == 64 && FTHREADS == 544 && F_QT == 2,
-              "two S groups of 128 threads over 64 x 64 score tiles, a PV "
-              "group of 256 and a loader warp; the S groups take the steps "
-              "in turn, so with two q tiles a block each takes at most one "
-              "step a kv tile");
+static_assert(TFA_V1_F32_BLOCK_M == 64 && TFA_V1_F32_BLOCK_N == 64 &&
+                  TFA_V1_F32_WIDE_BLOCK_M == 32 &&
+                  TFA_V1_F32_WIDE_BLOCK_N == 32 && FTHREADS == 544 &&
+                  TFA_V1_F32_WIDE_THREADS == FTHREADS && F_QT == 2,
+              "two S groups of 128 threads over 64 x 64 score tiles (32 x "
+              "32 at the wide instance), a PV group of 256 and a loader "
+              "warp; the S groups take the steps in turn, so with two q "
+              "tiles a block each takes at most one step a kv tile");
 constexpr int S_THREADS = 128, PV_THREADS = 256;
 
+// The f32 tiles at head_dim D: FM q rows and FN kv rows (64, or 32 above
+// 128 columns); an S thread holds RW x CW scores (rows RW a + [0, RW),
+// columns c16 + 16 [0, CW)), a PV thread RP rows x 4 columns of O.
+template <int D>
+struct V1F32Tiles {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int FM = WIDE ? TFA_V1_F32_WIDE_BLOCK_M
+                                 : TFA_V1_F32_BLOCK_M;
+  static constexpr int FN = WIDE ? TFA_V1_F32_WIDE_BLOCK_N
+                                 : TFA_V1_F32_BLOCK_N;
+  static constexpr int RW = FM / 8, CW = FN / 16;
+  static constexpr int RP = FM * D / (4 * PV_THREADS);
+  static_assert(FM == FN && RW % 4 == 0 && RP % 4 == 0,
+                "square tiles, whole float4s of rows");
+};
 
 // Shared memory of an f32 block, in floats: the K and V rings, one q tile
-// and one p'^T (64 x 64) per S group, and its (mt, lt) rows; then the
+// and one p'^T (FN x FM) per S group, and its (mt, lt) rows; then the
 // mbarriers: k_full, k_empty, q_full, q_empty, p_full, p_empty, two each.
 template <int D>
 struct V1F32Smem {
-  static constexpr int TILE = FM * D;
-  static constexpr int K = 0;                    // [2][TILE]
-  static constexpr int V = K + 2 * TILE;         // [2][TILE]
-  static constexpr int Q = V + 2 * TILE;         // [2 groups][TILE]
-  static constexpr int P = Q + 2 * TILE;         // [2 groups][FN][FM]
+  static constexpr int FM = V1F32Tiles<D>::FM, FN = V1F32Tiles<D>::FN;
+  static constexpr int QT = FM * D, KT = FN * D;
+  static constexpr int K = 0;                    // [2][KT]
+  static constexpr int V = K + 2 * KT;           // [2][KT]
+  static constexpr int Q = V + 2 * KT;           // [2 groups][QT]
+  static constexpr int P = Q + 2 * QT;           // [2 groups][FN][FM]
   static constexpr int R = P + 2 * FN * FM;      // [2 groups][2][FM]
   static constexpr int BAR = R + 2 * 2 * FM;
   static constexpr int BYTES = BAR * 4 + 12 * 8;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
+// Lanes of a PV row group's segment in one warp: its C4 = D / 4 threads,
+// at most a warp.
+template <int D>
+__host__ __device__ constexpr int pv_segment() {
+  return D / 4 < 32 ? D / 4 : 32;
+}
+
 // float4s of one q tile's state slot: the PV threads' accumulators, then
-// the (m, l) of the 64 rows
+// the (m, l) of each segment's RP rows (ML = RP / 2 float4s a segment; 128
+// floats in all at every width)
 template <int D>
 __host__ __device__ constexpr int f32_state_f4() {
-  return FM * (D + 2) / 4;
+  return V1F32Tiles<D>::FM * D / 4 +
+         PV_THREADS / pv_segment<D>() * V1F32Tiles<D>::RP / 2;
 }
 
 // Float offset of element (r, c) of a row-major tile of W-wide f32 rows,
@@ -521,15 +600,15 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Rows [r0, r0 + 64) of a row-major (n_rows, D) f32 matrix into a swizzled
-// tile (chunk key: the row >> shift), `nt` threads from `i0`; rows past
-// n_rows land as zeros.
-template <int D>
+// Rows [r0, r0 + ROWS) of a row-major (n_rows, D) f32 matrix into a
+// swizzled tile (chunk key: the row >> shift), `nt` threads from `i0`; rows
+// past n_rows land as zeros.
+template <int D, int ROWS>
 __device__ __forceinline__ void stage_f32(float* t, const float* g, int r0,
                                           int n_rows, int shift, int i0,
                                           int nt) {
   constexpr int C4 = D / 4;
-  for (int x = i0; x < FM * C4; x += nt) {
+  for (int x = i0; x < ROWS * C4; x += nt) {
     const int r = x / C4, c = (x % C4) * 4;
     const bool ok = r0 + r < n_rows;
     cp_async16(t + swf<D>(r, c, r >> shift),
@@ -546,7 +625,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                         const int* __restrict__ schedule, int q_len,
                         int kv_len, int causal, float scale_log2) {
   using S = V1F32Smem<D>;
-  constexpr int TILE = S::TILE;
+  constexpr int FM = S::FM, FN = S::FN;
+  constexpr int RW = V1F32Tiles<D>::RW, CW = V1F32Tiles<D>::CW;
+  constexpr int QSHIFT = RW == 8 ? 3 : 2;        // q chunk key: row / RW
   extern __shared__ __align__(16) float fsm[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(fsm + S::BAR);
   uint64_t* k_full = bars;
@@ -594,7 +675,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     for (int j = 0; j < kv_end; ++j) {           // the outer loop: kv tiles
       const int st = j & 1;
       if (j >= 2) mbar_wait(&k_empty[st], ((j >> 1) - 1) & 1);
-      stage_f32<D>(fsm + S::K + st * TILE, kg, j * FN, kv_len, 0, lane, 32);
+      stage_f32<D, FN>(fsm + S::K + st * S::KT, kg, j * FN, kv_len, 0, lane,
+                       32);
       cp_async_arrive(&k_full[st]);
 #pragma unroll
       for (int i = 0; i < F_QT; ++i) {           // inner: q tiles
@@ -603,8 +685,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         ++s;
         if (qn[g] >= 1) mbar_wait(&q_empty[g], (qn[g] - 1) & 1);
         ++qn[g];
-        stage_f32<D>(fsm + S::Q + g * TILE, qg, tiles[i] * FM, q_len, 3,
-                     lane, 32);
+        stage_f32<D, FM>(fsm + S::Q + g * S::QT, qg, tiles[i] * FM, q_len,
+                         QSHIFT, lane, 32);
         cp_async_arrive(&q_full[g]);
       }
     }
@@ -612,14 +694,15 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   } else if (tid < 2 * S_THREADS) {
     // ------------------------------------------------------------ S groups
     const int g = tid / S_THREADS, u = tid % S_THREADS;
-    const int a = u / 16, c16 = u % 16;  // rows 8a + [0, 8), columns c16 + 16i
-    float* qs = fsm + S::Q + g * TILE;
+    // rows RW a + [0, RW), columns c16 + 16 i
+    const int a = u / 16, c16 = u % 16;
+    float* qs = fsm + S::Q + g * S::QT;
     float* pt = fsm + S::P + g * FN * FM;        // p'^T [kv][q]
     float* rows = fsm + S::R + g * 2 * FM;       // mt, lt
     int s = 0, qn = 0, pn = 0;
     for (int j = 0; j < kv_end; ++j) {
       const int st = j & 1, kv0 = j * FN;
-      const float* kt = fsm + S::K + st * TILE;
+      const float* kt = fsm + S::K + st * S::KT;
       bool had = false;
 #pragma unroll 1
       for (int i = 0; i < F_QT; ++i) {
@@ -633,7 +716,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         // f32 (the plain version's rounding), in place
         mbar_wait(&q_full[g], qn & 1);
         ++qn;
-        for (int x = u; x < TILE / 4; x += S_THREADS) {
+        for (int x = u; x < S::QT / 4; x += S_THREADS) {
           float4* p4 = reinterpret_cast<float4*>(qs) + x;
           float4 y = *p4;
           y.x *= scale_log2; y.y *= scale_log2;
@@ -642,26 +725,26 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         }
         named_bar(1 + g, S_THREADS);
         mbar_wait(&k_full[st], (j >> 1) & 1);
-        // S: rows 8a + r, columns c16 + 16 i
-        float sc[8][4];
+        // S: rows RW a + r, columns c16 + 16 i
+        float sc[RW][CW];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int r = 0; r < RW; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) sc[r][c] = 0.f;
+          for (int c = 0; c < CW; ++c) sc[r][c] = 0.f;
 #pragma unroll 1
         for (int d = 0; d < D; d += 4) {
-          float4 kv[4];
+          float4 kv[CW];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
+          for (int c = 0; c < CW; ++c) {
             const int kr = c16 + 16 * c;
             kv[c] = *reinterpret_cast<const float4*>(kt + swf<D>(kr, d, kr));
           }
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
+          for (int r = 0; r < RW; ++r) {
             const float4 qv = *reinterpret_cast<const float4*>(
-                qs + swf<D>(8 * a + r, d, a));
+                qs + swf<D>(RW * a + r, d, a));
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
+            for (int c = 0; c < CW; ++c) {
               sc[r][c] = fmaf(qv.x, kv[c].x, sc[r][c]);
               sc[r][c] = fmaf(qv.y, kv[c].y, sc[r][c]);
               sc[r][c] = fmaf(qv.z, kv[c].z, sc[r][c]);
@@ -674,12 +757,12 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         // the mask where the thread's rows straddle the diagonal or the kv
         // edge
         if (kv0 + FN > kv_len ||
-            (causal && kv0 + FN - 1 > q0 + 8 * a + offset)) {
+            (causal && kv0 + FN - 1 > q0 + RW * a + offset)) {
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
+          for (int r = 0; r < RW; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int col = kv0 + c16 + 16 * c, row = q0 + 8 * a + r;
+            for (int c = 0; c < CW; ++c) {
+              const int col = kv0 + c16 + 16 * c, row = q0 + RW * a + r;
               if (col >= kv_len || (causal && col > row + offset))
                 sc[r][c] = kMaskValue;
             }
@@ -687,17 +770,18 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         // the tile's own softmax (log2 domain): row max and sum over the
         // 16 lanes of a row group; a row whose columns are all masked here
         // gives p' = 0, lt = 0 and mt at the mask value
-        float mt[8], lt[8];
+        float mt[RW], lt[RW];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
+        for (int r = 0; r < RW; ++r) {
+          float mx = fmaxf(sc[r][0], sc[r][1]);
+          if constexpr (CW == 4) mx = fmaxf(mx, fmaxf(sc[r][2], sc[r][3]));
 #pragma unroll
           for (int w = 1; w < 16; w <<= 1)
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
           const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
           float sum = 0.f;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
+          for (int c = 0; c < CW; ++c) {
             sc[r][c] = exp2f(sc[r][c] - mx) * keep;
             sum += sc[r][c];
           }
@@ -712,20 +796,26 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         if (pn >= 1) mbar_wait(&p_empty[g], (pn - 1) & 1);
         ++pn;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < CW; ++c) {
           const int col = c16 + 16 * c;
-          *reinterpret_cast<float4*>(pt + swf<FM>(col, 8 * a, col)) =
-              make_float4(sc[0][c], sc[1][c], sc[2][c], sc[3][c]);
-          *reinterpret_cast<float4*>(pt + swf<FM>(col, 8 * a + 4, col)) =
-              make_float4(sc[4][c], sc[5][c], sc[6][c], sc[7][c]);
+#pragma unroll
+          for (int h = 0; h < RW / 4; ++h)
+            *reinterpret_cast<float4*>(pt + swf<FM>(col, RW * a + 4 * h,
+                                                    col)) =
+                make_float4(sc[4 * h][c], sc[4 * h + 1][c], sc[4 * h + 2][c],
+                            sc[4 * h + 3][c]);
         }
         if (c16 == 0) {
-          float4* r4 = reinterpret_cast<float4*>(rows + 8 * a);
-          r4[0] = make_float4(mt[0], mt[1], mt[2], mt[3]);
-          r4[1] = make_float4(mt[4], mt[5], mt[6], mt[7]);
-          r4 = reinterpret_cast<float4*>(rows + FM + 8 * a);
-          r4[0] = make_float4(lt[0], lt[1], lt[2], lt[3]);
-          r4[1] = make_float4(lt[4], lt[5], lt[6], lt[7]);
+          float4* m4 = reinterpret_cast<float4*>(rows + RW * a);
+#pragma unroll
+          for (int h = 0; h < RW / 4; ++h)
+            m4[h] = make_float4(mt[4 * h], mt[4 * h + 1], mt[4 * h + 2],
+                                mt[4 * h + 3]);
+          float4* l4 = reinterpret_cast<float4*>(rows + FM + RW * a);
+#pragma unroll
+          for (int h = 0; h < RW / 4; ++h)
+            l4[h] = make_float4(lt[4 * h], lt[4 * h + 1], lt[4 * h + 2],
+                                lt[4 * h + 3]);
         }
         mbar_arrive(&p_full[g]);
       }
@@ -734,14 +824,21 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   } else {
     // ------------------------------------------------------------ PV group
     constexpr int C4 = D / 4;                    // column chunks
-    constexpr int RP = D / 16;                   // rows a thread
+    constexpr int RP = V1F32Tiles<D>::RP;        // rows a thread
     constexpr int ML = RP / 2;                   // float4s of (m, l) a row group
+    // a row group's C4 threads are segments of GW lanes (two warps at
+    // 256): lanes [0, ML) of each segment keep its (m, l) and shuffle them
+    // over it
+    constexpr int GW = pv_segment<D>();
     const int w = tid - 2 * S_THREADS;
     const int e = w % C4, a2 = w / C4;           // rows RP a2 + [0, RP)
+    // this thread's segment and its lane there (the row group and e where
+    // a group is one segment)
+    const int seg = GW == C4 ? a2 : w / GW, sl_lane = GW == C4 ? e : w % GW;
     const float* vg = v + (size_t)bh * kv_len * D;
     float* og = o + (size_t)bh * q_len * D;
     float* lg = lse + (size_t)bh * q_len;
-    stage_f32<D>(fsm + S::V, vg, 0, kv_len, 0, w, PV_THREADS);
+    stage_f32<D, FN>(fsm + S::V, vg, 0, kv_len, 0, w, PV_THREADS);
     cp_async_commit();
     int s = 0, pn[2] = {0, 0};
     for (int j = 0; j < kv_end; ++j) {
@@ -750,18 +847,18 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       cp_async_wait<0>();
       named_bar(3, PV_THREADS);
       if (j + 1 < kv_end) {
-        stage_f32<D>(fsm + S::V + ((j + 1) & 1) * TILE, vg, (j + 1) * FN,
-                     kv_len, 0, w, PV_THREADS);
+        stage_f32<D, FN>(fsm + S::V + ((j + 1) & 1) * S::KT, vg,
+                         (j + 1) * FN, kv_len, 0, w, PV_THREADS);
         cp_async_commit();
       }
-      const float* vt = fsm + S::V + (j & 1) * TILE;
+      const float* vt = fsm + S::V + (j & 1) * S::KT;
 #pragma unroll 1
       for (int i = 0; i < F_QT; ++i) {
         if (j >= hi[i]) continue;
         const int g = s & 1;
         ++s;
         float4* sl = state + ((size_t)bh * n_q + tiles[i]) * f32_state_f4<D>();
-        float4* ml_slot = sl + RP * PV_THREADS + a2 * ML + e;
+        float4* ml_slot = sl + RP * PV_THREADS + seg * ML + sl_lane;
         mbar_wait(&p_full[g], pn[g] & 1);
         ++pn[g];
         const float* pt = fsm + S::P + g * FN * FM;
@@ -815,21 +912,21 @@ __global__ void __launch_bounds__(FTHREADS, 1)
             const float4 x = sl[r * PV_THREADS + w];
             acc[r][0] = x.x; acc[r][1] = x.y; acc[r][2] = x.z; acc[r][3] = x.w;
           }
-          if (e < ML) ml = *ml_slot;
+          if (sl_lane < ML) ml = *ml_slot;
         } else {
 #pragma unroll
           for (int r = 0; r < RP; ++r)
             acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
         }
-        // the merge with the reloaded state: lanes [0, RP / 4) of the row
-        // group hold m, the next RP / 4 l, broadcast by shuffles
+        // the merge with the reloaded state: lanes [0, RP / 4) of the
+        // segment hold m, the next RP / 4 l, broadcast by shuffles
         float m_new[RP], l_new[RP];
 #pragma unroll
         for (int r = 0; r < RP; ++r) {
           const float comp[4] = {ml.x, ml.y, ml.z, ml.w};
-          float m_prev = __shfl_sync(0xffffffffu, comp[r % 4], r / 4, C4);
+          float m_prev = __shfl_sync(0xffffffffu, comp[r % 4], r / 4, GW);
           float l_prev =
-              __shfl_sync(0xffffffffu, comp[r % 4], RP / 4 + r / 4, C4);
+              __shfl_sync(0xffffffffu, comp[r % 4], RP / 4 + r / 4, GW);
           if (j == 0) {
             m_prev = -INFINITY;
             l_prev = 0.f;
@@ -850,7 +947,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
                 make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
 #pragma unroll
           for (int f = 0; f < ML; ++f) {
-            if (e != f) continue;
+            if (sl_lane != f) continue;
             const float* src = f < RP / 4 ? m_new : l_new;
             const int h = f % (RP / 4);
             *ml_slot = make_float4(src[4 * h], src[4 * h + 1], src[4 * h + 2],
@@ -894,17 +991,41 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// One launch of the instance for dtype at head_dim D, after checking that
+// the schedule covers every q tile and the scratch holds every state slot.
+template <int D>
+cudaError_t launch_v1(const void* q, const void* k, const void* v, void* o,
+                      void* lse, float* state, const int* schedule,
+                      int n_blocks, long long state_floats, int bh,
+                      int q_len, int kv_len, int causal, float scale_log2,
+                      int dtype, cudaStream_t s) {
+  const int m = dtype == 0 ? BM : V1F32Tiles<D>::FM;
+  const long long n_q = (q_len + m - 1) / m;
+  const long long slot_floats =
+      4LL * (dtype == 0 ? 2 * state_f4<D>() : f32_state_f4<D>());
+  if ((long long)n_blocks * (dtype == 0 ? Q_TILES : F_QT) < n_q ||
+      state_floats < (long long)bh * n_q * slot_floats)
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? launch_bf16<D>(q, k, v, o, lse, state, schedule,
+                                     n_blocks, bh, q_len, kv_len, causal,
+                                     scale_log2, s)
+                    : launch_f32<D>(q, k, v, o, lse, state, schedule,
+                                    n_blocks, bh, q_len, kv_len, causal,
+                                    scale_log2, s);
+}
+
 }  // namespace
 
 // Returns a cudaError_t: 0 when the kernel was launched. bh = batch *
-// heads; dtype: 0 bf16, 1 f32; head_dim: 64 or 128. `state` holds
+// heads; dtype: 0 bf16, 1 f32; head_dim: 64, 128 or 256. `state` holds
 // `state_floats` f32 of scratch that needs no initial values: the slots of
 // every (bh, q tile), bf16 128 * (head_dim + 8) floats a 128-row tile, f32
-// 64 * (head_dim + 2) a 64-row tile (ops/flash_v1.py::v1_state_floats).
-// `schedule` holds n_blocks x the dtype's q tiles a block (-1: none), every
-// q tile of its block_m once (ops/flash_v1.py::v1_schedule). The caller has
-// checked shapes, contiguity and 16-byte alignment; a bf16 launch whose
-// tensor maps cannot be encoded returns cudaErrorInvalidValue.
+// FM * head_dim + 128 an FM-row tile (64 rows, 32 at 256;
+// ops/flash_v1.py::v1_state_floats). `schedule` holds n_blocks x the
+// dtype's q tiles a block (-1: none), every q tile of the instance's
+// block_m once (ops/flash_v1.py::v1_schedule). The caller has checked
+// shapes, contiguity and 16-byte alignment; a bf16 launch whose tensor maps
+// cannot be encoded returns cudaErrorInvalidValue.
 extern "C" int tfa_flash_v1(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* state,
                             const void* schedule, int n_blocks,
@@ -912,47 +1033,31 @@ extern "C" int tfa_flash_v1(const void* q, const void* k, const void* v,
                             int kv_len, int head_dim, int causal,
                             float scale_log2, int dtype, void* stream) {
   if (bh <= 0 || q_len <= 0 || kv_len <= 0 || schedule == nullptr ||
-      (head_dim != 64 && head_dim != 128))
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sf = static_cast<float*>(state);
-  const int* sched = static_cast<const int*>(schedule);
-  if (dtype == 0) {
-    const long long n_q = (q_len + BM - 1) / BM;
-    if (n_blocks * Q_TILES < n_q ||
-        state_floats < (long long)bh * n_q * BM * (head_dim + 8))
-      return (int)cudaErrorInvalidValue;
-    return (int)(head_dim == 128
-                     ? launch_bf16<128>(q, k, v, o, lse, sf, sched, n_blocks,
-                                        bh, q_len, kv_len, causal,
-                                        scale_log2, s)
-                     : launch_bf16<64>(q, k, v, o, lse, sf, sched, n_blocks,
-                                       bh, q_len, kv_len, causal, scale_log2,
-                                       s));
+  const auto launch = [&](auto width) {
+    return (int)launch_v1<decltype(width)::value>(
+        q, k, v, o, lse, static_cast<float*>(state),
+        static_cast<const int*>(schedule), n_blocks, state_floats, bh, q_len,
+        kv_len, causal, scale_log2, dtype, static_cast<cudaStream_t>(stream));
+  };
+  switch (head_dim) {
+    case 64: return launch(std::integral_constant<int, 64>());
+    case 128: return launch(std::integral_constant<int, 128>());
+    case 256: return launch(std::integral_constant<int, 256>());
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    const long long n_q = (q_len + FM - 1) / FM;
-    if (n_blocks * F_QT < n_q ||
-        state_floats < (long long)bh * n_q * FM * (head_dim + 2))
-      return (int)cudaErrorInvalidValue;
-    return (int)(head_dim == 128
-                     ? launch_f32<128>(q, k, v, o, lse, sf, sched, n_blocks,
-                                       bh, q_len, kv_len, causal, scale_log2,
-                                       s)
-                     : launch_f32<64>(q, k, v, o, lse, sf, sched, n_blocks,
-                                      bh, q_len, kv_len, causal, scale_log2,
-                                      s));
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory one block of the instance for dtype (0 bf16,
-// 1 f32) and head_dim (64 or 128) takes; -1 for any other.
+// 1 f32) and head_dim (64, 128 or 256) takes; -1 for any other.
 // ops/flash_v1.py holds ops/configs.py::v1_smem_bytes to it when it loads
 // this library.
 extern "C" int tfa_flash_v1_smem(int dtype, int head_dim) {
+  if (dtype == 0 && head_dim == 256) return V1Smem<256>::ALLOC;
   if (dtype == 0 && head_dim == 128) return V1Smem<128>::ALLOC;
   if (dtype == 0 && head_dim == 64) return V1Smem<64>::ALLOC;
+  if (dtype == 1 && head_dim == 256) return V1F32Smem<256>::BYTES;
   if (dtype == 1 && head_dim == 128) return V1F32Smem<128>::BYTES;
   if (dtype == 1 && head_dim == 64) return V1F32Smem<64>::BYTES;
   return -1;

@@ -62,12 +62,13 @@ FLASH_NARROW_PRODUCTS = True
 # the 132 SMs, none longer than 5 kv tiles (chip_smoke.py's sweep,
 # `fwd_f32_split_sweep`, PERF.md); with enough q tiles, no split and no
 # workspace. The quantized instances (csrc/flash_fwd_quant.cu, int8 or e4m3 K/V
-# with per-token scales) take the tiles of their q dtype's design: bf16 q
-# the wgmma kernel's (its producer warpgroup converts each payload tile
-# into the ring's bf16 stage, in the same layout and shared memory), f32 q
-# the f32 body's (each payload tile loaded into registers a step ahead and
-# converted into its stage). Shared memory (`fwd_smem_bytes`): 229,888
-# bytes at head_dim 128, 230,912 quantized; one block an SM.
+# with per-token scales) take the tiles of their q dtype's design, the wide
+# ones at head_dim 256: bf16 q the wgmma kernel's (its producer warpgroup
+# converts each payload tile into the ring's bf16 stage, in the same layout
+# and shared memory), f32 q the f32 body's (each payload tile loaded into
+# registers a step ahead and converted into its stage). Shared memory
+# (`fwd_smem_bytes`): 229,888 bytes at head_dim 128, 230,912 quantized; one
+# block an SM.
 FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
 # The wide f32 instance (head dims in (128, 256], tiles of 256 columns): a
 # 128-row q tile alone is 128 KiB of f32 there and two 64-row K/V stages 256
@@ -101,9 +102,10 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
         # q; per stage K, V and the kv ids; the mbarriers (q, and full K,
         # full V, empty per stage; a two-stage ring also K's empty;
         # quantized K/V, which land as payloads in the ring and expand
-        # there, also the payload copies' per stage); room to align the
-        # base to 1024 bytes
-        bars = 3 + (stages == 2) + quantized
+        # there, also the payload copies' per stage, K's and V's apart in a
+        # two-stage ring); room to align the base to 1024 bytes
+        split = stages == 2
+        bars = 3 + split + quantized * (1 + split)
         return (m * d * 2 + stages * (2 * n * d * 2 + n * 4)
                 + (1 + bars * stages) * 8 + 1024)
     if cfg is FLASH_FWD_F32 or cfg is FLASH_FWD_F32_WIDE:
@@ -167,6 +169,15 @@ def decode_split_plan(pages: int, splits: int) -> tuple[int, int]:
 FLASH_V1_BF16 = TileConfig(block_m=128, block_n=128, threads=384)
 FLASH_V1_BF16_STAGES = 2
 FLASH_V1_BF16_Q_TILES = 2
+# The wide instance (head dims in (128, 256], tiles of 256 columns): a
+# 128-row q tile is 64 KiB there and a 128-row K+V stage 128 KiB, so at the
+# tiles above a block would need 394,320 bytes; its kv tiles are 64 rows
+# (S 32 f32 registers a consumer thread beside O's 128, as B1's wide
+# instance), K and V in FLASH_V1_BF16_WIDE_KV_STAGES stages and the q tile
+# in FLASH_V1_BF16_WIDE_Q_STAGES (197,696 bytes), the same q tiles a block.
+FLASH_V1_BF16_WIDE = TileConfig(block_m=128, block_n=64, threads=384)
+FLASH_V1_BF16_WIDE_Q_STAGES = 1
+FLASH_V1_BF16_WIDE_KV_STAGES = 2
 # f32 on the CUDA cores with FA1's order kept: a block of 17 warps takes
 # FLASH_V1_F32_Q_TILES 64-row q tiles from the same schedule at 64-row tiles
 # (128 blocks at the benchmark's (2, 8, 1024) on 132 SMs) and splits each
@@ -177,6 +188,11 @@ FLASH_V1_BF16_Q_TILES = 2
 # 128, one block an SM.
 FLASH_V1_F32 = TileConfig(block_m=64, block_n=64, threads=544)
 FLASH_V1_F32_Q_TILES = 2
+# The wide f32 instance (head dims in (128, 256]): at 64 x 64 a block would
+# need 427,104 bytes, so its q and kv tiles are 32 rows (205,408 bytes); the
+# roles keep their threads, an S thread holding 4 x 2 scores and a PV
+# thread 8 rows x 4 columns of O (32 x 256), the same q tiles a block.
+FLASH_V1_F32_WIDE = TileConfig(block_m=32, block_n=32, threads=544)
 
 
 def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
@@ -185,13 +201,17 @@ def v1_smem_bytes(cfg: TileConfig, head_dim: int) -> int:
     the library exports its own sizes, `tfa_flash_v1_smem`, and
     ops/flash_v1.py checks that these agree when it loads it)."""
     m, n, d = cfg.block_m, cfg.block_n, head_dim
-    if cfg is FLASH_V1_BF16:
-        stages = FLASH_V1_BF16_STAGES
-        # per stage a q tile, K and V, and five mbarriers (q full and
-        # empty, K full, V full, K/V empty); room to align the base to 1024
-        # bytes
-        return stages * (m * d * 2 + 2 * n * d * 2 + 5 * 8) + 1024
-    if cfg is FLASH_V1_F32:
+    if cfg is FLASH_V1_BF16 or cfg is FLASH_V1_BF16_WIDE:
+        q_stages, kv_stages = (
+            (FLASH_V1_BF16_STAGES, FLASH_V1_BF16_STAGES)
+            if cfg is FLASH_V1_BF16 else
+            (FLASH_V1_BF16_WIDE_Q_STAGES, FLASH_V1_BF16_WIDE_KV_STAGES))
+        # per q stage a q tile and two mbarriers (full, empty), per K/V
+        # stage K, V and three (K full, V full, K/V empty); room to align
+        # the base to 1024 bytes
+        return (q_stages * (m * d * 2 + 2 * 8)
+                + kv_stages * (2 * n * d * 2 + 3 * 8) + 1024)
+    if cfg is FLASH_V1_F32 or cfg is FLASH_V1_F32_WIDE:
         # two-stage K and V rings, a q tile and a p'^T tile (kv x q) per S
         # group and its rows' (max, sum), all f32; six pairs of mbarriers
         return (4 * n * d + 2 * m * d + 2 * n * m + 4 * m) * 4 + 12 * 8
@@ -358,6 +378,10 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
         f"-DTFA_V1_BF16_STAGES={FLASH_V1_BF16_STAGES}",
         f"-DTFA_V1_BF16_Q_TILES={FLASH_V1_BF16_Q_TILES}",
+        *_tile_defines("TFA_V1_BF16_WIDE", FLASH_V1_BF16_WIDE),
+        f"-DTFA_V1_BF16_WIDE_Q_STAGES={FLASH_V1_BF16_WIDE_Q_STAGES}",
+        f"-DTFA_V1_BF16_WIDE_KV_STAGES={FLASH_V1_BF16_WIDE_KV_STAGES}",
         *_tile_defines("TFA_V1_F32", FLASH_V1_F32),
         f"-DTFA_V1_F32_Q_TILES={FLASH_V1_F32_Q_TILES}",
+        *_tile_defines("TFA_V1_F32_WIDE", FLASH_V1_F32_WIDE),
     ]

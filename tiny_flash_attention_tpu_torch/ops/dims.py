@@ -6,10 +6,10 @@ pad head_dim to whole 128-lane tiles with zero columns
 its decodes pad the q rows of a kv head to a multiple of 8
 (ops/paged_fused.py:503-506, ops/paged.py:287), and each slices the result
 back. The port's kernels compile a few instances (the flash kernels' tiles
-of 64 and 128 columns, and 256 for the forward over K/V in q's dtype and
-the backward, bf16 and f32; the decodes groups 1, 2, 4 and 8), so the
-wrappers do the same with these plain functions where a kernel cannot read
-the true shape in place:
+of 64, 128 and 256 columns: the forward over K/V in q's dtype and over
+int8/e4m3 K/V, the backward and FA1, each in bf16 and f32; the decodes
+groups 1, 2, 4 and 8), so the wrappers do the same with these plain
+functions where a kernel cannot read the true shape in place:
 
 - `flash_head_dim`: the one rule. The bf16 forward over bf16 K/V and the
   bf16 backward read and write any head_dim that is a multiple of 8 up to
@@ -18,9 +18,9 @@ the true shape in place:
   they are handed the tensors as they are. Every other head_dim up to 256
   (not a multiple of 8: a tensor map's row stride is whole 16-byte pieces)
   is padded to `kernel_head_dim`, and so is every head_dim of the f32
-  forward and backward (64, 128 or 256) and up to 128 of the quantized
-  forward and FA1, which have no wide instance yet: above 128 they raise,
-  naming themselves.
+  forward and backward, of the quantized forward (int8/e4m3 K/V, bf16 and
+  f32 q) and of FA1 (bf16 and f32): to 64, 128 or 256. Above 256 every
+  flash entry raises, naming itself.
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
   the next tile width, 64 below it, 128 up to it, 256 above (the wide
   instances). A zero column adds
@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 # the flash kernels' tile widths (forward, backward, FA1), and the wide
-# instances' of the forward over K/V in q's dtype and the backward
+# instances' (every flash kernel, bf16 and f32)
 FLASH_HEAD_DIMS = (64, 128)
 WIDE_HEAD_DIM = 256
 # head dims and q rows a kv head that the decode kernels compile
@@ -83,11 +83,11 @@ def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
     """The head_dim a flash forward or backward kernel is handed for
     tensors of head_dim d: d itself where it reads them in place (bf16
     over bf16 K/V, `reads_in_place`), else `kernel_head_dim(d)`, the
-    width they are padded to (d not a multiple of 8; f32, 64, 128 or 256;
-    quantized K/V, up to 128). Raises NotImplementedError above 256, and
-    for quantized K/V above 128, naming `what` and the instance."""
+    width they are padded to (d not a multiple of 8; f32 and quantized
+    K/V, 64, 128 or 256). Raises NotImplementedError above 256, naming
+    `what` and the instance."""
     if quantized:
-        return kernel_head_dim(d, f"{what} over int8/e4m3 K/V")
+        return kernel_head_dim(d, f"{what} over int8/e4m3 K/V", wide=True)
     if dtype == torch.bfloat16:
         dk = kernel_head_dim(d, what, wide=True)
         return d if reads_in_place(d) else dk

@@ -9,22 +9,21 @@ cores over 128-row q and 64-row kv tiles, 64 and 32 at the wide instance).
 A CPU tensor takes the plain version (`flash_attention_plain`, the port of
 `_xla_attention`); a CUDA tensor takes the kernel at every shape, the
 sliding window, segment ids and `segment_starts` included, or raises for
-what the kernel does not do yet (head_dim above 256; over quantized K/V
-above 128). The bf16 kernel over bf16 K/V reads and writes any head_dim
-that is a multiple of 8 up to 256 at its true width (the zero columns of
-JAX's padding to 128 lanes, which add exact zeros, are TMA's fill past
-column d); every other head_dim, and every head_dim of the f32 instances
-(tiles of 64, 128 and 256 columns) and the quantized ones (64 and 128), is
-padded with zero columns to the next tile width and the output sliced back
-(ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
+what the kernel does not do yet (head_dim above 256). The bf16 kernel over
+bf16 K/V reads and writes any head_dim that is a multiple of 8 up to 256 at
+its true width (the zero columns of JAX's padding to 128 lanes, which add
+exact zeros, are TMA's fill past column d); every other head_dim, and
+every head_dim of the f32 instances and the quantized ones (tiles of 64,
+128 and 256 columns), is padded with zero columns to the next tile width
+and the output sliced back (ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
 handed the kernel (padded only where the forward padded), so the backward
 runs on them and returns gradients at the true head_dim. The f32 instance
 walks a work list (`fwd_f32_work`): each q tile's kv range cut into runs,
 one block each, merged in run order in the kernel (`f32_split_merge_plain`
 is that layout and order in plain PyTorch). Quantized K/V take the
 quantized instances of the kernel, csrc/flash_fwd_quant.cu (bf16 q: the
-same wgmma/TMA kernel over 128-row tiles, its producer converting the
-payloads), through
+same wgmma/TMA kernel over 128-row tiles, 64-row kv tiles at 256, its
+producer converting the payloads), through
 ops/flash_quant.py::flash_attention_quantized. `segment_starts` become the
 kernel's tile table (`segment_tiles`): the first kv tile of each q tile, as
 JAX's `_build_worklist` prunes its work list to the block diagonal, built
@@ -115,9 +114,9 @@ def fwd_config(dtype: torch.dtype, quantized: bool = False,
                head_dim: int = 128) -> TileConfig:
     """The tiles of the forward instance for q's dtype over unquantized or
     quantized (int8/e4m3) K/V at head_dim (each q dtype's design takes
-    both): over K/V in q's dtype above 128, the wide instance's (bf16:
-    64-row kv tiles; f32: 64-row q and 32-row kv tiles)."""
-    wide = head_dim > FLASH_HEAD_DIMS[-1] and not quantized
+    both; `quantized` changes no tile): above 128, the wide instance's
+    (bf16: 64-row kv tiles; f32: 64-row q and 32-row kv tiles)."""
+    wide = head_dim > FLASH_HEAD_DIMS[-1]
     if dtype != torch.bfloat16:
         return FLASH_FWD_F32_WIDE if wide else FLASH_FWD_F32
     return FLASH_FWD_BF16_WIDE if wide else FLASH_FWD_BF16
@@ -544,8 +543,9 @@ def visible_mask(q_len: int, kv_len: int, device, *, causal: bool,
 def _scale_rows(s: torch.Tensor) -> torch.Tensor:
     """(b, hkv, kv_len, 1) per-token scales as the quantized kernel reads
     them: (b, hkv, ld) rows, ld = kv_len rounded up to whole kv tiles of
-    FLASH_FWD_BF16 (the kernel reads a tile's columns without a bound),
-    padded with zeros where kv_len is not, 16-byte aligned."""
+    FLASH_FWD_BF16 (128 rows, two of the wide instance's: the kernel reads
+    a tile's columns without a bound), padded with zeros where kv_len is
+    not, 16-byte aligned."""
     s = s.reshape(s.shape[0], s.shape[1], s.shape[2])
     pad = -s.shape[-1] % FLASH_FWD_BF16.block_n
     if pad:
@@ -585,14 +585,13 @@ def _tiles_for(segment_starts, q_len: int, causal: bool,
 def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     """Holds `fwd_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
-    kernels' own layouts) for both dtypes and every tile width (over K/V in
-    q's dtype also the wide one); raises where they differ."""
+    kernels' own layouts) for both dtypes and every tile width, the wide
+    one included; raises where they differ."""
     smem = (lib.tfa_flash_fwd_quant_smem if quantized
             else lib.tfa_flash_fwd_smem)
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        wide = () if quantized else (WIDE_HEAD_DIM,)
-        for d in (*FLASH_HEAD_DIMS, *wide):
+        for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
             cfg = fwd_config(dtype, quantized, d)
             want = fwd_smem_bytes(cfg, d, quantized)
             if smem(code, d) != want:
@@ -690,8 +689,9 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
     run, every mask but the jagged mode included. bf16 over bf16 K/V reads
     and writes any head_dim that is a multiple of 8 up to 256 in place;
-    any other head_dim runs padded (ops/dims.py::flash_head_dim: f32 to 64,
-    128 or 256) and out comes back at the true head_dim."""
+    any other head_dim runs padded (ops/dims.py::flash_head_dim: f32 and
+    quantized K/V to 64, 128 or 256) and out comes back at the true
+    head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     quantized = k_scales is not None or v_scales is not None

@@ -14,7 +14,10 @@ bf16 q, B1's own wgmma/TMA kernel (csrc/flash_fwd_wgmma.cuh), whose producer
 warpgroup loads the payload rows, converts them two bytes an instruction
 (`convert_pairs` mirrors that arithmetic here) and stores them as the
 ring's bf16 stage, while the consumers read the scales; with f32 q, the
-CUDA-core body of csrc/flash_fwd.cuh. The triangle kernels' regime (causal
+CUDA-core body of csrc/flash_fwd.cuh. Each takes head_dim 64, 128 and 256
+(the wide instances' tiles); other head dims up to 256 run padded with
+code-0 payload columns and zero q columns (ops/dims.py), above 256 it
+raises. The triangle kernels' regime (causal
 q_len == kv_len >= 1024) takes the same launch, as B2 and B3 do in
 `flash_attention`. On the CPU the plain version,
 `flash_attention_quantized_plain`, runs.

@@ -7,9 +7,10 @@ tensor takes the plain version (`flash_attention_v1_plain`); a CUDA tensor
 launches csrc/flash_v1.cu, which keeps FA1's order on the card (KV tiles
 outer, every q tile's running state in a global scratch reloaded on each KV
 step; bf16 on wgmma and TMA, f32 on the CUDA cores, each block's q tiles
-from `v1_schedule` at its dtype's tiles), or raises. The kernel compiles
-head_dim 64 and 128; other head dims up to 128 run padded with zero
-columns (ops/dims.py), as in the forward.
+from `v1_schedule` at its instance's tiles), or raises. The kernel compiles
+head_dim 64, 128 and 256 (the wide instances, on smaller tiles: 64-row kv
+tiles in bf16, 32-row q and kv tiles in f32); other head dims up to 256
+run padded with zero columns (ops/dims.py), as in the forward.
 
 One divergence from JAX: every row that sees no column (causal with q_len >
 kv_len) gets out 0 and the LSE sentinel (mask value) * ln2. JAX gives that
@@ -29,10 +30,11 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_F32, FLASH_V1_F32_Q_TILES,
-    TileConfig, v1_smem_bytes)
+    FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES, FLASH_V1_BF16_WIDE, FLASH_V1_F32,
+    FLASH_V1_F32_Q_TILES, FLASH_V1_F32_WIDE, TileConfig, v1_smem_bytes)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, kernel_head_dim, pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, kernel_head_dim, pad_head_dim,
+    unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LN2, LOG2E, _aligned, in_dtype)
 from tiny_flash_attention_tpu_torch.ops.reference import (
@@ -130,7 +132,7 @@ def v1_schedule(q_len: int, kv_len: int, causal: bool,
     ceil(n / per_block) blocks in snake order (0 .. B-1, then B-1 .. 0),
     so that each block's kv steps add up to about the same (causal: block
     i takes tiles n-1-i and i). Every q tile appears once. The defaults
-    are the bf16 kernel's tiles; `v1_config` gives each dtype's."""
+    are the bf16 kernel's tiles; `v1_config` gives each instance's."""
     work = kv_tile_counts(q_len, kv_len, causal, block_m, block_n)
     n_blocks = -(-work.size // per_block)
     table = np.full((n_blocks, per_block), -1, np.int32)
@@ -140,28 +142,33 @@ def v1_schedule(q_len: int, kv_len: int, causal: bool,
     return table
 
 
-def v1_config(dtype: torch.dtype) -> tuple[TileConfig, int]:
-    """The FA1 kernel's tiles for q's dtype and its q tiles a block."""
+def v1_config(dtype: torch.dtype,
+              head_dim: int = 128) -> tuple[TileConfig, int]:
+    """The FA1 kernel's tiles for q's dtype at the tiles' head_dim (64,
+    128 or 256: above 128 the wide instance's) and its q tiles a block."""
+    wide = head_dim > FLASH_HEAD_DIMS[-1]
     if dtype == torch.bfloat16:
-        return FLASH_V1_BF16, FLASH_V1_BF16_Q_TILES
-    return FLASH_V1_F32, FLASH_V1_F32_Q_TILES
+        return (FLASH_V1_BF16_WIDE if wide else FLASH_V1_BF16,
+                FLASH_V1_BF16_Q_TILES)
+    return FLASH_V1_F32_WIDE if wide else FLASH_V1_F32, FLASH_V1_F32_Q_TILES
 
 
 def v1_state_floats(dtype: torch.dtype, bh: int, q_len: int, d: int) -> int:
-    """f32 scratch of the kernel's running state, one slot per (head, q
-    tile): bf16, block_m * (d + 8) floats a 128-row tile (each consumer
-    thread's accumulator fragments and its (m, m', l, l')); f32,
-    block_m * (d + 2) a 64-row tile (each PV thread's accumulator tile and
-    the rows' (m, l))."""
-    cfg, _ = v1_config(dtype)
+    """f32 scratch of the kernel's running state at the tiles' head_dim d,
+    one slot per (head, q tile): bf16, block_m * (d + 8) floats a 128-row
+    tile (each consumer thread's accumulator fragments and its (m, m', l,
+    l')); f32, block_m * d + 128 a 64-row tile (32-row at 256; each PV
+    thread's accumulator tile, and the (m, l) of its row group's rows once
+    for each warp the group spans: 2 x 64 rows, or 2 x 2 x 32 at 256)."""
+    cfg, _ = v1_config(dtype, d)
     bm = cfg.block_m
-    return bh * -(-q_len // bm) * bm * (d + (8 if dtype == torch.bfloat16
-                                             else 2))
+    slot = bm * (d + 8) if dtype == torch.bfloat16 else bm * d + 128
+    return bh * -(-q_len // bm) * slot
 
 
 @functools.lru_cache(maxsize=64)
-def _device_schedule(q_len, kv_len, causal, dtype, device):
-    cfg, per_block = v1_config(dtype)
+def _device_schedule(q_len, kv_len, causal, dtype, head_dim, device):
+    cfg, per_block = v1_config(dtype, head_dim)
     return torch.as_tensor(v1_schedule(q_len, kv_len, causal, cfg.block_m,
                                        cfg.block_n, per_block),
                            device=device)
@@ -170,12 +177,13 @@ def _device_schedule(q_len, kv_len, causal, dtype, device):
 def check_smem_layout(lib: ctypes.CDLL) -> None:
     """Holds `v1_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_v1_smem`, from the kernels' own layouts) for both
-    dtypes and head dims; raises where they differ."""
+    dtypes and every head_dim, the wide one included; raises where they
+    differ."""
     smem = lib.tfa_flash_v1_smem
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        cfg, _ = v1_config(dtype)
-        for d in FLASH_HEAD_DIMS:
+        for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
+            cfg, _ = v1_config(dtype, d)
             want = v1_smem_bytes(cfg, d)
             if smem(code, d) != want:
                 raise RuntimeError(
@@ -206,7 +214,7 @@ def _v1_cuda(q, k, v, *, causal: bool, sm_scale: float):
         raise NotImplementedError(
             f"the CUDA FA1 kernel takes bf16 or f32 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
-    dk = kernel_head_dim(d, "the CUDA FA1 kernel")
+    dk = kernel_head_dim(d, "the CUDA FA1 kernel", wide=True)
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on one CUDA device")
     if q_len == 0 or kv_len == 0 or b * h == 0:
@@ -219,7 +227,8 @@ def _v1_cuda(q, k, v, *, causal: bool, sm_scale: float):
     dev = q.device
     n = v1_state_floats(q.dtype, b * h, q_len, d)
     state = torch.empty(n, dtype=torch.float32, device=dev)
-    sched = _device_schedule(q_len, kv_len, bool(causal), q.dtype, str(dev))
+    sched = _device_schedule(q_len, kv_len, bool(causal), q.dtype, d,
+                             str(dev))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=dev)
     with _build.on_device(dev):
