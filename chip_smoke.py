@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
+    python3 chip_smoke.py --cp           # only the context-parallel phase
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -50,7 +51,19 @@ its fp8 chunk pattern, (1,8,4096,256) bf16 q against (1,1,32768,256) e4m3
 K/V at offset 28672; flash_attention_v1 at (2,8,2048,256) MHA bf16
 (causal and not) and (2,8,1024,256) f32; each beside SDPA and B1 on the
 same K/V, with the planted faults of the 128 rows; the masks and 192
-(padded, its copies counted) at smaller shapes. The flash forward's and FA1's
+(padded, its copies counted) at smaller shapes. Then context parallelism
+(`context_parallel_phase`, parallel/ring.py and parallel/sharded.py on
+torch.distributed, worlds of ranks spawned by parallel/world.py): a world
+of 1 on NCCL at 2048 tokens, where ring, zigzag ring, Ulysses, all-gather
+and sharded flash each give B1's bits, and worlds of 2 and 4 ranks sharing
+the card over gloo at Llama-3.2-3B's attention widths (24 q / 8 kv heads
+of 128, bf16): ring causal and not, zigzag and Ulysses at 1 x 32768,
+all-gather at 16384, sharded flash on a (data 2, model 2) mesh at 2 x
+4096, ring and zigzag at 2048, each held against the plain version over
+the whole sequence (one q head at a time) and against B1 over it, each
+rank's launches asserted, three planted
+faults (the ring rotated the wrong way, a merge dropped, zigzag not
+unpermuted) that the gate must reject. The flash forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
 planted in the plain version (a stale V tile, a dropped kv tile; for FA1
@@ -4659,6 +4672,332 @@ def wide_f32_model_phase(seed) -> dict:
     return {"launches": launches, "train": pair[label], "decode": decode}
 
 
+# --- context parallel: ring, zigzag ring, Ulysses, all-gather, sharded -------
+# Llama-3.2-3B's attention widths (DIMS_MODELS[1]: 24 q / 8 kv heads of 128,
+# bf16). Worlds of 2 and 4 ranks share the one card over gloo (NCCL refuses
+# two ranks on one card), which moves host memory: their times are of ranks
+# time-sharing one card, not a context-parallel speed over NVLink. A world
+# of 1 on NCCL runs every mode on the NCCL code path at CP_SHORT_SEQ (at
+# n = 1 the merge is exact at any length).
+CP_HEADS = (24, 8)
+CP_SEQ = 32768            # 8192 tokens a rank at n = 4
+CP_ALLGATHER_SEQ = 16384
+CP_SHARDED = (2, 4096)    # batch x seq on a (data 2, model 2) mesh
+CP_SHORT_SEQ = 2048
+CP_TIMEOUT_S = 300.0
+
+
+def cp_case(mode, causal, seq, *, batch=1, mesh=None, faults=()):
+    """One case of the phase: `mesh` (data, model) defaults to (1, n)."""
+    return {"mode": mode, "causal": causal, "shape": (batch, *CP_HEADS, seq,
+                                                      128),
+            "mesh": mesh, "faults": tuple(faults)}
+
+
+def cp_expected_launches(case, ctx_index: int, n: int) -> int:
+    """Flash launches of one rank: causal ring i + 1 (rank i's blocks up to
+    its own), non-causal ring n, zigzag n + 1 (two at the diagonal step),
+    Ulysses, all-gather and sharded 1."""
+    if case["mode"] == "ring":
+        return ctx_index + 1 if case["causal"] else n
+    if case["mode"] == "zigzag":
+        return n + 1 if n > 1 else 1
+    return 1
+
+
+def _cp_fn(case, mesh):
+    from tiny_flash_attention_tpu_torch.parallel import ring as R
+    from tiny_flash_attention_tpu_torch.parallel.sharded import (
+        shard_map, sharded_flash_attention)
+
+    mode, causal = case["mode"], case["causal"]
+    if mode == "ring":
+        return R.ring_attention_sharded(mesh, causal=causal)
+    if mode == "zigzag":
+        return R.zigzag_ring_attention_sharded(mesh)
+    if mode == "ulysses":
+        return R.ulysses_attention_sharded(mesh, causal=causal)
+    if mode == "allgather":
+        # JAX's module has the local function only: its shard_map here
+        return shard_map(R.make_allgather_attention(mesh, axis_name="model"),
+                         mesh, ("data", None, "model", None))
+    return sharded_flash_attention(mesh, causal=causal)
+
+
+@contextlib.contextmanager
+def _cp_timed_flash(times: list):
+    """Patches the flash entry the parallel modules call with one that
+    records CUDA events around each call (one launch each)."""
+    from tiny_flash_attention_tpu_torch.parallel import ring as R
+    from tiny_flash_attention_tpu_torch.parallel import sharded as S
+
+    real = R.flash_attention
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        times.append((start, end))
+        return out
+
+    R.flash_attention = S.flash_attention = timed
+    try:
+        yield
+    finally:
+        R.flash_attention = S.flash_attention = real
+
+
+@contextlib.contextmanager
+def _cp_fault(fault: str):
+    """A planted fault on every rank: "reversed" rotates the ring the wrong
+    way, "dropped merge" drops each rank's second merge; "no unpermute" is
+    applied by the caller (the zigzag output left in zigzag order)."""
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel import ring as R
+
+    real_rotation, real_merge = comm.Rotation, R._merge
+    calls = []
+
+    def reversed_rotation(tensors, group, shift=1):
+        return real_rotation(tensors, group, -shift)
+
+    def dropped_merge(o, lse, o_i, lse_i):
+        calls.append(1)
+        return (o, lse) if len(calls) == 2 else real_merge(o, lse, o_i, lse_i)
+
+    if fault == "reversed":
+        comm.Rotation = reversed_rotation
+    elif fault == "dropped merge":
+        R._merge = dropped_merge
+    try:
+        yield
+    finally:
+        comm.Rotation, R._merge = real_rotation, real_merge
+
+
+def _cp_call(case, fn, q, k, v, n: int, fault=None):
+    from tiny_flash_attention_tpu_torch.parallel import ring as R
+
+    if case["mode"] != "zigzag":
+        return fn(q, k, v)
+    zq, zk, zv = (R.zigzag_permute(x, n) for x in (q, k, v))
+    out = fn(zq, zk, zv)
+    return out if fault == "no unpermute" else R.zigzag_unpermute(out, n)
+
+
+def _cp_errs(out, refs) -> dict:
+    """Out against the plain version and against B1 over the whole
+    sequence (`refs`, _cp_refs): the dtype gate on out and the row gate
+    against the plain version at the fold, and the same two gates against
+    B1 (which folds q as fold_q does: one reference for both)."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_ROW_GATE, row_err, tolerance_for)
+
+    plain, plain_fold, b1 = refs
+    errs = {"out": max_err(out, plain), "row": row_err(out, plain_fold),
+            "b1_out": max_err(out, b1), "b1_row": row_err(out, b1)}
+    errs["ok"] = bool(torch.isfinite(out).all()) and all(
+        errs[key] <= gate for key, gate in (
+            ("out", tolerance_for(out.dtype)), ("row", BF16_ROW_GATE),
+            ("b1_out", tolerance_for(out.dtype)), ("b1_row", BF16_ROW_GATE)))
+    return errs
+
+
+def _cp_refs(q, k, v, causal):
+    """(plain, plain at the fold, B1) over the whole sequence in this one
+    process. The plain version runs one q head at a time against its kv
+    head h // group: one head's f32 scores at 32768 are 4.3 GB, all 24
+    heads' would not fit on the card."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import fold_q
+
+    sm_scale = q.shape[-1] ** -0.5
+    fq, fscale = fold_q(q, sm_scale)
+    group = q.shape[1] // k.shape[1]
+    plain, plain_fold = torch.empty_like(q), torch.empty_like(q)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            kv = (k[b:b + 1, h // group:h // group + 1],
+                  v[b:b + 1, h // group:h // group + 1])
+            plain[b, h] = flash_attention_plain(
+                q[b:b + 1, h:h + 1], *kv, causal=causal,
+                sm_scale=sm_scale)[0, 0]
+            plain_fold[b, h] = flash_attention_plain(
+                fq[b:b + 1, h:h + 1], *kv, causal=causal,
+                sm_scale=fscale)[0, 0]
+    torch.cuda.empty_cache()
+    return plain, plain_fold, flash_attention(q, k, v, causal=causal)
+
+
+def cp_rank(rank, device, cases):
+    """One rank of a context-parallel world: each case's main-path call
+    through the package entry (launches counted from 0, the flash launches
+    timed by CUDA events, the call's wall), then, on rank 0, its output
+    against the plain version and B1 over the whole sequence in this one
+    process (_cp_refs, shared by the cases of one shape and mask), then the
+    planted faults on every rank."""
+    import torch.distributed as dist
+
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel.sharded import make_mesh
+
+    n = dist.get_world_size()
+    meshes, refs, results = {}, {}, []
+    for case in cases:
+        shape = case["mesh"] or (1, n)
+        if shape not in meshes:
+            meshes[shape] = make_mesh(n, *shape, device=device.type)
+        mesh = meshes[shape]
+        b, hq, hkv, seq, d = case["shape"]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        q = torch.randn((b, hq, seq, d), generator=gen, device=device,
+                        dtype=torch.float32).to(torch.bfloat16)
+        k, v = (torch.randn((b, hkv, seq, d), generator=gen, device=device,
+                            dtype=torch.float32).to(torch.bfloat16)
+                for _ in range(2))
+        fn = _cp_fn(case, mesh)
+        flash_attention.launches = 0
+        comm.host_staged_bytes = 0
+        times = []
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with _cp_timed_flash(times):
+            out = _cp_call(case, fn, q, k, v, n)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        row = {"launches": flash_attention.launches,
+               "staged": comm.host_staged_bytes,
+               "flash_ms": sum(s.elapsed_time(e) for s, e in times),
+               "wall_ms": wall_ms,
+               "ctx_index": mesh.get_local_rank("model")}
+        key = (case["shape"], case["causal"])
+        if rank == 0:
+            if key not in refs:
+                refs[key] = _cp_refs(q, k, v, case["causal"])
+            row.update(_cp_errs(out, refs[key]))
+            row["bits"] = bool(torch.equal(out, refs[key][2]))
+        row["faults"] = {}
+        for fault in case["faults"]:
+            with _cp_fault(fault):
+                bad = _cp_call(case, fn, q, k, v, n, fault)
+            if rank == 0:
+                row["faults"][fault] = _cp_errs(bad, refs[key])
+            del bad
+        results.append(row)
+        del q, k, v, out
+    return results
+
+
+CP_WORLDS = [
+    # (ranks, backend, cases): the world of 1 on NCCL gives B1's bits in
+    # every mode; the worlds of 2 and 4 share the card over gloo
+    (1, "nccl", [cp_case("ring", True, CP_SHORT_SEQ),
+                 cp_case("zigzag", True, CP_SHORT_SEQ),
+                 cp_case("ulysses", True, CP_SHORT_SEQ),
+                 cp_case("allgather", False, CP_SHORT_SEQ),
+                 cp_case("sharded", True, CP_SHORT_SEQ,
+                         batch=CP_SHARDED[0])]),
+    (2, "gloo", [cp_case("ring", True, CP_SHORT_SEQ),
+                 cp_case("ring", True, CP_SEQ),
+                 cp_case("ring", False, CP_SEQ),
+                 cp_case("zigzag", True, CP_SEQ),
+                 cp_case("ulysses", True, CP_SEQ),
+                 cp_case("allgather", False, CP_ALLGATHER_SEQ)]),
+    (4, "gloo", [cp_case("ring", True, CP_SHORT_SEQ),
+                 cp_case("zigzag", True, CP_SHORT_SEQ),
+                 cp_case("ring", True, CP_SEQ,
+                         faults=("reversed", "dropped merge")),
+                 cp_case("ring", False, CP_SEQ),
+                 cp_case("zigzag", True, CP_SEQ, faults=("no unpermute",)),
+                 cp_case("ulysses", True, CP_SEQ),
+                 cp_case("allgather", False, CP_ALLGATHER_SEQ),
+                 cp_case("sharded", True, CP_SHARDED[1], batch=CP_SHARDED[0],
+                         mesh=(2, 2))]),
+]
+
+
+def context_parallel_phase() -> dict:
+    """Each world of CP_WORLDS through parallel/world.py::run_world: every
+    mode's package entry at Llama-3.2-3B widths, each rank's launches
+    asserted, rank 0's output held against the plain version and against
+    B1 over the whole sequence (the dtype gate on out and the fold's row
+    gate, utils/testing.py, against each; B1's bits in the world of 1); the
+    planted faults must fail that gate. Then B1 over the whole sequence
+    alone on the card, on the ported roofline. Returns the main-path
+    launches of B1 summed over the ranks and the roofline."""
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.parallel.world import run_world
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+    from tiny_flash_attention_tpu_torch.utils.profiling import roofline
+    from tiny_flash_attention_tpu_torch.utils.testing import BF16_ROW_GATE
+
+    torch.cuda.empty_cache()
+    launches, failed = 0, []
+    for n, backend, cases in CP_WORLDS:
+        t0 = time.perf_counter()
+        per_rank = run_world(cp_rank, n, backend=backend, device_type="cuda",
+                             args=(cases,), timeout_s=CP_TIMEOUT_S)
+        log(f"context parallel: world of {n} on {backend} (one card), "
+            f"{time.perf_counter() - t0:.1f} s with its spawn")
+        for i, case in enumerate(cases):
+            rows = [ranks[i] for ranks in per_rank]
+            head = rows[0]
+            b, hq, hkv, seq, d = case["shape"]
+            mesh = case["mesh"] or (1, n)
+            want = [cp_expected_launches(case, r["ctx_index"],
+                                         mesh[1]) for r in rows]
+            got = [r["launches"] for r in rows]
+            launches += sum(got)
+            ok = head["ok"] and got == want and (
+                backend != "nccl" or head["bits"]) and (
+                backend == "gloo" or not any(r["staged"] for r in rows))
+            log(f"  {case['mode']} causal={case['causal']} "
+                f"({b},{hq},{seq},{d})/({b},{hkv}) mesh (data, model) "
+                f"{mesh}: vs plain out err {head['out']:.3e} row "
+                f"{head['row']:.3e}, vs B1 over the whole sequence out err "
+                f"{head['b1_out']:.3e} row {head['b1_row']:.3e} (gates "
+                f"2e-2; row {BF16_ROW_GATE:.4e})"
+                + (f", B1's bits: {head['bits']}" if n == 1 else "")
+                + f" | launches by rank {got} (expected {want}) | flash ms "
+                f"by rank {[round(r['flash_ms'], 4) for r in rows]}, call "
+                f"wall ms {[round(r['wall_ms'], 1) for r in rows]} | "
+                f"{backend}, host_staged_bytes by rank "
+                f"{[r['staged'] for r in rows]} | {'ok' if ok else 'FAIL'}")
+            for fault, errs in head["faults"].items():
+                caught = not errs["ok"]
+                log(f"    planted fault '{fault}': vs plain out err "
+                    f"{errs['out']:.3e} row {errs['row']:.3e}, vs B1 out err "
+                    f"{errs['b1_out']:.3e} row {errs['b1_row']:.3e} | "
+                    f"{'caught' if caught else 'NOT CAUGHT'}")
+                ok = ok and caught
+            if not ok:
+                failed.append(f"{case['mode']} at n {n}")
+    if failed:
+        raise AssertionError(f"context parallel phase failed: {failed}")
+    log(f"  B1 launches of the phase's main-path calls, every rank of every "
+        f"world: {launches}")
+    # B1 over the whole sequence alone on the card, on the ported roofline
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = randn((1, CP_HEADS[0], CP_SEQ, 128), torch.bfloat16, gen)
+    k, v = (randn((1, CP_HEADS[1], CP_SEQ, 128), torch.bfloat16, gen)
+            for _ in range(2))
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
+                      iters=5)["median_ms"]
+    flops = 4.0 * 128 * _visible_pairs(q, k, True)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + q[..., 0].numel() * 4
+    report = roofline(flops, nbytes, ms * 1e-3)
+    log(f"  B1 over the whole sequence, (1,{CP_HEADS[0]},{CP_SEQ},128)/"
+        f"(1,{CP_HEADS[1]}) causal, alone on the card: {ms:.4f} ms; "
+        f"roofline (utils/profiling.py, H100 peaks): {report}")
+    return {"launches": launches, "b1_ms": ms, "roofline": str(report)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -4828,6 +5167,9 @@ def main() -> int:
                        lambda f=step, s=state: f(*s), 1,
                        watch="flash_fwd_f32" if label.startswith("f32")
                        else None)
+    # context parallel: ring, zigzag ring, Ulysses, all-gather and sharded
+    # flash in worlds of ranks on this card, each on B1
+    cp = context_parallel_phase()
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -4979,8 +5321,9 @@ def main() -> int:
           for part in ("dq", "dkv", "post"))]
     # flash_fwd runs on every main path but the jagged admission: its
     # launches are the engines' (the windowed one's included), the
-    # encoder's and the train step's; paged_decode's include the windowed
-    # engine's ring-mode launches
+    # encoder's, the train step's and every rank's of the context-parallel
+    # worlds; paged_decode's include the windowed engine's ring-mode
+    # launches
     fwd_replaces = ("tiny_flash_attention_tpu/ops/flash.py:533; "
                     "tiny_flash_attention_tpu/ops/flash_tri.py:336; "
                     "tiny_flash_attention_tpu/ops/flash_tri.py:658")
@@ -5001,7 +5344,7 @@ def main() -> int:
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"]
-         + llama["flash_fwd"], **flash_row},
+         + llama["flash_fwd"] + cp["launches"], **flash_row},
         {"name": "flash_fwd_d96", "route": "cuda",
          "design": "the bf16 kernel at head_dim 96 read in place: tensor "
                    "maps of the true width (TMA lands zeros past column "
@@ -5295,6 +5638,13 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(1)
         sys.exit(main_path_rows(SEED))
+    if sys.argv[1:] == ["--cp"]:
+        # only the context-parallel phase (its worlds build the kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        log(f"card: {gpu_info()}")
+        context_parallel_phase()
+        sys.exit(0)
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,
         # 1 x 8192, the window) and the spread gate, with the package found

@@ -53,12 +53,18 @@ into f32 pages. Then head_dim 256 in the quantized forward (bf16 and f32
 q over int8 and e4m3, each mask, bit-identical calls) and FA1 (bf16 and
 f32, around the wide tiles, bit-identical calls), 192 through the padded
 route giving the 256 call's bits on its true columns, and their shared
-memory against ops/configs.py.
+memory against ops/configs.py. Last, context parallelism (parallel/):
+a world of 2 ranks sharing the card over gloo, ring (causal and not) and
+zigzag against the plain version and B1 over the whole sequence; a world of 1 on NCCL giving
+B1's bits in every mode; NCCL with two ranks on one card raising; a ring
+backward on the card raising (its flash calls are forward-only); and a
+failing rank failing its world.
 """
 
 import pytest
 import torch
 
+import torch_parallel_ranks as RK
 from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -79,8 +85,9 @@ from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_paged_decode_plain, pack_paged_cache, page_append_plain, page_rows)
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda, quantized_matmul_plain)
+from tiny_flash_attention_tpu_torch.parallel.world import run_world
 from tiny_flash_attention_tpu_torch.utils.testing import (
-    flash_gate, row_err, tolerance_for)
+    BF16_ROW_GATE, flash_gate, fold_q, row_err, tolerance_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -2313,3 +2320,82 @@ def test_wide_quantized_and_v1_smem_layouts_match_configs(gen):
         check_smem_layout)
     check_smem_layouts(_build.library("flash_fwd_quant"), True)
     check_smem_layout(_build.library("flash_v1"))
+
+
+# --- context parallelism: worlds of ranks on this card (parallel/) ---------
+
+def _cp_inputs(gen, b=1, hq=6, hkv=2, seq=4096, d=128):
+    q = _randn((b, hq, seq, d), torch.bfloat16, gen)
+    k, v = (_randn((b, hkv, seq, d), torch.bfloat16, gen) for _ in range(2))
+    return q, k, v
+
+
+def test_cp_world_of_two_on_gloo_matches_b1(gen):
+    """The ranks share the card over gloo (host-staged); each mode's output
+    against the plain version over the whole sequence (the dtype gate on
+    out, the row gate at the fold) and against B1 over it (the same gates;
+    B1 folds q as fold_q does)."""
+    q, k, v = _cp_inputs(gen)
+    cpu = [t.cpu() for t in (q, k, v)]
+    cases = [("ring causal", "ring", cpu, {"causal": True}),
+             ("ring non-causal", "ring", cpu, {"causal": False}),
+             ("zigzag", "zigzag", cpu, {})]
+    ranks = run_world(RK.run_cases, 2, backend="gloo", device_type="cuda",
+                      args=(((2,), ("ctx",)), cases), timeout_s=300)
+    sm_scale = q.shape[-1] ** -0.5
+    for name, _, _, opts in cases:
+        causal = opts.get("causal", True)
+        ref = flash_attention(q, k, v, causal=causal)
+        plain = flash_attention_plain(q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
+        fq, fscale = fold_q(q, sm_scale)
+        plain_fold = flash_attention_plain(fq, k, v, causal=causal,
+                                           sm_scale=fscale)
+        for got in ranks:
+            out = got[name].cuda()
+            assert _err(out, plain) <= tolerance_for(torch.bfloat16), name
+            assert row_err(out, plain_fold) <= BF16_ROW_GATE, name
+            assert _err(out, ref) <= tolerance_for(torch.bfloat16), name
+            assert row_err(out, ref) <= BF16_ROW_GATE, name
+
+
+def test_cp_world_of_one_on_nccl_is_b1(gen):
+    """At n = 1 the merge is exact (x 1 plus 0): every mode gives B1's
+    bits, through NCCL's collectives."""
+    q, k, v = _cp_inputs(gen, seq=2048)
+    cpu = [t.cpu() for t in (q, k, v)]
+    cases = [("ring", "ring", cpu, {"causal": True}),
+             ("zigzag", "zigzag", cpu, {}),
+             ("ulysses", "ulysses", cpu, {"causal": True}),
+             ("allgather", "allgather", cpu, {})]
+    got = run_world(RK.run_cases, 1, backend="nccl", device_type="cuda",
+                    args=(((1,), ("ctx",)), cases), timeout_s=300)[0]
+    for name, _, _, opts in cases:
+        ref = flash_attention(q, k, v,
+                              causal=opts.get("causal", name == "zigzag"))
+        assert torch.equal(got[name].cuda(), ref), name
+
+
+def test_nccl_refuses_two_ranks_on_one_card(gen):
+    with pytest.raises(ValueError, match="nccl needs a CUDA card"):
+        run_world(RK.fail_on_rank, torch.cuda.device_count() + 1,
+                  backend="nccl", device_type="cuda", args=(-1,))
+
+
+def test_cp_ring_backward_raises_on_the_card(gen):
+    """The ring's flash calls ask for the LSE, forward-only on the card as
+    in JAX: a backward through the ring raises in the rank, and the world
+    fails."""
+    cpu = [t.cpu() for t in _cp_inputs(gen, seq=256)]
+    with pytest.raises(RuntimeError, match="has no backward"):
+        run_world(RK.run_cases, 1, backend="nccl", device_type="cuda",
+                  args=(((1,), ("ctx",)),
+                        [("grad", "ring", cpu, {"causal": True,
+                                                "grad": True})]),
+                  timeout_s=300)
+
+
+def test_failing_rank_fails_the_world_on_the_card(gen):
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
+        run_world(RK.fail_on_rank, 2, backend="gloo", device_type="cuda",
+                  args=(1,), timeout_s=300)

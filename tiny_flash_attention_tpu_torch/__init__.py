@@ -31,8 +31,13 @@ Layer map (counterparts in the JAX package):
                       paged KV cache, inference paths (batched, packed,
                       jagged prefill), engine (with the windowed ring
                       cache), the bidirectional encoder
-  parallel         -- the single-card train step and its checkpoints
-  utils            -- tolerances, device choice, CUDA-event timing
+  parallel         -- the single-card train step and its checkpoints;
+                      the mesh and head-sharded flash (sharded.py),
+                      ring, zigzag ring, Ulysses and all-gather attention
+                      (ring.py) on torch.distributed, their collectives
+                      (comm.py) and a launcher of ranks (world.py)
+  utils            -- tolerances, device choice, CUDA-event timing,
+                      profiling and the roofline
 """
 
 __version__ = "0.1.0"

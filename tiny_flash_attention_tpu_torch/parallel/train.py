@@ -11,9 +11,9 @@ in-place update is the port's counterpart of the donation: the params and
 the optimizer state are not copied from step to step. Checkpoints use
 torch.save and torch.load; orbax has no counterpart here.
 
-The mesh and the sharded trainer (`param_specs`, `shard_params`,
-`sharded_attention`, `spmd_forward`) wait for the port's parallel/ slice;
-this module has no mesh argument.
+The sharded trainer (`param_specs`, `shard_params`, `sharded_attention`,
+`spmd_forward`) is still to port; it will stand on parallel/sharded.py's
+mesh. This module has no mesh argument.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Helpers of the port: tolerances, device choice, CUDA-event timing."""
+"""Helpers of the port: tolerances, device choice, CUDA-event timing,
+profiling and the roofline."""
