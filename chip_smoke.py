@@ -5,6 +5,7 @@
     python3 chip_smoke.py --bwd-spread   # only the backward's spread, read
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
     python3 chip_smoke.py --cp           # only the context-parallel phase
+    python3 chip_smoke.py --serve-sharded  # only the sharded-serving phase
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -63,7 +64,23 @@ all-gather at 16384, sharded flash on a (data 2, model 2) mesh at 2 x
 the whole sequence (one q head at a time) and against B1 over it, each
 rank's launches asserted, three planted
 faults (the ring rotated the wrong way, a merge dropped, zigzag not
-unpermuted) that the gate must reject. The flash forward's and FA1's
+unpermuted) that the gate must reject. Then sharded serving
+(`sharded_serving_phase`, parallel/serve.py): ShardedInferenceEngine at
+Llama-3.2-3B's widths (4 layers, bf16, seed 0; the dims engines' 8 prompts,
+64 greedy decode steps over bf16 and int8 pages, then a sampled chunk) in
+a world of 1 on NCCL, where it gives the single-card engine's tokens and
+logits bit for bit, and in gloo worlds of 2 ((data 1, model 2); also the
+engine benchmark's model in f32) and 4 ((2, 2) with page groups, (1, 4))
+sharing the card, against the single-card engine run in this process:
+every greedy step's logits, the step fed the single-card engine's
+tokens, within 1.5 % of the largest |logit|, greedy tokens equal up to
+the first near tie, local pages after the admissions and after those
+steps within the bf16 gate, B1, B4 and B5 on each rank's own inputs
+against their plain versions, every rank's tokens the same and its B1, B4
+and B5 launches asserted, and two planted faults (an all-reduce after
+w_down skipped, data group 1 reading at group 0's offset) that must
+fail. The flash
+forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
 planted in the plain version (a stale V tile, a dropped kv tile; for FA1
@@ -4998,6 +5015,681 @@ def context_parallel_phase() -> dict:
     return {"launches": launches, "b1_ms": ms, "roofline": str(report)}
 
 
+# --- sharded serving: tensor- and data-parallel engines ----------------------
+# parallel/serve.py's ShardedInferenceEngine at Llama-3.2-3B's published
+# widths (DIMS_MODELS[1]: d_model 3072, 24/8 heads of 128, d_ff 8192, vocab
+# 128256, bf16), SERVE_LAYERS layers, random weights from SEED, which every
+# rank builds itself before it cuts its shard. Traffic: the dims engines'
+# 8 prompts (537-1819 tokens, two batched admissions of 4), SERVE_CHUNKS
+# greedy steps(SERVE_CHUNK) over bf16 and int8 pages, then one sampled
+# chunk. The card machine has one H100: the world of 1 runs on NCCL (tp 1:
+# every all-reduce is the single-card residual add, so the engine's bits),
+# the worlds of 2 and 4 share the card over gloo, so their times are of
+# ranks time-sharing one card, not a tensor-parallel speed.
+SERVE_LAYERS = 4
+SERVE_CHUNK, SERVE_CHUNKS = 32, 2
+SERVE_SAMPLED_STEPS, SERVE_TEMPERATURE = 16, 0.9
+SERVE_SLOTS = 8
+SERVE_TIMEOUT_S = 600.0
+SERVE_FAULT_LAYER = 1
+# (ranks, backend, runs): a run is (model, (data, model) mesh, data axis,
+# page formats, planted faults)
+SERVE_WORLDS = [
+    (1, "nccl", [("llama", (1, 1), None, ("bf16", "int8"), ())]),
+    (2, "gloo", [("llama", (1, 2), None, ("bf16", "int8"),
+                  ("w_down all-reduce skipped",)),
+                 ("engine f32", (1, 2), None, ("bf16",), ())]),
+    (4, "gloo", [("llama", (2, 2), "data", ("bf16", "int8"),
+                  ("group 1 at group 0's offset",)),
+                 ("llama", (1, 4), None, ("bf16", "int8"), ())]),
+]
+
+
+def serve_model(model: str):
+    """(cfg, the engine's logit gate) of a run's model."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+
+    if model == "llama":
+        return (T.ModelConfig(**DIMS_MODELS[1][1], n_layers=SERVE_LAYERS,
+                              dtype=torch.bfloat16), ENGINE_LOGIT_GATE)
+    return (dataclasses.replace(engine_config(), dtype=torch.float32),
+            ENGINE_F32_LOGIT_GATE)
+
+
+def serve_prompts(cfg) -> list:
+    """The dims engines' 8 prompts (dims_engine_run): lengths 537-1819."""
+    rng = np.random.default_rng(SEED)
+    lens = sorted(int(n) for n in rng.integers(512, 2049, SERVE_SLOTS))
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def serve_geometry(fmt: str) -> dict:
+    pps = -(-(2048 + SERVE_CHUNK * SERVE_CHUNKS + SERVE_SAMPLED_STEPS + 8)
+            // 128)
+    return dict(num_pages=SERVE_SLOTS * pps + 8, page_size=128,
+                max_seqs=SERVE_SLOTS, pages_per_seq=pps, kv_format=fmt,
+                seed=SEED, device="cuda")
+
+
+def serve_counters(fmt: str, reset: bool = False) -> dict:
+    """B1's, B4's (of the page format) and B5's launch counts."""
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention)
+
+    b4 = "int8_launches" if fmt == "int8" else "launches"
+    if reset:
+        flash_attention.launches = 0
+        setattr(fused_paged_decode_attention, b4, 0)
+        fused_page_append.launches = 0
+    return {"B1": flash_attention.launches,
+            "B4": getattr(fused_paged_decode_attention, b4),
+            "B5": fused_page_append.launches}
+
+
+def serve_drive(eng, prompts, fmt, *, sampled: bool, barrier=None) -> dict:
+    """The main path of one engine: two batched admissions of 4, then
+    SERVE_CHUNKS greedy chunks (launches counted from 0 just before the
+    admissions and read after the prefill and after the greedy chunks),
+    then one sampled chunk at SERVE_TEMPERATURE. Returns the tokens, the
+    state after the admissions, the launches and the walls."""
+    from tiny_flash_attention_tpu_torch.models.engine import Request
+    from tiny_flash_attention_tpu_torch.parallel import comm
+
+    max_new = 1 + SERVE_CHUNK * SERVE_CHUNKS + SERVE_SAMPLED_STEPS + 8
+    reqs = [Request(p, max_new) for p in prompts]
+    serve_counters(fmt, reset=True)
+    comm.host_staged_bytes = 0
+    torch.cuda.synchronize()
+    if barrier:
+        barrier()
+    t0 = time.perf_counter()
+    for batch in (reqs[:4], reqs[4:]):
+        eng.add_requests(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = serve_counters(fmt)
+    snap = dict(pages=[p.clone() for p in eng.cache.pages],
+                table=eng.cache.page_table.copy(),
+                lengths=eng.cache.lengths.copy(),
+                last=eng.last_token.copy())
+    chunk_s = []
+    for _ in range(SERVE_CHUNKS):
+        t0 = time.perf_counter()
+        eng.steps(SERVE_CHUNK)          # ends in a device-to-host copy
+        chunk_s.append(time.perf_counter() - t0)
+    launches = serve_counters(fmt)
+    staged = comm.host_staged_bytes
+    greedy = [list(r.generated) for r in reqs]
+    last = len(eng.cache.pages) - 1
+    out = {"prefill_launches": after_prefill, "launches": launches,
+           "staged": staged, "prefill_ms": prefill_ms, "chunk_s": chunk_s,
+           "greedy": greedy, "snap": snap,
+           "table_after": eng.cache.page_table.copy(),
+           "pages_greedy": {li: eng.cache.pages[li].clone()
+                            for li in (0, last)}}
+    if sampled:
+        eng.temps[:] = SERVE_TEMPERATURE
+        eng.steps(SERVE_SAMPLED_STEPS)
+        out["sampled"] = [r.generated[len(g):] for r, g in zip(reqs, greedy)]
+    return out
+
+
+def serve_steps(lengths, table, device):
+    """The greedy chunks' decode steps as the engine takes them from the
+    state after the admissions: SERVE_CHUNKS chunks of SERVE_CHUNK steps,
+    each chunk's table cut to the engine's width (its pages bucketed to a
+    power of two). lengths: (slots,) host; table: the page table after the
+    greedy chunks (global ids). Yields (step, positions, table) on
+    `device`."""
+    lengths = lengths.copy()
+    table = torch.as_tensor(table, device=device)
+    for chunk in range(SERVE_CHUNKS):
+        need = int(lengths.max()) + SERVE_CHUNK
+        bucket = 1 << max(0, (-(-need // 128) - 1)).bit_length()
+        width = table[:, :bucket] if bucket < table.shape[1] else table
+        for i in range(SERVE_CHUNK):
+            yield (chunk * SERVE_CHUNK + i,
+                   torch.as_tensor(lengths, device=device), width)
+            lengths += 1
+
+
+def serve_margins(cfg, params, prompts, run, fmt) -> tuple:
+    """The single-card engine's logits at every greedy token: the
+    prefills' (the first tokens) and each decode step's, taken by
+    decode_step from the state after the admissions (serve_steps). Asserts
+    that their argmax is the engine's tokens. Returns (margins[slot][token],
+    the top-2 margins as fractions of the largest |logit| of their step;
+    the decode steps' logits (steps, slots, V) f32 on the host; the pages
+    after the steps)."""
+    from tiny_flash_attention_tpu_torch.models.engine import pad_prompts
+    from tiny_flash_attention_tpu_torch.models.inference import (
+        decode_step, prefill_forward_batched)
+
+    def fractions(logits):
+        top = logits.float().topk(2, dim=-1).values
+        return ((top[:, 0] - top[:, 1]) / logits.abs().max()).tolist()
+
+    margins = [[] for _ in prompts]
+    argmax = [[] for _ in prompts]
+    for first in (0, 4):
+        batch = prompts[first:first + 4]
+        toks = torch.as_tensor(pad_prompts(batch, 128), device="cuda")
+        logits = prefill_forward_batched(cfg, params, toks)[0]
+        logits = logits[torch.arange(4, device="cuda"),
+                        torch.tensor([len(p) - 1 for p in batch],
+                                     device="cuda")]
+        for i, m in enumerate(fractions(logits)):
+            margins[first + i].append(m)
+            argmax[first + i].append(int(logits[i].argmax()))
+        del logits
+    snap = run["snap"]
+    pages = [p.clone() for p in snap["pages"]]
+    tokens = torch.as_tensor(snap["last"], device="cuda")
+    steps = []
+    for _, positions, table in serve_steps(snap["lengths"],
+                                           run["table_after"], "cuda"):
+        logits, _ = decode_step(cfg, params, pages, tokens, positions, table,
+                                page_size=128, fmt=fmt)
+        tokens = logits.argmax(-1).to(torch.int32)
+        for i, m in enumerate(fractions(logits)):
+            margins[i].append(m)
+            argmax[i].append(int(tokens[i]))
+        steps.append(logits.cpu())
+    if argmax != run["greedy"]:
+        raise AssertionError("the reference decode_step loop does not give "
+                             "the single-card engine's tokens")
+    return margins, torch.stack(steps), pages
+
+
+def serve_reference(model: str, fmt: str, ref_dir: str) -> dict:
+    """The single-card engine's run (serve_drive) in this process, and its
+    margins, every greedy decode step's logits (serve_margins), its pages
+    after the admissions and after the greedy chunks (layers 0 and the
+    last) and its tables, saved to ref_dir for the ranks."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
+
+    cfg, gate = serve_model(model)
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), device="cuda")
+    prompts = serve_prompts(cfg)
+    eng = InferenceEngine(cfg, params, **serve_geometry(fmt))
+    run = serve_drive(eng, prompts, fmt, sampled=model == "llama")
+    del eng
+    snap = run["snap"]
+    margins, step_logits, loop_pages = serve_margins(cfg, params, prompts,
+                                                     run, fmt)
+    path = f"{ref_dir}/{model.replace(' ', '_')}_{fmt}.pt"
+    last = cfg.n_layers - 1
+    for li in (0, last):
+        if not torch.equal(loop_pages[li], run["pages_greedy"][li]):
+            raise AssertionError("the reference decode_step loop does not "
+                                 "give the single-card engine's pages")
+    del loop_pages
+    torch.save({"step_logits": step_logits,
+                "table": torch.from_numpy(snap["table"]),
+                "pages": {li: snap["pages"][li].cpu() for li in (0, last)},
+                "table_greedy": torch.from_numpy(run["table_after"]),
+                "lengths_greedy": torch.from_numpy(
+                    snap["lengths"] + SERVE_CHUNK * SERVE_CHUNKS),
+                "pages_greedy": {li: p.cpu() for li, p in
+                                 run["pages_greedy"].items()}},
+               path)
+    torch.cuda.synchronize()
+    step_ms = [t * 1e3 / SERVE_CHUNK for t in run["chunk_s"]]
+    log(f"sharded serving reference [{model}, {fmt} pages]: the single-card "
+        f"engine, prompts {[len(p) for p in prompts]}; launches "
+        f"{run['launches']}; two admissions {run['prefill_ms']:.1f} ms; "
+        f"decode ms/step by chunk {[round(x, 3) for x in step_ms]} -> "
+        f"{SERVE_SLOTS * 1e3 / step_ms[-1]:.0f} tokens/s; smallest top-2 "
+        f"margin {min(min(m) for m in margins):.2e} of max |logit| (gate "
+        f"{gate:.1e})")
+    return {"greedy": run["greedy"], "sampled": run.get("sampled"),
+            "margins": margins, "path": path, "gate": gate,
+            "step_ms": step_ms}
+
+
+def _serve_pages_err(got, want, fmt, n_tokens=None) -> float:
+    """Max |got - want| over the K/V values of two page tensors (a slot's
+    pages, in order), as a fraction of the largest |want| (int8 pages
+    dequantized first); over the first n_tokens token rows, or every row
+    of the pages."""
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        unpack_int8_pages)
+
+    def values(p):
+        if fmt != "int8":
+            k, v = p[:, :, :128].float(), p[:, :, 128:].float()
+        else:
+            k, v, ks, vs = unpack_int8_pages(p, 128)
+            k, v = k.float() * ks[..., None], v.float() * vs[..., None]
+        return torch.stack([k.flatten(1, 2), v.flatten(1, 2)],
+                           1)[:, :, :n_tokens]
+
+    got, want = values(got), values(want)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@contextlib.contextmanager
+def _serve_fault(fault: str, n_layers: int):
+    """A planted fault on every rank: "w_down all-reduce skipped" leaves
+    layer SERVE_FAULT_LAYER's MLP output unsummed over the model axis (each
+    rank adds its own partial); "group 1 at group 0's offset" localizes
+    data group 1's page ids at group 0's base, clipped into its own block
+    (nothing reads out of bounds)."""
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel import serve as S
+
+    real_reduce, real_localize = comm.all_reduce, S.local_page_ids
+    calls = []
+
+    def skipping_reduce(x, group):
+        calls.append(1)
+        if (len(calls) - 1) % (2 * n_layers) == 2 * SERVE_FAULT_LAYER + 1:
+            return x.clone()
+        return real_reduce(x, group)
+
+    if fault == "w_down all-reduce skipped":
+        comm.all_reduce = skipping_reduce
+    else:
+        S.local_page_ids = lambda table, group, p_local: real_localize(
+            table, 0, p_local)
+    try:
+        yield
+    finally:
+        comm.all_reduce, S.local_page_ids = real_reduce, real_localize
+
+
+@contextlib.contextmanager
+def _serve_kernel_checks(readings: dict):
+    """While open, each call of B1, B4 and B5 on the sharded engine's path
+    (through the entries models/transformer.py and models/inference.py
+    call) also runs its plain version on the same inputs: B1 against the
+    plain version over its heads (_cp_refs), out within the dtype gate of
+    max(1, the largest |plain|) (the model's activations pass 1, where
+    bf16's spacing alone exceeds an absolute 2e-2) and rows at the row
+    gate at the fold; B4 against its plain version at the kernel's splits
+    and unsplit (split_errs: the decode gates), B5 bit for bit against its
+    plain version on a copy of the pages. Appends each call's readings to
+    readings["B1"], ["B4"], ["B5"]."""
+    from tiny_flash_attention_tpu_torch.models import inference as I
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_plain, page_append_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_ROW_GATE, row_err, tolerance_for)
+
+    real_b1, real_b4, real_b5 = (T.flash_attention,
+                                 I.fused_paged_decode_attention,
+                                 I.fused_page_append)
+
+    def b1(q, k, v, *, causal=False, window=None, **kw):
+        if window is not None or kw:
+            raise AssertionError("the serving phase's B1 check takes a "
+                                 "causal or full mask only")
+        out = real_b1(q, k, v, causal=causal)
+        plain, plain_fold, _ = _cp_refs(q, k, v, causal)
+        scale = max(1.0, float(plain.abs().max()))
+        err, row = max_err(out, plain), row_err(out, plain_fold)
+        readings["B1"].append({
+            "out": err / scale, "abs": err, "scale": scale, "row": row,
+            "ok": bool(torch.isfinite(out).all())
+            and err / scale <= tolerance_for(out.dtype)
+            and row <= BF16_ROW_GATE,
+            "q": tuple(q.shape), "kv": tuple(k.shape)})
+        return out
+
+    def b4(q, pages, lengths, table, *, page_size, window=None):
+        out, lse = real_b4(q, pages, lengths, table, page_size=page_size,
+                           window=window)
+        err, row, lse_err, ok = split_errs(
+            out, lse, lambda sp: fused_paged_decode_plain(
+                q, pages, lengths, table, page_size=page_size,
+                sm_scale=q.shape[-1] ** -0.5, window=window, splits=sp))
+        readings["B4"].append({"out": err, "row": row, "lse": lse_err,
+                               "ok": ok, "q": tuple(q.shape),
+                               "pages": tuple(pages.shape),
+                               "table": tuple(table.shape)})
+        return out, lse
+
+    def b5(pages, k_new, v_new, page_ids, rows, *, page_size):
+        want = page_append_plain(pages.clone(), k_new, v_new, page_ids, rows,
+                                 page_size=page_size)
+        got = real_b5(pages, k_new, v_new, page_ids, rows,
+                      page_size=page_size)
+        readings["B5"].append({"ok": bool(torch.equal(
+            got.view(torch.uint8), want.view(torch.uint8))),
+            "new": tuple(k_new.shape)})
+        return got
+
+    T.flash_attention = b1
+    I.fused_paged_decode_attention, I.fused_page_append = b4, b5
+    try:
+        yield
+    finally:
+        T.flash_attention = real_b1
+        I.fused_paged_decode_attention = real_b4
+        I.fused_page_append = real_b5
+
+
+def serve_rank(rank, device, runs, refs):
+    """One rank of a sharded-serving world: every run of its world, each
+    page format through serve_drive on the ShardedInferenceEngine, then,
+    off the main path and from the state after the admissions, the greedy
+    chunks' steps again through sharded_decode_step fed the single-card
+    engine's tokens (so that a token flipped at a near tie does not change
+    a step's input): each step's logits against the single-card engine's
+    (refs), the local pages after the admissions and after those steps
+    against its slice, and the planted faults on the first step. B1 (both
+    admissions' prefills again), B4 and B5 (the first and the last forced
+    step) are held against their plain versions on this rank's inputs
+    (_serve_kernel_checks)."""
+    import torch.distributed as dist
+
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.models.engine import pad_prompts
+    from tiny_flash_attention_tpu_torch.parallel.serve import (
+        ShardedInferenceEngine, sharded_decode_step)
+    from tiny_flash_attention_tpu_torch.parallel.sharded import make_mesh
+
+    # the card settings of main(): each rank is a process of its own
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    n = dist.get_world_size()
+    last_step = SERVE_CHUNK * SERVE_CHUNKS - 1
+    results, meshes = [], {}
+    for model, shape, data_axis, fmts, faults in runs:
+        cfg, gate = serve_model(model)
+        params = T.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(SEED), device=device)
+        prompts = serve_prompts(cfg)
+        if shape not in meshes:
+            meshes[shape] = make_mesh(n, *shape, device="cuda")
+        mesh = meshes[shape]
+        dp, tp = shape
+        g, m = divmod(rank, tp)
+        for fmt in fmts:
+            ref = refs[(model, fmt)]
+            eng = ShardedInferenceEngine(cfg, params, mesh,
+                                         data_axis=data_axis,
+                                         **serve_geometry(fmt))
+            run = serve_drive(eng, prompts, fmt, sampled=model == "llama",
+                              barrier=dist.barrier)
+            snap = run.pop("snap")
+            table_after = run.pop("table_after")
+            del run["pages_greedy"]
+            saved = torch.load(ref["path"], mmap=True, weights_only=True)
+            rows = slice(g * SERVE_SLOTS // dp, (g + 1) * SERVE_SLOTS // dp)
+            forced = torch.tensor(ref["greedy"], dtype=torch.int32)
+
+            def step(pages, j, positions, table):
+                return sharded_decode_step(
+                    cfg, mesh, eng.params, pages, forced[:, j].to(device),
+                    positions, table, page_size=128, fmt=fmt,
+                    data_axis=data_axis)
+
+            def logit_err(logits, j):
+                want = saved["step_logits"][j][rows].to(device)
+                return (float((logits - want).abs().max()
+                              / want.abs().max()),
+                        bool(torch.equal(logits, want)))
+
+            checks = {"B1": [], "B4": [], "B5": []}
+            with _serve_kernel_checks(checks):
+                for batch in (prompts[:4], prompts[4:]):
+                    eng._prefill(torch.as_tensor(pad_prompts(batch, 128),
+                                                 device=device))
+            pages = [p.clone() for p in snap["pages"]]
+            errs, bits, finite = [], True, True
+            for j, positions, table in serve_steps(snap["lengths"],
+                                                   table_after, device):
+                with (_serve_kernel_checks(checks) if j in (0, last_step)
+                      else contextlib.nullcontext()):
+                    logits = step(pages, j, positions, table)
+                err, same = logit_err(logits, j)
+                errs.append(err)
+                bits = bits and same
+                finite = finite and bool(torch.isfinite(logits).all())
+            run.update(logit_errs=errs, logit_bits=bits, finite=finite,
+                       kernel_checks=checks)
+            # each of this data group's slots: its pages here (global ids
+            # mapped by the cache) against the same slot's pages of the
+            # single-card engine (its own ids), this rank's kv heads; after
+            # the admissions every row of the slot's pages, after the
+            # forced steps its tokens
+            hkv = cfg.n_kv_heads // tp
+            for key, mine_pages, mine_table, tab, pag, n_tok in (
+                    ("page_err", snap["pages"], snap["table"], "table",
+                     "pages", None),
+                    ("page_err_greedy", pages, table_after, "table_greedy",
+                     "pages_greedy", saved["lengths_greedy"])):
+                run[key] = 0.0
+                for li, ref_pages in saved[pag].items():
+                    for slot in range(rows.start, rows.stop):
+                        length = (int(snap["lengths"][slot]) if n_tok is None
+                                  else int(n_tok[slot]))
+                        held = -(-length // 128)
+                        mine = eng.cache.local_ids(
+                            mine_table[slot, :held]).long()
+                        theirs = saved[tab][slot, :held].long()
+                        run[key] = max(run[key], _serve_pages_err(
+                            mine_pages[li][:, mine],
+                            ref_pages[m * hkv:(m + 1) * hkv][:, theirs]
+                            .to(device), fmt,
+                            None if n_tok is None else length))
+            run["faults"] = {}
+            _, positions, table = next(serve_steps(snap["lengths"],
+                                                   table_after, device))
+            for fault in faults:
+                with _serve_fault(fault, cfg.n_layers):
+                    run["faults"][fault] = logit_err(step(
+                        [p.clone() for p in snap["pages"]], 0, positions,
+                        table), 0)[0]
+            run.update(model=model, mesh=shape, fmt=fmt, gate=gate,
+                       local_pages=tuple(snap["pages"][0].shape),
+                       n_groups=eng.cache.n_groups)
+            results.append(run)
+            del eng, snap, saved, pages, logits
+            torch.cuda.empty_cache()
+        del params
+    return results
+
+
+def _serve_token_check(got, ref) -> tuple[bool, int, int]:
+    """The near-tie rule: each slot's greedy tokens equal the single-card
+    engine's up to its first token whose single-card top-2 margin is
+    below the gate (that token and the rest are not compared). Returns
+    (ok, tokens compared, slots cut at a near tie)."""
+    ok, compared, cut = True, 0, 0
+    for got_s, want_s, margins in zip(got, ref["greedy"], ref["margins"]):
+        for i, (a, b) in enumerate(zip(got_s, want_s)):
+            if margins[i] < ref["gate"]:
+                cut += 1
+                break
+            compared += 1
+            ok = ok and a == b
+    return ok, compared, cut
+
+
+def _serve_kernel_readings(rows, n_layers, dtype) -> tuple[str, bool]:
+    """(what the ranks' _serve_kernel_checks read, every rank's B1, B4 and
+    B5 checked 2 n_layers times and passing)."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_ROW_GATE, tolerance_for)
+
+    ok = all(len(r["kernel_checks"][key]) == 2 * n_layers and all(
+        c["ok"] for c in r["kernel_checks"][key])
+        for r in rows for key in ("B1", "B4", "B5"))
+
+    def worst(key, field):
+        return max(c[field] for r in rows for c in r["kernel_checks"][key])
+
+    def shapes(key, *fields):
+        return sorted({tuple(c[f] for f in fields)
+                       for r in rows for c in r["kernel_checks"][key]})
+
+    text = (f"B1 q/kv {shapes('B1', 'q', 'kv')}: out {worst('B1', 'out'):.3e}"
+            f" of max(1, max |plain|) (gate {tolerance_for(dtype):.0e}; "
+            f"absolute {worst('B1', 'abs'):.3e}, max |plain| up to "
+            f"{worst('B1', 'scale'):.3f}), row {worst('B1', 'row'):.3e} (gate "
+            f"{BF16_ROW_GATE:.4e}); B4 q/pages/table "
+            f"{shapes('B4', 'q', 'pages', 'table')}: out "
+            f"{worst('B4', 'out'):.3e} (gate {DECODE_OUT_GATE:.0e}), row "
+            f"{worst('B4', 'row'):.3e} (gate {DECODE_ROW_GATE:.4e}), lse "
+            f"{worst('B4', 'lse'):.3e} (gate {DECODE_LSE_GATE:.0e}); B5 new "
+            f"rows {shapes('B5', 'new')}: bit for bit "
+            f"{all(c['ok'] for r in rows for c in r['kernel_checks']['B5'])}"
+            f" | {'ok' if ok else 'FAIL'}")
+    return text, ok
+
+
+def sharded_serving_phase() -> dict:
+    """Each world of SERVE_WORLDS through parallel/world.py::run_world,
+    every rank running ShardedInferenceEngine's main path (serve_rank)
+    against the single-card engine run first in this process
+    (serve_reference). Gates: every rank's tokens the same; the world of 1
+    the single-card engine's tokens (greedy and sampled) and every forced
+    step's logits bit for bit; the TP worlds' logits at every forced step
+    within the engine's gate of the largest |logit| and their greedy
+    tokens equal up to the first near tie (_serve_token_check); the local
+    pages after the admissions and after the forced steps within the
+    dtype gate of the single-card engine's slice (int8 pages
+    dequantized); B1, B4 and B5 on each rank's inputs against their plain
+    versions (_serve_kernel_checks), 2 n_layers calls each; each rank's
+    B1, B4 and B5 launches n_layers a prefill and a step; gloo staging
+    positive, NCCL's 0; each planted fault fails the logit gate. Returns
+    the main-path launches summed over every rank of every world, by
+    kernel row."""
+    import tempfile
+
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.parallel.world import run_world
+    from tiny_flash_attention_tpu_torch.utils.testing import tolerance_for
+
+    _build.build()      # a no-op after main()'s build; the runs are timed
+    torch.cuda.empty_cache()
+    totals = {"flash_fwd": 0, "flash_fwd_f32": 0, "paged_decode": 0,
+              "paged_decode_int8": 0, "page_append": 0}
+    failed = []
+    with tempfile.TemporaryDirectory() as ref_dir:
+        refs = {}
+        for _, _, runs in SERVE_WORLDS:
+            for model, _, _, fmts, _ in runs:
+                for fmt in fmts:
+                    if (model, fmt) not in refs:
+                        refs[(model, fmt)] = serve_reference(model, fmt,
+                                                             ref_dir)
+                        torch.cuda.empty_cache()
+        for n, backend, runs in SERVE_WORLDS:
+            t0 = time.perf_counter()
+            per_rank = run_world(serve_rank, n, backend=backend,
+                                 device_type="cuda", args=(runs, refs),
+                                 timeout_s=SERVE_TIMEOUT_S)
+            log(f"sharded serving: world of {n} on {backend} (one card), "
+                f"{time.perf_counter() - t0:.1f} s with its spawn")
+            for i in range(len(per_rank[0])):
+                rows = [ranks[i] for ranks in per_rank]
+                head = rows[0]
+                model, fmt, mesh = head["model"], head["fmt"], head["mesh"]
+                ref = refs[(model, fmt)]
+                cfg = serve_model(model)[0]
+                L = cfg.n_layers
+                steps = SERVE_CHUNK * SERVE_CHUNKS
+                want = {"B1": 2 * L, "B4": steps * L, "B5": steps * L}
+                got = [r["launches"] for r in rows]
+                same = all(r["greedy"] == head["greedy"]
+                           and r.get("sampled") == head.get("sampled")
+                           for r in rows)
+                first_err = max(r["logit_errs"][0] for r in rows)
+                logit_err = max(max(r["logit_errs"]) for r in rows)
+                page_err = max(r["page_err"] for r in rows)
+                greedy_page_err = max(r["page_err_greedy"] for r in rows)
+                tok_ok, compared, cut = _serve_token_check(head["greedy"],
+                                                           ref)
+                if n == 1:
+                    exact = head["greedy"] == ref["greedy"] and (
+                        head.get("sampled") == ref["sampled"]) and all(
+                        r["logit_bits"] for r in rows)
+                else:
+                    exact = tok_ok and logit_err <= head["gate"]
+                staged = [r["staged"] for r in rows]
+                kchecks, kernels_ok = _serve_kernel_readings(rows, L,
+                                                             cfg.dtype)
+                ok = (same and exact and kernels_ok
+                      and all(r["finite"] for r in rows)
+                      and all(x == want for x in got)
+                      and max(page_err, greedy_page_err)
+                      <= tolerance_for(cfg.dtype)
+                      and (all(s > 0 for s in staged) if backend == "gloo"
+                           else not any(staged)))
+                for key, kernel in (("B1", "flash_fwd"),
+                                    ("B4", "paged_decode"),
+                                    ("B5", "page_append")):
+                    if key == "B1" and cfg.dtype == torch.float32:
+                        kernel = "flash_fwd_f32"
+                    if key == "B4" and fmt == "int8":
+                        kernel = "paged_decode_int8"
+                    if key == "B4" and cfg.dtype == torch.float32:
+                        continue        # f32 q at 128: no row of its own
+                    totals[kernel] += sum(x[key] for x in got)
+                step_ms = [[round(t * 1e3 / SERVE_CHUNK, 3)
+                            for t in r["chunk_s"]] for r in rows]
+                tok_s = [round(SERVE_SLOTS * SERVE_CHUNK / r["chunk_s"][-1])
+                         for r in rows]
+                log(f"  [{model}, {fmt} pages] mesh (data, model) {mesh}"
+                    f"{', data_axis' if head['n_groups'] > 1 else ''}: local "
+                    f"pages {head['local_pages']}, n_groups "
+                    f"{head['n_groups']}; ranks' tokens the same: {same}; "
+                    + (f"the single-card engine's tokens and the logits of "
+                       f"all {steps} forced steps bit for bit: {exact}"
+                       if n == 1 else
+                       f"logits vs the single-card engine, fed its tokens, "
+                       f"first step {first_err:.3e}, worst of {steps} steps "
+                       f"{logit_err:.3e} of max |logit| (gate "
+                       f"{head['gate']:.1e}); greedy tokens equal the "
+                       f"single-card engine's on {compared} compared "
+                       f"({cut} slots cut at a near tie): {tok_ok}")
+                    + f"; local pages vs the single-card slice after the "
+                    f"admissions {page_err:.3e}, after the forced steps "
+                    f"{greedy_page_err:.3e} of max |value| (gate "
+                    f"{tolerance_for(cfg.dtype):.0e}) | launches by rank "
+                    f"{got} (expected {want} each) | {backend}, "
+                    f"host_staged_bytes by rank {staged} | "
+                    f"{'ok' if ok else 'FAIL'}")
+                log(f"    kernels against their plain versions on the "
+                    f"ranks' inputs: {kchecks}")
+                log(f"    ranks time-sharing one card: two admissions ms by "
+                    f"rank {[round(r['prefill_ms'], 1) for r in rows]}; "
+                    f"decode wall ms a step by rank and chunk {step_ms} -> "
+                    f"tokens/s by rank {tok_s} (last chunk, {SERVE_SLOTS} "
+                    f"slots); the single-card engine "
+                    f"{[round(x, 3) for x in ref['step_ms']]} ms a step")
+                if head.get("sampled") is not None and n > 1:
+                    agree = sum(a == b for s, w in zip(head["sampled"],
+                                                      ref["sampled"])
+                                for a, b in zip(s, w))
+                    log(f"    sampled chunk (temperature "
+                        f"{SERVE_TEMPERATURE}): {agree} of "
+                        f"{SERVE_SLOTS * SERVE_SAMPLED_STEPS} tokens as the "
+                        f"single-card engine's (not gated at tp > 1)")
+                for fault in head["faults"]:
+                    err = max(r["faults"][fault] for r in rows)
+                    caught = err > head["gate"]
+                    log(f"    planted fault '{fault}': first-step logits "
+                        f"{err:.3e} of max |logit| | "
+                        f"{'caught' if caught else 'NOT CAUGHT'}")
+                    ok = ok and caught
+                if not ok:
+                    failed.append(f"{model} {fmt} mesh {mesh}")
+    if failed:
+        raise AssertionError(f"sharded serving phase failed: {failed}")
+    log(f"  sharded serving main-path launches, every rank of every world: "
+        f"{totals}")
+    return {"launches": totals}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -5170,6 +5862,9 @@ def main() -> int:
     # context parallel: ring, zigzag ring, Ulysses, all-gather and sharded
     # flash in worlds of ranks on this card, each on B1
     cp = context_parallel_phase()
+    # sharded serving: the tensor- and data-parallel engine in worlds of
+    # ranks on this card, on B1, B4 and B5
+    slaunch = sharded_serving_phase()["launches"]
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -5344,7 +6039,8 @@ def main() -> int:
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"]
-         + llama["flash_fwd"] + cp["launches"], **flash_row},
+         + llama["flash_fwd"] + cp["launches"] + slaunch["flash_fwd"],
+         **flash_row},
         {"name": "flash_fwd_d96", "route": "cuda",
          "design": "the bf16 kernel at head_dim 96 read in place: tensor "
                    "maps of the true width (TMA lands zeros past column "
@@ -5368,7 +6064,8 @@ def main() -> int:
         {"name": "flash_fwd_f32", "route": "cuda", "design": f32_design,
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,
-         "launches": train["launches"]["flash_fwd_f32"], **f32_fwd_row},
+         "launches": train["launches"]["flash_fwd_f32"]
+         + slaunch["flash_fwd_f32"], **f32_fwd_row},
         {"name": "flash_fwd_f32_d256", "route": "cuda",
          "design": "f32's wide instance (head dims 129-256, tiles of 256 "
                    "columns; 192 padded): 64-row q and 32-row kv tiles "
@@ -5390,7 +6087,7 @@ def main() -> int:
          "launches": run["launches"]["paged_decode"]
          + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"]
          + swa["launches"]["paged_decode_ring"] + dlaunch["paged_decode"]
-         - gemma["paged_decode"], **decode_row},
+         - gemma["paged_decode"] + slaunch["paged_decode"], **decode_row},
         {"name": "paged_decode_d256", "route": "cuda",
          "design": "head_dim 256 over bf16 pages: 32 KiB a warp's stage, "
                    "each lane 32 elements of a row scored in four 16-byte "
@@ -5417,15 +6114,15 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": qlaunch["paged_decode_int8"]
-         + dlaunch["paged_decode_int8"] - gemma["paged_decode_int8"],
-         **int8_row},
+         + dlaunch["paged_decode_int8"] - gemma["paged_decode_int8"]
+         + slaunch["paged_decode_int8"], **int8_row},
         {"name": "page_append", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": run["launches"]["page_append"]
          + qlaunch["page_append"] + ragged["launches"]["page_append"]
          + swa["launches"]["page_append"] + dlaunch["page_append"]
-         - gemma["page_append"],
+         - gemma["page_append"] + slaunch["page_append"],
          **append_rows[("int8", 128)],
          "max_abs_err": max(append_rows[("int8", 128)]["max_abs_err"],
                             dims["errs"]["page_append"])},
@@ -5644,6 +6341,13 @@ if __name__ == "__main__":
             sys.exit(1)
         log(f"card: {gpu_info()}")
         context_parallel_phase()
+        sys.exit(0)
+    if sys.argv[1:] == ["--serve-sharded"]:
+        # only the sharded-serving phase (its worlds build the kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        log(f"card: {gpu_info()}")
+        sharded_serving_phase()
         sys.exit(0)
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,

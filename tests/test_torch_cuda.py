@@ -58,13 +58,16 @@ a world of 2 ranks sharing the card over gloo, ring (causal and not) and
 zigzag against the plain version and B1 over the whole sequence; a world of 1 on NCCL giving
 B1's bits in every mode; NCCL with two ranks on one card raising; a ring
 backward on the card raising (its flash calls are forward-only); and a
-failing rank failing its world.
+failing rank failing its world. Last, sharded serving (parallel/serve.py):
+a world of 1 on NCCL whose sharded engine gives the single-card engine's
+greedy tokens and page bits, over bf16 and int8 pages.
 """
 
 import pytest
 import torch
 
 import torch_parallel_ranks as RK
+import torch_serve_ranks as SR
 from tiny_flash_attention_tpu_torch.ops.flash import (
     flash_attention, flash_attention_plain)
 from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -2399,3 +2402,19 @@ def test_failing_rank_fails_the_world_on_the_card(gen):
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
         run_world(RK.fail_on_rank, 2, backend="gloo", device_type="cuda",
                   args=(1,), timeout_s=300)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_sharded_engine_world_of_one_is_single_card(gen, fmt):
+    """parallel/serve.py on a (1, 1) mesh, one rank on NCCL: tp = 1, so
+    every all-reduce is the single-card residual add, and the tokens and
+    the pages equal the single-card engine's bit for bit."""
+    fields = dict(vocab_size=512, d_model=256, n_layers=2, n_q_heads=4,
+                  n_kv_heads=2, d_head=128, d_ff=512, dtype=torch.bfloat16)
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 512, (n,), generator=rng).tolist()
+               for n in (9, 200, 130, 33)]
+    got = run_world(SR.card_world_of_one, 1, backend="nccl",
+                    device_type="cuda", args=(fields, 0, prompts, fmt))[0]
+    assert got["tokens"][0] == got["tokens"][1]
+    assert got["same_pages"]

@@ -5,6 +5,7 @@ plain versions taken on the CPU never count as kernel launches."""
 import ast
 import dataclasses
 import pathlib
+import types
 
 import pytest
 import torch
@@ -28,6 +29,8 @@ from tiny_flash_attention_tpu_torch.ops.paged_fused import (
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_kv
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda)
+from tiny_flash_attention_tpu_torch.parallel.serve import (
+    ShardedInferenceEngine, make_sharded_decode_loop)
 from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -90,6 +93,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(SMALL)
     make_train_step(SMALL, device="cpu")
+    # the sharded entries resolve their device before they touch the mesh
+    mesh = types.SimpleNamespace(device_type="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_decode_loop(SMALL, mesh, page_size=16, n_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedInferenceEngine(SMALL, params, mesh, num_pages=4,
+                               page_size=16, max_seqs=2, pages_per_seq=2)
 
 
 def test_quantized_flash_runs_where_its_tensors_lie():

@@ -55,6 +55,40 @@ def test_allocator_matches_jax():
         tc.alloc_slot(GEOM["page_size"] * GEOM["pages_per_seq"] + 1)
 
 
+@pytest.mark.parametrize("n_groups", [1, 3])
+def test_allocator_churn_matches_jax(n_groups):
+    """A seeded run of alloc_slot / grow_slot / free_slot calls on one pool
+    and on three groups, each group's pages enough for its slots' whole
+    tables: the port's caches take JAX's decisions, call for call (which
+    pages each pop takes, in which order)."""
+    geom = dict(GEOM, num_pages=24, max_seqs=6, n_groups=n_groups)
+    tc = TCache.create(**geom, dtype=torch.bfloat16, device="cpu")
+    jc = JCache.create(**geom, dtype=jnp.bfloat16)
+    rng = np.random.default_rng(n_groups)
+    ops = set()
+    for _ in range(60):
+        held = np.flatnonzero(tc.lengths != 0)
+        op = int(rng.integers(3))
+        if op == 0 and held.size < geom["max_seqs"]:
+            n = int(rng.integers(1, 3 * GEOM["page_size"]))
+            assert tc.alloc_slot(n) == jc.alloc_slot(n)
+        elif op == 1 and held.size:
+            s = int(rng.choice(held))
+            n = int(rng.integers(1, GEOM["page_size"] * GEOM["pages_per_seq"]
+                                 + 1))
+            for c in (tc, jc):
+                c.grow_slot(s, n)
+        elif held.size:
+            s = int(rng.choice(held))
+            for c in (tc, jc):
+                c.free_slot(s)
+        else:
+            continue
+        ops.add(op)
+        assert _host_state(tc) == _host_state(jc)
+    assert ops == {0, 1, 2}
+
+
 def test_allocator_exhaustion_raises():
     tc, _ = _pair()
     for _ in range(GEOM["max_seqs"]):
@@ -121,12 +155,14 @@ def test_save_load_roundtrip_across_packages(tmp_path):
 
 
 def test_formats_not_ported_raise(tmp_path):
-    """int8 pages are ported; an unknown format is refused, and a cache
-    saved with data-parallel page groups (n_groups > 1) is not ported."""
+    """int8 pages are ported; an unknown format is refused. A cache saved
+    with data-parallel page groups (n_groups > 1) loads with its groups."""
     with pytest.raises(ValueError):
         TCache.create(**GEOM, fmt="fp8", device="cpu")
     jc = JCache.create(**{**GEOM, "max_seqs": 4}, dtype=jnp.bfloat16,
                        n_groups=2)
+    jc.alloc_slot(40)
     jc.save(str(tmp_path / "groups.npz"))
-    with pytest.raises(NotImplementedError, match="groups"):
-        TCache.load(str(tmp_path / "groups.npz"), device="cpu")
+    back = TCache.load(str(tmp_path / "groups.npz"), device="cpu")
+    assert back.n_groups == 2 and _host_state(back) == _host_state(jc)
+    _assert_pages_equal(back, jc)

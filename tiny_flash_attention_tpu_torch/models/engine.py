@@ -93,11 +93,9 @@ class InferenceEngine:
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
-        self.cache = PagedKVCache.create(
-            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-            num_pages=num_pages, page_size=page_size, d_head=cfg.d_head,
-            max_seqs=max_seqs, pages_per_seq=pages_per_seq, fmt=kv_format,
-            dtype=cfg.dtype, device=self.device)
+        self.cache = self._make_cache(
+            num_pages=num_pages, page_size=page_size, max_seqs=max_seqs,
+            pages_per_seq=pages_per_seq, fmt=kv_format)
         # page 0 is the scratch page inactive slots read/write; never allocate
         self.cache.free_pages = [p for p in self.cache.free_pages if p != 0]
         self.page_size = page_size
@@ -110,6 +108,27 @@ class InferenceEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    # --- what the sharded engine (parallel/serve.py) replaces ---------------
+
+    def _make_cache(self, **geometry) -> PagedKVCache:
+        return PagedKVCache.create(
+            n_layers=self.cfg.n_layers, n_kv_heads=self.cfg.n_kv_heads,
+            d_head=self.cfg.d_head, dtype=self.cfg.dtype, device=self.device,
+            **geometry)
+
+    def _prefill(self, toks: torch.Tensor):
+        """(logits, k_layers, v_layers) of a padded prompt batch."""
+        return prefill_forward_batched(self.cfg, self.params, toks)
+
+    def _decode_one(self, positions, page_table) -> torch.Tensor:
+        """One decode step of every slot; returns the sampled (B,)."""
+        logits, self.cache.pages = decode_step(
+            self.cfg, self.params, self.cache.pages,
+            self._tensor(self.last_token), positions, page_table,
+            page_size=self.page_size, fmt=self.kv_format)
+        return sample_tokens(logits, self.generator,
+                             self._tensor(self.temps))
 
     # --- admission -------------------------------------------------------
 
@@ -138,8 +157,7 @@ class InferenceEngine:
         toks = pad_prompts([r.prompt for r in reqs], self.page_size)
         rows, last, temps = self._sample_rows(
             np.arange(len(reqs)), [len(r.prompt) - 1 for r in reqs], reqs)
-        logits, ks, vs = prefill_forward_batched(self.cfg, self.params,
-                                                 self._tensor(toks))
+        logits, ks, vs = self._prefill(self._tensor(toks))
         first = sample_tokens(logits[rows, last], self.generator, temps)
         self._admitted(slots, reqs, first.cpu().numpy(),
                        [(ks[:, i], vs[:, i]) for i in range(len(reqs))])
@@ -247,12 +265,7 @@ class InferenceEngine:
         positions = self._tensor(np.where(lengths > 0, lengths, 0)
                                  .astype(np.int32))
         page_table, _ = self.cache.device_views()
-        logits, self.cache.pages = decode_step(
-            self.cfg, self.params, self.cache.pages,
-            self._tensor(self.last_token), positions, page_table,
-            page_size=self.page_size, fmt=self.kv_format)
-        sampled = sample_tokens(logits, self.generator,
-                                self._tensor(self.temps)).cpu().numpy()
+        sampled = self._decode_one(positions, page_table).cpu().numpy()
 
         out = {}
         for slot in active:

@@ -30,10 +30,16 @@ from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     fused_page_append, fused_paged_decode_attention)
 
 
+def _add(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return x + out
+
+
 def _prefill(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor,
-             positions: torch.Tensor, attend: Callable):
+             positions: torch.Tensor, attend: Callable, add: Callable = _add):
     """The layer loop of every prefill: `attend(q, k, v)` is its
-    attention. Returns (logits f32, k_layers, v_layers)."""
+    attention, `add(x, out)` the residual add after wo and after w_down
+    (a row-parallel sum in the sharded paths, parallel/train.py). Returns
+    (logits f32, k_layers, v_layers)."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype)
     ks, vs = [], []
@@ -41,8 +47,8 @@ def _prefill(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor,
         q, k, v = T.qkv_proj(cfg, layer, x, positions)
         o = attend(q, k, v)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_q_heads * cfg.d_head)
-        x = x + T._proj(o, layer["wo"])
-        x = T.mlp_block(cfg, layer, x)
+        x = add(x, T._proj(o, layer["wo"]))
+        x = add(x, T.mlp_down(cfg, layer, x))
         ks.append(k)
         vs.append(v)
     x = T.rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -114,8 +120,9 @@ def prefill_forward(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor):
 
 def _decode_core(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
                  tokens: torch.Tensor, positions: torch.Tensor,
-                 page_table: torch.Tensor, *, page_size: int, fmt: str):
-    """One decode step; see decode_step."""
+                 page_table: torch.Tensor, *, page_size: int, fmt: str,
+                 add: Callable = _add):
+    """One decode step; see decode_step. `add` as in _prefill."""
     B = tokens.shape[0]
     ps = page_size
     width = page_table.shape[1]
@@ -142,8 +149,8 @@ def _decode_core(cfg: T.ModelConfig, params: dict, pages: List[torch.Tensor],
                                             page_table, page_size=ps,
                                             window=cfg.attn_window)
         o = o.reshape(B, 1, cfg.n_q_heads * cfg.d_head).to(cfg.dtype)
-        x = x + T._proj(o, layer["wo"])
-        x = T.mlp_block(cfg, layer, x)
+        x = add(x, T._proj(o, layer["wo"]))
+        x = add(x, T.mlp_down(cfg, layer, x))
     x = T.rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = T._proj(x[:, 0], params["lm_head"]).float()
     return logits, pages

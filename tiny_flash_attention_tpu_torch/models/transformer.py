@@ -224,12 +224,18 @@ def attn_block(cfg: ModelConfig, layer: dict, x: torch.Tensor,
     return x + _proj(o, layer["wo"])
 
 
-def mlp_block(cfg: ModelConfig, layer: dict, x: torch.Tensor):
+def mlp_down(cfg: ModelConfig, layer: dict, x: torch.Tensor):
+    """The SwiGLU MLP's output before the residual add: its w_down
+    product, rounded to x's dtype."""
     xn = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
     g = _proj(xn, layer["w_gate"]).float()
     gate = g * torch.sigmoid(g)          # silu in f32, as jax.nn.silu
     up = _proj(xn, layer["w_up"]).float()
-    return x + _proj((gate * up).to(x.dtype), layer["w_down"])
+    return _proj((gate * up).to(x.dtype), layer["w_down"])
+
+
+def mlp_block(cfg: ModelConfig, layer: dict, x: torch.Tensor):
+    return x + mlp_down(cfg, layer, x)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The collectives of the context-parallel layer, on torch.distributed.
+"""The collectives of the parallel layer, on torch.distributed.
 
 Counterparts of the JAX collectives that parallel/ring.py and
 parallel/sharded.py use inside `shard_map`:
@@ -10,6 +10,10 @@ parallel/sharded.py use inside `shard_map`:
   all_to_all    -- `jax.lax.all_to_all(..., tiled=True)` (all_to_all_single)
   all_gather    -- `jax.lax.all_gather(..., tiled=True)` (all_gather);
                    both differentiable
+  all_reduce    -- `jax.lax.psum` over one mesh axis (all_reduce): the
+                   row-parallel sums of the sharded serving path
+                   (parallel/serve.py, parallel/train.py::spmd_forward);
+                   forward only
   take_shard / gather_shards -- a shard_map's in_specs and out_specs on
                    one mesh axis: this rank's block of a global tensor, and
                    the global tensor from every rank's block; each is the
@@ -151,6 +155,22 @@ def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     x concatenated along `axis` in rank order. Its gradient is the sum over
     the ranks of their gradients of this rank's block."""
     return _AllGather.apply(x, group, axis)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """jax.lax.psum(x, axis_name) over the ranks of `group`: the sum of
+    every rank's x, a new tensor (x is left as it is), the same bits on
+    every rank (tests/test_torch_serve_sharded.py holds gloo to that).
+    Forward only: it raises on an x that requires grad (the sharded
+    trainer, which needs its gradient, is not ported)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("all_reduce is forward-only: its gradient "
+                                  "comes with the sharded trainer")
+    wire = _to_wire(x, group)
+    if wire.data_ptr() == x.data_ptr():
+        wire = wire.clone()
+    dist.all_reduce(wire, group=group)
+    return _from_wire(wire, x.device)
 
 
 def _block(x: torch.Tensor, group, axis: int) -> torch.Tensor:
