@@ -6,6 +6,7 @@
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
     python3 chip_smoke.py --cp           # only the context-parallel phase
     python3 chip_smoke.py --serve-sharded  # only the sharded-serving phase
+    python3 chip_smoke.py --train-sharded  # only the sharded-train phase
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -79,7 +80,23 @@ steps within the bf16 gate, B1, B4 and B5 on each rank's own inputs
 against their plain versions, every rank's tokens the same and its B1, B4
 and B5 launches asserted, and two planted faults (an all-reduce after
 w_down skipped, data group 1 reading at group 0's offset) that must
-fail. The flash
+fail. Then the sharded train step (`sharded_train_phase`,
+parallel/train.py's make_train_step on a mesh): the train cell's model at
+4 x 2048 in a world of 1 on NCCL, where three AdamW steps give the
+single-card step's gradients, losses and leaves bit for bit, and on (2,
+1), (1, 2) and (2, 2) gloo meshes sharing the card, the windowed model at
+1 x 8192, the model in f32 at 1 x 1024 and Llama-3.2-3B's widths (group
+3) at 1 x 2048 on (1, 2), against the single-card step run in this
+process: each rank's gradients after one SGD step against its blocks of
+the single card's (relative Frobenius, the train cells' gates), the first
+loss within 0.1 %, three AdamW steps finite and falling, every rank's
+losses and replicated leaves the same, B1 and the backward on each rank's
+own q/k/v/dO of one layer against their plain versions, each rank's
+launches n_layers a step, and two planted faults (f's backward all-reduce
+dropped, the data mean taken as a sum) that must fail the gradient gate
+by five times; then two processes configured by the environment alone
+(initialize_multihost with gloo, make_hybrid_mesh(num_slices=2)) take two
+SGD steps within 0.1 % of the single card's losses. The flash
 forward's and FA1's
 bf16 out is also gated row by row (utils/testing.py), and at causal 2048
 and 8192 (FA1: 2048 in bf16 and 1024 in f32) the gate must reject faults
@@ -5393,10 +5410,7 @@ def serve_rank(rank, device, runs, refs):
         ShardedInferenceEngine, sharded_decode_step)
     from tiny_flash_attention_tpu_torch.parallel.sharded import make_mesh
 
-    # the card settings of main(): each rank is a process of its own
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card_settings()     # each rank is a process of its own
     n = dist.get_world_size()
     last_step = SERVE_CHUNK * SERVE_CHUNKS - 1
     results, meshes = [], {}
@@ -5690,6 +5704,558 @@ def sharded_serving_phase() -> dict:
     return {"launches": totals}
 
 
+# --- phase: the sharded train step -------------------------------------------
+
+# parallel/train.py's make_train_step on (data, model) DeviceMeshes of ranks
+# on this card (the phase `sharded_train_phase`), against the single-card
+# step run first in the parent process: the train cell's model (engine
+# benchmark widths, 4 layers, bf16) at 4 x 2048 in a world of 1 on NCCL
+# (every axis of size 1 makes no collective: the single-card step's bits)
+# and on (2, 1), (1, 2) and (2, 2) over gloo; the windowed model (swa train
+# cell) at 1 x 8192, the model in f32 at 1 x 1024 and Llama-3.2-3B's widths
+# (24/8 heads, 12/4 a rank, group 3) at 1 x 2048 on (1, 2); then two
+# processes configured by the environment (initialize_multihost, gloo asked
+# for) on make_hybrid_mesh(num_slices=2). Nothing is cut but the 4 layers.
+# The worlds of 2 and 4 share the card over gloo: their times are of ranks
+# time-sharing one card through host copies, not a parallel speed.
+TS_SGD_LR = 1e-3
+TS_ADAMW_STEPS = 3
+TS_ENV_STEPS = 2
+# the first step's loss against the single card's, relative
+TS_LOSS_GATE = 1e-3
+# a planted fault's gradient distance must exceed the gate this many times
+TS_FAULT_MARGIN = 5.0
+TS_TIMEOUT_S = 600.0
+TS_SHAPES = {"train": (4, 2048), "swa": (1, 8192), "f32": (1, 1024),
+             "llama": (1, 2048)}
+# (ranks, backend, runs): a run is (model, (data, model) mesh, planted
+# faults)
+TS_WORLDS = [
+    (1, "nccl", [("train", (1, 1), ())]),
+    (2, "gloo", [("train", (2, 1), ("data mean taken as a sum",)),
+                 ("train", (1, 2), ("f's backward all-reduce dropped",)),
+                 ("swa", (1, 2), ()), ("f32", (1, 2), ()),
+                 ("llama", (1, 2), ())]),
+    (4, "gloo", [("train", (2, 2), ())]),
+]
+
+
+def card_settings() -> None:
+    """The JAX reference's arithmetic on the card: f32 products in full f32
+    (no TF32), bf16 products accumulated in f32 and rounded once. A rank
+    is a process of its own and sets them itself."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def ts_inputs(model: str, device):
+    """(cfg, params, tokens) of a model: random weights and one token
+    batch from SEED, the same bits in every process on the card."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+
+    cfg = engine_config()
+    if model == "llama":
+        cfg = T.ModelConfig(**DIMS_MODELS[1][1], n_layers=cfg.n_layers,
+                            dtype=torch.bfloat16)
+    elif model == "swa":
+        cfg = dataclasses.replace(cfg, attn_window=SWA_WINDOW)
+    elif model == "f32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = T.init_params(cfg, gen, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, TS_SHAPES[model],
+                           generator=gen, device=device)
+    return cfg, params, tokens
+
+
+def ts_sgd(cfg, params, tokens, mesh=None, device=None, steps=1):
+    """SGD(TS_SGD_LR) steps from `params`: (losses, the first step's
+    gradients, by param_leaves, after the data mean on a mesh, the
+    launches of each kernel entry)."""
+    from tiny_flash_attention_tpu_torch.parallel.train import (
+        make_train_step, param_leaves)
+
+    step, init = make_train_step(
+        cfg, mesh, optimizer=lambda ps: torch.optim.SGD(ps, lr=TS_SGD_LR),
+        device=device)
+    p, opt = init(params)
+    losses, grads = [], None
+    for _ in range(steps):
+        p, opt, loss = step(p, opt, tokens)
+        losses.append(loss)
+        if grads is None:
+            grads = [t.grad.clone() for t in param_leaves(p)]
+    return losses, grads
+
+
+def ts_reference(model: str, ref_dir: str) -> dict:
+    """The single-card step on the model's inputs: two SGD steps (their
+    losses, the first one's gradients), then TS_ADAMW_STEPS AdamW steps
+    (their losses and, for the train cell, the leaves after them), saved
+    to ref_dir for the ranks."""
+    from tiny_flash_attention_tpu_torch.parallel.train import (
+        make_train_step, param_leaves)
+
+    cfg, params0, tokens = ts_inputs(model, "cuda")
+    sgd, grads = ts_sgd(cfg, params0, tokens, steps=TS_ENV_STEPS)
+    step, init = make_train_step(cfg, learning_rate=1e-3)
+    p, opt = init(params0)
+    adamw, walls = [], []
+    for _ in range(TS_ADAMW_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, loss = step(p, opt, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        adamw.append(loss.cpu())
+    path = f"{ref_dir}/{model}.pt"
+    torch.save({"grads": [g.cpu() for g in grads],
+                "adamw": adamw,
+                "leaves": ([t.detach().cpu() for t in param_leaves(p)]
+                           if model == "train" else None)}, path)
+    sgd = [float(x) for x in sgd]
+    log(f"sharded train reference [{model}]: the single-card step, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads, "
+        f"{str(cfg.dtype).split('.')[-1]}, tokens {tuple(tokens.shape)}"
+        f"{f', window {cfg.attn_window}' if cfg.attn_window else ''}; SGD "
+        f"losses {sgd}; AdamW losses {[float(x) for x in adamw]}; AdamW "
+        f"wall ms a step {[round(w * 1e3, 2) for w in walls]}")
+    return {"path": path, "sgd": sgd, "adamw": [float(x) for x in adamw],
+            "ms": [w * 1e3 for w in walls]}
+
+
+def ts_grad_err(grads, ref_grads, cfg, tp: int, m: int) -> float:
+    """The largest relative Frobenius distance of a rank's gradients from
+    their blocks of the single card's (param_specs' cut)."""
+    from tiny_flash_attention_tpu_torch.parallel.train import (
+        _block, _leaf_dims)
+
+    worst = 0.0
+    for g, w, dim in zip(grads, ref_grads, _leaf_dims(cfg.n_layers)):
+        w = _block(w, dim, tp, m).to(g.device).float()
+        worst = max(worst, float((g.float() - w).norm() / w.norm()))
+    return worst
+
+
+@contextlib.contextmanager
+def ts_capture(captured: list):
+    """While open, the island's first flash call keeps its q, k, v and
+    mask, and its output's gradient (dO) once backward() reaches it."""
+    from tiny_flash_attention_tpu_torch.parallel import train as TR
+
+    real = TR.flash_attention
+
+    def first(q, k, v, *, causal, window=None):
+        out = real(q, k, v, causal=causal, window=window)
+        if not captured:
+            captured.append({"q": q.detach(), "k": k.detach(),
+                             "v": v.detach(), "causal": causal,
+                             "window": window})
+            out.register_hook(lambda g: captured[0].update(do=g.detach()))
+        return out
+
+    TR.flash_attention = first
+    try:
+        yield
+    finally:
+        TR.flash_attention = real
+
+
+def ts_kernel_checks(c: dict) -> dict:
+    """B1 and the backward on a rank's own q/k/v/dO of one layer against
+    their plain versions. B1: out within the dtype gate of max(1, max
+    |plain|) (the model's activations pass 1, where one bf16 ulp exceeds
+    an absolute 2e-2; the sharded-serving check's gate), the LSE within
+    the dtype gate, and in bf16, against the plain version at the fold,
+    the rows at the row gate and the LSE at BF16_LSE_GATE. The backward:
+    dq/dk/dv within BWD_PLAIN_GATE of their largest |plain|."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_LSE_GATE, BF16_ROW_GATE, fold_q, row_err, tolerance_for)
+
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    mask = dict(causal=c["causal"], window=c["window"])
+    sm_scale = q.shape[-1] ** -0.5
+    out, lse = flash_attention(q, k, v, return_lse=True, **mask)
+    plain, plain_lse = flash_attention_plain(q, k, v, sm_scale=sm_scale,
+                                             return_lse=True, **mask)
+    tol = tolerance_for(q.dtype)
+    scale = max(1.0, float(plain.abs().max()))
+    fwd = {"out": max_err(out, plain) / scale, "scale": scale,
+           "lse": max_err(lse, plain_lse)}
+    ok = fwd["out"] <= tol and fwd["lse"] <= tol
+    if q.dtype == torch.bfloat16:
+        fq, fold_scale = fold_q(q, sm_scale)
+        fold_out, fold_lse = flash_attention_plain(
+            fq, k, v, sm_scale=fold_scale, return_lse=True, **mask)
+        fwd.update(row=row_err(out, fold_out),
+                   fold_lse=max_err(lse, fold_lse))
+        ok = ok and fwd["row"] <= BF16_ROW_GATE \
+            and fwd["fold_lse"] <= BF16_LSE_GATE
+        del fold_out, fold_lse
+    del plain, plain_lse
+    got = flash_attention_bwd(q, k, v, out, lse, do, **mask)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                      sm_scale=sm_scale, **mask)
+    bwd = [_rel_err(g, p) for g, p in zip(got, plain)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
+    return {"fwd": fwd, "bwd": bwd, "q": tuple(q.shape),
+            "kv": tuple(k.shape), "bwd_gate": BWD_PLAIN_GATE[q.dtype],
+            "ok": ok and finite and max(bwd) <= BWD_PLAIN_GATE[q.dtype]}
+
+
+@contextlib.contextmanager
+def ts_fault(fault: str):
+    """A planted fault on every rank, while the step is made and run:
+    "f's backward all-reduce dropped" makes comm.enter_model the bare
+    identity (each rank keeps its partial gradient of the normed inputs);
+    "data mean taken as a sum" leaves the data axis's sums undivided."""
+    import torch.distributed as dist
+
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel import train as TR
+
+    real_enter, real_mean = comm.enter_model, TR._data_mean
+
+    def summed(leaves, loss, group):
+        mean = real_mean(leaves, loss, group)
+        for p in leaves:
+            p.grad.mul_(dist.get_world_size(group))
+        return mean
+
+    if fault == "f's backward all-reduce dropped":
+        comm.enter_model = lambda x, group: x
+    else:
+        TR._data_mean = summed
+    try:
+        yield
+    finally:
+        comm.enter_model, TR._data_mean = real_enter, real_mean
+
+
+def ts_rank(rank, device, runs, refs):
+    """One rank of a sharded-train world, every run of its world: one SGD
+    step (this rank's gradients after the data mean against its blocks of
+    the single card's; layer 0's attention inputs and dO kept for the
+    kernel checks), then the main path, TS_ADAMW_STEPS AdamW steps with
+    the launch counts and the staged bytes zeroed just before and read just
+    after, then each planted fault's SGD step."""
+    import torch.distributed as dist
+
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel.sharded import make_mesh
+    from tiny_flash_attention_tpu_torch.parallel.train import (
+        _leaf_dims, make_train_step, param_leaves)
+
+    card_settings()
+    n = dist.get_world_size()
+    results, meshes = [], {}
+    for model, shape, faults in runs:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(n, *shape, device=device.type)
+        mesh = meshes[shape]
+        m = mesh.get_local_rank("model")
+        cfg, params0, tokens = ts_inputs(model, device)
+        ref = torch.load(refs[model]["path"], mmap=True, weights_only=True)
+        captured = []
+        with ts_capture(captured):
+            sgd, grads = ts_sgd(cfg, params0, tokens, mesh, device)
+        run = {"model": model, "mesh": shape, "sgd_loss": float(sgd[0]),
+               "grad_err": ts_grad_err(grads, ref["grads"], cfg, shape[1],
+                                       m),
+               "grad_bits": shape == (1, 1) and all(
+                   torch.equal(g.cpu(), w)
+                   for g, w in zip(grads, ref["grads"])),
+               "kernels": ts_kernel_checks(captured[0])}
+        del grads, captured
+
+        step, init = make_train_step(cfg, mesh, learning_rate=1e-3,
+                                     device=device)
+        p, opt = init(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        # ---- the main path: counts zeroed just before, read just after ----
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        comm.host_staged_bytes = 0
+        losses, walls = [], []
+        for _ in range(TS_ADAMW_STEPS):
+            t0 = time.perf_counter()
+            p, opt, loss = step(p, opt, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss.cpu())
+        run["launches"] = {"fwd": flash_attention.launches,
+                           "bwd": flash_attention_bwd.launches}
+        run["staged"] = comm.host_staged_bytes
+        # ---------------------------------------------------------------------
+        run["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        run["walls"] = walls
+        run["adamw"] = losses
+        leaves = param_leaves(p)
+        if ref["leaves"] is not None and shape == (1, 1):
+            run["leaf_bits"] = all(torch.equal(t.detach().cpu(), w)
+                                   for t, w in zip(leaves, ref["leaves"]))
+        # the replicated leaves must stay the same on every rank
+        run["replicated"] = [float(t.detach().double().sum())
+                             for t, dim in zip(leaves,
+                                               _leaf_dims(cfg.n_layers))
+                             if dim is None]
+        del p, opt, leaves, step
+        run["faults"] = {}
+        for fault in faults:
+            with ts_fault(fault):
+                _, grads = ts_sgd(cfg, params0, tokens, mesh, device)
+            run["faults"][fault] = ts_grad_err(grads, ref["grads"], cfg,
+                                               shape[1], m)
+            del grads
+        results.append(run)
+        del params0, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def ts_env_rank(out_path: str) -> None:
+    """One process of the environment-configured world (`python3
+    chip_smoke.py --train-sharded-env OUT` with MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK set): initialize_multihost with gloo asked for,
+    make_hybrid_mesh(num_slices=2) ('data' across the two "hosts"), then
+    TS_ENV_STEPS SGD steps of the train cell's model; writes the losses,
+    the mesh and the launches to OUT as JSON."""
+    import torch.distributed as dist
+
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel import comm
+    from tiny_flash_attention_tpu_torch.parallel.multihost import (
+        initialize_multihost, make_hybrid_mesh)
+
+    card_settings()
+    initialize_multihost(backend="gloo", timeout_s=TS_TIMEOUT_S)
+    try:
+        mesh = make_hybrid_mesh(num_slices=2)
+        cfg, params0, tokens = ts_inputs("train", "cuda")
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        comm.host_staged_bytes = 0
+        losses, _ = ts_sgd(cfg, params0, tokens, mesh, steps=TS_ENV_STEPS)
+        out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+               "backend": dist.get_backend(),
+               "sizes": {name: mesh.size(i) for i, name in
+                         enumerate(mesh.mesh_dim_names)},
+               "losses": [float(x) for x in losses],
+               "launches": {"fwd": flash_attention.launches,
+                            "bwd": flash_attention_bwd.launches},
+               "staged": comm.host_staged_bytes}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def ts_env_world(out_dir: str) -> tuple[list, float]:
+    """Two processes of this script (ts_env_rank) configured by the
+    environment only; any failure or the deadline stops both. Returns
+    their results and the seconds they took."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
+    outs = [f"{out_dir}/env_rank{r}.json" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-sharded-env",
+         outs[r]],
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=max(
+                1.0, TS_TIMEOUT_S - (time.perf_counter() - t0)))
+            if p.returncode:
+                raise AssertionError(f"environment-configured rank {r} "
+                                     f"failed:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results, time.perf_counter() - t0
+
+
+def _ts_kernel_text(rows) -> str:
+    """What the ranks' ts_kernel_checks read, the worst over the ranks."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        BF16_LSE_GATE, BF16_ROW_GATE)
+
+    def worst(key):
+        return max(r["kernels"]["fwd"][key] for r in rows)
+
+    k = rows[0]["kernels"]
+    text = (f"B1 q/kv {k['q']}/{k['kv']}: out {worst('out'):.3e} of max(1, "
+            f"max |plain|) (up to {worst('scale'):.3f}), lse "
+            f"{worst('lse'):.3e}")
+    if "row" in k["fwd"]:
+        text += (f", at the fold rows {worst('row'):.3e} (gate "
+                 f"{BF16_ROW_GATE:.4e}) lse {worst('fold_lse'):.3e} (gate "
+                 f"{BF16_LSE_GATE:.0e})")
+    bwd = max(max(r["kernels"]["bwd"]) for r in rows)
+    return (f"{text}; backward dq/dk/dv {bwd:.3e} of max |plain| (gate "
+            f"{k['bwd_gate']:.0e})")
+
+
+def sharded_train_phase() -> dict:
+    """Each world of TS_WORLDS through parallel/world.py::run_world, every
+    rank running ts_rank against the single-card step run first in this
+    process (ts_reference), then the environment-configured world
+    (ts_env_world). Gates: the world of 1 gives the single-card step's
+    gradients, AdamW losses and every leaf after them bit for bit; the
+    gloo worlds' gradients within TRAIN_GRAD_GATE (TRAIN_F32_GRAD_GATE in
+    f32) of the single card's blocks by relative Frobenius distance, the
+    first loss within TS_LOSS_GATE, the AdamW losses finite and falling;
+    every rank's losses the same bits and its replicated leaves the same;
+    B1 and the backward on each rank's inputs against their plain
+    versions; each rank's B1 and backward launches n_layers a step; gloo
+    staging positive, NCCL's 0; each planted fault over TS_FAULT_MARGIN
+    times the gradient gate; the environment-configured world's losses
+    within TS_LOSS_GATE of the single card's SGD losses. Returns the
+    main-path launches summed over every rank of every world, by kernel
+    row."""
+    import tempfile
+
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.parallel.world import run_world
+
+    _build.build()      # a no-op after main()'s build
+    card_settings()
+    torch.cuda.empty_cache()
+    totals = {"flash_fwd": 0, "flash_fwd_f32": 0, "flash_bwd": 0,
+              "flash_bwd_f32": 0}
+    failed = []
+    layers = engine_config().n_layers       # every model of the phase's
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ref_dir:
+        refs = {model: ts_reference(model, ref_dir) for model in TS_SHAPES}
+        torch.cuda.empty_cache()
+        for n, backend, runs in TS_WORLDS:
+            t0 = time.perf_counter()
+            per_rank = run_world(ts_rank, n, backend=backend,
+                                 device_type="cuda", args=(runs, refs),
+                                 timeout_s=TS_TIMEOUT_S)
+            log(f"sharded train: world of {n} on {backend} (one card), "
+                f"{time.perf_counter() - t0:.1f} s with its spawn")
+            for i, (model, shape, _) in enumerate(runs):
+                rows = [ranks[i] for ranks in per_rank]
+                ref = refs[model]
+                f32 = model == "f32"
+                gate = TRAIN_F32_GRAD_GATE if f32 else TRAIN_GRAD_GATE
+                want = {"fwd": layers * TS_ADAMW_STEPS,
+                        "bwd": layers * TS_ADAMW_STEPS}
+                launches = [r["launches"] for r in rows]
+                grad_err = max(r["grad_err"] for r in rows)
+                loss_err = max(abs(r["sgd_loss"] - ref["sgd"][0])
+                               / ref["sgd"][0] for r in rows)
+                adamw = [float(x) for x in rows[0]["adamw"]]
+                same = all(torch.equal(torch.stack(r["adamw"]),
+                                       torch.stack(rows[0]["adamw"]))
+                           and r["sgd_loss"] == rows[0]["sgd_loss"]
+                           and r["replicated"] == rows[0]["replicated"]
+                           for r in rows)
+                staged = [r["staged"] for r in rows]
+                kernels_ok = all(r["kernels"]["ok"] for r in rows)
+                ok = (same and kernels_ok and all(x == want for x in launches)
+                      and all(np.isfinite(adamw)) and adamw[-1] < adamw[0]
+                      and (all(s > 0 for s in staged) if backend == "gloo"
+                           else not any(staged)))
+                if n == 1:
+                    bits = (rows[0]["grad_bits"] and rows[0]["leaf_bits"]
+                            and adamw == ref["adamw"])
+                    ok = ok and bits
+                    verdict = (f"gradients, AdamW losses and every leaf "
+                               f"after them bit for bit: {bits}")
+                else:
+                    ok = ok and grad_err <= gate and loss_err <= TS_LOSS_GATE
+                    verdict = (f"gradients vs the single card's blocks "
+                               f"{grad_err:.3e} (relative Frobenius, worst "
+                               f"leaf and rank; gate {gate:.0e}); first loss "
+                               f"{loss_err:.3e} off (gate {TS_LOSS_GATE:.0e})")
+                key = "_f32" if f32 else ""
+                totals[f"flash_fwd{key}"] += sum(x["fwd"] for x in launches)
+                totals[f"flash_bwd{key}"] += sum(x["bwd"] for x in launches)
+                ms = [[round(w * 1e3, 1) for w in r["walls"]] for r in rows]
+                tokens = TS_SHAPES[model][0] * TS_SHAPES[model][1]
+                log(f"  [{model}] mesh (data, model) {shape}: {verdict}; "
+                    f"AdamW losses {adamw} (single card {ref['adamw']}); "
+                    f"ranks' losses and replicated leaves the same: {same} | "
+                    f"launches by rank {launches} (expected {want} each) | "
+                    f"{backend}, staged GB a step by rank "
+                    f"{[round(s / TS_ADAMW_STEPS / 1e9, 3) for s in staged]} "
+                    f"| {'ok' if ok else 'FAIL'}")
+                log(f"    kernels against their plain versions on the "
+                    f"ranks' inputs: {_ts_kernel_text(rows)} | "
+                    f"{'ok' if kernels_ok else 'FAIL'}")
+                log(f"    ranks time-sharing one card: wall ms a step by "
+                    f"rank {ms} -> tokens/s by rank "
+                    f"{[round(tokens / r['walls'][-1]) for r in rows]} (last "
+                    f"step, {tokens} tokens); peak GiB by rank "
+                    f"{[round(r['peak_gib'], 2) for r in rows]}; the single "
+                    f"card {[round(x, 1) for x in ref['ms']]} ms a step")
+                for fault in rows[0]["faults"]:
+                    err = max(r["faults"][fault] for r in rows)
+                    caught = err > TS_FAULT_MARGIN * gate
+                    log(f"    planted fault '{fault}': gradients "
+                        f"{err:.3e} ({err / gate:.1f}x the gate) | "
+                        f"{'caught' if caught else 'NOT CAUGHT'}")
+                    ok = ok and caught
+                if not ok:
+                    failed.append(f"{model} mesh {shape}")
+        env, secs = ts_env_world(ref_dir)
+        ref = refs["train"]["sgd"]
+        env_err = max(abs(a - b) / b for r in env
+                      for a, b in zip(r["losses"], ref))
+        want = {"fwd": layers * TS_ENV_STEPS, "bwd": layers * TS_ENV_STEPS}
+        ok = (all(r["sizes"] == {"data": 2, "model": 1}
+                  and r["backend"] == "gloo" and r["world"] == 2
+                  and r["launches"] == want and r["staged"] > 0
+                  for r in env) and env_err <= TS_LOSS_GATE
+              and env[0]["losses"] == env[1]["losses"])
+        for r in env:
+            totals["flash_fwd"] += r["launches"]["fwd"]
+            totals["flash_bwd"] += r["launches"]["bwd"]
+        log(f"sharded train: two processes configured by the environment "
+            f"(initialize_multihost, gloo), make_hybrid_mesh(num_slices=2) "
+            f"{env[0]['sizes']}: SGD losses {env[0]['losses']} vs the "
+            f"single card {ref}, {env_err:.3e} off (gate "
+            f"{TS_LOSS_GATE:.0e}); launches by rank "
+            f"{[r['launches'] for r in env]} (expected {want}); staged GB "
+            f"by rank {[round(r['staged'] / 1e9, 3) for r in env]}; "
+            f"{secs:.1f} s with their start | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append("environment-configured world")
+    if failed:
+        raise AssertionError(f"sharded train phase failed: {failed}")
+    log(f"  sharded train main-path launches, every rank of every world: "
+        f"{totals}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": totals}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -5699,11 +6265,7 @@ def main() -> int:
     from tiny_flash_attention_tpu_torch.models.inference import (
         prefill_forward_batched)
 
-    # the JAX reference's arithmetic: f32 products in full f32 (no TF32),
-    # bf16 products accumulated in f32 and rounded once
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card_settings()
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -5865,6 +6427,10 @@ def main() -> int:
     # sharded serving: the tensor- and data-parallel engine in worlds of
     # ranks on this card, on B1, B4 and B5
     slaunch = sharded_serving_phase()["launches"]
+    # the sharded train step: data x tensor parallel in worlds of ranks on
+    # this card and two processes configured by the environment, on B1 and
+    # the backward kernels
+    tlaunch = sharded_train_phase()["launches"]
 
     # each kernel at the shapes the main path gave it; the JSON row holds
     # the larger admission's times and the worst error of both
@@ -5973,8 +6539,8 @@ def main() -> int:
                              f"train step's shape {TRAIN_F32}")
     bwd_kernels = [
         *(bwd_kernel(part, bwd_rows[0], torch.bfloat16,
-                     train["launches"]["flash_bwd"] + llama.get("flash_bwd",
-                                                                0))
+                     train["launches"]["flash_bwd"]
+                     + llama.get("flash_bwd", 0) + tlaunch["flash_bwd"])
           for part in ("prep", "main", "post")),
         # the head_dim-96 instances (read in place, products of 96 columns)
         # at the Phi-3-mini-width train step's (1,32,2048,96)
@@ -5997,7 +6563,8 @@ def main() -> int:
                          "in rank order: bit-identical runs"))
           for part in ("prep", "main", "post")),
         *(bwd_kernel(part, f32_row, torch.float32,
-                     train["launches"]["flash_bwd_f32"])
+                     train["launches"]["flash_bwd_f32"]
+                     + tlaunch["flash_bwd_f32"])
           for part in ("dq", "dkv", "post")),
         # the wide f32 instances (head_dim 256) at the Gemma-2B-width f32
         # train step's (1,8,2048,256)/(1,1)
@@ -6039,7 +6606,8 @@ def main() -> int:
          "launches": run["launches"]["flash_fwd"] + qlaunch["flash_fwd"]
          + ragged["launches"]["flash_fwd"] + enc["launches"]
          + train["launches"]["flash_fwd"] + swa["launches"]["flash_fwd"]
-         + llama["flash_fwd"] + cp["launches"] + slaunch["flash_fwd"],
+         + llama["flash_fwd"] + cp["launches"] + slaunch["flash_fwd"]
+         + tlaunch["flash_fwd"],
          **flash_row},
         {"name": "flash_fwd_d96", "route": "cuda",
          "design": "the bf16 kernel at head_dim 96 read in place: tensor "
@@ -6065,7 +6633,8 @@ def main() -> int:
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": fwd_replaces,
          "launches": train["launches"]["flash_fwd_f32"]
-         + slaunch["flash_fwd_f32"], **f32_fwd_row},
+         + slaunch["flash_fwd_f32"] + tlaunch["flash_fwd_f32"],
+         **f32_fwd_row},
         {"name": "flash_fwd_f32_d256", "route": "cuda",
          "design": "f32's wide instance (head dims 129-256, tiles of 256 "
                    "columns; 192 padded): 64-row q and 32-row kv tiles "
@@ -6348,6 +6917,19 @@ if __name__ == "__main__":
             sys.exit(1)
         log(f"card: {gpu_info()}")
         sharded_serving_phase()
+        sys.exit(0)
+    if sys.argv[1:] == ["--train-sharded"]:
+        # only the sharded-train phase (its worlds build the kernels)
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        log(f"card: {gpu_info()}")
+        sharded_train_phase()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--train-sharded-env"] and len(sys.argv) == 3:
+        # one process of the phase's environment-configured world
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        ts_env_rank(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:] == ["--bwd"]:
         # only the bf16 backward at the train steps' shapes (4 x 2048,

@@ -29,6 +29,8 @@ from tiny_flash_attention_tpu_torch.ops.paged_fused import (
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_kv
 from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
     quantized_matmul_cuda)
+from tiny_flash_attention_tpu_torch.parallel.multihost import (
+    initialize_multihost)
 from tiny_flash_attention_tpu_torch.parallel.serve import (
     ShardedInferenceEngine, make_sharded_decode_loop)
 from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
@@ -100,6 +102,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ShardedInferenceEngine(SMALL, params, mesh, num_pages=4,
                                page_size=16, max_seqs=2, pages_per_seq=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(SMALL, mesh)
+    # a configured multi-host init takes the card (NCCL) unless asked
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("127.0.0.1:1", 1, 0, timeout_s=1)
 
 
 def test_quantized_flash_runs_where_its_tensors_lie():

@@ -478,8 +478,9 @@ def test_shard_params_reassemble(world):
 def test_all_reduce_same_bits_on_every_rank(world):
     """comm.all_reduce over groups of 2, 4 and 8 ranks: every rank of a
     group gets the same bits, the sum of the ranks' inputs (to f32
-    rounding), and the input is left as it was; an input that requires
-    grad raises."""
+    rounding), and the input is left as it was; its gradient (psum's
+    transpose) is the identity: each rank's input gets the cotangent of
+    the sum, the same bits on every rank."""
     ranks = _ranks(world, "all_reduce")
     assert len(ranks) == WORLD
     groups = ([[2 * i, 2 * i + 1] for i in range(4)],
@@ -492,7 +493,8 @@ def test_all_reduce_same_bits_on_every_rank(world):
             want = sum(REDUCE_X.astype(np.float64) + r for r in group)
             np.testing.assert_allclose(bits[0].view(torch.float32).numpy(),
                                        want, rtol=1e-6, atol=1e-5)
-    assert all(r["grad_refused"] for _, r in ranks)
+    assert all(r["grad_is_identity"] for _, r in ranks)
+    assert all(torch.equal(r["grad"], ranks[0][1]["grad"]) for _, r in ranks)
 
 
 def test_sharded_engine_refusals(world):

@@ -99,22 +99,21 @@ def shards_case(mesh, device, cfg, params, bad_cfg):
 def all_reduce_case(mesh, device, x):
     """x + rank through comm.all_reduce over the model axis (2 ranks), the
     data axis (4) and the whole world (8): each result's bits, and x left
-    as it was."""
+    as it was; and the gradient of sum(all_reduce(x + rank) * w) over the
+    model axis, w the same on every rank: its bits, and whether it is w
+    (the identity backward)."""
     mine = x + dist.get_rank()
     keep = mine.clone()
     out = [comm.all_reduce(mine, mesh.get_group(name))
            for name in ("model", "data")]
     out.append(comm.all_reduce(mine, dist.group.WORLD))
     assert torch.equal(mine, keep)
-    try:
-        comm.all_reduce(mine.clone().requires_grad_(), mesh.get_group(
-            "model"))
-    except NotImplementedError:
-        grad_refused = True
-    else:
-        grad_refused = False
+    leaf = mine.clone().requires_grad_()
+    w = torch.linspace(-1.0, 1.0, x.numel()).reshape(x.shape)
+    (comm.all_reduce(leaf, mesh.get_group("model")) * w).sum().backward()
     return {"sums": [o.view(torch.int32) for o in out],
-            "grad_refused": grad_refused}
+            "grad": leaf.grad.view(torch.int32),
+            "grad_is_identity": torch.equal(leaf.grad, w)}
 
 
 def refusals_case(mesh, device, cfg, params):

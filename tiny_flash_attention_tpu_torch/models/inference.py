@@ -35,20 +35,23 @@ def _add(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _prefill(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor,
-             positions: torch.Tensor, attend: Callable, add: Callable = _add):
-    """The layer loop of every prefill: `attend(q, k, v)` is its
-    attention, `add(x, out)` the residual add after wo and after w_down
-    (a row-parallel sum in the sharded paths, parallel/train.py). Returns
-    (logits f32, k_layers, v_layers)."""
+             positions: torch.Tensor, attend: Callable, add: Callable = _add,
+             enter: Callable = T._identity):
+    """The layer loop of every prefill and of the sharded train step:
+    `attend(q, k, v)` is its attention, `add(x, out)` the residual add
+    after wo and after w_down (a row-parallel sum in the sharded paths,
+    parallel/train.py), `enter(xn)` takes the normed input of the
+    column-cut products (the model axis's f in the sharded train step).
+    Returns (logits f32, k_layers, v_layers)."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype)
     ks, vs = [], []
     for layer in params["layers"]:
-        q, k, v = T.qkv_proj(cfg, layer, x, positions)
+        q, k, v = T.qkv_proj(cfg, layer, x, positions, enter)
         o = attend(q, k, v)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_q_heads * cfg.d_head)
         x = add(x, T._proj(o, layer["wo"]))
-        x = add(x, T.mlp_down(cfg, layer, x))
+        x = add(x, T.mlp_down(cfg, layer, x, enter))
         ks.append(k)
         vs.append(v)
     x = T.rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -202,11 +202,17 @@ def _attention(cfg: ModelConfig, q, k, v, *, causal: bool = True):
     raise ValueError(f"attn_impl {cfg.attn_impl!r}")
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def qkv_proj(cfg: ModelConfig, layer: dict, x: torch.Tensor,
-             positions: torch.Tensor):
-    """x (b, s, dm) -> q (b, hq, s, dh), k/v (b, hkv, s, dh) with RoPE."""
+             positions: torch.Tensor, enter=_identity):
+    """x (b, s, dm) -> q (b, hq, s, dh), k/v (b, hkv, s, dh) with RoPE.
+    `enter` takes the normed input before the column-cut products (the
+    model axis's f in the sharded train step, parallel/train.py)."""
     b, s, _ = x.shape
-    xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    xn = enter(rms_norm(x, layer["attn_norm"], cfg.rms_eps))
     q = _proj(xn, layer["wq"]).view(b, s, cfg.n_q_heads, cfg.d_head)
     k = _proj(xn, layer["wk"]).view(b, s, cfg.n_kv_heads, cfg.d_head)
     v = _proj(xn, layer["wv"]).view(b, s, cfg.n_kv_heads, cfg.d_head)
@@ -224,10 +230,11 @@ def attn_block(cfg: ModelConfig, layer: dict, x: torch.Tensor,
     return x + _proj(o, layer["wo"])
 
 
-def mlp_down(cfg: ModelConfig, layer: dict, x: torch.Tensor):
+def mlp_down(cfg: ModelConfig, layer: dict, x: torch.Tensor,
+             enter=_identity):
     """The SwiGLU MLP's output before the residual add: its w_down
-    product, rounded to x's dtype."""
-    xn = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    product, rounded to x's dtype. `enter` as in qkv_proj."""
+    xn = enter(rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
     g = _proj(xn, layer["w_gate"]).float()
     gate = g * torch.sigmoid(g)          # silu in f32, as jax.nn.silu
     up = _proj(xn, layer["w_up"]).float()
@@ -252,10 +259,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _proj(x, params["lm_head"]).float()
 
 
-def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Next-token cross-entropy, the mean over every position but the last
-    (transformer.py:198-204): log-softmax of the f32 logits, as
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor):
+    """Next-token cross-entropy of f32 logits (b, s, vocab), the mean over
+    every position but the last (transformer.py:198-204): log-softmax, as
     `F.cross_entropy` computes it."""
-    logits = forward(cfg, params, tokens)
     return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1).long())
+
+
+def loss_fn(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """The training objective: next_token_nll of the forward's logits."""
+    return next_token_nll(forward(cfg, params, tokens), tokens)

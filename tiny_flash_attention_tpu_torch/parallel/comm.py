@@ -11,9 +11,15 @@ parallel/sharded.py use inside `shard_map`:
   all_gather    -- `jax.lax.all_gather(..., tiled=True)` (all_gather);
                    both differentiable
   all_reduce    -- `jax.lax.psum` over one mesh axis (all_reduce): the
-                   row-parallel sums of the sharded serving path
-                   (parallel/serve.py, parallel/train.py::spmd_forward);
-                   forward only
+                   row-parallel sums of the sharded paths (megatron's g,
+                   after wo and after w_down); differentiable: its
+                   gradient is the identity (psum's transpose under
+                   shard_map: the cotangent of a replicated sum is itself
+                   replicated)
+  enter_model   -- megatron's f, at the input of each column-cut product:
+                   the identity forward, an all-reduce of the gradient
+                   over the model axis backward (what GSPMD inserts for
+                   JAX's sharded train step)
   take_shard / gather_shards -- a shard_map's in_specs and out_specs on
                    one mesh axis: this rank's block of a global tensor, and
                    the global tensor from every rank's block; each is the
@@ -23,6 +29,11 @@ gloo moves host memory only. On gloo a CUDA tensor is copied to the host,
 sent, and the received bytes copied back to the card, by one code path that
 adds every byte it copies, both ways, to `host_staged_bytes`. On NCCL
 nothing is staged.
+
+A group of one rank makes no collective (GSPMD inserts none on an axis of
+size 1 either): all_reduce copies, enter_model passes its gradient on.
+Every backward that makes a collective runs on every rank of its group in
+the same order, since every rank runs the same graph.
 """
 
 from __future__ import annotations
@@ -157,20 +168,55 @@ def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     return _AllGather.apply(x, group, axis)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """jax.lax.psum(x, axis_name) over the ranks of `group`: the sum of
-    every rank's x, a new tensor (x is left as it is), the same bits on
-    every rank (tests/test_torch_serve_sharded.py holds gloo to that).
-    Forward only: it raises on an x that requires grad (the sharded
-    trainer, which needs its gradient, is not ported)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("all_reduce is forward-only: its gradient "
-                                  "comes with the sharded trainer")
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
     wire = _to_wire(x, group)
     if wire.data_ptr() == x.data_ptr():
         wire = wire.clone()
     dist.all_reduce(wire, group=group)
     return _from_wire(wire, x.device)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.float(), ctx.group).to(g.dtype), None
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """jax.lax.psum(x, axis_name) over the ranks of `group`: the sum of
+    every rank's x, a new tensor (x is left as it is), the same bits on
+    every rank (tests/test_torch_serve_sharded.py holds gloo to that).
+    Its gradient is the identity: each rank's x gets the gradient of the
+    sum, which is the same on every rank of a replicated computation."""
+    if dist.get_world_size(group) == 1:
+        return x.clone()
+    return _AllReduce.apply(x, group)
+
+
+def enter_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x itself, as the input of the column-cut products (wq, wk, wv,
+    w_gate, w_up) of the model axis `group`. Each rank's product reads only
+    its columns, so the gradient of x it makes is partial: the backward
+    sums it over the group in f32 and rounds once to its dtype, so every
+    rank gets the whole gradient of x, the same bits on each."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _EnterModel.apply(x, group)
 
 
 def _block(x: torch.Tensor, group, axis: int) -> torch.Tensor:

@@ -29,7 +29,6 @@ are local.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Optional
 
@@ -45,33 +44,7 @@ from tiny_flash_attention_tpu_torch.models.kv_cache import (
     PagedKVCache, local_page_ids)
 from tiny_flash_attention_tpu_torch.parallel import comm
 from tiny_flash_attention_tpu_torch.parallel.train import (
-    _axis, _local_cfg, row_parallel_add, shard_params)
-from tiny_flash_attention_tpu_torch.utils.device import resolve_device
-
-
-@dataclasses.dataclass(frozen=True)
-class _Place:
-    """This rank's place on the mesh."""
-    tp: int
-    model_group: object
-    dp: int
-    group: int                    # its data group's index
-    data_group: object            # None without a data axis
-
-    @classmethod
-    def of(cls, mesh: DeviceMesh, model_axis: str,
-           data_axis: Optional[str]) -> "_Place":
-        tp = _axis(mesh, model_axis)[0]
-        dp, g = _axis(mesh, data_axis) if data_axis else (1, 0)
-        return cls(tp, mesh.get_group(model_axis), dp, g,
-                   mesh.get_group(data_axis) if data_axis else None)
-
-
-def _device(mesh: DeviceMesh, device) -> torch.device:
-    device = resolve_device(device)
-    if device.type != mesh.device_type:
-        raise ValueError(f"a {mesh.device_type} mesh, device {device}")
-    return device
+    _local_cfg, _mesh_device, _Place, row_parallel_add, shard_params)
 
 
 def _local_inputs(place: _Place, pages, tokens, positions, page_table,
@@ -128,7 +101,7 @@ def make_sharded_decode_loop(cfg: T.ModelConfig, mesh: DeviceMesh, *,
     every rank. Runs on `device` (default the card), which must be of the
     mesh's device type.
     """
-    _device(mesh, device)
+    _mesh_device(mesh, device)
     place = _Place.of(mesh, model_axis, data_axis)
     cfg_local = _local_cfg(cfg, place.tp)
 
@@ -181,7 +154,7 @@ class ShardedInferenceEngine(InferenceEngine):
     def __init__(self, cfg: T.ModelConfig, params: dict, mesh: DeviceMesh, *,
                  model_axis: str = "model", data_axis: Optional[str] = None,
                  device=None, **kw):
-        device = _device(mesh, device)
+        device = _mesh_device(mesh, device)
         self.mesh, self.model_axis, self.data_axis = mesh, model_axis, \
             data_axis
         self.place = _Place.of(mesh, model_axis, data_axis)
