@@ -6,6 +6,8 @@
     python3 chip_smoke.py --rows         # only the head_dim-128 rows, timed
     python3 chip_smoke.py --cp           # only the context-parallel phase
     python3 chip_smoke.py --serve-sharded  # only the sharded-serving phase
+    python3 chip_smoke.py --autotune     # only the autotuner's phase
+    python3 chip_smoke.py --cpu-oracle   # only the native CPU oracle's
     python3 chip_smoke.py --train-sharded  # only the sharded-train phase
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
@@ -80,7 +82,20 @@ steps within the bf16 gate, B1, B4 and B5 on each rank's own inputs
 against their plain versions, every rank's tokens the same and its B1, B4
 and B5 launches asserted, and two planted faults (an all-reduce after
 w_down skipped, data group 1 reading at group 0's offset) that must
-fail. Then the sharded train step (`sharded_train_phase`,
+fail; the same engine admitting the prompts packed (page and pow2
+buckets: B1 with segment ids and the pack's tile table on every rank) and
+jagged (B11) on (1, 1) NCCL (the single-card engine's bits) and (1, 2),
+(2, 2) gloo, each against the single-card engine admitted the same way
+(the first tokens' logits too), B1 with ids or B11 on each rank's inputs
+against its plain version, and rank 0's pack offsets shifted by one page
+planted, which must fail the logit gate. Before the engines, the
+autotuner (`autotune_phase`: utils/autotune.py at an f32 head_dim-256, a
+bf16 head_dim-96 and a bf16 head_dim-128 prefill, every candidate timed,
+the winner held to the plain version and to the call without config,
+the memo and the JSON cache; default_config passed explicitly giving a
+call's bits) and the native CPU oracle (`cpu_oracle_phase`: cpu.py built
+from cpp/attn.cpp on the card's host, its four functions against the
+plain reference and B1 copied back). Then the sharded train step (`sharded_train_phase`,
 parallel/train.py's make_train_step on a mesh): the train cell's model at
 4 x 2048 in a world of 1 on NCCL, where three AdamW steps give the
 single-card step's gradients, losses and leaves bit for bit, and on (2,
@@ -139,6 +154,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -470,6 +486,7 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
     segment id); j the middle tile; f32 also (3) the tile's first run of
     kv tiles (`fwd_f32_split`'s, at most half the tiles) lost in the
     merge. Each must fail the gate."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention_plain, fwd_config, fwd_f32_split)
     from tiny_flash_attention_tpu_torch.utils.testing import fold_q
@@ -498,7 +515,8 @@ def planted_faults(name, q, k, v, sm_scale) -> None:
               f"kv tile {j} dropped": dropped(tile)}
     if q.dtype == torch.float32:
         split = min(fwd_f32_split(q_len, kv_len, causal=True,
-                                  n_bh=b * q.shape[1], cfg=cfg),
+                                  n_bh=b * q.shape[1], config=FlashConfig(),
+                                  cfg=cfg),
                     kv_len // bn // 2)
         faults[f"run of kv tiles [0, {split}) lost in the merge"] = \
             dropped(slice(0, split * bn))
@@ -628,10 +646,9 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
 
 def fwd_f32_split_sweep(gen) -> None:
     """B1's f32 instance at the f32 train step's shape for several runs a
-    q tile (ops/configs.py::FLASH_FWD_F32_SPLIT, read at each call): the
-    blocks and device ms of each, each held to the f32 gate against the
-    plain version; the setting is restored."""
-    from tiny_flash_attention_tpu_torch.ops import configs
+    q tile (a FlashConfig's `f32_split`): the blocks and device ms of
+    each, each held to the f32 gate against the plain version."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain, fwd_f32_work)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -641,25 +658,24 @@ def fwd_f32_split_sweep(gen) -> None:
     q_shape, kv_shape = F32_FWD_SHAPE
     q = randn(q_shape, torch.float32, gen)
     k, v = (randn(kv_shape, torch.float32, gen) for _ in range(2))
-    chosen, cells = configs.FLASH_FWD_F32_SPLIT, []
-    try:
-        for split in (1, 2, 3, 4, 5, 6, 8, 16):
-            configs.FLASH_FWD_F32_SPLIT = split
-            out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-            torch.cuda.synchronize()
-            errs, _, ok = flash_gate(out, lse, lambda x, sc: (
-                flash_attention_plain(x, k, v, causal=True, sm_scale=sc,
-                                      return_lse=True)), q, torch.float32)
-            if not ok:
-                raise AssertionError(f"f32 forward at split {split}: {errs}")
-            n_bh = q_shape[0] * q_shape[1]
-            blocks = fwd_f32_work(q_shape[2], kv_shape[2], causal=True,
-                                  n_bh=n_bh)[1] * n_bh
-            t = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True),
-                             iters=10)["median_ms"]
-            cells.append(f"{split}: {blocks} blocks {t:.4f}")
-    finally:
-        configs.FLASH_FWD_F32_SPLIT = chosen
+    chosen, cells = FlashConfig().f32_split, []
+    for split in (1, 2, 3, 4, 5, 6, 8, 16):
+        config = FlashConfig(f32_split=split)
+        out, lse = flash_attention(q, k, v, causal=True, config=config,
+                                   return_lse=True)
+        torch.cuda.synchronize()
+        errs, _, ok = flash_gate(out, lse, lambda x, sc: (
+            flash_attention_plain(x, k, v, causal=True, sm_scale=sc,
+                                  return_lse=True)), q, torch.float32)
+        if not ok:
+            raise AssertionError(f"f32 forward at split {split}: {errs}")
+        n_bh = q_shape[0] * q_shape[1]
+        blocks = fwd_f32_work(q_shape[2], kv_shape[2], causal=True,
+                              n_bh=n_bh, config=config)[1] * n_bh
+        t = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                 config=config),
+                         iters=10)["median_ms"]
+        cells.append(f"{split}: {blocks} blocks {t:.4f}")
     log(f"f32 forward split sweep, q{q_shape} kv{kv_shape} causal, runs of "
         f"at most S kv tiles a block (S: blocks, ms): " + "; ".join(cells)
         + f" (chosen: S {chosen})")
@@ -1000,6 +1016,214 @@ def check_not_ported_raise() -> None:
         f"head_dim 72 and 192, page size 48)")
 
 
+# --- the autotuner and the native CPU oracle ---------------------------------
+
+# (label, q shape, kv shape, dtype): the f32 shape of Gemma-2B's prefill and
+# train step (PERF.md's S sweep at head_dim 256), Phi-3-mini's (head_dim 96,
+# the narrow instance against the 128-wide one), the engine model's prefill
+AUTOTUNE_SHAPES = [
+    ("f32 Gemma-2B widths", (1, 8, 2048, 256), (1, 1, 2048, 256),
+     torch.float32),
+    ("bf16 Phi-3-mini widths", (4, 32, 2048, 96), (4, 32, 2048, 96),
+     torch.bfloat16),
+    ("bf16 engine model", (4, 8, 2048, 128), (4, 2, 2048, 128),
+     torch.bfloat16),
+]
+AUTOTUNE_ROUNDS = 10
+AUTOTUNE_F32_GATE = 2e-5     # an f32 run split merges in another order
+
+
+def autotune_phase(gen) -> dict:
+    """utils/autotune.py on the card at AUTOTUNE_SHAPES (causal): every
+    candidate's device ms (run_benchmark, min of AUTOTUNE_ROUNDS) and the
+    winner; the winner against the plain version at the forward's gates and
+    against the call without config (bf16: the same bits; f32: within
+    AUTOTUNE_F32_GATE); the memo (a second call returns the same object and
+    launches nothing); save_cache and load_cache in a temporary directory.
+    Then default_config passed explicitly gives the bits of a call without
+    config: B1 bf16 and f32, the quantized forward (bf16 and f32 q over
+    int8) and B11's jagged mode. Returns {label: (winner, timings)}."""
+    import os
+    import tempfile
+
+    from tiny_flash_attention_tpu_torch.ops import quant as Q
+    from tiny_flash_attention_tpu_torch.ops.configs import default_config
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
+    from tiny_flash_attention_tpu_torch.ops.flash_quant import (
+        flash_attention_quantized)
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
+    from tiny_flash_attention_tpu_torch.utils import autotune as AT
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
+
+    t0 = time.perf_counter()
+    AT._CACHE.clear()
+    results, ok = {}, True
+    for label, q_shape, kv_shape, dtype in AUTOTUNE_SHAPES:
+        q = randn(q_shape, dtype, gen)
+        k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
+        base = flash_attention(q, k, v, causal=True)
+        win = AT.autotune_flash_config(q, k, v, causal=True,
+                                       rounds=AUTOTUNE_ROUNDS)
+        timings = [(c, r["min_ms"], r["median_ms"])
+                   for c, r in AT.last_timings]
+        launches = flash_attention.launches
+        memo = AT.autotune_flash_config(q, k, v, causal=True) is win \
+            and flash_attention.launches == launches
+        out, lse = flash_attention(q, k, v, causal=True, config=win,
+                                   return_lse=True)
+        errs, folded, gate = flash_gate(
+            out, lse, lambda qq, sc: flash_attention_plain(
+                qq, k, v, causal=True, sm_scale=sc, return_lse=True), q,
+            dtype)
+        if dtype == torch.bfloat16:
+            vs_default, same = 0.0, bool(torch.equal(out, base))
+        else:
+            vs_default = max_err(out, base)
+            same = vs_default <= AUTOTUNE_F32_GATE
+        row_ok = gate and same and memo
+        ok = ok and row_ok
+        cands = "; ".join(
+            f"{_config_text(c)}: {mn:.4f} ms (median {md:.4f})"
+            for c, mn, md in timings)
+        is_default = win == default_config(dtype, q_shape[3], q_shape[2],
+                                           kv_shape[2])
+        log(f"autotune {label}: q{q_shape} kv{kv_shape} causal | "
+            f"{len(timings)} candidates: {cands} | winner "
+            f"{_config_text(win)} ("
+            f"{'the default' if is_default else 'NOT the default'}) | "
+            f"winner vs plain: {flash_readings(errs, folded)} "
+            f"({gate_text(dtype)}); vs the call without config: "
+            + ("bits equal " + str(same) if dtype == torch.bfloat16 else
+               f"{vs_default:.3e} (gate {AUTOTUNE_F32_GATE:.0e})")
+            + f"; memoized, nothing launched: {memo} | "
+            f"{'ok' if row_ok else 'FAIL'}")
+        results[label] = (win, timings)
+        del q, k, v, base, out, lse
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tune.json")
+        AT.save_cache(path)
+        kept = dict(AT._CACHE)
+        AT._CACHE.clear()
+        n = AT.load_cache(path)
+        cache_ok = n == len(AUTOTUNE_SHAPES) and AT._CACHE == kept
+    log(f"autotune cache: saved and loaded {n} winners, the same: {cache_ok}")
+    ok = ok and cache_ok
+
+    # default_config passed explicitly: the bits of a call without config
+    same = {}
+    for label, q_shape, kv_shape, dtype in AUTOTUNE_SHAPES[::2]:
+        q = randn(q_shape, dtype, gen)
+        k, v = randn(kv_shape, dtype, gen), randn(kv_shape, dtype, gen)
+        cfg = default_config(dtype, q_shape[3], q_shape[2], kv_shape[2])
+        name = "B1 " + str(dtype).split(".")[-1]
+        same[name] = all(torch.equal(a, b) for a, b in zip(
+            flash_attention(q, k, v, causal=True, return_lse=True),
+            flash_attention(q, k, v, causal=True, config=cfg,
+                            return_lse=True)))
+        kq, vq = Q.quantize_kv(k.to(torch.bfloat16), v.to(torch.bfloat16),
+                               "int8")
+        same[f"quantized, {str(dtype).split('.')[-1]} q over int8"] = \
+            torch.equal(flash_attention_quantized(q, kq, vq, causal=True),
+                        flash_attention_quantized(q, kq, vq, causal=True,
+                                                  config=cfg))
+        if dtype == torch.bfloat16:
+            lens = torch.tensor([2048, 1000, 513, 7][:q_shape[0]],
+                                dtype=torch.int32, device="cuda")
+            same["B11 jagged"] = all(torch.equal(a, b) for a, b in zip(
+                flash_attention_rowloop(q, k, v, causal=True,
+                                        seq_lengths=lens),
+                flash_attention_rowloop(q, k, v, causal=True,
+                                        seq_lengths=lens, config=cfg)))
+        del q, k, v, kq, vq
+    log(f"default_config passed explicitly gives the bits of a call without "
+        f"config: {same} | {'ok' if all(same.values()) else 'FAIL'}")
+    ok = ok and all(same.values())
+    log(f"autotune phase: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("autotune phase failed")
+    AT._CACHE.clear()
+    return results
+
+
+def _config_text(cfg) -> str:
+    """A FlashConfig's fields that differ from FlashConfig()."""
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
+
+    base = FlashConfig()
+    diff = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(base, f.name)}
+    return ("default" if not diff else
+            ", ".join(f"{k}={v}" for k, v in diff.items()))
+
+
+CPU_ORACLE_SHAPE = ((1, 8, 512, 128), (1, 2, 512, 128))
+# the oracle's gates against the port's plain reference (the JAX test's)
+CPU_ORACLE_GATES = {"naive_attn": 1e-5, "flash_attn": 1e-5,
+                    "flash_attn_bf16": 2e-2, "flash_attn_fp16": 1e-2}
+
+
+def cpu_oracle_phase(gen) -> dict:
+    """cpu.py on the host of the card: its library built from
+    cpp/attn.cpp, then the four oracle functions at CPU_ORACLE_SHAPE,
+    causal and not, against the port's plain reference (mha_reference's
+    naive rung) at the JAX test's gates and against B1's output on the
+    card copied back (the same inputs in the function's dtype; f32 at
+    2e-5, bf16 and fp16 at their reference gates). Prints simd_width and
+    the host seconds."""
+    from tiny_flash_attention_tpu_torch import cpu
+    from tiny_flash_attention_tpu_torch.ops import reference as R
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+
+    t0 = time.perf_counter()
+    path = cpu.build()
+    build_s = time.perf_counter() - t0
+    dtypes = {"naive_attn": torch.float32, "flash_attn": torch.float32,
+              "flash_attn_bf16": torch.bfloat16,
+              "flash_attn_fp16": torch.float16}
+    q_shape, kv_shape = CPU_ORACLE_SHAPE
+    q = randn(q_shape, torch.float32, gen)
+    k, v = randn(kv_shape, torch.float32, gen), randn(kv_shape,
+                                                      torch.float32, gen)
+    readings, ok = [], True
+    for causal in (False, True):
+        for name, dtype in dtypes.items():
+            qh, kh, vh = (x.to(dtype).cpu() for x in (q, k, v))
+            t1 = time.perf_counter()
+            got = getattr(cpu, name)(qh, kh, vh, causal=causal)
+            host_s = time.perf_counter() - t1
+            plain = R.mha_reference(qh, kh, vh, causal=causal,
+                                    impl=R.attention_naive)
+            card = flash_attention(*(x.to(dtype) for x in (q, k, v)),
+                                   causal=causal).cpu()
+            e_plain, e_card = max_err(got, plain), max_err(got, card)
+            gate = CPU_ORACLE_GATES[name]
+            card_gate = 2e-5 if dtype == torch.float32 else gate
+            good = (got.dtype == dtype and e_plain <= gate
+                    and e_card <= card_gate)
+            ok = ok and good
+            readings.append(f"{name} causal={causal}: {host_s:.4f} s, vs "
+                            f"plain {e_plain:.2e} (gate {gate:.0e}), vs B1 "
+                            f"on the card {e_card:.2e} (gate "
+                            f"{card_gate:.0e}){'' if good else ' FAIL'}")
+    try:
+        cpu.naive_attn(q, k, v)
+        refused = False
+    except ValueError:
+        refused = True
+    ok = ok and refused
+    log(f"cpu oracle: {path.name} built from cpp/attn.cpp in {build_s:.2f} "
+        f"s (host compiler), simd_width {cpu.simd_width()}, "
+        f"q{q_shape} kv{kv_shape} | " + "; ".join(readings)
+        + f" | a CUDA tensor refused (ValueError): {refused} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cpu oracle phase failed")
+    return {"build_s": build_s}
+
+
 # --- phase 3b: the quantized path's kernels, kernel vs plain -----------------
 
 # (name, K, N): every projection of the engine model, at the decode step's
@@ -1264,6 +1488,7 @@ def bwd_f32_split_sweep(gen) -> None:
     restored."""
     from tiny_flash_attention_tpu_torch.ops import configs
     from tiny_flash_attention_tpu_torch.ops import flash_bwd as FB
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
@@ -1282,7 +1507,7 @@ def bwd_f32_split_sweep(gen) -> None:
         for split in (1, 2, 3, 4, 6, 8, 16):
             configs.FLASH_BWD_F32_SPLIT = split
             call = FB.BwdLaunch(q, k, v, out, lse, do, causal=causal,
-                                sm_scale=sc)
+                                sm_scale=sc, config=FlashConfig())
             call.run()
             torch.cuda.synchronize()
             err = max(_rel_err(g, w) for g, w in zip(call.grads, plain))
@@ -1383,6 +1608,7 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain, visible_mask)
     from tiny_flash_attention_tpu_torch.ops import flash_bwd as FB
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
         cuda_time_ms)
 
@@ -1431,7 +1657,7 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     dk = flash_head_dim(q_shape[-1], dtype, "the CUDA backward kernels")
     call = FB.BwdLaunch(*(pad_head_dim(t, dk) for t in (q, k, v, out)), lse,
                         pad_head_dim(do, dk), causal=causal,
-                        sm_scale=sm_scale, **kw)
+                        sm_scale=sm_scale, config=FlashConfig(), **kw)
     stages = ({"prep": 1, "main": 2, "post": 4} if dtype == torch.bfloat16
               else {"dq": 1, "dkv": 2, "post": 4})
     # the f32 post reads the kernels' slots (items x q heads of 64 rows)
@@ -2116,31 +2342,39 @@ ADMISSIONS = [
 ]
 
 
-def admission_logits(label, cfg, params, prompts, ps):
+def admission_logits(label, cfg, params, prompts, ps, eng=None):
     """The prefill an admission mode runs, on the same inputs, at each
-    request's last prompt row: (B, V) f32."""
+    request's last prompt row: (B, V) f32. With `eng`, through the
+    engine's own prefill hooks (the sharded engine's tensor-parallel
+    prefills); else models/inference.py's on cfg and params."""
     from tiny_flash_attention_tpu_torch.models import inference as I
     from tiny_flash_attention_tpu_torch.models.engine import (
         pack_prompts, pad_prompts)
 
     def dev(a):
-        return torch.as_tensor(a, device="cuda")
+        return torch.as_tensor(a, device=eng.device)
 
+    if eng is None:
+        eng = types.SimpleNamespace(
+            device=torch.device("cuda"),
+            _prefill=lambda t: I.prefill_forward_batched(cfg, params, t),
+            _prefill_packed=lambda t, s, p, o: I.prefill_forward_packed(
+                cfg, params, t, s, p, segment_starts=o),
+            _prefill_jagged=lambda t, n: I.prefill_forward_jagged(
+                cfg, params, t, n))
     last = [len(p) - 1 for p in prompts]
-    rows = torch.arange(len(prompts), device="cuda")
+    rows = dev(np.arange(len(prompts)))
     if label.startswith("packed"):
         toks, segs, pos, offs = pack_prompts(prompts, ps, label.split()[1])
-        logits = I.prefill_forward_packed(
-            cfg, params, dev(toks), dev(segs), dev(pos),
-            segment_starts=tuple(offs))[0]
+        logits = eng._prefill_packed(dev(toks), dev(segs), dev(pos),
+                                     tuple(offs))[0]
         return logits[0, dev([o + x for o, x in zip(offs, last)])]
     toks = dev(pad_prompts(prompts, ps))
     if label == "jagged":
-        logits = I.prefill_forward_jagged(
-            cfg, params, toks, dev(np.asarray([len(p) for p in prompts],
-                                              np.int32)))[0]
+        logits = eng._prefill_jagged(
+            toks, dev(np.asarray([len(p) for p in prompts], np.int32)))[0]
     else:
-        logits = I.prefill_forward_batched(cfg, params, toks)[0]
+        logits = eng._prefill(toks)[0]
     return logits[rows, dev(last)]
 
 
@@ -3534,10 +3768,13 @@ def profile_window(label: str, fn, n: int, launches=None,
     """Where the time of fn() goes, per unit of n: the device time of its
     kernels from torch.profiler, against fn's wall time taken without the
     profiler (which slows the host). With `launches`, fails unless the
-    kernel launches per unit are that many, and prints first the kernels
-    whose count is not a whole number a unit and the runtime API calls that
-    launch or copy; with `watch`, also prints the device time a launch of
-    the kernels whose name holds it (L2 as the run leaves it)."""
+    launches per unit are that many: the kernels by their device records,
+    the copies and sets by the runtime API calls the host made (a small
+    pageable host-to-device copy may have no device record, in every
+    profile of a process: PERF.md, section 7); on a miss it prints first
+    the records whose count is not a whole number a unit and those calls.
+    With `watch`, also prints the device time a launch of the kernels whose
+    name holds it (L2 as the run leaves it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3555,7 +3792,8 @@ def profile_window(label: str, fn, n: int, launches=None,
         fn()
         torch.cuda.synchronize()
     # user annotations (the optimizer's step) span kernels counted anyway
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
@@ -3566,9 +3804,17 @@ def profile_window(label: str, fn, n: int, launches=None,
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    # what the host issued: the runtime API's launch, copy and set calls
+    calls = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+             and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
+    got = (sum(e.count for e in kernels
+               if not e.key.startswith(("Memcpy", "Memset")))
+           + sum(c for key, c in calls.items()
+                 if "Memcpy" in key or "Memset" in key)) / n
     log(f"profile {label}: wall {wall_ms:.3f} ms unprofiled, device "
         f"kernels {busy_ms:.3f} ms, device busy {busy_ms / wall_ms:.1%}, "
-        f"{sum(e.count for e in kernels) / n:.0f} kernel launches")
+        f"{got:.0f} kernel launches")
     for e in kernels[:8]:
         log(f"  {e.self_device_time_total / n / 1e3:.4f} ms "
             f"{e.count / n:5.1f}x  {e.key[:90]}")
@@ -3579,14 +3825,8 @@ def profile_window(label: str, fn, n: int, launches=None,
                 if count else float("nan"))
         log(f"  {watch}: {count / n:.1f} launches a unit, {each:.5f} ms a "
             f"launch in this profile")
-    got = sum(e.count for e in kernels) / n
     if launches is not None and got != launches:
-        # what the host issued: a launch or copy it made whose device
-        # record is missing shows here (PERF.md, section 6)
-        calls = {e.key: e.count for e in prof.key_averages()
-                 if e.device_type == DeviceType.CPU and e.key.startswith("cu")
-                 and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
-        log(f"profile {label}: kernels not a whole number of times a unit: "
+        log(f"profile {label}: records not a whole number of times a unit: "
             + "; ".join(f"{e.count} x {e.key[:70]}" for e in kernels
                         if e.count % n)
             + f"; the runtime API's launch and copy calls "
@@ -3892,20 +4132,6 @@ def check_dims_b12(gen, d=96, hq=6, hkv=2, dtype=torch.bfloat16) -> dict:
 
 
 @contextlib.contextmanager
-def narrow_products(on: bool):
-    """The bf16 flash kernels' instance for the calls inside: with `on` the
-    width-80/96 instances (products over the true head dims), else the
-    128-wide one (products over the tiles' zero columns too)."""
-    from tiny_flash_attention_tpu_torch.ops import configs
-    keep = configs.FLASH_NARROW_PRODUCTS
-    configs.FLASH_NARROW_PRODUCTS = on
-    try:
-        yield
-    finally:
-        configs.FLASH_NARROW_PRODUCTS = keep
-
-
-@contextlib.contextmanager
 def padded_head_dims():
     """The calls inside pad every head_dim to the kernels' tile width
     through pad_head_dim and slice back, as before the bf16 kernels read it
@@ -3988,7 +4214,7 @@ def in_place_fwd(d: int, gen, shape=(4, 32, 2048), hkv=None) -> dict:
     instance, the slice of out). Then the device times of the in-place
     call on each instance, the padded call and SDPA at head_dim d, in
     turns in this call, beside the bound at head_dim d."""
-    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 
@@ -4000,9 +4226,12 @@ def in_place_fwd(d: int, gen, shape=(4, 32, 2048), hkv=None) -> dict:
     inst = "n256" if wide else f"n{d}"
 
     def fwd(narrow=True, padded=False, lse=True):
-        with narrow_products(narrow), (padded_head_dims() if padded
-                                       else contextlib.nullcontext()):
-            return flash_attention(q, k, v, causal=True, return_lse=lse)
+        # narrow: the width-80/96 instances (products over the true head
+        # dims), else the 128-wide one (over the tiles' zero columns too)
+        with (padded_head_dims() if padded else contextlib.nullcontext()):
+            return flash_attention(
+                q, k, v, causal=True, return_lse=lse,
+                config=FlashConfig(narrow_products=narrow))
 
     copies = pad_head_dim.copies
     calls = {inst: fwd()}
@@ -4026,7 +4255,7 @@ def in_place_fwd(d: int, gen, shape=(4, 32, 2048), hkv=None) -> dict:
         "sdpa": lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=hkv != h)})
     bound_ms, bound_by = flash_bound(q, k, True)
-    kept = inst if wide or configs.FLASH_NARROW_PRODUCTS else "n128"
+    kept = inst if wide or FlashConfig().narrow_products else "n128"
     faster = min(timed, key=lambda x: min(times[x]))
     ok = in_copies == 0 and all(bits.values()) and ok_prof
     log(f"dims: B1 at ({b},{h},{n},{d})/({b},{hkv}) causal read in place: "
@@ -4052,7 +4281,7 @@ def in_place_bwd(d: int, gen, shape=(1, 32, 2048), hkv=None) -> dict:
     then the device times of the call on each instance, its main kernel on
     each, the padded call and SDPA's backward at head_dim d, in turns,
     beside the bound."""
-    from tiny_flash_attention_tpu_torch.ops import configs
+    from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
     from tiny_flash_attention_tpu_torch.ops.dims import pad_head_dim
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
@@ -4067,14 +4296,15 @@ def in_place_bwd(d: int, gen, shape=(1, 32, 2048), hkv=None) -> dict:
     inst = "n256" if wide else f"n{d}"
 
     def bwd(narrow=True, padded=False):
-        with narrow_products(narrow), (padded_head_dims() if padded
-                                       else contextlib.nullcontext()):
-            return flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        with (padded_head_dims() if padded else contextlib.nullcontext()):
+            return flash_attention_bwd(
+                q, k, v, out, lse, do, causal=True,
+                config=FlashConfig(narrow_products=narrow))
 
     def main_kernel(narrow):
-        with narrow_products(narrow):
-            call = BwdLaunch(q, k, v, out, lse, do, causal=True,
-                             sm_scale=d ** -0.5)
+        call = BwdLaunch(q, k, v, out, lse, do, causal=True,
+                         sm_scale=d ** -0.5,
+                         config=FlashConfig(narrow_products=narrow))
         call.run(1)
         return lambda: call.run(2)
 
@@ -4104,7 +4334,7 @@ def in_place_bwd(d: int, gen, shape=(1, 32, 2048), hkv=None) -> dict:
                                                 retain_graph=True)})
     del s_out
     bound_ms, bound_by = bwd_bound(q, k, "all", mask_pairs(q, k, True))
-    kept = inst if wide or configs.FLASH_NARROW_PRODUCTS else "n128"
+    kept = inst if wide or FlashConfig().narrow_products else "n128"
     faster = min((x for x in timed if not x.startswith("main")),
                  key=lambda x: min(times[x]))
     ok = in_copies == 0 and all(bits.values()) and ok_prof
@@ -4839,11 +5069,11 @@ def _cp_errs(out, refs) -> dict:
     return errs
 
 
-def _cp_refs(q, k, v, causal):
+def _cp_refs(q, k, v, causal, segment_ids=None):
     """(plain, plain at the fold, B1) over the whole sequence in this one
-    process. The plain version runs one q head at a time against its kv
-    head h // group: one head's f32 scores at 32768 are 4.3 GB, all 24
-    heads' would not fit on the card."""
+    process, with `segment_ids` where given. The plain version runs one q
+    head at a time against its kv head h // group: one head's f32 scores
+    at 32768 are 4.3 GB, all 24 heads' would not fit on the card."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.testing import fold_q
@@ -4853,17 +5083,20 @@ def _cp_refs(q, k, v, causal):
     group = q.shape[1] // k.shape[1]
     plain, plain_fold = torch.empty_like(q), torch.empty_like(q)
     for b in range(q.shape[0]):
+        ids = None if segment_ids is None else tuple(
+            x[b:b + 1] for x in segment_ids)
         for h in range(q.shape[1]):
             kv = (k[b:b + 1, h // group:h // group + 1],
                   v[b:b + 1, h // group:h // group + 1])
             plain[b, h] = flash_attention_plain(
                 q[b:b + 1, h:h + 1], *kv, causal=causal,
-                sm_scale=sm_scale)[0, 0]
+                sm_scale=sm_scale, segment_ids=ids)[0, 0]
             plain_fold[b, h] = flash_attention_plain(
                 fq[b:b + 1, h:h + 1], *kv, causal=causal,
-                sm_scale=fscale)[0, 0]
+                sm_scale=fscale, segment_ids=ids)[0, 0]
     torch.cuda.empty_cache()
-    return plain, plain_fold, flash_attention(q, k, v, causal=causal)
+    return plain, plain_fold, flash_attention(q, k, v, causal=causal,
+                                              segment_ids=segment_ids)
 
 
 def cp_rank(rank, device, cases):
@@ -5049,16 +5282,24 @@ SERVE_SAMPLED_STEPS, SERVE_TEMPERATURE = 16, 0.9
 SERVE_SLOTS = 8
 SERVE_TIMEOUT_S = 600.0
 SERVE_FAULT_LAYER = 1
+SERVE_RAGGED = ("packed page", "packed pow2", "jagged")
+SERVE_OFFSETS_FAULT = "rank 0's pack offsets shifted by one page"
 # (ranks, backend, runs): a run is (model, (data, model) mesh, data axis,
-# page formats, planted faults)
+# page formats, planted faults, admission modes (ADMISSIONS' labels))
 SERVE_WORLDS = [
-    (1, "nccl", [("llama", (1, 1), None, ("bf16", "int8"), ())]),
+    (1, "nccl", [("llama", (1, 1), None, ("bf16", "int8"), (),
+                  ("batched",)),
+                 ("llama", (1, 1), None, ("bf16",), (), SERVE_RAGGED)]),
     (2, "gloo", [("llama", (1, 2), None, ("bf16", "int8"),
-                  ("w_down all-reduce skipped",)),
-                 ("engine f32", (1, 2), None, ("bf16",), ())]),
+                  ("w_down all-reduce skipped",), ("batched",)),
+                 ("engine f32", (1, 2), None, ("bf16",), (), ("batched",)),
+                 ("llama", (1, 2), None, ("bf16",), (SERVE_OFFSETS_FAULT,),
+                  SERVE_RAGGED)]),
     (4, "gloo", [("llama", (2, 2), "data", ("bf16", "int8"),
-                  ("group 1 at group 0's offset",)),
-                 ("llama", (1, 4), None, ("bf16", "int8"), ())]),
+                  ("group 1 at group 0's offset",), ("batched",)),
+                 ("llama", (2, 2), "data", ("bf16",), (), SERVE_RAGGED),
+                 ("llama", (1, 4), None, ("bf16", "int8"), (),
+                  ("batched",))]),
 ]
 
 
@@ -5089,23 +5330,29 @@ def serve_geometry(fmt: str) -> dict:
 
 
 def serve_counters(fmt: str, reset: bool = False) -> dict:
-    """B1's, B4's (of the page format) and B5's launch counts."""
+    """B1's, B11's, B4's (of the page format) and B5's launch counts."""
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_page_append, fused_paged_decode_attention)
 
     b4 = "int8_launches" if fmt == "int8" else "launches"
     if reset:
         flash_attention.launches = 0
+        flash_attention_rowloop.launches = 0
         setattr(fused_paged_decode_attention, b4, 0)
         fused_page_append.launches = 0
     return {"B1": flash_attention.launches,
+            "B11": flash_attention_rowloop.launches,
             "B4": getattr(fused_paged_decode_attention, b4),
             "B5": fused_page_append.launches}
 
 
-def serve_drive(eng, prompts, fmt, *, sampled: bool, barrier=None) -> dict:
-    """The main path of one engine: two batched admissions of 4, then
+def serve_drive(eng, prompts, fmt, *, sampled: bool, barrier=None,
+                mode: str = "batched") -> dict:
+    """The main path of one engine: two admissions of 4 (by `mode`, a
+    label of ADMISSIONS), then
     SERVE_CHUNKS greedy chunks (launches counted from 0 just before the
     admissions and read after the prefill and after the greedy chunks),
     then one sampled chunk at SERVE_TEMPERATURE. Returns the tokens, the
@@ -5118,11 +5365,12 @@ def serve_drive(eng, prompts, fmt, *, sampled: bool, barrier=None) -> dict:
     serve_counters(fmt, reset=True)
     comm.host_staged_bytes = 0
     torch.cuda.synchronize()
+    admit = {label: fn for label, fn, _ in ADMISSIONS}[mode]
     if barrier:
         barrier()
     t0 = time.perf_counter()
     for batch in (reqs[:4], reqs[4:]):
-        eng.add_requests(batch)
+        admit(eng, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = serve_counters(fmt)
@@ -5171,17 +5419,17 @@ def serve_steps(lengths, table, device):
             lengths += 1
 
 
-def serve_margins(cfg, params, prompts, run, fmt) -> tuple:
+def serve_margins(cfg, params, prompts, run, fmt,
+                  mode: str = "batched") -> tuple:
     """The single-card engine's logits at every greedy token: the
-    prefills' (the first tokens) and each decode step's, taken by
-    decode_step from the state after the admissions (serve_steps). Asserts
-    that their argmax is the engine's tokens. Returns (margins[slot][token],
-    the top-2 margins as fractions of the largest |logit| of their step;
-    the decode steps' logits (steps, slots, V) f32 on the host; the pages
+    prefills' (the first tokens, by the admission `mode`) and each decode
+    step's, taken by decode_step from the state after the admissions
+    (serve_steps). Asserts that their argmax is the engine's tokens.
+    Returns (margins[slot][token], the top-2 margins as fractions of the
+    largest |logit| of their step; the first tokens' logits (slots, V) and
+    the decode steps' logits (steps, slots, V), f32 on the host; the pages
     after the steps)."""
-    from tiny_flash_attention_tpu_torch.models.engine import pad_prompts
-    from tiny_flash_attention_tpu_torch.models.inference import (
-        decode_step, prefill_forward_batched)
+    from tiny_flash_attention_tpu_torch.models.inference import decode_step
 
     def fractions(logits):
         top = logits.float().topk(2, dim=-1).values
@@ -5189,16 +5437,14 @@ def serve_margins(cfg, params, prompts, run, fmt) -> tuple:
 
     margins = [[] for _ in prompts]
     argmax = [[] for _ in prompts]
+    first_logits = []
     for first in (0, 4):
-        batch = prompts[first:first + 4]
-        toks = torch.as_tensor(pad_prompts(batch, 128), device="cuda")
-        logits = prefill_forward_batched(cfg, params, toks)[0]
-        logits = logits[torch.arange(4, device="cuda"),
-                        torch.tensor([len(p) - 1 for p in batch],
-                                     device="cuda")]
+        logits = admission_logits(mode, cfg, params,
+                                  prompts[first:first + 4], 128)
         for i, m in enumerate(fractions(logits)):
             margins[first + i].append(m)
             argmax[first + i].append(int(logits[i].argmax()))
+        first_logits.append(logits.cpu())
         del logits
     snap = run["snap"]
     pages = [p.clone() for p in snap["pages"]]
@@ -5216,14 +5462,16 @@ def serve_margins(cfg, params, prompts, run, fmt) -> tuple:
     if argmax != run["greedy"]:
         raise AssertionError("the reference decode_step loop does not give "
                              "the single-card engine's tokens")
-    return margins, torch.stack(steps), pages
+    return margins, torch.cat(first_logits), torch.stack(steps), pages
 
 
-def serve_reference(model: str, fmt: str, ref_dir: str) -> dict:
-    """The single-card engine's run (serve_drive) in this process, and its
-    margins, every greedy decode step's logits (serve_margins), its pages
-    after the admissions and after the greedy chunks (layers 0 and the
-    last) and its tables, saved to ref_dir for the ranks."""
+def serve_reference(model: str, fmt: str, ref_dir: str,
+                    mode: str = "batched") -> dict:
+    """The single-card engine's run (serve_drive, admitting by `mode`) in
+    this process, and its margins, the first tokens' and every greedy
+    decode step's logits (serve_margins), its pages after the admissions
+    and after the greedy chunks (layers 0 and the last) and its tables,
+    saved to ref_dir for the ranks."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
     from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
 
@@ -5232,19 +5480,21 @@ def serve_reference(model: str, fmt: str, ref_dir: str) -> dict:
                            .manual_seed(SEED), device="cuda")
     prompts = serve_prompts(cfg)
     eng = InferenceEngine(cfg, params, **serve_geometry(fmt))
-    run = serve_drive(eng, prompts, fmt, sampled=model == "llama")
+    run = serve_drive(eng, prompts, fmt,
+                      sampled=model == "llama" and mode == "batched",
+                      mode=mode)
     del eng
     snap = run["snap"]
-    margins, step_logits, loop_pages = serve_margins(cfg, params, prompts,
-                                                     run, fmt)
-    path = f"{ref_dir}/{model.replace(' ', '_')}_{fmt}.pt"
+    margins, first_logits, step_logits, loop_pages = serve_margins(
+        cfg, params, prompts, run, fmt, mode)
+    path = f"{ref_dir}/{model}_{fmt}_{mode}.pt".replace(" ", "_")
     last = cfg.n_layers - 1
     for li in (0, last):
         if not torch.equal(loop_pages[li], run["pages_greedy"][li]):
             raise AssertionError("the reference decode_step loop does not "
                                  "give the single-card engine's pages")
     del loop_pages
-    torch.save({"step_logits": step_logits,
+    torch.save({"step_logits": step_logits, "first_logits": first_logits,
                 "table": torch.from_numpy(snap["table"]),
                 "pages": {li: snap["pages"][li].cpu() for li in (0, last)},
                 "table_greedy": torch.from_numpy(run["table_after"]),
@@ -5255,7 +5505,8 @@ def serve_reference(model: str, fmt: str, ref_dir: str) -> dict:
                path)
     torch.cuda.synchronize()
     step_ms = [t * 1e3 / SERVE_CHUNK for t in run["chunk_s"]]
-    log(f"sharded serving reference [{model}, {fmt} pages]: the single-card "
+    log(f"sharded serving reference [{model}, {fmt} pages, {mode} "
+        f"admission]: the single-card "
         f"engine, prompts {[len(p) for p in prompts]}; launches "
         f"{run['launches']}; two admissions {run['prefill_ms']:.1f} ms; "
         f"decode ms/step by chunk {[round(x, 3) for x in step_ms]} -> "
@@ -5264,7 +5515,7 @@ def serve_reference(model: str, fmt: str, ref_dir: str) -> dict:
         f"{gate:.1e})")
     return {"greedy": run["greedy"], "sampled": run.get("sampled"),
             "margins": margins, "path": path, "gate": gate,
-            "step_ms": step_ms}
+            "step_ms": step_ms, "prefill_ms": run["prefill_ms"]}
 
 
 def _serve_pages_err(got, want, fmt, n_tokens=None) -> float:
@@ -5294,11 +5545,16 @@ def _serve_fault(fault: str, n_layers: int):
     layer SERVE_FAULT_LAYER's MLP output unsummed over the model axis (each
     rank adds its own partial); "group 1 at group 0's offset" localizes
     data group 1's page ids at group 0's base, clipped into its own block
-    (nothing reads out of bounds)."""
+    (nothing reads out of bounds); SERVE_OFFSETS_FAULT hands rank 0's
+    packed prefill the pack offsets one page later (its segment ids stay
+    right: only B1's pruned kv ranges, `segment_tiles`, go wrong)."""
+    import torch.distributed as dist
+
     from tiny_flash_attention_tpu_torch.parallel import comm
     from tiny_flash_attention_tpu_torch.parallel import serve as S
 
     real_reduce, real_localize = comm.all_reduce, S.local_page_ids
+    real_packed = S.prefill_forward_packed
     calls = []
 
     def skipping_reduce(x, group):
@@ -5307,8 +5563,16 @@ def _serve_fault(fault: str, n_layers: int):
             return x.clone()
         return real_reduce(x, group)
 
+    def shifted_packed(*args, segment_starts, **kw):
+        if dist.get_rank() == 0:
+            segment_starts = tuple(o + 128 if o else 0
+                                   for o in segment_starts)
+        return real_packed(*args, segment_starts=segment_starts, **kw)
+
     if fault == "w_down all-reduce skipped":
         comm.all_reduce = skipping_reduce
+    elif fault == SERVE_OFFSETS_FAULT:
+        S.prefill_forward_packed = shifted_packed
     else:
         S.local_page_ids = lambda table, group, p_local: real_localize(
             table, 0, p_local)
@@ -5316,30 +5580,46 @@ def _serve_fault(fault: str, n_layers: int):
         yield
     finally:
         comm.all_reduce, S.local_page_ids = real_reduce, real_localize
+        S.prefill_forward_packed = real_packed
 
 
 @contextlib.contextmanager
 def _serve_kernel_checks(readings: dict):
-    """While open, each call of B1, B4 and B5 on the sharded engine's path
-    (through the entries models/transformer.py and models/inference.py
-    call) also runs its plain version on the same inputs: B1 against the
-    plain version over its heads (_cp_refs), out within the dtype gate of
-    max(1, the largest |plain|) (the model's activations pass 1, where
-    bf16's spacing alone exceeds an absolute 2e-2) and rows at the row
-    gate at the fold; B4 against its plain version at the kernel's splits
+    """While open, each call of B1 (with or without segment ids), B11, B4
+    and B5 on the sharded engine's path (through the entries
+    models/transformer.py and models/inference.py call) also runs its plain
+    version on the same inputs: B1 against the plain version over its
+    heads (_cp_refs, with the ids), out within the dtype gate of max(1, the
+    largest |plain|) (the model's activations pass 1, where bf16's spacing
+    alone exceeds an absolute 2e-2) and rows at the row gate at the fold;
+    B11 (the jagged mode) the same against its plain version, on the rows
+    below each length; B4 against its plain version at the kernel's splits
     and unsplit (split_errs: the decode gates), B5 bit for bit against its
     plain version on a copy of the pages. Appends each call's readings to
-    readings["B1"], ["B4"], ["B5"]."""
+    readings["B1"], ["B11"], ["B4"], ["B5"]."""
     from tiny_flash_attention_tpu_torch.models import inference as I
     from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
+        flash_attention_rowloop_plain)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_plain, page_append_plain)
     from tiny_flash_attention_tpu_torch.utils.testing import (
-        BF16_ROW_GATE, row_err, tolerance_for)
+        BF16_ROW_GATE, fold_q, row_err, tolerance_for)
 
     real_b1, real_b4, real_b5 = (T.flash_attention,
                                  I.fused_paged_decode_attention,
                                  I.fused_page_append)
+    real_ids, real_b11 = I.flash_attention, I.flash_attention_rowloop
+
+    def reading(key, out, plain, plain_fold, q, k, **extra):
+        scale = max(1.0, float(plain.abs().max()))
+        err, row = max_err(out, plain), row_err(out, plain_fold)
+        readings[key].append({
+            "out": err / scale, "abs": err, "scale": scale, "row": row,
+            "ok": bool(torch.isfinite(out).all())
+            and err / scale <= tolerance_for(out.dtype)
+            and row <= BF16_ROW_GATE,
+            "q": tuple(q.shape), "kv": tuple(k.shape), **extra})
 
     def b1(q, k, v, *, causal=False, window=None, **kw):
         if window is not None or kw:
@@ -5347,15 +5627,26 @@ def _serve_kernel_checks(readings: dict):
                                  "causal or full mask only")
         out = real_b1(q, k, v, causal=causal)
         plain, plain_fold, _ = _cp_refs(q, k, v, causal)
-        scale = max(1.0, float(plain.abs().max()))
-        err, row = max_err(out, plain), row_err(out, plain_fold)
-        readings["B1"].append({
-            "out": err / scale, "abs": err, "scale": scale, "row": row,
-            "ok": bool(torch.isfinite(out).all())
-            and err / scale <= tolerance_for(out.dtype)
-            and row <= BF16_ROW_GATE,
-            "q": tuple(q.shape), "kv": tuple(k.shape)})
+        reading("B1", out, plain, plain_fold, q, k)
         return out
+
+    def b1_ids(q, k, v, *, causal, segment_ids, segment_starts):
+        out = real_ids(q, k, v, causal=causal, segment_ids=segment_ids,
+                       segment_starts=segment_starts)
+        plain, plain_fold, _ = _cp_refs(q, k, v, causal, segment_ids)
+        reading("B1", out, plain, plain_fold, q, k, ids=True)
+        return out
+
+    def b11(q, k, v, *, causal, seq_lengths):
+        out, lse = real_b11(q, k, v, causal=causal, seq_lengths=seq_lengths)
+        sm_scale = q.shape[-1] ** -0.5
+        plain, plain_fold = (flash_attention_rowloop_plain(
+            qq, k, v, causal=causal, sm_scale=sc,
+            seq_lengths=seq_lengths)[0]
+            for qq, sc in ((q, sm_scale), fold_q(q, sm_scale)))
+        reading("B11", out, plain, plain_fold, q, k,
+                lens=tuple(seq_lengths.tolist()))
+        return out, lse
 
     def b4(q, pages, lengths, table, *, page_size, window=None):
         out, lse = real_b4(q, pages, lengths, table, page_size=page_size,
@@ -5381,31 +5672,35 @@ def _serve_kernel_checks(readings: dict):
         return got
 
     T.flash_attention = b1
+    I.flash_attention, I.flash_attention_rowloop = b1_ids, b11
     I.fused_paged_decode_attention, I.fused_page_append = b4, b5
     try:
         yield
     finally:
         T.flash_attention = real_b1
+        I.flash_attention, I.flash_attention_rowloop = real_ids, real_b11
         I.fused_paged_decode_attention = real_b4
         I.fused_page_append = real_b5
 
 
 def serve_rank(rank, device, runs, refs):
     """One rank of a sharded-serving world: every run of its world, each
-    page format through serve_drive on the ShardedInferenceEngine, then,
+    page format and admission mode through serve_drive on the
+    ShardedInferenceEngine, the two admissions' prefills again (the first
+    tokens' logits against the single-card engine's), then,
     off the main path and from the state after the admissions, the greedy
     chunks' steps again through sharded_decode_step fed the single-card
     engine's tokens (so that a token flipped at a near tie does not change
     a step's input): each step's logits against the single-card engine's
     (refs), the local pages after the admissions and after those steps
-    against its slice, and the planted faults on the first step. B1 (both
+    against its slice, and the planted faults on the first step (the pack
+    offsets' on the first admission's prefill). B1 or B11 (both
     admissions' prefills again), B4 and B5 (the first and the last forced
     step) are held against their plain versions on this rank's inputs
     (_serve_kernel_checks)."""
     import torch.distributed as dist
 
     from tiny_flash_attention_tpu_torch.models import transformer as T
-    from tiny_flash_attention_tpu_torch.models.engine import pad_prompts
     from tiny_flash_attention_tpu_torch.parallel.serve import (
         ShardedInferenceEngine, sharded_decode_step)
     from tiny_flash_attention_tpu_torch.parallel.sharded import make_mesh
@@ -5414,7 +5709,7 @@ def serve_rank(rank, device, runs, refs):
     n = dist.get_world_size()
     last_step = SERVE_CHUNK * SERVE_CHUNKS - 1
     results, meshes = [], {}
-    for model, shape, data_axis, fmts, faults in runs:
+    for model, shape, data_axis, fmts, faults, modes in runs:
         cfg, gate = serve_model(model)
         params = T.init_params(cfg, torch.Generator(device=device)
                                .manual_seed(SEED), device=device)
@@ -5424,13 +5719,14 @@ def serve_rank(rank, device, runs, refs):
         mesh = meshes[shape]
         dp, tp = shape
         g, m = divmod(rank, tp)
-        for fmt in fmts:
-            ref = refs[(model, fmt)]
+        for fmt, mode in [(f, a) for f in fmts for a in modes]:
+            ref = refs[(model, fmt, mode)]
             eng = ShardedInferenceEngine(cfg, params, mesh,
                                          data_axis=data_axis,
                                          **serve_geometry(fmt))
-            run = serve_drive(eng, prompts, fmt, sampled=model == "llama",
-                              barrier=dist.barrier)
+            run = serve_drive(eng, prompts, fmt,
+                              sampled=model == "llama" and mode == "batched",
+                              barrier=dist.barrier, mode=mode)
             snap = run.pop("snap")
             table_after = run.pop("table_after")
             del run["pages_greedy"]
@@ -5450,11 +5746,22 @@ def serve_rank(rank, device, runs, refs):
                               / want.abs().max()),
                         bool(torch.equal(logits, want)))
 
-            checks = {"B1": [], "B4": [], "B5": []}
+            def first_logits(batches=(0, 4)):
+                """The admissions' prefills again on this engine: the
+                first tokens' logits (4 per admission), on the host."""
+                return torch.cat([admission_logits(
+                    mode, cfg, eng.params, prompts[i:i + 4], 128,
+                    eng=eng).cpu() for i in batches])
+
+            def rel_err(got, want):
+                return float((got - want).abs().max() / want.abs().max())
+
+            checks = {"B1": [], "B11": [], "B4": [], "B5": []}
             with _serve_kernel_checks(checks):
-                for batch in (prompts[:4], prompts[4:]):
-                    eng._prefill(torch.as_tensor(pad_prompts(batch, 128),
-                                                 device=device))
+                first = first_logits()
+            run.update(first_err=rel_err(first, saved["first_logits"]),
+                       first_bits=bool(torch.equal(first,
+                                                   saved["first_logits"])))
             pages = [p.clone() for p in snap["pages"]]
             errs, bits, finite = [], True, True
             for j, positions, table in serve_steps(snap["lengths"],
@@ -5497,11 +5804,19 @@ def serve_rank(rank, device, runs, refs):
             _, positions, table = next(serve_steps(snap["lengths"],
                                                    table_after, device))
             for fault in faults:
+                if fault == SERVE_OFFSETS_FAULT:
+                    if mode != "packed page":
+                        continue
+                    with _serve_fault(fault, cfg.n_layers):
+                        run["faults"][fault] = rel_err(
+                            first_logits((0,)), saved["first_logits"][:4])
+                    continue
                 with _serve_fault(fault, cfg.n_layers):
                     run["faults"][fault] = logit_err(step(
                         [p.clone() for p in snap["pages"]], 0, positions,
                         table), 0)[0]
             run.update(model=model, mesh=shape, fmt=fmt, gate=gate,
+                       mode=mode,
                        local_pages=tuple(snap["pages"][0].shape),
                        n_groups=eng.cache.n_groups)
             results.append(run)
@@ -5527,15 +5842,20 @@ def _serve_token_check(got, ref) -> tuple[bool, int, int]:
     return ok, compared, cut
 
 
-def _serve_kernel_readings(rows, n_layers, dtype) -> tuple[str, bool]:
-    """(what the ranks' _serve_kernel_checks read, every rank's B1, B4 and
-    B5 checked 2 n_layers times and passing)."""
+def _serve_kernel_readings(rows, n_layers, dtype,
+                           mode: str = "batched") -> tuple[str, bool]:
+    """(what the ranks' _serve_kernel_checks read, every rank's B1 (with
+    segment ids after a packed admission) or B11 (jagged), B4 and B5
+    checked 2 n_layers times and passing)."""
     from tiny_flash_attention_tpu_torch.utils.testing import (
         BF16_ROW_GATE, tolerance_for)
 
-    ok = all(len(r["kernel_checks"][key]) == 2 * n_layers and all(
+    prefill = "B11" if mode == "jagged" else "B1"
+    want = {"B1": 0, "B11": 0, prefill: 2 * n_layers, "B4": 2 * n_layers,
+            "B5": 2 * n_layers}
+    ok = all(len(r["kernel_checks"][key]) == n and all(
         c["ok"] for c in r["kernel_checks"][key])
-        for r in rows for key in ("B1", "B4", "B5"))
+        for r in rows for key, n in want.items())
 
     def worst(key, field):
         return max(c[field] for r in rows for c in r["kernel_checks"][key])
@@ -5544,10 +5864,14 @@ def _serve_kernel_readings(rows, n_layers, dtype) -> tuple[str, bool]:
         return sorted({tuple(c[f] for f in fields)
                        for r in rows for c in r["kernel_checks"][key]})
 
-    text = (f"B1 q/kv {shapes('B1', 'q', 'kv')}: out {worst('B1', 'out'):.3e}"
+    name = {"batched": "B1", "jagged": "B11 (jagged)"}.get(
+        mode, "B1 with segment ids")
+    text = (f"{name} q/kv {shapes(prefill, 'q', 'kv')}: out "
+            f"{worst(prefill, 'out'):.3e}"
             f" of max(1, max |plain|) (gate {tolerance_for(dtype):.0e}; "
-            f"absolute {worst('B1', 'abs'):.3e}, max |plain| up to "
-            f"{worst('B1', 'scale'):.3f}), row {worst('B1', 'row'):.3e} (gate "
+            f"absolute {worst(prefill, 'abs'):.3e}, max |plain| up to "
+            f"{worst(prefill, 'scale'):.3f}), row "
+            f"{worst(prefill, 'row'):.3e} (gate "
             f"{BF16_ROW_GATE:.4e}); B4 q/pages/table "
             f"{shapes('B4', 'q', 'pages', 'table')}: out "
             f"{worst('B4', 'out'):.3e} (gate {DECODE_OUT_GATE:.0e}), row "
@@ -5584,17 +5908,17 @@ def sharded_serving_phase() -> dict:
 
     _build.build()      # a no-op after main()'s build; the runs are timed
     torch.cuda.empty_cache()
-    totals = {"flash_fwd": 0, "flash_fwd_f32": 0, "paged_decode": 0,
-              "paged_decode_int8": 0, "page_append": 0}
+    totals = {"flash_fwd": 0, "flash_fwd_f32": 0, "flash_rowloop": 0,
+              "paged_decode": 0, "paged_decode_int8": 0, "page_append": 0}
     failed = []
     with tempfile.TemporaryDirectory() as ref_dir:
         refs = {}
         for _, _, runs in SERVE_WORLDS:
-            for model, _, _, fmts, _ in runs:
-                for fmt in fmts:
-                    if (model, fmt) not in refs:
-                        refs[(model, fmt)] = serve_reference(model, fmt,
-                                                             ref_dir)
+            for model, _, _, fmts, _, modes in runs:
+                for key in [(model, f, a) for f in fmts for a in modes]:
+                    if key not in refs:
+                        refs[key] = serve_reference(*key[:2], ref_dir,
+                                                    key[2])
                         torch.cuda.empty_cache()
         for n, backend, runs in SERVE_WORLDS:
             t0 = time.perf_counter()
@@ -5607,16 +5931,21 @@ def sharded_serving_phase() -> dict:
                 rows = [ranks[i] for ranks in per_rank]
                 head = rows[0]
                 model, fmt, mesh = head["model"], head["fmt"], head["mesh"]
-                ref = refs[(model, fmt)]
+                mode = head["mode"]
+                ref = refs[(model, fmt, mode)]
                 cfg = serve_model(model)[0]
                 L = cfg.n_layers
                 steps = SERVE_CHUNK * SERVE_CHUNKS
-                want = {"B1": 2 * L, "B4": steps * L, "B5": steps * L}
+                jagged = mode == "jagged"
+                want = {"B1": 0 if jagged else 2 * L,
+                        "B11": 2 * L if jagged else 0, "B4": steps * L,
+                        "B5": steps * L}
                 got = [r["launches"] for r in rows]
                 same = all(r["greedy"] == head["greedy"]
                            and r.get("sampled") == head.get("sampled")
                            for r in rows)
                 first_err = max(r["logit_errs"][0] for r in rows)
+                prefill_err = max(r["first_err"] for r in rows)
                 logit_err = max(max(r["logit_errs"]) for r in rows)
                 page_err = max(r["page_err"] for r in rows)
                 greedy_page_err = max(r["page_err_greedy"] for r in rows)
@@ -5625,12 +5954,13 @@ def sharded_serving_phase() -> dict:
                 if n == 1:
                     exact = head["greedy"] == ref["greedy"] and (
                         head.get("sampled") == ref["sampled"]) and all(
-                        r["logit_bits"] for r in rows)
+                        r["logit_bits"] and r["first_bits"] for r in rows)
                 else:
-                    exact = tok_ok and logit_err <= head["gate"]
+                    exact = tok_ok and max(logit_err,
+                                           prefill_err) <= head["gate"]
                 staged = [r["staged"] for r in rows]
                 kchecks, kernels_ok = _serve_kernel_readings(rows, L,
-                                                             cfg.dtype)
+                                                             cfg.dtype, mode)
                 ok = (same and exact and kernels_ok
                       and all(r["finite"] for r in rows)
                       and all(x == want for x in got)
@@ -5639,6 +5969,7 @@ def sharded_serving_phase() -> dict:
                       and (all(s > 0 for s in staged) if backend == "gloo"
                            else not any(staged)))
                 for key, kernel in (("B1", "flash_fwd"),
+                                    ("B11", "flash_rowloop"),
                                     ("B4", "paged_decode"),
                                     ("B5", "page_append")):
                     if key == "B1" and cfg.dtype == torch.float32:
@@ -5652,13 +5983,17 @@ def sharded_serving_phase() -> dict:
                             for t in r["chunk_s"]] for r in rows]
                 tok_s = [round(SERVE_SLOTS * SERVE_CHUNK / r["chunk_s"][-1])
                          for r in rows]
-                log(f"  [{model}, {fmt} pages] mesh (data, model) {mesh}"
+                log(f"  [{model}, {fmt} pages, {mode} admission] mesh "
+                    f"(data, model) {mesh}"
                     f"{', data_axis' if head['n_groups'] > 1 else ''}: local "
                     f"pages {head['local_pages']}, n_groups "
                     f"{head['n_groups']}; ranks' tokens the same: {same}; "
-                    + (f"the single-card engine's tokens and the logits of "
+                    + (f"the single-card engine's tokens, the first tokens' "
+                       f"logits and the logits of "
                        f"all {steps} forced steps bit for bit: {exact}"
                        if n == 1 else
+                       f"the first tokens' logits (the admissions' "
+                       f"prefills) {prefill_err:.3e} of max |logit|; "
                        f"logits vs the single-card engine, fed its tokens, "
                        f"first step {first_err:.3e}, worst of {steps} steps "
                        f"{logit_err:.3e} of max |logit| (gate "
@@ -5675,7 +6010,8 @@ def sharded_serving_phase() -> dict:
                 log(f"    kernels against their plain versions on the "
                     f"ranks' inputs: {kchecks}")
                 log(f"    ranks time-sharing one card: two admissions ms by "
-                    f"rank {[round(r['prefill_ms'], 1) for r in rows]}; "
+                    f"rank {[round(r['prefill_ms'], 1) for r in rows]} (the "
+                    f"single-card engine {ref['prefill_ms']:.1f}); "
                     f"decode wall ms a step by rank and chunk {step_ms} -> "
                     f"tokens/s by rank {tok_s} (last chunk, {SERVE_SLOTS} "
                     f"slots); the single-card engine "
@@ -5691,7 +6027,10 @@ def sharded_serving_phase() -> dict:
                 for fault in head["faults"]:
                     err = max(r["faults"][fault] for r in rows)
                     caught = err > head["gate"]
-                    log(f"    planted fault '{fault}': first-step logits "
+                    what = ("the first admission's first tokens'"
+                            if fault == SERVE_OFFSETS_FAULT else
+                            "first-step")
+                    log(f"    planted fault '{fault}': {what} logits "
                         f"{err:.3e} of max |logit| | "
                         f"{'caught' if caught else 'NOT CAUGHT'}")
                     ok = ok and caught
@@ -6372,6 +6711,11 @@ def main() -> int:
     quant_flash = quant_flash_phase(gen)
     dims = dims_phase(gen)
     check_not_ported_raise()
+    # the autotuner and the native CPU oracle, on a generator of their own
+    # so that the phases after them take the inputs they always took
+    aux_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    autotune_phase(aux_gen)
+    cpu_oracle_phase(aux_gen)
 
     run = engine_phase(SEED)
     eng, cfg = run["engine"], run["cfg"]
@@ -6648,7 +6992,8 @@ def main() -> int:
         {"name": "flash_rowloop", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "tiny_flash_attention_tpu/ops/flash_rowloop.py:332",
-         "launches": ragged["launches"]["flash_rowloop"], **rowloop_row},
+         "launches": ragged["launches"]["flash_rowloop"]
+         + slaunch["flash_rowloop"], **rowloop_row},
         {"name": "paged_decode", "route": "cuda",
          "design": DECODE_DESIGN,
          "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode.cu",
@@ -6904,6 +7249,19 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             sys.exit(1)
         sys.exit(main_path_rows(SEED))
+    if sys.argv[1:] in (["--autotune"], ["--cpu-oracle"]):
+        # only the autotuner's phase, or only the CPU oracle's
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        from tiny_flash_attention_tpu_torch import _build
+
+        log(f"card: {gpu_info()}")
+        t_build = _build.build(["flash_fwd", "flash_fwd_quant"])
+        log(f"build: flash_fwd, flash_fwd_quant in {t_build:.1f} s")
+        phase = (autotune_phase if sys.argv[1] == "--autotune"
+                 else cpu_oracle_phase)
+        phase(torch.Generator(device="cuda").manual_seed(SEED + 1))
+        sys.exit(0)
     if sys.argv[1:] == ["--cp"]:
         # only the context-parallel phase (its worlds build the kernels)
         if not torch.cuda.is_available():

@@ -63,6 +63,8 @@ a world of 1 on NCCL whose sharded engine gives the single-card engine's
 greedy tokens and page bits, over bf16 and int8 pages.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1267,7 +1269,7 @@ def test_bwd_chain_counters_end_at_zero(gen, hq, hkv, d, masks):
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True,
                                **fwd_kw)
     call = BwdLaunch(q, k, v, out, lse, do, causal=True, sm_scale=d ** -0.5,
-                     **kw)
+                     config=configs.FlashConfig(), **kw)
     call.run()
     torch.cuda.synchronize()
     assert int(call.turns.abs().max()) == 0
@@ -1468,19 +1470,20 @@ def _f32_fwd_runs_agree(gen, hq, hkv, masks, d):
 
 
 @pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
-def test_f32_fwd_splits_match_plain(gen, monkeypatch, split):
+def test_f32_fwd_splits_match_plain(gen, split):
     """The f32 forward with each q tile's kv range cut into runs of 1 to
-    16 tiles (ops/configs.py::FLASH_FWD_F32_SPLIT, read at each call), with
-    a window and ids at group 4 and with the decode offset: each against
-    the plain version, and segment_starts' pruning changes no bit."""
-    monkeypatch.setattr(configs, "FLASH_FWD_F32_SPLIT", split)
+    16 tiles (a FlashConfig's `f32_split`), with a window and ids at group
+    4 and with the decode offset: each against the plain version, and
+    segment_starts' pruning changes no bit."""
+    config = configs.FlashConfig(f32_split=split)
     q, k, v, seg = _f32_inputs(gen, 8, 2, 611, 64, (100, 333))
     kw = {"causal": True, "window": 400, "segment_ids": (seg, seg)}
-    got = flash_attention(q, k, v, return_lse=True, **kw)
-    pruned = flash_attention(q, k, v, return_lse=True,
+    got = flash_attention(q, k, v, return_lse=True, config=config, **kw)
+    pruned = flash_attention(q, k, v, return_lse=True, config=config,
                              segment_starts=(0, 100, 333), **kw)
     q1 = q[:, :, 400:]
-    offset = flash_attention(q1, k, v, causal=True, return_lse=True)
+    offset = flash_attention(q1, k, v, causal=True, return_lse=True,
+                             config=config)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(got, pruned))
     _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
@@ -1533,19 +1536,18 @@ def test_f32_fwd_workspace_stays_bounded(gen, hq, hkv, q_len, kv_len,
 @pytest.mark.parametrize("q_len,kv_len", [(1, 1), (127, 127), (128, 128),
                                           (129, 129), (257, 63),
                                           (64, 257), (300, 300)])
-def test_f32q_quantized_kernel_at_tile_edges(gen, monkeypatch, fmt, q_len,
-                                             kv_len):
+def test_f32q_quantized_kernel_at_tile_edges(gen, fmt, q_len, kv_len):
     """f32 q over int8 and e4m3 payloads at the edges of the f32 body's
     128-row q tiles and 64-row kv tiles (rows before every column
     included), at runs of 2 kv tiles, so that the longer ranges split,
     against the plain version."""
-    monkeypatch.setattr(configs, "FLASH_FWD_F32_SPLIT", 2)
     d = 128
     q = _randn((1, 8, q_len, d), torch.float32, gen)
     k, v = Q.quantize_kv(_randn((1, 2, kv_len, d), torch.float32, gen),
                          _randn((1, 2, kv_len, d), torch.float32, gen), fmt)
-    out, lse = flash_attention_quantized(q, k, v, causal=True,
-                                         return_lse=True)
+    out, lse = flash_attention_quantized(
+        q, k, v, causal=True, config=configs.FlashConfig(f32_split=2),
+        return_lse=True)
     torch.cuda.synchronize()
     ref, ref_lse = flash_attention_quantized_plain(
         q, k.values, v.values, k.scales, v.scales, causal=True,
@@ -1841,17 +1843,18 @@ def test_in_place_bwd_is_the_padded_call(gen, d, group, mask):
 
 
 @pytest.mark.parametrize("d", [72, 80, 88, 96])
-def test_narrow_products_are_the_wide_instance(gen, monkeypatch, d):
+def test_narrow_products_are_the_wide_instance(gen, d):
     """The instances of width 80 and 96 (products that skip the tiles' zero
     columns) give the bits of the 128-wide instance, forward and
     backward."""
     (q, k, v, do), kw = _in_place_inputs(gen, d, 3, "causal")
     calls = []
     for narrow in (True, False):
-        monkeypatch.setattr(configs, "FLASH_NARROW_PRODUCTS", narrow)
-        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-        calls.append((out, lse, *flash_attention_bwd(q, k, v, out, lse, do,
-                                                      causal=True)))
+        config = configs.FlashConfig(narrow_products=narrow)
+        out, lse = flash_attention(q, k, v, causal=True, config=config,
+                                   return_lse=True)
+        calls.append((out, lse, *flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True, config=config)))
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *calls):
         assert torch.equal(a, b), name
@@ -2404,17 +2407,133 @@ def test_failing_rank_fails_the_world_on_the_card(gen):
                   args=(1,), timeout_s=300)
 
 
-@pytest.mark.parametrize("fmt", ["bf16", "int8"])
-def test_sharded_engine_world_of_one_is_single_card(gen, fmt):
+@pytest.mark.parametrize("fmt,mode", [
+    ("bf16", "batched"), ("int8", "batched"), ("bf16", "packed-page"),
+    ("bf16", "packed-pow2"), ("bf16", "jagged")])
+def test_sharded_engine_world_of_one_is_single_card(gen, fmt, mode):
     """parallel/serve.py on a (1, 1) mesh, one rank on NCCL: tp = 1, so
     every all-reduce is the single-card residual add, and the tokens and
-    the pages equal the single-card engine's bit for bit."""
+    the pages equal the single-card engine's bit for bit, in every
+    admission mode."""
     fields = dict(vocab_size=512, d_model=256, n_layers=2, n_q_heads=4,
                   n_kv_heads=2, d_head=128, d_ff=512, dtype=torch.bfloat16)
     rng = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, 512, (n,), generator=rng).tolist()
                for n in (9, 200, 130, 33)]
     got = run_world(SR.card_world_of_one, 1, backend="nccl",
-                    device_type="cuda", args=(fields, 0, prompts, fmt))[0]
+                    device_type="cuda",
+                    args=(fields, 0, prompts, fmt, mode))[0]
     assert got["tokens"][0] == got["tokens"][1]
     assert got["same_pages"]
+
+
+# --- the run-time config, the autotuner and the CPU oracle -----------------
+
+
+def test_default_config_explicit_gives_the_same_bits(gen):
+    """config=default_config(...) is a call without config, bit for bit:
+    B1 bf16 (at 96, the narrow instance) and f32 (its kv runs), the
+    quantized forward (bf16 and f32 q over int8) and B11's jagged mode;
+    the 128-wide instance at 96 gives the same bits too."""
+    for dtype, d in ((torch.bfloat16, 96), (torch.float32, 128)):
+        q = _randn((2, 4, 700, d), dtype, gen)
+        k, v = _randn((2, 2, 700, d), dtype, gen), _randn((2, 2, 700, d),
+                                                          dtype, gen)
+        cfg = configs.default_config(dtype, d, 700, 700)
+        want = flash_attention(q, k, v, causal=True, return_lse=True)
+        for c in (cfg, dataclasses.replace(cfg, narrow_products=False)):
+            got = flash_attention(q, k, v, causal=True, config=c,
+                                  return_lse=True)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        kq, vq = Q.quantize_kv(k, v, "int8")
+        assert torch.equal(
+            flash_attention_quantized(q, kq, vq, causal=True),
+            flash_attention_quantized(q, kq, vq, causal=True, config=cfg))
+        lens = torch.tensor([700, 129], dtype=torch.int32, device="cuda")
+        assert all(torch.equal(a, b) for a, b in zip(
+            flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lens),
+            flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lens,
+                                    config=cfg)))
+
+
+def test_config_runs_and_refusals_on_the_card(gen, monkeypatch):
+    """Other f32 runs (longer, shorter, none) stay within 2e-5 of the
+    default's and of the plain version, the backward's runs
+    (FLASH_BWD_F32_SPLIT) too; a config the check refuses raises
+    ValueError before any launch."""
+    q = _randn((1, 8, 1024, 128), torch.float32, gen)
+    k, v = (_randn((1, 2, 1024, 128), torch.float32, gen) for _ in "kv")
+    want = flash_attention_plain(q, k, v, causal=True, sm_scale=128 ** -0.5)
+    base = flash_attention(q, k, v, causal=True)
+    do = _randn(q.shape, torch.float32, gen)
+    grads = []
+    for split in (configs.FLASH_BWD_F32_SPLIT, 3):
+        monkeypatch.setattr(configs, "FLASH_BWD_F32_SPLIT", split)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for a, b in zip(*grads):
+        assert _err(a, b) <= 2e-5
+    for split in (1, 2, 20, 16):
+        cfg = configs.FlashConfig(f32_split=split)
+        got = flash_attention(q, k, v, causal=True, config=cfg)
+        assert _err(got, base) <= 2e-5 and _err(got, want) <= 2e-5
+    launches = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, config=configs.FlashConfig(f32_split=0))
+    assert flash_attention.launches == launches
+
+
+def test_autotune_on_the_card(gen, tmp_path):
+    """The autotuner times every candidate on the card and returns one of
+    them, memoized (no launch the second time); its output is within 2e-5
+    of the default call's (f32) or its bits (bf16 at 80: the narrow
+    instance or the 128-wide one); the cache round-trips."""
+    from tiny_flash_attention_tpu_torch.utils import autotune as AT
+
+    AT._CACHE.clear()
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 80)):
+        q = _randn((1, 8, 1024, d), dtype, gen)
+        k, v = (_randn((1, 2, 1024, d), dtype, gen) for _ in "kv")
+        cands = AT._candidates(configs.default_config(dtype, d, 1024, 1024),
+                               q.shape, k.shape, dtype)
+        assert len(cands) >= 2
+        cfg = AT.autotune_flash_config(q, k, v, causal=True, rounds=2)
+        assert cfg in cands and len(AT.last_timings) == len(cands)
+        assert all(r["device"] == "cuda" and r["min_ms"] > 0
+                   for _, r in AT.last_timings)
+        launches = flash_attention.launches
+        assert AT.autotune_flash_config(q, k, v, causal=True) is cfg
+        assert flash_attention.launches == launches
+        got = flash_attention(q, k, v, causal=True, config=cfg)
+        base = flash_attention(q, k, v, causal=True)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, base)
+        else:
+            assert _err(got, base) <= 2e-5
+    path = str(tmp_path / "tune.json")
+    AT.save_cache(path)
+    kept = dict(AT._CACHE)
+    AT._CACHE.clear()
+    assert AT.load_cache(path) == 2 and AT._CACHE == kept
+    AT._CACHE.clear()
+
+
+def test_cpu_oracle_on_the_card_host(gen):
+    """cpu.py builds on the card's host and agrees with B1 copied back; a
+    CUDA tensor raises ValueError (nothing is copied quietly)."""
+    from tiny_flash_attention_tpu_torch import cpu
+
+    q = _randn((1, 4, 256, 128), torch.float32, gen)
+    k, v = (_randn((1, 2, 256, 128), torch.float32, gen) for _ in "kv")
+    with pytest.raises(ValueError, match="CPU tensors"):
+        cpu.flash_attn(q, k, v)
+    for causal in (False, True):
+        got = cpu.flash_attn(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+        assert _err(got, flash_attention(q, k, v, causal=causal).cpu()) \
+            <= 2e-5
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        got = cpu.flash_attn_bf16(qb.cpu(), kb.cpu(), vb.cpu(),
+                                  causal=causal)
+        assert _err(got, flash_attention(qb, kb, vb, causal=causal).cpu()) \
+            <= 2e-2

@@ -171,7 +171,8 @@ def test_wide_f32_work_lists_are_bounded(q_len, kv_len, n_bh):
     stays under the 128 instance's 70.3 MB bound; the backward's lists at
     32-row tiles cover each tile's range in runs of bwd_f32_split(256)."""
     cfg = FLASH_FWD_F32_WIDE
-    split = fwd_f32_split(q_len, kv_len, causal=True, n_bh=n_bh, cfg=cfg)
+    split = fwd_f32_split(q_len, kv_len, causal=True, n_bh=n_bh,
+                          config=configs.FlashConfig(), cfg=cfg)
     flat, m = fwd_f32_work(q_len, kv_len, causal=True, n_bh=n_bh, cfg=cfg)
     tile, lo, hi, order = flat[:4 * m].reshape(4, m)
     first = flat[4 * m:]

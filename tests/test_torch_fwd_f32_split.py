@@ -2,8 +2,8 @@
 
 The f32 forward kernel (csrc/flash_fwd.cuh's f32 body) cuts each 128-row q
 tile's kv range, as `fwd_f32_tiles` clamps it (causal with the decode
-offset, the window's band, `segment_starts`), at the multiples of
-FLASH_FWD_F32_SPLIT kv tiles into runs (`fwd_f32_work`), one block per
+offset, the window's band, `segment_starts`), at the multiples of a
+FlashConfig's `f32_split` kv tiles into runs (`fwd_f32_work`), one block per
 (run, q head, batch), longest first; the last run of a tile to arrive
 merges the tile's runs in run order with the exact LSE combine. Held here:
 
@@ -39,14 +39,18 @@ import torch
 from tiny_flash_attention_tpu.ops.configs import FlashConfig
 from tiny_flash_attention_tpu.ops.flash import flash_attention as jax_flash
 from tiny_flash_attention_tpu_torch.ops import configs
+from tiny_flash_attention_tpu_torch.ops.configs import FLASH_FWD_F32
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_F32, FLASH_FWD_F32_SPLIT)
+    FlashConfig as PortConfig)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     f32_split_merge_plain, flash_attention_plain, fwd_f32_slots,
     fwd_f32_split, fwd_f32_tiles, fwd_f32_work, visible_mask)
 
 BM, BN = FLASH_FWD_F32.block_m, FLASH_FWD_F32.block_n
 INTERP = FlashConfig(block_q=128, block_kv=128, interpret=True)
+# the port's default config and its runs (5 kv tiles)
+DEFAULT = PortConfig()
+FLASH_FWD_F32_SPLIT = DEFAULT.f32_split
 
 
 def _ids(b, n, bounds):
@@ -112,7 +116,7 @@ def test_runs_fill_the_card_at_the_f32_train_shape(split, blocks):
     the configured split gives at least 128 on the H100's 132 SMs."""
     assert fwd_f32_work(1024, 1024, causal=True, split=split)[1] * 8 \
         == blocks
-    assert fwd_f32_split(1024, 1024, causal=True, n_bh=8) \
+    assert fwd_f32_split(1024, 1024, causal=True, n_bh=8, config=DEFAULT) \
         == FLASH_FWD_F32_SPLIT
     assert fwd_f32_work(1024, 1024, causal=True, n_bh=8)[1] * 8 >= 128
 
@@ -158,7 +162,8 @@ def test_split_bounds_the_workspace(n_bh, q_len, kv_len, causal):
     FLASH_FWD_F32_MAX_SLOTS, so the merge's workspace stays under
     FLASH_FWD_F32_MAX_SLOTS x 128 x (D + 2) f32 whatever the length; a
     window or segment_starts only shortens the ranges and needs no more."""
-    split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh)
+    split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh,
+                          config=DEFAULT)
     n_tiles, n_kv = -(-q_len // BM), -(-kv_len // BN)
     cap = configs.FLASH_FWD_F32_MAX_SLOTS
     for window, starts in ((None, None), (q_len // 3 + 1, None),
@@ -207,7 +212,7 @@ MERGE_CASES = [
 
 @pytest.mark.parametrize("hq,hkv,q_len,kv_len,causal,window,bounds,starts",
                          MERGE_CASES)
-def test_split_merge_matches_plain_and_jax(monkeypatch, hq, hkv, q_len,
+def test_split_merge_matches_plain_and_jax(hq, hkv, q_len,
                                            kv_len, causal, window, bounds,
                                            starts):
     d, sc = 64, 64 ** -0.5
@@ -229,11 +234,11 @@ def test_split_merge_matches_plain_and_jax(monkeypatch, hq, hkv, q_len,
                      window=window, segment_starts=st, return_lse=True,
                      config=INTERP if starts else None)
     # the configured runs, and runs short enough that these lengths split
-    for split in sorted({1, 2, configs.FLASH_FWD_F32_SPLIT}):
-        monkeypatch.setattr(configs, "FLASH_FWD_F32_SPLIT", split)
+    for split in sorted({1, 2, FLASH_FWD_F32_SPLIT}):
         got = f32_split_merge_plain(tq, tk, tv, causal=causal, sm_scale=sc,
                                     segment_ids=tsegs, window=window,
-                                    segment_starts=st)
+                                    segment_starts=st,
+                                    config=PortConfig(f32_split=split))
         for name, g, p, w in zip(("out", "lse"), got, plain, want):
             assert g.dtype == torch.float32 and g.shape == p.shape
             assert float((g - p).abs().max()) <= 2e-6, (split, name)

@@ -10,7 +10,7 @@ import types
 import pytest
 import torch
 
-from tiny_flash_attention_tpu_torch import _build
+from tiny_flash_attention_tpu_torch import _build, cpu
 from tiny_flash_attention_tpu_torch.models import encoder as TE
 from tiny_flash_attention_tpu_torch.models import transformer as TT
 from tiny_flash_attention_tpu_torch.models.engine import (
@@ -34,6 +34,8 @@ from tiny_flash_attention_tpu_torch.parallel.multihost import (
 from tiny_flash_attention_tpu_torch.parallel.serve import (
     ShardedInferenceEngine, make_sharded_decode_loop)
 from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+from tiny_flash_attention_tpu_torch.utils.autotune import (
+    autotune_flash_config)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tiny_flash_attention_tpu_torch"
@@ -58,6 +60,14 @@ def test_no_jax_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_every_module_is_checked():
+    """The import check covers every module of the port, the CPU oracle
+    and the autotuner among them."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()[:-1]}
+    assert {"cpu.py", "utils/autotune.py", "utils/benchmarking.py",
+            "ops/configs.py"} <= names
 
 
 def test_kernel_sources_are_found():
@@ -169,6 +179,9 @@ def test_cpu_calls_launch_no_kernel():
     flash_attention(q, q, q, causal=True).sum().backward()
     step, init = make_train_step(SMALL, device="cpu")
     step(*init(params), torch.randint(0, 64, (2, 16)))
+    # the autotuner and the native oracle on CPU tensors
+    autotune_flash_config(x, x, x, rounds=1)
+    cpu.flash_attn(x, x, x, causal=True)
     assert [fn.launches for fn in counters] == [0] * len(counters)
     assert [getattr(fn, name) for fn, name in extra] == [0] * len(extra)
 

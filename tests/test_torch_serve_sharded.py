@@ -7,15 +7,23 @@ conftest's 8 virtual CPU devices (the Pallas decode in interpret mode) and
 through the port's counterparts in one world of 8 gloo ranks on the CPU
 (parallel/world.py; tests/torch_serve_ranks.py holds the rank functions,
 which import torch only). The world runs every case once for the module,
-on (1, 2), (2, 2) and (4, 2) meshes side by side. Mirrors
+on (1, 2), (2, 2) and (4, 2) meshes side by side, then packed (page, pow2)
+and jagged admission on (1, 8), (2, 4) and (1, 1). Mirrors
 tests/test_serve_sharded.py and tests/test_parallel_train.py::
-test_spmd_forward_matches_single_device. Gates: f32 2e-5, bf16 2e-2 of the
+test_spmd_forward_matches_single_device, and holds the sharded engine's
+packed and jagged admission (the jagged mix of
+tests/test_torch_ragged_admission.py) to JAX's ShardedInferenceEngine on
+the 8 virtual devices and, on a (1, 1) mesh, to the port's single-card
+engine bit for bit. Gates: f32 2e-5, bf16 2e-2 of the
 largest magnitude, f32 pages at JAX's atol 1e-5, spmd logits at JAX's
 atol 1e-3. Sampled streams are held against the port's single-card loop
 and engine (torch does not reproduce jax.random).
 """
 
+import contextlib
 import dataclasses
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +36,7 @@ import torch_serve_ranks as RK
 from tiny_flash_attention_tpu.models import inference as JI
 from tiny_flash_attention_tpu.models import transformer as JT
 from tiny_flash_attention_tpu.models.engine import InferenceEngine as JEngine
+from tiny_flash_attention_tpu.models.engine import Request as JRequest
 from tiny_flash_attention_tpu.models.kv_cache import PagedKVCache as JCache
 from tiny_flash_attention_tpu.parallel import serve as JS
 from tiny_flash_attention_tpu.parallel import train as JTR
@@ -35,7 +44,7 @@ from tiny_flash_attention_tpu.parallel.sharded import make_mesh as jax_mesh
 from tiny_flash_attention_tpu_torch.models import inference as TI
 from tiny_flash_attention_tpu_torch.models import transformer as TT
 from tiny_flash_attention_tpu_torch.models.engine import (
-    InferenceEngine as TEngine)
+    InferenceEngine as TEngine, Request)
 from tiny_flash_attention_tpu_torch.models.kv_cache import (
     PagedKVCache as TCache)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import page_rows
@@ -56,8 +65,8 @@ _DT = {"f32": (jnp.float32, torch.float32),
 
 def _models(dt="f32", **extra):
     jdt, tdt = _DT[dt]
-    jcfg = JT.ModelConfig(**SMALL, **extra, dtype=jdt, attn_impl="flash")
-    tcfg = TT.ModelConfig(**SMALL, **extra, dtype=tdt)
+    jcfg = JT.ModelConfig(**{**SMALL, **extra}, dtype=jdt, attn_impl="flash")
+    tcfg = TT.ModelConfig(**{**SMALL, **extra}, dtype=tdt)
     jp = JT.init_params(jcfg, jax.random.key(0))
     tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, jp, tcfg, tp
@@ -132,6 +141,36 @@ def _engine_job(name, mesh, spec, data_axis, temperature):
                  **spec["kw"]))
 
 
+# --- packed and jagged admission (JAX's engine inherits both) --------------
+# 16/8 heads so that the kv heads split over a model axis of 8; the jagged
+# mix and engine geometry of tests/test_torch_ragged_admission.py
+RAGGED_HEADS = dict(n_q_heads=16, n_kv_heads=8)
+RAGGED_PROMPTS = (23, (7, 130, 61))
+RAGGED_KW = dict(num_pages=64, page_size=PS, max_seqs=4, pages_per_seq=4)
+RAGGED_NEW = 5
+RAGGED_MODES = ("packed-page", "packed-pow2", "jagged")
+RAGGED_MESHES = {"line": ((1, 8), None), "wide": ((2, 4), "data"),
+                 "one": ((1, 1), None)}
+
+
+def _ragged_jobs():
+    _, _, tcfg, tp = _models(**RAGGED_HEADS)
+    prompts = _prompts(RAGGED_PROMPTS)
+    return [(f"ragged {mode} {name}", name, "ragged_engine_case",
+             (tcfg, tp, prompts),
+             dict(mode=mode, data_axis=data_axis, max_new=RAGGED_NEW,
+                  **RAGGED_KW))
+            for name, (_, data_axis) in RAGGED_MESHES.items()
+            for mode in RAGGED_MODES]
+
+
+def _admit_mode(eng, reqs, mode):
+    if mode == "jagged":
+        eng.add_requests_jagged(reqs)
+    else:
+        eng.add_requests_packed(reqs, pack_bucket=mode.split("-")[1])
+
+
 SPMD_TOKENS = np.array(jax.random.randint(jax.random.key(1), (8, 64), 0,
                                           256), np.int32)
 REDUCE_X = np.random.default_rng(3).standard_normal(4099).astype(np.float32)
@@ -152,7 +191,7 @@ def _jobs():
              ("shards", "world", "shards_case", (tcfg, tp, bad), {}),
              ("all_reduce", "world", "all_reduce_case",
               (torch.from_numpy(REDUCE_X),), {})]
-    return jobs
+    return jobs + _ragged_jobs()
 
 
 @pytest.fixture(scope="module")
@@ -498,14 +537,110 @@ def test_all_reduce_same_bits_on_every_rank(world):
 
 
 def test_sharded_engine_refusals(world):
-    """Packed and jagged admission raise NotImplementedError naming
-    themselves; quantized weights raise ValueError; the loop and the engine
-    run on the card unless given device="cpu"."""
+    """Quantized weights raise ValueError, as JAX's param_specs does; the
+    loop and the engine run on the card unless given device="cpu"."""
     ranks = _ranks(world, "refusals")
     assert len(ranks) == 2
     for _, refused in ranks:
-        assert set(refused) == {"add_requests_packed", "add_requests_jagged",
-                                "quantized", "loop on the card",
+        assert set(refused) == {"quantized", "loop on the card",
                                 "engine on the card"}
-        for name in ("add_requests_packed", "add_requests_jagged"):
-            assert name in refused[name]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ragged(mode, shape, data_axis):
+    """JAX's ShardedInferenceEngine on a (data, model) mesh of the virtual
+    devices (shape None: JAX's single-chip engine) admitting the jagged
+    mix by `mode`: (greedy tokens, the page table and the global pages
+    after the admission)."""
+    jcfg, jp, _, _ = _models(**RAGGED_HEADS)
+    if shape is None:
+        eng = JEngine(jcfg, jp, **RAGGED_KW)
+    else:
+        n = shape[0] * shape[1]
+        mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
+                    ("data", "model"))
+        eng = JS.ShardedInferenceEngine(jcfg, jp, mesh, data_axis=data_axis,
+                                        **RAGGED_KW)
+    reqs = [JRequest(list(p), max_new_tokens=RAGGED_NEW)
+            for p in _prompts(RAGGED_PROMPTS)]
+    _admit_mode(eng, reqs, mode)
+    table = eng.cache.page_table.copy()
+    pages = [np.asarray(p) for p in eng.cache.pages]
+    eng.steps(RAGGED_NEW - 1)
+    return [r.generated for r in reqs], table, pages
+
+
+@pytest.mark.parametrize("mesh_name", ["line", "wide"])
+@pytest.mark.parametrize("mode", RAGGED_MODES)
+def test_sharded_ragged_admission_matches_jax(world, mode, mesh_name):
+    """Packed (page, pow2) and jagged admission on (1, 8) and on (2, 4)
+    with page groups: every rank's greedy tokens and page table equal JAX's
+    ShardedInferenceEngine's on the same mesh (itself JAX's single-chip
+    engine's), and each rank's pages after the admission, its kv heads of
+    its data group's block, equal JAX's slice on the rows below each
+    length at the fp32 gate (2e-5)."""
+    shape, data_axis = RAGGED_MESHES[mesh_name]
+    want, table, jpages = _jax_ragged(mode, shape, data_axis)
+    assert want == _jax_ragged(mode, None, None)[0]
+    dp, tp = shape
+    hl, p_local = 8 // tp, RAGGED_KW["num_pages"] // dp
+    prompts = _prompts(RAGGED_PROMPTS)
+    ranks = _ranks(world, f"ragged {mode} {mesh_name}")
+    assert len(ranks) == dp * tp
+    for _, r in ranks:
+        assert r["tokens"] == want and r["n_groups"] == dp
+        np.testing.assert_array_equal(r["table"].numpy(), table)
+        m, g = r["model"], r["group"]
+        compared = 0
+        for li, pages in enumerate(r["pages"]):
+            assert tuple(pages.shape) == (hl, p_local, 2 * PS, 128)
+            full = jpages[li][m * hl:(m + 1) * hl,
+                              g * p_local:(g + 1) * p_local]
+            for slot, prompt in zip(r["slots"], prompts):
+                if slot // (RAGGED_KW["max_seqs"] // dp) != g:
+                    continue
+                L = len(prompt)
+                ids = table[slot, :-(-L // PS)] - g * p_local
+                got = pages[:, ids].reshape(hl, -1, 2, PS, 128).numpy()
+                ref = full[:, ids].reshape(hl, -1, 2, PS, 128)
+                for half in range(2):               # K rows, V rows
+                    np.testing.assert_allclose(
+                        got[:, :, half].reshape(hl, -1, 128)[:, :L],
+                        ref[:, :, half].reshape(hl, -1, 128)[:, :L],
+                        atol=2e-5, rtol=0)
+                compared += 1
+        assert compared > 0
+
+
+@contextlib.contextmanager
+def _rank_threads():
+    """torch's threads as a rank of the world has them (parallel/world.py),
+    so that the CPU products round as the rank's do."""
+    keep = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORLD))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(keep)
+
+
+@pytest.mark.parametrize("mode", RAGGED_MODES)
+def test_sharded_ragged_admission_one_rank_bits(world, mode):
+    """On a (1, 1) mesh the sharded engine's packed and jagged admission
+    give the port's single-card engine's tokens, page table and pages bit
+    for bit (an axis of one rank makes no collective)."""
+    _, _, tcfg, tp = _models(**RAGGED_HEADS)
+    with _rank_threads():
+        single = TEngine(tcfg, tp, **RAGGED_KW, device="cpu")
+        reqs = [Request(list(p), RAGGED_NEW)
+                for p in _prompts(RAGGED_PROMPTS)]
+        _admit_mode(single, reqs, mode)
+        pages = [p.clone() for p in single.cache.pages]
+        table = single.cache.page_table.copy()
+        single.steps(RAGGED_NEW - 1)
+    ranks = _ranks(world, f"ragged {mode} one")
+    assert len(ranks) == 1
+    got = ranks[0][1]
+    assert got["tokens"] == [r.generated for r in reqs]
+    np.testing.assert_array_equal(got["table"].numpy(), table)
+    assert all(torch.equal(a, b) for a, b in zip(got["pages"], pages))

@@ -80,6 +80,37 @@ def run_sharded_flash(rank, device, inputs, causal):
             "default": list(default.shape)}
 
 
+def config_entries(rank, device, inputs, config):
+    """Each context-parallel entry (ring causal and not, zigzag, Ulysses,
+    all-gather) over a "ctx" axis of the whole world and
+    sharded_flash_attention on a (1, world) mesh, each called without and
+    with `config`: {name: (out without, out with)}."""
+    n = dist.get_world_size()
+    mesh = _mesh(device, (n,), ("ctx",))
+    q, k, v = (_tensor(x, device) for x in inputs)
+    spec = (None, None, "ctx", None)
+    out = {}
+    for name, make in (
+            ("ring", lambda **kw: R.make_ring_attention(mesh, **kw)),
+            ("ring non-causal", lambda **kw: R.make_ring_attention(
+                mesh, causal=False, **kw)),
+            ("ulysses", lambda **kw: R.make_ulysses_attention(mesh, **kw)),
+            ("allgather", lambda **kw: R.make_allgather_attention(
+                mesh, **kw))):
+        out[name] = tuple(shard_map(make(**kw), mesh, spec)(q, k, v)
+                          for kw in ({}, {"config": config}))
+    zz = [R.zigzag_unpermute(shard_map(
+        R.make_zigzag_ring_attention(mesh, **kw), mesh, spec)(
+        *(R.zigzag_permute(x, n) for x in (q, k, v))), n)
+        for kw in ({}, {"config": config})]
+    out["zigzag"] = tuple(zz)
+    grid = make_mesh(n, data=1, model=n, device=device.type)
+    out["sharded"] = tuple(
+        sharded_flash_attention(grid, causal=True, **kw)(q, k, v)
+        for kw in ({}, {"config": config}))
+    return out
+
+
 def ring_events(rank, device, mesh_spec, inputs, causal):
     """The order of one ring call's rotations and flash calls on this rank,
     and whether every step sends the block it received (the input shard at

@@ -3,11 +3,12 @@
 One world of 8 gloo ranks on the CPU runs every case of
 tests/test_torch_serve_sharded.py once. Every rank builds the same
 meshes in the same order (a DeviceMesh makes its process groups with
-every rank of the world): the (4, 2) mesh over the whole world, two
-(2, 2) meshes over ranks 0-3 and 4-7 and four (1, 2) meshes over the
-pairs. A job names the mesh it runs on; the ranks of that mesh run it
-and the others skip it, so the small meshes run side by side. This module
-imports torch, numpy and the port only (the ranks never import JAX).
+every rank of the world): the (4, 2), (1, 8) and (2, 4) meshes over the
+whole world, two (2, 2) meshes over ranks 0-3 and 4-7, four (1, 2)
+meshes over the pairs and a (1, 1) mesh of rank 0. A job names the mesh
+it runs on; the ranks of that mesh run it and the others skip it, so the
+small meshes run side by side. This module imports torch, numpy and the
+port only (the ranks never import JAX).
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ def _meshes(device) -> dict:
         return DeviceMesh(device.type, torch.arange(first, first + n)
                           .reshape(shape), mesh_dim_names=NAMES)
 
-    meshes = {"world": make_mesh(8, 4, 2, device=device.type)}
+    meshes = {"world": make_mesh(8, 4, 2, device=device.type),
+              "line": sub(0, (1, 8)), "wide": sub(0, (2, 4)),
+              "one": sub(0, (1, 1))}
     meshes.update({f"quad{i}": sub(4 * i, (2, 2)) for i in range(2)})
     meshes.update({f"pair{i}": sub(2 * i, (1, 2)) for i in range(4)})
     return meshes
@@ -71,6 +74,29 @@ def engine_case(mesh, device, cfg, params, prompts, *, data_axis,
                        temperature=temperature, chunk=chunk)
     return (got, eng.cache.n_groups, sorted(eng.cache.free_pages),
             tuple(eng.cache.pages[0].shape))
+
+
+def ragged_engine_case(mesh, device, cfg, params, prompts, *, mode,
+                       data_axis, max_new, **kw):
+    """ShardedInferenceEngine admitting `prompts` packed ("packed-page",
+    "packed-pow2") or jagged, then max_new - 1 decode steps: the greedy
+    tokens, the page table and this rank's pages after the admission, the
+    slots and n_groups."""
+    eng = ShardedInferenceEngine(cfg, params, mesh, data_axis=data_axis,
+                                 device=device, **kw)
+    reqs = [Request(list(p), max_new) for p in prompts]
+    if mode == "jagged":
+        eng.add_requests_jagged(reqs)
+    else:
+        eng.add_requests_packed(reqs, pack_bucket=mode.split("-")[1])
+    table = torch.from_numpy(eng.cache.page_table.copy())
+    pages = [p.clone() for p in eng.cache.pages]
+    eng.steps(max_new - 1)
+    return {"tokens": [r.generated for r in reqs], "table": table,
+            "pages": pages, "slots": [r.slot for r in reqs],
+            "n_groups": eng.cache.n_groups,
+            "model": mesh.get_local_rank("model"),
+            "group": mesh.get_local_rank("data")}
 
 
 def spmd_case(mesh, device, cfg, params, tokens):
@@ -117,10 +143,10 @@ def all_reduce_case(mesh, device, x):
 
 
 def refusals_case(mesh, device, cfg, params):
-    """The sharded engine's refusals: packed and jagged admission
-    (NotImplementedError), quantized weights (ValueError); and the loop and
-    the engine without device="cpu": the card, which is absent here
-    (RuntimeError) or not of the CPU mesh's type (ValueError)."""
+    """The sharded engine's refusals: quantized weights (ValueError); and
+    the loop and the engine without device="cpu": the card, which is
+    absent here (RuntimeError) or not of the CPU mesh's type
+    (ValueError)."""
     geom = dict(num_pages=8, page_size=128, max_seqs=2, pages_per_seq=2)
     refused = {}
     for name, make in (
@@ -131,12 +157,6 @@ def refusals_case(mesh, device, cfg, params):
         try:
             make()
         except (RuntimeError, ValueError) as e:
-            refused[name] = str(e)
-    eng = ShardedInferenceEngine(cfg, params, mesh, device=device, **geom)
-    for name in ("add_requests_packed", "add_requests_jagged"):
-        try:
-            getattr(eng, name)([Request([1, 2, 3], 2)])
-        except NotImplementedError as e:
             refused[name] = str(e)
     try:
         ShardedInferenceEngine(cfg, T.quantize_params(params), mesh,
@@ -158,10 +178,12 @@ def run_jobs(rank, device, jobs):
     return out
 
 
-def card_world_of_one(rank, device, fields, seed, prompts, fmt):
+def card_world_of_one(rank, device, fields, seed, prompts, fmt,
+                      mode="batched"):
     """On the card, a (1, 1) mesh over a world of 1 on NCCL: the sharded
-    engine and the single-card engine from the same weights generate the
-    same greedy tokens and end with the same page bits."""
+    engine and the single-card engine from the same weights, admitting
+    batched (generate), packed ("packed-page", "packed-pow2") or jagged,
+    generate the same greedy tokens and end with the same page bits."""
     from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -173,8 +195,19 @@ def card_world_of_one(rank, device, fields, seed, prompts, fmt):
     mesh = make_mesh(1, 1, 1, device=device.type)
     engines = [ShardedInferenceEngine(cfg, params, mesh, **geom),
                InferenceEngine(cfg, params, **geom)]
-    tokens = [e.generate(prompts, max_new_tokens=40, chunk=16)
-              for e in engines]
+    if mode == "batched":
+        tokens = [e.generate(prompts, max_new_tokens=40, chunk=16)
+                  for e in engines]
+    else:
+        tokens = []
+        for e in engines:
+            reqs = [Request(list(p), 40) for p in prompts]
+            if mode == "jagged":
+                e.add_requests_jagged(reqs)
+            else:
+                e.add_requests_packed(reqs, pack_bucket=mode.split("-")[1])
+            e.steps(39)
+            tokens.append([r.generated for r in reqs])
     same_pages = all(torch.equal(a, b) for a, b in zip(
         engines[0].cache.pages, engines[1].cache.pages))
     return {"tokens": tokens, "same_pages": same_pages}

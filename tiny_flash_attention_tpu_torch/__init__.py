@@ -26,7 +26,9 @@ Layer map (counterparts in the JAX package):
                       (B1's kernels with quantized operands)
   ops.quant        -- int8/fp8 quantizers, QuantizedTensor, quantized_matmul
   ops.quant_matmul -- weight-only quantized matmul -> csrc/quant_matmul.cu
-  ops.configs      -- the kernels' tile sizes
+  ops.configs      -- the kernels' tile sizes; FlashConfig, the run-time
+                      choices every flash entry takes as `config=`
+                      (default_config: today's)
   models           -- GQA decoder (optionally sliding-window) and its loss,
                       paged KV cache, inference paths (batched, packed,
                       jagged prefill), engine (with the windowed ring
@@ -36,8 +38,13 @@ Layer map (counterparts in the JAX package):
                       ring, zigzag ring, Ulysses and all-gather attention
                       (ring.py) on torch.distributed, their collectives
                       (comm.py) and a launcher of ranks (world.py)
-  utils            -- tolerances, device choice, CUDA-event timing,
-                      profiling and the roofline
+  utils            -- tolerances, device choice, CUDA-event timing and
+                      run_benchmark, profiling and the roofline, the
+                      autotuner of FlashConfig on the card (autotune.py,
+                      a JSON cache of winners)
+  cpu              -- the native C++/OpenMP CPU oracle (cpp/attn.cpp, built
+                      at first use into build/cpu/, bound with ctypes) on
+                      CPU tensors
 """
 
 __version__ = "0.1.0"
@@ -50,6 +57,8 @@ from tiny_flash_attention_tpu_torch.ops.reference import (  # noqa: E402
     flash_attention_v2_ref,
     mha_reference,
 )
+from tiny_flash_attention_tpu_torch.ops.configs import (  # noqa: E402
+    FlashConfig)
 from tiny_flash_attention_tpu_torch.ops.flash import (  # noqa: E402
     flash_attention)
 from tiny_flash_attention_tpu_torch.ops.flash_v1 import (  # noqa: E402

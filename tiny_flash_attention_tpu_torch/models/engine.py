@@ -121,6 +121,17 @@ class InferenceEngine:
         """(logits, k_layers, v_layers) of a padded prompt batch."""
         return prefill_forward_batched(self.cfg, self.params, toks)
 
+    def _prefill_packed(self, toks: torch.Tensor, segs: torch.Tensor,
+                        positions: torch.Tensor, offsets: tuple):
+        """(logits, k_layers, v_layers) of prompts packed into one row."""
+        return prefill_forward_packed(self.cfg, self.params, toks, segs,
+                                      positions, segment_starts=offsets)
+
+    def _prefill_jagged(self, toks: torch.Tensor, lengths: torch.Tensor):
+        """(logits, k_layers, v_layers) of a padded batch with runtime
+        lengths."""
+        return prefill_forward_jagged(self.cfg, self.params, toks, lengths)
+
     def _decode_one(self, positions, page_table) -> torch.Tensor:
         """One decode step of every slot; returns the sampled (B,)."""
         logits, self.cache.pages = decode_step(
@@ -183,9 +194,9 @@ class InferenceEngine:
         rows, last, temps = self._sample_rows(
             np.zeros(len(reqs), np.int64),
             [o + len(r.prompt) - 1 for o, r in zip(offs, reqs)], reqs)
-        logits, ks, vs = prefill_forward_packed(
-            self.cfg, self.params, self._tensor(toks), self._tensor(segs),
-            self._tensor(positions), segment_starts=tuple(offs))
+        logits, ks, vs = self._prefill_packed(
+            self._tensor(toks), self._tensor(segs), self._tensor(positions),
+            tuple(offs))
         first = sample_tokens(logits[rows, last], self.generator, temps)
         kv = []
         for o, req in zip(offs, reqs):
@@ -209,8 +220,7 @@ class InferenceEngine:
             np.arange(len(reqs)), [len(r.prompt) - 1 for r in reqs], reqs)
         lens = self._tensor(np.asarray([len(r.prompt) for r in reqs],
                                        np.int32))
-        logits, ks, vs = prefill_forward_jagged(self.cfg, self.params,
-                                                self._tensor(toks), lens)
+        logits, ks, vs = self._prefill_jagged(self._tensor(toks), lens)
         first = sample_tokens(logits[rows, last], self.generator, temps)
         kv = []
         for i, req in enumerate(reqs):

@@ -76,7 +76,8 @@ def prefill_forward_batched(cfg: T.ModelConfig, params: dict,
 
 def prefill_forward_packed(cfg: T.ModelConfig, params: dict,
                            tokens: torch.Tensor, seg_ids: torch.Tensor,
-                           positions: torch.Tensor, *, segment_starts):
+                           positions: torch.Tensor, *, segment_starts,
+                           add: Callable = _add):
     """Ragged prompts PACKED into one row: tokens/seg_ids (1, L_total),
     positions (L_total,) restarting at each prompt (RoPE), segment_starts
     the static pack offsets.
@@ -84,7 +85,8 @@ def prefill_forward_packed(cfg: T.ModelConfig, params: dict,
     Attention is the flash kernel with the segment mask and each q tile's
     kv range pruned to its segment (`segment_tiles`), so the cost is
     sum(L_i^2)/2, not B * L_max^2 / 2. Returns (logits (1, L, V), ks, vs)
-    shaped like prefill_forward_batched with B=1.
+    shaped like prefill_forward_batched with B=1. `add` as in _prefill
+    (the sharded engine's row-parallel sum).
     """
     seg = seg_ids.to(device=tokens.device, dtype=torch.int32)
     tiles = segment_tiles(segment_starts, tokens.shape[1], causal=True,
@@ -92,11 +94,12 @@ def prefill_forward_packed(cfg: T.ModelConfig, params: dict,
     return _prefill(cfg, params, tokens, positions,
                     lambda q, k, v: flash_attention(
                         q, k, v, causal=True, segment_ids=(seg, seg),
-                        segment_starts=tiles))
+                        segment_starts=tiles), add)
 
 
 def prefill_forward_jagged(cfg: T.ModelConfig, params: dict,
-                           tokens: torch.Tensor, seq_lengths):
+                           tokens: torch.Tensor, seq_lengths,
+                           add: Callable = _add):
     """A heterogeneous batch WITHOUT packing: tokens (B, L_pad) right-padded
     per request, seq_lengths (B,) runtime lengths.
 
@@ -105,13 +108,14 @@ def prefill_forward_jagged(cfg: T.ModelConfig, params: dict,
     one shape per (B, L_pad) bucket. Returns (logits (B, L_pad, V), ks, vs);
     rows past a request's length are not its tokens (their attention rows
     are empty rows, so they stay finite) and are sliced off by the caller.
+    `add` as in _prefill.
     """
     lens = torch.as_tensor(seq_lengths, device=tokens.device).to(torch.int32)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     return _prefill(cfg, params, tokens, positions,
                     lambda q, k, v: flash_attention_rowloop(
-                        q, k, v, causal=True, seq_lengths=lens)[0])
+                        q, k, v, causal=True, seq_lengths=lens)[0], add)
 
 
 def prefill_forward(cfg: T.ModelConfig, params: dict, tokens: torch.Tensor):

@@ -1,10 +1,15 @@
-"""Tile geometry of the port's Hopper kernels.
+"""Tile geometry of the port's Hopper kernels, and the choices made at run time.
 
-These values are the single source of the kernels' tile sizes: the build
+The tile sizes are the single source of the kernels' tiles: the build
 (`_build.py`) passes them to nvcc as -D defines, and each kernel refuses to
 compile without them. They are a first, simple choice for sm_90a, not a
 tuned table: a later change sets them from H100 measurements. The TPU
 package's `_DISPATCH` tables were tuned for v5e VMEM and do not carry over.
+
+What the flash kernels can vary at run time, with no new instance, is a
+`FlashConfig` (the port of JAX's, `tiny_flash_attention_tpu/ops/configs.py`):
+its defaults are today's choices (`default_config`), and
+`utils/autotune.py` measures the others.
 """
 
 from __future__ import annotations
@@ -40,23 +45,22 @@ FLASH_FWD_BF16_STAGES = 3   # ring stages
 FLASH_FWD_BF16_WIDE = TileConfig(block_m=128, block_n=64, threads=384)
 FLASH_FWD_BF16_WIDE_STAGES = 2
 # The bf16 forward and backward read any head_dim d that is a multiple of 8
-# at its true width (ops/dims.py::flash_head_dim). With
-# FLASH_NARROW_PRODUCTS (read at each call) a d in (64, 80] or (80, 96]
-# runs the instances of width 80 or 96 (csrc/hopper.cuh::flash_width), whose
-# products skip the zero columns of the 128-column tiles; without it, the
-# 128-wide instance, whose products run over those zeros (the bits are the
-# same: chip_smoke.py times both in one call, PERF.md).
-FLASH_NARROW_PRODUCTS = True
+# at its true width (ops/dims.py::flash_head_dim). With a FlashConfig's
+# `narrow_products` a d in (64, 80] or (80, 96] runs the instances of width
+# 80 or 96 (ops/dims.py::flash_width), whose products skip the zero columns
+# of the 128-column tiles; without it, the 128-wide instance, whose
+# products run over those zeros (the bits are the same: chip_smoke.py
+# times both in one call, PERF.md).
 # f32 forward on the CUDA cores (csrc/flash_fwd.cuh's f32 body): 256
 # threads over a 128 x 64 score tile, 8 x 4 scores and 8 x D/16 outputs a
 # thread; K and V stream through a two-stage cp.async ring. Where the q
 # tiles give fewer than FLASH_FWD_F32_SPLIT_BELOW blocks (two waves of the
 # H100's 132 SMs), each 128-row q tile's kv range is cut at the multiples
 # of S kv tiles into runs, one block per (run, q head, batch), merged in
-# run order by the last run of the tile to arrive: S is
-# FLASH_FWD_F32_SPLIT (read at each call), or the least S above it whose
-# runs of tiles that split need at most FLASH_FWD_F32_MAX_SLOTS partial
-# slots over the batch and heads (ops/flash.py::fwd_f32_split; the merge's
+# run order by the last run of the tile to arrive: S is a FlashConfig's
+# `f32_split`, or the least S above it whose runs of tiles that split need
+# at most FLASH_FWD_F32_MAX_SLOTS partial slots over the batch and heads
+# (ops/flash.py::fwd_f32_split; the two bounds read at each call; the merge's
 # workspace stays under 1056 x 128 x 130 x 4 bytes, 70 MB, at head_dim
 # 128). At the f32 train step's (1, 8, 1024) causal, 144 blocks at S 5 on
 # the 132 SMs, none longer than 5 kv tiles (chip_smoke.py's sweep,
@@ -76,11 +80,10 @@ FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
 # two-stage ring (q 64 KiB, K/V 128 KiB, P^T 8 KiB: 205,056 bytes); a thread
 # holds S at 4 rows x 2 columns and O at 4 rows x 16 columns (64 registers,
 # as the 128 instance's 8 x 8). Its runs start from as many kv columns as
-# FLASH_FWD_F32_SPLIT's (`fwd_f32_split`); a merge slot, 64 x 258 floats,
+# `f32_split`'s (`fwd_f32_split`); a merge slot, 64 x 258 floats,
 # is about the 128 instance's 128 x 130, so FLASH_FWD_F32_MAX_SLOTS keeps
 # the workspace under 70 MB at either width.
 FLASH_FWD_F32_WIDE = TileConfig(block_m=64, block_n=32, threads=256)
-FLASH_FWD_F32_SPLIT = 5
 FLASH_FWD_F32_SPLIT_BELOW = 264
 FLASH_FWD_F32_MAX_SLOTS = 1056
 # Shared memory one block may use on the H100 (227 KB).
@@ -385,3 +388,64 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_V1_F32_Q_TILES={FLASH_V1_F32_Q_TILES}",
         *_tile_defines("TFA_V1_F32_WIDE", FLASH_V1_F32_WIDE),
     ]
+
+
+# --- the run-time choices of the flash kernels -------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashConfig:
+    """What the flash kernels vary at run time (no new instance compiled):
+    the `config=` of every flash entry, its defaults today's choices.
+
+    narrow_products: bf16 over bf16 K/V at a head_dim in (64, 96] that is
+      a multiple of 8 runs the n80/n96 instance (True) or the 128-wide
+      one (False; the same bits, products over the zero columns).
+    f32_split: the f32 forward's least run, in kv tiles of FLASH_FWD_F32
+      (64 columns), where the q tiles give too few blocks
+      (ops/flash.py::fwd_f32_split).
+
+    JAX's fields map so: its `block_q` / `block_kv` / `kv_splits` tile the
+    TPU's VMEM and cut the kv walk; the port's kv walk is cut by
+    `f32_split` (f32), its tiles are fixed at build time (-D flags above).
+    Its `kernel` / `tri_sub` / `tri_leaf` pick among the TPU's three
+    forward kernels, which one Hopper kernel ports; `stats_streams`,
+    `use_dimension_semantics` and `interpret` have no counterpart on this
+    card. `narrow_products` is the port's own. On the CPU a config changes
+    nothing: it schedules the kernels only, and the plain versions compute
+    the same function whatever it says."""
+    narrow_products: bool = True
+    f32_split: int = 5
+
+
+def default_config(dtype=None, head_dim: int = 0, q_len: int = 0,
+                   kv_len: int = 0, causal: bool = True) -> FlashConfig:
+    """Today's choices, FlashConfig(): a call without `config` runs them.
+    The arguments are JAX's signature; no choice depends on them here, the
+    f32 runs' rule taking the launch's shape itself (`fwd_f32_split`)."""
+    del dtype, head_dim, q_len, kv_len, causal
+    return FlashConfig()
+
+
+def check_config(config) -> FlashConfig:
+    """`config` if the kernels can run it; raises ValueError before any
+    launch otherwise: not a FlashConfig (a JAX one names TPU tiles), a
+    `narrow_products` that is not a bool, or an `f32_split` below one
+    tile."""
+    if not isinstance(config, FlashConfig):
+        raise ValueError(f"config must be the port's FlashConfig, got "
+                         f"{type(config).__name__}")
+    if not isinstance(config.narrow_products, bool):
+        raise ValueError(f"narrow_products must be a bool, got "
+                         f"{config.narrow_products!r}")
+    x = config.f32_split
+    if not isinstance(x, int) or isinstance(x, bool) or x < 1:
+        raise ValueError(f"f32_split must be an int >= 1, got {x!r}")
+    return config
+
+
+def resolve_config(config=None) -> FlashConfig:
+    """The config a public entry runs: FlashConfig() for None, else the
+    caller's, checked (`check_config`). Internal functions take the
+    result."""
+    return FlashConfig() if config is None else check_config(config)

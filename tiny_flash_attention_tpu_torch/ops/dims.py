@@ -78,6 +78,20 @@ def reads_in_place(d: int) -> bool:
     return 0 < d <= WIDE_HEAD_DIM and d % 8 == 0
 
 
+def flash_width(d: int, narrow: bool) -> int:
+    """The instance the bf16 forward and backward run for a head_dim d
+    read in place, as csrc/hopper.cuh::flash_width picks it: 64 up to 64;
+    with `narrow` (a FlashConfig's `narrow_products`) 80 or 96 up to them;
+    128 up to 128; 256 above; 0 where d is not read in place."""
+    if not reads_in_place(d):
+        return 0
+    if d <= 64:
+        return 64
+    if narrow and d <= 96:
+        return 80 if d <= 80 else 96
+    return 128 if d <= 128 else 256
+
+
 def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
                    quantized: bool = False) -> int:
     """The head_dim a flash forward or backward kernel is handed for

@@ -56,7 +56,7 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, FLASH_FWD_F32_WIDE,
-    TileConfig, fwd_smem_bytes)
+    FlashConfig, TileConfig, fwd_smem_bytes, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
     FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, pad_head_dim,
     unpad_head_dim)
@@ -220,20 +220,20 @@ def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
 
 
 def fwd_f32_split(q_len: int, kv_len: int, *, causal: bool,
-                  n_bh: int, cfg: TileConfig = FLASH_FWD_F32) -> int:
+                  n_bh: int, config: FlashConfig,
+                  cfg: TileConfig = FLASH_FWD_F32) -> int:
     """The f32 forward's run length in `cfg`'s kv tiles for a launch of
     n_bh = batch x q heads, from the shape alone (so `segment_starts` and
     the window change no cut): every kv tile, one run a q tile, where the q
     tiles give at least ops/configs.py::FLASH_FWD_F32_SPLIT_BELOW blocks;
-    else the least S from the columns of FLASH_FWD_F32_SPLIT tiles of
-    FLASH_FWD_F32 up (both read at each call) whose runs of the q tiles
-    that split take at most FLASH_FWD_F32_MAX_SLOTS partial slots over the
-    n_bh rows (counted on the unpruned causal ranges, which a window or
-    segment_starts only shorten)."""
+    else the least S from the columns of `config.f32_split` tiles of
+    FLASH_FWD_F32 up whose runs of the q tiles that split take at most
+    FLASH_FWD_F32_MAX_SLOTS partial slots over the n_bh rows (counted on
+    the unpruned causal ranges, which a window or segment_starts only
+    shorten; both bounds read at each call)."""
     lo, hi = fwd_f32_tiles(q_len, kv_len, causal=causal, cfg=cfg)[:2]
     n_kv = -(-kv_len // cfg.block_n)
-    first = (configs.FLASH_FWD_F32_SPLIT * FLASH_FWD_F32.block_n
-             // cfg.block_n)
+    first = config.f32_split * FLASH_FWD_F32.block_n // cfg.block_n
     if lo.size * n_bh >= configs.FLASH_FWD_F32_SPLIT_BELOW or first >= n_kv:
         return max(first, n_kv)   # one run a q tile
     s = np.arange(first, n_kv + 1)[:, None]
@@ -245,13 +245,14 @@ def fwd_f32_split(q_len: int, kv_len: int, *, causal: bool,
 def fwd_f32_work(q_len: int, kv_len: int, *, causal: bool,
                  window: Optional[int] = None, starts=None,
                  split: Optional[int] = None, n_bh: int = 1,
-                 cfg: TileConfig = FLASH_FWD_F32):
+                 cfg: TileConfig = FLASH_FWD_F32,
+                 config: FlashConfig = FlashConfig()):
     """The f32 forward's work list at `cfg`'s tiles: `run_work` of
     `fwd_f32_tiles` at runs of `split` kv tiles (default `fwd_f32_split`
-    for n_bh = batch x q heads)."""
+    for n_bh = batch x q heads under `config`)."""
     if split is None:
         split = fwd_f32_split(q_len, kv_len, causal=causal, n_bh=n_bh,
-                              cfg=cfg)
+                              config=config, cfg=cfg)
     return run_work(fwd_f32_tiles(q_len, kv_len, causal=causal,
                                   window=window, starts=starts, cfg=cfg),
                     split)
@@ -271,7 +272,9 @@ def fwd_f32_slots(flat, m: int):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     segment_ids=None, window: Optional[int] = None,
-                    segment_starts=None, return_lse: bool = False):
+                    segment_starts=None,
+                    config: Optional[FlashConfig] = None,
+                    return_lse: bool = False):
     """Flash-attention-2 forward.
 
     Args:
@@ -287,6 +290,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         `SegmentTiles` built from them once for many calls; on CUDA they
         prune each q tile's kv range to its segment (JAX prunes its work
         list), on the CPU they change nothing (the ids carry the mask)
+      config: the kernels' run-time choices (ops/configs.py::FlashConfig,
+        default FlashConfig()), checked before any launch; the backward
+        takes the same. On the CPU it changes nothing.
       return_lse: also return the natural-log LSE (batch, q_heads, q_len) f32
 
     Returns out (like q), and lse if asked. fp16 computes in f32, as in
@@ -301,11 +307,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = check_masks(hq, hkv, q_len, kv_len, causal=causal,
                          window=window, segment_ids=segment_ids,
                          segment_starts=segment_starts)
+    config = resolve_config(config)
     if q.dtype == torch.float16:
         out = flash_attention(
             q.float(), k.float(), v.float(), causal=causal,
             sm_scale=sm_scale, segment_ids=segment_ids, window=window,
-            segment_starts=segment_starts, return_lse=return_lse)
+            segment_starts=segment_starts, config=config,
+            return_lse=return_lse)
         if return_lse:
             return out[0].to(torch.float16), out[1]
         return out.to(torch.float16)
@@ -325,8 +333,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return forward_only(
             "flash_attention(return_lse=True)",
             lambda: _flash_fwd_cuda(q, k, v, causal=causal,
-                                    sm_scale=sm_scale, **masks), q, k, v)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, masks)
+                                    sm_scale=sm_scale, config=config,
+                                    **masks), q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, masks, config)
 
 
 def check_masks(hq: int, hkv: int, q_len: int, kv_len: int, *,
@@ -373,13 +382,14 @@ flash_attention.window_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """out = attention(q, k, v), saving (q, k, v, out, lse) and the masks
-    (window, ids, the static segment starts) for a backward that
-    recomputes p tile by tile. The forward is the kernel on CUDA and the
-    plain version on the CPU; so is the backward."""
+    """out = attention(q, k, v), saving (q, k, v, out, lse), the masks
+    (window, ids, the static segment starts) and the config for a backward
+    that recomputes p tile by tile. The forward is the kernel on CUDA and
+    the plain version on the CPU; so is the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float, masks: dict):
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, masks: dict,
+                config: FlashConfig):
         ctx.d = q.shape[-1]
         if q.is_cuda:
             # pad once where the kernels do not read the head_dim in place;
@@ -393,14 +403,15 @@ class _FlashAttention(torch.autograd.Function):
             segment_ids = (masks["q_seg"], masks["kv_seg"])
         if q.is_cuda:
             out, lse = _flash_fwd_cuda(q, k, v, causal=causal,
-                                       sm_scale=sm_scale, **masks)
+                                       sm_scale=sm_scale, config=config,
+                                       **masks)
         else:
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              sm_scale=sm_scale,
                                              segment_ids=segment_ids,
                                              window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.config = causal, sm_scale, config
         ctx.window, ctx.segment_ids = window, segment_ids
         tiles = masks.get("tiles")
         ctx.segment_starts = None if tiles is None else tiles.starts
@@ -416,9 +427,9 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, pad_head_dim(do, q.shape[-1]),
             causal=ctx.causal, sm_scale=ctx.sm_scale,
             segment_ids=ctx.segment_ids, window=ctx.window,
-            segment_starts=ctx.segment_starts)
+            segment_starts=ctx.segment_starts, config=ctx.config)
         return (*(unpad_head_dim(g, ctx.d) for g in (dq, dk, dv)), None,
-                None, None)
+                None, None, None)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
@@ -460,7 +471,8 @@ def flash_attention_plain(q, k, v, *, causal: bool, sm_scale: float,
 
 def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
                           segment_ids=None, window: Optional[int] = None,
-                          segment_starts=None):
+                          segment_starts=None,
+                          config: FlashConfig = FlashConfig()):
     """The f32 kernel's run layout and merge order in plain PyTorch: each
     run of `fwd_f32_work` (the tiles of the instance at q's head_dim,
     `fwd_config`; `segment_starts` pruning the ranges) computes its
@@ -471,7 +483,8 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
     o = sum w o_x / sum w l_x, w = 2^(m_x - max m), LSE = max m ln 2 +
     log(sum w l_x), an empty row 0 with the sentinel. Returns (out, lse)
     in f32. A pair outside every run would be lost and one in two counted
-    twice, so this holds the work list to the plain forward."""
+    twice, so this holds the work list (under `config`'s runs) to the
+    plain forward."""
     bs, hq, q_len, d = q.shape
     hkv, kv_len = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -489,7 +502,8 @@ def f32_split_merge_plain(q, k, v, *, causal: bool, sm_scale: float,
     if isinstance(starts, SegmentTiles):
         starts = starts.starts
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts, n_bh=bs * hq, cfg=cfg)
+                           starts=starts, n_bh=bs * hq, cfg=cfg,
+                           config=config)
     _, ilo, ihi, _ = flat[:4 * m].reshape(4, m)
     first = flat[4 * m:]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -627,13 +641,14 @@ def _flash_fwd_quant_fn():
 
 @functools.lru_cache(maxsize=64)
 def _device_fwd_work(q_len, kv_len, causal, window, starts, n_bh, cfg,
-                     settings, device):
+                     config, bounds, device):
     """The f32 forward's work list at `cfg`'s tiles for n_bh = batch x q
-    heads on the device, each item's merge slot appended (`fwd_f32_slots`):
-    (list, its items, its slots). `settings`, the split settings of
-    ops/configs.py read by the caller, keys the cache."""
+    heads under `config`'s runs on the device, each item's merge slot
+    appended (`fwd_f32_slots`): (list, its items, its slots). `bounds`,
+    ops/configs.py's FLASH_FWD_F32_SPLIT_BELOW and _MAX_SLOTS read by the
+    caller, keys the cache."""
     flat, m = fwd_f32_work(q_len, kv_len, causal=causal, window=window,
-                           starts=starts, n_bh=n_bh, cfg=cfg)
+                           starts=starts, n_bh=n_bh, cfg=cfg, config=config)
     slots, n_slots = fwd_f32_slots(flat, m)
     return (torch.as_tensor(np.concatenate([flat, slots]), device=device),
             m, n_slots)
@@ -667,10 +682,12 @@ def fwd_workspace(device, stream: int, n_slots: int, n_bh: int,
     return ws
 
 
-def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
+def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float,
+                    config: FlashConfig, **masks):
     """Launches csrc/flash_fwd.cu for `flash_attention`; returns (out,
     lse)."""
-    out = launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale, **masks)
+    out = launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                     config=config, **masks)
     flash_attention.launches += 1
     if masks.get("window") is not None:
         flash_attention.window_launches += 1
@@ -680,9 +697,11 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float, **masks):
 def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
                kv_seg=None, tiles: Optional[SegmentTiles] = None,
                seq_lengths=None, window: Optional[int] = None,
-               k_scales=None, v_scales=None):
+               k_scales=None, v_scales=None, config: FlashConfig):
     """One launch of csrc/flash_fwd.cu, counted by the caller; returns (out,
-    lse). q_seg/kv_seg, tiles and seq_lengths (int32 on q's device) turn on
+    lse). `config`, checked by the entry, picks the narrow bf16 instances
+    and the f32 instance's kv runs. q_seg/kv_seg, tiles and seq_lengths
+    (int32 on q's device) turn on
     the kernel's segment mask, its pruned kv ranges and its jagged mode;
     window (causal, no seq_lengths) its sliding window. With k_scales and
     v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
@@ -731,7 +750,7 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             *(pad_head_dim(t, dk) for t in (q, k, v)), causal=causal,
             sm_scale=sm_scale, q_seg=q_seg, kv_seg=kv_seg, tiles=tiles,
             seq_lengths=seq_lengths, window=window, k_scales=k_scales,
-            v_scales=v_scales)
+            v_scales=v_scales, config=config)
         return unpad_head_dim(out, d), lse
     cfg = fwd_config(q.dtype, quantized, d)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -749,8 +768,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
         work, n_items, n_slots = _device_fwd_work(
             q_len, kv_len, bool(causal), window,
             None if tiles is None else tiles.starts, bs * hq, cfg,
-            (configs.FLASH_FWD_F32_SPLIT, configs.FLASH_FWD_F32_SPLIT_BELOW,
-             configs.FLASH_FWD_F32_MAX_SLOTS), str(q.device))
+            config, (configs.FLASH_FWD_F32_SPLIT_BELOW,
+                     configs.FLASH_FWD_F32_MAX_SLOTS), str(q.device))
         tiles = None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(),
@@ -778,6 +797,6 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
             err = _flash_fwd_fn()(
                 *ptrs, None if seq_lengths is None else seq_lengths.data_ptr(),
                 *runs, *dims, scale_log2, _KERNEL_DTYPES[q.dtype],
-                int(configs.FLASH_NARROW_PRODUCTS), stream)
+                int(config.narrow_products), stream)
     _build.check(err, "flash_fwd_quant" if quantized else "flash_fwd")
     return out, lse

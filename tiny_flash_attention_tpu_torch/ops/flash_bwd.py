@@ -59,10 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from tiny_flash_attention_tpu_torch import _build
-from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    bwd_config, bwd_f32_config, bwd_f32_smem_bytes, bwd_f32_split,
-    bwd_smem_bytes)
+    FlashConfig, bwd_config, bwd_f32_config, bwd_f32_smem_bytes,
+    bwd_f32_split, bwd_smem_bytes, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
     FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, kernel_head_dim,
     pad_head_dim, unpad_head_dim)
@@ -76,7 +75,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool,
                         sm_scale: Optional[float] = None, segment_ids=None,
-                        window: Optional[int] = None, segment_starts=None):
+                        window: Optional[int] = None, segment_starts=None,
+                        config: Optional[FlashConfig] = None):
     """Gradients of flash attention: returns (dq, dk, dv).
 
     Args:
@@ -92,6 +92,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       segment_starts: static segment offsets of a packed row (q_len ==
         kv_len, with segment_ids): on CUDA they prune the tiles; no result
         changes
+      config: the forward's (ops/configs.py::FlashConfig, default
+        FlashConfig()): its narrow bf16 instances; checked before any
+        launch, nothing on the CPU
 
     dq is like q; dk and dv are like k, summed over each kv head's group of
     q heads. `do` is cast to q's dtype, as the JAX tri kernels do.
@@ -112,11 +115,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "kv_len")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    config = resolve_config(config)
     do = do.to(q.dtype)
     if q.is_cuda:
         return _flash_bwd_cuda(q, k, v, out, lse, do, causal=causal,
                                sm_scale=sm_scale, segment_ids=segment_ids,
-                               window=window, segment_starts=segment_starts)
+                               window=window, segment_starts=segment_starts,
+                               config=config)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
@@ -456,7 +461,8 @@ class BwdLaunch:
 
     def __init__(self, q, k, v, out, lse, do, *, causal: bool,
                  sm_scale: float, segment_ids=None,
-                 window: Optional[int] = None, segment_starts=None):
+                 window: Optional[int] = None, segment_starts=None,
+                 config: FlashConfig):
         _check_inputs(q, k, v, out, lse, do)
         bs, hq, q_len, d = q.shape
         _, hkv, kv_len, _ = k.shape
@@ -529,7 +535,7 @@ class BwdLaunch:
             *(g.data_ptr() for g in self.grads),
             bs, hq, hkv, q_len, kv_len, d, int(causal), window or 0,
             *items, in_dtype(sm_scale * LOG2E, q.dtype), sm_scale,
-            _KERNEL_DTYPES[q.dtype], int(configs.FLASH_NARROW_PRODUCTS))
+            _KERNEL_DTYPES[q.dtype], int(config.narrow_products))
         self.device = q.device
 
     def run(self, stages: int = 7) -> None:

@@ -40,6 +40,8 @@ from typing import Optional
 import torch
 
 from tiny_flash_attention_tpu_torch.ops import flash as F
+from tiny_flash_attention_tpu_torch.ops.configs import (
+    FlashConfig, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
@@ -104,7 +106,9 @@ def flash_attention_quantized(q: torch.Tensor, k: QuantizedTensor,
                               v: QuantizedTensor, *, causal: bool = False,
                               sm_scale: Optional[float] = None,
                               segment_ids=None, window: Optional[int] = None,
-                              segment_starts=None, return_lse: bool = False):
+                              segment_starts=None,
+                              config: Optional[FlashConfig] = None,
+                              return_lse: bool = False):
     """Flash attention with an int8 / fp8-e4m3 KV cache.
 
     Args:
@@ -115,6 +119,8 @@ def flash_attention_quantized(q: torch.Tensor, k: QuantizedTensor,
       causal, sm_scale, segment_ids, window, segment_starts: as in
         `ops/flash.py::flash_attention` (segment_starts may be the
         `SegmentTiles` built once by `segment_tiles`)
+      config: as in `flash_attention` (f32 q: its kv runs); checked before
+        any launch, nothing on the CPU
       return_lse: also return the natural-log LSE (batch, q_heads, q_len)
 
     Returns out (like q), and lse if asked. Forward only, as in JAX: on
@@ -137,11 +143,13 @@ def flash_attention_quantized(q: torch.Tensor, k: QuantizedTensor,
     window = F.check_masks(hq, hkv, q_len, kv_len, causal=causal,
                            window=window, segment_ids=segment_ids,
                            segment_starts=segment_starts)
+    config = resolve_config(config)
     if q.dtype == torch.float16:
         out = flash_attention_quantized(
             q.float(), k, v, causal=causal, sm_scale=sm_scale,
             segment_ids=segment_ids, window=window,
-            segment_starts=segment_starts, return_lse=return_lse)
+            segment_starts=segment_starts, config=config,
+            return_lse=return_lse)
         if return_lse:
             return out[0].to(torch.float16), out[1]
         return out.to(torch.float16)
@@ -161,7 +169,7 @@ def flash_attention_quantized(q: torch.Tensor, k: QuantizedTensor,
     def launch():
         out = F.launch_fwd(q, k.values, v.values, causal=causal,
                            sm_scale=sm_scale, k_scales=k.scales,
-                           v_scales=v.scales, **masks)
+                           v_scales=v.scales, config=config, **masks)
         flash_attention_quantized.launches += 1
         if k.values.dtype == torch.int8:
             flash_attention_quantized.int8_launches += 1

@@ -10,9 +10,11 @@ launched and counted here as a kernel of its own.
 
 On CUDA the kernel runs, its sliding window included (without
 `seq_lengths`: JAX's jagged mode takes no window either). On the CPU the
-plain version, `flash_attention_rowloop_plain`, runs. The TPU tuning
-arguments (`config`, `chunk`, `unroll`, `single_loop`, `interpret`) have no
-meaning on Hopper and are not taken.
+plain version, `flash_attention_rowloop_plain`, runs. `config` is the
+port's FlashConfig (ops/configs.py), as every flash entry's: the launch's
+narrow instances and f32 runs. The TPU tuning arguments (`chunk`,
+`unroll`, `single_loop`, `interpret`) have no meaning on Hopper and are not
+taken.
 
 One divergence from JAX: rows at or past `seq_lengths[b]`, which the TPU
 kernel leaves as garbage for the caller to slice off, are empty rows here
@@ -29,19 +31,23 @@ from typing import Optional
 import torch
 
 from tiny_flash_attention_tpu_torch.ops import flash as F
+from tiny_flash_attention_tpu_torch.ops.configs import (
+    FlashConfig, resolve_config)
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
 
 def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = False,
                             sm_scale: Optional[float] = None,
-                            window: Optional[int] = None, seq_lengths=None):
+                            window: Optional[int] = None, seq_lengths=None,
+                            config: Optional[FlashConfig] = None):
     """Row-loop forward; returns (out, lse). The semantics of
     `ops/flash.flash_attention` minus segment ids: GQA, causal with the
     decode offset, non-causal, and with `seq_lengths` (batch,) int32 runtime
     lengths the jagged mode (causal, q_len == kv_len, no window): row b
     attends its first seq_lengths[b] tokens, and its rows past that length
-    are empty (out 0, the LSE sentinel).
+    are empty (out 0, the LSE sentinel). `config` as in `flash_attention`:
+    checked before any launch, nothing on the CPU.
     """
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, dk = k.shape
@@ -57,6 +63,7 @@ def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
                                         and window is None):
         raise ValueError("seq_lengths = jagged causal prefill (q_len == "
                          "kv_len, no window)")
+    config = resolve_config(config)
     if q.is_cuda:
         lens = None
         if seq_lengths is not None:
@@ -64,7 +71,8 @@ def flash_attention_rowloop(q: torch.Tensor, k: torch.Tensor,
 
         def launch():
             out = F.launch_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                               seq_lengths=lens, window=window)
+                               seq_lengths=lens, window=window,
+                               config=config)
             flash_attention_rowloop.launches += 1
             return out
         return forward_only("flash_attention_rowloop", launch, q, k, v)

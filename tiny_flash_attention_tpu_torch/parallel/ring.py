@@ -22,8 +22,8 @@ forward kernel (csrc/flash_fwd.cu) on the card and its plain version on the
 CPU. The ring and the zigzag ring ask for the LSE, which is forward-only on
 the card as in JAX (`return_lse=True` has no VJP there): a backward through
 them raises on CUDA; on the CPU it runs through the plain version and the
-rotations' transposes. JAX's `config` argument has no counterpart: the
-port's flash entry takes no tile config yet.
+rotations' transposes. Each entry takes JAX's `config`, the port's
+FlashConfig (ops/configs.py), and threads it into every local flash call.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.parallel import comm
 from tiny_flash_attention_tpu_torch.parallel.sharded import shard_map
@@ -69,7 +70,8 @@ class _KeepRotations(torch.autograd.Function):
 
 
 def make_ring_attention(mesh, *, axis_name: str = "ctx", causal: bool = True,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None,
+                        config: Optional[FlashConfig] = None):
     """Returns ring(q, k, v): all inputs are LOCAL sequence shards
     (b, h, s_local, d) of this rank; the output is this rank's shard of the
     exact global attention.
@@ -94,10 +96,12 @@ def make_ring_attention(mesh, *, axis_name: str = "ctx", causal: bool = True,
             src = (idx - step) % n  # ring shard this kb/vb originated from
             if not causal or src < idx:
                 part = flash_attention(q, kb, vb, causal=False,
-                                       sm_scale=sm_scale, return_lse=True)
+                                       sm_scale=sm_scale, config=config,
+                                       return_lse=True)
             elif src == idx:
                 part = flash_attention(q, kb, vb, causal=True,
-                                       sm_scale=sm_scale, return_lse=True)
+                                       sm_scale=sm_scale, config=config,
+                                       return_lse=True)
             else:
                 part = None  # a later block: skipped, merging it adds 0
             if part is not None:
@@ -113,11 +117,12 @@ def make_ring_attention(mesh, *, axis_name: str = "ctx", causal: bool = True,
 
 def ring_attention_sharded(mesh, *, causal: bool = True,
                            sm_scale: Optional[float] = None,
-                           data_axis: str = "data", ctx_axis: str = "model"):
+                           data_axis: str = "data", ctx_axis: str = "model",
+                           config: Optional[FlashConfig] = None):
     """q/k/v (b, h, S, d), the global tensors on every rank; the batch cut
     over data_axis and S over ctx_axis; returns the global output."""
     ring = make_ring_attention(mesh, axis_name=ctx_axis, causal=causal,
-                               sm_scale=sm_scale)
+                               sm_scale=sm_scale, config=config)
     return shard_map(ring, mesh, (data_axis, None, ctx_axis, None))
 
 
@@ -159,7 +164,8 @@ def zigzag_unpermute(x: torch.Tensor, n: int, axis: int = 2) -> torch.Tensor:
 
 
 def make_zigzag_ring_attention(mesh, *, axis_name: str = "ctx",
-                               sm_scale: Optional[float] = None):
+                               sm_scale: Optional[float] = None,
+                               config: Optional[FlashConfig] = None):
     """Returns ring(q, k, v) over ZIGZAG-placed shards: local tensors are
     (b, h, 2L, d) = stripes (idx, 2n-1-idx) concatenated (zigzag_permute).
     The output is this rank's shard of exact global causal attention, in
@@ -168,7 +174,8 @@ def make_zigzag_ring_attention(mesh, *, axis_name: str = "ctx",
 
     def ring(q, k, v):
         if n == 1:
-            return flash_attention(q, k, v, causal=True, sm_scale=sm_scale)
+            return flash_attention(q, k, v, causal=True, sm_scale=sm_scale,
+                                   config=config)
         group = mesh.get_group(axis_name)
         idx = mesh.get_local_rank(axis_name)
         L = q.shape[2] // 2
@@ -176,7 +183,8 @@ def make_zigzag_ring_attention(mesh, *, axis_name: str = "ctx",
 
         def flash(qq, kk, vv, causal):
             return flash_attention(qq, kk, vv, causal=causal,
-                                   sm_scale=sm_scale, return_lse=True)
+                                   sm_scale=sm_scale, config=config,
+                                   return_lse=True)
 
         def before(kb, vb):       # src < idx: (a|c) + (b|c) full
             return flash(q, kb[:, :, :L], vb[:, :, :L], causal=False)
@@ -210,18 +218,20 @@ def make_zigzag_ring_attention(mesh, *, axis_name: str = "ctx",
 
 def zigzag_ring_attention_sharded(mesh, *, sm_scale: Optional[float] = None,
                                   data_axis: str = "data",
-                                  ctx_axis: str = "model"):
+                                  ctx_axis: str = "model",
+                                  config: Optional[FlashConfig] = None):
     """Balanced causal CP: q/k/v (b, h, S, d) ALREADY in zigzag order
     (zigzag_permute), the global tensors on every rank, S cut over
     ctx_axis; returns the global output in zigzag order."""
     ring = make_zigzag_ring_attention(mesh, axis_name=ctx_axis,
-                                      sm_scale=sm_scale)
+                                      sm_scale=sm_scale, config=config)
     return shard_map(ring, mesh, (data_axis, None, ctx_axis, None))
 
 
 def make_ulysses_attention(mesh, *, axis_name: str = "ctx",
                            causal: bool = True,
-                           sm_scale: Optional[float] = None):
+                           sm_scale: Optional[float] = None,
+                           config: Optional[FlashConfig] = None):
     """Returns ulysses(q, k, v): inputs are local sequence shards
     (b, h, s_local, d) whose q and kv heads both divide by the axis size
     (else the all-to-all raises); all-to-alls to (b, h/n, S, d), runs exact
@@ -236,7 +246,7 @@ def make_ulysses_attention(mesh, *, axis_name: str = "ctx",
 
         oh = flash_attention(scatter_heads(q), scatter_heads(k),
                              scatter_heads(v), causal=causal,
-                             sm_scale=sm_scale)
+                             sm_scale=sm_scale, config=config)
         return comm.all_to_all(oh, group, split_axis=2, concat_axis=1)
 
     return ulysses
@@ -245,21 +255,23 @@ def make_ulysses_attention(mesh, *, axis_name: str = "ctx",
 def ulysses_attention_sharded(mesh, *, causal: bool = True,
                               sm_scale: Optional[float] = None,
                               data_axis: str = "data",
-                              ctx_axis: str = "model"):
+                              ctx_axis: str = "model",
+                              config: Optional[FlashConfig] = None):
     """q/k/v (b, h, S, d), the global tensors on every rank, S cut over
     ctx_axis, heads divisible by its size; returns the global output."""
     ulysses = make_ulysses_attention(mesh, axis_name=ctx_axis, causal=causal,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, config=config)
     return shard_map(ulysses, mesh, (data_axis, None, ctx_axis, None))
 
 
 def make_allgather_attention(mesh, *, axis_name: str = "ctx",
-                             sm_scale: Optional[float] = None):
+                             sm_scale: Optional[float] = None,
+                             config: Optional[FlashConfig] = None):
     """Non-causal all-gather context parallelism: gather K/V, local flash."""
     def ag(q, k, v):
         group = mesh.get_group(axis_name)
         return flash_attention(q, comm.all_gather(k, group, 2),
                                comm.all_gather(v, group, 2), causal=False,
-                               sm_scale=sm_scale)
+                               sm_scale=sm_scale, config=config)
 
     return ag

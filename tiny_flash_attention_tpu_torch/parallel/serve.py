@@ -39,7 +39,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from tiny_flash_attention_tpu_torch.models import transformer as T
 from tiny_flash_attention_tpu_torch.models.engine import InferenceEngine
 from tiny_flash_attention_tpu_torch.models.inference import (
-    _decode_core, _prefill, sample_tokens_rowwise)
+    _decode_core, _prefill, prefill_forward_jagged, prefill_forward_packed,
+    sample_tokens_rowwise)
 from tiny_flash_attention_tpu_torch.models.kv_cache import (
     PagedKVCache, local_page_ids)
 from tiny_flash_attention_tpu_torch.parallel import comm
@@ -141,14 +142,15 @@ class ShardedInferenceEngine(InferenceEngine):
     params: the FULL params, the same on every rank; the engine keeps this
     rank's shard_params. Admission, the allocator, bucketing and EOS are
     InferenceEngine's, run alike on every rank. Prefill is tensor
-    parallel (spmd_forward's rounding points, B1 on the local heads):
-    every rank prefills every admitted prompt, so the first tokens agree
-    with no gather, and writes its kv heads into the pages of its own data
-    group only. Decode chunks run make_sharded_decode_loop. With dp > 1
-    the cache gets n_groups = dp and each group's first page is its
-    scratch page, never allocated. Batched admission only: packed and
-    jagged admission raise NotImplementedError; quantized weights raise
-    ValueError.
+    parallel (spmd_forward's rounding points, B1 on the local heads) in
+    every admission mode: batched, packed (B1 with segment ids and the
+    pack's `segment_tiles`) and jagged (B11's runtime lengths). Every rank
+    prefills every admitted prompt, so the first tokens agree with no
+    gather, and writes its kv heads into the pages of its own data group
+    only. Decode chunks run make_sharded_decode_loop. With dp > 1 the
+    cache gets n_groups = dp and each group's first page is its scratch
+    page, never allocated. Quantized weights raise ValueError, as JAX's
+    param_specs does.
     """
 
     def __init__(self, cfg: T.ModelConfig, params: dict, mesh: DeviceMesh, *,
@@ -175,6 +177,10 @@ class ShardedInferenceEngine(InferenceEngine):
             dtype=self.cfg.dtype, device=self.device, n_groups=dp,
             held_group=self.place.group if dp > 1 else None, **geometry)
 
+    def _row_add(self):
+        return functools.partial(row_parallel_add,
+                                 group=self.place.model_group)
+
     def _prefill(self, toks: torch.Tensor):
         positions = torch.arange(toks.shape[1], dtype=torch.int32,
                                  device=toks.device)
@@ -182,8 +188,17 @@ class ShardedInferenceEngine(InferenceEngine):
         return _prefill(cfg, self.params, toks, positions,
                         lambda q, k, v: T._attention(cfg, q, k, v,
                                                      causal=True),
-                        functools.partial(row_parallel_add,
-                                          group=self.place.model_group))
+                        self._row_add())
+
+    def _prefill_packed(self, toks, segs, positions, offsets):
+        return prefill_forward_packed(self.cfg_local, self.params, toks,
+                                      segs, positions,
+                                      segment_starts=offsets,
+                                      add=self._row_add())
+
+    def _prefill_jagged(self, toks, lengths):
+        return prefill_forward_jagged(self.cfg_local, self.params, toks,
+                                      lengths, add=self._row_add())
 
     def _loop(self, n: int, width: int, greedy: bool):
         key = (n, width, greedy)
@@ -209,11 +224,3 @@ class ShardedInferenceEngine(InferenceEngine):
     def _decode_one(self, positions, page_table) -> torch.Tensor:
         # the single-card step draws its uniforms whatever the temperatures
         return self._run(positions, page_table, 1, False)[0]
-
-    def add_requests_packed(self, reqs, pack_bucket: str = "page"):
-        raise NotImplementedError("add_requests_packed on the sharded "
-                                  "engine is not ported; use add_requests")
-
-    def add_requests_jagged(self, reqs):
-        raise NotImplementedError("add_requests_jagged on the sharded "
-                                  "engine is not ported; use add_requests")

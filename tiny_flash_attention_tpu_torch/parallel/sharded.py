@@ -11,8 +11,9 @@ attention lives in parallel/ring.py.
 The functions that stand for `jax.jit(shard_map(f, in_specs, out_specs))`
 take the global tensors on every rank, cut this rank's block by its mesh
 coordinates (in_specs), run f on it and gather the blocks back (out_specs),
-so every rank returns the same global tensor. JAX's `config` argument has
-no counterpart: the port's flash entry takes no tile config yet.
+so every rank returns the same global tensor. `config` is JAX's
+argument: the port's FlashConfig (ops/configs.py), passed to every local
+flash call.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from tiny_flash_attention_tpu_torch.ops.configs import FlashConfig
 from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
 from tiny_flash_attention_tpu_torch.parallel import comm
 from tiny_flash_attention_tpu_torch.utils.device import resolve_device
@@ -87,7 +89,9 @@ def shard_map(local_fn, mesh: DeviceMesh, spec: tuple):
 
 
 def sharded_flash_attention(mesh: DeviceMesh, *, causal: bool = False,
-                            sm_scale=None, data_axis: str = "data",
+                            sm_scale=None,
+                            config: Optional[FlashConfig] = None,
+                            data_axis: str = "data",
                             model_axis: str = "model"):
     """Head-parallel + data-parallel flash attention.
 
@@ -98,6 +102,7 @@ def sharded_flash_attention(mesh: DeviceMesh, *, causal: bool = False,
     (b, h, S, d) tensors on every rank.
     """
     def attn(q, k, v):
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               config=config)
 
     return shard_map(attn, mesh, (data_axis, model_axis, None, None))

@@ -1,5 +1,9 @@
 """CUDA-event timing of the card's work: warm up, then the median of N calls.
 
+`run_benchmark` is the JAX package's entry (tiny_flash_attention_tpu/utils/
+benchmarking.py) over `cuda_time_ms` on the card and the host clock on the
+CPU; `attention_flops` its FLOP count.
+
 Before each timed call the L2 cache is flushed by writing a buffer twice its
 size, so a kernel whose inputs would fit in L2 (the H100 has 50 MB) is
 timed reading device memory, as the engine's caller finds them. Then a spin
@@ -73,4 +77,56 @@ def cuda_time_ms(fn: Callable[[], object], *, iters: int = 10) -> dict:
                                "its device time cannot be separated from "
                                "the host's")
     return {"median_ms": statistics.median(times), "min_ms": min(times),
-            "max_ms": max(times), "iters": iters}
+            "max_ms": max(times), "iters": iters, "times": times}
+
+
+def tensor_device(args, kwargs):
+    """The device of the first tensor among the arguments (a
+    QuantizedTensor's values included), or None."""
+    for x in (*args, *kwargs.values()):
+        if not isinstance(x, torch.Tensor):
+            x = getattr(x, "values", None)
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return None
+
+
+def run_benchmark(fn: Callable, *args, warmup: int = 5, rounds: int = 3,
+                  **kwargs) -> dict:
+    """Times fn(*args, **kwargs): `warmup` calls, then `rounds` timed ones.
+    On CUDA tensors each round is the device time of one call by
+    `cuda_time_ms` (CUDA events, the L2 flushed, a spin queued ahead); on
+    CPU tensors the host clock around the call. Returns mean_ms, min_ms,
+    median_ms and spread ((max - min) / median), as JAX's does, and
+    `device`, the type of the first tensor argument's device
+    (`tensor_device`; "cpu" without one). JAX's `fence_ms`, `epochs` and
+    `chained` have no counterpart: events time the device itself, so no
+    relay fence is subtracted and no calls are chained into one
+    dispatch."""
+    rounds = max(1, rounds)
+    for _ in range(max(warmup, 0)):
+        fn(*args, **kwargs)
+    device = tensor_device(args, kwargs)
+    if device is not None and device.type == "cuda":
+        samples = cuda_time_ms(lambda: fn(*args, **kwargs),
+                               iters=rounds)["times"]
+    else:
+        samples = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            samples.append((time.perf_counter() - t0) * 1e3)
+    samples = sorted(samples)
+    median = samples[len(samples) // 2]
+    return {"mean_ms": sum(samples) / len(samples), "min_ms": samples[0],
+            "median_ms": median,
+            "spread": (samples[-1] - samples[0]) / median if median else 0.0,
+            "device": "cpu" if device is None else device.type}
+
+
+def attention_flops(bs: int, heads: int, q_len: int, kv_len: int, d: int,
+                    causal: bool = False) -> int:
+    """Forward attention FLOPs: two products of 2 q_len kv_len d each, half
+    of them causal (the JAX package's count)."""
+    f = 4 * bs * heads * q_len * kv_len * d
+    return f // 2 if causal else f
