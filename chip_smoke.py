@@ -212,6 +212,16 @@ DECODE_DESIGN = ("split-KV in one launch: grid (splits, kv heads, sequences), "
                  "each warp's 32-token chunks land by cp.async.bulk through "
                  "a ring in shared memory; the last split to arrive merges "
                  "the partials in split order (exact LSE combine)")
+# ... and of the run-time width instances (every head_dim up to 256 and page
+# size the compiled widths do not take)
+WIDTHS_DESIGN = ("instances of width 64, 128 and 256 reading rows of any "
+                 "head_dim up to the width in place: each token's K and V "
+                 "rows copied by cp.async in the largest pieces that divide "
+                 "a row (a page edge anywhere in a chunk), zeros past d in "
+                 "shared memory, int8 scale bytes read by the token's lane "
+                 "a chunk ahead; split-KV in one launch as the compiled "
+                 "widths (512-token page-aligned splits, the in-order "
+                 "merge)")
 # Launches per decode step in the profiled engine cells, the parent tree's
 # (PERF.md §5): a redesigned kernel keeps one launch per layer a step.
 STEP_LAUNCHES = {"bf16": 303, "int8 KV, bf16 weights": 303,
@@ -735,16 +745,18 @@ def b4_faults(q, pages, lengths, table, page_size) -> dict:
     """B4's planted faults in the plain version at the kernel's splits, on
     the middle page of the longest sequence: its V rows of tokens 32-63
     replaced by those of tokens 0-31 (a stale chunk of the bulk-copy
-    ring); for int8 pages also its V-scale rows replaced by the page
-    before's."""
+    ring; at a page size under 64, tokens ps/2 to ps by the first ps/2);
+    for int8 pages also its V-scale rows replaced by the page before's."""
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_paged_decode_plain, scale_rows_per_side)
 
     ps = page_size
+    c = min(32, ps // 2)
     page, prev = fault_pages(lengths, table, ps)
     stale = pages.clone()
-    stale[:, page, ps + 32:ps + 64] = pages[:, page, ps:ps + 32]
-    bad = {"V of tokens 32-63 of a page from tokens 0-31": stale}
+    stale[:, page, ps + c:ps + 2 * c] = pages[:, page, ps:ps + c]
+    bad = {f"V of tokens {c}-{2 * c - 1} of a page from tokens 0-{c - 1}":
+           stale}
     if pages.dtype == torch.int8:
         v_scales = 2 * ps + scale_rows_per_side(ps, pages.shape[-1])
         wrong = pages.clone()
@@ -767,17 +779,18 @@ def kernel_splits(pages_per_seq, page_size, window=None) -> tuple:
 
 def b12_faults(q, k, v, lengths, table) -> dict:
     """B12's planted faults, as b4_faults over separate K and V arrays: a
-    stale V chunk; for int8 pages also a page's V scales from the page
-    before."""
+    stale V chunk (half a page under 64 tokens); for int8 pages also a
+    page's V scales from the page before."""
     from tiny_flash_attention_tpu_torch.ops.paged import paged_decode_plain
     from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
 
     int8 = isinstance(v, QuantizedTensor)
     vals = v.values if int8 else v
     page, prev = fault_pages(lengths, table, vals.shape[2])
+    c = min(32, vals.shape[2] // 2)
     stale = vals.clone()
-    stale[:, page, 32:64] = vals[:, page, 0:32]
-    bad = {"V of tokens 32-63 of a page from tokens 0-31":
+    stale[:, page, c:2 * c] = vals[:, page, 0:c]
+    bad = {f"V of tokens {c}-{2 * c - 1} of a page from tokens 0-{c - 1}":
            QuantizedTensor(values=stale, scales=v.scales) if int8
            else stale}
     if int8:
@@ -965,9 +978,8 @@ def check_not_ported_raise() -> None:
                                     q, lse, q, causal=True),
     ]
     # head_dim above 256 in the flash kernels (bf16 and f32), the quantized
-    # forward and FA1 included; the decodes and the append at a head_dim
-    # they have no instance of (pages are read in place: 72, 192), a page
-    # size that is neither 16 nor a multiple of 32
+    # forward and FA1 included, and in the decodes and the append (pages
+    # are read in place; queue B-dims-2a)
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
@@ -988,8 +1000,9 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_quantized(f264, *Q.quantize_kv(
             q264, q264, "int8")),
     ]
-    for d in (72, 192):
-        qd, pages_d = zeros(2, 6, d), zeros(2, 4, 32, d)
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, pages_d = zeros(2, 6, 264, dtype=dtype), zeros(2, 4, 32, 264,
+                                                           dtype=dtype)
         attempts += [
             lambda q=qd, p=pages_d: fused_paged_decode_attention(
                 q, p, lengths, table, page_size=16),
@@ -997,11 +1010,6 @@ def check_not_ported_raise() -> None:
                 q, p, p, lengths, table),
             lambda q=qd, p=pages_d: fused_page_append(
                 p, q[:, :2], q[:, :2], two, two, page_size=16)]
-    attempts += [
-        lambda: fused_paged_decode_attention(
-            zeros(2, 6, 128), zeros(2, 4, 96, 128), lengths, table,
-            page_size=48),
-    ]
     for fn in attempts:
         try:
             fn()
@@ -1009,11 +1017,27 @@ def check_not_ported_raise() -> None:
             continue
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
+    # int8 fused pages of page size 48 at head_dim 36 (neither <= head_dim
+    # nor a multiple of it) raise as JAX's assert does, before any launch
+    q36, pages36 = zeros(2, 6, 36), zeros(2, 4, 2 * 48 + 16, 36,
+                                          dtype=torch.int8)
+    refused = [
+        lambda: fused_paged_decode_attention(q36, pages36, lengths, table,
+                                             page_size=48),
+        lambda: fused_page_append(pages36, q36[:, :2], q36[:, :2], two, two,
+                                  page_size=48)]
+    for fn in refused:
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError("int8 pages JAX refuses ran on the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
         f"({len(attempts)}: int8 K/V without scales, head_dim 264 in the "
-        f"forward and backward (bf16, f32), FA1 (bf16, f32) and the "
-        f"quantized forward (bf16 q, f32 q), the decodes and the append at "
-        f"head_dim 72 and 192, page size 48)")
+        f"forward and backward (bf16, f32), FA1 (bf16, f32), the "
+        f"quantized forward (bf16 q, f32 q), the decodes and the append "
+        f"(bf16, f32)); int8 fused pages at page size 48 and head_dim 36 "
+        f"raise ValueError as JAX asserts: ok (the decode, the append)")
 
 
 # --- the autotuner and the native CPU oracle ---------------------------------
@@ -3991,25 +4015,36 @@ DIMS_FLASH_CASES = [(72, 1, "causal"), (72, 3, "window"), (72, 7, "ids"),
 DIMS_DECODE_CASES = [(80, 3, 64), (80, 5, 128), (80, 7, 64), (80, 12, 128),
                      (80, 16, 64), (96, 3, 128), (96, 5, 64), (96, 7, 128),
                      (96, 12, 64), (96, 16, 128)]
-# The two models served at published widths (their config.json), 4 layers:
-# (label, ModelConfig fields, int8 page size: JAX's int8 page rule needs
-# page_size <= head_dim or a multiple of it)
+# The models served at published widths (their config.json), 4 layers:
+# (label, ModelConfig fields, bf16 page size, int8 page size: JAX's int8
+# page rule needs page_size <= head_dim or a multiple of it)
 DIMS_MODELS = [
     ("Phi-3-mini widths", dict(vocab_size=32064, d_model=3072, n_q_heads=32,
                                n_kv_heads=32, d_head=96, d_ff=8192,
-                               rope_theta=10000.0, rms_eps=1e-5), 64),
+                               rope_theta=10000.0, rms_eps=1e-5), 128, 64),
     ("Llama-3.2-3B widths", dict(vocab_size=128256, d_model=3072,
                                  n_q_heads=24, n_kv_heads=8, d_head=128,
                                  d_ff=8192, rope_theta=500000.0,
-                                 rms_eps=1e-5), 128),
+                                 rms_eps=1e-5), 128, 128),
     # google/gemma-2b's widths (its config.json): head_dim 256, one kv head
     # (group 8, MQA), n_q_heads * d_head == d_model; the llama-family
     # decoder runs them (Gemma's GeGLU, (1 + w) norm and embedding scale
     # are not in the JAX package)
     ("Gemma-2B widths", dict(vocab_size=256000, d_model=2048, n_q_heads=8,
                              n_kv_heads=1, d_head=256, d_ff=16384,
-                             rope_theta=10000.0, rms_eps=1e-6), 128),
+                             rope_theta=10000.0, rms_eps=1e-6), 128, 128),
+    # openlm-research/open_llama_3b_v2's widths (its config.json): a plain
+    # llama model, 32/32 heads of 100; served over bf16 pages of 48 tokens
+    # and int8 pages of 100 (<= head_dim: JAX's rule), both on the decodes'
+    # run-time width instances (no instance of head_dim 100 compiles; the
+    # flash prefill pads 100 to 128)
+    ("OpenLLaMA-3B widths", dict(vocab_size=32000, d_model=3200,
+                                 n_q_heads=32, n_kv_heads=32, d_head=100,
+                                 d_ff=8640, rope_theta=10000.0,
+                                 rms_eps=1e-6), 48, 100),
 ]
+# the model whose head_dim and page sizes run on the run-time widths
+WIDTH_MODEL = "OpenLLaMA-3B widths"
 DIMS_LAYERS = 4
 # the models whose train step pair runs: Phi-3-mini's (beside the same
 # pair padded) and Gemma-2B's (head_dim 256, a tile width: nothing pads)
@@ -4560,6 +4595,8 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed,
         InferenceEngine, Request, pad_prompts)
     from tiny_flash_attention_tpu_torch.models.inference import (
         decode_step, prefill_forward_batched)
+    from tiny_flash_attention_tpu_torch.ops.dims import (
+        DECODE_HEAD_DIMS, decode_compiled)
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
         fused_page_append, fused_paged_decode_attention)
@@ -4574,11 +4611,14 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed,
     reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(),
                     1 + n_chunk * n_chunks + 8) for n in lens]
     attr = "int8_launches" if fmt == "int8" else "launches"
+    dec = f"paged_decode{'_int8' if fmt == 'int8' else ''}"
 
     # ---- the main path: counts zeroed just before, read just after ----
     flash_attention.launches = 0
     setattr(fused_paged_decode_attention, attr, 0)
+    fused_paged_decode_attention.width_launches = 0
     fused_page_append.launches = 0
+    fused_page_append.width_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in (reqs[:4], reqs[4:]):
@@ -4595,13 +4635,20 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed,
         eng.steps(n_chunk)            # ends in a device-to-host copy
         chunk_s.append(time.perf_counter() - t0)
     launches = {"flash_fwd": flash_attention.launches,
-                f"paged_decode{'_int8' if fmt == 'int8' else ''}":
-                    getattr(fused_paged_decode_attention, attr),
-                "page_append": fused_page_append.launches}
+                dec: getattr(fused_paged_decode_attention, attr),
+                "page_append": fused_page_append.launches,
+                f"{dec}_widths": fused_paged_decode_attention.width_launches,
+                "page_append_widths": fused_page_append.width_launches}
     # ---------------------------------------------------------------------
 
+    # the compiled widths' models launch no run-time width instance; a
+    # model at another head_dim or page size launches only those
     steps, L = n_chunk * n_chunks, cfg.n_layers
-    want = dict(zip(launches, (2 * L, steps * L, steps * L)))
+    d = cfg.d_head
+    want = dict(zip(launches, (
+        2 * L, steps * L, steps * L,
+        0 if decode_compiled(d, ps) else steps * L,
+        0 if d in DECODE_HEAD_DIMS else steps * L)))
     log(f"dims engine [{label}, {fmt} pages "
         f"({str(eng.cache.pages[0].dtype).split('.')[-1]}) ps {ps}]: "
         f"prompts {lens}; "
@@ -4685,23 +4732,25 @@ def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen,
     return {"rows": rows}
 
 
-def dims_model_phase(seed) -> dict:
-    """The models at their published widths (DIMS_MODELS), cut to
-    DIMS_LAYERS layers, random weights from the seed: each served over bf16
-    pages (page size 128) and int8 pages (dims_engine_run); B4 timed over
-    each bf16 engine's cache (layer 0) beside its bound, at head_dim 256
-    also at groups 1, 2, 8 over both caches (wide_decode_groups); then one
-    train step pair at the widths of each of DIMS_TRAIN (1 x 2048, bf16,
-    AdamW): the loss falls, the gradients agree with those through the
-    plain attention; its peak device memory, beside
-    that of the same pair from the same weights run padded
-    (padded_head_dims) where the head_dim is not a tile width. Returns the
-    launches in all and by model."""
+def dims_model_phase(seed, models=None, train=True) -> dict:
+    """The models at their published widths (DIMS_MODELS, or `models` of
+    them), cut to DIMS_LAYERS layers, random weights from the seed: each
+    served over bf16 pages and int8 pages at its page sizes
+    (dims_engine_run); B4 timed over each bf16 engine's cache (layer 0)
+    beside its bound, over the int8 engine's too where the run-time widths
+    serve it, at head_dim 256 also at groups 1, 2, 8 over both caches
+    (wide_decode_groups); then (with `train`) one train step pair at the
+    widths of each of DIMS_TRAIN (1 x 2048, bf16, AdamW): the loss falls,
+    the gradients agree with those through the plain attention; its peak
+    device memory, beside that of the same pair from the same weights run
+    padded (padded_head_dims) where the head_dim is not a tile width.
+    Returns the launches in all and by model."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.dims import decode_compiled
 
-    totals, caches, by_model, wide = {}, {}, {}, {}
+    totals, caches, int8_caches, by_model, wide = {}, {}, {}, {}, {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for label, fields, ps8 in DIMS_MODELS:
+    for label, fields, ps16, ps8 in models or DIMS_MODELS:
         mine = by_model.setdefault(label, {})
         cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS,
                             dtype=torch.bfloat16)
@@ -4713,7 +4762,7 @@ def dims_model_phase(seed) -> dict:
         log(f"dims model [{label}]: {n_params / 1e6:.1f} M params, "
             f"{DIMS_LAYERS} layers, {cfg.n_q_heads}/{cfg.n_kv_heads} heads "
             f"of {cfg.d_head} (group {cfg.group})")
-        for fmt, ps in (("bf16", 128), ("int8", ps8)):
+        for fmt, ps in (("bf16", ps16), ("int8", ps8)):
             run = dims_engine_run(label, cfg, params, fmt, ps, seed)
             for key, n in run["launches"].items():
                 totals[key] = totals.get(key, 0) + n
@@ -4723,7 +4772,12 @@ def dims_model_phase(seed) -> dict:
                 q = randn((8, cfg.n_q_heads, cfg.d_head), torch.bfloat16, gen)
                 caches[label] = check_decode(
                     f"dims: {label} engine cache, layer 0", q,
-                    run["engine"].cache.pages[0], lengths, table, 128,
+                    run["engine"].cache.pages[0], lengths, table, ps,
+                    faults=True)
+            elif not decode_compiled(cfg.d_head, ps):
+                int8_caches[label] = check_decode(
+                    f"dims: {label} int8 engine cache, layer 0", q,
+                    run["engine"].cache.pages[0], lengths, table, ps,
                     faults=True)
             if cfg.d_head == 256:
                 wide[fmt] = wide_decode_groups(
@@ -4731,11 +4785,252 @@ def dims_model_phase(seed) -> dict:
                     ps, gen)
             del run
         del params
-    for label, fields, _ in DIMS_MODELS:
-        if label in DIMS_TRAIN:
+    for label, fields, *_ in DIMS_MODELS:
+        if train and label in DIMS_TRAIN:
             train_pair(label, fields, gen, totals, by_model)
     return {"launches": totals, "by_model": by_model, "caches": caches,
-            "wide": wide}
+            "int8_caches": int8_caches, "wide": wide}
+
+
+# --- decode widths: every head_dim up to 256, every page size JAX takes ------
+
+# B4, B12 and B5 at head dims without an instance of their own and page
+# sizes the compiled widths do not take (the run-time width instances,
+# ops/dims.py::decode_width): every (head_dim, page size) of these, the
+# group 1, 3 and 8 by turn; int8 pages where JAX's page rule admits the pair
+WIDTH_DIMS = (8, 36, 48, 72, 100, 112, 160, 192, 248)
+WIDTH_PAGE_SIZES = (1, 8, 24, 48, 100)
+WIDTH_GROUPS = (1, 3, 8)
+# a table's capacity in tokens: at least 3 splits at every page size (512
+# tokens of whole pages a split)
+WIDTH_TOKENS = 1100
+# the ring-mode case: head_dim 100 over pages of 48, a window of 300
+WIDTH_RING = (100, 48, 300)
+# The run-time widths timed at OpenLLaMA-3B's decode (8 sequences of
+# 512-2048 tokens, 32 kv heads, group 1) beside the compiled instances at
+# the nearest widths, over the same lengths: (label, head_dim, page size,
+# page format)
+WIDTH_TIMED = [
+    ("d 100 ps 48, width 128", 100, 48, "bf16"),
+    ("d 96 ps 64, compiled 96", 96, 64, "bf16"),
+    ("d 128 ps 64, compiled 128", 128, 64, "bf16"),
+    ("d 128 ps 48, width 128", 128, 48, "bf16"),
+    ("d 100 ps 1, width 128", 100, 1, "bf16"),
+    ("int8 d 100 ps 100, width 128", 100, 100, "int8"),
+    ("int8 d 96 ps 64, compiled 96", 96, 64, "int8"),
+]
+
+
+def width_cases() -> list:
+    """(head_dim, page size, group) of the decode-widths phase."""
+    pairs = [(d, ps) for d in WIDTH_DIMS for ps in WIDTH_PAGE_SIZES]
+    return [(d, ps, WIDTH_GROUPS[i % len(WIDTH_GROUPS)])
+            for i, (d, ps) in enumerate(pairs)]
+
+
+def openllama_lengths(seed) -> list:
+    """8 decode lengths of 512-2048 tokens, from the seed."""
+    rng = np.random.default_rng(seed)
+    return sorted(int(n) for n in rng.integers(512, 2049, 8))
+
+
+def decode_widths_phase(gen) -> dict:
+    """B4 (bf16 q over bf16 pages, f32 over f32, bf16 over int8), B12 (bf16,
+    f32) and B5 (into bf16, f32 and int8 pages) at every case of
+    width_cases(), each against its plain version: the decodes at the
+    decode gates against the plain version at the kernel's splits and
+    unsplit, and on the run-time width instances (their launch count), the
+    append bit for bit; B4's ring mode at WIDTH_RING (bf16, int8 pages).
+    Then B12 on its path, the package surface, at OpenLLaMA-3B's widths
+    (head_dim 100, page size 48; the count zeroed just before, read just
+    after), and B4 at WIDTH_TIMED and B5 at head_dim 100 beside their
+    bounds and the compiled instances at the nearest width. Returns the
+    worst errors by kernel, B12's launches and the rows."""
+    from tiny_flash_attention_tpu_torch.ops.dims import decode_compiled
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_plain)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention,
+        fused_paged_decode_plain, kernel_page_size, pack_paged_cache,
+        page_append_plain)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    worst, cases, failed = {}, {}, []
+
+    def note(kernel, case, errs, ok):
+        cases[kernel] = cases.get(kernel, 0) + 1
+        worst[kernel] = [max(a, b) for a, b in zip(
+            worst.get(kernel, [0.0] * len(errs)), errs)]
+        if not ok:
+            failed.append((kernel, case, errs))
+
+    def decode_case(kernel, fn, plain, width_count, case):
+        before = width_count()
+        out, lse = fn()
+        torch.cuda.synchronize()
+        err, row, lse_err, ok = split_errs(out, lse, plain)
+        note(kernel, case, (err, row, lse_err),
+             ok and width_count() == before + (not decode_compiled(
+                 case[0], case[1])))
+
+    fused_widths = lambda: fused_paged_decode_attention.width_launches
+    t0 = time.perf_counter()
+    for d, ps, group in width_cases():
+        B, hkv = 4, 2
+        P = -(-WIDTH_TOKENS // ps)
+        num_pages = B * P + 3
+        table = torch.randperm(num_pages, generator=gen, device="cuda")[
+            :B * P].reshape(B, P).to(torch.int32)
+        lengths = torch.tensor([1, ps, WIDTH_TOKENS // 2 + 7, P * ps],
+                               dtype=torch.int32, device="cuda")
+        sc = d ** -0.5
+        case = (d, ps, group)
+        for fmt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                           ("int8", torch.bfloat16)):
+            page_fmt = "int8" if fmt == "int8" else "bf16"
+            if not kernel_page_size(ps, d, page_fmt):
+                continue
+            q = randn((B, hkv * group, d), dtype, gen)
+            pages = pack_paged_cache(
+                randn((hkv, num_pages, ps, d), dtype, gen),
+                randn((hkv, num_pages, ps, d), dtype, gen), page_fmt)
+            decode_case(
+                f"B4 {fmt}",
+                lambda: fused_paged_decode_attention(q, pages, lengths,
+                                                     table, page_size=ps),
+                lambda sp: fused_paged_decode_plain(
+                    q, pages, lengths, table, page_size=ps, sm_scale=sc,
+                    splits=sp), fused_widths, case)
+            apages, k_new, v_new, ids, rows = append_inputs(
+                gen, fmt=page_fmt, ps=ps, d=d, P=2, dtype=dtype)
+            want = page_append_plain(apages.clone(), k_new, v_new, ids, rows,
+                                     page_size=ps)
+            got = fused_page_append(apages, k_new, v_new, ids, rows,
+                                    page_size=ps)
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            note(f"B5 {fmt}", case, (0.0 if same else max_err(got, want),),
+                 same)
+        for fmt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q = randn((B, hkv * group, d), dtype, gen)
+            k, v = (randn((hkv, num_pages, ps, d), dtype, gen)
+                    for _ in range(2))
+            decode_case(
+                f"B12 {fmt}",
+                lambda: paged_decode_attention(q, k, v, lengths, table),
+                lambda sp: paged_decode_plain(q, k, v, lengths, table,
+                                              sm_scale=sc, splits=sp),
+                lambda: paged_decode_attention.width_launches, case)
+    # the ring mode over a wrapped table
+    d, ps, window = WIDTH_RING
+    B, hkv, P = 4, 2, -(-WIDTH_TOKENS // ps)
+    num_pages = B * P + 3
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, window - 1, P * ps + 9, 3 * P * ps + 5],
+                           dtype=torch.int32, device="cuda")
+    for fmt in ("bf16", "int8"):
+        q = randn((B, hkv * 3, d), torch.bfloat16, gen)
+        pages = pack_paged_cache(
+            randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+            randn((hkv, num_pages, ps, d), torch.bfloat16, gen), fmt)
+        decode_case(
+            f"B4 {fmt} ring",
+            lambda: fused_paged_decode_attention(
+                q, pages, lengths, table, page_size=ps, window=window),
+            lambda sp: fused_paged_decode_plain(
+                q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+                window=window, splits=sp), fused_widths, (d, ps, 3))
+    for kernel in cases:
+        names = (("out", "row", "lse") if len(worst[kernel]) == 3
+                 else ("max abs err",))
+        log(f"decode widths {kernel}: {cases[kernel]} cases (head dims "
+            f"{WIDTH_DIMS} x page sizes {WIDTH_PAGE_SIZES}, groups "
+            f"{WIDTH_GROUPS}); worst "
+            + ", ".join(f"{n} {x:.3e}" for n, x in zip(names,
+                                                        worst[kernel]))
+            + (f" (gates {DECODE_OUT_GATE:.0e}, {DECODE_ROW_GATE:.4e}, "
+               f"{DECODE_LSE_GATE:.0e}; split and unsplit plain)"
+               if len(names) == 3 else " (bit for bit)"))
+    log(f"decode widths: {sum(cases.values())} kernel calls against their "
+        f"plain versions in {time.perf_counter() - t0:.1f} s, "
+        f"{len(failed)} failed"
+        + "".join(f"; FAIL {k} (d, ps, group) {c}: {e}"
+                  for k, c, e in failed[:20]))
+    if failed:
+        raise AssertionError(f"decode widths: {len(failed)} cases disagree "
+                             f"with their plain versions")
+
+    # B12 on its path, the package surface, at OpenLLaMA-3B's widths
+    lens = openllama_lengths(SEED)
+    q, k, v, lengths, table = b12_inputs(gen, "bf16", lens, hq=32, hkv=32,
+                                         d=100, ps=48, P=-(-2048 // 48))
+    # ---- the main path: counts zeroed just before, read just after ----
+    paged_decode_attention.launches = 0
+    paged_decode_attention.width_launches = 0
+    torch.cuda.synchronize()
+    out, lse = paged_decode_attention(q, k, v, lengths, table)
+    torch.cuda.synchronize()
+    b12_launches = paged_decode_attention.width_launches
+    # ---------------------------------------------------------------------
+    if (b12_launches, paged_decode_attention.launches) != (1, 1):
+        raise AssertionError(f"B12 at head_dim 100 launched "
+                             f"{b12_launches} run-time width instances")
+    plain = (lambda sp: paged_decode_plain(q, k, v, lengths, table,
+                                           sm_scale=100 ** -0.5, splits=sp))
+    err, row, lse_err, ok = split_errs(out, lse, plain)
+    check_v_faults("separate, OpenLLaMA-3B widths", b12_faults(
+        q, k, v, lengths, table), plain)
+    t_kernel = cuda_time_ms(lambda: paged_decode_attention(
+        q, k, v, lengths, table), iters=20)["median_ms"]
+    t_plain = cuda_time_ms(lambda: paged_decode_plain(
+        q, k, v, lengths, table, sm_scale=100 ** -0.5), iters=5)["median_ms"]
+    bound_ms, bound_by = decode_bound(q, k, lengths, table, 48)
+    q96, k96, v96, _, table96 = b12_inputs(gen, "bf16", lens, hq=32, hkv=32,
+                                           d=96, ps=64, P=32)
+    t96 = cuda_time_ms(lambda: paged_decode_attention(
+        q96, k96, v96, lengths, table96), iters=20)["median_ms"]
+    log(f"decode widths: B12 at OpenLLaMA-3B widths q{tuple(q.shape)} pages "
+        f"{tuple(k.shape)} lengths {lens} | launches {b12_launches} on the "
+        f"run-time width instance | {gate_readings(err, row, lse_err)} | "
+        f"kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
+        f"{bound_ms:.4f} ms ({bound_by}) | the compiled 96 at ps 64 over "
+        f"the same lengths {t96:.4f} ms | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("B12 at OpenLLaMA-3B widths disagrees with "
+                             "plain")
+    b12_row = {"max_abs_err": max(err, lse_err, *worst["B12 bf16"][::2],
+                                  *worst["B12 f32"][::2]),
+               "ms": t_kernel, "plain_ms": t_plain, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    del q, k, v, q96, k96, v96
+
+    # B4 at OpenLLaMA-3B's decode beside the compiled instances
+    timed = {}
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for label, d, ps, fmt in WIDTH_TIMED:
+        P = -(-2048 // ps)
+        num_pages = 8 * P + 8
+        table = torch.randperm(num_pages, generator=gen, device="cuda")[
+            :8 * P].reshape(8, P).to(torch.int32)
+        pages = pack_paged_cache(
+            randn((32, num_pages, ps, d), torch.bfloat16, gen),
+            randn((32, num_pages, ps, d), torch.bfloat16, gen), fmt)
+        q = randn((8, 32, d), torch.bfloat16, gen)
+        timed[label] = check_decode(f"widths: {label}, OpenLLaMA-3B's "
+                                    f"decode", q, pages, lengths, table, ps,
+                                    iters=20)
+        del pages
+    appends = {label: check_append(f"widths: {label}, 8 tokens x 32 kv "
+                                   f"heads", fmt, ps, gen, d=d, hkv=32)
+               for label, d, ps, fmt in (
+                   ("d 100 ps 48", 100, 48, "bf16"),
+                   ("d 96 ps 64", 96, 64, "bf16"),
+                   ("int8 d 100 ps 100", 100, 100, "int8"),
+                   ("int8 d 96 ps 64", 96, 64, "int8"))}
+    return {"worst": worst, "b12_launches": b12_launches, "b12": b12_row,
+            "timed": timed, "appends": appends}
 
 
 def train_pair(label, fields, gen, totals, by_model,
@@ -4912,7 +5207,7 @@ def wide_f32_model_phase(seed) -> dict:
     the decode rows by page format."""
     from tiny_flash_attention_tpu_torch.models import transformer as T
 
-    label, fields, ps8 = DIMS_MODELS[2]
+    label, fields, ps16, ps8 = DIMS_MODELS[2]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.float32)
     params = T.init_params(cfg, torch.Generator(device="cuda")
@@ -4920,7 +5215,7 @@ def wide_f32_model_phase(seed) -> dict:
     log(f"wide f32 model [{label}, f32]: {DIMS_LAYERS} layers, "
         f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}")
     launches, decode = {}, {}
-    for fmt, ps in (("bf16", 128), ("int8", ps8)):
+    for fmt, ps in (("bf16", ps16), ("int8", ps8)):
         run = dims_engine_run(f"{label}, f32", cfg, params, fmt, ps, seed,
                               gate=ENGINE_F32_LOGIT_GATE)
         for key, n in run["launches"].items():
@@ -6595,6 +6890,54 @@ def sharded_train_phase() -> dict:
     return {"launches": totals}
 
 
+def build_report(names=None) -> None:
+    """Builds the kernel sources (`names`, default all) in parallel and
+    logs each one's nvcc seconds, its instances, their most registers and
+    their spill bytes (ptxas), every instance's at sources of at most 40."""
+    from tiny_flash_attention_tpu_torch import _build
+
+    names = names or _build.sources()
+    t_build = _build.build(names)
+    log(f"build: {names} in {t_build:.1f} s (nvcc, parallel); "
+        f"each source's nvcc, s: " + ", ".join(
+            f"{name} {t:.1f}" for name, t in sorted(
+                _build.build_seconds.items(), key=lambda x: -x[1])))
+    for name in names:
+        text = _build.build_log(name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                                text))
+        log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
+            f"registers, {spills} bytes of spill stores in all (ptxas)")
+        # every instance of the sources of at most 40 (the quantized
+        # forward's 36 and FA1's 6 among them)
+        if len(regs) <= 40:
+            log("    registers/spill bytes: "
+                + ", ".join(instance_registers(text)))
+        elif spills:
+            log("    instances that spill, registers/spill bytes: "
+                + "; ".join(spilling_instances(text)))
+
+
+# the sources the decode-widths phase and the OpenLLaMA-3B-width engines
+# run: the decodes, the append, the flash forward (prefill)
+WIDTH_SOURCES = ["paged_decode", "paged_decode_f32", "paged_decode_widths",
+                 "paged_decode_widths_f32", "paged_decode_separate",
+                 "paged_decode_separate_widths", "page_append", "flash_fwd"]
+
+
+def widths_main() -> int:
+    """`--decode-widths`: the decode-widths phase and the OpenLLaMA-3B-width
+    engines alone (their sources built first)."""
+    card_settings()
+    log(f"card: {gpu_info()}")
+    build_report(WIDTH_SOURCES)
+    decode_widths_phase(torch.Generator(device="cuda").manual_seed(SEED + 2))
+    dims_model_phase(SEED, models=[m for m in DIMS_MODELS
+                                   if m[0] == WIDTH_MODEL], train=False)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -6610,26 +6953,7 @@ def main() -> int:
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     info = gpu_info()
     log(f"card: {info}")
-    t_build = _build.build()
-    log(f"build: {_build.sources()} in {t_build:.1f} s (nvcc, parallel); "
-        f"each source's nvcc, s: " + ", ".join(
-            f"{name} {t:.1f}" for name, t in sorted(
-                _build.build_seconds.items(), key=lambda x: -x[1])))
-    for name in _build.sources():
-        text = _build.build_log(name)
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                                text))
-        log(f"  {name}: {len(regs)} kernel instances, at most {max(regs)} "
-            f"registers, {spills} bytes of spill stores in all (ptxas)")
-        # every instance of the sources of at most 40 (the quantized
-        # forward's 36 and FA1's 6 among them)
-        if len(regs) <= 40:
-            log("    registers/spill bytes: "
-                + ", ".join(instance_registers(text)))
-        elif spills:
-            log("    instances that spill, registers/spill bytes: "
-                + "; ".join(spilling_instances(text)))
+    build_report()
     # the bf16-q instances of B1 (over bf16 K/V and over int8/e4m3
     # payloads, its wide head_dim-256 instances included), the bf16
     # backward's main kernels (the wide one included) and B14's bf16
@@ -6740,12 +7064,19 @@ def main() -> int:
     wide = wide_phase(gen)
     dims_models = dims_model_phase(SEED)
     dlaunch = dims_models["launches"]
+    # the decodes and the append at every head_dim up to 256 and every page
+    # size JAX takes, on a generator of their own (the phases after them
+    # take the inputs they always took)
+    widths = decode_widths_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 2))
     # the Phi-3-mini-width runs launch the head_dim-96 instances; the
     # Llama-3.2-3B-width runs the head_dim-128 ones
     phi = dims_models["by_model"][DIMS_MODELS[0][0]]
     llama = dims_models["by_model"][DIMS_MODELS[1][0]]
-    # ... and the Gemma-2B-width runs the head_dim-256 (wide) ones
+    # ... and the Gemma-2B-width runs the head_dim-256 (wide) ones; the
+    # OpenLLaMA-3B-width runs the run-time width instances (head_dim 100)
     gemma = dims_models["by_model"][DIMS_MODELS[2][0]]
+    openllama = dims_models["by_model"][WIDTH_MODEL]
     wide_dec = dims_models["wide"]
     # the f32 path at head_dim 256: its kernels, then the Gemma-2B-width
     # model in f32, served and trained
@@ -7001,7 +7332,8 @@ def main() -> int:
          "launches": run["launches"]["paged_decode"]
          + qlaunch["paged_decode"] + ragged["launches"]["paged_decode"]
          + swa["launches"]["paged_decode_ring"] + dlaunch["paged_decode"]
-         - gemma["paged_decode"] + slaunch["paged_decode"], **decode_row},
+         - gemma["paged_decode"] - openllama["paged_decode"]
+         + slaunch["paged_decode"], **decode_row},
         {"name": "paged_decode_d256", "route": "cuda",
          "design": "head_dim 256 over bf16 pages: 32 KiB a warp's stage, "
                    "each lane 32 elements of a row scored in four 16-byte "
@@ -7029,6 +7361,7 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
          "launches": qlaunch["paged_decode_int8"]
          + dlaunch["paged_decode_int8"] - gemma["paged_decode_int8"]
+         - openllama["paged_decode_int8"]
          + slaunch["paged_decode_int8"], **int8_row},
         {"name": "page_append", "route": "cuda",
          "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
@@ -7036,10 +7369,54 @@ def main() -> int:
          "launches": run["launches"]["page_append"]
          + qlaunch["page_append"] + ragged["launches"]["page_append"]
          + swa["launches"]["page_append"] + dlaunch["page_append"]
-         - gemma["page_append"] + slaunch["page_append"],
+         - gemma["page_append"] - openllama["page_append"]
+         + slaunch["page_append"],
          **append_rows[("int8", 128)],
          "max_abs_err": max(append_rows[("int8", 128)]["max_abs_err"],
                             dims["errs"]["page_append"])},
+        {"name": "paged_decode_widths", "route": "cuda",
+         "design": "bf16 pages at a head_dim or page size without an "
+                   "instance of its own: " + WIDTHS_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_widths.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": openllama["paged_decode_widths"],
+         **dims_models["caches"][WIDTH_MODEL],
+         "max_abs_err": max(
+             dims_models["caches"][WIDTH_MODEL]["max_abs_err"],
+             *widths["worst"]["B4 bf16"][::2],
+             *widths["worst"]["B4 bf16 ring"][::2],
+             *widths["worst"]["B4 f32"][::2])},
+        {"name": "paged_decode_int8_widths", "route": "cuda",
+         "design": "int8 pages at a head_dim or page size without an "
+                   "instance of its own: " + WIDTHS_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_widths.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": openllama["paged_decode_int8_widths"],
+         **dims_models["int8_caches"][WIDTH_MODEL],
+         "max_abs_err": max(
+             dims_models["int8_caches"][WIDTH_MODEL]["max_abs_err"],
+             *widths["worst"]["B4 int8"][::2],
+             *widths["worst"]["B4 int8 ring"][::2])},
+        {"name": "page_append_widths", "route": "cuda",
+         "design": "a head_dim with no instance of its own (any up to 256, "
+                   "read at run time): a warp per (kv head, sequence), the "
+                   "values lane, lane + 32, ... below d, int8 scale bytes "
+                   "at row 2ps + 4 (row / d) + j, lane row % d",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": openllama["page_append_widths"],
+         **widths["appends"]["int8 d 100 ps 100"],
+         "max_abs_err": max(widths["worst"][f"B5 {f}"][0]
+                            for f in ("bf16", "f32", "int8"))},
+        {"name": "paged_decode_separate_widths", "route": "cuda",
+         "design": "separate K/V page arrays at a head_dim or page size "
+                   "without an instance of its own: " + WIDTHS_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate_widths.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         "launches": widths["b12_launches"], **widths["b12"]},
         {"name": "paged_decode_f32_d256", "route": "cuda",
          "design": "f32 q over f32 pages at head_dim 256: a warp's "
                    "32-token stage is 64 KiB, so a block has "
@@ -7262,6 +7639,11 @@ if __name__ == "__main__":
                  else cpu_oracle_phase)
         phase(torch.Generator(device="cuda").manual_seed(SEED + 1))
         sys.exit(0)
+    if sys.argv[1:] == ["--decode-widths"]:
+        # only the decode-widths phase and the OpenLLaMA-3B-width engines
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(widths_main())
     if sys.argv[1:] == ["--cp"]:
         # only the context-parallel phase (its worlds build the kernels)
         if not torch.cuda.is_available():

@@ -37,8 +37,8 @@ autograd, FA1 at 80/96, the fused decode at 80/96 and groups 3/5/7/12/16
 over bf16, f32 and int8 pages (the ring mode; int8 scale rows split over two
 groups at page size 160), the separate decode, and the append bit for bit;
 and the shapes that stay out raise (head_dim 264 in every flash entry, FA1
-and the quantized forward included; a decode or append at head_dim 72;
-page size 48). Last,
+and the quantized forward included, the decodes and the append; int8
+fused pages of page size 48 at head_dim 36, as in JAX). Last,
 the head dims that the bf16 forward and
 backward read in place (32, 48, 72, 80, 96 at groups 1, 3, 7 under every
 mask, 300 rows): their results bit for bit those of the call on padded
@@ -60,7 +60,13 @@ B1's bits in every mode; NCCL with two ranks on one card raising; a ring
 backward on the card raising (its flash calls are forward-only); and a
 failing rank failing its world. Last, sharded serving (parallel/serve.py):
 a world of 1 on NCCL whose sharded engine gives the single-card engine's
-greedy tokens and page bits, over bf16 and int8 pages.
+greedy tokens and page bits, over bf16 and int8 pages. Last, the decodes
+and the append at every head_dim up to 256 and every page size JAX takes
+(the run-time width instances, ops/dims.py::decode_width): B4, B12 and B5
+over bf16 pages at each head_dim 1 to 256; f32 and int8 pages at page
+sizes 1, 8, 24, 48 and 100 and head dims 8 to 248; and the compiled widths
+(64, 80, 96, 128, 256 at page size 16 or a multiple of 32) still on their
+own instances.
 """
 
 import dataclasses
@@ -84,7 +90,8 @@ from tiny_flash_attention_tpu_torch.ops.paged import (
     paged_decode_attention, paged_decode_plain)
 from tiny_flash_attention_tpu_torch.ops import configs, quant as Q
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    kernel_head_dim, pad_head_dim, unpad_head_dim)
+    DECODE_HEAD_DIMS, decode_compiled, kernel_head_dim, pad_head_dim,
+    unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     decode_splits, fused_page_append, fused_paged_decode_attention,
     fused_paged_decode_plain, pack_paged_cache, page_append_plain, page_rows)
@@ -236,16 +243,16 @@ def test_not_ported_raises_on_the_card(gen):
     for x in (q264, q264.float()):
         with pytest.raises(NotImplementedError):
             flash_attention_quantized(x, k264, k264)
-    # the decodes and the append read pages in place: head dims 72 and
-    # 192 have no instance, in either dtype; nor has a page size that is
-    # neither 16 nor a multiple of 32
+    # the decodes and the append read pages in place at every head_dim up
+    # to 256: above it (queue B-dims-2a) they raise, in either dtype; int8
+    # fused pages whose page size is neither <= head_dim nor a multiple of
+    # it raise as JAX's assert does
     table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
-    for d, dtype in ((72, torch.bfloat16), (192, torch.bfloat16),
-                     (192, torch.float32)):
-        qd = _randn((2, 6, d), dtype, gen)
-        pages_d = torch.zeros((2, 8, 32, d), dtype=dtype, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        qd = _randn((2, 6, 264), dtype, gen)
+        pages_d = torch.zeros((2, 8, 32, 264), dtype=dtype, device="cuda")
         with pytest.raises(NotImplementedError):
             fused_paged_decode_attention(qd, pages_d, lengths, table,
                                          page_size=16)
@@ -254,12 +261,15 @@ def test_not_ported_raises_on_the_card(gen):
         with pytest.raises(NotImplementedError):
             fused_page_append(pages_d, qd[:, :2], qd[:, :2], rows2, rows2,
                               page_size=16)
-    pages48 = torch.zeros((2, 8, 96, 128), dtype=torch.bfloat16,
+    pages48 = torch.zeros((2, 8, 2 * 48 + 16, 36), dtype=torch.int8,
                           device="cuda")
-    with pytest.raises(NotImplementedError):
-        fused_paged_decode_attention(_randn((2, 6, 128), torch.bfloat16,
-                                            gen), pages48, lengths, table,
+    q36 = _randn((2, 6, 36), torch.bfloat16, gen)
+    with pytest.raises(ValueError):
+        fused_paged_decode_attention(q36, pages48, lengths, table,
                                      page_size=48)
+    with pytest.raises(ValueError):
+        fused_page_append(pages48, q36[:, :2], q36[:, :2], rows2, rows2,
+                          page_size=48)
 
 
 def _segment_ids(b, n, bounds, gen):
@@ -2537,3 +2547,188 @@ def test_cpu_oracle_on_the_card_host(gen):
                                   causal=causal)
         assert _err(got, flash_attention(qb, kb, vb, causal=causal).cpu()) \
             <= 2e-2
+
+
+# --- every head_dim and page size: the run-time width instances ---------------
+# The decodes and the append take every head_dim up to 256 and every page
+# size the JAX package takes; at a head_dim or page size without a compiled
+# instance they run on the run-time width instances (ops/dims.py::
+# decode_width), which read rows of the true width in place.
+
+WIDTH_PAGE_SIZES = (24, 1, 48, 8)
+
+
+def _width_pages(gen, fmt, dtype, d, ps, hkv, num_pages):
+    """Fused pages of `fmt` ("bf16": q's dtype, or "int8") from random K/V."""
+    return pack_paged_cache(_randn((hkv, num_pages, ps, d), dtype, gen),
+                            _randn((hkv, num_pages, ps, d), dtype, gen),
+                            fmt)
+
+
+def _width_table(gen, B, P, num_pages):
+    return torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+
+
+def _check_width_decode(gen, fmt, dtype, d, ps, group, window=None):
+    """B4 over fused pages at (d, ps) against its plain version at the
+    kernel's splits and unsplit: lengths 0, 1, a page edge, a ragged one and
+    the full table (ring mode: lengths past the ring's capacity)."""
+    B, hkv = 5, 2
+    P = max(3, -(-100 // ps)) if ps < 32 else 3
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), dtype, gen)
+    pages = _width_pages(gen, fmt, dtype, d, ps, hkv, num_pages)
+    table = _width_table(gen, B, P, num_pages)
+    cap = P * ps
+    lengths = torch.tensor(
+        [0, 1, ps, cap // 2 + 1, cap] if window is None
+        else [1, window - 1, cap + 9, 3 * cap + 5, cap],
+        dtype=torch.int32, device="cuda")
+    before = fused_paged_decode_attention.width_launches
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    assert fused_paged_decode_attention.width_launches == before + (
+        not decode_compiled(d, ps))
+    for splits in ("kernel", None):
+        ref, ref_lse = fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            window=window, splits=splits)
+        assert _err(out, ref) <= tolerance_for(dtype), (d, ps, splits)
+        assert _err(lse, ref_lse) <= tolerance_for(dtype), (d, ps, splits)
+    if window is None:
+        assert bool((out[0] == 0).all())
+
+
+def _check_width_separate(gen, fmt, dtype, d, ps, group):
+    """B12 at (d, ps) against its plain version at the kernel's splits."""
+    B, hkv = 4, 2
+    P = max(3, -(-100 // ps)) if ps < 32 else 3
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), dtype, gen)
+    k = _randn((hkv, num_pages, ps, d), dtype, gen)
+    v = _randn((hkv, num_pages, ps, d), dtype, gen)
+    if fmt == "int8":
+        k, v = Q.quantize_int8(k, axis=-1), Q.quantize_int8(v, axis=-1)
+    table = _width_table(gen, B, P, num_pages)
+    lengths = torch.tensor([1, ps, P * ps // 2 + 1, P * ps],
+                           dtype=torch.int32, device="cuda")
+    before = paged_decode_attention.width_launches
+    out, lse = paged_decode_attention(q, k, v, lengths, table)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.width_launches == before + (
+        not decode_compiled(d, ps))
+    ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
+                                      sm_scale=d ** -0.5, splits="kernel")
+    assert _err(out, ref) <= tolerance_for(dtype), (d, ps)
+    assert _err(lse, ref_lse) <= tolerance_for(dtype), (d, ps)
+
+
+def _check_width_append(gen, fmt, src, d, ps):
+    """B5 at (d, ps) bit for bit against its plain version, an all-zero
+    row (scale 1) and a page's last row included."""
+    B, hkv, num_pages = 5, 2, 7
+    pdtype = torch.int8 if fmt == "int8" else src
+    pages = torch.randint(-100, 100, (hkv, num_pages, page_rows(ps, d, fmt),
+                                      d), generator=gen, device="cuda"
+                          ).to(pdtype)
+    k_new = _randn((B, hkv, d), src, gen) * 3
+    v_new = _randn((B, hkv, d), src, gen)
+    k_new[1, 0] = 0.0
+    ids = torch.tensor([0, 6, 3, 2, 5], dtype=torch.int32, device="cuda")
+    rows = torch.tensor([0, ps - 1, ps // 2, (ps * 2) // 3, 0],
+                        dtype=torch.int32, device="cuda")
+    want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
+                             page_size=ps)
+    before = fused_page_append.width_launches
+    got = fused_page_append(pages, k_new, v_new, ids, rows, page_size=ps)
+    torch.cuda.synchronize()
+    assert fused_page_append.width_launches == before + (
+        d not in DECODE_HEAD_DIMS)
+    assert torch.equal(got.view(torch.uint8) if fmt == "int8" else got,
+                       want.view(torch.uint8) if fmt == "int8" else want)
+
+
+@pytest.mark.parametrize("d", range(1, 257))
+def test_width_decode_every_head_dim(gen, d):
+    """B4 over bf16 pages at each head_dim 1 to 256, the page size cycling
+    through 24, 1, 48 and 8, group 3 (padded to 4)."""
+    _check_width_decode(gen, "bf16", torch.bfloat16, d,
+                        WIDTH_PAGE_SIZES[d % 4], 3)
+
+
+@pytest.mark.parametrize("d", range(1, 257))
+def test_width_separate_decode_every_head_dim(gen, d):
+    """B12 over bf16 pages at each head_dim 1 to 256, the page size cycling
+    through 24, 1, 48 and 8, group 2."""
+    _check_width_separate(gen, "bf16", torch.bfloat16, d,
+                          WIDTH_PAGE_SIZES[d % 4], 2)
+
+
+@pytest.mark.parametrize("d", range(1, 257))
+def test_width_append_every_head_dim(gen, d):
+    """B5 into bf16 pages at each head_dim 1 to 256 bit for bit, the page
+    size cycling through 24, 1, 48 and 8."""
+    _check_width_append(gen, "bf16", torch.bfloat16, d,
+                        WIDTH_PAGE_SIZES[d % 4])
+
+
+WIDTH_DIMS = (8, 36, 48, 72, 100, 112, 160, 192, 248)
+WIDTH_FORMATS = [(fmt, d, ps) for fmt in ("f32", "int8 bf16", "int8 f32")
+                 for d in WIDTH_DIMS for ps in (1, 8, 24, 48, 100)
+                 if not fmt.startswith("int8") or ps <= d or ps % d == 0]
+
+
+@pytest.mark.parametrize("fmt,d,ps", WIDTH_FORMATS)
+def test_width_decode_formats(gen, fmt, d, ps):
+    """B4 with f32 q over f32 pages and bf16 or f32 q over int8 pages at
+    the head dims and page sizes of chip_smoke.py's decode-widths phase
+    (int8 where JAX's page rule admits the pair), groups 1, 3 and 8 by
+    turn, the ring mode at page size 48."""
+    dtype = torch.float32 if fmt.endswith("f32") else torch.bfloat16
+    page_fmt = "int8" if fmt.startswith("int8") else "bf16"
+    group = (1, 3, 8)[(d + ps) % 3]
+    _check_width_decode(gen, page_fmt, dtype, d, ps, group,
+                        window=50 if ps == 48 else None)
+
+
+@pytest.mark.parametrize("fmt,d,ps", [
+    (fmt, d, ps) for fmt in ("f32", "int8 bf16", "int8 f32")
+    for d in WIDTH_DIMS for ps in (1, 8, 24, 48, 100)
+    if not fmt.startswith("int8") or ps <= d or ps % d == 0])
+def test_width_append_formats(gen, fmt, d, ps):
+    """B5 with f32 rows into f32 pages and bf16 or f32 rows into int8 pages
+    (quantized, the scale bytes at row 2ps + 4 (row / d) + j, lane row % d)
+    bit for bit, at the decode-widths phase's head dims and page sizes."""
+    src = torch.float32 if fmt.endswith("f32") else torch.bfloat16
+    _check_width_append(gen, "int8" if fmt.startswith("int8") else "bf16",
+                        src, d, ps)
+
+
+@pytest.mark.parametrize("d", WIDTH_DIMS)
+@pytest.mark.parametrize("ps", [1, 48, 128])
+def test_width_separate_decode_f32_and_int8(gen, d, ps):
+    """B12 with f32 q over f32 pages, and over int8 pages with f32 scales
+    where JAX takes them (page size a multiple of 128)."""
+    _check_width_separate(gen, "bf16", torch.float32, d, ps, 3)
+    if ps % 128 == 0:
+        _check_width_separate(gen, "int8", torch.bfloat16, d, ps, 3)
+
+
+@pytest.mark.parametrize("d", DECODE_HEAD_DIMS)
+@pytest.mark.parametrize("ps", [16, 32, 64, 128, 48])
+def test_compiled_widths_keep_their_instances(gen, d, ps):
+    """64, 80, 96, 128 and 256 at page size 16 or a multiple of 32 launch
+    the compiled widths (csrc/paged_decode.cu, paged_decode_f32.cu,
+    paged_decode_separate.cu and their own append instances: no run-time
+    width launch); the same head dims at page size 48 launch the run-time
+    width instances. Each against its plain version."""
+    assert decode_compiled(d, ps) == (ps != 48)
+    for fmt, dtype in (("bf16", torch.bfloat16), ("int8", torch.bfloat16),
+                       ("bf16", torch.float32)):
+        if fmt == "int8" and not (ps <= d or ps % d == 0):
+            continue
+        _check_width_decode(gen, fmt, dtype, d, ps, 2)
+        _check_width_append(gen, fmt, dtype, d, ps)
+    _check_width_separate(gen, "bf16", torch.bfloat16, d, ps, 2)

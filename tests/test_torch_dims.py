@@ -123,8 +123,8 @@ def test_f32_and_quantized_entries_pad(d):
 def test_head_dims_above_128_raise():
     """Above 256 every flash entry raises, f32, the quantized forward and
     FA1 too, naming themselves, and each pads (128, 256] to 256; the
-    decodes and the append raise at head dims they do not compile (192
-    among them) and take every one they do, 256 included, in any dtype."""
+    decodes and the append take every head_dim up to 256 (72, 112 and 192
+    among them) and raise above, naming queue B-dims-2a."""
     for d in (264, 384, 512):
         with pytest.raises(NotImplementedError, match="up to 256"):
             dims.kernel_head_dim(d, "the CUDA forward kernel", wide=True)
@@ -148,10 +148,10 @@ def test_head_dims_above_128_raise():
                                     wide=True) == 256
         assert dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
                                    "kernel", quantized=True) == 256
-    for d in (72, 112, 192, 264):
-        with pytest.raises(NotImplementedError, match="80, 96"):
+    for d in (264, 384):
+        with pytest.raises(NotImplementedError, match="B-dims-2a"):
             dims.decode_head_dim(d, "the CUDA decode kernel")
-    for d in dims.DECODE_HEAD_DIMS:
+    for d in (*dims.DECODE_HEAD_DIMS, 72, 112, 192):
         dims.decode_head_dim(d, "the CUDA decode kernel")
         dims.decode_head_dim(d, "the CUDA append kernel")
 
@@ -483,12 +483,16 @@ def test_separate_decode_matches_jax(fmt):
 # --- the engine end to end ---------------------------------------------------
 
 
-@pytest.mark.parametrize("d_head,n_q,n_kv", [(96, 4, 4), (128, 6, 2)],
-                         ids=["d96-group1", "d128-group3"])
-def test_engine_greedy_tokens_match_jax(d_head, n_q, n_kv):
+@pytest.mark.parametrize("d_head,n_q,n_kv,ps", [
+    (96, 4, 4, 64), (128, 6, 2, 64), (100, 4, 4, 48), (36, 6, 2, 8)],
+    ids=["d96-group1", "d128-group3", "d100-group1-ps48",
+         "d36-group3-ps8"])
+def test_engine_greedy_tokens_match_jax(d_head, n_q, n_kv, ps):
     """Two layers at small widths, JAX's weights carried over by
     params_from_jax: three prompts through two slots, chunked and
-    per-token decode; greedy tokens equal JAX's InferenceEngine's."""
+    per-token decode; greedy tokens equal JAX's InferenceEngine's (head
+    dims 100 and 36 at page sizes 48 and 8: the run-time width
+    instances' shapes)."""
     widths = dict(vocab_size=256, d_model=128, n_layers=2, n_q_heads=n_q,
                   n_kv_heads=n_kv, d_head=d_head, d_ff=256)
     jcfg = JT.ModelConfig(**widths, dtype=jnp.float32, attn_impl="flash")
@@ -497,7 +501,8 @@ def test_engine_greedy_tokens_match_jax(d_head, n_q, n_kv):
     tp = TT.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(d_head)
     prompts = [list(map(int, rng.integers(0, 256, n))) for n in (5, 130, 30)]
-    kw = dict(num_pages=16, page_size=64, max_seqs=2, pages_per_seq=6)
+    kw = dict(num_pages=16 * 64 // ps, page_size=ps, max_seqs=2,
+              pages_per_seq=6 * 64 // ps)
     want = JEngine(jcfg, jp, **kw).generate(prompts, max_new_tokens=10,
                                             chunk=4)
     got = TEngine(tcfg, tp, **kw, device="cpu").generate(

@@ -94,8 +94,9 @@ def test_f32_rule_above_128(d):
     """f32 takes every head_dim in (128, 256] on the wide instance, padded
     to 256 where d is not 256 (pad_head_dim counts the copy), and raises
     above 256; so do the quantized forward and FA1 (136 among them, 257
-    and 264 raising); the decodes and the append take 256 in every
-    dtype."""
+    and 264 raising); the decodes and the append take every head_dim up
+    to 256 (256 on its own instances, the others on the run-time width
+    instances of width 256) and raise above."""
     what = "the CUDA forward kernel"
     if d > 256:
         with pytest.raises(NotImplementedError, match="up to 256"):
@@ -111,7 +112,7 @@ def test_f32_rule_above_128(d):
         with pytest.raises(NotImplementedError, match="float32 takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.float32, what)
-        with pytest.raises(NotImplementedError, match="64, 80, 96"):
+        with pytest.raises(NotImplementedError, match="B-dims-2a"):
             dims.decode_head_dim(d, "the CUDA decode kernel")
         return
     assert dims.flash_head_dim(d, torch.float32, what) == 256
@@ -120,12 +121,10 @@ def test_f32_rule_above_128(d):
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.float32, what))
     assert y.shape[-1] == 256
     assert dims.pad_head_dim.copies == before + (d != 256)
-    if d == 256:
-        dims.decode_head_dim(d, "the CUDA decode kernel")
-        dims.decode_head_dim(d, "the CUDA append kernel")
-    else:
-        with pytest.raises(NotImplementedError):
-            dims.decode_head_dim(d, "the CUDA decode kernel")
+    dims.decode_head_dim(d, "the CUDA decode kernel")
+    dims.decode_head_dim(d, "the CUDA append kernel")
+    assert dims.decode_width(d, 128) == 256
+    assert dims.decode_compiled(d, 128) == (d == 256)
 
 
 def test_wide_f32_instances_fit_a_block():

@@ -74,7 +74,10 @@ def test_kernel_sources_are_found():
     assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_fwd_quant",
                                 "flash_v1", "page_append", "paged_decode",
                                 "paged_decode_f32",
-                                "paged_decode_separate", "quant_matmul"]
+                                "paged_decode_separate",
+                                "paged_decode_separate_widths",
+                                "paged_decode_widths",
+                                "paged_decode_widths_f32", "quant_matmul"]
 
 
 SMALL = TT.ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_q_heads=2,
@@ -136,6 +139,9 @@ def test_cpu_calls_launch_no_kernel():
                 paged_decode_attention, flash_attention_quantized]
     extra = [(fused_paged_decode_attention, "int8_launches"),
              (fused_paged_decode_attention, "ring_launches"),
+             (fused_paged_decode_attention, "width_launches"),
+             (paged_decode_attention, "width_launches"),
+             (fused_page_append, "width_launches"),
              (flash_attention, "window_launches"),
              (flash_attention_quantized, "int8_launches"),
              (flash_attention_quantized, "fp8_launches")]

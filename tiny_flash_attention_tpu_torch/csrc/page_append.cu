@@ -19,8 +19,9 @@
 // values. One warp per (kv head, sequence) converts and stores its two
 // rows (each lane D / 32 contiguous values at head_dim 64, 128 and 256, else
 // the ceil(D / 32) values lane, lane + 32, ... below D: head_dim 80 and
-// 96; the amax is a warp reduction), so the whole append of a layer is one
-// launch where the
+// 96, and every other head_dim up to 256 on one instance that reads D at
+// run time, 8 values a lane at most; the amax is a warp reduction), so the
+// whole append of a layer is one launch where the
 // scatter decomposition takes 2 payload scatters, 8 single-byte scale
 // scatters and the quantize ops. A target outside the pages array is
 // skipped: the engine never makes one.
@@ -49,33 +50,37 @@ __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
 
-// S: dtype of k_new / v_new; P: page element type (bf16, f32 or int8_t)
+// S: dtype of k_new / v_new; P: page element type (bf16, f32 or int8_t); D:
+// the head_dim, or 0 for the instance that takes head_dim (<= 256) at run
+// time
 template <typename S, typename P, int D>
 __global__ void __launch_bounds__(32)
     page_append_kernel(const S* __restrict__ k_new,
                        const S* __restrict__ v_new,
                        const int* __restrict__ page_ids,
                        const int* __restrict__ rows, P* __restrict__ pages,
-                       int hkv, int num_pages, int page_rows, int page_size) {
-  constexpr bool STRIDED = D % 64 != 0;
-  constexpr int E = (D + 31) / 32;
+                       int hkv, int num_pages, int page_rows, int page_size,
+                       int head_dim) {
+  constexpr bool STRIDED = D % 64 != 0 || D == 0;
+  constexpr int E = D > 0 ? (D + 31) / 32 : 8;
+  const int d = D > 0 ? D : head_dim;
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  // the lane's value e: at off(e) past its first column, live below D (at
-  // head_dim 64 and 128 every value, known at compile time)
+  // the lane's value e: at off(e) past its first column, live below d (at
+  // head_dim 64, 128 and 256 every value, known at compile time)
   auto off = [&](int e) { return STRIDED ? 32 * e : e; };
-  auto live = [&](int e) { return !STRIDED || lane + 32 * e < D; };
+  auto live = [&](int e) { return !STRIDED || lane + 32 * e < d; };
   const int pid = page_ids[b], row = rows[b];
   if (pid < 0 || pid >= num_pages || row < 0 || row >= page_size) return;
-  P* page = pages + ((size_t)h * num_pages + pid) * page_rows * D;
+  P* page = pages + ((size_t)h * num_pages + pid) * page_rows * d;
   const int sr = (page_rows - 2 * page_size) / 2;  // scale rows per side
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
     const int first = STRIDED ? lane : lane * E;
-    const S* src = (side ? v_new : k_new) + ((size_t)b * hkv + h) * D + first;
+    const S* src = (side ? v_new : k_new) + ((size_t)b * hkv + h) * d + first;
     float x[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) x[e] = live(e) ? to_f(src[off(e)]) : 0.f;
-    P* dst = page + (size_t)(side * page_size + row) * D + first;
+    P* dst = page + (size_t)(side * page_size + row) * d + first;
     if constexpr (sizeof(P) == 1) {
       float amax = 0.f;
 #pragma unroll
@@ -92,8 +97,8 @@ __global__ void __launch_bounds__(32)
       }
       if (lane < 4) {
         const uint32_t bits = __float_as_uint(scale);
-        const int srow = 2 * page_size + side * sr + 4 * (row / D) + lane;
-        page[(size_t)srow * D + row % D] = (P)(int8_t)(bits >> (8 * lane));
+        const int srow = 2 * page_size + side * sr + 4 * (row / d) + lane;
+        page[(size_t)srow * d + row % d] = (P)(int8_t)(bits >> (8 * lane));
       }
     } else {
 #pragma unroll
@@ -113,7 +118,7 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
   page_append_kernel<S, P, D><<<grid, 32, 0, stream>>>(                     \
       static_cast<const S*>(k_new), static_cast<const S*>(v_new),           \
       static_cast<const int*>(page_ids), static_cast<const int*>(rows),     \
-      static_cast<P*>(pages), hkv, num_pages, page_rows, page_size)
+      static_cast<P*>(pages), hkv, num_pages, page_rows, page_size, head_dim)
   if (head_dim == 128) {
     TFA_APPEND_LAUNCH(128);
   } else if (head_dim == 256) {
@@ -124,6 +129,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
     TFA_APPEND_LAUNCH(96);
   } else if (head_dim == 80) {
     TFA_APPEND_LAUNCH(80);
+  } else if (head_dim >= 1 && head_dim <= 256) {
+    TFA_APPEND_LAUNCH(0);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -135,8 +142,9 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
 
 // Returns a cudaError_t: 0 when the kernel was launched. src_dtype (k_new,
 // v_new): 0 bf16, 1 f32. page_dtype: 0 bf16, 1 f32, 2 int8 (then page_rows
-// = 2 * page_size + 2 * sr). head_dim: 64, 80, 96, 128 or 256. The caller
-// has checked shapes, contiguity and alignment.
+// = 2 * page_size + 2 * sr). head_dim: any in [1, 256] (64, 80, 96, 128
+// and 256 on instances of their own). The caller has checked shapes,
+// contiguity and alignment.
 extern "C" int tfa_page_append(const void* k_new, const void* v_new,
                                const void* page_ids, const void* rows,
                                void* pages, int batch, int hkv,

@@ -1,6 +1,7 @@
 // One-token GQA decode attention over fused KV pages, for Hopper (sm_90a):
-// bf16 q, over bf16 pages and over int8 pages (f32 q: paged_decode_f32.cu;
-// the two sources build in parallel).
+// bf16 q, over bf16 pages and over int8 pages, the compiled widths (f32 q:
+// paged_decode_f32.cu; every other head_dim and page size:
+// paged_decode_widths.cu; the sources build in parallel).
 //
 // Replaces tiny_flash_attention_tpu/ops/paged_fused.py::
 // fused_paged_decode_attention (_fused_decode_kernel) for pages of q's
@@ -34,7 +35,7 @@ extern "C" int tfa_paged_decode(const void* q, const void* pages,
                                 int window, float scale_log2, int dtype,
                                 int quantized, void* stream) {
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)fused_decode<__nv_bfloat16>(
+  return (int)fused_decode<__nv_bfloat16, false>(
       q, pages, lengths, page_indices, pi_stride, pages_per_seq, splits,
       pages_per_split, out, lse, ws, arrivals, batch, hq, hkv, qblocks,
       num_pages, page_size, page_rows, head_dim, window, scale_log2,

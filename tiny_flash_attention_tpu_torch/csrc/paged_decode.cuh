@@ -83,8 +83,8 @@
 // :409-410, :490-497); the splits then cover the pages of the window,
 // counted from the page of its first token. The caller keeps window <= P *
 // ps. page_indices may be a column slice of a wider table: its row stride
-// is an argument. page_size is 16 or a multiple of 32; head_dim 64, 80, 96
-// or 128 (every row a multiple of 16 bytes, so bulk copies move it), and
+// is an argument. The compiled widths: page_size 16 or a multiple of 32;
+// head_dim 64, 80, 96 or 128 (every row a multiple of 16 bytes, so bulk copies move it), and
 // 256: a warp's 32-token stage of bf16 pages is then 32 KiB (the block's
 // rings 128 KiB, one block an SM), each lane scores 32 elements of a row in
 // four 16-byte pieces and owns 8 contiguous output columns; the group's q
@@ -95,6 +95,25 @@
 // instance spilled 28 KB a thread): ops/dims.py::decode_group covers a
 // group of 8 by two row blocks of 4, which read the same pages, the second
 // from L2.
+//
+// Every other head_dim in [1, 256] and page size (the JAX package takes
+// any page size; pages are the cache and are never padded) runs on the
+// run-time width instances (paged_decode_widths*.cu,
+// paged_decode_separate_widths.cu): the layout's D is 0 and its rows are
+// d wide, the instance's width D is 64, 128 or 256 (the least that holds
+// d, `decode_width`) and the stages, q, the scoring slices and the PV
+// columns are laid out at that width. What differs from the compiled
+// widths is the load: a page edge may fall anywhere in a chunk (page size
+// 48: tokens 32-63 lie on two pages; page size 1: 32 pages a chunk), and a
+// row of d elements need not be whole 16-byte pieces (d 100: 200 bytes in
+// bf16, 100 in int8), so bulk copies do not apply. Each lane copies pieces
+// of the chunk's rows, token by token, by cp.async of 16, 8 or 4 bytes (the
+// largest that divides a row: every row of the pages starts at a multiple
+// of it), by a load and a store for rows of an odd number of 2-byte
+// halves or bytes, each chunk one cp.async group; the stages are zeroed
+// once, so the columns past d score and accumulate exact zeros (q's
+// padded columns are zero too), and the epilogue stores d columns. int8
+// scale bytes are read from the page by the token's lane, a chunk ahead.
 
 #pragma once
 
@@ -205,22 +224,27 @@ __device__ __forceinline__ float elem_to_f(P x) {
     return to_f(x);
 }
 
-// Fused pages (paged_fused.py:86-103): one (hkv, num_pages, page_rows, D)
+// Fused pages (paged_fused.py:86-103): one (hkv, num_pages, page_rows, d)
 // array; a page holds K in rows [0, ps) and V in rows [ps, 2ps); an int8
 // page adds sr scale rows for K and then sr for V, byte j of token i's f32
-// scale at row 2ps + 4 * (i / D) + j (V: + sr), lane i % D.
+// scale at row 2ps + 4 * (i / d) + j (V: + sr), lane i % d. D is the row
+// width d the instance compiles, or 0 for the run-time width instances,
+// whose rows are `dim` elements.
 template <typename P, int D>
 struct FusedPages {
+  static constexpr bool kRunTimeWidth = D == 0;
   const P* pages;
   int num_pages, page_size, page_rows;
+  int dim;  // the row width where D is 0
+  __device__ int width() const { return D > 0 ? D : dim; }
   __device__ const P* page(int h, int id) const {
-    return pages + ((size_t)h * num_pages + id) * page_rows * D;
+    return pages + ((size_t)h * num_pages + id) * page_rows * width();
   }
   __device__ const P* k_row(int h, int id, int r) const {
-    return page(h, id) + (size_t)r * D;
+    return page(h, id) + (size_t)r * width();
   }
   __device__ const P* v_row(int h, int id, int r) const {
-    return page(h, id) + (size_t)(page_size + r) * D;
+    return page(h, id) + (size_t)(page_size + r) * width();
   }
   // the scale bytes of rows [r, r + n) into sc (K: [4][32] bytes, V: the
   // next 128), at token offset o of the chunk; a run that crosses a group
@@ -228,6 +252,7 @@ struct FusedPages {
   // each a multiple of 16 bytes (16 divides D and the chunk's offsets)
   __device__ void load_scales(int h, int id, int r, int n, int o,
                               uint8_t* sc, uint64_t* bar) const {
+    static_assert(D > 0, "the compiled widths' bulk copies");
     const int sr = (page_rows - 2 * page_size) / 2;
     const uint8_t* base = reinterpret_cast<const uint8_t*>(page(h, id));
     for (int a = 0; a < n;) {
@@ -249,25 +274,44 @@ struct FusedPages {
                            (uint32_t)sc[64 + t] << 16 |
                            (uint32_t)sc[96 + t] << 24);
   }
+  // row r's K and V scales read from the page, byte by byte (the run-time
+  // width instances: a scale row of d bytes is no whole 16-byte piece)
+  __device__ float2 token_scales(int h, int id, int r) const {
+    const int d = width(), sr = (page_rows - 2 * page_size) / 2;
+    const uint8_t* k = reinterpret_cast<const uint8_t*>(page(h, id)) +
+                       (size_t)(2 * page_size + 4 * (r / d)) * d + r % d;
+    const uint8_t* v = k + (size_t)sr * d;
+    uint32_t kb = 0, vb = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kb |= (uint32_t)__ldg(k + (size_t)j * d) << 8 * j;
+      vb |= (uint32_t)__ldg(v + (size_t)j * d) << 8 * j;
+    }
+    return make_float2(__uint_as_float(kb), __uint_as_float(vb));
+  }
 };
 
-// Separate pages (paged.py:224-342): K and V arrays (hkv, num_pages, ps, D);
-// an int8 cache adds f32 scales (hkv, num_pages, ps, 1) per side.
+// Separate pages (paged.py:224-342): K and V arrays (hkv, num_pages, ps, d);
+// an int8 cache adds f32 scales (hkv, num_pages, ps, 1) per side. D as in
+// FusedPages.
 template <typename P, int D>
 struct SeparatePages {
+  static constexpr bool kRunTimeWidth = D == 0;
   const P* k;
   const P* v;
   const float* k_scales;
   const float* v_scales;
   int num_pages, page_size;
+  int dim;  // the row width where D is 0
+  __device__ int width() const { return D > 0 ? D : dim; }
   __device__ size_t token(int h, int id, int r) const {
     return ((size_t)h * num_pages + id) * page_size + r;
   }
   __device__ const P* k_row(int h, int id, int r) const {
-    return k + token(h, id, r) * D;
+    return k + token(h, id, r) * width();
   }
   __device__ const P* v_row(int h, int id, int r) const {
-    return v + token(h, id, r) * D;
+    return v + token(h, id, r) * width();
   }
   __device__ void load_scales(int h, int id, int r, int n, int o,
                               uint8_t* sc, uint64_t* bar) const {
@@ -277,7 +321,37 @@ struct SeparatePages {
   __device__ static float scale(const uint8_t* sc, int t) {
     return reinterpret_cast<const float*>(sc)[t];
   }
+  __device__ float2 token_scales(int h, int id, int r) const {
+    const size_t t = token(h, id, r);
+    return make_float2(__ldg(k_scales + t), __ldg(v_scales + t));
+  }
 };
+
+// 8-byte async copy (.ca: .cg takes 16 bytes only)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// One GB-byte piece of a row from device to shared memory: by cp.async for
+// 16, 8 and 4 bytes, else by a load and a store.
+template <int GB>
+__device__ __forceinline__ void copy_piece(unsigned char* dst,
+                                           const unsigned char* src) {
+  if constexpr (GB == 16)
+    cp_async16(dst, src, true);
+  else if constexpr (GB == 8)
+    cp_async8(dst, src);
+  else if constexpr (GB == 4)
+    cp_async4(dst, src, true);
+  else if constexpr (GB == 2)
+    *reinterpret_cast<uint16_t*>(dst) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+  else
+    *dst = __ldg(src);
+}
 
 // Ring stages a warp keeps, by page element size: two for int8, one for
 // wider pages (the 2-byte stage is twice the size; other warps and blocks
@@ -303,7 +377,9 @@ __host__ __device__ constexpr int decode_smem_bytes() {
 }
 
 // T: q and out dtype; P: page element type (T, or int8_t for int8 pages);
-// L: the page layout; RING: the sliding-window ring walk (window > 0).
+// D: the instance's width; L: the page layout, whose rows are D wide or, in
+// the run-time width instances (L::kRunTimeWidth), any d <= D; RING: the
+// sliding-window ring walk (window > 0).
 template <typename T, typename P, int D, int G, bool RING, typename L>
 __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     paged_decode_kernel(const T* __restrict__ q, const L pages,
@@ -314,6 +390,7 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
                         float* ws, int* arrivals, int hkv, int qblocks,
                         int window, float scale_log2) {
   constexpr bool QUANT = sizeof(P) == 1;
+  constexpr bool ANY = L::kRunTimeWidth;
   constexpr int WARPS = decode_warps<P, D>();
   constexpr int STAGES = decode_stages<P>();
   constexpr int SB = decode_stage_bytes<P, D>();
@@ -346,8 +423,16 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hq = hkv * G;
   const int ps = pages.page_size;
+  const int dd = ANY ? pages.width() : D;  // the rows' true width
   unsigned char* wring = ring + warp * STAGES * SB;
   uint64_t* wbar = bars + warp * STAGES;
+  if constexpr (ANY) {
+    // the stages' columns past dd stay zero (the copies write the first dd
+    // of a row), so they score and accumulate exact zeros; the warp syncs
+    // below before any copy is issued
+    for (int x = lane; x < STAGES * SB / 16; x += 32)
+      reinterpret_cast<uint4*>(wring)[x] = make_uint4(0, 0, 0, 0);
+  }
   if (lane == 0) {
     for (int st = 0; st < STAGES; ++st) mbar_init(&wbar[st], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -373,31 +458,103 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
   };
   const int seg = min(ps, CHUNK);  // rows of one page in a chunk
 
-  // lane 0: the warp's local chunk c into its stage
+  // lane 0: the warp's local chunk c into its stage (the compiled widths,
+  // page size 16 or a multiple of 32: a chunk's rows of one page are one
+  // run of whole 16-byte pieces)
   auto issue = [&](int c) {
-    const int c0 = c_first + (warp + WARPS * c) * CHUNK;
-    unsigned char* st = wring + c % STAGES * SB;
-    uint64_t* bar = &wbar[c % STAGES];
-    uint32_t bytes = 0;
-    for (int o = 0; o < CHUNK; o += seg)
-      if (c0 + o + seg > t_lo && c0 + o < t_hi)
-        bytes += seg * (2 * D * (int)sizeof(P) + (QUANT ? 8 : 0));
-    mbar_expect_tx(bar, bytes);
-    for (int o = 0; o < CHUNK; o += seg) {
-      const int t = c0 + o;
-      if (!(t + seg > t_lo && t < t_hi)) continue;
-      const int id = page_of(t), r = t % ps;
-      const uint32_t nb = seg * D * sizeof(P);
-      bulk_load(st + o * D * sizeof(P), pages.k_row(h, id, r), nb, bar);
-      bulk_load(st + (CHUNK + o) * D * sizeof(P), pages.v_row(h, id, r), nb,
-                bar);
-      if constexpr (QUANT)
-        pages.load_scales(h, id, r, seg, o,
-                          st + 2 * CHUNK * D * sizeof(P), bar);
+    if constexpr (!ANY) {
+      const int c0 = c_first + (warp + WARPS * c) * CHUNK;
+      unsigned char* st = wring + c % STAGES * SB;
+      uint64_t* bar = &wbar[c % STAGES];
+      uint32_t bytes = 0;
+      for (int o = 0; o < CHUNK; o += seg)
+        if (c0 + o + seg > t_lo && c0 + o < t_hi)
+          bytes += seg * (2 * D * (int)sizeof(P) + (QUANT ? 8 : 0));
+      mbar_expect_tx(bar, bytes);
+      for (int o = 0; o < CHUNK; o += seg) {
+        const int t = c0 + o;
+        if (!(t + seg > t_lo && t < t_hi)) continue;
+        const int id = page_of(t), r = t % ps;
+        const uint32_t nb = seg * D * sizeof(P);
+        bulk_load(st + o * D * sizeof(P), pages.k_row(h, id, r), nb, bar);
+        bulk_load(st + (CHUNK + o) * D * sizeof(P), pages.v_row(h, id, r),
+                  nb, bar);
+        if constexpr (QUANT)
+          pages.load_scales(h, id, r, seg, o,
+                            st + 2 * CHUNK * D * sizeof(P), bar);
+      }
     }
   };
-  if (lane == 0)
+
+  // The run-time width instances copy each token's K and V rows on their
+  // own (a page edge may fall anywhere in a chunk, and a row of dd elements
+  // need not be whole 16-byte pieces): row tt of the chunk into stage row
+  // tt (V: CHUNK + tt), dd * sizeof(P) bytes as GR pieces of GB bytes, the
+  // largest of 16, 8, 4, 2 and 1 that divides a row (every row of the pages
+  // and of the stage starts at a multiple of it); the warp copies RPI rows
+  // at once, lane (sub, gr0) piece gr0 (and gr0 + 32, ...) of row sub.
+  const int row_bytes = dd * (int)sizeof(P);
+  const int GB = row_bytes % 16 == 0 ? 16
+                 : row_bytes % 8 == 0 ? 8
+                 : row_bytes % 4 == 0 ? 4
+                 : row_bytes % 2 == 0 ? 2 : 1;
+  const int GR = row_bytes / GB;
+  const int RPI = GR >= 32 ? 1 : 32 / GR;
+  const int sub = GR >= 32 ? 0 : lane / GR;  // >= RPI: the lane idles
+  const int gr0 = GR >= 32 ? lane : lane % GR;
+  auto copy_rows = [&](auto gb, int c) {
+    constexpr int B = decltype(gb)::value;
+    const int c0 = c_first + (warp + WARPS * c) * CHUNK;
+    unsigned char* st = wring + c % STAGES * SB;
+    for (int tt = sub; tt < CHUNK && sub < RPI; tt += RPI) {
+      const int t = c0 + tt;
+      if (t < t_lo || t >= t_hi) continue;
+      const int id = page_of(t), r = t % ps;
+      const auto* k = reinterpret_cast<const unsigned char*>(
+          pages.k_row(h, id, r));
+      const auto* v = reinterpret_cast<const unsigned char*>(
+          pages.v_row(h, id, r));
+      unsigned char* kd = st + tt * D * sizeof(P);
+      unsigned char* vd = st + (CHUNK + tt) * D * sizeof(P);
+      for (int g = gr0; g < GR; g += 32) {
+        copy_piece<B>(kd + g * B, k + g * B);
+        copy_piece<B>(vd + g * B, v + g * B);
+      }
+    }
+  };
+  // every lane: the warp's local chunk c (none past `mine`) as one
+  // cp.async group, committed in any case so that group c is the c-th
+  auto issue_rows = [&](int c) {
+    if constexpr (ANY) {
+      if (c < mine) {
+        switch (GB) {
+          case 16: copy_rows(std::integral_constant<int, 16>(), c); break;
+          case 8: copy_rows(std::integral_constant<int, 8>(), c); break;
+          case 4: copy_rows(std::integral_constant<int, 4>(), c); break;
+          case 2: copy_rows(std::integral_constant<int, 2>(), c); break;
+          default: copy_rows(std::integral_constant<int, 1>(), c);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  // int8 pages at a run-time width: the K and V scales of the lane's token
+  // of local chunk c, read from the page (1 past the attended tokens)
+  auto chunk_scales = [&](int c) {
+    const int t = c_first + (warp + WARPS * c) * CHUNK + lane;
+    float2 sc = make_float2(1.f, 1.f);
+    if constexpr (ANY && QUANT)
+      if (c < mine && t >= t_lo && t < t_hi)
+        sc = pages.token_scales(h, page_of(t), t % ps);
+    return sc;
+  };
+  if constexpr (ANY) {
+    for (int c = 0; c < STAGES; ++c) issue_rows(c);
+  } else if (lane == 0) {
     for (int c = 0; c < min(STAGES, mine); ++c) issue(c);
+  }
+  float2 next_sc = make_float2(1.f, 1.f);
+  if constexpr (ANY && QUANT) next_sc = chunk_scales(0);
 
   // q folded by scale_log2 in its dtype, in the lanes' order: element l of
   // lane i's scoring slice (piece l / EP at piece index i + 8 * piece) at
@@ -407,7 +564,9 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     const int g = x / D, d = x % D;
     const int pc = d / EP, i = pc % 8, l = pc / 8 * EP + d % EP;
     qp[((g * (LE / QV) + l / QV) * 8 + i) * QV + l % QV] =
-        round_to<T>(to_f(q[((size_t)b * hq + hv * G) * D + x]) * qscale);
+        d < dd ? round_to<T>(
+                     to_f(q[((size_t)b * hq + hv * G + g) * dd + d]) * qscale)
+               : 0.f;
   }
   __syncthreads();
   float qr[QREG ? G : 1][QREG ? LE : QV];
@@ -436,14 +595,23 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
 
   for (int c = 0; c < mine; ++c) {
     const int c0 = c_first + (warp + WARPS * c) * CHUNK;
-    mbar_wait(&wbar[c % STAGES], (c / STAGES) & 1);
+    if constexpr (ANY) {
+      cp_async_wait<STAGES - 1>();  // this lane's pieces of chunk c
+      __syncwarp();                 // ... and every other lane's
+    } else {
+      mbar_wait(&wbar[c % STAGES], (c / STAGES) & 1);
+    }
     const unsigned char* st = wring + c % STAGES * SB;
     const P* ks = reinterpret_cast<const P*>(st);
     const P* vs = ks + CHUNK * D;
     const uint8_t* sc = st + 2 * CHUNK * D * sizeof(P);
     // the chunk's scales, lane = token
     float kscale = 1.f, vscale = 1.f;
-    if constexpr (QUANT) {
+    if constexpr (QUANT && ANY) {
+      kscale = next_sc.x;
+      vscale = next_sc.y;
+      next_sc = chunk_scales(c + 1);  // lands while this chunk is scored
+    } else if constexpr (QUANT) {
       kscale = L::scale(sc, lane);
       vscale = L::scale(sc + 128, lane);
     }
@@ -575,10 +743,14 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
         for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pg[g], vf[e], acc[g][e]);
     }
     __syncwarp();  // the stage and p are read: both may be refilled
-    if (lane == 0 && c + STAGES < mine) issue(c + STAGES);
+    if constexpr (ANY)
+      issue_rows(c + STAGES);
+    else if (lane == 0 && c + STAGES < mine)
+      issue(c + STAGES);
   }
 
   // the warps' (m, l, acc), merged in warp order into the block's partial
+  if constexpr (ANY) cp_async_wait<0>();  // only empty groups are left
   __syncthreads();  // the rings are read and every copy has landed
   float* red_m = reinterpret_cast<float*>(smem);
   float* red_l = red_m + WARPS * G;
@@ -599,14 +771,14 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
   auto write_out = [&](int g, int d, float m_f, float num, float den) {
     const float l_safe = (den == 0.f || den != den) ? 1.f : den;
     const size_t row = (size_t)b * hq + hv * G + g;
-    out[row * D + d] = from_f<T>(num / l_safe);
+    out[row * dd + d] = from_f<T>(num / l_safe);
     if (d == 0)
       lse[row] = (m_f == -INFINITY ? kMaskValue : m_f) * kLn2 + logf(l_safe);
   };
   float* mine_ws =
-      ws + (((size_t)b * hkv + hv) * splits + split) * G * (D + 2);
-  for (int x = tid; x < G * D; x += WARPS * 32) {
-    const int g = x / D, d = x % D;
+      ws + (((size_t)b * hkv + hv) * splits + split) * G * (dd + 2);
+  for (int x = tid; x < G * dd; x += WARPS * 32) {
+    const int g = x / dd, d = x % dd;
     float m_b = -INFINITY;
     for (int w = 0; w < WARPS; ++w) m_b = fmaxf(m_b, red_m[w * G + g]);
     float num = 0.f, den = 0.f;
@@ -619,10 +791,10 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     if (splits == 1) {
       write_out(g, d, m_b, num, den);
     } else {
-      mine_ws[g * (D + 2) + 2 + d] = num;
+      mine_ws[g * (dd + 2) + 2 + d] = num;
       if (d == 0) {
-        mine_ws[g * (D + 2)] = m_b;
-        mine_ws[g * (D + 2) + 1] = den;
+        mine_ws[g * (dd + 2)] = m_b;
+        mine_ws[g * (dd + 2) + 1] = den;
       }
     }
   }
@@ -637,17 +809,17 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* all = ws + ((size_t)b * hkv + hv) * splits * G * (D + 2);
-  for (int x = tid; x < G * D; x += WARPS * 32) {
-    const int g = x / D, d = x % D;
+  const float* all = ws + ((size_t)b * hkv + hv) * splits * G * (dd + 2);
+  for (int x = tid; x < G * dd; x += WARPS * 32) {
+    const int g = x / dd, d = x % dd;
     float m_f = -INFINITY;
 #pragma unroll 8
     for (int sp = 0; sp < splits; ++sp)
-      m_f = fmaxf(m_f, __ldcg(all + (sp * G + g) * (D + 2)));
+      m_f = fmaxf(m_f, __ldcg(all + (sp * G + g) * (dd + 2)));
     float num = 0.f, den = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < splits; ++sp) {
-      const float* part = all + (sp * G + g) * (D + 2);
+      const float* part = all + (sp * G + g) * (dd + 2);
       const float ms = __ldcg(part);
       const float wt = ms == -INFINITY ? 0.f : exp2f(ms - m_f);
       num += __ldcg(part + 2 + d) * wt;
@@ -701,18 +873,63 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
   return cudaGetLastError();
 }
 
-// Launches over fused pages (the entries of paged_decode.cu and
-// paged_decode_f32.cu): T q's dtype, P the pages' (T, or int8_t).
-template <typename T, typename P, int D>
+// The instance width that reads head_dim d: with `widths` (the run-time
+// width instances of paged_decode_widths*.cu and
+// paged_decode_separate_widths.cu) the least of 64, 128 and 256 that holds
+// d, else d itself where an instance of d compiles (64, 80, 96, 128, 256);
+// 0 where none does. ops/dims.py::decode_compiled picks the sources (and
+// decode_width the width) alike.
+inline int decode_width(int d, bool widths) {
+  if (widths)
+    return d < 1 || d > 256 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  return d == 64 || d == 80 || d == 96 || d == 128 || d == 256 ? d : 0;
+}
+
+// Calls fn(std::integral_constant<int, W>()) for the width W of
+// decode_width(head_dim, WIDTHS); cudaErrorInvalidValue where there is none.
+template <bool WIDTHS, typename F>
+cudaError_t with_width(int head_dim, F fn) {
+  switch (decode_width(head_dim, WIDTHS)) {
+    case 64: return fn(std::integral_constant<int, 64>());
+    case 128: return fn(std::integral_constant<int, 128>());
+    case 256: return fn(std::integral_constant<int, 256>());
+    case 80:
+      if constexpr (!WIDTHS) return fn(std::integral_constant<int, 80>());
+      break;
+    case 96:
+      if constexpr (!WIDTHS) return fn(std::integral_constant<int, 96>());
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The argument rules of both entries; the compiled widths (WIDTHS false)
+// take page size 16 or a multiple of 32 only, whose chunks' rows of one
+// page are one bulk copy; the run-time width instances any page size.
+template <bool WIDTHS>
+bool decode_args_ok(int batch, int hq, int hkv, int qblocks, int page_size,
+                    int pages_per_seq, int splits, int pages_per_split,
+                    const void* ws, const void* arrivals) {
+  return batch > 0 && hkv > 0 && qblocks > 0 && hq % (hkv * qblocks) == 0 &&
+         page_size > 0 && (WIDTHS || page_size == 16 || page_size % 32 == 0) &&
+         pages_per_seq > 0 && splits >= 1 && pages_per_split >= 1 &&
+         (splits == 1 || (ws != nullptr && arrivals != nullptr));
+}
+
+// Launches over fused pages: T q's dtype, P the pages' (T, or int8_t), D
+// the instance's width; with WIDTHS the rows are head_dim <= D wide.
+template <typename T, typename P, int D, bool WIDTHS>
 cudaError_t launch_fused(int group, const void* q, const void* pages,
                          const void* lengths, const void* page_indices,
                          int pi_stride, int pages_per_seq, int splits,
                          int pages_per_split, void* out, void* lse, void* ws,
                          void* arrivals, int batch, int hkv, int qblocks,
                          int num_pages, int page_size, int page_rows,
-                         int window, float scale_log2, cudaStream_t stream) {
-  const FusedPages<P, D> layout{static_cast<const P*>(pages), num_pages,
-                                page_size, page_rows};
+                         int head_dim, int window, float scale_log2,
+                         cudaStream_t stream) {
+  const FusedPages<P, WIDTHS ? 0 : D> layout{
+      static_cast<const P*>(pages), num_pages, page_size, page_rows,
+      head_dim};
   if (window > 0)
     return launch_group<T, P, D, true>(
         group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
@@ -729,10 +946,18 @@ struct PageType {
   using type = X;
 };
 
+// q's and the pages' element types, as a tag
+template <typename Q, typename X>
+struct DecodeTypes {
+  using q = Q;
+  using page = X;
+};
+
 // One fused-page launch for q of type T over pages of q's type
 // (quantized 0) or int8 pages (quantized 1), the arguments checked as
-// tfa_paged_decode documents them; a cudaError_t.
-template <typename T>
+// tfa_paged_decode documents them, on the compiled widths or (WIDTHS) the
+// run-time width instances; a cudaError_t.
+template <typename T, bool WIDTHS>
 cudaError_t fused_decode(const void* q, const void* pages,
                          const void* lengths, const void* page_indices,
                          int pi_stride, int pages_per_seq, int splits,
@@ -742,34 +967,65 @@ cudaError_t fused_decode(const void* q, const void* pages,
                          int page_rows, int head_dim, int window,
                          float scale_log2, int quantized,
                          cudaStream_t stream) {
-  if (batch <= 0 || hkv <= 0 || qblocks <= 0 || hq % (hkv * qblocks) != 0 ||
-      page_size <= 0 || (page_size != 16 && page_size % 32) ||
-      pages_per_seq <= 0 ||
-      window < 0 || window > pages_per_seq * page_size || splits < 1 ||
-      pages_per_split < 1 ||
-      (splits > 1 && (ws == nullptr || arrivals == nullptr)) ||
+  if (!decode_args_ok<WIDTHS>(batch, hq, hkv, qblocks, page_size,
+                              pages_per_seq, splits, pages_per_split, ws,
+                              arrivals) ||
+      window < 0 || window > pages_per_seq * page_size ||
       (quantized ? page_rows <= 2 * page_size : page_rows != 2 * page_size))
     return cudaErrorInvalidValue;
   const int group = hq / (hkv * qblocks);
-  const auto launch = [&](auto page, auto width) {
-    return launch_fused<T, typename decltype(page)::type,
-                        decltype(width)::value>(
-        group, q, pages, lengths, page_indices, pi_stride, pages_per_seq,
-        splits, pages_per_split, out, lse, ws, arrivals, batch, hkv,
-        qblocks, num_pages, page_size, page_rows, window, scale_log2,
-        stream);
-  };
   const auto widths = [&](auto page) {
-    switch (head_dim) {
-      case 64: return launch(page, std::integral_constant<int, 64>());
-      case 80: return launch(page, std::integral_constant<int, 80>());
-      case 96: return launch(page, std::integral_constant<int, 96>());
-      case 128: return launch(page, std::integral_constant<int, 128>());
-      case 256: return launch(page, std::integral_constant<int, 256>());
-      default: return cudaErrorInvalidValue;
-    }
+    return with_width<WIDTHS>(head_dim, [&](auto width) {
+      return launch_fused<T, typename decltype(page)::type,
+                          decltype(width)::value, WIDTHS>(
+          group, q, pages, lengths, page_indices, pi_stride, pages_per_seq,
+          splits, pages_per_split, out, lse, ws, arrivals, batch, hkv,
+          qblocks, num_pages, page_size, page_rows, head_dim, window,
+          scale_log2, stream);
+    });
   };
   return quantized ? widths(PageType<int8_t>()) : widths(PageType<T>());
+}
+
+// One launch over separate K and V page arrays (q of type T: 0 bf16, 1
+// f32; pages of q's type, or int8 with f32 scales), on the compiled widths
+// or (WIDTHS) the run-time width instances; a cudaError_t.
+template <bool WIDTHS>
+cudaError_t separate_decode(
+    const void* q, const void* k, const void* v, const void* k_scales,
+    const void* v_scales, const void* lengths, const void* page_indices,
+    int pi_stride, int pages_per_seq, int splits, int pages_per_split,
+    void* out, void* lse, void* ws, void* arrivals, int batch, int hq,
+    int hkv, int qblocks, int num_pages, int page_size, int head_dim,
+    float scale_log2, int dtype, int quantized, cudaStream_t stream) {
+  if (!decode_args_ok<WIDTHS>(batch, hq, hkv, qblocks, page_size,
+                              pages_per_seq, splits, pages_per_split, ws,
+                              arrivals) ||
+      (quantized && (k_scales == nullptr || v_scales == nullptr)) ||
+      dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  const int group = hq / (hkv * qblocks);
+  const auto launch = [&](auto types) {
+    using T = typename decltype(types)::q;
+    using P = typename decltype(types)::page;
+    return with_width<WIDTHS>(head_dim, [&](auto width) {
+      constexpr int D = decltype(width)::value;
+      const SeparatePages<P, WIDTHS ? 0 : D> layout{
+          static_cast<const P*>(k), static_cast<const P*>(v),
+          static_cast<const float*>(k_scales),
+          static_cast<const float*>(v_scales), num_pages, page_size,
+          head_dim};
+      return launch_group<T, P, D, false>(
+          group, q, layout, lengths, page_indices, pi_stride, pages_per_seq,
+          splits, pages_per_split, out, lse, ws, arrivals, batch, hkv,
+          qblocks, 0, scale_log2, stream);
+    });
+  };
+  if (dtype == 0)
+    return quantized ? launch(DecodeTypes<__nv_bfloat16, int8_t>())
+                     : launch(DecodeTypes<__nv_bfloat16, __nv_bfloat16>());
+  return quantized ? launch(DecodeTypes<float, int8_t>())
+                   : launch(DecodeTypes<float, float>());
 }
 
 }  // namespace

@@ -26,7 +26,7 @@ extern "C" int tfa_paged_decode_f32(const void* q, const void* pages,
                                     float scale_log2, int dtype,
                                     int quantized, void* stream) {
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)fused_decode<float>(
+  return (int)fused_decode<float, false>(
       q, pages, lengths, page_indices, pi_stride, pages_per_seq, splits,
       pages_per_split, out, lse, ws, arrivals, batch, hq, hkv, qblocks,
       num_pages, page_size, page_rows, head_dim, window, scale_log2,

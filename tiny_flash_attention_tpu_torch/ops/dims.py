@@ -35,6 +35,13 @@ functions where a kernel cannot read the true shape in place:
   away. Above 8, ceil(g / 8) row blocks of 8 q rows read the same pages:
   a G = 16 instance would hold 8 x 16 scores and 16 x D/32 accumulators a
   lane, over the 255 registers a thread may use at head_dim 128.
+- `decode_head_dim` / `decode_compiled` / `decode_width`: the decodes and
+  the append read pages in place (the pages are the cache: never padded)
+  at every head_dim in [1, 256]. 64, 80, 96, 128 and 256 have instances of their own (the
+  decodes' at page size 16 or a multiple of 32, whose chunks' rows of one
+  page are whole bulk copies); every other head_dim and page size runs on
+  the run-time width instances of width 64, 128 or 256, which read rows of
+  the true width and score zeros past it.
 
 A head_dim that is already an instance is passed through without a copy.
 `pad_head_dim.copies` counts the copies it makes, so a caller (the card
@@ -52,8 +59,11 @@ import torch.nn.functional as F
 # instances' (every flash kernel, bf16 and f32)
 FLASH_HEAD_DIMS = (64, 128)
 WIDE_HEAD_DIM = 256
-# head dims and q rows a kv head that the decode kernels compile
+# head dims the decode and append kernels compile at their own width, the
+# widths of the decodes' run-time width instances (each reads any head_dim
+# up to it), and the q rows a kv head that the decodes compile
 DECODE_HEAD_DIMS = (64, 80, 96, 128, 256)
+DECODE_WIDTHS = (64, 128, 256)
 DECODE_GROUPS = (1, 2, 4, 8)
 
 
@@ -132,29 +142,52 @@ def unpad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def decode_head_dim(d: int, what: str) -> None:
-    """Raises NotImplementedError where the decode and append kernels
-    compile no instance of head_dim d (their pages are read in place, so
-    they are never padded). Every dtype pair takes each of them: at 256 f32
-    pages, whose 32-token stage is 64 KiB a warp, run on blocks of fewer
-    warps (ops/configs.py::PAGED_DECODE_F32_WIDE_WARPS)."""
-    if d not in DECODE_HEAD_DIMS:
+    """Raises NotImplementedError where the decode and append kernels take
+    no head_dim d: above 256 (their pages are read in place, so they are
+    never padded; ROADMAP.md queue B-dims-2a). Every dtype pair takes every
+    d in [1, 256]: f32 pages at widths above 128, whose 32-token stage is
+    64 KiB a warp, run on blocks of fewer warps
+    (ops/configs.py::PAGED_DECODE_F32_WIDE_WARPS)."""
+    if not 0 < d <= WIDE_HEAD_DIM:
         raise NotImplementedError(
-            f"head_dim {d}: {what} takes head_dim {DECODE_HEAD_DIMS} (the "
-            f"pages are read in place, never padded)")
+            f"head_dim {d}: {what} takes head_dim 1 to {WIDE_HEAD_DIM} (the "
+            f"pages are read in place, never padded); above 256 is ROADMAP "
+            f"queue B-dims-2a")
+
+
+def decode_compiled(d: int, page_size: int) -> bool:
+    """Whether the decodes read head_dim d at page_size on an instance of
+    d's own (the compiled widths, csrc/paged_decode.cu): d in
+    DECODE_HEAD_DIMS and a page size of 16 or a multiple of 32; else on a
+    run-time width instance (csrc/paged_decode_widths.cu). Raises as
+    decode_head_dim above 256."""
+    decode_head_dim(d, "the CUDA decode kernel")
+    return d in DECODE_HEAD_DIMS and (page_size == 16
+                                      or page_size % 32 == 0)
+
+
+def decode_width(d: int, page_size: int) -> int:
+    """The width of the decode instance that reads head_dim d at page_size,
+    as csrc/paged_decode.cuh::decode_width picks it: d itself on the
+    compiled widths (`decode_compiled`), else the least of DECODE_WIDTHS
+    that holds d."""
+    if decode_compiled(d, page_size):
+        return d
+    return next(w for w in DECODE_WIDTHS if d <= w)
 
 
 def decode_group(group: int, d: int = 128) -> tuple[int, int]:
     """(G, blocks): the decode instance's q rows a kv head and the row
     blocks that cover `group` q heads a kv head, G * blocks >= group: the
     least compiled G up to the top, else ceil(group / top) blocks of the
-    top. The top is 8, and 4 at head_dim 256: there a G = 8 instance (64
-    PV accumulators and 64 scores a lane) spilled 28 KB a thread and ran
-    10x slower on the H100 than two row blocks of 4 over the same pages,
-    the second reading them from L2 (PERF.md, section 6), so the kernels
-    at 256 stop at G = 4."""
+    top. The top is 8, and 4 at head dims above 128 (the instances of width
+    256): there a G = 8 instance (64 PV accumulators and 64 scores a lane)
+    spilled 28 KB a thread and ran 10x slower on the H100 than two row
+    blocks of 4 over the same pages, the second reading them from L2
+    (PERF.md, section 6), so the kernels at 256 stop at G = 4."""
     if group < 1:
         raise ValueError(f"group {group}")
-    top = 4 if d == WIDE_HEAD_DIM else DECODE_GROUPS[-1]
+    top = 4 if d > 128 else DECODE_GROUPS[-1]
     for g in DECODE_GROUPS:
         if g <= top and group <= g:
             return g, 1

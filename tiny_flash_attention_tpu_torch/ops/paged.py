@@ -8,8 +8,11 @@ the paged decode of the north-star's "paged KV decode" configuration
 page_size, 1). A CPU tensor takes the plain version (`paged_decode_plain`,
 the fused decode's arithmetic over these arrays); a CUDA tensor launches
 csrc/paged_decode_separate.cu, the split decode kernel of
-csrc/paged_decode.cuh over this layout, or raises. It takes head_dim 64,
-80, 96, 128 and 256 and any GQA group, the q rows padded as in
+csrc/paged_decode.cuh over this layout (csrc/paged_decode_separate_widths.cu
+at a head_dim or page size without an instance of its own,
+ops/dims.py::decode_width), or raises. It takes every head_dim up to 256,
+every page size the JAX package takes (any for pages of q's dtype, a
+multiple of 128 for int8 pages) and any GQA group, the q rows padded as in
 ops/paged_fused.py.
 
 Two divergences from JAX, where its output is unwritten: a length of 0
@@ -28,11 +31,10 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    decode_group, decode_head_dim, pad_group, unpad_group)
+    decode_compiled, decode_group, decode_head_dim, pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-    decode_plain, decode_splits, decode_workspace, kernel_page_size,
-    split_args, token_pages)
+    decode_plain, decode_splits, decode_workspace, split_args, token_pages)
 from tiny_flash_attention_tpu_torch.ops.quant import QuantizedTensor
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -71,7 +73,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     v, v_scale = _split(v_pages)
     batch, hq, d = q.shape
     hkv, num_pages, page_size, _ = k.shape
-    if v.shape != k.shape or k.shape[-1] != d:
+    if v.shape != k.shape or k.shape[-1] != d or page_size < 1:
         raise ValueError(f"k pages {tuple(k.shape)}, v pages "
                          f"{tuple(v.shape)} for q {tuple(q.shape)}")
     if quantized:
@@ -105,7 +107,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
                               sm_scale=sm_scale)
 
 
-paged_decode_attention.launches = 0   # kernel launches, either format
+# kernel launches, either format; width_launches those on a run-time width
+# instance (ops/dims.py::decode_compiled)
+paged_decode_attention.launches = 0
+paged_decode_attention.width_launches = 0
 
 
 def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
@@ -125,8 +130,14 @@ def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
         **split_args(lengths, page_indices, k.shape[2], None, splits))
 
 
-def _decode_fn():
-    fn = _build.library("paged_decode_separate").tfa_paged_decode_separate
+def _decode_source(d: int, page_size: int) -> str:
+    """The source of the instances that read head_dim d at page_size."""
+    return ("paged_decode_separate" if decode_compiled(d, page_size)
+            else "paged_decode_separate_widths")
+
+
+def _decode_fn(source: str):
+    fn = getattr(_build.library(source), f"tfa_{source}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -149,10 +160,6 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {k.dtype}")
     decode_head_dim(d, "the CUDA decode kernel")
-    if not kernel_page_size(page_size):
-        raise NotImplementedError(
-            f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
-            f"multiple of 32")
     dev = q.device
     tensors = [k, v, lengths, page_indices] + (
         [k_scale, v_scale] if quantized else [])
@@ -182,11 +189,12 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
     P = page_indices.shape[1]
     per, n_splits = decode_splits(P, page_size)
+    source = _decode_source(d, page_size)
     with _build.on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
                               rows, d)
-        err = _decode_fn()(
+        err = _decode_fn(source)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
             lengths.data_ptr(), page_indices.data_ptr(),
             page_indices.stride(0), P, n_splits, per, out.data_ptr(),
@@ -194,6 +202,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
             q.shape[1], hkv, blocks, num_pages, page_size, d,
             in_dtype(sm_scale * LOG2E, q.dtype), _KERNEL_DTYPES[q.dtype],
             int(quantized), stream)
-    _build.check(err, "paged_decode_separate")
+    _build.check(err, source)
     paged_decode_attention.launches += 1
+    paged_decode_attention.width_launches += source.endswith("_widths")
     return unpad_group(out, hkv, group), unpad_group(lse, hkv, group)

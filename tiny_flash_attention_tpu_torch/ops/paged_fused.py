@@ -16,16 +16,20 @@ per sequence through a page table; `fused_page_append` writes one token per
 (kv head, sequence) in place (quantized for int8 pages). A CPU tensor takes
 the plain version, a CUDA tensor launches csrc/paged_decode.cu or, for
 f32 q, csrc/paged_decode_f32.cu (ports `_fused_decode_kernel`, its
-sliding-window ring mode included) or csrc/page_append.cu (ports
-`_append_kernel`) or raises.
+sliding-window ring mode included; at a head_dim or page size those do
+not compile, csrc/paged_decode_widths.cu / paged_decode_widths_f32.cu) or
+csrc/page_append.cu (ports `_append_kernel`) or raises.
 
 The decode kernel splits each sequence's tokens over several blocks
 (page-aligned ranges of the table, `decode_splits`) and merges their
 partial softmax states in split order; `fused_paged_decode_plain(...,
 splits=k)` computes the same partials and merge. Both kernels read rows of
-head_dim 64, 80, 96, 128 or 256 in place (pages are never padded); the
-decode compiles 1, 2, 4 or 8 q rows a kv head (4 at 256) and takes any
-GQA group by padding each kv head's q rows to the next of them, or to row
+any head_dim up to 256 in place (pages are never padded) at every page
+size the JAX package takes (`kernel_page_size`); 64, 80, 96, 128 and 256
+at page size 16 or a multiple of 32 on instances of their own, every other
+on the run-time width instances (ops/dims.py::decode_width). The decode
+compiles 1, 2, 4 or 8 q rows a kv head (4 above 128) and takes any GQA
+group by padding each kv head's q rows to the next of them, or to row
 blocks of 8 (4) above, and slicing out and the LSE back (ops/dims.py), as
 JAX pads them to 8.
 """
@@ -43,7 +47,8 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     decode_split_plan, paged_decode_split_pages, window_pages)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    decode_group, decode_head_dim, pad_group, unpad_group)
+    DECODE_HEAD_DIMS, decode_compiled, decode_group, decode_head_dim,
+    pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -53,10 +58,15 @@ _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
-def kernel_page_size(page_size: int) -> bool:
-    """Whether the decode kernels take this page size (a 32-token chunk
-    holds whole pages, or lies in one)."""
-    return page_size == 16 or (page_size > 0 and page_size % 32 == 0)
+def kernel_page_size(page_size: int, d: int, fmt: str) -> bool:
+    """Whether the decode and append kernels take fused pages of this page
+    size at head_dim d: every geometry the JAX package takes. Pages of bf16
+    or f32, any page size >= 1; int8 pages, page_size <= head_dim or a
+    multiple of it (tiny_flash_attention_tpu/ops/paged_fused.py:76-83,
+    `scale_rows_per_side`: a group of scale bytes never straddles rows)."""
+    if page_size < 1:
+        return False
+    return fmt != "int8" or page_size <= d or page_size % d == 0
 
 
 # --- page packing ------------------------------------------------------------
@@ -165,6 +175,7 @@ def fused_page_append(fused_pages: torch.Tensor, k_new: torch.Tensor,
     """
     hkv, num_pages, prows, d = fused_pages.shape
     fmt = "int8" if fused_pages.dtype == torch.int8 else "bf16"
+    _check_page_size(page_size, d, fmt)
     if prows != page_rows(page_size, d, fmt):
         raise ValueError(f"pages {tuple(fused_pages.shape)} do not hold "
                          f"{fmt} pages of page_size {page_size}")
@@ -182,7 +193,20 @@ def fused_page_append(fused_pages: torch.Tensor, k_new: torch.Tensor,
                              page_size=page_size)
 
 
-fused_page_append.launches = 0   # counted by _append_cuda
+# counted by _append_cuda: every launch, and width_launches those at a
+# head_dim with no instance of its own (the run-time head_dim instance)
+fused_page_append.launches = 0
+fused_page_append.width_launches = 0
+
+
+def _check_page_size(page_size: int, d: int, fmt: str) -> None:
+    """Raises ValueError where the JAX package refuses the page geometry
+    (`kernel_page_size`), on any device."""
+    if not kernel_page_size(page_size, d, fmt):
+        raise ValueError(
+            f"{fmt} fused pages of page_size {page_size} at head_dim {d}: "
+            f"the page size must be >= 1, and for int8 pages <= head_dim or "
+            f"a multiple of it (as in JAX)")
 
 
 def page_append_plain(pages: torch.Tensor, k_new: torch.Tensor,
@@ -257,6 +281,7 @@ def _append_cuda(pages, k_new, v_new, page_ids, rows, *, page_size: int):
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "page_append")
     fused_page_append.launches += 1
+    fused_page_append.width_launches += d not in DECODE_HEAD_DIMS
     return pages
 
 
@@ -288,6 +313,7 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
     batch, hq, d = q.shape
     hkv, num_pages, rows, d2 = fused_pages.shape
     fmt = "int8" if fused_pages.dtype == torch.int8 else "bf16"
+    _check_page_size(page_size, d, fmt)
     if rows != page_rows(page_size, d, fmt) or d2 != d:
         raise ValueError(f"pages {tuple(fused_pages.shape)} do not hold "
                          f"{fmt} pages of page_size {page_size} and d {d}")
@@ -312,10 +338,12 @@ def fused_paged_decode_attention(q: torch.Tensor, fused_pages: torch.Tensor,
 
 # counted by _decode_cuda: launches without a window over pages of q's
 # dtype, int8_launches over int8 pages, ring_launches with a window (either
-# format)
+# format); width_launches counts those of them that ran on a run-time width
+# instance (ops/dims.py::decode_compiled)
 fused_paged_decode_attention.launches = 0
 fused_paged_decode_attention.int8_launches = 0
 fused_paged_decode_attention.ring_launches = 0
+fused_paged_decode_attention.width_launches = 0
 
 
 def _check_window(window: Optional[int], capacity: int) -> None:
@@ -500,13 +528,26 @@ def decode_workspace(device, stream: int, batch: int, kv_heads: int,
     return ws
 
 
-# the source and entry of each q dtype's instances (built in parallel)
+# the source and entry of each q dtype's instances of the compiled widths
+# and of the run-time widths (built in parallel)
 DECODE_ENTRIES = {torch.bfloat16: ("paged_decode", "tfa_paged_decode"),
                   torch.float32: ("paged_decode_f32", "tfa_paged_decode_f32")}
+DECODE_WIDTH_ENTRIES = {
+    torch.bfloat16: ("paged_decode_widths", "tfa_paged_decode_widths"),
+    torch.float32: ("paged_decode_widths_f32",
+                    "tfa_paged_decode_widths_f32")}
 
 
-def _decode_fn(dtype: torch.dtype):
-    source, entry = DECODE_ENTRIES[dtype]
+def decode_entry(dtype: torch.dtype, d: int, page_size: int):
+    """(source, entry) of the fused decode's instances that read head_dim d
+    at page_size for q of `dtype` (ops/dims.py::decode_compiled)."""
+    entries = (DECODE_ENTRIES if decode_compiled(d, page_size)
+               else DECODE_WIDTH_ENTRIES)
+    return entries[dtype]
+
+
+def _decode_fn(dtype: torch.dtype, d: int, page_size: int):
+    source, entry = decode_entry(dtype, d, page_size)
     fn = getattr(_build.library(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
@@ -530,10 +571,6 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
     decode_head_dim(d, "the CUDA decode kernel")
-    if not kernel_page_size(page_size):
-        raise NotImplementedError(
-            f"page_size {page_size}: the CUDA decode kernel takes 16 or a "
-            f"multiple of 32")
     dev = q.device
     if not (fused_pages.device == dev and lengths.device == dev
             and page_indices.device == dev):
@@ -561,14 +598,16 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         stream = torch.cuda.current_stream().cuda_stream
         ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
                               rows, d)
-        err = _decode_fn(q.dtype)(
+        err = _decode_fn(q.dtype, d, page_size)(
             q.data_ptr(), fused_pages.data_ptr(), lengths.data_ptr(),
             page_indices.data_ptr(), page_indices.stride(0), P, n_splits,
             per, out.data_ptr(), lse.data_ptr(), ws[0].data_ptr(),
             ws[1].data_ptr(), batch, q.shape[1], hkv, blocks, num_pages,
             page_size, prows, d, window or 0, scale_log2,
             _KERNEL_DTYPES[q.dtype], int(quantized), stream)
-    _build.check(err, DECODE_ENTRIES[q.dtype][0])
+    _build.check(err, decode_entry(q.dtype, d, page_size)[0])
+    fused_paged_decode_attention.width_launches += not decode_compiled(
+        d, page_size)
     if window is not None:
         fused_paged_decode_attention.ring_launches += 1
     elif quantized:
