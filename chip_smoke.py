@@ -482,6 +482,9 @@ def gate_text(dtype) -> str:
 def flash_readings(errs, folded=None) -> str:
     text = f"out err {errs['out']:.3e} lse err {errs['lse']:.3e}"
     if folded is not None:
+        # the bare out gate above head_dim 256 (utils/testing.py)
+        text += (f" (out beyond one bf16 ulp of |plain| "
+                 f"{errs['spaced']:.3e})")
         text += (f"; at the fold: row {folded['row']:.3e} (out err "
                  f"{folded['out']:.3e}) lse err {folded['lse']:.3e}")
     return text
@@ -595,8 +598,10 @@ def v1_planted_faults(name, q, k, v, sm_scale) -> None:
 def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
                 faults=False):
     """Kernel vs plain on one shape, then the device times of the kernel,
-    the plain version and SDPA (cuda_time_ms: L2 cold, no host time). With
-    `faults`, also what the gate reads on planted faults (planted_faults)."""
+    the plain version and SDPA (cuda_time_ms: L2 cold, no host time) and
+    the device kernel SDPA ran (sdpa_kernel_name), in the log and the row.
+    With `faults`, also what the gate reads on planted faults
+    (planted_faults)."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.benchmarking import (
@@ -635,23 +640,28 @@ def check_flash(name, q_shape, kv_shape, dtype, causal, gen, *, iters=10,
                             iters=iters)["median_ms"]
     t_plain = cuda_time_ms(lambda: flash_attention_plain(
         q, k, v, causal=causal, sm_scale=sm_scale), iters=iters)["median_ms"]
-    t_sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=sdpa_causal, enable_gqa=True),
-        iters=iters)["median_ms"]
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=sdpa_causal, enable_gqa=True)
+    t_sdpa = cuda_time_ms(sdpa, iters=iters)["median_ms"]
+    ran = f" ({sdpa_kernel_name(sdpa)})"
     bound_ms, bound_by = flash_bound(q, k, causal)
     log(f"flash {name}: q{tuple(q_shape)} kv{tuple(kv_shape)} "
         f"{str(dtype).split('.')[-1]} causal={causal} | "
         f"{flash_readings(errs, folded)} ({gate_text(dtype)}){same} | "
         f"kernel "
         f"{t_kernel:.4f} ms "
-        f"plain {t_plain:.4f} ms sdpa {t_sdpa:.4f} ms bound {bound_ms:.4f} ms "
+        f"plain {t_plain:.4f} ms sdpa {t_sdpa:.4f} ms{ran} bound "
+        f"{bound_ms:.4f} ms "
         f"({bound_by}) | {bound_ms / t_kernel:.1%} of the bound, "
         f"{t_kernel / t_sdpa:.2f}x SDPA | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with plain: {name}")
-    return {"max_abs_err": max(errs["out"], errs["lse"]), "ms": t_kernel,
-            "plain_ms": t_plain, "library_ms": t_sdpa, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": [list(q_shape), list(kv_shape)]}
+    row = {"max_abs_err": max(errs["out"], errs["lse"]), "ms": t_kernel,
+           "plain_ms": t_plain, "library_ms": t_sdpa, "bound_ms": bound_ms,
+           "bound_by": bound_by, "shape": [list(q_shape), list(kv_shape)],
+           "library": ran.strip(" ()")}
+    return row
 
 
 def fwd_f32_split_sweep(gen) -> None:
@@ -709,6 +719,41 @@ def split_errs(out, lse, plain):
     ok = (err <= DECODE_OUT_GATE and row <= DECODE_ROW_GATE
           and lse_err <= DECODE_LSE_GATE and bool(torch.isfinite(out).all()))
     return err, row, lse_err, ok
+
+
+def spaced_split_errs(out, lse, plain):
+    """split_errs with the absolute out gate of the decodes above head_dim
+    256 (DECODE_OUT_GATE, earlier runs' readings): an element may differ
+    from a plain version by more than DECODE_OUT_GATE by at most one bf16
+    ulp of that |plain|, and only where out is a bf16 neighbour (within
+    one ulp) of the plain version's f32 out at the kernel's splits before
+    its last rounding, plain("kernel", torch.float32): the two roundings
+    of one f32 value, not a fault. The row and LSE gates are split_errs'.
+    Returns (out err, row err, lse err, the elements past DECODE_OUT_GATE,
+    their largest |out - f32 model| over its ulp, ok)."""
+    from tiny_flash_attention_tpu_torch.utils.testing import (
+        bf16_ulp, row_err)
+
+    ref, ref_lse = plain("kernel")
+    whole, whole_lse = plain(None)
+    got = out.float()
+    over = torch.zeros_like(got, dtype=torch.bool)
+    ok = bool(torch.isfinite(out).all())
+    for want in (ref.float(), whole.float()):
+        e = (got - want).abs()
+        over |= e > DECODE_OUT_GATE
+        ok = ok and bool((e <= bf16_ulp(want).clamp(
+            min=DECODE_OUT_GATE)).all())
+    witness = 0.0
+    if over.any():
+        model = plain("kernel", torch.float32)[0].float()
+        witness = float(((got - model).abs() / bf16_ulp(model))[over].max())
+        ok = ok and witness <= 1.0
+    err = max(max_err(out, ref), max_err(out, whole))
+    row = row_err(out, ref)
+    lse_err = max(max_err(lse, ref_lse), max_err(lse, whole_lse))
+    ok = ok and row <= DECODE_ROW_GATE and lse_err <= DECODE_LSE_GATE
+    return err, row, lse_err, int(over.sum()), witness, ok
 
 
 def gate_readings(err, row, lse_err) -> str:
@@ -977,17 +1022,19 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head_dim above 256 in the flash kernels (bf16 and f32), the quantized
-    # forward and FA1 included, and in the decodes and the append (pages
-    # are read in place; queue B-dims-2a)
+    # head dims above 256: the bf16 backward (queue B-dims-2a-train), f32
+    # (B1, the backward, the decodes: B-dims-2a-f32), the quantized forward
+    # and FA1 (B-dims-2a-quant-v1); above 512 every entry (B-dims-2a-512+),
+    # the bf16 forward, the decodes and the append included
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
     q264 = zeros(1, 2, 128, 264)
     f264 = zeros(1, 2, 128, 264, dtype=torch.float32)
+    q520 = zeros(1, 2, 128, 520)
+    f520 = zeros(1, 2, 128, 520, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
-        lambda: flash_attention(q264, q264, q264, causal=True),
         lambda: flash_attention_bwd(q264, q264, q264, q264, lse, q264,
                                     causal=True),
         lambda: flash_attention(f264, f264, f264, causal=True),
@@ -1000,8 +1047,26 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_quantized(f264, *Q.quantize_kv(
             q264, q264, "int8")),
     ]
+    qd, pages_d = zeros(2, 6, 264, dtype=torch.float32), zeros(
+        2, 4, 32, 264, dtype=torch.float32)
+    attempts += [
+        lambda: fused_paged_decode_attention(qd, pages_d, lengths, table,
+                                             page_size=16),
+        lambda: paged_decode_attention(qd, pages_d, pages_d, lengths,
+                                       table)]
+    n_264 = len(attempts)
+    attempts += [
+        lambda: flash_attention(q520, q520, q520, causal=True),
+        lambda: flash_attention(f520, f520, f520, causal=True),
+        lambda: flash_attention_bwd(q520, q520, q520, q520, lse, q520,
+                                    causal=True),
+        lambda: flash_attention_v1(q520, q520, q520),
+        lambda: flash_attention_quantized(q520, *Q.quantize_kv(
+            q520, q520, "int8")),
+        lambda: flash_attention_rowloop(q520, q520, q520, causal=True),
+    ]
     for dtype in (torch.bfloat16, torch.float32):
-        qd, pages_d = zeros(2, 6, 264, dtype=dtype), zeros(2, 4, 32, 264,
+        qd, pages_d = zeros(2, 6, 520, dtype=dtype), zeros(2, 4, 32, 520,
                                                            dtype=dtype)
         attempts += [
             lambda q=qd, p=pages_d: fused_paged_decode_attention(
@@ -1017,6 +1082,18 @@ def check_not_ported_raise() -> None:
             continue
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
+    # a backward() through B1 at head_dim 384 raises (queue
+    # B-dims-2a-train) and never drops the gradient
+    x384 = zeros(1, 2, 128, 384).requires_grad_()
+    try:
+        flash_attention(x384, x384, x384, causal=True).float().sum(
+            ).backward()
+    except NotImplementedError as e:
+        if "B-dims-2a-train" not in str(e):
+            raise
+    else:
+        raise AssertionError("a backward through B1 at head_dim 384 did "
+                             "not raise")
     # int8 fused pages of page size 48 at head_dim 36 (neither <= head_dim
     # nor a multiple of it) raise as JAX's assert does, before any launch
     q36, pages36 = zeros(2, 6, 36), zeros(2, 4, 2 * 48 + 16, 36,
@@ -1033,11 +1110,14 @@ def check_not_ported_raise() -> None:
             continue
         raise AssertionError("int8 pages JAX refuses ran on the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
-        f"({len(attempts)}: int8 K/V without scales, head_dim 264 in the "
-        f"forward and backward (bf16, f32), FA1 (bf16, f32), the "
-        f"quantized forward (bf16 q, f32 q), the decodes and the append "
-        f"(bf16, f32)); int8 fused pages at page size 48 and head_dim 36 "
-        f"raise ValueError as JAX asserts: ok (the decode, the append)")
+        f"({len(attempts)}: int8 K/V without scales; at head_dim 264 "
+        f"({n_264 - 3} calls) the bf16 backward, B1 and the backward in "
+        f"f32, FA1 (bf16, f32), the quantized forward (bf16 q, f32 q), the "
+        f"decodes with f32 q; at head_dim 520 ({len(attempts) - n_264}) "
+        f"every entry, B1 in bf16, the row loop, the decodes and the "
+        f"append included; a backward() through B1 at head_dim 384 "
+        f"raises); int8 fused pages at page size 48 and head_dim 36 raise "
+        f"ValueError as JAX asserts: ok (the decode, the append)")
 
 
 # --- the autotuner and the native CPU oracle ---------------------------------
@@ -4015,6 +4095,8 @@ DIMS_FLASH_CASES = [(72, 1, "causal"), (72, 3, "window"), (72, 7, "ids"),
 DIMS_DECODE_CASES = [(80, 3, 64), (80, 5, 128), (80, 7, 64), (80, 12, 128),
                      (80, 16, 64), (96, 3, 128), (96, 5, 64), (96, 7, 128),
                      (96, 12, 64), (96, 16, 128)]
+# the model whose head dims run on the instances of width 512 (wider_phase)
+V4_MODEL = "DeepSeek-V4-Flash widths"
 # The models served at published widths (their config.json), 4 layers:
 # (label, ModelConfig fields, bf16 page size, int8 page size: JAX's int8
 # page rule needs page_size <= head_dim or a multiple of it)
@@ -4042,6 +4124,21 @@ DIMS_MODELS = [
                                  n_q_heads=32, n_kv_heads=32, d_head=100,
                                  d_ff=8640, rope_theta=10000.0,
                                  rms_eps=1e-6), 48, 100),
+    # deepseek-ai/DeepSeek-V4-Flash's attention widths, typed in from its
+    # config.json (https://huggingface.co/deepseek-ai/DeepSeek-V4-Flash/
+    # blob/main/config.json): hidden_size 4096, 64 attention heads over 1
+    # kv head of head_dim 512, vocab 129280, rms eps 1e-6; the MLP takes one
+    # shared expert's width (moe_intermediate_size 2048) as d_ff. The
+    # llama-family decoder runs these widths only: the routed experts, the
+    # low-rank q and o projections, the compressed and learned-sparse
+    # attention, the hyper-connections and MTP are not in the JAX package.
+    # Served over bf16 pages of 64 tokens and int8 pages of 128 (<= 512,
+    # JAX's int8 rule); 2,250.3 M parameters at 4 layers (the untied embed
+    # and lm_head 1,059.1 M, each layer 297.8 M). Its phase is
+    # wider_phase; it takes no train step (the backward stops at 256).
+    (V4_MODEL, dict(vocab_size=129280, d_model=4096, n_q_heads=64,
+                    n_kv_heads=1, d_head=512, d_ff=2048, rope_theta=10000.0,
+                    rms_eps=1e-6), 64, 128),
 ]
 # the model whose head_dim and page sizes run on the run-time widths
 WIDTH_MODEL = "OpenLLaMA-3B widths"
@@ -4053,12 +4150,16 @@ DIMS_TRAIN = ("Phi-3-mini widths", "Gemma-2B widths")
 
 def dims_mask(mask, b, n) -> dict:
     """The keywords of one mask: causal, a window of 200, or causal with
-    segment ids changing off the tiles."""
+    segment ids changing off the tiles (with "starts", their static
+    segment_starts too, which prune each q tile's kv range)."""
     if mask == "window":
         return {"causal": True, "window": 200}
-    if mask == "ids":
+    if mask in ("ids", "starts"):
         seg = segment_ids(b, n, (300, 777))
-        return {"causal": True, "segment_ids": (seg, seg)}
+        kw = {"causal": True, "segment_ids": (seg, seg)}
+        if mask == "starts":
+            kw["segment_starts"] = (0, 300, 777)
+        return kw
     return {"causal": True}
 
 
@@ -4070,7 +4171,8 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
     head_dim's scale (1/sqrt(128), 1/sqrt(256): what a default scale taken
     after the padding would give) must fail the gate, and in bf16 so must
     out as an epilogue that stored all 128 (256) columns of the tile at
-    stride 96 (192) (all_columns_epilogue)."""
+    stride 96 (192) (all_columns_epilogue); at 392 the same against the
+    instance of width 512."""
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
@@ -4080,8 +4182,10 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
     k, v = randn((b, hkv, n, d), dtype, gen), randn((b, hkv, n, d), dtype,
                                                     gen)
     kw = dims_mask(mask, b, n)
+    starts = kw.pop("segment_starts", None)
     before = flash_attention.launches
-    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    out, lse = flash_attention(q, k, v, return_lse=True,
+                               segment_starts=starts, **kw)
     torch.cuda.synchronize()
 
     def plain(qq, sc):
@@ -4097,7 +4201,7 @@ def check_dims_flash(d, group, mask, dtype, gen) -> float:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees at head_dim {d}")
-    tile = {96: 128, 192: 256}.get(d)     # the padded width of d
+    tile = {96: 128, 192: 256, 392: 512}.get(d)   # the padded width of d
     if tile:
         f_out, f_lse = plain(q, tile ** -0.5)
         f_errs, f_folded, f_ok = flash_gate(f_out, f_lse, plain, q, dtype)
@@ -4174,7 +4278,8 @@ def padded_head_dims():
     from tiny_flash_attention_tpu_torch.ops import dims
     keep = dims.reads_in_place
     dims.reads_in_place = lambda d: d in (*dims.FLASH_HEAD_DIMS,
-                                          dims.WIDE_HEAD_DIM)
+                                          dims.WIDE_HEAD_DIM,
+                                          dims.WIDER_HEAD_DIM)
     try:
         yield
     finally:
@@ -4258,7 +4363,7 @@ def in_place_fwd(d: int, gen, shape=(4, 32, 2048), hkv=None) -> dict:
     q = randn((b, h, n, d), torch.bfloat16, gen)
     k, v = (randn((b, hkv, n, d), torch.bfloat16, gen) for _ in range(2))
     wide = d > 128
-    inst = "n256" if wide else f"n{d}"
+    inst = ("n512" if d > 256 else "n256") if wide else f"n{d}"
 
     def fwd(narrow=True, padded=False, lse=True):
         # narrow: the width-80/96 instances (products over the true head
@@ -4709,25 +4814,28 @@ def dims_engine_run(label, cfg, params, fmt, ps, seed,
 
 
 def wide_decode_groups(label, fmt, pages, lengths, table, ps, gen,
-                       dtype=torch.bfloat16) -> dict:
-    """B4 at head_dim 256 over a Gemma-2B-width engine cache (layer 0, one
-    kv head) at groups 1, 2 and 8 (two row blocks of G = 4), q in `dtype`,
-    against its plain version (planted V faults at 8), timed beside the
-    bound, with every head_dim-256 decode instance of q's dtype's source
-    and its registers and spill bytes. Returns {"rows": {group: row}}."""
+                       dtype=torch.bfloat16, groups=(1, 2, 8)) -> dict:
+    """B4 at the head_dim of a wide engine cache (layer 0, one kv head:
+    256 at Gemma-2B's widths, 512 at DeepSeek-V4-Flash's) at `groups`
+    (above the instances' top as row blocks of it), q in `dtype`, against
+    its plain version (planted V faults at the last group), timed beside
+    the bound, with every decode instance of that width of q's dtype's
+    source and its registers and spill bytes. Returns {"rows": {group:
+    row}}."""
     from tiny_flash_attention_tpu_torch import _build
-    from tiny_flash_attention_tpu_torch.ops.paged_fused import DECODE_ENTRIES
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import decode_entry
 
+    d = pages.shape[-1]
     rows = {}
-    for group in (1, 2, 8):
-        q = randn((table.shape[0], group, 256), dtype, gen)
+    for group in groups:
+        q = randn((table.shape[0], group, d), dtype, gen)
         rows[group] = check_decode(
             f"wide: {label} {fmt} engine cache, layer 0, group {group}", q,
-            pages, lengths, table, ps, iters=10, faults=group == 8)
+            pages, lengths, table, ps, iters=10, faults=group == groups[-1])
     regs = [x for x in spilling_instances(
-        _build.build_log(DECODE_ENTRIES[dtype][0]), every=True)
-        if ", 256," in x]
-    log(f"wide: {label} {fmt} decode, head_dim-256 instances, "
+        _build.build_log(decode_entry(dtype, d, ps)[0]), every=True)
+        if f", {d}," in x]
+    log(f"wide: {label} {fmt} decode, head_dim-{d} instances, "
         f"registers/spill bytes: {'; '.join(regs)}")
     return {"rows": rows}
 
@@ -4779,10 +4887,11 @@ def dims_model_phase(seed, models=None, train=True) -> dict:
                     f"dims: {label} int8 engine cache, layer 0", q,
                     run["engine"].cache.pages[0], lengths, table, ps,
                     faults=True)
-            if cfg.d_head == 256:
+            if cfg.d_head >= 256:
                 wide[fmt] = wide_decode_groups(
                     label, fmt, run["engine"].cache.pages[0], lengths, table,
-                    ps, gen)
+                    ps, gen, groups=(1, 2, 8) if cfg.d_head == 256
+                    else WIDER_DECODE_GROUPS)
             del run
         del params
     for label, fields, *_ in DIMS_MODELS:
@@ -5229,6 +5338,360 @@ def wide_f32_model_phase(seed) -> dict:
     pair = {label: {}}
     train_pair(label, fields, gen, launches, pair, dtype=torch.float32)
     return {"launches": launches, "train": pair[label], "decode": decode}
+
+
+# --- head dims 257-512: serving at DeepSeek-V4-Flash's attention widths -------
+
+# B1 at head dims in (256, 512] read in place on the instance of width 512
+# (264 and 392 off JAX's 128-lane tiles, 320 and 448 off the instance's
+# 512) and groups 1, 8 and 64 (DeepSeek-V4-Flash's), each under one mask
+# ("starts": the ids with their segment_starts); the jagged mode at 448:
+# (d, group, mask)
+WIDER_FLASH_CASES = [(264, 1, "causal"), (264, 8, "window"),
+                     (264, 64, "starts"), (320, 8, "ids"),
+                     (384, 1, "starts"), (384, 64, "window"),
+                     (392, 8, "causal"), (448, 64, "causal"),
+                     (512, 1, "window"), (512, 8, "starts"),
+                     (512, 64, "ids")]
+# B1 read in place beside the same call padded to 512 (bits; times in
+# turns): (head_dim, (b, h, n), kv heads)
+WIDER_IN_PLACE = [(264, (2, 8, 1024), 1), (392, (2, 8, 1024), 1),
+                  (448, (2, 8, 1024), 1), (384, (4, 8, 2048), 1)]
+# B1 timed beside SDPA and the bound: DeepSeek-V4-Flash's prefill at its
+# engines' longest bucket (64 q heads over 1 kv head of 512) and a head_dim
+# of 384 at Gemma-2B's prefill shape: (label, q shape, kv shape)
+WIDER_FWD_SHAPES = [
+    ("DeepSeek-V4-Flash prefill", (1, 64, 2048, 512), (1, 1, 2048, 512)),
+    ("head_dim 384", (4, 8, 2048, 384), (4, 1, 2048, 384))]
+# B4, B12 and B5 at these head dims x page sizes, the groups by turn
+WIDER_DIMS = (300, 384, 512)
+WIDER_PAGE_SIZES = (1, 48, 64, 128)
+WIDER_GROUPS = (1, 8, 64)
+# B4 over each DeepSeek-V4-Flash-width engine cache at these groups
+WIDER_DECODE_GROUPS = (1, 8, 64)
+# the sources the phase runs (`--wide` builds these alone)
+WIDER_SOURCES = ["flash_fwd", "paged_decode_wide",
+                 "paged_decode_separate_wide", "page_append"]
+
+
+def wider_instances() -> None:
+    """The new instances' build: B1's of width 512 on wgmma (HGMMA in their
+    SASS, no HMMA) with their registers and spill bytes, and every
+    instance of the width-512 decode sources (ptxas)."""
+    from tiny_flash_attention_tpu_torch import _build
+
+    sass = {k: v for k, v in wgmma_instructions(
+        str(_build._target("flash_fwd")[1])).items()
+        if k.startswith("flash_fwd_wgmma_kernel<512,")}
+    regs = [x for x in instance_registers(_build.build_log("flash_fwd"))
+            if x.startswith("flash_fwd_wgmma_kernel<512,")]
+    log(f"wider: flash_fwd's width-512 instances, HGMMA/HMMA (cuobjdump "
+        f"-sass): " + ", ".join(f"{k}: {g}/{h}" for k, (g, h) in
+                                sass.items())
+        + "; registers/spill bytes: " + ", ".join(regs))
+    if len(sass) != 4 or any(g == 0 or h > 0 for g, h in sass.values()):
+        raise AssertionError("B1's width-512 instances are not on wgmma")
+    for name in WIDER_SOURCES[1:3]:
+        log(f"wider: {name} registers/spill bytes: " + "; ".join(
+            spilling_instances(_build.build_log(name), every=True)))
+
+
+def sdpa_expanded(name, q_shape, kv_shape, iters=5) -> dict:
+    """SDPA causal with K and V repeated to q's heads (no enable_gqa, so
+    that its memory-efficient backend may run), timed on inputs of the
+    given shapes, with the device kernel it ran: a second library
+    yardstick beside check_flash's (enable_gqa=True). Its inputs, timed
+    only, come from a generator of their own, so the phase's draws after
+    it are as without it. Returns its ms and kernel."""
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = randn(q_shape, torch.bfloat16, gen)
+    rep = q_shape[1] // kv_shape[1]
+    k, v = (randn(kv_shape, torch.bfloat16, gen).repeat_interleave(rep, 1)
+            for _ in range(2))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    t = cuda_time_ms(sdpa, iters=iters)["median_ms"]
+    ran = sdpa_kernel_name(sdpa)
+    log(f"flash {name}: SDPA with K/V repeated to {q_shape[1]} heads (no "
+        f"enable_gqa) {t:.4f} ms ({ran})")
+    return {"library_expanded_ms": t, "library_expanded": ran}
+
+
+def wider_grid(gen) -> dict:
+    """B4 (bf16 and int8 pages), B12 (bf16 pages, int8 at page size 128)
+    and B5 (bf16, f32 and int8 pages) at WIDER_DIMS x WIDER_PAGE_SIZES, the
+    groups of WIDER_GROUPS by turn, against their plain versions: the
+    decodes at the decode gates (split and unsplit plain) and on the
+    run-time width instances where the pair is not compiled (their launch
+    counts), the append bit for bit. Returns the worst errors by kernel and
+    the checked calls' launches. The decodes' absolute out gate is
+    spaced_split_errs' (one bf16 ulp of |plain| where out rounds the f32
+    model); the elements past DECODE_OUT_GATE and the witness are logged."""
+    from tiny_flash_attention_tpu_torch.ops.dims import decode_compiled
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_plain)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_page_append, fused_paged_decode_attention,
+        fused_paged_decode_plain, pack_paged_cache, page_append_plain)
+    from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
+
+    worst, cases, failed, launches, over = {}, {}, [], {}, {}
+    t0 = time.perf_counter()
+    pairs = [(d, ps) for d in WIDER_DIMS for ps in WIDER_PAGE_SIZES]
+    for i, (d, ps) in enumerate(pairs):
+        group = WIDER_GROUPS[i % len(WIDER_GROUPS)]
+        B, hkv = 4, 2
+        P = -(-WIDTH_TOKENS // ps)
+        num_pages = B * P + 3
+        table = torch.randperm(num_pages, generator=gen, device="cuda")[
+            :B * P].reshape(B, P).to(torch.int32)
+        lengths = torch.tensor([1, ps, WIDTH_TOKENS // 2 + 7, P * ps],
+                               dtype=torch.int32, device="cuda")
+        sc, case = d ** -0.5, (d, ps, group)
+        runtime = not decode_compiled(d, ps)
+
+        def decode(kernel, fn, plain, counter):
+            before = (counter.launches
+                      + getattr(counter, "int8_launches", 0),
+                      counter.width_launches)
+            out, lse = fn()
+            torch.cuda.synchronize()
+            err, row, lse_err, n_over, witness, ok = spaced_split_errs(
+                out, lse, plain)
+            if n_over:
+                n, w = over.get(kernel, (0, 0.0))
+                over[kernel] = (n + n_over, max(w, witness))
+                log(f"wider {kernel} (d, ps, group) {case}: {n_over} "
+                    f"elements past {DECODE_OUT_GATE:.0e}, out err "
+                    f"{err:.4e}; |out - f32 model| at most {witness:.3f} "
+                    f"of its bf16 ulp | {'ok' if ok else 'FAIL'}")
+            after = (counter.launches + getattr(counter, "int8_launches", 0),
+                     counter.width_launches)
+            ok = ok and after == (before[0] + 1, before[1] + runtime)
+            launches[kernel] = launches.get(kernel, 0) + 1
+            cases[kernel] = cases.get(kernel, 0) + 1
+            worst[kernel] = [max(a, b) for a, b in zip(
+                worst.get(kernel, [0.0] * 3), (err, row, lse_err))]
+            if not ok:
+                failed.append((kernel, case, (err, row, lse_err)))
+
+        q = randn((B, hkv * group, d), torch.bfloat16, gen)
+        kp, vp = (randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+                  for _ in range(2))
+        for fmt in ("bf16", "int8"):
+            pages = pack_paged_cache(kp, vp, fmt)
+            decode(f"B4 {fmt}",
+                   lambda: fused_paged_decode_attention(
+                       q, pages, lengths, table, page_size=ps),
+                   lambda sp, dt=None: fused_paged_decode_plain(
+                       q, pages, lengths, table, page_size=ps, sm_scale=sc,
+                       splits=sp, out_dtype=dt), fused_paged_decode_attention)
+            del pages
+        for fmt in ("bf16", "int8") if ps % 128 == 0 else ("bf16",):
+            k, v = ((quantize_int8(x, axis=-1) for x in (kp, vp))
+                    if fmt == "int8" else (kp, vp))
+            decode(f"B12 {fmt}",
+                   lambda: paged_decode_attention(q, k, v, lengths, table),
+                   lambda sp, dt=None: paged_decode_plain(
+                       q, k, v, lengths, table, sm_scale=sc, splits=sp,
+                       out_dtype=dt), paged_decode_attention)
+        for fmt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                           ("int8", torch.bfloat16)):
+            page_fmt = "int8" if fmt == "int8" else "bf16"
+            apages, k_new, v_new, ids, rows = append_inputs(
+                gen, fmt=page_fmt, ps=ps, d=d, P=2, dtype=dtype)
+            want = page_append_plain(apages.clone(), k_new, v_new, ids, rows,
+                                     page_size=ps)
+            got = fused_page_append(apages, k_new, v_new, ids, rows,
+                                    page_size=ps)
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            kernel = f"B5 {fmt}"
+            launches[kernel] = launches.get(kernel, 0) + 1
+            cases[kernel] = cases.get(kernel, 0) + 1
+            worst[kernel] = [max(worst.get(kernel, [0.0])[0],
+                                 0.0 if same else max_err(got, want))]
+            if not same:
+                failed.append((kernel, case, worst[kernel]))
+        del q, kp, vp
+    for kernel in cases:
+        names = (("out", "row", "lse") if len(worst[kernel]) == 3
+                 else ("max abs err",))
+        log(f"wider {kernel}: {cases[kernel]} cases (head dims {WIDER_DIMS} "
+            f"x page sizes {WIDER_PAGE_SIZES}, groups {WIDER_GROUPS} by "
+            f"turn); worst " + ", ".join(
+                f"{n} {x:.3e}" for n, x in zip(names, worst[kernel]))
+            + (f" (gates {DECODE_OUT_GATE:.0e} or one bf16 ulp of "
+               f"|plain| where out rounds the f32 model, "
+               f"{DECODE_ROW_GATE:.4e}, {DECODE_LSE_GATE:.0e}; split and "
+               f"unsplit plain); past {DECODE_OUT_GATE:.0e}: "
+               f"{over.get(kernel, (0, 0.0))[0]} elements, |out - f32 "
+               f"model| at most {over.get(kernel, (0, 0.0))[1]:.3f} ulp"
+               if len(names) == 3 else " (bit for bit)"))
+    log(f"wider: {sum(cases.values())} kernel calls against their plain "
+        f"versions in {time.perf_counter() - t0:.1f} s, {len(failed)} "
+        f"failed" + "".join(f"; FAIL {k} (d, ps, group) {c}: {e}"
+                            for k, c, e in failed[:20]))
+    if failed:
+        raise AssertionError(f"wider: {len(failed)} decode or append cases "
+                             f"disagree with their plain versions")
+    return {"worst": worst, "launches": launches}
+
+
+def wider_phase(gen) -> dict:
+    """The serving path at head dims in (256, 512], each kernel against its
+    plain version: B1 (bf16 over bf16 K/V, the instance of width 512) at
+    WIDER_FLASH_CASES with planted faults at 392 (a scale from 512, an
+    epilogue storing all 512 columns), the jagged mode at 448, in place
+    beside the call padded to 512 (bits, no copy; times in turns) at
+    WIDER_IN_PLACE, timed at WIDER_FWD_SHAPES beside SDPA (its backend
+    named) and the bound with B1's planted faults at V4-Flash's prefill;
+    B4, B12 and B5 over the grid (wider_grid), B4's ring mode at 512
+    (groups 1 and 64 over bf16 pages, 8 over int8), B12 at group 64 over
+    8 sequences up to 8192 tokens with its planted faults, B5 timed at
+    V4-Flash's 8 tokens x 1 kv head; then the DeepSeek-V4-Flash-width
+    engines (dims_model_phase: bf16 pages of 64, int8 pages of 128, B4
+    over each cache at WIDER_DECODE_GROUPS). Returns the rows, the worst
+    errors and the engines' launches."""
+    wider_instances()
+    rows, errs = {}, {}
+    errs["flash_fwd"] = max(check_dims_flash(*c, torch.bfloat16, gen)
+                            for c in WIDER_FLASH_CASES)
+    errs["flash_fwd"] = max(errs["flash_fwd"], check_rowloop(
+        gen, d=448, dtypes=(torch.bfloat16,)))
+    rows["in_place"] = {d: in_place_fwd(d, gen, shape=shape, hkv=hkv)
+                        for d, shape, hkv in WIDER_IN_PLACE}
+    rows["flash"] = {label: check_flash(
+        f"wider: B1 at {label}", q_shape, kv_shape, torch.bfloat16, True,
+        gen, iters=5, faults=q_shape[-1] == 512)
+        for label, q_shape, kv_shape in WIDER_FWD_SHAPES}
+    for label, q_shape, kv_shape in WIDER_FWD_SHAPES:
+        rows["flash"][label].update(sdpa_expanded(
+            f"wider: B1 at {label}", q_shape, kv_shape))
+    errs["flash_fwd"] = max(errs["flash_fwd"], *(
+        r["max_abs_err"] for r in rows["flash"].values()))
+    grid = wider_grid(gen)
+    rows["grid_launches"] = grid["launches"]
+    ring = {}
+    for fmt, group in (("bf16", 1), ("bf16", 64), ("int8", 8)):
+        ring[(fmt, group)] = check_ring(
+            f"wider: {fmt} d 512 group {group}", fmt, gen, hq=group, hkv=1,
+            d=512, ps=128, P=16)
+    rows["b12"] = check_dims_b12(gen, d=512, hq=64, hkv=1)
+    rows["append"] = {
+        (fmt, ps): check_append(f"wider: {fmt} d 512 ps {ps}, "
+                                f"DeepSeek-V4-Flash's 8 tokens x 1 kv head",
+                                fmt, ps, gen, d=512, hkv=1, iters=10)
+        for fmt, ps in (("bf16", 64), ("int8", 128))}
+    worst = grid["worst"]
+    errs["paged_decode"] = max(
+        *worst["B4 bf16"][::2], *(r["max_abs_err"] for (f, _), r in
+                                  ring.items() if f == "bf16"))
+    errs["paged_decode_int8"] = max(*worst["B4 int8"][::2],
+                                    ring[("int8", 8)]["max_abs_err"])
+    errs["paged_decode_separate"] = max(
+        *worst["B12 bf16"][::2], *worst["B12 int8"][::2],
+        *(r["max_abs_err"] for r in rows["b12"].values()))
+    errs["page_append"] = max(
+        *(worst[f"B5 {f}"][0] for f in ("bf16", "f32", "int8")),
+        *(r["max_abs_err"] for r in rows["append"].values()))
+    rows["runtime"] = wider_runtime_timed(gen)
+    models = dims_model_phase(SEED, models=[m for m in DIMS_MODELS
+                                            if m[0] == V4_MODEL],
+                              train=False)
+    return {"rows": rows, "errs": errs, "models": models}
+
+
+def wider_runtime_timed(gen) -> dict:
+    """B4 and B12 on the run-time width-512 instance (head_dim 384) beside
+    the compiled 512, over the same lengths (the DeepSeek-V4-Flash-width
+    engines' 8 caches after their 64 steps) and page tables, 1 kv head:
+    B4 over bf16 pages of 64 and int8 pages of 128 at groups 1 and 64, B12
+    at group 64 over bf16 pages of 64 and int8 pages of 128; each against
+    its plain version at the decode gates, timed beside its bound, with
+    the run-time width launches of the timed calls. Returns the rows by
+    (kernel, format, group, head_dim)."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.paged import (
+        paged_decode_attention, paged_decode_plain)
+    from tiny_flash_attention_tpu_torch.ops.paged_fused import (
+        fused_paged_decode_attention, pack_paged_cache)
+    from tiny_flash_attention_tpu_torch.utils.benchmarking import (
+        cuda_time_ms)
+
+    fields = next(m[1] for m in DIMS_MODELS if m[0] == V4_MODEL)
+    # the prompts and the 64 steps (two steps(32) chunks) of dims_engine_run
+    lens = [len(p) + 64 for p in serve_prompts(T.ModelConfig(
+        **fields, n_layers=1))]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows = {}
+    for fmt, ps in (("bf16", 64), ("int8", 128)):
+        P = -(-2048 // ps)
+        num_pages = 8 * P + 8
+        table = torch.randperm(num_pages, generator=gen, device="cuda")[
+            :8 * P].reshape(8, P).to(torch.int32)
+        for d in (384, 512):
+            pages = pack_paged_cache(
+                randn((1, num_pages, ps, d), torch.bfloat16, gen),
+                randn((1, num_pages, ps, d), torch.bfloat16, gen), fmt)
+            for group in (1, 64):
+                q = randn((8, group, d), torch.bfloat16, gen)
+                width = fused_paged_decode_attention.width_launches
+                row = check_decode(f"wider: B4 {fmt} d {d} ps {ps} group "
+                                   f"{group}, V4-Flash's cache lengths", q,
+                                   pages, lengths, table, ps, iters=10)
+                row["width_launches"] = (
+                    fused_paged_decode_attention.width_launches - width)
+                rows[("B4", fmt, group, d)] = row
+            del pages
+        for d in (384, 512):
+            q, k, v, _, b12_table = b12_inputs(
+                gen, fmt, lens, hq=64, hkv=1, d=d, ps=ps, P=P)
+            width = paged_decode_attention.width_launches
+            out, lse = paged_decode_attention(q, k, v, lengths, b12_table)
+            torch.cuda.synchronize()
+            err, row_e, lse_err, ok = split_errs(out, lse, (
+                lambda sp: paged_decode_plain(q, k, v, lengths, b12_table,
+                                              sm_scale=d ** -0.5,
+                                              splits=sp)))
+            t_kernel = cuda_time_ms(lambda: paged_decode_attention(
+                q, k, v, lengths, b12_table), iters=10)["median_ms"]
+            t_plain = cuda_time_ms(lambda: paged_decode_plain(
+                q, k, v, lengths, b12_table, sm_scale=d ** -0.5),
+                iters=5)["median_ms"]
+            kv = k.values if fmt == "int8" else k
+            bound_ms, bound_by = decode_bound(q, kv, lengths, b12_table, ps)
+            launched = paged_decode_attention.width_launches - width
+            log(f"wider: B12 {fmt} d {d} ps {ps} group 64, V4-Flash's "
+                f"cache lengths {lens} | {gate_readings(err, row_e, lse_err)}"
+                f" | kernel {t_kernel:.4f} ms plain {t_plain:.4f} ms bound "
+                f"{bound_ms:.4f} ms ({bound_by}) | {launched} launches on "
+                f"the run-time width | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"B12 disagrees at head_dim {d}")
+            rows[("B12", fmt, 64, d)] = {
+                "max_abs_err": max(err, lse_err), "ms": t_kernel,
+                "plain_ms": t_plain, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "width_launches": launched}
+            del q, k, v
+    for key in sorted({k[:3] for k in rows}):
+        at = {d: rows[(*key, d)] for d in (384, 512)}
+        log(f"wider: {key[0]} {key[1]} group {key[2]} over V4-Flash's "
+            f"cache lengths: run-time width 512 (d 384) "
+            f"{at[384]['ms']:.4f} ms ({at[384]['width_launches']} run-time "
+            f"launches), compiled 512 {at[512]['ms']:.4f} ms "
+            f"({at[512]['width_launches']}): "
+            f"{at[384]['ms'] / at[512]['ms']:.2f}x")
+    if any((rows[k]["width_launches"] > 0) != (k[3] == 384) for k in rows):
+        raise AssertionError("wider: the run-time and compiled width-512 "
+                             "decodes did not run where expected")
+    return rows
 
 
 # --- context parallel: ring, zigzag ring, Ulysses, all-gather, sharded -------
@@ -6938,6 +7401,16 @@ def widths_main() -> int:
     return 0
 
 
+def wider_main() -> int:
+    """`--wide`: the head_dim 257-512 phase and the DeepSeek-V4-Flash-width
+    engines alone (their sources built first)."""
+    card_settings()
+    log(f"card: {gpu_info()}")
+    build_report(WIDER_SOURCES)
+    wider_phase(torch.Generator(device="cuda").manual_seed(SEED + 3))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on the card",
@@ -7062,7 +7535,9 @@ def main() -> int:
     # and the kernels recorded the same (PERF.md, section 6); the launch
     # gates count device records
     wide = wide_phase(gen)
-    dims_models = dims_model_phase(SEED)
+    # the DeepSeek-V4-Flash-width engines run in wider_phase, below
+    dims_models = dims_model_phase(SEED, models=[m for m in DIMS_MODELS
+                                                 if m[0] != V4_MODEL])
     dlaunch = dims_models["launches"]
     # the decodes and the append at every head_dim up to 256 and every page
     # size JAX takes, on a generator of their own (the phases after them
@@ -7087,6 +7562,14 @@ def main() -> int:
     # quantized forward and FA1, through their package entries
     wide_qv = wide_quant_v1_phase(gen)
     wq_rows = wide_qv["rows"]
+    # head dims 257-512: B1, B4, B12 and B5 on their instances of width 512
+    # and the DeepSeek-V4-Flash-width engines, on a generator of their own
+    wider = wider_phase(torch.Generator(device="cuda").manual_seed(SEED + 3))
+    v4 = wider["models"]["by_model"][V4_MODEL]
+    v4_dec = wider["models"]["wide"]
+    from tiny_flash_attention_tpu_torch.ops.dims import (
+        DECODE_TOP_512 as decode_top_512)
+    werrs, wrows = wider["errs"], wider["rows"]
     from tiny_flash_attention_tpu_torch.ops.configs import (
         PAGED_DECODE_F32_WIDE_WARPS as f32_warps)
 
@@ -7456,6 +7939,57 @@ def main() -> int:
          "launches": gemma["page_append"],
          **wide["append"][("int8", 128)],
          "max_abs_err": wide["errs"]["page_append"]},
+        {"name": "flash_fwd_d512", "route": "cuda",
+         "design": "the bf16 kernel's instance of width 512 (head dims "
+                   "257-512 read in place, tiles of eight 64-column boxes): "
+                   "64 q rows that both consumer warpgroups take, each "
+                   "computing the whole S (m64n32k16 over 32 k-steps) and "
+                   "the PV products of its 256-column half of O "
+                   "(m64n256k16, 128 floats a thread); 32-row kv tiles in "
+                   "a two-stage TMA ring whose K and V slots are released "
+                   "apart (197,960 bytes); the first half writes the LSE",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces, "launches": v4["flash_fwd"],
+         **wrows["flash"]["DeepSeek-V4-Flash prefill"],
+         "max_abs_err": werrs["flash_fwd"]},
+        {"name": "paged_decode_d512", "route": "cuda",
+         "design": "head dims 257-512 over bf16 pages on instances of width "
+                   "512 (compiled at 512, run-time widths below): a warp's "
+                   "32-token stage is 64 KiB, so a block has 3 warps; each "
+                   "lane scores 64 elements of a row in eight 16-byte "
+                   "pieces and owns 16 output columns; groups as row "
+                   f"blocks of {decode_top_512} q rows; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": v4["paged_decode"], **v4_dec["bf16"]["rows"][64],
+         "max_abs_err": max(werrs["paged_decode"], *(
+             r["max_abs_err"] for r in v4_dec["bf16"]["rows"].values()))},
+        {"name": "paged_decode_int8_d512", "route": "cuda",
+         "design": "head dims 257-512 over int8 pages (two 33,024-byte "
+                   "stages a warp, 3 warps a block); " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/paged_decode_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": v4["paged_decode_int8"], **v4_dec["int8"]["rows"][64],
+         "max_abs_err": max(werrs["paged_decode_int8"], *(
+             r["max_abs_err"] for r in v4_dec["int8"]["rows"].values()))},
+        {"name": "paged_decode_separate_d512", "route": "cuda",
+         "design": "separate K/V page arrays at head dims 257-512 on B4's "
+                   "template at width 512; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         **wrows["b12"]["bf16"],
+         "launches": sum(r["launches"] for r in wrows["b12"].values()),
+         "max_abs_err": werrs["paged_decode_separate"]},
+        {"name": "page_append_d512", "route": "cuda",
+         "design": "head_dim 512 (16 contiguous values a lane) and every "
+                   "other head_dim in 257-511 on a run-time instance (16 "
+                   "values a lane, lane + 32 e); a warp per (kv head, "
+                   "sequence)",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": v4["page_append"], **wrows["append"][("int8", 128)],
+         "max_abs_err": werrs["page_append"]},
         {"name": "quant_matmul", "route": "cuda",
          "design": "bf16 x: mma.sync m16n8k16 on the tensor cores with the "
                    "weight as the 16-row operand (out^T = w^T x^T), payload "
@@ -7639,6 +8173,12 @@ if __name__ == "__main__":
                  else cpu_oracle_phase)
         phase(torch.Generator(device="cuda").manual_seed(SEED + 1))
         sys.exit(0)
+    if sys.argv[1:] == ["--wide"]:
+        # only the head_dim 257-512 phase and the DeepSeek-V4-Flash-width
+        # engines
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(wider_main())
     if sys.argv[1:] == ["--decode-widths"]:
         # only the decode-widths phase and the OpenLLaMA-3B-width engines
         if not torch.cuda.is_available():

@@ -210,19 +210,31 @@ def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
-    # head_dim above 256 (the bf16 and f32 kernels pad up to 256 and no
-    # further)
+    # head_dim above 256: the bf16 forward over bf16 K/V takes it (up to
+    # 512), the bf16 backward (queue B-dims-2a-train) and f32 (queue
+    # B-dims-2a-f32) raise, and a backward() through the forward raises
+    # rather than dropping the gradient; above 512 every entry raises
     q264 = _randn((1, 2, 8, 264), torch.bfloat16, gen)
-    for x in (q264, q264.float()):
-        with pytest.raises(NotImplementedError):
-            flash_attention(x, x, x)
-        with pytest.raises(NotImplementedError):
+    assert flash_attention(q264, q264, q264).shape == q264.shape
+    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
+        flash_attention(q264.float(), q264.float(), q264.float())
+    for x, queue in ((q264, "B-dims-2a-train"),
+                     (q264.float(), "B-dims-2a-f32")):
+        with pytest.raises(NotImplementedError, match=queue):
             flash_attention_bwd(x, x, x, x,
                                 torch.zeros((1, 2, 8), device="cuda"), x,
                                 causal=True)
+    x384 = _randn((1, 2, 8, 384), torch.bfloat16, gen).requires_grad_()
+    out = flash_attention(x384, x384, x384, causal=True)
+    with pytest.raises(NotImplementedError, match="B-dims-2a-train"):
+        out.float().sum().backward()
+    q520 = _randn((1, 2, 8, 520), torch.bfloat16, gen)
+    for x in (q520, q520.float()):
+        with pytest.raises(NotImplementedError, match="B-dims-2a-512"):
+            flash_attention(x, x, x)
     # head_dim above 256 in FA1 (its wide instances pad up to 256 and no
-    # further)
-    for x in (q264, q264.float()):
+    # further; queue B-dims-2a-quant-v1)
+    for x in (q264, q264.float(), q520):
         with pytest.raises(NotImplementedError):
             flash_attention_v1(x, x, x)
     with pytest.raises(NotImplementedError):
@@ -241,26 +253,28 @@ def test_not_ported_raises_on_the_card(gen):
         flash_attention_quantized(q, k8, Q.quantize_fp8(q))
     k264 = Q.quantize_int8(q264)
     for x in (q264, q264.float()):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="B-dims-2a-quant-v1"):
             flash_attention_quantized(x, k264, k264)
     # the decodes and the append read pages in place at every head_dim up
-    # to 256: above it (queue B-dims-2a) they raise, in either dtype; int8
-    # fused pages whose page size is neither <= head_dim nor a multiple of
-    # it raise as JAX's assert does
+    # to 512 (the decodes with f32 q up to 256: queue B-dims-2a-f32) and
+    # raise above (queue B-dims-2a-512+); int8 fused pages whose page size
+    # is neither <= head_dim nor a multiple of it raise as JAX's assert does
     table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
-    for dtype in (torch.bfloat16, torch.float32):
-        qd = _randn((2, 6, 264), dtype, gen)
-        pages_d = torch.zeros((2, 8, 32, 264), dtype=dtype, device="cuda")
+    for dtype, d in ((torch.float32, 264), (torch.bfloat16, 520),
+                     (torch.float32, 520)):
+        qd = _randn((2, 6, d), dtype, gen)
+        pages_d = torch.zeros((2, 8, 32, d), dtype=dtype, device="cuda")
         with pytest.raises(NotImplementedError):
             fused_paged_decode_attention(qd, pages_d, lengths, table,
                                          page_size=16)
         with pytest.raises(NotImplementedError):
             paged_decode_attention(qd, pages_d, pages_d, lengths, table)
-        with pytest.raises(NotImplementedError):
-            fused_page_append(pages_d, qd[:, :2], qd[:, :2], rows2, rows2,
-                              page_size=16)
+        if d > 512:
+            with pytest.raises(NotImplementedError):
+                fused_page_append(pages_d, qd[:, :2], qd[:, :2], rows2,
+                                  rows2, page_size=16)
     pages48 = torch.zeros((2, 8, 2 * 48 + 16, 36), dtype=torch.int8,
                           device="cuda")
     q36 = _randn((2, 6, 36), torch.bfloat16, gen)
@@ -2025,6 +2039,175 @@ def test_wide_smem_layouts_match_configs(gen):
     check_bf16_smem(_build.library("flash_bwd"))
 
 
+# --- head dims 257-512: the instances of width 512 ----------------------------
+# B1 in bf16 over bf16 K/V (64 q rows both consumers take, each one
+# 256-column half of O; 32-row kv tiles), the decodes over bf16 and int8
+# pages (blocks of three warps, groups as row blocks of DECODE_TOP_512) and
+# the append (ops/dims.py).
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "full",
+                                  "offset"])
+@pytest.mark.parametrize("group", [1, 8, 64])
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_wider_flash_kernel_matches_plain(gen, d, group, mask):
+    """B1's instance of width 512 against its plain version at the bf16
+    gates: 300 rows (not a multiple of the 64-row q or 32-row kv tiles),
+    each mask, the decode offset (130 q rows over 300 kv rows), two
+    sequences; a group of 64 is DeepSeek-V4-Flash's."""
+    kw = {"causal": mask != "full"}
+    q_len = 130 if mask == "offset" else 300
+    b = 2
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(b, 300, gen)
+        kw["segment_ids"] = (seg, seg)
+    hkv = 2 if group == 1 else 1
+    _flash_vs_plain(gen, b, hkv * group, hkv, q_len, 300, d, **kw)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", [1, 31, 32, 33, 65, 257])
+@pytest.mark.parametrize("q_len", [1, 63, 65, 257])
+def test_wider_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """q_len on each side of the 64-row q tiles and kv_len on each side of
+    the 32-row kv tiles (one, a ring stage's worth, two stages and one)."""
+    _flash_vs_plain(gen, 1, 8, 1, q_len, kv_len, 512, causal=causal)
+
+
+@pytest.mark.parametrize("d", [264, 392, 448, 512])
+def test_wider_in_place_is_the_padded_call(gen, d):
+    """B1 at a head_dim in (256, 512] read in place: out and the LSE are
+    the bits of the call on tensors padded to 512 (sliced back), under ids
+    with segment_starts (their table at the instance's own tiles), and in
+    the jagged mode; the in-place calls pad nothing (at 512 the padded
+    call is the same call)."""
+    b, n = 2, 700
+    q = _randn((b, 8, n, d), torch.bfloat16, gen)
+    k = _randn((b, 1, n, d), torch.bfloat16, gen)
+    v = _randn((b, 1, n, d), torch.bfloat16, gen)
+    seg = _segment_ids(b, n, (130, 480), gen)
+    kw = {"causal": True, "segment_ids": (seg, seg), "sm_scale": d ** -0.5}
+    copies = pad_head_dim.copies
+    got = flash_attention(q, k, v, return_lse=True,
+                          segment_starts=(0, 130, 480), **kw)
+    lens = torch.tensor([129, n], dtype=torch.int32, device="cuda")
+    jag = flash_attention_rowloop(q, k, v, causal=True, sm_scale=d ** -0.5,
+                                  seq_lengths=lens)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies
+    padded = [pad_head_dim(t, 512) for t in (q, k, v)]
+    want = flash_attention(*padded, return_lse=True, **kw)
+    want_jag = flash_attention_rowloop(*padded, causal=True,
+                                       sm_scale=d ** -0.5, seq_lengths=lens)
+    for a, c in ((got, want), (jag, want_jag)):
+        assert torch.equal(a[0], unpad_head_dim(c[0], d))
+        assert torch.equal(a[1], c[1])
+    _assert_flash_gate(*got, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, segment_ids=(seg, seg),
+        return_lse=True), q, torch.bfloat16)
+
+
+def test_wider_backward_raises(gen):
+    """The bf16 backward stops at 256: a backward() through B1 at 384
+    raises, naming queue B-dims-2a-train, and never drops the gradient."""
+    x = _randn((1, 2, 64, 384), torch.bfloat16, gen).requires_grad_()
+    out = flash_attention(x, x, x, causal=True)
+    with pytest.raises(NotImplementedError, match="B-dims-2a-train"):
+        out.float().sum().backward()
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("d,ps,group", [(512, 64, 1), (512, 128, 64),
+                                        (512, 48, 8), (384, 64, 2),
+                                        (300, 1, 8), (448, 32, 64)])
+def test_wider_decode_matches_plain(gen, d, ps, group, fmt, ring):
+    """B4 at head dims 300-512 (compiled at 512 with page size 16 or a
+    multiple of 32, at run time otherwise), groups as row blocks of
+    DECODE_TOP_512 q rows over the same pages, over bf16 and int8 pages,
+    in plain and ring mode, against the plain version at the kernel's
+    splits; the run-time width instances count their launches."""
+    B, hkv = 4, 1
+    P = -(-600 // ps)
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), torch.bfloat16, gen)
+    pages = pack_paged_cache(
+        _randn((hkv, num_pages, ps, d), torch.bfloat16, gen),
+        _randn((hkv, num_pages, ps, d), torch.bfloat16, gen), fmt)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, ps, P * ps - 5, 3 * P * ps + 30 if ring
+                            else P * ps], dtype=torch.int32, device="cuda")
+    window = min(200, P * ps) if ring else None
+    widths = fused_paged_decode_attention.width_launches
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    assert fused_paged_decode_attention.width_launches == widths + (
+        not decode_compiled(d, ps))
+    ref, ref_lse = fused_paged_decode_plain(
+        q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+        window=window, splits="kernel")
+    assert _err(out, ref) <= tolerance_for(torch.bfloat16)
+    assert _err(lse, ref_lse) <= 1e-4
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("d,ps,group", [(512, 128, 64), (384, 48, 8),
+                                        (300, 128, 1)])
+def test_wider_separate_decode_matches_plain(gen, d, ps, group, fmt):
+    """B12 at head dims 300-512 over bf16 pages and int8 pages with f32
+    scales (int8 at a multiple of 128), against the plain version at the
+    kernel's splits."""
+    if fmt == "int8" and ps % 128:
+        ps = 128
+    B, hkv, P = 4, 1, -(-600 // ps)
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), torch.bfloat16, gen)
+    k, v = (_randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+            for _ in range(2))
+    if fmt == "int8":
+        k, v = Q.quantize_int8(k, axis=-1), Q.quantize_int8(v, axis=-1)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, ps + 3, P * ps - 5, P * ps],
+                           dtype=torch.int32, device="cuda")
+    out, lse = paged_decode_attention(q, k, v, lengths, table)
+    torch.cuda.synchronize()
+    ref, ref_lse = paged_decode_plain(q, k, v, lengths, table,
+                                      sm_scale=d ** -0.5, splits="kernel")
+    assert _err(out, ref) <= tolerance_for(torch.bfloat16)
+    assert _err(lse, ref_lse) <= 1e-4
+
+
+@pytest.mark.parametrize("fmt,dtype", [("bf16", torch.bfloat16),
+                                       ("bf16", torch.float32),
+                                       ("int8", torch.bfloat16)])
+@pytest.mark.parametrize("d,ps", [(512, 64), (512, 1024), (300, 48),
+                                  (384, 1), (511, 128)])
+def test_wider_append_matches_plain(gen, d, ps, fmt, dtype):
+    """B5 at head dims 300-512 (512 on its own instance, the others on the
+    run-time one of 16 values a lane) into bf16, f32 and int8 pages, bit
+    for bit against the scatter decomposition."""
+    hkv, batch, npages = 2, 5, 12
+    shape = (hkv, npages, page_rows(ps, d, fmt), d)
+    pages = (torch.randint(-127, 128, shape, generator=gen, device="cuda")
+             .to(torch.int8) if fmt == "int8" else _randn(shape, dtype, gen))
+    k_new = _randn((batch, hkv, d), dtype, gen) * 3
+    v_new = _randn((batch, hkv, d), dtype, gen)
+    ids = torch.randperm(npages, generator=gen, device="cuda")[:batch].to(
+        torch.int32)
+    rows = torch.randint(0, ps, (batch,), generator=gen, device="cuda").to(
+        torch.int32)
+    want = page_append_plain(pages.clone(), k_new, v_new, ids, rows,
+                             page_size=ps)
+    got = fused_page_append(pages, k_new, v_new, ids, rows, page_size=ps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 # --- head_dim 256 in f32: the wide f32 instances -----------------------------
 # B1's f32 body over 64-row q and 32-row kv tiles, the f32 backward over
 # 32-row tiles, the decodes over f32 pages on blocks of fewer warps, the
@@ -2719,16 +2902,19 @@ def test_width_separate_decode_f32_and_int8(gen, d, ps):
 @pytest.mark.parametrize("d", DECODE_HEAD_DIMS)
 @pytest.mark.parametrize("ps", [16, 32, 64, 128, 48])
 def test_compiled_widths_keep_their_instances(gen, d, ps):
-    """64, 80, 96, 128 and 256 at page size 16 or a multiple of 32 launch
-    the compiled widths (csrc/paged_decode.cu, paged_decode_f32.cu,
-    paged_decode_separate.cu and their own append instances: no run-time
-    width launch); the same head dims at page size 48 launch the run-time
-    width instances. Each against its plain version."""
+    """64, 80, 96, 128, 256 and 512 at page size 16 or a multiple of 32
+    launch the compiled widths (csrc/paged_decode.cu, paged_decode_f32.cu,
+    paged_decode_separate.cu, at 512 paged_decode_wide.cu and
+    paged_decode_separate_wide.cu, and their own append instances: no
+    run-time width launch); the same head dims at page size 48 launch the
+    run-time width instances. Each against its plain version (f32 q up to
+    256: above, it raises, ROADMAP queue B-dims-2a-f32)."""
     assert decode_compiled(d, ps) == (ps != 48)
     for fmt, dtype in (("bf16", torch.bfloat16), ("int8", torch.bfloat16),
                        ("bf16", torch.float32)):
         if fmt == "int8" and not (ps <= d or ps % d == 0):
             continue
-        _check_width_decode(gen, fmt, dtype, d, ps, 2)
+        if dtype != torch.float32 or d <= 256:
+            _check_width_decode(gen, fmt, dtype, d, ps, 2)
         _check_width_append(gen, fmt, dtype, d, ps)
     _check_width_separate(gen, "bf16", torch.bfloat16, d, ps, 2)

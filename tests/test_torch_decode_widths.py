@@ -56,27 +56,37 @@ def _both(a, dtype):
 # --- the rules ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", range(1, 265))
+@pytest.mark.parametrize("d", range(1, 521))
 def test_decode_rule_takes_every_head_dim_to_256(d):
-    """decode_head_dim takes every head_dim in [1, 256] and raises above,
-    naming the kernel and queue B-dims-2a; decode_width is d itself at the
+    """decode_head_dim takes every head_dim in [1, 512] (f32 q up to 256,
+    naming queue B-dims-2a-f32 above) and raises above 512, naming the
+    kernel and queue B-dims-2a-512+; decode_width is d itself at the
     compiled widths (page size 16 or a multiple of 32), else the least run-
-    time width that holds d; decode_group stops at 4 above 128."""
+    time width that holds d; decode_group stops at 4 above 128 and at
+    DECODE_TOP_512 above 256."""
     what = "the CUDA decode kernel"
-    if d > 256:
-        with pytest.raises(NotImplementedError, match="B-dims-2a"):
+    if d > 512:
+        with pytest.raises(NotImplementedError, match="B-dims-2a-512+"):
             dims.decode_head_dim(d, what)
         with pytest.raises(NotImplementedError, match="decode kernel"):
             dims.decode_width(d, 48)
         return
-    dims.decode_head_dim(d, what)
+    dims.decode_q_head_dim(d, torch.bfloat16)
     dims.decode_head_dim(d, "the CUDA append kernel")
-    width = 64 if d <= 64 else 128 if d <= 128 else 256
+    if d > 256:
+        with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
+            dims.decode_q_head_dim(d, torch.float32)
+    else:
+        dims.decode_q_head_dim(d, torch.float32)
+    width = next(w for w in (64, 128, 256, 512) if d <= w)
     for ps in (1, 8, 16, 24, 32, 48, 64, 100, 128, 160):
-        compiled = d in (64, 80, 96, 128, 256) and (ps == 16 or ps % 32 == 0)
+        compiled = d in (64, 80, 96, 128, 256, 512) and (
+            ps == 16 or ps % 32 == 0)
         assert dims.decode_compiled(d, ps) == compiled
         assert dims.decode_width(d, ps) == (d if compiled else width)
-    assert dims.decode_group(8, d) == ((4, 2) if d > 128 else (8, 1))
+    top = dims.DECODE_TOP_512 if d > 256 else 4 if d > 128 else 8
+    assert dims.decode_group(8, d) == (top, 8 // top)
+    assert dims.decode_group(64, d) == (top, 64 // top)
 
 
 @pytest.mark.parametrize("d", [8, 36, 48, 64, 72, 100, 112, 128, 192, 256])

@@ -121,37 +121,58 @@ def test_f32_and_quantized_entries_pad(d):
 
 
 def test_head_dims_above_128_raise():
-    """Above 256 every flash entry raises, f32, the quantized forward and
-    FA1 too, naming themselves, and each pads (128, 256] to 256; the
-    decodes and the append take every head_dim up to 256 (72, 112 and 192
-    among them) and raise above, naming queue B-dims-2a."""
+    """Above 256 the bf16 forward over bf16 K/V takes every head_dim up to
+    512 (a multiple of 8 in place, any other padded to 512); the backward,
+    f32, the quantized forward and FA1 raise there, each naming itself and
+    its ROADMAP queue, and each pads (128, 256] to 256; the decodes and the
+    append take every head_dim up to 512 (72, 112, 192, 300 and 384 among
+    them; the decodes with f32 q up to 256); above 512 everything raises,
+    naming queue B-dims-2a-512+."""
+    fwd, bwd = "the CUDA forward kernel", "the CUDA backward kernels"
     for d in (264, 384, 512):
-        with pytest.raises(NotImplementedError, match="up to 256"):
-            dims.kernel_head_dim(d, "the CUDA forward kernel", wide=True)
-        with pytest.raises(NotImplementedError, match="up to 256"):
-            dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward kernel")
+        with pytest.raises(NotImplementedError, match="up to 256.*"
+                           "B-dims-2a-quant-v1"):
+            dims.kernel_head_dim(d, fwd, wide=True)
+        assert dims.flash_head_dim(d, torch.bfloat16, fwd) == d
+        with pytest.raises(NotImplementedError, match="up to 256.*"
+                           "B-dims-2a-train"):
+            dims.flash_head_dim(d, torch.bfloat16, bwd, backward=True)
         with pytest.raises(NotImplementedError, match="float32 takes "
-                           "head_dim up to 256"):
-            dims.flash_head_dim(d, torch.float32, "the CUDA forward kernel")
+                           "head_dim up to 256.*B-dims-2a-f32"):
+            dims.flash_head_dim(d, torch.float32, fwd)
     for d in (264, 384):
         with pytest.raises(NotImplementedError, match="FA1 kernel takes "
-                           "head_dim up to 256"):
+                           "head_dim up to 256.*B-dims-2a-quant-v1"):
             dims.kernel_head_dim(d, "the CUDA FA1 kernel", wide=True)
         with pytest.raises(NotImplementedError, match="K/V takes head_dim "
-                           "up to 256"):
-            dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
-                                "kernel", quantized=True)
+                           "up to 256.*B-dims-2a-quant-v1"):
+            dims.flash_head_dim(d, torch.bfloat16, fwd, quantized=True)
     for d in (129, 192, 256):
-        assert dims.flash_head_dim(d, torch.float32,
-                                   "the CUDA forward kernel") == 256
+        assert dims.flash_head_dim(d, torch.float32, fwd) == 256
         assert dims.kernel_head_dim(d, "the CUDA FA1 kernel",
                                     wide=True) == 256
-        assert dims.flash_head_dim(d, torch.bfloat16, "the CUDA forward "
-                                   "kernel", quantized=True) == 256
-    for d in (264, 384):
-        with pytest.raises(NotImplementedError, match="B-dims-2a"):
-            dims.decode_head_dim(d, "the CUDA decode kernel")
-    for d in (*dims.DECODE_HEAD_DIMS, 72, 112, 192):
+        assert dims.flash_head_dim(d, torch.bfloat16, fwd,
+                                   quantized=True) == 256
+    for d in (520, 576):
+        for call in (
+                lambda: dims.flash_head_dim(d, torch.bfloat16, fwd),
+                lambda: dims.flash_head_dim(d, torch.bfloat16, bwd,
+                                            backward=True),
+                lambda: dims.flash_head_dim(d, torch.float32, fwd),
+                lambda: dims.flash_head_dim(d, torch.bfloat16, fwd,
+                                            quantized=True),
+                lambda: dims.kernel_head_dim(d, "the CUDA FA1 kernel",
+                                             wide=True),
+                lambda: dims.decode_head_dim(d, "the CUDA decode kernel"),
+                lambda: dims.decode_head_dim(d, "the CUDA append kernel")):
+            with pytest.raises(NotImplementedError, match="B-dims-2a-512+"):
+                call()
+    for d in (264, 384, 512):
+        dims.decode_q_head_dim(d, torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="float32 q takes "
+                           "head_dim up to 256.*B-dims-2a-f32"):
+            dims.decode_q_head_dim(d, torch.float32)
+    for d in (*dims.DECODE_HEAD_DIMS, 72, 112, 192, 300, 384):
         dims.decode_head_dim(d, "the CUDA decode kernel")
         dims.decode_head_dim(d, "the CUDA append kernel")
 

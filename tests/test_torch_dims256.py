@@ -73,35 +73,44 @@ def _both(a, dtype):
 # --- the rule ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", range(129, 265))
+@pytest.mark.parametrize("d", range(129, 521))
 def test_in_place_rule_above_128(d):
-    """bf16 over bf16 K/V, the flash kernels take a multiple of 8 up to
-    256 in place (the wide instances), pad any other head_dim in (128,
-    256] to 256, and raise above 256; the f32 instances and the quantized
-    forward pad every head_dim in (128, 256] to 256 and raise above,
-    naming themselves; pad_head_dim counts each copy it makes."""
+    """bf16 over bf16 K/V, the forward takes a multiple of 8 up to 512 in
+    place (the wide instances up to 256, the instance of width 512 above),
+    pads any other head_dim in (128, 256] to 256 and in (256, 512] to 512,
+    and raises above 512; the bf16 backward stops at 256; the f32
+    instances and the quantized forward pad every head_dim in (128, 256]
+    to 256 and raise above, naming themselves and their ROADMAP queues;
+    pad_head_dim counts each copy it makes."""
     what = "the CUDA forward kernel"
     if d > 256:
         with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
-    else:
-        assert dims.flash_head_dim(d, torch.bfloat16, what,
-                                   quantized=True) == 256
-    if d > 256:
-        with pytest.raises(NotImplementedError, match="up to 256"):
-            dims.flash_head_dim(d, torch.bfloat16, what)
         with pytest.raises(NotImplementedError, match="float32 takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.float32, what)
+        with pytest.raises(NotImplementedError, match="up to 256"):
+            dims.flash_head_dim(d, torch.bfloat16, what, backward=True)
+    else:
+        assert dims.flash_head_dim(d, torch.bfloat16, what,
+                                   quantized=True) == 256
+        assert dims.flash_head_dim(d, torch.float32, what) == 256
+        assert dims.kernel_head_dim(d, what, wide=True) == 256
+    if d > 512:
+        with pytest.raises(NotImplementedError, match="up to 512"):
+            dims.flash_head_dim(d, torch.bfloat16, what)
         assert not dims.reads_in_place(d)
         return
-    assert dims.flash_head_dim(d, torch.float32, what) == 256
     in_place = d % 8 == 0
     assert dims.reads_in_place(d) == in_place
-    assert dims.kernel_head_dim(d, what, wide=True) == 256
-    want = d if in_place else 256
+    tile = 256 if d <= 256 else 512
+    want = d if in_place else tile
     assert dims.flash_head_dim(d, torch.bfloat16, what) == want
+    assert dims.flash_width(d, True) == (tile if in_place else 0)
+    if d <= 256:
+        assert dims.flash_head_dim(d, torch.bfloat16, what,
+                                   backward=True) == want
     x = torch.zeros(1, 1, 3, d)
     before = dims.pad_head_dim.copies
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.bfloat16, what))

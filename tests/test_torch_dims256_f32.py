@@ -89,19 +89,26 @@ def _ids(b, n, bounds):
 # --- the rule and the layouts ------------------------------------------------
 
 
-@pytest.mark.parametrize("d", range(129, 265))
+@pytest.mark.parametrize("d", [*range(129, 265), 384, 512, 520])
 def test_f32_rule_above_128(d):
     """f32 takes every head_dim in (128, 256] on the wide instance, padded
     to 256 where d is not 256 (pad_head_dim counts the copy), and raises
-    above 256; so do the quantized forward and FA1 (136 among them, 257
-    and 264 raising); the decodes and the append take every head_dim up
-    to 256 (256 on its own instances, the others on the run-time width
-    instances of width 256) and raise above."""
+    above 256 (ROADMAP queue B-dims-2a-f32); so do the quantized forward
+    and FA1 (136 among them, 257 and 264 raising, queue
+    B-dims-2a-quant-v1); the decodes take every head_dim up to 256 with
+    f32 q (256 on its own instances, the others on the run-time width
+    instances of width 256) and raise above, where the append and the
+    decodes with bf16 q take it on the instances of width 512."""
     what = "the CUDA forward kernel"
+    # the ROADMAP queue a refusal names: its own up to 512, B-dims-2a-512+
+    # above
+    above = "B-dims-2a-512\\+" if d > 512 else None
     if d > 256:
-        with pytest.raises(NotImplementedError, match="up to 256"):
+        with pytest.raises(NotImplementedError, match="up to 256.*"
+                           + (above or "B-dims-2a-quant-v1")):
             dims.flash_head_dim(d, torch.float32, what, quantized=True)
-        with pytest.raises(NotImplementedError, match="up to 256"):
+        with pytest.raises(NotImplementedError, match="up to 256.*"
+                           + (above or "B-dims-2a-quant-v1")):
             dims.kernel_head_dim(d, "the CUDA FA1 kernel", wide=True)
     else:
         assert dims.flash_head_dim(d, torch.float32, what,
@@ -110,10 +117,20 @@ def test_f32_rule_above_128(d):
                                     wide=True) == 256
     if d > 256:
         with pytest.raises(NotImplementedError, match="float32 takes "
-                           "head_dim up to 256"):
+                           "head_dim up to 256.*"
+                           + (above or "B-dims-2a-f32")):
             dims.flash_head_dim(d, torch.float32, what)
-        with pytest.raises(NotImplementedError, match="B-dims-2a"):
-            dims.decode_head_dim(d, "the CUDA decode kernel")
+        with pytest.raises(NotImplementedError,
+                           match=above or "float32 q takes head_dim up to "
+                           "256.*B-dims-2a-f32"):
+            dims.decode_q_head_dim(d, torch.float32)
+        if d > 512:
+            with pytest.raises(NotImplementedError, match="B-dims-2a-512+"):
+                dims.decode_head_dim(d, "the CUDA append kernel")
+            return
+        dims.decode_head_dim(d, "the CUDA append kernel")
+        dims.decode_q_head_dim(d, torch.bfloat16)
+        assert dims.decode_width(d, 128) == 512
         return
     assert dims.flash_head_dim(d, torch.float32, what) == 256
     x = torch.zeros(1, 1, 3, d)
@@ -121,7 +138,7 @@ def test_f32_rule_above_128(d):
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.float32, what))
     assert y.shape[-1] == 256
     assert dims.pad_head_dim.copies == before + (d != 256)
-    dims.decode_head_dim(d, "the CUDA decode kernel")
+    dims.decode_q_head_dim(d, torch.float32)
     dims.decode_head_dim(d, "the CUDA append kernel")
     assert dims.decode_width(d, 128) == 256
     assert dims.decode_compiled(d, 128) == (d == 256)

@@ -75,7 +75,9 @@ def test_kernel_sources_are_found():
                                 "flash_v1", "page_append", "paged_decode",
                                 "paged_decode_f32",
                                 "paged_decode_separate",
+                                "paged_decode_separate_wide",
                                 "paged_decode_separate_widths",
+                                "paged_decode_wide",
                                 "paged_decode_widths",
                                 "paged_decode_widths_f32", "quant_matmul"]
 

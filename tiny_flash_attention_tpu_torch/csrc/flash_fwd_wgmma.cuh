@@ -103,6 +103,22 @@
 //     (pay_full, v_pay) once k_empty and empty free their slots, and the
 //     producer expands tile j + 1's K and tile j's V while the consumers
 //     run tile j's S and tile j - 1's PV.
+//   * the instance of width 512 (head dims in (256, 512], tiles of eight
+//     64-column boxes; ops/configs.py FLASH_FWD_BF16_512): O over 512
+//     columns would be 256 f32 registers a consumer thread, so the block's
+//     two consumers take the same 64 q rows (HALVES) and split O's columns,
+//     each holding 128 floats of its 256-column half and issuing PV as
+//     m64n256k16 over its half of the V tile. Both compute the whole S = Q
+//     K^T (m64n32k16 over 32 k-steps) from the same tiles in the same
+//     order, so their scores, softmax and row statistics are the same bits,
+//     and only the first writes the LSE. Each folds the q scale into its
+//     half of the q tile's boxes, then both wait on one barrier. Shared
+//     memory: a 64-row q tile (64 KiB) and 32-row K and V tiles (32 KiB
+//     each) in a two-stage ring whose K and V slots are released apart, as
+//     at 256 (197,960 bytes; 64-row kv tiles would take 192 KiB in one
+//     stage). A 512-column row is eight TMA boxes of 64 columns (the
+//     128-byte swizzle's inner box), each landing zeros past column d. The
+//     ping-pong and the intra-warpgroup overlap are kept. Not quantized.
 // Blocks run longest causal rows first (tile_order's longest pruned work
 // first with segment_starts). A warpgroup whose rows all lie past q_len or
 // the jagged length only keeps the ring's count and writes empty rows.
@@ -121,7 +137,11 @@
     !defined(TFA_FWD_BF16_THREADS) || !defined(TFA_FWD_BF16_STAGES) ||    \
     !defined(TFA_FWD_BF16_WIDE_BLOCK_M) ||                                \
     !defined(TFA_FWD_BF16_WIDE_BLOCK_N) ||                                \
-    !defined(TFA_FWD_BF16_WIDE_THREADS) || !defined(TFA_FWD_BF16_WIDE_STAGES)
+    !defined(TFA_FWD_BF16_WIDE_THREADS) ||                                \
+    !defined(TFA_FWD_BF16_WIDE_STAGES) ||                                 \
+    !defined(TFA_FWD_BF16_512_BLOCK_M) ||                                 \
+    !defined(TFA_FWD_BF16_512_BLOCK_N) ||                                 \
+    !defined(TFA_FWD_BF16_512_THREADS) || !defined(TFA_FWD_BF16_512_STAGES)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
 
@@ -133,21 +153,33 @@ static_assert(WM == 128 && TFA_FWD_BF16_BLOCK_N == 128 && WTHREADS == 384 &&
                   TFA_FWD_BF16_WIDE_BLOCK_M == WM &&
                   TFA_FWD_BF16_WIDE_BLOCK_N == 64 &&
                   TFA_FWD_BF16_WIDE_THREADS == WTHREADS &&
-                  TFA_FWD_BF16_WIDE_STAGES == 2,
+                  TFA_FWD_BF16_WIDE_STAGES == 2 &&
+                  TFA_FWD_BF16_512_BLOCK_M == 64 &&
+                  TFA_FWD_BF16_512_BLOCK_N == 32 &&
+                  TFA_FWD_BF16_512_THREADS == WTHREADS &&
+                  TFA_FWD_BF16_512_STAGES == 2,
               "two consumer warpgroups of 64 q rows and a producer "
               "warpgroup over 128-row kv tiles (64-row in two stages at "
-              "the wide instance)");
+              "the wide instance; at 512 both consumers on the same 64 q "
+              "rows over 32-row kv tiles in two stages)");
 
-// The kv tile and the ring of the instances over tiles of D columns: 128
-// rows in TFA_FWD_BF16_STAGES stages up to 128 columns, 64 rows in two
-// stages at 256, whose K and V slots are released apart (SPLIT).
+// The q tile, the kv tile and the ring of the instances over tiles of D
+// columns: 128 q rows (64 a consumer) and 128-row kv tiles in
+// TFA_FWD_BF16_STAGES stages up to 128 columns, 64-row kv tiles in two
+// stages at 256, whose K and V slots are released apart (SPLIT); at 512
+// (HALVES) 64 q rows that both consumers take, each the products of one
+// 256-column half of O, over 32-row kv tiles in two split stages.
 template <int D>
 struct FwdTiles {
   static constexpr bool WIDE = D > 128;
+  static constexpr bool HALVES = D > 256;
+  static constexpr int BM = HALVES ? TFA_FWD_BF16_512_BLOCK_M : WM;
   static constexpr int BN =
-      WIDE ? TFA_FWD_BF16_WIDE_BLOCK_N : TFA_FWD_BF16_BLOCK_N;
+      HALVES ? TFA_FWD_BF16_512_BLOCK_N
+             : WIDE ? TFA_FWD_BF16_WIDE_BLOCK_N : TFA_FWD_BF16_BLOCK_N;
   static constexpr int STAGES =
-      WIDE ? TFA_FWD_BF16_WIDE_STAGES : TFA_FWD_BF16_STAGES;
+      HALVES ? TFA_FWD_BF16_512_STAGES
+             : WIDE ? TFA_FWD_BF16_WIDE_STAGES : TFA_FWD_BF16_STAGES;
   static constexpr bool SPLIT = STAGES == 2;
 };
 
@@ -188,7 +220,7 @@ struct FwdSmem {
   static constexpr int WN = FwdTiles<D>::BN;     // kv rows per tile
   static constexpr int STAGES = FwdTiles<D>::STAGES;
   static constexpr bool SPLIT = FwdTiles<D>::SPLIT;
-  static constexpr int QT = WM * D * 2;          // the q tile
+  static constexpr int QT = FwdTiles<D>::BM * D * 2;  // the q tile
   static constexpr int KV = WN * D * 2;          // one K or V tile
   static constexpr int Q = 0;
   static constexpr int K = QT;                   // [STAGES] K tiles
@@ -302,6 +334,12 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   static_assert(!QUANT || N == D, "payload rows are whole tile rows");
   using S = FwdSmem<D, QUANT>;
   constexpr int WN = S::WN;                      // kv rows per tile
+  // HALVES (512): both consumers take the block's BM = 64 q rows, each
+  // computing the whole S and the PV products of its ON = 256 columns
+  constexpr bool HALVES = FwdTiles<D>::HALVES;
+  static_assert(!QUANT || !HALVES, "no quantized instance above 256");
+  constexpr int BM = FwdTiles<D>::BM;            // q rows per block
+  constexpr int ON = HALVES ? N / 2 : N;         // O columns a consumer holds
   constexpr int STAGES = S::STAGES;
   constexpr bool SPLIT = S::SPLIT;
   constexpr int BOXES = D / 64;                  // 64-wide column blocks
@@ -320,7 +358,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   const int tid = threadIdx.x, wg = tid / 128;
   const int qt = mk.tile_order ? mk.tile_order[blockIdx.x]
                                : gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * WM;
+  const int q0 = qt * BM;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (hq / hkv);
   const int offset = kv_len - q_len;
@@ -331,10 +369,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       mk.seq_lens ? min(max(mk.seq_lens[b], 0), kv_len) : kv_len;
   const int row_end = mk.seq_lens ? col_end : q_len;
   if (q0 >= row_end) {  // a jagged tile wholly past its row's length
-    write_empty_rows(og, lg, q0, min(WM, q_len - q0), d);
+    write_empty_rows(og, lg, q0, min(BM, q_len - q0), d);
     return;
   }
-  const int hi = min(kv_tiles(q0, WM, q_len, kv_len, causal, WN),
+  const int hi = min(kv_tiles(q0, BM, q_len, kv_len, causal, WN),
                      (col_end + WN - 1) / WN);
   int lo = mk.tile_lo ? max(0, min(mk.tile_lo[qt], hi - 1)) : 0;
   if (WINDOW) lo = window_lo(lo, hi, q0 + offset, window, WN);
@@ -364,7 +402,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         mbar_expect_tx(q_full, S::QT);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c)
-          tma_load_3d(sm + S::Q + c * WM * 128, &tm_q, q_full, 64 * c, q0,
+          tma_load_3d(sm + S::Q + c * BM * 128, &tm_q, q_full, 64 * c, q0,
                       b * hq + h);
       }
       // Pass x of a tile: each thread converts one 16-byte payload chunk (a
@@ -545,7 +583,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         mbar_expect_tx(q_full, S::QT);
 #pragma unroll
         for (int c = 0; c < BOXES; ++c)
-          tma_load_3d(sm + S::Q + c * WM * 128, &tm_q, q_full, 64 * c, q0,
+          tma_load_3d(sm + S::Q + c * BM * 128, &tm_q, q_full, 64 * c, q0,
                       b * hq + h);
       }
       for (int it = 0; it < n; ++it) {
@@ -582,8 +620,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // ------------------------------------------------------------ consumers
     regs_alloc<kConsumerRegs<FMT, D>>();
     const int t = tid % 128, warp = t / 32, lane = t % 32;
-    const int r0 = q0 + wg * 64;                 // the warpgroup's first row
-    const unsigned char* qw = sm + S::Q + wg * 64 * 128;  // its q rows
+    // the warpgroup's first row and its q rows (HALVES: the block's)
+    const int r0 = HALVES ? q0 : q0 + wg * 64;
+    const unsigned char* qw = sm + S::Q + (HALVES ? 0 : wg * 64 * 128);
     const bool active = r0 < row_end;
     // this thread's rows: qrow (accumulator slots 0, 1 of each 8 columns)
     // and qrow + 8 (slots 2, 3)
@@ -621,21 +660,24 @@ __global__ void __launch_bounds__(WTHREADS, 1)
           sh + kv0 + 8 * jj + 2 * (lane % 4)));
     };
 
-    float oacc[N / 2];
+    float oacc[ON / 2];
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < ON / 2; ++i) oacc[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // per-thread partial sums, quad-reduced last
 
     mbar_wait(q_full, 0);
     if (active) {
       // q * bf16(sm_scale * log2 e), rounded to bf16 (the TPU kernels' q =
-      // (q * c).astype(q.dtype)), in place; rows past q_len are TMA's zeros
+      // (q * c).astype(q.dtype)), in place; rows past q_len are TMA's zeros.
+      // HALVES: each consumer folds the boxes of its half of the columns,
+      // then both wait for the whole tile
       const float qscale = __bfloat162float(__float2bfloat16_rn(scale_log2));
 #pragma unroll
       for (int c = 0; c < BOXES; ++c) {
+        if (HALVES && c / (BOXES / 2) != wg) continue;
         uint4* p = reinterpret_cast<uint4*>(
-            const_cast<unsigned char*>(qw) + c * WM * 128);
+            const_cast<unsigned char*>(qw) + c * BM * 128);
         for (int i = t; i < 64 * 128 / 16; i += 128) {
           uint4 raw = p[i];
           __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
@@ -646,7 +688,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         }
       }
       fence_async_smem();  // the generic stores, before wgmma reads them
-      named_bar(1 + wg, 128);
+      if (HALVES)
+        named_bar(1, CONSUMERS);
+      else
+        named_bar(1 + wg, 128);
     }
 
     // The mask and the online softmax (log2 domain, one quad of lanes per
@@ -756,20 +801,22 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < N / 16; ++kk)
         wgmma_ss<WN, 0, 0>(
-            s, smem_desc(qw + (kk / 4) * WM * 128 + (kk % 4) * 32, 16, 1024),
+            s, smem_desc(qw + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024),
             smem_desc(kt + (kk / 4) * WN * 128 + (kk % 4) * 32, 16, 1024),
             kk > 0);
       wgmma_commit();
     };
     // O += P V of the tile in stage st, V read MN-major (its rows are the k
-    // dimension)
+    // dimension); HALVES: the consumer's ON columns of V, from box
+    // wg * ON / 64 on
     auto issue_pv = [&](uint32_t (&pa)[WN / 16][4], int st) {
-      const unsigned char* vt = sm + S::V + st * S::KV;
+      const unsigned char* vt = sm + S::V + st * S::KV +
+                                (HALVES ? wg * (ON / 64) * WN * 128 : 0);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WN / 16; ++kk) {
-        wgmma_rs<N>(oacc, pa[kk],
-                    smem_desc(vt + kk * 16 * 128, WN * 128, 1024));
+        wgmma_rs<ON>(oacc, pa[kk],
+                     smem_desc(vt + kk * 16 * 128, WN * 128, 1024));
       }
       wgmma_commit();
     };
@@ -820,7 +867,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         fence_regs(pa);
         mbar_arrive(&empty[prev]);  // this thread has read stage prev
 #pragma unroll
-        for (int i = 0; i < N / 8; ++i) {
+        for (int i = 0; i < ON / 8; ++i) {
           oacc[4 * i + 0] *= alpha[0];
           oacc[4 * i + 1] *= alpha[0];
           oacc[4 * i + 2] *= alpha[1];
@@ -861,6 +908,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float l_safe = (l == 0.f || l != l) ? 1.f : l;
       const int row = qrow + r * 8;
+      // the first of the consumer's ON columns of out (HALVES: its half)
+      const int c0 = HALVES ? wg * ON : 0;
       if (row < q_len) {
         // The columns below d (8-column groups: d is a multiple of 8). At d
         // == N every column, at the constant stride N, with no branch: a
@@ -871,22 +920,24 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         // 128-wide instance (PERF.md).
         if (d == N) {
 #pragma unroll
-          for (int i = 0; i < N / 8; ++i) {
-            const int col = 8 * i + 2 * (lane % 4);
+          for (int i = 0; i < ON / 8; ++i) {
+            const int col = c0 + 8 * i + 2 * (lane % 4);
             *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * N + col) =
                 __floats2bfloat162_rn(oacc[4 * i + 2 * r] / l_safe,
                                       oacc[4 * i + 2 * r + 1] / l_safe);
           }
         } else {
 #pragma unroll
-          for (int i = 0; i < N / 8; ++i)
-            if (8 * i < d)
-              *reinterpret_cast<uint32_t*>(og + (size_t)row * d + 8 * i +
+          for (int i = 0; i < ON / 8; ++i)
+            if (c0 + 8 * i < d)
+              *reinterpret_cast<uint32_t*>(og + (size_t)row * d + c0 + 8 * i +
                                            2 * (lane % 4)) =
                   pack_bf16(oacc[4 * i + 2 * r] / l_safe,
                             oacc[4 * i + 2 * r + 1] / l_safe);
         }
-        if (lane % 4 == 0) lg[row] = m_run[r] * kLn2 + logf(l_safe);
+        // the two halves hold the same row statistics: the first writes
+        if (lane % 4 == 0 && (!HALVES || wg == 0))
+          lg[row] = m_run[r] * kLn2 + logf(l_safe);
       }
     }
   }
@@ -908,7 +959,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t err = raise_smem_limit(kernel, S::ALLOC, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mkv[2];
-  if (!bf16_map(&mq, q, d, q_len, batch * hq, WM))
+  constexpr int BM = FwdTiles<tile_cols(N)>::BM;
+  if (!bf16_map(&mq, q, d, q_len, batch * hq, BM))
     return cudaErrorInvalidValue;
   if (FMT == kNone) {
     if (!bf16_map(&mkv[0], k, d, kv_len, batch * hkv, WN) ||
@@ -917,7 +969,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   } else {
     mkv[0] = mkv[1] = mq;  // not read: the producer loads the payloads
   }
-  const dim3 grid((q_len + WM - 1) / WM, hq, batch);
+  const dim3 grid((q_len + BM - 1) / BM, hq, batch);
   kernel<<<grid, WTHREADS, S::ALLOC, stream>>>(
       mq, mkv[0], mkv[1], static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), mk, hq, hkv, q_len, kv_len, d, causal,

@@ -347,24 +347,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 // The bf16 flash kernels' instances: a product width N (the columns their
 // products cover, at least the head_dim d they serve) over shared-memory
-// tiles of tile_cols(N) columns (64, or two or four 64-column boxes). Rows
-// of any d are read and written at their true width, the tiles' columns
-// past d zero-filled by TMA.
+// tiles of tile_cols(N) columns (64, or two, four or eight 64-column
+// boxes). Rows of any d are read and written at their true width, the
+// tiles' columns past d zero-filled by TMA.
 __host__ __device__ constexpr int tile_cols(int n) {
-  return n <= 64 ? 64 : n <= 128 ? 128 : 256;
+  return n <= 64 ? 64 : n <= 128 ? 128 : n <= 256 ? 256 : 512;
 }
 
 // The width of the instance that serves head_dim d, a multiple of 8 up to
-// 256 (0 for any other d): 64 up to 64; with `narrow` 80 and 96 up to them
-// (their products skip the zero columns), else 128 up to 128; 256 above
+// 512 (0 for any other d): 64 up to 64; with `narrow` 80 and 96 up to them
+// (their products skip the zero columns), else 128 up to 128; 256 up to 256
 // (the wide instances, whose tiles and layout differ: flash_fwd_wgmma.cuh,
-// flash_bwd.cu).
+// flash_bwd.cu); 512 above (the forward's alone: the backward has no
+// instance there and refuses it).
 inline int flash_width(int d, int narrow) {
-  if (d <= 0 || d > 256 || d % 8 != 0) return 0;
+  if (d <= 0 || d > 512 || d % 8 != 0) return 0;
   if (d <= 64) return 64;
   if (narrow && d <= 80) return 80;
   if (narrow && d <= 96) return 96;
-  return d <= 128 ? 128 : 256;
+  return d <= 128 ? 128 : d <= 256 ? 256 : 512;
 }
 
 // Warpgroup register reallocation (the whole warpgroup executes it): a

@@ -17,10 +17,11 @@
 //
 // What bounds it: nothing on the card; it moves 2 * B * hkv rows of D
 // values. One warp per (kv head, sequence) converts and stores its two
-// rows (each lane D / 32 contiguous values at head_dim 64, 128 and 256, else
-// the ceil(D / 32) values lane, lane + 32, ... below D: head_dim 80 and
-// 96, and every other head_dim up to 256 on one instance that reads D at
-// run time, 8 values a lane at most; the amax is a warp reduction), so the
+// rows (each lane D / 32 contiguous values at head_dim 64, 128, 256 and
+// 512, else the ceil(D / 32) values lane, lane + 32, ... below D: head_dim
+// 80 and 96, every other head_dim up to 256 on one instance that reads D
+// at run time, 8 values a lane at most, and every other head_dim in (256,
+// 512) on a second one, 16 a lane; the amax is a warp reduction), so the
 // whole append of a layer is one launch where the
 // scatter decomposition takes 2 payload scatters, 8 single-byte scale
 // scatters and the quantize ops. A target outside the pages array is
@@ -51,9 +52,9 @@ __device__ __forceinline__ float from_f<float>(float x) {
 }
 
 // S: dtype of k_new / v_new; P: page element type (bf16, f32 or int8_t); D:
-// the head_dim, or 0 for the instance that takes head_dim (<= 256) at run
-// time
-template <typename S, typename P, int D>
+// the head_dim, or 0 for the instances that take head_dim at run time, up
+// to 32 * EMAX (EMAX values a lane)
+template <typename S, typename P, int D, int EMAX = 8>
 __global__ void __launch_bounds__(32)
     page_append_kernel(const S* __restrict__ k_new,
                        const S* __restrict__ v_new,
@@ -62,11 +63,11 @@ __global__ void __launch_bounds__(32)
                        int hkv, int num_pages, int page_rows, int page_size,
                        int head_dim) {
   constexpr bool STRIDED = D % 64 != 0 || D == 0;
-  constexpr int E = D > 0 ? (D + 31) / 32 : 8;
+  constexpr int E = D > 0 ? (D + 31) / 32 : EMAX;
   const int d = D > 0 ? D : head_dim;
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
   // the lane's value e: at off(e) past its first column, live below d (at
-  // head_dim 64, 128 and 256 every value, known at compile time)
+  // head_dim 64, 128, 256 and 512 every value, known at compile time)
   auto off = [&](int e) { return STRIDED ? 32 * e : e; };
   auto live = [&](int e) { return !STRIDED || lane + 32 * e < d; };
   const int pid = page_ids[b], row = rows[b];
@@ -114,8 +115,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
                    int batch, int hkv, int num_pages, int page_rows,
                    int page_size, cudaStream_t stream) {
   const dim3 grid(hkv, batch);
-#define TFA_APPEND_LAUNCH(D)                                                \
-  page_append_kernel<S, P, D><<<grid, 32, 0, stream>>>(                     \
+#define TFA_APPEND_LAUNCH(...)                                              \
+  page_append_kernel<S, P, __VA_ARGS__><<<grid, 32, 0, stream>>>(           \
       static_cast<const S*>(k_new), static_cast<const S*>(v_new),           \
       static_cast<const int*>(page_ids), static_cast<const int*>(rows),     \
       static_cast<P*>(pages), hkv, num_pages, page_rows, page_size, head_dim)
@@ -131,6 +132,10 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
     TFA_APPEND_LAUNCH(80);
   } else if (head_dim >= 1 && head_dim <= 256) {
     TFA_APPEND_LAUNCH(0);
+  } else if (head_dim == 512) {
+    TFA_APPEND_LAUNCH(512);
+  } else if (head_dim > 256 && head_dim < 512) {
+    TFA_APPEND_LAUNCH(0, 16);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -142,8 +147,8 @@ cudaError_t launch(int head_dim, const void* k_new, const void* v_new,
 
 // Returns a cudaError_t: 0 when the kernel was launched. src_dtype (k_new,
 // v_new): 0 bf16, 1 f32. page_dtype: 0 bf16, 1 f32, 2 int8 (then page_rows
-// = 2 * page_size + 2 * sr). head_dim: any in [1, 256] (64, 80, 96, 128
-// and 256 on instances of their own). The caller has checked shapes,
+// = 2 * page_size + 2 * sr). head_dim: any in [1, 512] (64, 80, 96, 128,
+// 256 and 512 on instances of their own). The caller has checked shapes,
 // contiguity and alignment.
 extern "C" int tfa_page_append(const void* k_new, const void* v_new,
                                const void* page_ids, const void* rows,

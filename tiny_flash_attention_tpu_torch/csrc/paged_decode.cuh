@@ -96,6 +96,18 @@
 // group of 8 by two row blocks of 4, which read the same pages, the second
 // from L2.
 //
+// Head dims in (256, 512] (paged_decode_wide.cu, paged_decode_separate_
+// wide.cu; bf16 q over bf16 and int8 pages) run on instances of width 512:
+// compiled at 512 (page size 16 or a multiple of 32) and at run time for
+// every other d and page size, as below. A warp's 32-token bf16 stage is
+// then 64 KiB and its two int8 stages 66,048 bytes, so a block takes
+// TFA_DECODE_512_WARPS warps (`decode_warps`); each lane scores 64
+// elements of a row in eight (int8: four) 16-byte pieces and owns 16
+// contiguous output columns, so a q row costs it 16 PV accumulators and 8
+// scores, and the group's q stays in shared memory above G = 1. The
+// groups the wrapper covers with row blocks stop lower there
+// (ops/dims.py::DECODE_TOP_512, from the ptxas spill report).
+//
 // Every other head_dim in [1, 256] and page size (the JAX package takes
 // any page size; pages are the cache and are never padded) runs on the
 // run-time width instances (paged_decode_widths*.cu,
@@ -121,7 +133,8 @@
 
 #include "hopper.cuh"
 
-#if !defined(TFA_DECODE_WARPS) || !defined(TFA_DECODE_F32_WIDE_WARPS)
+#if !defined(TFA_DECODE_WARPS) || !defined(TFA_DECODE_F32_WIDE_WARPS) || \
+    !defined(TFA_DECODE_512_WARPS)
 #error "the warp counts are passed by the build (ops/configs.py)"
 #endif
 
@@ -129,11 +142,13 @@ namespace {
 
 // Warps a block: TFA_DECODE_WARPS, or TFA_DECODE_F32_WIDE_WARPS over f32
 // pages at head_dim 256, whose 32-token stage is 64 KiB a warp (four would
-// need 256 KiB of rings)
+// need 256 KiB of rings), or TFA_DECODE_512_WARPS at width 512 (a bf16
+// stage of 64 KiB, two int8 stages of 66,048 bytes)
 template <typename P, int D>
 __host__ __device__ constexpr int decode_warps() {
-  return sizeof(P) == 4 && D > 128 ? TFA_DECODE_F32_WIDE_WARPS
-                                   : TFA_DECODE_WARPS;
+  return D > 256                       ? TFA_DECODE_512_WARPS
+         : sizeof(P) == 4 && D > 128 ? TFA_DECODE_F32_WIDE_WARPS
+                                       : TFA_DECODE_WARPS;
 }
 constexpr int CHUNK = 32;  // tokens per warp step
 
@@ -831,7 +846,7 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
 }
 
 // Launches the kernel for a group of 1, 2, 4 or 8 q rows per grid row (at
-// most 4 at head_dim 256), qblocks grid rows per kv head (q holds hkv *
+// most 4 above head_dim 128, 2 above 256), qblocks grid rows per kv head (q holds hkv *
 // qblocks * group rows a sequence), over `splits` splits of
 // `pages_per_split` pages; ws holds batch * hkv * qblocks * splits * group
 // * (D + 2) floats and arrivals batch * hkv * qblocks zeroed ints (both
@@ -862,7 +877,12 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
   switch (group) {
     case 1: TFA_DECODE_LAUNCH(1); break;
     case 2: TFA_DECODE_LAUNCH(2); break;
-    case 4: TFA_DECODE_LAUNCH(4); break;
+    case 4:
+      // at width 512 a G = 4 instance spilled 20-25 KB a thread (compiled)
+      // and 1.7 KB (run-time int8) where G = 2 spills none
+      if constexpr (D > 256) return cudaErrorInvalidValue;
+      else TFA_DECODE_LAUNCH(4);
+      break;
     case 8:
       if constexpr (D > 128) return cudaErrorInvalidValue;
       else TFA_DECODE_LAUNCH(8);
@@ -877,28 +897,37 @@ cudaError_t launch_group(int group, const void* q, const L& pages,
 // width instances of paged_decode_widths*.cu and
 // paged_decode_separate_widths.cu) the least of 64, 128 and 256 that holds
 // d, else d itself where an instance of d compiles (64, 80, 96, 128, 256);
-// 0 where none does. ops/dims.py::decode_compiled picks the sources (and
-// decode_width the width) alike.
-inline int decode_width(int d, bool widths) {
+// with `wide` (the sources above 256) 512, for d in (256, 512] with
+// `widths` and d == 512 without; 0 where none does.
+// ops/dims.py::decode_compiled picks the sources (and decode_width the
+// width) alike.
+inline int decode_width(int d, bool widths, bool wide = false) {
+  if (wide) return (widths ? d > 256 && d <= 512 : d == 512) ? 512 : 0;
   if (widths)
     return d < 1 || d > 256 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
   return d == 64 || d == 80 || d == 96 || d == 128 || d == 256 ? d : 0;
 }
 
 // Calls fn(std::integral_constant<int, W>()) for the width W of
-// decode_width(head_dim, WIDTHS); cudaErrorInvalidValue where there is none.
-template <bool WIDTHS, typename F>
+// decode_width(head_dim, WIDTHS, WIDE); cudaErrorInvalidValue where there
+// is none.
+template <bool WIDTHS, bool WIDE, typename F>
 cudaError_t with_width(int head_dim, F fn) {
-  switch (decode_width(head_dim, WIDTHS)) {
-    case 64: return fn(std::integral_constant<int, 64>());
-    case 128: return fn(std::integral_constant<int, 128>());
-    case 256: return fn(std::integral_constant<int, 256>());
-    case 80:
-      if constexpr (!WIDTHS) return fn(std::integral_constant<int, 80>());
-      break;
-    case 96:
-      if constexpr (!WIDTHS) return fn(std::integral_constant<int, 96>());
-      break;
+  if constexpr (WIDE) {
+    if (decode_width(head_dim, WIDTHS, true) == 512)
+      return fn(std::integral_constant<int, 512>());
+  } else {
+    switch (decode_width(head_dim, WIDTHS)) {
+      case 64: return fn(std::integral_constant<int, 64>());
+      case 128: return fn(std::integral_constant<int, 128>());
+      case 256: return fn(std::integral_constant<int, 256>());
+      case 80:
+        if constexpr (!WIDTHS) return fn(std::integral_constant<int, 80>());
+        break;
+      case 96:
+        if constexpr (!WIDTHS) return fn(std::integral_constant<int, 96>());
+        break;
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -956,8 +985,9 @@ struct DecodeTypes {
 // One fused-page launch for q of type T over pages of q's type
 // (quantized 0) or int8 pages (quantized 1), the arguments checked as
 // tfa_paged_decode documents them, on the compiled widths or (WIDTHS) the
-// run-time width instances; a cudaError_t.
-template <typename T, bool WIDTHS>
+// run-time width instances, up to 256 or (WIDE) at width 512; a
+// cudaError_t.
+template <typename T, bool WIDTHS, bool WIDE = false>
 cudaError_t fused_decode(const void* q, const void* pages,
                          const void* lengths, const void* page_indices,
                          int pi_stride, int pages_per_seq, int splits,
@@ -975,7 +1005,7 @@ cudaError_t fused_decode(const void* q, const void* pages,
     return cudaErrorInvalidValue;
   const int group = hq / (hkv * qblocks);
   const auto widths = [&](auto page) {
-    return with_width<WIDTHS>(head_dim, [&](auto width) {
+    return with_width<WIDTHS, WIDE>(head_dim, [&](auto width) {
       return launch_fused<T, typename decltype(page)::type,
                           decltype(width)::value, WIDTHS>(
           group, q, pages, lengths, page_indices, pi_stride, pages_per_seq,
@@ -989,8 +1019,9 @@ cudaError_t fused_decode(const void* q, const void* pages,
 
 // One launch over separate K and V page arrays (q of type T: 0 bf16, 1
 // f32; pages of q's type, or int8 with f32 scales), on the compiled widths
-// or (WIDTHS) the run-time width instances; a cudaError_t.
-template <bool WIDTHS>
+// or (WIDTHS) the run-time width instances, up to 256 or (WIDE, bf16 q
+// only) at width 512; a cudaError_t.
+template <bool WIDTHS, bool WIDE = false>
 cudaError_t separate_decode(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* lengths, const void* page_indices,
@@ -1002,13 +1033,13 @@ cudaError_t separate_decode(
                               pages_per_seq, splits, pages_per_split, ws,
                               arrivals) ||
       (quantized && (k_scales == nullptr || v_scales == nullptr)) ||
-      dtype < 0 || dtype > 1)
+      dtype < 0 || dtype > (WIDE ? 0 : 1))
     return cudaErrorInvalidValue;
   const int group = hq / (hkv * qblocks);
   const auto launch = [&](auto types) {
     using T = typename decltype(types)::q;
     using P = typename decltype(types)::page;
-    return with_width<WIDTHS>(head_dim, [&](auto width) {
+    return with_width<WIDTHS, WIDE>(head_dim, [&](auto width) {
       constexpr int D = decltype(width)::value;
       const SeparatePages<P, WIDTHS ? 0 : D> layout{
           static_cast<const P*>(k), static_cast<const P*>(v),
@@ -1024,8 +1055,10 @@ cudaError_t separate_decode(
   if (dtype == 0)
     return quantized ? launch(DecodeTypes<__nv_bfloat16, int8_t>())
                      : launch(DecodeTypes<__nv_bfloat16, __nv_bfloat16>());
-  return quantized ? launch(DecodeTypes<float, int8_t>())
-                   : launch(DecodeTypes<float, float>());
+  if constexpr (WIDE) return cudaErrorInvalidValue;
+  else
+    return quantized ? launch(DecodeTypes<float, int8_t>())
+                     : launch(DecodeTypes<float, float>());
 }
 
 }  // namespace

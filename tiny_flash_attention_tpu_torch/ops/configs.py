@@ -44,6 +44,16 @@ FLASH_FWD_BF16_STAGES = 3   # ring stages
 # consumer thread, S 32, P 16.
 FLASH_FWD_BF16_WIDE = TileConfig(block_m=128, block_n=64, threads=384)
 FLASH_FWD_BF16_WIDE_STAGES = 2
+# The instance of width 512 (bf16 over bf16 K/V at head dims in (256, 512],
+# tiles of 512 columns): O over 512 columns would be 256 f32 registers a
+# consumer thread, so its two consumers take the same 64 q rows and split
+# O's columns (128 registers each, PV as m64n256k16 over its half of V),
+# both computing the whole S (m64n32k16 over 32 k-steps, 16 registers). A
+# 64-row q tile is 64 KiB and a 32-row K or V tile 32 KiB, so its kv tiles
+# are 32 rows in a two-stage ring released apart (q 64 KiB, K/V 128 KiB:
+# 197,960 bytes); 64-row kv tiles would take 192 KiB in one stage.
+FLASH_FWD_BF16_512 = TileConfig(block_m=64, block_n=32, threads=384)
+FLASH_FWD_BF16_512_STAGES = 2
 # The bf16 forward and backward read any head_dim d that is a multiple of 8
 # at its true width (ops/dims.py::flash_head_dim). With a FlashConfig's
 # `narrow_products` a d in (64, 80] or (80, 96] runs the instances of width
@@ -99,8 +109,10 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
     `tfa_flash_fwd_quant_smem`), and ops/flash.py checks that these agree
     when it loads them."""
     m, n, d = cfg.block_m, cfg.block_n, head_dim
-    if cfg is FLASH_FWD_BF16 or cfg is FLASH_FWD_BF16_WIDE:
+    if any(cfg is c for c in (FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE,
+                              FLASH_FWD_BF16_512)):
         stages = (FLASH_FWD_BF16_STAGES if cfg is FLASH_FWD_BF16
+                  else FLASH_FWD_BF16_512_STAGES if cfg is FLASH_FWD_BF16_512
                   else FLASH_FWD_BF16_WIDE_STAGES)
         # q; per stage K, V and the kv ids; the mbarriers (q, and full K,
         # full V, empty per stage; a two-stage ring also K's empty;
@@ -139,6 +151,12 @@ PAGED_DECODE_WARPS = 4
 # PAGED_DECODE_F32_WIDE_WARPS warps (196,608 bytes of rings at 3) and one
 # block an SM.
 PAGED_DECODE_F32_WIDE_WARPS = 3
+# bf16 q over bf16 and int8 pages at head dims in (256, 512] (the instances
+# of width 512): a warp's 32-token bf16 stage is 64 KiB there and its two
+# int8 stages 66,048 bytes, so a block of four would need 256 KiB or more;
+# it takes PAGED_DECODE_512_WARPS warps (196,608 bytes of bf16 rings,
+# 198,144 of int8 at 3) and one block an SM.
+PAGED_DECODE_512_WARPS = 3
 PAGED_DECODE_SPLIT_TOKENS = 512
 
 
@@ -364,6 +382,8 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_FWD_BF16_STAGES={FLASH_FWD_BF16_STAGES}",
         *_tile_defines("TFA_FWD_BF16_WIDE", FLASH_FWD_BF16_WIDE),
         f"-DTFA_FWD_BF16_WIDE_STAGES={FLASH_FWD_BF16_WIDE_STAGES}",
+        *_tile_defines("TFA_FWD_BF16_512", FLASH_FWD_BF16_512),
+        f"-DTFA_FWD_BF16_512_STAGES={FLASH_FWD_BF16_512_STAGES}",
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
         *_tile_defines("TFA_FWD_F32_WIDE", FLASH_FWD_F32_WIDE),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
@@ -378,6 +398,7 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_QMM_TC_STAGES={QUANT_MATMUL_STAGES}",
         f"-DTFA_DECODE_WARPS={PAGED_DECODE_WARPS}",
         f"-DTFA_DECODE_F32_WIDE_WARPS={PAGED_DECODE_F32_WIDE_WARPS}",
+        f"-DTFA_DECODE_512_WARPS={PAGED_DECODE_512_WARPS}",
         *_tile_defines("TFA_V1_BF16", FLASH_V1_BF16),
         f"-DTFA_V1_BF16_STAGES={FLASH_V1_BF16_STAGES}",
         f"-DTFA_V1_BF16_Q_TILES={FLASH_V1_BF16_Q_TILES}",

@@ -4,18 +4,21 @@ Counterpart of tiny_flash_attention_tpu/ops/flash.py::flash_attention. The
 three TPU forward kernels behind it (`_fwd_kernel`, `_tri_kernel`,
 `_tri_block_kernel`) compute one contract, so one Hopper kernel,
 csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles,
-64-row kv tiles at the wide instance, head dims above 128; f32: the CUDA
-cores over 128-row q and 64-row kv tiles, 64 and 32 at the wide instance).
-A CPU tensor takes the plain version (`flash_attention_plain`, the port of
-`_xla_attention`); a CUDA tensor takes the kernel at every shape, the
-sliding window, segment ids and `segment_starts` included, or raises for
-what the kernel does not do yet (head_dim above 256). The bf16 kernel over
-bf16 K/V reads and writes any head_dim that is a multiple of 8 up to 256 at
+64-row kv tiles at the wide instance, head dims above 128, and 64-row q and
+32-row kv tiles at the instance of width 512, head dims above 256; f32: the
+CUDA cores over 128-row q and 64-row kv tiles, 64 and 32 at the wide
+instance). A CPU tensor takes the plain version (`flash_attention_plain`,
+the port of `_xla_attention`); a CUDA tensor takes the kernel at every
+shape, the sliding window, segment ids and `segment_starts` included, or
+raises for what the kernel does not do yet (head_dim above 512 in bf16 over
+bf16 K/V, above 256 in f32 or over quantized K/V). The bf16 kernel over
+bf16 K/V reads and writes any head_dim that is a multiple of 8 up to 512 at
 its true width (the zero columns of JAX's padding to 128 lanes, which add
 exact zeros, are TMA's fill past column d); every other head_dim, and
 every head_dim of the f32 instances and the quantized ones (tiles of 64,
 128 and 256 columns), is padded with zero columns to the next tile width
-and the output sliced back (ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
+(512 above 256 in bf16) and the output sliced back
+(ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
 handed the kernel (padded only where the forward padded), so the backward
 runs on them and returns gradients at the true head_dim. The f32 instance
 walks a work list (`fwd_f32_work`): each q tile's kv range cut into runs,
@@ -32,7 +35,8 @@ range at its band, as JAX's work list holds only band tiles.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609), window, segment
-ids and `segment_starts` included. Its backward is
+ids and `segment_starts` included (on CUDA up to head_dim 256: above, its
+backward() raises, naming ROADMAP queue B-dims-2a-train). Its backward is
 ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
 CUDA and their plain version on the CPU. `return_lse=True` stays off it, as
 in JAX: on CUDA a gradient through it raises (`forward_only`).
@@ -55,11 +59,12 @@ import torch
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
-    FLASH_FWD_BF16, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32, FLASH_FWD_F32_WIDE,
-    FlashConfig, TileConfig, fwd_smem_bytes, resolve_config)
+    FLASH_FWD_BF16, FLASH_FWD_BF16_512, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32,
+    FLASH_FWD_F32_WIDE, FlashConfig, TileConfig, fwd_smem_bytes,
+    resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, pad_head_dim,
-    unpad_head_dim)
+    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, WIDER_HEAD_DIM, flash_head_dim,
+    pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 from tiny_flash_attention_tpu_torch.utils.autograd import forward_only
 
@@ -115,10 +120,13 @@ def fwd_config(dtype: torch.dtype, quantized: bool = False,
     """The tiles of the forward instance for q's dtype over unquantized or
     quantized (int8/e4m3) K/V at head_dim (each q dtype's design takes
     both; `quantized` changes no tile): above 128, the wide instance's
-    (bf16: 64-row kv tiles; f32: 64-row q and 32-row kv tiles)."""
+    (bf16: 64-row kv tiles; f32: 64-row q and 32-row kv tiles); above 256,
+    bf16's instance of width 512 (64-row q and 32-row kv tiles)."""
     wide = head_dim > FLASH_HEAD_DIMS[-1]
     if dtype != torch.bfloat16:
         return FLASH_FWD_F32_WIDE if wide else FLASH_FWD_F32
+    if head_dim > WIDE_HEAD_DIM:
+        return FLASH_FWD_BF16_512
     return FLASH_FWD_BF16_WIDE if wide else FLASH_FWD_BF16
 
 
@@ -600,12 +608,15 @@ def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     """Holds `fwd_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
     kernels' own layouts) for both dtypes and every tile width, the wide
-    one included; raises where they differ."""
+    one included, and bf16's over bf16 K/V at 512; raises where they
+    differ."""
     smem = (lib.tfa_flash_fwd_quant_smem if quantized
             else lib.tfa_flash_fwd_smem)
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
+        wider = (WIDER_HEAD_DIM,) if dtype == torch.bfloat16 \
+            and not quantized else ()
+        for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM, *wider):
             cfg = fwd_config(dtype, quantized, d)
             want = fwd_smem_bytes(cfg, d, quantized)
             if smem(code, d) != want:
@@ -707,10 +718,10 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     v_scales ((b, hkv, kv_len, 1) f32), k and v are int8 or e4m3 payloads
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
     run, every mask but the jagged mode included. bf16 over bf16 K/V reads
-    and writes any head_dim that is a multiple of 8 up to 256 in place;
-    any other head_dim runs padded (ops/dims.py::flash_head_dim: f32 and
-    quantized K/V to 64, 128 or 256) and out comes back at the true
-    head_dim."""
+    and writes any head_dim that is a multiple of 8 up to 512 in place;
+    any other head_dim runs padded (ops/dims.py::flash_head_dim: bf16 to
+    64, 128, 256 or 512, f32 and quantized K/V to 64, 128 or 256) and out
+    comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape
     quantized = k_scales is not None or v_scales is not None

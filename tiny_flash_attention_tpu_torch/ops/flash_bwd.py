@@ -12,8 +12,10 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V,
-head_dim above 256). The bf16 kernels read q, k, v, out and do and write
-dq, dk and dv at any head_dim that is a multiple of 8 up to 256 in place
+head_dim above 256: ROADMAP queues B-dims-2a-train in bf16, where the
+forward takes up to 512, and B-dims-2a-f32). The bf16 kernels read q, k,
+v, out and do and write dq, dk and dv at any head_dim that is a multiple
+of 8 up to 256 in place
 (JAX pads its backward to 128 lanes; the kernels' tiles take TMA's zeros
 past the true head_dim instead; above 128 the wide main kernel, over
 64-row kv tiles); other head dims, and the f32 kernels' (64, 128 and,
@@ -63,8 +65,8 @@ from tiny_flash_attention_tpu_torch.ops.configs import (
     FlashConfig, bwd_config, bwd_f32_config, bwd_f32_smem_bytes,
     bwd_f32_split, bwd_smem_bytes, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, flash_head_dim, kernel_head_dim,
-    pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, QUEUE_TRAIN, WIDE_HEAD_DIM, flash_head_dim,
+    kernel_head_dim, pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _aligned, as_int32, in_dtype, run_work,
     visible_mask)
@@ -430,7 +432,8 @@ def _check_inputs(q, k, v, out, lse, do) -> None:
             f"the CUDA backward kernels take bf16 or f32 tensors of one "
             f"dtype (quantized K/V have no backward, as in JAX), got "
             f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {do.dtype}")
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
+                        backward=True)
     if dk != d:
         raise NotImplementedError(
             f"head_dim {d}: the CUDA {str(q.dtype).split('.')[-1]} backward "
@@ -472,7 +475,8 @@ class BwdLaunch:
         if self.bf16:
             # the tiles' width (64, 128 or 256 columns, the head dims past d
             # 0 or unread) and the instance's tiles at it
-            w = kernel_head_dim(d, "the CUDA backward kernels", wide=True)
+            w = kernel_head_dim(d, "the CUDA backward kernels", wide=True,
+                                queue=QUEUE_TRAIN)
             cfg = bwd_config(w)
             self.kv_table, self.q_table = _device_tiles(
                 q_len, kv_len, causal, window, starts, cfg.block_m,
@@ -551,7 +555,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, **kw):
     (ops/dims.py::flash_head_dim); returns (dq, dk, dv) at the true
     head_dim."""
     d = q.shape[-1]
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
+                        backward=True)
     q, k, v, out, do = (pad_head_dim(t, dk) for t in (q, k, v, out, do))
     call = BwdLaunch(q, k, v, out, lse, do, **kw)
     call.run()

@@ -10,8 +10,9 @@ the fused decode's arithmetic over these arrays); a CUDA tensor launches
 csrc/paged_decode_separate.cu, the split decode kernel of
 csrc/paged_decode.cuh over this layout (csrc/paged_decode_separate_widths.cu
 at a head_dim or page size without an instance of its own,
-ops/dims.py::decode_width), or raises. It takes every head_dim up to 256,
-every page size the JAX package takes (any for pages of q's dtype, a
+ops/dims.py::decode_width; csrc/paged_decode_separate_wide.cu above 256,
+bf16 q only), or raises. It takes every head_dim up to 512 (f32 q up to
+256), every page size the JAX package takes (any for pages of q's dtype, a
 multiple of 128 for int8 pages) and any GQA group, the q rows padded as in
 ops/paged_fused.py.
 
@@ -31,7 +32,8 @@ import torch
 
 from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    decode_compiled, decode_group, decode_head_dim, pad_group, unpad_group)
+    WIDE_HEAD_DIM, decode_compiled, decode_group, decode_q_head_dim,
+    pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.paged_fused import (
     decode_plain, decode_splits, decode_workspace, split_args, token_pages)
@@ -114,11 +116,13 @@ paged_decode_attention.width_launches = 0
 
 
 def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
-                       sm_scale: float, splits: Optional[int] = None):
+                       sm_scale: float, splits: Optional[int] = None,
+                       out_dtype: Optional[torch.dtype] = None):
     """Plain PyTorch version with the kernel's arithmetic (`decode_plain`
     of ops/paged_fused.py over the tokens below each clamped length; with
     `splits` (a count, or "kernel"), over the kernel's splits, merged in
-    order). Runs on any device; gathers the whole table."""
+    order; out in `out_dtype`, q's by default). Runs on any device;
+    gathers the whole table."""
     k, k_scale = _split(k_pages)
     v, v_scale = _split(v_pages)
     ids, rows, valid = token_pages(lengths, page_indices, k.shape[2])
@@ -126,12 +130,17 @@ def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
         q, k[:, ids, rows], v[:, ids, rows],
         None if k_scale is None else k_scale[:, ids, rows],
         None if v_scale is None else v_scale[:, ids, rows], valid,
-        sm_scale=sm_scale,
+        sm_scale=sm_scale, out_dtype=out_dtype,
         **split_args(lengths, page_indices, k.shape[2], None, splits))
 
 
-def _decode_source(d: int, page_size: int) -> str:
-    """The source of the instances that read head_dim d at page_size."""
+def _decode_source(d: int, page_size: int, dtype: torch.dtype) -> str:
+    """The source of the instances that read head_dim d at page_size for q
+    of `dtype` (above 256, those of width 512, compiled and run-time
+    alike, bf16 q only: others raise, ops/dims.py::decode_q_head_dim)."""
+    decode_q_head_dim(d, dtype)
+    if d > WIDE_HEAD_DIM:
+        return "paged_decode_separate_wide"
     return ("paged_decode_separate" if decode_compiled(d, page_size)
             else "paged_decode_separate_widths")
 
@@ -149,7 +158,9 @@ def _decode_fn(source: str):
 
 def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
                  sm_scale: float):
-    """Launches csrc/paged_decode_separate.cu; returns (out, lse)."""
+    """Launches csrc/paged_decode_separate.cu, or its run-time width or
+    (above head_dim 256) width-512 twin (`_decode_source`); returns (out,
+    lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, page_size, _ = k.shape
     quantized = k_scale is not None
@@ -159,7 +170,7 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {k.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel")
+    source = _decode_source(d, page_size, q.dtype)
     dev = q.device
     tensors = [k, v, lengths, page_indices] + (
         [k_scale, v_scale] if quantized else [])
@@ -189,7 +200,6 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
     P = page_indices.shape[1]
     per, n_splits = decode_splits(P, page_size)
-    source = _decode_source(d, page_size)
     with _build.on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ws = decode_workspace(dev, stream, batch, hkv * blocks, n_splits,
@@ -204,5 +214,6 @@ def _decode_cuda(q, k, v, k_scale, v_scale, lengths, page_indices, *,
             int(quantized), stream)
     _build.check(err, source)
     paged_decode_attention.launches += 1
-    paged_decode_attention.width_launches += source.endswith("_widths")
+    paged_decode_attention.width_launches += not decode_compiled(
+        d, page_size)
     return unpad_group(out, hkv, group), unpad_group(lse, hkv, group)

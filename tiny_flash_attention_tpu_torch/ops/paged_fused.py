@@ -17,21 +17,23 @@ per sequence through a page table; `fused_page_append` writes one token per
 the plain version, a CUDA tensor launches csrc/paged_decode.cu or, for
 f32 q, csrc/paged_decode_f32.cu (ports `_fused_decode_kernel`, its
 sliding-window ring mode included; at a head_dim or page size those do
-not compile, csrc/paged_decode_widths.cu / paged_decode_widths_f32.cu) or
+not compile, csrc/paged_decode_widths.cu / paged_decode_widths_f32.cu; at
+head dims in (256, 512], bf16 q only, csrc/paged_decode_wide.cu) or
 csrc/page_append.cu (ports `_append_kernel`) or raises.
 
 The decode kernel splits each sequence's tokens over several blocks
 (page-aligned ranges of the table, `decode_splits`) and merges their
 partial softmax states in split order; `fused_paged_decode_plain(...,
 splits=k)` computes the same partials and merge. Both kernels read rows of
-any head_dim up to 256 in place (pages are never padded) at every page
-size the JAX package takes (`kernel_page_size`); 64, 80, 96, 128 and 256
-at page size 16 or a multiple of 32 on instances of their own, every other
-on the run-time width instances (ops/dims.py::decode_width). The decode
-compiles 1, 2, 4 or 8 q rows a kv head (4 above 128) and takes any GQA
-group by padding each kv head's q rows to the next of them, or to row
-blocks of 8 (4) above, and slicing out and the LSE back (ops/dims.py), as
-JAX pads them to 8.
+any head_dim up to 512 (the decode with f32 q up to 256) in place (pages
+are never padded) at every page size the JAX package takes
+(`kernel_page_size`); 64, 80, 96, 128, 256 and 512 at page size 16 or a
+multiple of 32 on instances of their own, every other on the run-time
+width instances (ops/dims.py::decode_width). The decode compiles 1, 2, 4
+or 8 q rows a kv head (4 above 128, ops/dims.py::DECODE_TOP_512 above 256)
+and takes any GQA group by padding each kv head's q rows to the next of
+them, or to row blocks of the top above, and slicing out and the LSE back
+(ops/dims.py), as JAX pads them to 8.
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops.configs import (
     decode_split_plan, paged_decode_split_pages, window_pages)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    DECODE_HEAD_DIMS, decode_compiled, decode_group, decode_head_dim,
-    pad_group, unpad_group)
+    DECODE_HEAD_DIMS, WIDE_HEAD_DIM, decode_compiled, decode_group,
+    decode_head_dim, decode_q_head_dim, pad_group, unpad_group)
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 from tiny_flash_attention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -415,7 +417,8 @@ def token_splits(lengths: torch.Tensor, pages_per_seq: int, page_size: int,
 
 
 def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
-                 sm_scale: float, split_of=None, n_splits: int = 1):
+                 sm_scale: float, split_of=None, n_splits: int = 1,
+                 out_dtype: Optional[torch.dtype] = None):
     """The decode kernels' arithmetic over gathered tokens: k_tok/v_tok
     (hkv, batch, T, d), int8 payloads with f32 scales k_scale/v_scale
     (hkv, batch, T) or pages of q's dtype with scales None, valid (batch,
@@ -428,7 +431,9 @@ def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
     With split_of (batch, T), each token's split in [0, n_splits): the
     softmax state (m, l, acc) of each split over its own tokens, then the
     exact LSE combine of the splits in split order, as the kernels do.
-    Returns (out (batch, hq, d), lse (batch, hq))."""
+    Returns (out (batch, hq, d) in `out_dtype`, q's by default, and lse
+    (batch, hq)); out in f32 is the model before the kernels' last
+    rounding."""
     batch, hq, d = q.shape
     hkv = k_tok.shape[0]
     c = in_dtype(sm_scale * LOG2E, q.dtype)
@@ -461,7 +466,8 @@ def decode_plain(q, k_tok, v_tok, k_scale, v_scale, valid, *,
     l_safe = torch.where((den == 0.0) | torch.isnan(den), 1.0, den)
     out = num / l_safe
     lse = m_f[..., 0] * LN2 + torch.log(l_safe[..., 0])
-    return out.to(q.dtype).reshape(batch, hq, d), lse.reshape(batch, hq)
+    return (out.to(out_dtype or q.dtype).reshape(batch, hq, d),
+            lse.reshape(batch, hq))
 
 
 def split_args(lengths, page_indices, page_size: int,
@@ -482,24 +488,27 @@ def split_args(lengths, page_indices, page_size: int,
 def fused_paged_decode_plain(q, fused_pages, lengths, page_indices, *,
                              page_size: int, sm_scale: float,
                              window: Optional[int] = None,
-                             splits: Optional[int] = None):
+                             splits: Optional[int] = None,
+                             out_dtype: Optional[torch.dtype] = None):
     """Plain PyTorch version of the fused-page decode (`decode_plain` over
     the tokens of `token_pages`, ring mode included); with `splits`, over
     the kernel's splits of the tokens (`decode_splits`: a count asked, or
-    "kernel" for the kernel's default), merged in order. Runs on any
-    device; gathers every token it attends, and without a window the whole
-    table."""
+    "kernel" for the kernel's default), merged in order; out in
+    `out_dtype` (q's by default). Runs on any device; gathers every token
+    it attends, and without a window the whole table."""
     ps = page_size
     ids, rows, valid = token_pages(lengths, page_indices, ps, window)
     kw = split_args(lengths, page_indices, ps, window, splits)
     if fused_pages.dtype != torch.int8:
         return decode_plain(q, fused_pages[:, ids, rows],
                             fused_pages[:, ids, ps + rows], None, None,
-                            valid, sm_scale=sm_scale, **kw)
+                            valid, sm_scale=sm_scale, out_dtype=out_dtype,
+                            **kw)
     _, _, ksc, vsc = unpack_int8_pages(fused_pages, ps)   # (hkv, N, ps)
     return decode_plain(q, fused_pages[:, ids, rows],
                         fused_pages[:, ids, ps + rows], ksc[:, ids, rows],
-                        vsc[:, ids, rows], valid, sm_scale=sm_scale, **kw)
+                        vsc[:, ids, rows], valid, sm_scale=sm_scale,
+                        out_dtype=out_dtype, **kw)
 
 
 _workspaces: dict = {}
@@ -529,18 +538,25 @@ def decode_workspace(device, stream: int, batch: int, kv_heads: int,
 
 
 # the source and entry of each q dtype's instances of the compiled widths
-# and of the run-time widths (built in parallel)
+# and of the run-time widths, and of bf16 q's at width 512, compiled and
+# run-time (built in parallel)
 DECODE_ENTRIES = {torch.bfloat16: ("paged_decode", "tfa_paged_decode"),
                   torch.float32: ("paged_decode_f32", "tfa_paged_decode_f32")}
 DECODE_WIDTH_ENTRIES = {
     torch.bfloat16: ("paged_decode_widths", "tfa_paged_decode_widths"),
     torch.float32: ("paged_decode_widths_f32",
                     "tfa_paged_decode_widths_f32")}
+DECODE_WIDE_ENTRY = ("paged_decode_wide", "tfa_paged_decode_wide")
 
 
 def decode_entry(dtype: torch.dtype, d: int, page_size: int):
     """(source, entry) of the fused decode's instances that read head_dim d
-    at page_size for q of `dtype` (ops/dims.py::decode_compiled)."""
+    at page_size for q of `dtype` (ops/dims.py::decode_compiled; above
+    head_dim 256 the source of width 512, bf16 q only: others raise,
+    ops/dims.py::decode_q_head_dim)."""
+    decode_q_head_dim(d, dtype)
+    if d > WIDE_HEAD_DIM:
+        return DECODE_WIDE_ENTRY
     entries = (DECODE_ENTRIES if decode_compiled(d, page_size)
                else DECODE_WIDTH_ENTRIES)
     return entries[dtype]
@@ -561,7 +577,8 @@ def _decode_fn(dtype: torch.dtype, d: int, page_size: int):
 def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
                  sm_scale: float, window: Optional[int]):
     """Launches csrc/paged_decode.cu (bf16 q) or csrc/paged_decode_f32.cu
-    (f32 q); returns (out, lse)."""
+    (f32 q), or their run-time width or (above head_dim 256) width-512
+    twins (`decode_entry`); returns (out, lse)."""
     batch, hq, d = q.shape
     hkv, num_pages, prows = fused_pages.shape[:3]
     quantized = fused_pages.dtype == torch.int8
@@ -570,7 +587,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
         raise NotImplementedError(
             f"the CUDA decode kernel takes bf16 or f32 q over pages of q's "
             f"dtype or int8 pages, got {q.dtype} and {fused_pages.dtype}")
-    decode_head_dim(d, "the CUDA decode kernel")
+    source, _ = decode_entry(q.dtype, d, page_size)
     dev = q.device
     if not (fused_pages.device == dev and lengths.device == dev
             and page_indices.device == dev):
@@ -605,7 +622,7 @@ def _decode_cuda(q, fused_pages, lengths, page_indices, *, page_size: int,
             ws[1].data_ptr(), batch, q.shape[1], hkv, blocks, num_pages,
             page_size, prows, d, window or 0, scale_log2,
             _KERNEL_DTYPES[q.dtype], int(quantized), stream)
-    _build.check(err, decode_entry(q.dtype, d, page_size)[0])
+    _build.check(err, source)
     fused_paged_decode_attention.width_launches += not decode_compiled(
         d, page_size)
     if window is not None:

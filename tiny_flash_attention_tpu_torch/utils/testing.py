@@ -4,6 +4,7 @@ and the second gate of the bf16 flash forward (B1)."""
 
 import torch
 
+from tiny_flash_attention_tpu_torch.ops.dims import WIDE_HEAD_DIM
 from tiny_flash_attention_tpu_torch.ops.flash import LN2, LOG2E, in_dtype
 
 _ATOL = {
@@ -27,6 +28,21 @@ _ATOL = {
 # H100 readings of the sound kernel and of planted faults (PERF.md).
 BF16_ROW_GATE = 2.0 ** -6
 BF16_LSE_GATE = 1e-4
+# Above head_dim 256 (the instance of width 512) the bare out gate gives
+# each element one bf16 ulp of its |plain| beyond the dtype gate: the bare
+# gate bounds the arithmetic's gap (the plain version does not fold), and
+# the bf16 output adds one rounding on top, which at |out| >= 2 is 1.56e-2
+# of the 2e-2. At 64 q heads of 512 such elements occur: the H100 read
+# 2.344e-2 at |out| about 2 at DeepSeek-V4-Flash's prefill while the
+# gates at the fold held (PERF.md). The gates at the fold are unchanged.
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at each |x| (f32): 2^(e - 7) for |x| in
+    [2^e, 2^(e + 1)), the subnormals' 2^-133 at 0."""
+    mant, e = torch.frexp(x.float().abs())
+    return torch.where(mant == 0, 2.0 ** -133,
+                       torch.ldexp(torch.ones_like(mant), e - 8))
 
 
 def tolerance_for(dtype: torch.dtype) -> float:
@@ -52,20 +68,26 @@ def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flash_errors(out, lse, ref, ref_lse) -> dict:
-    """Out's largest error ("out"), its worst row relative to that row's
-    scale ("row") and the LSE's largest error ("lse")."""
-    return {"out": float((out.float() - ref.float()).abs().max()),
+    """Out's largest error ("out"), its largest error beyond one bf16 ulp
+    of |ref| ("spaced"), its worst row relative to that row's scale
+    ("row") and the LSE's largest error ("lse")."""
+    err = (out.float() - ref.float()).abs()
+    return {"out": float(err.max()),
+            "spaced": float((err - bf16_ulp(ref)).max()),
             "row": row_err(out, ref),
             "lse": float((lse.float() - ref_lse.float()).abs().max())}
 
 
-def flash_gate_ok(errs: dict, dtype: torch.dtype,
-                  folded: dict | None = None) -> bool:
+def flash_gate_ok(errs: dict, dtype: torch.dtype, folded: dict | None,
+                  head_dim: int) -> bool:
     """The forward's gate: the dtype gate on out and the LSE against the
-    plain version (`errs`); for bf16 also, against the plain version at the
-    fold (`folded`, required), the row gate and BF16_LSE_GATE."""
+    plain version (`errs`; above head_dim 256 in bf16, out's error beyond
+    one bf16 ulp of |plain|); for bf16 also, against the plain version at
+    the fold (`folded`, required), the row gate and BF16_LSE_GATE."""
     atol = tolerance_for(dtype)
-    ok = errs["out"] <= atol and errs["lse"] <= atol
+    spaced = dtype == torch.bfloat16 and head_dim > WIDE_HEAD_DIM
+    ok = (errs["spaced" if spaced else "out"] <= atol
+          and errs["lse"] <= atol)
     if dtype == torch.bfloat16:
         ok = ok and folded["row"] <= BF16_ROW_GATE \
             and folded["lse"] <= BF16_LSE_GATE
@@ -76,8 +98,9 @@ def flash_gate(out, lse, plain, q, dtype, lens=None):
     """(errs, folded, ok): the forward's (out, lse) against plain(q,
     sm_scale) and, for bf16, against plain(*fold_q(q, sm_scale)), with
     sm_scale head_dim ** -0.5 (flash_errors readings; folded is None for
-    other dtypes), and whether they pass flash_gate_ok. `lens`, one length
-    per batch row, restricts both to the rows below each length."""
+    other dtypes), and whether they pass flash_gate_ok at q's head_dim.
+    `lens`, one length per batch row, restricts both to the rows below
+    each length."""
     sm_scale = q.shape[-1] ** -0.5
     refs = [plain(q, sm_scale)]
     if dtype == torch.bfloat16:
@@ -85,11 +108,12 @@ def flash_gate(out, lse, plain, q, dtype, lens=None):
     lens = lens or [q.shape[2]] * q.shape[0]
     readings = []
     for ref, ref_lse in refs:
-        errs = {"out": 0.0, "row": 0.0, "lse": 0.0}
+        errs = {"out": 0.0, "spaced": -1.0, "row": 0.0, "lse": 0.0}
         for bi, n in enumerate(lens):
             got = flash_errors(out[bi, :, :n], lse[bi, :, :n],
                                ref[bi, :, :n], ref_lse[bi, :, :n])
             errs = {key: max(errs[key], got[key]) for key in errs}
         readings.append(errs)
     folded = readings[1] if len(readings) > 1 else None
-    return readings[0], folded, flash_gate_ok(readings[0], dtype, folded)
+    return readings[0], folded, flash_gate_ok(readings[0], dtype, folded,
+                                              q.shape[-1])
