@@ -962,7 +962,7 @@ def check_not_ported_raise() -> None:
     from tiny_flash_attention_tpu_torch.ops import quant as Q
     from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
-        flash_attention_bwd)
+        flash_attention_bwd, flash_attention_bwd_plain)
     from tiny_flash_attention_tpu_torch.ops.flash_quant import (
         flash_attention_quantized)
     from tiny_flash_attention_tpu_torch.ops.flash_rowloop import (
@@ -1022,10 +1022,10 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head dims above 256: the bf16 backward (queue B-dims-2a-train), f32
-    # (B1, the backward, the decodes: B-dims-2a-f32), the quantized forward
-    # and FA1 (B-dims-2a-quant-v1); above 512 every entry (B-dims-2a-512+),
-    # the bf16 forward, the decodes and the append included
+    # head dims above 256: f32 (B1, the backward, the decodes:
+    # B-dims-2a-f32), the quantized forward and FA1 (B-dims-2a-quant-v1);
+    # above 512 every entry (B-dims-2a-512+), the bf16 forward and backward,
+    # the decodes and the append included
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
@@ -1035,11 +1035,7 @@ def check_not_ported_raise() -> None:
     f520 = zeros(1, 2, 128, 520, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
-        lambda: flash_attention_bwd(q264, q264, q264, q264, lse, q264,
-                                    causal=True),
         lambda: flash_attention(f264, f264, f264, causal=True),
-        lambda: flash_attention_bwd(f264, f264, f264, f264, lse, f264,
-                                    causal=True),
         lambda: flash_attention_v1(q264, q264, q264),
         lambda: flash_attention_v1(f264, f264, f264),
         lambda: flash_attention_quantized(q264, *Q.quantize_kv(
@@ -1058,8 +1054,6 @@ def check_not_ported_raise() -> None:
     attempts += [
         lambda: flash_attention(q520, q520, q520, causal=True),
         lambda: flash_attention(f520, f520, f520, causal=True),
-        lambda: flash_attention_bwd(q520, q520, q520, q520, lse, q520,
-                                    causal=True),
         lambda: flash_attention_v1(q520, q520, q520),
         lambda: flash_attention_quantized(q520, *Q.quantize_kv(
             q520, q520, "int8")),
@@ -1082,18 +1076,32 @@ def check_not_ported_raise() -> None:
             continue
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
-    # a backward() through B1 at head_dim 384 raises (queue
-    # B-dims-2a-train) and never drops the gradient
-    x384 = zeros(1, 2, 128, 384).requires_grad_()
-    try:
-        flash_attention(x384, x384, x384, causal=True).float().sum(
-            ).backward()
-    except NotImplementedError as e:
-        if "B-dims-2a-train" not in str(e):
-            raise
-    else:
-        raise AssertionError("a backward through B1 at head_dim 384 did "
-                             "not raise")
+    # the backward's refusals name their queues: bf16 above 512
+    # (B-dims-2a-512+), f32 above 256 (B-dims-2a-f32)
+    for x, queue in ((q520, "B-dims-2a-512+"), (f264, "B-dims-2a-f32")):
+        try:
+            flash_attention_bwd(x, x, x, x, lse, x, causal=True)
+        except NotImplementedError as e:
+            if queue not in str(e):
+                raise
+        else:
+            raise AssertionError(f"a {x.dtype} backward at head_dim "
+                                 f"{x.shape[-1]} did not raise")
+    # a backward() through B1 at head_dim 384 runs (the bf16 backward's
+    # instance of width 512), its gradients at the plain backward's gate
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q384, k384, v384, do384 = (randn((1, 2, 128, 384), torch.bfloat16, gen)
+                               for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q384, k384, v384)]
+    flash_attention(*leaves, causal=True).backward(do384)
+    out384, lse384 = flash_attention(q384, k384, v384, causal=True,
+                                     return_lse=True)
+    want = flash_attention_bwd_plain(q384, k384, v384, out384, lse384, do384,
+                                     causal=True, sm_scale=384 ** -0.5)
+    err384 = max(_rel_err(t.grad, w) for t, w in zip(leaves, want))
+    if not err384 <= BWD_PLAIN_GATE[torch.bfloat16]:
+        raise AssertionError(f"a backward through B1 at head_dim 384: "
+                             f"{err384:.3e} from the plain backward")
     # int8 fused pages of page size 48 at head_dim 36 (neither <= head_dim
     # nor a multiple of it) raise as JAX's assert does, before any launch
     q36, pages36 = zeros(2, 6, 36), zeros(2, 4, 2 * 48 + 16, 36,
@@ -1111,13 +1119,16 @@ def check_not_ported_raise() -> None:
         raise AssertionError("int8 pages JAX refuses ran on the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
         f"({len(attempts)}: int8 K/V without scales; at head_dim 264 "
-        f"({n_264 - 3} calls) the bf16 backward, B1 and the backward in "
-        f"f32, FA1 (bf16, f32), the quantized forward (bf16 q, f32 q), the "
-        f"decodes with f32 q; at head_dim 520 ({len(attempts) - n_264}) "
-        f"every entry, B1 in bf16, the row loop, the decodes and the "
-        f"append included; a backward() through B1 at head_dim 384 "
-        f"raises); int8 fused pages at page size 48 and head_dim 36 raise "
-        f"ValueError as JAX asserts: ok (the decode, the append)")
+        f"({n_264 - 3} calls) B1 in f32, FA1 (bf16, f32), the quantized "
+        f"forward (bf16 q, f32 q), the decodes with f32 q; at head_dim 520 "
+        f"({len(attempts) - n_264}) every entry, B1 in bf16, the row loop, "
+        f"the decodes and the append included; the backward's refusals "
+        f"name their queues, B-dims-2a-512+ (bf16 at 520) and "
+        f"B-dims-2a-f32 (f32 at 264)); a backward() "
+        f"through B1 at head_dim 384 runs, {err384:.2e} from the plain "
+        f"backward (gate {BWD_PLAIN_GATE[torch.bfloat16]:.0e}); int8 fused "
+        f"pages at page size 48 and head_dim 36 raise ValueError as JAX "
+        f"asserts: ok (the decode, the append)")
 
 
 # --- the autotuner and the native CPU oracle ---------------------------------
@@ -1701,13 +1712,20 @@ def bwd_spread(gate: bool = True, d: int = 128) -> None:
 
 
 def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
-              iters=10, repeats=1):
+              iters=10, repeats=1, faults=False):
     """The backward kernels vs their plain version and vs autograd through
-    the f32 plain forward on one shape, with its masks; then the device
-    times of the whole backward call, of each kernel alone (bf16: prep,
-    main, post; f32: dq, dk/dv, post), of the plain version and of SDPA's
-    backward (with a boolean mask where the masks are more than causal).
-    f32: `repeats` more calls on the same inputs must give the same bits."""
+    the f32 plain forward on one shape, with its masks ("window"; "mix":
+    the jagged mix's ids; "bounds": ids changing at those rows; "starts":
+    the ids' segment_starts); then the device times of the whole backward
+    call, of each kernel alone (bf16: prep, main, post; f32: dq, dk/dv,
+    post), of the plain version and of SDPA's backward (with a boolean mask
+    where the masks are more than causal; above head_dim 256, where SDPA
+    has no flash kernel, with K and V repeated to q's heads, its backend
+    named). f32: `repeats` more calls on the same inputs must give the same
+    bits. `faults` (bf16, a head_dim read in place off its tile's width):
+    the plain backward at the tile's scale and the gradients as an
+    epilogue storing all the tile's columns would leave them must fail the
+    plain gate."""
     from tiny_flash_attention_tpu_torch.models.engine import pack_prompts
     from tiny_flash_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_plain, visible_mask)
@@ -1725,6 +1743,10 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
         _, ids, _, offs = pack_prompts([[0] * n for n in JAGGED_MIX], 128,
                                        "page")
         seg = torch.as_tensor(ids, device="cuda")
+        mk["segment_ids"] = (seg, seg)
+    if masks.get("bounds"):
+        seg = segment_ids(q_shape[0], q_shape[2], masks["bounds"])
+        ids, offs = seg.cpu().numpy(), (0, *masks["bounds"])
         mk["segment_ids"] = (seg, seg)
     kw = dict(mk, segment_starts=offs if masks.get("starts") else None)
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **mk)
@@ -1752,6 +1774,8 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     ok = (finite and same and max(err_plain) <= BWD_PLAIN_GATE[dtype]
           and max(err_oracle) <= BWD_ORACLE_GATE[dtype])
+    if faults:
+        bwd_planted_faults(name, q, k, v, out, lse, do, got, causal, mk)
 
     # each kernel alone, on the tensors the call hands them (padded only
     # where the kernels do not read the head_dim in place; the bound stays
@@ -1783,14 +1807,21 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
         # bottom-right (row i sits at i + kv_len - q_len)
         mask = visible_mask(q_shape[2], kv_shape[2], "cuda", causal=True,
                             **mk)
-    sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
+    expand = q_shape[-1] > 256
+    rep = q_shape[1] // kv_shape[1] if expand else 1
+    sq = q.detach().requires_grad_()
+    sk, sv = ((t.repeat_interleave(rep, 1) if expand else t).detach()
+              .requires_grad_() for t in (k, v))
     s_out = F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=True)
-    t_sdpa = cuda_time_ms(lambda: torch.autograd.grad(
-        s_out, (sq, sk, sv), do, retain_graph=True),
-        iters=iters)["median_ms"]
-    del s_out, mask
+        enable_gqa=not expand)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(s_out, (sq, sk, sv), do, retain_graph=True)
+
+    t_sdpa = cuda_time_ms(sdpa_bwd, iters=iters)["median_ms"]
+    sdpa_ran = sdpa_kernel_name(sdpa_bwd) if expand else None
+    del s_out, mask, sq, sk, sv
     pairs = mask_pairs(q, k, causal, masks.get("window"), ids)
     bounds = {part: bwd_bound(q, k, part, pairs)
               for part in ("all", *stages)}
@@ -1805,7 +1836,9 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
         f"(gate {BWD_ORACLE_GATE[dtype]:.0e}) of max |grad| | call "
         f"{t_call:.4f} ms ("
         + ", ".join(f"{p} {t:.4f}" for p, t in t_part.items())
-        + f") plain {t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms bound "
+        + f") plain {t_plain:.4f} ms sdpa bwd {t_sdpa:.4f} ms"
+        + (f" (K/V repeated to {q_shape[1]} heads, {sdpa_ran})"
+           if expand else "") + " bound "
         f"{bounds['all'][0]:.4f} ms ({bounds['all'][1]}; "
         + ", ".join(f"{p} {bounds[p][0]:.4f}" for p in stages)
         + f") | {bounds['all'][0] / t_call:.1%} of the bound, "
@@ -1816,7 +1849,40 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     if not ok:
         raise AssertionError(f"flash backward kernels disagree: {name}")
     return {"max_abs_err": abs_err, "ms": t_part, "call_ms": t_call,
-            "plain_ms": t_plain, "library_ms": t_sdpa, "bound": bounds}
+            "plain_ms": t_plain, "library_ms": t_sdpa, "bound": bounds,
+            "library": sdpa_ran}
+
+
+def bwd_planted_faults(name, q, k, v, out, lse, do, got, causal, mk):
+    """Two faults of the bf16 backward at a head_dim d read in place on
+    the instance of tile width w (the next of 64, 128, 256, 512): the
+    plain backward at sm_scale 1/sqrt(w) (a default scale taken after the
+    padding), and the kernels' dq, dk, dv as an epilogue that stored all w
+    columns of each row at stride d would leave them
+    (all_columns_epilogue). Each must fail check_bwd's plain gate."""
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd_plain)
+
+    d = q.shape[-1]
+    tile = next(w for w in (64, 128, 256, 512) if d <= w)
+    plain = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                      sm_scale=d ** -0.5, **mk)
+    faults = {
+        f"sm_scale 1/sqrt({tile})": flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal=causal, sm_scale=tile ** -0.5,
+            **mk),
+        f"an epilogue storing all {tile} columns at stride {d}": [
+            all_columns_epilogue(g, tile) for g in got]}
+    for label, grads in faults.items():
+        err = max(_rel_err(g, w) for g, w in zip(grads, plain))
+        caught = err > BWD_PLAIN_GATE[q.dtype]
+        log(f"flash bwd {name}: planted fault, {label}: dq/dk/dv err vs "
+            f"plain {err:.2e} of max |grad| (gate "
+            f"{BWD_PLAIN_GATE[q.dtype]:.0e}) | "
+            f"{'caught' if caught else 'PASSES THE GATE'}")
+        if not caught:
+            raise AssertionError(f"the backward gate passes a planted "
+                                 f"fault: {label}")
 
 
 # --- phase 5: the engine end to end ------------------------------------------
@@ -4135,7 +4201,8 @@ DIMS_MODELS = [
     # Served over bf16 pages of 64 tokens and int8 pages of 128 (<= 512,
     # JAX's int8 rule); 2,250.3 M parameters at 4 layers (the untied embed
     # and lm_head 1,059.1 M, each layer 297.8 M). Its phase is
-    # wider_phase; it takes no train step (the backward stops at 256).
+    # wider_phase, which also takes its train step pair (the backward's
+    # instance of width 512).
     (V4_MODEL, dict(vocab_size=129280, d_model=4096, n_q_heads=64,
                     n_kv_heads=1, d_head=512, d_ff=2048, rope_theta=10000.0,
                     rms_eps=1e-6), 64, 128),
@@ -4144,8 +4211,9 @@ DIMS_MODELS = [
 WIDTH_MODEL = "OpenLLaMA-3B widths"
 DIMS_LAYERS = 4
 # the models whose train step pair runs: Phi-3-mini's (beside the same
-# pair padded) and Gemma-2B's (head_dim 256, a tile width: nothing pads)
-DIMS_TRAIN = ("Phi-3-mini widths", "Gemma-2B widths")
+# pair padded), Gemma-2B's and DeepSeek-V4-Flash's (head_dim 256 and 512,
+# tile widths: nothing pads)
+DIMS_TRAIN = ("Phi-3-mini widths", "Gemma-2B widths", V4_MODEL)
 
 
 def dims_mask(mask, b, n) -> dict:
@@ -4433,7 +4501,7 @@ def in_place_bwd(d: int, gen, shape=(1, 32, 2048), hkv=None) -> dict:
     k, v = (randn((b, hkv, n, d), torch.bfloat16, gen) for _ in range(2))
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     wide = d > 128
-    inst = "n256" if wide else f"n{d}"
+    inst = "n512" if d > 256 else "n256" if wide else f"n{d}"
 
     def bwd(narrow=True, padded=False):
         with (padded_head_dims() if padded else contextlib.nullcontext()):
@@ -4894,7 +4962,7 @@ def dims_model_phase(seed, models=None, train=True) -> dict:
                     else WIDER_DECODE_GROUPS)
             del run
         del params
-    for label, fields, *_ in DIMS_MODELS:
+    for label, fields, *_ in models or DIMS_MODELS:
         if train and label in DIMS_TRAIN:
             train_pair(label, fields, gen, totals, by_model)
     return {"launches": totals, "by_model": by_model, "caches": caches,
@@ -5157,9 +5225,22 @@ def train_pair(label, fields, gen, totals, by_model,
         flash_attention_bwd)
     from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
 
+    from tiny_flash_attention_tpu_torch.parallel.train import param_leaves
+
     cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=dtype)
     step, init_state = make_train_step(cfg, learning_rate=1e-3)
     params0 = T.init_params(cfg, gen, device="cuda")
+    # the memory reckoned before the run: params0 (kept for the gradient
+    # check), the step's copy, its gradients and AdamW's two moments, all
+    # in the params' dtype; the reference path's f32 scores, one (heads,
+    # 2048, 2048) tensor a layer
+    n_params = sum(t.numel() for t in param_leaves(params0))
+    el = torch.finfo(dtype).bits // 8
+    scores = cfg.n_q_heads * 2048 ** 2 * 4
+    log(f"dims train [{label}]: reckoned {n_params / 1e6:.1f} M params x "
+        f"{el} bytes x 5 (params0, the step's copy, gradients, AdamW's two "
+        f"moments) = {5 * n_params * el / 2**30:.2f} GiB; the reference "
+        f"path's f32 scores {scores / 2**30:.2f} GiB a tensor a layer")
     params, opt = init_state(params0)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
                            device="cuda")
@@ -5181,7 +5262,8 @@ def train_pair(label, fields, gen, totals, by_model,
     mine["flash_fwd"] = mine.get("flash_fwd", 0) + got[0]
     mine["flash_bwd"] = got[1]
     del params, opt
-    if cfg.d_head in (*dims.FLASH_HEAD_DIMS, dims.WIDE_HEAD_DIM):
+    if cfg.d_head in (*dims.FLASH_HEAD_DIMS, dims.WIDE_HEAD_DIM,
+                      dims.WIDER_HEAD_DIM):
         log(f"dims train [{label}, 1 x 2048, {str(dtype).split('.')[-1]}]: "
             f"peak device memory of the pair {peak / 2**20:.1f} MiB "
             f"(head_dim {cfg.d_head}, a tile width: nothing pads)")
@@ -5204,7 +5286,12 @@ def train_pair(label, fields, gen, totals, by_model,
             f"pair's losses {padded_losses[0]:.4f} -> "
             f"{padded_losses[1]:.4f}, the same bits: "
             f"{padded_losses == losses}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     err = train_grad_check(cfg, params0, tokens)
+    log(f"dims train [{label}]: peak device memory of the gradient check "
+        f"(kernels, then attn_impl='reference') "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     grad_gate = (TRAIN_F32_GRAD_GATE if dtype == torch.float32
                  else TRAIN_GRAD_GATE)
     log(f"dims train [{label}, 1 x 2048, {str(dtype).split('.')[-1]}]: loss "
@@ -5370,14 +5457,36 @@ WIDER_GROUPS = (1, 8, 64)
 # B4 over each DeepSeek-V4-Flash-width engine cache at these groups
 WIDER_DECODE_GROUPS = (1, 8, 64)
 # the sources the phase runs (`--wide` builds these alone)
-WIDER_SOURCES = ["flash_fwd", "paged_decode_wide",
+WIDER_SOURCES = ["flash_fwd", "flash_bwd", "paged_decode_wide",
                  "paged_decode_separate_wide", "page_append"]
+# the backward's instance of width 512 against its plain version at
+# 1024 rows: every head_dim under each group and each mask by turn
+# ("starts": ids changing at WIDER_BWD_BOUNDS with their segment_starts),
+# the planted faults at 392: (d, group, mask)
+WIDER_BWD_CASES = [(264, 1, "causal"), (264, 8, "window"),
+                   (264, 64, "starts"), (384, 1, "starts"),
+                   (384, 8, "causal"), (384, 64, "window"),
+                   (392, 1, "window"), (392, 8, "starts"),
+                   (392, 64, "causal"), (512, 1, "causal"),
+                   (512, 8, "window"), (512, 64, "starts")]
+WIDER_BWD_BOUNDS = (300, 610)
+WIDER_BWD_WINDOW = 200
+# the backward read in place beside the call padded to 512 (bits, no copy;
+# times in turns): (head_dim, (b, h, n), kv heads)
+WIDER_IN_PLACE_BWD = [(264, (1, 8, 2048), 1), (392, (1, 8, 2048), 1)]
+# the backward timed beside SDPA's (K/V repeated) and the bound:
+# DeepSeek-V4-Flash's train step (a layer at 1 x 2048) and head_dim 384 at
+# Gemma-2B's prefill shape: (label, q shape, kv shape)
+WIDER_BWD_SHAPES = [
+    ("DeepSeek-V4-Flash train step", (1, 64, 2048, 512), (1, 1, 2048, 512)),
+    ("head_dim 384", (4, 8, 2048, 384), (4, 1, 2048, 384))]
 
 
 def wider_instances() -> None:
-    """The new instances' build: B1's of width 512 on wgmma (HGMMA in their
-    SASS, no HMMA) with their registers and spill bytes, and every
-    instance of the width-512 decode sources (ptxas)."""
+    """The new instances' build: B1's and the backward's of width 512 on
+    wgmma (HGMMA in their SASS, no HMMA) with their registers and spill
+    bytes (the backward's prep and post too), and every instance of the
+    width-512 decode sources (ptxas)."""
     from tiny_flash_attention_tpu_torch import _build
 
     sass = {k: v for k, v in wgmma_instructions(
@@ -5391,7 +5500,19 @@ def wider_instances() -> None:
         + "; registers/spill bytes: " + ", ".join(regs))
     if len(sass) != 4 or any(g == 0 or h > 0 for g, h in sass.values()):
         raise AssertionError("B1's width-512 instances are not on wgmma")
-    for name in WIDER_SOURCES[1:3]:
+    sass = {k: v for k, v in wgmma_instructions(
+        str(_build._target("flash_bwd")[1])).items()
+        if k.startswith("flash_bwd_512_kernel<512,")}
+    regs = [x for x in instance_registers(_build.build_log("flash_bwd"))
+            if "<512" in x]
+    log(f"wider: flash_bwd's width-512 main instances, HGMMA/HMMA "
+        f"(cuobjdump -sass): " + ", ".join(f"{k}: {g}/{h}" for k, (g, h) in
+                                           sass.items())
+        + "; prep, main and post registers/spill bytes: " + ", ".join(regs))
+    if len(sass) != 4 or any(g == 0 or h > 0 for g, h in sass.values()):
+        raise AssertionError("the backward's width-512 instances are not "
+                             "on wgmma")
+    for name in WIDER_SOURCES[2:4]:
         log(f"wider: {name} registers/spill bytes: " + "; ".join(
             spilling_instances(_build.build_log(name), every=True)))
 
@@ -5543,6 +5664,38 @@ def wider_grid(gen) -> dict:
     return {"worst": worst, "launches": launches}
 
 
+def wider_bwd_phase(gen) -> dict:
+    """The training path's kernels at head dims in (256, 512]: the bf16
+    backward's instance of width 512 against its plain version and f32
+    autograd at WIDER_BWD_CASES (check_bwd's gates at 256; planted faults
+    at 392: a scale from 512, an epilogue storing all 512 columns), read in
+    place beside the call padded to 512 at WIDER_IN_PLACE_BWD (bits, no
+    copy; times in turns), its spread at 512 (0 of the pairs may differ),
+    and timed at WIDER_BWD_SHAPES beside SDPA's backward (K/V repeated, its
+    backend named) and the bound. Returns the timed rows, the in-place
+    rows and the worst error."""
+    worst = 0.0
+    for d, group, mask in WIDER_BWD_CASES:
+        hkv = 2 if group == 1 else 1
+        masks = {"window": {"window": WIDER_BWD_WINDOW},
+                 "starts": {"bounds": WIDER_BWD_BOUNDS, "starts": True}
+                 }.get(mask, {})
+        r = check_bwd(f"wider: backward d {d} group {group} {mask}",
+                      (1, hkv * group, 1024, d), (1, hkv, 1024, d),
+                      torch.bfloat16, True, masks, gen, iters=2,
+                      faults=d == 392)
+        worst = max(worst, r["max_abs_err"])
+    in_place = {d: in_place_bwd(d, gen, shape=shape, hkv=hkv)
+                for d, shape, hkv in WIDER_IN_PLACE_BWD}
+    bwd_spread(gate=True, d=512)
+    timed = {label: check_bwd(f"wider: backward at {label}", q_shape,
+                              kv_shape, torch.bfloat16, True, {}, gen,
+                              iters=5)
+             for label, q_shape, kv_shape in WIDER_BWD_SHAPES}
+    worst = max(worst, *(r["max_abs_err"] for r in timed.values()))
+    return {"timed": timed, "in_place": in_place, "worst": worst}
+
+
 def wider_phase(gen) -> dict:
     """The serving path at head dims in (256, 512], each kernel against its
     plain version: B1 (bf16 over bf16 K/V, the instance of width 512) at
@@ -5556,8 +5709,12 @@ def wider_phase(gen) -> dict:
     8 sequences up to 8192 tokens with its planted faults, B5 timed at
     V4-Flash's 8 tokens x 1 kv head; then the DeepSeek-V4-Flash-width
     engines (dims_model_phase: bf16 pages of 64, int8 pages of 128, B4
-    over each cache at WIDER_DECODE_GROUPS). Returns the rows, the worst
-    errors and the engines' launches."""
+    over each cache at WIDER_DECODE_GROUPS); the training path, on a
+    generator of its own (so the serving checks take the inputs they
+    always took): the backward's instance of width 512 (wider_bwd_phase)
+    and the DeepSeek-V4-Flash-width train step pair (in dims_model_phase).
+    Returns the rows, the worst errors and the engines' and the train
+    pair's launches."""
     wider_instances()
     rows, errs = {}, {}
     errs["flash_fwd"] = max(check_dims_flash(*c, torch.bfloat16, gen)
@@ -5601,9 +5758,12 @@ def wider_phase(gen) -> dict:
         *(worst[f"B5 {f}"][0] for f in ("bf16", "f32", "int8")),
         *(r["max_abs_err"] for r in rows["append"].values()))
     rows["runtime"] = wider_runtime_timed(gen)
+    bwd = wider_bwd_phase(torch.Generator(device="cuda").manual_seed(
+        SEED + 4))
+    rows["bwd"], rows["in_place_bwd"] = bwd["timed"], bwd["in_place"]
+    errs["flash_bwd"] = bwd["worst"]
     models = dims_model_phase(SEED, models=[m for m in DIMS_MODELS
-                                            if m[0] == V4_MODEL],
-                              train=False)
+                                            if m[0] == V4_MODEL])
     return {"rows": rows, "errs": errs, "models": models}
 
 
@@ -7436,6 +7596,7 @@ def main() -> int:
                         ("flash_fwd_quant", "flash_fwd_wgmma_kernel"),
                         ("flash_bwd", "flash_bwd_main_kernel"),
                         ("flash_bwd", "flash_bwd_wide_kernel"),
+                        ("flash_bwd", "flash_bwd_512_kernel"),
                         ("flash_v1", "flash_v1_wgmma_kernel")):
         sass = {k: v for k, v in wgmma_instructions(
             str(_build._target(lib)[1])).items() if k.startswith(prefix)}
@@ -7738,7 +7899,25 @@ def main() -> int:
                          "threads over two 128-column parts; a two-stage "
                          "cp.async ring; slots summed by post in a fixed "
                          "order: bit-identical runs"))
-          for part in ("dq", "dkv", "post"))]
+          for part in ("dq", "dkv", "post")),
+        # the instances of width 512 at the DeepSeek-V4-Flash-width train
+        # step's (1,64,2048,512)/(1,1)
+        *(bwd_kernel(part, wrows["bwd"]["DeepSeek-V4-Flash train step"],
+                     torch.bfloat16, v4["flash_bwd"], suffix="_d512",
+                     worst=werrs["flash_bwd"], design=(
+                         "bf16 at head_dim 257-512 (tiles of 512 columns): "
+                         "prep with two 16-byte pieces a lane, a warp a "
+                         "row; main on wgmma/TMA, two blocks per (64-row kv "
+                         "tile, q head), one for each 256-column half of "
+                         "dK/dV/dQ, both recomputing S^T and dP^T over 512 "
+                         "columns (m64n16k16 over 32 k-steps, a warpgroup "
+                         "16 of the 32-row q step), P and dS as bf16 in "
+                         "shared memory [q][kv], dV/dK m64n128k16 (64 + 64 "
+                         "f32 registers a thread), dQ^T = K^T dS^T "
+                         "(m64n32k16) added by float4 atomics in each (q "
+                         "tile, part)'s chain: 7 products a pair, bit-"
+                         "identical runs; post transposes dq"))
+          for part in ("prep", "main", "post"))]
     # flash_fwd runs on every main path but the jagged admission: its
     # launches are the engines' (the windowed one's included), the
     # encoder's, the train step's and every rank's of the context-parallel

@@ -66,7 +66,11 @@ and the append at every head_dim up to 256 and every page size JAX takes
 over bf16 pages at each head_dim 1 to 256; f32 and int8 pages at page
 sizes 1, 8, 24, 48 and 100 and head dims 8 to 248; and the compiled widths
 (64, 80, 96, 128, 256 at page size 16 or a multiple of 32) still on their
-own instances.
+own instances. Last, the bf16 backward's instance of width 512 (head dims
+264, 384 and 512 at groups 1, 8 and 64 under every mask, 300 rows; 264,
+392 and 448 read in place with the padded call's bits; bit-identical runs
+and chain counters at 0 among the runs above) and its refusals above 512
+and in f32 above 256.
 """
 
 import dataclasses
@@ -210,28 +214,23 @@ def test_not_ported_raises_on_the_card(gen):
     q = _randn((1, 2, 64, 64), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
-    # head_dim above 256: the bf16 forward over bf16 K/V takes it (up to
-    # 512), the bf16 backward (queue B-dims-2a-train) and f32 (queue
-    # B-dims-2a-f32) raise, and a backward() through the forward raises
-    # rather than dropping the gradient; above 512 every entry raises
+    # head_dim above 256: the bf16 forward over bf16 K/V and the bf16
+    # backward take it (up to 512), f32 (queue B-dims-2a-f32) raises, in
+    # the backward too; above 512 every entry raises (B-dims-2a-512+)
     q264 = _randn((1, 2, 8, 264), torch.bfloat16, gen)
+    lse = torch.zeros((1, 2, 8), device="cuda")
     assert flash_attention(q264, q264, q264).shape == q264.shape
     with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
         flash_attention(q264.float(), q264.float(), q264.float())
-    for x, queue in ((q264, "B-dims-2a-train"),
-                     (q264.float(), "B-dims-2a-f32")):
-        with pytest.raises(NotImplementedError, match=queue):
-            flash_attention_bwd(x, x, x, x,
-                                torch.zeros((1, 2, 8), device="cuda"), x,
-                                causal=True)
-    x384 = _randn((1, 2, 8, 384), torch.bfloat16, gen).requires_grad_()
-    out = flash_attention(x384, x384, x384, causal=True)
-    with pytest.raises(NotImplementedError, match="B-dims-2a-train"):
-        out.float().sum().backward()
+    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
+        x = q264.float()
+        flash_attention_bwd(x, x, x, x, lse, x, causal=True)
     q520 = _randn((1, 2, 8, 520), torch.bfloat16, gen)
     for x in (q520, q520.float()):
         with pytest.raises(NotImplementedError, match="B-dims-2a-512"):
             flash_attention(x, x, x)
+        with pytest.raises(NotImplementedError, match="B-dims-2a-512"):
+            flash_attention_bwd(x, x, x, x, lse, x, causal=True)
     # head_dim above 256 in FA1 (its wide instances pad up to 256 and no
     # further; queue B-dims-2a-quant-v1)
     for x in (q264, q264.float(), q520):
@@ -1172,6 +1171,10 @@ DETERMINISM = [
     (8, 2, 96, "causal"), (4, 4, 96, "window"), (8, 2, 96, "ids"),
     (8, 1, 256, "causal"), (4, 4, 256, "window"), (8, 2, 256, "ids"),
     (8, 1, 256, "starts"), (8, 2, 192, "causal"), (4, 4, 192, "starts"),
+    # the instance of width 512: both halves of a kv tile add into the dQ
+    # chains of their own parts
+    (8, 1, 512, "causal"), (8, 2, 512, "window"), (64, 1, 512, "ids"),
+    (8, 1, 384, "starts"),
 ]
 
 
@@ -2033,7 +2036,8 @@ def test_wide_decode_row_blocks_match_plain(gen, group, fmt, ring):
 
 def test_wide_smem_layouts_match_configs(gen):
     """ops/configs.py::bwd_smem_bytes gives the shared memory of each bf16
-    backward main kernel, the wide one included (the library's sizes)."""
+    backward main kernel, the wide one and that of width 512 included (the
+    library's sizes)."""
     from tiny_flash_attention_tpu_torch import _build
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_bf16_smem
     check_bf16_smem(_build.library("flash_bwd"))
@@ -2110,12 +2114,88 @@ def test_wider_in_place_is_the_padded_call(gen, d):
 
 
 def test_wider_backward_raises(gen):
-    """The bf16 backward stops at 256: a backward() through B1 at 384
-    raises, naming queue B-dims-2a-train, and never drops the gradient."""
+    """The bf16 backward stops at 512: at 520 it raises, naming queue
+    B-dims-2a-512+, and in f32 it stops at 256 (B-dims-2a-f32): a
+    backward() through B1 in f32 at 264 raises, never dropping the
+    gradient, while one in bf16 at 384 runs."""
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    x = _randn((1, 2, 64, 520), torch.bfloat16, gen)
+    with pytest.raises(NotImplementedError, match="B-dims-2a-512"):
+        flash_attention_bwd(x, x, x, x, lse, x, causal=True)
+    x = _randn((1, 2, 64, 264), torch.float32, gen)
+    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
+        flash_attention_bwd(x, x, x, x, lse, x, causal=True)
     x = _randn((1, 2, 64, 384), torch.bfloat16, gen).requires_grad_()
-    out = flash_attention(x, x, x, causal=True)
-    with pytest.raises(NotImplementedError, match="B-dims-2a-train"):
-        out.float().sum().backward()
+    flash_attention(x, x, x, causal=True).float().sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "starts",
+                                  "full"])
+@pytest.mark.parametrize("group", [1, 8, 64])
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_wider_bwd_matches_plain(gen, d, group, mask):
+    """The backward's instance of width 512 against its plain version at
+    the bf16 gate, each mask, 300 rows (not a multiple of the 32-row q
+    steps or the 64-row kv tiles) over 250 kv rows where causal is off; a
+    group of 64 is DeepSeek-V4-Flash's; through flash_attention_bwd and
+    autograd."""
+    b, hkv = 2, 2 if group == 1 else 1
+    q_len, kv_len = (300, 250) if mask == "full" else (300, 300)
+    q = _randn((b, hkv * group, q_len, d), torch.bfloat16, gen)
+    k = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    v = _randn((b, hkv, kv_len, d), torch.bfloat16, gen)
+    do = _randn((b, hkv * group, q_len, d), torch.bfloat16, gen)
+    kw, starts = {"causal": mask != "full"}, None
+    if mask == "window":
+        kw["window"] = 61
+    if mask in ("ids", "starts"):
+        seg = _segment_ids(b, q_len, (70, 130, 230), gen)
+        kw["segment_ids"] = (seg, seg)
+        if mask == "starts":
+            starts = (0, 70, 130, 230)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, segment_starts=starts,
+                              **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                     sm_scale=d ** -0.5, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_GATE[torch.bfloat16], name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, segment_starts=starts, **kw).backward(do)
+    for name, t, g in zip(("dq", "dk", "dv"), leaves, got):
+        assert torch.equal(t.grad, g), name
+
+
+@pytest.mark.parametrize("d", [264, 392, 448])
+def test_wider_in_place_bwd_is_the_padded_call(gen, d):
+    """The backward at a head_dim in (256, 512] read in place: dq, dk and
+    dv are the bits of the call on tensors padded to 512 (sliced back),
+    through flash_attention_bwd and through autograd, and neither pads."""
+    b, n = 2, 300
+    q = _randn((b, 8, n, d), torch.bfloat16, gen)
+    k = _randn((b, 1, n, d), torch.bfloat16, gen)
+    v = _randn((b, 1, n, d), torch.bfloat16, gen)
+    do = _randn((b, 8, n, d), torch.bfloat16, gen)
+    seg = _segment_ids(b, n, (70, 230), gen)
+    kw = {"causal": True, "segment_ids": (seg, seg), "sm_scale": d ** -0.5}
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    copies = pad_head_dim.copies
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert pad_head_dim.copies == copies
+    want = flash_attention_bwd(*(pad_head_dim(t, 512) for t in (q, k, v, out)),
+                               lse, pad_head_dim(do, 512), **kw)
+    for name, g, t, w in zip(("dq", "dk", "dv"), got, leaves, want):
+        assert torch.equal(g, unpad_head_dim(w, d)), name
+        assert torch.equal(t.grad, g), name
+
 
 
 @pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])

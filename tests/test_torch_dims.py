@@ -121,25 +121,25 @@ def test_f32_and_quantized_entries_pad(d):
 
 
 def test_head_dims_above_128_raise():
-    """Above 256 the bf16 forward over bf16 K/V takes every head_dim up to
-    512 (a multiple of 8 in place, any other padded to 512); the backward,
-    f32, the quantized forward and FA1 raise there, each naming itself and
-    its ROADMAP queue, and each pads (128, 256] to 256; the decodes and the
-    append take every head_dim up to 512 (72, 112, 192, 300 and 384 among
-    them; the decodes with f32 q up to 256); above 512 everything raises,
-    naming queue B-dims-2a-512+."""
+    """Above 256 the bf16 forward over bf16 K/V and the bf16 backward take
+    every head_dim up to 512 (a multiple of 8 in place, any other padded to
+    512); f32 (the forward and the backward), the quantized forward and
+    FA1 raise there, each naming itself and its ROADMAP queue, and each
+    pads (128, 256] to 256; the decodes and the append take every head_dim
+    up to 512 (72, 112, 192, 300 and 384 among them; the decodes with f32 q
+    up to 256); above 512 everything raises, naming queue
+    B-dims-2a-512+."""
     fwd, bwd = "the CUDA forward kernel", "the CUDA backward kernels"
     for d in (264, 384, 512):
         with pytest.raises(NotImplementedError, match="up to 256.*"
                            "B-dims-2a-quant-v1"):
             dims.kernel_head_dim(d, fwd, wide=True)
         assert dims.flash_head_dim(d, torch.bfloat16, fwd) == d
-        with pytest.raises(NotImplementedError, match="up to 256.*"
-                           "B-dims-2a-train"):
-            dims.flash_head_dim(d, torch.bfloat16, bwd, backward=True)
-        with pytest.raises(NotImplementedError, match="float32 takes "
-                           "head_dim up to 256.*B-dims-2a-f32"):
-            dims.flash_head_dim(d, torch.float32, fwd)
+        assert dims.flash_head_dim(d, torch.bfloat16, bwd) == d
+        for what in (fwd, bwd):
+            with pytest.raises(NotImplementedError, match="float32 takes "
+                               "head_dim up to 256.*B-dims-2a-f32"):
+                dims.flash_head_dim(d, torch.float32, what)
     for d in (264, 384):
         with pytest.raises(NotImplementedError, match="FA1 kernel takes "
                            "head_dim up to 256.*B-dims-2a-quant-v1"):
@@ -156,8 +156,7 @@ def test_head_dims_above_128_raise():
     for d in (520, 576):
         for call in (
                 lambda: dims.flash_head_dim(d, torch.bfloat16, fwd),
-                lambda: dims.flash_head_dim(d, torch.bfloat16, bwd,
-                                            backward=True),
+                lambda: dims.flash_head_dim(d, torch.bfloat16, bwd),
                 lambda: dims.flash_head_dim(d, torch.float32, fwd),
                 lambda: dims.flash_head_dim(d, torch.bfloat16, fwd,
                                             quantized=True),

@@ -75,31 +75,33 @@ def _both(a, dtype):
 
 @pytest.mark.parametrize("d", range(129, 521))
 def test_in_place_rule_above_128(d):
-    """bf16 over bf16 K/V, the forward takes a multiple of 8 up to 512 in
-    place (the wide instances up to 256, the instance of width 512 above),
-    pads any other head_dim in (128, 256] to 256 and in (256, 512] to 512,
-    and raises above 512; the bf16 backward stops at 256; the f32
+    """bf16 over bf16 K/V, the forward and the backward take a multiple of
+    8 up to 512 in place (the wide instances up to 256, the instances of
+    width 512 above), pad any other head_dim in (128, 256] to 256 and in
+    (256, 512] to 512, and raise above 512 (queue B-dims-2a-512+); the f32
     instances and the quantized forward pad every head_dim in (128, 256]
     to 256 and raise above, naming themselves and their ROADMAP queues;
     pad_head_dim counts each copy it makes."""
-    what = "the CUDA forward kernel"
+    what, bwd = "the CUDA forward kernel", "the CUDA backward kernels"
     if d > 256:
         with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
-        with pytest.raises(NotImplementedError, match="float32 takes "
-                           "head_dim up to 256"):
-            dims.flash_head_dim(d, torch.float32, what)
-        with pytest.raises(NotImplementedError, match="up to 256"):
-            dims.flash_head_dim(d, torch.bfloat16, what, backward=True)
+        queue = "B-dims-2a-f32" if d <= 512 else "B-dims-2a-512+"
+        for x in (what, bwd):
+            with pytest.raises(NotImplementedError, match="float32 takes "
+                               f"head_dim up to 256.*{queue}"):
+                dims.flash_head_dim(d, torch.float32, x)
     else:
         assert dims.flash_head_dim(d, torch.bfloat16, what,
                                    quantized=True) == 256
         assert dims.flash_head_dim(d, torch.float32, what) == 256
         assert dims.kernel_head_dim(d, what, wide=True) == 256
     if d > 512:
-        with pytest.raises(NotImplementedError, match="up to 512"):
-            dims.flash_head_dim(d, torch.bfloat16, what)
+        for x in (what, bwd):
+            with pytest.raises(NotImplementedError, match="up to 512.*"
+                               "B-dims-2a-512+"):
+                dims.flash_head_dim(d, torch.bfloat16, x)
         assert not dims.reads_in_place(d)
         return
     in_place = d % 8 == 0
@@ -108,9 +110,7 @@ def test_in_place_rule_above_128(d):
     want = d if in_place else tile
     assert dims.flash_head_dim(d, torch.bfloat16, what) == want
     assert dims.flash_width(d, True) == (tile if in_place else 0)
-    if d <= 256:
-        assert dims.flash_head_dim(d, torch.bfloat16, what,
-                                   backward=True) == want
+    assert dims.flash_head_dim(d, torch.bfloat16, bwd) == want
     x = torch.zeros(1, 1, 3, d)
     before = dims.pad_head_dim.copies
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.bfloat16, what))

@@ -221,14 +221,17 @@ class _BwdLibrary:
 
 def test_bwd_smem_is_held_to_the_library():
     """check_bf16_smem passes where the library's sizes are
-    bwd_smem_bytes' at 64, 128 and 256, and raises where one differs."""
+    bwd_smem_bytes' at 64, 128, 256 and 512, and raises where one
+    differs."""
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import check_bf16_smem
 
-    sizes = {d: bwd_smem_bytes(d) for d in (64, 128, 256)}
+    sizes = {d: bwd_smem_bytes(d) for d in (64, 128, 256, 512)}
     check_bf16_smem(_BwdLibrary(sizes))
-    sizes[256] += 64
-    with pytest.raises(RuntimeError, match="bwd_smem_bytes"):
-        check_bf16_smem(_BwdLibrary(sizes))
+    for d in (256, 512):
+        wrong = dict(sizes)
+        wrong[d] += 64
+        with pytest.raises(RuntimeError, match="bwd_smem_bytes"):
+            check_bf16_smem(_BwdLibrary(wrong))
 
 
 class _Library:

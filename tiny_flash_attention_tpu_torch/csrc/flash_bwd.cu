@@ -10,7 +10,7 @@
 //   tiny_flash_attention_tpu/ops/flash_bwd.py:609      flash_attention_bwd   (_bwd_dkv_kernel)
 //
 // Contract: q, out, dout (B, hq, Sq, d) and k, v (B, hkv, Skv, d),
-// contiguous, of one dtype (bf16: d any multiple of 8 up to 256, read and
+// contiguous, of one dtype (bf16: d any multiple of 8 up to 512, read and
 // written at its true width; f32: d 64, 128 or 256); lse (B, hq, Sq) is the
 // forward's natural-log LSE in f32. Causal rows sit at position row + Skv -
 // Sq. Writes dq like q, and dk, dv like k, summed over the GQA group of
@@ -66,8 +66,9 @@
 //     summed in q-head order: the one rounding at the write of JAX's VMEM
 //     accumulators.
 //   The true head_dim d (hopper.cuh::flash_width picks an instance of width
-//   N >= d over tiles of D = 64, 128 or 256 columns; above 128 the main
-//   kernel is the wide one, below): prep reads and writes rows
+//   N >= d over tiles of D = 64, 128, 256 or 512 columns; above 128 the
+//   main kernel is the wide one, above 256 the one of width 512, below):
+//   prep reads and writes rows
 //   at stride d, its lanes past d adding 0 to delta in the same order as
 //   over a padded row; the main kernel's maps take d, so TMA lands zeros in
 //   the tiles' columns past d; S^T and dP^T run N / 16 k-steps, dV and dK
@@ -106,15 +107,16 @@
 // Tile sizes come from tiny_flash_attention_tpu_torch/ops/configs.py as -D
 // defines; the build refuses to compile without them.
 
-#include <type_traits>
-
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #if !defined(TFA_BWD_BF16_BLOCK_M) || !defined(TFA_BWD_BF16_BLOCK_N) || \
     !defined(TFA_BWD_BF16_THREADS) || !defined(TFA_BWD_BF16_WIDE_BLOCK_M) || \
     !defined(TFA_BWD_BF16_WIDE_BLOCK_N) ||                                \
-    !defined(TFA_BWD_BF16_WIDE_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) || \
+    !defined(TFA_BWD_BF16_WIDE_THREADS) ||                                \
+    !defined(TFA_BWD_BF16_512_BLOCK_M) ||                                 \
+    !defined(TFA_BWD_BF16_512_BLOCK_N) ||                                 \
+    !defined(TFA_BWD_BF16_512_THREADS) || !defined(TFA_BWD_F32_BLOCK_M) || \
     !defined(TFA_BWD_F32_BLOCK_N) || !defined(TFA_BWD_F32_THREADS) ||    \
     !defined(TFA_BWD_F32_WIDE_BLOCK_M) ||                                 \
     !defined(TFA_BWD_F32_WIDE_BLOCK_N) || !defined(TFA_BWD_F32_WIDE_THREADS)
@@ -172,9 +174,19 @@ struct Smem {
   static_assert(2 * 2 * 64 * D * 4 <= DST, "dK/dV staging fits the ring");
 };
 
+// 16-byte pieces a prep lane reads of each of q, out and dout: one up to
+// 256 columns, two at 512 (a row is one warp's there)
+__host__ __device__ constexpr int prep_pieces(int d) { return d > 256 ? 2 : 1; }
+
+// q rows a prep warp takes at tiles of D columns
+__host__ __device__ constexpr int prep_rows_per_warp(int d) {
+  return 32 / (d / 8 / prep_pieces(d));
+}
+
 // Rows of d columns (a multiple of 8, at most D): a row's LANES lanes keep
 // D's map, those past d reading nothing and adding 0 to delta, so delta's
-// sum runs in the order of a row padded to D.
+// sum runs in the order of a row padded to D. At D = 512 a lane takes the
+// pieces at columns 8 sub and 256 + 8 sub.
 template <int D>
 __global__ void __launch_bounds__(32 * PREP_WARPS)
     flash_bwd_prep_kernel(const bf16* __restrict__ q,
@@ -184,8 +196,9 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
                           bf16* __restrict__ qs, float* __restrict__ lse2,
                           float* __restrict__ delta, int n_bh, int q_len,
                           int q_pad, int d, float scale_log2) {
-  constexpr int LANES = D / 8;                   // 16 bytes a lane
-  constexpr int PER_WARP = 32 / LANES;           // rows a warp
+  constexpr int PIECES = prep_pieces(D);
+  constexpr int LANES = D / 8 / PIECES;          // 16 bytes a lane a piece
+  constexpr int PER_WARP = prep_rows_per_warp(D);  // rows a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long row = ((long)blockIdx.x * PREP_WARPS + warp) * PER_WARP +
                    lane / LANES;                 // (bh, r), padded
@@ -199,25 +212,29 @@ __global__ void __launch_bounds__(32 * PREP_WARPS)
     }
     return;
   }
-  const size_t off = ((size_t)bh * q_len + r) * d + sub * 8;
-  const bool live = sub * 8 < d;                 // a lane inside the row
   const float qscale = __bfloat162float(__float2bfloat16_rn(scale_log2));
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const uint4 o4 = live ? *reinterpret_cast<const uint4*>(out + off) : zero;
-  const uint4 g4 = live ? *reinterpret_cast<const uint4*>(dout + off) : zero;
-  uint4 x4 = live ? *reinterpret_cast<const uint4*>(q + off) : zero;
-  const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&o4);
-  const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&g4);
-  __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&x4);
   float dot = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dot = fmaf(__low2float(o[i]), __low2float(g[i]), dot);
-    dot = fmaf(__high2float(o[i]), __high2float(g[i]), dot);
-    x[i] = __floats2bfloat162_rn(__low2float(x[i]) * qscale,
-                                 __high2float(x[i]) * qscale);
+  for (int piece = 0; piece < PIECES; ++piece) {
+    const int col = sub * 8 + piece * (D / PIECES);
+    const size_t off = ((size_t)bh * q_len + r) * d + col;
+    const bool live = col < d;                   // a piece inside the row
+    const uint4 o4 = live ? *reinterpret_cast<const uint4*>(out + off) : zero;
+    const uint4 g4 = live ? *reinterpret_cast<const uint4*>(dout + off) : zero;
+    uint4 x4 = live ? *reinterpret_cast<const uint4*>(q + off) : zero;
+    const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&o4);
+    const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&g4);
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&x4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dot = fmaf(__low2float(o[i]), __low2float(g[i]), dot);
+      dot = fmaf(__high2float(o[i]), __high2float(g[i]), dot);
+      x[i] = __floats2bfloat162_rn(__low2float(x[i]) * qscale,
+                                   __high2float(x[i]) * qscale);
+    }
+    if (live) *reinterpret_cast<uint4*>(qs + off) = x4;
   }
-  if (live) *reinterpret_cast<uint4*>(qs + off) = x4;
   // the lanes of one row: every lane of the group took the same branch
   const unsigned group = (LANES == 32 ? 0xffffffffu : (1u << LANES) - 1u)
                          << (lane / LANES * LANES);
@@ -599,9 +616,19 @@ static_assert(WHN == 64 && TFA_BWD_BF16_WIDE_BLOCK_M == HM &&
                   TFA_BWD_BF16_WIDE_THREADS == HTHREADS,
               "two warpgroups over a 64-row kv tile and 64-row q steps");
 
-// kv rows of a main-kernel block at tiles of D columns
+// The instance of width 512 (below): 64-row kv tiles, 32-row q steps.
+constexpr int XHM = TFA_BWD_BF16_512_BLOCK_M;   // q rows per step
+constexpr int XHN = TFA_BWD_BF16_512_BLOCK_N;   // kv rows per block
+static_assert(XHM == 32 && XHN == 64 && TFA_BWD_BF16_512_THREADS == HTHREADS,
+              "two warpgroups over a 64-row kv tile and 32-row q steps");
+
+// kv rows of a main-kernel block, and q rows of its step, at tiles of D
+// columns
 __host__ __device__ constexpr int bwd_kv_rows(int d) {
-  return d > 128 ? WHN : HN;
+  return d > 256 ? XHN : d > 128 ? WHN : HN;
+}
+__host__ __device__ constexpr int bwd_q_rows(int d) {
+  return d > 256 ? XHM : HM;
 }
 
 template <int D>
@@ -923,15 +950,381 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   }
 }
 
+// ------------------------------------------------ the instance of width 512
+//
+// Head dims in (256, 512] (N = 512, tiles of eight 64-column boxes). The
+// wide layout cannot hold them: a 64-row kv tile's dK and dV at 512 columns
+// are 65,536 f32 values, the whole register file, and K and V (128 KiB)
+// beside one 64-row stage of qs, q and dout (192 KiB) exceed the block's
+// shared memory. So the grid takes each (64-row kv tile, q head, batch)
+// twice, once for each 256-column half of dK, dV and dQ, the two halves
+// numbered next to each other (the second reads K, V, qs and dout from
+// L2), and a block steps over 32-row q tiles:
+//   * S^T = K qs^T and dP^T = V dout^T over all 512 columns, in both
+//     halves: warpgroup w takes the step's q rows [16w, 16w + 16)
+//     (m64n16k16 over 32 k-steps each) and computes their P and dS in f32
+//     at the rounding points above. Both halves run the same products on
+//     the same inputs in the same order, so the P and dS they round to
+//     bf16 are the same bits. They go to shared tiles [q][kv] (q rows of
+//     64 kv columns, the 128-byte swizzle): dV's and dK's A read MN-major,
+//     dQ^T's B read K-major.
+//   * dV += P^T dout and dK += dS^T q over the half's head dims: warpgroup
+//     w holds its 128 columns [256 half + 128w, + 128) of both, 64 + 64 f32
+//     registers a thread (m64n128k16 over 2 k-steps).
+//   * dQ^T = K^T dS^T over the same head dims (a q step of 32 rows is too
+//     few for wgmma's M of 64, so dQ is computed transposed): warpgroup w
+//     the 64-column parts 4 half + 2w and + 1 (m64n32k16 over 4 k-steps
+//     each, K read MN-major), added into dq_acc by float4 atomics in the
+//     chain of the (q tile, part) as in the wide kernel, so the sums keep a
+//     fixed order. dq_acc holds each (32-row q tile, part) in the fragment
+//     order of dQ^T; post transposes it.
+//   * one stage of qs and dout (whole rows, 32 KiB each) and of q (the
+//     half's columns, 16 KiB) beside K and V (64 KiB each), P, two dS tiles
+//     (4 KiB each): qs is loaded once both warpgroups' S^T have landed, q,
+//     dout and the rows once dV and dK have.
+// This is 7 products per visible pair where the narrower instances run 5:
+// both halves run S^T and dP^T.
+struct Smem512 {
+  static constexpr int D = 512;
+  static constexpr int KV = XHN * D * 2;         // K or V of the tile
+  static constexpr int QT = XHM * D * 2;         // qs or dout, whole rows
+  static constexpr int K = 0;
+  static constexpr int V = KV;
+  static constexpr int QS = 2 * KV;              // the q-side stage: qs,
+  static constexpr int DO = QS + QT;             // dout,
+  static constexpr int Q = DO + QT;              // q (the half's columns),
+  static constexpr int ROWS = Q + QT / 2;        // lse2, delta, q ids
+  static constexpr int PT = ROWS + 1024;         // P [XHM][XHN] bf16
+  static constexpr int DST = PT + XHM * XHN * 2;  // dS [2][XHM][XHN] bf16
+  static constexpr int BAR = DST + 2 * XHM * XHN * 2;
+  static constexpr int TOTAL = BAR + 64;
+  static constexpr int ALLOC = TOTAL + 1024;     // room to align the base
+  static_assert(3 * XHM * 4 <= 1024, "the rows fit their kilobyte");
+  static_assert(ALLOC <= 232448, "a block has 227 KB of shared memory");
+};
+
+template <int N, bool WINDOW, bool SEGS>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_512_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_qs,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg, const int* table,
+                         float* __restrict__ dq_acc,
+                         float* __restrict__ dk_acc,
+                         float* __restrict__ dv_acc, int* dq_turn,
+                         int batch, int hq, int hkv, int q_len, int kv_len,
+                         int q_pad, int causal, int window) {
+  static_assert(N == 512, "the instance of width 512");
+  using S = Smem512;
+  constexpr int D = S::D;
+  constexpr int BOXES = D / 64;                  // 64-wide column blocks
+  constexpr int HALF_BOXES = BOXES / 2;          // a half's
+  constexpr int DQ_PARTS = D / 64;               // dQ chunks per q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qs_full = reinterpret_cast<uint64_t*>(sm + S::BAR);
+  uint64_t* full = qs_full + 1;                  // dout, q and the rows
+  uint64_t* kv_bar = qs_full + 2;
+
+  const int n_kvt = (kv_len + XHN - 1) / XHN;
+  const Table tab(table, n_kvt);
+  const int half = blockIdx.x & 1;               // the halves side by side
+  const int rank = (blockIdx.x >> 1) / (hq * batch);  // longest band first
+  const int hb = (blockIdx.x >> 1) % (hq * batch);
+  const int j = tab.order[rank];
+  const int h = hb % hq, b = hb / hq;
+  const int kvh = h / (hq / hkv);
+  const int lo = tab.lo[j];
+  const int n = tab.hi[j] - lo;                  // q tiles to visit
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int bh = b * hq + h;
+  // this q head's dK, dV slot of the tile: 64 rows, f32, the 8-column
+  // group g of the fragment order at float4 g * 128; this half's groups
+  // are [32 half, 32 half + 32)
+  auto dkv_half = [&](float* acc) {
+    return reinterpret_cast<float4*>(acc + ((size_t)bh * n_kvt + j) *
+                                               (XHN * D)) +
+           half * 32 * 128;
+  };
+  if (n <= 0) {  // no row sees the tile: its gradients are 0
+    for (int i = tid; i < 32 * 128; i += HTHREADS) {
+      dkv_half(dk_acc)[i] = make_float4(0, 0, 0, 0);
+      dkv_half(dv_acc)[i] = make_float4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const int warp = t / 32, lane = t % 32;
+  const int kv0 = j * XHN;
+  const int offset = kv_len - q_len;
+  const size_t rows_base = (size_t)bh * q_pad;   // lse2, delta rows
+
+  auto load_qs = [&](int qt) {
+    mbar_expect_tx(qs_full, S::QT);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load_3d(sm + S::QS + c * XHM * 128, &tm_qs, qs_full, 64 * c,
+                  qt * XHM, bh);
+  };
+  auto load_rest = [&](int qt) {
+    mbar_expect_tx(full, S::QT + S::QT / 2 + (SEGS ? 3 : 2) * XHM * 4);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load_3d(sm + S::DO + c * XHM * 128, &tm_do, full, 64 * c,
+                  qt * XHM, bh);
+#pragma unroll
+    for (int c = 0; c < HALF_BOXES; ++c)
+      tma_load_3d(sm + S::Q + c * XHM * 128, &tm_q, full,
+                  64 * (HALF_BOXES * half + c), qt * XHM, bh);
+    float* rows = reinterpret_cast<float*>(sm + S::ROWS);
+    bulk_load(rows, lse2 + rows_base + qt * XHM, XHM * 4, full);
+    bulk_load(rows + XHM, delta + rows_base + qt * XHM, XHM * 4, full);
+    if (SEGS)
+      bulk_load(rows + 2 * XHM, q_seg + (size_t)b * q_pad + qt * XHM,
+                XHM * 4, full);
+  };
+
+  if (tid == 0) {
+    mbar_init(qs_full, 1);
+    mbar_init(full, 1);
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * S::KV);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load_3d(sm + S::K + c * XHN * 128, &tm_k, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+      tma_load_3d(sm + S::V + c * XHN * 128, &tm_v, kv_bar, 64 * c, kv0,
+                  b * hkv + kvh);
+    }
+    load_qs(lo + n - 1);  // the q tiles from the last down
+    load_rest(lo + n - 1);
+  }
+
+  // this thread's kv rows: kr (accumulator slots 0, 1 of each 8-column
+  // block) and kr + 8 (slots 2, 3); its warpgroup's q rows of a step (S^T,
+  // dP^T) and head-dim boxes (dV, dK, dQ)
+  const int kr = kv0 + warp * 16 + lane / 4;
+  int kid0 = 0, kid1 = 0;
+  if (SEGS) {
+    if (kr < kv_len) kid0 = kv_seg[(size_t)b * kv_len + kr];
+    if (kr + 8 < kv_len) kid1 = kv_seg[(size_t)b * kv_len + kr + 8];
+  }
+  const int qc = wg * 16;
+  const int box0 = HALF_BOXES * half + 2 * wg;   // its boxes and dQ parts
+  auto turn = [&](int qt, int part) {
+    return dq_turn + ((size_t)bh * (q_pad / XHM) + qt) * DQ_PARTS + part;
+  };
+  // this tile's link in each q tile's chain, and the link just added as
+  // link * 2 + last (`passed`): the last link sets the counters back to 0
+  const int* chain_pos = tab.pos + tab.base[j] - lo;
+  const int* chain_len = tab.chain_len(n_kvt);
+  int passed = 0;
+  // the adds of the step before are visible to the next link
+  auto pass_turns = [&](int qt) {
+    __threadfence();
+    named_bar(1 + wg, 128);
+    if (t == 0)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (passed & 1)
+          turn_reset(turn(qt, box0 + p));
+        else
+          turn_pass(turn(qt, box0 + p));
+      }
+  };
+
+  float dv[64], dk[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+
+  const unsigned char* qss = sm + S::QS;
+  const unsigned char* dos = sm + S::DO;
+  const unsigned char* qsm = sm + S::Q;
+  const float* l2s = reinterpret_cast<const float*>(sm + S::ROWS);
+  const float* dls = l2s + XHM;
+  const int* qids = reinterpret_cast<const int*>(l2s + 2 * XHM);
+  unsigned char* pt = sm + S::PT;
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n; ++it) {
+    const int qt = lo + n - 1 - it, q0 = qt * XHM;
+    unsigned char* dst = sm + S::DST + (it & 1) * XHM * XHN * 2;
+    mbar_wait(qs_full, it & 1);
+
+    // S^T = K qs^T and dP^T = V dout^T: 64 kv rows x this warpgroup's 16
+    // q rows each; S^T starts before dout and the rows have landed
+    float s[8], dp[8];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss<16, 0, 0>(
+          s, smem_desc(sm + S::K + (kk / 4) * XHN * 128 + (kk % 4) * 32, 16,
+                       1024),
+          smem_desc(qss + (kk / 4) * XHM * 128 + qc * 128 + (kk % 4) * 32,
+                    16, 1024),
+          kk > 0);
+    wgmma_commit();
+    mbar_wait(full, it & 1);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss<16, 0, 0>(
+          dp, smem_desc(sm + S::V + (kk / 4) * XHN * 128 + (kk % 4) * 32, 16,
+                        1024),
+          smem_desc(dos + (kk / 4) * XHM * 128 + qc * 128 + (kk % 4) * 32,
+                    16, 1024),
+          kk > 0);
+    wgmma_commit();
+    if (it > 0) pass_turns(qt + 1);
+
+    // P^T = exp2(S^T - lse2) (0 where masked and on empty rows)
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool need_mask = SEGS || kv0 + XHN > kv_len ||
+                           (causal && kv0 + XHN - 1 > q0 + offset) ||
+                           (WINDOW && kv0 < q0 + XHM + offset - window);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c = qc + 8 * jj + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(l2s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(s[4 * jj + e] - ((e & 1) ? l2.y : l2.x));
+        if (need_mask) {
+          const int col = e < 2 ? kr : kr + 8;   // kv position
+          const int row = q0 + c + (e & 1);      // q row
+          bool ok = col < kv_len && (!causal || col <= row + offset) &&
+                    (!WINDOW || col > row + offset - window);
+          if (SEGS) ok = ok && qids[c + (e & 1)] == (e < 2 ? kid0 : kid1);
+          if (!ok) p = 0.f;
+        }
+        s[4 * jj + e] = p;
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c = qc + 8 * jj + 2 * (lane & 3);
+      const float2 dl = *reinterpret_cast<const float2*>(dls + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    // P and dS as bf16 into the shared tiles [q][kv], element by element
+    // (a fragment's neighbours are q rows apart there)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = qc + 8 * jj + 2 * (lane & 3) + (e & 1);
+        const int r = warp * 16 + lane / 4 + (e < 2 ? 0 : 8);
+        *reinterpret_cast<bf16*>(pt + swz(c, r)) =
+            __float2bfloat16_rn(s[4 * jj + e]);
+        *reinterpret_cast<bf16*>(dst + swz(c, r)) =
+            __float2bfloat16_rn(dp[4 * jj + e]);
+      }
+    fence_async_smem();
+    __syncthreads();  // P and dS whole; qs is read by no one
+    if (tid == 0 && it + 1 < n) load_qs(qt - 1);
+
+    // dV += P^T dout, dK += dS^T q over this warpgroup's 128 head dims
+    // (P, dS, dout and q read MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < XHM / 16; ++kk)
+      wgmma_ss<128, 1, 1>(
+          dv, smem_desc(pt + kk * 16 * 128, XHN * 128, 1024),
+          smem_desc(dos + box0 * XHM * 128 + kk * 16 * 128, XHM * 128, 1024),
+          1);
+#pragma unroll
+    for (int kk = 0; kk < XHM / 16; ++kk)
+      wgmma_ss<128, 1, 1>(
+          dk, smem_desc(dst + kk * 16 * 128, XHN * 128, 1024),
+          smem_desc(qsm + 2 * wg * XHM * 128 + kk * 16 * 128, XHM * 128,
+                    1024),
+          1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // dout, q, the rows and P are read by no one
+    if (tid == 0 && it + 1 < n) load_rest(qt - 1);
+
+    // dQ^T (64 head dims x 32 q rows, two parts) = K^T dS^T, K read
+    // MN-major and dS K-major, each added in its turn
+    const int x = chain_pos[qt];
+    passed = 2 * x + (x + 1 == chain_len[qt]);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float dq[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < XHN / 16; ++kk)
+        wgmma_ss<32, 1, 0>(
+            dq, smem_desc(sm + S::K + (box0 + p) * XHN * 128 + 16 * kk * 128,
+                          XHN * 128, 1024),
+            smem_desc(dst + kk * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (p == 0) {
+        if (t == 0) {
+          turn_wait(turn(qt, box0), x);
+          turn_wait(turn(qt, box0 + 1), x);
+        }
+        named_bar(1 + wg, 128);
+      }
+      float4* acc = reinterpret_cast<float4*>(
+          dq_acc + (turn(qt, box0 + p) - dq_turn) * (XHM * 64));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        atomicAdd(acc + i * 128 + t,
+                  make_float4(dq[4 * i], dq[4 * i + 1], dq[4 * i + 2],
+                              dq[4 * i + 3]));
+    }
+  }
+  pass_turns(lo);
+
+  // dK, dV of the warpgroup's 128 head dims, f32 in fragment order, into
+  // the q head's slot
+  float4* dks = dkv_half(dk_acc) + 16 * wg * 128;
+  float4* dvs = dkv_half(dv_acc) + 16 * wg * 128;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    dks[i * 128 + t] = make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2],
+                                   dk[4 * i + 3]);
+    dvs[i * 128 + t] = make_float4(dv[4 * i], dv[4 * i + 1], dv[4 * i + 2],
+                                   dv[4 * i + 3]);
+  }
+}
+
+// The columns of a dk/dv post chunk at tiles of D columns (two chunks of
+// 256 a 64-row tile at 512), and the chunks of a kv tile: its 64-row halves
+// at D <= 128, its column halves at 512.
+__host__ __device__ constexpr int post_cols(int d) { return d > 256 ? 256 : d; }
+__host__ __device__ constexpr int bwd_kv_parts(int d) {
+  return d > 256 ? d / post_cols(d) : bwd_kv_rows(d) / 64;
+}
+
 // One 64-row chunk of an accumulator in fragment order (64 x cw f32,
 // float4 (i, t) holding rows R, R + 8 and columns C, C + 1 of the wgmma
 // accumulator layout), scaled and rounded to bf16 through shared memory,
 // then written as whole 16-byte pieces of rows of d columns (the columns
 // of the chunk below d; d a multiple of 8, so each 8-column group is
 // written whole or not at all). `parts` chunks make a tile of
-// `tile_rows` rows: the parts of a 64-row tile split its columns (dq at D =
-// 128: the second part holds columns 64 to d), those of a 128-row tile its
-// rows (dk, dv). With `group` > 1 the chunk is the sum of `group` slots,
+// `tile_rows` rows: the parts of a 64-row tile split its columns into cw
+// wide parts (dq at D = 128: the second part holds columns 64 to d; dk and
+// dv at D = 512: two of 256), those of a 128-row tile its rows (dk, dv). With `group` > 1 the chunk is the sum of `group` slots,
 // `stride` chunks apart, in slot order (dk, dv: the q heads of a kv head).
 template <int D, int cw>
 __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
@@ -940,14 +1333,14 @@ __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
                                            int n_rows, int d, float scale,
                                            int group, long stride,
                                            bf16* tile) {
-  constexpr int LD = D + 8;                      // bf16 per tile row
+  constexpr int LD = post_cols(D) + 8;           // bf16 per tile row
   const int t = threadIdx.x;
   const int per = parts * tiles;                 // chunks of one head
   const float4* a4 = reinterpret_cast<const float4*>(acc) +
                      ((chunk / per) * group * per + chunk % per) * cw * 16;
   const int r = 16 * (t / 32) + (t % 32) / 4;
   const int part = (int)(chunk % parts);
-  const int col0 = tile_rows == 64 ? part * 64 : 0;
+  const int col0 = tile_rows == 64 ? part * cw : 0;
   const int cols = min(cw, d - col0);            // the chunk's columns < d
   // Every load is issued, unconditionally, so their latencies overlap: a
   // group past d reloads group 0 (the same lines, cached), its value
@@ -991,8 +1384,48 @@ __device__ __forceinline__ void post_chunk(const float* acc, bf16* out,
   }
 }
 
-// One block of 128 threads per 64-row chunk: dq's chunks, then dk's, then
-// dv's.
+// One (32-row q tile, 64-column part) chunk of dq_acc at the instance of
+// width 512, in the fragment order of dQ^T (float4 (i, t) holds head dims
+// R, R + 8 and q rows C, C + 1 of the m64n32 accumulator), scaled and
+// rounded to bf16 through shared memory (transposed), then written as whole
+// 16-byte pieces of its rows' columns below d.
+__device__ __forceinline__ void post_dq_512(const float* acc, bf16* out,
+                                            long chunk, int tiles,
+                                            int n_rows, int d, float scale,
+                                            bf16* tile) {
+  constexpr int PARTS = 512 / 64, LD = 64 + 8;
+  const int t = threadIdx.x;
+  const int col0 = (int)(chunk % PARTS) * 64;
+  const int cols = min(64, d - col0);            // the chunk's columns < d
+  if (cols <= 0) return;                         // the whole block
+  const float4* a4 = reinterpret_cast<const float4*>(acc) +
+                     chunk * (XHM * 64 / 4);
+  const int hd = 16 * (t / 32) + (t % 32) / 4;
+  float4 av[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) av[i] = a4[i * 128 + t];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = 8 * i + 2 * (t % 4);
+    tile[c * LD + hd] = __float2bfloat16_rn(av[i].x * scale);
+    tile[(c + 1) * LD + hd] = __float2bfloat16_rn(av[i].y * scale);
+    tile[c * LD + hd + 8] = __float2bfloat16_rn(av[i].z * scale);
+    tile[(c + 1) * LD + hd + 8] = __float2bfloat16_rn(av[i].w * scale);
+  }
+  __syncthreads();
+  const int row0 = (int)((chunk / PARTS) % tiles) * XHM;
+  const long bh = chunk / PARTS / tiles;
+  bf16* o = out + (size_t)bh * n_rows * d + col0;
+  for (int x = t; x < XHM * 8; x += 128) {
+    const int row = x / 8, c8 = (x % 8) * 8;
+    if (row0 + row < n_rows && c8 < cols)
+      *reinterpret_cast<uint4*>(o + (size_t)(row0 + row) * d + c8) =
+          *reinterpret_cast<const uint4*>(tile + row * LD + c8);
+  }
+}
+
+// One block of 128 threads per 64-row chunk (32-row dq chunks at D = 512):
+// dq's chunks, then dk's, then dv's.
 template <int D>
 __global__ void __launch_bounds__(128)
     flash_bwd_post_kernel(const float* __restrict__ dq_acc,
@@ -1002,19 +1435,24 @@ __global__ void __launch_bounds__(128)
                           bf16* __restrict__ dv, long n_dq, long n_kv,
                           int q_len, int kv_len, int d, int group,
                           float sm_scale) {
-  constexpr int KVR = bwd_kv_rows(D), KV_PARTS = KVR / 64;
-  __shared__ __align__(16) bf16 tile[64 * (D + 8)];
+  constexpr int KVR = bwd_kv_rows(D), KV_PARTS = bwd_kv_parts(D);
+  constexpr int QR = bwd_q_rows(D), CW = post_cols(D);
+  __shared__ __align__(16) bf16 tile[64 * (CW + 8)];
   const long g = blockIdx.x;
-  const int n_qt = (q_len + HM - 1) / HM, n_kvt = (kv_len + KVR - 1) / KVR;
-  if (g < n_dq)
-    post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, d, sm_scale,
-                      1, 0, tile);
-  else if (g < n_dq + n_kv)
-    post_chunk<D, D>(dk_acc, dk, g - n_dq, KV_PARTS, KVR, n_kvt, kv_len, d,
-                     sm_scale, group, (long)KV_PARTS * n_kvt, tile);
-  else
-    post_chunk<D, D>(dv_acc, dv, g - n_dq - n_kv, KV_PARTS, KVR, n_kvt,
-                     kv_len, d, 1.f, group, (long)KV_PARTS * n_kvt, tile);
+  const int n_qt = (q_len + QR - 1) / QR, n_kvt = (kv_len + KVR - 1) / KVR;
+  if (g < n_dq) {
+    if constexpr (D > 256)
+      post_dq_512(dq_acc, dq, g, n_qt, q_len, d, sm_scale, tile);
+    else
+      post_chunk<D, 64>(dq_acc, dq, g, D / 64, HM, n_qt, q_len, d, sm_scale,
+                        1, 0, tile);
+  } else if (g < n_dq + n_kv) {
+    post_chunk<D, CW>(dk_acc, dk, g - n_dq, KV_PARTS, KVR, n_kvt, kv_len, d,
+                      sm_scale, group, (long)KV_PARTS * n_kvt, tile);
+  } else {
+    post_chunk<D, CW>(dv_acc, dv, g - n_dq - n_kv, KV_PARTS, KVR, n_kvt,
+                      kv_len, d, 1.f, group, (long)KV_PARTS * n_kvt, tile);
+  }
 }
 
 struct Bf16Args {
@@ -1030,35 +1468,49 @@ struct Bf16Args {
   float scale_log2, sm_scale;
 };
 
-// The main kernel of the instance of width N: the wide layout above 128.
+// The main kernel of the instance of width N: the wide layout above 128,
+// the halves above 256.
 template <int N, bool WINDOW, bool SEGS>
 constexpr auto main_kernel() {
-  if constexpr (tile_cols(N) > 128)
+  if constexpr (tile_cols(N) > 256)
+    return flash_bwd_512_kernel<N, WINDOW, SEGS>;
+  else if constexpr (tile_cols(N) > 128)
     return flash_bwd_wide_kernel<N, WINDOW, SEGS>;
   else
     return flash_bwd_main_kernel<N, WINDOW, SEGS>;
 }
 
+// The main kernel's dynamic shared memory at tiles of D columns.
+template <int D>
+constexpr int main_smem() {
+  if constexpr (D > 256)
+    return Smem512::ALLOC;
+  else if constexpr (D > 128)
+    return WideSmem<D>::ALLOC;
+  else
+    return Smem<D>::ALLOC;
+}
+
 template <int N, bool WINDOW, bool SEGS>
 cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
-  constexpr int D = tile_cols(N), KVR = bwd_kv_rows(D);
-  constexpr int ALLOC =
-      std::conditional_t<(D > 128), WideSmem<D>, Smem<D>>::ALLOC;
+  constexpr int D = tile_cols(N), KVR = bwd_kv_rows(D), QR = bwd_q_rows(D);
+  constexpr int ALLOC = main_smem<D>();
   static bool smem_set[kMaxDevices] = {};
   const auto kernel = main_kernel<N, WINDOW, SEGS>();
   cudaError_t err = raise_smem_limit(kernel, ALLOC, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mqs, mdo, mk, mv;
   const int bhq = a.batch * a.hq, bhk = a.batch * a.hkv;
-  if (!bf16_map(&mq, a.q, a.d, a.q_len, bhq, HM) ||
-      !bf16_map(&mqs, a.qs, a.d, a.q_len, bhq, HM) ||
-      !bf16_map(&mdo, a.dout, a.d, a.q_len, bhq, HM) ||
+  if (!bf16_map(&mq, a.q, a.d, a.q_len, bhq, QR) ||
+      !bf16_map(&mqs, a.qs, a.d, a.q_len, bhq, QR) ||
+      !bf16_map(&mdo, a.dout, a.d, a.q_len, bhq, QR) ||
       !bf16_map(&mk, a.k, a.d, a.kv_len, bhk, KVR) ||
       !bf16_map(&mv, a.v, a.d, a.kv_len, bhk, KVR))
     return cudaErrorInvalidValue;
   const int n_kvt = (a.kv_len + KVR - 1) / KVR;
-  const int q_pad = (a.q_len + HM - 1) / HM * HM;
-  kernel<<<n_kvt * a.hq * a.batch, HTHREADS, ALLOC, stream>>>(
+  const int q_pad = (a.q_len + QR - 1) / QR * QR;
+  const int halves = D > 256 ? 2 : 1;            // blocks a kv tile
+  kernel<<<n_kvt * a.hq * a.batch * halves, HTHREADS, ALLOC, stream>>>(
       mq, mqs, mdo, mk, mv, a.lse2, a.delta, a.q_seg, a.kv_seg, a.table,
       a.dq_acc, a.dk_acc, a.dv_acc, a.dq_turn, a.batch, a.hq, a.hkv, a.q_len,
       a.kv_len, q_pad, a.causal, a.window);
@@ -1069,12 +1521,12 @@ cudaError_t launch_main(const Bf16Args& a, cudaStream_t stream) {
 // (chip_smoke.py times them one by one).
 template <int N>
 cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
-  constexpr int D = tile_cols(N);
-  const int q_pad = (a.q_len + HM - 1) / HM * HM;
+  constexpr int D = tile_cols(N), QR = bwd_q_rows(D);
+  const int q_pad = (a.q_len + QR - 1) / QR * QR;
   const int n_bh = a.batch * a.hq;
   if (stages & 1) {
     const long rows = (long)n_bh * q_pad;
-    const int per_block = PREP_WARPS * 32 / (D / 8);
+    const int per_block = PREP_WARPS * prep_rows_per_warp(D);
     flash_bwd_prep_kernel<D><<<(unsigned)((rows + per_block - 1) / per_block),
                                32 * PREP_WARPS, 0, stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.out),
@@ -1095,8 +1547,8 @@ cudaError_t launch_bf16(const Bf16Args& a, int stages, cudaStream_t stream) {
   if (stages & 4) {
     constexpr int KVR = bwd_kv_rows(D);
     const int n_kvt = (a.kv_len + KVR - 1) / KVR;
-    const long n_dq = (long)n_bh * (q_pad / HM) * (D / 64);  // 64-row chunks
-    const long n_kv = (long)a.batch * a.hkv * n_kvt * (KVR / 64);
+    const long n_dq = (long)n_bh * (q_pad / QR) * (D / 64);  // chunks
+    const long n_kv = (long)a.batch * a.hkv * n_kvt * bwd_kv_parts(D);
     flash_bwd_post_kernel<D><<<(unsigned)(n_dq + 2 * n_kv), 128, 0,
                                stream>>>(
         a.dq_acc, a.dk_acc, a.dv_acc, static_cast<bf16*>(a.dq),
@@ -1643,10 +2095,10 @@ cudaError_t launch_f32(const F32Args& a, int stages, cudaStream_t stream) {
 // batch x hq slots each), 4 the post (dq, dk, dv from the slots); every
 // slot is written; delta is an input, rowsum(dout * out). q_seg and kv_seg
 // are both null or both set; window 0 is none. head_dim: bf16 any multiple
-// of 8 up to 256, read and written at its true width by the instance
+// of 8 up to 512, read and written at its true width by the instance
 // flash_width(head_dim, narrow) picks (hopper.cuh; dq_acc, the counters and
-// the slots at that instance's tile columns, 64, 128 or 256); f32 64, 128
-// or 256. The caller has checked shapes, contiguity and 16-byte
+// the slots at that instance's tile columns, 64, 128, 256 or 512, and q
+// tiles, 32 rows at 512); f32 64, 128 or 256. The caller has checked shapes, contiguity and 16-byte
 // alignment.
 extern "C" int tfa_flash_bwd(
     const void* q, const void* k, const void* v, const void* out,
@@ -1679,6 +2131,7 @@ extern "C" int tfa_flash_bwd(
       case 96: return (int)launch_bf16<96>(a, stages, s);
       case 128: return (int)launch_bf16<128>(a, stages, s);
       case 256: return (int)launch_bf16<256>(a, stages, s);
+      case 512: return (int)launch_bf16<512>(a, stages, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1707,9 +2160,10 @@ extern "C" int tfa_flash_bwd(
 }
 
 // The dynamic shared memory of a bf16 main block at the tiles' head_dim 64,
-// 128 or 256; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
+// 128, 256 or 512; -1 for any other. ops/flash_bwd.py holds ops/configs.py::
 // bwd_smem_bytes to it when it loads this library.
 extern "C" int tfa_flash_bwd_bf16_smem(int head_dim) {
+  if (head_dim == 512) return Smem512::ALLOC;
   if (head_dim == 256) return WideSmem<256>::ALLOC;
   if (head_dim == 128) return Smem<128>::ALLOC;
   if (head_dim == 64) return Smem<64>::ALLOC;

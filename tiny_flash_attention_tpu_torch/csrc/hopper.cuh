@@ -205,6 +205,20 @@ __device__ __forceinline__ int swz(int row, int col) {
 }
 
 // clang-format off
+// d (64 x 16, f32) += A (64 x 16) * B (16 x 16), both from shared memory;
+// TA / TB: 0 K-major, 1 MN-major (transposed); scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 32, f32) += A (64 x 16) * B (16 x 32), both from shared memory;
 // TA / TB: 0 K-major, 1 MN-major (transposed); scale_d 0 overwrites d.
 template <int TA, int TB>
@@ -320,14 +334,15 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 }
 // clang-format on
 
-// The SS product of width N (32, 64 or 128 columns of B).
+// The SS product of width N (16, 32, 64 or 128 columns of B).
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "a wgmma width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "a wgmma width");
   if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  else wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
+  else wgmma_ss_n16<TA, TB>(d, da, db, scale_d);
 }
 
 // The RS product at the instance's width N (64, 80, 96, 128 or 256 columns
@@ -358,8 +373,8 @@ __host__ __device__ constexpr int tile_cols(int n) {
 // 512 (0 for any other d): 64 up to 64; with `narrow` 80 and 96 up to them
 // (their products skip the zero columns), else 128 up to 128; 256 up to 256
 // (the wide instances, whose tiles and layout differ: flash_fwd_wgmma.cuh,
-// flash_bwd.cu); 512 above (the forward's alone: the backward has no
-// instance there and refuses it).
+// flash_bwd.cu); 512 above (the bf16 forward's and backward's instances of
+// width 512, over tiles of eight 64-column boxes).
 inline int flash_width(int d, int narrow) {
   if (d <= 0 || d > 512 || d % 8 != 0) return 0;
   if (d <= 64) return 64;

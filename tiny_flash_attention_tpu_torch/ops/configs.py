@@ -250,19 +250,39 @@ FLASH_BWD_BF16 = TileConfig(block_m=64, block_n=128, threads=256)
 # and V (64 KiB), P^T and two dS^T tiles: 190,528 bytes (csrc/flash_bwd.cu,
 # the wide kernel).
 FLASH_BWD_BF16_WIDE = TileConfig(block_m=64, block_n=64, threads=256)
+# The instance of width 512 (head dims in (256, 512]): a 64-row kv tile's dK
+# and dV at 512 columns would fill the register file, and a 64-row q stage
+# beside K and V would need more than 320 KiB. So two blocks take each
+# (64-row kv tile, q head), one for each 256-column half of dK, dV and dQ
+# (64 + 64 f32 registers a thread, as in the wide instance), both
+# recomputing S^T and dP^T over all 512 columns; the q steps are 32 rows:
+# K, V, one stage of qs and dout (whole rows) and of q (the half's
+# columns), P and two dS tiles, 227,392 bytes (csrc/flash_bwd.cu,
+# flash_bwd_512_kernel).
+FLASH_BWD_BF16_512 = TileConfig(block_m=32, block_n=64, threads=256)
 
 
 def bwd_config(head_dim: int) -> TileConfig:
-    """The bf16 backward's tiles at the tiles' head_dim (64, 128 or 256)."""
+    """The bf16 backward's tiles at the tiles' head_dim (64, 128, 256 or
+    512)."""
+    if head_dim > 256:
+        return FLASH_BWD_BF16_512
     return FLASH_BWD_BF16_WIDE if head_dim > 128 else FLASH_BWD_BF16
 
 
 def bwd_smem_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one bf16 backward main block at the tiles'
-    head_dim, as csrc/flash_bwd.cu lays it out (`Smem`, `WideSmem`; the
-    library exports its own, `tfa_flash_bwd_bf16_smem`, and
-    ops/flash_bwd.py checks that they agree when it loads it)."""
+    head_dim, as csrc/flash_bwd.cu lays it out (`Smem`, `WideSmem`,
+    `Smem512`; the library exports its own, `tfa_flash_bwd_bf16_smem`,
+    and ops/flash_bwd.py checks that they agree when it loads it)."""
     d = head_dim
+    if head_dim > 256:
+        m, n = FLASH_BWD_BF16_512.block_m, FLASH_BWD_BF16_512.block_n
+        qt = m * d * 2
+        # K, V; qs and dout (whole rows), q (half of them), the rows (a
+        # kilobyte); P and two dS (bf16, m x n); three mbarriers in 64 bytes
+        return 2 * n * d * 2 + 2 * qt + qt // 2 + 1024 + 3 * n * m * 2 \
+            + 64 + 1024
     m = FLASH_BWD_BF16.block_m
     qt, rows = m * d * 2, 3 * m * 4
     if head_dim > 128:
@@ -388,6 +408,7 @@ def nvcc_defines() -> list[str]:
         *_tile_defines("TFA_FWD_F32_WIDE", FLASH_FWD_F32_WIDE),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
         *_tile_defines("TFA_BWD_BF16_WIDE", FLASH_BWD_BF16_WIDE),
+        *_tile_defines("TFA_BWD_BF16_512", FLASH_BWD_BF16_512),
         *_tile_defines("TFA_BWD_F32", FLASH_BWD_F32),
         *_tile_defines("TFA_BWD_F32_WIDE", FLASH_BWD_F32_WIDE),
         *_tile_defines("TFA_QMM", QUANT_MATMUL),

@@ -13,18 +13,16 @@ functions where a kernel cannot read the true shape in place:
 
 - `flash_head_dim`: the one rule. The bf16 forward over bf16 K/V and the
   bf16 backward read and write any head_dim that is a multiple of 8 up to
-  256 at its true width (`reads_in_place`), and the bf16 forward over bf16
-  K/V up to 512 (its instance of width 512): their tensor maps land zeros
-  past column d and their epilogues store only the columns below d, so
-  they are handed the tensors as they are. Every other head_dim up to 256
-  (512 for that forward; not a multiple of 8: a tensor map's row stride is
-  whole 16-byte pieces) is padded to `kernel_head_dim` (512 there), and so
-  is every head_dim of the f32 forward and backward, of the quantized
-  forward (int8/e4m3 K/V, bf16 and f32 q) and of FA1 (bf16 and f32): to
-  64, 128 or 256. Above 256 the bf16 backward, f32, the quantized forward
-  and FA1 raise, each naming its own ROADMAP queue (B-dims-2a-train,
-  B-dims-2a-f32, B-dims-2a-quant-v1), and above 512 every entry raises
-  (B-dims-2a-512+).
+  512 at its true width (`reads_in_place`; above 256 their instances of
+  width 512): their tensor maps land zeros past column d and their
+  epilogues store only the columns below d, so they are handed the tensors
+  as they are. Every other head_dim (not a multiple of 8: a tensor map's
+  row stride is whole 16-byte pieces) is padded to `kernel_head_dim` up to
+  256 and to 512 above, and so is every head_dim of the f32 forward and
+  backward, of the quantized forward (int8/e4m3 K/V, bf16 and f32 q) and
+  of FA1 (bf16 and f32): to 64, 128 or 256. Above 256 f32, the quantized
+  forward and FA1 raise, each naming its own ROADMAP queue (B-dims-2a-f32,
+  B-dims-2a-quant-v1), and above 512 every entry raises (B-dims-2a-512+).
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
   the next tile width, 64 below it, 128 up to it, 256 above (the wide
   instances). A zero column adds
@@ -63,7 +61,7 @@ import torch.nn.functional as F
 
 # the flash kernels' tile widths (forward, backward, FA1), the wide
 # instances' (every flash kernel, bf16 and f32), and the width of the bf16
-# forward's instance over bf16 K/V above 256 (its alone)
+# forward's (over bf16 K/V) and backward's instances above 256
 FLASH_HEAD_DIMS = (64, 128)
 WIDE_HEAD_DIM = 256
 WIDER_HEAD_DIM = 512
@@ -78,10 +76,9 @@ DECODE_GROUPS = (1, 2, 4, 8)
 # instance spilled 20-25 KB a thread (compiled width) and 1.7 KB (run-time
 # width, int8 pages), G = 2 none (PERF.md)
 DECODE_TOP_512 = 2
-# ROADMAP.md's queues of what still raises: head dims in (256, 512] in the
-# bf16 backward, in f32 (B1, the backward, the decodes) and in the
-# quantized forward and FA1; every head_dim above 512
-QUEUE_TRAIN = "B-dims-2a-train"
+# ROADMAP.md's queues of what still raises: head dims in (256, 512] in f32
+# (B1, the backward, the decodes) and in the quantized forward and FA1;
+# every head_dim above 512
 QUEUE_F32 = "B-dims-2a-f32"
 QUEUE_QUANT_V1 = "B-dims-2a-quant-v1"
 QUEUE_ABOVE_512 = "B-dims-2a-512+"
@@ -111,9 +108,9 @@ def kernel_head_dim(d: int, what: str, *, wide: bool = False,
 
 
 def reads_in_place(d: int) -> bool:
-    """Whether the bf16 forward kernel over bf16 K/V takes head_dim d at
-    its true width: a multiple of 8 (rows of whole 16-byte pieces, a tensor
-    map's stride) up to 512; the bf16 backward up to 256."""
+    """Whether the bf16 forward kernel over bf16 K/V and the bf16 backward
+    take head_dim d at its true width: a multiple of 8 (rows of whole
+    16-byte pieces, a tensor map's stride) up to 512."""
     return 0 < d <= WIDER_HEAD_DIM and d % 8 == 0
 
 
@@ -121,8 +118,8 @@ def flash_width(d: int, narrow: bool) -> int:
     """The instance the bf16 forward and backward run for a head_dim d
     read in place, as csrc/hopper.cuh::flash_width picks it: 64 up to 64;
     with `narrow` (a FlashConfig's `narrow_products`) 80 or 96 up to them;
-    128 up to 128; 256 up to 256; 512 above (the forward's alone); 0 where
-    d is not read in place."""
+    128 up to 128; 256 up to 256; 512 above; 0 where d is not read in
+    place."""
     if not reads_in_place(d):
         return 0
     if d <= 64:
@@ -133,28 +130,27 @@ def flash_width(d: int, narrow: bool) -> int:
 
 
 def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
-                   quantized: bool = False, backward: bool = False) -> int:
-    """The head_dim a flash forward or (`backward`) backward kernel is
-    handed for tensors of head_dim d: d itself where it reads them in
-    place (bf16 over bf16 K/V, `reads_in_place`: the forward up to 512,
-    the backward up to 256), else the width they are padded to (d not a
-    multiple of 8: `kernel_head_dim(d)`, 512 above 256 in the bf16
-    forward; f32 and quantized K/V, 64, 128 or 256). Raises
+                   quantized: bool = False) -> int:
+    """The head_dim a flash forward or backward kernel is handed for
+    tensors of head_dim d: d itself where it reads them in place (bf16,
+    over bf16 K/V in the forward, `reads_in_place`: up to 512), else the
+    width they are padded to (d not a multiple of 8: `kernel_head_dim(d)`,
+    512 above 256; f32 and quantized K/V, 64, 128 or 256). Raises
     NotImplementedError where no kernel takes d, naming `what` and the
-    ROADMAP queue: above 256 the backward (QUEUE_TRAIN), f32 (QUEUE_F32)
-    and quantized K/V (QUEUE_QUANT_V1); above 512 everything."""
+    ROADMAP queue: above 256 f32 (QUEUE_F32) and quantized K/V
+    (QUEUE_QUANT_V1); above 512 everything."""
     if quantized:
         return kernel_head_dim(d, f"{what} over int8/e4m3 K/V", wide=True,
                                queue=QUEUE_QUANT_V1)
     if dtype != torch.bfloat16:
         return kernel_head_dim(d, f"{what} in {str(dtype).split('.')[-1]}",
                                wide=True, queue=QUEUE_F32)
-    if backward or d <= WIDE_HEAD_DIM:
-        dk = kernel_head_dim(d, what, wide=True, queue=QUEUE_TRAIN)
-        return d if reads_in_place(d) else dk
     if d > WIDER_HEAD_DIM:
         raise _refuse(d, what, WIDER_HEAD_DIM, QUEUE_ABOVE_512)
-    return d if reads_in_place(d) else WIDER_HEAD_DIM
+    if reads_in_place(d):
+        return d
+    return kernel_head_dim(d, what, wide=True) if d <= WIDE_HEAD_DIM \
+        else WIDER_HEAD_DIM
 
 
 def pad_head_dim(x: torch.Tensor, dk: int) -> torch.Tensor:

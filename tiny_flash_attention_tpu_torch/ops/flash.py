@@ -35,10 +35,10 @@ range at its band, as JAX's work list holds only band tiles.
 
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609), window, segment
-ids and `segment_starts` included (on CUDA up to head_dim 256: above, its
-backward() raises, naming ROADMAP queue B-dims-2a-train). Its backward is
-ops/flash_bwd.py::flash_attention_bwd, the kernels of csrc/flash_bwd.cu on
-CUDA and their plain version on the CPU. `return_lse=True` stays off it, as
+ids and `segment_starts` included (on CUDA in bf16 up to head_dim 512, in
+f32 up to 256: above, its backward() raises, naming the ROADMAP queue).
+Its backward is ops/flash_bwd.py::flash_attention_bwd, the kernels of
+csrc/flash_bwd.cu on CUDA and their plain version on the CPU. `return_lse=True` stays off it, as
 in JAX: on CUDA a gradient through it raises (`forward_only`).
 
 The JAX entry routes q_len, kv_len <= 512 to XLA; that cutoff was a v5e

@@ -11,17 +11,18 @@ lists that split each tile's range, `f32_work`, into slots of their own,
 and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
-takes the kernels or raises for what they do not do (quantized K/V,
-head_dim above 256: ROADMAP queues B-dims-2a-train in bf16, where the
-forward takes up to 512, and B-dims-2a-f32). The bf16 kernels read q, k,
-v, out and do and write dq, dk and dv at any head_dim that is a multiple
-of 8 up to 256 in place
+takes the kernels or raises for what they do not do (quantized K/V;
+head_dim above 256 in f32, ROADMAP queue B-dims-2a-f32; above 512,
+B-dims-2a-512+). The bf16 kernels read q, k, v, out and do and write dq,
+dk and dv at any head_dim that is a multiple of 8 up to 512 in place
 (JAX pads its backward to 128 lanes; the kernels' tiles take TMA's zeros
 past the true head_dim instead; above 128 the wide main kernel, over
-64-row kv tiles); other head dims, and the f32 kernels' (64, 128 and,
-over 32-row tiles, 256), run padded with zero columns to the next tile
-width, the gradients sliced back (ops/dims.py::flash_head_dim). There is
-no fallback from the card to the plain version.
+64-row kv tiles; above 256 the main kernel of width 512, two blocks a kv
+tile, one for each 256-column half of the gradients, over 32-row q
+steps); other head dims, and the f32 kernels' (64, 128 and, over 32-row
+tiles, 256), run padded with zero columns to the next tile width (512
+above 256), the gradients sliced back (ops/dims.py::flash_head_dim).
+There is no fallback from the card to the plain version.
 
 Which tiles the kernels visit comes from `bwd_tiles`, a table built on the
 host as JAX's work lists are (`_build_bwd_worklist` and its q-major twin):
@@ -65,8 +66,8 @@ from tiny_flash_attention_tpu_torch.ops.configs import (
     FlashConfig, bwd_config, bwd_f32_config, bwd_f32_smem_bytes,
     bwd_f32_split, bwd_smem_bytes, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
-    FLASH_HEAD_DIMS, QUEUE_TRAIN, WIDE_HEAD_DIM, flash_head_dim,
-    kernel_head_dim, pad_head_dim, unpad_head_dim)
+    FLASH_HEAD_DIMS, WIDE_HEAD_DIM, WIDER_HEAD_DIM, flash_head_dim,
+    pad_head_dim, unpad_head_dim)
 from tiny_flash_attention_tpu_torch.ops.flash import (
     LOG2E, _KERNEL_DTYPES, _aligned, as_int32, in_dtype, run_work,
     visible_mask)
@@ -398,11 +399,11 @@ def check_f32_smem(lib: ctypes.CDLL) -> None:
 
 def check_bf16_smem(lib: ctypes.CDLL) -> None:
     """Holds `bwd_smem_bytes` to the shared memory the library's bf16 main
-    kernels take at every tile width, the wide one included
-    (`tfa_flash_bwd_bf16_smem`); raises where they differ."""
+    kernels take at every tile width, the wide one and that of width 512
+    included (`tfa_flash_bwd_bf16_smem`); raises where they differ."""
     smem = lib.tfa_flash_bwd_bf16_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM):
+    for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM, WIDER_HEAD_DIM):
         if smem(d) != bwd_smem_bytes(d):
             raise RuntimeError(
                 f"ops/configs.py::bwd_smem_bytes gives {bwd_smem_bytes(d)} "
@@ -432,8 +433,7 @@ def _check_inputs(q, k, v, out, lse, do) -> None:
             f"the CUDA backward kernels take bf16 or f32 tensors of one "
             f"dtype (quantized K/V have no backward, as in JAX), got "
             f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {do.dtype}")
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
-                        backward=True)
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
     if dk != d:
         raise NotImplementedError(
             f"head_dim {d}: the CUDA {str(q.dtype).split('.')[-1]} backward "
@@ -473,10 +473,10 @@ class BwdLaunch:
         starts = _starts_key(segment_starts)
         items = (0, 0)
         if self.bf16:
-            # the tiles' width (64, 128 or 256 columns, the head dims past d
-            # 0 or unread) and the instance's tiles at it
-            w = kernel_head_dim(d, "the CUDA backward kernels", wide=True,
-                                queue=QUEUE_TRAIN)
+            # the tiles' width (64, 128, 256 or 512 columns, the head dims
+            # past d 0 or unread) and the instance's tiles at it
+            w = next(t for t in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM,
+                                 WIDER_HEAD_DIM) if d <= t)
             cfg = bwd_config(w)
             self.kv_table, self.q_table = _device_tiles(
                 q_len, kv_len, causal, window, starts, cfg.block_m,
@@ -504,7 +504,8 @@ class BwdLaunch:
             # dq's f32 sums, then the chain counters of each (batch, q
             # head, q tile, 64-column part), zeroed together; dk and dv in
             # one f32 slot per q head, written by the main kernel: all at
-            # the tiles' width
+            # the tiles' width (at 512 and (1, 64, 2048): 256 MiB of dq
+            # sums and 512 MiB of slots)
             n_dq, n_kv = bs * hq * q_pad * w, bs * hq * kv_pad * w
             n_cnt = bs * hq * (q_pad // cfg.block_m) * (w // 64)
             acc = torch.zeros(n_dq + n_cnt, dtype=torch.float32,
@@ -555,8 +556,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, **kw):
     (ops/dims.py::flash_head_dim); returns (dq, dk, dv) at the true
     head_dim."""
     d = q.shape[-1]
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
-                        backward=True)
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
     q, k, v, out, do = (pad_head_dim(t, dk) for t in (q, k, v, out, do))
     call = BwdLaunch(q, k, v, out, lse, do, **kw)
     call.run()
