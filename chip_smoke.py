@@ -9,6 +9,7 @@
     python3 chip_smoke.py --autotune     # only the autotuner's phase
     python3 chip_smoke.py --cpu-oracle   # only the native CPU oracle's
     python3 chip_smoke.py --train-sharded  # only the sharded-train phase
+    python3 chip_smoke.py --wide         # only head dims 257-512
 
 Builds the port's CUDA kernels from tiny_flash_attention_tpu_torch/csrc/
 with nvcc and holds each kernel against its plain PyTorch version on the
@@ -55,7 +56,14 @@ its fp8 chunk pattern, (1,8,4096,256) bf16 q against (1,1,32768,256) e4m3
 K/V at offset 28672; flash_attention_v1 at (2,8,2048,256) MHA bf16
 (causal and not) and (2,8,1024,256) f32; each beside SDPA and B1 on the
 same K/V, with the planted faults of the 128 rows; the masks and 192
-(padded, its copies counted) at smaller shapes. Then context parallelism
+(padded, its copies counted) at smaller shapes. Then head dims 257-512
+(`wider_phase`: bf16 B1, the backward, the decodes and the append on their
+instances of width 512, the DeepSeek-V4-Flash-width engines and train
+pair; `wider_f32_phase`: B1's f32 instance of width 512 and the decodes
+with f32 q, each against its plain version with planted faults, timed at
+DeepSeek-V4-Flash's prefill beside SDPA in f32 and the bound, and the
+DeepSeek-V4-Flash-width model in f32 served over f32 and int8 pages, its
+train step raising at backward()). Then context parallelism
 (`context_parallel_phase`, parallel/ring.py and parallel/sharded.py on
 torch.distributed, worlds of ranks spawned by parallel/world.py): a world
 of 1 on NCCL at 2048 tokens, where ring, zigzag ring, Ulysses, all-gather
@@ -960,7 +968,8 @@ def check_not_ported_raise() -> None:
     backward through an entry whose JAX kernel has no VJP raises at
     backward() (ROADMAP C1), and never drops the gradient."""
     from tiny_flash_attention_tpu_torch.ops import quant as Q
-    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_plain)
     from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain)
     from tiny_flash_attention_tpu_torch.ops.flash_quant import (
@@ -970,11 +979,13 @@ def check_not_ported_raise() -> None:
     from tiny_flash_attention_tpu_torch.ops.flash_v1 import (
         flash_attention_v1)
     from tiny_flash_attention_tpu_torch.ops.paged import (
-        paged_decode_attention)
+        paged_decode_attention, paged_decode_plain)
     from tiny_flash_attention_tpu_torch.ops.paged_fused import (
-        fused_page_append, fused_paged_decode_attention)
+        fused_page_append, fused_paged_decode_attention,
+        fused_paged_decode_plain)
     from tiny_flash_attention_tpu_torch.ops.quant_matmul import (
         quantized_matmul_cuda)
+    from tiny_flash_attention_tpu_torch.utils.testing import flash_gate
 
     q = torch.zeros((1, 2, 128, 128), device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 128), device="cuda")
@@ -1022,10 +1033,12 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_bwd(q, q.to(torch.int8), q.to(torch.int8),
                                     q, lse, q, causal=True),
     ]
-    # head dims above 256: f32 (B1, the backward, the decodes:
-    # B-dims-2a-f32), the quantized forward and FA1 (B-dims-2a-quant-v1);
-    # above 512 every entry (B-dims-2a-512+), the bf16 forward and backward,
-    # the decodes and the append included
+    # head dims above 256: the quantized forward and FA1
+    # (B-dims-2a-quant-v1); above 512 every entry (B-dims-2a-512+), the
+    # bf16 and f32 forward, the backward, the decodes and the append
+    # included. B1 in f32 and the decodes with f32 q run at 264 (their
+    # instances of width 512): gated against their plain versions below;
+    # the f32 backward there raises (wider_f32_raises)
     def zeros(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, device="cuda", dtype=dtype)
 
@@ -1035,7 +1048,6 @@ def check_not_ported_raise() -> None:
     f520 = zeros(1, 2, 128, 520, dtype=torch.float32)
     two = torch.zeros(2, dtype=torch.int32, device="cuda")
     attempts += [
-        lambda: flash_attention(f264, f264, f264, causal=True),
         lambda: flash_attention_v1(q264, q264, q264),
         lambda: flash_attention_v1(f264, f264, f264),
         lambda: flash_attention_quantized(q264, *Q.quantize_kv(
@@ -1043,13 +1055,6 @@ def check_not_ported_raise() -> None:
         lambda: flash_attention_quantized(f264, *Q.quantize_kv(
             q264, q264, "int8")),
     ]
-    qd, pages_d = zeros(2, 6, 264, dtype=torch.float32), zeros(
-        2, 4, 32, 264, dtype=torch.float32)
-    attempts += [
-        lambda: fused_paged_decode_attention(qd, pages_d, lengths, table,
-                                             page_size=16),
-        lambda: paged_decode_attention(qd, pages_d, pages_d, lengths,
-                                       table)]
     n_264 = len(attempts)
     attempts += [
         lambda: flash_attention(q520, q520, q520, causal=True),
@@ -1069,16 +1074,53 @@ def check_not_ported_raise() -> None:
                 q, p, p, lengths, table),
             lambda q=qd, p=pages_d: fused_page_append(
                 p, q[:, :2], q[:, :2], two, two, page_size=16)]
-    for fn in attempts:
+    for i, fn in enumerate(attempts):
         try:
             fn()
-        except NotImplementedError:
+        except NotImplementedError as e:
+            # the quantized forward and FA1 at 264 name their queue
+            if 3 <= i < n_264 and "B-dims-2a-quant-v1" not in str(e):
+                raise
             continue
         raise AssertionError("a feature this slice does not port ran on "
                              "the card")
+    # B1 in f32 and the decodes with f32 q at 264 run, against their plain
+    # versions (the f32 gate; the decode gates)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32_in = [randn((1, 2, 128, 264), torch.float32, gen) for _ in range(3)]
+    out264, lse264 = flash_attention(*f32_in, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    errs264, _, ok264 = flash_gate(
+        out264, lse264, lambda x, sc: flash_attention_plain(
+            x, *f32_in[1:], causal=True, sm_scale=sc, return_lse=True),
+        f32_in[0], torch.float32)
+    if not ok264:
+        raise AssertionError(f"B1 f32 at head_dim 264: {errs264}")
+    qd = randn((2, 6, 264), torch.float32, gen)
+    pages_d = randn((2, 4, 32, 264), torch.float32, gen)
+    dec264 = []
+    for fn, plain in (
+            (lambda: fused_paged_decode_attention(qd, pages_d, lengths,
+                                                  table, page_size=16),
+             lambda sp: fused_paged_decode_plain(
+                 qd, pages_d, lengths, table, page_size=16,
+                 sm_scale=264 ** -0.5, splits=sp)),
+            (lambda: paged_decode_attention(qd, pages_d, pages_d, lengths,
+                                            table),
+             lambda sp: paged_decode_plain(
+                 qd, pages_d, pages_d, lengths, table, sm_scale=264 ** -0.5,
+                 splits=sp))):
+        out, lse_d = fn()
+        torch.cuda.synchronize()
+        err, row, lse_err, ok = split_errs(out, lse_d, plain)
+        if not ok:
+            raise AssertionError(f"a decode with f32 q at head_dim 264: "
+                                 f"{gate_readings(err, row, lse_err)}")
+        dec264.append(max(err, lse_err))
     # the backward's refusals name their queues: bf16 above 512
-    # (B-dims-2a-512+), f32 above 256 (B-dims-2a-f32)
-    for x, queue in ((q520, "B-dims-2a-512+"), (f264, "B-dims-2a-f32")):
+    # (B-dims-2a-512+), f32 above 256 (B-dims-2a-f32-train)
+    for x, queue in ((q520, "B-dims-2a-512+"), (f264,
+                                                 "B-dims-2a-f32-train")):
         try:
             flash_attention_bwd(x, x, x, x, lse, x, causal=True)
         except NotImplementedError as e:
@@ -1089,7 +1131,6 @@ def check_not_ported_raise() -> None:
                                  f"{x.shape[-1]} did not raise")
     # a backward() through B1 at head_dim 384 runs (the bf16 backward's
     # instance of width 512), its gradients at the plain backward's gate
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     q384, k384, v384, do384 = (randn((1, 2, 128, 384), torch.bfloat16, gen)
                                for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q384, k384, v384)]
@@ -1119,12 +1160,15 @@ def check_not_ported_raise() -> None:
         raise AssertionError("int8 pages JAX refuses ran on the card")
     log(f"not-ported features raise NotImplementedError on the card: ok "
         f"({len(attempts)}: int8 K/V without scales; at head_dim 264 "
-        f"({n_264 - 3} calls) B1 in f32, FA1 (bf16, f32), the quantized "
-        f"forward (bf16 q, f32 q), the decodes with f32 q; at head_dim 520 "
-        f"({len(attempts) - n_264}) every entry, B1 in bf16, the row loop, "
-        f"the decodes and the append included; the backward's refusals "
-        f"name their queues, B-dims-2a-512+ (bf16 at 520) and "
-        f"B-dims-2a-f32 (f32 at 264)); a backward() "
+        f"({n_264 - 3} calls) FA1 (bf16, f32) and the quantized forward "
+        f"(bf16 q, f32 q), naming B-dims-2a-quant-v1; at head_dim 520 "
+        f"({len(attempts) - n_264}) every entry, B1 in bf16 and f32, the "
+        f"row loop, the decodes and the append included; the backward's "
+        f"refusals name their queues, B-dims-2a-512+ (bf16 at 520) and "
+        f"B-dims-2a-f32-train (f32 at 264)); at head_dim 264 B1 in f32 "
+        f"runs, {max(errs264['out'], errs264['lse']):.2e} from its plain "
+        f"version, and the decodes with f32 q (fused, separate) "
+        f"{max(dec264):.2e}; a backward() "
         f"through B1 at head_dim 384 runs, {err384:.2e} from the plain "
         f"backward (gate {BWD_PLAIN_GATE[torch.bfloat16]:.0e}); int8 fused "
         f"pages at page size 48 and head_dim 36 raise ValueError as JAX "
@@ -1782,7 +1826,8 @@ def check_bwd(name, q_shape, kv_shape, dtype, causal, masks, gen, *,
     # at the true head_dim)
     from tiny_flash_attention_tpu_torch.ops.dims import (
         flash_head_dim, pad_head_dim)
-    dk = flash_head_dim(q_shape[-1], dtype, "the CUDA backward kernels")
+    dk = flash_head_dim(q_shape[-1], dtype, "the CUDA backward kernels",
+                        backward=True)
     call = FB.BwdLaunch(*(pad_head_dim(t, dk) for t in (q, k, v, out)), lse,
                         pad_head_dim(do, dk), causal=causal,
                         sm_scale=sm_scale, config=FlashConfig(), **kw)
@@ -5458,7 +5503,8 @@ WIDER_GROUPS = (1, 8, 64)
 WIDER_DECODE_GROUPS = (1, 8, 64)
 # the sources the phase runs (`--wide` builds these alone)
 WIDER_SOURCES = ["flash_fwd", "flash_bwd", "paged_decode_wide",
-                 "paged_decode_separate_wide", "page_append"]
+                 "paged_decode_separate_wide", "page_append",
+                 "paged_decode_f32_wide", "paged_decode_separate_f32_wide"]
 # the backward's instance of width 512 against its plain version at
 # 1024 rows: every head_dim under each group and each mask by turn
 # ("starts": ids changing at WIDER_BWD_BOUNDS with their segment_starts),
@@ -5543,16 +5589,18 @@ def sdpa_expanded(name, q_shape, kv_shape, iters=5) -> dict:
     return {"library_expanded_ms": t, "library_expanded": ran}
 
 
-def wider_grid(gen) -> dict:
-    """B4 (bf16 and int8 pages), B12 (bf16 pages, int8 at page size 128)
-    and B5 (bf16, f32 and int8 pages) at WIDER_DIMS x WIDER_PAGE_SIZES, the
-    groups of WIDER_GROUPS by turn, against their plain versions: the
-    decodes at the decode gates (split and unsplit plain) and on the
-    run-time width instances where the pair is not compiled (their launch
-    counts), the append bit for bit. Returns the worst errors by kernel and
-    the checked calls' launches. The decodes' absolute out gate is
+def wider_grid(gen, dtype=torch.bfloat16) -> dict:
+    """B4 (pages of q's dtype and int8 pages), B12 (pages of q's dtype,
+    int8 at page size 128) and, with bf16 q, B5 (bf16, f32 and int8 pages)
+    at WIDER_DIMS x WIDER_PAGE_SIZES, the groups of WIDER_GROUPS by turn, q
+    in `dtype`, against their plain versions: the decodes at the decode
+    gates (split and unsplit plain) and on the run-time width instances
+    where the pair is not compiled (their launch counts), the append bit
+    for bit. Returns the worst errors by kernel and the checked calls'
+    launches. With bf16 q the decodes' absolute out gate is
     spaced_split_errs' (one bf16 ulp of |plain| where out rounds the f32
-    model); the elements past DECODE_OUT_GATE and the witness are logged."""
+    model; the elements past DECODE_OUT_GATE and the witness are logged);
+    f32 q has no rounding of out and takes split_errs' gates."""
     from tiny_flash_attention_tpu_torch.ops.dims import decode_compiled
     from tiny_flash_attention_tpu_torch.ops.paged import (
         paged_decode_attention, paged_decode_plain)
@@ -5562,6 +5610,8 @@ def wider_grid(gen) -> dict:
     from tiny_flash_attention_tpu_torch.ops.quant import quantize_int8
 
     worst, cases, failed, launches, over = {}, {}, [], {}, {}
+    f32 = dtype == torch.float32
+    tag = "wider f32" if f32 else "wider"
     t0 = time.perf_counter()
     pairs = [(d, ps) for d in WIDER_DIMS for ps in WIDER_PAGE_SIZES]
     for i, (d, ps) in enumerate(pairs):
@@ -5582,12 +5632,17 @@ def wider_grid(gen) -> dict:
                       counter.width_launches)
             out, lse = fn()
             torch.cuda.synchronize()
-            err, row, lse_err, n_over, witness, ok = spaced_split_errs(
-                out, lse, plain)
+            if f32:
+                err, row, lse_err, ok = split_errs(out, lse, plain)
+                n_over, witness = 0, 0.0
+                ok = ok and out.dtype == torch.float32
+            else:
+                err, row, lse_err, n_over, witness, ok = spaced_split_errs(
+                    out, lse, plain)
             if n_over:
                 n, w = over.get(kernel, (0, 0.0))
                 over[kernel] = (n + n_over, max(w, witness))
-                log(f"wider {kernel} (d, ps, group) {case}: {n_over} "
+                log(f"{tag} {kernel} (d, ps, group) {case}: {n_over} "
                     f"elements past {DECODE_OUT_GATE:.0e}, out err "
                     f"{err:.4e}; |out - f32 model| at most {witness:.3f} "
                     f"of its bf16 ulp | {'ok' if ok else 'FAIL'}")
@@ -5601,12 +5656,13 @@ def wider_grid(gen) -> dict:
             if not ok:
                 failed.append((kernel, case, (err, row, lse_err)))
 
-        q = randn((B, hkv * group, d), torch.bfloat16, gen)
-        kp, vp = (randn((hkv, num_pages, ps, d), torch.bfloat16, gen)
+        q = randn((B, hkv * group, d), dtype, gen)
+        kp, vp = (randn((hkv, num_pages, ps, d), dtype, gen)
                   for _ in range(2))
+        own = "f32" if f32 else "bf16"   # pages of q's dtype, by name
         for fmt in ("bf16", "int8"):
             pages = pack_paged_cache(kp, vp, fmt)
-            decode(f"B4 {fmt}",
+            decode(f"B4 {own if fmt == 'bf16' else fmt}",
                    lambda: fused_paged_decode_attention(
                        q, pages, lengths, table, page_size=ps),
                    lambda sp, dt=None: fused_paged_decode_plain(
@@ -5616,16 +5672,17 @@ def wider_grid(gen) -> dict:
         for fmt in ("bf16", "int8") if ps % 128 == 0 else ("bf16",):
             k, v = ((quantize_int8(x, axis=-1) for x in (kp, vp))
                     if fmt == "int8" else (kp, vp))
-            decode(f"B12 {fmt}",
+            decode(f"B12 {own if fmt == 'bf16' else fmt}",
                    lambda: paged_decode_attention(q, k, v, lengths, table),
                    lambda sp, dt=None: paged_decode_plain(
                        q, k, v, lengths, table, sm_scale=sc, splits=sp,
                        out_dtype=dt), paged_decode_attention)
-        for fmt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
-                           ("int8", torch.bfloat16)):
+        for fmt, src in (() if f32 else (
+                ("bf16", torch.bfloat16), ("f32", torch.float32),
+                ("int8", torch.bfloat16))):
             page_fmt = "int8" if fmt == "int8" else "bf16"
             apages, k_new, v_new, ids, rows = append_inputs(
-                gen, fmt=page_fmt, ps=ps, d=d, P=2, dtype=dtype)
+                gen, fmt=page_fmt, ps=ps, d=d, P=2, dtype=src)
             want = page_append_plain(apages.clone(), k_new, v_new, ids, rows,
                                      page_size=ps)
             got = fused_page_append(apages, k_new, v_new, ids, rows,
@@ -5643,23 +5700,31 @@ def wider_grid(gen) -> dict:
     for kernel in cases:
         names = (("out", "row", "lse") if len(worst[kernel]) == 3
                  else ("max abs err",))
-        log(f"wider {kernel}: {cases[kernel]} cases (head dims {WIDER_DIMS} "
+        if len(names) == 1:
+            gates = " (bit for bit)"
+        elif f32:
+            gates = (f" (gates {DECODE_OUT_GATE:.0e}, {DECODE_ROW_GATE:.4e}, "
+                     f"{DECODE_LSE_GATE:.0e}; split and unsplit plain; f32 "
+                     f"q, out in f32)")
+        else:
+            gates = (f" (gates {DECODE_OUT_GATE:.0e} or one bf16 ulp of "
+                     f"|plain| where out rounds the f32 model, "
+                     f"{DECODE_ROW_GATE:.4e}, {DECODE_LSE_GATE:.0e}; split "
+                     f"and unsplit plain); past {DECODE_OUT_GATE:.0e}: "
+                     f"{over.get(kernel, (0, 0.0))[0]} elements, |out - f32 "
+                     f"model| at most {over.get(kernel, (0, 0.0))[1]:.3f} "
+                     f"ulp")
+        log(f"{tag} {kernel}: {cases[kernel]} cases (head dims {WIDER_DIMS} "
             f"x page sizes {WIDER_PAGE_SIZES}, groups {WIDER_GROUPS} by "
             f"turn); worst " + ", ".join(
                 f"{n} {x:.3e}" for n, x in zip(names, worst[kernel]))
-            + (f" (gates {DECODE_OUT_GATE:.0e} or one bf16 ulp of "
-               f"|plain| where out rounds the f32 model, "
-               f"{DECODE_ROW_GATE:.4e}, {DECODE_LSE_GATE:.0e}; split and "
-               f"unsplit plain); past {DECODE_OUT_GATE:.0e}: "
-               f"{over.get(kernel, (0, 0.0))[0]} elements, |out - f32 "
-               f"model| at most {over.get(kernel, (0, 0.0))[1]:.3f} ulp"
-               if len(names) == 3 else " (bit for bit)"))
-    log(f"wider: {sum(cases.values())} kernel calls against their plain "
+            + gates)
+    log(f"{tag}: {sum(cases.values())} kernel calls against their plain "
         f"versions in {time.perf_counter() - t0:.1f} s, {len(failed)} "
         f"failed" + "".join(f"; FAIL {k} (d, ps, group) {c}: {e}"
                             for k, c, e in failed[:20]))
     if failed:
-        raise AssertionError(f"wider: {len(failed)} decode or append cases "
+        raise AssertionError(f"{tag}: {len(failed)} decode or append cases "
                              f"disagree with their plain versions")
     return {"worst": worst, "launches": launches}
 
@@ -5852,6 +5917,219 @@ def wider_runtime_timed(gen) -> dict:
         raise AssertionError("wider: the run-time and compiled width-512 "
                              "decodes did not run where expected")
     return rows
+
+
+# --- head dims 257-512 in f32: serving at DeepSeek-V4-Flash's widths ---------
+
+# B1's f32 instance of width 512 (head dims in (256, 512] padded to 512) at
+# groups 1, 8 and 64 under each mask by turn ("starts": the ids with their
+# segment_starts); 392 plants the wrong scale (1/sqrt(512)): (d, group,
+# mask)
+WIDER_F32_FLASH_CASES = [(264, 1, "causal"), (264, 8, "window"),
+                         (264, 64, "starts"), (384, 1, "starts"),
+                         (384, 8, "causal"), (384, 64, "window"),
+                         (392, 8, "ids"), (448, 1, "window"),
+                         (448, 8, "starts"), (448, 64, "causal"),
+                         (512, 1, "ids"), (512, 8, "window"),
+                         (512, 64, "starts")]
+# B1 f32 with the pipeline's planted faults (a stale V tile, a dropped kv
+# tile, a lost run of the merge) at head_dim 392, padded to 512
+WIDER_F32_FAULTS = ((1, 8, 2048, 392), (1, 1, 2048, 392))
+# B1 f32 timed beside SDPA in f32 and the bound: DeepSeek-V4-Flash's
+# prefill (64 q heads over 1 kv head of 512) and head_dim 384 at Gemma-2B's
+# prefill shape (padded to 512): (label, q shape, kv shape)
+WIDER_F32_FWD_SHAPES = [
+    ("DeepSeek-V4-Flash prefill", (1, 64, 2048, 512), (1, 1, 2048, 512)),
+    ("head_dim 384", (4, 8, 2048, 384), (4, 1, 2048, 384))]
+
+
+def wider_f32_instances() -> None:
+    """The f32 instances of width 512: B1's (flash_fwd_f32_kernel<512,
+    window, 0>) and every instance of the two decode sources with f32 q,
+    their registers and spill bytes (ptxas)."""
+    from tiny_flash_attention_tpu_torch import _build
+
+    regs = [x for x in instance_registers(_build.build_log("flash_fwd"))
+            if x.startswith("flash_fwd_f32_kernel<512,")]
+    log("wider f32: flash_fwd's f32 instances of width 512, registers/spill "
+        "bytes: " + ", ".join(regs))
+    if len(regs) != 2:
+        raise AssertionError(f"wider f32: {len(regs)} f32 instances of "
+                             f"width 512 in flash_fwd, not 2")
+    for name in ("paged_decode_f32_wide", "paged_decode_separate_f32_wide"):
+        log(f"wider f32: {name} registers/spill bytes: " + "; ".join(
+            spilling_instances(_build.build_log(name), every=True)))
+
+
+def wider_f32_raises(seed: int) -> None:
+    """What still raises at head dims 257-512 in f32, on the card: the f32
+    backward at 264 (B-dims-2a-f32-train), a backward() through B1 in f32
+    at 384 at backward(), naming that queue and head_dim 384 (not the 512
+    its saved tensors are padded to), never dropping the gradient; and a
+    train step at DeepSeek-V4-Flash's widths in f32 (one layer, 1 x 256
+    tokens), at its backward(). Each fails the run if it does not
+    raise."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.ops.flash import flash_attention
+    from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
+        flash_attention_bwd)
+    from tiny_flash_attention_tpu_torch.parallel.train import make_train_step
+
+    def refused(fn, want, what):
+        try:
+            fn()
+        except NotImplementedError as e:
+            if all(w in str(e) for w in want):
+                return str(e)
+            raise
+        raise AssertionError(f"wider f32: {what} did not raise")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = randn((1, 2, 128, 264), torch.float32, gen)
+    lse = torch.zeros((1, 2, 128), device="cuda")
+    msgs = [refused(lambda: flash_attention_bwd(x, x, x, x, lse, x,
+                                                causal=True),
+                    ("B-dims-2a-f32-train",), "the f32 backward at 264")]
+    leaf = randn((1, 2, 128, 384), torch.float32, gen).requires_grad_()
+    out = flash_attention(leaf, leaf, leaf, causal=True)
+    if out.shape != leaf.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError("wider f32: B1 at 384 before its backward()")
+    msgs.append(refused(lambda: out.sum().backward(),
+                        ("head_dim 384", "B-dims-2a-f32-train"),
+                        "a backward() through B1 in f32 at 384"))
+    if leaf.grad is not None:
+        raise AssertionError("wider f32: a gradient was written before the "
+                             "backward raised")
+    fields = next(m[1] for m in DIMS_MODELS if m[0] == V4_MODEL)
+    cfg = T.ModelConfig(**fields, n_layers=1, dtype=torch.float32)
+    step, init_state = make_train_step(cfg, learning_rate=1e-3)
+    params, opt = init_state(T.init_params(cfg, gen, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device="cuda")
+    msgs.append(refused(lambda: step(params, opt, tokens),
+                        ("head_dim 512", "B-dims-2a-f32-train"),
+                        f"an f32 train step at {V4_MODEL}"))
+    del params, opt
+    log("wider f32: the f32 backward at 264, a backward() through B1 in f32 "
+        f"at 384 and an f32 train step at {V4_MODEL} (1 layer, 1 x 256) "
+        "raise NotImplementedError at backward(): ok (" + "; ".join(msgs)
+        + ")")
+
+
+def wider_f32_model_phase(seed) -> dict:
+    """The DeepSeek-V4-Flash-width model (DIMS_MODELS) in f32, DIMS_LAYERS
+    layers, random weights from the seed, TF32 off: served over f32 pages
+    of 64 and int8 pages of 128 (dims_engine_run at ENGINE_F32_LOGIT_GATE:
+    B1 f32 at 512 in the admissions, B4 with f32 q and B5 in the decode
+    steps), B4 over each engine's cache with f32 q at WIDER_DECODE_GROUPS
+    (wide_decode_groups, timed beside the bound). The memory is reckoned
+    and logged first. Returns the engines' launches and the decode rows by
+    page format."""
+    from tiny_flash_attention_tpu_torch.models import transformer as T
+    from tiny_flash_attention_tpu_torch.parallel.train import param_leaves
+
+    label, fields, ps_own, ps8 = next(m for m in DIMS_MODELS
+                                      if m[0] == V4_MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = T.ModelConfig(**fields, n_layers=DIMS_LAYERS, dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), device="cuda")
+    n_params = sum(t.numel() for t in param_leaves(params))
+    # dims_engine_run's cache: 8 slots of ceil((2048 + 72) / ps) pages and
+    # 8 more
+    tokens = (8 * -(-(2048 + 72) // ps_own) + 8) * ps_own
+    cache = tokens * cfg.n_layers * cfg.n_kv_heads * 2 * cfg.d_head * 4
+    scores = cfg.n_q_heads * 2048 ** 2 * 4
+    log(f"wider f32 model [{label}, f32]: {DIMS_LAYERS} layers, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}; reckoned "
+        f"{n_params / 1e6:.1f} M params x 4 bytes = "
+        f"{n_params * 4 / 1e9:.2f} GB; the f32 page cache "
+        f"{cache / 2**20:.0f} MiB ({tokens} tokens x {cfg.n_layers} layers x "
+        f"{2 * cfg.d_head * 4} bytes); the reference path's f32 scores "
+        f"{scores / 2**30:.2f} GiB a sequence and layer at 2048 tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, decode = {}, {}
+    for fmt, ps in (("bf16", ps_own), ("int8", ps8)):
+        run = dims_engine_run(f"{label}, f32", cfg, params, fmt, ps, seed,
+                              gate=ENGINE_F32_LOGIT_GATE)
+        for key, n in run["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+        table, lengths = run["engine"].cache.device_views()
+        decode[fmt] = wide_decode_groups(
+            f"{label}, f32", F32_PAGES[fmt], run["engine"].cache.pages[0],
+            lengths, table, ps, gen, dtype=torch.float32,
+            groups=WIDER_DECODE_GROUPS)
+        del run
+    del params
+    log(f"wider f32 model [{label}, f32]: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"launches": launches, "decode": decode}
+
+
+def wider_f32_phase(gen) -> dict:
+    """The f32 serving path at head dims in (256, 512], each kernel against
+    its plain version: B1's f32 instance of width 512 at
+    WIDER_F32_FLASH_CASES (the f32 gate; a scale from 512 planted at 392;
+    the pad copies counted), its jagged mode at 448, the pipeline's planted
+    faults and two calls' bits at WIDER_F32_FAULTS, timed at
+    WIDER_F32_FWD_SHAPES beside SDPA in f32 (its backend named) and the
+    bound; B4 and B12 with f32 q over the grid (wider_grid: f32 and int8
+    pages, compiled and run-time widths), B4's ring mode at 512 (groups 1
+    and 64 over f32 pages, 8 over int8), B12 at group 64 with its planted
+    faults, B5 into f32 pages at 512 bit for bit; what still raises
+    (wider_f32_raises); then the DeepSeek-V4-Flash-width model in f32
+    (wider_f32_model_phase). Returns the rows, the worst errors and the
+    engines' launches."""
+    from tiny_flash_attention_tpu_torch.ops import dims
+
+    wider_f32_instances()
+    rows, errs = {}, {}
+    before = dims.pad_head_dim.copies
+    errs["flash_fwd"] = max(check_dims_flash(*c, torch.float32, gen)
+                            for c in WIDER_F32_FLASH_CASES)
+    copies = dims.pad_head_dim.copies - before
+    want = 3 * sum(c[0] != 512 for c in WIDER_F32_FLASH_CASES)
+    log(f"wider f32: B1's calls below 512 pad q, k and v to 512, at 512 "
+        f"nothing: {copies} copies (expected {want})")
+    if copies != want:
+        raise AssertionError(f"wider f32: {copies} pad copies, not {want}")
+    errs["flash_fwd"] = max(errs["flash_fwd"], check_rowloop(
+        gen, d=448, dtypes=(torch.float32,)))
+    faults = check_flash("wider f32: B1 at head_dim 392 (padded to 512)",
+                         *WIDER_F32_FAULTS, torch.float32, True, gen,
+                         iters=3, faults=True)
+    rows["flash"] = {label: check_flash(
+        f"wider f32: B1 at {label}", q_shape, kv_shape, torch.float32, True,
+        gen, iters=5) for label, q_shape, kv_shape in WIDER_F32_FWD_SHAPES}
+    errs["flash_fwd"] = max(errs["flash_fwd"], faults["max_abs_err"], *(
+        r["max_abs_err"] for r in rows["flash"].values()))
+    grid = wider_grid(gen, torch.float32)
+    ring = {}
+    for fmt, group in (("bf16", 1), ("bf16", 64), ("int8", 8)):
+        ring[(fmt, group)] = check_ring(
+            f"wider f32: {F32_PAGES[fmt]} d 512 group {group}", fmt, gen,
+            hq=group, hkv=1, d=512, ps=128, P=16, dtype=torch.float32)
+    rows["b12"] = check_dims_b12(gen, d=512, hq=64, hkv=1,
+                                 dtype=torch.float32)
+    rows["append"] = check_append(
+        "wider f32: f32 pages d 512 ps 64, DeepSeek-V4-Flash's 8 tokens x 1 "
+        "kv head", "bf16", 64, gen, d=512, hkv=1, iters=10,
+        dtype=torch.float32)
+    worst = grid["worst"]
+    errs["paged_decode"] = max(
+        *worst["B4 f32"][::2], *(r["max_abs_err"] for (f, _), r in
+                                 ring.items() if f == "bf16"))
+    errs["paged_decode_int8"] = max(*worst["B4 int8"][::2],
+                                    ring[("int8", 8)]["max_abs_err"])
+    errs["paged_decode_separate"] = max(
+        *worst["B12 f32"][::2], *worst["B12 int8"][::2],
+        *(r["max_abs_err"] for r in rows["b12"].values()))
+    errs["page_append"] = rows["append"]["max_abs_err"]
+    wider_f32_raises(SEED + 6)
+    model = wider_f32_model_phase(SEED)
+    return {"rows": rows, "errs": errs, "model": model,
+            "grid_launches": grid["launches"]}
 
 
 # --- context parallel: ring, zigzag ring, Ulysses, all-gather, sharded -------
@@ -7562,12 +7840,13 @@ def widths_main() -> int:
 
 
 def wider_main() -> int:
-    """`--wide`: the head_dim 257-512 phase and the DeepSeek-V4-Flash-width
-    engines alone (their sources built first)."""
+    """`--wide`: the head_dim 257-512 phases (bf16 and f32) and the
+    DeepSeek-V4-Flash-width engines alone (their sources built first)."""
     card_settings()
     log(f"card: {gpu_info()}")
     build_report(WIDER_SOURCES)
     wider_phase(torch.Generator(device="cuda").manual_seed(SEED + 3))
+    wider_f32_phase(torch.Generator(device="cuda").manual_seed(SEED + 5))
     return 0
 
 
@@ -7728,6 +8007,14 @@ def main() -> int:
     wider = wider_phase(torch.Generator(device="cuda").manual_seed(SEED + 3))
     v4 = wider["models"]["by_model"][V4_MODEL]
     v4_dec = wider["models"]["wide"]
+    # head dims 257-512 in f32: B1's f32 instance of width 512, the decodes
+    # with f32 q and the DeepSeek-V4-Flash-width model in f32, on a
+    # generator of its own
+    wider_f32 = wider_f32_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 5))
+    v4_f32 = wider_f32["model"]["launches"]
+    v4_f32_dec = wider_f32["model"]["decode"]
+    wf_errs, wf_rows = wider_f32["errs"], wider_f32["rows"]
     from tiny_flash_attention_tpu_torch.ops.dims import (
         DECODE_TOP_512 as decode_top_512)
     werrs, wrows = wider["errs"], wider["rows"]
@@ -8169,6 +8456,62 @@ def main() -> int:
          "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
          "launches": v4["page_append"], **wrows["append"][("int8", 128)],
          "max_abs_err": werrs["page_append"]},
+        {"name": "flash_fwd_f32_d512", "route": "cuda",
+         "design": "f32's instance of width 512 (head dims 257-512 padded "
+                   "to 512): 32-row q and kv tiles, 256 threads 8 x 32 over "
+                   "the score tile (4 x 1 scores and 4 x 16 outputs a "
+                   "thread, a row's max and sum over one warp), K and V in "
+                   "one buffer each released apart (K of tile t + 1 copied "
+                   "during tile t's softmax and PV, V during tile t + 1's "
+                   "S; 200,832 bytes), the kv runs, the in-order merge "
+                   "(slots of 32 x 514 floats), every mask and the jagged "
+                   "mode",
+         "source": "tiny_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": fwd_replaces, "launches": v4_f32["flash_fwd"],
+         **wf_rows["flash"]["DeepSeek-V4-Flash prefill"],
+         "max_abs_err": wf_errs["flash_fwd"]},
+        {"name": "paged_decode_f32_d512", "route": "cuda",
+         "design": "f32 q over f32 pages at head dims 257-512 on instances "
+                   "of width 512 (compiled at 512, run-time widths below): "
+                   "16-token chunks (a 32-token f32 stage would be 128 KiB "
+                   "a warp), 64 KiB a warp's stage, 3 warps a block; groups "
+                   f"as row blocks of {decode_top_512} q rows; "
+                   + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_f32_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": v4_f32["paged_decode"],
+         **v4_f32_dec["bf16"]["rows"][64],
+         "max_abs_err": max(wf_errs["paged_decode"], *(
+             r["max_abs_err"] for r in v4_f32_dec["bf16"]["rows"].values()))},
+        {"name": "paged_decode_int8_f32q_d512", "route": "cuda",
+         "design": "f32 q over int8 pages at head dims 257-512 (two "
+                   "33,024-byte stages a warp, 3 warps a block, out in "
+                   "f32); " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_f32_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:535",
+         "launches": v4_f32["paged_decode_int8"],
+         **v4_f32_dec["int8"]["rows"][64],
+         "max_abs_err": max(wf_errs["paged_decode_int8"], *(
+             r["max_abs_err"] for r in v4_f32_dec["int8"]["rows"].values()))},
+        {"name": "paged_decode_separate_f32_d512", "route": "cuda",
+         "design": "separate K/V page arrays at head dims 257-512 with f32 "
+                   "q over f32 pages (16-token chunks) and int8 pages, on "
+                   "B4's template at width 512; " + DECODE_DESIGN,
+         "source": "tiny_flash_attention_tpu_torch/csrc/"
+                   "paged_decode_separate_f32_wide.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged.py:327",
+         **wf_rows["b12"]["bf16"],
+         "launches": sum(r["launches"] for r in wf_rows["b12"].values()),
+         "max_abs_err": wf_errs["paged_decode_separate"]},
+        {"name": "page_append_f32_d512", "route": "cuda",
+         "design": "f32 rows into f32 pages at head_dim 512: a warp per "
+                   "(kv head, sequence), 16 contiguous values a lane",
+         "source": "tiny_flash_attention_tpu_torch/csrc/page_append.cu",
+         "replaces": "tiny_flash_attention_tpu/ops/paged_fused.py:281",
+         "launches": v4_f32["page_append"], **wf_rows["append"],
+         "max_abs_err": wf_errs["page_append"]},
         {"name": "quant_matmul", "route": "cuda",
          "design": "bf16 x: mma.sync m16n8k16 on the tensor cores with the "
                    "weight as the 16-row operand (out^T = w^T x^T), payload "

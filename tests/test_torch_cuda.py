@@ -70,7 +70,12 @@ own instances. Last, the bf16 backward's instance of width 512 (head dims
 264, 384 and 512 at groups 1, 8 and 64 under every mask, 300 rows; 264,
 392 and 448 read in place with the padded call's bits; bit-identical runs
 and chain counters at 0 among the runs above) and its refusals above 512
-and in f32 above 256.
+and in f32 above 256. Last, head dims 257-512 in f32: B1's f32 instance of
+width 512 (264, 384, 448 and 512 padded to it, groups 1, 8 and 64 under
+every mask, the edges of its 32-row tiles, the jagged mode, bit-identical
+calls, its merge workspace), the decodes with f32 q over f32 and int8
+pages (compiled and run-time widths, the ring, the separate pages), and a
+backward() through B1 in f32 at 384 raising.
 """
 
 import dataclasses
@@ -215,15 +220,15 @@ def test_not_ported_raises_on_the_card(gen):
     with pytest.raises(NotImplementedError):
         flash_attention(q, q.float(), q.float())     # mixed dtypes
     # head_dim above 256: the bf16 forward over bf16 K/V and the bf16
-    # backward take it (up to 512), f32 (queue B-dims-2a-f32) raises, in
-    # the backward too; above 512 every entry raises (B-dims-2a-512+)
+    # backward take it (up to 512), and so does the f32 forward; the f32
+    # backward raises (queue B-dims-2a-f32-train); above 512 every entry
+    # raises (B-dims-2a-512+)
     q264 = _randn((1, 2, 8, 264), torch.bfloat16, gen)
     lse = torch.zeros((1, 2, 8), device="cuda")
     assert flash_attention(q264, q264, q264).shape == q264.shape
-    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
-        flash_attention(q264.float(), q264.float(), q264.float())
-    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
-        x = q264.float()
+    x = q264.float()
+    assert flash_attention(x, x, x).shape == x.shape
+    with pytest.raises(NotImplementedError, match="B-dims-2a-f32-train"):
         flash_attention_bwd(x, x, x, x, lse, x, causal=True)
     q520 = _randn((1, 2, 8, 520), torch.bfloat16, gen)
     for x in (q520, q520.float()):
@@ -255,14 +260,20 @@ def test_not_ported_raises_on_the_card(gen):
         with pytest.raises(NotImplementedError, match="B-dims-2a-quant-v1"):
             flash_attention_quantized(x, k264, k264)
     # the decodes and the append read pages in place at every head_dim up
-    # to 512 (the decodes with f32 q up to 256: queue B-dims-2a-f32) and
-    # raise above (queue B-dims-2a-512+); int8 fused pages whose page size
-    # is neither <= head_dim nor a multiple of it raise as JAX's assert does
+    # to 512 (q in bf16 and f32) and raise above (queue B-dims-2a-512+);
+    # int8 fused pages whose page size is neither <= head_dim nor a
+    # multiple of it raise as JAX's assert does
     table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
     lengths = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
     rows2 = torch.zeros(2, dtype=torch.int32, device="cuda")
-    for dtype, d in ((torch.float32, 264), (torch.bfloat16, 520),
-                     (torch.float32, 520)):
+    qd = _randn((2, 6, 264), torch.float32, gen)
+    pages_d = torch.zeros((2, 8, 32, 264), dtype=torch.float32,
+                          device="cuda")
+    assert fused_paged_decode_attention(qd, pages_d, lengths, table,
+                                        page_size=16)[0].shape == qd.shape
+    assert paged_decode_attention(qd, pages_d, pages_d, lengths,
+                                  table)[0].shape == qd.shape
+    for dtype, d in ((torch.bfloat16, 520), (torch.float32, 520)):
         qd = _randn((2, 6, d), dtype, gen)
         pages_d = torch.zeros((2, 8, 32, d), dtype=dtype, device="cuda")
         with pytest.raises(NotImplementedError):
@@ -2115,16 +2126,25 @@ def test_wider_in_place_is_the_padded_call(gen, d):
 
 def test_wider_backward_raises(gen):
     """The bf16 backward stops at 512: at 520 it raises, naming queue
-    B-dims-2a-512+, and in f32 it stops at 256 (B-dims-2a-f32): a
-    backward() through B1 in f32 at 264 raises, never dropping the
+    B-dims-2a-512+, and in f32 it stops at 256 (B-dims-2a-f32-train),
+    though the f32 forward runs there: a backward() through B1 in f32 at
+    384 raises at backward(), naming the queue and the true head_dim 384
+    (not the 512 its saved tensors are padded to), never dropping the
     gradient, while one in bf16 at 384 runs."""
     lse = torch.zeros((1, 2, 64), device="cuda")
     x = _randn((1, 2, 64, 520), torch.bfloat16, gen)
     with pytest.raises(NotImplementedError, match="B-dims-2a-512"):
         flash_attention_bwd(x, x, x, x, lse, x, causal=True)
     x = _randn((1, 2, 64, 264), torch.float32, gen)
-    with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
+    with pytest.raises(NotImplementedError, match="B-dims-2a-f32-train"):
         flash_attention_bwd(x, x, x, x, lse, x, causal=True)
+    x = _randn((1, 2, 64, 384), torch.float32, gen).requires_grad_()
+    out = flash_attention(x, x, x, causal=True)
+    assert out.shape == x.shape
+    with pytest.raises(NotImplementedError,
+                       match="head_dim 384.*B-dims-2a-f32-train"):
+        out.sum().backward()
+    assert x.grad is None
     x = _randn((1, 2, 64, 384), torch.bfloat16, gen).requires_grad_()
     flash_attention(x, x, x, causal=True).float().sum().backward()
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
@@ -2987,14 +3007,180 @@ def test_compiled_widths_keep_their_instances(gen, d, ps):
     paged_decode_separate.cu, at 512 paged_decode_wide.cu and
     paged_decode_separate_wide.cu, and their own append instances: no
     run-time width launch); the same head dims at page size 48 launch the
-    run-time width instances. Each against its plain version (f32 q up to
-    256: above, it raises, ROADMAP queue B-dims-2a-f32)."""
+    run-time width instances. Each against its plain version; at 512 also
+    the decodes with f32 q over f32 and int8 pages (csrc/
+    paged_decode_f32_wide.cu, paged_decode_separate_f32_wide.cu), on their
+    compiled instance of width 512 or the run-time one."""
     assert decode_compiled(d, ps) == (ps != 48)
     for fmt, dtype in (("bf16", torch.bfloat16), ("int8", torch.bfloat16),
                        ("bf16", torch.float32)):
         if fmt == "int8" and not (ps <= d or ps % d == 0):
             continue
-        if dtype != torch.float32 or d <= 256:
-            _check_width_decode(gen, fmt, dtype, d, ps, 2)
+        _check_width_decode(gen, fmt, dtype, d, ps, 2)
         _check_width_append(gen, fmt, dtype, d, ps)
     _check_width_separate(gen, "bf16", torch.bfloat16, d, ps, 2)
+    if d == 512:
+        _check_width_decode(gen, "int8", torch.float32, d, ps, 2)
+        _check_width_separate(gen, "bf16", torch.float32, d, ps, 2)
+
+
+# --- head dims 257-512 in f32: the instances of width 512 -----------------------
+# B1's f32 body over 32-row q and kv tiles with K and V in one buffer each
+# (head dims in (256, 512] padded to 512), the decodes with f32 q on their
+# instances of width 512 (f32 pages in 16-token chunks).
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "ids", "full",
+                                  "offset"])
+@pytest.mark.parametrize("group", [1, 8, 64])
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_wider_f32_flash_kernel_matches_plain(gen, d, group, mask):
+    """B1's f32 instance of width 512 against its plain version at the f32
+    gate: 300 rows (not a multiple of its 32-row tiles), each mask, the
+    decode offset (130 q rows over 300 kv rows); below 512 through the
+    padded route, its copies counted."""
+    kw = {"causal": mask != "full"}
+    q_len = 130 if mask == "offset" else 300
+    if mask == "window":
+        kw["window"] = 61
+    if mask == "ids":
+        seg = _ids(2, 300, gen)
+        kw["segment_ids"] = (seg, seg)
+    hkv = 2 if group < 8 else 1
+    copies = pad_head_dim.copies
+    _f32_vs_plain(gen, 2, hkv * group, hkv, q_len, 300, d, **kw)
+    assert pad_head_dim.copies == copies + (3 if d != 512 else 0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_len", [1, 31, 32, 33, 65, 257])
+@pytest.mark.parametrize("q_len", [1, 31, 32, 33, 97])
+def test_wider_f32_kernel_at_tile_edges(gen, q_len, kv_len, causal):
+    """q_len and kv_len on each side of the 32-row q and kv tiles of the
+    f32 instance of width 512."""
+    _f32_vs_plain(gen, 1, 8, 1, q_len, kv_len, 512, causal=causal)
+
+
+def test_wider_f32_rowloop_jagged_lengths(gen):
+    """The jagged mode of the f32 instance of width 512 at head_dim 448:
+    lengths 0, 1, 31, 32, 33 and the whole row; rows past a length are
+    exactly 0 with the sentinel LSE."""
+    d = 448
+    lens = torch.tensor([0, 1, 31, 32, 33, 300], dtype=torch.int32,
+                        device="cuda")
+    q = _randn((6, 8, 300, d), torch.float32, gen)
+    k = _randn((6, 1, 300, d), torch.float32, gen)
+    v = _randn((6, 1, 300, d), torch.float32, gen)
+    before = flash_attention_rowloop.launches
+    out, lse = flash_attention_rowloop(q, k, v, causal=True, seq_lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_attention_rowloop.launches == before + 1
+    _, ref_lse = flash_attention_rowloop_plain(
+        q, k, v, causal=True, sm_scale=d ** -0.5, seq_lengths=lens)
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_rowloop_plain(
+        x, k, v, causal=True, sm_scale=sc, seq_lengths=lens), q,
+        torch.float32)
+    for bi, L in enumerate(lens.tolist()):
+        assert bool((out[bi, :, L:] == 0).all())
+        torch.testing.assert_close(lse[bi, :, L:], ref_lse[bi, :, L:],
+                                   rtol=1e-6, atol=0)   # the sentinel
+
+
+@pytest.mark.parametrize("hq,hkv,masks", [
+    (8, 8, "causal"), (8, 2, "window"), (8, 1, "ids"), (4, 2, "starts")])
+def test_f32_fwd_runs_are_bit_identical_d512(gen, hq, hkv, masks):
+    """The f32 instance of width 512 merges each q tile's runs in run
+    order: three calls give the same bits."""
+    _f32_fwd_runs_agree(gen, hq, hkv, masks, 512)
+
+
+@pytest.mark.parametrize("hq,hkv,q_len,kv_len,slots", [
+    (8, 1, 8192, 8192, False), (2, 1, 4096, 32768, True)])
+def test_wider_f32_fwd_workspace_stays_bounded(gen, hq, hkv, q_len, kv_len,
+                                               slots):
+    """The width-512 f32 merge's workspace stays within
+    FLASH_FWD_F32_MAX_SLOTS slots of 32 x 514 f32 (69.4 MB): (1, 8, 8192)
+    causal fills the card with its q tiles, a 4096-row chunk over a
+    32768-token cache splits. Each against the plain version."""
+    from tiny_flash_attention_tpu_torch.ops.flash import (
+        fwd_config, fwd_f32_slots, fwd_f32_work)
+
+    d = 512
+    cfg = fwd_config(torch.float32, head_dim=d)
+    q = _randn((1, hq, q_len, d), torch.float32, gen)
+    k, v = (_randn((1, hkv, kv_len, d), torch.float32, gen)
+            for _ in range(2))
+    before = _workspace_bytes()
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    n_slots = fwd_f32_slots(*fwd_f32_work(q_len, kv_len, causal=True,
+                                          n_bh=hq, cfg=cfg))[1]
+    assert (n_slots > 0) == slots
+    assert n_slots * hq <= configs.FLASH_FWD_F32_MAX_SLOTS
+    bound = configs.FLASH_FWD_F32_MAX_SLOTS * 32 * (512 + 2) * 4 + 4096
+    assert _workspace_bytes() <= max(before, bound)
+    _assert_flash_gate(out, lse, lambda x, sc: flash_attention_plain(
+        x, k, v, causal=True, sm_scale=sc, return_lse=True), q,
+        torch.float32)
+
+
+def test_wider_f32_smem_layout_matches_configs(gen):
+    """ops/configs.py::fwd_smem_bytes gives the shared memory of the f32
+    instance of width 512 that the library exports (200,832 bytes)."""
+    from tiny_flash_attention_tpu_torch import _build
+    from tiny_flash_attention_tpu_torch.ops.flash import check_smem_layouts
+    lib = _build.library("flash_fwd")
+    check_smem_layouts(lib, False)
+    assert lib.tfa_flash_fwd_smem(1, 512) == configs.fwd_smem_bytes(
+        configs.FLASH_FWD_F32_512, 512) == 200832
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["table", "ring"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("d,ps,group", [(512, 64, 1), (512, 128, 64),
+                                        (512, 48, 8), (384, 64, 2),
+                                        (300, 1, 8), (448, 32, 64)])
+def test_wider_f32_decode_matches_plain(gen, d, ps, group, fmt, ring):
+    """B4 with f32 q at head dims 300-512 (compiled at 512 with page size
+    16 or a multiple of 32, at run time otherwise), groups as row blocks
+    of DECODE_TOP_512 q rows, over f32 pages ("bf16": the model dtype's)
+    and int8 pages, in plain and ring mode, against the plain version at
+    the kernel's splits at the f32 gate; the run-time width instances
+    count their launches."""
+    B, hkv = 4, 1
+    P = -(-600 // ps)
+    num_pages = B * P + 3
+    q = _randn((B, hkv * group, d), torch.float32, gen)
+    pages = pack_paged_cache(
+        _randn((hkv, num_pages, ps, d), torch.float32, gen),
+        _randn((hkv, num_pages, ps, d), torch.float32, gen), fmt)
+    table = torch.randperm(num_pages, generator=gen, device="cuda")[
+        :B * P].reshape(B, P).to(torch.int32)
+    lengths = torch.tensor([1, ps, P * ps - 5, 3 * P * ps + 30 if ring
+                            else P * ps], dtype=torch.int32, device="cuda")
+    window = min(200, P * ps) if ring else None
+    widths = fused_paged_decode_attention.width_launches
+    out, lse = fused_paged_decode_attention(q, pages, lengths, table,
+                                            page_size=ps, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert fused_paged_decode_attention.width_launches == widths + (
+        not decode_compiled(d, ps))
+    for splits in ("kernel", None):
+        ref, ref_lse = fused_paged_decode_plain(
+            q, pages, lengths, table, page_size=ps, sm_scale=d ** -0.5,
+            window=window, splits=splits)
+        assert _err(out, ref) <= tolerance_for(torch.float32)
+        assert _err(lse, ref_lse) <= tolerance_for(torch.float32)
+
+
+@pytest.mark.parametrize("d,ps,group,fmt", [
+    (512, 128, 64, "f32"), (384, 48, 8, "f32"), (300, 128, 1, "f32"),
+    (512, 16, 2, "f32"), (512, 128, 64, "int8"), (300, 128, 8, "int8")])
+def test_wider_f32_separate_decode_matches_plain(gen, d, ps, group, fmt):
+    """B12 with f32 q at head dims 300-512 over f32 pages and int8 pages
+    (page size 128: JAX takes separate int8 pages at multiples of 128)
+    against its plain version at the kernel's splits, at the f32 gate."""
+    _check_width_separate(gen, "int8" if fmt == "int8" else "bf16",
+                          torch.float32, d, ps, group)
+

@@ -58,9 +58,9 @@ def _both(a, dtype):
 
 @pytest.mark.parametrize("d", range(1, 521))
 def test_decode_rule_takes_every_head_dim_to_256(d):
-    """decode_head_dim takes every head_dim in [1, 512] (f32 q up to 256,
-    naming queue B-dims-2a-f32 above) and raises above 512, naming the
-    kernel and queue B-dims-2a-512+; decode_width is d itself at the
+    """decode_head_dim takes every head_dim in [1, 512] (q in bf16 and
+    f32) and raises above 512, naming the kernel (and q's dtype) and queue
+    B-dims-2a-512+; decode_width is d itself at the
     compiled widths (page size 16 or a multiple of 32), else the least run-
     time width that holds d; decode_group stops at 4 above 128 and at
     DECODE_TOP_512 above 256."""
@@ -70,14 +70,15 @@ def test_decode_rule_takes_every_head_dim_to_256(d):
             dims.decode_head_dim(d, what)
         with pytest.raises(NotImplementedError, match="decode kernel"):
             dims.decode_width(d, 48)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(NotImplementedError, match="decode kernel "
+                               f"with {str(dtype).split('.')[-1]} q.*"
+                               "B-dims-2a-512+"):
+                dims.decode_q_head_dim(d, dtype)
         return
     dims.decode_q_head_dim(d, torch.bfloat16)
     dims.decode_head_dim(d, "the CUDA append kernel")
-    if d > 256:
-        with pytest.raises(NotImplementedError, match="B-dims-2a-f32"):
-            dims.decode_q_head_dim(d, torch.float32)
-    else:
-        dims.decode_q_head_dim(d, torch.float32)
+    dims.decode_q_head_dim(d, torch.float32)
     width = next(w for w in (64, 128, 256, 512) if d <= w)
     for ps in (1, 8, 16, 24, 32, 48, 64, 100, 128, 160):
         compiled = d in (64, 80, 96, 128, 256, 512) and (

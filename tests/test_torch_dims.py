@@ -123,23 +123,24 @@ def test_f32_and_quantized_entries_pad(d):
 def test_head_dims_above_128_raise():
     """Above 256 the bf16 forward over bf16 K/V and the bf16 backward take
     every head_dim up to 512 (a multiple of 8 in place, any other padded to
-    512); f32 (the forward and the backward), the quantized forward and
-    FA1 raise there, each naming itself and its ROADMAP queue, and each
-    pads (128, 256] to 256; the decodes and the append take every head_dim
-    up to 512 (72, 112, 192, 300 and 384 among them; the decodes with f32 q
-    up to 256); above 512 everything raises, naming queue
-    B-dims-2a-512+."""
+    512), and so does the f32 forward (padded to 512); the f32 backward,
+    the quantized forward and FA1 raise there, each naming itself and its
+    ROADMAP queue (the f32 backward B-dims-2a-f32-train), and each pads
+    (128, 256] to 256; the decodes (q in bf16 and f32) and the append take
+    every head_dim up to 512 (72, 112, 192, 300 and 384 among them); above
+    512 everything raises, naming queue B-dims-2a-512+."""
     fwd, bwd = "the CUDA forward kernel", "the CUDA backward kernels"
     for d in (264, 384, 512):
         with pytest.raises(NotImplementedError, match="up to 256.*"
                            "B-dims-2a-quant-v1"):
             dims.kernel_head_dim(d, fwd, wide=True)
         assert dims.flash_head_dim(d, torch.bfloat16, fwd) == d
-        assert dims.flash_head_dim(d, torch.bfloat16, bwd) == d
-        for what in (fwd, bwd):
-            with pytest.raises(NotImplementedError, match="float32 takes "
-                               "head_dim up to 256.*B-dims-2a-f32"):
-                dims.flash_head_dim(d, torch.float32, what)
+        assert dims.flash_head_dim(d, torch.bfloat16, bwd,
+                                   backward=True) == d
+        assert dims.flash_head_dim(d, torch.float32, fwd) == 512
+        with pytest.raises(NotImplementedError, match="float32 takes "
+                           "head_dim up to 256.*B-dims-2a-f32-train"):
+            dims.flash_head_dim(d, torch.float32, bwd, backward=True)
     for d in (264, 384):
         with pytest.raises(NotImplementedError, match="FA1 kernel takes "
                            "head_dim up to 256.*B-dims-2a-quant-v1"):
@@ -149,6 +150,8 @@ def test_head_dims_above_128_raise():
             dims.flash_head_dim(d, torch.bfloat16, fwd, quantized=True)
     for d in (129, 192, 256):
         assert dims.flash_head_dim(d, torch.float32, fwd) == 256
+        assert dims.flash_head_dim(d, torch.float32, bwd,
+                                   backward=True) == 256
         assert dims.kernel_head_dim(d, "the CUDA FA1 kernel",
                                     wide=True) == 256
         assert dims.flash_head_dim(d, torch.bfloat16, fwd,
@@ -158,8 +161,11 @@ def test_head_dims_above_128_raise():
                 lambda: dims.flash_head_dim(d, torch.bfloat16, fwd),
                 lambda: dims.flash_head_dim(d, torch.bfloat16, bwd),
                 lambda: dims.flash_head_dim(d, torch.float32, fwd),
+                lambda: dims.flash_head_dim(d, torch.float32, bwd,
+                                            backward=True),
                 lambda: dims.flash_head_dim(d, torch.bfloat16, fwd,
                                             quantized=True),
+                lambda: dims.decode_q_head_dim(d, torch.float32),
                 lambda: dims.kernel_head_dim(d, "the CUDA FA1 kernel",
                                              wide=True),
                 lambda: dims.decode_head_dim(d, "the CUDA decode kernel"),
@@ -168,9 +174,7 @@ def test_head_dims_above_128_raise():
                 call()
     for d in (264, 384, 512):
         dims.decode_q_head_dim(d, torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="float32 q takes "
-                           "head_dim up to 256.*B-dims-2a-f32"):
-            dims.decode_q_head_dim(d, torch.float32)
+        dims.decode_q_head_dim(d, torch.float32)
     for d in (*dims.DECODE_HEAD_DIMS, 72, 112, 192, 300, 384):
         dims.decode_head_dim(d, "the CUDA decode kernel")
         dims.decode_head_dim(d, "the CUDA append kernel")

@@ -79,23 +79,31 @@ def test_in_place_rule_above_128(d):
     8 up to 512 in place (the wide instances up to 256, the instances of
     width 512 above), pad any other head_dim in (128, 256] to 256 and in
     (256, 512] to 512, and raise above 512 (queue B-dims-2a-512+); the f32
-    instances and the quantized forward pad every head_dim in (128, 256]
-    to 256 and raise above, naming themselves and their ROADMAP queues;
+    forward pads every head_dim in (128, 256] to 256 and in (256, 512] to
+    512; the f32 backward and the quantized forward pad (128, 256] to 256
+    and raise above, naming themselves and their ROADMAP queues;
     pad_head_dim counts each copy it makes."""
     what, bwd = "the CUDA forward kernel", "the CUDA backward kernels"
     if d > 256:
         with pytest.raises(NotImplementedError, match="int8/e4m3 K/V takes "
                            "head_dim up to 256"):
             dims.flash_head_dim(d, torch.bfloat16, what, quantized=True)
-        queue = "B-dims-2a-f32" if d <= 512 else "B-dims-2a-512+"
-        for x in (what, bwd):
+        queue = "B-dims-2a-f32-train" if d <= 512 else "B-dims-2a-512+"
+        with pytest.raises(NotImplementedError, match="float32 takes "
+                           f"head_dim up to 256.*{queue}"):
+            dims.flash_head_dim(d, torch.float32, bwd, backward=True)
+        if d <= 512:
+            assert dims.flash_head_dim(d, torch.float32, what) == 512
+        else:
             with pytest.raises(NotImplementedError, match="float32 takes "
-                               f"head_dim up to 256.*{queue}"):
-                dims.flash_head_dim(d, torch.float32, x)
+                               "head_dim up to 512.*B-dims-2a-512+"):
+                dims.flash_head_dim(d, torch.float32, what)
     else:
         assert dims.flash_head_dim(d, torch.bfloat16, what,
                                    quantized=True) == 256
         assert dims.flash_head_dim(d, torch.float32, what) == 256
+        assert dims.flash_head_dim(d, torch.float32, bwd,
+                                   backward=True) == 256
         assert dims.kernel_head_dim(d, what, wide=True) == 256
     if d > 512:
         for x in (what, bwd):
@@ -110,7 +118,8 @@ def test_in_place_rule_above_128(d):
     want = d if in_place else tile
     assert dims.flash_head_dim(d, torch.bfloat16, what) == want
     assert dims.flash_width(d, True) == (tile if in_place else 0)
-    assert dims.flash_head_dim(d, torch.bfloat16, bwd) == want
+    assert dims.flash_head_dim(d, torch.bfloat16, bwd,
+                               backward=True) == want
     x = torch.zeros(1, 1, 3, d)
     before = dims.pad_head_dim.copies
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.bfloat16, what))

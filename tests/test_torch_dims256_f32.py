@@ -92,13 +92,15 @@ def _ids(b, n, bounds):
 @pytest.mark.parametrize("d", [*range(129, 265), 384, 512, 520])
 def test_f32_rule_above_128(d):
     """f32 takes every head_dim in (128, 256] on the wide instance, padded
-    to 256 where d is not 256 (pad_head_dim counts the copy), and raises
-    above 256 (ROADMAP queue B-dims-2a-f32); so do the quantized forward
-    and FA1 (136 among them, 257 and 264 raising, queue
-    B-dims-2a-quant-v1); the decodes take every head_dim up to 256 with
-    f32 q (256 on its own instances, the others on the run-time width
-    instances of width 256) and raise above, where the append and the
-    decodes with bf16 q take it on the instances of width 512."""
+    to 256 where d is not 256 (pad_head_dim counts the copy); above 256 the
+    f32 forward pads to 512 (its instance of width 512) and the f32
+    backward raises (ROADMAP queue B-dims-2a-f32-train); the quantized
+    forward and FA1 take (128, 256] (136 among them) and raise above (257
+    and 264, queue B-dims-2a-quant-v1); the decodes with f32 q take every
+    head_dim up to 256 on their narrower instances (256 its own, the
+    others the run-time width instances of width 256) and above 256 the
+    instances of width 512, as the append and the decodes with bf16 q do;
+    above 512 everything raises (B-dims-2a-512+)."""
     what = "the CUDA forward kernel"
     # the ROADMAP queue a refusal names: its own up to 512, B-dims-2a-512+
     # above
@@ -115,24 +117,35 @@ def test_f32_rule_above_128(d):
                                    quantized=True) == 256
         assert dims.kernel_head_dim(d, "the CUDA FA1 kernel",
                                     wide=True) == 256
+    bwd = "the CUDA backward kernels"
     if d > 256:
         with pytest.raises(NotImplementedError, match="float32 takes "
                            "head_dim up to 256.*"
-                           + (above or "B-dims-2a-f32")):
-            dims.flash_head_dim(d, torch.float32, what)
-        with pytest.raises(NotImplementedError,
-                           match=above or "float32 q takes head_dim up to "
-                           "256.*B-dims-2a-f32"):
-            dims.decode_q_head_dim(d, torch.float32)
+                           + (above or "B-dims-2a-f32-train")):
+            dims.flash_head_dim(d, torch.float32, bwd, backward=True)
         if d > 512:
-            with pytest.raises(NotImplementedError, match="B-dims-2a-512+"):
-                dims.decode_head_dim(d, "the CUDA append kernel")
+            for call in (
+                    lambda: dims.flash_head_dim(d, torch.float32, what),
+                    lambda: dims.decode_q_head_dim(d, torch.float32),
+                    lambda: dims.decode_head_dim(d,
+                                                 "the CUDA append kernel")):
+                with pytest.raises(NotImplementedError,
+                                   match="up to 512.*B-dims-2a-512+"):
+                    call()
             return
+        assert dims.flash_head_dim(d, torch.float32, what) == 512
+        x = torch.zeros(1, 1, 3, d)
+        before = dims.pad_head_dim.copies
+        y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.float32, what))
+        assert y.shape[-1] == 512
+        assert dims.pad_head_dim.copies == before + (d != 512)
+        dims.decode_q_head_dim(d, torch.float32)
         dims.decode_head_dim(d, "the CUDA append kernel")
         dims.decode_q_head_dim(d, torch.bfloat16)
         assert dims.decode_width(d, 128) == 512
         return
     assert dims.flash_head_dim(d, torch.float32, what) == 256
+    assert dims.flash_head_dim(d, torch.float32, bwd, backward=True) == 256
     x = torch.zeros(1, 1, 3, d)
     before = dims.pad_head_dim.copies
     y = dims.pad_head_dim(x, dims.flash_head_dim(d, torch.float32, what))

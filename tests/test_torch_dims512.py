@@ -9,8 +9,9 @@ separate pages, bf16 q over bf16 and int8 pages, the ring) and the append
 (every page format) on their instances of width 512, which read the pages
 in place; the decode covers a GQA group by row blocks of
 dims.DECODE_TOP_512 q rows. The backward at these head dims is
-tests/test_torch_dims512_train.py's; f32 and the quantized forward stop at
-256 (tests/test_torch_dims.py holds their refusals).
+tests/test_torch_dims512_train.py's, the f32 serving path
+tests/test_torch_dims512_f32.py's; the quantized forward stops at 256
+(tests/test_torch_dims.py holds the refusals).
 
 Here the same numpy inputs, made from a seed, go through the JAX function
 (its Pallas kernels in interpret mode) and through the port: its public

@@ -4,8 +4,9 @@ The JAX package pads any head_dim to whole 128-lane tiles in its backward
 (ops/flash_bwd.py:478-493), so its backward kernels and `jax.grad` through
 its attention take head_dim 384 or 512. The port's bf16 backward reads any
 multiple of 8 in (256, 512] in place on its instance of width 512 and pads
-the others to 512 (ops/dims.py::flash_head_dim); f32 stops at 256
-(tests/test_torch_dims.py holds the refusals).
+the others to 512 (ops/dims.py::flash_head_dim); the f32 backward stops
+at 256, though the f32 forward serves to 512 (tests/test_torch_dims.py
+holds the refusals).
 
 Here the same numpy inputs, made from a seed, go through JAX's backward
 kernels in interpret mode (`flash_attention_bwd` on its fused and its split

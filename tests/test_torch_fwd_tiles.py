@@ -250,14 +250,11 @@ def test_smem_layouts_are_held_to_the_library(quantized):
     """check_smem_layouts passes where the library's sizes are
     fwd_smem_bytes' and raises where one instance's differs."""
     # every tile width, the wide instances' (both sources) included, and
-    # bf16's of width 512 over bf16 K/V
+    # those of width 512 over K/V of q's dtype (bf16 and f32)
     sizes = {(code, d): fwd_smem_bytes(fwd_config(dtype, quantized, d), d,
                                        quantized)
              for dtype, code in ((torch.bfloat16, 0), (torch.float32, 1))
-             for d in (64, 128, 256)}
-    if not quantized:
-        sizes[(0, 512)] = fwd_smem_bytes(fwd_config(torch.bfloat16, False,
-                                                    512), 512)
+             for d in (64, 128, 256, *(() if quantized else (512,)))}
     check_smem_layouts(_Library(sizes), quantized)
     sizes[(0, 64)] += 16
     with pytest.raises(RuntimeError, match="fwd_smem_bytes"):

@@ -74,7 +74,9 @@ def test_kernel_sources_are_found():
     assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_fwd_quant",
                                 "flash_v1", "page_append", "paged_decode",
                                 "paged_decode_f32",
+                                "paged_decode_f32_wide",
                                 "paged_decode_separate",
+                                "paged_decode_separate_f32_wide",
                                 "paged_decode_separate_wide",
                                 "paged_decode_separate_widths",
                                 "paged_decode_wide",

@@ -4,9 +4,10 @@
 // XOR-swizzled by row % 8, so that cp.async copies land unchanged and the
 // strided float4 reads of the products are free of bank conflicts; the
 // score product (RW x CW outputs a thread: 8 x 4, or 4 x 2 on the head_dim
-// 256 instances' smaller tiles) and the accumulating product (RW x C / 16
-// outputs a thread), both fed by 16-byte shared-memory reads;
-// and the work lists that cut each tile's range into runs.
+// 256 instances' smaller tiles, 4 x 1 on the forward's of width 512) and
+// the accumulating product (RW x C / G outputs a thread, G the threads
+// along a row: 16, or 32 at width 512), both fed by 16-byte shared-memory
+// reads; and the work lists that cut each tile's range into runs.
 
 #pragma once
 
@@ -45,12 +46,12 @@ __device__ __forceinline__ void stage_row(void* dst, const void* g, int r0,
             static_cast<const int*>(g) + (ok ? r0 + lane : 0), ok);
 }
 
-// acc[k][i] = sum_d R[RW a + k][d] * C[g + 16 i][d] over the head dim (RW
+// acc[k][i] = sum_d R[RW a + k][d] * C[g + G i][d] over the head dim (RW
 // rows, CW columns a thread), each operand times its scale where SR / SC
 // (the q fold, rounded per element as the plain version rounds q * c): R's
-// rows are read as float4s that the warp's 16 threads of one `a` share, C's
-// as float4s of 16 rows.
-template <int D, int RW, int CW, bool SR, bool SC>
+// rows are read as float4s that the warp's G threads of one `a` share, C's
+// as float4s of G rows.
+template <int D, int RW, int CW, bool SR, bool SC, int G = 16>
 __device__ __forceinline__ void score_tile(float (&acc)[RW][CW],
                                            const float* R, const float* C,
                                            float scale, int a, int g) {
@@ -63,7 +64,7 @@ __device__ __forceinline__ void score_tile(float (&acc)[RW][CW],
     float4 cv[CW];
 #pragma unroll
     for (int i = 0; i < CW; ++i) {
-      cv[i] = *reinterpret_cast<const float4*>(C + sw<D>(g + 16 * i, c));
+      cv[i] = *reinterpret_cast<const float4*>(C + sw<D>(g + G * i, c));
       if (SC) {
         cv[i].x *= scale; cv[i].y *= scale;
         cv[i].z *= scale; cv[i].w *= scale;
@@ -87,16 +88,16 @@ __device__ __forceinline__ void score_tile(float (&acc)[RW][CW],
   }
 }
 
-// acc[k][j] += sum_x A[x][RW * a + k] * B[x][4 (e + 16 (j / 4)) + j % 4]
+// acc[k][j] += sum_x A[x][RW * a + k] * B[x][4 (e + G (j / 4)) + j % 4]
 // over the X rows x of both: A an X x AW score tile, B an X x C slice of a
 // tile of W-wide rows (W = C, or a column part of a wider tile: B then
 // points at its first column, a multiple of 32); this thread's RW rows of
-// A's columns, its C / 16 columns of B in chunks e + 16 c
-template <int C, int RW, int AW, int X = 64, int W = C>
-__device__ __forceinline__ void accumulate(float (&acc)[RW][C / 16],
+// A's columns, its C / G columns of B in chunks e + G c
+template <int C, int RW, int AW, int X = 64, int W = C, int G = 16>
+__device__ __forceinline__ void accumulate(float (&acc)[RW][C / G],
                                            const float* A, const float* B,
                                            int a, int e) {
-  constexpr int NC = C / 64;                     // B chunks a thread
+  constexpr int NC = C / (4 * G);                // B chunks a thread
 #pragma unroll 4
   for (int x = 0; x < X; ++x) {
     float av[RW];
@@ -110,7 +111,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[RW][C / 16],
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const float4 b4 = *reinterpret_cast<const float4*>(
-          B + sw<W>(x, 4 * (e + 16 * cc)));
+          B + sw<W>(x, 4 * (e + G * cc)));
 #pragma unroll
       for (int k = 0; k < RW; ++k) {
         acc[k][4 * cc] = fmaf(av[k], b4.x, acc[k][4 * cc]);

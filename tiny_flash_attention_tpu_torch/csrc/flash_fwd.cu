@@ -20,12 +20,14 @@
 // its true width by the instance flash_width(head_dim, narrow) picks
 // (hopper.cuh: 64, 80, 96, 128, 256 or 512; narrow 0 takes 64, 128, 256 or
 // 512); f32
-// 64, 128 or 256 (the wide instance's tiles, F32Tiles<256>). q_seg,
+// 64, 128, 256 or 512 (the wide instance's tiles, F32Tiles<256>, and those
+// of width 512, F32Tiles<512>: head dims 257-512 padded to 512). q_seg,
 // kv_seg, tile_lo, tile_order and seq_lens may each be null (FwdMasks);
 // tile_lo and tile_order hold one int per q tile of the bf16 instance's
 // tiles (the wide instance's kv tiles are 64 rows, the 512 instance's q
-// tiles 64 and kv tiles 32: their tile_lo counts those; the f32 instance takes neither: its work list holds the pruned
-// ranges and their order). work,
+// tiles 64 and kv tiles 32: their tile_lo counts those; the f32
+// instances take neither: their work lists hold the pruned ranges and
+// their order). work,
 // n_items, partials, arrivals: the f32 instance's runs and merge workspace
 // (F32Runs in flash_fwd.cuh; ops/flash.py::fwd_f32_work), unused in bf16.
 // window: 0 for none, else >= 1 with causal and without seq_lens. The
@@ -81,14 +83,14 @@ extern "C" int tfa_flash_fwd(const void* q, const void* k, const void* v,
     case 64: return launch(std::integral_constant<int, 64>());
     case 128: return launch(std::integral_constant<int, 128>());
     case 256: return launch(std::integral_constant<int, 256>());
+    case 512: return launch(std::integral_constant<int, 512>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The dynamic shared memory one block of the instance for dtype (0 bf16,
-// 1 f32) and head_dim (64, 128 or 256: the tiles' columns, which the bf16
-// instances of width 80 and 96 share with 128; bf16 also 512) takes; -1 for
-// any
+// 1 f32) and head_dim (64, 128, 256 or 512: the tiles' columns, which the
+// bf16 instances of width 80 and 96 share with 128) takes; -1 for any
 // other. ops/flash.py holds ops/configs.py::fwd_smem_bytes to it when it
 // loads this library.
 extern "C" int tfa_flash_fwd_smem(int dtype, int head_dim) {
@@ -96,6 +98,7 @@ extern "C" int tfa_flash_fwd_smem(int dtype, int head_dim) {
   if (dtype == 0 && head_dim == 256) return FwdSmem<256, false>::ALLOC;
   if (dtype == 0 && head_dim == 128) return FwdSmem<128, false>::ALLOC;
   if (dtype == 0 && head_dim == 64) return FwdSmem<64, false>::ALLOC;
+  if (dtype == 1 && head_dim == 512) return f32_smem_bytes<512, kNone>();
   if (dtype == 1 && head_dim == 256) return f32_smem_bytes<256, kNone>();
   if (dtype == 1 && head_dim == 128) return f32_smem_bytes<128, kNone>();
   if (dtype == 1 && head_dim == 64) return f32_smem_bytes<64, kNone>();

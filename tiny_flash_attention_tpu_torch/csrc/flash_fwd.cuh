@@ -199,6 +199,15 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 //     4 rows x 2 columns and O at 4 rows x 16 columns a thread (64
 //     registers, as at 128): a 128-row q tile alone would be 128 KiB and
 //     two 64-row K/V stages 256 KiB, over the block's 227 KB.
+//   * head_dim 512 (the instance of width 512, F32Tiles<512>, f32 K/V
+//     only): q and kv tiles of 32 rows, the threads 8 x 32 over the 32 x 32
+//     score tile (thread (a, g) = (tid / 32, tid % 32)): S at 4 rows x 1
+//     column and O at 4 rows x 16 columns (chunks g + 32 c) a thread, 64
+//     registers again, a row's max and sum over its warp. A 64-row q tile
+//     would be 128 KiB and two stages of 32-row K and V 256 KiB, so K and
+//     V have one buffer each, released apart (APART): K of tile t + 1 is
+//     copied while the softmax and PV product of tile t run, V of tile
+//     t + 1 while the S product of tile t + 1 runs, four barriers a step.
 //   * K and V stream through a two-stage ring: tile t + 1's copies
 //     (cp.async) are issued as tile t's products start and waited for at
 //     the top of step t + 1, two barriers a step. Quantized, tile t + 1's
@@ -206,46 +215,60 @@ __device__ __forceinline__ float4 payload4_f32(uint32_t w) {
 //     converted into the free stage after its PV product; the ids and
 //     scales ride the ring by cp.async.
 //   * shared memory (F32Layout): q (scaled by scale_log2 in place once it
-//     lands), two K/V stages, P^T, and each stage's ids (quantized, its k
-//     and v scales): 229,888 bytes at head_dim 128 (230,912 quantized),
-//     205,056 at 256, one block an SM.
+//     lands), two K/V stages (one K and one V buffer at 512), P^T, and each
+//     stage's ids (quantized, its k and v scales): 229,888 bytes at
+//     head_dim 128 (230,912 quantized), 205,056 at 256, 200,832 at 512, one
+//     block an SM.
 
 #if !defined(TFA_FWD_F32_WIDE_BLOCK_M) || !defined(TFA_FWD_F32_WIDE_BLOCK_N) || \
-    !defined(TFA_FWD_F32_WIDE_THREADS)
+    !defined(TFA_FWD_F32_WIDE_THREADS) || !defined(TFA_FWD_F32_512_BLOCK_M) || \
+    !defined(TFA_FWD_F32_512_BLOCK_N) || !defined(TFA_FWD_F32_512_THREADS)
 #error "tile sizes are passed by the build (ops/configs.py)"
 #endif
 
 constexpr int FTHREADS = TFA_FWD_F32_THREADS;
-static_assert(FTHREADS == 256 && TFA_FWD_F32_WIDE_THREADS == FTHREADS,
-              "the f32 thread map is 16 x 16 threads");
+static_assert(FTHREADS == 256 && TFA_FWD_F32_WIDE_THREADS == FTHREADS &&
+                  TFA_FWD_F32_512_THREADS == FTHREADS,
+              "the f32 thread maps are 16 x 16 and 8 x 32 threads");
 
-// The f32 tiles at head_dim D: FM q rows and FN kv rows (FLASH_FWD_F32, or
-// FLASH_FWD_F32_WIDE above 128); thread t owns rows RW (t / 16) + [0, RW)
-// and columns t % 16 + 16 * [0, CW).
+// The f32 tiles at head_dim D: FM q rows and FN kv rows (FLASH_FWD_F32,
+// FLASH_FWD_F32_WIDE above 128, FLASH_FWD_F32_512 above 256); thread t
+// owns rows RW (t / G) + [0, RW) and columns t % G + G * [0, CW) of the
+// score tile, G threads along a row (16, 32 at 512); at 512 K and V have
+// one buffer each, released apart (APART), else two stages.
 template <int D>
 struct F32Tiles {
   static constexpr bool WIDE = D > 128;
-  static constexpr int FM =
-      WIDE ? TFA_FWD_F32_WIDE_BLOCK_M : TFA_FWD_F32_BLOCK_M;
-  static constexpr int FN =
-      WIDE ? TFA_FWD_F32_WIDE_BLOCK_N : TFA_FWD_F32_BLOCK_N;
-  static constexpr int RW = FM / 16, CW = FN / 16;
-  static_assert(WIDE ? FM == 64 && FN == 32 : FM == 128 && FN == 64,
-                "16 x 16 threads over a 128 x 64 (or, wide, 64 x 32) tile");
+  static constexpr bool APART = D > 256;
+  static constexpr int FM = APART  ? TFA_FWD_F32_512_BLOCK_M
+                            : WIDE ? TFA_FWD_F32_WIDE_BLOCK_M
+                                   : TFA_FWD_F32_BLOCK_M;
+  static constexpr int FN = APART  ? TFA_FWD_F32_512_BLOCK_N
+                            : WIDE ? TFA_FWD_F32_WIDE_BLOCK_N
+                                   : TFA_FWD_F32_BLOCK_N;
+  static constexpr int G = APART ? 32 : 16;
+  static constexpr int RW = FM / (FTHREADS / G), CW = FN / G;
+  static constexpr int STAGES = APART ? 1 : 2;
+  static_assert(APART  ? FM == 32 && FN == 32
+                : WIDE ? FM == 64 && FN == 32
+                       : FM == 128 && FN == 64,
+                "16 x 16 threads over a 128 x 64 (or, wide, 64 x 32) tile, "
+                "8 x 32 over a 32 x 32 tile at 512");
 };
 
-// The f32 body's shared memory, in floats: q [FM][D], two stages of K and
-// V [FN][D], P^T [FN][FM], and each stage's rows [ROWS][FN] (kv ids;
+// The f32 body's shared memory, in floats: q [FM][D], STAGES stages of K
+// and V [FN][D], P^T [FN][FM], and each stage's rows [ROWS][FN] (kv ids;
 // quantized, also the k and v scales).
 template <int D, int FMT>
 struct F32Layout {
   static constexpr int FM = F32Tiles<D>::FM, FN = F32Tiles<D>::FN;
+  static constexpr int STAGES = F32Tiles<D>::STAGES;
   static constexpr int ROWS = FMT == kNone ? 1 : 3;
   static constexpr int Q = 0;
   static constexpr int KV = FM * D;
-  static constexpr int PT = KV + 4 * FN * D;
+  static constexpr int PT = KV + 2 * STAGES * FN * D;
   static constexpr int ROWS_AT = PT + FN * FM;
-  static constexpr int BYTES = (ROWS_AT + 2 * ROWS * FN) * 4;
+  static constexpr int BYTES = (ROWS_AT + STAGES * ROWS * FN) * 4;
   // and one static int: the merge's arrival flag
   static_assert(BYTES + 4 <= 232448, "a block has 227 KB of shared memory");
 };
@@ -283,6 +306,9 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   constexpr int C4 = D / 4, C16 = D / 16;        // 16-byte chunks a row
   constexpr int FM = F32Tiles<D>::FM, FN = F32Tiles<D>::FN;
   constexpr int RW = F32Tiles<D>::RW, CW = F32Tiles<D>::CW;
+  constexpr int G = F32Tiles<D>::G, NO = D / G;  // O columns a thread
+  constexpr bool APART = F32Tiles<D>::APART;
+  static_assert(!APART || !QUANT, "width 512 takes f32 K/V only");
   using L = F32Layout<D, FMT>;
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm + L::Q;
@@ -299,7 +325,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
   const int kvh = h / (hq / hkv);
   const int tile = wk.tile[item], q0 = tile * FM;
   const int first = wk.first[tile], n_runs = wk.first[tile + 1] - first;
-  const int tid = threadIdx.x, a = tid / 16, g = tid % 16;
+  const int tid = threadIdx.x, a = tid / G, g = tid % G;
   const int offset = kv_len - q_len;
   const float* qg = q + (size_t)bh * q_len * D;
   const auto* kg = k + (size_t)(b * hkv + kvh) * kv_len * D;
@@ -328,21 +354,35 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     }
   }
 
-  // tile `it` of the run into stage it % 2 by cp.async: f32 K and V, the
-  // kv ids, quantized the k and v scales (the payloads go by registers)
-  auto stage_kv = [&](int it) {
-    const int kv0 = (lo + it) * FN;
-    float* rw = rows(it & 1);
+  // tile `it` of the run into stage it % STAGES by cp.async: f32 K (with
+  // the kv ids) and V, apart at 512; quantized the k and v scales (the
+  // payloads go by registers)
+  auto stage_k = [&](int it) {
     if constexpr (!QUANT) {
-      stage_tile<D, FN, FTHREADS>(kst(it & 1), kg, kv0, kv_len, tid);
-      stage_tile<D, FN, FTHREADS>(vst(it & 1), vg, kv0, kv_len, tid);
+      const int kv0 = (lo + it) * FN;
+      stage_tile<D, FN, FTHREADS>(kst(it % L::STAGES), kg, kv0, kv_len, tid);
+      if (segs && tid < FN)
+        stage_row(rows(it % L::STAGES), kv_ids, kv0, kv_len, tid);
+    }
+  };
+  auto stage_v = [&](int it) {
+    if constexpr (!QUANT)
+      stage_tile<D, FN, FTHREADS>(vst(it % L::STAGES), vg, (lo + it) * FN,
+                                  kv_len, tid);
+  };
+  auto stage_kv = [&](int it) {
+    if constexpr (!QUANT) {
+      stage_k(it);
+      stage_v(it);
     } else {
+      const int kv0 = (lo + it) * FN;
+      float* rw = rows(it & 1);
       if (tid >= FN && tid < 2 * FN)
         stage_row(rw + FN, sc.k + scale_head, kv0, kv_len, tid - FN);
       else if (tid >= 2 * FN && tid < 3 * FN)
         stage_row(rw + 2 * FN, sc.v + scale_head, kv0, kv_len, tid - 2 * FN);
+      if (segs && tid < FN) stage_row(rw, kv_ids, kv0, kv_len, tid);
     }
-    if (segs && tid < FN) stage_row(rw, kv_ids, kv0, kv_len, tid);
   };
   // quantized: tile `it`'s K and V payload rows into registers (rows past
   // kv_len as zeros), 16 bytes at a time; then, converted to f32, into a
@@ -383,27 +423,41 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     }
   };
 
+  // cp.async groups: two-stage, one a tile (q rides the first); APART,
+  // one for K and one for V of each tile (q rides K's first), committed
+  // even when empty, so that the wait for the group before the newest is
+  // always K (at the top of a step) or V (before its PV product)
   stage_tile<D, FM, FTHREADS>(qs, qg, q0, q_len, tid);
-  if (n > 0) stage_kv(0);
-  cp_async_commit();
+  if constexpr (APART) {
+    if (n > 0) stage_k(0);
+    cp_async_commit();
+    if (n > 0) stage_v(0);
+    cp_async_commit();
+  } else {
+    if (n > 0) stage_kv(0);
+    cp_async_commit();
+  }
   if (n > 0) {       // quantized: the first tile's payloads at once
     load_payload(0);
     store_payload(0);
   }
 
-  float acc[RW][D / 16];
+  float acc[RW][NO];
   float m_run[RW], l_run[RW];
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NO; ++c) acc[i][c] = 0.f;
   }
 
   for (int it = 0; it < n; ++it) {
-    const int st = it & 1, kv0 = (lo + it) * FN;
-    cp_async_wait<0>();
+    const int st = it % L::STAGES, kv0 = (lo + it) * FN;
+    if constexpr (APART)
+      cp_async_wait<1>();  // K of tile it (V's group may be in flight)
+    else
+      cp_async_wait<0>();
     if (it == 0) {   // the fold, on the q chunks this thread copied
       for (int x = tid; x < FM * C4; x += FTHREADS) {
         float4* p = reinterpret_cast<float4*>(qs + sw<D>(x / C4, x % C4 * 4));
@@ -415,7 +469,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     }
     __syncthreads();   // tile it and q landed for all; P^T and the other
                        // stage are no longer read
-    if (it + 1 < n) {  // tile it + 1 lands while this step runs
+    if (!APART && it + 1 < n) {  // tile it + 1 lands while this step runs
       stage_kv(it + 1);
       cp_async_commit();
       load_payload(it + 1);
@@ -423,11 +477,11 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     const float* rw = rows(st);
 
     float s[RW][CW];
-    score_tile<D, RW, CW, false, false>(s, qs, kst(st), 1.f, a, g);
+    score_tile<D, RW, CW, false, false, G>(s, qs, kst(st), 1.f, a, g);
     if constexpr (QUANT) {  // s *= kscale of its column, before the mask
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
-        const float f = rw[FN + g + 16 * j];
+        const float f = rw[FN + g + G * j];
 #pragma unroll
         for (int i = 0; i < RW; ++i) s[i][j] *= f;
       }
@@ -440,13 +494,18 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       for (int i = 0; i < RW; ++i)
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
-          const int col = kv0 + g + 16 * j, row = q0 + RW * a + i;
+          const int col = kv0 + g + G * j, row = q0 + RW * a + i;
           const bool ok = col < col_end && row < row_end &&
                           (!causal || col <= row + offset) &&
                           (!WINDOW || col > row + offset - window) &&
-                          (!segs || qid[i] == kid[g + 16 * j]);
+                          (!segs || qid[i] == kid[g + G * j]);
           if (!ok) s[i][j] = kMaskValue;
         }
+    }
+    if constexpr (APART) {  // K and the ids of tile it are read: tile it + 1's
+      __syncthreads();
+      if (it + 1 < n) stage_k(it + 1);
+      cp_async_commit();
     }
 
 #pragma unroll
@@ -455,7 +514,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
 #pragma unroll
       for (int j = 0; j < CW; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1)
+      for (int w = 1; w < G; w <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
       const float alpha = exp2f(m_run[i] - mx);
       const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
@@ -465,22 +524,28 @@ __global__ void __launch_bounds__(FTHREADS, 1)
         const float p = exp2f(s[i][j] - mx) * keep;
         rs += p;
         // quantized: l sums the bare p, PV takes p * vscale of its column
-        s[i][j] = QUANT ? p * rw[2 * FN + g + 16 * j] : p;
+        s[i][j] = QUANT ? p * rw[2 * FN + g + G * j] : p;
       }
       l_run[i] = alpha * l_run[i] + rs;
       m_run[i] = mx;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NO; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < CW; ++j)
 #pragma unroll
       for (int h = 0; h < RW / 4; ++h)
-        *reinterpret_cast<float4*>(pt + sw<FM>(g + 16 * j, RW * a + 4 * h)) =
+        *reinterpret_cast<float4*>(pt + sw<FM>(g + G * j, RW * a + 4 * h)) =
             make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
                         s[4 * h + 3][j]);
-    __syncthreads();   // P^T written
-    accumulate<D, RW, FM, FN>(acc, pt, vst(st), a, g);
+    if constexpr (APART) cp_async_wait<1>();  // V of tile it
+    __syncthreads();   // P^T written (APART: V of tile it landed for all)
+    accumulate<D, RW, FM, FN, D, G>(acc, pt, vst(st), a, g);
+    if constexpr (APART) {  // V and P^T of tile it are read: tile it + 1's V
+      __syncthreads();
+      if (it + 1 < n) stage_v(it + 1);
+      cp_async_commit();
+    }
     if (it + 1 < n) store_payload((it + 1) & 1);
   }
   cp_async_wait<0>();  // a run of no tiles: q still in flight
@@ -488,7 +553,7 @@ __global__ void __launch_bounds__(FTHREADS, 1)
 #pragma unroll
   for (int i = 0; i < RW; ++i)
 #pragma unroll
-    for (int w = 1; w < 16; w <<= 1)
+    for (int w = 1; w < G; w <<= 1)
       l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], w);
 
   // a tile of several runs: the partial into this run's slot (a tile's
@@ -506,8 +571,8 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     for (int i = 0; i < RW; ++i) {
       const int r = RW * a + i;
 #pragma unroll
-      for (int cc = 0; cc < D / 64; ++cc)
-        *reinterpret_cast<float4*>(part + r * D + 4 * (g + 16 * cc)) =
+      for (int cc = 0; cc < NO / 4; ++cc)
+        *reinterpret_cast<float4*>(part + r * D + 4 * (g + G * cc)) =
             make_float4(acc[i][4 * cc], acc[i][4 * cc + 1],
                         acc[i][4 * cc + 2], acc[i][4 * cc + 3]);
       if (g == 0) {
@@ -538,22 +603,22 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     float mx = m_run[i];
     for (int x = 0; x < n_runs; ++x)
       if (x != own) mx = fmaxf(mx, __ldcg(slot(first + x) + FM * D + r));
-    float den = 0.f, num[D / 16];
+    float den = 0.f, num[NO];
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) num[c] = 0.f;
+    for (int c = 0; c < NO; ++c) num[c] = 0.f;
     for (int x = 0; x < n_runs; ++x) {
-      float m_x = m_run[i], l_x = l_run[i], o_x[D / 16];
+      float m_x = m_run[i], l_x = l_run[i], o_x[NO];
       if (x == own) {
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) o_x[c] = acc[i][c];
+        for (int c = 0; c < NO; ++c) o_x[c] = acc[i][c];
       } else {
         const float* part = slot(first + x);
         m_x = __ldcg(part + FM * D + r);
         l_x = __ldcg(part + FM * D + FM + r);
 #pragma unroll
-        for (int cc = 0; cc < D / 64; ++cc) {
+        for (int cc = 0; cc < NO / 4; ++cc) {
           const float4 y = __ldcg(reinterpret_cast<const float4*>(
-              part + r * D + 4 * (g + 16 * cc)));
+              part + r * D + 4 * (g + G * cc)));
           o_x[4 * cc] = y.x; o_x[4 * cc + 1] = y.y;
           o_x[4 * cc + 2] = y.z; o_x[4 * cc + 3] = y.w;
         }
@@ -561,14 +626,14 @@ __global__ void __launch_bounds__(FTHREADS, 1)
       const float w = m_x == -INFINITY ? 0.f : exp2f(m_x - mx);
       den += l_x * w;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) num[c] += o_x[c] * w;
+      for (int c = 0; c < NO; ++c) num[c] += o_x[c] * w;
     }
     const int row = q0 + r;
     if (row < q_len) {
       const float l_safe = (den == 0.f || den != den) ? 1.f : den;
 #pragma unroll
-      for (int cc = 0; cc < D / 64; ++cc)
-        *reinterpret_cast<float4*>(og + (size_t)row * D + 4 * (g + 16 * cc)) =
+      for (int cc = 0; cc < NO / 4; ++cc)
+        *reinterpret_cast<float4*>(og + (size_t)row * D + 4 * (g + G * cc)) =
             make_float4(num[4 * cc] / l_safe, num[4 * cc + 1] / l_safe,
                         num[4 * cc + 2] / l_safe, num[4 * cc + 3] / l_safe);
       if (g == 0) lg[row] = fmaxf(mx, kMaskValue) * kLn2 + logf(l_safe);

@@ -97,16 +97,21 @@
 // from L2.
 //
 // Head dims in (256, 512] (paged_decode_wide.cu, paged_decode_separate_
-// wide.cu; bf16 q over bf16 and int8 pages) run on instances of width 512:
-// compiled at 512 (page size 16 or a multiple of 32) and at run time for
-// every other d and page size, as below. A warp's 32-token bf16 stage is
-// then 64 KiB and its two int8 stages 66,048 bytes, so a block takes
-// TFA_DECODE_512_WARPS warps (`decode_warps`); each lane scores 64
-// elements of a row in eight (int8: four) 16-byte pieces and owns 16
-// contiguous output columns, so a q row costs it 16 PV accumulators and 8
-// scores, and the group's q stays in shared memory above G = 1. The
-// groups the wrapper covers with row blocks stop lower there
-// (ops/dims.py::DECODE_TOP_512, from the ptxas spill report).
+// wide.cu: bf16 q over bf16 and int8 pages; paged_decode_f32_wide.cu,
+// paged_decode_separate_f32_wide.cu: f32 q over f32 and int8 pages) run on
+// instances of width 512: compiled at 512 (page size 16 or a multiple of
+// 32) and at run time for every other d and page size, as below. A warp's
+// 32-token bf16 stage is then 64 KiB and its two int8 stages 66,048 bytes,
+// so a block takes TFA_DECODE_512_WARPS warps (`decode_warps`); each lane
+// scores 64 elements of a row in eight (int8: four; f32: sixteen) 16-byte
+// pieces and owns 16 contiguous output columns, so a q row costs it 16 PV
+// accumulators and 8 scores, and the group's q stays in shared memory
+// above G = 1. A 32-token stage of f32 pages would be 128 KiB a warp
+// there, so f32 pages are walked in chunks of 16 tokens (`decode_chunk`):
+// a 64 KiB stage, 3 warps a block as for bf16 pages, each chunk scored in
+// four steps of 4 tokens. The groups the wrapper covers with row blocks
+// stop lower there (ops/dims.py::DECODE_TOP_512, from the ptxas spill
+// report).
 //
 // Every other head_dim in [1, 256] and page size (the JAX package takes
 // any page size; pages are the cache and are never padded) runs on the
@@ -143,14 +148,21 @@ namespace {
 // Warps a block: TFA_DECODE_WARPS, or TFA_DECODE_F32_WIDE_WARPS over f32
 // pages at head_dim 256, whose 32-token stage is 64 KiB a warp (four would
 // need 256 KiB of rings), or TFA_DECODE_512_WARPS at width 512 (a bf16
-// stage of 64 KiB, two int8 stages of 66,048 bytes)
+// stage of 64 KiB, two int8 stages of 66,048 bytes, a 16-token f32 stage
+// of 64 KiB)
 template <typename P, int D>
 __host__ __device__ constexpr int decode_warps() {
   return D > 256                       ? TFA_DECODE_512_WARPS
          : sizeof(P) == 4 && D > 128 ? TFA_DECODE_F32_WIDE_WARPS
                                        : TFA_DECODE_WARPS;
 }
-constexpr int CHUNK = 32;  // tokens per warp step
+// Tokens a warp step: 32, or 16 over f32 pages above 256, whose 32-token
+// stage of K and V would be 128 KiB a warp (int8 pages keep 32: their
+// scale rows are laid out in 32-token groups)
+template <typename P, int D>
+__host__ __device__ constexpr int decode_chunk() {
+  return sizeof(P) == 4 && D > 256 ? 16 : 32;
+}
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -378,7 +390,8 @@ __host__ __device__ constexpr int decode_stages() {
 
 template <typename P, int D>
 __host__ __device__ constexpr int decode_stage_bytes() {
-  return 2 * CHUNK * D * (int)sizeof(P) + (sizeof(P) == 1 ? 256 : 0);
+  return 2 * decode_chunk<P, D>() * D * (int)sizeof(P) +
+         (sizeof(P) == 1 ? 256 : 0);
 }
 
 // Dynamic shared memory of one block: the warps' rings, q in the lanes'
@@ -388,7 +401,8 @@ template <typename P, int D, int G>
 __host__ __device__ constexpr int decode_smem_bytes() {
   constexpr int WARPS = decode_warps<P, D>();
   return WARPS * decode_stages<P>() * decode_stage_bytes<P, D>() +
-         G * D * 4 + WARPS * CHUNK * G * 4 + WARPS * decode_stages<P>() * 8;
+         G * D * 4 + WARPS * decode_chunk<P, D>() * G * 4 +
+         WARPS * decode_stages<P>() * 8;
 }
 
 // T: q and out dtype; P: page element type (T, or int8_t for int8 pages);
@@ -409,6 +423,9 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
   constexpr int WARPS = decode_warps<P, D>();
   constexpr int STAGES = decode_stages<P>();
   constexpr int SB = decode_stage_bytes<P, D>();
+  constexpr int CHUNK = decode_chunk<P, D>();  // tokens a chunk
+  constexpr int STEPS = CHUNK / 4;             // scoring steps a chunk
+  static_assert(CHUNK == 32 || !QUANT, "int8 scale rows of 32 tokens");
   constexpr bool STRIDED = D % 64 != 0;      // PV columns lane + 32 e
   constexpr int E = (D + 31) / 32;           // PV: output elements a lane
   constexpr int LE = D / 8;                  // elements a lane scores
@@ -632,9 +649,9 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     }
 
     // scores, 4 tokens a step
-    float s[8][G];
+    float s[STEPS][G];
 #pragma unroll
-    for (int stp = 0; stp < 8; ++stp) {
+    for (int stp = 0; stp < STEPS; ++stp) {
       const int tt = 4 * stp + j;
       const unsigned char* krow =
           reinterpret_cast<const unsigned char*>(ks + tt * D);
@@ -679,15 +696,15 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
 
     // the online softmax over the chunk; s becomes p, rounded to T (int8:
     // times the token's V scale)
-    float vsc[8];
+    float vsc[STEPS];
 #pragma unroll
-    for (int stp = 0; stp < 8; ++stp)
+    for (int stp = 0; stp < STEPS; ++stp)
       vsc[stp] = QUANT ? __shfl_sync(0xffffffffu, vscale, 4 * stp + j) : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = s[0][g];
 #pragma unroll
-      for (int stp = 1; stp < 8; ++stp) mx = fmaxf(mx, s[stp][g]);
+      for (int stp = 1; stp < STEPS; ++stp) mx = fmaxf(mx, s[stp][g]);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
       mx = fmaxf(mx, m_run[g]);
@@ -695,7 +712,7 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
       const float keep = mx > 0.5f * kMaskValue ? 1.f : 0.f;
       float psum = 0.f;
 #pragma unroll
-      for (int stp = 0; stp < 8; ++stp) {
+      for (int stp = 0; stp < STEPS; ++stp) {
         const float pf = exp2f(s[stp][g] - mx) * keep;
         psum += pf;
         s[stp][g] = round_to<T>(QUANT ? pf * vsc[stp] : pf);
@@ -709,7 +726,7 @@ __global__ void __launch_bounds__(decode_warps<P, D>() * 32)
     }
     if (i == 0) {  // token 4 stp + j's p, for the whole warp
 #pragma unroll
-      for (int stp = 0; stp < 8; ++stp)
+      for (int stp = 0; stp < STEPS; ++stp)
 #pragma unroll
         for (int g = 0; g < G; ++g) pw[(4 * stp + j) * G + g] = s[stp][g];
     }
@@ -1019,9 +1036,10 @@ cudaError_t fused_decode(const void* q, const void* pages,
 
 // One launch over separate K and V page arrays (q of type T: 0 bf16, 1
 // f32; pages of q's type, or int8 with f32 scales), on the compiled widths
-// or (WIDTHS) the run-time width instances, up to 256 or (WIDE, bf16 q
-// only) at width 512; a cudaError_t.
-template <bool WIDTHS, bool WIDE = false>
+// or (WIDTHS) the run-time width instances, up to 256 or (WIDE) at width
+// 512; q of either type, or of QDTYPE only where it is 0 or 1 (each
+// width-512 source instantiates one); a cudaError_t.
+template <bool WIDTHS, bool WIDE = false, int QDTYPE = -1>
 cudaError_t separate_decode(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* lengths, const void* page_indices,
@@ -1033,7 +1051,7 @@ cudaError_t separate_decode(
                               pages_per_seq, splits, pages_per_split, ws,
                               arrivals) ||
       (quantized && (k_scales == nullptr || v_scales == nullptr)) ||
-      dtype < 0 || dtype > (WIDE ? 0 : 1))
+      dtype < 0 || dtype > 1 || (QDTYPE >= 0 && dtype != QDTYPE))
     return cudaErrorInvalidValue;
   const int group = hq / (hkv * qblocks);
   const auto launch = [&](auto types) {
@@ -1052,13 +1070,16 @@ cudaError_t separate_decode(
           qblocks, 0, scale_log2, stream);
     });
   };
-  if (dtype == 0)
-    return quantized ? launch(DecodeTypes<__nv_bfloat16, int8_t>())
-                     : launch(DecodeTypes<__nv_bfloat16, __nv_bfloat16>());
-  if constexpr (WIDE) return cudaErrorInvalidValue;
-  else
+  if constexpr (QDTYPE != 1) {
+    if (dtype == 0)
+      return quantized ? launch(DecodeTypes<__nv_bfloat16, int8_t>())
+                       : launch(DecodeTypes<__nv_bfloat16, __nv_bfloat16>());
+  }
+  if constexpr (QDTYPE != 0)
     return quantized ? launch(DecodeTypes<float, int8_t>())
                      : launch(DecodeTypes<float, float>());
+  else
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace

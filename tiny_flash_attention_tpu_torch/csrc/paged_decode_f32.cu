@@ -13,7 +13,7 @@
 
 // tfa_paged_decode's contract (paged_decode.cu) for dtype 1: f32 q and out,
 // over f32 pages (quantized 0) or int8 pages (quantized 1), head_dim 64,
-// 80, 96, 128 or 256.
+// 80, 96, 128 or 256 (above 256: paged_decode_f32_wide.cu).
 extern "C" int tfa_paged_decode_f32(const void* q, const void* pages,
                                     const void* lengths,
                                     const void* page_indices, int pi_stride,

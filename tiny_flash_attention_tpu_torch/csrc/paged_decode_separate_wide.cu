@@ -2,7 +2,8 @@
 // Hopper (sm_90a), at head dims in (256, 512]: bf16 q over bf16 pages and
 // over int8 pages with f32 scales, on instances of width 512 (head_dim 512
 // at page size 16 or a multiple of 32 compiled, every other head_dim and
-// page size at run time); a source of its own, built beside the others.
+// page size at run time); a source of its own, built beside the others
+// (f32 q: paged_decode_separate_f32_wide.cu).
 //
 // Replaces tiny_flash_attention_tpu/ops/paged.py::paged_decode_attention
 // (_paged_decode_kernel) above head_dim 256, on B4's template
@@ -21,7 +22,7 @@ extern "C" int tfa_paged_decode_separate_wide(
     int hkv, int qblocks, int num_pages, int page_size, int head_dim,
     float scale_log2, int dtype, int quantized, void* stream) {
   const auto launch = [&](auto widths) {
-    return (int)separate_decode<decltype(widths)::value, true>(
+    return (int)separate_decode<decltype(widths)::value, true, 0>(
         q, k, v, k_scales, v_scales, lengths, page_indices, pi_stride,
         pages_per_seq, splits, pages_per_split, out, lse, ws, arrivals,
         batch, hq, hkv, qblocks, num_pages, page_size, head_dim, scale_log2,

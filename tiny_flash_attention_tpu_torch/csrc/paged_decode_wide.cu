@@ -2,7 +2,8 @@
 // at head dims in (256, 512]: bf16 q over bf16 pages and over int8 pages,
 // on instances of width 512 (head_dim 512 at page size 16 or a multiple of
 // 32 compiled, every other head_dim and page size at run time); a source of
-// its own, so that nvcc builds it beside the narrower sources.
+// its own, so that nvcc builds it beside the narrower sources (f32 q:
+// paged_decode_f32_wide.cu).
 //
 // Replaces tiny_flash_attention_tpu/ops/paged_fused.py::
 // fused_paged_decode_attention (_fused_decode_kernel) above head_dim 256,

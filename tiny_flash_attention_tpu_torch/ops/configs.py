@@ -94,6 +94,19 @@ FLASH_FWD_F32 = TileConfig(block_m=128, block_n=64, threads=256)
 # is about the 128 instance's 128 x 130, so FLASH_FWD_F32_MAX_SLOTS keeps
 # the workspace under 70 MB at either width.
 FLASH_FWD_F32_WIDE = TileConfig(block_m=64, block_n=32, threads=256)
+# The f32 instance of width 512 (f32 q over f32 K/V at head dims in (256,
+# 512], padded to 512): a 64-row q tile is 128 KiB of f32 there and two
+# stages of 32-row K and V 256 KiB, and O over 64 rows would be 128
+# registers a thread. So its q tiles are 32 rows and its kv tiles 32, K
+# and V in one buffer each, released apart: K of tile t + 1 is copied
+# while the softmax and the PV product of tile t run, V of tile t + 1
+# while the S product of tile t + 1 runs (q 64 KiB, K 64 KiB, V 64 KiB,
+# P^T 4 KiB, the ids: 200,832 bytes). Its 256 threads map 8 x 32 over
+# the tile: S at 4 rows x 1 column a thread, O at 4 rows x 16 columns (64
+# registers, as the other instances), a row's max and sum over one warp.
+# A merge slot is 32 x 514 floats, so FLASH_FWD_F32_MAX_SLOTS slots hold
+# 69.4 MB; its runs start from as many kv columns as `f32_split`'s.
+FLASH_FWD_F32_512 = TileConfig(block_m=32, block_n=32, threads=256)
 FLASH_FWD_F32_SPLIT_BELOW = 264
 FLASH_FWD_F32_MAX_SLOTS = 1056
 # Shared memory one block may use on the H100 (227 KB).
@@ -128,6 +141,9 @@ def fwd_smem_bytes(cfg: TileConfig, head_dim: int,
         # kv ids and, quantized, the k and v scales
         return ((m * d + 4 * n * d + n * m) * 4
                 + 2 * (3 if quantized else 1) * n * 4)
+    if cfg is FLASH_FWD_F32_512 and not quantized:
+        # q, one buffer of K and one of V, P^T, the kv ids (one stage)
+        return (m * d + 2 * n * d + n * m + n) * 4
     raise ValueError(f"{cfg} is not a forward config "
                      f"({'quantized' if quantized else 'unquantized'} K/V)")
 
@@ -406,6 +422,7 @@ def nvcc_defines() -> list[str]:
         f"-DTFA_FWD_BF16_512_STAGES={FLASH_FWD_BF16_512_STAGES}",
         *_tile_defines("TFA_FWD_F32", FLASH_FWD_F32),
         *_tile_defines("TFA_FWD_F32_WIDE", FLASH_FWD_F32_WIDE),
+        *_tile_defines("TFA_FWD_F32_512", FLASH_FWD_F32_512),
         *_tile_defines("TFA_BWD_BF16", FLASH_BWD_BF16),
         *_tile_defines("TFA_BWD_BF16_WIDE", FLASH_BWD_BF16_WIDE),
         *_tile_defines("TFA_BWD_BF16_512", FLASH_BWD_BF16_512),

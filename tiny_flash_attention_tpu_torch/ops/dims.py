@@ -6,7 +6,7 @@ pad head_dim to whole 128-lane tiles with zero columns
 its decodes pad the q rows of a kv head to a multiple of 8
 (ops/paged_fused.py:503-506, ops/paged.py:287), and each slices the result
 back. The port's kernels compile a few instances (the flash kernels' tiles
-of 64, 128 and 256 columns: the forward over K/V in q's dtype and over
+of 64, 128, 256 and 512 columns: the forward over K/V in q's dtype and over
 int8/e4m3 K/V, the backward and FA1, each in bf16 and f32; the decodes
 groups 1, 2, 4 and 8), so the wrappers do the same with these plain
 functions where a kernel cannot read the true shape in place:
@@ -18,10 +18,11 @@ functions where a kernel cannot read the true shape in place:
   epilogues store only the columns below d, so they are handed the tensors
   as they are. Every other head_dim (not a multiple of 8: a tensor map's
   row stride is whole 16-byte pieces) is padded to `kernel_head_dim` up to
-  256 and to 512 above, and so is every head_dim of the f32 forward and
-  backward, of the quantized forward (int8/e4m3 K/V, bf16 and f32 q) and
-  of FA1 (bf16 and f32): to 64, 128 or 256. Above 256 f32, the quantized
-  forward and FA1 raise, each naming its own ROADMAP queue (B-dims-2a-f32,
+  256 and to 512 above, and so is every head_dim of the f32 forward (to
+  64, 128, 256 or 512), of the f32 backward, of the quantized forward
+  (int8/e4m3 K/V, bf16 and f32 q) and of FA1 (bf16 and f32): to 64, 128
+  or 256. Above 256 the f32 backward, the quantized forward and FA1
+  raise, each naming its own ROADMAP queue (B-dims-2a-f32-train,
   B-dims-2a-quant-v1), and above 512 every entry raises (B-dims-2a-512+).
 - `kernel_head_dim` / `pad_head_dim` / `unpad_head_dim`: zero columns up to
   the next tile width, 64 below it, 128 up to it, 256 above (the wide
@@ -40,7 +41,7 @@ functions where a kernel cannot read the true shape in place:
   is 4 above head_dim 128 and 2 above 256).
 - `decode_head_dim` / `decode_compiled` / `decode_width`: the decodes and
   the append read pages in place (the pages are the cache: never padded)
-  at every head_dim in [1, 512] (the decodes with f32 q up to 256). 64, 80,
+  at every head_dim in [1, 512], with q in bf16 or f32. 64, 80,
   96, 128, 256 and 512 have instances of their own (the decodes' at page
   size 16 or a multiple of 32, whose chunks' rows of one page are whole
   bulk copies); every other head_dim and page size runs on the run-time
@@ -76,10 +77,10 @@ DECODE_GROUPS = (1, 2, 4, 8)
 # instance spilled 20-25 KB a thread (compiled width) and 1.7 KB (run-time
 # width, int8 pages), G = 2 none (PERF.md)
 DECODE_TOP_512 = 2
-# ROADMAP.md's queues of what still raises: head dims in (256, 512] in f32
-# (B1, the backward, the decodes) and in the quantized forward and FA1;
-# every head_dim above 512
-QUEUE_F32 = "B-dims-2a-f32"
+# ROADMAP.md's queues of what still raises: head dims in (256, 512] in the
+# f32 backward and in the quantized forward and FA1; every head_dim above
+# 512
+QUEUE_F32_TRAIN = "B-dims-2a-f32-train"
 QUEUE_QUANT_V1 = "B-dims-2a-quant-v1"
 QUEUE_ABOVE_512 = "B-dims-2a-512+"
 
@@ -130,24 +131,26 @@ def flash_width(d: int, narrow: bool) -> int:
 
 
 def flash_head_dim(d: int, dtype: torch.dtype, what: str, *,
-                   quantized: bool = False) -> int:
-    """The head_dim a flash forward or backward kernel is handed for
-    tensors of head_dim d: d itself where it reads them in place (bf16,
-    over bf16 K/V in the forward, `reads_in_place`: up to 512), else the
-    width they are padded to (d not a multiple of 8: `kernel_head_dim(d)`,
-    512 above 256; f32 and quantized K/V, 64, 128 or 256). Raises
+                   quantized: bool = False, backward: bool = False) -> int:
+    """The head_dim a flash forward (or, with `backward`, backward) kernel
+    is handed for tensors of head_dim d: d itself where it reads them in
+    place (bf16, over bf16 K/V in the forward, `reads_in_place`: up to
+    512), else the width they are padded to (d not a multiple of 8:
+    `kernel_head_dim(d)`, 512 above 256; the f32 forward 64, 128, 256 or
+    512; the f32 backward and quantized K/V 64, 128 or 256). Raises
     NotImplementedError where no kernel takes d, naming `what` and the
-    ROADMAP queue: above 256 f32 (QUEUE_F32) and quantized K/V
-    (QUEUE_QUANT_V1); above 512 everything."""
+    ROADMAP queue: above 256 the f32 backward (QUEUE_F32_TRAIN) and
+    quantized K/V (QUEUE_QUANT_V1); above 512 everything."""
     if quantized:
         return kernel_head_dim(d, f"{what} over int8/e4m3 K/V", wide=True,
                                queue=QUEUE_QUANT_V1)
     if dtype != torch.bfloat16:
-        return kernel_head_dim(d, f"{what} in {str(dtype).split('.')[-1]}",
-                               wide=True, queue=QUEUE_F32)
+        what = f"{what} in {str(dtype).split('.')[-1]}"
+        if backward or d <= WIDE_HEAD_DIM:
+            return kernel_head_dim(d, what, wide=True, queue=QUEUE_F32_TRAIN)
     if d > WIDER_HEAD_DIM:
         raise _refuse(d, what, WIDER_HEAD_DIM, QUEUE_ABOVE_512)
-    if reads_in_place(d):
+    if dtype == torch.bfloat16 and reads_in_place(d):
         return d
     return kernel_head_dim(d, what, wide=True) if d <= WIDE_HEAD_DIM \
         else WIDER_HEAD_DIM
@@ -179,11 +182,12 @@ def decode_head_dim(d: int, what: str) -> None:
     """Raises NotImplementedError where the decode and append kernels take
     no head_dim d (their pages are read in place, so they are never
     padded): above 512 (ROADMAP queue B-dims-2a-512+). The append takes
-    every page format to 512, the decodes q in bf16 to 512 and in f32 to
-    256 (`decode_q_head_dim`): f32 pages at widths above 128, whose
-    32-token stage is 64 KiB a warp, run on blocks of fewer warps
-    (ops/configs.py::PAGED_DECODE_F32_WIDE_WARPS), and so do bf16 and int8
-    pages above 256 (PAGED_DECODE_512_WARPS)."""
+    every page format to 512, the decodes q in bf16 and f32 to 512
+    (`decode_q_head_dim`): f32 pages at widths above 128, whose 32-token
+    stage is 64 KiB a warp, run on blocks of fewer warps
+    (ops/configs.py::PAGED_DECODE_F32_WIDE_WARPS), and so do every page
+    format above 256 (PAGED_DECODE_512_WARPS; f32 pages there in 16-token
+    chunks, a 32-token stage being 128 KiB a warp)."""
     if not 0 < d <= WIDER_HEAD_DIM:
         raise _refuse(d, what, WIDER_HEAD_DIM, QUEUE_ABOVE_512,
                       " (the pages are read in place, never padded)")
@@ -191,13 +195,10 @@ def decode_head_dim(d: int, what: str) -> None:
 
 def decode_q_head_dim(d: int, dtype: torch.dtype) -> None:
     """`decode_head_dim` for the decodes with q of `dtype`, which pick
-    their source by it: above 256 only bf16 q has instances (those of
-    width 512); f32 q raises there, naming queue B-dims-2a-f32."""
-    decode_head_dim(d, "the CUDA decode kernel")
-    if dtype != torch.bfloat16 and d > WIDE_HEAD_DIM:
-        raise _refuse(d, f"the CUDA decode kernel with "
-                      f"{str(dtype).split('.')[-1]} q", WIDE_HEAD_DIM,
-                      QUEUE_F32)
+    their source by it: bf16 and f32 q each have instances up to 512
+    (above 256, those of width 512)."""
+    decode_head_dim(d, f"the CUDA decode kernel with "
+                    f"{str(dtype).split('.')[-1]} q")
 
 
 def decode_compiled(d: int, page_size: int) -> bool:

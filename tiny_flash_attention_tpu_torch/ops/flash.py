@@ -7,17 +7,17 @@ csrc/flash_fwd.cu, ports all three (bf16: wgmma and TMA over 128-row tiles,
 64-row kv tiles at the wide instance, head dims above 128, and 64-row q and
 32-row kv tiles at the instance of width 512, head dims above 256; f32: the
 CUDA cores over 128-row q and 64-row kv tiles, 64 and 32 at the wide
-instance). A CPU tensor takes the plain version (`flash_attention_plain`,
-the port of `_xla_attention`); a CUDA tensor takes the kernel at every
-shape, the sliding window, segment ids and `segment_starts` included, or
-raises for what the kernel does not do yet (head_dim above 512 in bf16 over
-bf16 K/V, above 256 in f32 or over quantized K/V). The bf16 kernel over
-bf16 K/V reads and writes any head_dim that is a multiple of 8 up to 512 at
-its true width (the zero columns of JAX's padding to 128 lanes, which add
-exact zeros, are TMA's fill past column d); every other head_dim, and
-every head_dim of the f32 instances and the quantized ones (tiles of 64,
-128 and 256 columns), is padded with zero columns to the next tile width
-(512 above 256 in bf16) and the output sliced back
+instance, 32 and 32 at the instance of width 512). A CPU tensor takes the
+plain version (`flash_attention_plain`, the port of `_xla_attention`); a
+CUDA tensor takes the kernel at every shape, the sliding window, segment
+ids and `segment_starts` included, or raises for what the kernel does not
+do yet (head_dim above 512, above 256 over quantized K/V). The bf16 kernel
+over bf16 K/V reads and writes any head_dim that is a multiple of 8 up to
+512 at its true width (the zero columns of JAX's padding to 128 lanes,
+which add exact zeros, are TMA's fill past column d); every other
+head_dim, and every head_dim of the f32 instances (tiles of 64, 128, 256
+and 512 columns) and the quantized ones (64, 128 and 256), is padded with
+zero columns to the next tile width and the output sliced back
 (ops/dims.py::flash_head_dim). The autograd Function saves the tensors it
 handed the kernel (padded only where the forward padded), so the backward
 runs on them and returns gradients at the true head_dim. The f32 instance
@@ -36,7 +36,8 @@ range at its band, as JAX's work list holds only band tiles.
 The entry is differentiable: `_FlashAttention` is the port of the JAX
 custom_vjp (`_flash` and its two rules, flash.py:555-609), window, segment
 ids and `segment_starts` included (on CUDA in bf16 up to head_dim 512, in
-f32 up to 256: above, its backward() raises, naming the ROADMAP queue).
+f32 up to 256: above, its backward() raises, naming the ROADMAP queue and
+the true head_dim).
 Its backward is ops/flash_bwd.py::flash_attention_bwd, the kernels of
 csrc/flash_bwd.cu on CUDA and their plain version on the CPU. `return_lse=True` stays off it, as
 in JAX: on CUDA a gradient through it raises (`forward_only`).
@@ -60,8 +61,8 @@ from tiny_flash_attention_tpu_torch import _build
 from tiny_flash_attention_tpu_torch.ops import configs
 from tiny_flash_attention_tpu_torch.ops.configs import (
     FLASH_FWD_BF16, FLASH_FWD_BF16_512, FLASH_FWD_BF16_WIDE, FLASH_FWD_F32,
-    FLASH_FWD_F32_WIDE, FlashConfig, TileConfig, fwd_smem_bytes,
-    resolve_config)
+    FLASH_FWD_F32_512, FLASH_FWD_F32_WIDE, FlashConfig, TileConfig,
+    fwd_smem_bytes, resolve_config)
 from tiny_flash_attention_tpu_torch.ops.dims import (
     FLASH_HEAD_DIMS, WIDE_HEAD_DIM, WIDER_HEAD_DIM, flash_head_dim,
     pad_head_dim, unpad_head_dim)
@@ -121,9 +122,12 @@ def fwd_config(dtype: torch.dtype, quantized: bool = False,
     quantized (int8/e4m3) K/V at head_dim (each q dtype's design takes
     both; `quantized` changes no tile): above 128, the wide instance's
     (bf16: 64-row kv tiles; f32: 64-row q and 32-row kv tiles); above 256,
-    bf16's instance of width 512 (64-row q and 32-row kv tiles)."""
+    the instance of width 512 (bf16: 64-row q and 32-row kv tiles; f32,
+    over f32 K/V only: 32 and 32)."""
     wide = head_dim > FLASH_HEAD_DIMS[-1]
     if dtype != torch.bfloat16:
+        if head_dim > WIDE_HEAD_DIM:
+            return FLASH_FWD_F32_512
         return FLASH_FWD_F32_WIDE if wide else FLASH_FWD_F32
     if head_dim > WIDE_HEAD_DIM:
         return FLASH_FWD_BF16_512
@@ -198,8 +202,9 @@ def fwd_f32_tiles(q_len: int, kv_len: int, *, causal: bool,
                   window: Optional[int] = None, starts=None,
                   cfg: TileConfig = FLASH_FWD_F32):
     """The f32 forward's tile table, (3, n) int64 (lo, hi, order): the kv
-    tiles [lo, hi) of each q tile of `cfg` (FLASH_FWD_F32, or
-    FLASH_FWD_F32_WIDE above head_dim 128), clamped as the kernels clamp
+    tiles [lo, hi) of each q tile of `cfg` (FLASH_FWD_F32,
+    FLASH_FWD_F32_WIDE above head_dim 128, FLASH_FWD_F32_512 above 256),
+    clamped as the kernels clamp
     them: causal up to the tile of its last row's position (the
     decode offset; at least one tile, so rows before every column get the
     sentinel), from the tile of its first row's segment start
@@ -431,6 +436,11 @@ class _FlashAttention(torch.autograd.Function):
         from tiny_flash_attention_tpu_torch.ops.flash_bwd import (
             flash_attention_bwd)
         q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            # what the backward kernels refuse, named at the true head_dim
+            # (the saved tensors may be padded)
+            flash_head_dim(ctx.d, q.dtype, "the CUDA backward kernels",
+                           backward=True)
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, pad_head_dim(do, q.shape[-1]),
             causal=ctx.causal, sm_scale=ctx.sm_scale,
@@ -608,14 +618,13 @@ def check_smem_layouts(lib: ctypes.CDLL, quantized: bool) -> None:
     """Holds `fwd_smem_bytes` to the shared memory the library's instances
     take (`tfa_flash_fwd_smem` / `tfa_flash_fwd_quant_smem`, from the
     kernels' own layouts) for both dtypes and every tile width, the wide
-    one included, and bf16's over bf16 K/V at 512; raises where they
+    one included, and over K/V of q's dtype at 512; raises where they
     differ."""
     smem = (lib.tfa_flash_fwd_quant_smem if quantized
             else lib.tfa_flash_fwd_smem)
     smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     for dtype, code in _KERNEL_DTYPES.items():
-        wider = (WIDER_HEAD_DIM,) if dtype == torch.bfloat16 \
-            and not quantized else ()
+        wider = () if quantized else (WIDER_HEAD_DIM,)
         for d in (*FLASH_HEAD_DIMS, WIDE_HEAD_DIM, *wider):
             cfg = fwd_config(dtype, quantized, d)
             want = fwd_smem_bytes(cfg, d, quantized)
@@ -673,10 +682,11 @@ def fwd_workspace(device, stream: int, n_slots: int, n_bh: int,
                   block_m: int = FLASH_FWD_F32.block_m):
     """(partials f32, arrival counters int32 zeros) of the f32 forward's
     merge: n_slots x n_bh slots of block_m x (d + 2) floats (the q tiles'
-    rows: 128, 64 at head_dim 256), one counter per (q tile, q head,
-    batch). One workspace per device and stream, grown to the largest
-    launch and kept (at most FLASH_FWD_F32_MAX_SLOTS slots,
-    `fwd_f32_split`; under 70 MB at either width): the kernel leaves the
+    rows: 128, 64 at head_dim 256, 32 at 512), one counter per (q tile, q
+    head, batch). One workspace per device and stream, grown to the
+    largest launch and kept (at most FLASH_FWD_F32_MAX_SLOTS slots,
+    `fwd_f32_split`; under 70 MB at every width, 69.4 MB at 512): the
+    kernel leaves the
     counters at zero, so a call allocates nothing. Launches on one stream
     run in order, so they share it; another stream gets its own. `stream`
     is the launch's CUDA stream handle."""
@@ -719,8 +729,8 @@ def launch_fwd(q, k, v, *, causal: bool, sm_scale: float, q_seg=None,
     of one format and the quantized instances (csrc/flash_fwd_quant.cu)
     run, every mask but the jagged mode included. bf16 over bf16 K/V reads
     and writes any head_dim that is a multiple of 8 up to 512 in place;
-    any other head_dim runs padded (ops/dims.py::flash_head_dim: bf16 to
-    64, 128, 256 or 512, f32 and quantized K/V to 64, 128 or 256) and out
+    any other head_dim runs padded (ops/dims.py::flash_head_dim: bf16 and
+    f32 to 64, 128, 256 or 512, quantized K/V to 64, 128 or 256) and out
     comes back at the true head_dim."""
     bs, hq, q_len, d = q.shape
     _, hkv, kv_len, _ = k.shape

@@ -12,8 +12,8 @@ and a postprocess that sums the slots). Both take the masks of JAX's
 `flash_attention_bwd`: the sliding window, segment ids and static
 `segment_starts`. A CPU tensor takes the plain version; a CUDA tensor
 takes the kernels or raises for what they do not do (quantized K/V;
-head_dim above 256 in f32, ROADMAP queue B-dims-2a-f32; above 512,
-B-dims-2a-512+). The bf16 kernels read q, k, v, out and do and write dq,
+head_dim above 256 in f32, ROADMAP queue B-dims-2a-f32-train, though the
+f32 forward takes head dims to 512; above 512, B-dims-2a-512+). The bf16 kernels read q, k, v, out and do and write dq,
 dk and dv at any head_dim that is a multiple of 8 up to 512 in place
 (JAX pads its backward to 128 lanes; the kernels' tiles take TMA's zeros
 past the true head_dim instead; above 128 the wide main kernel, over
@@ -433,7 +433,8 @@ def _check_inputs(q, k, v, out, lse, do) -> None:
             f"the CUDA backward kernels take bf16 or f32 tensors of one "
             f"dtype (quantized K/V have no backward, as in JAX), got "
             f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, {do.dtype}")
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
+                        backward=True)
     if dk != d:
         raise NotImplementedError(
             f"head_dim {d}: the CUDA {str(q.dtype).split('.')[-1]} backward "
@@ -556,7 +557,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, **kw):
     (ops/dims.py::flash_head_dim); returns (dq, dk, dv) at the true
     head_dim."""
     d = q.shape[-1]
-    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels")
+    dk = flash_head_dim(d, q.dtype, "the CUDA backward kernels",
+                        backward=True)
     q, k, v, out, do = (pad_head_dim(t, dk) for t in (q, k, v, out, do))
     call = BwdLaunch(q, k, v, out, lse, do, **kw)
     call.run()

@@ -10,9 +10,10 @@ the fused decode's arithmetic over these arrays); a CUDA tensor launches
 csrc/paged_decode_separate.cu, the split decode kernel of
 csrc/paged_decode.cuh over this layout (csrc/paged_decode_separate_widths.cu
 at a head_dim or page size without an instance of its own,
-ops/dims.py::decode_width; csrc/paged_decode_separate_wide.cu above 256,
-bf16 q only), or raises. It takes every head_dim up to 512 (f32 q up to
-256), every page size the JAX package takes (any for pages of q's dtype, a
+ops/dims.py::decode_width; above 256 csrc/paged_decode_separate_wide.cu
+for bf16 q and paged_decode_separate_f32_wide.cu for f32 q), or raises. It
+takes every head_dim up to 512 with q in bf16 or f32, every page size the
+JAX package takes (any for pages of q's dtype, a
 multiple of 128 for int8 pages) and any GQA group, the q rows padded as in
 ops/paged_fused.py.
 
@@ -136,11 +137,12 @@ def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
 
 def _decode_source(d: int, page_size: int, dtype: torch.dtype) -> str:
     """The source of the instances that read head_dim d at page_size for q
-    of `dtype` (above 256, those of width 512, compiled and run-time
-    alike, bf16 q only: others raise, ops/dims.py::decode_q_head_dim)."""
+    of `dtype` (above 256, those of width 512 of q's dtype, compiled and
+    run-time alike; above 512 it raises, ops/dims.py::decode_q_head_dim)."""
     decode_q_head_dim(d, dtype)
     if d > WIDE_HEAD_DIM:
-        return "paged_decode_separate_wide"
+        return ("paged_decode_separate_wide" if dtype == torch.bfloat16
+                else "paged_decode_separate_f32_wide")
     return ("paged_decode_separate" if decode_compiled(d, page_size)
             else "paged_decode_separate_widths")
 

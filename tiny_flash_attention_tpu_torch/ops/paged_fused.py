@@ -18,14 +18,14 @@ the plain version, a CUDA tensor launches csrc/paged_decode.cu or, for
 f32 q, csrc/paged_decode_f32.cu (ports `_fused_decode_kernel`, its
 sliding-window ring mode included; at a head_dim or page size those do
 not compile, csrc/paged_decode_widths.cu / paged_decode_widths_f32.cu; at
-head dims in (256, 512], bf16 q only, csrc/paged_decode_wide.cu) or
-csrc/page_append.cu (ports `_append_kernel`) or raises.
+head dims in (256, 512], csrc/paged_decode_wide.cu / paged_decode_f32_wide.cu)
+or csrc/page_append.cu (ports `_append_kernel`) or raises.
 
 The decode kernel splits each sequence's tokens over several blocks
 (page-aligned ranges of the table, `decode_splits`) and merges their
 partial softmax states in split order; `fused_paged_decode_plain(...,
 splits=k)` computes the same partials and merge. Both kernels read rows of
-any head_dim up to 512 (the decode with f32 q up to 256) in place (pages
+any head_dim up to 512 (the decode with q in bf16 or f32) in place (pages
 are never padded) at every page size the JAX package takes
 (`kernel_page_size`); 64, 80, 96, 128, 256 and 512 at page size 16 or a
 multiple of 32 on instances of their own, every other on the run-time
@@ -546,17 +546,20 @@ DECODE_WIDTH_ENTRIES = {
     torch.bfloat16: ("paged_decode_widths", "tfa_paged_decode_widths"),
     torch.float32: ("paged_decode_widths_f32",
                     "tfa_paged_decode_widths_f32")}
-DECODE_WIDE_ENTRY = ("paged_decode_wide", "tfa_paged_decode_wide")
+DECODE_WIDE_ENTRIES = {
+    torch.bfloat16: ("paged_decode_wide", "tfa_paged_decode_wide"),
+    torch.float32: ("paged_decode_f32_wide", "tfa_paged_decode_f32_wide")}
 
 
 def decode_entry(dtype: torch.dtype, d: int, page_size: int):
     """(source, entry) of the fused decode's instances that read head_dim d
     at page_size for q of `dtype` (ops/dims.py::decode_compiled; above
-    head_dim 256 the source of width 512, bf16 q only: others raise,
+    head_dim 256 the source of width 512 of q's dtype, compiled and
+    run-time widths alike; above 512 it raises,
     ops/dims.py::decode_q_head_dim)."""
     decode_q_head_dim(d, dtype)
     if d > WIDE_HEAD_DIM:
-        return DECODE_WIDE_ENTRY
+        return DECODE_WIDE_ENTRIES[dtype]
     entries = (DECODE_ENTRIES if decode_compiled(d, page_size)
                else DECODE_WIDTH_ENTRIES)
     return entries[dtype]
